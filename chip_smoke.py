@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nsol_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, drives the main path — 3-D
-TV-L2 deconvolution of the 64³ Shepp–Logan stand-in by ADMM (50 outer ×
-10 CG iterations, α 0.01, ρ 0.5, σ = 1 wrap blur) through the library and
-through the CLI — checks the converged objective against its anchor,
-measures the scale solve at 256³, and times kernels and solves with CUDA
-events. Any failed phase raises, so the script exits non-zero and prints
+against its plain PyTorch version on the card, and drives the port's two
+paths through the library and the CLI, checking each converged objective
+against its float64 anchor and timing kernels and solves with CUDA events:
+
+* phases 1-6, deconvolution: 3-D TV-L2 of the 64³ Shepp–Logan stand-in by
+  ADMM (50 outer × 10 CG iterations, α 0.01, ρ 0.5, σ = 1 wrap blur), the
+  scale solve at 256³, and ``run_deconvolution``;
+* phases 7-11, primal-dual denoising: the PD units against their plain
+  versions (all 4 types × 3 schedules, 2-D and 3-D), Lena 256² TVL2
+  (α 0.03, 50 iterations, L2 8) and all 12 pairs, the L-curve sweep over
+  64 alphas of Man 1024² with in-kernel records, the noisy 64³ phantom and
+  a 256³ solve, and ``run_denoising`` on a PNG and a NIfTI volume.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after. Any failed phase raises, so the script exits non-zero and prints
 no result line. It imports neither jax nor nsol_tpu, and needs the
 checkout's ``nsol_tpu_torch`` beside it.
 
@@ -41,6 +50,24 @@ SOLVE_OBJ_TOL, SOLVE_VOX_TOL = 1e-4, 1e-3
 #: 256³ objective of the same synthetic solve in the JAX package's suite
 #: (benchmarks/suite.py), printed for information only
 SCALE_OBJECTIVE_JAX = 20868.3
+
+#: primal-dual denoising: the CLI's L2 (8, even in 3-D), α, and the
+#: float64 objectives of the same solves (JAX package, x64 on the CPU,
+#: ``primal_dual_solve`` with the CLI's prox wiring; ``pd_objective``)
+PD_L2, PD_ALPHA = 8.0, 0.03
+PD_TYPES = ("TVL1", "TVL2", "HuberL1", "HuberL2")
+PD_ALGS = ("ALG2", "ALG2_AHMOD", "ALG3")
+LENA_ANCHOR = 309.139137
+#: Man 1024² sweep, α = np.linspace(0.01, 1.5, 64, dtype=float32)[i]
+MAN_ANCHORS = {0: 61.172580, 40: 4176.069305, 63: 6432.609120}
+#: 64³ phantom + N(0, 0.05·max) noise (RandomState(0)), then /max
+PHANTOM_ANCHORS = {("TVL2", "ALG2"): 933.133503,
+                   ("TVL1", "ALG2"): 1141.800845,
+                   ("HuberL2", "ALG3"): 893.701885}
+PD_ANCHOR_BAND = 1e-5
+PD_OBJ_TOL = 1e-6
+PD_SPACING = (1.25, 0.8, 2.0)
+PD_UNIT_ALPHAS = (0.05, 0.3, 1.2)
 
 
 class PhaseFailure(RuntimeError):
@@ -203,6 +230,327 @@ def kernel_times(B, F, st, shape, device, rng, reps):
             for k, (kf, pf) in calls.items()}
 
 
+# ----------------------------------------------------- phases 7-11 (PD) --
+
+def pd_objective(x, b, alpha, ell1):
+    """``Σ|x−b|`` (L1 types) or ``Σ(x−b)²`` plus ``α·Σ‖∇x‖₂`` in float64
+    on the tensors' device: isotropic TV with zero-padded forward
+    differences and unit spacing (the study's ``Data + α·Reg`` for TV
+    types, benchmarks/suite.py:532)."""
+    import torch
+
+    from nsol_tpu_torch.ops import grad as G
+
+    x64, b64 = x.double(), b.double()
+    d = x64 - b64
+    data = torch.sum(d.abs()) if ell1 else torch.sum(d * d)
+    g = G.gradient(x64)
+    return float(data + alpha * torch.sum(torch.sqrt(torch.sum(g * g, 0))))
+
+
+def pd_unit_cases(F, interop, shape, device, rng, rtype, alg):
+    """Every PD unit and its plain version on the same random inputs (a
+    batch of 3 alphas, anisotropic spacing); {unit: (max |Δ| / max |ref|,
+    max |Δ|)} over x, x̄, p and the records."""
+    import torch
+
+    nd = len(shape)
+    ell1, huber = rtype.endswith("L1"), rtype.startswith("Huber")
+    inv_h = tuple(float(np.float32(1.0 / h)) for h in PD_SPACING[:nd])
+    rows = [F._pd_schedules(a, PD_L2, 4, alg) for a in PD_UNIT_ALPHAS]
+    sched = interop.pd_schedules(*(np.stack(c) for c in zip(*rows)), device)
+    nb = len(PD_UNIT_ALPHAS)
+
+    def rand(*shp, lo=0.0):
+        return torch.as_tensor(rng.rand(*shp).astype(np.float32) + lo,
+                               device=device)
+
+    x, xm, b = rand(nb, *shape), rand(nb, *shape), rand(*shape)
+    p = rand(nb, nd, *shape, lo=-0.5)
+    out = {}
+
+    def record(name, pairs):
+        rel = max(max_rel(g, r) for g, r in pairs)
+        ab = max(float((g - r).abs().max()) for g, r in pairs)
+        out[name] = (rel, ab)
+
+    pk, pp = p.clone(), p.clone()
+    F.pd_dual(xm, pk, sched, 2, inv_h, huber)
+    F.pd_dual_plain(xm, pp, sched, 2, inv_h, huber)
+    record("pd_dual", [(pk, pp)])
+    xk, mk, xp, mp = x.clone(), xm.clone(), x.clone(), xm.clone()
+    F.pd_primal(xk, mk, p, b, sched, 1, inv_h, ell1)
+    F.pd_primal_plain(xp, mp, p, b, sched, 1, inv_h, ell1)
+    record("pd_primal", [(xk, xp), (mk, mp)])
+    rk = [torch.zeros(nb, 5, dtype=torch.float64, device=device)
+          for _ in range(4)]
+    F.pd_record(x, b, rk[0], rk[1], 3, inv_h, ell1, huber, 0.1)
+    F.pd_record_plain(x, b, rk[2], rk[3], 3, inv_h, ell1, huber, 0.1)
+    record("pd_record", [(rk[0], rk[2]), (rk[1], rk[3])])
+    return out
+
+
+def pd_unit_times(F, interop, shape, nb, device, reps):
+    """(kernel ms, plain ms) per call of each PD unit on a batch of ``nb``
+    images of ``shape`` (TVL2 ALG2)."""
+    import torch
+
+    rng = np.random.RandomState(2)
+    nd = len(shape)
+    inv_h = (1.0,) * nd
+    alphas = np.linspace(0.01, 1.5, nb, dtype=np.float32)
+    rows = [F._pd_schedules(a, PD_L2, ITERATIONS, "ALG2") for a in alphas]
+    sched = interop.pd_schedules(*(np.stack(c) for c in zip(*rows)), device)
+
+    def rand(*shp):
+        return torch.as_tensor(rng.rand(*shp).astype(np.float32),
+                               device=device)
+
+    x, xm, b, p = rand(nb, *shape), rand(nb, *shape), rand(*shape), \
+        rand(nb, nd, *shape)
+    reg = torch.zeros(nb, ITERATIONS + 1, dtype=torch.float64, device=device)
+    data = torch.zeros_like(reg)
+    calls = {
+        "pd_dual": (lambda: F.pd_dual(xm, p, sched, 1, inv_h),
+                    lambda: F.pd_dual_plain(xm, p, sched, 1, inv_h)),
+        "pd_primal": (
+            lambda: F.pd_primal(x, xm, p, b, sched, 1, inv_h),
+            lambda: F.pd_primal_plain(x, xm, p, b, sched, 1, inv_h)),
+        "pd_record": (
+            lambda: F.pd_record(x, b, reg, data, 1, inv_h),
+            lambda: F.pd_record_plain(x, b, reg, data, 1, inv_h)),
+    }
+    return {k: (cuda_ms(kf, reps), cuda_ms(pf, max(2, reps // 4)))
+            for k, (kf, pf) in calls.items()}
+
+
+def pd_check_pair(solve, b, alpha, rtype, where, obj_tol=None, vox_tol=None):
+    """Kernel vs plain on the card for one solve: (objective, objective
+    rel, voxel rel), gated at ``obj_tol`` and ``vox_tol``."""
+    obj_tol = PD_OBJ_TOL if obj_tol is None else obj_tol
+    vox_tol = KERNEL_TOL if vox_tol is None else vox_tol
+    x_k = solve(b, b, alpha, PD_L2)
+    x_p = solve.plain(b, b, alpha, PD_L2)
+    ell1 = rtype.endswith("L1")
+    obj_k = pd_objective(x_k, b, alpha, ell1)
+    obj_p = pd_objective(x_p, b, alpha, ell1)
+    rel = abs(obj_k - obj_p) / abs(obj_p)
+    vox = float((x_k - x_p).abs().max() / x_k.abs().max())
+    require(bool(x_k.isfinite().all()) and x_k.shape == b.shape,
+            "%s: %s result not finite or misshapen" % (where, rtype))
+    require(rel <= obj_tol and vox <= vox_tol,
+            "%s: %s kernel vs plain objective rel %.3g voxel %.3g"
+            % (where, rtype, rel, vox))
+    return obj_k, rel, vox
+
+
+def run_pd_phases(device, card):
+    """Phases 7-11: the primal-dual denoising slice. Returns the launch
+    counts of the sweep's path, each unit's max |Δ| against its plain
+    version at 1024² and its (kernel ms, plain ms) per call at the sweep's
+    shape."""
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import run_denoising
+    from nsol_tpu_torch.io import DataReader, read_nifti, read_png, \
+        write_nifti
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    def tensor(a):
+        return interop.to_torch(np.asarray(a, np.float32), device)
+
+    # phase 7: PD units vs plain on the card
+    rng = np.random.RandomState(7)
+    err = {k: 0.0 for k in F.PD_UNITS}
+    for shape in ((37, 53), (1024, 1024), (37, 45, 53), (5, 40, 33)):
+        worst = {k: 0.0 for k in F.PD_UNITS}
+        for rtype in PD_TYPES:
+            for alg in PD_ALGS:
+                res = pd_unit_cases(F, interop, shape, device, rng, rtype,
+                                    alg)
+                torch.cuda.synchronize()
+                for k, (rel, ab) in res.items():
+                    require(rel <= KERNEL_TOL, "phase 7: %s %s %s %s rel "
+                            "%.3g > %g" % (k, rtype, alg, shape, rel,
+                                           KERNEL_TOL))
+                    worst[k] = max(worst[k], rel)
+                    if shape == (1024, 1024):
+                        err[k] = max(err[k], ab)
+        print("phase 7 PD units %s (12 type x schedule pairs, B=3, "
+              "anisotropic): %s" % ("x".join(map(str, shape)), ", ".join(
+                  "%s %.2e" % kv for kv in worst.items())))
+
+    # phase 8: denoising main path, 2-D (Lena 256², TVL2 ALG2)
+    lena = read_png(data.path("2D_Lena_256_noise.png")).astype(np.float64)
+    b = tensor(lena / lena.max())
+    solve = F.make_fused_pd_denoise_solver(b.shape, "TVL2", "ALG2",
+                                           ITERATIONS)
+    solve(b, b, PD_ALPHA, PD_L2)  # warm-up (schedules, allocator)
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x_k = solve(b, b, PD_ALPHA, PD_L2)
+    torch.cuda.synchronize()
+    launches, plain_calls = F.launch_counts(F.PD_UNITS), F.plain_counts()
+    require(launches["pd_dual"] > 0 and launches["pd_primal"] > 0,
+            "phase 8: a kernel was not launched: %s" % launches)
+    require(all(n == 0 for n in plain_calls.values()),
+            "phase 8: a plain version ran: %s" % plain_calls)
+    obj = pd_objective(x_k, b, PD_ALPHA, False)
+    dev = abs(obj - LENA_ANCHOR) / LENA_ANCHOR
+    require(dev <= PD_ANCHOR_BAND, "phase 8: objective %.6f deviates %.3g "
+            "from %.6f" % (obj, dev, LENA_ANCHOR))
+    _, rel, vox = pd_check_pair(solve, b, PD_ALPHA, "TVL2", "phase 8")
+    ms_k = cuda_ms(lambda: solve(b, b, PD_ALPHA, PD_L2), reps=20, warmup=2)
+    ms_p = cuda_ms(lambda: solve.plain(b, b, PD_ALPHA, PD_L2), reps=10)
+    print("phase 8 main path Lena 256^2 TVL2/ALG2: objective %.6f (anchor "
+          "%.6f, rel dev %.2e); kernel vs plain objective rel %.2e, voxel "
+          "%.2e; launches %s; plain calls %s; kernel %.4f ms/solve, plain "
+          "%.4f ms/solve [%s]" % (obj, LENA_ANCHOR, dev, rel, vox, launches,
+                                  sum(plain_calls.values()), ms_k, ms_p,
+                                  card))
+    # α 0.5 as well: at α 0.03 the L1 types' threshold τ/α exceeds
+    # τ|div p| ≤ 2·ndim·τ, so x stays at b and the ℓ1 prox is idle
+    for alpha in (PD_ALPHA, 0.5):
+        pairs = []
+        for rtype in PD_TYPES:
+            for alg in PD_ALGS:
+                s = F.make_fused_pd_denoise_solver(b.shape, rtype, alg,
+                                                   ITERATIONS)
+                o, rel, vox = pd_check_pair(s, b, alpha, rtype, "phase 8")
+                pairs.append("%s/%s %.4f %.1e %.1e"
+                             % (rtype, alg, o, rel, vox))
+        print("phase 8 Lena 256^2 all pairs at alpha %g (objective, kernel "
+              "vs plain objective rel, voxel): %s"
+              % (alpha, "; ".join(pairs)))
+
+    # phase 9: L-curve sweep at full width, Man 1024² x 64 alphas
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    bm = tensor(man / man.max())
+    alphas = np.linspace(0.01, 1.5, 64, dtype=np.float32)
+    sweep = F.make_fused_pd_denoise_solver(bm.shape, "TVL2", "ALG2",
+                                           ITERATIONS, record=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    F.reset_counts()
+    xs, recs = sweep(bm, bm, alphas, PD_L2)
+    torch.cuda.synchronize()
+    launches, plain_calls = F.launch_counts(F.PD_UNITS), F.plain_counts()
+    peak_k = torch.cuda.max_memory_allocated() - base
+    require(all(n > 0 for n in launches.values()),
+            "phase 9: a kernel was not launched: %s" % launches)
+    require(all(n == 0 for n in plain_calls.values()),
+            "phase 9: a plain version ran: %s" % plain_calls)
+    require(xs.shape == (64,) + bm.shape and bool(xs.isfinite().all())
+            and recs["Reg"].shape == (64, ITERATIONS + 1),
+            "phase 9: results not finite or misshapen")
+    rec_obj = {}
+    for i, anchor in MAN_ANCHORS.items():
+        a = float(alphas[i])
+        rec_obj[i] = float(recs["Data"][i, -1]) + a * float(recs["Reg"][i,
+                                                                       -1])
+        host = pd_objective(xs[i], bm, a, False)
+        dev = abs(rec_obj[i] - anchor) / anchor
+        require(dev <= PD_ANCHOR_BAND, "phase 9: alpha[%d] records give "
+                "%.6f, anchor %.6f (rel %.3g)" % (i, rec_obj[i], anchor, dev))
+        require(abs(host - rec_obj[i]) / abs(host) <= PD_ANCHOR_BAND,
+                "phase 9: alpha[%d] records %.6f vs float64 from x %.6f"
+                % (i, rec_obj[i], host))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    xs_p, recs_p = sweep.plain(bm, bm, alphas, PD_L2)
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated() - base
+    vox = float((xs - xs_p).abs().max() / xs_p.abs().max())
+    rrel = max(max_rel(recs[k], recs_p[k]) for k in ("Reg", "Data"))
+    require(vox <= KERNEL_TOL and rrel <= KERNEL_TOL,
+            "phase 9: kernel vs plain voxel %.3g records %.3g" % (vox, rrel))
+    del xs_p, recs_p
+    sweep_launches = launches
+    ms_k = cuda_ms(lambda: sweep(bm, bm, alphas, PD_L2), reps=5)
+    ms_p = cuda_ms(lambda: sweep.plain(bm, bm, alphas, PD_L2), reps=3)
+    print("phase 9 sweep Man 1024^2 x 64 alphas TVL2/ALG2 records: "
+          "objectives %s (anchors %s); kernel vs plain voxel %.2e, records "
+          "%.2e; launches %s; kernel %.3f s/sweep = %.1f solves/s = %.0f "
+          "it/s, peak %.1f MiB; plain %.3f s/sweep = %.1f solves/s, peak "
+          "%.1f MiB [%s]" % (
+              {i: round(v, 6) for i, v in rec_obj.items()}, MAN_ANCHORS,
+              vox, rrel, launches, ms_k / 1e3, 64e3 / ms_k,
+              64e3 * ITERATIONS / ms_k, peak_k / 2 ** 20, ms_p / 1e3,
+              64e3 / ms_p, peak_p / 2 ** 20, card))
+    times = pd_unit_times(F, interop, bm.shape, 64, device, reps=20)
+    times_lena = pd_unit_times(F, interop, b.shape, 1, device, reps=50)
+    print("phase 9 per-call (kernel ms, plain ms) at 64 x 1024^2: %s; at "
+          "1 x 256^2: %s" % tuple(", ".join(
+              "%s %.4f/%.4f" % (k, a, p) for k, (a, p) in t.items())
+              for t in (times, times_lena)))
+    del xs, recs, sweep
+
+    # phase 10: 3-D
+    phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")) \
+        .data.astype(np.float64)
+    noisy = phantom + np.random.RandomState(0).normal(
+        0, 0.05 * phantom.max(), phantom.shape)
+    b3 = tensor(noisy / noisy.max())
+    res3 = []
+    for (rtype, alg), anchor in PHANTOM_ANCHORS.items():
+        s3 = F.make_fused_pd_denoise_solver(b3.shape, rtype, alg,
+                                            ITERATIONS)
+        o, rel, vox = pd_check_pair(s3, b3, PD_ALPHA, rtype, "phase 10a",
+                                    obj_tol=1e-5)
+        dev = abs(o - anchor) / anchor
+        require(dev <= PD_ANCHOR_BAND, "phase 10a: %s/%s objective %.6f, "
+                "anchor %.6f (rel %.3g)" % (rtype, alg, o, anchor, dev))
+        res3.append("%s/%s %.6f (anchor %.6f, dev %.1e; vs plain %.1e, "
+                    "%.1e)" % (rtype, alg, o, anchor, dev, rel, vox))
+    print("phase 10a phantom 64^3: %s" % "; ".join(res3))
+    big = np.repeat(np.repeat(np.repeat(phantom, 4, 0), 4, 1), 4, 2)
+    big = big + np.random.RandomState(1).normal(0, 0.05 * phantom.max(),
+                                                big.shape)
+    bb = tensor(big / big.max())
+    del big
+    s256 = F.make_fused_pd_denoise_solver(bb.shape, "TVL2", "ALG2",
+                                          ITERATIONS)
+    o, rel, vox = pd_check_pair(s256, bb, PD_ALPHA, "TVL2", "phase 10b",
+                                obj_tol=1e-5, vox_tol=1e-4)
+    ms_k = cuda_ms(lambda: s256(bb, bb, PD_ALPHA, PD_L2), reps=5)
+    ms_p = cuda_ms(lambda: s256.plain(bb, bb, PD_ALPHA, PD_L2), reps=2)
+    print("phase 10b 256^3 TVL2/ALG2: objective %.4f; kernel vs plain "
+          "objective rel %.2e, voxel %.2e; kernel %.3f ms/solve, plain %.3f "
+          "ms/solve [%s]" % (o, rel, vox, ms_k, ms_p, card))
+    del bb, s256
+
+    # phase 11: the denoising CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        nii = os.path.join(tmp, "noisy.nii.gz")
+        write_nifti(noisy.astype(np.float32), nii, spacing=np.ones(3))
+        for obs, ext in ((data.path("2D_Lena_256_noise.png"), "mat"),
+                         (nii, "nii.gz")):
+            out = os.path.join(tmp, "x." + ext)
+            rc = run_denoising.main(["--observation", obs, "--result", out])
+            require(rc == 0, "phase 11: CLI returned %r" % rc)
+            reader = DataReader(out)
+            reader.read_data()
+            recon = reader.get_data()
+            obs_reader = DataReader(obs)
+            obs_reader.read_data()
+            bo = obs_reader.get_data()
+            scale = np.max(bo)
+            bt = tensor(bo / scale)
+            lib = interop.to_numpy(F.make_fused_pd_denoise_solver(
+                bo.shape, "TVL2", "ALG2", ITERATIONS)(
+                    bt, bt, PD_ALPHA, PD_L2)).astype(np.float64) * scale
+            cli_dev = float(np.max(np.abs(recon - lib)) / np.max(np.abs(lib)))
+            require(recon.shape == bo.shape and np.all(np.isfinite(recon)),
+                    "phase 11: CLI result not finite or misshapen")
+            require(cli_dev <= KERNEL_TOL,
+                    "phase 11: CLI vs library %.3g" % cli_dev)
+            print("phase 11 CLI %s: shape %s finite, max|cli - library|/max "
+                  "%.3e" % (os.path.basename(obs), recon.shape, cli_dev))
+    return {"launches": sweep_launches, "err": err, "times": times}
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -280,7 +628,8 @@ def main():
     F.reset_counts()
     x_k = solve(b, b, ALPHA, RHO)
     torch.cuda.synchronize()
-    launches, plain_calls = F.launch_counts(), F.plain_counts()
+    launches = F.launch_counts(F.ADMM_UNITS)
+    plain_calls = F.plain_counts()
     require(all(n > 0 for n in launches.values()),
             "phase 4: a kernel was not launched: %s" % launches)
     require(all(n == 0 for n in plain_calls.values()),
@@ -372,17 +721,28 @@ def main():
     print("phase 6 CLI: shape %s finite, max|cli - library|/max %.3e"
           % (recon.shape, cli_dev))
 
+    del solve, bs
+
+    pd = run_pd_phases(device, card)
+
     replaces = {
         "normal_apply": "nsol_tpu/ops/pallas/blocked.py:402",
         "cg_step": "nsol_tpu/ops/pallas/blocked.py:988",
         "cg_update": "nsol_tpu/ops/pallas/fused.py:382",
         "admm_tail": "nsol_tpu/ops/pallas/fused.py:382",
     }
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/admm.cu",
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": main_err[k], "ms": times64[k][0],
-         "plain_ms": times64[k][1]} for k in replaces]}))
+         "plain_ms": times64[k][1]} for k in replaces]
+    kernels += [
+        {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/pd.cu",
+         "replaces": "nsol_tpu/ops/pallas/fused.py:957",
+         "launches": pd["launches"][k], "max_abs_err": pd["err"][k],
+         "ms": pd["times"][k][0], "plain_ms": pd["times"][k][1]}
+        for k in F.PD_UNITS]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,2 +1,3 @@
-"""CLI applications of the port: ``run_deconvolution`` (console script
-``nsol_torch_run_deconvolution``)."""
+"""CLI applications of the port: ``run_deconvolution`` and
+``run_denoising`` (console scripts ``nsol_torch_run_deconvolution`` and
+``nsol_torch_run_denoising``)."""

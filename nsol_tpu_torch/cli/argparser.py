@@ -1,8 +1,8 @@
 """Declarative CLI argument collection (counterpart of
 ``nsol_tpu/cli/argparser.py``): the options of the ADMM/TVL2/linear
-deconvolution route, plus ``--device``. Flag names, defaults and help
-conventions follow the reference so one command line reads the same in
-both packages.
+deconvolution route and of the denoising CLI, plus ``--device``. Flag
+names, defaults and help conventions follow the reference so one command
+line reads the same in both packages.
 """
 
 import argparse
@@ -60,7 +60,7 @@ class InputArgparser(object):
 
     def add_observation(self, required=True):
         self._add("--observation", type=str, required=required,
-                  help="Input image to deconvolve; any of %s."
+                  help="Input image to denoise or deconvolve; any of %s."
                        % INPUT_FILE_TYPES)
 
     def add_result(self, required=True, default=None):
@@ -74,12 +74,18 @@ class InputArgparser(object):
                        "similarity measure is evaluated against it."
                        % INPUT_FILE_TYPES)
 
+    def add_dir_output_figures(self, default=None):
+        self._add("--dir-output-figures", type=str, default=default,
+                  help="Save generated plots into this directory instead "
+                       "of only displaying them.")
+
     # -- problem configuration ---------------------------------------------
 
     def add_reconstruction_type(self, default="TVL1"):
         self._add("--reconstruction-type", type=str, default=default,
                   help="Which data-fidelity/regularizer pairing to solve: "
-                       "TK0L2, TK1L2, TVL2, HuberL2 for deconvolution.")
+                       "TVL1, TVL2, HuberL1, HuberL2 for denoising; TK0L2, "
+                       "TK1L2, TVL2, HuberL2 for deconvolution.")
 
     def add_measures(self, default=None):
         self._add("--measures", type=str, nargs="+", default=default,
@@ -122,7 +128,8 @@ class InputArgparser(object):
 
     def add_iterations(self, default=10):
         self._add("--iterations", type=int, default=default,
-                  help="Outer iteration count of the ADMM loop.")
+                  help="Outer iteration count of the ADMM / primal-dual "
+                       "loop.")
 
     def add_iter_max(self, default=10):
         self._add("--iter-max", type=int, default=default,
@@ -132,8 +139,13 @@ class InputArgparser(object):
         self._add("--verbose", type=int, default=default,
                   help="1 = chatty progress output, 0 = quiet.")
 
+    def add_trace(self, default=None):
+        self._add("--trace", type=str, default=default,
+                  help="Directory for a profiler device trace of the "
+                       "reconstruction.")
+
     def add_device(self, default="cuda"):
         self._add("--device", type=str, default=default,
                   choices=("cuda", "cpu"),
                   help="Where to solve: 'cuda' runs the CUDA kernels "
-                       "(3-D float32), 'cpu' their plain PyTorch versions.")
+                       "(float32), 'cpu' their plain PyTorch versions.")

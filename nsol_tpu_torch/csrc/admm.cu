@@ -40,11 +40,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "common.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
-constexpr int kReduceThreads = 1024;
+namespace {
 
 // Device scalar slots of the CG state (double).
 enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3 };
@@ -81,22 +79,6 @@ int grid_for(long long n) {
 #define GRID_STRIDE(i, n)                                                  \
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
        i < (n); i += (long long)gridDim.x * blockDim.x)
-
-// Sum of one double per thread over the block; the result is valid in
-// thread 0. The order is fixed by the launch shape.
-__device__ double block_sum(double v) {
-  __shared__ double warp_sums[32];
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    v = lane < nwarps ? warp_sums[lane] : 0.0;
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 // scipy.ndimage wrap convolution along one axis:
 // y[i] = sum_j k[j] u[(i + c - j) mod n], c = K / 2. The index walks down

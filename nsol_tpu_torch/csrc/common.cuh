@@ -1,0 +1,31 @@
+// Shared by the kernel sources of nsol_tpu_torch/csrc: launch shape and the
+// deterministic block reduction.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 1024;
+constexpr int kReduceThreads = 1024;
+
+// Sum of one double per thread over the block; the result is valid in
+// thread 0. The order is fixed by the launch shape. Every thread of the
+// block must call it; put a __syncthreads() between two calls.
+__device__ double block_sum(double v) {
+  __shared__ double warp_sums[32];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = (blockDim.x + 31) >> 5;
+    v = lane < nwarps ? warp_sums[lane] : 0.0;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+}  // namespace

@@ -8,6 +8,11 @@ The deconvolution path has no weights. Its parameters are
 * the ADMM state: ``x``, plus ``v`` and ``w`` in the stacked ``(d, *shape)``
   gradient layout, x component first (``nsol_tpu/ops/grad.py``).
 
+The primal-dual denoising path has no weights either. Its parameters are the
+step schedules ``(σ_t, τ_t, τ_t·λ, θ_t)`` of ``_pd_schedules`` and its state
+is ``(x, x̄, p)``, the dual ``p`` stacked ``(d, *shape)`` (or
+``(B, d, *shape)`` for a batch over α), x component first.
+
 These helpers turn the numpy arrays the JAX package produces into the
 port's tensors on an explicit device, checking layout and dtype, and back.
 """
@@ -18,7 +23,8 @@ import torch
 from nsol_tpu_torch.ops.grad import _spacing_array
 
 __all__ = ["to_torch", "to_numpy", "blur_factors", "spacing",
-           "admm_state", "admm_state_numpy"]
+           "admm_state", "admm_state_numpy", "pd_schedules",
+           "pd_schedules_numpy", "pd_state", "pd_state_numpy"]
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64}
@@ -83,3 +89,50 @@ def admm_state_numpy(x, v, w):
     """Tensors ``(x, v, w)`` → numpy arrays (the inverse of
     :func:`admm_state`)."""
     return tuple(to_numpy(t) for t in (x, v, w))
+
+
+def pd_schedules(sigma, tau, ft, theta, device, dtype=torch.float32):
+    """Step schedules ``(σ, τ, τ·λ, θ)``, numpy arrays of one shape
+    ``(iterations,)`` or ``(B, iterations)``, → one contiguous ``(4, B,
+    iterations)`` tensor (``B = 1`` for 1-D input), the layout the PD
+    kernel units index."""
+    arrays = [np.asarray(a) for a in (sigma, tau, ft, theta)]
+    shape = arrays[0].shape
+    if any(a.shape != shape for a in arrays) or len(shape) not in (1, 2):
+        raise ValueError("schedules must share one (iterations,) or (B, "
+                         "iterations) shape, got %s"
+                         % [a.shape for a in arrays])
+    stacked = np.stack([np.atleast_2d(a) for a in arrays])
+    return torch.as_tensor(stacked, dtype=dtype, device=device).contiguous()
+
+
+def pd_schedules_numpy(sched):
+    """``(4, B, iterations)`` tensor → ``(σ, τ, τ·λ, θ)`` numpy arrays of
+    shape ``(B, iterations)`` (the inverse of :func:`pd_schedules`)."""
+    if sched.dim() != 3 or sched.shape[0] != 4:
+        raise ValueError("expected a (4, B, iterations) tensor, got %s"
+                         % (tuple(sched.shape),))
+    return tuple(to_numpy(sched[k]) for k in range(4))
+
+
+def pd_state(x, x_mean, p, device):
+    """PD state ``(x, x̄, p)`` → tensors. ``x``/``x̄`` share one shape,
+    ``p`` is stacked ``(x.ndim, *x.shape)``, or for a batch ``x`` of
+    ``(B, *shape)`` it is ``(B, len(shape), *shape)``; one dtype."""
+    x, x_mean, p = (np.asarray(a) for a in (x, x_mean, p))
+    single = (x.ndim,) + x.shape
+    batched = (x.shape[0], x.ndim - 1) + x.shape[1:] if x.ndim else ()
+    if x_mean.shape != x.shape or p.shape not in (single, batched):
+        raise ValueError("PD state: x %s, x_mean %s, p %s; p must be %s or, "
+                         "batched, %s" % (x.shape, x_mean.shape, p.shape,
+                                          single, batched))
+    if not x.dtype == x_mean.dtype == p.dtype:
+        raise TypeError("x, x_mean, p dtypes differ: %s %s %s"
+                        % (x.dtype, x_mean.dtype, p.dtype))
+    return tuple(to_torch(a, device) for a in (x, x_mean, p))
+
+
+def pd_state_numpy(x, x_mean, p):
+    """Tensors ``(x, x̄, p)`` → numpy arrays (the inverse of
+    :func:`pd_state`)."""
+    return tuple(to_numpy(t) for t in (x, x_mean, p))

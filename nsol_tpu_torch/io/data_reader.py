@@ -1,8 +1,9 @@
 """DataReader: extension-dispatched input (png / mat / nii / nii.gz).
 
 API-parity port of the reference DataReader (nsol/data_reader.py:22-66) with
-the SimpleITK/pysitk stack replaced by PIL (png), scipy.io (mat) and the
-self-contained NIfTI-1 parser. The extension sniff keeps the reference's
+the SimpleITK/pysitk stack replaced by the zlib-and-numpy PNG reader
+(:mod:`nsol_tpu_torch.io.png`, Pillow's ``convert("L")`` semantics),
+scipy.io (mat) and the self-contained NIfTI-1 parser. The extension sniff keeps the reference's
 ``basename.split(".")[1]`` convention (so ``x.nii.gz`` → "nii",
 nsol/data_reader.py:27).
 """
@@ -12,7 +13,7 @@ import os
 import numpy as np
 import scipy.io
 
-from nsol_tpu_torch.io import nifti
+from nsol_tpu_torch.io import nifti, png
 
 __all__ = ["DataReader"]
 
@@ -62,9 +63,7 @@ class DataReader(object):
         return info
 
     def _read_data_png(self):
-        from PIL import Image
-
-        self._nda = np.asarray(Image.open(self._path_to_file).convert("L"))
+        self._nda = png.read_png(self._path_to_file)
 
     def _read_data_mat(self):
         dic = scipy.io.loadmat(self._path_to_file)

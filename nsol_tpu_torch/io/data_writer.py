@@ -1,7 +1,8 @@
 """DataWriter: extension-dispatched output (txt / png / mat / nii / nii.gz).
 
 API-parity port of the reference DataWriter (nsol/data_writer.py:21-71):
-png output is uint8-rounded (:53-55), nii output copies the header of the
+png output is uint8-rounded (:53-55) and written by the zlib-and-numpy
+encoder of :mod:`nsol_tpu_torch.io.png` as 8-bit grayscale, nii output copies the header of the
 originally read image when given (:65-71).
 """
 
@@ -10,7 +11,7 @@ import os
 import numpy as np
 import scipy.io
 
-from nsol_tpu_torch.io import nifti
+from nsol_tpu_torch.io import nifti, png
 
 __all__ = ["DataWriter"]
 
@@ -39,10 +40,8 @@ class DataWriter(object):
         print("--- File written to '%s'" % self._path_to_file)
 
     def _write_data_png(self):
-        from PIL import Image
-
         nda = np.round(np.array(self._nda)).astype(np.uint8)
-        Image.fromarray(nda).save(self._path_to_file)
+        png.write_png(nda, self._path_to_file)
 
     def _write_data_txt(self):
         np.savetxt(self._path_to_file, np.atleast_1d(self._nda))

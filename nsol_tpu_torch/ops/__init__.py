@@ -1,3 +1,3 @@
 """Operators: stencil construction (kernels), blur (conv), finite
-differences (grad), proxes, and the CUDA kernels of the deconvolution path
-(``ops.cuda``)."""
+differences (grad), proxes, losses, priors, and the CUDA kernels of the
+deconvolution and denoising paths (``ops.cuda``)."""

@@ -200,7 +200,7 @@ def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None):
     lib = build.load()
     out, t1, t2 = (torch.empty_like(v) for _ in range(3))
     partials = _partials(v.device) if rhs is not None else None
-    counts = build.new_counts()
+    counts = build.new_counts(4)
     Z, Y, X = v.shape
     err = lib.nsol_normal_apply(
         build.tensor_ptr(v), build.tensor_ptr(out), build.tensor_ptr(t1),
@@ -225,7 +225,7 @@ def cg_step(r, p, scal, taps, inv_h2, rho, first=False):
     _check_consts(name, r.device, taps, scal)
     lib = build.load()
     p_new, q, t1, t2 = (torch.empty_like(r) for _ in range(4))
-    counts = build.new_counts()
+    counts = build.new_counts(4)
     Z, Y, X = r.shape
     err = lib.nsol_cg_step(
         build.tensor_ptr(r), None if first else build.tensor_ptr(p),
@@ -249,7 +249,7 @@ def cg_update(x, r, p, q, scal):
     check_tensors(name, x.shape, x, r, p, q)
     _check_consts(name, x.device, scal=scal)
     lib = build.load()
-    counts = build.new_counts()
+    counts = build.new_counts(4)
     err = lib.nsol_cg_update(
         build.tensor_ptr(x), build.tensor_ptr(r), build.tensor_ptr(p),
         build.tensor_ptr(q), build.tensor_ptr(_partials(x.device)),

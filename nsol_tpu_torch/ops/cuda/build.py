@@ -43,6 +43,14 @@ _SIGNATURES = {
                        _I, _I, _I, _P, _P],
     "nsol_admm_solve": [_P] * 14 + [_P, _I, _I, _I, _P, _I, _I, _I]
     + [_F] * 8 + [_I, _I, _I, _I, _I, _P, _P],
+    "nsol_pd_grid": [_I, _I],
+    "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 5 + [_F] * 3
+    + [_P, _P],
+    "nsol_pd_primal": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _P],
+    "nsol_pd_record": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 5 + [_F] * 3
+    + [_P, _P],
+    "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F] + [_I] * 6 + [_F] * 3
+    + [_P, _P],
 }
 
 #: what the last build did: library path, seconds, nvcc's ptxas report
@@ -99,10 +107,11 @@ def load():
     return lib
 
 
-def new_counts():
-    """Per-unit launch counts the C functions add to (normal_apply,
-    cg_step, cg_update, admm_tail)."""
-    return (ctypes.c_longlong * 4)()
+def new_counts(n):
+    """``n`` per-unit launch counts for a C function to add to, indexed by
+    its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
+    admm_tail; ``pd.cu``: pd_dual, pd_primal, pd_record)."""
+    return (ctypes.c_longlong * n)()
 
 
 def tensor_ptr(t):

@@ -20,18 +20,39 @@ The TPU-only scheduling options of the reference (``precision`` pass
 modes, ``compact_dirs``, ``blur_reorder``, ``diff_matmul``,
 ``pipelined_cg``) have no counterpart: the port computes the exact f32
 result and raises on them.
+
+The whole primal-dual (Chambolle–Pock) denoising solve on the GPU:
+counterpart of ``fused.py::make_fused_pd_denoise_solver`` (:957). The TPU
+kernel runs every iteration inside one VMEM-resident program; here each
+iteration is two kernel units, :func:`pd_dual` and :func:`pd_primal`, plus
+:func:`pd_record` for the L-curve records, enqueued by one C function in
+``csrc/pd.cu`` (``nsol_pd_solve``) with the step schedules precomputed on
+the host (:func:`_pd_schedules`) and indexed on the device. Bytes bound
+every unit; see the note at the top of ``csrc/pd.cu``. The batch over α is
+a grid dimension (the counterpart of ``jax.vmap`` over the runtime α).
+The TPU kernel's minor-axis difference matmuls (``_exact_bf16_matmul``,
+``_banded_diff``, the exact1 pass) schedule the TPU's matrix unit and have
+no counterpart: the port computes the plain f32 differences.
 """
 
 import numpy as np
 import torch
 
+from nsol_tpu_torch import interop
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
-from nsol_tpu_torch.ops.prox import vectorial_soft_threshold
+from nsol_tpu_torch.ops import losses
+from nsol_tpu_torch.ops.prox import (
+    HUBER_CONJ_GAMMA, prox_ell1_denoising, prox_ell2_denoising,
+    prox_huber_conj, prox_tv_conj, vectorial_soft_threshold)
 from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import build
+from nsol_tpu_torch.solvers.primal_dual import ALG_TYPES, step_schedules
 
 __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
+           "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
+           "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
+           "PD_TYPES", "ADMM_UNITS", "PD_UNITS",
            "reset_counts", "launch_counts", "plain_counts"]
 
 
@@ -82,7 +103,7 @@ def admm_tail(x, v, w, Atb, inv_h, tau, rho, init=False):
     B.check_tensors(name, (3,) + tuple(x.shape), v, w, device=x.device)
     lib = build.load()
     rhs = torch.empty_like(x)
-    counts = build.new_counts()
+    counts = build.new_counts(4)
     Z, Y, X = x.shape
     err = lib.nsol_admm_tail(
         build.tensor_ptr(x), build.tensor_ptr(v), build.tensor_ptr(w),
@@ -96,26 +117,9 @@ def admm_tail(x, v, w, Atb, inv_h, tau, rho, init=False):
 
 admm_tail.launches = 0
 
-_KERNELS = (B.normal_apply, B.cg_step, B.cg_update, admm_tail)
-_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain,
-          admm_tail_plain)
-
-
-def reset_counts():
-    """Set every kernel's launch count and every plain version's call
-    count to 0."""
-    for f in _KERNELS:
-        f.launches = 0
-    for f in _PLAIN:
-        f.calls = 0
-
-
-def launch_counts():
-    return {f.__name__: f.launches for f in _KERNELS}
-
-
-def plain_counts():
-    return {f.__name__: f.calls for f in _PLAIN}
+_ADMM_UNITS = (B.normal_apply, B.cg_step, B.cg_update, admm_tail)
+_ADMM_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain,
+               admm_tail_plain)
 
 
 # ----------------------------------------------------------------- solver --
@@ -158,7 +162,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max):
                            device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
-    counts = build.new_counts()
+    counts = build.new_counts(4)
     Z, Y, X = b.shape
     err = lib.nsol_admm_solve(
         build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
@@ -169,7 +173,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max):
         *st.inv_h, *st.inv_h2, tau, float(rho), int(iterations),
         int(iter_max), Z, Y, X, build.stream_ptr(b.device), counts)
     build.check(err, name)
-    for f, n in zip(_KERNELS, counts):
+    for f, n in zip(_ADMM_UNITS, counts):
         f.launches += n
     return x
 
@@ -216,13 +220,412 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     def solve(b, x0, alpha, rho):
         st = stencils(b)
         if b.device.type == "cpu":
-            return _solve_steps(_KERNELS, st, b, x0, alpha, rho, iterations,
-                                iter_max)
+            return _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
+                                iterations, iter_max)
         return _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max)
 
     def plain(b, x0, alpha, rho):
-        return _solve_steps(_PLAIN, stencils(b), b, x0, alpha, rho,
+        return _solve_steps(_ADMM_PLAIN, stencils(b), b, x0, alpha, rho,
                             iterations, iter_max)
 
     solve.plain = plain
     return solve
+
+
+# ------------------------------------------------- primal-dual denoising --
+
+#: reconstruction types of the denoising solve
+PD_TYPES = ("TVL1", "TVL2", "HuberL1", "HuberL2")
+#: rows of the schedule tensor (4, B, iterations)
+SIGMA, TAU, FT, THETA = range(4)
+
+
+#: ``(σ_t, τ_t, τ_t·λ, θ_t)`` for one α (``fused.py:918``): the generic
+#: solver's schedules, so both solves step alike
+_pd_schedules = step_schedules
+
+
+def _sched_at(sched, row, t, nd):
+    """Row ``row`` of the schedule at iteration ``t``, shaped to broadcast
+    over a batch of ``nd``-D images."""
+    return sched[row, :, t].reshape((-1,) + (1,) * nd)
+
+
+def pd_dual_plain(x_mean, p, sched, t, inv_h, huber=False,
+                  gamma=HUBER_CONJ_GAMMA):
+    """Plain version of :func:`pd_dual`."""
+    pd_dual_plain.calls += 1
+    nd = p.shape[1]
+    s = _sched_at(sched, SIGMA, t, nd)
+    for i in range(nd):
+        q = p[:, i] + s * (G.forward_difference(x_mean, x_mean.dim() - 1 - i)
+                           * inv_h[i])
+        p[:, i] = prox_huber_conj(q, s, gamma) if huber \
+            else prox_tv_conj(q, s)
+
+
+def pd_primal_plain(x, x_mean, p, b, sched, t, inv_h, ell1=False):
+    """Plain version of :func:`pd_primal`."""
+    pd_primal_plain.calls += 1
+    nd = p.shape[1]
+    div = None
+    for i in range(nd):
+        d = G.forward_difference_adjoint(p[:, i], x.dim() - 1 - i) * inv_h[i]
+        div = d if div is None else div + d
+    z = x - _sched_at(sched, TAU, t, nd) * div
+    prox = prox_ell1_denoising if ell1 else prox_ell2_denoising
+    x_new = prox(z, _sched_at(sched, FT, t, nd), b)
+    x_mean.copy_(x_new + _sched_at(sched, THETA, t, nd) * (x_new - x))
+    x.copy_(x_new)
+
+
+def pd_record_plain(x, b, reg, data, t, inv_h, ell1=False, huber=False,
+                    gamma=HUBER_CONJ_GAMMA):
+    """Plain version of :func:`pd_record`."""
+    pd_record_plain.calls += 1
+    g2 = None
+    for i in range(x.dim() - 1):
+        g = G.forward_difference(x, x.dim() - 1 - i) * inv_h[i]
+        g2 = g * g if g2 is None else g2 + g * g
+    r = losses.huber(g2, gamma=gamma) if huber else torch.sqrt(g2)
+    d = x - b
+    dv = torch.abs(d) if ell1 else d * d
+    reg[:, t] = r.flatten(1).double().sum(1) * (0.5 if huber else 1.0)
+    data[:, t] = dv.flatten(1).double().sum(1)
+
+
+for _f in (pd_dual_plain, pd_primal_plain, pd_record_plain):
+    _f.calls = 0
+
+
+def _pd_dims(name, x, nd):
+    """``(B, Z, Y, X)`` of a batch of ``nd``-D images ``(B, *shape)``; a
+    2-D image runs with ``Z = 1`` and no z component (never as a
+    ``(1, Y, X)`` volume: the zero-padded z difference would be −x)."""
+    if nd not in (2, 3) or x.dim() != nd + 1:
+        raise ValueError("%s: expected a batch of 2-D/3-D images, got shape "
+                         "%s" % (name, tuple(x.shape)))
+    nb = x.shape[0]
+    if not 1 <= nb <= 65535:
+        raise ValueError("%s: batch of %d, the kernel takes 1..65535"
+                         % (name, nb))
+    if nb * nd * x[0].numel() >= 2 ** 31:
+        raise ValueError("%s: %s with %d dual components is too large for "
+                         "the kernel's 32-bit indexing"
+                         % (name, tuple(x.shape), nd))
+    return (nb,) + (1,) * (3 - nd) + tuple(x.shape[1:])
+
+
+def _check_pd_consts(name, device, nb, sched=None, t=None, bufs=()):
+    if sched is not None:
+        if (sched.device != device or sched.dtype != torch.float32
+                or not sched.is_contiguous() or sched.dim() != 3
+                or tuple(sched.shape[:2]) != (4, nb)):
+            raise ValueError("%s: sched must be a contiguous float32 (4, %d, "
+                             "iterations) tensor on %s" % (name, nb, device))
+        if t is not None and not 0 <= t < sched.shape[2]:
+            raise ValueError("%s: iteration %d outside the schedule"
+                             % (name, t))
+    for buf in bufs:
+        if (buf.device != device or buf.dtype != torch.float64
+                or not buf.is_contiguous() or buf.dim() != 2
+                or buf.shape[0] != nb):
+            raise ValueError("%s: records must be contiguous float64 (%d, "
+                             "iterations+1) tensors on %s"
+                             % (name, nb, device))
+
+
+def _inv_h3(inv_h):
+    return tuple(float(h) for h in inv_h) + (0.0,) * (3 - len(inv_h))
+
+
+def pd_dual(x_mean, p, sched, t, inv_h, huber=False, gamma=HUBER_CONJ_GAMMA):
+    """Dual ascent and conjugate prox at iteration ``t``, in place:
+    ``p_i ← proj(p_i + σ_t · D_i x̄ / h_i)`` with the componentwise
+    ``proj(q) = q / max(1, |q|)`` (Huber types: ``q / (1 + σ_t γ)``
+    first). ``x_mean`` is ``(B, *shape)``, ``p`` ``(B, ndim, *shape)`` x
+    component first, ``sched`` the ``(4, B, iterations)`` schedules,
+    ``inv_h`` ``1/h`` in (x, y[, z]) order."""
+    if x_mean.device.type == "cpu":
+        return pd_dual_plain(x_mean, p, sched, t, inv_h, huber, gamma)
+    name = "pd_dual"
+    nd = p.dim() - 2
+    dims = _pd_dims(name, x_mean, nd)
+    B.check_tensors(name, x_mean.shape, x_mean)
+    B.check_tensors(name, (dims[0], nd) + tuple(x_mean.shape[1:]), p,
+                    device=x_mean.device)
+    _check_pd_consts(name, x_mean.device, dims[0], sched, t)
+    lib = build.load()
+    counts = build.new_counts(3)
+    err = lib.nsol_pd_dual(
+        build.tensor_ptr(x_mean), build.tensor_ptr(p),
+        build.tensor_ptr(sched), int(t), sched.shape[2], int(bool(huber)),
+        float(gamma), nd, *dims, *_inv_h3(inv_h),
+        build.stream_ptr(x_mean.device), counts)
+    build.check(err, name)
+    pd_dual.launches += counts[0]
+
+
+def pd_primal(x, x_mean, p, b, sched, t, inv_h, ell1=False):
+    """Primal prox and over-relaxation at iteration ``t``, in place:
+    ``z = x − τ_t·Σ_i D_iᵀ p_i / h_i``; ``x_new`` the ℓ1 shifted
+    soft-threshold (``ell1``) or the ℓ2 closed form at ``τ_t·λ`` with
+    ``x0 = b``; ``x̄ = x_new + θ_t (x_new − x)``; ``x = x_new``. ``b`` is
+    one image shared by the batch."""
+    if x.device.type == "cpu":
+        return pd_primal_plain(x, x_mean, p, b, sched, t, inv_h, ell1)
+    name = "pd_primal"
+    nd = p.dim() - 2
+    dims = _pd_dims(name, x, nd)
+    B.check_tensors(name, x.shape, x, x_mean)
+    B.check_tensors(name, x.shape[1:], b, device=x.device)
+    B.check_tensors(name, (dims[0], nd) + tuple(x.shape[1:]), p,
+                    device=x.device)
+    _check_pd_consts(name, x.device, dims[0], sched, t)
+    lib = build.load()
+    counts = build.new_counts(3)
+    err = lib.nsol_pd_primal(
+        build.tensor_ptr(x), build.tensor_ptr(x_mean), build.tensor_ptr(p),
+        build.tensor_ptr(b), build.tensor_ptr(sched), int(t),
+        sched.shape[2], int(bool(ell1)), nd, *dims, *_inv_h3(inv_h),
+        build.stream_ptr(x.device), counts)
+    build.check(err, name)
+    pd_primal.launches += counts[1]
+
+
+def _pd_partials(device, dims, n):
+    nparts = build.load().nsol_pd_grid(dims[0], n)
+    return torch.empty(2 * dims[0] * nparts, dtype=torch.float64,
+                       device=device)
+
+
+def pd_record(x, b, reg, data, t, inv_h, ell1=False, huber=False,
+              gamma=HUBER_CONJ_GAMMA):
+    """L-curve records of the batch ``x`` into column ``t`` of the float64
+    ``(B, iterations+1)`` buffers: ``Data`` = ``Σ|x−b|`` (``ell1``) or
+    ``Σ(x−b)²``; ``Reg`` = ``Σ√g²`` (TV) or ``½Σ huber(g², γ)`` (``huber``)
+    with ``g² = Σ_i (D_i x / h_i)²``; per-voxel terms in the working dtype,
+    sums in float64."""
+    if x.device.type == "cpu":
+        return pd_record_plain(x, b, reg, data, t, inv_h, ell1, huber, gamma)
+    name = "pd_record"
+    nd = x.dim() - 1
+    dims = _pd_dims(name, x, nd)
+    B.check_tensors(name, x.shape, x)
+    B.check_tensors(name, x.shape[1:], b, device=x.device)
+    _check_pd_consts(name, x.device, dims[0], bufs=(reg, data))
+    if reg.shape != data.shape or not 0 <= t < reg.shape[1]:
+        raise ValueError("%s: column %d outside the records %s"
+                         % (name, t, tuple(reg.shape)))
+    lib = build.load()
+    counts = build.new_counts(3)
+    err = lib.nsol_pd_record(
+        build.tensor_ptr(x), build.tensor_ptr(b),
+        build.tensor_ptr(_pd_partials(x.device, dims, x[0].numel())),
+        build.tensor_ptr(reg), build.tensor_ptr(data), int(t), reg.shape[1],
+        int(bool(ell1)), int(bool(huber)), float(gamma), nd, *dims,
+        *_inv_h3(inv_h), build.stream_ptr(x.device), counts)
+    build.check(err, name)
+    pd_record.launches += counts[2]
+
+
+for _f in (pd_dual, pd_primal, pd_record):
+    _f.launches = 0
+
+_PD_UNITS = (pd_dual, pd_primal, pd_record)
+_PD_PLAIN = (pd_dual_plain, pd_primal_plain, pd_record_plain)
+
+
+def _pd_steps(units, b, x0, sched, inv_h, ell1, huber, gamma, record,
+              record_gamma):
+    """The solve as a sequence of unit calls — the sequence
+    ``nsol_pd_solve`` enqueues in C. Returns ``(x, reg, data)`` batched,
+    the records float64 or None."""
+    dual, primal, rec = units
+    nb, iterations = sched.shape[1], sched.shape[2]
+    shape = tuple(b.shape)
+    x = torch.empty((nb,) + shape, dtype=b.dtype, device=b.device)
+    x.copy_(x0)
+    x_mean = x.clone()
+    p = torch.zeros((nb, len(shape)) + shape, dtype=b.dtype, device=b.device)
+    reg = data = None
+    if record:
+        reg = torch.empty((nb, iterations + 1), dtype=torch.float64,
+                          device=b.device)
+        data = torch.empty_like(reg)
+        rec(x, b, reg, data, 0, inv_h, ell1, huber, record_gamma)
+    for t in range(iterations):
+        dual(x_mean, p, sched, t, inv_h, huber, gamma)
+        primal(x, x_mean, p, b, sched, t, inv_h, ell1)
+        if record:
+            rec(x, b, reg, data, t + 1, inv_h, ell1, huber, record_gamma)
+    return x, reg, data
+
+
+def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
+                   record_gamma):
+    name = "make_fused_pd_denoise_solver"
+    nb, iterations = sched.shape[1], sched.shape[2]
+    shape = tuple(b.shape)
+    nd = len(shape)
+    B.check_tensors(name, shape, b, x0)
+    x = torch.empty((nb,) + shape, dtype=b.dtype, device=b.device)
+    dims = _pd_dims(name, x, nd)
+    _check_pd_consts(name, b.device, nb, sched)
+    x_mean = torch.empty_like(x)
+    p = torch.empty((nb, nd) + shape, dtype=b.dtype, device=b.device)
+    reg = data = partials = None
+    if record:
+        reg = torch.empty((nb, iterations + 1), dtype=torch.float64,
+                          device=b.device)
+        data = torch.empty_like(reg)
+        partials = _pd_partials(b.device, dims, b.numel())
+    lib = build.load()
+    counts = build.new_counts(3)
+    err = lib.nsol_pd_solve(
+        build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(x),
+        build.tensor_ptr(x_mean), build.tensor_ptr(p), build.tensor_ptr(sched),
+        build.tensor_ptr(partials), build.tensor_ptr(reg),
+        build.tensor_ptr(data), int(bool(record)), float(record_gamma),
+        int(bool(ell1)), int(bool(huber)), float(gamma), iterations, nd,
+        *dims, *_inv_h3(inv_h), build.stream_ptr(b.device), counts)
+    build.check(err, name)
+    for f, n in zip(_PD_UNITS, counts):
+        f.launches += n
+    return x, reg, data
+
+
+def make_fused_pd_denoise_solver(shape, reconstruction_type,
+                                 alg_type="ALG2", iterations=50,
+                                 spacing=None, huber_gamma=HUBER_CONJ_GAMMA,
+                                 record=False, compact=False):
+    """Build ``solve(b, x0, alpha, L2, record_gamma=huber_gamma)``: the
+    whole Chambolle–Pock denoising solve of ``fused.py:957``.
+
+    ``reconstruction_type``: TVL1/TVL2 (componentwise TV-conj projection,
+    reference quirk kept) or HuberL1/HuberL2 (shrink by ``1/(1+σγ)`` with
+    ``γ = huber_gamma`` first); L1 vs L2 picks the shifted soft-threshold
+    or the closed-form ℓ2 primal prox with ``x0 = b``. ``alpha`` is a
+    scalar (``x`` of ``shape`` is returned) or a 1-D sequence/tensor of B
+    alphas (``(B, *shape)``; ``b`` and ``x0`` are shared by the batch, as
+    ``jax.vmap`` over α does). ``L2`` is a scalar. The schedules are
+    computed on the host per call, in the solve's dtype.
+
+    ``record=True`` returns ``(x, {"Reg": ..., "Data": ...})`` with
+    ``(iterations+1,)`` (or ``(B, iterations+1)``) rows, row 0 the x0
+    state: ``Data`` is SAD for L1 and SSD for L2 types, ``Reg`` isotropic
+    TV for TV types and ``½Σ huber(|∇x|², record_gamma)`` for Huber types;
+    accumulated in float64, returned in the solve's dtype.
+
+    Device and dtype follow ``b``: on CUDA the solve runs the kernels of
+    ``csrc/pd.cu`` (float32, 2-D or 3-D); on the CPU the plain versions.
+    ``solve.plain`` runs the plain versions on any device, and
+    ``solve.plain_steps(b, x0, sched, record_gamma)`` runs them on a given
+    ``(4, B, iterations)`` schedule tensor (``interop.pd_schedules``),
+    returning batched results.
+    """
+    if reconstruction_type not in PD_TYPES:
+        raise ValueError("unknown reconstruction type '%s'"
+                         % reconstruction_type)
+    if alg_type not in ALG_TYPES:
+        raise ValueError("alg_type must be one of ALG2/ALG2_AHMOD/ALG3")
+    shape = tuple(shape)
+    if len(shape) not in (2, 3):
+        raise ValueError("fused PD solver supports 2-D/3-D volumes")
+    if compact:
+        raise NotImplementedError("compact=True (bf16 state) is not ported "
+                                  "yet (ROADMAP Queue 2 K10)")
+    ell1 = reconstruction_type.endswith("L1")
+    huber = reconstruction_type.startswith("Huber")
+    s = G._spacing_array(spacing, len(shape))
+
+    def inv_h(dtype):
+        rnd = np.float32 if dtype == torch.float32 else np.float64
+        return tuple(float(rnd(1.0 / si)) for si in s)
+
+    def check(b, x0):
+        for t in (b, x0):
+            if tuple(t.shape) != shape:
+                raise ValueError("input shape %s, solver built for %s"
+                                 % (tuple(t.shape), shape))
+        if x0.dtype != b.dtype or x0.device != b.device:
+            raise ValueError("b and x0 differ in dtype or device")
+
+    def schedules(b, alpha, L2):
+        if isinstance(alpha, torch.Tensor):
+            alpha = alpha.detach().cpu().numpy()
+        batched = np.ndim(alpha) > 0
+        if batched and np.ndim(alpha) != 1:
+            raise ValueError("alpha must be a scalar or 1-D, got shape %s"
+                             % (np.shape(alpha),))
+        np_dtype = np.float32 if b.dtype == torch.float32 else np.float64
+        rows = [_pd_schedules(float(a), float(L2), iterations, alg_type,
+                              np_dtype) for a in np.atleast_1d(alpha)]
+        sched = interop.pd_schedules(*(np.stack(c) for c in zip(*rows)),
+                                     device=b.device, dtype=b.dtype)
+        return sched, batched
+
+    def result(x, reg, data, dtype, batched):
+        if not batched:
+            x = x[0]
+            reg, data = (None, None) if reg is None else (reg[0], data[0])
+        if not record:
+            return x
+        return x, {"Reg": reg.to(dtype), "Data": data.to(dtype)}
+
+    def run(units, b, x0, sched, record_gamma):
+        return _pd_steps(units, b, x0, sched, inv_h(b.dtype), ell1, huber,
+                         huber_gamma, record, record_gamma)
+
+    def solve(b, x0, alpha, L2, record_gamma=huber_gamma):
+        check(b, x0)
+        sched, batched = schedules(b, alpha, L2)
+        if b.device.type == "cpu":
+            out = run(_PD_UNITS, b, x0, sched, record_gamma)
+        else:
+            out = _pd_solve_cuda(b, x0, sched, inv_h(b.dtype), ell1, huber,
+                                 huber_gamma, record, record_gamma)
+        return result(*out, b.dtype, batched)
+
+    def plain(b, x0, alpha, L2, record_gamma=huber_gamma):
+        check(b, x0)
+        sched, batched = schedules(b, alpha, L2)
+        return result(*run(_PD_PLAIN, b, x0, sched, record_gamma), b.dtype,
+                      batched)
+
+    def plain_steps(b, x0, sched, record_gamma=huber_gamma):
+        check(b, x0)
+        return result(*run(_PD_PLAIN, b, x0, sched, record_gamma), b.dtype,
+                      True)
+
+    solve.plain = plain
+    solve.plain_steps = plain_steps
+    return solve
+
+
+# ----------------------------------------------------------------- counts --
+
+#: kernel units of each path, by wrapper name
+ADMM_UNITS = tuple(f.__name__ for f in _ADMM_UNITS)
+PD_UNITS = tuple(f.__name__ for f in _PD_UNITS)
+_UNITS = {f.__name__: (f, p) for f, p in zip(_ADMM_UNITS + _PD_UNITS,
+                                              _ADMM_PLAIN + _PD_PLAIN)}
+
+
+def reset_counts():
+    """Set every kernel's launch count and every plain version's call
+    count to 0."""
+    for f, p in _UNITS.values():
+        f.launches = 0
+        p.calls = 0
+
+
+def launch_counts(names=None):
+    """``{unit: launches}`` of the named units (all by default)."""
+    return {k: _UNITS[k][0].launches for k in (names or _UNITS)}
+
+
+def plain_counts(names=None):
+    """``{unit_plain: calls}`` of the named units' plain versions."""
+    return {_UNITS[k][1].__name__: _UNITS[k][1].calls
+            for k in (names or _UNITS)}

@@ -1,1 +1,2 @@
-"""Functional solver cores: CG, the Tikhonov quadratic engine and ADMM."""
+"""Functional solver cores: CG, the Tikhonov quadratic engine, ADMM and
+primal-dual."""

@@ -108,7 +108,9 @@ def test_cli_unported_routes_raise(tmp_path, argv):
 
 def test_port_imports_neither_jax_nor_pil():
     code = ("import sys, json, nsol_tpu_torch, nsol_tpu_torch.cli."
-            "run_deconvolution, nsol_tpu_torch.interop, nsol_tpu_torch.data;"
+            "run_deconvolution, nsol_tpu_torch.cli.run_denoising, "
+            "nsol_tpu_torch.io.png, nsol_tpu_torch.solvers.primal_dual, "
+            "nsol_tpu_torch.interop, nsol_tpu_torch.data;"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
             "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
