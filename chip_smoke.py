@@ -15,7 +15,12 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   versions (all 4 types × 3 schedules, 2-D and 3-D), Lena 256² TVL2
   (α 0.03, 50 iterations, L2 8) and all 12 pairs, the L-curve sweep over
   64 alphas of Man 1024² with in-kernel records, the noisy 64³ phantom and
-  a 256³ solve, and ``run_denoising`` on a PNG and a NIfTI volume.
+  a 256³ solve, and ``run_denoising`` on a PNG and a NIfTI volume;
+* phases 12-15, robust (huber) TV deconvolution by ADMM + IRLS: the robust
+  units against their plain versions (4 losses at two scales, 2-D and
+  3-D, anisotropic), the blurred noisy Lena 256² (10 outer × 3 sweeps × 6
+  CG, α 0.01, ρ 0.5), the 256³ volume with salt-and-pepper outliers
+  (10 × 5 × 8), and ``run_deconvolution --data-loss huber`` on the PNG.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -68,6 +73,21 @@ PD_ANCHOR_BAND = 1e-5
 PD_OBJ_TOL = 1e-6
 PD_SPACING = (1.25, 0.8, 2.0)
 PD_UNIT_ALPHAS = (0.05, 0.3, 1.2)
+
+#: robust deconvolution: the losses, Lena 256² blurred + noisy (/max),
+#: huber, σ = 1, α 0.01, ρ 0.5, 10 outer × 3 sweeps × 6 CG, C = 1 (the JAX
+#: package's benchmark config 2, benchmarks/suite.py:135-234) and its
+#: objective ½Σhuber(r²) + α·TV(x) by the JAX package in float64 on the
+#: CPU (``admm_solve(minimizer="irls")``, the same parameters) on the
+#: tracked stand-in image
+ROBUST_LOSSES = ("huber", "soft_l1", "cauchy", "arctan")
+ROBUST_ITERS = {"lena": (10, 3, 6), "scale": (10, 5, 8)}
+LENA_ROBUST_ANCHOR = 101.442567054
+ROBUST_ANCHOR_BAND = 1e-4
+#: 256³ robust solve of the JAX package's suite (benchmarks/suite.py:
+#: 900-970; BASELINE.md:441, equal across its XLA and kernel legs)
+SCALE_SHAPE = (256, 256, 256)
+SCALE_ROBUST_ANCHOR = 45022.5
 
 
 class PhaseFailure(RuntimeError):
@@ -551,6 +571,295 @@ def run_pd_phases(device, card):
     return {"launches": sweep_launches, "err": err, "times": times}
 
 
+# ------------------------------------------------ phases 12-15 (robust) --
+
+def robust_objective(x, b, A64, alpha):
+    """½Σhuber(r²) + α·TV(x), r = A x − b, in float64 on the tensors'
+    device (benchmarks/suite.py:163, :935)."""
+    import torch
+
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import losses
+
+    x64 = x.double()
+    r = A64(x64) - b.double()
+    g = G.gradient(x64)
+    return float(0.5 * torch.sum(losses.huber(r * r))
+                 + alpha * torch.sum(torch.sqrt(torch.sum(g * g, 0))))
+
+
+def robust_unit_cases(R, B, st, shape, device, rng):
+    """Every robust unit and its plain version on the same random inputs:
+    {unit: (max |Δ| / max |ref|, max |Δ|)} over all outputs, CG scalars
+    included; ``irls_head`` for the four losses at C = 1 and 0.3,
+    ``weighted_apply`` with a random active set, first trip and not."""
+    import torch
+
+    def rand(lo=0.0, scale=1.0):
+        return torch.as_tensor((rng.rand(*shape) * scale + lo)
+                               .astype(np.float32), device=device)
+
+    x, b, y, r, p = rand(-0.3), rand(), rand(-0.5), rand(-0.5), rand(-0.5)
+    wts, free = rand(0.1, 0.9), (rand() > 0.3).float()
+    out = {}
+
+    def record(name, pairs):
+        rel = max(max_rel(g, q) for g, q in pairs)
+        ab = max(float((g - q).abs().max()) for g, q in pairs)
+        prev = out.get(name, (0.0, 0.0))
+        out[name] = (max(prev[0], rel), max(prev[1], ab))
+
+    record("blur_apply", [(R.blur_apply(y, st.blur, st.inv_h2),
+                           R.blur_apply_plain(y, st.blur, st.inv_h2))])
+    record("blur_apply", [(R.blur_apply(y, st.blur, st.inv_h2, x, RHO),
+                           R.blur_apply_plain(y, st.blur, st.inv_h2, x,
+                                              RHO))])
+    sk, sp = B.new_scalars(device), B.new_scalars(device)
+    gk = R.blur_apply(y, st.blur, st.inv_h2, x, RHO, scal=sk)
+    gp = R.blur_apply_plain(y, st.blur, st.inv_h2, x, RHO, scal=sp)
+    record("blur_apply", list(zip(gk, gp)) + [(sk[:1], sp[:1])])
+    for loss in ROBUST_LOSSES:
+        for scale in (1.0, 0.3):
+            record("irls_head", list(zip(
+                R.irls_head(x, b, st.blur, loss, scale),
+                R.irls_head_plain(x, b, st.blur, loss, scale))))
+    for first in (True, False):
+        init = torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                            device=device)
+        sk, sp = init.clone(), init.clone()
+        got = R.weighted_apply(r, p, free, wts, sk, st.blur, st.inv_h2, RHO,
+                               first=first)
+        ref = R.weighted_apply_plain(r, p, free, wts, sp, st.blur, st.inv_h2,
+                                     RHO, first=first)
+        record("weighted_apply", list(zip(got, ref)) + [(sk[1:3], sp[1:3])])
+    xk, xp = x.clone(), x.clone()
+    R.irls_step(xk, p)
+    R.irls_step_plain(xp, p)
+    record("irls_step", [(xk, xp)])
+    return out
+
+
+def robust_unit_times(R, B, st, shape, device, reps):
+    """(kernel ms, plain ms) per call of each robust unit at ``shape``
+    (huber, C = 1), and each unit's max |Δ| against its plain version."""
+    import torch
+
+    rng = np.random.RandomState(3)
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    x, b, y, r, p, wts = rand(-0.3), rand(), rand(-0.5), rand(-0.5), \
+        rand(-0.5), rand(0.1)
+    free = (rand() > 0.3).float()
+    s = torch.tensor([1.0, 1.0, 1e-3, 0.5], dtype=torch.float64,
+                     device=device)
+    xs = x.clone()
+    calls = {
+        "blur_apply": (
+            lambda: R.blur_apply(y, st.blur, st.inv_h2, x, RHO, scal=s),
+            lambda: R.blur_apply_plain(y, st.blur, st.inv_h2, x, RHO,
+                                       scal=s)),
+        "irls_head": (
+            lambda: R.irls_head(x, b, st.blur, "huber", 1.0),
+            lambda: R.irls_head_plain(x, b, st.blur, "huber", 1.0)),
+        "weighted_apply": (
+            lambda: R.weighted_apply(r, p, free, wts, s, st.blur, st.inv_h2,
+                                     RHO),
+            lambda: R.weighted_apply_plain(r, p, free, wts, s, st.blur,
+                                           st.inv_h2, RHO)),
+        "irls_step": (lambda: R.irls_step(xs, p),
+                      lambda: R.irls_step_plain(xs, p)),
+    }
+    times, err = {}, {}
+    for k, (kf, pf) in calls.items():
+        if k == "irls_step":
+            got, ref = x.clone(), x.clone()
+            R.irls_step(got, p)
+            R.irls_step_plain(ref, p)
+            pairs = [(got, ref)]
+        else:
+            pairs = list(zip(kf(), pf()))
+        err[k] = max(float((g - q).abs().max()) for g, q in pairs)
+        times[k] = (cuda_ms(kf, reps), cuda_ms(pf, max(2, reps // 4)))
+    return times, err
+
+
+def run_robust_phases(device, card):
+    """Phases 12-15: robust TV deconvolution by ADMM + IRLS. Returns the
+    launch counts of the 256³ solve, and each unit's max |Δ| against its
+    plain version and (kernel ms, plain ms) per call at 256³."""
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader, read_png
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+
+    # phase 12: robust units vs plain on the card
+    rng = np.random.RandomState(12)
+    aniso = (np.diag([1.3, 0.8, 1.1]) ** 2, np.array(PD_SPACING))
+    for label, shape in (("iso", (64, 64, 64)), ("aniso", (37, 45, 53)),
+                         ("aniso", (5, 40, 33)), ("iso", (256, 256)),
+                         ("aniso", (37, 53))):
+        nd = len(shape)
+        cov, sp = (np.diag([SIGMA ** 2] * nd), None) if label == "iso" \
+            else (aniso[0][:nd, :nd], aniso[1][:nd])
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        res = robust_unit_cases(R, B, st, shape, device, rng)
+        torch.cuda.synchronize()
+        for k, (rel, _) in res.items():
+            require(rel <= KERNEL_TOL, "phase 12: %s %s %s rel %.3g > %g"
+                    % (k, label, shape, rel, KERNEL_TOL))
+        print("phase 12 robust units %s %s taps %s: %s" % (
+            label, "x".join(map(str, shape)), st.blur.lengths, ", ".join(
+                "%s %.2e" % (k, v[0]) for k, v in res.items())))
+
+    # phase 13: robust main path, 2-D (Lena 256² blurred + noisy, huber)
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    lena = read_png(data.path("2D_Lena_256_blur_noise.png")) \
+        .astype(np.float64)
+    b = interop.to_torch((lena / lena.max()).astype(np.float32), device)
+    cov2 = np.diag([SIGMA ** 2] * 2)
+    A2, _ = C.make_blur_operators(cov2, alpha_cut=3, dtype=np.float64)
+    solve = F.make_fused_admm_solver(b.shape, cov2, iterations=its,
+                                     iter_max=sweeps, data_loss="huber",
+                                     irls_cg_iters=cgi)
+    solve(b, b, ALPHA, RHO)  # warm-up (stencils, allocator)
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x_k = solve(b, b, ALPHA, RHO)
+    torch.cuda.synchronize()
+    launches, plain_calls = F.launch_counts(F.ROBUST_UNITS), F.plain_counts()
+    require(all(n > 0 for n in launches.values()),
+            "phase 13: a kernel was not launched: %s" % launches)
+    require(all(n == 0 for n in plain_calls.values()),
+            "phase 13: a plain version ran: %s" % plain_calls)
+    require(bool(x_k.isfinite().all()) and x_k.shape == b.shape,
+            "phase 13: result not finite or misshapen")
+    obj = robust_objective(x_k, b, A2, ALPHA)
+    dev = abs(obj - LENA_ROBUST_ANCHOR) / LENA_ROBUST_ANCHOR
+    require(dev <= ROBUST_ANCHOR_BAND, "phase 13: objective %.6f deviates "
+            "%.3g from %.6f" % (obj, dev, LENA_ROBUST_ANCHOR))
+    x_p = solve.plain(b, b, ALPHA, RHO)
+    obj_p = robust_objective(x_p, b, A2, ALPHA)
+    rel = abs(obj - obj_p) / abs(obj_p)
+    vox = float((x_k - x_p).abs().max() / x_k.abs().max())
+    require(rel <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL,
+            "phase 13: kernel vs plain objective rel %.3g voxel %.3g"
+            % (rel, vox))
+    same = torch.equal(solve(b, b, 1.0, RHO), x_k)
+    require(same, "phase 13: x at alpha 1.0 differs from x at alpha %g"
+            % ALPHA)
+    ms_k = cuda_ms(lambda: solve(b, b, ALPHA, RHO), reps=20, warmup=2)
+    ms_p = cuda_ms(lambda: solve.plain(b, b, ALPHA, RHO), reps=3)
+    print("phase 13 main path Lena 256^2 huber %dx%dx%d: objective %.6f "
+          "(anchor %.6f, rel dev %.2e); kernel vs plain objective rel %.2e, "
+          "voxel %.2e; x at alpha 1.0 identical: %s; launches %s; plain "
+          "calls %s; kernel %.4f ms/solve, plain %.4f ms/solve [%s]"
+          % (its, sweeps, cgi, obj, LENA_ROBUST_ANCHOR, dev, rel, vox, same,
+             launches, sum(plain_calls.values()), ms_k, ms_p, card))
+    del x_p
+
+    # phase 14: the 256³ robust suite solve (salt-and-pepper outliers)
+    its, sweeps, cgi = ROBUST_ITERS["scale"]
+    big = SCALE_SHAPE
+    iso = np.diag([SIGMA ** 2] * 3)
+    rs = np.random.RandomState(0)
+    xt = interop.to_torch((rs.rand(*big) > 0.7).astype(np.float32), device)
+    A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
+    bb = A(xt).contiguous()
+    del xt
+    noise = (rs.rand(*big) < 0.01).astype(np.float32) \
+        * rs.randn(*big).astype(np.float32)
+    bb += 0.5 * interop.to_torch(noise, device)
+    del noise
+    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+    rsolve = R.blocked_robust_admm_solve(big, iso, iterations=its,
+                                         iter_max=sweeps, irls_cg_iters=cgi,
+                                         data_loss="huber")
+    torch.cuda.synchronize()
+    F.reset_counts()
+    xb_k = rsolve(bb, bb, ALPHA, RHO)
+    torch.cuda.synchronize()
+    scale_launches = F.launch_counts(F.ROBUST_UNITS)
+    plain_calls = F.plain_counts()
+    require(all(n > 0 for n in scale_launches.values()),
+            "phase 14: a kernel was not launched: %s" % scale_launches)
+    require(all(n == 0 for n in plain_calls.values()),
+            "phase 14: a plain version ran: %s" % plain_calls)
+    require(bool(xb_k.isfinite().all()), "phase 14: result not finite")
+    ob_k = robust_objective(xb_k, bb, A64, ALPHA)
+    dev = abs(ob_k - SCALE_ROBUST_ANCHOR) / SCALE_ROBUST_ANCHOR
+    require(dev <= ANCHOR_BAND, "phase 14: objective %.2f deviates %.4f%% "
+            "from %.1f" % (ob_k, 100 * dev, SCALE_ROBUST_ANCHOR))
+    held = {}
+    ms_p = cuda_ms(lambda: held.update(x=rsolve.plain(bb, bb, ALPHA, RHO)),
+                   reps=1, warmup=0)
+    xb_p = held.pop("x")
+    ob_p = robust_objective(xb_p, bb, A64, ALPHA)
+    ob_rel = abs(ob_k - ob_p) / abs(ob_p)
+    vox_b = float((xb_k - xb_p).abs().max() / xb_k.abs().max())
+    require(ob_rel <= SOLVE_OBJ_TOL and vox_b <= SOLVE_VOX_TOL,
+            "phase 14: kernel vs plain objective rel %.3g voxel %.3g"
+            % (ob_rel, vox_b))
+    del xb_p
+    # tikhonov_solve clips x0 on entry (tikhonov.py:130), the TPU kernels
+    # and this solve do not; b has negative voxels here
+    ob_c = robust_objective(rsolve(bb, torch.clamp(bb, min=0.0), ALPHA, RHO),
+                            bb, A64, ALPHA)
+    ms_k = cuda_ms(lambda: rsolve(bb, bb, ALPHA, RHO), reps=3)
+    times, err = robust_unit_times(R, B, B.Stencils.from_cov(iso, 3, None,
+                                                             device),
+                                   big, device, reps=10)
+    print("phase 14 scale 256^3 huber %dx%dx%d: objective %.2f (anchor %.1f, "
+          "dev %.4f%%; with x0 clipped on entry %.2f, rel %.2e); kernel vs "
+          "plain objective rel %.2e, voxel %.2e; launches %s; plain calls "
+          "%s; kernel %.3f s/solve, plain %.3f s/solve; per-call (kernel ms, "
+          "plain ms): %s [%s]"
+          % (its, sweeps, cgi, ob_k, SCALE_ROBUST_ANCHOR, 100 * dev, ob_c,
+             abs(ob_c - ob_k) / ob_k, ob_rel, vox_b, scale_launches,
+             sum(plain_calls.values()), ms_k / 1e3, ms_p / 1e3, ", ".join(
+                 "%s %.3f/%.3f" % (k, a, q) for k, (a, q) in times.items()),
+             card))
+    del bb, xb_k, rsolve
+
+    # phase 15: the robust CLI route on the PNG
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    obs = data.path("2D_Lena_256_blur_noise.png")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "x.mat")
+        F.reset_counts()
+        rc = run_deconvolution.main([
+            "--observation", obs, "--result", out, "--solver", "ADMM",
+            "--reconstruction-type", "TVL2", "--data-loss", "huber",
+            "--alpha", str(ALPHA), "--blur", str(SIGMA), "--iterations",
+            str(its), "--iter-max", str(sweeps), "--irls-cg-iters",
+            str(cgi), "--device", "cuda"])
+        require(rc == 0, "phase 15: CLI returned %r" % rc)
+        cli_launches = F.launch_counts(F.ROBUST_UNITS)
+        require(all(n > 0 for n in cli_launches.values()),
+                "phase 15: a kernel was not launched: %s" % cli_launches)
+        require(all(n == 0 for n in F.plain_counts().values()),
+                "phase 15: a plain version ran: %s" % F.plain_counts())
+        reader = DataReader(out)
+        reader.read_data()
+        recon = reader.get_data()
+    lib = interop.to_numpy(x_k).astype(np.float64) * lena.max()
+    cli_dev = float(np.max(np.abs(recon - lib)) / np.max(np.abs(lib)))
+    require(recon.shape == lena.shape and np.all(np.isfinite(recon)),
+            "phase 15: CLI result not finite or misshapen")
+    require(cli_dev <= KERNEL_TOL, "phase 15: CLI vs library %.3g" % cli_dev)
+    print("phase 15 CLI --data-loss huber %s: shape %s finite, max|cli - "
+          "library|/max %.3e; launches %s, plain calls 0"
+          % (os.path.basename(obs), recon.shape, cli_dev, cli_launches))
+    return {"launches": scale_launches, "err": err, "times": times}
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -724,6 +1033,7 @@ def main():
     del solve, bs
 
     pd = run_pd_phases(device, card)
+    robust = run_robust_phases(device, card)
 
     replaces = {
         "normal_apply": "nsol_tpu/ops/pallas/blocked.py:402",
@@ -742,6 +1052,15 @@ def main():
          "launches": pd["launches"][k], "max_abs_err": pd["err"][k],
          "ms": pd["times"][k][0], "plain_ms": pd["times"][k][1]}
         for k in F.PD_UNITS]
+    kernels += [
+        {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/robust.cu",
+         "replaces": r, "launches": robust["launches"][k],
+         "max_abs_err": robust["err"][k], "ms": robust["times"][k][0],
+         "plain_ms": robust["times"][k][1]}
+        for k, r in (("blur_apply", "nsol_tpu/ops/pallas/robust.py:161"),
+                     ("irls_head", "nsol_tpu/ops/pallas/fused.py:382"),
+                     ("weighted_apply", "nsol_tpu/ops/pallas/robust.py:264"),
+                     ("irls_step", "nsol_tpu/ops/pallas/fused.py:382"))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Declarative CLI argument collection (counterpart of
-``nsol_tpu/cli/argparser.py``): the options of the ADMM/TVL2/linear
-deconvolution route and of the denoising CLI, plus ``--device``. Flag
+``nsol_tpu/cli/argparser.py``): the options of the ADMM/TVL2
+deconvolution route (linear and robust losses) and of the denoising CLI,
+plus ``--device``. Flag
 names, defaults and help conventions follow the reference so one command
 line reads the same in both packages.
 """
@@ -102,6 +103,13 @@ class InputArgparser(object):
                   help="Robust loss rho applied to squared residuals of "
                        "the data term; one of %s." % ", ".join(LOSSES))
 
+    def add_data_loss_scale(self, default=1):
+        self._add("--data-loss-scale", type=float, default=default,
+                  help="Scale C of the robust loss (scipy f_scale "
+                       "convention, rho_C(r2) = C^2 rho(r2/C^2)): residuals "
+                       "below ~C count quadratically, larger ones are "
+                       "downweighted as outliers.")
+
     def add_blur(self, default=0):
         self._add("--blur", type=float, nargs="+", default=default,
                   help="Gaussian blur stddev in voxels: one number for an "
@@ -118,8 +126,9 @@ class InputArgparser(object):
     def add_minimizer(self, default="lsmr"):
         self._add("--minimizer", type=str, default=default,
                   help="Engine for the inner quadratic problem: 'auto' "
-                       "(cg for a linear loss with a separable blur) or "
-                       "'cg' (CG on the normal equations).")
+                       "(cg for a linear loss, irls for a robust one, with "
+                       "a separable blur), 'cg' (CG on the normal "
+                       "equations) or 'irls' (reweighted CG).")
 
     def add_rho(self, default=0.5):
         self._add("--rho", type=float, default=default,
@@ -134,6 +143,11 @@ class InputArgparser(object):
     def add_iter_max(self, default=10):
         self._add("--iter-max", type=int, default=default,
                   help="Iteration budget of each inner quadratic solve.")
+
+    def add_irls_cg_iters(self, default=8):
+        self._add("--irls-cg-iters", type=int, default=default,
+                  help="CG iterations inside each IRLS reweighting step "
+                       "(only used when --minimizer irls).")
 
     def add_verbose(self, default=1):
         self._add("--verbose", type=int, default=default,

@@ -31,7 +31,8 @@
 // bandwidth and the per-axis stencil passes, which read every tap through
 // L2, at a fraction of it. The design keeps the passes simple (all loads
 // coalesced along X, no shared-memory tiles yet) and keeps every CG scalar
-// on the device, so nothing waits for the host inside a solve.
+// on the device, so nothing waits for the host inside a solve. The per-axis
+// passes and the CG update live in stencil.cuh, shared with robust.cu.
 //
 // Reductions are deterministic: each block reduces its grid-stride slice
 // in double in a fixed order, writes one partial, and a one-block second
@@ -40,170 +41,41 @@
 
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "stencil.cuh"
 
 namespace {
 
-// Device scalar slots of the CG state (double).
-enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3 };
 // Kernel units, the indices of the launch counts handed back to Python.
 enum Unit { kNormalApply = 0, kCgStep = 1, kCgUpdate = 2, kAdmmTail = 3 };
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
-// Second-stage reductions.
-enum Reduce { kReducePQ = 0, kReduceRR = 1, kReduceRR0 = 2 };
-
-struct Dims {
-  int Z, Y, X;
-  __host__ __device__ long long n() const { return (long long)Z * Y * X; }
-  __host__ __device__ long long plane() const { return (long long)Y * X; }
-};
-
-struct Taps {  // per-array-axis stencils, contiguous in one device buffer
-  const float* z;
-  const float* y;
-  const float* x;
-  int kz, ky, kx;
-};
-
-struct Spacing {  // 1/h and 1/h^2 in spatial (x, y, z) order
-  float ihx, ihy, ihz, ih2x, ih2y, ih2z;
-};
-
-int grid_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-#define GRID_STRIDE(i, n)                                                  \
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
-       i < (n); i += (long long)gridDim.x * blockDim.x)
-
-// scipy.ndimage wrap convolution along one axis:
-// y[i] = sum_j k[j] u[(i + c - j) mod n], c = K / 2. The index walks down
-// with wrap, so a stencil longer than the axis wraps as often as it must.
-template <typename Load>
-__device__ __forceinline__ float wrap_conv(Load load, long long base, int coord, int n,
-                                           long long stride, const float* __restrict__ taps,
-                                           int K) {
-  int m = (coord + K / 2) % n;
-  float acc = 0.f;
-  for (int j = 0; j < K; ++j) {
-    acc = fmaf(__ldg(taps + j), load(base + (long long)m * stride), acc);
-    m = (m == 0) ? n - 1 : m - 1;
-  }
-  return acc;
-}
-
-// Zero-boundary D^T D along one axis: (u[i] - u[i-1]) [i > 0] + u[i] - u[i+1]
-// with u[n] := 0, i.e. x[0] - x[1] on the first row and 2x[n-1] - x[n-2] on
-// the last (nsol_tpu/ops/grad.py::gradient_normal).
-__device__ __forceinline__ float lap_axis(const float* __restrict__ u, long long i, int coord,
-                                          int n, long long stride) {
-  const float c = u[i];
-  const float lo = coord > 0 ? c - u[i - stride] : 0.f;
-  const float hi = c - (coord + 1 < n ? u[i + stride] : 0.f);
-  return lo + hi;
-}
 
 __device__ __forceinline__ float clip0(float u) { return u < 0.f ? 0.f : u; }
 
-// x pass. src = r, or the CG direction p' = r + beta p (p' = r on the
-// first trip), written to p_new when p_new is given.
-__global__ void conv_x_kernel(const float* __restrict__ r, const float* __restrict__ p,
-                              const double* __restrict__ scal, int first,
-                              float* __restrict__ p_new, float* __restrict__ out,
-                              const float* __restrict__ taps, int K, Dims d) {
-  const bool blend = p_new != nullptr && !first;
-  const float beta = blend ? (float)scal[kBeta] : 0.f;
-  auto src = [&](long long k) { return blend ? __fmaf_rn(beta, p[k], r[k]) : r[k]; };
-  const long long n = d.n();
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    out[i] = wrap_conv(src, i - ix, ix, d.X, 1, taps, K);
-    if (p_new != nullptr) p_new[i] = src(i);
-  }
-}
-
-__global__ void conv_y_kernel(const float* __restrict__ in, float* __restrict__ out,
-                              const float* __restrict__ taps, int K, Dims d) {
-  auto src = [&](long long k) { return in[k]; };
-  const long long n = d.n();
-  GRID_STRIDE(i, n) {
-    const int iy = (int)((i / d.X) % d.Y);
-    out[i] = wrap_conv(src, i - (long long)iy * d.X, iy, d.Y, d.X, taps, K);
-  }
-}
-
-// z pass: q = conv_z(t) + rho * lap(v), then the epilogue.
-__global__ void conv_z_lap_kernel(const float* __restrict__ t, const float* __restrict__ v,
-                                  const float* __restrict__ rhs, float* __restrict__ out,
-                                  double* __restrict__ partials, const float* __restrict__ taps,
-                                  int K, float rho, Spacing sp, int epilogue, Dims d) {
-  auto src = [&](long long k) { return t[k]; };
-  const long long n = d.n(), plane = d.plane();
-  double acc = 0.0;
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    const int iy = (int)((i / d.X) % d.Y);
-    const int iz = (int)(i / plane);
-    const float conv = wrap_conv(src, i - (long long)iz * plane, iz, d.Z, plane, taps, K);
-    const float lap = sp.ih2x * lap_axis(v, i, ix, d.X, 1) +
-                      sp.ih2y * lap_axis(v, i, iy, d.Y, d.X) +
-                      sp.ih2z * lap_axis(v, i, iz, d.Z, plane);
-    const float q = fmaf(rho, lap, conv);
-    if (epilogue == kResidual) {
+// z-pass epilogue of the normal operator: q = conv_z + rho * lap(v), then
+// plain q, the CG residual rhs - q with its square summed, or q with v.q
+// summed.
+struct NormalEpi {
+  const float* v;
+  const float* rhs;
+  float* out;
+  float rho;
+  Spacing sp;
+  int mode;
+  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
+    const float q = fmaf(rho, laplacian(Load{v}, i, c, sp, d), conv);
+    if (mode == kResidual) {
       const float res = rhs[i] - q;
       out[i] = res;
-      acc += (double)res * res;
-    } else {
-      out[i] = q;
-      if (epilogue == kDot) acc += (double)v[i] * q;
+      return (double)res * res;
     }
+    // v[i] is read before the store: the compiler cannot tell that out
+    // does not alias v, and a load after the store waits for it.
+    const double dot = mode == kDot ? (double)__ldg(v + i) * q : 0.0;
+    out[i] = q;
+    return dot;
   }
-  if (epilogue != kPlain) {  // uniform across the block
-    const double s = block_sum(acc);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
-  }
-}
-
-__global__ void cg_update_kernel(float* __restrict__ x, float* __restrict__ r,
-                                 const float* __restrict__ p, const float* __restrict__ q,
-                                 const double* __restrict__ scal, double* __restrict__ partials,
-                                 long long n) {
-  const float a = (float)scal[kA];
-  double acc = 0.0;
-  GRID_STRIDE(i, n) {
-    x[i] = fmaf(a, p[i], x[i]);
-    const float ri = fmaf(-a, q[i], r[i]);
-    r[i] = ri;
-    acc += (double)ri * ri;
-  }
-  const double s = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
-}
-
-// Second stage: sum the partials in a fixed order and update the CG
-// scalars with the reference's guards (fused.py:365-374, cg.py:86-92).
-__global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
-                              double* __restrict__ scal, int mode) {
-  double acc = 0.0;
-  for (int k = threadIdx.x; k < nparts; k += blockDim.x) acc += partials[k];
-  const double s = block_sum(acc);
-  if (threadIdx.x != 0) return;
-  if (mode == kReducePQ) {
-    scal[kPQ] = s;
-    scal[kA] = s > 0.0 ? scal[kGamma] / s : 0.0;
-  } else if (mode == kReduceRR) {
-    const double g = scal[kGamma];
-    scal[kBeta] = g > 0.0 ? s / g : 0.0;
-    scal[kGamma] = s;
-  } else {
-    scal[kGamma] = s;
-    scal[kBeta] = 0.0;
-  }
-}
+};
 
 // ADMM prox/dual update (fused.py:651-667). init: v = grad x (unclipped),
 // w = 0 (fused.py:579-580).
@@ -268,32 +140,20 @@ __global__ void admm_rhs_kernel(float* __restrict__ x, const float* __restrict__
 cudaError_t normal_apply(const float* v, float* out, float* t1, float* t2, const float* rhs,
                          double* partials, double* scal, Taps tp, float rho, Spacing sp,
                          Dims d, cudaStream_t s) {
-  const int g = grid_for(d.n());
-  conv_x_kernel<<<g, kThreads, 0, s>>>(v, nullptr, nullptr, 0, nullptr, t1, tp.x, tp.kx, d);
-  conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
-  conv_z_lap_kernel<<<g, kThreads, 0, s>>>(t2, v, rhs, out, partials, tp.z, tp.kz, rho, sp,
-                                           rhs != nullptr ? kResidual : kPlain, d);
-  if (rhs != nullptr) reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal, kReduceRR0);
+  const NormalEpi epi{v, rhs, out, rho, sp, rhs != nullptr ? kResidual : kPlain};
+  blur_chain(Load{v}, nullptr, epi, rhs != nullptr ? partials : nullptr, t1, t2, tp, d, s);
+  if (rhs != nullptr)
+    reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReduceRR0);
   return cudaGetLastError();
 }
 
 cudaError_t cg_step(const float* r, const float* p, float* p_new, float* q, float* t1,
                     float* t2, double* partials, double* scal, int first, Taps tp, float rho,
                     Spacing sp, Dims d, cudaStream_t s) {
-  const int g = grid_for(d.n());
-  conv_x_kernel<<<g, kThreads, 0, s>>>(r, p, scal, first, p_new, t1, tp.x, tp.kx, d);
-  conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
-  conv_z_lap_kernel<<<g, kThreads, 0, s>>>(t2, p_new, nullptr, q, partials, tp.z, tp.kz, rho,
-                                           sp, kDot, d);
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal, kReducePQ);
-  return cudaGetLastError();
-}
-
-cudaError_t cg_update(float* x, float* r, const float* p, const float* q, double* partials,
-                      double* scal, long long n, cudaStream_t s) {
-  const int g = grid_for(n);
-  cg_update_kernel<<<g, kThreads, 0, s>>>(x, r, p, q, scal, partials, n);
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal, kReduceRR);
+  const Direction dir{r, p, nullptr, scal, first, 0.f};
+  blur_chain(dir, p_new, NormalEpi{p_new, nullptr, q, rho, sp, kDot}, partials, t1, t2, tp, d,
+             s);
+  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReducePQ);
   return cudaGetLastError();
 }
 
@@ -303,10 +163,6 @@ cudaError_t admm_tail(float* x, float* v, float* w, const float* atb, float* rhs
   admm_shrink_kernel<<<g, kThreads, 0, s>>>(x, v, w, sp, tau, init, d);
   admm_rhs_kernel<<<g, kThreads, 0, s>>>(x, v, w, atb, rhs, sp, rho, init ? 0 : 1, d);
   return cudaGetLastError();
-}
-
-Taps make_taps(const float* buf, int kz, int ky, int kx) {
-  return Taps{buf, buf + kz, buf + kz + ky, kz, ky, kx};
 }
 
 }  // namespace
@@ -376,15 +232,7 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
   const Spacing sp{ihx, ihy, ihz, ih2x, ih2y, ih2z};
   const Taps ta = make_taps(taps_a, kaz, kay, kax);
   const Taps tn = make_taps(taps_n, knz, kny, knx);
-  cudaError_t e;
-
-#define UNIT(idx, call)        \
-  do {                         \
-    e = (call);                \
-    counts[idx] += 1;          \
-    if (e != cudaSuccess) return (int)e; \
-  } while (0)
-
+#define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
   // A^T b = A b once (A symmetric, fused.py:576), then v0 = grad x0, w0 = 0
   // and the first rhs.
   UNIT(kNormalApply, normal_apply(b, atb, t1, t2, nullptr, partials, scal, ta, 0.f, sp, d, s));

@@ -8,6 +8,14 @@ The deconvolution path has no weights. Its parameters are
 * the ADMM state: ``x``, plus ``v`` and ``w`` in the stacked ``(d, *shape)``
   gradient layout, x component first (``nsol_tpu/ops/grad.py``).
 
+The robust (IRLS) deconvolution path adds the loss name (one of
+``nsol_tpu_torch.ops.losses.LOSSES``, its index the ``Loss`` enum of
+``csrc/robust.cu``) and the runtime scale ``data_loss_scale`` (``C`` of
+``ρ_C(r²) = C²ρ(r²/C²)``, passed unscaled by the CLI). Its state is ``x``
+alone: the weights ``ρ'_C(r²)`` and the active set ``free`` (a float
+``{0, 1}`` field) are frozen for one IRLS sweep and rebuilt from ``x`` at
+the next, and ``v``/``w`` feed nothing that reaches ``x``.
+
 The primal-dual denoising path has no weights either. Its parameters are the
 step schedules ``(σ_t, τ_t, τ_t·λ, θ_t)`` of ``_pd_schedules`` and its state
 is ``(x, x̄, p)``, the dual ``p`` stacked ``(d, *shape)`` (or

@@ -45,11 +45,20 @@ class Taps(object):
     """Per-array-axis 1-D stencils, concatenated in one device buffer."""
 
     def __init__(self, factors, device, dtype):
+        self._factors = [np.asarray(f, np.float64) for f in factors]
         self.lengths = tuple(int(len(f)) for f in factors)
-        self.buf = torch.as_tensor(
-            np.concatenate([np.asarray(f, np.float64) for f in factors]),
-            dtype=dtype, device=device).contiguous()
+        self.buf = torch.as_tensor(np.concatenate(self._factors),
+                                   dtype=dtype, device=device).contiguous()
         self.per_axis = list(torch.split(self.buf, self.lengths))
+        self._volume = self if len(factors) == 3 else None
+
+    def as_volume(self):
+        """These taps for a 2-D image viewed as a (1, Y, X) volume: the z
+        tap ``[1]`` first, so the z pass copies exactly."""
+        if self._volume is None:
+            self._volume = Taps([np.ones(1)] + self._factors,
+                                self.buf.device, self.buf.dtype)
+        return self._volume
 
 
 class Stencils(object):
@@ -93,11 +102,15 @@ def _laplacian(v, inv_h2):
     return out
 
 
-def _apply_plain(v, taps, inv_h2, rho):
+def _blur_plain(v, taps):
     u = v
     for ax in reversed(range(v.ndim)):  # x pass first, as the kernel does
         u = C.convolve_axis(u, taps.per_axis[ax], ax)
-    return u + rho * _laplacian(v, inv_h2)
+    return u
+
+
+def _apply_plain(v, taps, inv_h2, rho):
+    return _blur_plain(v, taps) + rho * _laplacian(v, inv_h2)
 
 
 def normal_apply_plain(v, taps, inv_h2, rho, rhs=None, scal=None):
@@ -241,11 +254,11 @@ def cg_step(r, p, scal, taps, inv_h2, rho, first=False):
 
 def cg_update(x, r, p, q, scal):
     """In place: ``x += a·p``, ``r −= a·q`` with ``a = scal[A]``; then
-    ``β = ‖r‖²/γ`` (0 unless γ > 0) and ``γ = ‖r‖²``."""
+    ``β = ‖r‖²/γ`` (0 unless γ > 0) and ``γ = ‖r‖²``. Elementwise: the
+    kernel takes tensors of any shape."""
     if x.device.type == "cpu":
         return cg_update_plain(x, r, p, q, scal)
     name = "cg_update"
-    check_volume(name, x)
     check_tensors(name, x.shape, x, r, p, q)
     _check_consts(name, x.device, scal=scal)
     lib = build.load()

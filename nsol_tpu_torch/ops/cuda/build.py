@@ -51,6 +51,13 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
+    "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P, _P],
+    "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
+    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F] * 4
+    + [_I] * 3 + [_P, _P],
+    "nsol_irls_step": [_P, _P, _LL, _P, _P],
+    "nsol_robust_admm_solve": [_P] * 14 + [_I] * 3 + [_F] * 4 + [_I, _F]
+    + [_I] * 6 + [_P, _P],
 }
 
 #: what the last build did: library path, seconds, nvcc's ptxas report
@@ -110,7 +117,8 @@ def load():
 def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
-    admm_tail; ``pd.cu``: pd_dual, pd_primal, pd_record)."""
+    admm_tail; ``pd.cu``: pd_dual, pd_primal, pd_record; ``robust.cu``:
+    blur_apply, irls_head, weighted_apply, irls_step, cg_update)."""
     return (ctypes.c_longlong * n)()
 
 

@@ -19,7 +19,8 @@ neighbours of ``v − w``; bytes bound it (~11 volumes moved).
 The TPU-only scheduling options of the reference (``precision`` pass
 modes, ``compact_dirs``, ``blur_reorder``, ``diff_matmul``,
 ``pipelined_cg``) have no counterpart: the port computes the exact f32
-result and raises on them.
+result and raises on them. A robust ``data_loss`` builds the IRLS solve of
+:mod:`nsol_tpu_torch.ops.cuda.robust` (``csrc/robust.cu``).
 
 The whole primal-dual (Chambolle–Pock) denoising solve on the GPU:
 counterpart of ``fused.py::make_fused_pd_denoise_solver`` (:957). The TPU
@@ -47,12 +48,13 @@ from nsol_tpu_torch.ops.prox import (
     prox_huber_conj, prox_tv_conj, vectorial_soft_threshold)
 from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import build
+from nsol_tpu_torch.ops.cuda import robust as R
 from nsol_tpu_torch.solvers.primal_dual import ALG_TYPES, step_schedules
 
 __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
-           "PD_TYPES", "ADMM_UNITS", "PD_UNITS",
+           "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
            "reset_counts", "launch_counts", "plain_counts"]
 
 
@@ -184,15 +186,22 @@ _TPU_ONLY = ("precision", "compact_dirs", "blur_reorder", "diff_matmul",
 
 def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
                            iterations=10, iter_max=10, data_loss="linear",
-                           record=False, **tpu_options):
-    """Build ``solve(b, x0, alpha, rho) -> x``: ``iterations`` ADMM steps,
-    each with ``iter_max`` warm-started CG iterations on
+                           irls_cg_iters=8, record=False, **tpu_options):
+    """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0)``.
+
+    ``data_loss="linear"``: ``iterations`` ADMM steps, each with
+    ``iter_max`` warm-started CG iterations on
     ``(AᵀA + ρDᵀD) x = Aᵀb + ρ·div(v − w)``, a non-negativity clip, and the
     grouped shrink at ``α/ρ`` — ``admm_solve(minimizer="cg")`` step for
-    step, with the fused TPU kernel's guards.
+    step, with the fused TPU kernel's guards; ``data_loss_scale`` is
+    ignored. A robust loss (huber/soft_l1/cauchy/arctan):
+    ``admm_solve(minimizer="irls")``, ``iter_max`` MM sweeps of
+    ``irls_cg_iters`` masked-CG iterations per step at the runtime
+    ``data_loss_scale`` (:func:`~nsol_tpu_torch.ops.cuda.robust.make_robust_solver`).
 
     Device and dtype follow ``b``: on CUDA the whole solve runs as the
-    kernel sequence of ``csrc/admm.cu`` (3-D float32); on the CPU it runs
+    kernel sequence of ``csrc/admm.cu`` (linear, 3-D float32) or
+    ``csrc/robust.cu`` (robust, 2-D or 3-D float32); on the CPU it runs
     the plain versions (2-D or 3-D, any float dtype). ``solve.plain`` runs
     the plain versions on any device — the reference the kernels are held
     against. ``alpha``/``rho`` are runtime scalars.
@@ -202,12 +211,13 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
             raise TypeError("unexpected argument %r" % key)
         raise ValueError("%s schedules the TPU's matrix unit and has no "
                          "counterpart in the port (exact f32 only)" % key)
-    if data_loss != "linear":
-        raise NotImplementedError("the robust branch is not ported yet "
-                                  "(ROADMAP Queue 2 K5)")
     if record:
         raise NotImplementedError("record=True is not ported yet "
                                   "(ROADMAP Queue 2 K3)")
+    if data_loss != "linear":
+        return R.make_robust_solver(shape, cov, alpha_cut, spacing,
+                                    iterations, iter_max, irls_cg_iters,
+                                    data_loss)
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
@@ -217,14 +227,14 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     def stencils(t):
         return B.stencils_for(cache, shape, factors, spacing, t)
 
-    def solve(b, x0, alpha, rho):
+    def solve(b, x0, alpha, rho, data_loss_scale=1.0):
         st = stencils(b)
         if b.device.type == "cpu":
             return _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
                                 iterations, iter_max)
         return _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max)
 
-    def plain(b, x0, alpha, rho):
+    def plain(b, x0, alpha, rho, data_loss_scale=1.0):
         return _solve_steps(_ADMM_PLAIN, stencils(b), b, x0, alpha, rho,
                             iterations, iter_max)
 
@@ -608,8 +618,9 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 #: kernel units of each path, by wrapper name
 ADMM_UNITS = tuple(f.__name__ for f in _ADMM_UNITS)
 PD_UNITS = tuple(f.__name__ for f in _PD_UNITS)
-_UNITS = {f.__name__: (f, p) for f, p in zip(_ADMM_UNITS + _PD_UNITS,
-                                              _ADMM_PLAIN + _PD_PLAIN)}
+ROBUST_UNITS = tuple(f.__name__ for f in R.UNITS)
+_UNITS = {f.__name__: (f, p) for f, p in zip(
+    _ADMM_UNITS + _PD_UNITS + R.UNITS, _ADMM_PLAIN + _PD_PLAIN + R.PLAIN)}
 
 
 def reset_counts():

@@ -1,7 +1,8 @@
-"""ADMM for TV-regularized deconvolution (counterpart of
-``nsol_tpu/solvers/admm.py``, linear loss with ``minimizer="cg"``).
+"""ADMM for TV-regularized (robust) deconvolution (counterpart of
+``nsol_tpu/solvers/admm.py``: ``minimizer="cg"`` for the linear loss,
+``"irls"`` for the robust ones).
 
-Solves ``min_x ½‖Ax−b‖² + α TV(Bx − b_reg)``
+Solves ``min_x ½Σρ((Ax−b)²) + α TV(Bx − b_reg)``
 (reference: nsol/admm_linear_solver.py). Per iteration (:202-218):
 
 1. x-update: inner Tikhonov solve with ``alpha=ρ, b_reg = v − w + b_reg``
@@ -10,8 +11,9 @@ Solves ``min_x ½‖Ax−b‖² + α TV(Bx − b_reg)``
 3. dual update ``w = Bx + w − b_reg − v``
 
 The reference's ``lax.scan`` becomes a Python loop; every scalar stays on
-the device. The robust losses wait for their slice (ROADMAP Queue 1
-item 6).
+the device. With a robust loss the x-update ignores ``v − w`` (the
+reference's b_reg-ignoring quirk, kept), so ``x`` does not depend on
+``alpha``: only the v/w chain does.
 """
 
 import numpy as np
@@ -25,17 +27,16 @@ __all__ = ["admm_solve"]
 
 def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
                iterations=10, iter_max=10, data_loss="linear",
-               minimizer="cg", inner_bounds=(0.0, np.inf), record_fn=None,
-               normal_A=None, normal_B=None, normal_M=None):
+               data_loss_scale=1.0, minimizer="cg",
+               inner_bounds=(0.0, np.inf), record_fn=None, normal_A=None,
+               normal_B=None, irls_cg_iters=8, normal_M=None, normal_W=None,
+               grad_W=None):
     """Run ``iterations`` ADMM steps from ``x0``.
 
     Returns ``(x, records)``; ``records`` is None unless ``record_fn`` is
     given, then ``{"measures": record_fn stacked over [x0, x1, ...]}`` with
     each leaf stacked along a new leading axis (the reference's layout).
     """
-    if data_loss != "linear":
-        raise NotImplementedError("robust data losses are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     dtype, device = x0.dtype, x0.device
     alpha = torch.as_tensor(alpha, dtype=dtype, device=device)
     rho = torch.as_tensor(rho, dtype=dtype, device=device)
@@ -53,9 +54,11 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
     for _ in range(iterations):
         x = tikhonov_solve(
             A, A_adj, B, B_adj, b, b_reg=v - w + b_reg, x0=x, alpha=rho,
-            data_loss=data_loss, minimizer=minimizer, iter_max=iter_max,
-            bounds=inner_bounds, normal_A=normal_A, normal_B=normal_B,
-            At_b=At_b, normal_M=normal_M)
+            data_loss=data_loss, data_loss_scale=data_loss_scale,
+            minimizer=minimizer, iter_max=iter_max, bounds=inner_bounds,
+            normal_A=normal_A, normal_B=normal_B, At_b=At_b,
+            irls_cg_iters=irls_cg_iters, normal_M=normal_M,
+            normal_W=normal_W, grad_W=grad_W)
         t = B(x) + w - b_reg
         v = vectorial_soft_threshold(t, alpha / rho)
         w = t - v

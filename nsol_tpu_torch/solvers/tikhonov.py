@@ -1,15 +1,20 @@
-"""Tikhonov-regularized least squares: the quadratic engine (counterpart of
-``nsol_tpu/solvers/tikhonov.py``, ``minimizer="cg"`` branch).
+"""Tikhonov-regularized (robust) least squares: the quadratic engine
+(counterpart of ``nsol_tpu/solvers/tikhonov.py``, the ``"cg"`` and
+``"irls"`` branches).
 
 ``minimizer="cg"`` runs CG directly on the normal equations
-``(AᵀA + α BᵀB) x = Aᵀb + α Bᵀ b_reg``. The reference's other engines
-("lsmr", "lsq_linear", "irls", "least_squares", L-BFGS) raise
+``(AᵀA + α BᵀB) x = Aᵀb + α Bᵀ b_reg``. ``minimizer="irls"`` minimizes the
+robust cost ``½Σρ_C((Ax−b)²) + α·½‖Bx‖²`` by reweighted least squares in
+projected-Newton form (tikhonov.py:193-252), ``b_reg`` ignored as the
+reference's robust path ignores it. The reference's other engines
+("lsmr", "lsq_linear", "least_squares", L-BFGS) raise
 ``NotImplementedError`` until their slice lands (ROADMAP Queue 1 item 6).
 """
 
 import numpy as np
 import torch
 
+from nsol_tpu_torch.ops import losses
 from nsol_tpu_torch.solvers.cg import cg
 
 __all__ = ["tikhonov_solve", "resolve_minimizer"]
@@ -44,31 +49,44 @@ def _clip_bounds(x, bounds):
 
 
 def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
-                   data_loss="linear", minimizer="cg", iter_max=10,
-                   bounds=(0.0, np.inf), normal_A=None, normal_B=None,
-                   At_b=None, normal_M=None):
-    """Return the minimizer estimate of ``½‖Ax−b‖² + α/2 ‖Bx−b_reg‖²``.
+                   data_loss="linear", data_loss_scale=1.0, minimizer="cg",
+                   iter_max=10, bounds=(0.0, np.inf), normal_A=None,
+                   normal_B=None, At_b=None, irls_cg_iters=8, normal_M=None,
+                   normal_W=None, grad_W=None):
+    """Return the minimizer estimate of ``½Σρ((Ax−b)²) + α/2 ‖Bx−b_reg‖²``.
 
     ``normal_A``/``normal_B`` are fused normal operators (default: adjoint ∘
-    forward); ``normal_M(v, alpha)`` replaces the whole SPD apply;
-    ``At_b`` a precomputed ``Aᵀb``. ``x0`` is clipped to ``bounds`` on entry
-    and the result on exit (tikhonov.py:130,152).
+    forward); ``normal_M(v, alpha)`` replaces the whole SPD apply of
+    ``"cg"``; ``At_b`` a precomputed ``Aᵀb``. ``x0`` is clipped to
+    ``bounds`` on entry and the result on exit (tikhonov.py:130,152).
+
+    ``minimizer="irls"``: ``iter_max`` MM sweeps, each freezing the weights
+    ``w = ρ'_C(r²)`` (``C = data_loss_scale``) and the active box
+    constraints, then ``irls_cg_iters`` CG iterations from zero on the
+    free variables of ``(AᵀWA + αBᵀB) v = −∇cost`` and the projection of
+    ``x + v`` onto the box. ``normal_W(vf, wts, alpha)`` replaces the
+    weighted apply ``Aᵀ(wts·A vf) + α·BᵀB vf``, ``grad_W(x, wts_r, alpha)``
+    the gradient ``Aᵀ(wts_r) + α·BᵀB x``.
     """
-    if minimizer != "cg":
+    if minimizer in ("lsmr", "lsq_linear", "cg") and data_loss != "linear":
+        raise ValueError("%s minimizer cannot be used with non-linear data "
+                         "loss" % minimizer)
+    if minimizer not in ("cg", "irls"):
         raise NotImplementedError(
             "minimizer=%r is not ported yet (ROADMAP Queue 1 item 6)"
             % minimizer)
-    if data_loss != "linear":
-        raise ValueError("cg minimizer cannot be used with non-linear "
-                         "data loss")
     x0 = _clip_bounds(x0, bounds)
     alpha_t = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
+    nB = normal_B if normal_B is not None else (lambda v: B_adj(B(v)))
+    if minimizer == "irls":
+        return _irls(A, A_adj, nB, b, x0, alpha_t, data_loss,
+                     data_loss_scale, iter_max, bounds, irls_cg_iters,
+                     normal_W, grad_W)
     if normal_M is not None:
         def apply_M(v):
             return normal_M(v, alpha_t)
     else:
         nA = normal_A if normal_A is not None else (lambda v: A_adj(A(v)))
-        nB = normal_B if normal_B is not None else (lambda v: B_adj(B(v)))
 
         def apply_M(v):
             return nA(v) + alpha_t * nB(v)
@@ -79,3 +97,35 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     rhs = (At_b if At_b is not None else A_adj(b)) + alpha_t * B_adj(b_reg)
     x = cg(apply_M, rhs, x0, iters=iter_max)
     return _clip_bounds(x, bounds)
+
+
+def _irls(A, A_adj, nB, b, x, alpha_t, data_loss, data_loss_scale, sweeps,
+          bounds, cg_iters, normal_W, grad_W):
+    """The ``"irls"`` engine (tikhonov.py:193-252) from the clipped ``x``."""
+    grad_rho = losses.gradient_loss(data_loss)
+    for _ in range(sweeps):
+        r = A(x) - b
+        wts = grad_rho(r * r, f_scale=data_loss_scale)
+        # ∇cost = Aᵀ(ρ'(r²)·r) + α BᵀBx: the majorizer's gradient at x
+        if grad_W is not None:
+            g = grad_W(x, wts * r, alpha_t)
+        else:
+            g = A_adj(wts * r) + alpha_t * nB(x)
+        if bounds is None:
+            free = torch.ones_like(x)
+        else:
+            active = ((x <= bounds[0]) & (g > 0)) | ((x >= bounds[1])
+                                                      & (g < 0))
+            free = (~active).to(x.dtype)
+
+        def apply_M(v, free=free, wts=wts):
+            vf = free * v
+            if normal_W is not None:
+                core = normal_W(vf, wts, alpha_t)
+            else:
+                core = A_adj(wts * A(vf)) + alpha_t * nB(vf)
+            return free * core + (v - vf)
+
+        v = cg(apply_M, -free * g, torch.zeros_like(x), iters=cg_iters)
+        x = _clip_bounds(x + v, bounds)
+    return x

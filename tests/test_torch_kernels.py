@@ -141,7 +141,7 @@ def test_fused_admm_solver_rejects_tpu_only_and_unported_options():
     with pytest.raises(TypeError):
         F.make_fused_admm_solver((8, 8, 8), cov, interpret=True)
     with pytest.raises(NotImplementedError):
-        F.make_fused_admm_solver((8, 8, 8), cov, data_loss="huber")
+        F.make_fused_admm_solver((8, 8, 8), cov, record=True)
     solve = F.make_fused_admm_solver((8, 8, 8), cov)
     with pytest.raises(ValueError):
         solve(torch.zeros(8, 8, 9), torch.zeros(8, 8, 9), 0.01, 0.5)

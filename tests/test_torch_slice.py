@@ -97,7 +97,8 @@ def test_cli_cpu_matches_library(tmp_path, rng):
 @pytest.mark.parametrize("argv", [
     ["--solver", "PD"], ["--solver", "ADMM", "--reconstruction-type",
                          "TK1L2"],
-    ["--solver", "ADMM", "--data-loss", "huber"]])
+    ["--solver", "ADMM", "--data-loss", "huber", "--minimizer",
+     "L-BFGS-B"]])
 def test_cli_unported_routes_raise(tmp_path, argv):
     obs = str(tmp_path / "b.nii.gz")
     write_nifti(np.ones((4, 4, 4), np.float32), obs)
