@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nsol_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
-paths through the library and the CLI, checking each converged objective
+against its plain PyTorch version on the card, and drives the port's
+paths through the library and the CLIs, checking each converged objective
 against its float64 anchor and timing kernels and solves with CUDA events:
 
 * phases 1-6, deconvolution: 3-D TV-L2 of the 64³ Shepp–Logan stand-in by
@@ -20,15 +20,25 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   units against their plain versions (4 losses at two scales, 2-D and
   3-D, anisotropic), the blurred noisy Lena 256² (10 outer × 3 sweeps × 6
   CG, α 0.01, ρ 0.5), the 256³ volume with salt-and-pepper outliers
-  (10 × 5 × 8), and ``run_deconvolution --data-loss huber`` on the PNG.
+  (10 × 5 × 8), and ``run_deconvolution --data-loss huber`` on the PNG;
+* phases 16-19, the deconvolution parameter studies: the TK0/TK1 instances
+  of the applies, ``admm_record`` (5 losses), ``tik_clip`` and the linear
+  ADMM units on 2-D images against their plain versions, and the whole C
+  solves; the Lena 256² TK1L2/TK0L2 sweeps over 64 α (CG 10) and the TK1L2
+  huber sweep through ``TikhonovLinearSolver.run_sweep``, against float64
+  anchors; the TV-L2 ADMM study with records (8 α × 2 ρ, 50 × 10) through
+  ``ADMMLinearSolver.run_sweep`` and ``run_deconvolution`` on the PNG; a
+  256³ TK1L2 sweep over 8 α; ``nsol_torch_run_deconvolution_study`` on
+  the 64³ NIfTI phantom (TK1L2) and on Lena (TVL2 by ADMM).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
 no result line. It imports neither jax nor nsol_tpu, and needs the
-checkout's ``nsol_tpu_torch`` beside it.
+checkout's ``nsol_tpu_torch`` beside it. ``--only GROUP,...`` runs some
+phase groups (for development; it prints no result line).
 
-The last two lines are a JSON record of the kernels and the result line
-``{"ok": true, "device": {...}}``.
+The last lines are a JSON record of the kernels, the card's name and
+power limit, and the result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -151,6 +161,54 @@ def objective_device(x, b, A, alpha):
 
 def max_rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+#: the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
+#: and float32 operations/s outside the tensor cores
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+
+
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``nbytes`` through HBM and do ``ops`` float32 operations."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1):
+    """Bound of one call of the kernel unit ``name`` on ``n`` voxels (a
+    batch of ``batch`` images for the PD units): each input volume read
+    once, each output volume written once, 4 bytes a voxel; operations
+    from the taps (``taps``: per-axis stencil lengths of its blur chain;
+    2 per tap, ~15 for the Laplacian, ~10 for an elementwise update).
+    Returns ``(bound_ms, bound_by)``."""
+    chain = 2 * sum(taps)
+    vols, ops = {
+        "normal_apply": (2, chain + 15),        # v in, q out
+        "cg_step": (4, chain + 17),             # r p in, p' q out
+        "cg_update": (6, 8),                    # x r p q in, x r out
+        "admm_tail": (5 + 8 if nd == 3 else 4 + 6, 40),
+        "admm_record": (2, chain + 20),         # x b in, two scalars out
+        "tik_clip": (2, 1),                     # in, out
+        "blur_apply": (4, chain + 20),          # y x in, free rk out
+        "irls_head": (4, chain + 10),           # x b in, wts y out
+        "weighted_apply": (6, 2 * chain + 25),  # r p free wts in, p' q out
+        "irls_step": (3, 2),                    # x xk in, x out
+        "pd_dual": ((1 + 2 * nd) * batch, 12 * nd),
+        "pd_primal": ((2 + nd + 2) * batch + 1, 10 + 3 * nd),
+        "pd_record": (batch + 1, 10 + 3 * nd),
+    }[name]
+    return bound(4.0 * n * vols, float(n) * ops * batch)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(label):
+    """Print the seconds since the last ``lap`` (or the start)."""
+    now = time.perf_counter()
+    print("%s: %.1f s" % (label, now - _LAP[0]))
+    _LAP[0] = now
 
 
 # ------------------------------------------------------------- phase 3 --
@@ -860,16 +918,822 @@ def run_robust_phases(device, card):
     return {"launches": scale_launches, "err": err, "times": times}
 
 
-# ------------------------------------------------------------------ main --
+# ------------------------------------------------- phase 16 (slice units) --
 
-def main():
+TK_REGS = ("TK0", "TK1")
+RECORD_LOSSES = ("linear",) + ROBUST_LOSSES
+
+
+def slice_unit_cases(st, shape, device, rng):
+    """The units the Tikhonov/study slice adds or extends, each against its
+    plain version on the same random inputs: the TK0 and TK1 instances of
+    the linear apply, CG step, gradient-form blur and weighted apply; on a
+    2-D image the linear ADMM units run as a (1, Y, X) volume;
+    ``admm_record`` for 5 losses at C = 1 and 0.3; ``tik_clip``. Returns
+    {unit: (max |Δ| / max |ref|, max |Δ|)} over all outputs, CG scalars and
+    records included."""
     import torch
 
-    # phase 1: device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import record as Rec
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+
+    nd = len(shape)
+
+    def rand(lo=0.0, scale=1.0, lead=()):
+        return torch.as_tensor((rng.rand(*(lead + shape)) * scale + lo)
+                               .astype(np.float32), device=device)
+
+    out = {}
+
+    def record(name, pairs):
+        rel = max(max_rel(g, q) for g, q in pairs)
+        ab = max(float((g - q).abs().max()) for g, q in pairs)
+        prev = out.get(name, (0.0, 0.0))
+        out[name] = (max(prev[0], rel), max(prev[1], ab))
+
+    v, rhs, r, p = rand(), rand(), rand(), rand(-0.5)
+    x, b, y = rand(-0.3), rand(), rand(-0.5)
+    wts, free = rand(0.1, 0.9), (rand() > 0.3).float()
+    gamma = float(torch.sum(r * r))
+    for reg in TK_REGS:
+        def key(unit):
+            return "%s %s" % (unit, reg)
+
+        record(key("normal_apply"), [(
+            B.normal_apply(v, st.normal, st.inv_h2, RHO, reg=reg),
+            B.normal_apply_plain(v, st.normal, st.inv_h2, RHO, reg=reg))])
+        sk, sp = B.new_scalars(device), B.new_scalars(device)
+        record(key("normal_apply"), [
+            (B.normal_apply(v, st.normal, st.inv_h2, RHO, rhs=rhs, scal=sk,
+                            reg=reg),
+             B.normal_apply_plain(v, st.normal, st.inv_h2, RHO, rhs=rhs,
+                                  scal=sp, reg=reg)), (sk[:1], sp[:1])])
+        for first in (True, False):
+            init = torch.tensor([gamma, 0.0, 0.0, 0.83], dtype=torch.float64,
+                                device=device)
+            sk, sp = init.clone(), init.clone()
+            got = B.cg_step(r, p, sk, st.normal, st.inv_h2, RHO, first=first,
+                            reg=reg)
+            ref = B.cg_step_plain(r, p, sp, st.normal, st.inv_h2, RHO,
+                                  first=first, reg=reg)
+            record(key("cg_step"), list(zip(got, ref)) + [(sk[1:3],
+                                                            sp[1:3])])
+        sk, sp = B.new_scalars(device), B.new_scalars(device)
+        got = R.blur_apply(y, st.blur, st.inv_h2, x, RHO, scal=sk, reg=reg)
+        ref = R.blur_apply_plain(y, st.blur, st.inv_h2, x, RHO, scal=sp,
+                                 reg=reg)
+        record(key("blur_apply"), list(zip(got, ref)) + [(sk[:1], sp[:1])])
+        for first in (True, False):
+            init = torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                                device=device)
+            sk, sp = init.clone(), init.clone()
+            got = R.weighted_apply(r, p, free, wts, sk, st.blur, st.inv_h2,
+                                   RHO, first=first, reg=reg)
+            ref = R.weighted_apply_plain(r, p, free, wts, sp, st.blur,
+                                         st.inv_h2, RHO, first=first, reg=reg)
+            record(key("weighted_apply"), list(zip(got, ref))
+                   + [(sk[1:3], sp[1:3])])
+    if nd == 2:
+        sk = torch.tensor([gamma, 0.0, 0.31, 0.0], dtype=torch.float64,
+                          device=device)
+        sp = sk.clone()
+        xk, rk, xp, rp = x.clone(), r.clone(), x.clone(), r.clone()
+        B.cg_update(xk, rk, p, v, sk)
+        B.cg_update_plain(xp, rp, p, v, sp)
+        record("cg_update", [(xk, xp), (rk, rp), (sk[[0, 3]], sp[[0, 3]])])
+        vv, ww = rand(-0.5, lead=(2,)), rand(-0.5, lead=(2,))
+        tau = float(np.float32(ALPHA) / np.float32(RHO))
+        for init in (True, False):
+            xk, vk, wk = x.clone(), vv.clone(), ww.clone()
+            xp, vp, wp = x.clone(), vv.clone(), ww.clone()
+            hk = F.admm_tail(xk, vk, wk, rhs, st.inv_h, tau, RHO, init=init)
+            hp = F.admm_tail_plain(xp, vp, wp, rhs, st.inv_h, tau, RHO,
+                                   init=init)
+            record("admm_tail", [(xk, xp), (vk, vp), (wk, wp), (hk, hp)])
+    for loss in RECORD_LOSSES:
+        for scale in (1.0, 0.3):
+            rk, rp = Rec.new_records(3, device), Rec.new_records(3, device)
+            Rec.admm_record(x, b, st.blur, st.inv_h, loss, scale, *rk, 1)
+            Rec.admm_record_plain(x, b, st.blur, st.inv_h, loss, scale, *rp, 1)
+            record("admm_record", [(rk[0][1:2], rp[0][1:2]),
+                                   (rk[1][1:2], rp[1][1:2])])
+    ck, cp = torch.empty_like(x), torch.empty_like(x)
+    T.tik_clip(ck, x)
+    T.tik_clip_plain(cp, x)
+    record("tik_clip", [(ck, cp)])
+    return out
+
+
+def slice_unit_times(st, shape, device, reps):
+    """(kernel ms, plain ms, library ms or None) per call of the slice's
+    new units at ``shape``: ``admm_record`` (huber, C = 1) and
+    ``tik_clip``, whose library counterpart is one ``torch.clamp``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import record as Rec
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+
+    rng = np.random.RandomState(16)
+    x = torch.as_tensor(rng.rand(*shape).astype(np.float32) - 0.3,
+                        device=device)
+    b = torch.as_tensor(rng.rand(*shape).astype(np.float32), device=device)
+    o = torch.empty_like(x)
+    rk = Rec.new_records(2, device)
+    return {
+        "admm_record": (
+            cuda_ms(lambda: Rec.admm_record(x, b, st.blur, st.inv_h, "huber",
+                                            1.0, *rk, 1), reps),
+            cuda_ms(lambda: Rec.admm_record_plain(x, b, st.blur, st.inv_h,
+                                                  "huber", 1.0, *rk, 1),
+                    max(2, reps // 4)), None),
+        "tik_clip": (cuda_ms(lambda: T.tik_clip(o, x), reps),
+                     cuda_ms(lambda: T.tik_clip_plain(o, x), reps),
+                     cuda_ms(lambda: torch.clamp(x, min=0.0, out=o), reps)),
+    }
+
+
+def run_unit_phase(device, card):
+    """Phase 16: the slice's units against their plain versions on the
+    card, 2-D and 3-D, isotropic and anisotropic, odd sizes; the new units'
+    times at the Lena shape. Returns {unit: max |Δ| at 256²} and the
+    times."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+
+    rng = np.random.RandomState(16)
+    aniso = (np.diag([1.3, 0.8, 1.1]) ** 2, np.array(PD_SPACING))
+    err = {}
+    for label, shape in (("iso", (64, 64, 64)), ("aniso", (37, 45, 53)),
+                         ("aniso", (5, 40, 33)), ("iso", (256, 256)),
+                         ("aniso", (37, 53))):
+        nd = len(shape)
+        cov, sp = (np.diag([SIGMA ** 2] * nd), None) if label == "iso" \
+            else (aniso[0][:nd, :nd], aniso[1][:nd])
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        res = slice_unit_cases(st, shape, device, rng)
+        torch.cuda.synchronize()
+        for k, (rel, ab) in res.items():
+            require(rel <= KERNEL_TOL, "phase 16: %s %s %s rel %.3g > %g"
+                    % (k, label, shape, rel, KERNEL_TOL))
+            if shape == (256, 256):
+                unit = k.split()[0]
+                err[unit] = max(err.get(unit, 0.0), ab)
+        print("phase 16 slice units %s %s taps %s: %s" % (
+            label, "x".join(map(str, shape)), st.blur.lengths, ", ".join(
+                "%s %.2e" % (k, v[0]) for k, v in res.items())))
+    # the whole C solves of the slice against their plain unit sequences
+    for label, shape in (("aniso", (37, 53)), ("aniso", (13, 22, 17))):
+        nd = len(shape)
+        cov, sp = aniso[0][:nd, :nd], aniso[1][:nd]
+        b = torch.as_tensor(rng.rand(*shape).astype(np.float32),
+                            device=device)
+        res = []
+        for reg in TK_REGS:
+            for loss, alphas in (("linear", [0.02, 0.3, 1.5]),
+                                 ("huber", [0.05, 0.7])):
+                s = T.make_fused_tikhonov_solver(shape, cov, spacing=sp,
+                                                 reg=reg, iter_max=6,
+                                                 data_loss=loss,
+                                                 irls_cg_iters=4)
+                xk = s(b, b, alphas, 0.3)
+                xp = s.plain(b, b, alphas, 0.3)
+                rel = max_rel(xk, xp)
+                require(rel <= SOLVE_VOX_TOL and bool(xk.isfinite().all()),
+                        "phase 16: Tikhonov %s %s %s voxel rel %.3g"
+                        % (reg, loss, shape, rel))
+                res.append("%s/%s %.1e" % (reg, loss, rel))
+        for loss in ("linear", "huber"):
+            s = F.make_fused_admm_solver(shape, cov, spacing=sp, iterations=4,
+                                         iter_max=5, data_loss=loss,
+                                         irls_cg_iters=4, record=True)
+            xk, rk = s(b, b, 0.05, 0.5, data_loss_scale=0.3, record_dls=0.7)
+            xp, rp = s.plain(b, b, 0.05, 0.5, data_loss_scale=0.3,
+                             record_dls=0.7)
+            rel = max(max_rel(xk, xp), max_rel(rk["Reg"], rp["Reg"]),
+                      max_rel(rk["Data"], rp["Data"]))
+            require(rel <= SOLVE_VOX_TOL and rk["Reg"].shape == (5,),
+                    "phase 16: ADMM record %s %s rel %.3g" % (loss, shape,
+                                                              rel))
+            res.append("ADMM records/%s %.1e" % (loss, rel))
+        torch.cuda.synchronize()
+        print("phase 16 whole solves vs plain %s %s (voxel and record rel): "
+              "%s" % (label, "x".join(map(str, shape)), ", ".join(res)))
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, device)
+    times = slice_unit_times(st, (256, 256), device, reps=200)
+    print("phase 16 per-call 256^2 (kernel ms, plain ms, library ms): %s [%s]"
+          % (", ".join("%s %.4f/%.4f/%s" % (k, a, p, "none" if lib is None
+                                             else "%.4f" % lib)
+                       for k, (a, p, lib) in times.items()), card))
+    return {"err": err, "times": times, "taps": st.blur.lengths}
+
+
+# ------------------------------------------- phases 17-19 (the studies) --
+
+#: phase 17, Lena 256² Tikhonov studies (the sweeps of tests/
+#: torch_anchors.py): 64 α for TK1L2/TK0L2 with CG 10 (the JAX package's
+#: suite cell lena256_tk1l2_64alpha_sweep_cg10), every 8th α for the TK1L2
+#: huber sweep at C = 1 with 5 MM sweeps × 8 CG
+TK_ALPHAS = np.linspace(0.005, 0.5, 64, dtype=np.float32)
+TK_ITER_MAX = 10
+HUBER_STEP, HUBER_SCALE, HUBER_SWEEPS, HUBER_CG = 8, 1.0, 5, 8
+#: float64 objectives ½Σρ_C((Ax−b)²) + α·½‖Bx‖² of the JAX package's
+#: tikhonov_solve (x64, CPU) on b = Lena/max, by α index
+#: (tests/torch_anchors.py)
+TK_ANCHORS = {("TK1", "linear", 0): 57.549177504,
+              ("TK1", "linear", 31): 102.146681715,
+              ("TK1", "linear", 63): 124.397256727,
+              ("TK0", "linear", 0): 107.390698910,
+              ("TK0", "linear", 31): 2272.173225778,
+              ("TK0", "linear", 63): 3754.396396111,
+              ("TK1", "huber", 0): 57.079130938,
+              ("TK1", "huber", 32): 102.944577543,
+              ("TK1", "huber", 56): 119.974404438}
+#: phase 18, the TV-L2 ADMM study: 8 α × 2 ρ, 50 outer × 10 CG, records
+TV_ALPHAS = np.linspace(0.001, 0.05, 8, dtype=np.float32)
+TV_RHOS = (0.1, 0.5)
+#: final Reg (TV) and Data (½Σr²) records of the JAX package's float64
+#: admm_solve (x64, CPU) on b = Lena/max at (α index, ρ)
+TV_ANCHORS = {(1, 0.1): {"Reg": 1805.859811781, "Data": 71.857621770},
+              (6, 0.5): {"Reg": 1053.845302701, "Data": 83.068492237}}
+#: the port's float32 plain path lands within 1.1e-7 of every anchor above
+#: on the CPU (tests/torch_anchors.py); the card's kernels sum in another
+#: order, so the band is ~90 times that gap
+STUDY_ANCHOR_BAND = 1e-5
+#: f32 sums of ~65536 terms (the measures on the card) against the same
+#: measures in float64
+RECORD_TOL = 1e-5
+
+
+def host_device_ms(fn):
+    """Host enqueue ms (until ``fn`` returns), wall ms (until the device is
+    done) and device ms by CUDA events, of one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    fn()
+    t1 = time.perf_counter()
+    ev1.record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t0) * 1e3, ev0.elapsed_time(ev1)
+
+
+def device_busy_ms(fn):
+    """Device time of one call of ``fn`` and its number of device
+    operations (kernels and memsets), from a ``torch.profiler`` trace;
+    ``(None, 0)`` where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, ops = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            total += t
+            ops += e.count
+    return (total / 1e3, ops) if total > 0 else (None, 0)
+
+
+def sweep_timing(fn, label, card):
+    """Print and return host enqueue, wall and device-busy ms of one call
+    and its device operations."""
+    fn()  # warm-up
+    runs = [host_device_ms(fn) for _ in range(3)]
+    host = sorted(r[0] for r in runs)[1]
+    wall = sorted(r[1] for r in runs)[1]
+    busy, ops = device_busy_ms(fn)
+    share = "not measured" if busy is None else "%.1f %%" % (100 * busy / wall)
+    print("%s: host enqueue %.3f ms, wall %.3f ms (medians of 3), device "
+          "busy %s ms = %s, %d device operations (%.2f us of host enqueue "
+          "each) [%s]" % (label, host, wall, "not measured" if busy is None
+                          else "%.3f" % busy, share, ops,
+                          1e3 * host / max(ops, 1), card))
+    return {"host_ms": host, "wall_ms": wall, "busy_ms": busy, "ops": ops}
+
+
+def lena_problem():
+    """Lena 256² blurred + noisy, its maximum (the study's x_scale), and the
+    σ = 1 blur and gradient operators."""
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_png
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+
+    img = read_png(data.path("2D_Lena_256_blur_noise.png")).astype(np.float64)
+    A, _ = C.make_blur_operators(np.eye(2), alpha_cut=3)
+    D, Dt = G.make_gradient_operators(None)
+    return img, float(img.max()), A, D, Dt
+
+
+def tk_objective(x, b, A, B, alpha, loss):
+    """The Tikhonov objective of ``tests/torch_anchors.py`` in float64 on
+    the tensors' device."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+
+    x64, b64 = x.double(), b.double()
+    r = A(x64) - b64
+    f2 = losses.LOSSES[loss](r * r, f_scale=HUBER_SCALE)
+    Bx = B(x64)
+    return float(0.5 * torch.sum(f2) + alpha * 0.5 * torch.sum(Bx * Bx))
+
+
+def run_tikhonov_phase(device, card):
+    """Phase 17: the Lena 256² Tikhonov studies through
+    ``TikhonovLinearSolver.run_sweep`` on the card. Returns the launch
+    counts of the TK1L2 64-α sweep and its timing."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+    from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    b = torch.as_tensor(img / xs, dtype=torch.float32, device=device)
+    cov = np.eye(2)
+
+    def ident(x):
+        return x
+
+    regs = {"TK1": (D, Dt), "TK0": (ident, ident)}
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    out = {}
+    for reg, loss in (("TK1", "linear"), ("TK0", "linear"),
+                      ("TK1", "huber")):
+        B, Bt = regs[reg]
+        robust = loss != "linear"
+        alphas = TK_ALPHAS[::HUBER_STEP] if robust else TK_ALPHAS
+        iter_max = HUBER_SWEEPS if robust else TK_ITER_MAX
+        solver = TikhonovLinearSolver(
+            A, A, img, B, Bt, img, x_scale=xs, data_loss=loss,
+            data_loss_scale=HUBER_SCALE, minimizer="auto", iter_max=iter_max,
+            irls_cg_iters=HUBER_CG, blur_cov=cov, spacing=np.ones(2),
+            reg_kind=reg, device=device)
+        measures = {
+            "Reg": lambda x, B=B: 0.5 * torch.sum(B(x) * B(x)),
+            "Data": lambda x, loss=loss: losses.cost_from_residual(
+                A(x) - bt.to(x.dtype), loss, HUBER_SCALE)}
+        params = {"alpha": alphas.astype(np.float64)}
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x_all, recs = solver.run_sweep(params, measures=measures)
+        torch.cuda.synchronize()
+        launches = F.launch_counts(
+            ("tik_clip",) + (("blur_apply", "irls_head", "weighted_apply",
+                              "irls_step", "cg_update") if robust else
+                             ("normal_apply", "cg_step", "cg_update")))
+        plain_calls = F.plain_counts()
+        require(all(n > 0 for n in launches.values()),
+                "phase 17: %s/%s a kernel was not launched: %s"
+                % (reg, loss, launches))
+        require(all(n == 0 for n in plain_calls.values()),
+                "phase 17: %s/%s a plain version ran: %s"
+                % (reg, loss, plain_calls))
+        require(x_all.shape == (len(alphas), 256, 256)
+                and np.all(np.isfinite(x_all))
+                and recs["Reg"].shape == (len(alphas), 2),
+                "phase 17: %s/%s results not finite or misshapen"
+                % (reg, loss))
+        xk = torch.as_tensor(x_all / xs, device=device)
+        # the anchors
+        devs = {}
+        for (r_, l_, i), anchor in TK_ANCHORS.items():
+            if (r_, l_) != (reg, loss):
+                continue
+            j = i // HUBER_STEP if robust else i
+            obj = tk_objective(xk[j], b, A, B, float(TK_ALPHAS[i]), loss)
+            devs[i] = abs(obj - anchor) / anchor
+            require(devs[i] <= STUDY_ANCHOR_BAND, "phase 17: %s/%s alpha[%d] "
+                    "objective %.9f deviates %.3g from %.9f"
+                    % (reg, loss, i, obj, devs[i], anchor))
+        # the two-row records against the same measures in float64
+        rec_dev = 0.0
+        for j in range(len(alphas)):
+            for row, x in ((0, bt), (1, xk[j].double() * xs)):
+                for name, fn in measures.items():
+                    ref = float(fn(x))
+                    rec_dev = max(rec_dev, abs(recs[name][j, row] - ref)
+                                  / abs(ref))
+        require(rec_dev <= RECORD_TOL, "phase 17: %s/%s records deviate "
+                "%.3g from float64" % (reg, loss, rec_dev))
+        # kernel vs plain on the card
+        solve = T.make_fused_tikhonov_solver(
+            b.shape, cov, reg=reg, iter_max=iter_max, data_loss=loss,
+            irls_cg_iters=HUBER_CG)
+        a_list = [float(a) for a in alphas]
+        xp = solve.plain(b, b, a_list, HUBER_SCALE)
+        obj_rel = vox = 0.0
+        for j in (0, len(alphas) // 2, len(alphas) - 1):
+            ok = tk_objective(xk[j], b, A, B, a_list[j], loss)
+            op = tk_objective(xp[j], b, A, B, a_list[j], loss)
+            obj_rel = max(obj_rel, abs(ok - op) / abs(op))
+        vox = float((xk.float() - xp).abs().max() / xk.abs().max())
+        require(obj_rel <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL,
+                "phase 17: %s/%s kernel vs plain objective rel %.3g voxel "
+                "%.3g" % (reg, loss, obj_rel, vox))
+        del xp
+        ms_k = cuda_ms(lambda: solve(b, b, a_list, HUBER_SCALE), reps=5)
+        ms_p = cuda_ms(lambda: solve.plain(b, b, a_list, HUBER_SCALE),
+                       reps=1)
+        t_sweep = sweep_timing(
+            lambda: solver.run_sweep(params, measures=measures),
+            "phase 17 %s/%s run_sweep (%d alphas, records)"
+            % (reg, loss, len(alphas)), card)
+        t_kernel = sweep_timing(lambda: solve(b, b, a_list, HUBER_SCALE),
+                                "phase 17 %s/%s fused solve batch alone"
+                                % (reg, loss), card)
+        print("phase 17 %s/%s Lena 256^2 x %d alphas (CG %d%s): anchor devs "
+              "%s (band %g); records vs float64 %.2e; kernel vs plain "
+              "objective rel %.2e, voxel %.2e; launches %s (%.1f per solve); "
+              "plain calls 0; kernel %.3f ms/sweep, plain %.3f ms/sweep "
+              "[%s]" % (reg, loss, len(alphas), iter_max, "" if not robust
+                        else " x %d" % HUBER_CG,
+                        {i: "%.2e" % d for i, d in devs.items()},
+                        STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, launches,
+                        sum(launches.values()) / len(alphas), ms_k, ms_p,
+                        card))
+        out[(reg, loss)] = {"launches": launches, "sweep": t_sweep,
+                            "kernel": t_kernel, "ms": ms_k, "plain_ms": ms_p}
+    return out
+
+
+def run_admm_study_phase(device, card):
+    """Phase 18: the TV-L2 ADMM study with records on Lena 256² through
+    ``ADMMLinearSolver.run_sweep``, and ``run_deconvolution`` (linear TV-L2
+    by ADMM) on the PNG. Returns the sweep's launch counts."""
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.solvers.wrappers import ADMMLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    b = torch.as_tensor(img / xs, dtype=torch.float32, device=device)
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    cov = np.eye(2)
+    solver = ADMMLinearSolver(
+        A, A, img, D, Dt, img, x_scale=xs, minimizer="auto",
+        iterations=ITERATIONS, iter_max=ITER_MAX, blur_cov=cov,
+        spacing=np.ones(2), device=device)
+    measures = {
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(D(x) ** 2, 0))),
+        "Data": lambda x: losses.cost_from_residual(A(x) - bt.to(x.dtype))}
+    grid = [(a, r) for a in TV_ALPHAS.astype(np.float64) for r in TV_RHOS]
+    params = {"alpha": np.array([g[0] for g in grid]),
+              "rho": np.array([g[1] for g in grid])}
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x_all, recs = solver.run_sweep(params, measures=measures)
+    torch.cuda.synchronize()
+    names = F.ADMM_UNITS + F.RECORD_UNITS
+    launches, plain_calls = F.launch_counts(names), F.plain_counts()
+    require(all(n > 0 for n in launches.values()),
+            "phase 18: a kernel was not launched: %s" % launches)
+    require(all(n == 0 for n in plain_calls.values()),
+            "phase 18: a plain version ran: %s" % plain_calls)
+    require(x_all.shape == (16, 256, 256) and np.all(np.isfinite(x_all))
+            and recs["Reg"].shape == (16, ITERATIONS + 1),
+            "phase 18: results not finite or misshapen")
+    devs = {}
+    for (i, rho), anchor in TV_ANCHORS.items():
+        j = grid.index((float(TV_ALPHAS[i]), rho))
+        for name, scale in (("Reg", xs), ("Data", xs * xs)):
+            got = recs[name][j, -1] / scale
+            devs[(i, rho, name)] = abs(got - anchor[name]) / anchor[name]
+            require(devs[(i, rho, name)] <= STUDY_ANCHOR_BAND,
+                    "phase 18: (alpha[%d], rho %g) %s record %.9f deviates "
+                    "%.3g from %.9f" % (i, rho, name, got,
+                                        devs[(i, rho, name)], anchor[name]))
+    # the in-solve records against the measures of the returned x
+    rec_dev = 0.0
+    for j in range(len(grid)):
+        x = torch.as_tensor(x_all[j], dtype=torch.float64, device=device)
+        for name, fn in measures.items():
+            ref = float(fn(x))
+            rec_dev = max(rec_dev, abs(recs[name][j, -1] - ref) / abs(ref))
+    require(rec_dev <= RECORD_TOL, "phase 18: last records deviate %.3g from "
+            "the measures of x" % rec_dev)
+    # kernel vs plain on the card at two configurations
+    solve = F.make_fused_admm_solver(b.shape, cov, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, record=True)
+    obj_rel = vox = rrel = 0.0
+    for (i, rho) in TV_ANCHORS:
+        a = float(TV_ALPHAS[i])
+        xk, rk = solve(b, b, a, rho, record_dls=1.0 / xs)
+        xp, rp = solve.plain(b, b, a, rho, record_dls=1.0 / xs)
+        ok = float(rk["Data"][-1]) + a * float(rk["Reg"][-1])
+        op = float(rp["Data"][-1]) + a * float(rp["Reg"][-1])
+        obj_rel = max(obj_rel, abs(ok - op) / abs(op))
+        vox = max(vox, float((xk - xp).abs().max() / xk.abs().max()))
+        rrel = max(rrel, max_rel(rk["Reg"], rp["Reg"]),
+                   max_rel(rk["Data"], rp["Data"]))
+    require(obj_rel <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL
+            and rrel <= SOLVE_VOX_TOL, "phase 18: kernel vs plain objective "
+            "rel %.3g voxel %.3g records %.3g" % (obj_rel, vox, rrel))
+    a0, r0 = float(TV_ALPHAS[1]), 0.1
+    # run(): the generic admm_solve with the CUDA units in its hooks
+    solver.set_alpha(a0)
+    solver.set_rho(r0)
+    F.reset_counts()
+    solver.run()
+    run_launches = F.launch_counts(("normal_apply",))
+    require(run_launches["normal_apply"] > 0
+            and all(n == 0 for n in F.plain_counts().values()),
+            "phase 18: run() launches %s, plain calls %s"
+            % (run_launches, F.plain_counts()))
+    xj = x_all[grid.index((a0, r0))]
+    run_dev = float(np.abs(solver.get_x() - xj).max() / np.abs(xj).max())
+    require(run_dev <= SOLVE_VOX_TOL, "phase 18: run() vs run_sweep voxel "
+            "%.3g" % run_dev)
+    print("phase 18 ADMMLinearSolver.run() on the card (generic core, CUDA "
+          "units in the hooks): voxel vs run_sweep %.2e; launches %s"
+          % (run_dev, run_launches))
+    ms_k = cuda_ms(lambda: solve(b, b, a0, r0, record_dls=1.0 / xs), reps=5)
+    ms_p = cuda_ms(lambda: solve.plain(b, b, a0, r0, record_dls=1.0 / xs),
+                   reps=1)
+    t_sweep = sweep_timing(lambda: solver.run_sweep(params,
+                                                    measures=measures),
+                           "phase 18 TVL2 ADMM run_sweep (16 configurations,"
+                           " records)", card)
+    print("phase 18 TVL2 ADMM study Lena 256^2, 8 alphas x 2 rhos, %d x %d, "
+          "records: anchor devs %s (band %g); last records vs measures of x "
+          "%.2e; kernel vs plain objective rel %.2e, voxel %.2e, records "
+          "%.2e; launches %s (%.0f per solve); plain calls 0; kernel %.3f "
+          "ms/solve, plain %.3f ms/solve [%s]"
+          % (ITERATIONS, ITER_MAX, {k: "%.2e" % v for k, v in devs.items()},
+             STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, rrel, launches,
+             sum(launches.values()) / len(grid), ms_k, ms_p, card))
+
+    # run_deconvolution, linear TV-L2 by ADMM on the 2-D PNG
+    obs = data.path("2D_Lena_256_blur_noise.png")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "x.mat")
+        F.reset_counts()
+        rc = run_deconvolution.main([
+            "--observation", obs, "--result", out, "--solver", "ADMM",
+            "--reconstruction-type", "TVL2", "--alpha", str(ALPHA),
+            "--blur", str(SIGMA), "--iterations", str(ITERATIONS),
+            "--iter-max", str(ITER_MAX), "--device", "cuda"])
+        require(rc == 0, "phase 18: CLI returned %r" % rc)
+        cli_launches = F.launch_counts(F.ADMM_UNITS)
+        require(all(n > 0 for n in cli_launches.values())
+                and all(n == 0 for n in F.plain_counts().values()),
+                "phase 18: CLI launches %s, plain calls %s"
+                % (cli_launches, F.plain_counts()))
+        reader = DataReader(out)
+        reader.read_data()
+        recon = reader.get_data()
+    lib = F.make_fused_admm_solver(b.shape, cov, iterations=ITERATIONS,
+                                   iter_max=ITER_MAX)(b, b, ALPHA, RHO)
+    lib = interop.to_numpy(lib).astype(np.float64) * xs
+    cli_dev = float(np.max(np.abs(recon - lib)) / np.max(np.abs(lib)))
+    require(recon.shape == img.shape and np.all(np.isfinite(recon))
+            and cli_dev <= KERNEL_TOL, "phase 18: CLI vs library %.3g"
+            % cli_dev)
+    print("phase 18 CLI run_deconvolution TVL2 linear %s: shape %s finite, "
+          "max|cli - library|/max %.3e; launches %s, plain calls 0"
+          % (os.path.basename(obs), recon.shape, cli_dev, cli_launches))
+    return {"launches": launches, "sweep": t_sweep, "ms": ms_k,
+            "plain_ms": ms_p}
+
+
+def run_scale_cli_phase(device, card):
+    """Phase 19: a 256³ TK1L2 sweep, and ``nsol_torch_run_deconvolution_
+    study`` on the 64³ phantom (TK1L2) and on Lena (TVL2 by ADMM)."""
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import run_deconvolution_study as study_cli
+    from nsol_tpu_torch.io import DataReader
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+    from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
+    from nsol_tpu_torch.study import ReaderParameterStudy
+
+    # 256³ TK1L2 sweep over 8 α, CG 10: bytes-bound
+    big = SCALE_SHAPE
+    iso = np.diag([SIGMA ** 2] * 3)
+    A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
+    D, Dt = G.make_gradient_operators(None)
+    xt = interop.to_torch((np.random.RandomState(0).rand(*big) > 0.7)
+                          .astype(np.float32), device)
+    bb = A(xt).contiguous()
+    del xt
+    b_np = interop.to_numpy(bb)
+    alphas = TK_ALPHAS[::8].astype(np.float64)
+    solver = TikhonovLinearSolver(A, A, b_np, D, Dt, b_np, minimizer="auto",
+                                  iter_max=TK_ITER_MAX, blur_cov=iso,
+                                  spacing=np.ones(3), reg_kind="TK1",
+                                  device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    F.reset_counts()
+    x_all, _ = solver.run_sweep({"alpha": alphas})
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    launches = F.launch_counts(("normal_apply", "cg_step", "cg_update",
+                                "tik_clip"))
+    require(all(n > 0 for n in launches.values())
+            and all(n == 0 for n in F.plain_counts().values()),
+            "phase 19: 256^3 launches %s, plain calls %s"
+            % (launches, F.plain_counts()))
+    require(x_all.shape == (8,) + big and np.all(np.isfinite(x_all)),
+            "phase 19: 256^3 results not finite or misshapen")
+    solve = T.make_fused_tikhonov_solver(big, iso, reg="TK1",
+                                         iter_max=TK_ITER_MAX)
+    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+    j = 7
+    xk = torch.as_tensor(x_all[j], device=device)
+    xp = solve.plain(bb, bb, float(alphas[j]))
+    ok = tk_objective(xk, bb, A64, D, float(alphas[j]), "linear")
+    op = tk_objective(xp, bb, A64, D, float(alphas[j]), "linear")
+    vox = float((xk - xp).abs().max() / xk.abs().max())
+    require(abs(ok - op) / abs(op) <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL,
+            "phase 19: 256^3 kernel vs plain objective rel %.3g voxel %.3g"
+            % (abs(ok - op) / abs(op), vox))
+    del xk, xp
+    a_list = [float(a) for a in alphas]
+    ms_k = cuda_ms(lambda: solve(bb, bb, a_list), reps=3)
+    ms_p = cuda_ms(lambda: solve.plain(bb, bb, a_list[:1]), reps=1,
+                   warmup=0) * len(a_list)
+    print("phase 19 256^3 TK1L2 x 8 alphas CG %d: kernel vs plain objective "
+          "rel %.2e, voxel %.2e; launches %s; plain calls 0; kernel %.1f "
+          "ms/sweep (%.1f ms/solve), plain %.1f ms/sweep (8 x one solve); "
+          "%.1f MiB on the card above the inputs [%s]"
+          % (TK_ITER_MAX, abs(ok - op) / abs(op), vox, launches, ms_k,
+             ms_k / 8, ms_p, peak, card))
+    del bb, solver, solve, x_all
+    torch.cuda.empty_cache()
+
+    # run_deconvolution's TK1L2 route (the class's run(), CUDA units in the
+    # hooks) on the Lena PNG against the library's kernel sweep
+    from nsol_tpu_torch.cli import run_deconvolution
+
+    img, xs, A2, D2, Dt2 = lena_problem()
+    for loss, iters in (("linear", TK_ITER_MAX), ("huber", HUBER_SWEEPS)):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "x.mat")
+            F.reset_counts()
+            rc = run_deconvolution.main([
+                "--observation", data.path("2D_Lena_256_blur_noise.png"),
+                "--result", out, "--reconstruction-type", "TK1L2",
+                "--data-loss", loss, "--alpha", "0.05", "--iter-max",
+                str(iters), "--irls-cg-iters", str(HUBER_CG), "--device",
+                "cuda"])
+            units = ("normal_apply",) if loss == "linear" else (
+                "blur_apply", "weighted_apply")
+            cli_launches = F.launch_counts(units)
+            require(rc == 0 and all(n > 0 for n in cli_launches.values())
+                    and all(n == 0 for n in F.plain_counts().values()),
+                    "phase 19: TK1L2 %s CLI rc %r launches %s, plain calls "
+                    "%s" % (loss, rc, cli_launches, F.plain_counts()))
+            reader = DataReader(out)
+            reader.read_data()
+            recon = reader.get_data()
+        lib = TikhonovLinearSolver(
+            A2, A2, img, D2, Dt2, img, x_scale=xs, data_loss=loss,
+            minimizer="auto", iter_max=iters, irls_cg_iters=HUBER_CG,
+            blur_cov=np.eye(2), spacing=np.ones(2), reg_kind="TK1",
+            device=device).run_sweep({"alpha": np.array([0.05])})[0][0]
+        dev = float(np.abs(recon - lib).max() / np.abs(lib).max())
+        require(recon.shape == img.shape and dev <= SOLVE_VOX_TOL,
+                "phase 19: TK1L2 %s CLI vs library sweep %.3g" % (loss, dev))
+        print("phase 19 CLI run_deconvolution TK1L2 %s (run(), CUDA units in "
+              "the hooks): max|cli - library sweep|/max %.2e; launches %s, "
+              "plain calls 0" % (loss, dev, cli_launches))
+
+    # the study CLI: the 64³ NIfTI (TK1L2) and Lena (TVL2 by ADMM)
+    runs = (("3D_SheppLoganPhantom_64.nii.gz", "TK1L2", "phantom",
+             ["--iter-max", "10"]),
+            ("2D_Lena_256_blur_noise.png", "TVL2", "lena",
+             ["--solver", "ADMM", "--iterations", "20", "--iter-max",
+              "10"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        for fname, rtype, name, extra in runs:
+            obs = data.path(fname)
+            out = os.path.join(tmp, name)
+            F.reset_counts()
+            rc = study_cli.main(["--observation", obs, "--reconstruction-type",
+                                 rtype, "--alpha-range", "0.005", "0.05", "4",
+                                 "--study-name", name, "--dir-output", out,
+                                 "--device", "cuda"] + extra)
+            require(rc == 0, "phase 19: study CLI %s returned %r" % (name, rc))
+            units = ("normal_apply", "cg_step", "cg_update") + (
+                ("tik_clip",) if rtype == "TK1L2"
+                else ("admm_tail", "admm_record"))
+            cli_launches = F.launch_counts(units)
+            require(all(n > 0 for n in cli_launches.values())
+                    and all(n == 0 for n in F.plain_counts().values()),
+                    "phase 19: study CLI %s launches %s, plain calls %s"
+                    % (name, cli_launches, F.plain_counts()))
+            files = sorted(os.listdir(out))
+            want = ["%s_%s.%s" % (name, k, e) for k, e in (
+                ("computational_time", "txt"), ("measure_Data", "txt"),
+                ("measure_Reg", "txt"), ("parameters", "txt"),
+                ("reconstructions", "npz"))]
+            require(files == want, "phase 19: %s files %s" % (name, files))
+            reader = ReaderParameterStudy(directory=out, name=name)
+            reader.read_study()
+            npz = reader.get_reconstructions()
+            require(reader.get_parameter_keys() == ["alpha"]
+                    and len(reader.get_parameters()["alpha"]) == 4
+                    and all(npz[str(i)].dtype == np.float16
+                            for i in range(4)),
+                    "phase 19: %s read back wrong" % name)
+            if fname.endswith(".nii.gz"):
+                require(set(npz.files) >= {"shape", "origin", "spacing",
+                                           "direction"}
+                        and tuple(npz["shape"]) == (64, 64, 64),
+                        "phase 19: %s npz lacks the NIfTI geometry" % name)
+            # the CLI's records against the library's on the same problem
+            obs_reader = DataReader(obs)
+            obs_reader.read_data()
+            nda = obs_reader.get_data()
+            recs_lib = library_study_records(nda, rtype, extra, device)
+            dev = max(max_rel(torch.as_tensor(reader.get_results(m)),
+                              torch.as_tensor(recs_lib[m]))
+                      for m in ("Reg", "Data"))
+            require(dev <= RECORD_TOL, "phase 19: %s CLI records deviate "
+                    "%.3g from the library's" % (name, dev))
+            print("phase 19 study CLI %s %s: exit 0, files %s, read back by "
+                  "the port's reader (%d configurations%s), records vs "
+                  "library %.2e, launches %s, plain calls 0"
+                  % (fname, rtype, files, len(reader.get_parameters()
+                                                  ["alpha"]),
+                     ", NIfTI geometry in the npz" if fname.endswith("gz")
+                     else "", dev, cli_launches))
+    return {"launches": launches, "peak_mib": peak, "ms": ms_k}
+
+
+def library_study_records(nda, rtype, extra, device):
+    """The Reg/Data records of the study CLI's grid run through the library
+    classes on the same problem (blur σ = 1, unit spacing)."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.ops import priors
+    from nsol_tpu_torch.solvers.wrappers import (ADMMLinearSolver,
+                                                 TikhonovLinearSolver)
+
+    nd = nda.ndim
+    cov = np.eye(nd) * SIGMA ** 2
+    A, _ = C.make_blur_operators(cov, alpha_cut=3, spacing=np.ones(nd))
+    D, Dt = G.make_gradient_operators(np.ones(nd))
+    bt = torch.as_tensor(nda, dtype=torch.float32, device=device)
+    xs = float(np.max(nda))
+    opts = dict(zip(extra[::2], extra[1::2]))
+    common = dict(x_scale=xs, minimizer="auto",
+                  iter_max=int(opts["--iter-max"]), blur_cov=cov,
+                  spacing=np.ones(nd), device=device)
+    data_cost = lambda x: losses.cost_from_residual(A(x) - bt)  # noqa: E731
+    if rtype == "TK1L2":
+        solver = TikhonovLinearSolver(A, A, nda, D, Dt, nda, reg_kind="TK1",
+                                      **common)
+        reg = lambda x: priors.first_order_tikhonov(x, D)  # noqa: E731
+    else:
+        solver = ADMMLinearSolver(A, A, nda, D, Dt, nda, rho=0.1,
+                                  iterations=int(opts["--iterations"]),
+                                  **common)
+        reg = lambda x: priors.total_variation(x, D)  # noqa: E731
+    _, recs = solver.run_sweep({"alpha": np.linspace(0.005, 0.05, 4)},
+                               measures={"Reg": reg, "Data": data_cost})
+    return recs
+
+
+# ------------------------------------------------------------------ main --
+
+def run_admm_phases(device, card):
+    """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
+    counts of the 64³ solve, each unit's max |Δ| against its plain version
+    at 64³ and its (kernel ms, plain ms) per call there."""
     import scipy.ndimage as ndi
+    import torch
 
     from nsol_tpu_torch import data, interop
     from nsol_tpu_torch.cli import run_deconvolution as cli
@@ -877,28 +1741,8 @@ def main():
     from nsol_tpu_torch.ops import conv as C
     from nsol_tpu_torch.ops import kernels as K
     from nsol_tpu_torch.ops.cuda import blocked as B
-    from nsol_tpu_torch.ops.cuda import build
     from nsol_tpu_torch.ops.cuda import fused as F
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    card = smi()
-    kind = torch.cuda.get_device_name(0)
-    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
-    print("phase 1 device: %s | nvidia-smi: %s | torch %s cuda %s | %s"
-          % (kind, card, torch.__version__, torch.version.cuda, nvcc[-1]))
-
-    # phase 2: build
-    t0 = time.perf_counter()
-    build.load()
-    build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in build.build_info["ptxas"].splitlines()
-            if "registers" in ln]
-    print("phase 2 build: %.2f s (%s); ptxas: %s"
-          % (build_s, os.path.basename(build.build_info["path"]),
-             "; ".join(regs) or "cached"))
 
     # phase 3: kernel vs plain on the card
     rng = np.random.RandomState(0)
@@ -1030,38 +1874,140 @@ def main():
     print("phase 6 CLI: shape %s finite, max|cli - library|/max %.3e"
           % (recon.shape, cli_dev))
 
-    del solve, bs
+    return {"launches": launches, "err": main_err, "times": times64}
 
-    pd = run_pd_phases(device, card)
-    robust = run_robust_phases(device, card)
 
-    replaces = {
+#: the phase groups, in the order they run; ``--only`` picks some of them
+GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli")
+#: kernel units per group: (source, {unit: TPU kernel it replaces})
+SOURCES = {
+    "admm": ("nsol_tpu_torch/csrc/admm.cu", {
         "normal_apply": "nsol_tpu/ops/pallas/blocked.py:402",
         "cg_step": "nsol_tpu/ops/pallas/blocked.py:988",
         "cg_update": "nsol_tpu/ops/pallas/fused.py:382",
-        "admm_tail": "nsol_tpu/ops/pallas/fused.py:382",
-    }
-    kernels = [
-        {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/admm.cu",
-         "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": main_err[k], "ms": times64[k][0],
-         "plain_ms": times64[k][1]} for k in replaces]
-    kernels += [
-        {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/pd.cu",
-         "replaces": "nsol_tpu/ops/pallas/fused.py:957",
-         "launches": pd["launches"][k], "max_abs_err": pd["err"][k],
-         "ms": pd["times"][k][0], "plain_ms": pd["times"][k][1]}
-        for k in F.PD_UNITS]
-    kernels += [
-        {"name": k, "route": "cuda", "source": "nsol_tpu_torch/csrc/robust.cu",
-         "replaces": r, "launches": robust["launches"][k],
-         "max_abs_err": robust["err"][k], "ms": robust["times"][k][0],
-         "plain_ms": robust["times"][k][1]}
-        for k, r in (("blur_apply", "nsol_tpu/ops/pallas/robust.py:161"),
-                     ("irls_head", "nsol_tpu/ops/pallas/fused.py:382"),
-                     ("weighted_apply", "nsol_tpu/ops/pallas/robust.py:264"),
-                     ("irls_step", "nsol_tpu/ops/pallas/fused.py:382"))]
+        "admm_tail": "nsol_tpu/ops/pallas/fused.py:382"}),
+    "pd": ("nsol_tpu_torch/csrc/pd.cu", {
+        "pd_dual": "nsol_tpu/ops/pallas/fused.py:957",
+        "pd_primal": "nsol_tpu/ops/pallas/fused.py:957",
+        "pd_record": "nsol_tpu/ops/pallas/fused.py:957"}),
+    "robust": ("nsol_tpu_torch/csrc/robust.cu", {
+        "blur_apply": "nsol_tpu/ops/pallas/robust.py:161",
+        "irls_head": "nsol_tpu/ops/pallas/fused.py:382",
+        "weighted_apply": "nsol_tpu/ops/pallas/robust.py:264",
+        "irls_step": "nsol_tpu/ops/pallas/fused.py:382"}),
+    "record": ("nsol_tpu_torch/csrc/admm.cu", {
+        "admm_record": "nsol_tpu/ops/pallas/fused.py:382"}),
+    "tikhonov": ("nsol_tpu_torch/csrc/tikhonov.cu", {
+        "tik_clip": "nsol_tpu/ops/pallas/fused.py:716"}),
+}
+
+
+def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1):
+    """The ``kernels`` records of one group's units: launches on its main
+    path, max |Δ| against the plain version, kernel / plain / library ms
+    per call at ``n`` voxels (× ``batch`` images), and the bound there."""
+    source, replaces = SOURCES[group]
+    out = []
+    for name, tpu in replaces.items():
+        t = times[name]
+        b_ms, b_by = unit_bound(name, n, taps, nd, batch)
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": tpu, "launches": int(launches[name]),
+                    "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": t[2] if len(t) > 2 else None})
+    return out
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default=",".join(GROUPS),
+                        help="comma-separated phase groups of %s to run "
+                        "(for development; only the full run prints the "
+                        "result line)" % (GROUPS,))
+    args = parser.parse_args(argv)
+    groups = args.only.split(",")
+    unknown = set(groups) - set(GROUPS)
+    if unknown:
+        parser.error("unknown groups %s" % sorted(unknown))
+
+    # phase 1: device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = smi()
+    kind = torch.cuda.get_device_name(0)
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    print("phase 1 device: %s | nvidia-smi: %s | torch %s cuda %s | %s"
+          % (kind, card, torch.__version__, torch.version.cuda, nvcc[-1]))
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    build.load()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in build.build_info["ptxas"].splitlines()
+            if "registers" in ln]
+    print("phase 2 build: %.2f s (%s); ptxas: %s"
+          % (build_s, os.path.basename(build.build_info["path"]),
+             "; ".join(regs) or "cached"))
+    lap("phases 1-2")
+
+    iso3 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
+    iso2 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, "cpu")
+    kernels = []
+    if "admm" in groups:
+        admm = run_admm_phases(device, card)
+        lap("phases 3-6")
+        kernels += kernel_entries("admm", admm["launches"], admm["err"],
+                                  admm["times"], 64 ** 3, iso3.normal.lengths)
+    if "pd" in groups:
+        pd = run_pd_phases(device, card)
+        lap("phases 7-11")
+        kernels += kernel_entries("pd", pd["launches"], pd["err"],
+                                  pd["times"], 1024 ** 2, (), nd=2, batch=64)
+    if "robust" in groups:
+        robust = run_robust_phases(device, card)
+        lap("phases 12-15")
+        kernels += kernel_entries("robust", robust["launches"],
+                                  robust["err"], robust["times"],
+                                  256 ** 3, iso3.blur.lengths)
+    if "units" in groups:
+        units = run_unit_phase(device, card)
+        lap("phase 16")
+    if "tikhonov" in groups:
+        tik = run_tikhonov_phase(device, card)
+        lap("phase 17")
+    if "study" in groups:
+        study = run_admm_study_phase(device, card)
+        lap("phase 18")
+    if "cli" in groups:
+        run_scale_cli_phase(device, card)
+        lap("phase 19")
+    if {"units", "tikhonov", "study"} <= set(groups):
+        # the slice's units: launches on the studies' main paths, errors
+        # and times at the Lena shape (phase 16)
+        kernels += kernel_entries("record", study["launches"], units["err"],
+                                  units["times"], 256 ** 2,
+                                  iso2.blur.lengths, nd=2)
+        kernels += kernel_entries("tikhonov",
+                                  tik[("TK1", "linear")]["launches"],
+                                  units["err"], units["times"], 256 ** 2, (),
+                                  nd=2)
     print(json.dumps({"kernels": kernels}))
+    if groups != list(GROUPS):
+        print("partial run (%s): no result line" % ",".join(groups))
+        return 0
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

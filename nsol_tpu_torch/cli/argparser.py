@@ -1,7 +1,7 @@
 """Declarative CLI argument collection (counterpart of
-``nsol_tpu/cli/argparser.py``): the options of the ADMM/TVL2
-deconvolution route (linear and robust losses) and of the denoising CLI,
-plus ``--device``. Flag
+``nsol_tpu/cli/argparser.py``): the options of the deconvolution routes
+(ADMM/TVL2 with linear and robust losses, TK0L2/TK1L2), of the
+deconvolution study and of the denoising CLI, plus ``--device``. Flag
 names, defaults and help conventions follow the reference so one command
 line reads the same in both packages.
 """
@@ -75,6 +75,11 @@ class InputArgparser(object):
                        "similarity measure is evaluated against it."
                        % INPUT_FILE_TYPES)
 
+    def add_dir_output(self, default=None, required=False):
+        self._add("--dir-output", type=str, default=default,
+                  required=required,
+                  help="Directory to write results into.")
+
     def add_dir_output_figures(self, default=None):
         self._add("--dir-output-figures", type=str, default=default,
                   help="Save generated plots into this directory instead "
@@ -98,10 +103,22 @@ class InputArgparser(object):
                   help="Regularization weight(s); one solve is run per "
                        "value given.")
 
+    def add_alpha_range(self, default=None, required=False):
+        self._add("--alpha-range", type=float, nargs="+", default=default,
+                  required=required,
+                  help="Sweep grid for alpha as three numbers START STOP "
+                       "COUNT, expanded with np.linspace.")
+
     def add_data_loss(self, default="linear"):
         self._add("--data-loss", type=str, default=default,
                   help="Robust loss rho applied to squared residuals of "
                        "the data term; one of %s." % ", ".join(LOSSES))
+
+    def add_data_losses(self, default=None, required=False):
+        self._add("--data-losses", nargs="+", default=default,
+                  required=required,
+                  help="Robust losses to sweep over in a study; each from "
+                       "%s." % ", ".join(LOSSES))
 
     def add_data_loss_scale(self, default=1):
         self._add("--data-loss-scale", type=float, default=default,
@@ -109,6 +126,12 @@ class InputArgparser(object):
                        "convention, rho_C(r2) = C^2 rho(r2/C^2)): residuals "
                        "below ~C count quadratically, larger ones are "
                        "downweighted as outliers.")
+
+    def add_data_loss_scale_range(self, default=None, required=False):
+        self._add("--data-loss-scale-range", type=float, nargs="+",
+                  default=default, required=required,
+                  help="Sweep grid for the loss scale as START STOP COUNT "
+                       "(np.linspace).")
 
     def add_blur(self, default=0):
         self._add("--blur", type=float, nargs="+", default=default,
@@ -148,6 +171,12 @@ class InputArgparser(object):
         self._add("--irls-cg-iters", type=int, default=default,
                   help="CG iterations inside each IRLS reweighting step "
                        "(only used when --minimizer irls).")
+
+    def add_study_name(self, default=None, required=False):
+        self._add("--study-name", type=str, default=default,
+                  required=required,
+                  help="Identifier for the parameter study's output files "
+                       "(no whitespace).")
 
     def add_verbose(self, default=1):
         self._add("--verbose", type=int, default=default,

@@ -108,6 +108,19 @@ __device__ __forceinline__ float laplacian(const Fn& u, long long i, Coord c, Sp
          sp.ih2z * lap_axis(u, i, c.z, d.Z, d.plane());
 }
 
+// The regulariser's normal operator B^T B in the epilogues: the
+// zero-boundary Laplacian D^T D (TV, TK1) or the identity (TK0). It is a
+// template parameter, so no instance tests it per voxel, and the identity
+// reads neither neighbours nor coordinates (the compiler drops them).
+enum RegKind { kRegLap = 0, kRegIdentity = 1 };
+
+template <int kReg, typename Fn>
+__device__ __forceinline__ float reg_normal(const Fn& u, long long i, Coord c, Spacing sp,
+                                            Dims d) {
+  if (kReg == kRegIdentity) return u(i);
+  return laplacian(u, i, c, sp, d);
+}
+
 // ------------------------------------------------------------- sources --
 
 // A volume read as it is.

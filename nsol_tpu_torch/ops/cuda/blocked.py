@@ -4,10 +4,11 @@
 Three kernel units (CUDA C++ in ``csrc/admm.cu``), each with its plain
 PyTorch version beside it and a launch counter on its wrapper:
 
-* :func:`normal_apply` — ``q = AᵀA v + ρ·DᵀD v``; replaces
+* :func:`normal_apply` — ``q = AᵀA v + ρ·BᵀB v``; replaces
   ``blocked.py::make_blocked_normal_operator`` (:402) and the in-kernel
-  ``conv_all``/``lap`` of ``fused.py`` (:467-496). With ``rhs`` it returns
-  the CG residual ``rhs − q`` and sets ``γ = ‖rhs − q‖²``, ``β = 0``.
+  ``conv_all``/``lap`` of ``fused.py`` (:467-496, and ``reg_apply`` of the
+  Tikhonov kernel, :776-783). With ``rhs`` it returns the CG residual
+  ``rhs − q`` and sets ``γ = ‖rhs − q‖²``, ``β = 0``.
 * :func:`cg_step` — ``p' = r + β·p ; q = M p' ; pq = Σ p'·q`` and
   ``a = γ/pq`` (guarded); replaces ``blocked.py::make_blocked_cg_step``
   (:988).
@@ -15,13 +16,19 @@ PyTorch version beside it and a launch counter on its wrapper:
   ``β = γ'/γ`` (guarded): the x/r update and the second reduction of the
   in-kernel CG (``fused.py:365-374``).
 
-The CG scalars live in a float64 device tensor ``scal`` (slots γ, pq, a,
-β), so a solve never waits for the host. What bounds the kernels on the
+``BᵀB`` is the regulariser's normal operator, ``reg="TK1"`` the
+zero-boundary Laplacian ``DᵀD`` (TV and TK1) or ``reg="TK0"`` the
+identity; the kernels take it as a template parameter of their
+epilogues. The CG scalars live in a float64 device tensor ``scal`` (slots
+γ, pq, a, β), so a solve never waits for the host. What bounds the kernels on the
 H100 is bytes moved (3 passes of ~2 volumes each per apply); see the note
 at the top of ``csrc/admm.cu``.
 
-Each wrapper runs the plain version only for CPU tensors; on a CUDA tensor
-it launches the kernel (3-D float32, contiguous) or raises.
+A 2-D image runs on CUDA as a ``(1, Y, X)`` volume with z taps ``[1]``
+and ``1/h_z = 1/h_z² = 0``, so every z term is an exact zero (the CPU
+tests show the plain versions agree bit for bit on both views). Each
+wrapper runs the plain version only for CPU tensors; on a CUDA tensor it
+launches the kernel (2-D or 3-D float32, contiguous) or raises.
 """
 
 import numpy as np
@@ -35,10 +42,14 @@ from nsol_tpu_torch.solvers.cg import guarded_ratio
 __all__ = ["Stencils", "new_scalars", "normal_apply", "normal_apply_plain",
            "cg_step", "cg_step_plain", "cg_update", "cg_update_plain",
            "make_blocked_normal_operator", "make_blocked_cg_step",
-           "check_tensors", "check_volume", "stencils_for", "GAMMA", "PQ", "A", "BETA"]
+           "check_tensors", "volume_dims", "spacing3", "stencils_for",
+           "REGS", "GAMMA", "PQ", "A", "BETA"]
 
 #: slots of the CG scalar tensor
 GAMMA, PQ, A, BETA = 0, 1, 2, 3
+#: regularisers ``BᵀB`` by the index the kernels take (``RegKind`` of
+#: ``csrc/stencil.cuh``): ``"TK1"`` the Laplacian ``DᵀD``, ``"TK0"`` ``I``
+REGS = ("TK1", "TK0")
 
 
 class Taps(object):
@@ -109,14 +120,22 @@ def _blur_plain(v, taps):
     return u
 
 
-def _apply_plain(v, taps, inv_h2, rho):
-    return _blur_plain(v, taps) + rho * _laplacian(v, inv_h2)
+def reg_normal_plain(v, inv_h2, reg="TK1"):
+    """``BᵀB v``: the Laplacian for ``"TK1"``, ``v`` for ``"TK0"``."""
+    if reg not in REGS:
+        raise ValueError("reg must be one of %s, got %r" % (REGS, reg))
+    return v if reg == "TK0" else _laplacian(v, inv_h2)
 
 
-def normal_apply_plain(v, taps, inv_h2, rho, rhs=None, scal=None):
+def _apply_plain(v, taps, inv_h2, rho, reg="TK1"):
+    return _blur_plain(v, taps) + rho * reg_normal_plain(v, inv_h2, reg)
+
+
+def normal_apply_plain(v, taps, inv_h2, rho, rhs=None, scal=None,
+                       reg="TK1"):
     """Plain version of :func:`normal_apply`."""
     normal_apply_plain.calls += 1
-    q = _apply_plain(v, taps, inv_h2, rho)
+    q = _apply_plain(v, taps, inv_h2, rho, reg)
     if rhs is None:
         return q
     r = rhs - q
@@ -125,12 +144,12 @@ def normal_apply_plain(v, taps, inv_h2, rho, rhs=None, scal=None):
     return r
 
 
-def cg_step_plain(r, p, scal, taps, inv_h2, rho, first=False):
+def cg_step_plain(r, p, scal, taps, inv_h2, rho, first=False, reg="TK1"):
     """Plain version of :func:`cg_step`: returns ``(p', q)`` and sets
     ``scal[PQ]``, ``scal[A]``."""
     cg_step_plain.calls += 1
     p_new = r.clone() if first else r + scal[BETA].to(r.dtype) * p
-    q = _apply_plain(p_new, taps, inv_h2, rho)
+    q = _apply_plain(p_new, taps, inv_h2, rho, reg)
     pq = torch.sum(p_new * q).to(scal.dtype)
     scal[PQ] = pq
     scal[A] = guarded_ratio(scal[GAMMA], pq)
@@ -172,13 +191,25 @@ def check_tensors(name, shape, *tensors, device=None):
                              % (name, tuple(t.shape), tuple(shape)))
 
 
-def check_volume(name, v):
-    """Raise unless ``v`` is a 3-D volume: the CUDA path is 3-D only (a 2-D
-    image cannot run as (1, Y, X): the z Laplacian's first-row rule would
-    give x[0] there, not 0)."""
-    if v.dim() != 3:
-        raise ValueError("%s: the CUDA kernel is 3-D only, got shape %s"
-                         % (name, tuple(v.shape)))
+def volume_dims(name, v):
+    """``(Z, Y, X)`` of a 3-D volume, ``(1, Y, X)`` of a 2-D image: the
+    kernels run a 2-D image as a one-plane volume (z taps ``[1]``,
+    ``1/h_z = 1/h_z² = 0``, so every z term is an exact zero)."""
+    if v.dim() not in (2, 3):
+        raise ValueError("%s: the CUDA kernel takes a 2-D image or a 3-D "
+                         "volume, got shape %s" % (name, tuple(v.shape)))
+    return (1,) * (3 - v.dim()) + tuple(v.shape)
+
+
+def spacing3(inv_h):
+    """``1/h`` or ``1/h²`` in (x, y, z) order, 0 for a 2-D image's z."""
+    return tuple(float(h) for h in inv_h) + (0.0,) * (3 - len(inv_h))
+
+
+def reg_id(reg):
+    if reg not in REGS:
+        raise ValueError("reg must be one of %s, got %r" % (REGS, reg))
+    return REGS.index(reg)
 
 
 def _check_consts(name, device, taps=None, scal=None):
@@ -197,15 +228,15 @@ def _partials(device):
                        device=device)
 
 
-def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None):
-    """``q = Σ-separable wrap conv of v with taps + rho·DᵀD v``; with
+def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None, reg="TK1"):
+    """``q = Σ-separable wrap conv of v with taps + rho·BᵀB v``; with
     ``rhs`` returns ``rhs − q`` and sets ``scal[GAMMA] = ‖rhs − q‖²``,
     ``scal[BETA] = 0``. ``taps``: a :class:`Taps` (the normal taps, or the
     blur taps with ``rho=0`` for ``Aᵀb``)."""
     if v.device.type == "cpu":
-        return normal_apply_plain(v, taps, inv_h2, rho, rhs, scal)
+        return normal_apply_plain(v, taps, inv_h2, rho, rhs, scal, reg)
     name = "normal_apply"
-    check_volume(name, v)
+    dims = volume_dims(name, v)
     check_tensors(name, v.shape, v, *([rhs] if rhs is not None else []))
     _check_consts(name, v.device, taps, scal)
     if rhs is not None and scal is None:
@@ -213,39 +244,39 @@ def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None):
     lib = build.load()
     out, t1, t2 = (torch.empty_like(v) for _ in range(3))
     partials = _partials(v.device) if rhs is not None else None
-    counts = build.new_counts(4)
-    Z, Y, X = v.shape
+    tv = taps.as_volume()
+    counts = build.new_counts(5)
     err = lib.nsol_normal_apply(
         build.tensor_ptr(v), build.tensor_ptr(out), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(rhs),
         build.tensor_ptr(partials), build.tensor_ptr(scal),
-        build.tensor_ptr(taps.buf), *taps.lengths, float(rho), *inv_h2,
-        Z, Y, X, build.stream_ptr(v.device), counts)
+        build.tensor_ptr(tv.buf), *tv.lengths, float(rho), reg_id(reg),
+        *spacing3(inv_h2), *dims, build.stream_ptr(v.device), counts)
     build.check(err, name)
     normal_apply.launches += counts[0]
     return out
 
 
-def cg_step(r, p, scal, taps, inv_h2, rho, first=False):
-    """``p' = r + β·p`` (``p' = r`` when ``first``), ``q = M p'``, then
-    ``scal[PQ] = Σ p'·q`` and ``scal[A] = γ/pq`` (0 unless pq > 0).
-    Returns ``(p', q)``."""
+def cg_step(r, p, scal, taps, inv_h2, rho, first=False, reg="TK1"):
+    """``p' = r + β·p`` (``p' = r`` when ``first``), ``q = M p'`` with
+    ``M = taps-conv + ρ·BᵀB``, then ``scal[PQ] = Σ p'·q`` and
+    ``scal[A] = γ/pq`` (0 unless pq > 0). Returns ``(p', q)``."""
     if r.device.type == "cpu":
-        return cg_step_plain(r, p, scal, taps, inv_h2, rho, first)
+        return cg_step_plain(r, p, scal, taps, inv_h2, rho, first, reg)
     name = "cg_step"
-    check_volume(name, r)
+    dims = volume_dims(name, r)
     check_tensors(name, r.shape, r, *([] if first else [p]))
     _check_consts(name, r.device, taps, scal)
     lib = build.load()
     p_new, q, t1, t2 = (torch.empty_like(r) for _ in range(4))
-    counts = build.new_counts(4)
-    Z, Y, X = r.shape
+    tv = taps.as_volume()
+    counts = build.new_counts(5)
     err = lib.nsol_cg_step(
         build.tensor_ptr(r), None if first else build.tensor_ptr(p),
         build.tensor_ptr(p_new), build.tensor_ptr(q), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(_partials(r.device)),
-        build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(taps.buf),
-        *taps.lengths, float(rho), *inv_h2, Z, Y, X,
+        build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
+        *tv.lengths, float(rho), reg_id(reg), *spacing3(inv_h2), *dims,
         build.stream_ptr(r.device), counts)
     build.check(err, name)
     cg_step.launches += counts[1]
@@ -262,7 +293,7 @@ def cg_update(x, r, p, q, scal):
     check_tensors(name, x.shape, x, r, p, q)
     _check_consts(name, x.device, scal=scal)
     lib = build.load()
-    counts = build.new_counts(4)
+    counts = build.new_counts(5)
     err = lib.nsol_cg_update(
         build.tensor_ptr(x), build.tensor_ptr(r), build.tensor_ptr(p),
         build.tensor_ptr(q), build.tensor_ptr(_partials(x.device)),

@@ -1,10 +1,12 @@
 """Build and bind the CUDA kernels of ``nsol_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles the package's own ``csrc/*.cu`` into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), under ``<checkout>/build/nsol_tpu_torch/`` keyed by a hash
-of the sources and flags, and loads it with ``ctypes``. A failed build
-raises with nvcc's stderr; nothing falls back to another path.
+At first use, ``nvcc`` compiles each of the package's own ``csrc/*.cu``
+into an object, one process per source, all started together, and links
+them into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds), under
+``<checkout>/build/nsol_tpu_torch/`` keyed by a hash of the sources and
+flags; ``ctypes`` loads it. A failed build raises with nvcc's stderr;
+nothing falls back to another path.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host without ``nvcc``.
@@ -26,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nsol_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,15 +36,17 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "nsol_max_blocks": [],
-    "nsol_normal_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _F, _F, _F, _F, _I, _I, _I, _P, _P],
-    "nsol_cg_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                     _F, _F, _F, _F, _I, _I, _I, _P, _P],
+    "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I] + [_F] * 3
+    + [_I] * 3 + [_P, _P],
+    "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
+    + [_I] * 3 + [_P, _P],
     "nsol_cg_update": [_P, _P, _P, _P, _P, _P, _LL, _P, _P],
     "nsol_admm_tail": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I,
                        _I, _I, _I, _P, _P],
+    "nsol_admm_record": [_P] * 7 + [_I, _P] + [_I] * 3 + [_I, _F]
+    + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_admm_solve": [_P] * 14 + [_P, _I, _I, _I, _P, _I, _I, _I]
-    + [_F] * 8 + [_I, _I, _I, _I, _I, _P, _P],
+    + [_F] * 8 + [_I, _I] + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
     "nsol_pd_grid": [_I, _I],
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 5 + [_F] * 3
     + [_P, _P],
@@ -51,13 +55,19 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
-    "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_P, _P],
-    "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
-    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F] * 4
+    "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
+    "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
+    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I]
+    + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_irls_step": [_P, _P, _LL, _P, _P],
-    "nsol_robust_admm_solve": [_P] * 14 + [_I] * 3 + [_F] * 4 + [_I, _F]
-    + [_I] * 6 + [_P, _P],
+    "nsol_irls_sweep": [_P] * 14 + [_I] * 3 + [_F, _I] + [_F] * 3
+    + [_I, _F, _I] + [_I] * 3 + [_P, _P],
+    "nsol_robust_admm_solve": [_P] * 14 + [_I] * 3 + [_F] * 7 + [_I, _F]
+    + [_I] * 3 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
+    "nsol_tik_clip": [_P, _P, _LL, _P, _P],
+    "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
+    + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 3 + [_I] * 3 + [_P] * 4,
 }
 
 #: what the last build did: library path, seconds, nvcc's ptxas report
@@ -95,15 +105,34 @@ def load():
     log = ""
     if not os.path.isfile(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = "%s.%d.tmp" % (lib_path, os.getpid())
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [
-            s for s in srcs if s.endswith(".cu")]
+        tag = "%s.%d" % (lib_path, os.getpid())
+        nvcc = _nvcc()
+        units = [s for s in srcs if s.endswith(".cu")]
+        objs = ["%s.%s.o" % (tag, os.path.basename(u)[:-3]) for u in units]
+        procs = [(subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", u, "-o", o],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True), u)
+                 for u, o in zip(units, objs)]
+        logs = []
+        for proc, u in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for other, _ in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError("nvcc failed (%d) on %s:\n%s"
+                                   % (proc.returncode, u, err))
+            logs.append(err)
+        tmp = tag + ".tmp"
+        cmd = [nvcc, "-shared", "-o", tmp] + objs
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        for o in objs:
+            os.remove(o)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d): %s\n%s" % (
+            raise RuntimeError("nvcc link failed (%d): %s\n%s" % (
                 proc.returncode, " ".join(cmd), proc.stderr))
         os.replace(tmp, lib_path)
-        log = proc.stderr
+        log = "".join(logs)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -117,8 +146,9 @@ def load():
 def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
-    admm_tail; ``pd.cu``: pd_dual, pd_primal, pd_record; ``robust.cu``:
-    blur_apply, irls_head, weighted_apply, irls_step, cg_update)."""
+    admm_tail, admm_record; ``pd.cu``: pd_dual, pd_primal, pd_record;
+    ``robust.cu``: blur_apply, irls_head, weighted_apply, irls_step,
+    cg_update; ``tikhonov.cu``: tik_clip)."""
     return (ctypes.c_longlong * n)()
 
 

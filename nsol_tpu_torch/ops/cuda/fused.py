@@ -1,6 +1,7 @@
 """The whole ADMM TV-L2 deconvolution solve on the GPU: counterpart of
 ``nsol_tpu/ops/pallas/fused.py::make_fused_admm_solver`` (:382), linear
-branch.
+branch, on 2-D images and 3-D volumes, with the ``record=True`` L-curve
+records (:624-638, 653-654) of :mod:`.record`.
 
 The TPU kernel holds the whole solve in VMEM. On the H100 the ~16-volume
 state does not fit one SM's shared memory, so the solve becomes a short
@@ -8,7 +9,9 @@ sequence of kernel launches that one C function in ``csrc/admm.cu``
 enqueues on the caller's stream (``nsol_admm_solve``): ``Aᵀb`` once, then
 per outer iteration the CG residual, ``iter_max`` × (:func:`cg_step`,
 :func:`cg_update`) and :func:`admm_tail`. Every CG scalar stays on the
-device: nothing syncs with the host inside a solve.
+device: nothing syncs with the host inside a solve. A 2-D image runs as a
+``(1, Y, X)`` volume with z taps ``[1]`` and ``1/h_z = 1/h_z² = 0``: every
+z term is an exact zero.
 
 This module adds the fourth kernel unit, :func:`admm_tail` (fused.py:645,
 651-667): clip ``x ≥ 0``, ``t = ∇x/h + w``, grouped shrink at
@@ -48,14 +51,17 @@ from nsol_tpu_torch.ops.prox import (
     prox_huber_conj, prox_tv_conj, vectorial_soft_threshold)
 from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import build
+from nsol_tpu_torch.ops.cuda import record as Rec
 from nsol_tpu_torch.ops.cuda import robust as R
+from nsol_tpu_torch.ops.cuda import tikhonov as T
 from nsol_tpu_torch.solvers.primal_dual import ALG_TYPES, step_schedules
 
 __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
-           "reset_counts", "launch_counts", "plain_counts"]
+           "RECORD_UNITS", "TIKHONOV_UNITS", "reset_counts", "launch_counts",
+           "plain_counts"]
 
 
 # ------------------------------------------------------------- admm_tail --
@@ -100,19 +106,28 @@ def admm_tail(x, v, w, Atb, inv_h, tau, rho, init=False):
     if x.device.type == "cpu":
         return admm_tail_plain(x, v, w, Atb, inv_h, tau, rho, init)
     name = "admm_tail"
-    B.check_volume(name, x)
+    dims = B.volume_dims(name, x)
+    nd = x.dim()
     B.check_tensors(name, x.shape, x, Atb)
-    B.check_tensors(name, (3,) + tuple(x.shape), v, w, device=x.device)
+    B.check_tensors(name, (nd,) + tuple(x.shape), v, w, device=x.device)
+    if nd == 2:  # the kernel's z component, an exact zero, in scratch
+        pad = torch.zeros((1,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        v3, w3 = torch.cat([v, pad]), torch.cat([w, pad])
+    else:
+        v3, w3 = v, w
     lib = build.load()
     rhs = torch.empty_like(x)
-    counts = build.new_counts(4)
-    Z, Y, X = x.shape
+    counts = build.new_counts(5)
     err = lib.nsol_admm_tail(
-        build.tensor_ptr(x), build.tensor_ptr(v), build.tensor_ptr(w),
-        build.tensor_ptr(Atb), build.tensor_ptr(rhs), *inv_h, float(tau),
-        float(rho), int(bool(init)), Z, Y, X, build.stream_ptr(x.device),
-        counts)
+        build.tensor_ptr(x), build.tensor_ptr(v3), build.tensor_ptr(w3),
+        build.tensor_ptr(Atb), build.tensor_ptr(rhs), *B.spacing3(inv_h),
+        float(tau), float(rho), int(bool(init)), *dims,
+        build.stream_ptr(x.device), counts)
     build.check(err, name)
+    if nd == 2:
+        v.copy_(v3[:2])
+        w.copy_(w3[:2])
     admm_tail.launches += counts[3]
     return rhs
 
@@ -126,10 +141,13 @@ _ADMM_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain,
 
 # ----------------------------------------------------------------- solver --
 
-def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max):
+def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
+                 record=None):
     """The solve as a sequence of kernel-unit calls — the same sequence
     ``nsol_admm_solve`` enqueues in C. ``steps`` are the four units
-    (the dispatching wrappers, or the plain versions)."""
+    (the dispatching wrappers, or the plain versions); ``record`` is
+    ``None`` or ``(record unit, loss, C)``. Returns ``(x, reg, data)``,
+    the float64 records or None."""
     normal_apply, cg_step, cg_update, tail = steps
     tau = float(np.float32(alpha) / np.float32(rho)) \
         if st.dtype == torch.float32 else alpha / rho
@@ -138,9 +156,14 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max):
     v = torch.empty((st.ndim,) + tuple(x.shape), dtype=x.dtype,
                     device=x.device)
     w = torch.empty_like(v)
+    reg = data = None
+    if record is not None:
+        rec, loss, rec_scale = record
+        reg, data = Rec.new_records(iterations + 1, b.device)
+        rec(x, b, st.blur, st.inv_h, loss, rec_scale, reg, data, 0)
     Atb = normal_apply(b, st.blur, st.inv_h2, 0.0)  # A = Aᵀ
     rhs = tail(x, v, w, Atb, st.inv_h, tau, rho, init=True)
-    for _ in range(iterations):
+    for it in range(iterations):
         r = normal_apply(x, st.normal, st.inv_h2, rho, rhs=rhs, scal=scal)
         p = None
         for k in range(iter_max):
@@ -148,12 +171,15 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max):
                            first=(k == 0))
             cg_update(x, r, p, q, scal)
         rhs = tail(x, v, w, Atb, st.inv_h, tau, rho)
-    return x
+        if record is not None:
+            rec(x, b, st.blur, st.inv_h, loss, rec_scale, reg, data, it + 1)
+    return x, reg, data
 
 
-def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max):
+def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
+                record_dls=None):
     name = "make_fused_admm_solver"
-    B.check_volume(name, b)
+    dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
     lib = build.load()
     x = x0.clone()
@@ -164,20 +190,28 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max):
                            device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
-    counts = build.new_counts(4)
-    Z, Y, X = b.shape
+    reg = data = parts = None
+    if record_dls is not None:
+        reg, data = Rec.new_records(iterations + 1, b.device)
+        parts = Rec.rec_partials(b.device)
+    ta, tn = st.blur.as_volume(), st.normal.as_volume()
+    counts = build.new_counts(5)
     err = lib.nsol_admm_solve(
         build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
         build.tensor_ptr(w), *[build.tensor_ptr(t) for t in vols],
         build.tensor_ptr(partials), build.tensor_ptr(scal),
-        build.tensor_ptr(st.blur.buf), *st.blur.lengths,
-        build.tensor_ptr(st.normal.buf), *st.normal.lengths,
-        *st.inv_h, *st.inv_h2, tau, float(rho), int(iterations),
-        int(iter_max), Z, Y, X, build.stream_ptr(b.device), counts)
+        build.tensor_ptr(ta.buf), *ta.lengths,
+        build.tensor_ptr(tn.buf), *tn.lengths,
+        *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), tau, float(rho),
+        int(iterations), int(iter_max), build.tensor_ptr(reg),
+        build.tensor_ptr(data), build.tensor_ptr(parts),
+        Rec.LOSS_IDS.index("linear"),
+        float(1.0 if record_dls is None else record_dls), *dims,
+        build.stream_ptr(b.device), counts)
     build.check(err, name)
-    for f, n in zip(_ADMM_UNITS, counts):
+    for f, n in zip(_ADMM_UNITS + (Rec.admm_record,), counts):
         f.launches += n
-    return x
+    return x, reg, data
 
 
 _TPU_ONLY = ("precision", "compact_dirs", "blur_reorder", "diff_matmul",
@@ -187,7 +221,8 @@ _TPU_ONLY = ("precision", "compact_dirs", "blur_reorder", "diff_matmul",
 def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
                            iterations=10, iter_max=10, data_loss="linear",
                            irls_cg_iters=8, record=False, **tpu_options):
-    """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0)``.
+    """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0,
+    record_dls=1.0)``.
 
     ``data_loss="linear"``: ``iterations`` ADMM steps, each with
     ``iter_max`` warm-started CG iterations on
@@ -199,44 +234,73 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     ``irls_cg_iters`` masked-CG iterations per step at the runtime
     ``data_loss_scale`` (:func:`~nsol_tpu_torch.ops.cuda.robust.make_robust_solver`).
 
+    ``record=True``: ``solve`` returns ``(x, {"Reg": ..., "Data": ...})``
+    with ``(iterations+1,)`` rows, row 0 the ``x0`` state — ``Reg =
+    TV(∇x)``, ``Data = ½Σρ_C(r²)``, ``r = Ax − b``, the solve's loss at the
+    runtime scale ``record_dls`` (:func:`~nsol_tpu_torch.ops.cuda.record.
+    admm_record`); accumulated in float64, returned in the solve's dtype.
+
     Device and dtype follow ``b``: on CUDA the whole solve runs as the
-    kernel sequence of ``csrc/admm.cu`` (linear, 3-D float32) or
-    ``csrc/robust.cu`` (robust, 2-D or 3-D float32); on the CPU it runs
-    the plain versions (2-D or 3-D, any float dtype). ``solve.plain`` runs
-    the plain versions on any device — the reference the kernels are held
-    against. ``alpha``/``rho`` are runtime scalars.
+    kernel sequence of ``csrc/admm.cu`` (linear) or ``csrc/robust.cu``
+    (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
+    (2-D or 3-D, any float dtype). ``solve.plain`` runs the plain versions
+    on any device — the reference the kernels are held against.
+    ``alpha``/``rho`` are runtime scalars.
     """
     for key in tpu_options:
         if key not in _TPU_ONLY:
             raise TypeError("unexpected argument %r" % key)
         raise ValueError("%s schedules the TPU's matrix unit and has no "
                          "counterpart in the port (exact f32 only)" % key)
-    if record:
-        raise NotImplementedError("record=True is not ported yet "
-                                  "(ROADMAP Queue 2 K3)")
-    if data_loss != "linear":
-        return R.make_robust_solver(shape, cov, alpha_cut, spacing,
-                                    iterations, iter_max, irls_cg_iters,
-                                    data_loss)
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
+
+    def result(out, dtype):
+        x, reg, data = out
+        if not record:
+            return x
+        return x, {"Reg": reg.to(dtype), "Data": data.to(dtype)}
+
+    if data_loss != "linear":
+        robust = R.make_robust_solver(shape, cov, alpha_cut, spacing,
+                                      iterations, iter_max, irls_cg_iters,
+                                      data_loss, record=True)
+
+        def solve_robust(b, x0, alpha, rho, data_loss_scale=1.0,
+                         record_dls=1.0):
+            return result(robust(b, x0, alpha, rho, data_loss_scale,
+                                 record_dls), b.dtype)
+
+        def plain_robust(b, x0, alpha, rho, data_loss_scale=1.0,
+                         record_dls=1.0):
+            return result(robust.plain(b, x0, alpha, rho, data_loss_scale,
+                                       record_dls=record_dls), b.dtype)
+
+        solve_robust.plain = plain_robust
+        return solve_robust
     factors = C.blur_factors(cov, alpha_cut, spacing)
     cache = {}
 
     def stencils(t):
         return B.stencils_for(cache, shape, factors, spacing, t)
 
-    def solve(b, x0, alpha, rho, data_loss_scale=1.0):
+    def solve(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
         st = stencils(b)
         if b.device.type == "cpu":
-            return _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
-                                iterations, iter_max)
-        return _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max)
+            rec = (Rec.admm_record, "linear", record_dls) if record else None
+            out = _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
+                               iterations, iter_max, rec)
+        else:
+            out = _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
+                              record_dls if record else None)
+        return result(out, b.dtype)
 
-    def plain(b, x0, alpha, rho, data_loss_scale=1.0):
-        return _solve_steps(_ADMM_PLAIN, stencils(b), b, x0, alpha, rho,
-                            iterations, iter_max)
+    def plain(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
+        rec = (Rec.admm_record_plain, "linear", record_dls) if record \
+            else None
+        return result(_solve_steps(_ADMM_PLAIN, stencils(b), b, x0, alpha,
+                                   rho, iterations, iter_max, rec), b.dtype)
 
     solve.plain = plain
     return solve
@@ -619,8 +683,12 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 ADMM_UNITS = tuple(f.__name__ for f in _ADMM_UNITS)
 PD_UNITS = tuple(f.__name__ for f in _PD_UNITS)
 ROBUST_UNITS = tuple(f.__name__ for f in R.UNITS)
+RECORD_UNITS = ("admm_record",)
+#: the Tikhonov solve's own unit; it runs the ADMM and robust units too
+TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
 _UNITS = {f.__name__: (f, p) for f, p in zip(
-    _ADMM_UNITS + _PD_UNITS + R.UNITS, _ADMM_PLAIN + _PD_PLAIN + R.PLAIN)}
+    _ADMM_UNITS + _PD_UNITS + R.UNITS + (Rec.admm_record,) + T.UNITS,
+    _ADMM_PLAIN + _PD_PLAIN + R.PLAIN + (Rec.admm_record_plain,) + T.PLAIN)}
 
 
 def reset_counts():

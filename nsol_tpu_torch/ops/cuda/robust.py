@@ -5,21 +5,24 @@
 Four kernel units (CUDA C++ in ``csrc/robust.cu``), each with its plain
 PyTorch version beside it and a launch counter on its wrapper:
 
-* :func:`blur_apply` — ``A y``, with ``u`` ``+ ρ·DᵀD u``; replaces
+* :func:`blur_apply` — ``A y``, with ``u`` ``+ ρ·BᵀB u``; replaces
   ``robust.py::make_blocked_blur_operator`` (:161). With ``scal`` it is
-  the gradient that opens an IRLS sweep: ``g = A y + ρ·DᵀD x`` for
+  the gradient that opens an IRLS sweep: ``g = A y + ρ·BᵀB x`` for
   ``y = wts·r``, the active set ``free`` (0 where ``x ≤ 0`` and ``g > 0``,
   else 1, a float field), ``rk = −free·g``, ``γ = ‖rk‖²`` and ``β = 0``.
 * :func:`irls_head` — ``r = A x − b``, ``wts = ρ'_C(r²)``, ``y = wts·r``:
   the weights one sweep freezes (``fused.py:587-588``,
   ``robust.py:508-509``).
 * :func:`weighted_apply` — ``p' = r + β·p``, ``pf = free·p'``,
-  ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)``, ``pq = Σ p'·q``,
+  ``q = free·(Aᵀ(wts·A pf) + ρ·BᵀB pf) + (p' − pf)``, ``pq = Σ p'·q``,
   ``a = γ/pq`` (guarded); replaces
   ``robust.py::make_blocked_weighted_normal_operator`` (:264) and the
   in-kernel ``apply_W`` of ``fused.py`` (:593-597).
 * :func:`irls_step` — ``x = max(x + xk, 0)`` (``fused.py:622``).
 
+``BᵀB`` is the Laplacian ``DᵀD`` (``reg="TK1"``, the ADMM x-update's and
+TK1's) or the identity (``reg="TK0"``), as in :mod:`.blocked`; the
+Tikhonov solve of :mod:`.tikhonov` runs these units with ``ρ := α``.
 The masked CG between applies is ``blocked.cg_update``. The TPU kernel
 splits into a VMEM-resident whole solve (``fused.py``) and a streaming one
 (``robust.py::blocked_robust_admm_solve``) only because of VMEM; here both
@@ -42,6 +45,7 @@ from nsol_tpu_torch.ops import grad as G
 from nsol_tpu_torch.ops import losses
 from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import build
+from nsol_tpu_torch.ops.cuda import record as Rec
 from nsol_tpu_torch.ops.prox import vectorial_soft_threshold
 from nsol_tpu_torch.solvers.cg import guarded_ratio
 
@@ -53,17 +57,18 @@ __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
            "blocked_robust_admm_solve"]
 
 #: data losses by the index ``csrc/robust.cu`` takes (its ``Loss`` enum)
-LOSS_IDS = tuple(losses.LOSSES)
+LOSS_IDS = Rec.LOSS_IDS
 
 
 # ------------------------------------------------------------ plain forms --
 
-def blur_apply_plain(y, taps, inv_h2, u=None, rho=0.0, scal=None):
+def blur_apply_plain(y, taps, inv_h2, u=None, rho=0.0, scal=None,
+                     reg="TK1"):
     """Plain version of :func:`blur_apply`."""
     blur_apply_plain.calls += 1
     g = B._blur_plain(y, taps)
     if u is not None:
-        g = g + rho * B._laplacian(u, inv_h2)
+        g = g + rho * B.reg_normal_plain(u, inv_h2, reg)
     if scal is None:
         return g
     free = (~((u <= 0.0) & (g > 0.0))).to(g.dtype)
@@ -85,13 +90,13 @@ def irls_head_plain(x, b, taps, loss, scale):
 
 
 def weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
-                         first=False):
+                         first=False, reg="TK1"):
     """Plain version of :func:`weighted_apply`."""
     weighted_apply_plain.calls += 1
     p_new = r.clone() if first else r + scal[B.BETA].to(r.dtype) * p
     pf = p_new if free is None else free * p_new
     core = B._blur_plain(wts * B._blur_plain(pf, taps), taps) \
-        + rho * B._laplacian(pf, inv_h2)
+        + rho * B.reg_normal_plain(pf, inv_h2, reg)
     q = core if free is None else free * core + (p_new - pf)
     pq = torch.sum(p_new * q).to(scal.dtype)
     scal[B.PQ] = pq
@@ -112,35 +117,22 @@ for _f in (blur_apply_plain, irls_head_plain, weighted_apply_plain,
 
 # ---------------------------------------------------------------- kernels --
 
-def _dims(name, v):
-    """``(Z, Y, X)`` of a 3-D volume, ``(1, Y, X)`` of a 2-D image."""
-    if v.dim() not in (2, 3):
-        raise ValueError("%s: the CUDA kernel takes a 2-D image or a 3-D "
-                         "volume, got shape %s" % (name, tuple(v.shape)))
-    return (1,) * (3 - v.dim()) + tuple(v.shape)
-
-
-def _inv_h2_3(inv_h2):
-    """``1/h²`` in (x, y, z) order, ``1/h_z² = 0`` for a 2-D image."""
-    return tuple(float(h) for h in inv_h2) + (0.0,) * (3 - len(inv_h2))
-
-
 def _partials(device):
     return torch.empty(build.load().nsol_max_blocks(), dtype=torch.float64,
                        device=device)
 
 
-def blur_apply(y, taps, inv_h2, u=None, rho=0.0, scal=None):
+def blur_apply(y, taps, inv_h2, u=None, rho=0.0, scal=None, reg="TK1"):
     """``A y`` (``taps``: the blur :class:`~blocked.Taps`); with ``u``,
-    ``A y + ρ·DᵀD u``. With ``scal`` (``u`` is then the IRLS iterate
+    ``A y + ρ·BᵀB u``. With ``scal`` (``u`` is then the IRLS iterate
     ``x``): the gradient form, returning ``(free, rk)`` with
     ``free = 0`` where ``x ≤ 0`` and ``g > 0`` (else 1) and
     ``rk = −free·g``, and setting ``scal[GAMMA] = ‖rk‖²``,
     ``scal[BETA] = 0``."""
     if y.device.type == "cpu":
-        return blur_apply_plain(y, taps, inv_h2, u, rho, scal)
+        return blur_apply_plain(y, taps, inv_h2, u, rho, scal, reg)
     name = "blur_apply"
-    dims = _dims(name, y)
+    dims = B.volume_dims(name, y)
     B.check_tensors(name, y.shape, y, *([u] if u is not None else []))
     B._check_consts(name, y.device, taps, scal)
     if scal is not None and u is None:
@@ -160,8 +152,8 @@ def blur_apply(y, taps, inv_h2, u=None, rho=0.0, scal=None):
         build.tensor_ptr(free), build.tensor_ptr(rk), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(partials),
         build.tensor_ptr(scal), build.tensor_ptr(tv.buf), *tv.lengths,
-        float(rho), *_inv_h2_3(inv_h2), *dims, build.stream_ptr(y.device),
-        counts)
+        float(rho), B.reg_id(reg), *B.spacing3(inv_h2), *dims,
+        build.stream_ptr(y.device), counts)
     build.check(err, name)
     blur_apply.launches += counts[0]
     return out if scal is None else (free, rk)
@@ -176,7 +168,7 @@ def irls_head(x, b, taps, loss, scale):
     if x.device.type == "cpu":
         return irls_head_plain(x, b, taps, loss, scale)
     name = "irls_head"
-    dims = _dims(name, x)
+    dims = B.volume_dims(name, x)
     B.check_tensors(name, x.shape, x, b)
     B._check_consts(name, x.device, taps)
     lib = build.load()
@@ -193,18 +185,19 @@ def irls_head(x, b, taps, loss, scale):
     return wts, y
 
 
-def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False):
+def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
+                   reg="TK1"):
     """Masked CG direction and weighted SPD apply: ``p' = r + β·p``
     (``p' = r`` when ``first``), ``pf = free·p'``,
-    ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)`` (``free=None``: every
-    voxel free, ``q = Aᵀ(wts·A p') + ρ·DᵀD p'``), then
+    ``q = free·(Aᵀ(wts·A pf) + ρ·BᵀB pf) + (p' − pf)`` (``free=None``: every
+    voxel free, ``q = Aᵀ(wts·A p') + ρ·BᵀB p'``), then
     ``scal[PQ] = Σ p'·q`` and ``scal[A] = γ/pq`` (0 unless pq > 0).
     Returns ``(p', q)``."""
     if r.device.type == "cpu":
         return weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
-                                    first)
+                                    first, reg)
     name = "weighted_apply"
-    dims = _dims(name, r)
+    dims = B.volume_dims(name, r)
     B.check_tensors(name, r.shape, r, wts, *([] if first else [p]),
                     *([] if free is None else [free]))
     B._check_consts(name, r.device, taps, scal)
@@ -218,7 +211,8 @@ def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False):
         build.tensor_ptr(wts), build.tensor_ptr(t1), build.tensor_ptr(t2),
         build.tensor_ptr(_partials(r.device)), build.tensor_ptr(scal),
         int(bool(first)), build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
-        *_inv_h2_3(inv_h2), *dims, build.stream_ptr(r.device), counts)
+        B.reg_id(reg), *B.spacing3(inv_h2), *dims, build.stream_ptr(r.device),
+        counts)
     build.check(err, name)
     weighted_apply.launches += counts[2]
     return p_new, q
@@ -250,11 +244,13 @@ PLAIN = (blur_apply_plain, irls_head_plain, weighted_apply_plain,
 # ----------------------------------------------------------------- solver --
 
 def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
-                  cg_iters, loss, scale, chain=True):
+                  cg_iters, loss, scale, chain=True, record=None):
     """The solve as a sequence of unit calls — the sequence
     ``nsol_robust_admm_solve`` enqueues in C — plus, with ``chain``, the
     outer TV prox/dual updates of ``v`` and ``w``, which nothing that
-    reaches ``x`` reads (the robust x-update ignores ``v − w``)."""
+    reaches ``x`` reads (the robust x-update ignores ``v − w``). With
+    ``record = (record unit, C)`` also the records of ``x0`` and of every
+    outer iterate; returns ``(x, reg, data)``."""
     blur, head, wapply, step, update = units
     scal = B.new_scalars(b.device)
     x = x0.clone()
@@ -265,7 +261,12 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
         tau = alpha / rho
         w = torch.zeros((nd,) + tuple(x.shape), dtype=x.dtype,
                         device=x.device)
-    for _ in range(iterations):
+    reg = data = None
+    if record is not None:
+        rec, rec_scale = record
+        reg, data = Rec.new_records(iterations + 1, b.device)
+        rec(x, b, st.blur, st.inv_h, loss, rec_scale, reg, data, 0)
+    for it in range(iterations):
         for _ in range(iter_max):
             wts, y = head(x, b, st.blur, loss, scale)
             free, rk = blur(y, st.blur, st.inv_h2, x, rho, scal=scal)
@@ -276,40 +277,50 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
                               rho, first=(k == 0))
                 update(xk, rk, p, q, scal)
             step(x, xk)
+        if record is not None:
+            rec(x, b, st.blur, st.inv_h, loss, rec_scale, reg, data, it + 1)
         if chain:
             t = grad(x) + w
             v = vectorial_soft_threshold(t, tau)
             w = t - v
-    return x
+    return x, reg, data
 
 
 def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
-                       scale):
+                       scale, record_dls=None):
     name = "robust ADMM solve"
-    dims = _dims(name, b)
+    dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
     lib = build.load()
     x = x0.clone()
     vols = [torch.empty_like(b) for _ in range(9)]  # wts free rk p0 p1 q xk t1 t2
     scal = B.new_scalars(b.device)
     tv = st.blur.as_volume()
-    counts = build.new_counts(5)
+    reg = data = parts = None
+    if record_dls is not None:
+        reg, data = Rec.new_records(iterations + 1, b.device)
+        parts = Rec.rec_partials(b.device)
+    counts, rec_counts = build.new_counts(5), build.new_counts(5)
     err = lib.nsol_robust_admm_solve(
         build.tensor_ptr(b), build.tensor_ptr(x),
         *[build.tensor_ptr(t) for t in vols],
         build.tensor_ptr(_partials(b.device)), build.tensor_ptr(scal),
         build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
-        *_inv_h2_3(st.inv_h2), LOSS_IDS.index(loss), float(scale),
-        int(iterations), int(iter_max), int(cg_iters), *dims,
-        build.stream_ptr(b.device), counts)
+        *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), LOSS_IDS.index(loss),
+        float(scale), int(iterations), int(iter_max), int(cg_iters),
+        build.tensor_ptr(reg), build.tensor_ptr(data), build.tensor_ptr(parts),
+        float(1.0 if record_dls is None else record_dls), *dims,
+        build.stream_ptr(b.device), counts, rec_counts)
     build.check(err, name)
     for f, n in zip(UNITS, counts):
         f.launches += n
-    return x
+    Rec.admm_record.launches += rec_counts[4]
+    return x, reg, data
 
 
 def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
-                       iter_max=10, irls_cg_iters=8, data_loss="huber"):
+                       iter_max=10, irls_cg_iters=8, data_loss="huber",
+                       record=False):
     """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0) -> x``: robust
     ADMM TV-deconvolution, ``admm_solve(minimizer="irls")`` with bounds
     ``(0, ∞)`` sweep for sweep, with the TPU kernels' guards and without
@@ -321,6 +332,11 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     reaches only the TV prox/dual chain, which no output reads: the
     reference's robust x-update ignores ``v − w``, so ``x`` does not depend
     on ``alpha`` (kept on purpose).
+
+    ``record=True``: ``solve(..., record_dls=1.0)`` returns ``(x, reg,
+    data)`` with the float64 ``(iterations+1,)`` L-curve records of
+    :func:`~nsol_tpu_torch.ops.cuda.record.admm_record` (row 0 = ``x0``),
+    the Data loss at the runtime scale ``record_dls``.
 
     Device and dtype follow ``b``: on CUDA the solve runs the kernels of
     ``csrc/robust.cu`` (float32, 2-D or 3-D) without the chain; on the CPU
@@ -339,19 +355,29 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     def stencils(t):
         return B.stencils_for(cache, shape, factors, spacing, t)
 
-    def solve(b, x0, alpha, rho, data_loss_scale=1.0):
+    def rec_of(unit, record_dls):
+        return (unit, record_dls) if record else None
+
+    def result(out):
+        return out if record else out[0]
+
+    def solve(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
         st = stencils(b)
         if b.device.type == "cpu":
-            return _robust_steps(UNITS, st, b, x0, alpha, rho, iterations,
-                                 iter_max, irls_cg_iters, data_loss,
-                                 data_loss_scale)
-        return _robust_solve_cuda(st, b, x0, rho, iterations, iter_max,
-                                  irls_cg_iters, data_loss, data_loss_scale)
+            return result(_robust_steps(
+                UNITS, st, b, x0, alpha, rho, iterations, iter_max,
+                irls_cg_iters, data_loss, data_loss_scale,
+                record=rec_of(Rec.admm_record, record_dls)))
+        return result(_robust_solve_cuda(
+            st, b, x0, rho, iterations, iter_max, irls_cg_iters, data_loss,
+            data_loss_scale, record_dls if record else None))
 
-    def plain(b, x0, alpha, rho, data_loss_scale=1.0, chain=True):
-        return _robust_steps(PLAIN, stencils(b), b, x0, alpha, rho,
-                             iterations, iter_max, irls_cg_iters, data_loss,
-                             data_loss_scale, chain)
+    def plain(b, x0, alpha, rho, data_loss_scale=1.0, chain=True,
+              record_dls=1.0):
+        return result(_robust_steps(
+            PLAIN, stencils(b), b, x0, alpha, rho, iterations, iter_max,
+            irls_cg_iters, data_loss, data_loss_scale, chain,
+            rec_of(Rec.admm_record_plain, record_dls)))
 
     solve.plain = plain
     return solve

@@ -28,14 +28,16 @@ __all__ = ["admm_solve"]
 def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
                iterations=10, iter_max=10, data_loss="linear",
                data_loss_scale=1.0, minimizer="cg",
-               inner_bounds=(0.0, np.inf), record_fn=None, normal_A=None,
-               normal_B=None, irls_cg_iters=8, normal_M=None, normal_W=None,
-               grad_W=None):
+               inner_bounds=(0.0, np.inf), record_fn=None,
+               record_trajectory=False, normal_A=None, normal_B=None,
+               irls_cg_iters=8, normal_M=None, normal_W=None, grad_W=None):
     """Run ``iterations`` ADMM steps from ``x0``.
 
     Returns ``(x, records)``; ``records`` is None unless ``record_fn`` is
-    given, then ``{"measures": record_fn stacked over [x0, x1, ...]}`` with
-    each leaf stacked along a new leading axis (the reference's layout).
+    given or ``record_trajectory`` set, then ``{"measures": record_fn
+    stacked over [x0, x1, ...]}`` with each leaf stacked along a new
+    leading axis (the reference's layout) and/or ``{"x": [x0, x1, ...]}``
+    stacked.
     """
     dtype, device = x0.dtype, x0.device
     alpha = torch.as_tensor(alpha, dtype=dtype, device=device)
@@ -51,6 +53,7 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
 
     x = x0
     measures = [record_fn(x0)] if record_fn is not None else None
+    trajectory = [x0] if record_trajectory else None
     for _ in range(iterations):
         x = tikhonov_solve(
             A, A_adj, B, B_adj, b, b_reg=v - w + b_reg, x0=x, alpha=rho,
@@ -64,12 +67,21 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
         w = t - v
         if measures is not None:
             measures.append(record_fn(x))
+        if trajectory is not None:
+            trajectory.append(x)
 
-    if measures is None:
+    if measures is None and trajectory is None:
         return x, None
+    records = {}
+    if trajectory is not None:
+        records["x"] = torch.stack(trajectory)
+    if measures is None:
+        return x, records
     if isinstance(measures[0], dict):
-        stacked = {k: torch.stack([torch.as_tensor(m[k]) for m in measures])
-                   for k in measures[0]}
+        records["measures"] = {
+            k: torch.stack([torch.as_tensor(m[k]) for m in measures])
+            for k in measures[0]}
     else:
-        stacked = torch.stack([torch.as_tensor(m) for m in measures])
-    return x, {"measures": stacked}
+        records["measures"] = torch.stack([torch.as_tensor(m)
+                                           for m in measures])
+    return x, records

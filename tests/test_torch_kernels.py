@@ -140,8 +140,12 @@ def test_fused_admm_solver_rejects_tpu_only_and_unported_options():
             F.make_fused_admm_solver((8, 8, 8), cov, **opt)
     with pytest.raises(TypeError):
         F.make_fused_admm_solver((8, 8, 8), cov, interpret=True)
-    with pytest.raises(NotImplementedError):
-        F.make_fused_admm_solver((8, 8, 8), cov, record=True)
+    # record=True is ported: (x, records) with one row per iterate and x0
+    b = torch.rand(8, 8, 8, dtype=torch.float64)
+    x, recs = F.make_fused_admm_solver((8, 8, 8), cov, iterations=3,
+                                       record=True)(b, b, 0.01, 0.5)
+    assert x.shape == b.shape and set(recs) == {"Reg", "Data"}
+    assert recs["Reg"].shape == recs["Data"].shape == (4,)
     solve = F.make_fused_admm_solver((8, 8, 8), cov)
     with pytest.raises(ValueError):
         solve(torch.zeros(8, 8, 9), torch.zeros(8, 8, 9), 0.01, 0.5)

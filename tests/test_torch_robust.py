@@ -328,9 +328,12 @@ def test_robust_entry_points_reject_tpu_only_and_unported_options():
         R.blocked_robust_admm_solve((8, 8), np.eye(2))
     with pytest.raises(ValueError):
         R.make_robust_solver((8, 8), np.eye(2), data_loss="linear")
-    with pytest.raises(NotImplementedError):
-        F.make_fused_admm_solver((8, 8), np.eye(2), data_loss="huber",
-                                 record=True)
+    # record=True is ported for the robust branch too
+    b = torch.rand(8, 8, dtype=torch.float64)
+    x, recs = F.make_fused_admm_solver((8, 8), np.eye(2), iterations=2,
+                                       iter_max=2, data_loss="huber",
+                                       record=True)(b, b, 0.01, 0.5)
+    assert x.shape == b.shape and recs["Data"].shape == (3,)
     with pytest.raises(ValueError):
         R.irls_head(torch.zeros(4, 4), torch.zeros(4, 4),
                     B.Stencils.from_cov(np.eye(2)).blur, "l2", 1.0)

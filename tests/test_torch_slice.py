@@ -96,7 +96,7 @@ def test_cli_cpu_matches_library(tmp_path, rng):
 
 @pytest.mark.parametrize("argv", [
     ["--solver", "PD"], ["--solver", "ADMM", "--reconstruction-type",
-                         "TK1L2"],
+                         "HuberL2"],
     ["--solver", "ADMM", "--data-loss", "huber", "--minimizer",
      "L-BFGS-B"]])
 def test_cli_unported_routes_raise(tmp_path, argv):
@@ -110,8 +110,15 @@ def test_cli_unported_routes_raise(tmp_path, argv):
 def test_port_imports_neither_jax_nor_pil():
     code = ("import sys, json, nsol_tpu_torch, nsol_tpu_torch.cli."
             "run_deconvolution, nsol_tpu_torch.cli.run_denoising, "
+            "nsol_tpu_torch.cli.run_deconvolution_study, "
             "nsol_tpu_torch.io.png, nsol_tpu_torch.solvers.primal_dual, "
-            "nsol_tpu_torch.interop, nsol_tpu_torch.data;"
+            "nsol_tpu_torch.interop, nsol_tpu_torch.data, "
+            "nsol_tpu_torch.natsort, nsol_tpu_torch.observer, "
+            "nsol_tpu_torch.solvers.base, nsol_tpu_torch.solvers.wrappers, "
+            "nsol_tpu_torch.ops.cuda.tikhonov, nsol_tpu_torch.ops.cuda."
+            "record, nsol_tpu_torch.study, nsol_tpu_torch.study.engine, "
+            "nsol_tpu_torch.study.reader, nsol_tpu_torch.study.paths, "
+            "nsol_tpu_torch.interface;"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
             "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
