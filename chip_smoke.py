@@ -29,7 +29,14 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   anchors; the TV-L2 ADMM study with records (8 α × 2 ρ, 50 × 10) through
   ``ADMMLinearSolver.run_sweep`` and ``run_deconvolution`` on the PNG; a
   256³ TK1L2 sweep over 8 α; ``nsol_torch_run_deconvolution_study`` on
-  the 64³ NIfTI phantom (TK1L2) and on Lena (TVL2 by ADMM).
+  the 64³ NIfTI phantom (TK1L2) and on Lena (TVL2 by ADMM);
+* phases 20-22, the 512³ scale path through the one-pass tiled units of
+  ``csrc/tiled.cu``: the units against their plain versions on tile-edge
+  shapes and their 512³ times beside the three-pass units;
+  ``blocked_admm_solve`` 50 × 10 in its "apply" and "step2d" modes within
+  0.2 % of 165421.8 and against the fused solve; the robust huber
+  5 × 5 × 8 solve against the per-axis one; ``run_deconvolution`` on a
+  (64, 512, 512) NIfTI through the tiled route.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -194,6 +201,11 @@ def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1):
         "irls_head": (4, chain + 10),           # x b in, wts y out
         "weighted_apply": (6, 2 * chain + 25),  # r p free wts in, p' q out
         "irls_step": (3, 2),                    # x xk in, x out
+        "normal_apply_zy": (2, chain + 17),     # v in, q out (+ Σ v·q)
+        "cg_step_zy": (4, chain + 17),          # r p in, p' q out
+        "blur_apply_zy": (4, chain + 20),       # y x in, free rk out
+        "weighted_apply_zy": (6, 2 * chain + 25),  # r p free wts; p' q
+        "cg_direction": (3, 2),                 # p r in, p out
         "pd_dual": ((1 + 2 * nd) * batch, 12 * nd),
         "pd_primal": ((2 + nd + 2) * batch + 1, 10 + 3 * nd),
         "pd_record": (batch + 1, 10 + 3 * nd),
@@ -1476,14 +1488,19 @@ def run_admm_study_phase(device, card):
                                                     measures=measures),
                            "phase 18 TVL2 ADMM run_sweep (16 configurations,"
                            " records)", card)
+    # the solve's bound: its units' bounds (bytes) at their launch counts
+    solve_bound = sum(n / len(grid) * unit_bound(k, 256 ** 2, (13, 13),
+                                                 nd=2)[0]
+                      for k, n in launches.items())
     print("phase 18 TVL2 ADMM study Lena 256^2, 8 alphas x 2 rhos, %d x %d, "
           "records: anchor devs %s (band %g); last records vs measures of x "
           "%.2e; kernel vs plain objective rel %.2e, voxel %.2e, records "
           "%.2e; launches %s (%.0f per solve); plain calls 0; kernel %.3f "
-          "ms/solve, plain %.3f ms/solve [%s]"
+          "ms/solve, plain %.3f ms/solve, bound %.4f ms/solve [%s]"
           % (ITERATIONS, ITER_MAX, {k: "%.2e" % v for k, v in devs.items()},
              STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, rrel, launches,
-             sum(launches.values()) / len(grid), ms_k, ms_p, card))
+             sum(launches.values()) / len(grid), ms_k, ms_p, solve_bound,
+             card))
 
     # run_deconvolution, linear TV-L2 by ADMM on the 2-D PNG
     obs = data.path("2D_Lena_256_blur_noise.png")
@@ -1726,6 +1743,500 @@ def library_study_records(nda, rtype, extra, device):
     return recs
 
 
+# ------------------------------------------- phases 20-22 (scale, 512³) --
+
+#: the 512³ scale configuration: BASELINE config 5's volume
+#: (benchmarks/suite.py:973-1029, ``RandomState(0).rand(512³) > 0.7``
+#: blurred by σ = 1 wrap, 50 × 10, α 0.01, ρ 0.5) and its converged
+#: objective in the JAX package (BASELINE.md:272,494); the robust probe of
+#: benchmarks/rob512_probe.py (huber, 5 outer × 5 sweeps × 8 CG, outliers
+#: ``0.5·(rand < 0.01)·randn`` drawn after the volume)
+BIG = (512, 512, 512)
+BIG_ANCHOR = 165421.8
+BIG_ROBUST_ITERS = (5, 5, 8)
+#: the tiled units' tile-edge cases: (label, cov, spacing, shape)
+EDGE_CASES = (
+    ("edge", np.diag([1.0] * 3), None, (13, 530, 37)),
+    ("spacing", np.diag([1.0] * 3), (1.0, 1.5, 0.8), (70, 45, 33)),
+    ("sigma_y>sigma_z", np.diag([0.64, 4.0, 0.64]), None, (16, 40, 37)),
+    ("aniso", np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (13, 530, 37)))
+#: per-axis stencil lengths of each tiled unit's chain at σ = 1 (the
+#: normal taps, or the blur taps twice over for the weighted apply)
+TILED_TAPS = {"normal_apply_zy": (13, 13, 13), "cg_step_zy": (13, 13, 13),
+              "blur_apply_zy": (7, 7, 7), "weighted_apply_zy": (7, 7, 7),
+              "cg_direction": (0, 0, 0)}
+#: the three-pass unit beside each tiled one (``csrc/stencil.cuh``)
+THREE_PASS = {"normal_apply_zy": "normal_apply", "cg_step_zy": "cg_step",
+              "blur_apply_zy": "blur_apply",
+              "weighted_apply_zy": "weighted_apply",
+              "cg_direction": None}
+
+
+def cuda_median_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` calls, each between
+    its own CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def timed_once(fn):
+    """``(fn(), ms)`` of one call by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tiled_calls(T, R, B, st, shape, device, rng):
+    """Each tiled unit's kernel, plain version, three-pass unit and
+    library call (one PyTorch call of the same function, or None) as
+    closures on the same random inputs at ``shape``: the forms of the main
+    paths (the dot form of ``normal_apply_zy``, the masked
+    ``weighted_apply_zy``, the gradient form of ``blur_apply_zy``). The
+    first dict holds (kernel, plain) closures that return fresh outputs
+    where the timed ones update in place."""
+    import torch
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    v, r, p, x = rand(), rand(-0.5), rand(-0.5), rand(-0.3)
+    wts, free = rand(0.1), (rand() > 0.3).float()
+
+    def scal():
+        return torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                            device=device)
+
+    n, bl, h2 = st.normal, st.blur, st.inv_h2
+    s = [scal() for _ in range(3)]
+    pd, lib_out = p.clone(), torch.empty_like(p)
+    beta = float(s[0][B.BETA])
+
+    def direction(unit, k):
+        def run():
+            q = p.clone()
+            unit(q, r, s[k])
+            return q
+        return run
+
+    checks = {"cg_direction": (direction(T.cg_direction, 0),
+                               direction(T.cg_direction_plain, 1))}
+    return checks, {
+        "normal_apply_zy": (
+            lambda: T.normal_apply_zy(v, n, h2, RHO, scal=s[0]),
+            lambda: T.normal_apply_zy_plain(v, n, h2, RHO, scal=s[1]),
+            lambda: B.normal_apply(v, n, h2, RHO), None),
+        "cg_step_zy": (
+            lambda: T.cg_step_zy(r, p, s[0], n, h2, RHO),
+            lambda: T.cg_step_zy_plain(r, p, s[1], n, h2, RHO),
+            lambda: B.cg_step(r, p, s[2], n, h2, RHO), None),
+        "blur_apply_zy": (
+            lambda: T.blur_apply_zy(r, bl, h2, x, RHO, scal=s[0]),
+            lambda: T.blur_apply_zy_plain(r, bl, h2, x, RHO, scal=s[1]),
+            lambda: R.blur_apply(r, bl, h2, x, RHO, scal=s[2]), None),
+        "weighted_apply_zy": (
+            lambda: T.weighted_apply_zy(r, p, free, wts, s[0], bl, h2, RHO),
+            lambda: T.weighted_apply_zy_plain(r, p, free, wts, s[1], bl, h2,
+                                              RHO),
+            lambda: R.weighted_apply(r, p, free, wts, s[2], bl, h2, RHO),
+            None),
+        "cg_direction": (
+            lambda: T.cg_direction(pd, r, s[0]),
+            lambda: T.cg_direction_plain(pd, r, s[1]), None,
+            lambda: torch.add(r, pd, alpha=beta, out=lib_out)),
+    }
+
+
+def tiled_unit_pairs(T, B, st, shape, device, rng):
+    """Every tiled unit (every form) and its plain version on the same
+    inputs: ``{unit: [(kernel output, plain output), ...]}``, the CG
+    scalars among the outputs."""
+    import torch
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    v, rhs, r, p, x, b = rand(), rand(), rand(-0.5), rand(-0.5), \
+        rand(-0.3), rand()
+    wts, free = rand(0.1), (rand() > 0.3).float()
+    n, bl, h2 = st.normal, st.blur, st.inv_h2
+
+    def scal():
+        return torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                            device=device)
+
+    out = {k: [] for k in THREE_PASS}
+    out["normal_apply_zy"].append((T.normal_apply_zy(v, n, h2, RHO),
+                                   T.normal_apply_zy_plain(v, n, h2, RHO)))
+    for kw in ({"rhs": rhs}, {}):
+        s1, s2 = scal(), scal()
+        out["normal_apply_zy"] += [
+            (T.normal_apply_zy(v, n, h2, RHO, scal=s1, **kw),
+             T.normal_apply_zy_plain(v, n, h2, RHO, scal=s2, **kw)),
+            (s1, s2)]
+    for first in (True, False):
+        s1, s2 = scal(), scal()
+        out["cg_step_zy"] += list(zip(
+            T.cg_step_zy(r, p, s1, n, h2, RHO, first),
+            T.cg_step_zy_plain(r, p, s2, n, h2, RHO, first))) \
+            + [(s1[1:3], s2[1:3])]
+        for f in (free, None):
+            s1, s2 = scal(), scal()
+            out["weighted_apply_zy"] += list(zip(
+                T.weighted_apply_zy(r, p, f, wts, s1, bl, h2, RHO, first),
+                T.weighted_apply_zy_plain(r, p, f, wts, s2, bl, h2, RHO,
+                                          first))) + [(s1[1:3], s2[1:3])]
+    out["blur_apply_zy"] += [
+        (T.blur_apply_zy(v, bl, h2), T.blur_apply_zy_plain(v, bl, h2)),
+        (T.blur_apply_zy(v, bl, h2, x, RHO),
+         T.blur_apply_zy_plain(v, bl, h2, x, RHO))]
+    s1, s2 = scal(), scal()
+    out["blur_apply_zy"] += list(zip(
+        T.blur_apply_zy(v, bl, h2, x, RHO, scal=s1),
+        T.blur_apply_zy_plain(v, bl, h2, x, RHO, scal=s2))) \
+        + [(s1[:1], s2[:1])]
+    for loss in ROBUST_LOSSES:
+        out["blur_apply_zy"] += list(zip(
+            T.blur_apply_zy(x, bl, h2, head=(b, loss, 0.3)),
+            T.blur_apply_zy_plain(x, bl, h2, head=(b, loss, 0.3))))
+    pk, pp = p.clone(), p.clone()
+    T.cg_direction(pk, r, s1)
+    T.cg_direction_plain(pp, r, s1)
+    out["cg_direction"].append((pk, pp))
+    return out
+
+
+def tiled_fit_checks(T, B, device):
+    """The tiled units' shared memory: its size in C (``nsol_tiled_smem``)
+    and in Python (``tiled.smem_bytes``, by which the solves route before
+    any launch) agree; at σ = 2, the widest isotropic blur the weighted
+    apply holds, every unit matches its plain version; at σ = 2.1 the
+    weighted apply's wrapper raises before any launch. Returns the largest
+    max |Δ| / max |ref| at σ = 2."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import build
+
+    lib = build.load()
+    for k in range(1, 60, 2):
+        for lengths in ((k, k, k), (1, k, 3), (k, 5, 1)):
+            for form in ((1, 1, 0), (2, 1, 0), (1, 0, 0), (1, 1, 1)):
+                c = lib.nsol_tiled_smem(*lengths, *form)
+                py = T.smem_bytes(lengths, form[0], *map(bool, form[1:]))
+                require(c == py, "phase 20: shared memory of %s %s: C %d, "
+                        "Python %d" % (lengths, form, c, py))
+    st = B.Stencils.from_cov(np.diag([4.0] * 3), 3, None, device)
+    res = tiled_unit_pairs(T, B, st, (40, 64, 40), device,
+                           np.random.RandomState(15))
+    torch.cuda.synchronize()
+    rel = max(max_rel(g, q) for v in res.values() for g, q in v)
+    require(rel <= KERNEL_TOL, "phase 20: units at sigma 2 rel %.3g" % rel)
+    wide = B.Stencils.from_cov(np.diag([2.1 ** 2] * 3), 3, None, device)
+    r = torch.ones((40, 64, 40), device=device)
+    before = T.weighted_apply_zy.launches
+    try:
+        T.weighted_apply_zy(r, None, None, r, B.new_scalars(device),
+                            wide.blur, wide.inv_h2, RHO, first=True)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and T.weighted_apply_zy.launches == before,
+            "phase 20: weighted_apply_zy took a blur past its shared memory")
+    return rel
+
+
+def scale_problem(device, robust):
+    """The 512³ input on the card: ``A·(rand > 0.7)``, plus the outliers
+    for the robust probe; the float32 blur ``A`` and the float64 one."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
+    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+    rs = np.random.RandomState(0)
+    xt = torch.as_tensor(rs.rand(*BIG) > 0.7, device=device).float()
+    b = A(xt).contiguous()
+    del xt
+    if robust:
+        noise = (rs.rand(*BIG) < 0.01).astype(np.float32) \
+            * rs.randn(*BIG).astype(np.float32)
+        b += 0.5 * torch.as_tensor(noise, device=device)
+        del noise
+    return b, iso, A64
+
+
+def run_scale_phases(device, card):
+    """Phases 20-22: the 512³ scale path through the one-pass tiled units.
+    Returns each tiled unit's launches on its 512³ path, its max |Δ|
+    against its plain version at 512³ and (kernel, plain) ms there."""
+    import torch
+
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import read_nifti, write_nifti
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    # phase 20: the units against their plain versions on tile-edge shapes
+    rng = np.random.RandomState(20)
+    for label, cov, sp, shape in EDGE_CASES:
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        res = tiled_unit_pairs(T, B, st, shape, device, rng)
+        torch.cuda.synchronize()
+        rels = {k: max(max_rel(g, q) for g, q in v) for k, v in res.items()}
+        for k, rel in rels.items():
+            require(rel <= KERNEL_TOL, "phase 20: %s %s %s rel %.3g > %g"
+                    % (k, label, shape, rel, KERNEL_TOL))
+        print("phase 20 tiled units %s %s normal taps %s: %s" % (
+            label, "x".join(map(str, shape)), st.normal.lengths,
+            ", ".join("%s %.2e" % kv for kv in rels.items())))
+    del res
+    fit_rel = tiled_fit_checks(T, B, device)
+    print("phase 20 shared memory: C and Python sizes agree; units at "
+          "sigma 2 (blur %s taps) vs plain %.2e; sigma 2.1 refused before "
+          "launch" % (B.Stencils.from_cov(np.diag([4.0] * 3)).blur.lengths,
+                      fit_rel))
+    # ... and at 512³: times beside the plain version and the three-pass unit
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
+    checks, calls = tiled_calls(T, R, B, st, BIG, device,
+                                np.random.RandomState(21))
+    times, err = {}, {}
+    for k, (kf, pf, tf, lf) in calls.items():
+        ck, cp = checks.get(k, (kf, pf))
+        got, ref = ck(), cp()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err[k] = max(float((g - q).abs().max()) for g, q in zip(got, ref))
+        require(max(max_rel(g, q) for g, q in zip(got, ref)) <= KERNEL_TOL,
+                "phase 20: %s at 512^3 deviates" % k)
+        del got, ref
+        times[k] = tuple(None if f is None else cuda_median_ms(f, reps)
+                         for f, reps in ((kf, 5), (pf, 2), (tf, 5), (lf, 5)))
+    del calls, checks
+    torch.cuda.empty_cache()
+    print("phase 20 512^3 per call (tiled / plain / three-pass / library ms, "
+          "bound ms): %s [%s]" % (", ".join(
+              "%s %.3f/%.1f/%s/%s, %.3f" % (
+                  k, t[0], t[1], *("-" if u is None else "%.3f" % u
+                                   for u in t[2:]),
+                  unit_bound(k, int(np.prod(BIG)), TILED_TAPS[k])[0])
+              for k, t in times.items()), card))
+    # ... at 256³, where the route keeps the three-pass units
+    mid = (256, 256, 256)
+    _, calls = tiled_calls(T, R, B, st, mid, device,
+                           np.random.RandomState(22))
+    mid_times = {k: (cuda_median_ms(c[0], 10), cuda_median_ms(c[2], 10))
+                 for k, c in calls.items() if c[2] is not None}
+    del calls
+    torch.cuda.empty_cache()
+    print("phase 20 256^3 per call (tiled / three-pass ms, bound ms): %s [%s]"
+          % (", ".join("%s %.4f/%.4f, %.4f" % (
+              k, t[0], t[1], unit_bound(k, int(np.prod(mid)),
+                                        TILED_TAPS[k])[0])
+              for k, t in mid_times.items()), card))
+    lap("phase 20")
+
+    # phase 21: linear 512³, "apply" and "step2d" against the anchor, the
+    # fused solve, and the plain versions at 2 outer iterations
+    b, iso, A64 = scale_problem(device, robust=False)
+    three_pass = ("normal_apply", "cg_step")
+    runs, launches, xs = {}, {}, {}
+    for mode in ("auto", "step2d"):
+        solve = B.blocked_admm_solve(BIG, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, mode=mode)
+        require(mode != "auto" or solve.mode == "apply",
+                "phase 21: auto picked %r at 512^3" % solve.mode)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x, ms = timed_once(lambda: solve(b, b, ALPHA, RHO))
+        counts = F.launch_counts(F.TILED_UNITS + three_pass
+                                 + ("cg_update", "admm_tail"))
+        require(all(counts[k] == 0 for k in three_pass)
+                and counts["normal_apply_zy"] > 0
+                and all(n == 0 for n in F.plain_counts().values()),
+                "phase 21: %s launches %s, plain calls %s"
+                % (solve.mode, counts, F.plain_counts()))
+        require(bool(torch.isfinite(x).all()), "phase 21: not finite")
+        obj = objective_device(x, b, A64, ALPHA)
+        dev = abs(obj - BIG_ANCHOR) / BIG_ANCHOR
+        require(dev <= ANCHOR_BAND, "phase 21: %s objective %.2f deviates "
+                "%.4f%% from %.1f" % (solve.mode, obj, 100 * dev, BIG_ANCHOR))
+        runs[solve.mode], launches[solve.mode], xs[solve.mode] = \
+            (obj, ms), counts, x
+    fused = F.make_fused_admm_solver(BIG, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX)
+    x_f, ms_f = timed_once(lambda: fused(b, b, ALPHA, RHO))
+    obj_f = objective_device(x_f, b, A64, ALPHA)
+    rels = [abs(runs[m][0] - obj_f) / obj_f for m in runs] \
+        + [abs(runs["apply"][0] - runs["step2d"][0]) / obj_f]
+    vox = max(float((xs[m] - x_f).abs().max() / x_f.abs().max())
+              for m in xs)
+    require(max(rels) <= SOLVE_OBJ_TOL, "phase 21: objectives apply %.3f "
+            "step2d %.3f fused %.3f disagree" % (runs["apply"][0],
+                                                 runs["step2d"][0], obj_f))
+    del xs, x_f, x
+    _, ms_a2 = timed_once(lambda: B.blocked_admm_solve(
+        BIG, iso, iterations=ITERATIONS, iter_max=ITER_MAX)(b, b, ALPHA, RHO))
+    gates = {}
+    for mode in ("apply", "step2d"):
+        short = B.blocked_admm_solve(BIG, iso, iterations=2,
+                                     iter_max=ITER_MAX, mode=mode)
+        xk = short(b, b, ALPHA, RHO)
+        xp = short.plain(b, b, ALPHA, RHO)
+        ok, op = objective_device(xk, b, A64, ALPHA), \
+            objective_device(xp, b, A64, ALPHA)
+        gates[mode] = (abs(ok - op) / abs(op),
+                       float((xk - xp).abs().max() / xk.abs().max()))
+        require(gates[mode][0] <= SOLVE_OBJ_TOL
+                and gates[mode][1] <= SOLVE_VOX_TOL,
+                "phase 21: %s kernel vs plain at 2 x %d: objective rel %.3g "
+                "voxel %.3g" % ((mode, ITER_MAX) + gates[mode]))
+        del xk, xp
+    print("phase 21 linear 512^3 %dx%d: objective apply %.2f, step2d %.2f, "
+          "fused %.2f (anchor %.1f, band %.1f%%); apply %.1f/%.1f ms "
+          "a solve (two calls), step2d %.1f ms, fused %.1f ms; objectives "
+          "agree to %.2e, voxels to %.2e of the fused solve; kernel vs plain "
+          "at 2 outer (objective, voxel): %s; launches apply %s, step2d %s "
+          "[%s]" % (ITERATIONS, ITER_MAX, runs["apply"][0],
+                    runs["step2d"][0], obj_f, BIG_ANCHOR, 100 * ANCHOR_BAND,
+                    runs["apply"][1], ms_a2, runs["step2d"][1], ms_f,
+                    max(rels), vox, gates, launches["apply"],
+                    launches["step2d"], card))
+    del b
+    torch.cuda.empty_cache()
+    lap("phase 21")
+
+    # phase 22: robust 512³ against the per-axis solve; the plain
+    # versions at 1 × 1; the CLI on a (64, 512, 512) NIfTI
+    its, sweeps, cgi = BIG_ROBUST_ITERS
+    b, iso, A64 = scale_problem(device, robust=True)
+    rsolve = R.blocked_robust_admm_solve(BIG, iso, iterations=its,
+                                         iter_max=sweeps, irls_cg_iters=cgi)
+    require(rsolve.tiled, "phase 22: the 512^3 robust solve is not tiled")
+    F.reset_counts()
+    x_t, ms_t = timed_once(lambda: rsolve(b, b, ALPHA, RHO))
+    rob_launches = F.launch_counts()
+    require(rob_launches["blur_apply_zy"] == 2 * its * sweeps
+            and rob_launches["weighted_apply_zy"] == its * sweeps * cgi
+            and all(rob_launches[k] == 0 for k in
+                    ("blur_apply", "irls_head", "weighted_apply"))
+            and all(n == 0 for n in F.plain_counts().values()),
+            "phase 22: launches %s, plain calls %s"
+            % (rob_launches, F.plain_counts()))
+    per_axis = R.make_robust_solver(BIG, iso, iterations=its,
+                                    iter_max=sweeps, irls_cg_iters=cgi)
+    x_r, ms_r = timed_once(lambda: per_axis(b, b, ALPHA, RHO))
+    ob_t = robust_objective(x_t, b, A64, ALPHA)
+    ob_r = robust_objective(x_r, b, A64, ALPHA)
+    rob_rel = abs(ob_t - ob_r) / abs(ob_r)
+    rob_vox = float((x_t - x_r).abs().max() / x_r.abs().max())
+    require(bool(torch.isfinite(x_t).all()) and rob_rel <= SOLVE_OBJ_TOL,
+            "phase 22: tiled %.4f vs per-axis %.4f" % (ob_t, ob_r))
+    del x_t, x_r
+    one = R.blocked_robust_admm_solve(BIG, iso, iterations=1, iter_max=1,
+                                      irls_cg_iters=cgi)
+    xk, xp = one(b, b, ALPHA, RHO), one.plain(b, b, ALPHA, RHO)
+    ok, op = robust_objective(xk, b, A64, ALPHA), \
+        robust_objective(xp, b, A64, ALPHA)
+    one_gate = (abs(ok - op) / abs(op),
+                float((xk - xp).abs().max() / xk.abs().max()))
+    require(one_gate[0] <= SOLVE_OBJ_TOL and one_gate[1] <= SOLVE_VOX_TOL,
+            "phase 22: kernel vs plain at 1 x 1: objective rel %.3g voxel "
+            "%.3g" % one_gate)
+    del xk, xp
+    sub = b[:64].contiguous()
+    del b
+    torch.cuda.empty_cache()
+    cli_dev = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = os.path.join(tmp, "b.nii")
+        write_nifti(interop_numpy(sub), obs, spacing=np.ones(3))
+        b_read = read_nifti(obs).data.astype(np.float64)
+        scale = float(np.max(b_read))
+        bs = torch.as_tensor((b_read / scale).astype(np.float32),
+                             device=device)
+        for loss in ("linear", "huber"):
+            out = os.path.join(tmp, "x_%s.nii" % loss)
+            F.reset_counts()
+            rc = run_deconvolution.main([
+                "--observation", obs, "--result", out, "--solver", "ADMM",
+                "--reconstruction-type", "TVL2", "--data-loss", loss,
+                "--alpha", str(ALPHA), "--blur", str(SIGMA), "--iterations",
+                str(its), "--iter-max", str(sweeps if loss != "linear"
+                                            else ITER_MAX),
+                "--irls-cg-iters", str(cgi), "--device", "cuda"])
+            unit = "normal_apply_zy" if loss == "linear" \
+                else "weighted_apply_zy"
+            counts = F.launch_counts()
+            require(rc == 0 and counts[unit] > 0
+                    and counts["normal_apply"] == 0
+                    and counts["weighted_apply"] == 0
+                    and all(n == 0 for n in F.plain_counts().values()),
+                    "phase 22: CLI %s rc %r launches %s" % (loss, rc, counts))
+            recon = read_nifti(out).data.astype(np.float64)
+            if loss == "linear":
+                lib = B.blocked_admm_solve(sub.shape, iso, iterations=its,
+                                           iter_max=ITER_MAX)(bs, bs, ALPHA,
+                                                              RHO)
+            else:
+                lib = R.blocked_robust_admm_solve(
+                    sub.shape, iso, iterations=its, iter_max=sweeps,
+                    irls_cg_iters=cgi)(bs, bs, ALPHA, RHO)
+            lib = interop_numpy(lib).astype(np.float64) * scale
+            cli_dev[loss] = float(np.max(np.abs(recon - lib))
+                                  / np.max(np.abs(lib)))
+            require(recon.shape == sub.shape and np.all(np.isfinite(recon))
+                    and cli_dev[loss] <= KERNEL_TOL,
+                    "phase 22: CLI %s vs library %.3g" % (loss,
+                                                          cli_dev[loss]))
+    print("phase 22 robust 512^3 huber %dx%dx%d: objective tiled %.4f vs "
+          "per-axis %.4f, rel %.2e, voxel %.2e; tiled %.1f ms a "
+          "solve, per-axis %.1f ms; kernel vs plain at 1 x 1 (objective, "
+          "voxel) %.2e, %.2e; launches %s; CLI on a (64, 512, 512) NIfTI, "
+          "linear and huber, through the tiled units: max|cli - library|/"
+          "max %s [%s]" % (its, sweeps, cgi, ob_t, ob_r, rob_rel, rob_vox,
+                           ms_t, ms_r, one_gate[0], one_gate[1],
+                           {k: n for k, n in rob_launches.items() if n},
+                           cli_dev, card))
+    lap("phase 22")
+    path_launches = {
+        "normal_apply_zy": launches["apply"]["normal_apply_zy"],
+        "cg_direction": launches["apply"]["cg_direction"],
+        "cg_step_zy": launches["step2d"]["cg_step_zy"],
+        "blur_apply_zy": rob_launches["blur_apply_zy"],
+        "weighted_apply_zy": rob_launches["weighted_apply_zy"]}
+    return {"launches": path_launches, "err": err,
+            "times": {k: (t[0], t[1], t[3]) for k, t in times.items()}}
+
+
+def interop_numpy(t):
+    from nsol_tpu_torch import interop
+
+    return interop.to_numpy(t)
+
+
 # ------------------------------------------------------------------ main --
 
 def run_admm_phases(device, card):
@@ -1878,7 +2389,8 @@ def run_admm_phases(device, card):
 
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
-GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli")
+GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
+          "scale")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -1899,18 +2411,28 @@ SOURCES = {
         "admm_record": "nsol_tpu/ops/pallas/fused.py:382"}),
     "tikhonov": ("nsol_tpu_torch/csrc/tikhonov.cu", {
         "tik_clip": "nsol_tpu/ops/pallas/fused.py:716"}),
+    "scale": ("nsol_tpu_torch/csrc/tiled.cu", {
+        "normal_apply_zy": "nsol_tpu/ops/pallas/blocked.py:754",
+        "cg_step_zy": "nsol_tpu/ops/pallas/blocked.py:878",
+        "blur_apply_zy": "nsol_tpu/ops/pallas/robust.py:734",
+        "weighted_apply_zy": "nsol_tpu/ops/pallas/robust.py:564",
+        # the "apply" CG's p = r + β·p, which the JAX package leaves to XLA
+        # (blocked.py:1537-1540): no TPU kernel
+        "cg_direction": None}),
 }
 
 
 def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1):
     """The ``kernels`` records of one group's units: launches on its main
     path, max |Δ| against the plain version, kernel / plain / library ms
-    per call at ``n`` voxels (× ``batch`` images), and the bound there."""
+    per call at ``n`` voxels (× ``batch`` images), and the bound there
+    (``taps``: the chain's stencil lengths, or a dict of them by unit)."""
     source, replaces = SOURCES[group]
     out = []
     for name, tpu in replaces.items():
         t = times[name]
-        b_ms, b_by = unit_bound(name, n, taps, nd, batch)
+        b_ms, b_by = unit_bound(name, n, taps[name] if isinstance(taps, dict)
+                                else taps, nd, batch)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": tpu, "launches": int(launches[name]),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
@@ -2004,6 +2526,11 @@ def main(argv=None):
                                   tik[("TK1", "linear")]["launches"],
                                   units["err"], units["times"], 256 ** 2, (),
                                   nd=2)
+    if "scale" in groups:
+        scale = run_scale_phases(device, card)
+        kernels += kernel_entries("scale", scale["launches"], scale["err"],
+                                  scale["times"], int(np.prod(BIG)),
+                                  TILED_TAPS)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

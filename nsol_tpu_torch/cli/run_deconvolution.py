@@ -8,7 +8,14 @@ header when present. TVL2 by ADMM runs the whole solve through
 in float32 with ``x_scale = max(b)``, rescaled on output, as the
 reference's fused route does (run_deconvolution.py:79,137,242), 2-D images
 and 3-D volumes alike; ``--data-loss-scale`` reaches a robust solve
-unscaled, as there (:139). TK0L2/TK1L2 run the interface's
+unscaled, as there (:139). A 3-D volume with 512-wide planes (``Y ≥ 512``,
+``Y % 128 == 0``) and a blur that fits the tiled kernels
+(:func:`~nsol_tpu_torch.ops.cuda.blocked.takes_zy_route`) takes the
+reference's past-VMEM route instead (:165-220):
+:func:`~nsol_tpu_torch.ops.cuda.blocked.blocked_admm_solve` (linear) or
+:func:`~nsol_tpu_torch.ops.cuda.robust.blocked_robust_admm_solve` (robust),
+in exact float32 (the reference's ``NSOL_TPU_EXACT=1``; its compact
+default is still to port). TK0L2/TK1L2 run the interface's
 :class:`~nsol_tpu_torch.solvers.wrappers.TikhonovLinearSolver` per α
 (:253-290), with the blur hint, so that on CUDA the kernel units serve its
 inner solves. ``--device cuda`` runs the CUDA kernels, ``--device cpu``
@@ -27,7 +34,9 @@ from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
+from nsol_tpu_torch.ops.cuda.blocked import blocked_admm_solve, takes_zy_route
 from nsol_tpu_torch.ops.cuda.fused import make_fused_admm_solver
+from nsol_tpu_torch.ops.cuda.robust import blocked_robust_admm_solve
 from nsol_tpu_torch.solvers.tikhonov import resolve_minimizer
 
 #: the reconstruction types this CLI runs
@@ -113,10 +122,25 @@ def main(argv=None):
                              minimizer, x_scale, alphas)
 
     # ---------------------------- Set up solver ----------------------------
-    solve = make_fused_admm_solver(
-        observed_nda.shape, cov, spacing=spacing,
-        iterations=args.iterations, iter_max=args.iter_max,
-        data_loss=args.data_loss, irls_cg_iters=args.irls_cg_iters)
+    shape = observed_nda.shape
+    route = "apply" if args.data_loss == "linear" else "robust"
+    if not takes_zy_route(shape, cov, spacing=spacing, route=route):
+        solve = make_fused_admm_solver(
+            shape, cov, spacing=spacing, iterations=args.iterations,
+            iter_max=args.iter_max, data_loss=args.data_loss,
+            irls_cg_iters=args.irls_cg_iters)
+    elif args.data_loss == "linear":
+        blocked = blocked_admm_solve(shape, cov, spacing=spacing,
+                                     iterations=args.iterations,
+                                     iter_max=args.iter_max)
+
+        def solve(b, x0, alpha, rho, data_loss_scale=1.0):
+            return blocked(b, x0, alpha, rho)
+    else:
+        solve = blocked_robust_admm_solve(
+            shape, cov, spacing=spacing, iterations=args.iterations,
+            iter_max=args.iter_max, irls_cg_iters=args.irls_cg_iters,
+            data_loss=args.data_loss)
     b = torch.as_tensor(observed_nda / x_scale, dtype=torch.float32,
                         device=args.device)
 

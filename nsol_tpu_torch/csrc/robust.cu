@@ -27,7 +27,10 @@
 //                   partial sums of p'.q; second stage a = gamma / pq.
 //   irls_step       x = max(x + xk, 0).
 // Between applies the masked CG runs stencil.cuh's cg_update (admm.cu's
-// unit): xk += a p', rk -= a q, gamma' = |rk|^2, beta.
+// unit): xk += a p', rk -= a q, gamma' = |rk|^2, beta. The sweep is a
+// template: its tiled instance (nsol_robust_admm_solve_zy, the 512-wide-
+// plane route) runs tiled.cu's one-pass blur_apply_zy and
+// weighted_apply_zy in place of irls_head, blur_apply and weighted_apply.
 //
 // What bounds them on the H100: bytes, as in admm.cu. weighted_apply, the
 // CG's hot op, is two blur chains (six stencil passes) with the weight
@@ -240,38 +243,122 @@ int nsol_irls_step(float* x, const float* xk, long long n, void* stream, long lo
   return (int)e;
 }
 
+// The tiled units of tiled.cu (the 512-wide-plane route), which add to
+// their own counts (tiled.cu's TiledUnit enum).
+int nsol_blur_apply_zy(const float* y, const float* u, float* out, float* free, float* rk,
+                       const float* b, float* wts, float* yout, double* partials, double* scal,
+                       const float* taps, int kz, int ky, int kx, float rho, int loss,
+                       float scale, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
+                       void* stream, long long* counts);
+int nsol_weighted_apply_zy(const float* r, const float* p, float* p_new, float* q,
+                           const float* free, const float* wts, double* partials, double* scal,
+                           int first, const float* taps, int kz, int ky, int kx, float rho,
+                           float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream,
+                           long long* counts);
+
+}  // extern "C"
+
+namespace {
+
 // One IRLS sweep (fused.py:583-622 with rho, :825-853 with alpha):
-// irls_head, blur_apply's gradient form, cg_iters x (weighted_apply,
-// cg_update) from xk = 0, and irls_step. q holds y = wts r until the
-// first apply overwrites it.
-int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
-                    float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
-                    double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
-                    float ih2x, float ih2y, float ih2z, int loss, float scale, int cg_iters,
-                    int Z, int Y, int X, void* stream, long long* counts) {
+// the weights (irls_head), the gradient (blur_apply's gradient form),
+// cg_iters x (weighted_apply, cg_update) from xk = 0, and irls_step. q
+// holds y = wts r until the first apply overwrites it. kTiled swaps in
+// tiled.cu's one-pass units (Laplacian only; their counts go to
+// tiled_counts): blur_apply_zy's head and gradient forms and
+// weighted_apply_zy, which need no scratch volumes.
+template <bool kTiled>
+int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0, float* p1,
+               float* q, float* xk, float* t1, float* t2, double* partials, double* scal,
+               const float* taps, int kz, int ky, int kx, float rho, int reg, float ih2x,
+               float ih2y, float ih2z, int loss, float scale, int cg_iters, int Z, int Y, int X,
+               void* stream, long long* counts, long long* tiled_counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d{Z, Y, X};
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   const Taps tp = make_taps(taps, kz, ky, kx);
+  int e;
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
-  UNIT(kIrlsHead, irls_head(x, b, wts, q, t1, t2, tp, loss, scale, d, s));
-  UNIT(kBlurApply,
-       blur_apply(q, x, nullptr, free, rk, t1, t2, partials, scal, tp, rho, reg, sp, d, s));
-  const cudaError_t e = cudaMemsetAsync(xk, 0, d.n() * sizeof(float), s);
-  if (e != cudaSuccess) return (int)e;
+#define CALL(call)                  \
+  if ((e = (int)(call)) != 0) return e;
+  if (kTiled) {
+    CALL(nsol_blur_apply_zy(x, nullptr, nullptr, nullptr, nullptr, b, wts, q, partials, scal,
+                            taps, kz, ky, kx, rho, loss, scale, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                            tiled_counts));
+    CALL(nsol_blur_apply_zy(q, x, nullptr, free, rk, nullptr, nullptr, nullptr, partials, scal,
+                            taps, kz, ky, kx, rho, loss, scale, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                            tiled_counts));
+  } else {
+    UNIT(kIrlsHead, irls_head(x, b, wts, q, t1, t2, tp, loss, scale, d, s));
+    UNIT(kBlurApply,
+         blur_apply(q, x, nullptr, free, rk, t1, t2, partials, scal, tp, rho, reg, sp, d, s));
+  }
+  CALL(cudaMemsetAsync(xk, 0, d.n() * sizeof(float), s));
   float* p_prev = p0;
   float* p_cur = p1;
   for (int k = 0; k < cg_iters; ++k) {
-    UNIT(kWeightedApply, weighted_apply(rk, p_prev, p_cur, q, free, wts, t1, t2, partials, scal,
-                                        k == 0, tp, rho, reg, sp, d, s));
+    if (kTiled) {
+      CALL(nsol_weighted_apply_zy(rk, p_prev, p_cur, q, free, wts, partials, scal, k == 0, taps,
+                                  kz, ky, kx, rho, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                                  tiled_counts));
+    } else {
+      UNIT(kWeightedApply, weighted_apply(rk, p_prev, p_cur, q, free, wts, t1, t2, partials,
+                                          scal, k == 0, tp, rho, reg, sp, d, s));
+    }
     UNIT(kCgUpdate, cg_update(xk, rk, p_cur, q, partials, scal, d.n(), s));
     float* tmp = p_prev;
     p_prev = p_cur;
     p_cur = tmp;
   }
   UNIT(kIrlsStep, irls_step(x, xk, d.n(), s));
+#undef CALL
 #undef UNIT
   return 0;
+}
+
+// iterations x iter_max IRLS sweeps at rho with the Laplacian; with
+// reg != nullptr, the records of x0 and of every outer iterate.
+template <bool kTiled>
+int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
+                 float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
+                 double* scal, const float* taps, int kz, int ky, int kx, float rho, float ihx,
+                 float ihy, float ihz, float ih2x, float ih2y, float ih2z, int loss, float scale,
+                 int iterations, int iter_max, int cg_iters, double* reg, double* data,
+                 double* rec_partials, float rec_scale, int Z, int Y, int X, void* stream,
+                 long long* counts, long long* rec_counts, long long* tiled_counts) {
+  int e;
+#define RECORD(t)                                                                            \
+  if (reg != nullptr &&                                                                      \
+      (e = nsol_admm_record(x, b, t1, t2, rec_partials, reg, data, (t), taps, kz, ky, kx,    \
+                            loss, rec_scale, ihx, ihy, ihz, Z, Y, X, stream, rec_counts)) != 0) \
+    return e;
+  RECORD(0)
+  for (int it = 0; it < iterations; ++it) {
+    for (int sweep = 0; sweep < iter_max; ++sweep) {
+      e = irls_sweep<kTiled>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
+                             kz, ky, kx, rho, kRegLap, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z,
+                             Y, X, stream, counts, tiled_counts);
+      if (e != 0) return e;
+    }
+    RECORD(it + 1)
+  }
+#undef RECORD
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One IRLS sweep with the per-axis units (robust.cu's counts).
+int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
+                    float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
+                    double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
+                    float ih2x, float ih2y, float ih2z, int loss, float scale, int cg_iters,
+                    int Z, int Y, int X, void* stream, long long* counts) {
+  return irls_sweep<false>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps, kz,
+                           ky, kx, rho, reg, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z, Y, X,
+                           stream, counts, nullptr);
 }
 
 // The whole robust ADMM solve (fused.py:382 robust branch, robust.py:406):
@@ -289,24 +376,29 @@ int nsol_robust_admm_solve(const float* b, float* x, float* wts, float* free, fl
                            int iter_max, int cg_iters, double* reg, double* data,
                            double* rec_partials, float rec_scale, int Z, int Y, int X,
                            void* stream, long long* counts, long long* rec_counts) {
-  int e;
-#define RECORD(t)                                                                            \
-  if (reg != nullptr &&                                                                      \
-      (e = nsol_admm_record(x, b, t1, t2, rec_partials, reg, data, (t), taps, kz, ky, kx,    \
-                            loss, rec_scale, ihx, ihy, ihz, Z, Y, X, stream, rec_counts)) != 0) \
-    return e;
-  RECORD(0)
-  for (int it = 0; it < iterations; ++it) {
-    for (int sweep = 0; sweep < iter_max; ++sweep) {
-      e = nsol_irls_sweep(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps, kz,
-                          ky, kx, rho, kRegLap, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z, Y, X,
-                          stream, counts);
-      if (e != 0) return e;
-    }
-    RECORD(it + 1)
-  }
-#undef RECORD
-  return 0;
+  return robust_solve<false>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
+                             kz, ky, kx, rho, ihx, ihy, ihz, ih2x, ih2y, ih2z, loss, scale,
+                             iterations, iter_max, cg_iters, reg, data, rec_partials, rec_scale,
+                             Z, Y, X, stream, counts, rec_counts, nullptr);
+}
+
+// The same launch sequence with tiled.cu's one-pass units in place of
+// irls_head, blur_apply and weighted_apply (blocked_robust_admm_solve at
+// 512-wide planes, robust.py:432-491); t1 and t2 serve only the records.
+// partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles.
+int nsol_robust_admm_solve_zy(const float* b, float* x, float* wts, float* free, float* rk,
+                              float* p0, float* p1, float* q, float* xk, float* t1, float* t2,
+                              double* partials, double* scal, const float* taps, int kz, int ky,
+                              int kx, float rho, float ihx, float ihy, float ihz, float ih2x,
+                              float ih2y, float ih2z, int loss, float scale, int iterations,
+                              int iter_max, int cg_iters, double* reg, double* data,
+                              double* rec_partials, float rec_scale, int Z, int Y, int X,
+                              void* stream, long long* counts, long long* rec_counts,
+                              long long* tiled_counts) {
+  return robust_solve<true>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
+                            kz, ky, kx, rho, ihx, ihy, ihz, ih2x, ih2y, ih2z, loss, scale,
+                            iterations, iter_max, cg_iters, reg, data, rec_partials, rec_scale, Z,
+                            Y, X, stream, counts, rec_counts, tiled_counts);
 }
 
 }  // extern "C"

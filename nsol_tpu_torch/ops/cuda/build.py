@@ -65,7 +65,22 @@ _SIGNATURES = {
     + [_I, _F, _I] + [_I] * 3 + [_P, _P],
     "nsol_robust_admm_solve": [_P] * 14 + [_I] * 3 + [_F] * 7 + [_I, _F]
     + [_I] * 3 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
+    "nsol_robust_admm_solve_zy": [_P] * 14 + [_I] * 3 + [_F] * 7
+    + [_I, _F] + [_I] * 3 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
     "nsol_tik_clip": [_P, _P, _LL, _P, _P],
+    "nsol_tiled_blocks": [_I] * 3,
+    "nsol_tiled_smem": [_I] * 6,
+    "nsol_normal_apply_zy": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_I] * 3
+    + [_P, _P],
+    "nsol_cg_step_zy": [_P] * 6 + [_I, _P] + [_I] * 3 + [_F] * 4 + [_I] * 3
+    + [_P, _P],
+    "nsol_blur_apply_zy": [_P] * 11 + [_I] * 3 + [_F, _I, _F] + [_F] * 3
+    + [_I] * 3 + [_P, _P],
+    "nsol_weighted_apply_zy": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F] * 4
+    + [_I] * 3 + [_P, _P],
+    "nsol_cg_direction": [_P] * 3 + [_LL, _P, _P],
+    "nsol_blocked_admm_solve": [_P] * 13 + [_I] * 3 + [_P] + [_I] * 3
+    + [_F] * 8 + [_I] * 3 + [_I] * 3 + [_P] * 3,
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 3 + [_I] * 3 + [_P] * 4,
 }
@@ -148,7 +163,8 @@ def new_counts(n):
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
     admm_tail, admm_record; ``pd.cu``: pd_dual, pd_primal, pd_record;
     ``robust.cu``: blur_apply, irls_head, weighted_apply, irls_step,
-    cg_update; ``tikhonov.cu``: tik_clip)."""
+    cg_update; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
+    cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction)."""
     return (ctypes.c_longlong * n)()
 
 

@@ -54,14 +54,15 @@ from nsol_tpu_torch.ops.cuda import build
 from nsol_tpu_torch.ops.cuda import record as Rec
 from nsol_tpu_torch.ops.cuda import robust as R
 from nsol_tpu_torch.ops.cuda import tikhonov as T
+from nsol_tpu_torch.ops.cuda import tiled as Z
 from nsol_tpu_torch.solvers.primal_dual import ALG_TYPES, step_schedules
 
 __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
-           "RECORD_UNITS", "TIKHONOV_UNITS", "reset_counts", "launch_counts",
-           "plain_counts"]
+           "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "reset_counts",
+           "launch_counts", "plain_counts"]
 
 
 # ------------------------------------------------------------- admm_tail --
@@ -686,9 +687,13 @@ ROBUST_UNITS = tuple(f.__name__ for f in R.UNITS)
 RECORD_UNITS = ("admm_record",)
 #: the Tikhonov solve's own unit; it runs the ADMM and robust units too
 TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
+#: the one-pass tiled units of the 512-wide-plane scale path
+TILED_UNITS = tuple(f.__name__ for f in Z.UNITS)
 _UNITS = {f.__name__: (f, p) for f, p in zip(
-    _ADMM_UNITS + _PD_UNITS + R.UNITS + (Rec.admm_record,) + T.UNITS,
-    _ADMM_PLAIN + _PD_PLAIN + R.PLAIN + (Rec.admm_record_plain,) + T.PLAIN)}
+    _ADMM_UNITS + _PD_UNITS + R.UNITS + (Rec.admm_record,) + T.UNITS
+    + Z.UNITS,
+    _ADMM_PLAIN + _PD_PLAIN + R.PLAIN + (Rec.admm_record_plain,) + T.PLAIN
+    + Z.PLAIN)}
 
 
 def reset_counts():

@@ -28,7 +28,12 @@ splits into a VMEM-resident whole solve (``fused.py``) and a streaming one
 (``robust.py::blocked_robust_admm_solve``) only because of VMEM; here both
 entry points run one launch sequence that ``nsol_robust_admm_solve``
 enqueues in C. Bytes bound every unit; see the note at the top of
-``csrc/robust.cu``.
+``csrc/robust.cu``. At 512-wide planes (``robust.py:432-491``)
+:func:`blocked_robust_admm_solve` runs the same sequence with the
+one-pass tiled units of :mod:`.tiled` swapped in
+(``nsol_robust_admm_solve_zy``); :func:`make_blocked_blur_operator_2d` and
+:func:`make_blocked_weighted_normal_operator_2d` are the reference's 2-D
+entry points over them.
 
 A 2-D image runs on CUDA as a ``(1, Y, X)`` volume with z taps ``[1]`` and
 ``1/h_z² = 0``: every z term is an exact ``+0``, so the kernels compute the
@@ -54,6 +59,8 @@ __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
            "irls_step", "irls_step_plain", "make_robust_solver",
            "make_blocked_blur_operator",
            "make_blocked_weighted_normal_operator",
+           "make_blocked_blur_operator_2d",
+           "make_blocked_weighted_normal_operator_2d",
            "blocked_robust_admm_solve"]
 
 #: data losses by the index ``csrc/robust.cu`` takes (its ``Loss`` enum)
@@ -62,10 +69,10 @@ LOSS_IDS = Rec.LOSS_IDS
 
 # ------------------------------------------------------------ plain forms --
 
+@B.counted
 def blur_apply_plain(y, taps, inv_h2, u=None, rho=0.0, scal=None,
                      reg="TK1"):
     """Plain version of :func:`blur_apply`."""
-    blur_apply_plain.calls += 1
     g = B._blur_plain(y, taps)
     if u is not None:
         g = g + rho * B.reg_normal_plain(u, inv_h2, reg)
@@ -78,21 +85,21 @@ def blur_apply_plain(y, taps, inv_h2, u=None, rho=0.0, scal=None,
     return free, rk
 
 
+@B.counted
 def irls_head_plain(x, b, taps, loss, scale):
     """Plain version of :func:`irls_head`. ``scale`` enters as a tensor of
     the working dtype, so ``r²/C²`` is a division in that dtype, as in
     the kernel and the reference."""
-    irls_head_plain.calls += 1
     r = B._blur_plain(x, taps) - b
     c = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
     wts = losses.gradient_loss(loss)(r * r, f_scale=c)
     return wts, wts * r
 
 
+@B.counted
 def weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
                          first=False, reg="TK1"):
     """Plain version of :func:`weighted_apply`."""
-    weighted_apply_plain.calls += 1
     p_new = r.clone() if first else r + scal[B.BETA].to(r.dtype) * p
     pf = p_new if free is None else free * p_new
     core = B._blur_plain(wts * B._blur_plain(pf, taps), taps) \
@@ -104,15 +111,10 @@ def weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
     return p_new, q
 
 
+@B.counted
 def irls_step_plain(x, xk):
     """Plain version of :func:`irls_step` (updates ``x`` in place)."""
-    irls_step_plain.calls += 1
     x.copy_(torch.clamp(x + xk, min=0.0))
-
-
-for _f in (blur_apply_plain, irls_head_plain, weighted_apply_plain,
-           irls_step_plain):
-    _f.calls = 0
 
 
 # ---------------------------------------------------------------- kernels --
@@ -241,6 +243,29 @@ PLAIN = (blur_apply_plain, irls_head_plain, weighted_apply_plain,
          irls_step_plain, B.cg_update_plain)
 
 
+def _head_zy(unit):
+    """``unit`` (``blur_apply_zy`` or its plain version) as the sweep's
+    ``irls_head``: its head form."""
+    def head(x, b, taps, loss, scale):
+        return unit(x, taps, (), head=(b, loss, scale))
+
+    return head
+
+
+def _sweep_units(tiled):
+    """``(units, plain versions)`` of the sweep: :data:`UNITS` and
+    :data:`PLAIN`, or with ``tiled`` the one-pass ``blur_apply_zy`` (its
+    gradient and head forms) and ``weighted_apply_zy`` in place of
+    ``blur_apply``, ``irls_head`` and ``weighted_apply``."""
+    if not tiled:
+        return UNITS, PLAIN
+    T = B._tiled()
+    return ((T.blur_apply_zy, _head_zy(T.blur_apply_zy), T.weighted_apply_zy,
+             irls_step, B.cg_update),
+            (T.blur_apply_zy_plain, _head_zy(T.blur_apply_zy_plain),
+             T.weighted_apply_zy_plain, irls_step_plain, B.cg_update_plain))
+
+
 # ----------------------------------------------------------------- solver --
 
 def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
@@ -287,7 +312,7 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
 
 
 def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
-                       scale, record_dls=None):
+                       scale, record_dls=None, tiled=False):
     name = "robust ADMM solve"
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
@@ -301,18 +326,27 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
     counts, rec_counts = build.new_counts(5), build.new_counts(5)
-    err = lib.nsol_robust_admm_solve(
-        build.tensor_ptr(b), build.tensor_ptr(x),
-        *[build.tensor_ptr(t) for t in vols],
-        build.tensor_ptr(_partials(b.device)), build.tensor_ptr(scal),
+    tiled_counts = build.new_counts(5)
+    T = B._tiled()
+    partials = T.tiled_partials(b.device, dims) if tiled \
+        else _partials(b.device)
+    args = [build.tensor_ptr(b), build.tensor_ptr(x)] \
+        + [build.tensor_ptr(t) for t in vols] + [
+        build.tensor_ptr(partials), build.tensor_ptr(scal),
         build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
         *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), LOSS_IDS.index(loss),
         float(scale), int(iterations), int(iter_max), int(cg_iters),
         build.tensor_ptr(reg), build.tensor_ptr(data), build.tensor_ptr(parts),
         float(1.0 if record_dls is None else record_dls), *dims,
-        build.stream_ptr(b.device), counts, rec_counts)
+        build.stream_ptr(b.device), counts, rec_counts]
+    if tiled:
+        err = lib.nsol_robust_admm_solve_zy(*args, tiled_counts)
+    else:
+        err = lib.nsol_robust_admm_solve(*args)
     build.check(err, name)
     for f, n in zip(UNITS, counts):
+        f.launches += n
+    for f, n in zip(T.UNITS, tiled_counts):
         f.launches += n
     Rec.admm_record.launches += rec_counts[4]
     return x, reg, data
@@ -343,12 +377,24 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     the plain versions with it. ``solve.plain`` runs the plain versions on
     any device; ``solve.plain(..., chain=False)`` leaves the chain out.
     """
+    return _make_solver(shape, cov, alpha_cut, spacing, iterations,
+                        iter_max, irls_cg_iters, data_loss, record)
+
+
+def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
+                 irls_cg_iters, data_loss, record, tiled=False):
+    """:func:`make_robust_solver`; ``tiled`` (3-D only) runs the same
+    sequence with the one-pass tiled units (:func:`_sweep_units`,
+    ``nsol_robust_admm_solve_zy`` on CUDA)."""
     if data_loss not in LOSS_IDS or data_loss == "linear":
         raise ValueError("robust data loss must be one of %s, got %r"
                          % (", ".join(LOSS_IDS[1:]), data_loss))
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("robust ADMM solver supports 2-D/3-D volumes")
+    if tiled and len(shape) != 3:
+        raise ValueError("the tiled robust solve is 3-D only")
+    units, plain_units = _sweep_units(tiled)
     factors = C.blur_factors(cov, alpha_cut, spacing)
     cache = {}
 
@@ -365,17 +411,17 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
         st = stencils(b)
         if b.device.type == "cpu":
             return result(_robust_steps(
-                UNITS, st, b, x0, alpha, rho, iterations, iter_max,
+                units, st, b, x0, alpha, rho, iterations, iter_max,
                 irls_cg_iters, data_loss, data_loss_scale,
                 record=rec_of(Rec.admm_record, record_dls)))
         return result(_robust_solve_cuda(
             st, b, x0, rho, iterations, iter_max, irls_cg_iters, data_loss,
-            data_loss_scale, record_dls if record else None))
+            data_loss_scale, record_dls if record else None, tiled))
 
     def plain(b, x0, alpha, rho, data_loss_scale=1.0, chain=True,
               record_dls=1.0):
         return result(_robust_steps(
-            PLAIN, stencils(b), b, x0, alpha, rho, iterations, iter_max,
+            plain_units, stencils(b), b, x0, alpha, rho, iterations, iter_max,
             irls_cg_iters, data_loss, data_loss_scale, chain,
             rec_of(Rec.admm_record_plain, record_dls)))
 
@@ -385,16 +431,10 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
 
 # ------------------------------------------- reference-shaped entry points --
 
-_TPU_ONLY = ("precision", "compact_dirs", "io_dtype", "block")
-
-
 def _check_options(tpu_options, prepadded=False):
-    for key in tpu_options:
-        if key not in _TPU_ONLY:
-            raise TypeError("unexpected argument %r" % key)
-        raise ValueError("%s shapes the TPU kernel's blocks or precision and "
-                         "has no counterpart in the port (exact f32 only)"
-                         % key)
+    """:func:`~.blocked.check_options`, and ``prepadded`` (the sharded
+    per-shard form, K9 with Queue 1 item 12) raises."""
+    B.check_options(tpu_options)
     if prepadded:
         raise NotImplementedError("prepadded=True (the sharded per-shard "
                                   "form) is not ported yet (ROADMAP Queue 1 "
@@ -450,15 +490,83 @@ def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
     return apply
 
 
+def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
+                                  z_block=None, y_block=None, with_lap=False,
+                                  **tpu_options):
+    """Build ``apply(y) -> A y``, or with ``with_lap=True``
+    ``apply(y, u, rho) -> A y + rho·DᵀD u``, through the one-pass tiled
+    kernel ``blur_apply_zy`` (``nsol_tpu/ops/pallas/robust.py:734``).
+    ``z_block``/``y_block`` are checked as the JAX package checks them and
+    do not shape the CUDA tiles; a blur too wide for the kernel's shared
+    memory raises ``ValueError``. Device and dtype follow ``y``."""
+    _check_options(tpu_options)
+    shape = tuple(shape)
+    factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
+    # the blur band is half the normal band
+    B.resolve_zy_blocks(shape, max(halo // 2, 1), halo_y // 2, z_block,
+                        y_block, "blur operator")
+    T = B._tiled()
+    T.require_fit("blur_apply_zy", [len(f) for f in factors],
+                  nin=1 + with_lap, lap=with_lap)
+    cache = {}
+
+    def apply_lap(y, u, rho):
+        st = B.stencils_for(cache, shape, factors, spacing, y)
+        return T.blur_apply_zy(y, st.blur, st.inv_h2, u, rho)
+
+    def apply(y):
+        st = B.stencils_for(cache, shape, factors, spacing, y)
+        return T.blur_apply_zy(y, st.blur, st.inv_h2)
+
+    return apply_lap if with_lap else apply
+
+
+def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
+                                             spacing=None, z_block=None,
+                                             y_block=None, **tpu_options):
+    """Build ``apply(v, w, rho) -> Aᵀ(w ⊙ (A v)) + rho·DᵀD v`` through the
+    one-pass tiled kernel ``weighted_apply_zy``
+    (``nsol_tpu/ops/pallas/robust.py:564``); ``z_block``/``y_block`` only
+    validate, and a blur too wide for the kernel's shared memory raises
+    ``ValueError``. Device and dtype follow ``v``."""
+    _check_options(tpu_options)
+    shape = tuple(shape)
+    factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
+    B.resolve_zy_blocks(shape, halo, halo_y, z_block, y_block,
+                        "weighted normal operator")
+    T = B._tiled()
+    T.require_fit("weighted_apply_zy", [len(f) for f in factors],
+                  weighted=True)
+    cache = {}
+
+    def apply(v, w, rho):
+        st = B.stencils_for(cache, shape, factors, spacing, v)
+        _, q = T.weighted_apply_zy(v, None, None, w, B.new_scalars(v.device),
+                                   st.blur, st.inv_h2, rho, first=True)
+        return q
+
+    return apply
+
+
 def blocked_robust_admm_solve(shape, cov, alpha_cut=3, spacing=None,
                               iterations=10, iter_max=10, irls_cg_iters=8,
                               data_loss="huber", **tpu_options):
     """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0) -> x``: robust
     ADMM TV-deconvolution of a 3-D volume
     (``nsol_tpu/ops/pallas/robust.py:406``), the solve of
-    :func:`make_robust_solver`."""
+    :func:`make_robust_solver`. Where the JAX package takes its (z, y)-
+    blocked kernels (``Y ≥ 512``, :432-491: :func:`~.blocked.
+    pick_zy_blocks` finds a layout for the weighted apply) and the blur
+    fits the tiled kernels' shared memory
+    (:func:`~.tiled.route_fits`), the sweep runs the one-pass tiled units
+    of :mod:`.tiled`; elsewhere the per-axis units. ``solve.tiled`` says
+    which."""
     _check_options(tpu_options)
+    shape = tuple(shape)
     if len(shape) != 3:
         raise ValueError("blocked robust kernels are 3-D only")
-    return make_robust_solver(shape, cov, alpha_cut, spacing, iterations,
-                              iter_max, irls_cg_iters, data_loss)
+    tiled = B.takes_zy_route(shape, cov, alpha_cut, spacing, route="robust")
+    solve = _make_solver(shape, cov, alpha_cut, spacing, iterations,
+                         iter_max, irls_cg_iters, data_loss, False, tiled)
+    solve.tiled = tiled
+    return solve

@@ -1,0 +1,319 @@
+"""One-pass (z, y)-tiled kernels of the 512-wide-plane scale path:
+counterparts of the 2-D blocked TPU kernels of
+``nsol_tpu/ops/pallas/blocked.py`` and ``nsol_tpu/ops/pallas/robust.py``.
+
+Four kernel units (CUDA C++ in ``csrc/tiled.cu``), each with its plain
+PyTorch version beside it and a launch counter on its wrapper:
+
+* :func:`normal_apply_zy` — ``q = AᵀA v + ρ·DᵀD v``; replaces
+  ``blocked.py::make_blocked_normal_operator_2d`` (:754). With ``rhs`` it
+  returns the CG residual ``rhs − q`` and sets ``γ = ‖rhs − q‖²``,
+  ``β = 0``; with ``scal`` alone it sets ``pq = Σ v·q`` and ``a = γ/pq``
+  (guarded), the dot of the "apply" CG.
+* :func:`cg_step_zy` — ``p' = r + β·p`` formed in the tile and written
+  once, ``q = M p'``, ``pq = Σ p'·q`` and ``a = γ/pq``; replaces
+  ``blocked.py::make_blocked_cg_step_2d`` (:878).
+* :func:`blur_apply_zy` — ``A y``, with ``u`` ``A y + ρ·DᵀD u``; replaces
+  ``robust.py::make_blocked_blur_operator_2d`` (:734). It also carries the
+  IRLS gradient form of :func:`~.robust.blur_apply` (``scal``: the active
+  set ``free``, ``rk = −free·g``, ``γ``) and the IRLS head of
+  :func:`~.robust.irls_head` (``head=(b, loss, C)``: ``wts = ρ'_C(r²)``,
+  ``y = wts·r`` for ``r = A x − b``), so a sweep enqueues no more launches
+  than the per-axis route.
+* :func:`weighted_apply_zy` — ``p' = r + β·p``, ``pf = free·p'``,
+  ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)``, ``pq``, ``a``;
+  replaces ``robust.py::make_blocked_weighted_normal_operator_2d`` (:564).
+  ``A pf`` lives only on the block's extended tile.
+
+and :func:`cg_direction` (``p = r + β·p``), the "apply" CG's direction
+update, which the JAX package leaves to XLA. ``DᵀD`` is the zero-boundary
+Laplacian (the units have no TK0 instance: the scale path is TV only).
+
+Each unit makes one pass over halo-extended tiles: no intermediate volume
+reaches device memory (see the note at the top of ``csrc/tiled.cu``).
+A block holds its windows and rings in at most 227 KB of shared memory,
+so a wide blur does not fit: :func:`route_fits` is the shape decision by
+which the solves take the per-axis units instead, before any launch.
+Each wrapper runs the plain version only for CPU tensors; on a CUDA
+tensor it launches the kernel (2-D or 3-D float32, contiguous) or raises
+(``ValueError`` for stencils past the shared memory).
+"""
+
+import torch
+
+from nsol_tpu_torch.ops.cuda import blocked as B
+from nsol_tpu_torch.ops.cuda import build
+from nsol_tpu_torch.ops.cuda import record as Rec
+from nsol_tpu_torch.ops.cuda import robust as R
+from nsol_tpu_torch.solvers.cg import guarded_ratio
+
+__all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
+           "cg_step_zy_plain", "blur_apply_zy", "blur_apply_zy_plain",
+           "weighted_apply_zy", "weighted_apply_zy_plain", "cg_direction",
+           "cg_direction_plain", "tiled_partials", "smem_bytes",
+           "require_fit", "route_fits", "UNITS", "PLAIN"]
+
+
+# ------------------------------------------------------------ plain forms --
+# The per-axis units' plain versions compute the same functions; these keep
+# their own call counts and add the dot and head forms.
+
+@B.counted
+def normal_apply_zy_plain(v, taps, inv_h2, rho, rhs=None, scal=None):
+    """Plain version of :func:`normal_apply_zy`."""
+    q = B.normal_apply_plain.__wrapped__(v, taps, inv_h2, rho, rhs, scal)
+    if rhs is None and scal is not None:
+        pq = torch.sum(v * q).to(scal.dtype)
+        scal[B.PQ] = pq
+        scal[B.A] = guarded_ratio(scal[B.GAMMA], pq)
+    return q
+
+
+#: plain version of :func:`cg_step_zy`
+cg_step_zy_plain = B.counted(B.cg_step_plain.__wrapped__, "cg_step_zy_plain")
+
+
+@B.counted
+def blur_apply_zy_plain(y, taps, inv_h2, u=None, rho=0.0, scal=None,
+                        head=None):
+    """Plain version of :func:`blur_apply_zy`."""
+    if head is None:
+        return R.blur_apply_plain.__wrapped__(y, taps, inv_h2, u, rho, scal)
+    b, loss, scale = head
+    return R.irls_head_plain.__wrapped__(y, b, taps, loss, scale)
+
+
+#: plain version of :func:`weighted_apply_zy`
+weighted_apply_zy_plain = B.counted(R.weighted_apply_plain.__wrapped__,
+                                    "weighted_apply_zy_plain")
+
+
+@B.counted
+def cg_direction_plain(p, r, scal):
+    """Plain version of :func:`cg_direction` (updates ``p`` in place)."""
+    p.mul_(scal[B.BETA].to(p.dtype)).add_(r)
+
+
+# ---------------------------------------------------------- shared memory --
+
+#: ``csrc/tiled.cu``'s output tile (kTileY, kTileX) and the most shared
+#: memory a block may take (kMaxSmem)
+TILE_Y, TILE_X, MAX_SMEM = 16, 32, 232448
+_OUT_N = TILE_Y * TILE_X
+_RAW_N = (TILE_Y + 2) * (TILE_X + 2)
+
+
+def smem_bytes(lengths, nin=1, lap=True, weighted=False):
+    """Bytes of shared memory one block takes for stencils of lengths
+    ``(kz, ky, kx)``: ``weighted_apply_zy``'s (``weighted``), or a
+    single-stencil unit's over ``nin`` input windows with or without the
+    Laplacian's ring — ``csrc/tiled.cu``'s ``weighted_smem`` /
+    ``stencil_smem``, which ``nsol_tiled_smem`` returns."""
+    kz, ky, kx = lengths
+    hz, hy, hx = (max(k // 2, 1) for k in lengths)
+    if weighted:
+        wy, wx = TILE_Y + 4 * hy, TILE_X + 4 * hx
+        ey, ex = TILE_Y + 2 * hy, TILE_X + 2 * hx
+        words = (kz + ky + kx + wy + wx + 7 * wy * wx + 2 * ey * ex
+                 + wy * ex + (2 * hz + 1) * (ey * ex + _OUT_N)
+                 + (2 * hz + 2) * _RAW_N)
+    else:
+        wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * hx
+        words = (kz + ky + kx + wy + wx + (2 * nin + 1) * wy * wx
+                 + wy * TILE_X + (2 * hz + 1) * _OUT_N
+                 + (hz + 2) * _RAW_N * bool(lap))
+    return 4 * words
+
+
+def require_fit(name, lengths, **form):
+    """Raise ``ValueError`` unless a block of ``name`` holds stencils of
+    ``lengths`` in the form ``form`` (:func:`smem_bytes`)."""
+    need = smem_bytes(lengths, **form)
+    if need > MAX_SMEM:
+        raise ValueError(
+            "%s: stencils of lengths %s take %d bytes of shared memory a "
+            "block, past the %d of the tiled kernel; the per-axis units "
+            "take them" % (name, tuple(lengths), need, MAX_SMEM))
+
+
+#: the stencil forms each route's tiled units launch: (which taps, input
+#: windows, Laplacian, weighted)
+_ROUTE_FORMS = {
+    "apply": (("normal", 1, True, False), ("blur", 1, False, False)),
+    "step2d": (("normal", 2, True, False), ("blur", 1, False, False)),
+    "robust": (("blur", 2, True, False), ("blur", 1, True, True)),
+}
+
+
+def route_fits(factors, route):
+    """Whether every tiled unit of ``route`` (``"apply"``/``"step2d"``, the
+    linear CG's, or ``"robust"``, the IRLS sweep's) holds the stencils of
+    the per-axis blur ``factors`` in a block's shared memory: the shape
+    decision the solves make before any launch, as the JAX package picks
+    its 1-D kernels where its 2-D ones do not fit."""
+    blur = tuple(len(f) for f in factors)
+    taps = {"blur": blur, "normal": tuple(2 * k - 1 for k in blur)}
+    return all(smem_bytes(taps[t], nin, lap, weighted) <= MAX_SMEM
+               for t, nin, lap, weighted in _ROUTE_FORMS[route])
+
+
+# ---------------------------------------------------------------- kernels --
+
+def tiled_partials(device, dims):
+    """Per-block float64 partials of the tiled units at ``dims`` (Z, Y, X),
+    large enough for the per-axis units too."""
+    lib = build.load()
+    n = max(lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks())
+    return torch.empty(n, dtype=torch.float64, device=device)
+
+
+def _check(name, v, tensors, taps, scal=None, **form):
+    dims = B.volume_dims(name, v)
+    B.check_tensors(name, v.shape, v, *[t for t in tensors if t is not None])
+    B._check_consts(name, v.device, taps, scal)
+    tv = taps.as_volume()
+    require_fit(name, tv.lengths, **form)
+    return dims, tv
+
+
+def normal_apply_zy(v, taps, inv_h2, rho, rhs=None, scal=None):
+    """``q = AᵀA v + ρ·DᵀD v`` (``taps``: the normal
+    :class:`~blocked.Taps`). With ``rhs`` (and ``scal``) returns
+    ``rhs − q`` and sets ``scal[GAMMA] = ‖rhs − q‖²``, ``scal[BETA] = 0``;
+    with ``scal`` alone returns ``q`` and sets ``scal[PQ] = Σ v·q``,
+    ``scal[A] = γ/pq`` (0 unless pq > 0)."""
+    if v.device.type == "cpu":
+        return normal_apply_zy_plain(v, taps, inv_h2, rho, rhs, scal)
+    name = "normal_apply_zy"
+    if rhs is not None and scal is None:
+        raise ValueError("%s: the residual form needs scal" % name)
+    dims, tv = _check(name, v, [rhs], taps, scal)
+    out = torch.empty_like(v)
+    parts = tiled_partials(v.device, dims) if scal is not None else None
+    counts = build.new_counts(5)
+    err = build.load().nsol_normal_apply_zy(
+        build.tensor_ptr(v), build.tensor_ptr(out), build.tensor_ptr(rhs),
+        build.tensor_ptr(parts), build.tensor_ptr(scal),
+        build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
+        *B.spacing3(inv_h2), *dims, build.stream_ptr(v.device), counts)
+    build.check(err, name)
+    normal_apply_zy.launches += counts[0]
+    return out
+
+
+def cg_step_zy(r, p, scal, taps, inv_h2, rho, first=False):
+    """``p' = r + β·p`` (``p' = r`` when ``first``), ``q = (AᵀA + ρDᵀD) p'``,
+    ``scal[PQ] = Σ p'·q`` and ``scal[A] = γ/pq`` (0 unless pq > 0).
+    Returns ``(p', q)``."""
+    if r.device.type == "cpu":
+        return cg_step_zy_plain(r, p, scal, taps, inv_h2, rho, first)
+    name = "cg_step_zy"
+    if scal is None:
+        raise ValueError("%s: needs scal" % name)
+    dims, tv = _check(name, r, [None if first else p], taps, scal, nin=2)
+    p_new, q = torch.empty_like(r), torch.empty_like(r)
+    counts = build.new_counts(5)
+    err = build.load().nsol_cg_step_zy(
+        build.tensor_ptr(r), None if first else build.tensor_ptr(p),
+        build.tensor_ptr(p_new), build.tensor_ptr(q),
+        build.tensor_ptr(tiled_partials(r.device, dims)),
+        build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
+        *tv.lengths, float(rho), *B.spacing3(inv_h2), *dims,
+        build.stream_ptr(r.device), counts)
+    build.check(err, name)
+    cg_step_zy.launches += counts[1]
+    return p_new, q
+
+
+def blur_apply_zy(y, taps, inv_h2, u=None, rho=0.0, scal=None, head=None):
+    """``A y`` (``taps``: the blur :class:`~blocked.Taps`); with ``u``,
+    ``A y + ρ·DᵀD u``. With ``scal`` (``u`` is then the IRLS iterate
+    ``x``): returns ``(free, rk)``, ``free = 0`` where ``x ≤ 0`` and
+    ``g > 0`` (else 1), ``rk = −free·g``, and sets ``scal[GAMMA] = ‖rk‖²``,
+    ``scal[BETA] = 0``. With ``head = (b, loss, C)`` (``y`` is then ``x``):
+    returns ``(wts, y')`` with ``wts = ρ'_C(r²)``, ``y' = wts·r``,
+    ``r = A x − b``."""
+    if head is not None and head[1] not in Rec.LOSS_IDS:
+        raise ValueError("unknown data loss %r" % (head[1],))
+    if y.device.type == "cpu":
+        return blur_apply_zy_plain(y, taps, inv_h2, u, rho, scal, head)
+    name = "blur_apply_zy"
+    if scal is not None and u is None:
+        raise ValueError("%s: the gradient form needs u = x" % name)
+    b, loss, scale = head if head is not None else (None, "linear", 1.0)
+    dims, tv = _check(name, y, [u, b], taps, scal, nin=2 if u is not None
+                      else 1, lap=u is not None)
+    out = free = rk = wts = yout = parts = None
+    if head is not None:
+        wts, yout = torch.empty_like(y), torch.empty_like(y)
+    elif scal is not None:
+        free, rk = torch.empty_like(y), torch.empty_like(y)
+        parts = tiled_partials(y.device, dims)
+    else:
+        out = torch.empty_like(y)
+    counts = build.new_counts(5)
+    err = build.load().nsol_blur_apply_zy(
+        build.tensor_ptr(y), build.tensor_ptr(u), build.tensor_ptr(out),
+        build.tensor_ptr(free), build.tensor_ptr(rk), build.tensor_ptr(b),
+        build.tensor_ptr(wts), build.tensor_ptr(yout), build.tensor_ptr(parts),
+        build.tensor_ptr(scal), build.tensor_ptr(tv.buf), *tv.lengths,
+        float(rho), Rec.LOSS_IDS.index(loss), float(scale),
+        *B.spacing3(inv_h2), *dims, build.stream_ptr(y.device), counts)
+    build.check(err, name)
+    blur_apply_zy.launches += counts[2]
+    if head is not None:
+        return wts, yout
+    return out if scal is None else (free, rk)
+
+
+def weighted_apply_zy(r, p, free, wts, scal, taps, inv_h2, rho, first=False):
+    """Masked CG direction and weighted SPD apply in one pass:
+    ``p' = r + β·p`` (``p' = r`` when ``first``), ``pf = free·p'``,
+    ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)`` (``free=None``: every
+    voxel free), ``scal[PQ] = Σ p'·q``, ``scal[A] = γ/pq`` (0 unless
+    pq > 0). Returns ``(p', q)``."""
+    if r.device.type == "cpu":
+        return weighted_apply_zy_plain(r, p, free, wts, scal, taps, inv_h2,
+                                       rho, first)
+    name = "weighted_apply_zy"
+    if scal is None:
+        raise ValueError("%s: needs scal" % name)
+    dims, tv = _check(name, r, [wts, None if first else p, free], taps, scal,
+                      weighted=True)
+    p_new, q = torch.empty_like(r), torch.empty_like(r)
+    counts = build.new_counts(5)
+    err = build.load().nsol_weighted_apply_zy(
+        build.tensor_ptr(r), None if first else build.tensor_ptr(p),
+        build.tensor_ptr(p_new), build.tensor_ptr(q), build.tensor_ptr(free),
+        build.tensor_ptr(wts), build.tensor_ptr(tiled_partials(r.device, dims)),
+        build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
+        *tv.lengths, float(rho), *B.spacing3(inv_h2), *dims,
+        build.stream_ptr(r.device), counts)
+    build.check(err, name)
+    weighted_apply_zy.launches += counts[3]
+    return p_new, q
+
+
+def cg_direction(p, r, scal):
+    """In place: ``p = r + β·p`` with ``β = scal[BETA]``. Elementwise: the
+    kernel takes tensors of any shape."""
+    if p.device.type == "cpu":
+        return cg_direction_plain(p, r, scal)
+    name = "cg_direction"
+    B.check_tensors(name, p.shape, p, r)
+    B._check_consts(name, p.device, scal=scal)
+    counts = build.new_counts(5)
+    err = build.load().nsol_cg_direction(
+        build.tensor_ptr(p), build.tensor_ptr(r), build.tensor_ptr(scal),
+        p.numel(), build.stream_ptr(p.device), counts)
+    build.check(err, name)
+    cg_direction.launches += counts[4]
+
+
+#: the units, in the order of ``csrc/tiled.cu``'s counts
+UNITS = (normal_apply_zy, cg_step_zy, blur_apply_zy, weighted_apply_zy,
+         cg_direction)
+PLAIN = (normal_apply_zy_plain, cg_step_zy_plain, blur_apply_zy_plain,
+         weighted_apply_zy_plain, cg_direction_plain)
+for _f in UNITS:
+    _f.launches = 0

@@ -116,7 +116,7 @@ def test_port_imports_neither_jax_nor_pil():
             "nsol_tpu_torch.natsort, nsol_tpu_torch.observer, "
             "nsol_tpu_torch.solvers.base, nsol_tpu_torch.solvers.wrappers, "
             "nsol_tpu_torch.ops.cuda.tikhonov, nsol_tpu_torch.ops.cuda."
-            "record, nsol_tpu_torch.study, nsol_tpu_torch.study.engine, "
+            "record, nsol_tpu_torch.ops.cuda.tiled, nsol_tpu_torch.study, nsol_tpu_torch.study.engine, "
             "nsol_tpu_torch.study.reader, nsol_tpu_torch.study.paths, "
             "nsol_tpu_torch.interface;"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
