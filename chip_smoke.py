@@ -36,7 +36,22 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   ``blocked_admm_solve`` 50 × 10 in its "apply" and "step2d" modes within
   0.2 % of 165421.8 and against the fused solve; the robust huber
   5 × 5 × 8 solve against the per-axis one; ``run_deconvolution`` on a
-  (64, 512, 512) NIfTI through the tiled route.
+  (64, 512, 512) NIfTI through the tiled route;
+* phases 23-25, compact storage and the CG sweep (group ``compact``): the
+  storage-typed units (bfloat16 ``r``/``p``/``q``) and ``cg_sweep``
+  against their plain versions on tile-edge shapes (bf16 outputs within
+  one bf16 ulp, float32 ones and the dots within 1e-5) and their times at
+  each main path's shape beside the float32 units; the 64³ fused compact
+  solve within 0.2 % of 219948.08; at 256³ "step" under ``compact_dirs``
+  and bf16 state and "sweep" in float32 and bf16 against the exact
+  objective; 512³ "apply" under both within 0.2 % of 165421.8; and
+  ``run_deconvolution``'s default, ``NSOL_TPU_EXACT=1`` and
+  ``NSOL_TPU_COMPACT=1`` on a 64³ and a (64, 512, 512) NIfTI against the
+  library solves ``nsol_tpu_torch.policy`` names.
+
+The CLI runs of phases 6, 18 and 22 hold ``run_deconvolution``'s default
+on the card — the reference's compact storage — to the compact library
+solve.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -54,6 +69,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -1521,8 +1537,10 @@ def run_admm_study_phase(device, card):
         reader = DataReader(out)
         reader.read_data()
         recon = reader.get_data()
+    # the CLI's default on the card: the reference's compact fused solve
     lib = F.make_fused_admm_solver(b.shape, cov, iterations=ITERATIONS,
-                                   iter_max=ITER_MAX)(b, b, ALPHA, RHO)
+                                   iter_max=ITER_MAX, precision="high3",
+                                   compact_dirs=True)(b, b, ALPHA, RHO)
     lib = interop.to_numpy(lib).astype(np.float64) * xs
     cli_dev = float(np.max(np.abs(recon - lib)) / np.max(np.abs(lib)))
     require(recon.shape == img.shape and np.all(np.isfinite(recon))
@@ -2196,9 +2214,10 @@ def run_scale_phases(device, card):
                     and all(n == 0 for n in F.plain_counts().values()),
                     "phase 22: CLI %s rc %r launches %s" % (loss, rc, counts))
             recon = read_nifti(out).data.astype(np.float64)
-            if loss == "linear":
+            if loss == "linear":  # the CLI's default: compact directions
                 lib = B.blocked_admm_solve(sub.shape, iso, iterations=its,
-                                           iter_max=ITER_MAX)(bs, bs, ALPHA,
+                                           iter_max=ITER_MAX,
+                                           compact_dirs=True)(bs, bs, ALPHA,
                                                               RHO)
             else:
                 lib = R.blocked_robust_admm_solve(
@@ -2235,6 +2254,653 @@ def interop_numpy(t):
     from nsol_tpu_torch import interop
 
     return interop.to_numpy(t)
+
+
+# ------------------------------------------------------ phases 23-25 --
+
+#: bf16 storage vs plain on the card: a bf16 output is within one bf16 ulp
+#: of |ref| element by element — the two sum the stencils in other orders,
+#: so a value near a rounding midpoint may round the other way —, on top of
+#: the float32 band KERNEL_TOL · max |ref| (a sum that cancels carries its
+#: float32 difference into the rounded value), and a residual rhs − q also
+#: one ulp of its rounded q; f32 outputs and the dots at KERNEL_TOL
+BF16_ULPS = 1.0
+#: 256³ compact solves against the exact one: the float32 sweep at 1e-4
+#: (tests/test_pallas.py:421-435), the bf16 storage modes at 1e-3 (:1090)
+SWEEP_F32_TOL, COMPACT_OBJ_TOL = 1e-4, 1e-3
+#: a compact solve against its plain version (phase 24, the cuda tests):
+#: at 2 outer × ITER_MAX the objective within COMPACT_PLAIN_OBJ_TOL[storage]
+#: (rel) and each voxel within COMPACT_PLAIN_VOX_TOL[storage] · max |x|.
+#: The bf16 CG is chaotic voxel by voxel — a rounding that flips moves a
+#: voxel by a bf16 ulp, and the flips cascade —, so after 20 CG iterations
+#: the voxel gap is of the order of the storage's own rounding and cannot
+#: tell the storage apart; with r in bf16 too ("state") the chaos reaches
+#: the objective of a small volume (on an H100: up to 3.4e-6 at
+#: 24 × 40 × 36, 3 × 5, in the cuda tests; ≤ 4e-8 at 256³ and 512³ in
+#: phase 24). At 1 outer × 2 CG the RMS gap ‖x_k − x_p‖ tells the storage
+#: apart: it is at most COMPACT_PLAIN_SHARE of the plain solve's RMS gap to
+#: the exact one (phase 24 on an H100: 0.03-0.06 with bf16 directions,
+#: 0.002 with bf16 state; a kernel that kept float32 storage gives 1)
+COMPACT_PLAIN_SHARE = 0.2
+COMPACT_PLAIN_OBJ_TOL = {"dirs": 1e-6, "state": 1e-5}
+COMPACT_PLAIN_VOX_TOL = {"dirs": 1e-3, "state": 2e-2}
+#: the storage options of a solve factory (the rest name its route)
+STORAGE_KEYS = ("precision", "compact_dirs", "state_dtype")
+#: storage-typed units of the compact group: the entry's name in the
+#: kernels line → (wrapper, TPU kernel it replaces, source, main path,
+#: bytes a voxel it must move, taps of its chain); the main path names
+#: the phase 24 run whose launches it reports and the shape it is timed at
+COMPACT_UNITS = {
+    "cg_step[qf32]": ("cg_step", "nsol_tpu/ops/pallas/fused.py:382",
+                      "nsol_tpu_torch/csrc/admm.cu", "fused64", 4 + 2 + 2 + 4,
+                      13),
+    "cg_step[dirs]": ("cg_step", "nsol_tpu/ops/pallas/blocked.py:988",
+                      "nsol_tpu_torch/csrc/admm.cu", "step_dirs",
+                      4 + 2 + 2 + 2, 13),
+    "cg_step[state]": ("cg_step", "nsol_tpu/ops/pallas/blocked.py:988",
+                       "nsol_tpu_torch/csrc/admm.cu", "step_state", 2 * 4, 13),
+    "normal_apply[bf16]": ("normal_apply",
+                           "nsol_tpu/ops/pallas/blocked.py:402",
+                           "nsol_tpu_torch/csrc/admm.cu", "step_state",
+                           4 + 4 + 2, 13),
+    "cg_update[dirs]": ("cg_update", "nsol_tpu/ops/pallas/fused.py:382",
+                        "nsol_tpu_torch/csrc/stencil.cuh", "step_dirs",
+                        8 + 8 + 2 + 2, 0),
+    "cg_sweep": ("cg_sweep", "nsol_tpu/ops/pallas/blocked.py:1139",
+                 "nsol_tpu_torch/csrc/admm.cu", "sweep_f32", 32, 13),
+    "cg_sweep[bf16]": ("cg_sweep", "nsol_tpu/ops/pallas/blocked.py:1139",
+                       "nsol_tpu_torch/csrc/admm.cu", "sweep_bf16", 20, 13),
+    "normal_apply_zy[bf16]": ("normal_apply_zy",
+                              "nsol_tpu/ops/pallas/blocked.py:754",
+                              "nsol_tpu_torch/csrc/tiled.cu", "apply_dirs",
+                              2 + 2, 13),
+    # the "apply" CG's p = r + β·p, left to XLA by the JAX package
+    "cg_direction[bf16]": ("cg_direction", None,
+                           "nsol_tpu_torch/csrc/tiled.cu", "apply_dirs",
+                           4 + 2 + 2, 0),
+}
+#: the shape each main path of phase 24 runs at
+COMPACT_SHAPES = {"fused64": (64, 64, 64), "step_dirs": SCALE_SHAPE,
+                  "step_state": SCALE_SHAPE, "sweep_f32": SCALE_SHAPE,
+                  "sweep_bf16": SCALE_SHAPE, "apply_dirs": BIG}
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v| (2^(e − 8) for |v| in [2^(e−1), 2^e)), 0 at 0."""
+    import torch
+
+    _, e = torch.frexp(v)
+    return torch.where(v != 0, torch.ldexp(torch.ones_like(v), e - 8),
+                       torch.zeros_like(v))
+
+
+def bf16_ulp_err(got, ref, scale=None):
+    """max over elements of |got − ref| over its band: BF16_ULPS ulps of
+    ref, plus KERNEL_TOL · max |ref|, plus one ulp of ``scale`` (the
+    rounded operand of a residual) where given; at most 1 to pass."""
+    g, r = got.float(), ref.float()
+    band = BF16_ULPS * bf16_ulp(r) + KERNEL_TOL * float(r.abs().max())
+    if scale is not None:
+        band = band + bf16_ulp(scale.float())
+    return float(((g - r).abs() / band.clamp_min(1e-38)).max())
+
+
+def compact_pairs_err(pairs):
+    """Hold (kernel, plain[, scale]) pairs to their bands — a bf16 output
+    within its :func:`bf16_ulp_err` band of its plain version element by
+    element, a float32 one (and every CG scalar) within KERNEL_TOL ·
+    max |ref| — raising on a miss; returns the worst float32 relative
+    error."""
+    import torch
+
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, outs in pairs.items():
+        for k, (got, ref, *scale) in enumerate(outs):
+            require(got.dtype == ref.dtype, "%s output %d: dtype %s vs plain "
+                    "%s" % (name, k, got.dtype, ref.dtype))
+            if got.dtype == torch.bfloat16:
+                ulps = bf16_ulp_err(got, ref, *scale)
+                require(ulps <= 1.0, "%s output %d: %.2f of its band (max "
+                        "|d| %.3g)" % (name, k, ulps, float(
+                            (got.float() - ref.float()).abs().max())))
+            else:
+                rel = max_rel(got.double(), ref.double())
+                require(rel <= KERNEL_TOL, "%s output %d: rel %.3g"
+                        % (name, k, rel))
+                worst = max(worst, rel)
+    return worst
+
+
+def compact_plain_gaps(factory, kw, b, objective, outer=2):
+    """``(objective rel, voxel rel, RMS share)`` of the solve
+    ``factory(iterations=outer, **kw)`` on ``b`` against its plain
+    version; the share, of ``factory(iterations=1, iter_max=2, **kw)``'s
+    RMS gap to its plain version over the plain solve's RMS gap to the
+    exact one (None without a storage mode). See COMPACT_PLAIN_SHARE."""
+    s = factory(iterations=outer, **kw)
+    xk, xp = s(b, b, ALPHA, RHO), s.plain(b, b, ALPHA, RHO)
+    ok, op = objective(xk), objective(xp)
+    gaps = [abs(ok - op) / abs(op),
+            float((xk - xp).abs().max() / xp.abs().max()), None]
+    del xk, xp
+    if any(kw.get(k) not in (None, False) for k in STORAGE_KEYS[1:]):
+        one = factory(iterations=1, iter_max=2, **kw)
+        exact = factory(iterations=1, iter_max=2, **{
+            k: v for k, v in kw.items() if k not in STORAGE_KEYS})
+        xk, xp = one(b, b, ALPHA, RHO), one.plain(b, b, ALPHA, RHO)
+        xe = exact(b, b, ALPHA, RHO)
+        gaps[2] = float((xk - xp).double().norm()
+                        / (xp - xe).double().norm().clamp_min(1e-300))
+    return tuple(gaps)
+
+
+def compact_gaps_ok(gaps, kw):
+    """Whether :func:`compact_plain_gaps` of the solve options ``kw``
+    pass: the COMPACT_PLAIN bands under a storage mode, the float32 solve
+    bands (SOLVE_*) without one."""
+    obj, vox, share = gaps
+    if share is None:
+        return obj <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL
+    storage = "dirs" if kw.get("state_dtype") is None else "state"
+    return (obj <= COMPACT_PLAIN_OBJ_TOL[storage]
+            and vox <= COMPACT_PLAIN_VOX_TOL[storage]
+            and share <= COMPACT_PLAIN_SHARE)
+
+
+def _scal(device, gamma=3.0, a=0.31, beta=0.83):
+    import torch
+
+    return torch.tensor([gamma, 0.0, a, beta, 0.0, 0.0], dtype=torch.float64,
+                        device=device)
+
+
+def compact_unit_pairs(B, st, shape, device, rng):
+    """Every storage-typed unit (each storage mode, each form) and its plain
+    version on the same inputs: ``{unit: [(kernel out, plain out), ...]}``,
+    the CG scalars among the outputs."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    bf = torch.bfloat16
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    v, rhs, r, p, x, q = rand(), rand(), rand(-0.5), rand(-0.5), rand(-0.3), \
+        rand(-0.5)
+    n, h2 = st.normal, st.inv_h2
+    out = {k: [] for k in ("normal_apply", "cg_step", "cg_update",
+                           "normal_apply_zy", "cg_direction")}
+    vb = v.to(bf)
+    out["normal_apply"].append((B.normal_apply(vb, n, h2, RHO, io_dtype=bf),
+                                B.normal_apply_plain(vb, n, h2, RHO,
+                                                     io_dtype=bf)))
+    s1, s2 = _scal(device), _scal(device)
+    rk = B.normal_apply(x, n, h2, RHO, rhs=rhs, scal=s1, io_dtype=bf)
+    rp = B.normal_apply_plain(x, n, h2, RHO, rhs=rhs, scal=s2, io_dtype=bf)
+    out["normal_apply"] += [(rk, rp, rhs - rp.float()), (s1[:1], s2[:1])]
+    for storage in ("qf32", "dirs", "state"):
+        (R, P, Q), _ = B.storage_ids(storage)
+        rs, ps = r.to(R), p.to(P)
+        for first in (True, False):
+            s1, s2 = _scal(device), _scal(device)
+            out["cg_step"] += list(zip(
+                B.cg_step(rs, ps, s1, n, h2, RHO, first, storage=storage),
+                B.cg_step_plain(rs, ps, s2, n, h2, RHO, first,
+                                storage=storage))) + [(s1[1:3], s2[1:3])]
+        for store_r in (True, False):
+            s1, s2 = _scal(device), _scal(device)
+            xk, xp, rk, rp = x.clone(), x.clone(), rs.clone(), rs.clone()
+            B.cg_update(xk, rk, ps, q.to(Q), s1, store_r)
+            B.cg_update_plain(xp, rp, ps, q.to(Q), s2, store_r)
+            out["cg_update"] += [(xk, xp), (rk, rp), (s1[[0, 3]], s2[[0, 3]])]
+    s1, s2 = _scal(device), _scal(device)
+    xk, xp = x.clone(), x.clone()
+    B.cg_update(xk, None, p.to(bf), None, s1)
+    B.cg_update_plain(xp, None, p.to(bf), None, s2)
+    out["cg_update"].append((xk, xp))
+    out["normal_apply_zy"].append((T.normal_apply_zy(vb, n, h2, RHO,
+                                                     io_dtype=bf),
+                                   T.normal_apply_zy_plain(vb, n, h2, RHO,
+                                                           io_dtype=bf)))
+    s1, s2 = _scal(device), _scal(device)
+    out["normal_apply_zy"] += [
+        (T.normal_apply_zy(vb, n, h2, RHO, scal=s1, io_dtype=bf),
+         T.normal_apply_zy_plain(vb, n, h2, RHO, scal=s2, io_dtype=bf)),
+        (s1[1:3], s2[1:3])]
+    for io, pd in ((None, torch.float32), (None, bf), (bf, bf)):
+        s1, s2 = _scal(device), _scal(device)
+        got = T.normal_apply_zy(x, n, h2, RHO, rhs=rhs, scal=s1, io_dtype=io,
+                                p_dtype=pd)
+        ref = T.normal_apply_zy_plain(x, n, h2, RHO, rhs=rhs, scal=s2,
+                                      io_dtype=io, p_dtype=pd)
+        q = rhs - ref[0].float()  # the rounded q of the residual
+        out["normal_apply_zy"] += [(g, r, q) for g, r in zip(got, ref)] \
+            + [(s1[:1], s2[:1])]
+    s1 = _scal(device)
+    for rs, qs in ((r, None), (r.to(bf), q.to(bf))):
+        pk, pp, rk, rp = (t.clone() for t in (p.to(bf), p.to(bf), rs, rs))
+        T.cg_direction(pk, rk, s1, q=qs)
+        T.cg_direction_plain(pp, rp, s1, q=qs)
+        out["cg_direction"] += [(pk, pp), (rk, rp)]
+    return out
+
+
+def sweep_unit_pairs(B, st, shape, device, rng, dtype):
+    """The sweep (first trip and a later one, storage ``dtype``) and its
+    plain version on the same inputs: ``{"cg_sweep": [(kernel, plain),
+    ...]}`` — x, r', p', q' and the scalars."""
+    def rand(lo=0.0):
+        import torch
+
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    x, r, p, q = rand(-0.3), rand(-0.5), rand(-0.5), rand(-0.5)
+    out = []
+    for first in (True, False):
+        s1, s2 = _scal(device), _scal(device)
+        xk, xp = x.clone(), x.clone()
+        qk, qp = q.to(dtype).clone(), q.to(dtype).clone()
+        got = B.cg_sweep(xk, r.to(dtype), p.to(dtype), qk, s1, st.normal,
+                         st.inv_h2, RHO, first)
+        ref = B.cg_sweep_plain(xp, r.to(dtype), p.to(dtype), qp, s2,
+                               st.normal, st.inv_h2, RHO, first)
+        out += [(xk, xp), (qk, qp)] + list(zip(got, ref)) + [(s1, s2)]
+    return {"cg_sweep": out}
+
+
+def compact_call(B, T, st, shape, device, name):
+    """``(kernel, plain, library, float32 twin, pair)`` closures of the
+    compact entry ``name`` at ``shape``, each the form its main path runs,
+    on random inputs of its own. Kernel and plain each update their own
+    copies of the state they write, so that their first calls start alike
+    and return every output (in-place ones and the CG scalars included);
+    ``pair(got, ref)`` matches those into :func:`compact_pairs_err` pairs.
+    Later calls drift, as a solve's do. Library: a PyTorch call of the
+    same function (or None); twin: the unit in float32 storage (or None).
+    """
+    import torch
+
+    bf = torch.bfloat16
+    rng = np.random.RandomState(24)
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    x, r, p, q, rhs = rand(-0.3), rand(-0.5), rand(-0.5), rand(-0.5), rand()
+    n, h2 = st.normal, st.inv_h2
+    rb, pb, qb = r.to(bf), p.to(bf), q.to(bf)
+    s0 = _scal(device)
+    s = [s0.clone() for _ in range(3)]  # kernel, plain, twin
+
+    def own(t):  # one copy each for kernel, plain and twin
+        return [t.clone() for _ in range(3)]
+
+    if name.startswith("cg_step"):
+        storage = name[len("cg_step["):-1]
+        rs = rb if storage == "state" else r
+        units = (B.cg_step, B.cg_step_plain)
+
+        def call(k):
+            return [*units[k](rs, pb, s[k], n, h2, RHO, storage=storage),
+                    s[k][1:3]]
+
+        twin = lambda: B.cg_step(r, p, s[2], n, h2, RHO)  # noqa: E731
+    elif name == "normal_apply[bf16]":
+        units = (B.normal_apply, B.normal_apply_plain)
+
+        def call(k):
+            return [units[k](x, n, h2, RHO, rhs=rhs, scal=s[k], io_dtype=bf),
+                    s[k][:1]]
+
+        twin = lambda: B.normal_apply(x, n, h2, RHO, rhs=rhs,  # noqa: E731
+                                      scal=s[2])
+    elif name == "cg_update[dirs]":
+        units = (B.cg_update, B.cg_update_plain)
+        xs, rs = own(x), own(r)
+
+        def call(k):
+            units[k](xs[k], rs[k], pb, qb, s[k])
+            return [xs[k], rs[k], s[k][[0, 3]]]
+
+        twin = lambda: B.cg_update(xs[2], rs[2], p, q, s[2])  # noqa: E731
+    elif name.startswith("cg_sweep"):
+        # x and q in place, the scalars by its recurrence: each call starts
+        # from the same scalars
+        units = (B.cg_sweep, B.cg_sweep_plain)
+        f32 = name == "cg_sweep"
+        xs = own(x)
+        qs = own(q) if f32 else own(qb)[:2] + [q.clone()]
+
+        def sweep(k, unit, rr, pp):
+            s[k].copy_(s0)
+            return [*unit(xs[k], rr, pp, qs[k], s[k], n, h2, RHO), xs[k],
+                    qs[k], s[k]]
+
+        def call(k):
+            return sweep(k, units[k], *((r, p) if f32 else (rb, pb)))
+
+        twin = None if f32 else (lambda: sweep(2, B.cg_sweep, r, p))
+    elif name == "normal_apply_zy[bf16]":
+        units = (T.normal_apply_zy, T.normal_apply_zy_plain)
+
+        def call(k):
+            return [units[k](pb, n, h2, RHO, scal=s[k], io_dtype=bf),
+                    s[k][1:3]]
+
+        twin = lambda: T.normal_apply_zy(p, n, h2, RHO,  # noqa: E731
+                                         scal=s[2])
+    elif name == "cg_direction[bf16]":
+        units = (T.cg_direction, T.cg_direction_plain)
+        ps, p32 = own(pb), p.clone()
+
+        def call(k):
+            units[k](ps[k], r, s[k])
+            return [ps[k]]
+
+        twin = lambda: T.cg_direction(p32, r, s[2])  # noqa: E731
+    else:
+        raise KeyError(name)
+    library = None
+    if name == "cg_direction[bf16]":
+        lib_out, beta = torch.empty_like(pb), float(s0[B.BETA])
+        library = lambda: torch.add(r, pb, alpha=beta,  # noqa: E731
+                                    out=lib_out)
+
+    def pair(got, ref):
+        out = [(g, f) for g, f in zip(got, ref)]
+        if name == "normal_apply[bf16]":  # the residual: one ulp of its q
+            out[0] += (rhs - ref[0].float(),)
+        return out
+
+    return lambda: call(0), lambda: call(1), library, twin, pair
+
+
+def compact_problem(device, shape):
+    """``A·(rand > 0.7)`` at ``shape`` on the card (σ = 1 wrap blur), the
+    same draw as phases 5 and 21; and the float64 blur for the objective."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
+    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+    xt = torch.as_tensor(np.random.RandomState(0).rand(*shape) > 0.7,
+                         device=device).float()
+    b = A(xt).contiguous()
+    del xt
+    return b, iso, A64
+
+
+def run_compact_phases(device, card):
+    """Phases 23-25: compact storage (K10, linear) and the sweep (K8).
+    Returns the ``kernels`` records of the storage-typed units."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop, policy
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import read_nifti, write_nifti
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    bf = torch.bfloat16
+    # phase 23: the units against their plain versions on tile-edge shapes
+    rng = np.random.RandomState(23)
+    for label, cov, sp, shape in EDGE_CASES + (
+            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        worst = compact_pairs_err(compact_unit_pairs(B, st, shape, device,
+                                                     rng))
+        for dt in (torch.float32, bf):
+            worst = max(worst, compact_pairs_err(sweep_unit_pairs(
+                B, st, shape, device, rng, dt)))
+        print("phase 23 storage units and sweep %s %s: f32 outputs and dots "
+              "within %.2e of plain, bf16 ones within %g ulp"
+              % (label, "x".join(map(str, shape)), worst, BF16_ULPS))
+    # ... and at each main path's shape, in the form it runs there: held to
+    # the same bands, and timed beside the plain version
+    iso = np.diag([SIGMA ** 2] * 3)
+    st = B.Stencils.from_cov(iso, 3, None, device)
+    times, err = {}, {}
+    for k, u in COMPACT_UNITS.items():
+        shape = COMPACT_SHAPES[u[3]]
+        kf, pf, lf, tf, pair = compact_call(B, T, st, shape, device, k)
+        pairs = pair(kf(), pf())
+        compact_pairs_err({k: pairs})
+        err[k] = max(float((g.float() - f.float()).abs().max())
+                     for g, f, *_ in pairs if tuple(g.shape) == shape)
+        del pairs
+        reps = 3 if shape == BIG else 10
+        times[k] = (cuda_median_ms(kf, reps), cuda_median_ms(pf, 2),
+                    None if lf is None else cuda_median_ms(lf, reps),
+                    None if tf is None else cuda_median_ms(tf, reps))
+        del kf, pf, lf, tf, pair
+        torch.cuda.empty_cache()
+    print("phase 23 at each main path's shape: every output within its band "
+          "of plain (max |d| %s)" % {k: "%.3g" % v for k, v in err.items()})
+    print("phase 23 per call at each main path's shape (kernel / plain / "
+          "library / float32-storage ms; bound ms): %s [%s]" % (", ".join(
+              "%s %s %.4f/%.3f/%s/%s, %.4f" % (
+                  k, "x".join(map(str, COMPACT_SHAPES[u[3]])), times[k][0],
+                  times[k][1], *("-" if t is None else "%.4f" % t
+                                 for t in times[k][2:]),
+                  compact_bound(k, COMPACT_SHAPES[u[3]])[0])
+              for k, u in COMPACT_UNITS.items()), card))
+    lap("phase 23")
+
+    # phase 24: whole solves
+    launches, runs = {}, {}
+
+    def run(key, solve, b, objective):
+        if b.numel() <= 64 ** 3:  # host-bound: warm the allocator first
+            solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x, ms = timed_once(lambda: solve(b, b, ALPHA, RHO))
+        launches[key] = {k: v for k, v in F.launch_counts().items() if v}
+        require(all(v == 0 for v in F.plain_counts().values()),
+                "phase 24: %s ran a plain version: %s"
+                % (key, F.plain_counts()))
+        require(bool(torch.isfinite(x).all()) and x.shape == b.shape,
+                "phase 24: %s not finite or misshapen" % key)
+        runs[key] = (objective(x), ms)
+        return x
+
+    def held_to_plain(key, factory, kw, b, objective):
+        plain_gates[key] = gaps = compact_plain_gaps(factory, kw, b,
+                                                     objective)
+        require(compact_gaps_ok(gaps, kw),
+                "phase 24: %s kernel vs plain: at 2 x %d objective rel %.3g,"
+                " voxel %.3g; at 1 x 2 RMS share of the gap to exact %s"
+                % (key, ITER_MAX, gaps[0], gaps[1], gaps[2]))
+
+    plain_gates = {}
+    # 64³: the fused solve, compact against the anchor and the exact one
+    img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
+    b_np = ndi.convolve(img.data.astype(np.float64), kern, mode="wrap")
+    b64 = interop.to_torch(b_np.astype(np.float32), device)
+
+    def obj64(x):
+        return objective_host(interop.to_numpy(x), b_np, kern, ALPHA)
+
+    for key, kw in (("fused64", dict(precision="high3", compact_dirs=True)),
+                    ("fused64_exact", {})):
+        run(key, F.make_fused_admm_solver((64,) * 3, iso,
+                                          iterations=ITERATIONS,
+                                          iter_max=ITER_MAX, **kw), b64, obj64)
+    dev64 = abs(runs["fused64"][0] - OBJECTIVE_ANCHOR) / OBJECTIVE_ANCHOR
+    require(dev64 <= ANCHOR_BAND, "phase 24: 64^3 compact objective %.2f "
+            "deviates %.4f%% from %.2f" % (runs["fused64"][0], 100 * dev64,
+                                           OBJECTIVE_ANCHOR))
+    require(launches["fused64"].get("cg_step") == ITERATIONS * ITER_MAX,
+            "phase 24: 64^3 compact launches %s" % launches["fused64"])
+    held_to_plain("fused64", partial(F.make_fused_admm_solver, (64,) * 3,
+                                     iso, iter_max=ITER_MAX),
+                  dict(precision="high3", compact_dirs=True), b64, obj64)
+    # 256³: "step" compact and bf16 state, "sweep" f32 and bf16 state
+    b, iso, A64 = compact_problem(device, SCALE_SHAPE)
+
+    def obj256(x):
+        return objective_device(x, b, A64, ALPHA)
+
+    modes = {"step_exact": dict(mode="step"),
+             "step_dirs": dict(mode="step", compact_dirs=True),
+             "step_state": dict(mode="step", state_dtype=bf),
+             "sweep_f32": dict(mode="sweep"),
+             "sweep_bf16": dict(mode="sweep", state_dtype=bf)}
+    for key, kw in modes.items():
+        run(key, B.blocked_admm_solve(SCALE_SHAPE, iso, iterations=ITERATIONS,
+                                      iter_max=ITER_MAX, **kw), b, obj256)
+    ref = runs["step_exact"][0]
+    gates = {}
+    for key in ("step_dirs", "step_state", "sweep_f32", "sweep_bf16"):
+        tol = SWEEP_F32_TOL if key == "sweep_f32" else COMPACT_OBJ_TOL
+        gates[key] = abs(runs[key][0] - ref) / ref
+        require(gates[key] <= tol, "phase 24: 256^3 %s objective %.3f vs "
+                "exact %.3f (rel %.3g > %g)" % (key, runs[key][0], ref,
+                                                gates[key], tol))
+    for key in ("sweep_f32", "sweep_bf16"):
+        lc = launches[key]
+        require(lc.get("cg_sweep") == ITERATIONS * ITER_MAX
+                and lc.get("cg_update") == ITERATIONS
+                and "cg_step" not in lc,
+                "phase 24: %s launches %s" % (key, lc))
+    for key in ("step_dirs", "step_state", "sweep_f32", "sweep_bf16"):
+        held_to_plain(key, partial(B.blocked_admm_solve, SCALE_SHAPE, iso,
+                                   iter_max=ITER_MAX), modes[key], b, obj256)
+    del b
+    torch.cuda.empty_cache()
+    # 512³: "apply" compact and bf16 state against the anchor
+    b, iso, A64 = compact_problem(device, BIG)
+
+    def obj512(x):
+        return objective_device(x, b, A64, ALPHA)
+
+    for key, kw in (("apply_dirs", dict(compact_dirs=True)),
+                    ("apply_state", dict(state_dtype=bf)),
+                    ("apply_exact", {})):
+        solve = B.blocked_admm_solve(BIG, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, **kw)
+        require(solve.mode == "apply", "phase 24: 512^3 took %r" % solve.mode)
+        run(key, solve, b, obj512)
+        if key != "apply_exact":
+            d = abs(runs[key][0] - BIG_ANCHOR) / BIG_ANCHOR
+            require(d <= ANCHOR_BAND, "phase 24: 512^3 %s objective %.2f "
+                    "deviates %.4f%% from %.1f" % (key, runs[key][0],
+                                                   100 * d, BIG_ANCHOR))
+            held_to_plain(key, partial(B.blocked_admm_solve, BIG, iso,
+                                       iter_max=ITER_MAX), kw, b, obj512)
+    del b
+    torch.cuda.empty_cache()
+    print("phase 24 solves 50x10 (objective, ms a solve): %s; 256^3 rel to "
+          "exact %s; kernel vs plain (objective/voxel at 2 outer, RMS share "
+          "of the gap to exact at 1 x 2) %s; launches %s [%s]" % (
+              {k: (round(v[0], 3), round(v[1], 2)) for k, v in runs.items()},
+              {k: "%.2e" % v for k, v in gates.items()},
+              {k: "/".join("-" if g is None else "%.2e" % g for g in v)
+               for k, v in plain_gates.items()},
+              launches, card))
+    lap("phase 24")
+
+    # phase 25: run_deconvolution's default on a 64³ and a (64, 512, 512)
+    # NIfTI is the compact library solve; NSOL_TPU_EXACT=1 the exact one,
+    # NSOL_TPU_COMPACT=1 the bf16-state one (blocked route)
+    sub_b, _, _ = compact_problem(device, (64, 512, 512))
+    cli_its = 5
+    envs = ({}, {"NSOL_TPU_EXACT": "1"}, {"NSOL_TPU_COMPACT": "1"})
+    cli_dev = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for vol, its in ((b_np.astype(np.float32), ITERATIONS),
+                         (interop.to_numpy(sub_b), cli_its)):
+            obs = os.path.join(tmp, "b.nii")
+            write_nifti(vol, obs, spacing=np.ones(3))
+            b_read = read_nifti(obs).data.astype(np.float64)
+            scale = float(np.max(b_read))
+            bs = torch.as_tensor((b_read / scale).astype(np.float32),
+                                 device=device)
+            for env in envs:
+                out = os.path.join(tmp, "x.nii")
+                saved = {k: os.environ.get(k) for k in
+                         ("NSOL_TPU_EXACT", "NSOL_TPU_COMPACT")}
+                os.environ.update(env)
+                try:
+                    build, kw = policy.tvl2_linear_solver(
+                        vol.shape, iso, np.ones(3), "cuda", its, ITER_MAX)
+                    rc = run_deconvolution.main([
+                        "--observation", obs, "--result", out, "--solver",
+                        "ADMM", "--reconstruction-type", "TVL2", "--alpha",
+                        str(ALPHA), "--blur", str(SIGMA), "--iterations",
+                        str(its), "--iter-max", str(ITER_MAX), "--device",
+                        "cuda"])
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+                want = {(): {"precision": "high3", "compact_dirs": True}
+                        if vol.shape == (64,) * 3 else {"compact_dirs": True},
+                        ("NSOL_TPU_EXACT",): {},
+                        ("NSOL_TPU_COMPACT",): {"state_dtype": bf}
+                        if vol.shape != (64,) * 3
+                        else {"precision": "high3", "compact_dirs": True}
+                        }[tuple(env)]
+                got_kw = {k: v for k, v in kw.items()
+                          if k in ("precision", "compact_dirs",
+                                   "state_dtype")}
+                require(rc == 0 and got_kw == want, "phase 25: %s %s: rc %r, "
+                        "options %s" % (vol.shape, env, rc, got_kw))
+                lib = interop.to_numpy(build(**kw)(bs, bs, ALPHA, RHO))
+                recon = read_nifti(out).data.astype(np.float64)
+                lib = lib.astype(np.float64) * scale
+                key = "%s %s" % ("x".join(map(str, vol.shape)),
+                                 ",".join(env) or "default")
+                cli_dev[key] = float(np.max(np.abs(recon - lib))
+                                     / np.max(np.abs(lib)))
+                require(np.all(np.isfinite(recon))
+                        and cli_dev[key] <= KERNEL_TOL,
+                        "phase 25: CLI %s vs library %.3g"
+                        % (key, cli_dev[key]))
+    del sub_b
+    torch.cuda.empty_cache()
+    print("phase 25 CLI run_deconvolution TVL2 linear: max|cli - library|/"
+          "max %s (default compact, NSOL_TPU_EXACT=1 exact, "
+          "NSOL_TPU_COMPACT=1 bf16 state on the blocked route)"
+          % {k: "%.2e" % v for k, v in cli_dev.items()})
+    lap("phase 25")
+
+    out = []
+    for name, (unit, tpu, source, path, bpv, taps) in COMPACT_UNITS.items():
+        b_ms, b_by = compact_bound(name, COMPACT_SHAPES[path])
+        t = times[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": tpu,
+                    "launches": int(launches[path].get(unit, 0)),
+                    "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": t[2]})
+        require(out[-1]["launches"] > 0, "phase 24: %s launched no time on "
+                "its main path (%s)" % (name, path))
+    return out
+
+
+def compact_bound(name, shape):
+    """``(bound_ms, bound_by)`` of one call of the compact entry ``name``
+    at ``shape``: its bytes a voxel (each input read once, each output
+    written once, at its storage width) and ~2 operations a tap plus ~20
+    for the Laplacian and the update."""
+    _, _, _, _, bpv, taps = COMPACT_UNITS[name]
+    n = int(np.prod(shape))
+    return bound(float(n) * bpv, float(n) * (2 * 3 * taps + 20))
 
 
 # ------------------------------------------------------------------ main --
@@ -2376,7 +3042,11 @@ def run_admm_phases(device, card):
         b_read = read_nifti(obs).data.astype(np.float64)
     scale = np.max(b_read)
     bs = interop.to_torch((b_read / scale).astype(np.float32), device)
-    lib_x = interop.to_numpy(solve(bs, bs, ALPHA, RHO)).astype(
+    # the CLI's default on the card: the reference's compact fused solve
+    compact = F.make_fused_admm_solver(shape, iso, iterations=ITERATIONS,
+                                       iter_max=ITER_MAX, precision="high3",
+                                       compact_dirs=True)
+    lib_x = interop.to_numpy(compact(bs, bs, ALPHA, RHO)).astype(
         np.float64) * scale
     cli_dev = float(np.max(np.abs(recon - lib_x)) / np.max(np.abs(lib_x)))
     require(recon.shape == shape and np.all(np.isfinite(recon)),
@@ -2390,7 +3060,7 @@ def run_admm_phases(device, card):
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
-          "scale")
+          "scale", "compact")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -2531,6 +3201,8 @@ def main(argv=None):
         kernels += kernel_entries("scale", scale["launches"], scale["err"],
                                   scale["times"], int(np.prod(BIG)),
                                   TILED_TAPS)
+    if "compact" in groups:
+        kernels += run_compact_phases(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

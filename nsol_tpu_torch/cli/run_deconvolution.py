@@ -3,19 +3,26 @@ the ADMM/TVL2 route (the linear loss with the ``cg`` inner engine, a
 robust loss with ``irls``) and the TK0L2/TK1L2 route.
 
 Gaussian blur from ``--blur`` (cov = diag(σ²)), voxel spacing from the nii
-header when present. TVL2 by ADMM runs the whole solve through
-:func:`nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver` on ``b/x_scale``
-in float32 with ``x_scale = max(b)``, rescaled on output, as the
-reference's fused route does (run_deconvolution.py:79,137,242), 2-D images
-and 3-D volumes alike; ``--data-loss-scale`` reaches a robust solve
-unscaled, as there (:139). A 3-D volume with 512-wide planes (``Y ≥ 512``,
-``Y % 128 == 0``) and a blur that fits the tiled kernels
-(:func:`~nsol_tpu_torch.ops.cuda.blocked.takes_zy_route`) takes the
-reference's past-VMEM route instead (:165-220):
-:func:`~nsol_tpu_torch.ops.cuda.blocked.blocked_admm_solve` (linear) or
-:func:`~nsol_tpu_torch.ops.cuda.robust.blocked_robust_admm_solve` (robust),
-in exact float32 (the reference's ``NSOL_TPU_EXACT=1``; its compact
-default is still to port). TK0L2/TK1L2 run the interface's
+header when present. TVL2 by ADMM runs the whole solve on ``b/x_scale`` in
+float32 with ``x_scale = max(b)``, rescaled on output, as the reference's
+accelerator route does (run_deconvolution.py:79,137,242).
+
+The linear loss takes its solver factory and storage from
+:func:`nsol_tpu_torch.policy.tvl2_linear_solver`, the reference CLI's
+choice (:140-220): the fused solve
+(:func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver`) where it
+fits (64³, 2-D images), else
+:func:`~nsol_tpu_torch.ops.cuda.blocked.blocked_admm_solve` ("step" at
+128³/256³, "apply" at 512-wide planes), in compact storage on
+``--device cuda`` (``precision="high3", compact_dirs=True`` fused,
+``compact_dirs=True`` blocked, ``state_dtype=bfloat16`` with
+``NSOL_TPU_COMPACT=1``) and exact f32 with ``NSOL_TPU_EXACT=1`` or on
+``--device cpu``. A robust loss takes the fused robust solve, or
+:func:`~nsol_tpu_torch.ops.cuda.robust.blocked_robust_admm_solve` for a
+3-D volume with 512-wide planes whose blur fits the tiled kernels, in
+exact f32: its compact storage waits for ROADMAP Queue 2 K10b.
+``--data-loss-scale`` reaches a robust solve unscaled, as there (:139).
+TK0L2/TK1L2 run the interface's
 :class:`~nsol_tpu_torch.solvers.wrappers.TikhonovLinearSolver` per α
 (:253-290), with the blur hint, so that on CUDA the kernel units serve its
 inner solves. ``--device cuda`` runs the CUDA kernels, ``--device cpu``
@@ -27,6 +34,7 @@ until its slice is ported.
 import numpy as np
 import torch
 
+from nsol_tpu_torch import policy
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.cli.argparser import LOSSES, InputArgparser
 from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
@@ -34,7 +42,7 @@ from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
-from nsol_tpu_torch.ops.cuda.blocked import blocked_admm_solve, takes_zy_route
+from nsol_tpu_torch.ops.cuda.blocked import takes_zy_route
 from nsol_tpu_torch.ops.cuda.fused import make_fused_admm_solver
 from nsol_tpu_torch.ops.cuda.robust import blocked_robust_admm_solve
 from nsol_tpu_torch.solvers.tikhonov import resolve_minimizer
@@ -123,19 +131,18 @@ def main(argv=None):
 
     # ---------------------------- Set up solver ----------------------------
     shape = observed_nda.shape
-    route = "apply" if args.data_loss == "linear" else "robust"
-    if not takes_zy_route(shape, cov, spacing=spacing, route=route):
+    if args.data_loss == "linear":
+        build, kwargs = policy.tvl2_linear_solver(
+            shape, cov, spacing, args.device, args.iterations, args.iter_max)
+        linear = build(**kwargs)
+
+        def solve(b, x0, alpha, rho, data_loss_scale=1.0):
+            return linear(b, x0, alpha, rho)
+    elif not takes_zy_route(shape, cov, spacing=spacing, route="robust"):
         solve = make_fused_admm_solver(
             shape, cov, spacing=spacing, iterations=args.iterations,
             iter_max=args.iter_max, data_loss=args.data_loss,
             irls_cg_iters=args.irls_cg_iters)
-    elif args.data_loss == "linear":
-        blocked = blocked_admm_solve(shape, cov, spacing=spacing,
-                                     iterations=args.iterations,
-                                     iter_max=args.iter_max)
-
-        def solve(b, x0, alpha, rho, data_loss_scale=1.0):
-            return blocked(b, x0, alpha, rho)
     else:
         solve = blocked_robust_admm_solve(
             shape, cov, spacing=spacing, iterations=args.iterations,

@@ -3,14 +3,16 @@
 // Counterparts of the TPU Pallas kernels
 //   nsol_tpu/ops/pallas/blocked.py::make_blocked_normal_operator  (:402)
 //   nsol_tpu/ops/pallas/blocked.py::make_blocked_cg_step          (:988)
+//   nsol_tpu/ops/pallas/blocked.py::make_blocked_cg_sweep         (:1139)
 //   nsol_tpu/ops/pallas/fused.py::make_fused_admm_solver          (:382, linear;
-//                                                                  record=True)
+//                                                                  record=True,
+//                                                                  compact_dirs)
 // computing the same f32 results, not their block structure.
 //
 // Volumes are (Z, Y, X) float32, X contiguous; a 2-D image runs as a
 // (1, Y, X) volume with z taps [1], 1/h_z = 1/h_z^2 = 0, so every z term
 // (the Laplacian's, the z gradient, its shrink and its divergence) is an
-// exact zero. Five kernel units, each a short sequence of launches on the
+// exact zero. Six kernel units, each a short sequence of launches on the
 // caller's stream:
 //
 //   normal_apply  q = N_z N_y N_x v + rho * B^T B v (self-correlated
@@ -29,6 +31,12 @@
 //                 tau = alpha / rho, v, w updates; then the next
 //                 rhs = A^T b + rho div(v - w) (two passes: the divergence
 //                 needs neighbours of v - w).
+//   cg_sweep      one whole CG iteration (blocked.py:1193-1231): the x pass
+//                 forms r' = r - a q and p' = r' + beta p from the old
+//                 vectors at every tap, stores r', p' and x += a p and sums
+//                 |r'|^2; the z pass forms q' = M p' over q and sums p'.q',
+//                 r'.q', q'.q'; a one-block stage runs the scalar
+//                 recurrence a = g/pq, beta = max(g - 2a rq + a^2 qq, 0)/g.
 //   admm_record   the L-curve records of one iterate (fused.py:624-638):
 //                 Reg = sum sqrt(sum_ax (D_ax x / h_ax)^2) and
 //                 Data = 1/2 sum rho_C(r^2), r = A x - b (one blur chain
@@ -47,6 +55,13 @@
 // passes and the CG update live in stencil.cuh, shared with robust.cu and
 // tikhonov.cu.
 //
+// Storage. The CG vectors r, p, q are float, or bfloat16 where the
+// reference stores them so (stencil.cuh's Storage: the fused solve's
+// compact_dirs rounds p alone, the blocked compact_dirs p and q, its
+// state_dtype r, p and q); scratch, x and every sum stay float. The
+// bfloat16 traffic bounds a unit no better than its two float scratch
+// volumes allow: the saving is the stored vectors' share.
+//
 // Reductions are deterministic: each block reduces its grid-stride slice
 // in double in a fixed order, writes one partial, and a one-block second
 // stage sums the partials in a fixed order. No atomics, so a run repeats
@@ -60,36 +75,73 @@
 namespace {
 
 // Kernel units, the indices of the launch counts handed back to Python.
-enum Unit { kNormalApply = 0, kCgStep = 1, kCgUpdate = 2, kAdmmTail = 3, kAdmmRecord = 4 };
+enum Unit {
+  kNormalApply = 0,
+  kCgStep = 1,
+  kCgUpdate = 2,
+  kAdmmTail = 3,
+  kAdmmRecord = 4,
+  kCgSweep = 5
+};
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
 
 __device__ __forceinline__ float clip0(float u) { return u < 0.f ? 0.f : u; }
 
-// z-pass epilogue of the normal operator: q = conv_z + rho * B^T B v, then
-// plain q, the CG residual rhs - q with its square summed, or q with v.q
-// summed.
-template <int kReg>
+// z-pass epilogue of the normal operator: q = conv_z + rho * B^T B v (v read
+// through V, which may round it), then q stored as O, the CG residual
+// rhs - q (q rounded to O first, as the reference's apply stores it) with
+// its square summed and stored as O, or q stored as O with v.q summed (q
+// before its rounding: the reference's step takes pq from the float q).
+template <int kReg, class V = Load, class O = float>
 struct NormalEpi {
-  const float* v;
+  V v;
   const float* rhs;
-  float* out;
+  O* out;
   float rho;
   Spacing sp;
   int mode;
   __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
-    const float q = fmaf(rho, reg_normal<kReg>(Load{v}, i, c, sp, d), conv);
+    const float q = fmaf(rho, reg_normal<kReg>(v, i, c, sp, d), conv);
     if (mode == kResidual) {
-      const float res = rhs[i] - q;
-      out[i] = res;
+      const float res = rhs[i] - round_as<O>(q);
+      out[i] = store_as<O>(res);
       return (double)res * res;
     }
-    // v[i] is read before the store: the compiler cannot tell that out
-    // does not alias v, and a load after the store waits for it.
-    const double dot = mode == kDot ? (double)__ldg(v + i) * q : 0.0;
-    out[i] = q;
+    // v is read before the store: the compiler cannot tell that out does
+    // not alias it, and a load after the store waits for it.
+    const double dot = mode == kDot ? (double)v(i) * q : 0.0;
+    out[i] = store_as<O>(q);
     return dot;
   }
+};
+
+// The sweep's x-pass source (blocked.py:1206-1208): from the old r, q, p
+// (T), r' = r - a q and the direction p' = r' + beta p rounded to T, with
+// a, beta read once from the device scalars (0, 0 on the first trip, where
+// r' = p' = r).
+template <class T>
+struct SweepDir {
+  using Dir = T;
+  const T* r;
+  const T* q;
+  const T* p;
+  const double* scal;
+  int first;
+  float a, beta;
+  __device__ void prepare() {
+    a = first ? 0.f : (float)scal[kA];
+    beta = first ? 0.f : (float)scal[kBeta];
+  }
+  __device__ float res(long long k) const {
+    const float rk = ldg(r + k);
+    return first ? rk : axpy_as<T>(-a, ldg(q + k), rk);
+  }
+  __device__ float dir(long long k) const {
+    const float rn = res(k);
+    return round_as<T>(first ? rn : axpy_as<T>(beta, ldg(p + k), rn));
+  }
+  __device__ float operator()(long long k) const { return dir(k); }
 };
 
 // admm_record's z epilogue: r = A x - b, rho_C(r^2) summed.
@@ -201,37 +253,201 @@ __global__ void record_reduce_kernel(const double* __restrict__ tv_parts,
 
 // ---------------------------------------------------------------- units --
 
-template <int kReg>
-void normal_apply_t(const float* v, float* out, float* t1, float* t2, const float* rhs,
+// The normal apply with v stored as In and q as O; the residual form reads
+// a float v through O (the reference's apply casts x to its io dtype).
+template <int kReg, class In, class O>
+void normal_apply_t(const In* v, O* out, float* t1, float* t2, const float* rhs,
                     double* partials, Taps tp, float rho, Spacing sp, Dims d, cudaStream_t s) {
-  const NormalEpi<kReg> epi{v, rhs, out, rho, sp, rhs != nullptr ? kResidual : kPlain};
-  blur_chain(Load{v}, nullptr, epi, rhs != nullptr ? partials : nullptr, t1, t2, tp, d, s);
+  const LoadT<In, O> src{v};
+  const NormalEpi<kReg, LoadT<In, O>, O> epi{src, rhs, out, rho, sp,
+                                             rhs != nullptr ? kResidual : kPlain};
+  blur_chain(src, nullptr, epi, rhs != nullptr ? partials : nullptr, t1, t2, tp, d, s);
 }
 
-cudaError_t normal_apply(const float* v, float* out, float* t1, float* t2, const float* rhs,
-                         double* partials, double* scal, Taps tp, float rho, int reg, Spacing sp,
-                         Dims d, cudaStream_t s) {
+// io 0: float in and out; io 1: bfloat16 (the plain form takes a bf16 v;
+// the residual form a float x, read as bf16, and writes a bf16 residual).
+template <class In, class O>
+cudaError_t normal_apply_io(const void* v, void* out, float* t1, float* t2, const float* rhs,
+                            double* partials, double* scal, Taps tp, float rho, int reg,
+                            Spacing sp, Dims d, cudaStream_t s) {
+  const In* vi = static_cast<const In*>(v);
+  O* o = static_cast<O*>(out);
   if (reg == kRegIdentity)
-    normal_apply_t<kRegIdentity>(v, out, t1, t2, rhs, partials, tp, rho, sp, d, s);
+    normal_apply_t<kRegIdentity>(vi, o, t1, t2, rhs, partials, tp, rho, sp, d, s);
   else
-    normal_apply_t<kRegLap>(v, out, t1, t2, rhs, partials, tp, rho, sp, d, s);
+    normal_apply_t<kRegLap>(vi, o, t1, t2, rhs, partials, tp, rho, sp, d, s);
   if (rhs != nullptr)
     reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReduceRR0);
   return cudaGetLastError();
 }
 
-cudaError_t cg_step(const float* r, const float* p, float* p_new, float* q, float* t1,
-                    float* t2, double* partials, double* scal, int first, Taps tp, float rho,
-                    int reg, Spacing sp, Dims d, cudaStream_t s) {
-  const Direction dir{r, p, nullptr, scal, first, 0.f};
+cudaError_t normal_apply(const void* v, void* out, float* t1, float* t2, const float* rhs,
+                         double* partials, double* scal, Taps tp, float rho, int reg, int io,
+                         Spacing sp, Dims d, cudaStream_t s) {
+  if (io == 0)
+    return normal_apply_io<float, float>(v, out, t1, t2, rhs, partials, scal, tp, rho, reg, sp,
+                                         d, s);
+  if (rhs != nullptr)
+    return normal_apply_io<float, bf16>(v, out, t1, t2, rhs, partials, scal, tp, rho, reg, sp,
+                                        d, s);
+  return normal_apply_io<bf16, bf16>(v, out, t1, t2, rhs, partials, scal, tp, rho, reg, sp, d,
+                                     s);
+}
+
+// p' = r + beta p stored as P (pq taken from the rounded p' and the float
+// q), q = M p' stored as Q; r read as R.
+template <class R, class P, class Q>
+cudaError_t cg_step_t(const R* r, const P* p, P* p_new, Q* q, float* t1, float* t2,
+                      double* partials, double* scal, int first, Taps tp, float rho, int reg,
+                      Spacing sp, Dims d, cudaStream_t s) {
+  const DirectionT<false, R, P> dir{r, p, nullptr, scal, first, 0.f};
+  const LoadT<P> pn{p_new};
   if (reg == kRegIdentity)
-    blur_chain(dir, p_new, NormalEpi<kRegIdentity>{p_new, nullptr, q, rho, sp, kDot}, partials,
-               t1, t2, tp, d, s);
+    blur_chain(dir, p_new, NormalEpi<kRegIdentity, LoadT<P>, Q>{pn, nullptr, q, rho, sp, kDot},
+               partials, t1, t2, tp, d, s);
   else
-    blur_chain(dir, p_new, NormalEpi<kRegLap>{p_new, nullptr, q, rho, sp, kDot}, partials, t1,
-               t2, tp, d, s);
+    blur_chain(dir, p_new, NormalEpi<kRegLap, LoadT<P>, Q>{pn, nullptr, q, rho, sp, kDot},
+               partials, t1, t2, tp, d, s);
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReducePQ);
   return cudaGetLastError();
+}
+
+cudaError_t cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
+                    double* partials, double* scal, int first, Taps tp, float rho, int reg,
+                    int storage, Spacing sp, Dims d, cudaStream_t s) {
+  return with_storage(storage, [&](auto st) {
+    using S = decltype(st);
+    return cg_step_t(static_cast<const typename S::R*>(r), static_cast<const typename S::P*>(p),
+                     static_cast<typename S::P*>(p_new), static_cast<typename S::Q*>(q), t1, t2,
+                     partials, scal, first, tp, rho, reg, sp, d, s);
+  });
+}
+
+cudaError_t cg_update_s(float* x, void* r, const void* p, const void* q, double* partials,
+                        double* scal, long long n, int storage, int store_r, cudaStream_t s) {
+  return with_storage(storage, [&](auto st) {
+    using S = decltype(st);
+    return cg_update_t(x, static_cast<typename S::R*>(r), static_cast<const typename S::P*>(p),
+                       static_cast<const typename S::Q*>(q), partials, scal, n, store_r, s);
+  });
+}
+
+// ---------------------------------------------------------------- sweep --
+
+// The sweep's x pass: t1 = x taps of p', and on each voxel's own slot the
+// deferred updates x += a p (the old p), r' and p' stored as T, with
+// |r'|^2 (r' before rounding) summed into partials[block].
+template <class T>
+__global__ void sweep_x_kernel(SweepDir<T> src, float* __restrict__ t1, T* __restrict__ p_new,
+                               T* __restrict__ r_new, float* __restrict__ x,
+                               double* __restrict__ partials, const float* __restrict__ taps,
+                               int K, Dims d) {
+  src.prepare();
+  const long long n = d.n();
+  double acc = 0.0;
+  GRID_STRIDE(i, n) {
+    const int ix = (int)(i % d.X);
+    const float conv = wrap_conv(src, i - ix, ix, d.X, 1, taps, K);
+    const float rn = src.res(i);
+    const float pn = src.dir(i);
+    if (!src.first) x[i] = fmaf(src.a, ldg(src.p + i), x[i]);
+    r_new[i] = store_as<T>(rn);
+    p_new[i] = store_as<T>(pn);
+    t1[i] = conv;
+    acc += (double)rn * rn;
+  }
+  const double s = block_sum(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
+// The sweep's z pass: q' = conv_z + rho D^T D p' stored as T over the old q
+// (read first, to form r' again exactly as the x pass did), and the partial
+// sums of p'.q', r'.q', q'.q' (p' rounded, r' and q' before rounding;
+// blocked.py:1227-1231) into partials[k * kMaxBlocks + block], k = 1, 2, 3.
+template <class T>
+__global__ void sweep_z_kernel(const float* __restrict__ t2, const T* __restrict__ r,
+                               T* __restrict__ q, const T* __restrict__ p_new,
+                               const double* __restrict__ scal, int first, float rho, Spacing sp,
+                               double* __restrict__ partials, const float* __restrict__ taps,
+                               int K, Dims d) {
+  const Load src{t2};
+  const LoadT<T> pn{p_new};
+  const float a = first ? 0.f : (float)scal[kA];
+  const long long n = d.n(), plane = d.plane();
+  double pq = 0.0, rq = 0.0, qq = 0.0;
+  GRID_STRIDE(i, n) {
+    const Coord c{(int)(i % d.X), (int)((i / d.X) % d.Y), (int)(i / plane)};
+    const float conv = wrap_conv(src, i - (long long)c.z * plane, c.z, d.Z, plane, taps, K);
+    const float qn = fmaf(rho, laplacian(pn, i, c, sp, d), conv);
+    const float rk = ldg(r + i);
+    const float rn = first ? rk : axpy_as<T>(-a, to_float(q[i]), rk);
+    q[i] = store_as<T>(qn);
+    pq += (double)pn(i) * qn;
+    rq += (double)rn * qn;
+    qq += (double)qn * qn;
+  }
+  double sums[3] = {pq, rq, qq};
+  for (int k = 0; k < 3; ++k) {
+    const double s = block_sum(sums[k]);
+    if (threadIdx.x == 0) partials[(k + 1) * kMaxBlocks + blockIdx.x] = s;
+    __syncthreads();
+  }
+}
+
+// The sweep's scalar recurrence (blocked.py:1505-1509): a = g / pq,
+// gamma = max(g - 2 a rq + a^2 qq, 0), beta = gamma / g (zero-guarded),
+// beside the four dots.
+__global__ void sweep_reduce_kernel(const double* __restrict__ partials, int nparts,
+                                    double* __restrict__ scal) {
+  double dots[4];
+  for (int k = 0; k < 4; ++k) {
+    double acc = 0.0;
+    for (int j = threadIdx.x; j < nparts; j += blockDim.x) acc += partials[k * kMaxBlocks + j];
+    dots[k] = block_sum(acc);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const double g = dots[0], pq = dots[1], rq = dots[2], qq = dots[3];
+  const double a = pq > 0.0 ? g / pq : 0.0;
+  const double gn = fmax(g - 2.0 * a * rq + a * a * qq, 0.0);
+  scal[kGamma] = g;
+  scal[kPQ] = pq;
+  scal[kRQ] = rq;
+  scal[kQQ] = qq;
+  scal[kA] = a;
+  scal[kBeta] = g > 0.0 ? gn / g : 0.0;
+}
+
+// One whole CG iteration (blocked.py::make_blocked_cg_sweep): r' = r - a q,
+// p' = r' + beta p, q' = M p' (over q), x += a p, the four dots and the
+// recurrence's a, beta for the next sweep. partials: 4 * kMaxBlocks.
+template <class T>
+cudaError_t cg_sweep_t(float* x, const T* r, const T* p, T* q, T* r_new, T* p_new, float* t1,
+                       float* t2, double* partials, double* scal, int first, Taps tp, float rho,
+                       Spacing sp, Dims d, cudaStream_t s) {
+  const int g = grid_for(d.n());
+  const SweepDir<T> src{r, q, p, scal, first, 0.f, 0.f};
+  sweep_x_kernel<T><<<g, kThreads, 0, s>>>(src, t1, p_new, r_new, x, partials, tp.x, tp.kx, d);
+  conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
+  sweep_z_kernel<T><<<g, kThreads, 0, s>>>(t2, r, q, p_new, scal, first, rho, sp, partials,
+                                           tp.z, tp.kz, d);
+  sweep_reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal);
+  return cudaGetLastError();
+}
+
+// bf16 0: float vectors; 1: bfloat16 (state_dtype).
+cudaError_t cg_sweep(float* x, const void* r, const void* p, void* q, void* r_new, void* p_new,
+                     float* t1, float* t2, double* partials, double* scal, int first, Taps tp,
+                     float rho, int bf16_io, Spacing sp, Dims d, cudaStream_t s) {
+  if (bf16_io)
+    return cg_sweep_t(x, static_cast<const bf16*>(r), static_cast<const bf16*>(p),
+                      static_cast<bf16*>(q), static_cast<bf16*>(r_new),
+                      static_cast<bf16*>(p_new), t1, t2, partials, scal, first, tp, rho, sp, d,
+                      s);
+  return cg_sweep_t(x, static_cast<const float*>(r), static_cast<const float*>(p),
+                    static_cast<float*>(q), static_cast<float*>(r_new),
+                    static_cast<float*>(p_new), t1, t2, partials, scal, first, tp, rho, sp, d,
+                    s);
 }
 
 cudaError_t admm_tail(float* x, float* v, float* w, const float* atb, float* rhs, Spacing sp,
@@ -248,8 +464,8 @@ cudaError_t admm_record(const float* x, const float* b, float* t1, float* t2,
                         double* rec_partials, double* reg, double* data, int t, Taps ta,
                         int loss, float scale, Spacing sp, Dims d, cudaStream_t s) {
   const int g = grid_for(d.n());
-  blur_chain(Load{x}, nullptr, DataEpi{b, scale * scale, loss}, rec_partials, t1, t2,
-             ta, d, s);
+  blur_chain(Load{x}, nullptr, DataEpi{b, scale * scale, loss}, rec_partials, t1, t2, ta, d,
+             s);
   record_tv_kernel<<<g, kThreads, 0, s>>>(x, rec_partials + kMaxBlocks, sp, d);
   record_reduce_kernel<<<1, kReduceThreads, 0, s>>>(rec_partials + kMaxBlocks, rec_partials, g,
                                                     reg, data, t);
@@ -261,39 +477,60 @@ cudaError_t admm_record(const float* x, const float* b, float* t1, float* t2,
 // ------------------------------------------------------------ C interface --
 // Every function enqueues on `stream`, never synchronizes, allocates
 // nothing, adds one to counts[unit] per unit it launches, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). A CG vector passed as void* is stored
+// as the storage mode (or io flag) beside it says: float or bfloat16.
 
 extern "C" {
 
 int nsol_max_blocks() { return kMaxBlocks; }
 
-int nsol_normal_apply(const float* v, float* out, float* t1, float* t2, const float* rhs,
+// io 0: v and out float; io 1: bfloat16 out, and v bfloat16 (plain form)
+// or a float x read as bfloat16 (residual form, rhs given).
+int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const float* rhs,
                       double* partials, double* scal, const float* taps, int kz, int ky, int kx,
-                      float rho, int reg, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
-                      void* stream, long long* counts) {
+                      float rho, int reg, int io, float ih2x, float ih2y, float ih2z, int Z, int Y,
+                      int X, void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   cudaError_t e = normal_apply(v, out, t1, t2, rhs, partials, scal, make_taps(taps, kz, ky, kx),
-                               rho, reg, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
+                               rho, reg, io, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
   counts[kNormalApply] += 1;
   return (int)e;
 }
 
-int nsol_cg_step(const float* r, const float* p, float* p_new, float* q, float* t1, float* t2,
+// r, p, p_new, q stored as the Storage mode `storage` says.
+int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
                  double* partials, double* scal, int first, const float* taps, int kz, int ky,
-                 int kx, float rho, int reg, float ih2x, float ih2y, float ih2z, int Z, int Y,
-                 int X, void* stream, long long* counts) {
+                 int kx, float rho, int reg, int storage, float ih2x, float ih2y, float ih2z, int Z,
+                 int Y, int X, void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   cudaError_t e = cg_step(r, p, p_new, q, t1, t2, partials, scal, first,
-                          make_taps(taps, kz, ky, kx), rho, reg, sp, Dims{Z, Y, X},
+                          make_taps(taps, kz, ky, kx), rho, reg, storage, sp, Dims{Z, Y, X},
                           (cudaStream_t)stream);
   counts[kCgStep] += 1;
   return (int)e;
 }
 
-int nsol_cg_update(float* x, float* r, const float* p, const float* q, double* partials,
-                   double* scal, long long n, void* stream, long long* counts) {
-  cudaError_t e = cg_update(x, r, p, q, partials, scal, n, (cudaStream_t)stream);
+// r null: x += a p alone. store_r 0: r' is summed but not stored.
+int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
+                   double* scal, long long n, int storage, int store_r, void* stream,
+                   long long* counts) {
+  cudaError_t e = cg_update_s(x, r, p, q, partials, scal, n, storage, store_r,
+                              (cudaStream_t)stream);
   counts[kCgUpdate] += 1;
+  return (int)e;
+}
+
+// One CG sweep; bf16_io 1 stores r, p, q (and r_new, p_new) as bfloat16.
+// partials: 4 * nsol_max_blocks() doubles; scal: 6.
+int nsol_cg_sweep(float* x, const void* r, const void* p, void* q, void* r_new, void* p_new,
+                  float* t1, float* t2, double* partials, double* scal, int first,
+                  const float* taps, int kz, int ky, int kx, float rho, int bf16_io, float ih2x,
+                  float ih2y, float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  cudaError_t e = cg_sweep(x, r, p, q, r_new, p_new, t1, t2, partials, scal, first,
+                           make_taps(taps, kz, ky, kx), rho, bf16_io, sp, Dims{Z, Y, X},
+                           (cudaStream_t)stream);
+  counts[kCgSweep] += 1;
   return (int)e;
 }
 
@@ -322,27 +559,36 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
   return (int)e;
 }
 
-// The whole linear ADMM TV-L2 solve (fused.py:382, linear branch), enqueued
-// on `stream`. x holds x0 on entry and the result on exit. As in the fused
-// TPU kernel, x0 is not clipped on entry (tikhonov.py:130 clips it; the two
-// agree for x0 = b >= 0). With reg != nullptr the solve also records row 0
-// (x0) and one row per outer iteration (the clipped iterate) into
-// reg/data (fused.py:637-654), the Data loss by rec_loss at the scale
-// rec_scale.
+// The whole linear ADMM TV-L2 solve (fused.py:382, linear branch; and
+// blocked.py::blocked_admm_solve's "step" and "sweep" modes, :1293),
+// enqueued on `stream`. x holds x0 on entry and the result on exit. As in
+// the fused TPU kernel, x0 is not clipped on entry (tikhonov.py:130 clips
+// it; the two agree for x0 = b >= 0). The CG vectors r0, r1 (R), p0, p1 (P)
+// and q (Q) are stored as `storage` says; the outer residual reads x as
+// bfloat16 under kStoreState and in float otherwise (compact_dirs keeps an
+// exact apply for it, blocked.py:1430-1446). sweep 0: iter_max x (cg_step,
+// cg_update); sweep 1 (kStoreExact or kStoreState): iter_max x cg_sweep,
+// then the owed x += a p (cg_update on x alone), partials 4 *
+// nsol_max_blocks(). With reg != nullptr the solve also records row 0 (x0)
+// and one row per outer iteration (the clipped iterate) into reg/data
+// (fused.py:637-654), the Data loss by rec_loss at the scale rec_scale.
+// counts: 6 (admm.cu's units).
 int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, float* rhs,
-                    float* r, float* p0, float* p1, float* q, float* t1, float* t2,
+                    void* r0, void* r1, void* p0, void* p1, void* q, float* t1, float* t2,
                     double* partials, double* scal, const float* taps_a, int kaz, int kay,
                     int kax, const float* taps_n, int knz, int kny, int knx, float ihx,
                     float ihy, float ihz, float ih2x, float ih2y, float ih2z, float tau,
-                    float rho, int iterations, int iter_max, double* reg, double* data,
-                    double* rec_partials, int rec_loss, float rec_scale, int Z, int Y, int X,
-                    void* stream, long long* counts) {
+                    float rho, int iterations, int iter_max, int storage, int sweep, double* reg,
+                    double* data, double* rec_partials, int rec_loss, float rec_scale, int Z,
+                    int Y, int X, void* stream, long long* counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d{Z, Y, X};
   const Spacing sp{ihx, ihy, ihz, ih2x, ih2y, ih2z};
   const Taps ta = make_taps(taps_a, kaz, kay, kax);
   const Taps tn = make_taps(taps_n, knz, kny, knx);
   const bool record = reg != nullptr;
+  const int io_r0 = storage == kStoreState ? 1 : 0;
+  if (sweep && storage != kStoreExact && storage != kStoreState) return (int)cudaErrorInvalidValue;
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
   if (record)
     UNIT(kAdmmRecord, admm_record(x, b, t1, t2, rec_partials, reg, data, 0, ta, rec_loss,
@@ -350,22 +596,36 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
   // A^T b = A b once (A symmetric, fused.py:576), then v0 = grad x0, w0 = 0
   // and the first rhs.
   UNIT(kNormalApply,
-       normal_apply(b, atb, t1, t2, nullptr, partials, scal, ta, 0.f, kRegLap, sp, d, s));
+       normal_apply(b, atb, t1, t2, nullptr, partials, scal, ta, 0.f, kRegLap, 0, sp, d, s));
   UNIT(kAdmmTail, admm_tail(x, v, w, atb, rhs, sp, tau, rho, 1, d, s));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
     UNIT(kNormalApply,
-         normal_apply(x, r, t1, t2, rhs, partials, scal, tn, rho, kRegLap, sp, d, s));
-    float* p_prev = p0;
-    float* p_cur = p1;
+         normal_apply(x, r0, t1, t2, rhs, partials, scal, tn, rho, kRegLap, io_r0, sp, d, s));
+    void* r_cur = r0;
+    void* r_next = r1;
+    void* p_prev = p0;
+    void* p_cur = p1;
     for (int k = 0; k < iter_max; ++k) {
-      UNIT(kCgStep, cg_step(r, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, tn, rho,
-                            kRegLap, sp, d, s));
-      UNIT(kCgUpdate, cg_update(x, r, p_cur, q, partials, scal, d.n(), s));
-      float* tmp = p_prev;
+      if (sweep) {
+        UNIT(kCgSweep, cg_sweep(x, r_cur, p_prev, q, r_next, p_cur, t1, t2, partials, scal, k == 0,
+                                tn, rho, storage == kStoreState, sp, d, s));
+        void* tmp = r_cur;
+        r_cur = r_next;
+        r_next = tmp;
+      } else {
+        UNIT(kCgStep, cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, tn, rho,
+                              kRegLap, storage, sp, d, s));
+        UNIT(kCgUpdate, cg_update_s(x, r_cur, p_cur, q, partials, scal, d.n(), storage, 1, s));
+      }
+      void* tmp = p_prev;
       p_prev = p_cur;
       p_cur = tmp;
     }
+    // the last sweep's still-owed x += a p' (blocked.py:1515-1516)
+    if (sweep && iter_max > 0)
+      UNIT(kCgUpdate, cg_update_s(x, nullptr, p_prev, nullptr, partials, scal, d.n(), storage, 1,
+                                  s));
     // clips x, then the shrink, the dual update and the next rhs
     UNIT(kAdmmTail, admm_tail(x, v, w, atb, rhs, sp, tau, rho, 0, d, s));
     if (record)

@@ -14,17 +14,88 @@
 // convolves) and `dir(k)` (the value the x pass may store beside it). An
 // epilogue functor has `operator()(i, conv, c, d)` (c the voxel's
 // coordinates) returning a double to sum (0 when it reduces nothing).
+//
+// Storage. A CG work vector may be stored as float or as bfloat16 (the TPU
+// kernels' io_dtype / compact_dirs / state_dtype modes); every sum and
+// every stencil runs in float, and a value is rounded to bfloat16 (to
+// nearest, ties to even, as JAX's astype) only where the reference stores
+// it. A source's `Dir` is the type of the direction it hands the x pass.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-// Device scalar slots of the CG state (double).
-enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3 };
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+// A read-only load, as float.
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const bf16* p) { return __bfloat162float(__ldg(p)); }
+
+// v stored as T, and v rounded to T's precision (read back as float).
+template <class T>
+__device__ __forceinline__ T store_as(float v);
+template <>
+__device__ __forceinline__ float store_as<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 store_as<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <class T>
+__device__ __forceinline__ float round_as(float v) {
+  return to_float(store_as<T>(v));
+}
+
+// r + s u for a value stored as T: one fused rounding when T is float; the
+// product and the sum rounded apart when T is bfloat16, as the reference
+// (and the plain version) forms it, so that both round the same float to
+// bfloat16.
+template <class T>
+__device__ __forceinline__ float axpy_as(float s, float u, float r) {
+  if (std::is_same<T, bf16>::value) return __fadd_rn(r, __fmul_rn(s, u));
+  return __fmaf_rn(s, u, r);
+}
+
+// Storage modes of the CG vectors (r, p, q), by the reference option that
+// sets them: exact float; compact_dirs="qf32" (the fused solve's
+// compact_dirs); compact_dirs=True; state_dtype=bfloat16.
+enum Storage { kStoreExact = 0, kStoreQf32 = 1, kStoreDirs = 2, kStoreState = 3 };
+
+template <class R_, class P_, class Q_>
+struct StoreT {
+  using R = R_;
+  using P = P_;
+  using Q = Q_;
+};
+
+// f(StoreT<R, P, Q>{}) for the storage mode `storage`.
+template <class F>
+cudaError_t with_storage(int storage, F&& f) {
+  switch (storage) {
+    case kStoreExact:
+      return f(StoreT<float, float, float>{});
+    case kStoreQf32:
+      return f(StoreT<float, bf16, float>{});
+    case kStoreDirs:
+      return f(StoreT<float, bf16, bf16>{});
+    case kStoreState:
+      return f(StoreT<bf16, bf16, bf16>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Device scalar slots of the CG state (double); the sweep adds r.q and q.q.
+enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3, kRQ = 4, kQQ = 5 };
 // Second-stage reductions.
 enum Reduce { kReducePQ = 0, kReduceRR = 1, kReduceRR0 = 2 };
 
@@ -123,30 +194,36 @@ __device__ __forceinline__ float reg_normal(const Fn& u, long long i, Coord c, S
 
 // ------------------------------------------------------------- sources --
 
-// A volume read as it is.
-struct Load {
-  const float* p;
+// A volume of T read as float, rounded to As's precision (As = bf16 reads
+// a float volume as the reference's astype(bfloat16) does).
+template <class T, class As = T>
+struct LoadT {
+  using Dir = T;
+  const T* p;
   __device__ void prepare() {}
-  __device__ float operator()(long long k) const { return __ldg(p + k); }
-  __device__ float dir(long long k) const { return __ldg(p + k); }
+  __device__ float operator()(long long k) const { return round_as<As>(ldg(p + k)); }
+  __device__ float dir(long long k) const { return (*this)(k); }
 };
+using Load = LoadT<float>;
 
 // The CG direction p' = r + beta p (p' = r on the first trip), with beta
-// read once from the device scalars. Masked, the x pass convolves
-// free * p' (the active-set CG of IRLS); the mask is a template parameter
-// so that the unmasked tap loop tests nothing per tap.
-template <bool kMasked>
+// read once from the device scalars, rounded to P (the direction's
+// storage). Masked, the x pass convolves free * p' (the active-set CG of
+// IRLS); the mask is a template parameter so that the unmasked tap loop
+// tests nothing per tap.
+template <bool kMasked, class R = float, class P = float>
 struct DirectionT {
-  const float* r;
-  const float* p;
+  using Dir = P;
+  const R* r;
+  const P* p;
   const float* free;
   const double* scal;
   int first;
   float beta;
   __device__ void prepare() { beta = first ? 0.f : (float)scal[kBeta]; }
   __device__ float dir(long long k) const {
-    const float rk = __ldg(r + k);  // one address computation for both cases
-    return first ? rk : __fmaf_rn(beta, __ldg(p + k), rk);
+    const float rk = ldg(r + k);  // one address computation for both cases
+    return round_as<P>(first ? rk : axpy_as<P>(beta, ldg(p + k), rk));
   }
   __device__ float operator()(long long k) const {
     const float v = dir(k);
@@ -160,14 +237,16 @@ using MaskedDirection = DirectionT<true>;
 
 // x pass: out = wrap conv of src along x; dir_out = src.dir when given.
 template <class Src>
-__global__ void conv_x_pass(Src src, float* __restrict__ out, float* __restrict__ dir_out,
+__global__ void conv_x_pass(Src src, float* __restrict__ out,
+                            typename Src::Dir* __restrict__ dir_out,
                             const float* __restrict__ taps, int K, Dims d) {
   src.prepare();
   const long long n = d.n();
   GRID_STRIDE(i, n) {
     const int ix = (int)(i % d.X);
     const float conv = wrap_conv(src, i - ix, ix, d.X, 1, taps, K);
-    if (dir_out != nullptr) dir_out[i] = src.dir(i);  // loads before the store to out
+    // loads before the store to out; src.dir is already rounded to Dir
+    if (dir_out != nullptr) dir_out[i] = store_as<typename Src::Dir>(src.dir(i));
     out[i] = conv;
   }
 }
@@ -206,8 +285,8 @@ __global__ void conv_z_pass(const float* __restrict__ t, Epi epi, double* __rest
 // The three passes of one blur chain: t1 = conv_x(src), t2 = conv_y(t1),
 // then conv_z(t2) into the epilogue.
 template <class Src, class Epi>
-void blur_chain(Src src, float* dir_out, Epi epi, double* partials, float* t1, float* t2,
-                Taps tp, Dims d, cudaStream_t s) {
+void blur_chain(Src src, typename Src::Dir* dir_out, Epi epi, double* partials, float* t1,
+                float* t2, Taps tp, Dims d, cudaStream_t s) {
   const int g = grid_for(d.n());
   conv_x_pass<<<g, kThreads, 0, s>>>(src, t1, dir_out, tp.x, tp.kx, d);
   conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
@@ -237,29 +316,42 @@ __global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
   }
 }
 
-__global__ void cg_update_kernel(float* __restrict__ x, float* __restrict__ r,
-                                 const float* __restrict__ p, const float* __restrict__ q,
+// x += a p; unless r is null, r' = r - a q (float, summed squared) and r
+// = r' stored unless store_r is 0 (the "apply" CG under bf16 state forms
+// its direction from the unrounded r' in cg_direction).
+template <class R, class P, class Q>
+__global__ void cg_update_kernel(float* __restrict__ x, R* __restrict__ r,
+                                 const P* __restrict__ p, const Q* __restrict__ q,
                                  const double* __restrict__ scal, double* __restrict__ partials,
-                                 long long n) {
+                                 long long n, int store_r) {
   const float a = (float)scal[kA];
   double acc = 0.0;
   GRID_STRIDE(i, n) {
-    x[i] = fmaf(a, p[i], x[i]);
-    const float ri = fmaf(-a, q[i], r[i]);
-    r[i] = ri;
+    x[i] = fmaf(a, to_float(p[i]), x[i]);
+    if (r == nullptr) continue;
+    const float ri = axpy_as<R>(-a, to_float(q[i]), to_float(r[i]));
+    if (store_r) r[i] = store_as<R>(ri);
     acc += (double)ri * ri;
   }
+  if (r == nullptr) return;
   const double s = block_sum(acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
-// x += a p, r -= a q, then beta = |r|^2 / gamma (guarded), gamma = |r|^2.
+// x += a p, r -= a q, then beta = |r|^2 / gamma (guarded), gamma = |r|^2;
+// with r null, x += a p alone (the sweep's owed update).
+template <class R, class P, class Q>
+cudaError_t cg_update_t(float* x, R* r, const P* p, const Q* q, double* partials, double* scal,
+                        long long n, int store_r, cudaStream_t s) {
+  const int g = grid_for(n);
+  cg_update_kernel<R, P, Q><<<g, kThreads, 0, s>>>(x, r, p, q, scal, partials, n, store_r);
+  if (r != nullptr) reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal, kReduceRR);
+  return cudaGetLastError();
+}
+
 inline cudaError_t cg_update(float* x, float* r, const float* p, const float* q,
                              double* partials, double* scal, long long n, cudaStream_t s) {
-  const int g = grid_for(n);
-  cg_update_kernel<<<g, kThreads, 0, s>>>(x, r, p, q, scal, partials, n);
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal, kReduceRR);
-  return cudaGetLastError();
+  return cg_update_t(x, r, p, q, partials, scal, n, 1, s);
 }
 
 }  // namespace

@@ -56,16 +56,18 @@ cudaError_t tik_clip(float* out, const float* in, long long n, cudaStream_t s) {
 extern "C" {
 
 // Units of admm.cu and robust.cu, each adding to its own source's counts.
-int nsol_normal_apply(const float* v, float* out, float* t1, float* t2, const float* rhs,
+// (float storage: io 0, storage 0)
+int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const float* rhs,
                       double* partials, double* scal, const float* taps, int kz, int ky, int kx,
-                      float rho, int reg, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
-                      void* stream, long long* counts);
-int nsol_cg_step(const float* r, const float* p, float* p_new, float* q, float* t1, float* t2,
+                      float rho, int reg, int io, float ih2x, float ih2y, float ih2z, int Z, int Y,
+                      int X, void* stream, long long* counts);
+int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
                  double* partials, double* scal, int first, const float* taps, int kz, int ky,
-                 int kx, float rho, int reg, float ih2x, float ih2y, float ih2z, int Z, int Y,
-                 int X, void* stream, long long* counts);
-int nsol_cg_update(float* x, float* r, const float* p, const float* q, double* partials,
-                   double* scal, long long n, void* stream, long long* counts);
+                 int kx, float rho, int reg, int storage, float ih2x, float ih2y, float ih2z, int Z,
+                 int Y, int X, void* stream, long long* counts);
+int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
+                   double* scal, long long n, int storage, int store_r, void* stream,
+                   long long* counts);
 int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
                     float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                     double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
@@ -103,7 +105,7 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
   if ((e = (call)) != 0) return e;
   if (loss == kLinear)  // A^T b = A b once (A symmetric, fused.py:857)
     CALL(nsol_normal_apply(b, atb, t1, t2, nullptr, partials, scal, taps_a, kaz, kay, kax, 0.f,
-                           kRegLap, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
+                           kRegLap, 0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
   for (int k = 0; k < nconf; ++k) {
     float* x = x_out + k * n;
     const float alpha = alphas[k];
@@ -120,13 +122,13 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
     }
     // warm-started CG on (A^T A + alpha B^T B) x = A^T b (_cg_inkernel)
     CALL(nsol_normal_apply(x, r, t1, t2, atb, partials, scal, taps_n, knz, kny, knx, alpha, reg,
-                           ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
+                           0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
     float* p_prev = p0;
     float* p_cur = p1;
     for (int it = 0; it < iter_max; ++it) {
       CALL(nsol_cg_step(r, p_prev, p_cur, q, t1, t2, partials, scal, it == 0, taps_n, knz, kny,
-                        knx, alpha, reg, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
-      CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, stream, admm_counts));
+                        knx, alpha, reg, 0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
+      CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, 0, 1, stream, admm_counts));
       float* tmp = p_prev;
       p_prev = p_cur;
       p_cur = tmp;

@@ -26,6 +26,15 @@
 //                      sum p'.q. No volume holds A pf.
 // plus cg_direction (p = r + beta p, the "apply" mode's CG direction).
 //
+// Storage (blocked.py:1293's compact_dirs and state_dtype, "apply" mode):
+// normal_apply_zy has bfloat16 instances (v and q in bf16, its dot taking
+// the rounded q; the residual form reading x as bf16 and writing r and
+// the first direction p = r in bf16). A bf16 window has no 2-byte
+// cp.async: it is loaded, widened and stored into the float window at
+// once, without the copy's overlap. cg_direction has typed instances and,
+// under bf16 state, a deferred form that forms r' = r - a q again from
+// the unrounded values.
+//
 // Design. A thread block owns an output tile of kTileY rows x kTileX columns
 // over up to kTileZ planes and marches through z. For each input plane it
 // copies the halo-extended (y, x) window from device memory into shared
@@ -55,6 +64,8 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "losses.cuh"
 #include "stencil.cuh"
@@ -131,13 +142,20 @@ __device__ void block_tables(float* taps, Taps tp, int* rows, int* cols, int y0,
   for (int i = thread_rank(); i < wx; i += nt) cols[i] = wrap_index(x0 - hx + i, d.X);
 }
 
-// Start the asynchronous copy of one plane's (wy x wx) window into dst.
-__device__ __forceinline__ void copy_window(float* dst, const float* __restrict__ src,
+// Start the asynchronous copy of one plane's (wy x wx) window into dst. A
+// bfloat16 volume (or a float one read as bfloat16, As) has no 2-byte
+// asynchronous copy: it is loaded, widened (rounded) and stored at once.
+template <class T, class As = T>
+__device__ __forceinline__ void copy_window(float* dst, const T* __restrict__ src,
                                              long long plane_off, const int* rows,
                                              const int* cols, int wy, Width w) {
-  const float* plane = src + plane_off;
-  TILE_LOOP(r, c, wy, w)
-  __pipeline_memcpy_async(dst + r * w.n + c, plane + rows[r] + cols[c], sizeof(float));
+  const T* plane = src + plane_off;
+  if constexpr (std::is_same<T, float>::value && std::is_same<As, float>::value) {
+    TILE_LOOP(r, c, wy, w)
+    __pipeline_memcpy_async(dst + r * w.n + c, plane + rows[r] + cols[c], sizeof(float));
+  } else {
+    TILE_LOOP(r, c, wy, w) dst[r * w.n + c] = round_as<As>(ldg(plane + rows[r] + cols[c]));
+  }
 }
 
 // A stencil over a (rows x w.n) tile: out(r, c, sum_j k[j] tap(r, c, j)).
@@ -248,8 +266,11 @@ __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc
 // Laplacian.
 enum SrcKind { kSrcOne = 0, kSrcDirection = 1, kSrcTwo = 2 };
 
+// In: the storage of in0 (a single-input unit may read bfloat16), As the
+// precision it is read at.
+template <class In = float, class As = In>
 struct StencilArgs {
-  const float* in0;  // v, r, y or x
+  const In* in0;     // v, r, y or x
   const float* in1;  // p (kSrcDirection, not on the first trip) or u (kSrcTwo)
   float* dir_out;    // p' (kSrcDirection)
   const double* scal;
@@ -290,9 +311,9 @@ inline size_t stencil_smem(const StencilGeo& g, Taps tp, bool lap) {
 // The march: epi(i, conv, lap, centre) returns a term of the block's
 // reduction (the Laplacian and the centre value of its source are 0 when
 // kLap is false).
-template <int kSrc, bool kLap, class Epi>
+template <int kSrc, bool kLap, class In, class As, class Epi>
 __global__ void __launch_bounds__(kStencilThreads)
-    stencil_zy_kernel(StencilArgs a, StencilGeo g, Epi epi) {
+    stencil_zy_kernel(StencilArgs<In, As> a, StencilGeo g, Epi epi) {
   extern __shared__ float smem[];
   const Dims d = a.d;
   const int wn = g.win_n();
@@ -319,7 +340,7 @@ __global__ void __launch_bounds__(kStencilThreads)
   auto start_copy = [&](int k) {
     const long long off = (long long)wrap_index(pstart + k, d.Z) * d.plane();
     float* dst = win + (k & 1) * g.nin * wn;
-    copy_window(dst, a.in0, off, rows, cols, g.wy, g.win);
+    copy_window<In, As>(dst, a.in0, off, rows, cols, g.wy, g.win);
     if (has_in1) copy_window(dst + wn, a.in1, off, rows, cols, g.wy, g.win);
   };
 
@@ -390,24 +411,28 @@ __global__ void __launch_bounds__(kStencilThreads)
 
 // ---------------------------------------------------------- epilogues --
 
-// q = conv + rho lap; plain q, the residual rhs - q (summed squared), or q
-// with centre.q summed (centre: v, or p').
+// q = conv + rho lap stored as O; plain q, the residual rhs - q (q rounded
+// to O first; summed squared, stored as O, and as the first CG direction
+// p_out of type P when given), or q with centre.q summed (centre: v, or
+// p'; q after its rounding, as the reference's "apply" CG reads it back).
 enum NormalMode { kNormalPlain = 0, kNormalResidual = 1, kNormalDot = 2 };
 
-template <int kMode>
+template <int kMode, class O = float, class P = float>
 struct NormalZyEpi {
   const float* rhs;
-  float* out;
+  O* out;
+  P* p_out;
   float rho;
   __device__ double operator()(long long i, float conv, float lap, float centre) const {
     const float q = fmaf(rho, lap, conv);
     if (kMode == kNormalResidual) {
-      const float res = rhs[i] - q;
-      out[i] = res;
+      const float res = rhs[i] - round_as<O>(q);
+      out[i] = store_as<O>(res);
+      if (p_out != nullptr) p_out[i] = store_as<P>(res);
       return (double)res * res;
     }
-    out[i] = q;
-    return kMode == kNormalDot ? (double)centre * q : 0.0;
+    out[i] = store_as<O>(q);
+    return kMode == kNormalDot ? (double)centre * round_as<O>(q) : 0.0;
   }
 };
 
@@ -463,12 +488,12 @@ inline int tiled_blocks(Dims d) {
   return (int)(g.x * g.y * g.z);
 }
 
-template <int kSrc, bool kLap, class Epi>
-cudaError_t launch_stencil(const StencilArgs& a, int nin, Epi epi, cudaStream_t s) {
+template <int kSrc, bool kLap, class In, class As, class Epi>
+cudaError_t launch_stencil(const StencilArgs<In, As>& a, int nin, Epi epi, cudaStream_t s) {
   const StencilGeo g = stencil_geo(a.tp, nin);
   const size_t smem = stencil_smem(g, a.tp, kLap);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = stencil_zy_kernel<kSrc, kLap, Epi>;
+  auto kernel = stencil_zy_kernel<kSrc, kLap, In, As, Epi>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -675,33 +700,72 @@ __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedA
 
 // ---------------------------------------------------------------- units --
 
-cudaError_t normal_apply_zy(const float* v, float* out, const float* rhs, double* partials,
-                            double* scal, Taps tp, float rho, Spacing sp, Dims d, cudaStream_t s) {
-  StencilArgs a{v, nullptr, nullptr, scal, 1, tp, sp, d, nullptr};
+// The residual form: x read at O's precision, r stored as O and, when p_out
+// is given, the first CG direction p = r as P.
+template <class O, class P>
+cudaError_t normal_residual_zy(const float* x, O* out, P* p_out, const float* rhs,
+                               double* partials, double* scal, Taps tp, float rho, Spacing sp,
+                               Dims d, cudaStream_t s) {
+  const StencilArgs<float, O> a{x, nullptr, nullptr, scal, 1, tp, sp, d, partials};
+  const cudaError_t e = launch_stencil<kSrcOne, true>(
+      a, 1, NormalZyEpi<kNormalResidual, O, P>{rhs, out, p_out, rho}, s);
+  if (e != cudaSuccess) return e;
+  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReduceRR0);
+  return cudaGetLastError();
+}
+
+// v and q stored as T: plain q, or (scal given) q with pq = sum v.q.
+template <class T>
+cudaError_t normal_apply_zy_t(const T* v, T* out, double* partials, double* scal, Taps tp,
+                              float rho, Spacing sp, Dims d, cudaStream_t s) {
+  StencilArgs<T> a{v, nullptr, nullptr, scal, 1, tp, sp, d, nullptr};
   cudaError_t e;
-  if (rhs != nullptr) {
+  if (scal != nullptr) {
     a.partials = partials;
-    e = launch_stencil<kSrcOne, true>(a, 1, NormalZyEpi<kNormalResidual>{rhs, out, rho}, s);
-    if (e != cudaSuccess) return e;
-    reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReduceRR0);
-  } else if (scal != nullptr) {
-    a.partials = partials;
-    e = launch_stencil<kSrcOne, true>(a, 1, NormalZyEpi<kNormalDot>{nullptr, out, rho}, s);
+    e = launch_stencil<kSrcOne, true>(a, 1, NormalZyEpi<kNormalDot, T>{nullptr, out, nullptr, rho},
+                                      s);
     if (e != cudaSuccess) return e;
     reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
   } else {
-    e = launch_stencil<kSrcOne, true>(a, 1, NormalZyEpi<kNormalPlain>{nullptr, out, rho}, s);
+    e = launch_stencil<kSrcOne, true>(a, 1,
+                                      NormalZyEpi<kNormalPlain, T>{nullptr, out, nullptr, rho}, s);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
 }
 
+// io 0: float v and out; io 1: bfloat16 out, and v bfloat16 (plain and dot
+// forms) or a float x read as bfloat16 (residual form). p_out (residual
+// form): float when p_bf16 is 0, else bfloat16.
+cudaError_t normal_apply_zy(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
+                            double* partials, double* scal, Taps tp, float rho, int io,
+                            Spacing sp, Dims d, cudaStream_t s) {
+  if (rhs != nullptr) {
+    const float* x = static_cast<const float*>(v);
+    if (io) {
+      if (!p_bf16 && p_out != nullptr) return cudaErrorInvalidValue;
+      return normal_residual_zy(x, static_cast<bf16*>(out), static_cast<bf16*>(p_out), rhs,
+                                partials, scal, tp, rho, sp, d, s);
+    }
+    if (p_bf16)
+      return normal_residual_zy(x, static_cast<float*>(out), static_cast<bf16*>(p_out), rhs,
+                                partials, scal, tp, rho, sp, d, s);
+    return normal_residual_zy(x, static_cast<float*>(out), static_cast<float*>(p_out), rhs,
+                              partials, scal, tp, rho, sp, d, s);
+  }
+  if (io)
+    return normal_apply_zy_t(static_cast<const bf16*>(v), static_cast<bf16*>(out), partials, scal,
+                             tp, rho, sp, d, s);
+  return normal_apply_zy_t(static_cast<const float*>(v), static_cast<float*>(out), partials, scal,
+                           tp, rho, sp, d, s);
+}
+
 cudaError_t cg_step_zy(const float* r, const float* p, float* p_new, float* q, double* partials,
                        double* scal, int first, Taps tp, float rho, Spacing sp, Dims d,
                        cudaStream_t s) {
-  const StencilArgs a{r, first ? nullptr : p, p_new, scal, first, tp, sp, d, partials};
+  const StencilArgs<> a{r, first ? nullptr : p, p_new, scal, first, tp, sp, d, partials};
   const cudaError_t e = launch_stencil<kSrcDirection, true>(
-      a, 2, NormalZyEpi<kNormalDot>{nullptr, q, rho}, s);
+      a, 2, NormalZyEpi<kNormalDot>{nullptr, q, nullptr, rho}, s);
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
   return cudaGetLastError();
@@ -714,7 +778,7 @@ cudaError_t blur_apply_zy(const float* y, const float* u, float* out, float* fre
                           const float* b, float* wts, float* yout, double* partials,
                           double* scal, Taps tp, float rho, int loss, float scale, Spacing sp,
                           Dims d, cudaStream_t s) {
-  StencilArgs a{y, u, nullptr, scal, 1, tp, sp, d, nullptr};
+  StencilArgs<> a{y, u, nullptr, scal, 1, tp, sp, d, nullptr};
   cudaError_t e;
   if (b != nullptr) {
     e = launch_stencil<kSrcOne, false>(a, 1, HeadZyEpi{b, wts, yout, scale * scale, loss}, s);
@@ -760,16 +824,40 @@ cudaError_t weighted_apply_zy(const float* r, const float* p, float* p_new, floa
   return cudaGetLastError();
 }
 
-__global__ void cg_direction_kernel(float* __restrict__ p, const float* __restrict__ r,
-                                    const double* __restrict__ scal, long long n) {
+// p = r + beta p stored as P. With q (the "apply" CG under bfloat16
+// state, whose cg_update left r alone): r' = r - a q is formed again, as
+// cg_update formed it, stored as R, and p = r' + beta p takes the
+// unrounded r' (blocked.py:1535-1541).
+template <class R, class P, class Q>
+__global__ void cg_direction_kernel(P* __restrict__ p, R* __restrict__ r,
+                                    const Q* __restrict__ q, const double* __restrict__ scal,
+                                    long long n) {
   const float beta = (float)scal[kBeta];
-  GRID_STRIDE(i, n) p[i] = __fmaf_rn(beta, p[i], r[i]);
+  const float a = (float)scal[kA];
+  GRID_STRIDE(i, n) {
+    float ri = to_float(r[i]);
+    if (q != nullptr) {
+      ri = axpy_as<R>(-a, to_float(q[i]), ri);
+      r[i] = store_as<R>(ri);
+    }
+    p[i] = store_as<P>(axpy_as<P>(beta, to_float(p[i]), ri));
+  }
 }
 
-cudaError_t cg_direction(float* p, const float* r, const double* scal, long long n,
-                         cudaStream_t s) {
-  cg_direction_kernel<<<grid_for(n), kThreads, 0, s>>>(p, r, scal, n);
+template <class R, class P, class Q>
+cudaError_t cg_direction_t(P* p, R* r, const Q* q, const double* scal, long long n,
+                           cudaStream_t s) {
+  cg_direction_kernel<R, P, Q><<<grid_for(n), kThreads, 0, s>>>(p, r, q, scal, n);
   return cudaGetLastError();
+}
+
+cudaError_t cg_direction(void* p, void* r, const void* q, const double* scal, long long n,
+                         int storage, cudaStream_t s) {
+  return with_storage(storage, [&](auto st) {
+    using S = decltype(st);
+    return cg_direction_t(static_cast<typename S::P*>(p), static_cast<typename S::R*>(r),
+                          static_cast<const typename S::Q*>(q), scal, n, s);
+  });
 }
 
 }  // namespace
@@ -784,8 +872,9 @@ cudaError_t cg_direction(float* p, const float* r, const double* scal, long long
 extern "C" {
 
 // admm.cu's units, which add to their own counts (admm.cu's Unit enum).
-int nsol_cg_update(float* x, float* r, const float* p, const float* q, double* partials,
-                   double* scal, long long n, void* stream, long long* counts);
+int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
+                   double* scal, long long n, int storage, int store_r, void* stream,
+                   long long* counts);
 int nsol_admm_tail(float* x, float* v, float* w, const float* atb, float* rhs, float ihx,
                    float ihy, float ihz, float tau, float rho, int init, int Z, int Y, int X,
                    void* stream, long long* counts);
@@ -804,13 +893,15 @@ int nsol_tiled_smem(int kz, int ky, int kx, int nin, int lap, int weighted) {
   return b > 0x7fffffffu ? 0x7fffffff : (int)b;
 }
 
-int nsol_normal_apply_zy(const float* v, float* out, const float* rhs, double* partials,
-                         double* scal, const float* taps, int kz, int ky, int kx, float rho,
-                         float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream,
-                         long long* counts) {
+// io and p_out, p_bf16 as normal_apply_zy above takes them.
+int nsol_normal_apply_zy(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
+                         double* partials, double* scal, const float* taps, int kz, int ky,
+                         int kx, float rho, int io, float ih2x, float ih2y, float ih2z, int Z,
+                         int Y, int X, void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  const cudaError_t e = normal_apply_zy(v, out, rhs, partials, scal, make_taps(taps, kz, ky, kx),
-                                        rho, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
+  const cudaError_t e = normal_apply_zy(v, out, rhs, p_out, p_bf16, partials, scal,
+                                        make_taps(taps, kz, ky, kx), rho, io, sp, Dims{Z, Y, X},
+                                        (cudaStream_t)stream);
   counts[kNormalApplyZy] += 1;
   return (int)e;
 }
@@ -853,33 +944,42 @@ int nsol_weighted_apply_zy(const float* r, const float* p, float* p_new, float* 
   return (int)e;
 }
 
-int nsol_cg_direction(float* p, const float* r, const double* scal, long long n, void* stream,
-                      long long* counts) {
-  const cudaError_t e = cg_direction(p, r, scal, n, (cudaStream_t)stream);
+// q given: the deferred form (r' = r - a q first); p, r, q stored as
+// `storage` says.
+int nsol_cg_direction(void* p, void* r, const void* q, const double* scal, long long n,
+                      int storage, void* stream, long long* counts) {
+  const cudaError_t e = cg_direction(p, r, q, scal, n, storage, (cudaStream_t)stream);
   counts[kCgDirection] += 1;
   return (int)e;
 }
 
 // The whole linear ADMM TV-L2 solve of blocked.py::blocked_admm_solve
 // (:1293) for mode 0 ("apply": CG around normal_apply_zy, with the CG
-// direction update of cg_direction) or 1 ("step2d": cg_step_zy). A^T b is
-// blur_apply_zy of b (A symmetric); the outer prox/dual chain is admm.cu's
-// admm_tail and the CG update its cg_update (counted in admm_counts). x
-// holds x0 on entry and the result on exit.
+// direction update of cg_direction) or 1 ("step2d": cg_step_zy, float
+// storage only). A^T b is blur_apply_zy of b (A symmetric); the outer
+// prox/dual chain is admm.cu's admm_tail and the CG update its cg_update
+// (counted in admm_counts). x holds x0 on entry and the result on exit.
+// r (R), p0, p1 (P) and q (Q) are stored as `storage` says (kStoreExact,
+// kStoreDirs or kStoreState): the outer residual reads x in float, or as
+// bfloat16 under kStoreState, and writes the first direction p0 = r
+// beside r; the CG applies read p and write q in bfloat16 under the two
+// compact modes, whose dot takes the rounded q.
 int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float* atb,
-                            float* rhs, float* r, float* p0, float* p1, float* q,
-                            double* partials, double* scal, const float* taps_a, int kaz,
-                            int kay, int kax, const float* taps_n, int knz, int kny, int knx,
-                            float ihx, float ihy, float ihz, float ih2x, float ih2y, float ih2z,
-                            float tau, float rho, int iterations, int iter_max, int mode, int Z,
-                            int Y, int X, void* stream, long long* counts,
-                            long long* admm_counts) {
+                            float* rhs, void* r, void* p0, void* p1, void* q, double* partials,
+                            double* scal, const float* taps_a, int kaz, int kay, int kax,
+                            const float* taps_n, int knz, int kny, int knx, float ihx, float ihy,
+                            float ihz, float ih2x, float ih2y, float ih2z, float tau, float rho,
+                            int iterations, int iter_max, int mode, int storage, int Z, int Y,
+                            int X, void* stream, long long* counts, long long* admm_counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d{Z, Y, X};
   const Spacing sp{ihx, ihy, ihz, ih2x, ih2y, ih2z};
   const Taps ta = make_taps(taps_a, kaz, kay, kax);
   const Taps tn = make_taps(taps_n, knz, kny, knx);
   const long long n = d.n();
+  if (storage != kStoreExact && (mode != 0 || storage == kStoreQf32))
+    return (int)cudaErrorInvalidValue;
+  const int compact = storage != kStoreExact, state = storage == kStoreState;
   int e;
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
 #define CALL(call)                  \
@@ -890,21 +990,30 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
                       admm_counts));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
-    UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, partials, scal, tn, rho, sp, d, s));
     if (mode == 0) {
-      CALL(cudaMemcpyAsync(p0, r, n * sizeof(float), cudaMemcpyDeviceToDevice, s));
+      // and the first direction p0 = r
+      UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, p0, compact, partials, scal, tn, rho, state,
+                                           sp, d, s));
       for (int k = 0; k < iter_max; ++k) {
-        UNIT(kNormalApplyZy, normal_apply_zy(p0, q, nullptr, partials, scal, tn, rho, sp, d, s));
-        CALL(nsol_cg_update(x, r, p0, q, partials, scal, n, stream, admm_counts));
-        if (k + 1 < iter_max) UNIT(kCgDirection, cg_direction(p0, r, scal, n, s));
+        UNIT(kNormalApplyZy, normal_apply_zy(p0, q, nullptr, nullptr, 0, partials, scal, tn, rho,
+                                             compact, sp, d, s));
+        CALL(nsol_cg_update(x, r, p0, q, partials, scal, n, storage, !state, stream,
+                            admm_counts));
+        if (k + 1 < iter_max)
+          UNIT(kCgDirection, cg_direction(p0, r, state ? q : nullptr, scal, n, storage, s));
       }
     } else {
-      float* p_prev = p0;
-      float* p_cur = p1;
+      UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, nullptr, 0, partials, scal, tn, rho, 0, sp,
+                                           d, s));
+      float* p_prev = static_cast<float*>(p0);
+      float* p_cur = static_cast<float*>(p1);
+      float* rf = static_cast<float*>(r);
+      float* qf = static_cast<float*>(q);
       for (int k = 0; k < iter_max; ++k) {
-        UNIT(kCgStepZy, cg_step_zy(r, p_prev, p_cur, q, partials, scal, k == 0, tn, rho, sp, d,
+        UNIT(kCgStepZy, cg_step_zy(rf, p_prev, p_cur, qf, partials, scal, k == 0, tn, rho, sp, d,
                                    s));
-        CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, stream, admm_counts));
+        CALL(nsol_cg_update(x, rf, p_cur, qf, partials, scal, n, kStoreExact, 1, stream,
+                            admm_counts));
         float* tmp = p_prev;
         p_prev = p_cur;
         p_cur = tmp;

@@ -36,17 +36,19 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "nsol_max_blocks": [],
-    "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I] + [_F] * 3
+    "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
-    "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
+    "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
-    "nsol_cg_update": [_P, _P, _P, _P, _P, _P, _LL, _P, _P],
+    "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
+    "nsol_cg_sweep": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
+    + [_I] * 3 + [_P, _P],
     "nsol_admm_tail": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I,
                        _I, _I, _I, _P, _P],
     "nsol_admm_record": [_P] * 7 + [_I, _P] + [_I] * 3 + [_I, _F]
     + [_F] * 3 + [_I] * 3 + [_P, _P],
-    "nsol_admm_solve": [_P] * 14 + [_P, _I, _I, _I, _P, _I, _I, _I]
-    + [_F] * 8 + [_I, _I] + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
+    "nsol_admm_solve": [_P] * 15 + [_P, _I, _I, _I, _P, _I, _I, _I]
+    + [_F] * 8 + [_I] * 4 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
     "nsol_pd_grid": [_I, _I],
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 5 + [_F] * 3
     + [_P, _P],
@@ -70,17 +72,17 @@ _SIGNATURES = {
     "nsol_tik_clip": [_P, _P, _LL, _P, _P],
     "nsol_tiled_blocks": [_I] * 3,
     "nsol_tiled_smem": [_I] * 6,
-    "nsol_normal_apply_zy": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_I] * 3
-    + [_P, _P],
+    "nsol_normal_apply_zy": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 3
+    + [_F, _I] + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_cg_step_zy": [_P] * 6 + [_I, _P] + [_I] * 3 + [_F] * 4 + [_I] * 3
     + [_P, _P],
     "nsol_blur_apply_zy": [_P] * 11 + [_I] * 3 + [_F, _I, _F] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_weighted_apply_zy": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F] * 4
     + [_I] * 3 + [_P, _P],
-    "nsol_cg_direction": [_P] * 3 + [_LL, _P, _P],
+    "nsol_cg_direction": [_P] * 4 + [_LL, _I, _P, _P],
     "nsol_blocked_admm_solve": [_P] * 13 + [_I] * 3 + [_P] + [_I] * 3
-    + [_F] * 8 + [_I] * 3 + [_I] * 3 + [_P] * 3,
+    + [_F] * 8 + [_I] * 4 + [_I] * 3 + [_P] * 3,
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 3 + [_I] * 3 + [_P] * 4,
 }
@@ -161,7 +163,7 @@ def load():
 def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
-    admm_tail, admm_record; ``pd.cu``: pd_dual, pd_primal, pd_record;
+    admm_tail, admm_record, cg_sweep; ``pd.cu``: pd_dual, pd_primal, pd_record;
     ``robust.cu``: blur_apply, irls_head, weighted_apply, irls_step,
     cg_update; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction)."""

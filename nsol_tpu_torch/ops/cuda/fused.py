@@ -19,11 +19,15 @@ This module adds the fourth kernel unit, :func:`admm_tail` (fused.py:645,
 ``rhs = Aᵀb + ρ·div(v − w)``. Two passes, because the divergence needs
 neighbours of ``v − w``; bytes bound it (~11 volumes moved).
 
-The TPU-only scheduling options of the reference (``precision`` pass
-modes, ``compact_dirs``, ``blur_reorder``, ``diff_matmul``,
-``pipelined_cg``) have no counterpart: the port computes the exact f32
-result and raises on them. A robust ``data_loss`` builds the IRLS solve of
-:mod:`nsol_tpu_torch.ops.cuda.robust` (``csrc/robust.cu``).
+The reference's ``compact_dirs=True`` (with ``precision="high3"``) stores
+each CG direction in bfloat16, as the same C sequence does under the
+storage mode ``"qf32"`` of :data:`~.blocked.STORAGE` (:func:`linear_admm_solver`,
+which also runs ``blocked_admm_solve``'s "step" and "sweep" modes). Its
+MXU pass schedules (``precision``, ``blur_reorder``, ``diff_matmul``,
+``pipelined_cg``) are accepted at the values whose result is the exact
+f32 one (:func:`~.blocked.check_options`). A robust ``data_loss`` builds
+the IRLS solve of :mod:`nsol_tpu_torch.ops.cuda.robust`
+(``csrc/robust.cu``); its compact storage is still to port (K10b).
 
 The whole primal-dual (Chambolle–Pock) denoising solve on the GPU:
 counterpart of ``fused.py::make_fused_pd_denoise_solver`` (:957). The TPU
@@ -61,7 +65,8 @@ __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
-           "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "reset_counts",
+           "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
+           "linear_admm_solver", "reset_counts",
            "launch_counts", "plain_counts"]
 
 
@@ -143,13 +148,17 @@ _ADMM_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain,
 # ----------------------------------------------------------------- solver --
 
 def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
-                 record=None):
+                 record=None, storage="exact", sweep=None):
     """The solve as a sequence of kernel-unit calls — the same sequence
     ``nsol_admm_solve`` enqueues in C. ``steps`` are the four units
     (the dispatching wrappers, or the plain versions); ``record`` is
-    ``None`` or ``(record unit, loss, C)``. Returns ``(x, reg, data)``,
-    the float64 records or None."""
+    ``None`` or ``(record unit, loss, C)``; ``storage`` a
+    :data:`~.blocked.STORAGE` mode; ``sweep`` ``None`` or the
+    :func:`~.blocked.cg_sweep` unit (or its plain version), which then
+    runs each CG iteration. Returns ``(x, reg, data)``, the float64
+    records or None."""
     normal_apply, cg_step, cg_update, tail = steps
+    r_io = B.STORAGE[storage][0]
     tau = float(np.float32(alpha) / np.float32(rho)) \
         if st.dtype == torch.float32 else alpha / rho
     scal = B.new_scalars(b.device)
@@ -165,12 +174,22 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
     Atb = normal_apply(b, st.blur, st.inv_h2, 0.0)  # A = Aᵀ
     rhs = tail(x, v, w, Atb, st.inv_h, tau, rho, init=True)
     for it in range(iterations):
-        r = normal_apply(x, st.normal, st.inv_h2, rho, rhs=rhs, scal=scal)
+        # bf16 state reads x as bf16 here; compact_dirs keeps it exact
+        r = normal_apply(x, st.normal, st.inv_h2, rho, rhs=rhs, scal=scal,
+                         io_dtype=r_io)
         p = None
-        for k in range(iter_max):
-            p, q = cg_step(r, p, scal, st.normal, st.inv_h2, rho,
-                           first=(k == 0))
-            cg_update(x, r, p, q, scal)
+        if sweep is not None:
+            q = torch.empty_like(r)
+            for k in range(iter_max):
+                r, p = sweep(x, r, p, q, scal, st.normal, st.inv_h2, rho,
+                             first=(k == 0))
+            if iter_max:  # the last sweep's owed x += a·p'
+                cg_update(x, None, p, None, scal)
+        else:
+            for k in range(iter_max):
+                p, q = cg_step(r, p, scal, st.normal, st.inv_h2, rho,
+                               first=(k == 0), storage=storage)
+                cg_update(x, r, p, q, scal)
         rhs = tail(x, v, w, Atb, st.inv_h, tau, rho)
         if record is not None:
             rec(x, b, st.blur, st.inv_h, loss, rec_scale, reg, data, it + 1)
@@ -178,17 +197,20 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
 
 
 def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
-                record_dls=None):
+                record_dls=None, storage="exact", sweep=False):
     name = "make_fused_admm_solver"
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
+    (R, P, Q), sid = B.storage_ids(storage)
     lib = build.load()
     x = x0.clone()
-    vols = [torch.empty_like(b) for _ in range(8)]  # Aᵀb rhs r p0 p1 q t1 t2
+    vols = [torch.empty(b.shape, dtype=dt, device=b.device)
+            for dt in (torch.float32,) * 2 + (R, R, P, P, Q)
+            + (torch.float32,) * 2]  # Aᵀb rhs r0 r1 p0 p1 q t1 t2
     v = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     w = torch.empty_like(v)
-    partials = torch.empty(lib.nsol_max_blocks(), dtype=torch.float64,
-                           device=b.device)
+    partials = torch.empty((4 if sweep else 1) * lib.nsol_max_blocks(),
+                           dtype=torch.float64, device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
     reg = data = parts = None
@@ -196,7 +218,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
     ta, tn = st.blur.as_volume(), st.normal.as_volume()
-    counts = build.new_counts(5)
+    counts = build.new_counts(6)
     err = lib.nsol_admm_solve(
         build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
         build.tensor_ptr(w), *[build.tensor_ptr(t) for t in vols],
@@ -204,84 +226,42 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
         build.tensor_ptr(ta.buf), *ta.lengths,
         build.tensor_ptr(tn.buf), *tn.lengths,
         *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), tau, float(rho),
-        int(iterations), int(iter_max), build.tensor_ptr(reg),
-        build.tensor_ptr(data), build.tensor_ptr(parts),
-        Rec.LOSS_IDS.index("linear"),
+        int(iterations), int(iter_max), sid, int(bool(sweep)),
+        build.tensor_ptr(reg), build.tensor_ptr(data),
+        build.tensor_ptr(parts), Rec.LOSS_IDS.index("linear"),
         float(1.0 if record_dls is None else record_dls), *dims,
         build.stream_ptr(b.device), counts)
     build.check(err, name)
-    for f, n in zip(_ADMM_UNITS + (Rec.admm_record,), counts):
+    for f, n in zip(_ADMM_UNITS + (Rec.admm_record, B.cg_sweep), counts):
         f.launches += n
     return x, reg, data
 
 
-_TPU_ONLY = ("precision", "compact_dirs", "blur_reorder", "diff_matmul",
-             "pipelined_cg")
-
-
-def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
-                           iterations=10, iter_max=10, data_loss="linear",
-                           irls_cg_iters=8, record=False, **tpu_options):
-    """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0,
-    record_dls=1.0)``.
-
-    ``data_loss="linear"``: ``iterations`` ADMM steps, each with
-    ``iter_max`` warm-started CG iterations on
-    ``(AᵀA + ρDᵀD) x = Aᵀb + ρ·div(v − w)``, a non-negativity clip, and the
-    grouped shrink at ``α/ρ`` — ``admm_solve(minimizer="cg")`` step for
-    step, with the fused TPU kernel's guards; ``data_loss_scale`` is
-    ignored. A robust loss (huber/soft_l1/cauchy/arctan):
-    ``admm_solve(minimizer="irls")``, ``iter_max`` MM sweeps of
-    ``irls_cg_iters`` masked-CG iterations per step at the runtime
-    ``data_loss_scale`` (:func:`~nsol_tpu_torch.ops.cuda.robust.make_robust_solver`).
-
-    ``record=True``: ``solve`` returns ``(x, {"Reg": ..., "Data": ...})``
-    with ``(iterations+1,)`` rows, row 0 the ``x0`` state — ``Reg =
-    TV(∇x)``, ``Data = ½Σρ_C(r²)``, ``r = Ax − b``, the solve's loss at the
-    runtime scale ``record_dls`` (:func:`~nsol_tpu_torch.ops.cuda.record.
-    admm_record`); accumulated in float64, returned in the solve's dtype.
-
-    Device and dtype follow ``b``: on CUDA the whole solve runs as the
-    kernel sequence of ``csrc/admm.cu`` (linear) or ``csrc/robust.cu``
-    (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
-    (2-D or 3-D, any float dtype). ``solve.plain`` runs the plain versions
-    on any device — the reference the kernels are held against.
-    ``alpha``/``rho`` are runtime scalars.
-    """
-    for key in tpu_options:
-        if key not in _TPU_ONLY:
-            raise TypeError("unexpected argument %r" % key)
-        raise ValueError("%s schedules the TPU's matrix unit and has no "
-                         "counterpart in the port (exact f32 only)" % key)
+def linear_admm_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
+                       iter_max=10, storage="exact", sweep=False,
+                       record=False):
+    """Build the linear ADMM TV-L2 solve ``solve(b, x0, alpha, rho,
+    data_loss_scale=1.0, record_dls=1.0)`` of :func:`make_fused_admm_solver`
+    and of ``blocked_admm_solve``'s "step" and "sweep" modes: CG vectors
+    stored as :data:`~.blocked.STORAGE` ``[storage]`` says, each CG
+    iteration a ``cg_step`` + ``cg_update`` or (``sweep``, storage
+    ``"exact"``/``"state"``) a ``cg_sweep``. ``solve.plain`` runs the
+    plain versions."""
+    B.storage_ids(storage)
+    if sweep and storage not in ("exact", "state"):
+        raise ValueError("the sweep stores r, p, q alike: storage 'exact' or "
+                         "'state', got %r" % (storage,))
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
+    factors = C.blur_factors(cov, alpha_cut, spacing)
+    cache = {}
 
     def result(out, dtype):
         x, reg, data = out
         if not record:
             return x
         return x, {"Reg": reg.to(dtype), "Data": data.to(dtype)}
-
-    if data_loss != "linear":
-        robust = R.make_robust_solver(shape, cov, alpha_cut, spacing,
-                                      iterations, iter_max, irls_cg_iters,
-                                      data_loss, record=True)
-
-        def solve_robust(b, x0, alpha, rho, data_loss_scale=1.0,
-                         record_dls=1.0):
-            return result(robust(b, x0, alpha, rho, data_loss_scale,
-                                 record_dls), b.dtype)
-
-        def plain_robust(b, x0, alpha, rho, data_loss_scale=1.0,
-                         record_dls=1.0):
-            return result(robust.plain(b, x0, alpha, rho, data_loss_scale,
-                                       record_dls=record_dls), b.dtype)
-
-        solve_robust.plain = plain_robust
-        return solve_robust
-    factors = C.blur_factors(cov, alpha_cut, spacing)
-    cache = {}
 
     def stencils(t):
         return B.stencils_for(cache, shape, factors, spacing, t)
@@ -291,20 +271,106 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
         if b.device.type == "cpu":
             rec = (Rec.admm_record, "linear", record_dls) if record else None
             out = _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
-                               iterations, iter_max, rec)
+                               iterations, iter_max, rec, storage,
+                               B.cg_sweep if sweep else None)
         else:
             out = _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
-                              record_dls if record else None)
+                              record_dls if record else None, storage, sweep)
         return result(out, b.dtype)
 
     def plain(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
         rec = (Rec.admm_record_plain, "linear", record_dls) if record \
             else None
         return result(_solve_steps(_ADMM_PLAIN, stencils(b), b, x0, alpha,
-                                   rho, iterations, iter_max, rec), b.dtype)
+                                   rho, iterations, iter_max, rec, storage,
+                                   B.cg_sweep_plain if sweep else None),
+                      b.dtype)
 
     solve.plain = plain
     return solve
+
+
+def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
+                           iterations=10, iter_max=10, dtype=np.float32,
+                           precision="HIGHEST", data_loss="linear",
+                           irls_cg_iters=8, record=False, interpret=False,
+                           compact_dirs=False, pipelined_cg=False,
+                           blur_reorder=True, diff_matmul=None):
+    """Build ``solve(b, x0, alpha, rho, data_loss_scale=1.0,
+    record_dls=1.0)`` (the reference's positional order, ``fused.py:382``).
+
+    ``data_loss="linear"``: ``iterations`` ADMM steps, each with
+    ``iter_max`` warm-started CG iterations on
+    ``(AᵀA + ρDᵀD) x = Aᵀb + ρ·div(v − w)``, a non-negativity clip, and the
+    grouped shrink at ``α/ρ`` — ``admm_solve(minimizer="cg")`` step for
+    step, with the fused TPU kernel's guards; ``data_loss_scale`` is
+    ignored. ``compact_dirs=True`` (with ``precision="high3"``, as the
+    reference requires) rounds each CG direction ``p`` to bfloat16 and
+    stores it so (``fused.py:329-379``); ``q``, ``r``, ``x`` and every sum
+    stay float32 (the :data:`~.blocked.STORAGE` mode ``"qf32"``). A robust
+    loss (huber/soft_l1/cauchy/arctan): ``admm_solve(minimizer="irls")``,
+    ``iter_max`` MM sweeps of ``irls_cg_iters`` masked-CG iterations per
+    step at the runtime ``data_loss_scale``
+    (:func:`~nsol_tpu_torch.ops.cuda.robust.make_robust_solver`); its
+    ``compact_dirs`` is still to port (K10b).
+
+    ``record=True``: ``solve`` returns ``(x, {"Reg": ..., "Data": ...})``
+    with ``(iterations+1,)`` rows, row 0 the ``x0`` state — ``Reg =
+    TV(∇x)``, ``Data = ½Σρ_C(r²)``, ``r = Ax − b``, the solve's loss at the
+    runtime scale ``record_dls`` (:func:`~nsol_tpu_torch.ops.cuda.record.
+    admm_record`); accumulated in float64, returned in the solve's dtype.
+
+    ``dtype`` (float32), ``precision`` (``None``, ``"HIGHEST"`` or
+    ``"high3"``: each the exact f32 arithmetic), ``pipelined_cg``,
+    ``blur_reorder`` and ``diff_matmul`` (their defaults only) go through
+    :func:`~.blocked.check_options`; ``interpret=True`` runs the plain
+    versions.
+
+    Device and dtype follow ``b``: on CUDA the whole solve runs as the
+    kernel sequence of ``csrc/admm.cu`` (linear) or ``csrc/robust.cu``
+    (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
+    (2-D or 3-D, any float dtype). ``solve.plain`` runs the plain versions
+    on any device — the reference the kernels are held against.
+    ``alpha``/``rho`` are runtime scalars.
+    """
+    robust = data_loss != "linear"
+    interpret, opt = B.check_options(
+        dict(dtype=dtype, precision=precision, interpret=interpret,
+             compact_dirs=compact_dirs, pipelined_cg=pipelined_cg,
+             blur_reorder=blur_reorder, diff_matmul=diff_matmul),
+        ported=() if robust else ("compact_dirs",),
+        pending=("compact_dirs",), defaults={"blur_reorder": True})
+    compact = opt.get("compact_dirs", False)
+    if compact not in (False, True):
+        raise ValueError("the fused solve's compact_dirs is True or False, "
+                         "got %r" % (compact,))
+    if compact and precision != "high3":
+        raise ValueError("compact_dirs requires precision='high3'")
+    shape = tuple(shape)
+    if len(shape) not in (2, 3):
+        raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
+    if robust:
+        robust_solve = R.make_robust_solver(
+            shape, cov, alpha_cut, spacing, iterations, iter_max,
+            irls_cg_iters, data_loss, record=True)
+
+        def run(fn, b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
+            x, reg, data = fn(b, x0, alpha, rho, data_loss_scale,
+                              record_dls=record_dls)
+            if not record:
+                return x
+            return x, {"Reg": reg.to(b.dtype), "Data": data.to(b.dtype)}
+
+        def solve_robust(*args, **kwargs):
+            return run(robust_solve.plain if interpret else robust_solve,
+                       *args, **kwargs)
+
+        solve_robust.plain = lambda *a, **k: run(robust_solve.plain, *a, **k)
+        return solve_robust
+    solve = linear_admm_solver(shape, cov, alpha_cut, spacing, iterations,
+                               iter_max, "qf32" if compact else "exact",
+                               record=record)
+    return B.plain_only(solve) if interpret else solve
 
 
 # ------------------------------------------------- primal-dual denoising --
@@ -573,7 +639,7 @@ def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
 def make_fused_pd_denoise_solver(shape, reconstruction_type,
                                  alg_type="ALG2", iterations=50,
                                  spacing=None, huber_gamma=HUBER_CONJ_GAMMA,
-                                 record=False, compact=False):
+                                 record=False, compact=False, **options):
     """Build ``solve(b, x0, alpha, L2, record_gamma=huber_gamma)``: the
     whole Chambolle–Pock denoising solve of ``fused.py:957``.
 
@@ -607,9 +673,8 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("fused PD solver supports 2-D/3-D volumes")
-    if compact:
-        raise NotImplementedError("compact=True (bf16 state) is not ported "
-                                  "yet (ROADMAP Queue 2 K10)")
+    interpret, _ = B.check_options(dict(options, compact=compact),
+                                   pending=("compact",))
     ell1 = reconstruction_type.endswith("L1")
     huber = reconstruction_type.startswith("Huber")
     s = G._spacing_array(spacing, len(shape))
@@ -675,6 +740,9 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 
     solve.plain = plain
     solve.plain_steps = plain_steps
+    if interpret:
+        solve = B.plain_only(solve)
+        solve.plain_steps = plain_steps
     return solve
 
 
@@ -689,11 +757,13 @@ RECORD_UNITS = ("admm_record",)
 TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
 #: the one-pass tiled units of the 512-wide-plane scale path
 TILED_UNITS = tuple(f.__name__ for f in Z.UNITS)
+#: the whole-CG-iteration unit of ``blocked_admm_solve(mode="sweep")``
+SWEEP_UNITS = ("cg_sweep",)
 _UNITS = {f.__name__: (f, p) for f, p in zip(
     _ADMM_UNITS + _PD_UNITS + R.UNITS + (Rec.admm_record,) + T.UNITS
-    + Z.UNITS,
+    + Z.UNITS + (B.cg_sweep,),
     _ADMM_PLAIN + _PD_PLAIN + R.PLAIN + (Rec.admm_record_plain,) + T.PLAIN
-    + Z.PLAIN)}
+    + Z.PLAIN + (B.cg_sweep_plain,))}
 
 
 def reset_counts():

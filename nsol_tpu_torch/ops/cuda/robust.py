@@ -432,13 +432,16 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
 # ------------------------------------------- reference-shaped entry points --
 
 def _check_options(tpu_options, prepadded=False):
-    """:func:`~.blocked.check_options`, and ``prepadded`` (the sharded
-    per-shard form, K9 with Queue 1 item 12) raises."""
-    B.check_options(tpu_options)
+    """:func:`~.blocked.check_options` — every storage option of the
+    robust kernels is still to port (K10b) —, and ``prepadded`` (the
+    sharded per-shard form, K9b with Queue 1 item 9) raises. Returns the
+    ``interpret`` flag."""
+    interpret, _ = B.check_options(tpu_options, pending=B.STORAGE_KEYS)
     if prepadded:
         raise NotImplementedError("prepadded=True (the sharded per-shard "
-                                  "form) is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
+                                  "form, K9b) is not ported yet (ROADMAP "
+                                  "Queue 1 item 9)")
+    return interpret
 
 
 def _blocked_stencils(shape, cov, alpha_cut, spacing):
@@ -456,17 +459,18 @@ def make_blocked_blur_operator(shape, cov, alpha_cut=3, spacing=None,
     ``apply(y, u, rho) -> A y + rho·DᵀD u`` — the IRLS gradient
     ``Aᵀ(w·r) + ρ·DᵀD x`` for ``y = w·r``, ``u = x`` (``A = Aᵀ``)
     (``nsol_tpu/ops/pallas/robust.py:161``). Device and dtype follow
-    ``y``."""
-    _check_options(tpu_options, prepadded)
+    ``y``; ``interpret=True`` runs the plain version."""
+    unit = blur_apply_plain if _check_options(tpu_options, prepadded) \
+        else blur_apply
     stencils = _blocked_stencils(shape, cov, alpha_cut, spacing)
 
     def apply_lap(y, u, rho):
         st = stencils(y)
-        return blur_apply(y, st.blur, st.inv_h2, u, rho)
+        return unit(y, st.blur, st.inv_h2, u, rho)
 
     def apply(y):
         st = stencils(y)
-        return blur_apply(y, st.blur, st.inv_h2)
+        return unit(y, st.blur, st.inv_h2)
 
     return apply_lap if with_lap else apply
 
@@ -477,14 +481,16 @@ def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
     """Build ``apply(v, w, rho) -> Aᵀ(w ⊙ (A v)) + rho·DᵀD v``, the SPD
     apply of every IRLS inner-CG iteration
     (``nsol_tpu/ops/pallas/robust.py:264``). Device and dtype follow
-    ``v``."""
-    _check_options(tpu_options, prepadded)
+    ``v``; ``interpret=True`` runs the plain version. ``io_dtype`` is
+    still to port (K10b)."""
+    unit = weighted_apply_plain if _check_options(tpu_options, prepadded) \
+        else weighted_apply
     stencils = _blocked_stencils(shape, cov, alpha_cut, spacing)
 
     def apply(v, w, rho):
         st = stencils(v)
-        _, q = weighted_apply(v, None, None, w, B.new_scalars(v.device),
-                              st.blur, st.inv_h2, rho, first=True)
+        _, q = unit(v, None, None, w, B.new_scalars(v.device), st.blur,
+                    st.inv_h2, rho, first=True)
         return q
 
     return apply
@@ -498,8 +504,9 @@ def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
     kernel ``blur_apply_zy`` (``nsol_tpu/ops/pallas/robust.py:734``).
     ``z_block``/``y_block`` are checked as the JAX package checks them and
     do not shape the CUDA tiles; a blur too wide for the kernel's shared
-    memory raises ``ValueError``. Device and dtype follow ``y``."""
-    _check_options(tpu_options)
+    memory raises ``ValueError``. Device and dtype follow ``y``;
+    ``interpret=True`` runs the plain version."""
+    interpret = _check_options(tpu_options)
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     # the blur band is half the normal band
@@ -508,15 +515,16 @@ def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
     T = B._tiled()
     T.require_fit("blur_apply_zy", [len(f) for f in factors],
                   nin=1 + with_lap, lap=with_lap)
+    unit = T.blur_apply_zy_plain if interpret else T.blur_apply_zy
     cache = {}
 
     def apply_lap(y, u, rho):
         st = B.stencils_for(cache, shape, factors, spacing, y)
-        return T.blur_apply_zy(y, st.blur, st.inv_h2, u, rho)
+        return unit(y, st.blur, st.inv_h2, u, rho)
 
     def apply(y):
         st = B.stencils_for(cache, shape, factors, spacing, y)
-        return T.blur_apply_zy(y, st.blur, st.inv_h2)
+        return unit(y, st.blur, st.inv_h2)
 
     return apply_lap if with_lap else apply
 
@@ -528,8 +536,9 @@ def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
     one-pass tiled kernel ``weighted_apply_zy``
     (``nsol_tpu/ops/pallas/robust.py:564``); ``z_block``/``y_block`` only
     validate, and a blur too wide for the kernel's shared memory raises
-    ``ValueError``. Device and dtype follow ``v``."""
-    _check_options(tpu_options)
+    ``ValueError``. Device and dtype follow ``v``; ``interpret=True`` runs
+    the plain version, ``io_dtype`` is still to port (K10b)."""
+    interpret = _check_options(tpu_options)
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     B.resolve_zy_blocks(shape, halo, halo_y, z_block, y_block,
@@ -537,12 +546,13 @@ def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
     T = B._tiled()
     T.require_fit("weighted_apply_zy", [len(f) for f in factors],
                   weighted=True)
+    unit = T.weighted_apply_zy_plain if interpret else T.weighted_apply_zy
     cache = {}
 
     def apply(v, w, rho):
         st = B.stencils_for(cache, shape, factors, spacing, v)
-        _, q = T.weighted_apply_zy(v, None, None, w, B.new_scalars(v.device),
-                                   st.blur, st.inv_h2, rho, first=True)
+        _, q = unit(v, None, None, w, B.new_scalars(v.device), st.blur,
+                    st.inv_h2, rho, first=True)
         return q
 
     return apply
@@ -560,13 +570,16 @@ def blocked_robust_admm_solve(shape, cov, alpha_cut=3, spacing=None,
     fits the tiled kernels' shared memory
     (:func:`~.tiled.route_fits`), the sweep runs the one-pass tiled units
     of :mod:`.tiled`; elsewhere the per-axis units. ``solve.tiled`` says
-    which."""
-    _check_options(tpu_options)
+    which. ``interpret=True`` runs the plain versions; ``compact_dirs`` is
+    still to port (K10b)."""
+    interpret = _check_options(tpu_options)
     shape = tuple(shape)
     if len(shape) != 3:
         raise ValueError("blocked robust kernels are 3-D only")
     tiled = B.takes_zy_route(shape, cov, alpha_cut, spacing, route="robust")
     solve = _make_solver(shape, cov, alpha_cut, spacing, iterations,
                          iter_max, irls_cg_iters, data_loss, False, tiled)
+    if interpret:
+        solve = B.plain_only(solve)
     solve.tiled = tiled
     return solve

@@ -147,9 +147,6 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     return out
 
 
-_TPU_ONLY = ("precision", "compact_dirs")
-
-
 def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
                                reg="TK1", iter_max=10, data_loss="linear",
                                irls_cg_iters=8, **tpu_options):
@@ -163,14 +160,10 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     the runtime α); ``data_loss_scale`` is a scalar or one value per α.
     Device and dtype follow ``b``: on CUDA the batch runs as one
     ``nsol_tikhonov_solve`` call (2-D or 3-D float32), on the CPU as the
-    plain versions (any float dtype). ``solve.plain`` runs the plain
-    versions on any device.
+    plain versions (any float dtype). ``interpret=True`` and
+    ``solve.plain`` run the plain versions on any device.
     """
-    for key in tpu_options:
-        if key not in _TPU_ONLY:
-            raise TypeError("unexpected argument %r" % key)
-        raise ValueError("%s schedules the TPU's matrix unit and has no "
-                         "counterpart in the port (exact f32 only)" % key)
+    interpret, _ = B.check_options(tpu_options, pending=("compact_dirs",))
     if reg not in B.REGS:
         raise ValueError("reg must be TK0 or TK1")
     if data_loss not in Rec.LOSS_IDS:
@@ -218,4 +211,4 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
                    data_loss_scale, False)
 
     solve.plain = plain
-    return solve
+    return B.plain_only(solve) if interpret else solve

@@ -28,6 +28,9 @@ PyTorch version beside it and a launch counter on its wrapper:
 and :func:`cg_direction` (``p = r + β·p``), the "apply" CG's direction
 update, which the JAX package leaves to XLA. ``DᵀD`` is the zero-boundary
 Laplacian (the units have no TK0 instance: the scale path is TV only).
+``normal_apply_zy`` and ``cg_direction`` also store their vectors in
+bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
+``compact_dirs`` or ``state_dtype``), their sums in float32.
 
 Each unit makes one pass over halo-extended tiles: no intermediate volume
 reaches device memory (see the note at the top of ``csrc/tiled.cu``).
@@ -35,8 +38,9 @@ A block holds its windows and rings in at most 227 KB of shared memory,
 so a wide blur does not fit: :func:`route_fits` is the shape decision by
 which the solves take the per-axis units instead, before any launch.
 Each wrapper runs the plain version only for CPU tensors; on a CUDA
-tensor it launches the kernel (2-D or 3-D float32, contiguous) or raises
-(``ValueError`` for stencils past the shared memory).
+tensor it launches the kernel (2-D or 3-D, contiguous, float32 or the
+bfloat16 its storage names) or raises (``ValueError`` for stencils past
+the shared memory).
 """
 
 import torch
@@ -59,11 +63,16 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
 # their own call counts and add the dot and head forms.
 
 @B.counted
-def normal_apply_zy_plain(v, taps, inv_h2, rho, rhs=None, scal=None):
+def normal_apply_zy_plain(v, taps, inv_h2, rho, rhs=None, scal=None,
+                          io_dtype=None, p_dtype=None):
     """Plain version of :func:`normal_apply_zy`."""
-    q = B.normal_apply_plain.__wrapped__(v, taps, inv_h2, rho, rhs, scal)
-    if rhs is None and scal is not None:
-        pq = torch.sum(v * q).to(scal.dtype)
+    q = B.normal_apply_plain.__wrapped__(v, taps, inv_h2, rho, rhs, scal,
+                                         io_dtype=io_dtype)
+    if rhs is not None:
+        return q if p_dtype is None else (q, q.to(p_dtype, copy=True))
+    if scal is not None:
+        cd = taps.buf.dtype
+        pq = torch.sum(v.to(cd) * q.to(cd)).to(scal.dtype)
         scal[B.PQ] = pq
         scal[B.A] = guarded_ratio(scal[B.GAMMA], pq)
     return q
@@ -89,9 +98,15 @@ weighted_apply_zy_plain = B.counted(R.weighted_apply_plain.__wrapped__,
 
 
 @B.counted
-def cg_direction_plain(p, r, scal):
-    """Plain version of :func:`cg_direction` (updates ``p`` in place)."""
-    p.mul_(scal[B.BETA].to(p.dtype)).add_(r)
+def cg_direction_plain(p, r, scal, q=None):
+    """Plain version of :func:`cg_direction` (updates ``p``, and with
+    ``q`` ``r``, in place)."""
+    cd = torch.promote_types(r.dtype, torch.float32)
+    rw = r.to(cd)
+    if q is not None:
+        rw = rw - scal[B.A].to(cd) * q.to(cd)
+        r.copy_(rw)
+    p.copy_(rw + scal[B.BETA].to(cd) * p.to(cd))
 
 
 # ---------------------------------------------------------- shared memory --
@@ -167,38 +182,59 @@ def tiled_partials(device, dims):
     return torch.empty(n, dtype=torch.float64, device=device)
 
 
-def _check(name, v, tensors, taps, scal=None, **form):
+def _check(name, v, tensors, taps, scal=None, dtype=torch.float32, **form):
     dims = B.volume_dims(name, v)
-    B.check_tensors(name, v.shape, v, *[t for t in tensors if t is not None])
+    B.check_tensors(name, v.shape, v, dtype=dtype)
+    B.check_tensors(name, v.shape, *[t for t in tensors if t is not None],
+                    device=v.device)
     B._check_consts(name, v.device, taps, scal)
     tv = taps.as_volume()
     require_fit(name, tv.lengths, **form)
     return dims, tv
 
 
-def normal_apply_zy(v, taps, inv_h2, rho, rhs=None, scal=None):
+def normal_apply_zy(v, taps, inv_h2, rho, rhs=None, scal=None,
+                    io_dtype=None, p_dtype=None):
     """``q = AᵀA v + ρ·DᵀD v`` (``taps``: the normal
     :class:`~blocked.Taps`). With ``rhs`` (and ``scal``) returns
-    ``rhs − q`` and sets ``scal[GAMMA] = ‖rhs − q‖²``, ``scal[BETA] = 0``;
-    with ``scal`` alone returns ``q`` and sets ``scal[PQ] = Σ v·q``,
-    ``scal[A] = γ/pq`` (0 unless pq > 0)."""
+    ``rhs − q`` and sets ``scal[GAMMA] = ‖rhs − q‖²``, ``scal[BETA] = 0``
+    — and with ``p_dtype`` returns ``(r, p)``, ``p = r`` stored as
+    ``p_dtype``, the "apply" CG's first direction —; with ``scal`` alone
+    returns ``q`` and sets ``scal[PQ] = Σ v·q``, ``scal[A] = γ/pq`` (0
+    unless pq > 0). ``io_dtype=bfloat16`` (``blocked.py:754``'s
+    ``io_dtype``): ``v`` and ``q`` bfloat16, the sums float32 and ``pq``
+    taking the rounded ``q``; the residual form then reads a float32 ``v``
+    as bfloat16 and returns the residual in bfloat16."""
     if v.device.type == "cpu":
-        return normal_apply_zy_plain(v, taps, inv_h2, rho, rhs, scal)
+        return normal_apply_zy_plain(v, taps, inv_h2, rho, rhs, scal,
+                                     io_dtype, p_dtype)
     name = "normal_apply_zy"
     if rhs is not None and scal is None:
         raise ValueError("%s: the residual form needs scal" % name)
-    dims, tv = _check(name, v, [rhs], taps, scal)
-    out = torch.empty_like(v)
+    io = B.io_flag(name, io_dtype)
+    out_dtype = B.BF16 if io else torch.float32
+    dims, tv = _check(name, v, [], taps, scal,
+                      dtype=out_dtype if rhs is None else torch.float32)
+    p_out = None
+    if rhs is not None:
+        B.check_tensors(name, v.shape, rhs, device=v.device)
+        if p_dtype is not None:
+            if B.io_flag(name, p_dtype) < io:
+                raise ValueError("%s: a bfloat16 residual takes a bfloat16 "
+                                 "direction" % name)
+            p_out = torch.empty(v.shape, dtype=p_dtype, device=v.device)
+    out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     parts = tiled_partials(v.device, dims) if scal is not None else None
     counts = build.new_counts(5)
     err = build.load().nsol_normal_apply_zy(
         build.tensor_ptr(v), build.tensor_ptr(out), build.tensor_ptr(rhs),
+        build.tensor_ptr(p_out), int(p_dtype == B.BF16),
         build.tensor_ptr(parts), build.tensor_ptr(scal),
-        build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
+        build.tensor_ptr(tv.buf), *tv.lengths, float(rho), io,
         *B.spacing3(inv_h2), *dims, build.stream_ptr(v.device), counts)
     build.check(err, name)
     normal_apply_zy.launches += counts[0]
-    return out
+    return out if p_out is None else (out, p_out)
 
 
 def cg_step_zy(r, p, scal, taps, inv_h2, rho, first=False):
@@ -294,18 +330,27 @@ def weighted_apply_zy(r, p, free, wts, scal, taps, inv_h2, rho, first=False):
     return p_new, q
 
 
-def cg_direction(p, r, scal):
-    """In place: ``p = r + β·p`` with ``β = scal[BETA]``. Elementwise: the
-    kernel takes tensors of any shape."""
+def cg_direction(p, r, scal, q=None):
+    """In place: ``p = r + β·p`` with ``β = scal[BETA]``, stored as ``p``
+    is (float32 or bfloat16; the sum in float32). With ``q`` (the "apply"
+    CG under bfloat16 state, whose :func:`~.blocked.cg_update` left ``r``
+    alone): ``r' = r − a·q`` first (``a = scal[A]``), stored in ``r``, and
+    ``p = r' + β·p`` from the unrounded ``r'``. Elementwise: the kernel
+    takes tensors of any shape."""
     if p.device.type == "cpu":
-        return cg_direction_plain(p, r, scal)
+        return cg_direction_plain(p, r, scal, q)
     name = "cg_direction"
-    B.check_tensors(name, p.shape, p, r)
+    sid = B.storage_ids(B.storage_of(r.dtype, p.dtype,
+                                     None if q is None else q.dtype))[1]
+    for t in (p, r, q):
+        if t is not None:
+            B.check_tensors(name, p.shape, t, device=p.device, dtype=t.dtype)
     B._check_consts(name, p.device, scal=scal)
     counts = build.new_counts(5)
     err = build.load().nsol_cg_direction(
-        build.tensor_ptr(p), build.tensor_ptr(r), build.tensor_ptr(scal),
-        p.numel(), build.stream_ptr(p.device), counts)
+        build.tensor_ptr(p), build.tensor_ptr(r), build.tensor_ptr(q),
+        build.tensor_ptr(scal), p.numel(), sid, build.stream_ptr(p.device),
+        counts)
     build.check(err, name)
     cg_direction.launches += counts[4]
 

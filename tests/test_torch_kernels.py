@@ -134,12 +134,20 @@ def test_fused_admm_plain_matches_pallas_16cubed(rng):
 
 def test_fused_admm_solver_rejects_tpu_only_and_unported_options():
     cov = np.eye(3)
-    for opt in ({"precision": "high3"}, {"compact_dirs": True},
+    # the MXU schedules off their defaults, and compact_dirs without high3
+    for opt in ({"precision": "DEFAULT"}, {"compact_dirs": True},
                 {"pipelined_cg": True}):
         with pytest.raises(ValueError):
             F.make_fused_admm_solver((8, 8, 8), cov, **opt)
     with pytest.raises(TypeError):
-        F.make_fused_admm_solver((8, 8, 8), cov, interpret=True)
+        F.make_fused_admm_solver((8, 8, 8), cov, io_dtype="bfloat16")
+    # the neutral arguments and the ported storage mode are accepted
+    for opt in ({"precision": "high3"}, {"interpret": True},
+                {"precision": "high3", "compact_dirs": True}):
+        F.make_fused_admm_solver((8, 8, 8), cov, **opt)
+    with pytest.raises(NotImplementedError, match="K10b"):
+        F.make_fused_admm_solver((8, 8, 8), cov, data_loss="huber",
+                                 precision="high3", compact_dirs=True)
     # record=True is ported: (x, records) with one row per iterate and x0
     b = torch.rand(8, 8, 8, dtype=torch.float64)
     x, recs = F.make_fused_admm_solver((8, 8, 8), cov, iterations=3,

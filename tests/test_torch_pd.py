@@ -338,10 +338,15 @@ def test_fused_pd_solver_rejects_bad_and_unported_options():
                  ((8, 8), "TVL2", "ALG4")):
         with pytest.raises(ValueError):
             F.make_fused_pd_denoise_solver(*args)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="K10b"):
         F.make_fused_pd_denoise_solver((8, 8), "TVL2", compact=True)
     with pytest.raises(TypeError):
-        F.make_fused_pd_denoise_solver((8, 8), "TVL2", interpret=True)
+        F.make_fused_pd_denoise_solver((8, 8), "TVL2", io_dtype="bfloat16")
+    # interpret=True (the reference's neutral argument) runs the plain
+    b = torch.rand(8, 8, dtype=torch.float64)
+    s = F.make_fused_pd_denoise_solver((8, 8), "TVL2", iterations=2,
+                                       interpret=True)
+    assert torch.equal(s(b, b, 0.1, 8.0), s.plain(b, b, 0.1, 8.0))
     solve = F.make_fused_pd_denoise_solver((8, 8), "TVL2", iterations=2)
     with pytest.raises(ValueError):
         solve(torch.zeros(8, 9), torch.zeros(8, 9), 0.1, 8.0)

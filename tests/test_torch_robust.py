@@ -309,24 +309,32 @@ def test_plain_solve_without_tv_chain_is_bit_identical(shape):
 
 def test_robust_entry_points_reject_tpu_only_and_unported_options():
     cov = np.eye(3)
-    # the MXU/VMEM schedule forms have no counterpart; the compact storage
-    # modes are a TPU kernel mode still to port (K10)
-    for opt, err, msg in (({"precision": "high3"}, ValueError, "exact f32"),
-                          ({"block": 8}, ValueError, "exact f32"),
-                          ({"compact_dirs": True}, NotImplementedError, "K10"),
+    # the MXU/VMEM schedule forms are taken at their defaults only (and a
+    # precision whose result is the exact f32 one); the compact storage
+    # modes of the robust kernels are still to port (K10b)
+    for opt, err, msg in (({"precision": "DEFAULT"}, ValueError, "exact f32"),
+                          ({"block": 8}, ValueError, "default"),
+                          ({"compact_dirs": True}, NotImplementedError,
+                           "K10b"),
                           ({"io_dtype": "bfloat16"}, NotImplementedError,
-                           "K10")):
+                           "K10b")):
         with pytest.raises(err, match=msg):
             R.make_blocked_weighted_normal_operator((8, 8, 8), cov, **opt)
         with pytest.raises(err, match=msg):
             R.make_blocked_blur_operator((8, 8, 8), cov, **opt)
-    with pytest.raises(NotImplementedError, match="K10"):
+    with pytest.raises(NotImplementedError, match="K10b"):
         R.blocked_robust_admm_solve((8, 8, 8), cov, compact_dirs=True)
     with pytest.raises(TypeError):
-        R.blocked_robust_admm_solve((8, 8, 8), cov, interpret=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        R.blocked_robust_admm_solve((8, 8, 8), cov, n_bufs=2)
+    # the neutral arguments pass; interpret=True runs the plain versions
+    b3 = torch.rand(8, 8, 8, dtype=torch.float64)
+    s = R.blocked_robust_admm_solve((8, 8, 8), cov, iterations=1,
+                                    iter_max=1, irls_cg_iters=2,
+                                    interpret=True, precision="high3")
+    assert torch.equal(s(b3, b3, 0.01, 0.5), s.plain(b3, b3, 0.01, 0.5))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         R.make_blocked_blur_operator((8, 8, 8), cov, prepadded=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
                                                 prepadded=True)
     with pytest.raises(ValueError):

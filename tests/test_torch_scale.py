@@ -273,29 +273,32 @@ def test_blocked_admm_solve_modes_and_routes():
 
 
 def test_blocked_entry_points_raise_on_unported_modes():
-    """The sweep formulation (K8) and the compact storage options (K10) are
-    TPU kernel modes still to port; the MXU schedule forms have no
-    counterpart."""
-    with pytest.raises(NotImplementedError, match="K8"):
-        B.blocked_admm_solve(WIDE, ISO, mode="sweep")
-    for opt in ({"compact_dirs": True}, {"state_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="K10"):
-            B.blocked_admm_solve(WIDE, ISO, **opt)
-    with pytest.raises(NotImplementedError, match="K10"):
-        B.make_blocked_normal_operator_2d(WIDE, ISO, io_dtype="bfloat16")
-    for opt in ({"precision": "high3"}, {"block": 8},
+    """The sweep formulation (K8) and the linear compact storage options
+    (K10) are ported; the robust ones (K10b) and the sharded per-shard
+    form (K9b) are still to port; the MXU schedule forms are taken at their
+    defaults only."""
+    assert B.blocked_admm_solve(WIDE, ISO, mode="sweep").mode == "sweep"
+    for opt, storage in (({"compact_dirs": True}, "dirs"),
+                         ({"state_dtype": "bfloat16"}, "state")):
+        assert B.blocked_admm_solve(WIDE, ISO, **opt).storage == storage
+    B.make_blocked_normal_operator_2d(WIDE, ISO, z_block=8,
+                                      io_dtype="bfloat16")
+    for opt in ({"precision": "high2"}, {"block": 8},
                 {"blur_reorder": "high2"}):
-        with pytest.raises(ValueError, match="exact f32"):
+        with pytest.raises(ValueError, match="default|exact f32"):
             B.blocked_admm_solve(WIDE, ISO, **opt)
+    for opt in ({"precision": "high3"}, {"interpret": True},
+                {"blur_reorder": "auto"}):
+        B.blocked_admm_solve(WIDE, ISO, **opt)
     with pytest.raises(TypeError):
-        B.blocked_admm_solve(WIDE, ISO, interpret=True)
+        B.blocked_admm_solve(WIDE, ISO, io_dtype="bfloat16")
     with pytest.raises(ValueError, match="mode must be"):
         B.blocked_admm_solve(WIDE, ISO, mode="fast")
     with pytest.raises(ValueError, match="3-D"):
         B.blocked_admm_solve((512, 512), np.eye(2))
-    with pytest.raises(NotImplementedError, match="K10"):
+    with pytest.raises(NotImplementedError, match="K10b"):
         R.blocked_robust_admm_solve(WIDE, ISO, compact_dirs=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         R.make_blocked_blur_operator(WIDE, ISO, prepadded=True)
 
 
@@ -393,14 +396,18 @@ def test_smem_bytes_bounds_the_tiled_units():
 
 @pytest.mark.parametrize("loss", ["linear", "huber"])
 def test_cli_sends_wide_volumes_to_the_blocked_route(tmp_path, loss):
-    """``run_deconvolution`` on a (16, 512, 16) NIfTI with ``--device
+    """``run_deconvolution`` on a NIfTI with 512-wide planes and ``--device
     cpu`` takes the blocked route (the tiled units' plain versions ran)
-    and equals the library's blocked solve on ``b / max(b)``."""
+    and equals the library's blocked solve on ``b / max(b)``. The linear
+    loss routes as the reference does (``nsol_tpu_torch.policy``): a
+    (16, 512, 130) volume, past the fused solve's 16 volumes in 64 MiB;
+    the robust one at (16, 512, 16)."""
     from nsol_tpu_torch.cli import run_deconvolution
     from nsol_tpu_torch.io import read_nifti, write_nifti
 
+    shape = (16, 512, 130) if loss == "linear" else WIDE
     obs, out = str(tmp_path / "b.nii.gz"), str(tmp_path / "x.nii.gz")
-    write_nifti(200.0 * _blurred(11, WIDE), obs, spacing=np.ones(3))
+    write_nifti(200.0 * _blurred(11, shape), obs, spacing=np.ones(3))
     F.reset_counts()
     rc = run_deconvolution.main([
         "--observation", obs, "--result", out, "--solver", "ADMM",
@@ -417,7 +424,7 @@ def test_cli_sends_wide_volumes_to_the_blocked_route(tmp_path, loss):
     b = read_nifti(obs).data.astype(np.float64)
     bs = _t(b / b.max())
     if loss == "linear":
-        lib = B.blocked_admm_solve(WIDE, ISO, iterations=2, iter_max=2)(
+        lib = B.blocked_admm_solve(shape, ISO, iterations=2, iter_max=2)(
             bs, bs, 0.01, 0.5)
     else:
         lib = R.blocked_robust_admm_solve(
