@@ -49,6 +49,19 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   ``NSOL_TPU_COMPACT=1`` on a 64³ and a (64, 512, 512) NIfTI against the
   library solves ``nsol_tpu_torch.policy`` names.
 
+* phases 26-28, the sharded path (group ``sharded``,
+  ``nsol_tpu_torch.parallel``): the three prepadded window units of
+  ``csrc/admm.cu`` / ``csrc/robust.cu`` against their plain versions on
+  the tile-edge shapes, 4 slabs of one 256³ volume assembled against the
+  whole-volume units (the global boundary rows), their 512³ times beside
+  the whole-volume units; on a real NCCL process group of world size 1,
+  ``sharded_tv_admm_solve`` at 512³ (linear 50 × 10 within 0.2 % of
+  165421.8 and 1e-4 of ``blocked_admm_solve``; huber 5 × 5 × 8 within 1e-4
+  of ``blocked_robust_admm_solve``) and ``sharded_tv_denoise_solve`` on the
+  256³ PD volume; the process-local contract, bit for bit. One card holds
+  one rank (NCCL refuses two ranks on one GPU): the multi-rank runs are the
+  gloo tests on the CPU.
+
 The CLI runs of phases 6, 18 and 22 hold ``run_deconvolution``'s default
 on the card — the reference's compact storage — to the compact library
 solve.
@@ -198,15 +211,22 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1):
+def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1, ext=1.0, reads=None):
     """Bound of one call of the kernel unit ``name`` on ``n`` voxels (a
     batch of ``batch`` images for the PD units): each input volume read
     once, each output volume written once, 4 bytes a voxel; operations
     from the taps (``taps``: per-axis stencil lengths of its blur chain;
-    2 per tap, ~15 for the Laplacian, ~10 for an elementwise update).
+    2 per tap, ~15 for the Laplacian, ~10 for an elementwise update). A
+    window unit's blur chain runs over ``ext`` times its ``n`` output
+    voxels (the halo planes), and it reads ``reads`` volumes of ``n``
+    voxels from its inputs (:func:`window_reads`; default ``ext``).
     Returns ``(bound_ms, bound_by)``."""
     chain = 2 * sum(taps)
+    reads = ext if reads is None else reads
     vols, ops = {
+        "normal_apply_prepadded": (reads + 1, chain * ext + 15),  # v_ext; q
+        "blur_apply_prepadded": (reads + 1, chain * ext + 20),  # y u; out
+        "weighted_apply_prepadded": (reads + 1, 2 * chain * ext + 25),
         "normal_apply": (2, chain + 15),        # v in, q out
         "cg_step": (4, chain + 17),             # r p in, p' q out
         "cg_update": (6, 8),                    # x r p q in, x r out
@@ -1236,6 +1256,34 @@ def device_busy_ms(fn):
             total += t
             ops += e.count
     return (total / 1e3, ops) if total > 0 else (None, 0)
+
+
+def device_breakdown(fn, groups):
+    """``(wall ms, device ms, {group: device ms})`` of one call of ``fn``
+    from a ``torch.profiler`` trace: each device kernel's time goes to the
+    first group of ``groups`` (``(name, substrings)`` pairs) one of whose
+    substrings its name holds, else to ``"other"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = {name: 0.0 for name, _ in groups}
+    by["other"] = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t <= 0 or e.key.startswith("aten::"):
+            continue
+        group = next((name for name, keys in groups
+                      if any(k in e.key for k in keys)), "other")
+        by[group] += t / 1e3
+    return wall, sum(by.values()), by
 
 
 def sweep_timing(fn, label, card):
@@ -2903,6 +2951,369 @@ def compact_bound(name, shape):
     return bound(float(n) * bpv, float(n) * (2 * 3 * taps + 20))
 
 
+# ------------------------------------------------------- phases 26-28 --
+
+#: the 256³ volume cut into 4 slabs (row0 = 64 k) for the global rows
+SLAB_SHAPE, SLABS = (256, 256, 256), 4
+#: (label, unit, with the blur's Laplacian term): every form in which the
+#: sharded solves call the window units
+WINDOW_FORMS = (("normal_apply_prepadded", "normal_apply_prepadded", True),
+                ("blur_apply_prepadded", "blur_apply_prepadded", True),
+                ("blur_apply_prepadded (A y)", "blur_apply_prepadded", False),
+                ("weighted_apply_prepadded", "weighted_apply_prepadded",
+                 True))
+
+
+def window_halo(B, R, name, st):
+    """The z halo of the window unit ``name`` with stencils ``st``."""
+    return {"normal_apply_prepadded": lambda: B.prepadded_halo(st.normal),
+            "blur_apply_prepadded": lambda: R.blur_halo(st.blur),
+            "weighted_apply_prepadded": lambda: R.weighted_halo(st.blur)}[
+                name]()
+
+
+def window_reads(B, R, name, st, zl, lap=True):
+    """The volumes of ``zl`` planes that the window unit ``name`` reads
+    from its inputs: all of ``v_ext`` / ``y_ext``; the blur's ``u_ext``
+    only on the Laplacian's centre ±1 planes (none without ``lap``); the
+    weighted apply's ``w_ext`` only on the ``zl + 2·r_a`` rows of its
+    first blur."""
+    reads = (zl + 2.0 * window_halo(B, R, name, st)) / zl
+    if name == "blur_apply_prepadded" and lap:
+        reads += (zl + 2.0) / zl
+    if name == "weighted_apply_prepadded":
+        reads += (zl + 2.0 * (st.blur.lengths[0] // 2)) / zl
+    return reads
+
+
+def wrap_slab(v, row0, zl, h):
+    """Planes ``row0 − h .. row0 + zl + h − 1`` of ``v``, wrapped."""
+    import torch
+
+    idx = torch.arange(row0 - h, row0 + zl + h, device=v.device) % v.shape[0]
+    return v.index_select(0, idx).contiguous()
+
+
+def window_calls(B, R, st, name, v_ext, w_ext, row0, z_total, lap=True):
+    """(kernel, plain) closures of the window unit ``name`` on ``v_ext``
+    (and ``w_ext``), in a form of its main path: the blur's with its
+    Laplacian term (the IRLS gradient), or without it for ``lap=False``
+    (the residual ``A x``)."""
+    h2 = st.inv_h2
+    if name == "normal_apply_prepadded":
+        args = (v_ext, st.normal, h2, RHO, row0, z_total)
+        return (lambda: B.normal_apply_prepadded(*args),
+                lambda: B.normal_apply_prepadded_plain(*args))
+    if name == "blur_apply_prepadded":
+        args = (v_ext, st.blur, h2, row0, z_total) + (
+            (w_ext, RHO) if lap else ())
+        return (lambda: R.blur_apply_prepadded(*args),
+                lambda: R.blur_apply_prepadded_plain(*args))
+    args = (v_ext, w_ext, st.blur, h2, RHO, row0, z_total)
+    return (lambda: R.weighted_apply_prepadded(*args),
+            lambda: R.weighted_apply_prepadded_plain(*args))
+
+
+def whole_call(B, R, st, name, v, w):
+    """The whole-volume (wrap) unit beside window unit ``name``."""
+    if name == "normal_apply_prepadded":
+        return lambda: B.normal_apply(v, st.normal, st.inv_h2, RHO)
+    if name == "blur_apply_prepadded":
+        return lambda: R.blur_apply(v, st.blur, st.inv_h2, w, RHO)
+    return lambda: R.weighted_apply(v, None, None, w, B.new_scalars(v.device),
+                                    st.blur, st.inv_h2, RHO, first=True)[1]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_sharded_phases(device, card):
+    """Phases 26-28: the sharded path (``nsol_tpu_torch.parallel``) on a
+    process group of world size 1. Returns each window unit's launches on
+    its 512³ solve, its max |Δ| against its plain version at 512³ over the
+    forms the solves call, (kernel ms, plain ms) per call there, its taps,
+    its halo'd/output plane ratio and the volumes it reads there."""
+    import torch
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_nifti
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import prox
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import (make_space_mesh,
+                                         sharded_tv_admm_solve,
+                                         sharded_tv_denoise_solve)
+    from nsol_tpu_torch.solvers.primal_dual import primal_dual_solve
+
+    def rand(shape, rng, lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    # phase 26: the window units against their plain versions on the
+    # tile-edge shapes as local slabs (row0 on the first, a middle and the
+    # last of 3), ...
+    rng = np.random.RandomState(26)
+    for label, cov, sp, shape in EDGE_CASES + (
+            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        rels = {}
+        for form, name, with_lap in WINDOW_FORMS:
+            h = window_halo(B, R, name, st)
+            ext = (shape[0] + 2 * h,) + shape[1:]
+            v, w = rand(ext, rng), rand(ext, rng, 0.1)
+            for row0 in (0, shape[0], 2 * shape[0]):
+                kf, pf = window_calls(B, R, st, name, v, w, row0,
+                                      3 * shape[0], with_lap)
+                got, ref = kf(), pf()
+                torch.cuda.synchronize()
+                rels[form] = max(rels.get(form, 0.0), max_rel(got, ref))
+        for k, rel in rels.items():
+            require(rel <= KERNEL_TOL, "phase 26: %s %s %s rel %.3g > %g"
+                    % (k, label, shape, rel, KERNEL_TOL))
+        print("phase 26 window units %s %s: %s" % (
+            label, "x".join(map(str, shape)),
+            ", ".join("%s %.2e" % kv for kv in rels.items())))
+    # ... 4 slabs of one 256³ volume assembled against the whole-volume
+    # units (the global boundary rows land on the first and last slab) ...
+    iso = np.diag([SIGMA ** 2] * 3)
+    st = B.Stencils.from_cov(iso, 3, None, device)
+    v, w = rand(SLAB_SHAPE, rng), rand(SLAB_SHAPE, rng, 0.1)
+    zl = SLAB_SHAPE[0] // SLABS
+    slab_rel = {}
+    for name in F.SHARDED_UNITS:
+        h = window_halo(B, R, name, st)
+        outs = []
+        for k in range(SLABS):
+            kf, _ = window_calls(B, R, st, name, wrap_slab(v, k * zl, zl, h),
+                                 wrap_slab(w, k * zl, zl, h), k * zl,
+                                 SLAB_SHAPE[0])
+            outs.append(kf())
+        whole = whole_call(B, R, st, name, v, w)()
+        torch.cuda.synchronize()
+        slab_rel[name] = max_rel(torch.cat(outs), whole)
+        require(slab_rel[name] <= KERNEL_TOL, "phase 26: %s, %d slabs of "
+                "256^3 vs the whole volume rel %.3g" % (name, SLABS,
+                                                        slab_rel[name]))
+    # the blur without its Laplacian term: the residual's form
+    h = window_halo(B, R, "blur_apply_prepadded", st)
+    outs = [R.blur_apply_prepadded(wrap_slab(v, k * zl, zl, h), st.blur,
+                                   st.inv_h2, k * zl, SLAB_SHAPE[0])
+            for k in range(SLABS)]
+    slab_rel["blur_apply_prepadded (A y)"] = max_rel(
+        torch.cat(outs), R.blur_apply(v, st.blur, st.inv_h2))
+    require(slab_rel["blur_apply_prepadded (A y)"] <= KERNEL_TOL,
+            "phase 26: the window blur's slabs vs the whole volume")
+    del v, w, outs, whole
+    print("phase 26 %d slabs of 256^3 (row0 = 64 k) vs the whole-volume "
+          "units: %s" % (SLABS, ", ".join("%s %.2e" % kv
+                                           for kv in slab_rel.items())))
+    # ... and per call at 512³ (one rank: Zl = 512) beside the whole-volume
+    # units, in every form the solves call
+    times, err, ext_ratio, reads, form_ms = {}, {}, {}, {}, {}
+    for label, name, with_lap in WINDOW_FORMS:
+        h = window_halo(B, R, name, st)
+        ext = (BIG[0] + 2 * h,) + BIG[1:]
+        v, w = rand(ext, rng), rand(ext, rng, 0.1)
+        kf, pf = window_calls(B, R, st, name, v, w, 0, BIG[0], with_lap)
+        got, ref = kf(), pf()
+        require(max_rel(got, ref) <= KERNEL_TOL,
+                "phase 26: %s at 512^3 deviates" % label)
+        err[name] = max(err.get(name, 0.0), float((got - ref).abs().max()))
+        del got, ref
+        form_ms[label] = (cuda_median_ms(kf, 5), window_reads(
+            B, R, name, st, BIG[0], with_lap))
+        if with_lap:  # the kernels line carries each unit's main form
+            vc = v[h:h + BIG[0]].contiguous()
+            wc = w[h:h + BIG[0]].contiguous()
+            ext_ratio[name], reads[name] = ext[0] / BIG[0], form_ms[label][1]
+            times[name] = (form_ms[label][0], cuda_median_ms(pf, 2), None,
+                           cuda_median_ms(whole_call(B, R, st, name, vc, wc),
+                                          5))
+            del vc, wc
+        del v, w, kf, pf
+        torch.cuda.empty_cache()
+    taps = {"normal_apply_prepadded": st.normal.lengths,
+            "blur_apply_prepadded": st.blur.lengths,
+            "weighted_apply_prepadded": st.blur.lengths}
+    print("phase 26 512^3 per call (window / plain / whole-volume unit ms, "
+          "bound ms): %s; the blur without its Laplacian term (A y) %.3f "
+          "ms, bound %.4f ms [%s]" % (", ".join(
+              "%s %.3f/%.1f/%.3f, %.4f" % (
+                  k, t[0], t[1], t[3],
+                  unit_bound(k, int(np.prod(BIG)), taps[k],
+                             ext=ext_ratio[k], reads=reads[k])[0])
+              for k, t in times.items()),
+              form_ms["blur_apply_prepadded (A y)"][0],
+              unit_bound("blur_apply_prepadded", int(np.prod(BIG)),
+                         taps["blur_apply_prepadded"],
+                         ext=ext_ratio["blur_apply_prepadded"],
+                         reads=form_ms["blur_apply_prepadded (A y)"][1])[0],
+              card))
+    lap("phase 26")
+
+    # phase 27: the solves on a real NCCL group of world size 1
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    try:
+        mesh = make_space_mesh()
+        require(mesh.group is not None and mesh.size == 1
+                and mesh.device == device and
+                torch.distributed.get_backend() == "nccl",
+                "phase 27: mesh %r, backend %s" % (
+                    mesh, torch.distributed.get_backend()))
+        b, iso, A64 = scale_problem(device, robust=False)
+        F.reset_counts()
+        x_s, ms_s = timed_once(lambda: sharded_tv_admm_solve(
+            mesh, iso, b, b, ALPHA, RHO, iterations=ITERATIONS,
+            iter_max=ITER_MAX))
+        lin = F.launch_counts(F.SHARDED_UNITS)
+        plain = F.plain_counts()
+        require(lin["normal_apply_prepadded"] == ITERATIONS * (ITER_MAX + 1)
+                and all(n == 0 for n in plain.values()),
+                "phase 27: launches %s, plain calls %s" % (lin, plain))
+        require(bool(torch.isfinite(x_s).all()) and x_s.shape == b.shape,
+                "phase 27: sharded result not finite or misshapen")
+        obj_s = objective_device(x_s, b, A64, ALPHA)
+        dev = abs(obj_s - BIG_ANCHOR) / BIG_ANCHOR
+        require(dev <= ANCHOR_BAND, "phase 27: sharded objective %.2f "
+                "deviates %.4f%% from %.1f" % (obj_s, 100 * dev, BIG_ANCHOR))
+        del x_s
+        x_b, ms_b = timed_once(lambda: B.blocked_admm_solve(
+            BIG, iso, iterations=ITERATIONS, iter_max=ITER_MAX)(
+                b, b, ALPHA, RHO))
+        obj_b = objective_device(x_b, b, A64, ALPHA)
+        lin_rel = abs(obj_s - obj_b) / abs(obj_b)
+        require(lin_rel <= SOLVE_OBJ_TOL, "phase 27: sharded %.4f vs "
+                "blocked_admm_solve %.4f" % (obj_s, obj_b))
+        del x_b
+        # where the sharded solve's time goes, over 5 outer iterations
+        wall, busy, by = device_breakdown(
+            lambda: sharded_tv_admm_solve(mesh, iso, b, b, ALPHA, RHO,
+                                          iterations=5, iter_max=ITER_MAX),
+            (("window unit passes", ("conv_x_pass", "conv_y_kernel",
+                                     "conv_z_pass")),
+             ("nccl", ("nccl",)), ("halo cat", ("CatArray",)),
+             ("dots", ("reduce_kernel",))))
+        require(busy > 0, "phase 27: the profiler trace holds no device time")
+        print("phase 27 linear 512^3 5x%d sharded, torch.profiler: wall "
+              "%.1f ms, device %.1f ms (busy %.1f %%); %s [%s]" % (
+                  ITER_MAX, wall, busy, 100 * busy / wall, ", ".join(
+                      "%s %.1f ms (%.1f %%)" % (k, v, 100 * v / busy)
+                      for k, v in by.items()), card))
+        del b
+        torch.cuda.empty_cache()
+        print("phase 27 linear 512^3 %dx%d on NCCL world 1: objective "
+              "sharded %.3f, blocked_admm_solve %.3f (rel %.2e; anchor %.1f, "
+              "dev %.4f%%); sharded %.1f ms a solve, blocked %.1f ms; "
+              "launches %s [%s]" % (ITERATIONS, ITER_MAX, obj_s, obj_b,
+                                    lin_rel, BIG_ANCHOR, 100 * dev, ms_s,
+                                    ms_b, lin, card))
+        its, sweeps, cgi = BIG_ROBUST_ITERS
+        b, iso, A64 = scale_problem(device, robust=True)
+        # x0 = max(b, 0): the sharded solve clips x0 on entry as the
+        # reference's tikhonov_solve does, the C solve does not (ROADMAP
+        # Queue 3, "Entry clip"); the outliers make b negative in places
+        x0 = torch.clamp(b, min=0.0)
+        F.reset_counts()
+        x_s, ms_rs = timed_once(lambda: sharded_tv_admm_solve(
+            mesh, iso, b, x0, ALPHA, RHO, iterations=its, iter_max=sweeps,
+            data_loss="huber"))
+        rob = F.launch_counts(F.SHARDED_UNITS)
+        plain = F.plain_counts()
+        require(rob["blur_apply_prepadded"] == 2 * its * sweeps
+                and rob["weighted_apply_prepadded"] == its * sweeps
+                * (cgi + 1) and all(n == 0 for n in plain.values()),
+                "phase 27: robust launches %s, plain calls %s"
+                % (rob, plain))
+        ob_s = robust_objective(x_s, b, A64, ALPHA)
+        del x_s
+        x_t, ms_rt = timed_once(lambda: R.blocked_robust_admm_solve(
+            BIG, iso, iterations=its, iter_max=sweeps, irls_cg_iters=cgi)(
+                b, x0, ALPHA, RHO))
+        ob_t = robust_objective(x_t, b, A64, ALPHA)
+        rob_rel = abs(ob_s - ob_t) / abs(ob_t)
+        require(rob_rel <= SOLVE_OBJ_TOL, "phase 27: sharded huber %.4f vs "
+                "blocked_robust_admm_solve %.4f" % (ob_s, ob_t))
+        del x_t, b, x0
+        torch.cuda.empty_cache()
+        print("phase 27 robust 512^3 huber %dx%dx%d: objective sharded "
+              "%.4f, blocked_robust_admm_solve %.4f (rel %.2e); sharded "
+              "%.1f ms a solve, blocked %.1f ms; launches %s [%s]"
+              % (its, sweeps, cgi, ob_s, ob_t, rob_rel, ms_rs, ms_rt, rob,
+                 card))
+        # the sharded denoising solve on phase 10b's 256³ volume against
+        # the whole-volume primal-dual solve and the fused CUDA solve
+        phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")) \
+            .data.astype(np.float64)
+        big = np.repeat(np.repeat(np.repeat(phantom, 4, 0), 4, 1), 4, 2)
+        big = big + np.random.RandomState(1).normal(
+            0, 0.05 * phantom.max(), big.shape)
+        bb = torch.as_tensor((big / big.max()).astype(np.float32),
+                             device=device)
+        del big
+        x_d, ms_d = timed_once(lambda: sharded_tv_denoise_solve(
+            mesh, bb, PD_ALPHA, iterations=ITERATIONS, L2=PD_L2))
+        x_w, _ = primal_dual_solve(
+            lambda x, tau: prox.prox_ell2_denoising(x, tau, bb),
+            prox.prox_tv_conj, G.gradient, G.gradient_adjoint, bb, PD_ALPHA,
+            PD_L2, iterations=ITERATIONS)
+        x_f = F.make_fused_pd_denoise_solver(bb.shape, "TVL2", "ALG2",
+                                             ITERATIONS)(bb, bb, PD_ALPHA,
+                                                         PD_L2)
+        o_d, o_w, o_f = (pd_objective(x, bb, PD_ALPHA, False)
+                         for x in (x_d, x_w, x_f))
+        pd_rel = (abs(o_d - o_w) / abs(o_w), abs(o_d - o_f) / abs(o_f))
+        require(bool(torch.isfinite(x_d).all()) and pd_rel[0] <= PD_OBJ_TOL
+                and pd_rel[1] <= 1e-5, "phase 27: sharded denoise %.6f vs "
+                "whole-volume %.6f, fused %.6f" % (o_d, o_w, o_f))
+        del x_d, x_w, x_f, bb
+        print("phase 27 denoise 256^3 TVL2/ALG2 %d: objective sharded %.4f, "
+              "whole-volume primal_dual_solve %.4f (rel %.2e), fused %.4f "
+              "(rel %.2e); sharded %.1f ms [%s]" % (
+                  ITERATIONS, o_d, o_w, pd_rel[0], o_f, pd_rel[1], ms_d,
+                  card))
+        lap("phase 27")
+
+        # phase 28: the process-local contract at world 1
+        shape = (128, 128, 128)
+        rs = np.random.RandomState(28)
+        from nsol_tpu_torch.ops import conv as C
+
+        A32, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
+        b_np = A32(torch.as_tensor(rs.rand(*shape) > 0.7).float()).numpy()
+        lo, hi = dist.process_local_slice(shape, mesh)
+        require((lo, hi) == (0, shape[0]), "phase 28: rows %d..%d" % (lo, hi))
+        kw = dict(iterations=10, iter_max=ITER_MAX)
+        x_pl = dist.process_local_data(sharded_tv_admm_solve(
+            mesh, iso, b_np[lo:hi], b_np[lo:hi].copy(), ALPHA, RHO,
+            process_local=True, **kw))
+        x_full = sharded_tv_admm_solve(mesh, iso, b_np, b_np.copy(), ALPHA,
+                                       RHO, **kw).cpu().numpy()
+        require(x_pl.dtype == np.float32 and np.array_equal(x_pl, x_full),
+                "phase 28: process-local rows differ from the full-volume "
+                "solve (max |d| %.3g)" % float(np.max(np.abs(x_pl - x_full))))
+        print("phase 28 process-local contract at world 1, 128^3 10x10: "
+              "rows %d..%d, process_local=True equals the full-volume solve "
+              "bit for bit" % (lo, hi))
+        lap("phase 28")
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"launches": dict(lin, **{k: rob[k] for k in
+                                     ("blur_apply_prepadded",
+                                      "weighted_apply_prepadded")}),
+            "err": err,
+            "times": {k: (t[0], t[1], t[2]) for k, t in times.items()},
+            "taps": taps, "ext": ext_ratio, "reads": reads}
+
+
 # ------------------------------------------------------------------ main --
 
 def run_admm_phases(device, card):
@@ -3060,7 +3471,7 @@ def run_admm_phases(device, card):
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
-          "scale", "compact")
+          "scale", "compact", "sharded")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -3089,20 +3500,30 @@ SOURCES = {
         # the "apply" CG's p = r + β·p, which the JAX package leaves to XLA
         # (blocked.py:1537-1540): no TPU kernel
         "cg_direction": None}),
+    "sharded": ("nsol_tpu_torch/csrc/admm.cu", {
+        "normal_apply_prepadded": "nsol_tpu/ops/pallas/blocked.py:478"}),
+    "sharded_robust": ("nsol_tpu_torch/csrc/robust.cu", {
+        "blur_apply_prepadded": "nsol_tpu/ops/pallas/robust.py:161",
+        "weighted_apply_prepadded": "nsol_tpu/ops/pallas/robust.py:264"}),
 }
 
 
-def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1):
+def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1,
+                   ext=None, reads=None):
     """The ``kernels`` records of one group's units: launches on its main
     path, max |Δ| against the plain version, kernel / plain / library ms
     per call at ``n`` voxels (× ``batch`` images), and the bound there
-    (``taps``: the chain's stencil lengths, or a dict of them by unit)."""
+    (``taps``: the chain's stencil lengths, or a dict of them by unit;
+    ``ext``: a window unit's halo'd/output plane ratio, ``reads``: the
+    volumes it reads, by unit; see :func:`unit_bound`)."""
     source, replaces = SOURCES[group]
     out = []
     for name, tpu in replaces.items():
         t = times[name]
         b_ms, b_by = unit_bound(name, n, taps[name] if isinstance(taps, dict)
-                                else taps, nd, batch)
+                                else taps, nd, batch,
+                                (ext or {}).get(name, 1.0),
+                                (reads or {}).get(name))
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": tpu, "launches": int(launches[name]),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
@@ -3203,6 +3624,14 @@ def main(argv=None):
                                   TILED_TAPS)
     if "compact" in groups:
         kernels += run_compact_phases(device, card)
+    if "sharded" in groups:
+        sh = run_sharded_phases(device, card)
+        lap("phases 26-28")
+        for group in ("sharded", "sharded_robust"):
+            kernels += kernel_entries(group, sh["launches"], sh["err"],
+                                      sh["times"], int(np.prod(BIG)),
+                                      sh["taps"], ext=sh["ext"],
+                                      reads=sh["reads"])
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

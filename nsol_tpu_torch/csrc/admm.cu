@@ -4,6 +4,8 @@
 //   nsol_tpu/ops/pallas/blocked.py::make_blocked_normal_operator  (:402)
 //   nsol_tpu/ops/pallas/blocked.py::make_blocked_cg_step          (:988)
 //   nsol_tpu/ops/pallas/blocked.py::make_blocked_cg_sweep         (:1139)
+//   nsol_tpu/ops/pallas/blocked.py::make_blocked_normal_operator_prepadded
+//                                                                  (:478)
 //   nsol_tpu/ops/pallas/fused.py::make_fused_admm_solver          (:382, linear;
 //                                                                  record=True,
 //                                                                  compact_dirs)
@@ -12,7 +14,7 @@
 // Volumes are (Z, Y, X) float32, X contiguous; a 2-D image runs as a
 // (1, Y, X) volume with z taps [1], 1/h_z = 1/h_z^2 = 0, so every z term
 // (the Laplacian's, the z gradient, its shrink and its divergence) is an
-// exact zero. Six kernel units, each a short sequence of launches on the
+// exact zero. Seven kernel units, each a short sequence of launches on the
 // caller's stream:
 //
 //   normal_apply  q = N_z N_y N_x v + rho * B^T B v (self-correlated
@@ -37,6 +39,18 @@
 //                 |r'|^2; the z pass forms q' = M p' over q and sums p'.q',
 //                 r'.q', q'.q'; a one-block stage runs the scalar
 //                 recurrence a = g/pq, beta = max(g - 2a rq + a^2 qq, 0)/g.
+//   normal_apply_prepadded
+//                 normal_apply on a z-window of a sharded volume
+//                 (blocked.py::make_blocked_normal_operator_prepadded, :478):
+//                 v_ext holds the Zl local planes with r halo planes on each
+//                 side (r >= 1, at least the normal taps' half-width, put
+//                 there by the ring halo exchange), q the Zl planes. The x
+//                 and y passes run on all Zl + 2r planes, the z pass reads
+//                 them with no wrap, and the Laplacian takes its z
+//                 neighbours from the halo rows, with the zero-boundary rows
+//                 only at global rows 0 and z_total - 1 (row0 the window's
+//                 first global row). Bytes bound it as normal_apply; the
+//                 window costs 2r / Zl more planes on two of the passes.
 //   admm_record   the L-curve records of one iterate (fused.py:624-638):
 //                 Reg = sum sqrt(sum_ax (D_ax x / h_ax)^2) and
 //                 Data = 1/2 sum rho_C(r^2), r = A x - b (one blur chain
@@ -81,7 +95,8 @@ enum Unit {
   kCgUpdate = 2,
   kAdmmTail = 3,
   kAdmmRecord = 4,
-  kCgSweep = 5
+  kCgSweep = 5,
+  kNormalApplyPre = 6
 };
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
@@ -294,6 +309,18 @@ cudaError_t normal_apply(const void* v, void* out, float* t1, float* t2, const f
                                      s);
 }
 
+// q = A^T A v + rho D^T D v on a z-window: v_ext holds Zl + 2 r planes,
+// q the Zl centre ones; global rows start at row0 of z_total.
+cudaError_t normal_apply_prepadded(const float* v_ext, float* out, float* t1, float* t2, Taps tp,
+                                   float rho, int r, int row0, int z_total, Spacing sp, Dims d,
+                                   cudaStream_t s) {
+  const Load centre{v_ext + (long long)r * d.plane()};
+  const NormalEpi<kRegLap> epi{centre, nullptr, out, rho, sp, kPlain};
+  blur_chain_slab(Load{v_ext}, GlobalRows<NormalEpi<kRegLap>>{epi, row0, z_total}, nullptr, t1,
+                  t2, tp, d, r, s);
+  return cudaGetLastError();
+}
+
 // p' = r + beta p stored as P (pq taken from the rounded p' and the float
 // q), q = M p' stored as Q; r read as R.
 template <class R, class P, class Q>
@@ -494,6 +521,19 @@ int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const floa
   cudaError_t e = normal_apply(v, out, t1, t2, rhs, partials, scal, make_taps(taps, kz, ky, kx),
                                rho, reg, io, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
   counts[kNormalApply] += 1;
+  return (int)e;
+}
+
+// v_ext: (Zl + 2 halo, Y, X); out: (Zl, Y, X); t1, t2: Zl + 2 halo planes.
+int nsol_normal_apply_prepadded(const float* v_ext, float* out, float* t1, float* t2,
+                                const float* taps, int kz, int ky, int kx, float rho, float ih2x,
+                                float ih2y, float ih2z, int halo, int row0, int z_total, int Zl,
+                                int Y, int X, void* stream, long long* counts) {
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  cudaError_t e = normal_apply_prepadded(v_ext, out, t1, t2, make_taps(taps, kz, ky, kx), rho,
+                                         halo, row0, z_total, sp, Dims{Zl, Y, X},
+                                         (cudaStream_t)stream);
+  counts[kNormalApplyPre] += 1;
   return (int)e;
 }
 

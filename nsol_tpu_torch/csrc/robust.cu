@@ -26,6 +26,21 @@
 //                   s = wts A pf, q = free (A s + rho B^T B pf) + (p' - pf),
 //                   partial sums of p'.q; second stage a = gamma / pq.
 //   irls_step       x = max(x + xk, 0).
+// and two per-shard units of the sharded path, the prepadded=True forms of
+// the two TPU kernels above (robust.py:184,240-257 and :286-401), on a
+// z-window whose halo planes the ring halo exchange has attached:
+//   blur_apply_prepadded      out = A y (+ rho D^T D u) on the Zl centre
+//                   planes of y_ext, u_ext (halo h = max(r_a, 1), r_a the
+//                   blur taps' half-width); the Laplacian's z neighbours
+//                   come from the halo rows, its zero-boundary rows only at
+//                   global rows 0 and z_total - 1.
+//   weighted_apply_prepadded  out = A (w * A v) + rho D^T D v on the centre
+//                   of v_ext, w_ext (halo r = max(2 r_a, 1)): the first
+//                   chain gives A v on the Zl + 2 r_a rows the second one
+//                   needs, w is read there, the second chain and the
+//                   Laplacian give the Zl centre rows.
+// Both run stencil.cuh's window chain (x and y passes on every plane of the
+// window, a z pass with no wrap) and GlobalRows.
 // Between applies the masked CG runs stencil.cuh's cg_update (admm.cu's
 // unit): xk += a p', rk -= a q, gamma' = |rk|^2, beta. The sweep is a
 // template: its tiled instance (nsol_robust_admm_solve_zy, the 512-wide-
@@ -50,7 +65,15 @@
 namespace {
 
 // Kernel units, the indices of the launch counts handed back to Python.
-enum Unit { kBlurApply = 0, kIrlsHead = 1, kWeightedApply = 2, kIrlsStep = 3, kCgUpdate = 4 };
+enum Unit {
+  kBlurApply = 0,
+  kIrlsHead = 1,
+  kWeightedApply = 2,
+  kIrlsStep = 3,
+  kCgUpdate = 4,
+  kBlurApplyPre = 5,
+  kWeightedApplyPre = 6
+};
 // irls_head's z epilogue: r = A x - b, wts = rho'_C(r^2), y = wts r.
 struct WeightsEpi {
   const float* b;
@@ -182,6 +205,36 @@ cudaError_t weighted_apply(const float* r, const float* p, float* p_new, float* 
   return cudaGetLastError();
 }
 
+// out = A y (+ rho D^T D u, u_ext given) on a z-window: y_ext, u_ext hold
+// Zl + 2 h planes, out the Zl centre ones; global rows start at row0.
+cudaError_t blur_apply_prepadded(const float* y_ext, const float* u_ext, float* out, float* t1,
+                                 float* t2, Taps tp, float rho, int h, int row0, int z_total,
+                                 Spacing sp, Dims d, cudaStream_t s) {
+  const float* u = u_ext != nullptr ? u_ext + (long long)h * d.plane() : nullptr;
+  const BlurEpi<kRegLap> epi{u, out, nullptr, nullptr, rho, sp};
+  blur_chain_slab(Load{y_ext}, GlobalRows<BlurEpi<kRegLap>>{epi, row0, z_total}, nullptr, t1,
+                  t2, tp, d, h, s);
+  return cudaGetLastError();
+}
+
+// out = A (w * A v) + rho D^T D v on a z-window of halo r >= r_a (r_a the
+// blur taps' half-width): x(v_ext) -> t1 -> t2 -> s = w * A v on the
+// Zl + 2 r_a rows in t1; then x(s) -> t2 -> t1 -> out with the Laplacian
+// of v's centre.
+cudaError_t weighted_apply_prepadded(const float* v_ext, const float* w_ext, float* out,
+                                     float* t1, float* t2, Taps tp, float rho, int r, int row0,
+                                     int z_total, Spacing sp, Dims d, cudaStream_t s) {
+  const int ra = tp.kz / 2;
+  const long long plane = d.plane();
+  const Dims mid{d.Z + 2 * ra, d.Y, d.X};
+  blur_chain_slab(Load{v_ext}, ScaleEpi{w_ext + (long long)(r - ra) * plane, t1}, nullptr, t1,
+                  t2, tp, mid, r - ra, s);
+  const BlurEpi<kRegLap> epi{v_ext + (long long)r * plane, out, nullptr, nullptr, rho, sp};
+  blur_chain_slab(Load{t1}, GlobalRows<BlurEpi<kRegLap>>{epi, row0, z_total}, nullptr, t2, t1,
+                  tp, d, ra, s);
+  return cudaGetLastError();
+}
+
 cudaError_t irls_step(float* x, const float* xk, long long n, cudaStream_t s) {
   irls_step_kernel<<<grid_for(n), kThreads, 0, s>>>(x, xk, n);
   return cudaGetLastError();
@@ -240,6 +293,36 @@ int nsol_weighted_apply(const float* r, const float* p, float* p_new, float* q,
 int nsol_irls_step(float* x, const float* xk, long long n, void* stream, long long* counts) {
   cudaError_t e = irls_step(x, xk, n, (cudaStream_t)stream);
   counts[kIrlsStep] += 1;
+  return (int)e;
+}
+
+// y_ext, u_ext (u_ext may be null): (Zl + 2 halo, Y, X); out: (Zl, Y, X);
+// t1, t2: Zl + 2 halo planes.
+int nsol_blur_apply_prepadded(const float* y_ext, const float* u_ext, float* out, float* t1,
+                              float* t2, const float* taps, int kz, int ky, int kx, float rho,
+                              float ih2x, float ih2y, float ih2z, int halo, int row0,
+                              int z_total, int Zl, int Y, int X, void* stream,
+                              long long* counts) {
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  cudaError_t e = blur_apply_prepadded(y_ext, u_ext, out, t1, t2, make_taps(taps, kz, ky, kx),
+                                       rho, halo, row0, z_total, sp, Dims{Zl, Y, X},
+                                       (cudaStream_t)stream);
+  counts[kBlurApplyPre] += 1;
+  return (int)e;
+}
+
+// v_ext, w_ext: (Zl + 2 halo, Y, X) with halo >= kz / 2; out: (Zl, Y, X);
+// t1, t2: Zl + 2 halo planes.
+int nsol_weighted_apply_prepadded(const float* v_ext, const float* w_ext, float* out, float* t1,
+                                  float* t2, const float* taps, int kz, int ky, int kx,
+                                  float rho, float ih2x, float ih2y, float ih2z, int halo,
+                                  int row0, int z_total, int Zl, int Y, int X, void* stream,
+                                  long long* counts) {
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  cudaError_t e = weighted_apply_prepadded(v_ext, w_ext, out, t1, t2,
+                                           make_taps(taps, kz, ky, kx), rho, halo, row0,
+                                           z_total, sp, Dims{Zl, Y, X}, (cudaStream_t)stream);
+  counts[kWeightedApplyPre] += 1;
   return (int)e;
 }
 

@@ -15,6 +15,13 @@
 // epilogue functor has `operator()(i, conv, c, d)` (c the voxel's
 // coordinates) returning a double to sum (0 when it reduces nothing).
 //
+// A z-window (the per-shard units of the sharded path, whose slab arrives
+// with its z halos attached by the neighbours): blur_chain_slab runs the x
+// and y passes on every plane of the window and conv_z_pass<Epi, true>
+// reads it contiguously, with no wrap; GlobalRows hands the epilogue the
+// voxel's row in the global volume, so the Laplacian takes its
+// zero-boundary rows only at the global ends.
+//
 // Storage. A CG work vector may be stored as float or as bfloat16 (the TPU
 // kernels' io_dtype / compact_dirs / state_dtype modes); every sum and
 // every stencil runs in float, and a value is rounded to bfloat16 (to
@@ -159,6 +166,17 @@ __device__ __forceinline__ float wrap_conv(const Fn& load, long long base, int c
   return acc;
 }
 
+// The same convolution over a slab that carries its own halo, read with no
+// wrap: y = sum_j k[j] u[base - j stride], base the address of the first
+// tap's plane (the taps walk down as wrap_conv's do).
+template <typename Fn>
+__device__ __forceinline__ float slab_conv(const Fn& load, long long base, long long stride,
+                                           const float* __restrict__ taps, int K) {
+  float acc = 0.f;
+  for (int j = 0; j < K; ++j) acc = fmaf(__ldg(taps + j), load(base - (long long)j * stride), acc);
+  return acc;
+}
+
 // Zero-boundary D^T D along one axis: (u[i] - u[i-1]) [i > 0] + u[i] - u[i+1]
 // with u[n] := 0, i.e. x[0] - x[1] on the first row and 2x[n-1] - x[n-2] on
 // the last (nsol_tpu/ops/grad.py::gradient_normal).
@@ -265,16 +283,22 @@ __global__ void conv_y_kernel(const float* __restrict__ in, float* __restrict__ 
 // it returns is summed per block into partials[blockIdx.x] when partials
 // is given (uniform across the block). The coordinates are computed before
 // the taps are read, so their integer divisions overlap the loads; an
-// epilogue that reads none of them lets the compiler drop them.
-template <class Epi>
+// epilogue that reads none of them lets the compiler drop them. With
+// kSlab, t is a window of d.Z + 2 h planes around the d.Z output planes
+// (h >= K / 2), read with no wrap: out plane k takes t's planes
+// k + h + K/2 - j.
+template <class Epi, bool kSlab = false>
 __global__ void conv_z_pass(const float* __restrict__ t, Epi epi, double* __restrict__ partials,
-                            const float* __restrict__ taps, int K, Dims d) {
+                            const float* __restrict__ taps, int K, Dims d, int h) {
   const Load src{t};
   const long long n = d.n(), plane = d.plane();
   double acc = 0.0;
   GRID_STRIDE(i, n) {
     const Coord c{(int)(i % d.X), (int)((i / d.X) % d.Y), (int)(i / plane)};
-    acc += epi(i, wrap_conv(src, i - (long long)c.z * plane, c.z, d.Z, plane, taps, K), c, d);
+    const float conv =
+        kSlab ? slab_conv(src, i + (long long)(h + K / 2) * plane, plane, taps, K)
+              : wrap_conv(src, i - (long long)c.z * plane, c.z, d.Z, plane, taps, K);
+    acc += epi(i, conv, c, d);
   }
   if (partials != nullptr) {
     const double s = block_sum(acc);
@@ -290,8 +314,36 @@ void blur_chain(Src src, typename Src::Dir* dir_out, Epi epi, double* partials, 
   const int g = grid_for(d.n());
   conv_x_pass<<<g, kThreads, 0, s>>>(src, t1, dir_out, tp.x, tp.kx, d);
   conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
-  conv_z_pass<<<g, kThreads, 0, s>>>(t2, epi, partials, tp.z, tp.kz, d);
+  conv_z_pass<<<g, kThreads, 0, s>>>(t2, epi, partials, tp.z, tp.kz, d, 0);
 }
+
+// The chain over a z-window: src holds d.Z + 2 h planes (the d.Z output
+// planes and h halo planes on each side); the x and y passes run on all of
+// them (t1, t2 hold as many), the z pass reads t2 with no wrap.
+template <class Src, class Epi>
+void blur_chain_slab(Src src, Epi epi, double* partials, float* t1, float* t2, Taps tp, Dims d,
+                     int h, cudaStream_t s) {
+  const Dims ext{d.Z + 2 * h, d.Y, d.X};
+  const int ge = grid_for(ext.n());
+  conv_x_pass<<<ge, kThreads, 0, s>>>(src, t1, nullptr, tp.x, tp.kx, ext);
+  conv_y_kernel<<<ge, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, ext);
+  conv_z_pass<Epi, true><<<grid_for(d.n()), kThreads, 0, s>>>(t2, epi, partials, tp.z, tp.kz, d,
+                                                              h);
+}
+
+// An epilogue of a z-window that starts at global row row0 of a volume of
+// z_total rows: Epi sees the voxel's global z and the global extent (so
+// reg_normal's D_z^T D_z reads the halo rows as neighbours and takes the
+// zero boundary only at global rows 0 and z_total - 1), and the local index
+// i, by which it reads and writes the window's centre.
+template <class Epi>
+struct GlobalRows {
+  Epi epi;
+  int row0, z_total;
+  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
+    return epi(i, conv, Coord{c.x, c.y, row0 + c.z}, Dims{z_total, d.Y, d.X});
+  }
+};
 
 // ------------------------------------------------------------------ CG --
 

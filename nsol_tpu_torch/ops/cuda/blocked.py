@@ -19,6 +19,11 @@ PyTorch version beside it and a launch counter on its wrapper:
   dots and the scalar recurrence; replaces
   ``blocked.py::make_blocked_cg_sweep`` (:1139), ``blocked_admm_solve``'s
   ``mode="sweep"``.
+* :func:`normal_apply_prepadded` — ``q = AᵀA v + ρ·DᵀD v`` on a z-window
+  of a sharded volume whose halo planes the ring exchange has attached,
+  the Laplacian's global boundary rows placed by ``row0``/``z_total``;
+  replaces ``blocked.py::make_blocked_normal_operator_prepadded`` (:478),
+  the per-shard apply of :mod:`nsol_tpu_torch.parallel`.
 
 ``BᵀB`` is the regulariser's normal operator, ``reg="TK1"`` the
 zero-boundary Laplacian ``DᵀD`` (TV and TK1) or ``reg="TK0"`` the
@@ -65,7 +70,11 @@ from nsol_tpu_torch.solvers.cg import guarded_ratio
 
 __all__ = ["Stencils", "new_scalars", "normal_apply", "normal_apply_plain",
            "cg_step", "cg_step_plain", "cg_update", "cg_update_plain",
-           "cg_sweep", "cg_sweep_plain", "make_blocked_normal_operator",
+           "cg_sweep", "cg_sweep_plain", "normal_apply_prepadded",
+           "normal_apply_prepadded_plain", "slab_blur_plain",
+           "window_laplacian_plain", "prepadded_window",
+           "make_blocked_normal_operator_prepadded",
+           "make_blocked_normal_operator",
            "make_blocked_cg_step", "make_blocked_cg_sweep", "counted",
            "check_tensors", "volume_dims", "spacing3", "stencils_for",
            "check_options", "storage_dtype", "storage_ids", "storage_of",
@@ -303,6 +312,48 @@ def cg_sweep_plain(x, r, p, q, scal, taps, inv_h2, rho, first=False):
     return _store(r_new, io), p_new
 
 
+def slab_blur_plain(v_ext, taps, h):
+    """The window chain of ``csrc/stencil.cuh`` (``blur_chain_slab``): the
+    x and y taps wrap within each plane of ``v_ext``, then the z taps read
+    its planes contiguously, with no wrap — out plane ``k`` =
+    ``Σ_j taps_z[j] · u[k + h + c − j]`` (``c = K // 2 ≤ h``) on the
+    ``v_ext.shape[0] − 2h`` centre planes."""
+    u = C.convolve_axis(v_ext, taps.per_axis[2], 2)
+    u = C.convolve_axis(u, taps.per_axis[1], 1)
+    zt = taps.per_axis[0]
+    c, n = len(zt) // 2, v_ext.shape[0] - 2 * h
+    acc = None
+    for j in range(len(zt)):
+        term = zt[j] * u[h + c - j:h + c - j + n]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def window_laplacian_plain(v_ext, h, inv_h2, row0, z_total):
+    """``DᵀD`` of the centre planes of a z-window (``h ≥ 1`` halo planes a
+    side) of a volume of ``z_total`` rows whose first centre plane is
+    global row ``row0``: x and y as on the whole volume, z from the halo
+    rows, with the zero-boundary rows (``ops/grad.py``) only at global rows
+    0 and ``z_total − 1``."""
+    n = v_ext.shape[0] - 2 * h
+    c, down, up = (v_ext[h + k:h + k + n] for k in (0, -1, 1))
+    rows = (torch.arange(n, device=v_ext.device) + int(row0)).view(-1, 1, 1)
+    zero = torch.zeros_like(c)
+    lz = torch.where(rows > 0, c - down, zero) \
+        + (c - torch.where(rows + 1 < int(z_total), up, zero))
+    return G.second_difference(c, 2) * inv_h2[0] \
+        + G.second_difference(c, 1) * inv_h2[1] + lz * inv_h2[2]
+
+
+@counted
+def normal_apply_prepadded_plain(v_ext, taps, inv_h2, rho, row0, z_total):
+    """Plain version of :func:`normal_apply_prepadded`."""
+    h = prepadded_halo(taps)
+    prepadded_window("normal_apply_prepadded", v_ext, h, row0, z_total)
+    return slab_blur_plain(v_ext, taps, h) + rho * window_laplacian_plain(
+        v_ext, h, inv_h2, row0, z_total)
+
+
 # ---------------------------------------------------------------- kernels --
 
 def check_tensors(name, shape, *tensors, device=None, dtype=torch.float32):
@@ -517,7 +568,68 @@ def cg_sweep(x, r, p, q, scal, taps, inv_h2, rho, first=False):
     return r_new, p_new
 
 
-for _f in (normal_apply, cg_step, cg_update, cg_sweep):
+def prepadded_halo(taps):
+    """The z halo a window unit takes with ``taps``: their z half-width,
+    at least 1 (the Laplacian's z neighbours)."""
+    return max(taps.lengths[0] // 2, 1)
+
+
+def prepadded_window(name, v_ext, h, row0, z_total, *others):
+    """``(Zl, Y, X)`` of a window of ``v_ext.shape[0] = Zl + 2h`` planes,
+    after checking that it is 3-D, that each of ``others`` has its shape,
+    and that rows ``row0 .. row0 + Zl − 1`` lie in a volume of ``z_total``
+    rows; raises ``ValueError`` otherwise."""
+    if v_ext.dim() != 3:
+        raise ValueError("%s: the window units are 3-D, got shape %s"
+                         % (name, tuple(v_ext.shape)))
+    zl = v_ext.shape[0] - 2 * h
+    if zl < 1:
+        raise ValueError("%s: a window of %d planes holds no centre plane "
+                         "inside its halo of %d" % (name, v_ext.shape[0], h))
+    if not 0 <= int(row0) <= int(z_total) - zl:
+        raise ValueError("%s: rows %d..%d outside a volume of %d rows"
+                         % (name, int(row0), int(row0) + zl - 1,
+                            int(z_total)))
+    for t in others:
+        if t is not None and tuple(t.shape) != tuple(v_ext.shape):
+            raise ValueError("%s: shape %s, expected %s"
+                             % (name, tuple(t.shape), tuple(v_ext.shape)))
+    return (zl,) + tuple(v_ext.shape[1:])
+
+
+def normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total):
+    """``q = AᵀA v + ρ·DᵀD v`` on a z-window of a sharded volume
+    (``blocked.py::make_blocked_normal_operator_prepadded``, :478):
+    ``v_ext`` holds the ``Zl`` local planes and ``r`` halo planes on each
+    side (``r`` = :func:`prepadded_halo` of the normal ``taps``), wrapped
+    in from the neighbouring ranks; ``q`` is ``(Zl, Y, X)``. The z taps
+    read the window with no wrap, the x and y taps wrap within each plane,
+    and the Laplacian's z term takes its neighbours from the halo rows,
+    with the zero-boundary rows only where ``row0 + k`` is 0 or
+    ``z_total − 1``."""
+    h = prepadded_halo(taps)
+    name = "normal_apply_prepadded"
+    dims = prepadded_window(name, v_ext, h, row0, z_total)
+    if v_ext.device.type == "cpu":
+        return normal_apply_prepadded_plain(v_ext, taps, inv_h2, rho, row0,
+                                            z_total)
+    check_tensors(name, v_ext.shape, v_ext)
+    _check_consts(name, v_ext.device, taps)
+    lib = build.load()
+    out = torch.empty(dims, device=v_ext.device)
+    t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
+    counts = build.new_counts(7)
+    err = lib.nsol_normal_apply_prepadded(
+        build.tensor_ptr(v_ext), build.tensor_ptr(out), build.tensor_ptr(t1),
+        build.tensor_ptr(t2), build.tensor_ptr(taps.buf), *taps.lengths,
+        float(rho), *spacing3(inv_h2), h, int(row0), int(z_total), *dims,
+        build.stream_ptr(v_ext.device), counts)
+    build.check(err, name)
+    normal_apply_prepadded.launches += counts[6]
+    return out
+
+
+for _f in (normal_apply, cg_step, cg_update, cg_sweep, normal_apply_prepadded):
     _f.launches = 0
 
 
@@ -647,6 +759,46 @@ def make_blocked_normal_operator(shape, cov, alpha_cut=3, spacing=None,
         st = stencils_for(cache, shape, factors, spacing, v)
         return unit(_store(v, io), st.normal, st.inv_h2, rho, io_dtype=io)
 
+    return apply
+
+
+def make_blocked_normal_operator_prepadded(local_shape, cov, alpha_cut=3,
+                                           spacing=None, z_total=None,
+                                           block=None, dtype=np.float32,
+                                           precision="HIGHEST",
+                                           interpret=False, vma=None):
+    """Build ``apply(v_ext, rho, row0) -> AᵀA v + rho·DᵀD v`` over a
+    prepadded z-window of a volume of ``z_total`` rows (default: the local
+    extent) — the per-shard apply of the sharded path
+    (``nsol_tpu/ops/pallas/blocked.py:478``, the same positional order),
+    through :func:`normal_apply_prepadded`. ``v_ext`` is
+    ``(Zl + 2·apply.halo, Y, X)`` for ``local_shape = (Zl, Y, X)``;
+    ``row0`` the global row of local row 0. ``apply.halo`` is the normal
+    taps' z half-width (at least 1), ``apply.block`` the window's ``Zl``
+    (the CUDA unit has no z-blocks). ``block`` (the TPU's VMEM block) and
+    ``vma`` (JAX's varying-axes type) are accepted and ignored;
+    ``dtype``/``precision`` go through :func:`check_options` and
+    ``interpret=True`` runs the plain version."""
+    interpret, _ = check_options(dict(dtype=dtype, precision=precision,
+                                      interpret=interpret))
+    local_shape = tuple(int(n) for n in local_shape)
+    if len(local_shape) != 3:
+        raise ValueError("blocked kernels are 3-D only")
+    z_total = local_shape[0] if z_total is None else int(z_total)
+    factors = C.blur_factors(cov, alpha_cut, spacing)
+    halo = prepadded_halo(Taps([np.convolve(f, f[::-1]) for f in factors],
+                               "cpu", torch.float32))
+    ext = (local_shape[0] + 2 * halo,) + local_shape[1:]
+    unit = normal_apply_prepadded_plain if interpret \
+        else normal_apply_prepadded
+    cache = {}
+
+    def apply(v_ext, rho, row0):
+        st = stencils_for(cache, ext, factors, spacing, v_ext)
+        return unit(v_ext, st.normal, st.inv_h2, rho, row0, z_total)
+
+    apply.halo = halo
+    apply.block = local_shape[0]
     return apply
 
 

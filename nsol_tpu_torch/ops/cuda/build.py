@@ -38,6 +38,12 @@ _SIGNATURES = {
     "nsol_max_blocks": [],
     "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
+    "nsol_normal_apply_prepadded": [_P] * 5 + [_I] * 3 + [_F] * 4
+    + [_I] * 6 + [_P, _P],
+    "nsol_blur_apply_prepadded": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_I] * 6
+    + [_P, _P],
+    "nsol_weighted_apply_prepadded": [_P] * 6 + [_I] * 3 + [_F] * 4
+    + [_I] * 6 + [_P, _P],
     "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
@@ -163,9 +169,10 @@ def load():
 def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
-    admm_tail, admm_record, cg_sweep; ``pd.cu``: pd_dual, pd_primal, pd_record;
-    ``robust.cu``: blur_apply, irls_head, weighted_apply, irls_step,
-    cg_update; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
+    admm_tail, admm_record, cg_sweep, normal_apply_prepadded; ``pd.cu``:
+    pd_dual, pd_primal, pd_record; ``robust.cu``: blur_apply, irls_head,
+    weighted_apply, irls_step, cg_update, blur_apply_prepadded,
+    weighted_apply_prepadded; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction)."""
     return (ctypes.c_longlong * n)()
 

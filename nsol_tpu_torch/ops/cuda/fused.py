@@ -66,6 +66,7 @@ __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
            "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
+           "SHARDED_UNITS",
            "linear_admm_solver", "reset_counts",
            "launch_counts", "plain_counts"]
 
@@ -759,11 +760,16 @@ TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
 TILED_UNITS = tuple(f.__name__ for f in Z.UNITS)
 #: the whole-CG-iteration unit of ``blocked_admm_solve(mode="sweep")``
 SWEEP_UNITS = ("cg_sweep",)
+#: the per-shard window units of the sharded path (``parallel/``)
+_SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),
+            (R.blur_apply_prepadded, R.blur_apply_prepadded_plain),
+            (R.weighted_apply_prepadded, R.weighted_apply_prepadded_plain))
+SHARDED_UNITS = tuple(f.__name__ for f, _ in _SHARDED)
 _UNITS = {f.__name__: (f, p) for f, p in zip(
     _ADMM_UNITS + _PD_UNITS + R.UNITS + (Rec.admm_record,) + T.UNITS
-    + Z.UNITS + (B.cg_sweep,),
+    + Z.UNITS + (B.cg_sweep,) + tuple(f for f, _ in _SHARDED),
     _ADMM_PLAIN + _PD_PLAIN + R.PLAIN + (Rec.admm_record_plain,) + T.PLAIN
-    + Z.PLAIN + (B.cg_sweep_plain,))}
+    + Z.PLAIN + (B.cg_sweep_plain,) + tuple(p for _, p in _SHARDED))}
 
 
 def reset_counts():

@@ -20,6 +20,18 @@ PyTorch version beside it and a launch counter on its wrapper:
   in-kernel ``apply_W`` of ``fused.py`` (:593-597).
 * :func:`irls_step` — ``x = max(x + xk, 0)`` (``fused.py:622``).
 
+and the two per-shard units of the sharded path
+(:mod:`nsol_tpu_torch.parallel`), the ``prepadded=True`` forms of the two
+TPU kernels, on a z-window whose halo planes the ring exchange has
+attached, the Laplacian's global boundary rows placed by
+``row0``/``z_total``:
+
+* :func:`blur_apply_prepadded` — ``A y`` (+ ``ρ·DᵀD u``), halo
+  ``max(r_a, 1)`` (``robust.py:161``, :184, :240-257): the IRLS residual
+  and gradient.
+* :func:`weighted_apply_prepadded` — ``Aᵀ(w ⊙ A v) + ρ·DᵀD v``, halo
+  ``max(2·r_a, 1)`` (``robust.py:264``, :286-401): the inner CG's apply.
+
 ``BᵀB`` is the Laplacian ``DᵀD`` (``reg="TK1"``, the ADMM x-update's and
 TK1's) or the identity (``reg="TK0"``), as in :mod:`.blocked`; the
 Tikhonov solve of :mod:`.tikhonov` runs these units with ``ρ := α``.
@@ -56,7 +68,10 @@ from nsol_tpu_torch.solvers.cg import guarded_ratio
 
 __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
            "irls_head_plain", "weighted_apply", "weighted_apply_plain",
-           "irls_step", "irls_step_plain", "make_robust_solver",
+           "irls_step", "irls_step_plain", "blur_apply_prepadded",
+           "blur_apply_prepadded_plain", "weighted_apply_prepadded",
+           "weighted_apply_prepadded_plain", "blur_halo", "weighted_halo",
+           "make_robust_solver",
            "make_blocked_blur_operator",
            "make_blocked_weighted_normal_operator",
            "make_blocked_blur_operator_2d",
@@ -115,6 +130,44 @@ def weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
 def irls_step_plain(x, xk):
     """Plain version of :func:`irls_step` (updates ``x`` in place)."""
     x.copy_(torch.clamp(x + xk, min=0.0))
+
+
+def blur_halo(taps):
+    """The z halo of the window blur: the blur taps' half-width, at least
+    1 (the Laplacian's z neighbours)."""
+    return max(taps.lengths[0] // 2, 1)
+
+
+def weighted_halo(taps):
+    """The z halo of the window weighted apply: twice the blur taps'
+    half-width (the normal operator's), at least 1."""
+    return max(2 * (taps.lengths[0] // 2), 1)
+
+
+@B.counted
+def blur_apply_prepadded_plain(y_ext, taps, inv_h2, row0, z_total,
+                               u_ext=None, rho=0.0):
+    """Plain version of :func:`blur_apply_prepadded`."""
+    h = blur_halo(taps)
+    B.prepadded_window("blur_apply_prepadded", y_ext, h, row0, z_total, u_ext)
+    g = B.slab_blur_plain(y_ext, taps, h)
+    if u_ext is None:
+        return g
+    return g + rho * B.window_laplacian_plain(u_ext, h, inv_h2, row0,
+                                              z_total)
+
+
+@B.counted
+def weighted_apply_prepadded_plain(v_ext, w_ext, taps, inv_h2, rho, row0,
+                                   z_total):
+    """Plain version of :func:`weighted_apply_prepadded`."""
+    r, ra = weighted_halo(taps), taps.lengths[0] // 2
+    B.prepadded_window("weighted_apply_prepadded", v_ext, r, row0, z_total,
+                       w_ext)
+    s = B.slab_blur_plain(v_ext, taps, r - ra)  # A v on Zl + 2 r_a rows
+    s = s * w_ext[r - ra:r - ra + s.shape[0]]
+    return B.slab_blur_plain(s, taps, ra) + rho * B.window_laplacian_plain(
+        v_ext, r, inv_h2, row0, z_total)
 
 
 # ---------------------------------------------------------------- kernels --
@@ -234,7 +287,74 @@ def irls_step(x, xk):
     irls_step.launches += counts[3]
 
 
-for _f in (blur_apply, irls_head, weighted_apply, irls_step):
+def blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext=None,
+                         rho=0.0):
+    """``A y`` on a z-window of a sharded volume, with ``u_ext``
+    ``A y + ρ·DᵀD u`` (``robust.py::make_blocked_blur_operator``,
+    ``prepadded=True``): ``y_ext``, ``u_ext`` hold the ``Zl`` local planes
+    and ``h = max(r_a, 1)`` halo planes on each side (``r_a`` the blur
+    ``taps``' z half-width); the result is ``(Zl, Y, X)``, the Laplacian's
+    zero-boundary rows only at global rows 0 and ``z_total − 1`` (``row0``
+    the window's first global row)."""
+    name = "blur_apply_prepadded"
+    h = blur_halo(taps)
+    dims = B.prepadded_window(name, y_ext, h, row0, z_total, u_ext)
+    if y_ext.device.type == "cpu":
+        return blur_apply_prepadded_plain(y_ext, taps, inv_h2, row0, z_total,
+                                          u_ext, rho)
+    B.check_tensors(name, y_ext.shape, y_ext,
+                    *([u_ext] if u_ext is not None else []))
+    B._check_consts(name, y_ext.device, taps)
+    lib = build.load()
+    out = torch.empty(dims, device=y_ext.device)
+    t1, t2 = torch.empty_like(y_ext), torch.empty_like(y_ext)
+    counts = build.new_counts(7)
+    err = lib.nsol_blur_apply_prepadded(
+        build.tensor_ptr(y_ext), build.tensor_ptr(u_ext),
+        build.tensor_ptr(out), build.tensor_ptr(t1), build.tensor_ptr(t2),
+        build.tensor_ptr(taps.buf), *taps.lengths, float(rho),
+        *B.spacing3(inv_h2), h, int(row0), int(z_total), *dims,
+        build.stream_ptr(y_ext.device), counts)
+    build.check(err, name)
+    blur_apply_prepadded.launches += counts[5]
+    return out
+
+
+def weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0,
+                             z_total):
+    """``Aᵀ(w ⊙ A v) + ρ·DᵀD v`` on a z-window of a sharded volume
+    (``robust.py::make_blocked_weighted_normal_operator``,
+    ``prepadded=True``): ``v_ext``, ``w_ext`` hold the ``Zl`` local planes
+    and ``r = max(2·r_a, 1)`` halo planes on each side; ``A v`` is formed
+    on the ``Zl + 2·r_a`` rows the second blur needs, ``w`` read there
+    (offset ``r − r_a``), and ``Aᵀ`` and the Laplacian give the ``Zl``
+    centre rows, its zero-boundary rows only at global rows 0 and
+    ``z_total − 1``."""
+    name = "weighted_apply_prepadded"
+    r = weighted_halo(taps)
+    dims = B.prepadded_window(name, v_ext, r, row0, z_total, w_ext)
+    if v_ext.device.type == "cpu":
+        return weighted_apply_prepadded_plain(v_ext, w_ext, taps, inv_h2, rho,
+                                              row0, z_total)
+    B.check_tensors(name, v_ext.shape, v_ext, w_ext)
+    B._check_consts(name, v_ext.device, taps)
+    lib = build.load()
+    out = torch.empty(dims, device=v_ext.device)
+    t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
+    counts = build.new_counts(7)
+    err = lib.nsol_weighted_apply_prepadded(
+        build.tensor_ptr(v_ext), build.tensor_ptr(w_ext),
+        build.tensor_ptr(out), build.tensor_ptr(t1), build.tensor_ptr(t2),
+        build.tensor_ptr(taps.buf), *taps.lengths, float(rho),
+        *B.spacing3(inv_h2), r, int(row0), int(z_total), *dims,
+        build.stream_ptr(v_ext.device), counts)
+    build.check(err, name)
+    weighted_apply_prepadded.launches += counts[6]
+    return out
+
+
+for _f in (blur_apply, irls_head, weighted_apply, irls_step,
+           blur_apply_prepadded, weighted_apply_prepadded):
     _f.launches = 0
 
 #: the units of the solve, in the order of ``csrc/robust.cu``'s counts
@@ -431,16 +551,13 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
 
 # ------------------------------------------- reference-shaped entry points --
 
-def _check_options(tpu_options, prepadded=False):
+def _check_options(tpu_options):
     """:func:`~.blocked.check_options` — every storage option of the
-    robust kernels is still to port (K10b) —, and ``prepadded`` (the
-    sharded per-shard form, K9b with Queue 1 item 9) raises. Returns the
-    ``interpret`` flag."""
+    robust kernels is still to port (K10b), in their wrap and their
+    ``prepadded=True`` forms alike (the per-shard forms of the sharded
+    path, :mod:`nsol_tpu_torch.parallel`). Returns the ``interpret``
+    flag."""
     interpret, _ = B.check_options(tpu_options, pending=B.STORAGE_KEYS)
-    if prepadded:
-        raise NotImplementedError("prepadded=True (the sharded per-shard "
-                                  "form, K9b) is not ported yet (ROADMAP "
-                                  "Queue 1 item 9)")
     return interpret
 
 
@@ -452,16 +569,57 @@ def _blocked_stencils(shape, cov, alpha_cut, spacing):
     return lambda t: B.stencils_for(cache, shape, factors, spacing, t)
 
 
+def _window(shape, cov, alpha_cut, spacing, halo_of, z_total):
+    """``(halo, stencils of the window, z_total)`` of a prepadded unit on
+    the local ``shape``: ``halo_of`` (:func:`blur_halo` or
+    :func:`weighted_halo`) maps the blur taps to the halo; ``z_total``
+    defaults to the local extent."""
+    if len(shape) != 3:
+        raise ValueError("blocked robust kernels are 3-D only")
+    factors = C.blur_factors(cov, alpha_cut, spacing)
+    halo = halo_of(B.Taps(factors, "cpu", torch.float32))
+    ext = (shape[0] + 2 * halo,) + tuple(shape[1:])
+    cache = {}
+    return (halo,
+            lambda t: B.stencils_for(cache, ext, factors, spacing, t),
+            shape[0] if z_total is None else int(z_total))
+
+
 def make_blocked_blur_operator(shape, cov, alpha_cut=3, spacing=None,
-                               with_lap=False, prepadded=False,
-                               **tpu_options):
+                               with_lap=False, prepadded=False, z_total=None,
+                               vma=None, **tpu_options):
     """Build ``apply(y) -> A y``, or with ``with_lap=True``
     ``apply(y, u, rho) -> A y + rho·DᵀD u`` — the IRLS gradient
     ``Aᵀ(w·r) + ρ·DᵀD x`` for ``y = w·r``, ``u = x`` (``A = Aᵀ``)
     (``nsol_tpu/ops/pallas/robust.py:161``). Device and dtype follow
-    ``y``; ``interpret=True`` runs the plain version."""
-    unit = blur_apply_plain if _check_options(tpu_options, prepadded) \
-        else blur_apply
+    ``y``; ``interpret=True`` runs the plain version.
+
+    ``prepadded=True``: the per-shard form of the sharded path, through
+    :func:`blur_apply_prepadded` — ``apply(y_ext)``, or with ``with_lap``
+    ``apply(y_ext, u_ext, rho, row0)``, on ``(Zl + 2·apply.halo, Y, X)``
+    windows of a volume of ``z_total`` rows (default ``Zl``), ``shape``
+    the local ``(Zl, Y, X)`` and ``apply.halo = max(r_a, 1)``; ``vma``
+    (JAX's varying-axes type) is accepted and ignored."""
+    interpret = _check_options(tpu_options)
+    if prepadded:
+        unit = blur_apply_prepadded_plain if interpret \
+            else blur_apply_prepadded
+        halo, stencils, z_total = _window(
+            tuple(shape), cov, alpha_cut, spacing,
+            blur_halo, z_total)
+
+        def apply_lap_ext(y_ext, u_ext, rho, row0):
+            st = stencils(y_ext)
+            return unit(y_ext, st.blur, st.inv_h2, row0, z_total, u_ext, rho)
+
+        def apply_ext(y_ext):
+            st = stencils(y_ext)
+            return unit(y_ext, st.blur, st.inv_h2, 0, z_total)
+
+        apply = apply_lap_ext if with_lap else apply_ext
+        apply.halo, apply.block = halo, shape[0]
+        return apply
+    unit = blur_apply_plain if interpret else blur_apply
     stencils = _blocked_stencils(shape, cov, alpha_cut, spacing)
 
     def apply_lap(y, u, rho):
@@ -477,14 +635,34 @@ def make_blocked_blur_operator(shape, cov, alpha_cut=3, spacing=None,
 
 def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
                                           spacing=None, prepadded=False,
+                                          z_total=None, vma=None,
                                           **tpu_options):
     """Build ``apply(v, w, rho) -> Aᵀ(w ⊙ (A v)) + rho·DᵀD v``, the SPD
     apply of every IRLS inner-CG iteration
     (``nsol_tpu/ops/pallas/robust.py:264``). Device and dtype follow
     ``v``; ``interpret=True`` runs the plain version. ``io_dtype`` is
-    still to port (K10b)."""
-    unit = weighted_apply_plain if _check_options(tpu_options, prepadded) \
-        else weighted_apply
+    still to port (K10b).
+
+    ``prepadded=True``: the per-shard form of the sharded path, through
+    :func:`weighted_apply_prepadded` — ``apply(v_ext, w_ext, rho, row0)``
+    on ``(Zl + 2·apply.halo, Y, X)`` windows of a volume of ``z_total``
+    rows (default ``Zl``), ``shape`` the local ``(Zl, Y, X)`` and
+    ``apply.halo = max(2·r_a, 1)``; ``vma`` is accepted and ignored."""
+    interpret = _check_options(tpu_options)
+    if prepadded:
+        unit = weighted_apply_prepadded_plain if interpret \
+            else weighted_apply_prepadded
+        halo, stencils, z_total = _window(
+            tuple(shape), cov, alpha_cut, spacing,
+            weighted_halo, z_total)
+
+        def apply_ext(v_ext, w_ext, rho, row0):
+            st = stencils(v_ext)
+            return unit(v_ext, w_ext, st.blur, st.inv_h2, rho, row0, z_total)
+
+        apply_ext.halo, apply_ext.block = halo, shape[0]
+        return apply_ext
+    unit = weighted_apply_plain if interpret else weighted_apply
     stencils = _blocked_stencils(shape, cov, alpha_cut, spacing)
 
     def apply(v, w, rho):

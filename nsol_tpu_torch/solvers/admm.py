@@ -30,14 +30,16 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
                data_loss_scale=1.0, minimizer="cg",
                inner_bounds=(0.0, np.inf), record_fn=None,
                record_trajectory=False, normal_A=None, normal_B=None,
-               irls_cg_iters=8, normal_M=None, normal_W=None, grad_W=None):
+               irls_cg_iters=8, normal_M=None, normal_W=None, grad_W=None,
+               reduce=None):
     """Run ``iterations`` ADMM steps from ``x0``.
 
     Returns ``(x, records)``; ``records`` is None unless ``record_fn`` is
     given or ``record_trajectory`` set, then ``{"measures": record_fn
     stacked over [x0, x1, ...]}`` with each leaf stacked along a new
     leading axis (the reference's layout) and/or ``{"x": [x0, x1, ...]}``
-    stacked.
+    stacked. ``reduce`` sums the inner solves' dots over the ranks of a
+    sharded volume (the reference's ``axis_name``).
     """
     dtype, device = x0.dtype, x0.device
     alpha = torch.as_tensor(alpha, dtype=dtype, device=device)
@@ -61,7 +63,7 @@ def admm_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha, rho,
             minimizer=minimizer, iter_max=iter_max, bounds=inner_bounds,
             normal_A=normal_A, normal_B=normal_B, At_b=At_b,
             irls_cg_iters=irls_cg_iters, normal_M=normal_M,
-            normal_W=normal_W, grad_W=grad_W)
+            normal_W=normal_W, grad_W=grad_W, reduce=reduce)
         t = B(x) + w - b_reg
         v = vectorial_soft_threshold(t, alpha / rho)
         w = t - v

@@ -52,7 +52,7 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
                    data_loss="linear", data_loss_scale=1.0, minimizer="cg",
                    iter_max=10, bounds=(0.0, np.inf), normal_A=None,
                    normal_B=None, At_b=None, irls_cg_iters=8, normal_M=None,
-                   normal_W=None, grad_W=None):
+                   normal_W=None, grad_W=None, reduce=None):
     """Return the minimizer estimate of ``½Σρ((Ax−b)²) + α/2 ‖Bx−b_reg‖²``.
 
     ``normal_A``/``normal_B`` are fused normal operators (default: adjoint ∘
@@ -67,6 +67,9 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     ``x + v`` onto the box. ``normal_W(vf, wts, alpha)`` replaces the
     weighted apply ``Aᵀ(wts·A vf) + α·BᵀB vf``, ``grad_W(x, wts_r, alpha)``
     the gradient ``Aᵀ(wts_r) + α·BᵀB x``.
+
+    ``reduce`` sums the CG dots over the ranks of a sharded volume (the
+    reference's ``axis_name``, ``nsol_tpu/solvers/tikhonov.py:151,248``).
     """
     if minimizer in ("lsmr", "lsq_linear", "cg") and data_loss != "linear":
         raise ValueError("%s minimizer cannot be used with non-linear data "
@@ -81,7 +84,7 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     if minimizer == "irls":
         return _irls(A, A_adj, nB, b, x0, alpha_t, data_loss,
                      data_loss_scale, iter_max, bounds, irls_cg_iters,
-                     normal_W, grad_W)
+                     normal_W, grad_W, reduce)
     if normal_M is not None:
         def apply_M(v):
             return normal_M(v, alpha_t)
@@ -95,12 +98,12 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
         torch.as_tensor(b_reg, dtype=x0.dtype, device=x0.device),
         B(x0).shape)
     rhs = (At_b if At_b is not None else A_adj(b)) + alpha_t * B_adj(b_reg)
-    x = cg(apply_M, rhs, x0, iters=iter_max)
+    x = cg(apply_M, rhs, x0, iters=iter_max, reduce=reduce)
     return _clip_bounds(x, bounds)
 
 
 def _irls(A, A_adj, nB, b, x, alpha_t, data_loss, data_loss_scale, sweeps,
-          bounds, cg_iters, normal_W, grad_W):
+          bounds, cg_iters, normal_W, grad_W, reduce=None):
     """The ``"irls"`` engine (tikhonov.py:193-252) from the clipped ``x``."""
     grad_rho = losses.gradient_loss(data_loss)
     for _ in range(sweeps):
@@ -126,6 +129,7 @@ def _irls(A, A_adj, nB, b, x, alpha_t, data_loss, data_loss_scale, sweeps,
                 core = A_adj(wts * A(vf)) + alpha_t * nB(vf)
             return free * core + (v - vf)
 
-        v = cg(apply_M, -free * g, torch.zeros_like(x), iters=cg_iters)
+        v = cg(apply_M, -free * g, torch.zeros_like(x), iters=cg_iters,
+               reduce=reduce)
         x = _clip_bounds(x + v, bounds)
     return x

@@ -69,7 +69,7 @@ def _chunks(n, shape, itemsize):
 def _not_sharded(mesh):
     if mesh is not None:
         raise NotImplementedError("run_sweep(mesh=...) is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+                                  "(ROADMAP Queue 1 item 9)")
 
 
 def _stack_records(rows):

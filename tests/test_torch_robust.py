@@ -332,11 +332,20 @@ def test_robust_entry_points_reject_tpu_only_and_unported_options():
                                     iter_max=1, irls_cg_iters=2,
                                     interpret=True, precision="high3")
     assert torch.equal(s(b3, b3, 0.01, 0.5), s.plain(b3, b3, 0.01, 0.5))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        R.make_blocked_blur_operator((8, 8, 8), cov, prepadded=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
-                                                prepadded=True)
+    # prepadded=True (the sharded per-shard form, K9b) on the whole
+    # volume's wrap prepad at row0 = 0 equals the wrap form
+    w3 = b3 + 0.5
+    for wrap, pre, args in (
+            (R.make_blocked_blur_operator((8, 8, 8), cov, with_lap=True),
+             R.make_blocked_blur_operator((8, 8, 8), cov, with_lap=True,
+                                          prepadded=True), (b3, w3)),
+            (R.make_blocked_weighted_normal_operator((8, 8, 8), cov),
+             R.make_blocked_weighted_normal_operator(
+                 (8, 8, 8), cov, prepadded=True, interpret=True),
+             (b3, w3))):
+        ext = [a[np.arange(-pre.halo, 8 + pre.halo) % 8] for a in args]
+        np.testing.assert_allclose(pre(*ext, 0.7, 0).numpy(),
+                                   wrap(*args, 0.7).numpy(), atol=1e-12)
     with pytest.raises(ValueError):
         R.blocked_robust_admm_solve((8, 8), np.eye(2))
     with pytest.raises(ValueError):

@@ -273,10 +273,10 @@ def test_blocked_admm_solve_modes_and_routes():
 
 
 def test_blocked_entry_points_raise_on_unported_modes():
-    """The sweep formulation (K8) and the linear compact storage options
-    (K10) are ported; the robust ones (K10b) and the sharded per-shard
-    form (K9b) are still to port; the MXU schedule forms are taken at their
-    defaults only."""
+    """The sweep formulation (K8), the linear compact storage options
+    (K10) and the sharded per-shard form (K9b) are ported; the robust
+    storage options (K10b) are still to port; the MXU schedule forms are
+    taken at their defaults only."""
     assert B.blocked_admm_solve(WIDE, ISO, mode="sweep").mode == "sweep"
     for opt, storage in (({"compact_dirs": True}, "dirs"),
                          ({"state_dtype": "bfloat16"}, "state")):
@@ -298,8 +298,14 @@ def test_blocked_entry_points_raise_on_unported_modes():
         B.blocked_admm_solve((512, 512), np.eye(2))
     with pytest.raises(NotImplementedError, match="K10b"):
         R.blocked_robust_admm_solve(WIDE, ISO, compact_dirs=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        R.make_blocked_blur_operator(WIDE, ISO, prepadded=True)
+    # prepadded=True (K9b) at a 512-wide plane: the window's blur on the
+    # whole volume's wrap prepad equals the wrap blur
+    blur = R.make_blocked_blur_operator(WIDE, ISO, prepadded=True)
+    y = _t(np.random.RandomState(3).rand(*WIDE))
+    ext = y[np.arange(-blur.halo, WIDE[0] + blur.halo) % WIDE[0]]
+    np.testing.assert_allclose(_np(blur(ext)),
+                               _np(R.make_blocked_blur_operator(WIDE, ISO)(y)),
+                               atol=1e-12)
 
 
 def test_blocked_robust_solve_plain_matches_pallas():

@@ -118,7 +118,12 @@ def test_port_imports_neither_jax_nor_pil():
             "nsol_tpu_torch.ops.cuda.tikhonov, nsol_tpu_torch.ops.cuda."
             "record, nsol_tpu_torch.ops.cuda.tiled, nsol_tpu_torch.study, nsol_tpu_torch.study.engine, "
             "nsol_tpu_torch.study.reader, nsol_tpu_torch.study.paths, "
-            "nsol_tpu_torch.interface, nsol_tpu_torch.policy;"
+            "nsol_tpu_torch.interface, nsol_tpu_torch.policy, "
+            "nsol_tpu_torch.parallel, nsol_tpu_torch.parallel.distributed, "
+            "nsol_tpu_torch.parallel.halo, "
+            "nsol_tpu_torch.parallel.matmul_halo, "
+            "nsol_tpu_torch.parallel.blocked_halo, "
+            "nsol_tpu_torch.parallel.mesh;"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
             "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -289,7 +289,7 @@ def test_setters_getters_and_x_scale(f64):
 def test_unported_options_and_device_raise(f64):
     p = _Problem(_observed())
     s = _tikhonov("port", p, "TK1", "linear", True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         s.run_sweep({"alpha": np.array([0.1])}, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
