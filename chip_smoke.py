@@ -62,9 +62,26 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   one rank (NCCL refuses two ranks on one GPU): the multi-rank runs are the
   gloo tests on the CPU.
 
-The CLI runs of phases 6, 18 and 22 hold ``run_deconvolution``'s default
-on the card — the reference's compact storage — to the compact library
-solve.
+* phases 29-31, the robust and Tikhonov compact storage (group
+  ``compact_robust``): the storage-typed weighted applies (the fused
+  solves' bf16 directions, the blocked solve's bf16 io, TK1 and TK0, the
+  tiled one) and the TK0 ``cg_step`` against their plain versions on the
+  tile-edge shapes and at each main path's shape, timed beside their
+  float32 instances; the compact robust solves — Lena 256² (within 1e-4
+  of 101.442567) and the 64³ phantom fused, the 256³ suite volume blocked
+  (within 0.2 % of 45022.5), 512³ tiled (within 1e-3 of the exact
+  solve) — against the exact solves and their plain versions;
+  ``run_deconvolution --data-loss huber`` on the Lena PNG and a 256³ NIfTI
+  against the library solve ``nsol_tpu_torch.policy`` names, bit for bit,
+  at its default and under ``NSOL_TPU_EXACT=1``; and the Lena TK1L2/TK0L2
+  and TK0L2 huber sweeps and the TV-L2 ADMM huber study through
+  ``run_sweep``, against the compact library solves.
+
+The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
+default on the card — the reference's compact storage — to the compact
+library solve. The sweeps that phases 17-19 hold to float64 anchors or
+to the exact generic solve run under ``NSOL_TPU_EXACT=1``, as before;
+phase 31 runs them at their default.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -76,6 +93,7 @@ The last lines are a JSON record of the kernels, the card's name and
 power limit, and the result line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -143,6 +161,29 @@ class PhaseFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise PhaseFailure(msg)
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set inside the block, as it was after
+    it (the policy reads ``NSOL_TPU_EXACT`` / ``NSOL_TPU_COMPACT`` there)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def exact_storage():
+    """The block runs the exact float32 solves (``NSOL_TPU_EXACT=1``):
+    the earlier phases hold the study sweeps, which build in compact
+    storage by default on the card, to their float64 anchors as before."""
+    return environ(NSOL_TPU_EXACT="1")
 
 
 def smi():
@@ -798,7 +839,7 @@ def run_robust_phases(device, card):
     plain version and (kernel ms, plain ms) per call at 256³."""
     import torch
 
-    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch import data, interop, policy
     from nsol_tpu_torch.cli import run_deconvolution
     from nsol_tpu_torch.io import DataReader, read_png
     from nsol_tpu_torch.ops import conv as C
@@ -874,17 +915,7 @@ def run_robust_phases(device, card):
     # phase 14: the 256³ robust suite solve (salt-and-pepper outliers)
     its, sweeps, cgi = ROBUST_ITERS["scale"]
     big = SCALE_SHAPE
-    iso = np.diag([SIGMA ** 2] * 3)
-    rs = np.random.RandomState(0)
-    xt = interop.to_torch((rs.rand(*big) > 0.7).astype(np.float32), device)
-    A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
-    bb = A(xt).contiguous()
-    del xt
-    noise = (rs.rand(*big) < 0.01).astype(np.float32) \
-        * rs.randn(*big).astype(np.float32)
-    bb += 0.5 * interop.to_torch(noise, device)
-    del noise
-    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+    bb, iso, A64 = scale_problem(device, True, big)
     rsolve = R.blocked_robust_admm_solve(big, iso, iterations=its,
                                          iter_max=sweeps, irls_cg_iters=cgi,
                                          data_loss="huber")
@@ -955,14 +986,21 @@ def run_robust_phases(device, card):
         reader = DataReader(out)
         reader.read_data()
         recon = reader.get_data()
-    lib = interop.to_numpy(x_k).astype(np.float64) * lena.max()
+    # the CLI's default on the card: the solve policy.py names (the fused
+    # robust solve in compact storage)
+    build, kw = policy.tvl2_solver(lena.shape, cov2, np.ones(2), "cuda", its,
+                                   sweeps, "huber", cgi)
+    lib = build(**kw)(b, b, ALPHA, RHO)
+    lib = interop.to_numpy(lib).astype(np.float64) * lena.max()
     cli_dev = float(np.max(np.abs(recon - lib)) / np.max(np.abs(lib)))
     require(recon.shape == lena.shape and np.all(np.isfinite(recon)),
             "phase 15: CLI result not finite or misshapen")
     require(cli_dev <= KERNEL_TOL, "phase 15: CLI vs library %.3g" % cli_dev)
     print("phase 15 CLI --data-loss huber %s: shape %s finite, max|cli - "
-          "library|/max %.3e; launches %s, plain calls 0"
-          % (os.path.basename(obs), recon.shape, cli_dev, cli_launches))
+          "library (%s)|/max %.3e; launches %s, plain calls 0"
+          % (os.path.basename(obs), recon.shape,
+             "compact" if kw.get("compact_dirs") else "exact", cli_dev,
+             cli_launches))
     return {"launches": scale_launches, "err": err, "times": times}
 
 
@@ -1480,7 +1518,8 @@ def run_admm_study_phase(device, card):
               "rho": np.array([g[1] for g in grid])}
     torch.cuda.synchronize()
     F.reset_counts()
-    x_all, recs = solver.run_sweep(params, measures=measures)
+    with exact_storage():
+        x_all, recs = solver.run_sweep(params, measures=measures)
     torch.cuda.synchronize()
     names = F.ADMM_UNITS + F.RECORD_UNITS
     launches, plain_calls = F.launch_counts(names), F.plain_counts()
@@ -1548,10 +1587,11 @@ def run_admm_study_phase(device, card):
     ms_k = cuda_ms(lambda: solve(b, b, a0, r0, record_dls=1.0 / xs), reps=5)
     ms_p = cuda_ms(lambda: solve.plain(b, b, a0, r0, record_dls=1.0 / xs),
                    reps=1)
-    t_sweep = sweep_timing(lambda: solver.run_sweep(params,
-                                                    measures=measures),
-                           "phase 18 TVL2 ADMM run_sweep (16 configurations,"
-                           " records)", card)
+    with exact_storage():
+        t_sweep = sweep_timing(lambda: solver.run_sweep(params,
+                                                        measures=measures),
+                               "phase 18 TVL2 ADMM run_sweep (16 "
+                               "configurations, records)", card)
     # the solve's bound: its units' bounds (bytes) at their launch counts
     solve_bound = sum(n / len(grid) * unit_bound(k, 256 ** 2, (13, 13),
                                                  nd=2)[0]
@@ -1697,11 +1737,12 @@ def run_scale_cli_phase(device, card):
             reader = DataReader(out)
             reader.read_data()
             recon = reader.get_data()
-        lib = TikhonovLinearSolver(
-            A2, A2, img, D2, Dt2, img, x_scale=xs, data_loss=loss,
-            minimizer="auto", iter_max=iters, irls_cg_iters=HUBER_CG,
-            blur_cov=np.eye(2), spacing=np.ones(2), reg_kind="TK1",
-            device=device).run_sweep({"alpha": np.array([0.05])})[0][0]
+        with exact_storage():  # run() is the exact generic solve
+            lib = TikhonovLinearSolver(
+                A2, A2, img, D2, Dt2, img, x_scale=xs, data_loss=loss,
+                minimizer="auto", iter_max=iters, irls_cg_iters=HUBER_CG,
+                blur_cov=np.eye(2), spacing=np.ones(2), reg_kind="TK1",
+                device=device).run_sweep({"alpha": np.array([0.05])})[0][0]
         dev = float(np.abs(recon - lib).max() / np.abs(lib).max())
         require(recon.shape == img.shape and dev <= SOLVE_VOX_TOL,
                 "phase 19: TK1L2 %s CLI vs library sweep %.3g" % (loss, dev))
@@ -2030,9 +2071,11 @@ def tiled_fit_checks(T, B, device):
     return rel
 
 
-def scale_problem(device, robust):
-    """The 512³ input on the card: ``A·(rand > 0.7)``, plus the outliers
-    for the robust probe; the float32 blur ``A`` and the float64 one."""
+def scale_problem(device, robust, shape=BIG):
+    """The 512³ input on the card (or one of ``shape``): ``A·(rand >
+    0.7)``, plus the salt-and-pepper outliers ``0.5·(rand < 0.01)·randn``
+    of the robust problems (the 256³ suite volume, the 512³ probe); the
+    σ = 1 blur and its float64 form for the objective."""
     import torch
 
     from nsol_tpu_torch.ops import conv as C
@@ -2041,12 +2084,12 @@ def scale_problem(device, robust):
     A, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float32)
     A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
     rs = np.random.RandomState(0)
-    xt = torch.as_tensor(rs.rand(*BIG) > 0.7, device=device).float()
+    xt = torch.as_tensor(rs.rand(*shape) > 0.7, device=device).float()
     b = A(xt).contiguous()
     del xt
     if robust:
-        noise = (rs.rand(*BIG) < 0.01).astype(np.float32) \
-            * rs.randn(*BIG).astype(np.float32)
+        noise = (rs.rand(*shape) < 0.01).astype(np.float32) \
+            * rs.randn(*shape).astype(np.float32)
         b += 0.5 * torch.as_tensor(noise, device=device)
         del noise
     return b, iso, A64
@@ -2267,10 +2310,10 @@ def run_scale_phases(device, card):
                                            iter_max=ITER_MAX,
                                            compact_dirs=True)(bs, bs, ALPHA,
                                                               RHO)
-            else:
+            else:  # the blocked robust solve in compact storage
                 lib = R.blocked_robust_admm_solve(
                     sub.shape, iso, iterations=its, iter_max=sweeps,
-                    irls_cg_iters=cgi)(bs, bs, ALPHA, RHO)
+                    irls_cg_iters=cgi, compact_dirs=True)(bs, bs, ALPHA, RHO)
             lib = interop_numpy(lib).astype(np.float64) * scale
             cli_dev[loss] = float(np.max(np.abs(recon - lib))
                                   / np.max(np.abs(lib)))
@@ -2328,10 +2371,16 @@ SWEEP_F32_TOL, COMPACT_OBJ_TOL = 1e-4, 1e-3
 #: phase 24). At 1 outer × 2 CG the RMS gap ‖x_k − x_p‖ tells the storage
 #: apart: it is at most COMPACT_PLAIN_SHARE of the plain solve's RMS gap to
 #: the exact one (phase 24 on an H100: 0.03-0.06 with bf16 directions,
-#: 0.002 with bf16 state; a kernel that kept float32 storage gives 1)
+#: 0.002 with bf16 state; a kernel that kept float32 storage gives 1).
+#: The robust solves (phase 30): the fused ones' bf16 directions take the
+#: "dirs" bands; the blocked solve's "io" storage (bf16 directions, the
+#: weights read as bf16 by the apply, whose output is rounded to bf16)
+#: takes its own, set before its first run on the card between the two:
+#: the objective within 1e-5, each voxel within 1e-2 · max |x|, and the
+#: same RMS share, at 1 outer × 1 sweep × 2 CG (ROBUST_SHORT).
 COMPACT_PLAIN_SHARE = 0.2
-COMPACT_PLAIN_OBJ_TOL = {"dirs": 1e-6, "state": 1e-5}
-COMPACT_PLAIN_VOX_TOL = {"dirs": 1e-3, "state": 2e-2}
+COMPACT_PLAIN_OBJ_TOL = {"dirs": 1e-6, "state": 1e-5, "io": 1e-5}
+COMPACT_PLAIN_VOX_TOL = {"dirs": 1e-3, "state": 2e-2, "io": 1e-2}
 #: the storage options of a solve factory (the rest name its route)
 STORAGE_KEYS = ("precision", "compact_dirs", "state_dtype")
 #: storage-typed units of the compact group: the entry's name in the
@@ -2420,12 +2469,14 @@ def compact_pairs_err(pairs):
     return worst
 
 
-def compact_plain_gaps(factory, kw, b, objective, outer=2):
+def compact_plain_gaps(factory, kw, b, objective, outer=2, short=None):
     """``(objective rel, voxel rel, RMS share)`` of the solve
     ``factory(iterations=outer, **kw)`` on ``b`` against its plain
-    version; the share, of ``factory(iterations=1, iter_max=2, **kw)``'s
-    RMS gap to its plain version over the plain solve's RMS gap to the
-    exact one (None without a storage mode). See COMPACT_PLAIN_SHARE."""
+    version; the share, of the short solve ``factory(**short, **kw)``'s
+    (``short`` by default 1 outer × 2 CG) RMS gap to its plain version
+    over the plain solve's RMS gap to the exact one (None without a
+    storage mode). See COMPACT_PLAIN_SHARE."""
+    short = short or dict(iterations=1, iter_max=2)
     s = factory(iterations=outer, **kw)
     xk, xp = s(b, b, ALPHA, RHO), s.plain(b, b, ALPHA, RHO)
     ok, op = objective(xk), objective(xp)
@@ -2433,8 +2484,8 @@ def compact_plain_gaps(factory, kw, b, objective, outer=2):
             float((xk - xp).abs().max() / xp.abs().max()), None]
     del xk, xp
     if any(kw.get(k) not in (None, False) for k in STORAGE_KEYS[1:]):
-        one = factory(iterations=1, iter_max=2, **kw)
-        exact = factory(iterations=1, iter_max=2, **{
+        one = factory(**short, **kw)
+        exact = factory(**short, **{
             k: v for k, v in kw.items() if k not in STORAGE_KEYS})
         xk, xp = one(b, b, ALPHA, RHO), one.plain(b, b, ALPHA, RHO)
         xe = exact(b, b, ALPHA, RHO)
@@ -2443,14 +2494,16 @@ def compact_plain_gaps(factory, kw, b, objective, outer=2):
     return tuple(gaps)
 
 
-def compact_gaps_ok(gaps, kw):
+def compact_gaps_ok(gaps, kw, storage=None):
     """Whether :func:`compact_plain_gaps` of the solve options ``kw``
-    pass: the COMPACT_PLAIN bands under a storage mode, the float32 solve
-    bands (SOLVE_*) without one."""
+    pass: the COMPACT_PLAIN bands of ``storage`` (by default the one
+    ``kw`` names: "dirs", or "state" with a ``state_dtype``) under a
+    storage mode, the float32 solve bands (SOLVE_*) without one."""
     obj, vox, share = gaps
     if share is None:
         return obj <= SOLVE_OBJ_TOL and vox <= SOLVE_VOX_TOL
-    storage = "dirs" if kw.get("state_dtype") is None else "state"
+    storage = storage or ("dirs" if kw.get("state_dtype") is None
+                          else "state")
     return (obj <= COMPACT_PLAIN_OBJ_TOL[storage]
             and vox <= COMPACT_PLAIN_VOX_TOL[storage]
             and share <= COMPACT_PLAIN_SHARE)
@@ -2878,11 +2931,8 @@ def run_compact_phases(device, card):
                                  device=device)
             for env in envs:
                 out = os.path.join(tmp, "x.nii")
-                saved = {k: os.environ.get(k) for k in
-                         ("NSOL_TPU_EXACT", "NSOL_TPU_COMPACT")}
-                os.environ.update(env)
-                try:
-                    build, kw = policy.tvl2_linear_solver(
+                with environ(**env):
+                    build, kw = policy.tvl2_solver(
                         vol.shape, iso, np.ones(3), "cuda", its, ITER_MAX)
                     rc = run_deconvolution.main([
                         "--observation", obs, "--result", out, "--solver",
@@ -2890,12 +2940,6 @@ def run_compact_phases(device, card):
                         str(ALPHA), "--blur", str(SIGMA), "--iterations",
                         str(its), "--iter-max", str(ITER_MAX), "--device",
                         "cuda"])
-                finally:
-                    for k, v in saved.items():
-                        if v is None:
-                            os.environ.pop(k, None)
-                        else:
-                            os.environ[k] = v
                 want = {(): {"precision": "high3", "compact_dirs": True}
                         if vol.shape == (64,) * 3 else {"compact_dirs": True},
                         ("NSOL_TPU_EXACT",): {},
@@ -2943,10 +2987,11 @@ def run_compact_phases(device, card):
 
 def compact_bound(name, shape):
     """``(bound_ms, bound_by)`` of one call of the compact entry ``name``
-    at ``shape``: its bytes a voxel (each input read once, each output
-    written once, at its storage width) and ~2 operations a tap plus ~20
-    for the Laplacian and the update."""
-    _, _, _, _, bpv, taps = COMPACT_UNITS[name]
+    (of COMPACT_UNITS or ROBUST_COMPACT_UNITS) at ``shape``: its bytes a
+    voxel (each input read once, each output written once, at its storage
+    width) and ~2 operations a tap plus ~20 for the Laplacian and the
+    update."""
+    _, _, _, _, bpv, taps = {**COMPACT_UNITS, **ROBUST_COMPACT_UNITS}[name]
     n = int(np.prod(shape))
     return bound(float(n) * bpv, float(n) * (2 * 3 * taps + 20))
 
@@ -3316,6 +3361,547 @@ def run_sharded_phases(device, card):
 
 # ------------------------------------------------------------------ main --
 
+# -------------------------------------------------- phases 29-31 --
+
+#: the storage-typed robust and Tikhonov units (K10b): the entry's name in
+#: the kernels line → (wrapper, TPU kernel it replaces, source, main path,
+#: bytes a voxel it must move, taps of its chain); the main path names the
+#: phase 30/31 run whose launches it reports and the shape it is timed at.
+#: The weighted applies read r, a bf16 p, free and the f32 weights (the
+#: "io" form rounds them as it reads them) and write a bf16 p' and q: 20
+#: bytes, two blur chains of 7 taps an axis at σ = 1. Their TK1 instances
+#: are the ADMM's (the same Laplacian); TK0 has its own.
+ROBUST_COMPACT_UNITS = {
+    "weighted_apply[dirs]": ("weighted_apply",
+                             "nsol_tpu/ops/pallas/fused.py:382",
+                             "nsol_tpu_torch/csrc/robust.cu", "lena_dirs",
+                             4 + 2 + 4 + 4 + 2 + 4, 14),
+    "weighted_apply[dirs,TK0]": ("weighted_apply",
+                                 "nsol_tpu/ops/pallas/fused.py:716",
+                                 "nsol_tpu_torch/csrc/robust.cu",
+                                 "tk0_huber", 20, 14),
+    "cg_step[qf32,TK0]": ("cg_step", "nsol_tpu/ops/pallas/fused.py:716",
+                          "nsol_tpu_torch/csrc/admm.cu", "tk0_linear",
+                          4 + 2 + 2 + 4, 13),
+    "weighted_apply[io]": ("weighted_apply",
+                           "nsol_tpu/ops/pallas/robust.py:264",
+                           "nsol_tpu_torch/csrc/robust.cu", "scale_io", 20,
+                           14),
+    "weighted_apply_zy[io]": ("weighted_apply_zy",
+                              "nsol_tpu/ops/pallas/robust.py:564",
+                              "nsol_tpu_torch/csrc/tiled.cu", "big_io", 20,
+                              14),
+}
+#: the shape each main path of phases 30-31 runs at
+ROBUST_COMPACT_SHAPES = {"lena_dirs": (256, 256), "tk0_huber": (256, 256),
+                         "tk0_linear": (256, 256), "scale_io": SCALE_SHAPE,
+                         "big_io": BIG}
+#: the fused solves' compact storage (the reference CLI's and sweeps')
+FUSED_COMPACT = {"precision": "high3", "compact_dirs": True}
+#: the short robust solve of the RMS share (compact_plain_gaps)
+ROBUST_SHORT = dict(iterations=1, iter_max=1, irls_cg_iters=2)
+#: α of the TK0 units (ρ := α in the Tikhonov solve)
+TIK_ALPHA = 0.05
+
+
+def robust_pairs(got, ref, storage):
+    """(kernel, plain) pairs of a weighted apply's ``(p', q, scalars)``;
+    under "io" q holds bfloat16 values (the rounded core, or p' where
+    frozen) and is held to the bf16 band."""
+    import torch
+
+    pairs = list(zip(got, ref))
+    if storage == "io":
+        pairs[1] = tuple(t.to(torch.bfloat16) for t in pairs[1])
+    return pairs
+
+
+def robust_compact_pairs(st, shape, device, rng):
+    """Every storage-typed robust unit and its plain version on the same
+    inputs — ``weighted_apply`` in the "dirs" and "io" modes (TK1 and TK0),
+    ``weighted_apply_zy`` in both, masked and not, first trip and not;
+    ``cg_step`` in "qf32" with TK0; the masked CG's ``cg_update`` on a
+    bfloat16 direction —: ``{unit: [(kernel out, plain out), ...]}``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    bf = torch.bfloat16
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    r, p, wts, x, q = rand(-0.5), rand(-0.5), rand(0.1), rand(-0.3), \
+        rand(-0.5)
+    free, pb = (rand() > 0.3).float(), p.to(bf)
+    out = {}
+    forms = ((R.weighted_apply, R.weighted_apply_plain, "TK1"),
+             (R.weighted_apply, R.weighted_apply_plain, "TK0"),
+             (T.weighted_apply_zy, T.weighted_apply_zy_plain, None))
+    for unit, plain, reg in forms:
+        extra = {} if reg is None else {"reg": reg}
+        rho = TIK_ALPHA if reg == "TK0" else RHO
+        for storage in ("dirs", "io"):
+            key = "%s[%s%s]" % (unit.__name__, storage,
+                                ",TK0" if reg == "TK0" else "")
+            for first in (True, False):
+                for f in (free, None):
+                    s1, s2 = _scal(device), _scal(device)
+                    got = unit(r, pb, f, wts, s1, st.blur, st.inv_h2, rho,
+                               first=first, storage=storage, **extra)
+                    ref = plain(r, pb, f, wts, s2, st.blur, st.inv_h2, rho,
+                                first=first, storage=storage, **extra)
+                    out.setdefault(key, []).extend(
+                        robust_pairs(got, ref, storage)
+                        + [(s1[1:3], s2[1:3])])
+    for first in (True, False):
+        s1, s2 = _scal(device), _scal(device)
+        out.setdefault("cg_step[qf32,TK0]", []).extend(list(zip(
+            B.cg_step(r, pb, s1, st.normal, st.inv_h2, TIK_ALPHA, first,
+                      reg="TK0", storage="qf32"),
+            B.cg_step_plain(r, pb, s2, st.normal, st.inv_h2, TIK_ALPHA,
+                            first, reg="TK0", storage="qf32")))
+            + [(s1[1:3], s2[1:3])])
+    s1, s2 = _scal(device), _scal(device)
+    xk, xp, rk, rp = x.clone(), x.clone(), r.clone(), r.clone()
+    B.cg_update(xk, rk, pb, q, s1)
+    B.cg_update_plain(xp, rp, pb, q, s2)
+    out["cg_update[qf32]"] = [(xk, xp), (rk, rp), (s1[[0, 3]], s2[[0, 3]])]
+    return out
+
+
+def robust_compact_call(st, shape, device, name):
+    """``(kernel, plain, float32 twin, pair)`` closures of the entry
+    ``name`` of ROBUST_COMPACT_UNITS at ``shape``, in the form its main
+    path runs (masked, a later trip), on random inputs of its own; each
+    returns its outputs and CG scalars from scalars of its own (the calls
+    leave their inputs alone, so repeated calls give the same outputs).
+    ``pair(got, ref)`` matches kernel and plain outputs into
+    :func:`compact_pairs_err` pairs."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    rng = np.random.RandomState(29)
+
+    def rand(lo=0.0):
+        return torch.as_tensor(rng.rand(*shape).astype(np.float32) + lo,
+                               device=device)
+
+    r, p, wts = rand(-0.5), rand(-0.5), rand(0.1)
+    free, pb = (rand() > 0.3).float(), p.to(torch.bfloat16)
+    s = [_scal(device) for _ in range(3)]
+    unit, mode = name[:-1].split("[")
+    storage, reg = (mode.split(",") + ["TK1"])[:2]
+    rho = TIK_ALPHA if reg == "TK0" else RHO
+    if unit == "cg_step":
+        units = (B.cg_step, B.cg_step_plain)
+
+        def call(k, u, sto, pp):
+            return [*u(r, pp, s[k], st.normal, st.inv_h2, rho, reg=reg,
+                       storage=sto), s[k][1:3]]
+    else:
+        units = (R.weighted_apply, R.weighted_apply_plain) \
+            if unit == "weighted_apply" \
+            else (T.weighted_apply_zy, T.weighted_apply_zy_plain)
+        extra = {"reg": reg} if unit == "weighted_apply" else {}
+
+        def call(k, u, sto, pp):
+            return [*u(r, pp, free, wts, s[k], st.blur, st.inv_h2, rho,
+                       storage=sto, **extra), s[k][1:3]]
+
+    return (lambda: call(0, units[0], storage, pb),
+            lambda: call(1, units[1], storage, pb),
+            lambda: call(2, units[0], "exact", p),
+            lambda got, ref: robust_pairs(got, ref, storage))
+
+
+def run_compact_robust_phases(device, card):
+    """Phases 29-31: the robust and Tikhonov compact storage (K10b.1-3,
+    5). Returns the ``kernels`` records of their storage-typed units."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop, policy
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader, read_nifti, write_nifti
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tikhonov as Tk
+    from nsol_tpu_torch.solvers.wrappers import (ADMMLinearSolver,
+                                                 TikhonovLinearSolver)
+
+    # phase 29: the units against their plain versions on tile-edge shapes
+    rng = np.random.RandomState(29)
+    for label, cov, sp, shape in EDGE_CASES + (
+            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        worst = compact_pairs_err(robust_compact_pairs(st, shape, device,
+                                                       rng))
+        print("phase 29 robust storage units %s %s: f32 outputs and dots "
+              "within %.2e of plain, bf16 ones within %g ulp"
+              % (label, "x".join(map(str, shape)), worst, BF16_ULPS))
+    # ... and at each main path's shape, timed beside the float32 instance
+    times, err = {}, {}
+    for name, u in ROBUST_COMPACT_UNITS.items():
+        shape = ROBUST_COMPACT_SHAPES[u[3]]
+        st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * len(shape)), 3, None,
+                                 device)
+        kf, pf, tf, pair = robust_compact_call(st, shape, device, name)
+        pairs = pair(kf(), pf())
+        compact_pairs_err({name: pairs})
+        err[name] = max(float((g.float() - f.float()).abs().max())
+                        for g, f in pairs if tuple(g.shape) == shape)
+        del pairs
+        reps = 3 if shape == BIG else 10
+        times[name] = (cuda_median_ms(kf, reps), cuda_median_ms(pf, 2),
+                       cuda_median_ms(tf, reps))
+        del kf, pf, tf, pair
+        torch.cuda.empty_cache()
+    print("phase 29 at each main path's shape: every output within its band "
+          "of plain (max |d| %s)" % {k: "%.3g" % v for k, v in err.items()})
+    print("phase 29 per call at each main path's shape (kernel / plain / "
+          "float32-storage ms; bound ms): %s [%s]" % (", ".join(
+              "%s %s %.4f/%.3f/%.4f, %.4f" % (
+                  k, "x".join(map(str, ROBUST_COMPACT_SHAPES[u[3]])),
+                  *times[k], compact_bound(k, ROBUST_COMPACT_SHAPES[u[3]])[0])
+              for k, u in ROBUST_COMPACT_UNITS.items()), card))
+    lap("phase 29")
+
+    # phase 30: the compact robust solves against the exact ones, the
+    # anchors and their plain versions
+    launches, runs, plain_gates = {}, {}, {}
+
+    def run(key, solve, b, objective):
+        if b.numel() <= 64 ** 3:  # host-bound: warm the allocator first
+            solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x, ms = timed_once(lambda: solve(b, b, ALPHA, RHO))
+        launches[key] = {k: v for k, v in F.launch_counts().items() if v}
+        require(all(v == 0 for v in F.plain_counts().values()),
+                "phase 30: %s ran a plain version: %s"
+                % (key, F.plain_counts()))
+        require(bool(torch.isfinite(x).all()) and x.shape == b.shape,
+                "phase 30: %s not finite or misshapen" % key)
+        runs[key] = (objective(x), ms)
+
+    def held_to_plain(key, factory, kw, b, objective, storage, outer=2):
+        plain_gates[key] = gaps = compact_plain_gaps(
+            factory, kw, b, objective, outer, ROBUST_SHORT)
+        require(compact_gaps_ok(gaps, kw, storage),
+                "phase 30: %s kernel vs plain: at %d outer objective rel "
+                "%.3g, voxel %.3g; RMS share of the gap to exact %s"
+                % (key, outer, gaps[0], gaps[1], gaps[2]))
+
+    def compared(key, exact_key, tol, what):
+        rel = abs(runs[key][0] - runs[exact_key][0]) / runs[exact_key][0]
+        require(rel <= tol, "phase 30: %s objective %.6f vs exact %.6f (rel "
+                "%.3g > %g)" % (what, runs[key][0], runs[exact_key][0], rel,
+                                tol))
+        return rel
+
+    # Lena 256² huber 10 × 3 × 6, the fused solve
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    img, xs, _, _, _ = lena_problem()
+    b = interop.to_torch((img / xs).astype(np.float32), device)
+    cov2 = np.diag([SIGMA ** 2] * 2)
+    A2, _ = C.make_blur_operators(cov2, alpha_cut=3, dtype=np.float64)
+
+    def obj2(x):
+        return robust_objective(x, b, A2, ALPHA)
+
+    lena_f = partial(F.make_fused_admm_solver, b.shape, cov2, iter_max=sweeps,
+                     data_loss="huber", irls_cg_iters=cgi)
+    for key, kw in (("lena_dirs", FUSED_COMPACT), ("lena_exact", {})):
+        run(key, lena_f(iterations=its, **kw), b, obj2)
+    dev_lena = abs(runs["lena_dirs"][0] - LENA_ROBUST_ANCHOR) \
+        / LENA_ROBUST_ANCHOR
+    require(dev_lena <= ROBUST_ANCHOR_BAND, "phase 30: Lena compact objective"
+            " %.6f deviates %.3g from %.6f" % (runs["lena_dirs"][0], dev_lena,
+                                               LENA_ROBUST_ANCHOR))
+    require(launches["lena_dirs"].get("weighted_apply") == its * sweeps * cgi,
+            "phase 30: Lena compact launches %s" % launches["lena_dirs"])
+    held_to_plain("lena_dirs", lena_f, FUSED_COMPACT, b, obj2, "dirs")
+    # the 64³ phantom, σ = 1 wrap blur, the fused solve at Lena's depth
+    iso = np.diag([SIGMA ** 2] * 3)
+    vol = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
+    b64 = interop.to_torch(ndi.convolve(vol.data.astype(np.float64), kern,
+                                        mode="wrap").astype(np.float32),
+                           device)
+    A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
+
+    def obj64(x):
+        return robust_objective(x, b64, A64, ALPHA)
+
+    cube_f = partial(F.make_fused_admm_solver, (64,) * 3, iso,
+                     iter_max=sweeps, data_loss="huber", irls_cg_iters=cgi)
+    for key, kw in (("cube_dirs", FUSED_COMPACT), ("cube_exact", {})):
+        run(key, cube_f(iterations=its, **kw), b64, obj64)
+    rel_cube = compared("cube_dirs", "cube_exact", SOLVE_OBJ_TOL, "64^3")
+    held_to_plain("cube_dirs", cube_f, FUSED_COMPACT, b64, obj64, "dirs")
+    del b64
+    # the 256³ suite volume with outliers, 10 × 5 × 8, per-axis blocked
+    its, sweeps, cgi = ROBUST_ITERS["scale"]
+    bb, iso, A64 = scale_problem(device, True, SCALE_SHAPE)
+
+    def obj256(x):
+        return robust_objective(x, bb, A64, ALPHA)
+
+    scale_f = partial(R.blocked_robust_admm_solve, SCALE_SHAPE, iso,
+                      iter_max=sweeps, irls_cg_iters=cgi)
+    for key, kw in (("scale_io", {"compact_dirs": True}), ("scale_exact", {})):
+        solve = scale_f(iterations=its, **kw)
+        require(not solve.tiled, "phase 30: 256^3 took the tiled units")
+        run(key, solve, bb, obj256)
+    dev_scale = abs(runs["scale_io"][0] - SCALE_ROBUST_ANCHOR) \
+        / SCALE_ROBUST_ANCHOR
+    require(dev_scale <= ANCHOR_BAND, "phase 30: 256^3 compact objective %.2f"
+            " deviates %.4f%% from %.1f" % (runs["scale_io"][0],
+                                            100 * dev_scale,
+                                            SCALE_ROBUST_ANCHOR))
+    require(launches["scale_io"].get("weighted_apply") == its * sweeps * cgi,
+            "phase 30: 256^3 compact launches %s" % launches["scale_io"])
+    rel_scale = compared("scale_io", "scale_exact", COMPACT_OBJ_TOL, "256^3")
+    held_to_plain("scale_io", scale_f, {"compact_dirs": True}, bb, obj256,
+                  "io")
+    del bb
+    torch.cuda.empty_cache()
+    # 512³ huber 5 × 5 × 8, the tiled units
+    its, sweeps, cgi = BIG_ROBUST_ITERS
+    bb, iso, A64 = scale_problem(device, True)
+
+    def obj512(x):
+        return robust_objective(x, bb, A64, ALPHA)
+
+    big_f = partial(R.blocked_robust_admm_solve, BIG, iso, iter_max=sweeps,
+                    irls_cg_iters=cgi)
+    for key, kw in (("big_io", {"compact_dirs": True}), ("big_exact", {})):
+        solve = big_f(iterations=its, **kw)
+        require(solve.tiled, "phase 30: 512^3 took the per-axis units")
+        run(key, solve, bb, obj512)
+    require(launches["big_io"].get("weighted_apply_zy") == its * sweeps * cgi
+            and "weighted_apply" not in launches["big_io"],
+            "phase 30: 512^3 compact launches %s" % launches["big_io"])
+    rel_big = compared("big_io", "big_exact", COMPACT_OBJ_TOL, "512^3")
+    held_to_plain("big_io", big_f, {"compact_dirs": True}, bb, obj512, "io",
+                  outer=1)
+    del bb
+    torch.cuda.empty_cache()
+    print("phase 30 robust compact solves (objective, ms a solve): %s; Lena "
+          "dev from %.6f %.2e, 256^3 dev from %.1f %.4f%%; rel to exact: "
+          "64^3 %.2e, 256^3 %.2e, 512^3 %.2e; kernel vs plain (objective/"
+          "voxel at 2 outer, 1 at 512^3; RMS share of the gap to exact at "
+          "1 x 1 x 2) %s; launches %s [%s]" % (
+              {k: (round(v[0], 6), round(v[1], 2)) for k, v in runs.items()},
+              LENA_ROBUST_ANCHOR, dev_lena, SCALE_ROBUST_ANCHOR,
+              100 * dev_scale, rel_cube, rel_scale, rel_big,
+              {k: "/".join("-" if g is None else "%.2e" % g for g in v)
+               for k, v in plain_gates.items()},
+              {k: v for k, v in launches.items() if not k.endswith("exact")},
+              card))
+    lap("phase 30")
+
+    # phase 31: run_deconvolution --data-loss huber at its defaults on the
+    # card is the policy's library solve, bit for bit (compact), and with
+    # NSOL_TPU_EXACT=1 the exact one
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vol_path = os.path.join(tmp, "b.nii")
+        b256, _, _ = scale_problem(device, True, SCALE_SHAPE)
+        write_nifti(interop_numpy(b256), vol_path, spacing=np.ones(3))
+        del b256
+        for obs, (its, sweeps, cgi) in (
+                (data.path("2D_Lena_256_blur_noise.png"),
+                 ROBUST_ITERS["lena"]),
+                (vol_path, ROBUST_ITERS["scale"])):
+            reader = DataReader(obs)
+            reader.read_data()
+            nda = reader.get_data()
+            x_scale = np.max(nda)
+            bs = torch.as_tensor(nda / x_scale, dtype=torch.float32,
+                                 device=device)
+            nd = nda.ndim
+            cov = np.diag([SIGMA ** 2] * nd)
+            unit = "weighted_apply"
+            recons = {}
+            for env in ({}, {"NSOL_TPU_EXACT": "1"}):
+                out = os.path.join(tmp, "x.mat")
+                with environ(**env):
+                    build, kw = policy.tvl2_solver(
+                        nda.shape, cov, np.ones(nd), "cuda", its, sweeps,
+                        "huber", cgi)
+                    F.reset_counts()
+                    rc = run_deconvolution.main([
+                        "--observation", obs, "--result", out, "--solver",
+                        "ADMM", "--reconstruction-type", "TVL2",
+                        "--data-loss", "huber", "--alpha", str(ALPHA),
+                        "--blur", str(SIGMA), "--iterations", str(its),
+                        "--iter-max", str(sweeps), "--irls-cg-iters",
+                        str(cgi), "--device", "cuda"])
+                    counts = F.launch_counts()
+                key = "%s %s" % ("x".join(map(str, nda.shape)),
+                                 ",".join(env) or "default")
+                storage = {k: v for k, v in kw.items()
+                           if k in ("precision", "compact_dirs")}
+                want = {} if env else (FUSED_COMPACT if nd == 2
+                                       else {"compact_dirs": True})
+                require(rc == 0 and storage == want and counts[unit] > 0
+                        and all(n == 0 for n in F.plain_counts().values()),
+                        "phase 31: CLI %s: rc %r, options %s, launches %s"
+                        % (key, rc, storage, counts))
+                reader = DataReader(out)
+                reader.read_data()
+                recon = reader.get_data()
+                lib = interop.to_numpy(build(**kw)(bs, bs, ALPHA, RHO))
+                lib = lib.astype(np.float64) * x_scale
+                require(np.array_equal(recon, lib), "phase 31: CLI %s is not "
+                        "the library solve (max |d| %.3g)"
+                        % (key, float(np.max(np.abs(recon - lib)))))
+                recons[key] = recon
+                cli[key] = "%s, %d %s" % (build.__name__, counts[unit], unit)
+            a, e = recons.values()
+            cli["%s compact vs exact" % "x".join(map(str, nda.shape))] = \
+                "%.2e" % float(np.max(np.abs(a - e)) / np.max(np.abs(e)))
+    print("phase 31 CLI run_deconvolution --data-loss huber equals the "
+          "policy's library solve bit for bit: %s" % cli)
+
+    # ... and the study sweeps: the Lena TK1L2/TK0L2 (64 α) and TK0L2
+    # huber (8 α) sweeps and the TV-L2 ADMM huber study (4 α × 2 ρ) run the
+    # compact library solves
+    img, xs, A, D, Dt = lena_problem()
+    b = torch.as_tensor(img / xs, dtype=torch.float32, device=device)
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    cov = np.eye(2)
+    regs = {"TK1": (D, Dt), "TK0": (lambda x: x, lambda x: x)}
+    sweep_launches, sweep_dev, sweep_ms = {}, {}, {}
+    for reg, loss in (("TK1", "linear"), ("TK0", "linear"), ("TK0", "huber")):
+        B_, Bt_ = regs[reg]
+        robust = loss != "linear"
+        alphas = TK_ALPHAS[::HUBER_STEP] if robust else TK_ALPHAS
+        iter_max = HUBER_SWEEPS if robust else TK_ITER_MAX
+        solver = TikhonovLinearSolver(
+            A, A, img, B_, Bt_, img, x_scale=xs, data_loss=loss,
+            data_loss_scale=HUBER_SCALE, minimizer="auto", iter_max=iter_max,
+            irls_cg_iters=HUBER_CG, blur_cov=cov, spacing=np.ones(2),
+            reg_kind=reg, device=device)
+        measures = {
+            "Reg": lambda x, B_=B_: 0.5 * torch.sum(B_(x) * B_(x)),
+            "Data": lambda x, loss=loss: losses.cost_from_residual(
+                A(x) - bt.to(x.dtype), loss, HUBER_SCALE)}
+        key = "%sL2 %s" % (reg, loss)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x_all, recs = solver.run_sweep({"alpha": alphas.astype(np.float64)},
+                                       measures=measures)
+        torch.cuda.synchronize()
+        sweep_launches[key] = {k: v for k, v in F.launch_counts().items()
+                               if v}
+        require(all(n == 0 for n in F.plain_counts().values()),
+                "phase 31: %s sweep ran a plain version" % key)
+        a_list = [float(a) for a in alphas]
+        kw = dict(reg=reg, iter_max=iter_max, data_loss=loss,
+                  irls_cg_iters=HUBER_CG)
+        solves = [partial(Tk.make_fused_tikhonov_solver(b.shape, cov, **kw,
+                                                        **opt),
+                          b, b, a_list, HUBER_SCALE)
+                  for opt in (FUSED_COMPACT, {})]
+        lib, exact = (f() for f in solves)
+        sweep_ms[key] = [cuda_median_ms(f, 5) for f in solves]
+        xk = torch.as_tensor(x_all / xs, dtype=torch.float32, device=device)
+        dev = max_rel(xk, lib)
+        rec_dev = 0.0
+        for j in range(len(alphas)):
+            for row, x in ((0, bt), (1, lib[j].double() * xs)):
+                for name, fn in measures.items():
+                    ref = float(fn(x))
+                    rec_dev = max(rec_dev, abs(recs[name][j, row] - ref)
+                                  / abs(ref))
+        gap = max_rel(lib, exact)
+        require(dev <= KERNEL_TOL and rec_dev <= RECORD_TOL and gap > 0,
+                "phase 31: %s sweep vs the compact library solves %.3g, "
+                "records %.3g, compact vs exact %.3g" % (key, dev, rec_dev,
+                                                         gap))
+        sweep_dev[key] = "x %.2e, records %.2e, compact vs exact %.2e" % (
+            dev, rec_dev, gap)
+        del lib, exact, xk, solves
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    solver = ADMMLinearSolver(
+        A, A, img, D, Dt, img, x_scale=xs, data_loss="huber",
+        data_loss_scale=HUBER_SCALE, minimizer="auto", iterations=its,
+        iter_max=sweeps, irls_cg_iters=cgi, blur_cov=cov, spacing=np.ones(2),
+        device=device)
+    measures = {
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(D(x) ** 2, 0))),
+        "Data": lambda x: losses.cost_from_residual(
+            A(x) - bt.to(x.dtype), "huber", HUBER_SCALE)}
+    grid = [(float(a), r) for a in TV_ALPHAS[::2] for r in TV_RHOS]
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x_all, recs = solver.run_sweep(
+        {"alpha": np.array([g[0] for g in grid]),
+         "rho": np.array([g[1] for g in grid])}, measures=measures)
+    torch.cuda.synchronize()
+    key = "TVL2 ADMM huber"
+    sweep_launches[key] = {k: v for k, v in F.launch_counts().items() if v}
+    require(all(n == 0 for n in F.plain_counts().values()),
+            "phase 31: the ADMM huber study ran a plain version")
+    lib, exact = (F.make_fused_admm_solver(b.shape, cov, iterations=its,
+                                           iter_max=sweeps, data_loss="huber",
+                                           irls_cg_iters=cgi, **opt)
+                  for opt in (FUSED_COMPACT, {}))
+    sweep_ms[key] = [cuda_median_ms(lambda s=s: s(b, b, ALPHA, RHO), 5)
+                     for s in (lib, exact)]
+    dev = rec_dev = 0.0
+    for j, (a, rho) in enumerate(grid):
+        xl = lib(b, b, a, rho, data_loss_scale=HUBER_SCALE)
+        dev = max(dev, max_rel(torch.as_tensor(x_all[j] / xs,
+                                               dtype=torch.float32,
+                                               device=device), xl))
+        for name, fn in measures.items():
+            ref = float(fn(xl.double() * xs))
+            rec_dev = max(rec_dev, abs(recs[name][j, -1] - ref) / abs(ref))
+    require(dev <= KERNEL_TOL and rec_dev <= RECORD_TOL,
+            "phase 31: %s vs the compact library solves %.3g, records %.3g"
+            % (key, dev, rec_dev))
+    sweep_dev[key] = "x %.2e, records %.2e" % (dev, rec_dev)
+    print("phase 31 study sweeps in compact storage on the card, against "
+          "the compact library solves: %s; launches %s; the fused solves "
+          "(a Tikhonov batch, one ADMM configuration), compact / exact ms: "
+          "%s [%s]" % (sweep_dev, sweep_launches,
+                       {k: "%.3f/%.3f" % tuple(v) for k, v in
+                        sweep_ms.items()}, card))
+    lap("phase 31")
+
+    path_launches = {
+        "lena_dirs": launches["lena_dirs"], "scale_io": launches["scale_io"],
+        "big_io": launches["big_io"],
+        "tk0_linear": sweep_launches["TK0L2 linear"],
+        "tk0_huber": sweep_launches["TK0L2 huber"]}
+    out = []
+    for name, (unit, tpu, source, path, _, _) in ROBUST_COMPACT_UNITS.items():
+        b_ms, b_by = compact_bound(name, ROBUST_COMPACT_SHAPES[path])
+        t = times[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": tpu,
+                    "launches": int(path_launches[path].get(unit, 0)),
+                    "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        require(out[-1]["launches"] > 0, "phase 30/31: %s launched no time "
+                "on its main path (%s)" % (name, path))
+    return out
+
+
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
     counts of the 64³ solve, each unit's max |Δ| against its plain version
@@ -3471,7 +4057,7 @@ def run_admm_phases(device, card):
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
-          "scale", "compact", "sharded")
+          "scale", "compact", "sharded", "compact_robust")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -3599,7 +4185,8 @@ def main(argv=None):
         units = run_unit_phase(device, card)
         lap("phase 16")
     if "tikhonov" in groups:
-        tik = run_tikhonov_phase(device, card)
+        with exact_storage():  # the sweeps' float64 anchors, as before
+            tik = run_tikhonov_phase(device, card)
         lap("phase 17")
     if "study" in groups:
         study = run_admm_study_phase(device, card)
@@ -3632,6 +4219,8 @@ def main(argv=None):
                                       sh["times"], int(np.prod(BIG)),
                                       sh["taps"], ext=sh["ext"],
                                       reads=sh["reads"])
+    if "compact_robust" in groups:
+        kernels += run_compact_robust_phases(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -7,21 +7,22 @@ header when present. TVL2 by ADMM runs the whole solve on ``b/x_scale`` in
 float32 with ``x_scale = max(b)``, rescaled on output, as the reference's
 accelerator route does (run_deconvolution.py:79,137,242).
 
-The linear loss takes its solver factory and storage from
-:func:`nsol_tpu_torch.policy.tvl2_linear_solver`, the reference CLI's
-choice (:140-220): the fused solve
-(:func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver`) where it
-fits (64³, 2-D images), else
+Both losses take their solver factory and storage from
+:func:`nsol_tpu_torch.policy.tvl2_solver`, the reference CLI's choice
+(:140-220): the fused solve
+(:func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver`, linear or
+robust) where 16 volumes fit 64 MiB (64³, 2-D images up to 1024²), and a
+2-D image past that too; for a 3-D volume past it the linear loss takes
 :func:`~nsol_tpu_torch.ops.cuda.blocked.blocked_admm_solve` ("step" at
-128³/256³, "apply" at 512-wide planes), in compact storage on
-``--device cuda`` (``precision="high3", compact_dirs=True`` fused,
-``compact_dirs=True`` blocked, ``state_dtype=bfloat16`` with
-``NSOL_TPU_COMPACT=1``) and exact f32 with ``NSOL_TPU_EXACT=1`` or on
-``--device cpu``. A robust loss takes the fused robust solve, or
-:func:`~nsol_tpu_torch.ops.cuda.robust.blocked_robust_admm_solve` for a
-3-D volume with 512-wide planes whose blur fits the tiled kernels, in
-exact f32: its compact storage waits for ROADMAP Queue 2 K10b.
-``--data-loss-scale`` reaches a robust solve unscaled, as there (:139).
+128³/256³, "apply" at 512-wide planes) and a robust one
+:func:`~nsol_tpu_torch.ops.cuda.robust.blocked_robust_admm_solve` (its
+tiled units at 512-wide planes whose blur fits them, else the per-axis
+ones). On ``--device cuda`` they run in compact storage
+(``precision="high3", compact_dirs=True`` fused, ``compact_dirs=True``
+blocked, the linear ``state_dtype=bfloat16`` with ``NSOL_TPU_COMPACT=1``),
+exact f32 with ``NSOL_TPU_EXACT=1``, on ``--device cpu`` and for a 2-D
+image past the fused solve's fit. ``--data-loss-scale`` reaches a robust
+solve unscaled, as there (:139).
 TK0L2/TK1L2 run the interface's
 :class:`~nsol_tpu_torch.solvers.wrappers.TikhonovLinearSolver` per α
 (:253-290), with the blur hint, so that on CUDA the kernel units serve its
@@ -42,9 +43,6 @@ from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
-from nsol_tpu_torch.ops.cuda.blocked import takes_zy_route
-from nsol_tpu_torch.ops.cuda.fused import make_fused_admm_solver
-from nsol_tpu_torch.ops.cuda.robust import blocked_robust_admm_solve
 from nsol_tpu_torch.solvers.tikhonov import resolve_minimizer
 
 #: the reconstruction types this CLI runs
@@ -130,24 +128,15 @@ def main(argv=None):
                              minimizer, x_scale, alphas)
 
     # ---------------------------- Set up solver ----------------------------
-    shape = observed_nda.shape
+    build, kwargs = policy.tvl2_solver(
+        observed_nda.shape, cov, spacing, args.device, args.iterations,
+        args.iter_max, args.data_loss, args.irls_cg_iters)
+    built = build(**kwargs)
     if args.data_loss == "linear":
-        build, kwargs = policy.tvl2_linear_solver(
-            shape, cov, spacing, args.device, args.iterations, args.iter_max)
-        linear = build(**kwargs)
-
         def solve(b, x0, alpha, rho, data_loss_scale=1.0):
-            return linear(b, x0, alpha, rho)
-    elif not takes_zy_route(shape, cov, spacing=spacing, route="robust"):
-        solve = make_fused_admm_solver(
-            shape, cov, spacing=spacing, iterations=args.iterations,
-            iter_max=args.iter_max, data_loss=args.data_loss,
-            irls_cg_iters=args.irls_cg_iters)
+            return built(b, x0, alpha, rho)
     else:
-        solve = blocked_robust_admm_solve(
-            shape, cov, spacing=spacing, iterations=args.iterations,
-            iter_max=args.iter_max, irls_cg_iters=args.irls_cg_iters,
-            data_loss=args.data_loss)
+        solve = built
     b = torch.as_tensor(observed_nda / x_scale, dtype=torch.float32,
                         device=args.device)
 

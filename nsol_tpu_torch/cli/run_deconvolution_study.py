@@ -7,9 +7,12 @@ TK0L2 and TK1L2 (linear or robust loss) and TVL2 with ``--solver ADMM``
 run through :class:`~nsol_tpu_torch.interface.
 DeconvolutionParameterStudyInterface`; with the separable Gaussian blur of
 ``--blur`` the solvers' ``run_sweep`` runs the grid through the fused
-solves: on ``--device cuda`` (the default) their CUDA kernels, on
-``--device cpu`` their plain versions. The study files have the JAX
-package's schema, so either package's reader reads them. TVL2 with
+solves: on ``--device cuda`` (the default) their CUDA kernels, in the
+reference's compact storage where the fused solve fits
+(:func:`nsol_tpu_torch.policy.sweep_options`; ``NSOL_TPU_EXACT=1`` for
+exact f32), on ``--device cpu`` their plain versions. The study files
+have the JAX package's schema, so either package's reader reads them. TVL2
+with
 ``--solver PD`` (the reference's default) and HuberL2, and
 ``--reference`` measures, raise ``NotImplementedError`` until their slices
 land (ROADMAP Queue 1 items 6 and 11).

@@ -41,6 +41,18 @@
 //                   Laplacian give the Zl centre rows.
 // Both run stencil.cuh's window chain (x and y passes on every plane of the
 // window, a z pass with no wrap) and GlobalRows.
+//
+// Storage (the reference's compact_dirs / io_dtype, stencil.cuh's
+// RobustStorage): weighted_apply and the sweep take a mode. kRobustDirs
+// (the fused solves' compact_dirs, fused.py:583-622 with _cg_inkernel's
+// round_dir) stores p' in bfloat16, rounded where it is formed; the
+// weights, q, x, r and every sum stay float. kRobustIo
+// (blocked_robust_admm_solve's compact_dirs, robust.py:469-548, the
+// weighted operator's io_dtype) also reads the weights as bfloat16 (the
+// reference's wts16, here rounded as they are read rather than copied)
+// and rounds the core A (w A pf) + rho B^T B pf to bfloat16 before q is
+// formed in float; the head, the gradient (with the float weights) and the
+// step stay float. The masked CG's update then reads a bfloat16 p'.
 // Between applies the masked CG runs stencil.cuh's cg_update (admm.cu's
 // unit): xk += a p', rk -= a q, gamma' = |rk|^2, beta. The sweep is a
 // template: its tiled instance (nsol_robust_admm_solve_zy, the 512-wide-
@@ -115,35 +127,40 @@ struct BlurEpi {
   }
 };
 
-// weighted_apply's first z epilogue: s = wts * A pf.
+// weighted_apply's first z epilogue: s = wts * A pf, the weights read at
+// W's precision (bfloat16 under kRobustIo, the reference's wts16).
+template <class W = float>
 struct ScaleEpi {
   const float* wts;
   float* s;
   __device__ double operator()(long long i, float conv, Coord, Dims) const {
-    s[i] = __fmul_rn(__ldg(wts + i), conv);
+    s[i] = __fmul_rn(round_as<W>(__ldg(wts + i)), conv);
     return 0.0;
   }
 };
 
-// weighted_apply's second z epilogue: core = A s + rho B^T B pf,
+// weighted_apply's second z epilogue: core = A s + rho B^T B pf (rounded to
+// bfloat16 with kIo, as the reference's bf16 io apply stores it),
 // q = free core + (p' - pf) (q = core when every voxel is free), p'.q
-// summed. The frozen coordinates keep q = p', so pq counts them.
-template <int kReg>
+// summed. The frozen coordinates keep q = p', so pq counts them. p' is
+// read as stored (P).
+template <int kReg, class P = float, bool kIo = false>
 struct MaskedEpi {
-  const float* dir;  // p'
+  const P* dir;  // p'
   const float* free;
   float* q;
   float rho;
   Spacing sp;
   __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
-    const float* const dp = dir;
+    const P* const dp = dir;
     const float* const fp = free;
     const auto pf = [dp, fp](long long k) {  // pf = free * p'
-      const float v = __ldg(dp + k);
+      const float v = ldg(dp + k);
       return fp != nullptr ? __ldg(fp + k) * v : v;
     };
-    const float core = fmaf(rho, reg_normal<kReg>(pf, i, c, sp, d), conv);
-    const float p = __ldg(dir + i);
+    float core = fmaf(rho, reg_normal<kReg>(pf, i, c, sp, d), conv);
+    if (kIo) core = round_as<bf16>(core);
+    const float p = ldg(dir + i);
     float qi = core;
     if (free != nullptr) {
       const float f = __ldg(free + i);
@@ -185,24 +202,54 @@ cudaError_t irls_head(const float* x, const float* b, float* wts, float* y, floa
 }
 
 // Two chains: x(p') -> t1 -> t2 -> s in t1; then x(s) -> t2 -> t1 -> q.
-cudaError_t weighted_apply(const float* r, const float* p, float* p_new, float* q,
-                           const float* free, const float* wts, float* t1, float* t2,
-                           double* partials, double* scal, int first, Taps tp, float rho,
-                           int reg, Spacing sp, Dims d, cudaStream_t s) {
+// S (RobustT): p, p' stored as S::P, the weights read at S::W, the core
+// rounded with S::kIo.
+template <class S>
+void weighted_apply_t(const float* r, const typename S::P* p, typename S::P* p_new, float* q,
+                      const float* free, const float* wts, float* t1, float* t2,
+                      double* partials, double* scal, int first, Taps tp, float rho, int reg,
+                      Spacing sp, Dims d, cudaStream_t s) {
+  using P = typename S::P;
+  const ScaleEpi<typename S::W> scale{wts, t1};
   if (free != nullptr)
-    blur_chain(MaskedDirection{r, p, free, scal, first, 0.f}, p_new, ScaleEpi{wts, t1}, nullptr,
+    blur_chain(DirectionT<true, float, P>{r, p, free, scal, first, 0.f}, p_new, scale, nullptr,
                t1, t2, tp, d, s);
   else
-    blur_chain(Direction{r, p, nullptr, scal, first, 0.f}, p_new, ScaleEpi{wts, t1}, nullptr, t1,
-               t2, tp, d, s);
+    blur_chain(DirectionT<false, float, P>{r, p, nullptr, scal, first, 0.f}, p_new, scale,
+               nullptr, t1, t2, tp, d, s);
   if (reg == kRegIdentity)
-    blur_chain(Load{t1}, nullptr, MaskedEpi<kRegIdentity>{p_new, free, q, rho, sp}, partials, t2,
-               t1, tp, d, s);
+    blur_chain(Load{t1}, nullptr, MaskedEpi<kRegIdentity, P, S::kIo>{p_new, free, q, rho, sp},
+               partials, t2, t1, tp, d, s);
   else
-    blur_chain(Load{t1}, nullptr, MaskedEpi<kRegLap>{p_new, free, q, rho, sp}, partials, t2, t1,
-               tp, d, s);
+    blur_chain(Load{t1}, nullptr, MaskedEpi<kRegLap, P, S::kIo>{p_new, free, q, rho, sp},
+               partials, t2, t1, tp, d, s);
+}
+
+// p and p' stored as the RobustStorage mode `storage` says.
+cudaError_t weighted_apply(const float* r, const void* p, void* p_new, float* q,
+                           const float* free, const float* wts, float* t1, float* t2,
+                           double* partials, double* scal, int first, Taps tp, float rho,
+                           int reg, int storage, Spacing sp, Dims d, cudaStream_t s) {
+  const cudaError_t e = with_robust_storage(storage, [&](auto st) {
+    using S = decltype(st);
+    using P = typename S::P;
+    weighted_apply_t<S>(r, static_cast<const P*>(p), static_cast<P*>(p_new), q, free, wts, t1,
+                        t2, partials, scal, first, tp, rho, reg, sp, d, s);
+    return cudaSuccess;
+  });
+  if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReducePQ);
   return cudaGetLastError();
+}
+
+// The masked CG's update: xk += a p' (p' stored as the storage mode says),
+// rk -= a q, gamma' = |rk|^2, beta.
+cudaError_t robust_cg_update(float* xk, float* rk, const void* p, const float* q,
+                             double* partials, double* scal, long long n, int storage,
+                             cudaStream_t s) {
+  if (storage == kRobustExact)
+    return cg_update_t(xk, rk, static_cast<const float*>(p), q, partials, scal, n, 1, s);
+  return cg_update_t(xk, rk, static_cast<const bf16*>(p), q, partials, scal, n, 1, s);
 }
 
 // out = A y (+ rho D^T D u, u_ext given) on a z-window: y_ext, u_ext hold
@@ -227,7 +274,7 @@ cudaError_t weighted_apply_prepadded(const float* v_ext, const float* w_ext, flo
   const int ra = tp.kz / 2;
   const long long plane = d.plane();
   const Dims mid{d.Z + 2 * ra, d.Y, d.X};
-  blur_chain_slab(Load{v_ext}, ScaleEpi{w_ext + (long long)(r - ra) * plane, t1}, nullptr, t1,
+  blur_chain_slab(Load{v_ext}, ScaleEpi<>{w_ext + (long long)(r - ra) * plane, t1}, nullptr, t1,
                   t2, tp, mid, r - ra, s);
   const BlurEpi<kRegLap> epi{v_ext + (long long)r * plane, out, nullptr, nullptr, rho, sp};
   blur_chain_slab(Load{t1}, GlobalRows<BlurEpi<kRegLap>>{epi, row0, z_total}, nullptr, t2, t1,
@@ -277,15 +324,16 @@ int nsol_irls_head(const float* x, const float* b, float* wts, float* y, float* 
   return (int)e;
 }
 
-int nsol_weighted_apply(const float* r, const float* p, float* p_new, float* q,
+// p, p_new stored as the RobustStorage mode `storage` says.
+int nsol_weighted_apply(const float* r, const void* p, void* p_new, float* q,
                         const float* free, const float* wts, float* t1, float* t2,
                         double* partials, double* scal, int first, const float* taps, int kz,
-                        int ky, int kx, float rho, int reg, float ih2x, float ih2y, float ih2z,
-                        int Z, int Y, int X, void* stream, long long* counts) {
+                        int ky, int kx, float rho, int reg, int storage, float ih2x, float ih2y,
+                        float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   cudaError_t e = weighted_apply(r, p, p_new, q, free, wts, t1, t2, partials, scal, first,
-                                 make_taps(taps, kz, ky, kx), rho, reg, sp, Dims{Z, Y, X},
-                                 (cudaStream_t)stream);
+                                 make_taps(taps, kz, ky, kx), rho, reg, storage, sp,
+                                 Dims{Z, Y, X}, (cudaStream_t)stream);
   counts[kWeightedApply] += 1;
   return (int)e;
 }
@@ -333,11 +381,11 @@ int nsol_blur_apply_zy(const float* y, const float* u, float* out, float* free, 
                        const float* taps, int kz, int ky, int kx, float rho, int loss,
                        float scale, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
                        void* stream, long long* counts);
-int nsol_weighted_apply_zy(const float* r, const float* p, float* p_new, float* q,
+int nsol_weighted_apply_zy(const float* r, const void* p, void* p_new, float* q,
                            const float* free, const float* wts, double* partials, double* scal,
                            int first, const float* taps, int kz, int ky, int kx, float rho,
-                           float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream,
-                           long long* counts);
+                           int storage, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
+                           void* stream, long long* counts);
 
 }  // extern "C"
 
@@ -349,13 +397,15 @@ namespace {
 // holds y = wts r until the first apply overwrites it. kTiled swaps in
 // tiled.cu's one-pass units (Laplacian only; their counts go to
 // tiled_counts): blur_apply_zy's head and gradient forms and
-// weighted_apply_zy, which need no scratch volumes.
+// weighted_apply_zy, which need no scratch volumes. The directions p0, p1
+// are stored as the RobustStorage mode `storage` says; the head, the
+// gradient and the step stay float in every mode (robust.py:469-548).
 template <bool kTiled>
-int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0, float* p1,
+int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, void* p0, void* p1,
                float* q, float* xk, float* t1, float* t2, double* partials, double* scal,
-               const float* taps, int kz, int ky, int kx, float rho, int reg, float ih2x,
-               float ih2y, float ih2z, int loss, float scale, int cg_iters, int Z, int Y, int X,
-               void* stream, long long* counts, long long* tiled_counts) {
+               const float* taps, int kz, int ky, int kx, float rho, int reg, int storage,
+               float ih2x, float ih2y, float ih2z, int loss, float scale, int cg_iters, int Z,
+               int Y, int X, void* stream, long long* counts, long long* tiled_counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d{Z, Y, X};
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
@@ -377,19 +427,19 @@ int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, flo
          blur_apply(q, x, nullptr, free, rk, t1, t2, partials, scal, tp, rho, reg, sp, d, s));
   }
   CALL(cudaMemsetAsync(xk, 0, d.n() * sizeof(float), s));
-  float* p_prev = p0;
-  float* p_cur = p1;
+  void* p_prev = p0;
+  void* p_cur = p1;
   for (int k = 0; k < cg_iters; ++k) {
     if (kTiled) {
       CALL(nsol_weighted_apply_zy(rk, p_prev, p_cur, q, free, wts, partials, scal, k == 0, taps,
-                                  kz, ky, kx, rho, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                                  kz, ky, kx, rho, storage, ih2x, ih2y, ih2z, Z, Y, X, stream,
                                   tiled_counts));
     } else {
       UNIT(kWeightedApply, weighted_apply(rk, p_prev, p_cur, q, free, wts, t1, t2, partials,
-                                          scal, k == 0, tp, rho, reg, sp, d, s));
+                                          scal, k == 0, tp, rho, reg, storage, sp, d, s));
     }
-    UNIT(kCgUpdate, cg_update(xk, rk, p_cur, q, partials, scal, d.n(), s));
-    float* tmp = p_prev;
+    UNIT(kCgUpdate, robust_cg_update(xk, rk, p_cur, q, partials, scal, d.n(), storage, s));
+    void* tmp = p_prev;
     p_prev = p_cur;
     p_cur = tmp;
   }
@@ -402,13 +452,14 @@ int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, flo
 // iterations x iter_max IRLS sweeps at rho with the Laplacian; with
 // reg != nullptr, the records of x0 and of every outer iterate.
 template <bool kTiled>
-int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
-                 float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
+int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, void* p0,
+                 void* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                  double* scal, const float* taps, int kz, int ky, int kx, float rho, float ihx,
                  float ihy, float ihz, float ih2x, float ih2y, float ih2z, int loss, float scale,
-                 int iterations, int iter_max, int cg_iters, double* reg, double* data,
-                 double* rec_partials, float rec_scale, int Z, int Y, int X, void* stream,
-                 long long* counts, long long* rec_counts, long long* tiled_counts) {
+                 int iterations, int iter_max, int cg_iters, int storage, double* reg,
+                 double* data, double* rec_partials, float rec_scale, int Z, int Y, int X,
+                 void* stream, long long* counts, long long* rec_counts,
+                 long long* tiled_counts) {
   int e;
 #define RECORD(t)                                                                            \
   if (reg != nullptr &&                                                                      \
@@ -419,8 +470,8 @@ int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, f
   for (int it = 0; it < iterations; ++it) {
     for (int sweep = 0; sweep < iter_max; ++sweep) {
       e = irls_sweep<kTiled>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
-                             kz, ky, kx, rho, kRegLap, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z,
-                             Y, X, stream, counts, tiled_counts);
+                             kz, ky, kx, rho, kRegLap, storage, ih2x, ih2y, ih2z, loss, scale,
+                             cg_iters, Z, Y, X, stream, counts, tiled_counts);
       if (e != 0) return e;
     }
     RECORD(it + 1)
@@ -433,15 +484,16 @@ int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, f
 
 extern "C" {
 
-// One IRLS sweep with the per-axis units (robust.cu's counts).
-int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
-                    float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
+// One IRLS sweep with the per-axis units (robust.cu's counts); p0, p1
+// stored as the RobustStorage mode `storage` says.
+int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, void* p0,
+                    void* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                     double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
-                    float ih2x, float ih2y, float ih2z, int loss, float scale, int cg_iters,
-                    int Z, int Y, int X, void* stream, long long* counts) {
+                    int storage, float ih2x, float ih2y, float ih2z, int loss, float scale,
+                    int cg_iters, int Z, int Y, int X, void* stream, long long* counts) {
   return irls_sweep<false>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps, kz,
-                           ky, kx, rho, reg, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z, Y, X,
-                           stream, counts, nullptr);
+                           ky, kx, rho, reg, storage, ih2x, ih2y, ih2z, loss, scale, cg_iters, Z,
+                           Y, X, stream, counts, nullptr);
 }
 
 // The whole robust ADMM solve (fused.py:382 robust branch, robust.py:406):
@@ -451,18 +503,21 @@ int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk
 // solve records row 0 (x0) and one row per outer iteration through
 // admm.cu's admm_record (its count goes to rec_counts); Reg reads only x,
 // so the records need no TV prox/dual chain. 1/h enters for the records.
+// The directions p0, p1 are stored as the RobustStorage mode `storage`
+// says (kRobustDirs: the fused solve's compact_dirs; kRobustIo:
+// blocked_robust_admm_solve's).
 int nsol_robust_admm_solve(const float* b, float* x, float* wts, float* free, float* rk,
-                           float* p0, float* p1, float* q, float* xk, float* t1, float* t2,
+                           void* p0, void* p1, float* q, float* xk, float* t1, float* t2,
                            double* partials, double* scal, const float* taps, int kz, int ky,
                            int kx, float rho, float ihx, float ihy, float ihz, float ih2x,
                            float ih2y, float ih2z, int loss, float scale, int iterations,
-                           int iter_max, int cg_iters, double* reg, double* data,
+                           int iter_max, int cg_iters, int storage, double* reg, double* data,
                            double* rec_partials, float rec_scale, int Z, int Y, int X,
                            void* stream, long long* counts, long long* rec_counts) {
   return robust_solve<false>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
                              kz, ky, kx, rho, ihx, ihy, ihz, ih2x, ih2y, ih2z, loss, scale,
-                             iterations, iter_max, cg_iters, reg, data, rec_partials, rec_scale,
-                             Z, Y, X, stream, counts, rec_counts, nullptr);
+                             iterations, iter_max, cg_iters, storage, reg, data, rec_partials,
+                             rec_scale, Z, Y, X, stream, counts, rec_counts, nullptr);
 }
 
 // The same launch sequence with tiled.cu's one-pass units in place of
@@ -470,18 +525,18 @@ int nsol_robust_admm_solve(const float* b, float* x, float* wts, float* free, fl
 // 512-wide planes, robust.py:432-491); t1 and t2 serve only the records.
 // partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles.
 int nsol_robust_admm_solve_zy(const float* b, float* x, float* wts, float* free, float* rk,
-                              float* p0, float* p1, float* q, float* xk, float* t1, float* t2,
+                              void* p0, void* p1, float* q, float* xk, float* t1, float* t2,
                               double* partials, double* scal, const float* taps, int kz, int ky,
                               int kx, float rho, float ihx, float ihy, float ihz, float ih2x,
                               float ih2y, float ih2z, int loss, float scale, int iterations,
-                              int iter_max, int cg_iters, double* reg, double* data,
+                              int iter_max, int cg_iters, int storage, double* reg, double* data,
                               double* rec_partials, float rec_scale, int Z, int Y, int X,
                               void* stream, long long* counts, long long* rec_counts,
                               long long* tiled_counts) {
   return robust_solve<true>(b, x, wts, free, rk, p0, p1, q, xk, t1, t2, partials, scal, taps,
                             kz, ky, kx, rho, ihx, ihy, ihz, ih2x, ih2y, ih2z, loss, scale,
-                            iterations, iter_max, cg_iters, reg, data, rec_partials, rec_scale, Z,
-                            Y, X, stream, counts, rec_counts, tiled_counts);
+                            iterations, iter_max, cg_iters, storage, reg, data, rec_partials,
+                            rec_scale, Z, Y, X, stream, counts, rec_counts, tiled_counts);
 }
 
 }  // extern "C"

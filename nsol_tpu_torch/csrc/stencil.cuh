@@ -101,6 +101,36 @@ cudaError_t with_storage(int storage, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// Storage modes of the masked (IRLS) CG, by the reference option that sets
+// them: exact float; kRobustDirs (the fused solves' compact_dirs): the
+// direction p' stored as bfloat16; kRobustIo (blocked_robust_admm_solve's
+// compact_dirs, the weighted apply's io_dtype=bfloat16): p' stored as
+// bfloat16, the weights read as bfloat16, and the apply's core
+// A^T (w A pf) + rho B^T B pf rounded to bfloat16 before q is formed. r, q,
+// x and every sum stay float.
+enum RobustStorage { kRobustExact = 0, kRobustDirs = 1, kRobustIo = 2 };
+
+template <class P_, bool kIo_>
+struct RobustT {
+  using P = P_;                   // the direction's storage
+  using W = typename std::conditional<kIo_, bf16, float>::type;  // the weights' precision
+  static constexpr bool kIo = kIo_;
+};
+
+// f(RobustT<P, kIo>{}) for the robust storage mode `storage`.
+template <class F>
+cudaError_t with_robust_storage(int storage, F&& f) {
+  switch (storage) {
+    case kRobustExact:
+      return f(RobustT<float, false>{});
+    case kRobustDirs:
+      return f(RobustT<bf16, false>{});
+    case kRobustIo:
+      return f(RobustT<bf16, true>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Device scalar slots of the CG state (double); the sweep adds r.q and q.q.
 enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3, kRQ = 4, kQQ = 5 };
 // Second-stage reductions.

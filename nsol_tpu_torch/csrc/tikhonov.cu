@@ -20,7 +20,10 @@
 // every CG scalar on the device (reset per solve): the linear loss runs
 // A^T b once, then per configuration the clip, the residual, iter_max
 // warm-started CG steps and the exit clip; a robust loss runs the clip and
-// iter_max IRLS sweeps (robust.cu nsol_irls_sweep). No host sync.
+// iter_max IRLS sweeps (robust.cu nsol_irls_sweep). No host sync. Under
+// compact (the reference's compact_dirs, fused.py:783-797) the CG
+// directions are bfloat16: the linear CG's storage kStoreQf32 and the IRLS
+// sweep's kRobustDirs, the TK0/TK1 instances of the ADMM's units.
 //
 // What bounds it on the H100: as admm.cu, bytes at 256^3 (tik_clip moves
 // two volumes) and launches at 256^2, where one CG-10 solve is ~67 short
@@ -68,11 +71,11 @@ int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, 
 int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
                    double* scal, long long n, int storage, int store_r, void* stream,
                    long long* counts);
-int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, float* p0,
-                    float* p1, float* q, float* xk, float* t1, float* t2, double* partials,
+int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, void* p0,
+                    void* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                     double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
-                    float ih2x, float ih2y, float ih2z, int loss, float scale, int cg_iters,
-                    int Z, int Y, int X, void* stream, long long* counts);
+                    int storage, float ih2x, float ih2y, float ih2z, int loss, float scale,
+                    int cg_iters, int Z, int Y, int X, void* stream, long long* counts);
 
 int nsol_tik_clip(float* out, const float* in, long long n, void* stream, long long* counts) {
   cudaError_t e = tik_clip(out, in, n, (cudaStream_t)stream);
@@ -86,20 +89,25 @@ int nsol_tik_clip(float* out, const float* in, long long n, void* stream, long l
 // a Loss; the linear loss runs iter_max CG iterations on the normal taps,
 // a robust one iter_max IRLS sweeps of cg_iters CG iterations on the blur
 // taps. Scratch: atb (linear only), r, p0, p1, q, t1, t2, and wts, free,
-// xk (robust only). Counts: admm.cu's (normal_apply, cg_step, cg_update),
-// robust.cu's (blur_apply, irls_head, weighted_apply, irls_step,
-// cg_update) and this file's (tik_clip).
+// xk (robust only). compact 1 (the reference's compact_dirs,
+// fused.py:783-797): the CG directions p0, p1 are bfloat16, rounded where
+// each is formed (the linear CG's storage kStoreQf32, the IRLS sweep's
+// kRobustDirs); r, q, x and every sum stay float. Counts: admm.cu's
+// (normal_apply, cg_step, cg_update), robust.cu's (blur_apply, irls_head,
+// weighted_apply, irls_step, cg_update) and this file's (tik_clip).
 int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* atb, float* r,
-                        float* p0, float* p1, float* q, float* t1, float* t2, float* wts,
+                        void* p0, void* p1, float* q, float* t1, float* t2, float* wts,
                         float* free, float* xk, double* partials, double* scal,
                         const float* taps_a, int kaz, int kay, int kax, const float* taps_n,
                         int knz, int kny, int knx, float ih2x, float ih2y, float ih2z, int reg,
                         int loss, const float* alphas, const float* scales, int nconf,
-                        int iter_max, int cg_iters, int Z, int Y, int X, void* stream,
-                        long long* admm_counts, long long* robust_counts,
+                        int iter_max, int cg_iters, int compact, int Z, int Y, int X,
+                        void* stream, long long* admm_counts, long long* robust_counts,
                         long long* counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long long n = (long long)Z * Y * X;
+  const int storage = compact ? kStoreQf32 : kStoreExact;
+  const int robust_storage = compact ? kRobustDirs : kRobustExact;
   int e;
 #define CALL(call)             \
   if ((e = (call)) != 0) return e;
@@ -116,20 +124,21 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
     if (loss != kLinear) {
       for (int sweep = 0; sweep < iter_max; ++sweep)
         CALL(nsol_irls_sweep(b, x, wts, free, r, p0, p1, q, xk, t1, t2, partials, scal, taps_a,
-                             kaz, kay, kax, alpha, reg, ih2x, ih2y, ih2z, loss, scales[k],
-                             cg_iters, Z, Y, X, stream, robust_counts));
+                             kaz, kay, kax, alpha, reg, robust_storage, ih2x, ih2y, ih2z, loss,
+                             scales[k], cg_iters, Z, Y, X, stream, robust_counts));
       continue;
     }
     // warm-started CG on (A^T A + alpha B^T B) x = A^T b (_cg_inkernel)
     CALL(nsol_normal_apply(x, r, t1, t2, atb, partials, scal, taps_n, knz, kny, knx, alpha, reg,
                            0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
-    float* p_prev = p0;
-    float* p_cur = p1;
+    void* p_prev = p0;
+    void* p_cur = p1;
     for (int it = 0; it < iter_max; ++it) {
       CALL(nsol_cg_step(r, p_prev, p_cur, q, t1, t2, partials, scal, it == 0, taps_n, knz, kny,
-                        knx, alpha, reg, 0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
-      CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, 0, 1, stream, admm_counts));
-      float* tmp = p_prev;
+                        knx, alpha, reg, storage, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                        admm_counts));
+      CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, storage, 1, stream, admm_counts));
+      void* tmp = p_prev;
       p_prev = p_cur;
       p_cur = tmp;
     }

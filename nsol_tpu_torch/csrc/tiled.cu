@@ -33,7 +33,9 @@
 // cp.async: it is loaded, widened and stored into the float window at
 // once, without the copy's overlap. cg_direction has typed instances and,
 // under bf16 state, a deferred form that forms r' = r - a q again from
-// the unrounded values.
+// the unrounded values. weighted_apply_zy takes robust.cu's storage modes
+// (stencil.cuh's RobustStorage): p and p' in bf16, the weights read as
+// bf16 and the core rounded under kRobustIo (robust.py:564's io_dtype).
 //
 // Design. A thread block owns an output tile of kTileY rows x kTileX columns
 // over up to kTileZ planes and marches through z. For each input plane it
@@ -505,10 +507,10 @@ cudaError_t launch_stencil(const StencilArgs<In, As>& a, int nin, Epi epi, cudaS
 
 struct WeightedArgs {
   const float* r;
-  const float* p;
+  const void* p;  // stored as the storage mode's P
   const float* free;
   const float* wts;
-  float* p_new;
+  void* p_new;
   float* q;
   const double* scal;
   int first;
@@ -560,9 +562,13 @@ inline size_t weighted_smem(const WeightedGeo& g, Taps tp) {
 // z, then forms q = free (A s + rho D^T D pf) + (p' - pf). The centre p'
 // and free of the output plane are read again from device memory (an L2
 // hit: the block read them 2 hd planes before) rather than held in rings.
-template <bool kMasked>
+// S (RobustT): p and p' stored as S::P (a bfloat16 p is loaded without
+// cp.async), p' = r + beta p rounded to S::P where it is formed, the
+// weights read at S::W and, with S::kIo, the core rounded to bfloat16.
+template <bool kMasked, class S>
 __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedArgs a,
                                                                        WeightedGeo g) {
+  using P = typename S::P;
   extern __shared__ float smem[];
   const Dims d = a.d;
   const int wn = g.wy * g.wx, en = g.ey * g.ex;
@@ -594,15 +600,19 @@ __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedA
     const long long off = (long long)wrap_index(pstart + k, d.Z) * d.plane();
     float* dst = win + (k & 1) * 3 * wn;
     copy_window(dst, a.r, off, rows, cols, g.wy, g.win);
-    if (!a.first) copy_window(dst + wn, a.p, off, rows, cols, g.wy, g.win);
+    if (!a.first) copy_window(dst + wn, static_cast<const P*>(a.p), off, rows, cols, g.wy, g.win);
     if (kMasked) copy_window(dst + 2 * wn, a.free, off, rows, cols, g.wy, g.win);
     if (k >= 2 * g.hd)
-      copy_window(wwin + (k & 1) * en, a.wts,
-                   (long long)wrap_index(pstart + k - g.hd, d.Z) * d.plane(), rows + g.hy,
-                   cols + g.hx, g.ey, g.ext);
+      copy_window<float, typename S::W>(wwin + (k & 1) * en, a.wts,
+                                        (long long)wrap_index(pstart + k - g.hd, d.Z) * d.plane(),
+                                        rows + g.hy, cols + g.hx, g.ey, g.ext);
+  };
+  // p' = r + beta p, rounded to P (product and sum apart for bfloat16)
+  const auto dir_of = [&](float rv, float pv) {
+    return round_as<P>(a.first ? rv : axpy_as<P>(beta, pv, rv));
   };
   const auto pf_of = [&](const float* wr, const float* wp, const float* wf, int e) {
-    const float v = a.first ? wr[e] : __fmaf_rn(beta, wp[e], wr[e]);
+    const float v = dir_of(wr[e], a.first ? 0.f : wp[e]);
     return kMasked ? wf[e] * v : v;
   };
 
@@ -616,7 +626,7 @@ __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedA
     const long long i = (long long)(pstart + kk - 2 * g.hd) * d.plane() +
                         (long long)(y0 + oy) * d.X + x0 + ox;
     r_out = __ldg(a.r + i);
-    if (!a.first) p_out = __ldg(a.p + i);
+    if (!a.first) p_out = ldg(static_cast<const P*>(a.p) + i);
     if (kMasked) f_out = __ldg(a.free + i);
   };
   float rv = 0.f, pv = 0.f, f = 1.f, rv_next = 0.f, pv_next = 0.f, f_next = 1.f;
@@ -647,8 +657,8 @@ __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedA
         const int y = y0 + oy, x = x0 + ox;
         if (y >= d.Y || x >= d.X) continue;
         const int we = (oy + 2 * g.hy) * g.wx + ox + 2 * g.hx;
-        a.p_new[(long long)pz * d.plane() + (long long)y * d.X + x] =
-            a.first ? wr[we] : __fmaf_rn(beta, wp[we], wr[we]);
+        static_cast<P*>(a.p_new)[(long long)pz * d.plane() + (long long)y * d.X + x] =
+            store_as<P>(dir_of(wr[we], a.first ? 0.f : wp[we]));
       }
     }
     __syncthreads();
@@ -686,9 +696,10 @@ __global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedA
     float conv = 0.f;
     for (int j = 0, sl = s2; j < a.tp.kz; ++j, sl = sl == 0 ? g.ring2 - 1 : sl - 1)
       conv = fmaf(tz[j], ring2[sl * kOutN + e], conv);
-    const float core =
+    float core =
         fmaf(a.rho, ring_laplacian(pm, pc, pp, (oy + 1) * kRawW + ox + 1, c, a.sp, d), conv);
-    const float p = a.first ? rv : __fmaf_rn(beta, pv, rv);
+    if (S::kIo) core = round_as<bf16>(core);
+    const float p = dir_of(rv, pv);
     float qi = core;
     if (kMasked) qi = __fadd_rn(__fmul_rn(f, core), __fsub_rn(p, __fmul_rn(f, p)));
     a.q[i] = qi;
@@ -796,28 +807,34 @@ cudaError_t blur_apply_zy(const float* y, const float* u, float* out, float* fre
   return cudaGetLastError();
 }
 
-cudaError_t weighted_apply_zy(const float* r, const float* p, float* p_new, float* q,
+template <bool kMasked, class S>
+cudaError_t launch_weighted(const WeightedArgs& a, const WeightedGeo& g, size_t smem,
+                            cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(weighted_zy_kernel<kMasked, S>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+  if (e != cudaSuccess) return e;
+  weighted_zy_kernel<kMasked, S><<<tiled_grid(a.d), dim3(kTileX, kWeightedRows), smem, s>>>(a,
+                                                                                           g);
+  return cudaGetLastError();
+}
+
+// p and p_new stored as the RobustStorage mode `storage` says.
+cudaError_t weighted_apply_zy(const float* r, const void* p, void* p_new, float* q,
                               const float* free, const float* wts, double* partials,
-                              double* scal, int first, Taps tp, float rho, Spacing sp, Dims d,
-                              cudaStream_t s) {
+                              double* scal, int first, Taps tp, float rho, int storage,
+                              Spacing sp, Dims d, cudaStream_t s) {
   const WeightedArgs a{r, p, free, wts, p_new, q, scal, first, rho, tp, sp, d, partials};
   const WeightedGeo g = weighted_geo(tp);
   const bool masked = free != nullptr;
   const size_t smem = weighted_smem(g, tp);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if (masked) {
-    e = cudaFuncSetAttribute(weighted_zy_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    weighted_zy_kernel<true><<<tiled_grid(d), dim3(kTileX, kWeightedRows), smem, s>>>(a, g);
-  } else {
-    e = cudaFuncSetAttribute(weighted_zy_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    weighted_zy_kernel<false><<<tiled_grid(d), dim3(kTileX, kWeightedRows), smem, s>>>(
-        a, g);
-  }
+  cudaError_t e = with_robust_storage(storage, [&](auto st) {
+    using S = decltype(st);
+    return masked ? launch_weighted<true, S>(a, g, smem, s)
+                  : launch_weighted<false, S>(a, g, smem, s);
+  });
+  if (e != cudaSuccess) return e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
@@ -931,15 +948,16 @@ int nsol_blur_apply_zy(const float* y, const float* u, float* out, float* free, 
   return (int)e;
 }
 
-int nsol_weighted_apply_zy(const float* r, const float* p, float* p_new, float* q,
+// p, p_new stored as the RobustStorage mode `storage` says.
+int nsol_weighted_apply_zy(const float* r, const void* p, void* p_new, float* q,
                            const float* free, const float* wts, double* partials, double* scal,
                            int first, const float* taps, int kz, int ky, int kx, float rho,
-                           float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream,
-                           long long* counts) {
+                           int storage, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
+                           void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   const cudaError_t e = weighted_apply_zy(r, first ? nullptr : p, p_new, q, free, wts, partials,
-                                          scal, first, make_taps(taps, kz, ky, kx), rho, sp,
-                                          Dims{Z, Y, X}, (cudaStream_t)stream);
+                                          scal, first, make_taps(taps, kz, ky, kx), rho, storage,
+                                          sp, Dims{Z, Y, X}, (cudaStream_t)stream);
   counts[kWeightedApplyZy] += 1;
   return (int)e;
 }

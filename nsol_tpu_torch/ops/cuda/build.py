@@ -66,15 +66,15 @@ _SIGNATURES = {
     "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
-    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I]
+    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I, _I]
     + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_irls_step": [_P, _P, _LL, _P, _P],
-    "nsol_irls_sweep": [_P] * 14 + [_I] * 3 + [_F, _I] + [_F] * 3
+    "nsol_irls_sweep": [_P] * 14 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I, _F, _I] + [_I] * 3 + [_P, _P],
     "nsol_robust_admm_solve": [_P] * 14 + [_I] * 3 + [_F] * 7 + [_I, _F]
-    + [_I] * 3 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
+    + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
     "nsol_robust_admm_solve_zy": [_P] * 14 + [_I] * 3 + [_F] * 7
-    + [_I, _F] + [_I] * 3 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
+    + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
     "nsol_tik_clip": [_P, _P, _LL, _P, _P],
     "nsol_tiled_blocks": [_I] * 3,
     "nsol_tiled_smem": [_I] * 6,
@@ -84,13 +84,13 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_blur_apply_zy": [_P] * 11 + [_I] * 3 + [_F, _I, _F] + [_F] * 3
     + [_I] * 3 + [_P, _P],
-    "nsol_weighted_apply_zy": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F] * 4
-    + [_I] * 3 + [_P, _P],
+    "nsol_weighted_apply_zy": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I]
+    + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_cg_direction": [_P] * 4 + [_LL, _I, _P, _P],
     "nsol_blocked_admm_solve": [_P] * 13 + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 8 + [_I] * 4 + [_I] * 3 + [_P] * 3,
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
-    + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 3 + [_I] * 3 + [_P] * 4,
+    + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 4 + [_I] * 3 + [_P] * 4,
 }
 
 #: what the last build did: library path, seconds, nvcc's ptxas report

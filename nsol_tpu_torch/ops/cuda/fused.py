@@ -27,7 +27,9 @@ MXU pass schedules (``precision``, ``blur_reorder``, ``diff_matmul``,
 ``pipelined_cg``) are accepted at the values whose result is the exact
 f32 one (:func:`~.blocked.check_options`). A robust ``data_loss`` builds
 the IRLS solve of :mod:`nsol_tpu_torch.ops.cuda.robust`
-(``csrc/robust.cu``); its compact storage is still to port (K10b).
+(``csrc/robust.cu``); its ``compact_dirs`` stores the inner CG's
+direction in bfloat16 in the same way (the robust storage mode
+``"dirs"``).
 
 The whole primal-dual (Chambolle–Pock) denoising solve on the GPU:
 counterpart of ``fused.py::make_fused_pd_denoise_solver`` (:957). The TPU
@@ -313,7 +315,11 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     ``iter_max`` MM sweeps of ``irls_cg_iters`` masked-CG iterations per
     step at the runtime ``data_loss_scale``
     (:func:`~nsol_tpu_torch.ops.cuda.robust.make_robust_solver`); its
-    ``compact_dirs`` is still to port (K10b).
+    ``compact_dirs=True`` (``fused.py:583-622``, ``_cg_inkernel``'s
+    ``round_dir``) rounds the inner CG's direction ``p = r`` and each
+    ``p = r + β·p`` to bfloat16 and stores it so, the weights, ``q``,
+    ``x``, ``r`` and every sum staying float32 (robust storage
+    ``"dirs"``).
 
     ``record=True``: ``solve`` returns ``(x, {"Reg": ..., "Data": ...})``
     with ``(iterations+1,)`` rows, row 0 the ``x0`` state — ``Reg =
@@ -339,8 +345,7 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
         dict(dtype=dtype, precision=precision, interpret=interpret,
              compact_dirs=compact_dirs, pipelined_cg=pipelined_cg,
              blur_reorder=blur_reorder, diff_matmul=diff_matmul),
-        ported=() if robust else ("compact_dirs",),
-        pending=("compact_dirs",), defaults={"blur_reorder": True})
+        ported=("compact_dirs",), defaults={"blur_reorder": True})
     compact = opt.get("compact_dirs", False)
     if compact not in (False, True):
         raise ValueError("the fused solve's compact_dirs is True or False, "
@@ -351,9 +356,10 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     if len(shape) not in (2, 3):
         raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
     if robust:
-        robust_solve = R.make_robust_solver(
+        robust_solve = R._make_solver(
             shape, cov, alpha_cut, spacing, iterations, iter_max,
-            irls_cg_iters, data_loss, record=True)
+            irls_cg_iters, data_loss, True,
+            storage="dirs" if compact else "exact")
 
         def run(fn, b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
             x, reg, data = fn(b, x0, alpha, rho, data_loss_scale,

@@ -47,6 +47,14 @@ one-pass tiled units of :mod:`.tiled` swapped in
 :func:`make_blocked_weighted_normal_operator_2d` are the reference's 2-D
 entry points over them.
 
+The compact storage of the reference (:data:`ROBUST_STORAGE`): the fused
+solve's ``compact_dirs`` stores the masked CG's direction in bfloat16
+("dirs"); ``blocked_robust_admm_solve(compact_dirs=True)`` and the
+weighted operators' ``io_dtype=bfloat16`` also read the weights as
+bfloat16 in the apply and round its output to bfloat16 ("io"). One C
+template per unit over the modes; the head, the gradient and the step
+stay float32 in every mode.
+
 A 2-D image runs on CUDA as a ``(1, Y, X)`` volume with z taps ``[1]`` and
 ``1/h_z² = 0``: every z term is an exact ``+0``, so the kernels compute the
 2-D operators (the CPU tests show the plain versions agree bit for bit).
@@ -81,6 +89,27 @@ __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
 #: data losses by the index ``csrc/robust.cu`` takes (its ``Loss`` enum)
 LOSS_IDS = Rec.LOSS_IDS
 
+#: storage modes of the masked CG, in the order of ``csrc/stencil.cuh``'s
+#: RobustStorage enum: ``"exact"``; ``"dirs"`` (the fused solves'
+#: ``compact_dirs``, ``fused.py:329-377``): the direction ``p'`` rounded to
+#: bfloat16 where it is formed and stored so; ``"io"``
+#: (``blocked_robust_admm_solve(compact_dirs=True)``, the weighted
+#: operator's ``io_dtype=bfloat16``, ``robust.py:469-548``): ``p'`` so, the
+#: weights read as bfloat16 and the apply's core
+#: ``Aᵀ(w·A pf) + ρ·BᵀB pf`` rounded to bfloat16 before
+#: ``q = free·core + (p' − pf)`` is formed. ``r``, ``q``, ``x`` and every
+#: sum stay float32.
+ROBUST_STORAGE = ("exact", "dirs", "io")
+
+
+def direction_dtype(storage):
+    """The direction's storage dtype of a :data:`ROBUST_STORAGE` mode
+    (None: the working dtype)."""
+    if storage not in ROBUST_STORAGE:
+        raise ValueError("robust storage must be one of %s, got %r"
+                         % (ROBUST_STORAGE, storage))
+    return None if storage == "exact" else B.BF16
+
 
 # ------------------------------------------------------------ plain forms --
 
@@ -113,14 +142,19 @@ def irls_head_plain(x, b, taps, loss, scale):
 
 @B.counted
 def weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
-                         first=False, reg="TK1"):
+                         first=False, reg="TK1", storage="exact"):
     """Plain version of :func:`weighted_apply`."""
-    p_new = r.clone() if first else r + scal[B.BETA].to(r.dtype) * p
-    pf = p_new if free is None else free * p_new
-    core = B._blur_plain(wts * B._blur_plain(pf, taps), taps) \
+    io = B.BF16 if storage == "io" else None  # the "io" apply's roundings
+    p_new = B._store(r.clone() if first
+                     else r + scal[B.BETA].to(r.dtype) * p.to(r.dtype),
+                     direction_dtype(storage))
+    pw = p_new.to(r.dtype)
+    pf = pw if free is None else free * pw
+    core = B._blur_plain(B._round(wts, io) * B._blur_plain(pf, taps), taps) \
         + rho * B.reg_normal_plain(pf, inv_h2, reg)
-    q = core if free is None else free * core + (p_new - pf)
-    pq = torch.sum(p_new * q).to(scal.dtype)
+    core = B._round(core, io)
+    q = core if free is None else free * core + (pw - pf)
+    pq = torch.sum(pw * q).to(scal.dtype)
     scal[B.PQ] = pq
     scal[B.A] = guarded_ratio(scal[B.GAMMA], pq)
     return p_new, q
@@ -240,24 +274,39 @@ def irls_head(x, b, taps, loss, scale):
     return wts, y
 
 
+def check_directions(name, r, p, first, storage):
+    """The direction ``p`` a masked-CG unit takes under ``storage``
+    (:data:`ROBUST_STORAGE`): stored as the mode says, unless ``first``.
+    Returns the dtype of the ``p'`` it writes."""
+    dt = direction_dtype(storage) or torch.float32
+    if not first:
+        B.check_tensors(name, r.shape, p, device=r.device, dtype=dt)
+    return dt
+
+
 def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
-                   reg="TK1"):
+                   reg="TK1", storage="exact"):
     """Masked CG direction and weighted SPD apply: ``p' = r + β·p``
     (``p' = r`` when ``first``), ``pf = free·p'``,
     ``q = free·(Aᵀ(wts·A pf) + ρ·BᵀB pf) + (p' − pf)`` (``free=None``: every
     voxel free, ``q = Aᵀ(wts·A p') + ρ·BᵀB p'``), then
     ``scal[PQ] = Σ p'·q`` and ``scal[A] = γ/pq`` (0 unless pq > 0).
-    Returns ``(p', q)``."""
+    Returns ``(p', q)``. ``storage`` (:data:`ROBUST_STORAGE`): ``"dirs"``
+    stores ``p'`` (and takes ``p``) as bfloat16, ``"io"`` also reads the
+    weights as bfloat16 and rounds the core to bfloat16; ``q`` is
+    float32 in every mode."""
     if r.device.type == "cpu":
         return weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
-                                    first, reg)
+                                    first, reg, storage)
     name = "weighted_apply"
     dims = B.volume_dims(name, r)
-    B.check_tensors(name, r.shape, r, wts, *([] if first else [p]),
+    B.check_tensors(name, r.shape, r, wts,
                     *([] if free is None else [free]))
+    p_dtype = check_directions(name, r, p, first, storage)
     B._check_consts(name, r.device, taps, scal)
     lib = build.load()
-    p_new, q, t1, t2 = (torch.empty_like(r) for _ in range(4))
+    p_new = torch.empty(r.shape, dtype=p_dtype, device=r.device)
+    q, t1, t2 = (torch.empty_like(r) for _ in range(3))
     tv = taps.as_volume()
     counts = build.new_counts(5)
     err = lib.nsol_weighted_apply(
@@ -266,8 +315,8 @@ def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
         build.tensor_ptr(wts), build.tensor_ptr(t1), build.tensor_ptr(t2),
         build.tensor_ptr(_partials(r.device)), build.tensor_ptr(scal),
         int(bool(first)), build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
-        B.reg_id(reg), *B.spacing3(inv_h2), *dims, build.stream_ptr(r.device),
-        counts)
+        B.reg_id(reg), ROBUST_STORAGE.index(storage), *B.spacing3(inv_h2),
+        *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     weighted_apply.launches += counts[2]
     return p_new, q
@@ -389,13 +438,15 @@ def _sweep_units(tiled):
 # ----------------------------------------------------------------- solver --
 
 def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
-                  cg_iters, loss, scale, chain=True, record=None):
+                  cg_iters, loss, scale, chain=True, record=None,
+                  storage="exact"):
     """The solve as a sequence of unit calls — the sequence
     ``nsol_robust_admm_solve`` enqueues in C — plus, with ``chain``, the
     outer TV prox/dual updates of ``v`` and ``w``, which nothing that
     reaches ``x`` reads (the robust x-update ignores ``v − w``). With
     ``record = (record unit, C)`` also the records of ``x0`` and of every
-    outer iterate; returns ``(x, reg, data)``."""
+    outer iterate; returns ``(x, reg, data)``. ``storage``: the masked
+    CG's :data:`ROBUST_STORAGE` mode."""
     blur, head, wapply, step, update = units
     scal = B.new_scalars(b.device)
     x = x0.clone()
@@ -419,7 +470,7 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
             p = None
             for k in range(cg_iters):
                 p, q = wapply(rk, p, free, wts, scal, st.blur, st.inv_h2,
-                              rho, first=(k == 0))
+                              rho, first=(k == 0), storage=storage)
                 update(xk, rk, p, q, scal)
             step(x, xk)
         if record is not None:
@@ -432,13 +483,16 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
 
 
 def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
-                       scale, record_dls=None, tiled=False):
+                       scale, record_dls=None, tiled=False, storage="exact"):
     name = "robust ADMM solve"
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
     lib = build.load()
     x = x0.clone()
-    vols = [torch.empty_like(b) for _ in range(9)]  # wts free rk p0 p1 q xk t1 t2
+    p_dtype = direction_dtype(storage) or torch.float32
+    vols = [torch.empty(b.shape, dtype=dt, device=b.device)  # wts free rk
+            for dt in (torch.float32,) * 3 + (p_dtype,) * 2  # p0 p1
+            + (torch.float32,) * 4]  # q xk t1 t2
     scal = B.new_scalars(b.device)
     tv = st.blur.as_volume()
     reg = data = parts = None
@@ -456,6 +510,7 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
         build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
         *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), LOSS_IDS.index(loss),
         float(scale), int(iterations), int(iter_max), int(cg_iters),
+        ROBUST_STORAGE.index(storage),
         build.tensor_ptr(reg), build.tensor_ptr(data), build.tensor_ptr(parts),
         float(1.0 if record_dls is None else record_dls), *dims,
         build.stream_ptr(b.device), counts, rec_counts]
@@ -502,10 +557,14 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
 
 
 def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
-                 irls_cg_iters, data_loss, record, tiled=False):
+                 irls_cg_iters, data_loss, record, tiled=False,
+                 storage="exact"):
     """:func:`make_robust_solver`; ``tiled`` (3-D only) runs the same
     sequence with the one-pass tiled units (:func:`_sweep_units`,
-    ``nsol_robust_admm_solve_zy`` on CUDA)."""
+    ``nsol_robust_admm_solve_zy`` on CUDA); ``storage`` is the masked
+    CG's :data:`ROBUST_STORAGE` mode (the fused solve's ``compact_dirs``:
+    ``"dirs"``; ``blocked_robust_admm_solve``'s: ``"io"``)."""
+    direction_dtype(storage)
     if data_loss not in LOSS_IDS or data_loss == "linear":
         raise ValueError("robust data loss must be one of %s, got %r"
                          % (", ".join(LOSS_IDS[1:]), data_loss))
@@ -533,32 +592,50 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
             return result(_robust_steps(
                 units, st, b, x0, alpha, rho, iterations, iter_max,
                 irls_cg_iters, data_loss, data_loss_scale,
-                record=rec_of(Rec.admm_record, record_dls)))
+                record=rec_of(Rec.admm_record, record_dls), storage=storage))
         return result(_robust_solve_cuda(
             st, b, x0, rho, iterations, iter_max, irls_cg_iters, data_loss,
-            data_loss_scale, record_dls if record else None, tiled))
+            data_loss_scale, record_dls if record else None, tiled, storage))
 
     def plain(b, x0, alpha, rho, data_loss_scale=1.0, chain=True,
               record_dls=1.0):
         return result(_robust_steps(
             plain_units, stencils(b), b, x0, alpha, rho, iterations, iter_max,
             irls_cg_iters, data_loss, data_loss_scale, chain,
-            rec_of(Rec.admm_record_plain, record_dls)))
+            rec_of(Rec.admm_record_plain, record_dls), storage))
 
     solve.plain = plain
+    solve.storage = storage
     return solve
 
 
 # ------------------------------------------- reference-shaped entry points --
 
-def _check_options(tpu_options):
-    """:func:`~.blocked.check_options` — every storage option of the
-    robust kernels is still to port (K10b), in their wrap and their
-    ``prepadded=True`` forms alike (the per-shard forms of the sharded
-    path, :mod:`nsol_tpu_torch.parallel`). Returns the ``interpret``
-    flag."""
-    interpret, _ = B.check_options(tpu_options, pending=B.STORAGE_KEYS)
-    return interpret
+def _check_options(tpu_options, ported=(), pending=()):
+    """:func:`~.blocked.check_options` with the storage options of the
+    builder at hand: those it takes (``ported``), those still to port
+    (``pending``, K10b); the JAX package's robust builders take no other.
+    Returns ``(interpret, storage)``."""
+    return B.check_options(tpu_options, ported=ported, pending=pending)
+
+
+def _weighted_io(unit, io_dtype, stencils):
+    """``apply(v, w, rho)`` of the weighted normal operator through the
+    masked-CG ``unit`` (``free=None``, ``first``: ``p' = v``). With
+    ``io_dtype`` bfloat16 (storage ``"io"``) ``v`` and ``w`` are taken as
+    bfloat16 (the reference's ``jnp.asarray(v, io)``), held in float32,
+    and the result is returned in bfloat16."""
+    io = "exact" if io_dtype is None else "io"
+
+    def apply(v, w, rho):
+        if io == "io":
+            v, w = (t.to(B.BF16).float() for t in (v, w))
+        st = stencils(v)
+        _, q = unit(v, None, None, w, B.new_scalars(v.device), st.blur,
+                    st.inv_h2, rho, first=True, storage=io)
+        return q.to(B.BF16) if io == "io" else q
+
+    return apply
 
 
 def _blocked_stencils(shape, cov, alpha_cut, spacing):
@@ -600,7 +677,7 @@ def make_blocked_blur_operator(shape, cov, alpha_cut=3, spacing=None,
     windows of a volume of ``z_total`` rows (default ``Zl``), ``shape``
     the local ``(Zl, Y, X)`` and ``apply.halo = max(r_a, 1)``; ``vma``
     (JAX's varying-axes type) is accepted and ignored."""
-    interpret = _check_options(tpu_options)
+    interpret, _ = _check_options(tpu_options)
     if prepadded:
         unit = blur_apply_prepadded_plain if interpret \
             else blur_apply_prepadded
@@ -640,15 +717,21 @@ def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
     """Build ``apply(v, w, rho) -> Aᵀ(w ⊙ (A v)) + rho·DᵀD v``, the SPD
     apply of every IRLS inner-CG iteration
     (``nsol_tpu/ops/pallas/robust.py:264``). Device and dtype follow
-    ``v``; ``interpret=True`` runs the plain version. ``io_dtype`` is
-    still to port (K10b).
+    ``v``; ``interpret=True`` runs the plain version.
+    ``io_dtype=bfloat16`` (``robust.py:292-300``): ``v`` and ``w`` are
+    taken as bfloat16, the sums run in float32, and the result is rounded
+    to and returned in bfloat16 (the unit's ``"io"`` storage).
 
     ``prepadded=True``: the per-shard form of the sharded path, through
     :func:`weighted_apply_prepadded` — ``apply(v_ext, w_ext, rho, row0)``
     on ``(Zl + 2·apply.halo, Y, X)`` windows of a volume of ``z_total``
     rows (default ``Zl``), ``shape`` the local ``(Zl, Y, X)`` and
-    ``apply.halo = max(2·r_a, 1)``; ``vma`` is accepted and ignored."""
-    interpret = _check_options(tpu_options)
+    ``apply.halo = max(2·r_a, 1)``; ``vma`` is accepted and ignored. Its
+    ``io_dtype`` is still to port (K10b)."""
+    if prepadded:
+        interpret, _ = _check_options(tpu_options, pending=("io_dtype",))
+    else:
+        interpret, opt = _check_options(tpu_options, ported=("io_dtype",))
     if prepadded:
         unit = weighted_apply_prepadded_plain if interpret \
             else weighted_apply_prepadded
@@ -663,15 +746,8 @@ def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
         apply_ext.halo, apply_ext.block = halo, shape[0]
         return apply_ext
     unit = weighted_apply_plain if interpret else weighted_apply
-    stencils = _blocked_stencils(shape, cov, alpha_cut, spacing)
-
-    def apply(v, w, rho):
-        st = stencils(v)
-        _, q = unit(v, None, None, w, B.new_scalars(v.device), st.blur,
-                    st.inv_h2, rho, first=True)
-        return q
-
-    return apply
+    return _weighted_io(unit, opt.get("io_dtype"),
+                        _blocked_stencils(shape, cov, alpha_cut, spacing))
 
 
 def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
@@ -684,7 +760,7 @@ def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
     do not shape the CUDA tiles; a blur too wide for the kernel's shared
     memory raises ``ValueError``. Device and dtype follow ``y``;
     ``interpret=True`` runs the plain version."""
-    interpret = _check_options(tpu_options)
+    interpret, _ = _check_options(tpu_options)
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     # the blur band is half the normal band
@@ -715,8 +791,10 @@ def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
     (``nsol_tpu/ops/pallas/robust.py:564``); ``z_block``/``y_block`` only
     validate, and a blur too wide for the kernel's shared memory raises
     ``ValueError``. Device and dtype follow ``v``; ``interpret=True`` runs
-    the plain version, ``io_dtype`` is still to port (K10b)."""
-    interpret = _check_options(tpu_options)
+    the plain version. ``io_dtype=bfloat16`` (``robust.py:584-593``):
+    ``v``, ``w`` taken and the result returned in bfloat16, as
+    :func:`make_blocked_weighted_normal_operator` takes them."""
+    interpret, opt = _check_options(tpu_options, ported=("io_dtype",))
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     B.resolve_zy_blocks(shape, halo, halo_y, z_block, y_block,
@@ -726,14 +804,9 @@ def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
                   weighted=True)
     unit = T.weighted_apply_zy_plain if interpret else T.weighted_apply_zy
     cache = {}
-
-    def apply(v, w, rho):
-        st = B.stencils_for(cache, shape, factors, spacing, v)
-        _, q = unit(v, None, None, w, B.new_scalars(v.device), st.blur,
-                    st.inv_h2, rho, first=True)
-        return q
-
-    return apply
+    return _weighted_io(
+        unit, opt.get("io_dtype"),
+        lambda v: B.stencils_for(cache, shape, factors, spacing, v))
 
 
 def blocked_robust_admm_solve(shape, cov, alpha_cut=3, spacing=None,
@@ -748,16 +821,27 @@ def blocked_robust_admm_solve(shape, cov, alpha_cut=3, spacing=None,
     fits the tiled kernels' shared memory
     (:func:`~.tiled.route_fits`), the sweep runs the one-pass tiled units
     of :mod:`.tiled`; elsewhere the per-axis units. ``solve.tiled`` says
-    which. ``interpret=True`` runs the plain versions; ``compact_dirs`` is
-    still to port (K10b)."""
-    interpret = _check_options(tpu_options)
+    which. ``interpret=True`` runs the plain versions.
+
+    ``compact_dirs=True`` (:469-548): the inner CG's direction is stored
+    in bfloat16 and the weighted apply reads a bfloat16 copy of the
+    weights and rounds its output to bfloat16 (the :data:`ROBUST_STORAGE`
+    mode ``"io"``, ``solve.storage``); the residual, the gradient (with
+    the float32 weights), ``r``, ``x`` and every sum stay float32."""
+    interpret, opt = _check_options(tpu_options, ported=("compact_dirs",))
+    compact = opt.get("compact_dirs", False)
+    if compact not in (False, True):
+        raise ValueError("the robust solve's compact_dirs is True or False, "
+                         "got %r" % (compact,))
     shape = tuple(shape)
     if len(shape) != 3:
         raise ValueError("blocked robust kernels are 3-D only")
     tiled = B.takes_zy_route(shape, cov, alpha_cut, spacing, route="robust")
     solve = _make_solver(shape, cov, alpha_cut, spacing, iterations,
-                         iter_max, irls_cg_iters, data_loss, False, tiled)
+                         iter_max, irls_cg_iters, data_loss, False, tiled,
+                         "io" if compact else "exact")
+    storage = solve.storage
     if interpret:
         solve = B.plain_only(solve)
-    solve.tiled = tiled
+    solve.tiled, solve.storage = tiled, storage
     return solve

@@ -20,8 +20,16 @@ Semantics are ``tikhonov_solve``'s with ``b_reg = 0`` and bounds
 ``(0, ∞)``: linear loss → ``iter_max`` warm-started CG iterations on
 ``(AᵀA + α BᵀB) x = Aᵀb`` with the zero-guards of ``_cg_inkernel``;
 robust loss → ``iter_max`` projected IRLS sweeps of ``irls_cg_iters``
-masked-CG iterations (``b_reg``-ignoring quirk included). The TPU-only
-``precision``/``compact_dirs`` options raise.
+masked-CG iterations (``b_reg``-ignoring quirk included).
+
+``compact_dirs=True`` (with ``precision="high3"``, ``fused.py:783-797``):
+every CG direction is rounded to bfloat16 where it is formed and stored
+so — the linear CG's :data:`~.blocked.STORAGE` mode ``"qf32"``
+(``cg_step``/``cg_update`` on a bfloat16 ``p``), the IRLS sweep's
+:data:`~.robust.ROBUST_STORAGE` mode ``"dirs"`` —; ``r``, ``q``, ``x``, the
+weights and every sum stay float32. The TPU's matrix-unit pass schedules
+are not ported: the port computes their f32 result on the rounded
+directions.
 """
 
 import numpy as np
@@ -71,10 +79,11 @@ _LINEAR_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain)
 
 
 def _tik_steps(units, st, b, x0, alphas, scales, reg, loss, iter_max,
-               cg_iters):
+               cg_iters, compact=False):
     """The batch of solves as a sequence of unit calls — the sequence
     ``nsol_tikhonov_solve`` enqueues in C. ``units``: ``(clip, linear
-    units, robust units)``. Returns ``(B, *shape)``."""
+    units, robust units)``; ``compact``: bfloat16 CG directions. Returns
+    ``(B, *shape)``."""
     clip, (normal_apply, cg_step, cg_update), robust = units
     out = torch.empty((len(alphas),) + tuple(b.shape), dtype=b.dtype,
                       device=b.device)
@@ -94,7 +103,8 @@ def _tik_steps(units, st, b, x0, alphas, scales, reg, loss, iter_max,
                 p = None
                 for j in range(cg_iters):
                     p, q = wapply(rk, p, free, wts, scal, st.blur,
-                                  st.inv_h2, alpha, first=(j == 0), reg=reg)
+                                  st.inv_h2, alpha, first=(j == 0), reg=reg,
+                                  storage="dirs" if compact else "exact")
                     update(xk, rk, p, q, scal)
                 step(x, xk)
             continue
@@ -103,14 +113,15 @@ def _tik_steps(units, st, b, x0, alphas, scales, reg, loss, iter_max,
         p = None
         for j in range(iter_max):
             p, q = cg_step(r, p, scal, st.normal, st.inv_h2, alpha,
-                           first=(j == 0), reg=reg)
+                           first=(j == 0), reg=reg,
+                           storage="qf32" if compact else "exact")
             cg_update(x, r, p, q, scal)
         clip(x, x)
     return out
 
 
 def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
-                    cg_iters):
+                    cg_iters, compact=False):
     name = "make_fused_tikhonov_solver"
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
@@ -119,9 +130,13 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
                       device=b.device)
     robust = loss != "linear"
-    # Aᵀb (linear), r p0 p1 q t1 t2, wts free xk (robust)
-    vols = [torch.empty_like(b) if need else None
-            for need in [not robust] + [True] * 6 + [robust] * 3]
+    # Aᵀb (linear), r p0 p1 q t1 t2, wts free xk (robust); p0, p1 are the
+    # CG directions
+    p_dtype = B.BF16 if compact else b.dtype
+    vols = [torch.empty(b.shape, dtype=p_dtype if k in (2, 3) else b.dtype,
+                        device=b.device) if need else None
+            for k, need in enumerate([not robust] + [True] * 6
+                                     + [robust] * 3)]
     partials = torch.empty(lib.nsol_max_blocks(), dtype=torch.float64,
                            device=b.device)
     scal = B.new_scalars(b.device)
@@ -136,7 +151,8 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
         build.tensor_ptr(scal), build.tensor_ptr(ta.buf), *ta.lengths,
         build.tensor_ptr(tn.buf), *tn.lengths, *B.spacing3(st.inv_h2),
         B.reg_id(reg), Rec.LOSS_IDS.index(loss), a_host, c_host, nconf,
-        int(iter_max), int(cg_iters), *dims, build.stream_ptr(b.device),
+        int(iter_max), int(cg_iters), int(bool(compact)), *dims,
+        build.stream_ptr(b.device),
         admm_counts, robust_counts, counts)
     build.check(err, name)
     for f, n in zip(_LINEAR, admm_counts):
@@ -162,8 +178,17 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     ``nsol_tikhonov_solve`` call (2-D or 3-D float32), on the CPU as the
     plain versions (any float dtype). ``interpret=True`` and
     ``solve.plain`` run the plain versions on any device.
+    ``compact_dirs=True`` needs ``precision="high3"``, as in the reference
+    (``ValueError`` otherwise): the CG directions in bfloat16 (module
+    docstring); ``solve.compact`` says whether they are.
     """
-    interpret, _ = B.check_options(tpu_options, pending=("compact_dirs",))
+    interpret, opt = B.check_options(tpu_options, ported=("compact_dirs",))
+    compact = opt.get("compact_dirs", False)
+    if compact not in (False, True):
+        raise ValueError("the Tikhonov solve's compact_dirs is True or "
+                         "False, got %r" % (compact,))
+    if compact and tpu_options.get("precision") != "high3":
+        raise ValueError("compact_dirs requires precision='high3'")
     if reg not in B.REGS:
         raise ValueError("reg must be TK0 or TK1")
     if data_loss not in Rec.LOSS_IDS:
@@ -196,10 +221,10 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
         alphas, scales, batched = batch(alpha, data_loss_scale)
         if cuda:
             out = _tik_solve_cuda(st, b, x0, alphas, scales, reg, data_loss,
-                                  iter_max, irls_cg_iters)
+                                  iter_max, irls_cg_iters, compact)
         else:
             out = _tik_steps(units, st, b, x0, alphas, scales, reg,
-                             data_loss, iter_max, irls_cg_iters)
+                             data_loss, iter_max, irls_cg_iters, compact)
         return out if batched else out[0]
 
     def solve(b, x0, alpha, data_loss_scale=1.0):
@@ -211,4 +236,6 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
                    data_loss_scale, False)
 
     solve.plain = plain
-    return B.plain_only(solve) if interpret else solve
+    solve = B.plain_only(solve) if interpret else solve
+    solve.compact = compact
+    return solve

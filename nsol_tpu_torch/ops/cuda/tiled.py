@@ -23,7 +23,10 @@ PyTorch version beside it and a launch counter on its wrapper:
 * :func:`weighted_apply_zy` — ``p' = r + β·p``, ``pf = free·p'``,
   ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)``, ``pq``, ``a``;
   replaces ``robust.py::make_blocked_weighted_normal_operator_2d`` (:564).
-  ``A pf`` lives only on the block's extended tile.
+  ``A pf`` lives only on the block's extended tile. It takes the masked
+  CG's storage modes (:data:`~.robust.ROBUST_STORAGE`: bfloat16 ``p``,
+  ``p'``; under ``"io"``, its ``io_dtype``, the weights read as bfloat16
+  and the core rounded to bfloat16).
 
 and :func:`cg_direction` (``p = r + β·p``), the "apply" CG's direction
 update, which the JAX package leaves to XLA. ``DᵀD`` is the zero-boundary
@@ -302,29 +305,33 @@ def blur_apply_zy(y, taps, inv_h2, u=None, rho=0.0, scal=None, head=None):
     return out if scal is None else (free, rk)
 
 
-def weighted_apply_zy(r, p, free, wts, scal, taps, inv_h2, rho, first=False):
+def weighted_apply_zy(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
+                      storage="exact"):
     """Masked CG direction and weighted SPD apply in one pass:
     ``p' = r + β·p`` (``p' = r`` when ``first``), ``pf = free·p'``,
     ``q = free·(Aᵀ(wts·A pf) + ρ·DᵀD pf) + (p' − pf)`` (``free=None``: every
     voxel free), ``scal[PQ] = Σ p'·q``, ``scal[A] = γ/pq`` (0 unless
-    pq > 0). Returns ``(p', q)``."""
+    pq > 0). Returns ``(p', q)``. ``storage``: the masked CG's
+    :data:`~.robust.ROBUST_STORAGE` mode, as
+    :func:`~.robust.weighted_apply` takes it."""
     if r.device.type == "cpu":
         return weighted_apply_zy_plain(r, p, free, wts, scal, taps, inv_h2,
-                                       rho, first)
+                                       rho, first, storage=storage)
     name = "weighted_apply_zy"
     if scal is None:
         raise ValueError("%s: needs scal" % name)
-    dims, tv = _check(name, r, [wts, None if first else p, free], taps, scal,
-                      weighted=True)
-    p_new, q = torch.empty_like(r), torch.empty_like(r)
+    dims, tv = _check(name, r, [wts, free], taps, scal, weighted=True)
+    p_dtype = R.check_directions(name, r, p, first, storage)
+    p_new = torch.empty(r.shape, dtype=p_dtype, device=r.device)
+    q = torch.empty_like(r)
     counts = build.new_counts(5)
     err = build.load().nsol_weighted_apply_zy(
         build.tensor_ptr(r), None if first else build.tensor_ptr(p),
         build.tensor_ptr(p_new), build.tensor_ptr(q), build.tensor_ptr(free),
         build.tensor_ptr(wts), build.tensor_ptr(tiled_partials(r.device, dims)),
         build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
-        *tv.lengths, float(rho), *B.spacing3(inv_h2), *dims,
-        build.stream_ptr(r.device), counts)
+        *tv.lengths, float(rho), R.ROBUST_STORAGE.index(storage),
+        *B.spacing3(inv_h2), *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     weighted_apply_zy.launches += counts[3]
     return p_new, q

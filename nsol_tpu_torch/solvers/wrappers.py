@@ -17,7 +17,10 @@ and ``irls`` for a robust one, and for ADMM measures ⊆ {Reg, Data}) it runs
 the whole solves of :mod:`nsol_tpu_torch.ops.cuda.tikhonov` and
 :mod:`nsol_tpu_torch.ops.cuda.fused`: on CUDA their kernels (a failure to
 build or launch raises), on the CPU their plain versions. Outside it,
-the generic cores, one configuration after the other.
+the generic cores, one configuration after the other. The fused solves
+build with :func:`nsol_tpu_torch.policy.sweep_options`, the reference's
+batched-sweep storage: compact CG directions on CUDA where the fused
+kernel fits, exact f32 on the CPU or with ``NSOL_TPU_EXACT=1``.
 
 The reference holds the whole grid's results on the device at once
 (``nsol_tpu/study/engine.py:219``, reference fault R4). Here a sweep holds
@@ -28,6 +31,7 @@ chunk to the host before it solves the next.
 import numpy as np
 import torch
 
+from nsol_tpu_torch import policy
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
 from nsol_tpu_torch.ops.cuda import blocked as _B
@@ -253,20 +257,22 @@ class TikhonovLinearSolver(_HintedSolver):
         :func:`~nsol_tpu_torch.ops.cuda.tikhonov.make_fused_tikhonov_solver`
         over the α × data_loss_scale batch, one memory-budgeted chunk at a
         time. The study's two-row records (x0 and the solution) are the
-        measures on the returned iterates. Returns None outside the
-        scope."""
+        measures on the returned iterates. Storage from
+        :func:`~nsol_tpu_torch.policy.sweep_options`. Returns None outside
+        the scope."""
         if (not self._in_kernel_scope()
                 or tuple(self._bounds or ()) != (0, np.inf)):
             return None
         shape = np.shape(self._x0)
+        storage = policy.sweep_options(shape, self._device)
         solve = self._cached(
             ("tik", self._reg_kind, self._data_loss, self._iter_max,
-             self._irls_cg_iters),
+             self._irls_cg_iters, tuple(sorted(storage.items()))),
             lambda: _T.make_fused_tikhonov_solver(
                 shape, self._blur_cov, spacing=self._spacing,
                 reg=self._reg_kind, iter_max=self._iter_max,
                 data_loss=self._data_loss,
-                irls_cg_iters=self._irls_cg_iters))
+                irls_cg_iters=self._irls_cg_iters, **storage))
         b, x0 = self._tensor(self._b), self._tensor(self._x0)
         first = None if record_fn is None else record_fn(x0)
         x_all = np.empty((len(alphas),) + shape, self._np_dtype)
@@ -395,7 +401,8 @@ class ADMMLinearSolver(_HintedSolver):
         :func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver`, one
         configuration after the other, with the study's Reg/Data measures
         recorded inside the solve (``Reg = TV(∇x)·s``, ``Data =
-        ½Σρ_C(r²)·s²`` at the record scale ``C/s``). Returns None outside
+        ½Σρ_C(r²)·s²`` at the record scale ``C/s``). Storage from
+        :func:`~nsol_tpu_torch.policy.sweep_options`. Returns None outside
         the scope."""
         if (not self._in_kernel_scope()
                 or (measures and not set(measures) <= {"Reg", "Data"})):
@@ -403,14 +410,16 @@ class ADMMLinearSolver(_HintedSolver):
         record = bool(measures)
         s = self._x_scale
         shape = np.shape(self._x0)
+        storage = policy.sweep_options(shape, self._device)
         solve = self._cached(
             ("admm", self._data_loss, self._iterations, self._iter_max,
-             self._irls_cg_iters, record),
+             self._irls_cg_iters, record, tuple(sorted(storage.items()))),
             lambda: _fused.make_fused_admm_solver(
                 shape, self._blur_cov, spacing=self._spacing,
                 iterations=self._iterations, iter_max=self._iter_max,
                 data_loss=self._data_loss,
-                irls_cg_iters=self._irls_cg_iters, record=record))
+                irls_cg_iters=self._irls_cg_iters, record=record,
+                **storage))
         # the Data record keeps the static interface-constructed loss scale
         # even when data_loss_scale is swept (reference semantics: the
         # measures dict is built once and never sees the setters,

@@ -331,26 +331,27 @@ def test_factories_take_the_reference_positional_order():
 
 
 def test_unported_storage_modes_name_k10b():
-    """F1: every factory's storage options go through one check; those of
-    the robust, Tikhonov and PD kernels raise naming K10b, and nothing says
-    a storage mode has no counterpart."""
+    """F1: every factory's storage options go through one check; those
+    still to port — the PD solve's ``compact`` (K10b.4) and the per-shard
+    weighted window's ``io_dtype`` (K10b.6) — raise naming K10b, the
+    robust and Tikhonov ones (K10b.1-3, 5) build, and nothing says a
+    storage mode has no counterpart."""
     wide = (16, 512, 16)
     for build in (
-            lambda: F.make_fused_admm_solver((8, 8), np.eye(2),
-                                             data_loss="huber",
-                                             precision="high3",
-                                             compact_dirs=True),
-            lambda: R.blocked_robust_admm_solve(wide, ISO, compact_dirs=True),
-            lambda: R.make_blocked_weighted_normal_operator(
-                wide, ISO, io_dtype=BF16),
-            lambda: R.make_blocked_weighted_normal_operator_2d(
-                wide, ISO, io_dtype=BF16),
-            lambda: T.make_fused_tikhonov_solver((8, 8), np.eye(2),
-                                                 compact_dirs=True),
             lambda: F.make_fused_pd_denoise_solver((8, 8), "TVL2",
-                                                   compact=True)):
+                                                   compact=True),
+            lambda: R.make_blocked_weighted_normal_operator(
+                (8, 8, 8), ISO, prepadded=True, io_dtype=BF16)):
         with pytest.raises(NotImplementedError, match="K10b"):
             build()
+    F.make_fused_admm_solver((8, 8), np.eye(2), data_loss="huber",
+                             precision="high3", compact_dirs=True)
+    assert R.blocked_robust_admm_solve(wide, ISO,
+                                       compact_dirs=True).storage == "io"
+    R.make_blocked_weighted_normal_operator(wide, ISO, io_dtype=BF16)
+    R.make_blocked_weighted_normal_operator_2d(wide, ISO, io_dtype=BF16)
+    assert T.make_fused_tikhonov_solver((8, 8), np.eye(2), compact_dirs=True,
+                                        precision="high3").compact
     # their neutral arguments pass, and the off values of the modes
     T.make_fused_tikhonov_solver((8, 8), np.eye(2), precision="high3",
                                  compact_dirs=False, dtype="float32")
@@ -416,8 +417,7 @@ def test_policy_cuda_choice_runs_the_compact_solve(shape):
     out)."""
     cov = np.eye(len(shape))
     b = _t(_blurred(9, shape, cov))
-    build, kw = policy.tvl2_linear_solver(shape, cov, None, "cuda", 3, 4,
-                                          env={})
+    build, kw = policy.tvl2_solver(shape, cov, None, "cuda", 3, 4, env={})
     assert build is F.make_fused_admm_solver
     assert kw["compact_dirs"] is True and kw["precision"] == "high3"
     got = build(**kw)(b, b, 0.01, 0.5)
@@ -429,8 +429,8 @@ def test_policy_cuda_choice_runs_the_compact_solve(shape):
                                      iter_max=4)(b, b, 0.01, 0.5)
     assert not torch.equal(got, exact)
     b3 = (128, 128, 128)
-    build, kw = policy.tvl2_linear_solver(b3, ISO, None, "cuda", 2, 2,
-                                          env={"NSOL_TPU_COMPACT": "1"})
+    build, kw = policy.tvl2_solver(b3, ISO, None, "cuda", 2, 2,
+                                   env={"NSOL_TPU_COMPACT": "1"})
     s = build(**kw)
     assert build is B.blocked_admm_solve
     assert (s.mode, s.storage) == ("step", "state")
@@ -441,8 +441,7 @@ def test_policy_cuda_choice_runs_the_blocked_compact_solve():
     blocked "apply" with ``compact_dirs``; run on CPU tensors it equals
     that library solve."""
     shape = (16, 512, 130)
-    build, kw = policy.tvl2_linear_solver(shape, ISO, None, "cuda", 2, 2,
-                                          env={})
+    build, kw = policy.tvl2_solver(shape, ISO, None, "cuda", 2, 2, env={})
     solve = build(**kw)
     assert build is B.blocked_admm_solve
     assert (solve.mode, solve.storage) == ("apply", "dirs")

@@ -145,9 +145,12 @@ def test_fused_admm_solver_rejects_tpu_only_and_unported_options():
     for opt in ({"precision": "high3"}, {"interpret": True},
                 {"precision": "high3", "compact_dirs": True}):
         F.make_fused_admm_solver((8, 8, 8), cov, **opt)
-    with pytest.raises(NotImplementedError, match="K10b"):
+    # the robust branch's compact_dirs is ported (K10b.1), with high3 only
+    F.make_fused_admm_solver((8, 8, 8), cov, data_loss="huber",
+                             precision="high3", compact_dirs=True)
+    with pytest.raises(ValueError, match="high3"):
         F.make_fused_admm_solver((8, 8, 8), cov, data_loss="huber",
-                                 precision="high3", compact_dirs=True)
+                                 compact_dirs=True)
     # record=True is ported: (x, records) with one row per iterate and x0
     b = torch.rand(8, 8, 8, dtype=torch.float64)
     x, recs = F.make_fused_admm_solver((8, 8, 8), cov, iterations=3,

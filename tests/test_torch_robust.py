@@ -310,20 +310,27 @@ def test_plain_solve_without_tv_chain_is_bit_identical(shape):
 def test_robust_entry_points_reject_tpu_only_and_unported_options():
     cov = np.eye(3)
     # the MXU/VMEM schedule forms are taken at their defaults only (and a
-    # precision whose result is the exact f32 one); the compact storage
-    # modes of the robust kernels are still to port (K10b)
+    # precision whose result is the exact f32 one); a storage option the
+    # JAX package's builder does not take is an unexpected argument
     for opt, err, msg in (({"precision": "DEFAULT"}, ValueError, "exact f32"),
                           ({"block": 8}, ValueError, "default"),
-                          ({"compact_dirs": True}, NotImplementedError,
-                           "K10b"),
-                          ({"io_dtype": "bfloat16"}, NotImplementedError,
-                           "K10b")):
+                          ({"compact_dirs": True}, TypeError, "unexpected")):
         with pytest.raises(err, match=msg):
             R.make_blocked_weighted_normal_operator((8, 8, 8), cov, **opt)
         with pytest.raises(err, match=msg):
             R.make_blocked_blur_operator((8, 8, 8), cov, **opt)
+    with pytest.raises(TypeError, match="unexpected"):
+        R.make_blocked_blur_operator((8, 8, 8), cov, io_dtype="bfloat16")
+    # the compact storage of the robust kernels is ported (K10b.2), but for
+    # the per-shard window form's io_dtype (K10b.6)
+    assert R.blocked_robust_admm_solve((8, 8, 8), cov,
+                                       compact_dirs=True).storage == "io"
+    R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
+                                            io_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="K10b"):
-        R.blocked_robust_admm_solve((8, 8, 8), cov, compact_dirs=True)
+        R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
+                                                prepadded=True,
+                                                io_dtype="bfloat16")
     with pytest.raises(TypeError):
         R.blocked_robust_admm_solve((8, 8, 8), cov, n_bufs=2)
     # the neutral arguments pass; interpret=True runs the plain versions

@@ -274,9 +274,9 @@ def test_blocked_admm_solve_modes_and_routes():
 
 def test_blocked_entry_points_raise_on_unported_modes():
     """The sweep formulation (K8), the linear compact storage options
-    (K10) and the sharded per-shard form (K9b) are ported; the robust
-    storage options (K10b) are still to port; the MXU schedule forms are
-    taken at their defaults only."""
+    (K10), the sharded per-shard form (K9b) and the robust compact storage
+    (K10b.2) are ported; the MXU schedule forms are taken at their
+    defaults only."""
     assert B.blocked_admm_solve(WIDE, ISO, mode="sweep").mode == "sweep"
     for opt, storage in (({"compact_dirs": True}, "dirs"),
                          ({"state_dtype": "bfloat16"}, "state")):
@@ -296,8 +296,10 @@ def test_blocked_entry_points_raise_on_unported_modes():
         B.blocked_admm_solve(WIDE, ISO, mode="fast")
     with pytest.raises(ValueError, match="3-D"):
         B.blocked_admm_solve((512, 512), np.eye(2))
-    with pytest.raises(NotImplementedError, match="K10b"):
-        R.blocked_robust_admm_solve(WIDE, ISO, compact_dirs=True)
+    # the robust compact storage is ported (K10b.2): the tiled route keeps
+    # it
+    rob = R.blocked_robust_admm_solve(WIDE, ISO, compact_dirs=True)
+    assert (rob.tiled, rob.storage) == (True, "io")
     # prepadded=True (K9b) at a 512-wide plane: the window's blur on the
     # whole volume's wrap prepad equals the wrap blur
     blur = R.make_blocked_blur_operator(WIDE, ISO, prepadded=True)
@@ -404,14 +406,14 @@ def test_smem_bytes_bounds_the_tiled_units():
 def test_cli_sends_wide_volumes_to_the_blocked_route(tmp_path, loss):
     """``run_deconvolution`` on a NIfTI with 512-wide planes and ``--device
     cpu`` takes the blocked route (the tiled units' plain versions ran)
-    and equals the library's blocked solve on ``b / max(b)``. The linear
-    loss routes as the reference does (``nsol_tpu_torch.policy``): a
-    (16, 512, 130) volume, past the fused solve's 16 volumes in 64 MiB;
-    the robust one at (16, 512, 16)."""
+    and equals the library's blocked solve on ``b / max(b)``. Both losses
+    route as the reference does (``nsol_tpu_torch.policy``): a
+    (16, 512, 130) volume, past the fused solve's 16 volumes in 64 MiB
+    (a smaller one takes the fused solve)."""
     from nsol_tpu_torch.cli import run_deconvolution
     from nsol_tpu_torch.io import read_nifti, write_nifti
 
-    shape = (16, 512, 130) if loss == "linear" else WIDE
+    shape = (16, 512, 130)
     obs, out = str(tmp_path / "b.nii.gz"), str(tmp_path / "x.nii.gz")
     write_nifti(200.0 * _blurred(11, shape), obs, spacing=np.ones(3))
     F.reset_counts()
@@ -434,7 +436,7 @@ def test_cli_sends_wide_volumes_to_the_blocked_route(tmp_path, loss):
             bs, bs, 0.01, 0.5)
     else:
         lib = R.blocked_robust_admm_solve(
-            WIDE, ISO, iterations=2, iter_max=2, irls_cg_iters=3,
+            shape, ISO, iterations=2, iter_max=2, irls_cg_iters=3,
             data_loss=loss)(bs, bs, 0.01, 0.5, 1.0)
     recon = read_nifti(out).data
     np.testing.assert_allclose(recon, _np(lib).astype(np.float64) * b.max(),

@@ -111,9 +111,12 @@ def test_fused_tikhonov_batch_equals_one_solve_at_a_time():
 
 def test_fused_tikhonov_rejects_tpu_only_options():
     cov = np.eye(2)
-    # compact storage of the Tikhonov kernel is still to port (K10b)
-    with pytest.raises(NotImplementedError, match="K10b"):
+    # compact storage of the Tikhonov kernel is ported (K10b.3) and, as in
+    # the reference, needs precision="high3"
+    with pytest.raises(ValueError, match="high3"):
         T.make_fused_tikhonov_solver((8, 8), cov, compact_dirs=True)
+    assert T.make_fused_tikhonov_solver((8, 8), cov, compact_dirs=True,
+                                        precision="high3").compact
     with pytest.raises(ValueError, match="exact f32"):
         T.make_fused_tikhonov_solver((8, 8), cov, precision="DEFAULT")
     with pytest.raises(TypeError):
