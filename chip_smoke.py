@@ -77,6 +77,24 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   and TK0L2 huber sweeps and the TV-L2 ADMM huber study through
   ``run_sweep``, against the compact library solves.
 
+* phases 32-35, the primal-dual surface (group ``pd_surface``): the PD
+  units on a bfloat16 state (K10b.4, all 4 types × 3 schedules, 2-D and
+  3-D tile-edge shapes and 1024²) and the window apply's bfloat16 io
+  (K10b.6, the tile-edge slabs, 4 slabs of 256³ against the whole-volume
+  ``weighted_apply[io]``) against their plain versions, timed beside their
+  float32 instances; the Man 1024² × 64 α L-curve study through
+  ``PrimalDualSolverParameterStudy`` and ``nsol_torch_run_denoising_study``,
+  exact (within 1e-5 of phase 9's anchors and the library solve) and under
+  ``NSOL_TPU_COMPACT=1`` (within the compact bands of the exact study);
+  ``run_denoising`` under ``NSOL_TPU_COMPACT=1`` on Lena (the compact
+  library solve, bit for bit) and 256³ (exact: past the fused kernel's fit),
+  ``--solver ADMM`` and ``--reference``; ``nsol_torch_run_deconvolution``
+  at its default ``--solver PD`` on the Lena PNG (TVL2, HuberL2) and a 64³
+  NIfTI, within 1e-4 of float64 anchors, and the PD study CLI; and the
+  512³ huber 5 × 5 × 8 solve with the io window apply on a NCCL group of
+  world size 1, within 1e-3 of ``blocked_robust_admm_solve(compact_dirs=
+  True)``.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -1861,6 +1879,7 @@ def library_study_records(nda, rtype, extra, device):
 BIG = (512, 512, 512)
 BIG_ANCHOR = 165421.8
 BIG_ROBUST_ITERS = (5, 5, 8)
+BIG_N = int(np.prod(BIG))
 #: the tiled units' tile-edge cases: (label, cov, spacing, shape)
 EDGE_CASES = (
     ("edge", np.diag([1.0] * 3), None, (13, 530, 37)),
@@ -3902,6 +3921,655 @@ def run_compact_robust_phases(device, card):
     return out
 
 
+# -------------------------------------------------- phases 32-35 --
+
+#: a compact PD solve against its reference: the bands of
+#: tests/test_pallas.py:176-215 (voxel ≤ 2e-2 of max |x|; objective 5e-3
+#: for the L2 types, 2e-2 for the L1 ones): the compact kernel against its
+#: plain version, and the compact sweep at α[40] against the JAX package's
+#: compact kernel, whose objective there (interpret mode, float32,
+#: tests/torch_anchors.py ``man_compact_anchors``) is MAN_COMPACT_ANCHOR
+PD_COMPACT_VOX = 2e-2
+PD_COMPACT_OBJ = {"L2": 5e-3, "L1": 2e-2}
+MAN_COMPACT_AT, MAN_COMPACT_ANCHOR = 40, 4550.981880361593
+#: the bf16 state against the exact sweep on Man: a coarse bound. The
+#: reference's own compact kernel is 9.0 % off the exact one at α[40]
+#: (tests/torch_anchors.py); its 1.7 % account (benchmarks/
+#: pd_compact_probe.py) measured warm-started chained sweeps
+PD_COMPACT_VS_EXACT = 0.15
+#: ``nsol_torch_run_deconvolution`` at its defaults (PD, 50 iterations,
+#: α 0.01, --blur 1, --minimizer auto): the float64 objectives of the JAX
+#: package's interface on the CPU (tests/torch_anchors.py ``pd_anchors``),
+#: ½‖Ax − b‖² + α·TV (TVL2) or + α·½Σhuber(|∇x|², 0.05) (HuberL2) in
+#: the scaled units
+PD_DECONV_ANCHORS = {("lena", "TVL2"): 90.2655241580762,
+                     ("lena", "HuberL2"): 70.51569722027165,
+                     ("phantom", "TVL2"): 147.27126621475304}
+PD_DECONV_BAND = 1e-4
+#: the K10b.6 solve against the compact blocked robust solve (phase 30's
+#: 512³ compact gate)
+WINDOW_IO_TOL = 1e-3
+#: the storage-typed units of the primal-dual surface: the entry's name in
+#: the kernels line → (wrapper, TPU kernel it replaces, source)
+PD_SURFACE_UNITS = {
+    "pd_dual[bf16]": ("pd_dual", "nsol_tpu/ops/pallas/fused.py:957",
+                      "nsol_tpu_torch/csrc/pd.cu"),
+    "pd_primal[bf16]": ("pd_primal", "nsol_tpu/ops/pallas/fused.py:957",
+                        "nsol_tpu_torch/csrc/pd.cu"),
+    "pd_record[bf16]": ("pd_record", "nsol_tpu/ops/pallas/fused.py:957",
+                        "nsol_tpu_torch/csrc/pd.cu"),
+    "weighted_apply_prepadded[io]": (
+        "weighted_apply_prepadded", "nsol_tpu/ops/pallas/robust.py:264",
+        "nsol_tpu_torch/csrc/robust.cu"),
+}
+
+
+def pd_state_tensors(rng, nb, shape, device, dtype):
+    """Random PD state ``(x, x̄, p)`` of a batch of ``nb`` images, stored as
+    ``dtype``, and one float32 image ``b``."""
+    import torch
+
+    def rand(*shp, lo=0.0):
+        return torch.as_tensor(rng.rand(*shp).astype(np.float32) + lo,
+                               device=device)
+
+    x, xm = rand(nb, *shape).to(dtype), rand(nb, *shape).to(dtype)
+    p = rand(nb, len(shape), *shape, lo=-0.5).to(dtype)
+    return x, xm, p, rand(*shape)
+
+
+def pd_bf16_unit_pairs(F, interop, shape, device, rng, rtype, alg):
+    """The three PD units on a bfloat16 state and their plain versions on
+    the same inputs (3 alphas, anisotropic spacing): {unit: [(kernel out,
+    plain out), ...]}."""
+    import torch
+
+    nd = len(shape)
+    ell1, huber = rtype.endswith("L1"), rtype.startswith("Huber")
+    inv_h = tuple(float(np.float32(1.0 / h)) for h in PD_SPACING[:nd])
+    rows = [F._pd_schedules(a, PD_L2, 4, alg) for a in PD_UNIT_ALPHAS]
+    sched = interop.pd_schedules(*(np.stack(c) for c in zip(*rows)), device)
+    nb = len(PD_UNIT_ALPHAS)
+    x, xm, p, b = pd_state_tensors(rng, nb, shape, device, torch.bfloat16)
+    out = {}
+    pk, pp = p.clone(), p.clone()
+    F.pd_dual(xm, pk, sched, 2, inv_h, huber)
+    F.pd_dual_plain(xm, pp, sched, 2, inv_h, huber)
+    out["pd_dual[bf16]"] = [(pk, pp)]
+    xk, mk, xp, mp = x.clone(), xm.clone(), x.clone(), xm.clone()
+    F.pd_primal(xk, mk, p, b, sched, 1, inv_h, ell1)
+    F.pd_primal_plain(xp, mp, p, b, sched, 1, inv_h, ell1)
+    out["pd_primal[bf16]"] = [(xk, xp), (mk, mp)]
+    rk = [torch.zeros(nb, 5, dtype=torch.float64, device=device)
+          for _ in range(4)]
+    F.pd_record(x, b, rk[0], rk[1], 3, inv_h, ell1, huber, 0.1)
+    F.pd_record_plain(x, b, rk[2], rk[3], 3, inv_h, ell1, huber, 0.1)
+    out["pd_record[bf16]"] = [(rk[0], rk[2]), (rk[1], rk[3])]
+    return out
+
+
+def pd_state_times(F, interop, shape, nb, device, reps):
+    """{unit: (bf16 kernel ms, bf16 plain ms, float32 kernel ms)} per call
+    of each PD unit on a batch of ``nb`` images of ``shape`` (TVL2 ALG2),
+    the two storages timed in turns in one run."""
+    import torch
+
+    rng = np.random.RandomState(32)
+    nd = len(shape)
+    inv_h = (1.0,) * nd
+    alphas = np.linspace(0.01, 1.5, nb, dtype=np.float32)
+    rows = [F._pd_schedules(a, PD_L2, ITERATIONS, "ALG2") for a in alphas]
+    sched = interop.pd_schedules(*(np.stack(c) for c in zip(*rows)), device)
+    reg = torch.zeros(nb, ITERATIONS + 1, dtype=torch.float64, device=device)
+    data = torch.zeros_like(reg)
+    states = {k: pd_state_tensors(rng, nb, shape, device, dt) for k, dt in
+              (("bf16", torch.bfloat16), ("f32", torch.float32))}
+
+    def calls(k, plain=False):
+        x, xm, p, b = states[k]
+        dual = F.pd_dual_plain if plain else F.pd_dual
+        primal = F.pd_primal_plain if plain else F.pd_primal
+        rec = F.pd_record_plain if plain else F.pd_record
+        return {"pd_dual": lambda: dual(xm, p, sched, 1, inv_h),
+                "pd_primal": lambda: primal(x, xm, p, b, sched, 1, inv_h),
+                "pd_record": lambda: rec(x, b, reg, data, 1, inv_h)}
+
+    out = {}
+    for unit in ("pd_dual", "pd_primal", "pd_record"):
+        bf, f32 = calls("bf16")[unit], calls("f32")[unit]
+        ms = [cuda_median_ms(f, reps) for f in (f32, bf, bf, f32)]
+        out[unit + "[bf16]"] = (0.5 * (ms[1] + ms[2]),
+                                cuda_median_ms(calls("bf16", True)[unit], 2),
+                                0.5 * (ms[0] + ms[3]))
+    return out
+
+
+def pd_surface_bound(name, n, nd=3, batch=1, taps=(7, 7, 7), reads=1.0,
+                     ext=1.0):
+    """``(bound_ms, bound_by)`` of one call of a PD_SURFACE_UNITS entry on
+    ``n`` voxels (× ``batch`` images): 2 bytes a voxel of the bfloat16
+    state, 4 of the float32 ``b`` (read once for the batch); the io window
+    apply reads ``reads`` bf16 volumes of ``n`` voxels and writes one
+    (:func:`unit_bound`'s operation counts)."""
+    if name == "weighted_apply_prepadded[io]":
+        return bound(2.0 * n * (reads + 1),
+                     float(n) * (2 * 2 * sum(taps) * ext + 25))
+    bpv = {"pd_dual[bf16]": (2 + 4 * nd) * batch,
+           "pd_primal[bf16]": (2 * nd + 6) * batch + 4,
+           "pd_record[bf16]": 2 * batch + 4}[name]
+    ops = {"pd_dual[bf16]": 12 * nd, "pd_primal[bf16]": 10 + 3 * nd,
+           "pd_record[bf16]": 10 + 3 * nd}[name]
+    return bound(float(n) * bpv, float(n) * ops * batch)
+
+
+def run_pd_surface_phases(device, card):
+    """Phases 32-35: the primal-dual surface — the PD solve's bf16 state
+    (K10b.4) and the window apply's bf16 io (K10b.6) against their plain
+    versions, the Man 1024² × 64 α study exact and compact, run_denoising's
+    routes, the PD deconvolution CLIs at their defaults and the K10b.6
+    512³ solve. Returns the ``kernels`` records of the four instances."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import (run_deconvolution,
+                                    run_deconvolution_study, run_denoising,
+                                    run_denoising_study)
+    from nsol_tpu_torch.cli.run_denoising import denoising_proxes
+    from nsol_tpu_torch.io import DataReader, read_nifti, read_png, \
+        write_nifti
+    from nsol_tpu_torch.observer import Observer
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops import measures as sim
+    from nsol_tpu_torch.ops import priors
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.parallel import blocked_halo, halo, matmul_halo
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import make_space_mesh
+    from nsol_tpu_torch.solvers.admm import admm_solve
+    from nsol_tpu_torch.solvers.wrappers import PrimalDualSolver
+    from nsol_tpu_torch.study import (PrimalDualSolverParameterStudy,
+                                      ReaderParameterStudy)
+
+    bf = torch.bfloat16
+    err, times = {}, {}
+
+    # phase 32: the bf16-state PD units against their plain versions, all
+    # 4 types x 3 schedules, 2-D and 3-D tile-edge shapes and 1024² ...
+    rng = np.random.RandomState(32)
+    for shape in ((37, 53), (1024, 1024), (37, 45, 53), (5, 40, 33)):
+        for rtype in PD_TYPES:
+            for alg in PD_ALGS:
+                pairs = pd_bf16_unit_pairs(F, interop, shape, device, rng,
+                                           rtype, alg)
+                compact_pairs_err(pairs)
+                if shape == (1024, 1024):
+                    for k, outs in pairs.items():
+                        err[k] = max([err.get(k, 0.0)] + [
+                            float((g.double() - r.double()).abs().max())
+                            for g, r in outs])
+        print("phase 32 PD units on a bf16 state %s (12 type x schedule "
+              "pairs, B=3, anisotropic): bf16 outputs within %g ulp of "
+              "plain, records within %g" % ("x".join(map(str, shape)),
+                                            BF16_ULPS, KERNEL_TOL))
+    # ... the io window apply on the tile-edge shapes as slabs (row0 on the
+    # first, a middle and the last of 3) ...
+    for label, cov, sp, shape in EDGE_CASES + (
+            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        h = R.weighted_halo(st.blur)
+        ext = (shape[0] + 2 * h,) + shape[1:]
+        v = torch.as_tensor(rng.rand(*ext).astype(np.float32),
+                            device=device).to(bf)
+        w = torch.as_tensor(rng.rand(*ext).astype(np.float32) + 0.1,
+                            device=device).to(bf)
+        pairs = []
+        for row0 in (0, shape[0], 2 * shape[0]):
+            args = (v, w, st.blur, st.inv_h2, RHO, row0, 3 * shape[0])
+            pairs.append((R.weighted_apply_prepadded(*args),
+                          R.weighted_apply_prepadded_plain(*args)))
+        compact_pairs_err({"weighted_apply_prepadded[io] " + label: pairs})
+    # ... 4 slabs of one 256³ volume against the whole-volume io apply
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
+    h = R.weighted_halo(st.blur)
+    v = torch.as_tensor(rng.rand(*SLAB_SHAPE).astype(np.float32),
+                        device=device).to(bf)
+    w = torch.as_tensor(rng.rand(*SLAB_SHAPE).astype(np.float32) + 0.1,
+                        device=device).to(bf)
+    zl = SLAB_SHAPE[0] // SLABS
+    slabs = torch.cat([R.weighted_apply_prepadded(
+        wrap_slab(v, k * zl, zl, h), wrap_slab(w, k * zl, zl, h), st.blur,
+        st.inv_h2, RHO, k * zl, SLAB_SHAPE[0]) for k in range(SLABS)])
+    whole = R.weighted_apply(v.float(), None, None, w.float(),
+                             B.new_scalars(device), st.blur, st.inv_h2, RHO,
+                             first=True, storage="io")[1].to(bf)
+    torch.cuda.synchronize()
+    slab_ulps = bf16_ulp_err(slabs, whole)
+    require(slab_ulps <= 1.0, "phase 32: %d io slabs of 256^3 vs the "
+            "whole-volume weighted_apply[io]: %.2f of the band"
+            % (SLABS, slab_ulps))
+    del v, w, slabs, whole
+    print("phase 32 io window apply: the tile-edge slabs within %g ulp of "
+          "plain; %d slabs of 256^3 assembled vs weighted_apply[io] %.2f of "
+          "the band" % (BF16_ULPS, SLABS, slab_ulps))
+    # each instance timed beside its float32 instance: the PD units at the
+    # sweep's 64 x 1024², the window apply at 512³ (one rank)
+    times.update(pd_state_times(F, interop, (1024, 1024), 64, device,
+                                reps=20))
+    ext = (BIG[0] + 2 * h,) + BIG[1:]
+    v32 = torch.as_tensor(rng.rand(*ext).astype(np.float32), device=device)
+    w32 = v32 * 0.9 + 0.1
+    vb, wb = v32.to(bf), w32.to(bf)
+    win = {k: (lambda a=a: R.weighted_apply_prepadded(
+        *a, st.blur, st.inv_h2, RHO, 0, BIG[0]))
+        for k, a in (("io", (vb, wb)), ("f32", (v32, w32)))}
+    got = win["io"]()
+    ref = R.weighted_apply_prepadded_plain(vb, wb, st.blur, st.inv_h2, RHO,
+                                           0, BIG[0])
+    compact_pairs_err({"weighted_apply_prepadded[io] 512^3": [(got, ref)]})
+    err["weighted_apply_prepadded[io]"] = float(
+        (got.float() - ref.float()).abs().max())
+    del got, ref
+    ms = [cuda_median_ms(win[k], 5) for k in ("f32", "io", "io", "f32")]
+    times["weighted_apply_prepadded[io]"] = (
+        0.5 * (ms[1] + ms[2]),
+        cuda_median_ms(lambda: R.weighted_apply_prepadded_plain(
+            vb, wb, st.blur, st.inv_h2, RHO, 0, BIG[0]), 2),
+        0.5 * (ms[0] + ms[3]))
+    win_reads = window_reads(B, R, "weighted_apply_prepadded", st, BIG[0])
+    win_ext = ext[0] / BIG[0]
+    del v32, w32, vb, wb, win
+    torch.cuda.empty_cache()
+    print("phase 32 per call (bf16 kernel / bf16 plain / float32 kernel ms, "
+          "bound ms): %s [%s]" % (", ".join(
+              "%s %.4f/%.3f/%.4f, %.4f" % (
+                  k, *t, pd_surface_bound(
+                      k, BIG_N if k.startswith("weighted") else 1024 ** 2,
+                      nd=2, batch=64, reads=win_reads, ext=win_ext)[0])
+              for k, t in times.items()), card))
+    lap("phase 32")
+
+    # phase 33: the Man 1024² x 64 α L-curve study (BASELINE config 4)
+    # through PrimalDualSolverParameterStudy and the study CLI, exact and
+    # under NSOL_TPU_COMPACT=1
+    man_path = data.path("2D_Man_1024.png")
+    man = read_png(man_path).astype(np.float64)
+    s = float(man.max())
+    alphas = np.linspace(0.01, 1.5, 64, dtype=np.float32)
+    D, Dt = G.make_gradient_operators()
+    b_full = torch.as_tensor(man, dtype=torch.float32, device=device)
+    bm = interop.to_torch((man / s).astype(np.float32), device)
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    measures = {"Reg": lambda x: priors.total_variation(tensor(x), D),
+                "Data": lambda x: sim.sum_of_squared_differences(tensor(x),
+                                                                 b_full)}
+
+    def man_solver():
+        prox_f, prox_g = denoising_proxes("TVL2", bm)
+        solver = PrimalDualSolver(
+            prox_f, prox_g, D, Dt, L2=PD_L2, x0=man, iterations=ITERATIONS,
+            x_scale=s, reconstruction_type="TVL2", observation=man / s,
+            device=device)
+        observer = Observer()
+        observer.set_measures(measures)
+        solver.set_observer(observer)
+        return solver, observer
+
+    def read_records(directory, name):
+        reader = ReaderParameterStudy(directory=directory, name=name)
+        reader.read_study()
+        return {k: reader.get_results(k) for k in ("Reg", "Data")}
+
+    def objectives(recs):
+        """Data + α·Reg of each α's last iterate, in the scaled units."""
+        return recs["Data"][:, -1] / s ** 2 + alphas * recs["Reg"][:, -1] / s
+
+    study_recs, sweep_x, sweep_s, lib_ms, launches = {}, {}, {}, {}, {}
+    cli_dev = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, env in (("exact", {}), ("compact", {"NSOL_TPU_COMPACT": "1"})):
+            with environ(**env):
+                solver, observer = man_solver()
+                study = PrimalDualSolverParameterStudy(
+                    solver, observer, dir_output=os.path.join(tmp, mode),
+                    name="man", parameters={"alpha": alphas})
+                torch.cuda.synchronize()
+                F.reset_counts()
+                study.run()
+                torch.cuda.synchronize()
+                launches[mode] = F.launch_counts(F.PD_UNITS)
+                require(all(n > 0 for n in launches[mode].values())
+                        and all(n == 0 for n in F.plain_counts().values()),
+                        "phase 33: %s study launches %s, plain calls %s"
+                        % (mode, launches[mode], F.plain_counts()))
+                study_recs[mode] = read_records(os.path.join(tmp, mode),
+                                                "man")
+                # the study's sweep again, for its x and its time
+                t0 = time.perf_counter()
+                x_all, recs = solver.run_sweep(
+                    {"alpha": alphas.astype(np.float64)}, measures=measures)
+                sweep_s[mode] = time.perf_counter() - t0
+                sweep_x[mode] = x_all / s
+                rel = max(max_rel(torch.as_tensor(recs[k]),
+                                  torch.as_tensor(study_recs[mode][k]))
+                          for k in recs)
+                require(rel <= RECORD_TOL, "phase 33: %s run_sweep records vs "
+                        "the study's files %.3g" % (mode, rel))
+                # the library solve the sweep runs, and its device time
+                lib = F.make_fused_pd_denoise_solver(
+                    bm.shape, "TVL2", "ALG2", ITERATIONS, record=True,
+                    compact=mode == "compact")
+                _, lrec = lib(bm, bm, alphas, PD_L2)
+                for k, scale in (("Reg", s), ("Data", s * s)):
+                    rel = max_rel(torch.as_tensor(study_recs[mode][k]),
+                                  lrec[k].double().cpu() * scale)
+                    require(rel <= KERNEL_TOL, "phase 33: %s study %s vs "
+                            "the library solve %.3g" % (mode, k, rel))
+                lib_ms[mode] = cuda_ms(lambda: lib(bm, bm, alphas, PD_L2),
+                                       reps=3)
+                del lib, lrec, x_all, recs
+                # the study CLI on the PNG: the same records
+                out = os.path.join(tmp, "cli_" + mode)
+                F.reset_counts()
+                rc = run_denoising_study.main([
+                    "--observation", man_path, "--dir-output", out,
+                    "--study-name", "man", "--iterations", str(ITERATIONS),
+                    "--alpha-range", "0.01", "1.5", "64"])
+                cli = F.launch_counts(F.PD_UNITS)
+                require(rc == 0 and all(n > 0 for n in cli.values())
+                        and all(n == 0 for n in F.plain_counts().values()),
+                        "phase 33: %s study CLI rc %r, launches %s"
+                        % (mode, rc, cli))
+                cli_recs = read_records(out, "man")
+                cli_dev[mode] = max(max_rel(
+                    torch.as_tensor(cli_recs[k]),
+                    torch.as_tensor(study_recs[mode][k])) for k in cli_recs)
+                require(cli_dev[mode] <= RECORD_TOL, "phase 33: %s study CLI "
+                        "records vs the library study %.3g"
+                        % (mode, cli_dev[mode]))
+    obj = {m: objectives(r) for m, r in study_recs.items()}
+    anchor_dev = {i: abs(obj["exact"][i] - a) / a
+                  for i, a in MAN_ANCHORS.items()}
+    require(max(anchor_dev.values()) <= PD_ANCHOR_BAND, "phase 33: exact "
+            "study objectives %s vs anchors %s" % (
+                {i: obj["exact"][i] for i in MAN_ANCHORS}, MAN_ANCHORS))
+    # the compact kernel against its plain version (bf16 flips propagate:
+    # the compact bands) and, at α[40], against the JAX package's kernel
+    lib = F.make_fused_pd_denoise_solver(bm.shape, "TVL2", "ALG2",
+                                         ITERATIONS, record=True,
+                                         compact=True)
+    x_pl, r_pl = lib.plain(bm, bm, alphas, PD_L2)
+    r_pl = {k: r_pl[k].double().cpu().numpy() * sc
+            for k, sc in (("Reg", s), ("Data", s * s))}
+    plain_obj = np.abs(objectives(r_pl) - obj["compact"]) \
+        / np.abs(obj["compact"])
+    plain_vox = float(np.max(np.abs(interop.to_numpy(x_pl)
+                                    - sweep_x["compact"]))
+                      / np.max(np.abs(sweep_x["compact"])))
+    del lib, x_pl
+    anchor_c = abs(obj["compact"][MAN_COMPACT_AT] - MAN_COMPACT_ANCHOR) \
+        / MAN_COMPACT_ANCHOR
+    require(plain_vox <= PD_COMPACT_VOX
+            and plain_obj.max() <= PD_COMPACT_OBJ["L2"]
+            and anchor_c <= PD_COMPACT_OBJ["L2"], "phase 33: the compact "
+            "sweep vs its plain version voxel %.3g, objective %.3g; at "
+            "alpha[%d] %.4f vs the JAX package's compact kernel %.4f"
+            % (plain_vox, plain_obj.max(), MAN_COMPACT_AT,
+               obj["compact"][MAN_COMPACT_AT], MAN_COMPACT_ANCHOR))
+    obj_dev = np.abs(obj["compact"] - obj["exact"]) / np.abs(obj["exact"])
+    worst = int(np.argmax(obj_dev))
+    vox = float(np.max(np.abs(sweep_x["compact"] - sweep_x["exact"]))
+                / np.max(np.abs(sweep_x["exact"])))
+    require(vox <= PD_COMPACT_VOX and obj_dev[worst] <= PD_COMPACT_VS_EXACT,
+            "phase 33: compact vs exact voxel %.3g, objective %.3g at "
+            "alpha %.4f" % (vox, obj_dev[worst], alphas[worst]))
+    del sweep_x
+    print("phase 33 Man 1024^2 x 64 alphas TVL2/ALG2 %d, Reg/Data records: "
+          "exact study objectives at %s dev from the anchors %s; compact "
+          "sweep vs its plain version objective %.2e, voxel %.2e, at "
+          "alpha[%d] %.4f vs the JAX package's compact kernel %.4f (rel "
+          "%.2e); compact vs exact: largest objective deviation %.3e at "
+          "alpha %.4f (%.3e at alpha[%d]), voxel %.3e; study CLI records vs "
+          "the library study %s; run_sweep %.3f s exact, %.3f s compact "
+          "(copies to the host included); the fused sweep on the card "
+          "%.1f ms exact, %.1f ms compact; launches exact %s, compact %s "
+          "[%s]" % (
+              ITERATIONS, sorted(MAN_ANCHORS),
+              {i: "%.1e" % d for i, d in anchor_dev.items()},
+              plain_obj.max(), plain_vox, MAN_COMPACT_AT,
+              obj["compact"][MAN_COMPACT_AT], MAN_COMPACT_ANCHOR, anchor_c,
+              obj_dev[worst], alphas[worst], obj_dev[MAN_COMPACT_AT],
+              MAN_COMPACT_AT, vox,
+              {k: "%.1e" % v for k, v in cli_dev.items()},
+              sweep_s["exact"], sweep_s["compact"], lib_ms["exact"],
+              lib_ms["compact"], launches["exact"], launches["compact"],
+              card))
+    lap("phase 33")
+
+    # phase 34: run_denoising's routes on the card
+    lena_path = data.path("2D_Lena_256_noise.png")
+    res34 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def cli_recon(obs, *extra, env=None):
+            out = os.path.join(tmp, "x.mat")
+            with environ(**(env or {})):
+                F.reset_counts()
+                rc = run_denoising.main(["--observation", obs, "--result",
+                                         out, *extra])
+                counts = F.launch_counts(F.PD_UNITS)
+            reader = DataReader(out)
+            reader.read_data()
+            recon = reader.get_data()
+            require(rc == 0 and np.all(np.isfinite(recon)),
+                    "phase 34: run_denoising %s rc %r" % (extra, rc))
+            return recon, counts
+
+        def library(obs, compact):
+            reader = DataReader(obs)
+            reader.read_data()
+            nda = reader.get_data()
+            xs = np.max(nda)
+            bt = torch.as_tensor(nda / xs, dtype=torch.float32, device=device)
+            x = F.make_fused_pd_denoise_solver(
+                nda.shape, "TVL2", "ALG2", ITERATIONS, compact=compact)(
+                    bt, bt, PD_ALPHA, PD_L2)
+            return interop.to_numpy(x).astype(np.float64) * xs, nda
+
+        recon, counts = cli_recon(lena_path, env={"NSOL_TPU_COMPACT": "1"})
+        lib, nda = library(lena_path, True)
+        exact, _ = library(lena_path, False)
+        require(np.array_equal(recon, lib) and not np.array_equal(recon,
+                                                                  exact)
+                and counts["pd_dual"] > 0, "phase 34: Lena under "
+                "NSOL_TPU_COMPACT=1 is not the compact library solve")
+        res34["Lena 256^2 NSOL_TPU_COMPACT=1"] = "compact library solve bit " \
+            "for bit (vs exact %.1e)" % float(np.max(np.abs(recon - exact))
+                                              / np.max(np.abs(exact)))
+        # the 256³ volume of phase 10b: past the fused kernel's fit the
+        # compact switch leaves the solve exact (the policy on the card)
+        phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")) \
+            .data.astype(np.float64)
+        big = np.repeat(np.repeat(np.repeat(phantom, 4, 0), 4, 1), 4, 2)
+        big = big + np.random.RandomState(1).normal(0, 0.05 * phantom.max(),
+                                                    big.shape)
+        nii = os.path.join(tmp, "big.nii")
+        write_nifti(big.astype(np.float32), nii, spacing=np.ones(3))
+        del big
+        recon, counts = cli_recon(nii, env={"NSOL_TPU_COMPACT": "1"})
+        lib, _ = library(nii, False)
+        require(np.array_equal(recon, lib) and counts["pd_dual"] > 0,
+                "phase 34: 256^3 under NSOL_TPU_COMPACT=1 is not the exact "
+                "library solve")
+        res34["256^3 NSOL_TPU_COMPACT=1"] = "exact library solve bit for bit"
+        del recon, lib
+        # --solver ADMM and --reference (the generic PD solve) on Lena
+        ref_path = data.path("2D_Lena_256.png")
+        ref = read_png(ref_path).astype(np.float64)
+        recon, _ = cli_recon(lena_path, "--solver", "ADMM")
+        psnr = {k: float(sim.peak_signal_to_noise_ratio(
+            torch.as_tensor(v), torch.as_tensor(ref)))
+            for k, v in (("observed", nda), ("ADMM", recon))}
+        recon, counts = cli_recon(lena_path, "--reference", ref_path,
+                                  "--measures", "PSNR")
+        exact, _ = library(lena_path, False)
+        gen = float(np.max(np.abs(recon - exact)) / np.max(np.abs(exact)))
+        require(gen <= KERNEL_TOL and psnr["ADMM"] > psnr["observed"]
+                and sum(counts.values()) == 0, "phase 34: --reference "
+                "generic vs fused %.3g, PSNR %s, launches %s"
+                % (gen, psnr, counts))
+        res34["--solver ADMM"] = "PSNR %.2f dB (observation %.2f dB)" % (
+            psnr["ADMM"], psnr["observed"])
+        res34["--reference PSNR"] = "generic primal_dual_solve vs the fused " \
+            "solve %.1e" % gen
+    print("phase 34 run_denoising on the card: %s [%s]" % (res34, card))
+    lap("phase 34")
+
+    # phase 35: the deconvolution CLIs at their default --solver PD, and
+    # the K10b.6 solve
+    res35, ms35 = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vol = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")).data
+        kern = K.gaussian_kernel(np.eye(3), alpha_cut=3, spacing=np.ones(3))
+        cube = ndi.convolve(vol.astype(np.float64), kern, mode="wrap").astype(
+            np.float32)
+        cube_path = os.path.join(tmp, "cube.nii")
+        write_nifti(cube, cube_path, spacing=np.ones(3))
+        obs_of = {"lena": data.path("2D_Lena_256_blur_noise.png"),
+                  "phantom": cube_path}
+        for (name, rtype), anchor in PD_DECONV_ANCHORS.items():
+            out = os.path.join(tmp, "x.mat")
+            F.reset_counts()
+            t0 = time.perf_counter()
+            rc = run_deconvolution.main([
+                "--observation", obs_of[name], "--result", out,
+                "--reconstruction-type", rtype])
+            ms35[(name, rtype)] = 1e3 * (time.perf_counter() - t0)
+            counts = {k: v for k, v in F.launch_counts().items() if v}
+            reader = DataReader(out)
+            reader.read_data()
+            x = reader.get_data()
+            reader = DataReader(obs_of[name])
+            reader.read_data()
+            b = reader.get_data()
+            xs = float(np.max(b))
+            A64, _ = C.make_blur_operators(np.eye(b.ndim), alpha_cut=3,
+                                           dtype=np.float64)
+            xt = torch.as_tensor(x / xs, device=device)
+            bt = torch.as_tensor(b / xs, dtype=torch.float64, device=device)
+            g = G.gradient(xt)
+            g2 = torch.sum(g * g, 0)
+            if rtype == "TVL2":
+                reg = torch.sum(torch.sqrt(g2))
+            else:
+                reg = 0.5 * torch.sum(torch.where(
+                    g2 < 0.05 ** 2, g2, 0.1 * torch.sqrt(g2) - 0.05 ** 2))
+            r = A64(xt) - bt
+            o = float(0.5 * torch.sum(r * r) + ALPHA * reg)
+            dev = abs(o - anchor) / anchor
+            # TVL2's prox runs the TK0 normal_apply (inner cg); HuberL2's
+            # the linear CGLS on the blur operators, which no kernel covers
+            want_units = rtype != "TVL2" or counts.get("normal_apply", 0) \
+                == ITERATIONS * (ITER_MAX + 1)
+            require(rc == 0 and dev <= PD_DECONV_BAND and want_units
+                    and all(n == 0 for n in F.plain_counts().values()),
+                    "phase 35: run_deconvolution %s %s rc %r objective %.6f "
+                    "vs anchor %.6f (rel %.3g); launches %s"
+                    % (name, rtype, rc, o, anchor, dev, counts))
+            res35["%s %s" % (name, rtype)] = "%.6f (anchor %.6f, rel %.1e), " \
+                "%s" % (o, anchor, dev, counts or "no kernel")
+        out = os.path.join(tmp, "study")
+        rc = run_deconvolution_study.main([
+            "--observation", obs_of["lena"], "--dir-output", out,
+            "--study-name", "lena_pd", "--alpha-range", "0.001", "0.05",
+            "4"])
+        reader = ReaderParameterStudy(directory=out, name="lena_pd")
+        reader.read_study()
+        recs = reader.get_results("Data")
+        require(rc == 0 and recs.shape == (4, ITERATIONS + 1)
+                and np.all(np.isfinite(recs)), "phase 35: the PD study CLI "
+                "rc %r, records %s" % (rc, recs.shape))
+        res35["study CLI Lena PD 4 alphas"] = "Data records %s, finite" % (
+            recs.shape,)
+    print("phase 35 nsol_torch_run_deconvolution at its defaults (PD, %d "
+          "iterations, auto): objectives %s; ms a solve (CLI, records "
+          "included) %s [%s]" % (ITERATIONS, res35, {
+              "%s %s" % k: round(v, 1) for k, v in ms35.items()}, card))
+    # K10b.6 on a path: 512³ huber 5 x 5 x 8 through admm_solve("irls")
+    # with the io window apply, on a NCCL group of world size 1
+    its, sweeps, cgi = BIG_ROBUST_ITERS
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    try:
+        mesh = make_space_mesh()
+        b, iso, A64 = scale_problem(device, robust=True)
+        x0 = torch.clamp(b, min=0.0)
+        local = tuple(b.shape)
+        blur_s, grad_W, normal_W = \
+            blocked_halo.make_sharded_blocked_robust_operators(
+                local, iso, mesh=mesh, io_dtype=bf)
+        normal_B = matmul_halo.make_sharded_matmul_gradient_normal(
+            local, None, mesh=mesh)
+        Bg, Bg_adj = halo.make_sharded_gradient_operators(None, mesh)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        (x_io, _), ms_io = timed_once(lambda: admm_solve(
+            blur_s, blur_s, Bg, Bg_adj, b, 0.0, x0, ALPHA, RHO,
+            iterations=its, iter_max=sweeps, data_loss="huber",
+            minimizer="irls", normal_B=normal_B, normal_W=normal_W,
+            grad_W=grad_W, irls_cg_iters=cgi, reduce=mesh.reduce))
+        io_launches = {k: v for k, v in F.launch_counts().items() if v}
+        require(io_launches.get("weighted_apply_prepadded")
+                == its * sweeps * (cgi + 1)
+                and all(n == 0 for n in F.plain_counts().values()),
+                "phase 35: K10b.6 launches %s" % io_launches)
+        ob_io = robust_objective(x_io, b, A64, ALPHA)
+        del x_io
+        x_c, ms_c = timed_once(lambda: R.blocked_robust_admm_solve(
+            BIG, iso, iterations=its, iter_max=sweeps, irls_cg_iters=cgi,
+            compact_dirs=True)(b, x0, ALPHA, RHO))
+        ob_c = robust_objective(x_c, b, A64, ALPHA)
+        io_rel = abs(ob_io - ob_c) / abs(ob_c)
+        require(io_rel <= WINDOW_IO_TOL, "phase 35: K10b.6 objective %.4f vs "
+                "the compact blocked robust solve %.4f (rel %.3g)"
+                % (ob_io, ob_c, io_rel))
+        del x_c, b, x0
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    print("phase 35 K10b.6 512^3 huber %dx%dx%d, admm_solve(irls) with "
+          "make_sharded_blocked_robust_operators(io_dtype=bfloat16) on NCCL "
+          "world 1: objective %.4f, blocked_robust_admm_solve(compact_dirs="
+          "True) %.4f (rel %.2e, band %g); %.1f ms a solve, blocked %.1f ms; "
+          "launches %s [%s]" % (its, sweeps, cgi, ob_io, ob_c, io_rel,
+                                WINDOW_IO_TOL, ms_io, ms_c, io_launches,
+                                card))
+    lap("phase 35")
+
+    path_launches = dict(launches["compact"], **io_launches)
+    out = []
+    for name, (unit, tpu, source) in PD_SURFACE_UNITS.items():
+        window = name.startswith("weighted")
+        b_ms, b_by = pd_surface_bound(
+            name, BIG_N if window else 1024 ** 2, nd=2, batch=64,
+            reads=win_reads, ext=win_ext)
+        t = times[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": tpu,
+                    "launches": int(path_launches.get(unit, 0)),
+                    "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        require(out[-1]["launches"] > 0, "phases 33-35: %s launched no time "
+                "on its main path" % name)
+    return out
+
+
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
     counts of the 64³ solve, each unit's max |Δ| against its plain version
@@ -4057,7 +4725,7 @@ def run_admm_phases(device, card):
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
-          "scale", "compact", "sharded", "compact_robust")
+          "scale", "compact", "sharded", "compact_robust", "pd_surface")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -4221,6 +4889,8 @@ def main(argv=None):
                                       reads=sh["reads"])
     if "compact_robust" in groups:
         kernels += run_compact_robust_phases(device, card)
+    if "pd_surface" in groups:
+        kernels += run_pd_surface_phases(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

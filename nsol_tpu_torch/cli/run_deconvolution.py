@@ -1,13 +1,16 @@
-"""Run a deconvolution (counterpart of ``nsol_tpu/cli/run_deconvolution.py``):
-the ADMM/TVL2 route (the linear loss with the ``cg`` inner engine, a
-robust loss with ``irls``) and the TK0L2/TK1L2 route.
+"""Run a deconvolution (counterpart of ``nsol_tpu/cli/run_deconvolution.py``;
+reference: nsol/application/run_deconvolution.py:28-248): TK0L2, TK1L2,
+TVL2 (by primal-dual, the default ``--solver PD``, or by ADMM) and HuberL2.
 
 Gaussian blur from ``--blur`` (cov = diag(σ²)), voxel spacing from the nii
-header when present. TVL2 by ADMM runs the whole solve on ``b/x_scale`` in
-float32 with ``x_scale = max(b)``, rescaled on output, as the reference's
-accelerator route does (run_deconvolution.py:79,137,242).
+header when present. ``--minimizer auto`` resolves as the reference's does
+(:83-91): a linear loss with the separable blur runs the inner ``"cg"``, a
+robust one ``"irls"``.
 
-Both losses take their solver factory and storage from
+TVL2 by ADMM with those engines and no ``--reference`` runs the whole solve
+on ``b/x_scale`` in float32 with ``x_scale = max(b)``, rescaled on output,
+as the reference's accelerator route does (run_deconvolution.py:79,137,
+242). Both losses take their solver factory and storage from
 :func:`nsol_tpu_torch.policy.tvl2_solver`, the reference CLI's choice
 (:140-220): the fused solve
 (:func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_admm_solver`, linear or
@@ -23,13 +26,17 @@ blocked, the linear ``state_dtype=bfloat16`` with ``NSOL_TPU_COMPACT=1``),
 exact f32 with ``NSOL_TPU_EXACT=1``, on ``--device cpu`` and for a 2-D
 image past the fused solve's fit. ``--data-loss-scale`` reaches a robust
 solve unscaled, as there (:139).
-TK0L2/TK1L2 run the interface's
-:class:`~nsol_tpu_torch.solvers.wrappers.TikhonovLinearSolver` per α
-(:253-290), with the blur hint, so that on CUDA the kernel units serve its
-inner solves. ``--device cuda`` runs the CUDA kernels, ``--device cpu``
-their plain versions. Every other route of the reference (PD, HuberL2,
-other inner engines, reference measures) raises ``NotImplementedError``
-until its slice is ported.
+
+Every other route runs the interface's solver
+(:class:`~nsol_tpu_torch.interface.DeconvolutionSolverStudyInterface`),
+one run per α (:253-290), with the blur hint: TK0L2/TK1L2, TVL2 by PD
+(each PD step's prox an inner Tikhonov solve: ``"cg"``, ``"irls"`` for a
+robust ``--data-loss``, or ``"lsmr"``), HuberL2 (the linear CGLS prox, the
+reference's quirk), and any route with ``--reference``, whose observer
+records the similarity measures. On CUDA the inner solves' applies run
+the kernel units through the hooks. ``--device cuda`` runs the CUDA
+kernels, ``--device cpu`` their plain versions. A non-separable blur and
+the inner engines still to port raise ``NotImplementedError``.
 """
 
 import numpy as np
@@ -38,6 +45,7 @@ import torch
 from nsol_tpu_torch import policy
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.cli.argparser import LOSSES, InputArgparser
+from nsol_tpu_torch.defaults import ROADMAP_ENGINES, not_ported
 from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
 from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
@@ -46,18 +54,12 @@ from nsol_tpu_torch.ops import grad as G
 from nsol_tpu_torch.solvers.tikhonov import resolve_minimizer
 
 #: the reconstruction types this CLI runs
-_TYPES = ("TVL2", "TK0L2", "TK1L2")
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        "%s is not ported to nsol_tpu_torch yet (ROADMAP.md Queue 1)" % what)
+_TYPES = ("TK0L2", "TK1L2", "TVL2", "HuberL2")
 
 
 def main(argv=None):
     input_parser = InputArgparser(
-        description="Run TVL2 (robust) deconvolution by ADMM, or TK0L2/"
-                    "TK1L2 deconvolution, on a GPU")
+        description="Run TK0L2/TK1L2/TVL2/HuberL2 deconvolution on a GPU")
     input_parser.add_observation(required=True)
     input_parser.add_result(required=False)
     input_parser.add_reference(required=False)
@@ -78,16 +80,13 @@ def main(argv=None):
     args = input_parser.parse_args(argv)
     input_parser.print_arguments(args)
 
-    tikhonov = args.reconstruction_type in ("TK0L2", "TK1L2")
     if args.reconstruction_type not in _TYPES:
-        raise _not_ported("--reconstruction-type %s"
-                          % args.reconstruction_type)
-    if not tikhonov and args.solver != "ADMM":
-        raise _not_ported("--solver %s" % args.solver)
+        raise ValueError("reconstruction type '%s' not known; allowed: %s"
+                         % (args.reconstruction_type, ", ".join(_TYPES)))
+    if args.solver not in ("PD", "ADMM"):
+        raise ValueError("tv_solver must be 'PD' or 'ADMM'")
     if args.data_loss not in LOSSES:
         raise ValueError("--data-loss must be one of %s" % ", ".join(LOSSES))
-    if args.reference is not None:
-        raise _not_ported("--reference (per-iteration measures)")
 
     alphas = np.atleast_1d(args.alpha)
     if len(alphas) > 1 and args.result is not None:
@@ -102,6 +101,11 @@ def main(argv=None):
     data_reader.read_data()
     observed_nda = data_reader.get_data()
     dimension = observed_nda.ndim
+    x_ref = None
+    if args.reference is not None:
+        ref_reader = DataReader(args.reference)
+        ref_reader.read_data()
+        x_ref = ref_reader.get_data()
 
     sigma = np.atleast_1d(args.blur).astype(np.float64)
     if sigma.size == 1:
@@ -118,14 +122,17 @@ def main(argv=None):
 
     minimizer = resolve_minimizer(args.minimizer, data_loss=args.data_loss,
                                   cov=cov, spacing=spacing)
-    if minimizer != ("cg" if args.data_loss == "linear" else "irls"):
-        raise _not_ported("--minimizer %s with --data-loss %s"
-                          % (minimizer, args.data_loss))
+    if minimizer not in ("cg", "irls", "lsmr") \
+            and args.reconstruction_type != "HuberL2":
+        raise not_ported("--minimizer %s" % minimizer, ROADMAP_ENGINES)
 
     x_scale = np.max(observed_nda)
-    if tikhonov:
-        return _run_tikhonov(args, data_reader, observed_nda, cov, spacing,
-                             minimizer, x_scale, alphas)
+    fused = (args.reconstruction_type == "TVL2" and args.solver == "ADMM"
+             and x_ref is None and minimizer == (
+                 "cg" if args.data_loss == "linear" else "irls"))
+    if not fused:
+        return _run_interface(args, data_reader, observed_nda, x_ref, cov,
+                              spacing, minimizer, x_scale, alphas)
 
     # ---------------------------- Set up solver ----------------------------
     build, kwargs = policy.tvl2_solver(
@@ -155,17 +162,18 @@ def main(argv=None):
     return 0
 
 
-def _run_tikhonov(args, data_reader, observed_nda, cov, spacing, minimizer,
-                  x_scale, alphas):
-    """TK0L2/TK1L2 through the interface's solver, one run per α
-    (nsol_tpu/cli/run_deconvolution.py:253-290)."""
+def _run_interface(args, data_reader, observed_nda, x_ref, cov, spacing,
+                   minimizer, x_scale, alphas):
+    """Every route but the whole ADMM solve: the interface's solver, one
+    run per α (nsol_tpu/cli/run_deconvolution.py:253-290)."""
     A, A_adj = C.make_blur_operators(cov, alpha_cut=3, spacing=spacing)
     grad_op, grad_adj = G.make_gradient_operators(spacing)
     normal_A = C.make_normal_blur_operator(cov, alpha_cut=3, spacing=spacing) \
         if minimizer == "cg" else None
-
-    def normal_B(x):
-        return G.gradient_normal(x, spacing)
+    normal_B = None
+    if minimizer in ("cg", "irls"):
+        def normal_B(x):
+            return G.gradient_normal(x, spacing)
 
     solver_interface = DeconvolutionSolverStudyInterface(
         A=A, A_adj=A_adj, D=grad_op, D_adj=grad_adj, b=observed_nda,
@@ -175,7 +183,8 @@ def _run_tikhonov(args, data_reader, observed_nda, cov, spacing, minimizer,
         minimizer=minimizer, measures=args.measures,
         dimension=observed_nda.ndim,
         reconstruction_type=args.reconstruction_type, rho=args.rho,
-        tv_solver=args.solver, verbose=args.verbose, normal_A=normal_A,
+        x_ref=x_ref, tv_solver=args.solver, verbose=args.verbose,
+        normal_A=normal_A,
         normal_B=normal_B, irls_cg_iters=args.irls_cg_iters, blur_cov=cov,
         spacing=spacing, device=args.device)
     solver_interface.set_up_solver()

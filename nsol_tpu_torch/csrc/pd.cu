@@ -40,12 +40,29 @@
 // image (Lena 256^2, 256 KiB) is bound by its ~100-150 launches per solve.
 // Index arithmetic is 32-bit (the wrapper checks B * ndim * n < 2^31).
 // nsol_pd_solve enqueues a whole solve; nothing syncs with the host inside it.
+//
+// Storage (the reference's compact=True, fused.py:1091-1167, K10b.4): every
+// unit is a template over the state's type T, float or bfloat16. With
+// bfloat16, x, x_mean and every p_i are stored in 2 bytes and read as their
+// exact float upcasts; all arithmetic is float, and a value is rounded to
+// bfloat16 (to nearest, ties to even, as JAX's astype) exactly where the
+// reference rounds it: the fresh dual before the primal step reads it, the
+// new x before the measures and the over-relaxation see it, and x_mean; b
+// stays float. The initial state round(x0) and the output's upcast are made
+// by the wrapper. Each operation is written with an _rn intrinsic in the
+// reference's order, so that nvcc contracts nothing into an FMA: one fused
+// rounding less would flip a bfloat16 rounding now and then, and the flip
+// propagates. The state then moves ~half the bytes (~7 byte-volumes a voxel
+// and iteration instead of ~12 at Man 1024^2).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 // Kernel units, the indices of the launch counts handed back to Python.
 enum PdUnit { kPdDual = 0, kPdPrimal = 1, kPdRecord = 2 };
@@ -65,6 +82,21 @@ struct InvH {  // 1/h in spatial (x, y, z) order; z unused in 2-D
   float x, y, z;
 };
 
+// A state value as float, stored as T, and rounded to T's precision.
+__device__ __forceinline__ float ld(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float ld(const bf16* p, int i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ void st(float* p, int i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(bf16* p, int i, float v) { p[i] = __float2bfloat16_rn(v); }
+template <class T>
+__device__ __forceinline__ float rnd(float v) {
+  return sizeof(T) == sizeof(float) ? v : __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// (next - c) / h along one axis, 0 past the last row: the forward difference.
+__device__ __forceinline__ float fdiff(float next, float c, float ih) {
+  return __fmul_rn(__fsub_rn(next, c), ih);
+}
+
 // Blocks along x of the launch grid; grid.y is the batch.
 int pd_grid(int B, int n) {
   int per = kPdBlocks / B;
@@ -81,31 +113,33 @@ __device__ __forceinline__ float sched_at(const float* __restrict__ sched, int r
   return sched[(row * B + bi) * iters + t];
 }
 
-__global__ void pd_dual_kernel(const float* __restrict__ xm, float* __restrict__ p,
+template <class T>
+__global__ void pd_dual_kernel(const T* __restrict__ xm, T* __restrict__ p,
                                const float* __restrict__ sched, int t, int iters, int huber,
                                float gamma, PdDims d, InvH ih) {
   const int bi = blockIdx.y;
   const int n = d.n(), plane = d.plane();
   const float s = sched_at(sched, kSigma, bi, t, iters, d.B);
-  const float shrink = 1.f + s * gamma;
-  const float* __restrict__ x = xm + bi * n;
-  float* __restrict__ pb = p + bi * d.ndim * n;
+  const float shrink = __fadd_rn(1.f, __fmul_rn(s, gamma));
+  const T* __restrict__ x = xm + bi * n;
+  T* __restrict__ pb = p + bi * d.ndim * n;
   PD_STRIDE(i, n) {
     const int ix = i % d.X, iy = (i / d.X) % d.Y, iz = i / plane;
-    const float c = x[i];
+    const float c = ld(x, i);
     auto update = [&](int k, float g) {
-      float q = pb[k * n + i] + s * g;
-      if (huber) q = q / shrink;
-      pb[k * n + i] = q / fmaxf(1.f, fabsf(q));
+      float q = __fadd_rn(ld(pb, k * n + i), __fmul_rn(s, g));
+      if (huber) q = __fdiv_rn(q, shrink);
+      st(pb, k * n + i, __fdiv_rn(q, fmaxf(1.f, fabsf(q))));
     };
-    update(0, ((ix + 1 < d.X ? x[i + 1] : 0.f) - c) * ih.x);
-    update(1, ((iy + 1 < d.Y ? x[i + d.X] : 0.f) - c) * ih.y);
-    if (d.ndim == 3) update(2, ((iz + 1 < d.Z ? x[i + plane] : 0.f) - c) * ih.z);
+    update(0, fdiff(ix + 1 < d.X ? ld(x, i + 1) : 0.f, c, ih.x));
+    update(1, fdiff(iy + 1 < d.Y ? ld(x, i + d.X) : 0.f, c, ih.y));
+    if (d.ndim == 3) update(2, fdiff(iz + 1 < d.Z ? ld(x, i + plane) : 0.f, c, ih.z));
   }
 }
 
-__global__ void pd_primal_kernel(float* __restrict__ x, float* __restrict__ xm,
-                                 const float* __restrict__ p, const float* __restrict__ b,
+template <class T>
+__global__ void pd_primal_kernel(T* __restrict__ x, T* __restrict__ xm,
+                                 const T* __restrict__ p, const float* __restrict__ b,
                                  const float* __restrict__ sched, int t, int iters, int ell1,
                                  PdDims d, InvH ih) {
   const int bi = blockIdx.y;
@@ -113,54 +147,59 @@ __global__ void pd_primal_kernel(float* __restrict__ x, float* __restrict__ xm,
   const float tau = sched_at(sched, kTau, bi, t, iters, d.B);
   const float ft = sched_at(sched, kFt, bi, t, iters, d.B);
   const float theta = sched_at(sched, kTheta, bi, t, iters, d.B);
-  const float one_ft = 1.f + ft;
-  float* __restrict__ xb = x + bi * n;
-  float* __restrict__ mb = xm + bi * n;
-  const float* __restrict__ p0 = p + bi * d.ndim * n;
-  const float* __restrict__ p1 = p0 + n;
-  const float* __restrict__ p2 = p1 + n;
+  const float one_ft = __fadd_rn(1.f, ft);
+  T* __restrict__ xb = x + bi * n;
+  T* __restrict__ mb = xm + bi * n;
+  const T* __restrict__ p0 = p + bi * d.ndim * n;
+  const T* __restrict__ p1 = p0 + n;
+  const T* __restrict__ p2 = p1 + n;
   PD_STRIDE(i, n) {
     const int ix = i % d.X, iy = (i / d.X) % d.Y, iz = i / plane;
-    float div = ((ix > 0 ? p0[i - 1] : 0.f) - p0[i]) * ih.x;
-    div += ((iy > 0 ? p1[i - d.X] : 0.f) - p1[i]) * ih.y;
-    if (d.ndim == 3) div += ((iz > 0 ? p2[i - plane] : 0.f) - p2[i]) * ih.z;
-    const float xo = xb[i], bv = b[i];
-    const float z = xo - tau * div;
+    // sum_i D_i^T p_i / h_i, x first: (p[i-1] - p[i]) / h, p[-1] = 0
+    float div = fdiff(ix > 0 ? ld(p0, i - 1) : 0.f, ld(p0, i), ih.x);
+    div = __fadd_rn(div, fdiff(iy > 0 ? ld(p1, i - d.X) : 0.f, ld(p1, i), ih.y));
+    if (d.ndim == 3)
+      div = __fadd_rn(div, fdiff(iz > 0 ? ld(p2, i - plane) : 0.f, ld(p2, i), ih.z));
+    const float xo = ld(xb, i), bv = b[i];
+    const float z = __fsub_rn(xo, __fmul_rn(tau, div));
     float xn;
     if (ell1) {
-      const float dz = z - bv;
-      const float m = fmaxf(fabsf(dz) - ft, 0.f);
-      xn = bv + (dz > 0.f ? m : (dz < 0.f ? -m : 0.f));
+      const float dz = __fsub_rn(z, bv);
+      const float m = fmaxf(__fsub_rn(fabsf(dz), ft), 0.f);
+      xn = __fadd_rn(bv, dz > 0.f ? m : (dz < 0.f ? -m : 0.f));
     } else {
-      xn = (z + ft * bv) / one_ft;
+      xn = __fdiv_rn(__fadd_rn(z, __fmul_rn(ft, bv)), one_ft);
     }
-    mb[i] = xn + theta * (xn - xo);
-    xb[i] = xn;
+    xn = rnd<T>(xn);  // the stored iterate, which x_mean and the records see
+    st(mb, i, __fadd_rn(xn, __fmul_rn(theta, __fsub_rn(xn, xo))));
+    st(xb, i, xn);
   }
 }
 
-__global__ void pd_record_kernel(const float* __restrict__ x, const float* __restrict__ b,
+template <class T>
+__global__ void pd_record_kernel(const T* __restrict__ x, const float* __restrict__ b,
                                  double* __restrict__ partials, int ell1, int huber, float gr,
                                  PdDims d, InvH ih) {
   const int bi = blockIdx.y;
   const int n = d.n(), plane = d.plane();
-  const float gr2 = gr * gr;
-  const float* __restrict__ xb = x + bi * n;
+  const float gr2 = __fmul_rn(gr, gr);
+  const T* __restrict__ xb = x + bi * n;
   double acc_r = 0.0, acc_d = 0.0;
   PD_STRIDE(i, n) {
     const int ix = i % d.X, iy = (i / d.X) % d.Y, iz = i / plane;
-    const float c = xb[i];
-    const float gx = ((ix + 1 < d.X ? xb[i + 1] : 0.f) - c) * ih.x;
-    const float gy = ((iy + 1 < d.Y ? xb[i + d.X] : 0.f) - c) * ih.y;
-    float g2 = gx * gx + gy * gy;
+    const float c = ld(xb, i);
+    const float gx = fdiff(ix + 1 < d.X ? ld(xb, i + 1) : 0.f, c, ih.x);
+    const float gy = fdiff(iy + 1 < d.Y ? ld(xb, i + d.X) : 0.f, c, ih.y);
+    float g2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
     if (d.ndim == 3) {
-      const float gz = ((iz + 1 < d.Z ? xb[i + plane] : 0.f) - c) * ih.z;
-      g2 += gz * gz;
+      const float gz = fdiff(iz + 1 < d.Z ? ld(xb, i + plane) : 0.f, c, ih.z);
+      g2 = __fadd_rn(g2, __fmul_rn(gz, gz));
     }
-    const float r = huber ? (g2 < gr2 ? g2 : 2.f * gr * sqrtf(g2) - gr2) : sqrtf(g2);
-    const float dv = c - b[i];
+    const float r = huber ? (g2 < gr2 ? g2 : __fsub_rn(__fmul_rn(2.f * gr, sqrtf(g2)), gr2))
+                          : sqrtf(g2);
+    const float dv = __fsub_rn(c, b[i]);
     acc_r += (double)r;
-    acc_d += ell1 ? (double)fabsf(dv) : (double)(dv * dv);
+    acc_d += ell1 ? (double)fabsf(dv) : (double)__fmul_rn(dv, dv);
   }
   const double sr = block_sum(acc_r);
   __syncthreads();
@@ -193,29 +232,59 @@ __global__ void pd_record_reduce_kernel(const double* __restrict__ partials, int
 }
 
 // ---------------------------------------------------------------- units --
+// The state pointers are void: float, or bfloat16 with `compact`.
 
-cudaError_t pd_dual(const float* xm, float* p, const float* sched, int t, int iters, int huber,
-                    float gamma, PdDims d, InvH ih, cudaStream_t s) {
+template <class T>
+cudaError_t pd_dual_t(const void* xm, void* p, const float* sched, int t, int iters, int huber,
+                      float gamma, PdDims d, InvH ih, cudaStream_t s) {
   const dim3 grid(pd_grid(d.B, d.n()), d.B);
-  pd_dual_kernel<<<grid, kThreads, 0, s>>>(xm, p, sched, t, iters, huber, gamma, d, ih);
+  pd_dual_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(xm), static_cast<T*>(p),
+                                              sched, t, iters, huber, gamma, d, ih);
   return cudaGetLastError();
 }
 
-cudaError_t pd_primal(float* x, float* xm, const float* p, const float* b, const float* sched,
-                      int t, int iters, int ell1, PdDims d, InvH ih, cudaStream_t s) {
+template <class T>
+cudaError_t pd_primal_t(void* x, void* xm, const void* p, const float* b, const float* sched,
+                        int t, int iters, int ell1, PdDims d, InvH ih, cudaStream_t s) {
   const dim3 grid(pd_grid(d.B, d.n()), d.B);
-  pd_primal_kernel<<<grid, kThreads, 0, s>>>(x, xm, p, b, sched, t, iters, ell1, d, ih);
+  pd_primal_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<T*>(x), static_cast<T*>(xm),
+                                                static_cast<const T*>(p), b, sched, t, iters,
+                                                ell1, d, ih);
   return cudaGetLastError();
 }
 
-cudaError_t pd_record(const float* x, const float* b, double* partials, double* reg,
-                      double* data, int t, int cols, int ell1, int huber, float gr, PdDims d,
-                      InvH ih, cudaStream_t s) {
+template <class T>
+cudaError_t pd_record_t(const void* x, const float* b, double* partials, double* reg,
+                        double* data, int t, int cols, int ell1, int huber, float gr, PdDims d,
+                        InvH ih, cudaStream_t s) {
   const int gx = pd_grid(d.B, d.n());
-  pd_record_kernel<<<dim3(gx, d.B), kThreads, 0, s>>>(x, b, partials, ell1, huber, gr, d, ih);
+  pd_record_kernel<T><<<dim3(gx, d.B), kThreads, 0, s>>>(static_cast<const T*>(x), b, partials,
+                                                          ell1, huber, gr, d, ih);
   pd_record_reduce_kernel<<<d.B, kReduceThreads, 0, s>>>(partials, gx, t, cols, reg, data,
                                                          huber);
   return cudaGetLastError();
+}
+
+cudaError_t pd_dual(const void* xm, void* p, const float* sched, int t, int iters, int huber,
+                    float gamma, int compact, PdDims d, InvH ih, cudaStream_t s) {
+  return compact ? pd_dual_t<bf16>(xm, p, sched, t, iters, huber, gamma, d, ih, s)
+                 : pd_dual_t<float>(xm, p, sched, t, iters, huber, gamma, d, ih, s);
+}
+
+cudaError_t pd_primal(void* x, void* xm, const void* p, const float* b, const float* sched,
+                      int t, int iters, int ell1, int compact, PdDims d, InvH ih,
+                      cudaStream_t s) {
+  return compact ? pd_primal_t<bf16>(x, xm, p, b, sched, t, iters, ell1, d, ih, s)
+                 : pd_primal_t<float>(x, xm, p, b, sched, t, iters, ell1, d, ih, s);
+}
+
+cudaError_t pd_record(const void* x, const float* b, double* partials, double* reg,
+                      double* data, int t, int cols, int ell1, int huber, float gr, int compact,
+                      PdDims d, InvH ih, cudaStream_t s) {
+  return compact ? pd_record_t<bf16>(x, b, partials, reg, data, t, cols, ell1, huber, gr, d, ih,
+                                     s)
+                 : pd_record_t<float>(x, b, partials, reg, data, t, cols, ell1, huber, gr, d,
+                                      ih, s);
 }
 
 }  // namespace
@@ -223,7 +292,8 @@ cudaError_t pd_record(const float* x, const float* b, double* partials, double* 
 // ------------------------------------------------------------ C interface --
 // Every function enqueues on `stream`, never synchronizes, allocates
 // nothing, adds one to counts[unit] per unit it launches, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). `compact`: the state (x, x_mean, p) is
+// bfloat16, else float.
 
 extern "C" {
 
@@ -231,29 +301,30 @@ extern "C" {
 // 2 * B * nsol_pd_grid(B, n) doubles.
 int nsol_pd_grid(int B, int n) { return pd_grid(B, n); }
 
-int nsol_pd_dual(const float* xm, float* p, const float* sched, int t, int iters, int huber,
-                 float gamma, int ndim, int B, int Z, int Y, int X, float ihx, float ihy,
-                 float ihz, void* stream, long long* counts) {
-  cudaError_t e = pd_dual(xm, p, sched, t, iters, huber, gamma, PdDims{ndim, B, Z, Y, X},
-                          InvH{ihx, ihy, ihz}, (cudaStream_t)stream);
+int nsol_pd_dual(const void* xm, void* p, const float* sched, int t, int iters, int huber,
+                 float gamma, int compact, int ndim, int B, int Z, int Y, int X, float ihx,
+                 float ihy, float ihz, void* stream, long long* counts) {
+  cudaError_t e = pd_dual(xm, p, sched, t, iters, huber, gamma, compact,
+                          PdDims{ndim, B, Z, Y, X}, InvH{ihx, ihy, ihz}, (cudaStream_t)stream);
   counts[kPdDual] += 1;
   return (int)e;
 }
 
-int nsol_pd_primal(float* x, float* xm, const float* p, const float* b, const float* sched,
-                   int t, int iters, int ell1, int ndim, int B, int Z, int Y, int X, float ihx,
-                   float ihy, float ihz, void* stream, long long* counts) {
-  cudaError_t e = pd_primal(x, xm, p, b, sched, t, iters, ell1, PdDims{ndim, B, Z, Y, X},
-                            InvH{ihx, ihy, ihz}, (cudaStream_t)stream);
+int nsol_pd_primal(void* x, void* xm, const void* p, const float* b, const float* sched, int t,
+                   int iters, int ell1, int compact, int ndim, int B, int Z, int Y, int X,
+                   float ihx, float ihy, float ihz, void* stream, long long* counts) {
+  cudaError_t e = pd_primal(x, xm, p, b, sched, t, iters, ell1, compact,
+                            PdDims{ndim, B, Z, Y, X}, InvH{ihx, ihy, ihz},
+                            (cudaStream_t)stream);
   counts[kPdPrimal] += 1;
   return (int)e;
 }
 
-int nsol_pd_record(const float* x, const float* b, double* partials, double* reg, double* data,
-                   int t, int cols, int ell1, int huber, float gamma_rec, int ndim, int B, int Z,
-                   int Y, int X, float ihx, float ihy, float ihz, void* stream,
+int nsol_pd_record(const void* x, const float* b, double* partials, double* reg, double* data,
+                   int t, int cols, int ell1, int huber, float gamma_rec, int compact, int ndim,
+                   int B, int Z, int Y, int X, float ihx, float ihy, float ihz, void* stream,
                    long long* counts) {
-  cudaError_t e = pd_record(x, b, partials, reg, data, t, cols, ell1, huber, gamma_rec,
+  cudaError_t e = pd_record(x, b, partials, reg, data, t, cols, ell1, huber, gamma_rec, compact,
                             PdDims{ndim, B, Z, Y, X}, InvH{ihx, ihy, ihz},
                             (cudaStream_t)stream);
   counts[kPdRecord] += 1;
@@ -261,23 +332,26 @@ int nsol_pd_record(const float* x, const float* b, double* partials, double* reg
 }
 
 // The whole denoising solve (fused.py:957), enqueued on `stream`: x and
-// x_mean start at x0 in every batch slot and p at 0; then record(0) and
+// x_mean start at x0 in every batch slot (x0 already stored as the state's
+// type: round(x0) under `compact`) and p at 0; then record(0) and
 // iterations x (dual, primal[, record(t+1)]). reg/data are (B, iterations+1)
 // doubles, used (with partials) only when `record` is set.
-int nsol_pd_solve(const float* b, const float* x0, float* x, float* xm, float* p,
+int nsol_pd_solve(const float* b, const void* x0, void* x, void* xm, void* p,
                   const float* sched, double* partials, double* reg, double* data, int record,
-                  float gamma_rec, int ell1, int huber, float gamma, int iterations, int ndim,
-                  int B, int Z, int Y, int X, float ihx, float ihy, float ihz, void* stream,
-                  long long* counts) {
+                  float gamma_rec, int ell1, int huber, float gamma, int compact,
+                  int iterations, int ndim, int B, int Z, int Y, int X, float ihx, float ihy,
+                  float ihz, void* stream, long long* counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const PdDims d{ndim, B, Z, Y, X};
   const InvH ih{ihx, ihy, ihz};
-  const size_t bytes = (size_t)d.n() * sizeof(float);
+  const size_t bytes = (size_t)d.n() * (compact ? sizeof(bf16) : sizeof(float));
+  char* const xc = static_cast<char*>(x);
+  char* const mc = static_cast<char*>(xm);
   cudaError_t e;
   for (int k = 0; k < B; ++k) {
-    if ((e = cudaMemcpyAsync(x + (size_t)k * d.n(), x0, bytes, cudaMemcpyDeviceToDevice, s)) !=
+    if ((e = cudaMemcpyAsync(xc + k * bytes, x0, bytes, cudaMemcpyDeviceToDevice, s)) !=
             cudaSuccess ||
-        (e = cudaMemcpyAsync(xm + (size_t)k * d.n(), x0, bytes, cudaMemcpyDeviceToDevice, s)) !=
+        (e = cudaMemcpyAsync(mc + k * bytes, x0, bytes, cudaMemcpyDeviceToDevice, s)) !=
             cudaSuccess)
       return (int)e;
   }
@@ -292,13 +366,14 @@ int nsol_pd_solve(const float* b, const float* x0, float* x, float* xm, float* p
 
   const int cols = iterations + 1;
   if (record)
-    UNIT(kPdRecord, pd_record(x, b, partials, reg, data, 0, cols, ell1, huber, gamma_rec, d, ih, s));
+    UNIT(kPdRecord, pd_record(x, b, partials, reg, data, 0, cols, ell1, huber, gamma_rec,
+                              compact, d, ih, s));
   for (int t = 0; t < iterations; ++t) {
-    UNIT(kPdDual, pd_dual(xm, p, sched, t, iterations, huber, gamma, d, ih, s));
-    UNIT(kPdPrimal, pd_primal(x, xm, p, b, sched, t, iterations, ell1, d, ih, s));
+    UNIT(kPdDual, pd_dual(xm, p, sched, t, iterations, huber, gamma, compact, d, ih, s));
+    UNIT(kPdPrimal, pd_primal(x, xm, p, b, sched, t, iterations, ell1, compact, d, ih, s));
     if (record)
-      UNIT(kPdRecord,
-           pd_record(x, b, partials, reg, data, t + 1, cols, ell1, huber, gamma_rec, d, ih, s));
+      UNIT(kPdRecord, pd_record(x, b, partials, reg, data, t + 1, cols, ell1, huber, gamma_rec,
+                                compact, d, ih, s));
   }
 #undef UNIT
   return 0;

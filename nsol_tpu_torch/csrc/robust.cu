@@ -38,7 +38,11 @@
 //                   of v_ext, w_ext (halo r = max(2 r_a, 1)): the first
 //                   chain gives A v on the Zl + 2 r_a rows the second one
 //                   needs, w is read there, the second chain and the
-//                   Laplacian give the Zl centre rows.
+//                   Laplacian give the Zl centre rows. Its io instance (the
+//                   reference's prepadded io_dtype=bfloat16,
+//                   parallel/blocked_halo.py:115-119, K10b.6) reads v_ext and
+//                   w_ext as bfloat16 and stores out in bfloat16, rounded
+//                   once; the arithmetic and the scratch stay float.
 // Both run stencil.cuh's window chain (x and y passes on every plane of the
 // window, a z pass with no wrap) and GlobalRows.
 //
@@ -127,14 +131,15 @@ struct BlurEpi {
   }
 };
 
-// weighted_apply's first z epilogue: s = wts * A pf, the weights read at
-// W's precision (bfloat16 under kRobustIo, the reference's wts16).
-template <class W = float>
+// weighted_apply's first z epilogue: s = wts * A pf, the weights stored
+// as WT and read at W's precision (bfloat16 under kRobustIo, the
+// reference's wts16).
+template <class W = float, class WT = float>
 struct ScaleEpi {
-  const float* wts;
+  const WT* wts;
   float* s;
   __device__ double operator()(long long i, float conv, Coord, Dims) const {
-    s[i] = __fmul_rn(round_as<W>(__ldg(wts + i)), conv);
+    s[i] = __fmul_rn(round_as<W>(ldg(wts + i)), conv);
     return 0.0;
   }
 };
@@ -168,6 +173,21 @@ struct MaskedEpi {
     }
     q[i] = qi;
     return (double)p * qi;
+  }
+};
+
+// weighted_apply_prepadded's second z epilogue: out = conv + rho D^T D v
+// on the window's centre, v read and out stored as T (bfloat16 under the
+// io storage, rounded once).
+template <class T>
+struct WindowOutEpi {
+  const T* v;  // the window's centre planes
+  T* out;
+  float rho;
+  Spacing sp;
+  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
+    out[i] = store_as<T>(fmaf(rho, reg_normal<kRegLap>(LoadT<T>{v}, i, c, sp, d), conv));
+    return 0.0;
   }
 };
 
@@ -267,18 +287,34 @@ cudaError_t blur_apply_prepadded(const float* y_ext, const float* u_ext, float* 
 // out = A (w * A v) + rho D^T D v on a z-window of halo r >= r_a (r_a the
 // blur taps' half-width): x(v_ext) -> t1 -> t2 -> s = w * A v on the
 // Zl + 2 r_a rows in t1; then x(s) -> t2 -> t1 -> out with the Laplacian
-// of v's centre.
-cudaError_t weighted_apply_prepadded(const float* v_ext, const float* w_ext, float* out,
-                                     float* t1, float* t2, Taps tp, float rho, int r, int row0,
-                                     int z_total, Spacing sp, Dims d, cudaStream_t s) {
+// of v's centre. v_ext, w_ext and out are stored as T; t1, t2 are float.
+template <class T>
+void weighted_apply_prepadded_t(const T* v_ext, const T* w_ext, T* out, float* t1, float* t2,
+                                Taps tp, float rho, int r, int row0, int z_total, Spacing sp,
+                                Dims d, cudaStream_t s) {
   const int ra = tp.kz / 2;
   const long long plane = d.plane();
   const Dims mid{d.Z + 2 * ra, d.Y, d.X};
-  blur_chain_slab(Load{v_ext}, ScaleEpi<>{w_ext + (long long)(r - ra) * plane, t1}, nullptr, t1,
+  blur_chain_slab(LoadT<T>{v_ext},
+                  ScaleEpi<float, T>{w_ext + (long long)(r - ra) * plane, t1}, nullptr, t1,
                   t2, tp, mid, r - ra, s);
-  const BlurEpi<kRegLap> epi{v_ext + (long long)r * plane, out, nullptr, nullptr, rho, sp};
-  blur_chain_slab(Load{t1}, GlobalRows<BlurEpi<kRegLap>>{epi, row0, z_total}, nullptr, t2, t1,
+  const WindowOutEpi<T> epi{v_ext + (long long)r * plane, out, rho, sp};
+  blur_chain_slab(Load{t1}, GlobalRows<WindowOutEpi<T>>{epi, row0, z_total}, nullptr, t2, t1,
                   tp, d, ra, s);
+}
+
+// The window's volumes are float, or bfloat16 with `io`.
+cudaError_t weighted_apply_prepadded(const void* v_ext, const void* w_ext, void* out, float* t1,
+                                     float* t2, Taps tp, float rho, int r, int row0,
+                                     int z_total, int io, Spacing sp, Dims d, cudaStream_t s) {
+  if (io)
+    weighted_apply_prepadded_t(static_cast<const bf16*>(v_ext), static_cast<const bf16*>(w_ext),
+                               static_cast<bf16*>(out), t1, t2, tp, rho, r, row0, z_total, sp,
+                               d, s);
+  else
+    weighted_apply_prepadded_t(static_cast<const float*>(v_ext),
+                               static_cast<const float*>(w_ext), static_cast<float*>(out), t1,
+                               t2, tp, rho, r, row0, z_total, sp, d, s);
   return cudaGetLastError();
 }
 
@@ -360,16 +396,17 @@ int nsol_blur_apply_prepadded(const float* y_ext, const float* u_ext, float* out
 }
 
 // v_ext, w_ext: (Zl + 2 halo, Y, X) with halo >= kz / 2; out: (Zl, Y, X);
-// t1, t2: Zl + 2 halo planes.
-int nsol_weighted_apply_prepadded(const float* v_ext, const float* w_ext, float* out, float* t1,
+// all three float, or bfloat16 with `io`; t1, t2: Zl + 2 halo float planes.
+int nsol_weighted_apply_prepadded(const void* v_ext, const void* w_ext, void* out, float* t1,
                                   float* t2, const float* taps, int kz, int ky, int kx,
                                   float rho, float ih2x, float ih2y, float ih2z, int halo,
-                                  int row0, int z_total, int Zl, int Y, int X, void* stream,
-                                  long long* counts) {
+                                  int row0, int z_total, int Zl, int Y, int X, int io,
+                                  void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   cudaError_t e = weighted_apply_prepadded(v_ext, w_ext, out, t1, t2,
                                            make_taps(taps, kz, ky, kx), rho, halo, row0,
-                                           z_total, sp, Dims{Zl, Y, X}, (cudaStream_t)stream);
+                                           z_total, io, sp, Dims{Zl, Y, X},
+                                           (cudaStream_t)stream);
   counts[kWeightedApplyPre] += 1;
   return (int)e;
 }

@@ -19,7 +19,10 @@ the next, and ``v``/``w`` feed nothing that reaches ``x``.
 The primal-dual denoising path has no weights either. Its parameters are the
 step schedules ``(σ_t, τ_t, τ_t·λ, θ_t)`` of ``_pd_schedules`` and its state
 is ``(x, x̄, p)``, the dual ``p`` stacked ``(d, *shape)`` (or
-``(B, d, *shape)`` for a batch over α), x component first.
+``(B, d, *shape)`` for a batch over α), x component first. Under the
+reference's ``compact=True`` the state is bfloat16; numpy has no such dtype,
+so it arrives as uint16 bit patterns (JAX's bfloat16 arrays are viewed so)
+or as the float32 upcasts that bfloat16 holds exactly.
 
 These helpers turn the numpy arrays the JAX package produces into the
 port's tensors on an explicit device, checking layout and dtype, and back.
@@ -32,7 +35,8 @@ from nsol_tpu_torch.ops.grad import _spacing_array
 
 __all__ = ["to_torch", "to_numpy", "blur_factors", "spacing",
            "admm_state", "admm_state_numpy", "pd_schedules",
-           "pd_schedules_numpy", "pd_state", "pd_state_numpy"]
+           "pd_schedules_numpy", "pd_state", "pd_state_numpy",
+           "bf16_from_numpy", "bf16_to_bits"]
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64}
@@ -123,10 +127,36 @@ def pd_schedules_numpy(sched):
     return tuple(to_numpy(sched[k]) for k in range(4))
 
 
-def pd_state(x, x_mean, p, device):
+def bf16_from_numpy(a, device):
+    """A bfloat16 array → a bfloat16 tensor on ``device``: uint16 bit
+    patterns (or an array of a 2-byte ``bfloat16`` dtype, such as JAX's,
+    viewed as them), or float32 values that bfloat16 holds exactly; any
+    other array raises."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.name in ("uint16", "bfloat16"):
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if a.dtype != np.float32:
+        raise TypeError("a bfloat16 state arrives as uint16 bit patterns or "
+                        "float32 upcasts, got %s" % a.dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    b = t.to(torch.bfloat16)
+    if not torch.equal(b.float(), t):
+        raise ValueError("float32 values that bfloat16 does not hold exactly")
+    return b.to(device)
+
+
+def bf16_to_bits(t):
+    """A bfloat16 tensor → its uint16 bit patterns (numpy)."""
+    return t.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+
+
+def pd_state(x, x_mean, p, device, dtype=None):
     """PD state ``(x, x̄, p)`` → tensors. ``x``/``x̄`` share one shape,
     ``p`` is stacked ``(x.ndim, *x.shape)``, or for a batch ``x`` of
-    ``(B, *shape)`` it is ``(B, len(shape), *shape)``; one dtype."""
+    ``(B, *shape)`` it is ``(B, len(shape), *shape)``; one dtype.
+    ``dtype=torch.bfloat16``: the compact state, each array as
+    :func:`bf16_from_numpy` takes it."""
     x, x_mean, p = (np.asarray(a) for a in (x, x_mean, p))
     single = (x.ndim,) + x.shape
     batched = (x.shape[0], x.ndim - 1) + x.shape[1:] if x.ndim else ()
@@ -137,10 +167,16 @@ def pd_state(x, x_mean, p, device):
     if not x.dtype == x_mean.dtype == p.dtype:
         raise TypeError("x, x_mean, p dtypes differ: %s %s %s"
                         % (x.dtype, x_mean.dtype, p.dtype))
+    if dtype == torch.bfloat16:
+        return tuple(bf16_from_numpy(a, device) for a in (x, x_mean, p))
     return tuple(to_torch(a, device) for a in (x, x_mean, p))
 
 
-def pd_state_numpy(x, x_mean, p):
+def pd_state_numpy(x, x_mean, p, bits=False):
     """Tensors ``(x, x̄, p)`` → numpy arrays (the inverse of
-    :func:`pd_state`)."""
-    return tuple(to_numpy(t) for t in (x, x_mean, p))
+    :func:`pd_state`); a bfloat16 state as float32 upcasts, or with
+    ``bits`` as uint16 bit patterns."""
+    if bits:
+        return tuple(bf16_to_bits(t) for t in (x, x_mean, p))
+    return tuple(to_numpy(t.float() if t.dtype == torch.bfloat16 else t)
+                 for t in (x, x_mean, p))

@@ -7,12 +7,13 @@ pinned to ``scipy.ndimage.convolve(mode="wrap")``:
 
 Only the separable (diagonal-covariance) form is ported. The FFT and direct
 branches, and the TPU matmul form, raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 2).
+Queue 1: non-separable blur).
 """
 
 import numpy as np
 import torch
 
+from nsol_tpu_torch.defaults import ROADMAP_NON_SEPARABLE
 from nsol_tpu_torch.ops.kernels import gaussian_kernel
 
 __all__ = ["separable_factors", "convolve_axis", "separable_convolve_fn",
@@ -20,7 +21,7 @@ __all__ = ["separable_factors", "convolve_axis", "separable_convolve_fn",
            "blur_factors"]
 
 _NOT_PORTED = ("only the separable (diagonal-covariance) blur is ported; "
-               "see ROADMAP.md Queue 1 item 2")
+               "see ROADMAP %s" % ROADMAP_NON_SEPARABLE)
 
 
 def separable_factors(kernel, tol=1e-12):

@@ -688,7 +688,7 @@ def _exact_precision(value):
         or getattr(value, "name", None) == "HIGHEST"
 
 
-def check_options(options, ported=(), pending=(), defaults=None):
+def check_options(options, ported=(), defaults=None):
     """The one check of a solver factory's JAX-package arguments. Returns
     ``(interpret, storage)``: ``interpret=True`` runs the plain versions;
     ``storage`` maps each option of ``ported`` to its value (a storage
@@ -698,9 +698,8 @@ def check_options(options, ported=(), pending=(), defaults=None):
     ``dtype`` must be float32 and ``precision`` ``None``, ``"HIGHEST"``
     (or a precision named so) or ``"high3"`` — each gives the exact f32
     arithmetic —, each schedule option its default (``defaults`` overrides
-    :data:`_SCHEDULE`): ``ValueError`` otherwise. A storage option of
-    ``pending`` that is set raises ``NotImplementedError`` (ROADMAP Queue 2
-    K10b); any other argument ``TypeError``."""
+    :data:`_SCHEDULE`): ``ValueError`` otherwise. Any other argument
+    raises ``TypeError``."""
     schedule = dict(_SCHEDULE, **(defaults or {}))
     interpret, storage = False, {}
     for key, value in options.items():
@@ -728,12 +727,6 @@ def check_options(options, ported=(), pending=(), defaults=None):
                 storage[key] = value
             else:
                 storage[key] = storage_dtype(value, key)
-        elif key in pending:
-            if value is None or value is False:
-                continue
-            raise NotImplementedError(
-                "%s (compact storage) of this solver is not ported yet "
-                "(ROADMAP Queue 2 K10b)" % key)
         else:
             raise TypeError("unexpected argument %r" % key)
     return interpret, storage

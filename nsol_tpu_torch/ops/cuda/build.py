@@ -43,7 +43,7 @@ _SIGNATURES = {
     "nsol_blur_apply_prepadded": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_I] * 6
     + [_P, _P],
     "nsol_weighted_apply_prepadded": [_P] * 6 + [_I] * 3 + [_F] * 4
-    + [_I] * 6 + [_P, _P],
+    + [_I] * 7 + [_P, _P],
     "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
@@ -56,13 +56,13 @@ _SIGNATURES = {
     "nsol_admm_solve": [_P] * 15 + [_P, _I, _I, _I, _P, _I, _I, _I]
     + [_F] * 8 + [_I] * 4 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
     "nsol_pd_grid": [_I, _I],
-    "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 5 + [_F] * 3
+    "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
-    "nsol_pd_primal": [_P] * 5 + [_I] * 8 + [_F] * 3 + [_P, _P],
-    "nsol_pd_record": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 5 + [_F] * 3
+    "nsol_pd_primal": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P, _P],
+    "nsol_pd_record": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
-    "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F] + [_I] * 6 + [_F] * 3
-    + [_P, _P],
+    "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F, _I] + [_I] * 6
+    + [_F] * 3 + [_P, _P],
     "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],

@@ -43,6 +43,14 @@ a grid dimension (the counterpart of ``jax.vmap`` over the runtime α).
 The TPU kernel's minor-axis difference matmuls (``_exact_bf16_matmul``,
 ``_banded_diff``, the exact1 pass) schedule the TPU's matrix unit and have
 no counterpart: the port computes the plain f32 differences.
+
+``compact=True`` (K10b.4, ``fused.py:1091-1167``) stores the PD state —
+x, x̄ and every p_i — in bfloat16: each unit takes state tensors of
+bfloat16 and computes in float32 on their exact upcasts, rounding where
+the reference does (the fresh dual before the divergence reads it, the new
+x before the records and the over-relaxation see it, x̄); the state
+starts at ``round(x0)`` and the output is the upcast of the stored x. The
+state's dtype is the storage flag of every unit and of its plain version.
 """
 
 import numpy as np
@@ -405,9 +413,11 @@ def pd_dual_plain(x_mean, p, sched, t, inv_h, huber=False,
     pd_dual_plain.calls += 1
     nd = p.shape[1]
     s = _sched_at(sched, SIGMA, t, nd)
+    xm = x_mean.to(sched.dtype)  # the upcast of a bf16 state
     for i in range(nd):
-        q = p[:, i] + s * (G.forward_difference(x_mean, x_mean.dim() - 1 - i)
-                           * inv_h[i])
+        q = p[:, i].to(sched.dtype) + s * (
+            G.forward_difference(xm, xm.dim() - 1 - i) * inv_h[i])
+        # stored into a bf16 p: rounded before the divergence reads it
         p[:, i] = prox_huber_conj(q, s, gamma) if huber \
             else prox_tv_conj(q, s)
 
@@ -416,14 +426,17 @@ def pd_primal_plain(x, x_mean, p, b, sched, t, inv_h, ell1=False):
     """Plain version of :func:`pd_primal`."""
     pd_primal_plain.calls += 1
     nd = p.shape[1]
+    xw, pw = x.to(b.dtype), p.to(b.dtype)
     div = None
     for i in range(nd):
-        d = G.forward_difference_adjoint(p[:, i], x.dim() - 1 - i) * inv_h[i]
+        d = G.forward_difference_adjoint(pw[:, i], x.dim() - 1 - i) \
+            * inv_h[i]
         div = d if div is None else div + d
-    z = x - _sched_at(sched, TAU, t, nd) * div
+    z = xw - _sched_at(sched, TAU, t, nd) * div
     prox = prox_ell1_denoising if ell1 else prox_ell2_denoising
-    x_new = prox(z, _sched_at(sched, FT, t, nd), b)
-    x_mean.copy_(x_new + _sched_at(sched, THETA, t, nd) * (x_new - x))
+    # the stored iterate (rounded for a bf16 state) is what x̄ sees
+    x_new = prox(z, _sched_at(sched, FT, t, nd), b).to(x.dtype).to(b.dtype)
+    x_mean.copy_(x_new + _sched_at(sched, THETA, t, nd) * (x_new - xw))
     x.copy_(x_new)
 
 
@@ -431,6 +444,7 @@ def pd_record_plain(x, b, reg, data, t, inv_h, ell1=False, huber=False,
                     gamma=HUBER_CONJ_GAMMA):
     """Plain version of :func:`pd_record`."""
     pd_record_plain.calls += 1
+    x = x.to(b.dtype)
     g2 = None
     for i in range(x.dim() - 1):
         g = G.forward_difference(x, x.dim() - 1 - i) * inv_h[i]
@@ -464,6 +478,17 @@ def _pd_dims(name, x, nd):
     return (nb,) + (1,) * (3 - nd) + tuple(x.shape[1:])
 
 
+def _state_dtype(name, *state):
+    """The dtype of the PD state tensors (float32, or bfloat16 for the
+    compact state), which must agree."""
+    dtype = state[0].dtype
+    if dtype not in (torch.float32, B.BF16) \
+            or any(t.dtype != dtype for t in state):
+        raise ValueError("%s: the state must be all float32 or all bfloat16, "
+                         "got %s" % (name, [t.dtype for t in state]))
+    return dtype
+
+
 def _check_pd_consts(name, device, nb, sched=None, t=None, bufs=()):
     if sched is not None:
         if (sched.device != device or sched.dtype != torch.float32
@@ -492,23 +517,25 @@ def pd_dual(x_mean, p, sched, t, inv_h, huber=False, gamma=HUBER_CONJ_GAMMA):
     ``p_i ← proj(p_i + σ_t · D_i x̄ / h_i)`` with the componentwise
     ``proj(q) = q / max(1, |q|)`` (Huber types: ``q / (1 + σ_t γ)``
     first). ``x_mean`` is ``(B, *shape)``, ``p`` ``(B, ndim, *shape)`` x
-    component first, ``sched`` the ``(4, B, iterations)`` schedules,
-    ``inv_h`` ``1/h`` in (x, y[, z]) order."""
+    component first, both float32 or both bfloat16 (the compact state),
+    ``sched`` the ``(4, B, iterations)`` schedules, ``inv_h`` ``1/h`` in
+    (x, y[, z]) order."""
     if x_mean.device.type == "cpu":
         return pd_dual_plain(x_mean, p, sched, t, inv_h, huber, gamma)
     name = "pd_dual"
     nd = p.dim() - 2
     dims = _pd_dims(name, x_mean, nd)
-    B.check_tensors(name, x_mean.shape, x_mean)
+    dtype = _state_dtype(name, x_mean, p)
+    B.check_tensors(name, x_mean.shape, x_mean, dtype=dtype)
     B.check_tensors(name, (dims[0], nd) + tuple(x_mean.shape[1:]), p,
-                    device=x_mean.device)
+                    device=x_mean.device, dtype=dtype)
     _check_pd_consts(name, x_mean.device, dims[0], sched, t)
     lib = build.load()
     counts = build.new_counts(3)
     err = lib.nsol_pd_dual(
         build.tensor_ptr(x_mean), build.tensor_ptr(p),
         build.tensor_ptr(sched), int(t), sched.shape[2], int(bool(huber)),
-        float(gamma), nd, *dims, *_inv_h3(inv_h),
+        float(gamma), int(dtype == B.BF16), nd, *dims, *_inv_h3(inv_h),
         build.stream_ptr(x_mean.device), counts)
     build.check(err, name)
     pd_dual.launches += counts[0]
@@ -519,24 +546,26 @@ def pd_primal(x, x_mean, p, b, sched, t, inv_h, ell1=False):
     ``z = x − τ_t·Σ_i D_iᵀ p_i / h_i``; ``x_new`` the ℓ1 shifted
     soft-threshold (``ell1``) or the ℓ2 closed form at ``τ_t·λ`` with
     ``x0 = b``; ``x̄ = x_new + θ_t (x_new − x)``; ``x = x_new``. ``b`` is
-    one image shared by the batch."""
+    one float32 image shared by the batch; the state ``x``, ``x̄``, ``p``
+    float32 or bfloat16 (``x_new`` rounded to it before ``x̄`` is formed)."""
     if x.device.type == "cpu":
         return pd_primal_plain(x, x_mean, p, b, sched, t, inv_h, ell1)
     name = "pd_primal"
     nd = p.dim() - 2
     dims = _pd_dims(name, x, nd)
-    B.check_tensors(name, x.shape, x, x_mean)
+    dtype = _state_dtype(name, x, x_mean, p)
+    B.check_tensors(name, x.shape, x, x_mean, dtype=dtype)
     B.check_tensors(name, x.shape[1:], b, device=x.device)
     B.check_tensors(name, (dims[0], nd) + tuple(x.shape[1:]), p,
-                    device=x.device)
+                    device=x.device, dtype=dtype)
     _check_pd_consts(name, x.device, dims[0], sched, t)
     lib = build.load()
     counts = build.new_counts(3)
     err = lib.nsol_pd_primal(
         build.tensor_ptr(x), build.tensor_ptr(x_mean), build.tensor_ptr(p),
         build.tensor_ptr(b), build.tensor_ptr(sched), int(t),
-        sched.shape[2], int(bool(ell1)), nd, *dims, *_inv_h3(inv_h),
-        build.stream_ptr(x.device), counts)
+        sched.shape[2], int(bool(ell1)), int(dtype == B.BF16), nd, *dims,
+        *_inv_h3(inv_h), build.stream_ptr(x.device), counts)
     build.check(err, name)
     pd_primal.launches += counts[1]
 
@@ -553,13 +582,15 @@ def pd_record(x, b, reg, data, t, inv_h, ell1=False, huber=False,
     ``(B, iterations+1)`` buffers: ``Data`` = ``Σ|x−b|`` (``ell1``) or
     ``Σ(x−b)²``; ``Reg`` = ``Σ√g²`` (TV) or ``½Σ huber(g², γ)`` (``huber``)
     with ``g² = Σ_i (D_i x / h_i)²``; per-voxel terms in the working dtype,
-    sums in float64."""
+    sums in float64. ``x`` is float32 or the bfloat16 state (measured on
+    its upcast)."""
     if x.device.type == "cpu":
         return pd_record_plain(x, b, reg, data, t, inv_h, ell1, huber, gamma)
     name = "pd_record"
     nd = x.dim() - 1
     dims = _pd_dims(name, x, nd)
-    B.check_tensors(name, x.shape, x)
+    dtype = _state_dtype(name, x)
+    B.check_tensors(name, x.shape, x, dtype=dtype)
     B.check_tensors(name, x.shape[1:], b, device=x.device)
     _check_pd_consts(name, x.device, dims[0], bufs=(reg, data))
     if reg.shape != data.shape or not 0 <= t < reg.shape[1]:
@@ -571,8 +602,8 @@ def pd_record(x, b, reg, data, t, inv_h, ell1=False, huber=False,
         build.tensor_ptr(x), build.tensor_ptr(b),
         build.tensor_ptr(_pd_partials(x.device, dims, x[0].numel())),
         build.tensor_ptr(reg), build.tensor_ptr(data), int(t), reg.shape[1],
-        int(bool(ell1)), int(bool(huber)), float(gamma), nd, *dims,
-        *_inv_h3(inv_h), build.stream_ptr(x.device), counts)
+        int(bool(ell1)), int(bool(huber)), float(gamma), int(dtype == B.BF16),
+        nd, *dims, *_inv_h3(inv_h), build.stream_ptr(x.device), counts)
     build.check(err, name)
     pd_record.launches += counts[2]
 
@@ -585,17 +616,19 @@ _PD_PLAIN = (pd_dual_plain, pd_primal_plain, pd_record_plain)
 
 
 def _pd_steps(units, b, x0, sched, inv_h, ell1, huber, gamma, record,
-              record_gamma):
+              record_gamma, compact=False):
     """The solve as a sequence of unit calls — the sequence
     ``nsol_pd_solve`` enqueues in C. Returns ``(x, reg, data)`` batched,
-    the records float64 or None."""
+    the state ``x`` as stored (bfloat16 with ``compact``: it starts at
+    ``round(x0)``), the records float64 or None."""
     dual, primal, rec = units
     nb, iterations = sched.shape[1], sched.shape[2]
     shape = tuple(b.shape)
-    x = torch.empty((nb,) + shape, dtype=b.dtype, device=b.device)
+    dtype = B.BF16 if compact else b.dtype
+    x = torch.empty((nb,) + shape, dtype=dtype, device=b.device)
     x.copy_(x0)
     x_mean = x.clone()
-    p = torch.zeros((nb, len(shape)) + shape, dtype=b.dtype, device=b.device)
+    p = torch.zeros((nb, len(shape)) + shape, dtype=dtype, device=b.device)
     reg = data = None
     if record:
         reg = torch.empty((nb, iterations + 1), dtype=torch.float64,
@@ -611,17 +644,19 @@ def _pd_steps(units, b, x0, sched, inv_h, ell1, huber, gamma, record,
 
 
 def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
-                   record_gamma):
+                   record_gamma, compact=False):
     name = "make_fused_pd_denoise_solver"
     nb, iterations = sched.shape[1], sched.shape[2]
     shape = tuple(b.shape)
     nd = len(shape)
     B.check_tensors(name, shape, b, x0)
-    x = torch.empty((nb,) + shape, dtype=b.dtype, device=b.device)
+    dtype = B.BF16 if compact else b.dtype
+    x0 = x0.to(dtype)  # the stored initial state, round(x0) if compact
+    x = torch.empty((nb,) + shape, dtype=dtype, device=b.device)
     dims = _pd_dims(name, x, nd)
     _check_pd_consts(name, b.device, nb, sched)
     x_mean = torch.empty_like(x)
-    p = torch.empty((nb, nd) + shape, dtype=b.dtype, device=b.device)
+    p = torch.empty((nb, nd) + shape, dtype=dtype, device=b.device)
     reg = data = partials = None
     if record:
         reg = torch.empty((nb, iterations + 1), dtype=torch.float64,
@@ -635,8 +670,9 @@ def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
         build.tensor_ptr(x_mean), build.tensor_ptr(p), build.tensor_ptr(sched),
         build.tensor_ptr(partials), build.tensor_ptr(reg),
         build.tensor_ptr(data), int(bool(record)), float(record_gamma),
-        int(bool(ell1)), int(bool(huber)), float(gamma), iterations, nd,
-        *dims, *_inv_h3(inv_h), build.stream_ptr(b.device), counts)
+        int(bool(ell1)), int(bool(huber)), float(gamma), int(compact),
+        iterations, nd, *dims, *_inv_h3(inv_h), build.stream_ptr(b.device),
+        counts)
     build.check(err, name)
     for f, n in zip(_PD_UNITS, counts):
         f.launches += n
@@ -665,6 +701,12 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
     TV for TV types and ``½Σ huber(|∇x|², record_gamma)`` for Huber types;
     accumulated in float64, returned in the solve's dtype.
 
+    ``compact=True`` (the reference's opt-in bf16 state, ``fused.py:
+    1091-1167``): x, x̄ and p are stored in bfloat16 and every step
+    computes in the solve's dtype on their exact upcasts, rounding where
+    the reference does; the records measure the rounded iterate and the
+    result is the upcast of the stored x.
+
     Device and dtype follow ``b``: on CUDA the solve runs the kernels of
     ``csrc/pd.cu`` (float32, 2-D or 3-D); on the CPU the plain versions.
     ``solve.plain`` runs the plain versions on any device, and
@@ -680,8 +722,10 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError("fused PD solver supports 2-D/3-D volumes")
-    interpret, _ = B.check_options(dict(options, compact=compact),
-                                   pending=("compact",))
+    if compact not in (False, True):
+        raise ValueError("compact must be False or True, got %r"
+                         % (compact,))
+    interpret, _ = B.check_options(options)
     ell1 = reconstruction_type.endswith("L1")
     huber = reconstruction_type.startswith("Huber")
     s = G._spacing_array(spacing, len(shape))
@@ -713,6 +757,7 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
         return sched, batched
 
     def result(x, reg, data, dtype, batched):
+        x = x.to(dtype)  # the upcast of a compact state
         if not batched:
             x = x[0]
             reg, data = (None, None) if reg is None else (reg[0], data[0])
@@ -722,7 +767,7 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 
     def run(units, b, x0, sched, record_gamma):
         return _pd_steps(units, b, x0, sched, inv_h(b.dtype), ell1, huber,
-                         huber_gamma, record, record_gamma)
+                         huber_gamma, record, record_gamma, compact)
 
     def solve(b, x0, alpha, L2, record_gamma=huber_gamma):
         check(b, x0)
@@ -731,7 +776,7 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
             out = run(_PD_UNITS, b, x0, sched, record_gamma)
         else:
             out = _pd_solve_cuda(b, x0, sched, inv_h(b.dtype), ell1, huber,
-                                 huber_gamma, record, record_gamma)
+                                 huber_gamma, record, record_gamma, compact)
         return result(*out, b.dtype, batched)
 
     def plain(b, x0, alpha, L2, record_gamma=huber_gamma):

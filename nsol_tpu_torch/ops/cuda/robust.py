@@ -31,6 +31,9 @@ attached, the Laplacian's global boundary rows placed by
   and gradient.
 * :func:`weighted_apply_prepadded` — ``Aᵀ(w ⊙ A v) + ρ·DᵀD v``, halo
   ``max(2·r_a, 1)`` (``robust.py:264``, :286-401): the inner CG's apply.
+  On bfloat16 windows it is the reference's prepadded ``io_dtype`` form
+  (``nsol_tpu/parallel/blocked_halo.py:115-119``): ``v`` and ``w`` read as
+  bfloat16, float32 arithmetic, the result rounded to bfloat16.
 
 ``BᵀB`` is the Laplacian ``DᵀD`` (``reg="TK1"``, the ADMM x-update's and
 TK1's) or the identity (``reg="TK0"``), as in :mod:`.blocked`; the
@@ -198,10 +201,14 @@ def weighted_apply_prepadded_plain(v_ext, w_ext, taps, inv_h2, rho, row0,
     r, ra = weighted_halo(taps), taps.lengths[0] // 2
     B.prepadded_window("weighted_apply_prepadded", v_ext, r, row0, z_total,
                        w_ext)
+    io = v_ext.dtype == B.BF16
+    if io:  # the "io" instance: float32 arithmetic on the bf16 windows
+        v_ext, w_ext = v_ext.float(), w_ext.float()
     s = B.slab_blur_plain(v_ext, taps, r - ra)  # A v on Zl + 2 r_a rows
     s = s * w_ext[r - ra:r - ra + s.shape[0]]
-    return B.slab_blur_plain(s, taps, ra) + rho * B.window_laplacian_plain(
+    out = B.slab_blur_plain(s, taps, ra) + rho * B.window_laplacian_plain(
         v_ext, r, inv_h2, row0, z_total)
+    return out.to(B.BF16) if io else out
 
 
 # ---------------------------------------------------------------- kernels --
@@ -378,24 +385,28 @@ def weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0,
     on the ``Zl + 2·r_a`` rows the second blur needs, ``w`` read there
     (offset ``r − r_a``), and ``Aᵀ`` and the Laplacian give the ``Zl``
     centre rows, its zero-boundary rows only at global rows 0 and
-    ``z_total − 1``."""
+    ``z_total − 1``. Windows of bfloat16 (both) run the "io" instance:
+    float32 arithmetic, the result in bfloat16."""
     name = "weighted_apply_prepadded"
     r = weighted_halo(taps)
     dims = B.prepadded_window(name, v_ext, r, row0, z_total, w_ext)
     if v_ext.device.type == "cpu":
         return weighted_apply_prepadded_plain(v_ext, w_ext, taps, inv_h2, rho,
                                               row0, z_total)
-    B.check_tensors(name, v_ext.shape, v_ext, w_ext)
+    io = v_ext.dtype == B.BF16
+    B.check_tensors(name, v_ext.shape, v_ext, w_ext,
+                    dtype=B.BF16 if io else torch.float32)
     B._check_consts(name, v_ext.device, taps)
     lib = build.load()
-    out = torch.empty(dims, device=v_ext.device)
-    t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
+    out = torch.empty(dims, dtype=v_ext.dtype, device=v_ext.device)
+    t1 = torch.empty(v_ext.shape, device=v_ext.device)
+    t2 = torch.empty_like(t1)
     counts = build.new_counts(7)
     err = lib.nsol_weighted_apply_prepadded(
         build.tensor_ptr(v_ext), build.tensor_ptr(w_ext),
         build.tensor_ptr(out), build.tensor_ptr(t1), build.tensor_ptr(t2),
         build.tensor_ptr(taps.buf), *taps.lengths, float(rho),
-        *B.spacing3(inv_h2), r, int(row0), int(z_total), *dims,
+        *B.spacing3(inv_h2), r, int(row0), int(z_total), *dims, int(io),
         build.stream_ptr(v_ext.device), counts)
     build.check(err, name)
     weighted_apply_prepadded.launches += counts[6]
@@ -611,14 +622,6 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
 
 # ------------------------------------------- reference-shaped entry points --
 
-def _check_options(tpu_options, ported=(), pending=()):
-    """:func:`~.blocked.check_options` with the storage options of the
-    builder at hand: those it takes (``ported``), those still to port
-    (``pending``, K10b); the JAX package's robust builders take no other.
-    Returns ``(interpret, storage)``."""
-    return B.check_options(tpu_options, ported=ported, pending=pending)
-
-
 def _weighted_io(unit, io_dtype, stencils):
     """``apply(v, w, rho)`` of the weighted normal operator through the
     masked-CG ``unit`` (``free=None``, ``first``: ``p' = v``). With
@@ -677,7 +680,7 @@ def make_blocked_blur_operator(shape, cov, alpha_cut=3, spacing=None,
     windows of a volume of ``z_total`` rows (default ``Zl``), ``shape``
     the local ``(Zl, Y, X)`` and ``apply.halo = max(r_a, 1)``; ``vma``
     (JAX's varying-axes type) is accepted and ignored."""
-    interpret, _ = _check_options(tpu_options)
+    interpret, _ = B.check_options(tpu_options)
     if prepadded:
         unit = blur_apply_prepadded_plain if interpret \
             else blur_apply_prepadded
@@ -726,21 +729,22 @@ def make_blocked_weighted_normal_operator(shape, cov, alpha_cut=3,
     :func:`weighted_apply_prepadded` — ``apply(v_ext, w_ext, rho, row0)``
     on ``(Zl + 2·apply.halo, Y, X)`` windows of a volume of ``z_total``
     rows (default ``Zl``), ``shape`` the local ``(Zl, Y, X)`` and
-    ``apply.halo = max(2·r_a, 1)``; ``vma`` is accepted and ignored. Its
-    ``io_dtype`` is still to port (K10b)."""
-    if prepadded:
-        interpret, _ = _check_options(tpu_options, pending=("io_dtype",))
-    else:
-        interpret, opt = _check_options(tpu_options, ported=("io_dtype",))
+    ``apply.halo = max(2·r_a, 1)``; ``vma`` is accepted and ignored. With
+    ``io_dtype=bfloat16`` the windows are taken as bfloat16 and the result
+    is returned in bfloat16, as without ``prepadded``."""
+    interpret, opt = B.check_options(tpu_options, ported=("io_dtype",))
     if prepadded:
         unit = weighted_apply_prepadded_plain if interpret \
             else weighted_apply_prepadded
         halo, stencils, z_total = _window(
             tuple(shape), cov, alpha_cut, spacing,
             weighted_halo, z_total)
+        io = opt.get("io_dtype")
 
         def apply_ext(v_ext, w_ext, rho, row0):
             st = stencils(v_ext)
+            if io is not None:
+                v_ext, w_ext = v_ext.to(io), w_ext.to(io)
             return unit(v_ext, w_ext, st.blur, st.inv_h2, rho, row0, z_total)
 
         apply_ext.halo, apply_ext.block = halo, shape[0]
@@ -760,7 +764,7 @@ def make_blocked_blur_operator_2d(shape, cov, alpha_cut=3, spacing=None,
     do not shape the CUDA tiles; a blur too wide for the kernel's shared
     memory raises ``ValueError``. Device and dtype follow ``y``;
     ``interpret=True`` runs the plain version."""
-    interpret, _ = _check_options(tpu_options)
+    interpret, _ = B.check_options(tpu_options)
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     # the blur band is half the normal band
@@ -794,7 +798,7 @@ def make_blocked_weighted_normal_operator_2d(shape, cov, alpha_cut=3,
     the plain version. ``io_dtype=bfloat16`` (``robust.py:584-593``):
     ``v``, ``w`` taken and the result returned in bfloat16, as
     :func:`make_blocked_weighted_normal_operator` takes them."""
-    interpret, opt = _check_options(tpu_options, ported=("io_dtype",))
+    interpret, opt = B.check_options(tpu_options, ported=("io_dtype",))
     shape = tuple(shape)
     factors, halo, halo_y = B.zy_halos(shape, cov, alpha_cut, spacing)
     B.resolve_zy_blocks(shape, halo, halo_y, z_block, y_block,
@@ -828,7 +832,7 @@ def blocked_robust_admm_solve(shape, cov, alpha_cut=3, spacing=None,
     weights and rounds its output to bfloat16 (the :data:`ROBUST_STORAGE`
     mode ``"io"``, ``solve.storage``); the residual, the gradient (with
     the float32 weights), ``r``, ``x`` and every sum stay float32."""
-    interpret, opt = _check_options(tpu_options, ported=("compact_dirs",))
+    interpret, opt = B.check_options(tpu_options, ported=("compact_dirs",))
     compact = opt.get("compact_dirs", False)
     if compact not in (False, True):
         raise ValueError("the robust solve's compact_dirs is True or False, "

@@ -2,7 +2,8 @@
 ``nsol_tpu/parallel/``): the ``"space"`` mesh, halo-exchange stencils and
 all-reduced solvers, one process per GPU. ``band_matrix`` (a TPU matrix
 form), the ``"batch"`` sweep axis and ``run_sweep(mesh=...)`` are not
-ported (ROADMAP Queue 1 item 9)."""
+ported (ROADMAP Queue 1: the "batch" mesh axis and
+run_sweep(mesh=))."""
 
 from nsol_tpu_torch.parallel.halo import (
     exchange_plane_up, exchange_plane_down, exchange_halo_wrap,

@@ -60,8 +60,11 @@ def make_sharded_blocked_robust_operators(local_shape, cov, alpha_cut=3,
     ``grad_W(x, wr, alpha) -> Aᵀ(wr) + α·DᵀD x`` (the IRLS gradient) and
     ``normal_W(vf, wts, alpha) -> Aᵀ(wts·A vf) + α·DᵀD vf`` (the inner CG's
     apply) — the ``A``/``grad_W``/``normal_W`` hooks of
-    ``admm_solve(minimizer="irls")``. ``io_dtype`` (compact storage) is
-    still to port and raises ``NotImplementedError`` naming K10b."""
+    ``admm_solve(minimizer="irls")``. ``io_dtype=bfloat16`` (the compact
+    io of ``nsol_tpu/parallel/blocked_halo.py:115-119``): ``normal_W``
+    takes its halo'd windows as bfloat16 and returns bfloat16 (float32
+    sums, ``weighted_apply_prepadded``'s "io" instance); the residual and
+    gradient units stay float32, as there."""
     mesh = _mesh_or_single(mesh)
     local_shape = tuple(local_shape)
     zl = int(local_shape[0])

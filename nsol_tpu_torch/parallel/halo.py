@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from nsol_tpu_torch.defaults import ROADMAP_NON_SEPARABLE
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
 
@@ -31,7 +32,7 @@ __all__ = [
 ]
 
 _NON_SEPARABLE = ("a non-separable (full-covariance) blur is not ported on "
-                  "the sharded path (ROADMAP Queue 1 item 8)")
+                  "the sharded path (ROADMAP %s)" % ROADMAP_NON_SEPARABLE)
 
 
 def _sendrecv(mesh, send, dst, src, like):
@@ -182,7 +183,7 @@ def make_sharded_blur_operators(cov, alpha_cut=3, spacing=None, mesh=None,
     """Gaussian blur pair ``(A, A)`` for blocks sharded along array axis 0
     (wrap boundary globally; the stencil is symmetric). Separable blurs
     only: a non-separable one raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 8). ``dtype`` is the reference's kernel dtype; the
+    Queue 1: non-separable blur). ``dtype`` is the reference's kernel dtype; the
     arithmetic follows the block's."""
     A = separable_halo_apply(_factors(cov, alpha_cut, spacing),
                              _mesh_or_single(mesh))

@@ -7,7 +7,8 @@ PyTorch's one process per GPU: the process group, its size (the world
 size), this rank and this rank's device. With no process group the mesh is
 one rank with no collectives, the counterpart of a 1-device mesh. The
 reference's ``"batch"`` axis (parameter sweeps, ``run_sweep(mesh=...)``) is
-not ported (ROADMAP Queue 1 item 9).
+not ported (ROADMAP Queue 1: the "batch" mesh axis and
+run_sweep(mesh=)).
 
 The solves run the same ``admm_solve`` / ``primal_dual_solve`` as one
 device, on this rank's slab, with halo-exchanging operators and the CG
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from nsol_tpu_torch.defaults import (ROADMAP_BATCH_MESH, ROADMAP_ENGINES,
+                                     ROADMAP_NON_SEPARABLE, not_ported)
 from nsol_tpu_torch.ops import prox as _prox
 from nsol_tpu_torch.ops.conv import separable_factors
 from nsol_tpu_torch.ops.kernels import gaussian_kernel
@@ -81,9 +84,8 @@ def make_mesh(shape, axis_names=("space",), device="cuda"):
     plain versions)."""
     shape, axis_names = tuple(shape), tuple(axis_names)
     if axis_names != ("space",) or len(shape) != 1:
-        raise NotImplementedError(
-            "mesh axes %s: only the 1-D 'space' mesh is ported; the 'batch' "
-            "sweep axis is ROADMAP Queue 1 item 9" % (axis_names,))
+        raise not_ported("mesh axes %s (only the 1-D 'space' mesh is "
+                         "ported)" % (axis_names,), ROADMAP_BATCH_MESH)
     grouped = tdist.is_initialized()
     world = tdist.get_world_size() if grouped else 1
     rank = tdist.get_rank() if grouped else 0
@@ -166,7 +168,8 @@ def sharded_tv_admm_solve(mesh, cov, b, x0, alpha, rho, spacing=None,
     for the linear loss, ``"irls"`` for a robust one. A non-separable blur
     (the reference's ``"lsmr"`` / ``"L-BFGS-B"`` over direct-conv halo
     stencils) and an explicit ``"lsmr"`` / ``"L-BFGS-B"`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1 items 1, 7, 8).
+    ``NotImplementedError`` (ROADMAP Queue 1: remaining inner engines and
+    extras; non-separable blur).
 
     ``use_blocked`` (:func:`takes_blocked_units`): each rank's
     ``AᵀA + ρDᵀD`` apply (``"cg"``), or its residual blur, IRLS gradient
@@ -189,14 +192,12 @@ def sharded_tv_admm_solve(mesh, cov, b, x0, alpha, rho, spacing=None,
     b = _local_input(b, mesh, process_local)
     x0 = _local_input(x0, mesh, process_local)
     if minimizer not in (None, "cg", "irls"):
-        raise NotImplementedError(
-            "minimizer=%r on the sharded path is not ported yet (ROADMAP "
-            "Queue 1 items 1 and 7)" % (minimizer,))
+        raise not_ported("minimizer=%r on the sharded path" % (minimizer,),
+                         ROADMAP_ENGINES)
     if not _separable(cov, alpha_cut, spacing):
-        raise NotImplementedError(
-            "a non-separable blur on the sharded path (the reference's "
-            "lsmr / L-BFGS-B over direct-conv halo stencils) is not ported "
-            "yet (ROADMAP Queue 1 items 7 and 8)")
+        raise not_ported("a non-separable blur on the sharded path (the "
+                         "reference's lsmr / L-BFGS-B over direct-conv halo "
+                         "stencils)", ROADMAP_NON_SEPARABLE)
     if minimizer == "cg" and data_loss != "linear":
         raise ValueError("minimizer='cg' requires a linear data loss "
                          "and a separable (diagonal-covariance) blur")

@@ -17,6 +17,12 @@ with ``precision="high3", compact_dirs=True``. ``NSOL_TPU_EXACT=1`` is the
 way back to all-f32. Its CPU path is exact f32 throughout, and so is its
 generic path for a 2-D image past :func:`fused_fits`.
 
+The primal-dual denoising solve is exact f32 by default everywhere. Its
+bf16 state (``compact=True``) is opt-in, as in the reference: under
+``NSOL_TPU_COMPACT=1``, on cuda, where the reference would take its fused
+PD kernel (:func:`fused_pd_fits`) and no observer records the iterates
+(:func:`pd_options`).
+
 The environment switches are on for the string ``"1"`` only: ``"0"``, an
 empty string or any other value leaves them off. The reference tests them
 for truthiness (``NSOL_TPU_EXACT=0`` switches it on there, its fault R2,
@@ -32,13 +38,17 @@ from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import fused as F
 from nsol_tpu_torch.ops.cuda import robust as R
 
-__all__ = ["STATE_VOLUMES", "VMEM_BUDGET_BYTES", "fused_fits", "pick_route",
-           "storage_options", "sweep_options", "tvl2_solver"]
+__all__ = ["STATE_VOLUMES", "PD_STATE_VOLUMES", "VMEM_BUDGET_BYTES",
+           "fused_fits", "fused_pd_fits", "pick_route", "storage_options",
+           "sweep_options", "pd_options", "tvl2_solver"]
 
 #: the fused TPU solve's working set, in volumes, and the budget it must
 #: fit (``nsol_tpu/ops/pallas/fused.py:56-63``, ``fused_admm_fits_vmem``)
 STATE_VOLUMES = 16
 VMEM_BUDGET_BYTES = 64 * 1024 * 1024
+#: the fused TPU primal-dual solve's working set, in volumes
+#: (``fused.py:909``, ``_PD_STATE_VOLUMES``)
+PD_STATE_VOLUMES = 12
 
 #: the compact storage of the fused solves (linear, robust, Tikhonov)
 _FUSED_COMPACT = {"precision": "high3", "compact_dirs": True}
@@ -56,6 +66,14 @@ def fused_fits(shape, itemsize=4):
     """The reference's ``fused_admm_fits_vmem``: 16 float32 volumes of
     ``shape`` within 64 MiB (at most 1,048,576 voxels)."""
     return STATE_VOLUMES * int(np.prod(shape)) * itemsize \
+        <= VMEM_BUDGET_BYTES
+
+
+def fused_pd_fits(shape, itemsize=4):
+    """The reference's ``fused_pd_fits_vmem`` (``fused.py:912-915``): 12
+    float32 volumes of ``shape`` within 64 MiB (at most 1,398,101
+    voxels: 1024² fits, 256³ does not)."""
+    return PD_STATE_VOLUMES * int(np.prod(shape)) * itemsize \
         <= VMEM_BUDGET_BYTES
 
 
@@ -112,6 +130,21 @@ def sweep_options(shape, device, env=os.environ):
             or not fused_fits(shape):
         return {}
     return dict(_FUSED_COMPACT)
+
+
+def pd_options(shape, device, env=os.environ, observer=False):
+    """The storage keyword arguments of the fused primal-dual denoising
+    solve of ``shape`` on ``device``: ``{"compact": True}`` (x, x̄ and p
+    stored in bfloat16) only on cuda with ``NSOL_TPU_COMPACT == "1"``
+    where the reference takes its fused PD kernel (:func:`fused_pd_fits`)
+    and no ``observer`` records the iterates (``cli/run_denoising.py:86-
+    103``, ``solvers/wrappers.py:727-773``); ``{}`` — exact f32 — in every
+    other case. It is never a default: the iterate itself carries the
+    rounding (the study's L-curve reads its records)."""
+    if (_cuda(device) and _on(env, "NSOL_TPU_COMPACT")
+            and fused_pd_fits(shape) and not observer):
+        return {"compact": True}
+    return {}
 
 
 def tvl2_solver(shape, cov, spacing, device, iterations, iter_max,

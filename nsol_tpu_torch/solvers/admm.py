@@ -1,6 +1,6 @@
 """ADMM for TV-regularized (robust) deconvolution (counterpart of
-``nsol_tpu/solvers/admm.py``: ``minimizer="cg"`` for the linear loss,
-``"irls"`` for the robust ones).
+``nsol_tpu/solvers/admm.py``: ``minimizer="cg"`` or ``"lsmr"`` for the
+linear loss, ``"irls"`` for the robust ones).
 
 Solves ``min_x ½Σρ((Ax−b)²) + α TV(Bx − b_reg)``
 (reference: nsol/admm_linear_solver.py). Per iteration (:202-218):

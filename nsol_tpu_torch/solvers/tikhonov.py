@@ -1,23 +1,29 @@
 """Tikhonov-regularized (robust) least squares: the quadratic engine
-(counterpart of ``nsol_tpu/solvers/tikhonov.py``, the ``"cg"`` and
-``"irls"`` branches).
+(counterpart of ``nsol_tpu/solvers/tikhonov.py``, the ``"cg"``, ``"lsmr"``
+and ``"irls"`` branches and ``prox_linear_least_squares``).
 
 ``minimizer="cg"`` runs CG directly on the normal equations
-``(AᵀA + α BᵀB) x = Aᵀb + α Bᵀ b_reg``. ``minimizer="irls"`` minimizes the
-robust cost ``½Σρ_C((Ax−b)²) + α·½‖Bx‖²`` by reweighted least squares in
-projected-Newton form (tikhonov.py:193-252), ``b_reg`` ignored as the
-reference's robust path ignores it. The reference's other engines
-("lsmr", "lsq_linear", "least_squares", L-BFGS) raise
-``NotImplementedError`` until their slice lands (ROADMAP Queue 1 item 6).
+``(AᵀA + α BᵀB) x = Aᵀb + α Bᵀ b_reg``. ``minimizer="lsmr"`` runs CGLS on
+the augmented system ``[A; √α·B] x = [b; √α·b_reg]`` for exactly
+``iter_max`` iterations, then clips to the bounds (tikhonov.py:154-167;
+the reference's lsmr with atol = btol = 0 is fixed-trip too).
+``minimizer="irls"`` minimizes the robust cost ``½Σρ_C((Ax−b)²) +
+α·½‖Bx‖²`` by reweighted least squares in projected-Newton form
+(tikhonov.py:193-252), ``b_reg`` ignored as the reference's robust path
+ignores it. The reference's other engines ("lsq_linear", "least_squares",
+L-BFGS) raise ``NotImplementedError`` (ROADMAP Queue 1: remaining inner
+engines and extras).
 """
 
 import numpy as np
 import torch
 
+from nsol_tpu_torch.defaults import ROADMAP_ENGINES, not_ported
 from nsol_tpu_torch.ops import losses
-from nsol_tpu_torch.solvers.cg import cg
+from nsol_tpu_torch.solvers.cg import cg, cgls
 
-__all__ = ["tikhonov_solve", "resolve_minimizer"]
+__all__ = ["tikhonov_solve", "prox_linear_least_squares",
+           "resolve_minimizer"]
 
 
 def resolve_minimizer(minimizer, data_loss="linear", cov=None,
@@ -74,10 +80,8 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     if minimizer in ("lsmr", "lsq_linear", "cg") and data_loss != "linear":
         raise ValueError("%s minimizer cannot be used with non-linear data "
                          "loss" % minimizer)
-    if minimizer not in ("cg", "irls"):
-        raise NotImplementedError(
-            "minimizer=%r is not ported yet (ROADMAP Queue 1 item 6)"
-            % minimizer)
+    if minimizer not in ("cg", "lsmr", "irls"):
+        raise not_ported("minimizer=%r" % (minimizer,), ROADMAP_ENGINES)
     x0 = _clip_bounds(x0, bounds)
     alpha_t = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
     nB = normal_B if normal_B is not None else (lambda v: B_adj(B(v)))
@@ -85,6 +89,22 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
         return _irls(A, A_adj, nB, b, x0, alpha_t, data_loss,
                      data_loss_scale, iter_max, bounds, irls_cg_iters,
                      normal_W, grad_W, reduce)
+    b_reg = torch.broadcast_to(
+        torch.as_tensor(b_reg, dtype=x0.dtype, device=x0.device),
+        B(x0).shape)
+    if minimizer == "lsmr":
+        # augmented CGLS; α = 0 leaves plain CGLS on A (the reg rows vanish)
+        sqrt_alpha = torch.sqrt(alpha_t)
+
+        def apply_aug(x):
+            return A(x), sqrt_alpha * B(x)
+
+        def apply_aug_adj(y):
+            return A_adj(y[0]) + sqrt_alpha * B_adj(y[1])
+
+        x = cgls(apply_aug, apply_aug_adj, (b, sqrt_alpha * b_reg), x0,
+                 iters=iter_max, reduce=reduce)
+        return _clip_bounds(x, bounds)
     if normal_M is not None:
         def apply_M(v):
             return normal_M(v, alpha_t)
@@ -94,9 +114,6 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
         def apply_M(v):
             return nA(v) + alpha_t * nB(v)
 
-    b_reg = torch.broadcast_to(
-        torch.as_tensor(b_reg, dtype=x0.dtype, device=x0.device),
-        B(x0).shape)
     rhs = (At_b if At_b is not None else A_adj(b)) + alpha_t * B_adj(b_reg)
     x = cg(apply_M, rhs, x0, iters=iter_max, reduce=reduce)
     return _clip_bounds(x, bounds)
@@ -133,3 +150,22 @@ def _irls(A, A_adj, nB, b, x, alpha_t, data_loss, data_loss_scale, sweeps,
                reduce=reduce)
         x = _clip_bounds(x + v, bounds)
     return x
+
+
+def prox_linear_least_squares(x, tau, A, A_adj, b, x0, iter_max=10,
+                              data_loss="linear", data_loss_scale=1.0,
+                              minimizer="lsmr", bounds=(0.0, np.inf),
+                              normal_A=None, reduce=None, **hooks):
+    """Approximate prox of ``f(x) = ½‖Ax−b‖²`` at step ``tau``: the inner
+    Tikhonov solve with ``B = I``, ``b_reg = x`` and ``α = 1/τ`` from
+    ``x0`` (``nsol_tpu/solvers/tikhonov.py:293-306``; reference:
+    nsol/proximal_operators.py:43-78). ``hooks`` are the TK0 kernel hooks
+    of :func:`tikhonov_solve` (``normal_M``, ``normal_W``, ``grad_W``)."""
+    def ident(z):
+        return z
+
+    return tikhonov_solve(
+        A, A_adj, ident, ident, b, b_reg=x, x0=x0, alpha=1.0 / tau,
+        data_loss=data_loss, data_loss_scale=data_loss_scale,
+        minimizer=minimizer, iter_max=iter_max, bounds=bounds,
+        normal_A=normal_A, normal_B=ident, reduce=reduce, **hooks)

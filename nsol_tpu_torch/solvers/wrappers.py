@@ -1,5 +1,5 @@
-"""Concrete solver classes: Tikhonov and ADMM (counterpart of
-``nsol_tpu/solvers/wrappers.py``; ``PrimalDualSolver`` is not ported yet).
+"""Concrete solver classes: Tikhonov, ADMM and primal-dual (counterpart of
+``nsol_tpu/solvers/wrappers.py``).
 
 Reference-parity class surface over the functional cores. The operators
 ``A``, ``B`` (and the optional fused normal operators) are callables on
@@ -22,6 +22,20 @@ build with :func:`nsol_tpu_torch.policy.sweep_options`, the reference's
 batched-sweep storage: compact CG directions on CUDA where the fused
 kernel fits, exact f32 on the CPU or with ``NSOL_TPU_EXACT=1``.
 
+:class:`PrimalDualSolver` runs one configuration through
+:func:`~nsol_tpu_torch.solvers.primal_dual.primal_dual_solve` with its
+prox closures. Its ``run_sweep`` takes the fused denoising solve of
+:func:`~nsol_tpu_torch.ops.cuda.fused.make_fused_pd_denoise_solver` (the
+kernels of ``csrc/pd.cu`` on CUDA, their plain versions on the CPU) by
+explicit criteria — one of the four denoising types named by the
+``reconstruction_type`` hint, the kernel-scale ``observation`` given, a
+2-D/3-D image, measures ⊆ {Reg, Data} —, with its storage from
+:func:`nsol_tpu_torch.policy.pd_options` (bf16 state only under
+``NSOL_TPU_COMPACT=1`` where the reference's fused kernel would run), and
+the generic solve outside them. Unlike the reference (``wrappers.py:
+764,787-791``, faults R1 and R2) it reads the environment through the
+policy and never falls back from a failed kernel.
+
 The reference holds the whole grid's results on the device at once
 (``nsol_tpu/study/engine.py:219``, reference fault R4). Here a sweep holds
 at most :data:`SWEEP_BUDGET_BYTES` of results on the device and copies each
@@ -32,18 +46,21 @@ import numpy as np
 import torch
 
 from nsol_tpu_torch import policy
+from nsol_tpu_torch.defaults import ROADMAP_BATCH_MESH, not_ported
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
 from nsol_tpu_torch.ops.cuda import blocked as _B
 from nsol_tpu_torch.ops.cuda import fused as _fused
 from nsol_tpu_torch.ops.cuda import robust as _R
 from nsol_tpu_torch.ops.cuda import tikhonov as _T
+from nsol_tpu_torch.ops.priors import HUBER_PRIOR_GAMMA
 from nsol_tpu_torch.solvers import admm as _admm
+from nsol_tpu_torch.solvers import primal_dual as _pd
 from nsol_tpu_torch.solvers import tikhonov as _tik
-from nsol_tpu_torch.solvers.base import LinearSolver, _numpy
+from nsol_tpu_torch.solvers.base import LinearSolver, Solver, _numpy
 
-__all__ = ["TikhonovLinearSolver", "ADMMLinearSolver",
-           "SWEEP_BUDGET_BYTES"]
+__all__ = ["TikhonovLinearSolver", "ADMMLinearSolver", "PrimalDualSolver",
+           "SWEEP_BUDGET_BYTES", "kernel_hooks"]
 
 #: the most bytes of a sweep's results (the solutions ``x``) held on the
 #: device at once; larger grids run in chunks copied to the host one by one
@@ -72,8 +89,7 @@ def _chunks(n, shape, itemsize):
 
 def _not_sharded(mesh):
     if mesh is not None:
-        raise NotImplementedError("run_sweep(mesh=...) is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+        raise not_ported("run_sweep(mesh=...)", ROADMAP_BATCH_MESH)
 
 
 def _stack_records(rows):
@@ -85,6 +101,29 @@ def _stack_records(rows):
                                                 for v in r[k]])
                                    for r in rows]))
             for k in rows[0]}
+
+
+def kernel_hooks(st, reg):
+    """The ``normal_M``/``normal_W``/``grad_W`` hooks of ``tikhonov_solve``
+    through the CUDA units for the stencils ``st`` (a
+    :class:`~nsol_tpu_torch.ops.cuda.blocked.Stencils`) and the
+    regulariser ``reg`` ("TK1" or "TK0"):
+    :func:`~nsol_tpu_torch.ops.cuda.blocked.normal_apply`,
+    :func:`~nsol_tpu_torch.ops.cuda.robust.weighted_apply`,
+    :func:`~nsol_tpu_torch.ops.cuda.robust.blur_apply`."""
+    def normal_M(v, a):
+        return _B.normal_apply(v, st.normal, st.inv_h2, float(a), reg=reg)
+
+    def normal_W(vf, wts, a):
+        return _R.weighted_apply(vf, None, None, wts,
+                                 _B.new_scalars(vf.device), st.blur,
+                                 st.inv_h2, float(a), first=True,
+                                 reg=reg)[1]
+
+    def grad_W(x, wr, a):
+        return _R.blur_apply(wr, st.blur, st.inv_h2, x, float(a), reg=reg)
+
+    return {"normal_M": normal_M, "normal_W": normal_W, "grad_W": grad_W}
 
 
 class _HintedSolver(LinearSolver):
@@ -149,31 +188,10 @@ class _HintedSolver(LinearSolver):
         return self._stencils
 
     def _hooks(self):
-        """On CUDA within the hint's scope, the ``normal_M``/``normal_W``/
-        ``grad_W`` hooks of the inner solves through the CUDA units
-        (:func:`~nsol_tpu_torch.ops.cuda.blocked.normal_apply`,
-        :func:`~nsol_tpu_torch.ops.cuda.robust.weighted_apply`,
-        :func:`~nsol_tpu_torch.ops.cuda.robust.blur_apply`); else none."""
+        """On CUDA within the hint's scope, the kernel hooks of the inner
+        solves (:func:`kernel_hooks`); else none."""
         st = self._kernel_stencils() if self._device.type == "cuda" else None
-        if st is None:
-            return {}
-        reg = self._reg()
-
-        def normal_M(v, a):
-            return _B.normal_apply(v, st.normal, st.inv_h2, float(a),
-                                   reg=reg)
-
-        def normal_W(vf, wts, a):
-            return _R.weighted_apply(vf, None, None, wts,
-                                     _B.new_scalars(vf.device), st.blur,
-                                     st.inv_h2, float(a), first=True,
-                                     reg=reg)[1]
-
-        def grad_W(x, wr, a):
-            return _R.blur_apply(wr, st.blur, st.inv_h2, x, float(a),
-                                 reg=reg)
-
-        return {"normal_M": normal_M, "normal_W": normal_W, "grad_W": grad_W}
+        return {} if st is None else kernel_hooks(st, self._reg())
 
     def _in_kernel_scope(self):
         """The fused solves' scope (``wrappers.py:271-279, :522-529``)
@@ -464,6 +482,147 @@ class ADMMLinearSolver(_HintedSolver):
         for i in range(n):
             x, records = self._solve(float(alphas[i]), float(rhos[i]),
                                      float(dls[i]), minimizer, record_fn)
+            if records is not None:
+                rows.append({k: _numpy(v)
+                             for k, v in records["measures"].items()})
+            x_all[i] = _numpy(x)
+        rec_np = {k: np.stack([r[k] for r in rows]) for k in rows[0]} \
+            if rows else None
+        return x_all * self._x_scale, rec_np
+
+
+class PrimalDualSolver(Solver):
+    """Chambolle–Pock primal-dual solver
+    (reference: nsol/primal_dual_solver.py:26-403).
+
+    ``prox_f(x, tau)``, ``prox_g_conj(p, sigma)`` and ``B``/``B_conj`` act
+    on tensors of the solver's ``device``. The hints ``reconstruction_type``
+    (TVL1/TVL2/HuberL1/HuberL2, with ``B`` the unit-spacing gradient) and
+    ``observation`` (the kernel-scale observation ``b / x_scale``) let
+    ``run_sweep`` take the fused denoising solve; the closures stay
+    authoritative for everything else."""
+
+    def __init__(self, prox_f, prox_g_conj, B, B_conj, L2, x0, alpha=0.01,
+                 iterations=10, x_scale=1., verbose=0, alg_type="ALG2",
+                 reconstruction_type=None, observation=None, device="cuda"):
+        Solver.__init__(self, x0=x0, x_scale=x_scale, verbose=verbose,
+                        device=device)
+        self._prox_f = prox_f
+        self._prox_g_conj = prox_g_conj
+        self._B = B
+        self._B_conj = B_conj
+        self._L2 = float(L2)
+        self._alpha = float(alpha)
+        self._iterations = int(iterations)
+        self._alg_type = alg_type
+        self._reconstruction_type = reconstruction_type
+        self._observation = None if observation is None \
+            else _numpy(observation)
+        self._solve_cache = {}
+
+    def set_alpha(self, alpha):
+        self._alpha = float(alpha)
+
+    def get_alpha(self):
+        return self._alpha
+
+    def set_L2(self, L2):
+        self._L2 = float(L2)
+
+    def get_L2(self):
+        return self._L2
+
+    def set_alg_type(self, alg_type):
+        self._alg_type = alg_type
+
+    def get_alg_type(self):
+        return self._alg_type
+
+    def set_iterations(self, iterations):
+        self._iterations = int(iterations)
+
+    def get_iterations(self):
+        return self._iterations
+
+    def print_statistics(self, fmt="%.3e"):
+        pass
+
+    def _solve(self, alpha, record_fn=None, record_trajectory=False):
+        return _pd.primal_dual_solve(
+            self._prox_f, self._prox_g_conj, self._B, self._B_conj,
+            self._tensor(self._x0), alpha, self._L2,
+            iterations=self._iterations, alg_type=self._alg_type,
+            record_fn=record_fn, record_trajectory=record_trajectory)
+
+    def _run(self):
+        record_fn = _make_record_fn(self._observer_measures(), self._x_scale)
+        x, records = self._solve(self._alpha, record_fn,
+                                 self._record_trajectory)
+        self._x = _numpy(x)
+        self._push_records(records)
+
+    def _in_fused_scope(self, measures):
+        """Whether ``run_sweep`` takes the fused denoising solve: one of
+        its four types, the observation given, a 2-D/3-D image, and
+        measures ⊆ {Reg, Data} (the ones it records inside the solve)."""
+        return (self._reconstruction_type in _fused.PD_TYPES
+                and self._observation is not None
+                and np.ndim(self._x0) in (2, 3)
+                and set(measures or ()) <= {"Reg", "Data"})
+
+    def _fused_sweep(self, alphas, measures):
+        """The sweep through the fused denoising solve, one memory-budgeted
+        chunk of α at a time, with the study's Reg/Data records kept inside
+        the solve and scaled to the rescaled iterate as the reference does
+        (``wrappers.py:745-801``): the Huber record at ``γ/s``, Reg ×s (TV)
+        or ×s² (Huber), Data ×s (L1) or ×s² (L2)."""
+        record = bool(measures)
+        rtype, s = self._reconstruction_type, self._x_scale
+        shape = np.shape(self._x0)
+        storage = policy.pd_options(shape, self._device)
+        key = ("pd", rtype, self._alg_type, self._iterations, record,
+               tuple(sorted(storage.items())))
+        if key not in self._solve_cache:
+            self._solve_cache[key] = _fused.make_fused_pd_denoise_solver(
+                shape, rtype, alg_type=self._alg_type,
+                iterations=self._iterations, record=record, **storage)
+        solve = self._solve_cache[key]
+        b, x0 = self._tensor(self._observation), self._tensor(self._x0)
+        extra = {"record_gamma": float(self._np_dtype.type(
+            HUBER_PRIOR_GAMMA / s))} if record else {}
+        scale_of = {"Reg": s * s if rtype.startswith("Huber") else s,
+                    "Data": s if rtype.endswith("L1") else s * s}
+        x_all = np.empty((len(alphas),) + shape, self._np_dtype)
+        recs = {name: np.empty((len(alphas), self._iterations + 1))
+                for name in (measures or ())}
+        for part in _chunks(len(alphas), shape, self._np_dtype.itemsize):
+            out = solve(b, x0, [float(alphas[i]) for i in part], self._L2,
+                        **extra)
+            xs = out[0] if record else out
+            for name in recs:
+                recs[name][part.start:part.stop] = \
+                    _numpy(out[1][name]) * scale_of[name]
+            x_all[part.start:part.stop] = _numpy(xs)
+            del out, xs
+        return x_all * s, (recs if record else None)
+
+    def run_sweep(self, param_values, measures=None, mesh=None):
+        """α sweep, the study engine's fast path: ``param_values`` ``{"alpha":
+        values}``; returns ``(x_all, records)``, ``x_all`` unscaled (numpy),
+        ``records`` name -> ``(n_configs, iterations+1)``. Inside the fused
+        solve's scope (:meth:`_in_fused_scope`) the whole batch runs through
+        it; otherwise each α is one generic solve. ``mesh`` (a sharded
+        batch) is not ported and raises."""
+        _not_sharded(mesh)
+        n = len(next(iter(param_values.values())))
+        alphas = param_values.get("alpha", np.full(n, self._alpha))
+        if set(param_values) <= {"alpha"} and self._in_fused_scope(measures):
+            return self._fused_sweep(alphas, measures)
+        record_fn = _make_record_fn(measures, self._x_scale)
+        x_all = np.empty((n,) + np.shape(self._x0), self._np_dtype)
+        rows = []
+        for i in range(n):
+            x, records = self._solve(float(alphas[i]), record_fn)
             if records is not None:
                 rows.append({k: _numpy(v)
                              for k, v in records["measures"].items()})

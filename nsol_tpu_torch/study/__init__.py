@@ -6,10 +6,11 @@ from nsol_tpu_torch.study.paths import ParameterStudy
 from nsol_tpu_torch.study.reader import ReaderParameterStudy
 from nsol_tpu_torch.study.engine import (
     SolverParameterStudy, TikhonovLinearSolverParameterStudy,
-    ADMMLinearSolverParameterStudy,
+    ADMMLinearSolverParameterStudy, PrimalDualSolverParameterStudy,
 )
 
 __all__ = [
     "ParameterStudy", "ReaderParameterStudy", "SolverParameterStudy",
     "TikhonovLinearSolverParameterStudy", "ADMMLinearSolverParameterStudy",
+    "PrimalDualSolverParameterStudy",
 ]

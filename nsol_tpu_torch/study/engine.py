@@ -11,7 +11,7 @@ solves, in memory-budgeted chunks, ``solvers/wrappers.py``); a sweep that
 also names a string parameter (``data_loss``) runs one such call per
 value of it (the "hybrid" route); anything else runs the
 reflective-setter serial loop, the reference's ``set_<key>``/``get_<key>``
-contract. ``PrimalDualSolverParameterStudy`` is not ported yet.
+contract.
 """
 
 import datetime
@@ -29,7 +29,7 @@ from nsol_tpu_torch.study.reader import ReaderParameterStudy
 
 __all__ = [
     "SolverParameterStudy", "TikhonovLinearSolverParameterStudy",
-    "ADMMLinearSolverParameterStudy",
+    "ADMMLinearSolverParameterStudy", "PrimalDualSolverParameterStudy",
 ]
 
 
@@ -434,3 +434,26 @@ class ADMMLinearSolverParameterStudy(SolverParameterStudy):
             reconstruction_info=reconstruction_info, append=append,
             use_vmap=use_vmap, mesh=mesh)
 
+
+
+class PrimalDualSolverParameterStudy(SolverParameterStudy):
+    """Header keys per nsol/primal_dual_solver_parameter_study.py:61-78."""
+
+    _header_keys = ["alpha", "iterations", "x_scale", "L2"]
+    _vmappable = frozenset({"alpha"})
+
+    def __init__(self, solver, observer, dir_output, name="PrimalDual",
+                 parameters=None, reconstruction_info=None, append=False,
+                 use_vmap=True, mesh=None):
+        if not isinstance(solver, W.PrimalDualSolver):
+            raise TypeError("solver must be of type 'PrimalDualSolver'")
+        if parameters is None:
+            parameters = {
+                "alpha": np.arange(0.01, 0.05, 0.01),
+                "alg_type": ["ALG2", "ALG2_AHMOD", "ALG3"],
+            }
+        SolverParameterStudy.__init__(
+            self, solver=solver, observer=observer, dir_output=dir_output,
+            name=name, parameters=parameters,
+            reconstruction_info=reconstruction_info, append=append,
+            use_vmap=use_vmap, mesh=mesh)

@@ -331,19 +331,17 @@ def test_factories_take_the_reference_positional_order():
 
 
 def test_unported_storage_modes_name_k10b():
-    """F1: every factory's storage options go through one check; those
-    still to port — the PD solve's ``compact`` (K10b.4) and the per-shard
-    weighted window's ``io_dtype`` (K10b.6) — raise naming K10b, the
-    robust and Tikhonov ones (K10b.1-3, 5) build, and nothing says a
+    """F1: every factory's storage options go through one check; every
+    storage mode of K10b is ported — the PD solve's ``compact`` (K10b.4),
+    the per-shard weighted window's ``io_dtype`` (K10b.6), the robust and
+    Tikhonov ones (K10b.1-3, 5) — so each builds, and nothing says a
     storage mode has no counterpart."""
     wide = (16, 512, 16)
-    for build in (
-            lambda: F.make_fused_pd_denoise_solver((8, 8), "TVL2",
-                                                   compact=True),
-            lambda: R.make_blocked_weighted_normal_operator(
-                (8, 8, 8), ISO, prepadded=True, io_dtype=BF16)):
-        with pytest.raises(NotImplementedError, match="K10b"):
-            build()
+    F.make_fused_pd_denoise_solver((8, 8), "TVL2", compact=True)
+    window = R.make_blocked_weighted_normal_operator(
+        (8, 8, 8), ISO, prepadded=True, io_dtype=BF16)
+    v = torch.rand((8 + 2 * window.halo, 8, 8))
+    assert window(v, v, 0.5, 0).dtype == BF16
     F.make_fused_admm_solver((8, 8), np.eye(2), data_loss="huber",
                              precision="high3", compact_dirs=True)
     assert R.blocked_robust_admm_solve(wide, ISO,

@@ -315,6 +315,40 @@ def test_world2_solves_match_unsharded_admm(world2, case):
                                atol=SOLVE_TOL)
 
 
+def test_world2_io_window_apply_matches_jax_sharded(world2):
+    """K10b.6: the sharded weighted apply with ``io_dtype=bfloat16`` on the
+    gloo world of 2 — the plain io window unit over ring halos — against
+    the JAX package's ``make_sharded_blocked_robust_operators(io_dtype=
+    bfloat16, interpret=True)`` on 2 CPU devices: every value within one
+    bf16 ulp of the JAX one (the sums run in another order)."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from jax.sharding import PartitionSpec as PS
+
+    par = _jax("parallel")
+    bh = _jax("parallel.blocked_halo")
+    if len(jax.devices()) < 2:
+        pytest.skip("needs the conftest's virtual CPU devices")
+    vf, wts = W.wio_inputs()
+    local = (vf.shape[0] // 2,) + vf.shape[1:]
+    _, _, normal_W = bh.make_sharded_blocked_robust_operators(
+        local, W.solve_cov(), axis_name="space", n_shards=2,
+        dtype=jnp.float32, interpret=True, io_dtype=jnp.bfloat16)
+    mesh = par.make_mesh((2,), ("space",))
+    f = jax.jit(jax.shard_map(
+        lambda v, w: normal_W(v, w, jnp.float32(W.WIO_ALPHA)), mesh=mesh,
+        in_specs=(PS("space"), PS("space")), out_specs=PS("space"),
+        check_vma=False))
+    want = np.asarray(f(jnp.asarray(vf), jnp.asarray(wts))).astype(
+        np.float32)
+    got = world2["w2_wnormal_io"]
+    assert got.shape == want.shape == vf.shape
+    _, e = np.frexp(np.abs(want))
+    assert np.all(np.abs(got - want) <= np.ldexp(1.0, e - 8))
+    assert np.array_equal(got, torch.as_tensor(got).to(torch.bfloat16)
+                          .float().numpy())
+
+
 @pytest.mark.parametrize("what", ["full_volume", "mesh_size"])
 def test_world2_refusals(world2, what):
     """On a mesh of two processes a full volume (``process_local=False``)
@@ -462,27 +496,43 @@ def test_space_mesh_of_another_size_raises():
     assert P.make_space_mesh(device="cpu").size == 1
     with pytest.raises(ValueError, match="one rank per process"):
         P.make_space_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match='"batch" mesh axis'):
         P.make_mesh((1, 1), ("batch", "space"), device="cpu")
 
 
 def test_non_separable_blur_raises_naming_queue_1_item_8():
     full = np.array([[1.0, 0.4, 0.1], [0.4, 1.0, 0.2], [0.1, 0.2, 1.0]])
     mesh = P.make_space_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="non-separable blur"):
         P.make_sharded_blur_operators(full, mesh=mesh)
     b = W.solve_inputs()["linear64"]
-    with pytest.raises(NotImplementedError, match="Queue 1 items 7 and 8"):
+    with pytest.raises(NotImplementedError, match="non-separable blur"):
         P.sharded_tv_admm_solve(mesh, full, b, b.copy(), W.ALPHA, W.RHO)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 1 and 7"):
+    with pytest.raises(NotImplementedError,
+                       match="remaining inner engines"):
         P.sharded_tv_admm_solve(mesh, W.solve_cov(), b, b.copy(), W.ALPHA,
                                 W.RHO, minimizer="lsmr")
 
 
 def test_compact_io_dtype_raises_naming_k10b():
-    with pytest.raises(NotImplementedError, match="K10b"):
-        blocked_halo.make_sharded_blocked_robust_operators(
-            (4, 12, 10), W.solve_cov(), io_dtype="bfloat16")
+    """K10b.6 is ported: the sharded weighted apply with
+    ``io_dtype=bfloat16`` returns bfloat16 at world 1, the plain window
+    unit on the halo'd slab, rounded once."""
+    mesh = P.make_space_mesh(device="cpu")
+    blur, grad_W, normal_W = blocked_halo.make_sharded_blocked_robust_operators(
+        (4, 12, 10), W.solve_cov(), mesh=mesh, io_dtype="bfloat16")
+    rs = np.random.RandomState(41)
+    v = torch.as_tensor(rs.rand(4, 12, 10).astype(np.float32))
+    w = torch.as_tensor(rs.rand(4, 12, 10).astype(np.float32) + 0.1)
+    got = normal_W(v, w, 0.7)
+    assert got.dtype == torch.bfloat16 and grad_W(v, w, 0.7).dtype \
+        == torch.float32
+    st = B.Stencils.from_cov(W.solve_cov(), 3, None, "cpu", torch.float32)
+    _, q = R.weighted_apply_plain(v, None, None, w, B.new_scalars("cpu"),
+                                  st.blur, st.inv_h2, 0.7, first=True,
+                                  storage="io")
+    ulp = torch.ldexp(torch.ones_like(q), torch.frexp(q)[1] - 8)
+    assert bool(((got.float() - q).abs() <= ulp + 1e-6).all())
 
 
 def test_use_blocked_true_on_a_2d_volume_raises():

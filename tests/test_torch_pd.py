@@ -338,8 +338,14 @@ def test_fused_pd_solver_rejects_bad_and_unported_options():
                  ((8, 8), "TVL2", "ALG4")):
         with pytest.raises(ValueError):
             F.make_fused_pd_denoise_solver(*args)
-    with pytest.raises(NotImplementedError, match="K10b"):
-        F.make_fused_pd_denoise_solver((8, 8), "TVL2", compact=True)
+    # the bf16 state (K10b.4) is ported: it builds and rounds the state
+    b = torch.rand(8, 8)
+    x = F.make_fused_pd_denoise_solver((8, 8), "TVL2", iterations=2,
+                                       compact=True)(b, b, 0.1, 8.0)
+    assert x.dtype == torch.float32 and torch.equal(x, x.to(torch.bfloat16)
+                                                    .float())
+    with pytest.raises(ValueError):
+        F.make_fused_pd_denoise_solver((8, 8), "TVL2", compact="yes")
     with pytest.raises(TypeError):
         F.make_fused_pd_denoise_solver((8, 8), "TVL2", io_dtype="bfloat16")
     # interpret=True (the reference's neutral argument) runs the plain
@@ -448,17 +454,38 @@ def test_denoising_cli_cpu_matches_jax_solve(tmp_path, kind):
     (["--dir-output-figures", "FIGS", "--verbose", "1"], None)])
 def test_denoising_cli_unported_routes_raise(tmp_path, monkeypatch, argv,
                                              env):
+    """The routes still to port raise (``--trace``, figures); the ones
+    ported since run: ``--solver ADMM``, ``--reference`` and 1-D input
+    (the generic solvers), and ``NSOL_TPU_COMPACT=1``, which on the CPU
+    runs the exact solve as the reference's CPU route does."""
     obs = str(tmp_path / "b.nii.gz")
-    write_nifti(np.ones((4, 4, 4), np.float32), obs)
+    vol = np.random.RandomState(15).rand(4, 4, 4).astype(np.float32)
+    write_nifti(vol, obs)
     if argv == ["1d"]:
         obs, argv = str(tmp_path / "b1.nii.gz"), []
-        write_nifti(np.ones(8, np.float32), obs)
-    argv = [str(tmp_path / a) if a in ("REF", "TRACE", "FIGS") else a
-            for a in argv]
+        write_nifti(vol.reshape(-1), obs)
+    names = {"REF": "ref.nii.gz", "TRACE": "trace", "FIGS": "figs"}
+    argv = [str(tmp_path / names[a]) if a in names else a for a in argv]
+    if argv and argv[0] == "--reference":
+        write_nifti(vol, argv[1], spacing=np.ones(3))
     if env is not None:
         monkeypatch.setenv("NSOL_TPU_COMPACT", env)
-    with pytest.raises(NotImplementedError):
-        _cli(tmp_path, obs, str(tmp_path / "x.nii.gz"), *argv)
+    out = str(tmp_path / "x.nii.gz")
+    if argv and argv[0] in ("--trace", "--dir-output-figures"):
+        with pytest.raises(NotImplementedError, match="figures and tracing"):
+            _cli(tmp_path, obs, out, *argv)
+        return
+    assert _cli(tmp_path, obs, out, *argv) == 0
+    got = read_nifti(out).data
+    b = read_nifti(obs).data.astype(np.float64)
+    if argv[:2] == ["--solver", "ADMM"] or b.ndim == 1:
+        assert got.shape == b.shape and np.all(np.isfinite(got))
+        return
+    # the fused solve (NSOL_TPU_COMPACT=1 on the CPU) and the generic one
+    # (--reference) are the exact solve
+    want, _ = _jax_pd("TVL2", "ALG2", b / b.max(), 0.03, 8.0, 12)
+    np.testing.assert_allclose(got, np.asarray(want) * b.max(), rtol=1e-5,
+                               atol=1e-5 * b.max())
 
 
 def test_denoising_cli_ignores_compact_values_other_than_1(tmp_path,

@@ -321,16 +321,16 @@ def test_robust_entry_points_reject_tpu_only_and_unported_options():
             R.make_blocked_blur_operator((8, 8, 8), cov, **opt)
     with pytest.raises(TypeError, match="unexpected"):
         R.make_blocked_blur_operator((8, 8, 8), cov, io_dtype="bfloat16")
-    # the compact storage of the robust kernels is ported (K10b.2), but for
-    # the per-shard window form's io_dtype (K10b.6)
+    # the compact storage of the robust kernels is ported (K10b.2), the
+    # per-shard window form's io_dtype too (K10b.6)
     assert R.blocked_robust_admm_solve((8, 8, 8), cov,
                                        compact_dirs=True).storage == "io"
     R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
                                             io_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="K10b"):
-        R.make_blocked_weighted_normal_operator((8, 8, 8), cov,
-                                                prepadded=True,
-                                                io_dtype="bfloat16")
+    window = R.make_blocked_weighted_normal_operator(
+        (8, 8, 8), cov, prepadded=True, io_dtype="bfloat16")
+    v = torch.rand((8 + 2 * window.halo, 8, 8))
+    assert window(v, v, 0.5, 0).dtype == torch.bfloat16
     with pytest.raises(TypeError):
         R.blocked_robust_admm_solve((8, 8, 8), cov, n_bufs=2)
     # the neutral arguments pass; interpret=True runs the plain versions

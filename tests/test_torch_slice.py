@@ -95,14 +95,17 @@ def test_cli_cpu_matches_library(tmp_path, rng):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--solver", "PD"], ["--solver", "ADMM", "--reconstruction-type",
-                         "HuberL2"],
+    ["--solver", "PD", "--minimizer", "lsq_linear"],
+    ["--reconstruction-type", "TK1L2", "--minimizer", "least_squares"],
     ["--solver", "ADMM", "--data-loss", "huber", "--minimizer",
      "L-BFGS-B"]])
 def test_cli_unported_routes_raise(tmp_path, argv):
+    """The inner engines still to port raise, naming their ROADMAP item
+    (the PD and HuberL2 routes these cases once held are ported:
+    tests/test_torch_pd_surface.py runs them)."""
     obs = str(tmp_path / "b.nii.gz")
     write_nifti(np.ones((4, 4, 4), np.float32), obs)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="inner engines"):
         tcli.main(["--observation", obs, "--result",
                    str(tmp_path / "x.nii.gz"), "--device", "cpu"] + argv)
 

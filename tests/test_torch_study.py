@@ -289,7 +289,7 @@ def test_setters_getters_and_x_scale(f64):
 def test_unported_options_and_device_raise(f64):
     p = _Problem(_observed())
     s = _tikhonov("port", p, "TK1", "linear", True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match='"batch" mesh axis'):
         s.run_sweep({"alpha": np.array([0.1])}, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -484,23 +484,12 @@ def _interface(p, rtype, tmp_path, **kw):
     return DeconvolutionParameterStudyInterface(**opts)
 
 
-@pytest.mark.parametrize("rtype,kw", [
-    ("TVL2", {"tv_solver": "PD"}), ("HuberL2", {}),
-    ("TK1L2", {"x_ref": np.ones((12, 14))})])
-def test_interface_unported_routes_raise(tmp_path, rtype, kw):
-    p = _Problem(_observed())
-    interface = _interface(p, rtype, tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        interface.set_up_parameter_study()
-
-
-@pytest.mark.parametrize("rtype", ["TK0L2", "TK1L2", "TVL2"])
-def test_interface_study_matches_jax_interface(f64, tmp_path, rtype):
-    """The interface's solver, Reg/Data measures and study for each ported
-    type run the same study as the JAX package's interface."""
+def _interfaces_match(tmp_path, rtype, **kw):
+    """The port's and the JAX package's study interfaces on one problem:
+    the same solver class, Reg/Data (and similarity) measures to 1e-12,
+    and the same study files to 1e-9."""
     JI = _jax("interface")
     p = _Problem(_observed(seed=12))
-    kw = {"tv_solver": "ADMM"} if rtype == "TVL2" else {}
     port = _interface(p, rtype, tmp_path / "port", **kw)
     port.set_up_parameter_study()
     opts = dict(A=p.JA, A_adj=p.JA, D=p.JD, D_adj=p.JDt, b=p.b,
@@ -509,20 +498,44 @@ def test_interface_study_matches_jax_interface(f64, tmp_path, rtype):
                 dimension=2, reconstruction_type=rtype,
                 dir_output=str(tmp_path / "jax"),
                 parameters={"alpha": [0.1, 0.2]}, name=rtype,
-                reconstruction_info={}, blur_cov=p.cov, spacing=p.spacing,
-                **kw)
+                reconstruction_info={}, blur_cov=p.cov, spacing=p.spacing)
+    opts.update(kw)
     jax_i = JI.DeconvolutionParameterStudyInterface(**opts)
     jax_i.set_up_parameter_study()
     assert type(port.get_solver()).__name__ == \
         type(jax_i.get_solver()).__name__
+    assert type(port.get_parameter_study()).__name__ == \
+        type(jax_i.get_parameter_study()).__name__
     x = np.random.RandomState(0).rand(12, 14) * 100
-    for m in ("Reg", "Data"):
+    assert sorted(port.get_measures()) == sorted(jax_i.get_measures())
+    for m in port.get_measures():
         _close(float(port.get_measures()[m](x)),
                float(jax_i.get_measures()[m](x)), 1e-12)
     port.get_parameter_study().run()
     jax_i.get_parameter_study().run()
     _compare_studies(str(tmp_path / "jax"), str(tmp_path / "port"),
                      name=rtype)
+
+
+@pytest.mark.parametrize("rtype,kw", [
+    ("TVL2", {"tv_solver": "PD"}), ("HuberL2", {}),
+    ("TK1L2", {"x_ref": np.ones((12, 14))})])
+def test_interface_unported_routes_raise(f64, tmp_path, rtype, kw):
+    """The routes this case once held as unported run (TVL2 by PD and
+    HuberL2, the primal-dual study; ``x_ref``, the similarity measures),
+    as the JAX package's interface runs them."""
+    if "x_ref" in kw:
+        kw = dict(kw, x_ref=np.random.RandomState(3).rand(12, 14) * 100,
+                  measures=["RMSE", "PSNR", "NCC"])
+    _interfaces_match(tmp_path, rtype, **kw)
+
+
+@pytest.mark.parametrize("rtype", ["TK0L2", "TK1L2", "TVL2"])
+def test_interface_study_matches_jax_interface(f64, tmp_path, rtype):
+    """The interface's solver, Reg/Data measures and study for each ported
+    type run the same study as the JAX package's interface."""
+    kw = {"tv_solver": "ADMM"} if rtype == "TVL2" else {}
+    _interfaces_match(tmp_path, rtype, **kw)
 
 
 # -------------------------------------------------------------- the CLIs --
@@ -594,10 +607,17 @@ def test_study_cli_nifti_geometry_and_cross_read(tmp_path):
 
 def test_study_cli_unported_default_solver_raises(tmp_path):
     """The CLI keeps the reference's --solver PD default, whose TVL2 route
-    (primal-dual with CGLS) is not ported yet."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tstudy_cli.main(["--observation", LENA, "--dir-output",
-                         str(tmp_path), "--device", "cpu"])
+    (primal-dual with the inner Tikhonov prox) is ported: it writes the
+    primal-dual study's files (tests/test_torch_pd_surface.py holds them to
+    the JAX CLI's)."""
+    assert tstudy_cli.main(["--observation", LENA, "--dir-output",
+                            str(tmp_path), "--iterations", "2",
+                            "--alpha-range", "0.01", "0.05", "2",
+                            "--device", "cpu"]) == 0
+    reader = TReader(directory=str(tmp_path), name="TVL2")
+    reader.read_study()
+    assert reader.get_results("Data").shape == (2, 3)
+    assert "L2=8" in reader.get_file_header()
 
 
 @pytest.mark.parametrize("rtype", ["TK0L2", "TK1L2"])

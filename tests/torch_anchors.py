@@ -1,5 +1,5 @@
-"""The float64 anchors of ``chip_smoke.py`` phases 17-18, and the gap of the
-port's float32 plain path to them on the CPU.
+"""The float64 anchors of ``chip_smoke.py`` phases 17-18 and 35, and the gap
+of the port's float32 plain path to them on the CPU.
 
     python tests/torch_anchors.py
 
@@ -8,7 +8,16 @@ the Lena 256² deconvolution studies that ``chip_smoke.py`` runs on the
 GPU: the Tikhonov objective ``½Σρ_C((Ax−b)²) + α·½‖Bx‖²`` of
 ``tikhonov_solve`` at three α of the 64-α TK1L2/TK0L2 sweeps and of the
 8-α huber sweep, and the final Reg/Data records of ``admm_solve`` at two
-configurations of the TV-L2 ADMM study. Beside each, the relative gap of
+configurations of the TV-L2 ADMM study; and the objectives of the
+primal-dual deconvolutions that ``nsol_torch_run_deconvolution`` runs at its
+default flags (PD, 50 iterations, α 0.01, ``--blur 1``, ``--minimizer
+auto``) on the Lena PNG (TVL2, HuberL2) and on the σ = 1 blurred 64³
+phantom (TVL2), through the JAX package's interface as its CLI builds it
+on the CPU; and the objective of the JAX package's fused PD kernel with
+its bf16 state (``compact=True``, interpret mode, float32) on Man 1024² at
+the sweep's α[40], phase 33's anchor of the compact sweep, beside the
+exact kernel's there (the deviation the bf16 state itself makes). Beside
+each, the relative gap of
 ``nsol_tpu_torch``'s float32 plain path on the CPU: ``chip_smoke.py`` sets
 its bands from these gaps. Not a test: ``tests/test_torch_study.py``
 checks that the constants in ``chip_smoke.py`` are these values.
@@ -35,6 +44,12 @@ TV_ALPHAS = np.linspace(0.001, 0.05, 8, dtype=np.float32)
 TV_RHOS = (0.1, 0.5)
 TV_ITERATIONS, TV_ITER_MAX = 50, 10
 TV_ANCHOR_AT = ((1, 0.1), (6, 0.5))
+#: the PD deconvolutions of phase 35: the CLI's defaults
+PD_ALPHA, PD_ITERATIONS, PD_ITER_MAX = 0.01, 50, 10
+PD_CASES = (("lena", "TVL2"), ("lena", "HuberL2"), ("phantom", "TVL2"))
+#: phase 33's compact anchor: the Man 1024² sweep's α grid and the index
+MAN_ALPHAS = np.linspace(0.01, 1.5, 64, dtype=np.float32)
+MAN_COMPACT_AT = 40
 
 
 def lena():
@@ -129,6 +144,106 @@ def tv_anchors():
     return out
 
 
+def pd_observation(name):
+    """The raw observation of PD case ``name``: the blurred noisy Lena PNG,
+    or the 64³ phantom blurred by the σ = 1 wrap Gaussian (float32, as the
+    NIfTI file chip_smoke.py writes holds it)."""
+    import scipy.ndimage as ndi
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_nifti, read_png
+    from nsol_tpu_torch.ops.kernels import gaussian_kernel
+
+    if name == "lena":
+        return read_png(data.path("2D_Lena_256_blur_noise.png")).astype(
+            np.float64)
+    vol = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")).data
+    kern = gaussian_kernel(np.eye(3), alpha_cut=3, spacing=np.ones(3))
+    return ndi.convolve(vol.astype(np.float64), kern, mode="wrap").astype(
+        np.float32).astype(np.float64)
+
+
+def pd_objective(x, b, A, D, alpha, rtype, xp=np):
+    """``½‖Ax − b‖² + α·TV(x)`` (TVL2) or ``+ α·½Σhuber(|∇x|², 0.05)``
+    (HuberL2), in the scaled units ``x/x_scale``, ``b/x_scale``."""
+    r = A(x) - b
+    g = D(x)
+    g2 = xp.sum(g * g, axis=0) if xp is np else xp.sum(g * g, 0)
+    if rtype == "TVL2":
+        reg = xp.sum(xp.sqrt(g2))
+    else:
+        gam = 0.05
+        reg = 0.5 * xp.sum(xp.where(g2 < gam * gam, g2,
+                                    2 * gam * xp.sqrt(g2) - gam * gam))
+    return float(0.5 * xp.sum(r * r) + alpha * reg)
+
+
+def pd_anchors():
+    """{("PD", case, type): float64 objective} of the JAX package's PD
+    deconvolution, its interface wired as its CLI wires it."""
+    jnp = _jax()[0]
+    from nsol_tpu.interface import DeconvolutionSolverStudyInterface
+    from nsol_tpu.ops import conv, grad
+    from nsol_tpu.solvers.tikhonov import resolve_minimizer
+
+    out = {}
+    for name, rtype in PD_CASES:
+        b = pd_observation(name)
+        nd = b.ndim
+        cov, spacing = np.eye(nd), np.ones(nd)
+        A, At = conv.make_blur_operators(cov, alpha_cut=3, spacing=spacing,
+                                         shape=b.shape, method="auto")
+        D, Dt = grad.make_gradient_operators(spacing)
+        minimizer = resolve_minimizer("auto", data_loss="linear", cov=cov,
+                                      spacing=spacing)
+        iface = DeconvolutionSolverStudyInterface(
+            A=A, A_adj=At, D=D, D_adj=Dt, b=b, x0=np.array(b),
+            alpha=PD_ALPHA, x_scale=float(b.max()), iter_max=PD_ITER_MAX,
+            iterations=PD_ITERATIONS, minimizer=minimizer, measures=[],
+            reconstruction_type=rtype, dimension=nd, rho=0.5,
+            tv_solver="PD",
+            normal_A=conv.make_normal_blur_operator(
+                cov, alpha_cut=3, spacing=spacing, shape=b.shape),
+            normal_B=lambda x: grad.gradient_normal(x, spacing),
+            blur_cov=cov, spacing=spacing)
+        iface.set_up_solver()
+        solver = iface.get_solver()
+        solver.run()
+        s = float(b.max())
+        x = jnp.asarray(solver.get_x() / s)
+        out[("PD", name, rtype)] = pd_objective(
+            x, jnp.asarray(b / s), A, D, PD_ALPHA, rtype, xp=jnp)
+    return out
+
+
+def man_compact_anchors():
+    """{("PD-compact", "man", i): objective, ("PD-exact", "man", i): ...}
+    of the JAX package's fused PD kernel on Man 1024² (TVL2, ALG2, 50
+    iterations, L2 8, float32, interpret mode) at α[i], with and without
+    its bf16 state: Data + α·Reg of its last records."""
+    os.environ.pop("JAX_PLATFORMS", None)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from nsol_tpu.ops.pallas.fused import make_fused_pd_denoise_solver
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_png
+
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    b = (man / man.max()).astype(np.float32)
+    i = MAN_COMPACT_AT
+    a = float(MAN_ALPHAS[i])
+    out = {}
+    for key, compact in (("PD-exact", False), ("PD-compact", True)):
+        _, r = make_fused_pd_denoise_solver(
+            b.shape, "TVL2", iterations=PD_ITERATIONS, record=True,
+            compact=compact, interpret=True)(b, b, a, 8.0)
+        out[(key, "man", i)] = float(r["Data"][-1]) + a * float(
+            r["Reg"][-1])
+    return out
+
+
 def port_gaps(anchors):
     """{key: relative gap} of the port's float32 plain path on the CPU."""
     import torch
@@ -143,7 +258,7 @@ def port_gaps(anchors):
     B = {"TK1": grad.gradient, "TK0": lambda x: x}
     gaps = {}
     for key, want in anchors.items():
-        if key[0] == "TV":
+        if key[0] in ("TV", "PD"):
             continue
         reg, loss, i = key
         a = float(TK_ALPHAS[i])
@@ -163,11 +278,68 @@ def port_gaps(anchors):
         for k in ("Reg", "Data"):
             want = anchors[("TV", k, i, rho)]
             gaps[("TV", k, i, rho)] = abs(float(recs[k][-1]) - want) / want
+    for key in (k for k in anchors if k[0] == "PD"):
+        gaps[key] = abs(port_pd_objective(*key[1:]) - anchors[key]) \
+            / anchors[key]
+    for key in (k for k in anchors if k[0].startswith("PD-")):
+        gaps[key] = abs(port_man_objective(key[0] == "PD-compact")
+                        - anchors[key]) / anchors[key]
     return gaps
 
 
+def port_man_objective(compact):
+    """The port's float32 plain fused PD solve at phase 33's α[40]."""
+    import torch
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_png
+    from nsol_tpu_torch.ops.cuda import fused
+
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    b = torch.as_tensor((man / man.max()).astype(np.float32))
+    a = float(MAN_ALPHAS[MAN_COMPACT_AT])
+    _, r = fused.make_fused_pd_denoise_solver(
+        b.shape, "TVL2", "ALG2", PD_ITERATIONS, record=True,
+        compact=compact)(b, b, a, 8.0)
+    return float(r["Data"][-1]) + a * float(r["Reg"][-1])
+
+
+def port_pd_objective(name, rtype):
+    """The objective of the port's float32 PD deconvolution on the CPU,
+    through its CLI at the default flags."""
+    import tempfile
+
+    import torch
+
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader, write_nifti
+    from nsol_tpu_torch.ops import conv, grad
+
+    b = pd_observation(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        if name == "lena":
+            from nsol_tpu_torch import data
+
+            obs = data.path("2D_Lena_256_blur_noise.png")
+        else:
+            obs = os.path.join(tmp, "b.nii")
+            write_nifti(b.astype(np.float32), obs, spacing=np.ones(3))
+        out = os.path.join(tmp, "x.mat")
+        run_deconvolution.main(["--observation", obs, "--result", out,
+                                "--reconstruction-type", rtype,
+                                "--device", "cpu"])
+        reader = DataReader(out)
+        reader.read_data()
+        x = reader.get_data()
+    s = float(b.max())
+    A, _ = conv.make_blur_operators(np.eye(b.ndim), alpha_cut=3)
+    return pd_objective(torch.as_tensor(x / s), torch.as_tensor(b / s), A,
+                        grad.gradient, PD_ALPHA, rtype, xp=torch)
+
+
 if __name__ == "__main__":
-    anchors = dict(tikhonov_anchors(), **tv_anchors())
+    anchors = dict(tikhonov_anchors(), **tv_anchors(), **pd_anchors(),
+                   **man_compact_anchors())
     gaps = port_gaps(anchors)
     for key in anchors:
         print("%-28s %.9f   float32 plain gap %.2e"

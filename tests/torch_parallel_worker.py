@@ -99,6 +99,18 @@ SOLVES_W2 = {
 }
 
 
+#: the io window apply of world 2 (K10b.6): normal_W(vf, wts, alpha) of
+#: make_sharded_blocked_robust_operators(io_dtype=bfloat16)
+WIO_ALPHA = 0.7
+
+
+def wio_inputs():
+    """``(vf, wts)`` of the io window apply, float32."""
+    rs = np.random.RandomState(31)
+    return (rs.rand(*SOLVE_SHAPE).astype(np.float32),
+            (rs.rand(*SOLVE_SHAPE) + 0.1).astype(np.float32))
+
+
 def _rows(a, mesh, axis=0):
     from nsol_tpu_torch.parallel import distributed as dist
 
@@ -177,6 +189,21 @@ def denoise_cases(mesh):
         process_local=True)) for v in PD_VARIANTS}
 
 
+def window_io_cases(mesh):
+    """The sharded weighted apply with ``io_dtype=bfloat16`` on this rank's
+    rows (its bfloat16 result as float32)."""
+    import torch
+
+    from nsol_tpu_torch.parallel import blocked_halo
+
+    vf, wts = (torch.as_tensor(_rows(a, mesh)) for a in wio_inputs())
+    _, _, normal_W = blocked_halo.make_sharded_blocked_robust_operators(
+        tuple(vf.shape), solve_cov(), mesh=mesh, io_dtype=torch.bfloat16)
+    out = normal_W(vf, wts, WIO_ALPHA)
+    assert out.dtype == torch.bfloat16
+    return {"w2_wnormal_io": _np(out.float())}
+
+
 def refusals(mesh):
     """Flags (1 = raised ``ValueError``) of what a multi-rank mesh must
     refuse: a full volume with ``process_local=False``, and a mesh of
@@ -216,6 +243,7 @@ def main(argv):
         res.update(denoise_cases(mesh))
     else:
         res = solve_cases(mesh, SOLVES_W2)
+        res.update(window_io_cases(mesh))
         res.update(refusals(mesh))
     np.savez(os.path.join(outdir, "rank_%d.npz" % rank), **res)
     torch.distributed.destroy_process_group()
