@@ -24,7 +24,11 @@ against its float64 anchor and timing kernels and solves with CUDA events:
 * phases 16-19, the deconvolution parameter studies: the TK0/TK1 instances
   of the applies, ``admm_record`` (5 losses), ``tik_clip`` and the linear
   ADMM units on 2-D images against their plain versions, and the whole C
-  solves; the Lena 256² TK1L2/TK0L2 sweeps over 64 α (CG 10) and the TK1L2
+  solves; ``tik_clip`` and ``irls_step`` at ragged lengths, on misaligned
+  views, in place and on NaN/±inf/−0 inputs (F4), and ``tik_clip``'s
+  device time beside ``torch.clamp``'s (``torch.profiler``, in turns) at
+  256² and 256³ with its ms a wrapper call; the Lena 256² TK1L2/TK0L2
+  sweeps over 64 α (CG 10) and the TK1L2
   huber sweep through ``TikhonovLinearSolver.run_sweep``, against float64
   anchors; the TV-L2 ADMM study with records (8 α × 2 ρ, 50 × 10) through
   ``ADMMLinearSolver.run_sweep`` and ``run_deconvolution`` on the PNG; a
@@ -32,7 +36,9 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   the 64³ NIfTI phantom (TK1L2) and on Lena (TVL2 by ADMM);
 * phases 20-22, the 512³ scale path through the one-pass tiled units of
   ``csrc/tiled.cu``: the units against their plain versions on tile-edge
-  shapes and their 512³ times beside the three-pass units;
+  shapes and their 512³ times beside the three-pass units; ``cg_direction``
+  (``csrc/stream.cuh``) at ragged lengths, misaligned and in place, and its
+  512³ device time beside ``torch.add``'s, in turns;
   ``blocked_admm_solve`` 50 × 10 in its "apply" and "step2d" modes within
   0.2 % of 165421.8 and against the fused solve; the robust huber
   5 × 5 × 8 solve against the per-axis one; ``run_deconvolution`` on a
@@ -41,10 +47,13 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   storage-typed units (bfloat16 ``r``/``p``/``q``) and ``cg_sweep``
   against their plain versions on tile-edge shapes (bf16 outputs within
   one bf16 ulp, float32 ones and the dots within 1e-5) and their times at
-  each main path's shape beside the float32 units; the 64³ fused compact
+  each main path's shape beside the float32 units, ``cg_direction``'s
+  bf16 and deferred bf16-state instances also at ragged lengths, misaligned
+  and by device time; the 64³ fused compact
   solve within 0.2 % of 219948.08; at 256³ "step" under ``compact_dirs``
   and bf16 state and "sweep" in float32 and bf16 against the exact
-  objective; 512³ "apply" under both within 0.2 % of 165421.8; and
+  objective; 512³ "apply" under both within 0.2 % of 165421.8, the exact
+  one equal to its recorded 165421.769; and
   ``run_deconvolution``'s default, ``NSOL_TPU_EXACT=1`` and
   ``NSOL_TPU_COMPACT=1`` on a 64³ and a (64, 512, 512) NIfTI against the
   library solves ``nsol_tpu_torch.policy`` names.
@@ -529,6 +538,34 @@ def pd_check_pair(solve, b, alpha, rtype, where, obj_tol=None, vox_tol=None):
     return obj_k, rel, vox
 
 
+def pd_nan_case(F, shape, rtype, device):
+    """The PD solve (6 iterations, α 0.1 and 0.5, records) on b with a NaN
+    strip over the first two entries of its leading axis (a NaN
+    background's edge), kernels against plain: NaN at the same voxels of x
+    (some, not all) and of the records, the finite x within KERNEL_TOL ·
+    max |ref|. The NaN spreads through p and the divergence; the l1 prox
+    keeps it (fused.py:1151's jnp.maximum and jnp.sign). Fails the phase
+    on a miss; returns the NaN voxels of x."""
+    import torch
+
+    b = torch.as_tensor(np.random.RandomState(8).rand(*shape)
+                        .astype(np.float32), device=device)
+    b[:2] = float("nan")
+    solve = F.make_fused_pd_denoise_solver(shape, rtype, iterations=6,
+                                           record=True)
+    x_k, r_k = solve(b, b, [0.1, 0.5], PD_L2)
+    x_p, r_p = solve.plain(b, b, [0.1, 0.5], PD_L2)
+    what = "PD %s %s with a NaN strip in b" % (rtype, shape)
+    same_nan([(x_k, x_p), (r_k["Reg"], r_p["Reg"]),
+              (r_k["Data"], r_p["Data"])], what)
+    nan = torch.isnan(x_p)
+    count = int(nan.sum())
+    require(0 < count < nan.numel(), "%s: %d NaN voxels" % (what, count))
+    rel = max_rel(x_k[~nan], x_p[~nan])
+    require(rel <= KERNEL_TOL, "%s: finite voxels rel %.3g" % (what, rel))
+    return count
+
+
 def run_pd_phases(device, card):
     """Phases 7-11: the primal-dual denoising slice. Returns the launch
     counts of the sweep's path, each unit's max |Δ| against its plain
@@ -565,6 +602,12 @@ def run_pd_phases(device, card):
         print("phase 7 PD units %s (12 type x schedule pairs, B=3, "
               "anisotropic): %s" % ("x".join(map(str, shape)), ", ".join(
                   "%s %.2e" % kv for kv in worst.items())))
+    nans = {"%s %s" % (rtype, "x".join(map(str, shape))):
+            pd_nan_case(F, shape, rtype, device)
+            for shape in ((40, 33), (12, 16, 16)) for rtype in PD_TYPES}
+    print("phase 7 PD solve with a NaN strip in b, kernels vs plain: NaN at "
+          "the same voxels and records (NaN voxels %s), finite voxels within "
+          "%g" % (nans, KERNEL_TOL))
 
     # phase 8: denoising main path, 2-D (Lena 256², TVL2 ALG2)
     lena = read_png(data.path("2D_Lena_256_noise.png")).astype(np.float64)
@@ -1132,19 +1175,17 @@ def slice_unit_cases(st, shape, device, rng):
 
 
 def slice_unit_times(st, shape, device, reps):
-    """(kernel ms, plain ms, library ms or None) per call of the slice's
-    new units at ``shape``: ``admm_record`` (huber, C = 1) and
-    ``tik_clip``, whose library counterpart is one ``torch.clamp``."""
+    """(kernel ms, plain ms, library ms or None) per call of
+    ``admm_record`` (huber, C = 1) at ``shape`` (``tik_clip``'s are
+    :func:`clip_stream_times`)."""
     import torch
 
     from nsol_tpu_torch.ops.cuda import record as Rec
-    from nsol_tpu_torch.ops.cuda import tikhonov as T
 
     rng = np.random.RandomState(16)
     x = torch.as_tensor(rng.rand(*shape).astype(np.float32) - 0.3,
                         device=device)
     b = torch.as_tensor(rng.rand(*shape).astype(np.float32), device=device)
-    o = torch.empty_like(x)
     rk = Rec.new_records(2, device)
     return {
         "admm_record": (
@@ -1153,10 +1194,42 @@ def slice_unit_times(st, shape, device, reps):
             cuda_ms(lambda: Rec.admm_record_plain(x, b, st.blur, st.inv_h,
                                                   "huber", 1.0, *rk, 1),
                     max(2, reps // 4)), None),
-        "tik_clip": (cuda_ms(lambda: T.tik_clip(o, x), reps),
-                     cuda_ms(lambda: T.tik_clip_plain(o, x), reps),
-                     cuda_ms(lambda: torch.clamp(x, min=0.0, out=o), reps)),
     }
+
+
+def clip_stream_times(device):
+    """tik_clip's kernel beside ``torch.clamp``'s at 256² (the Lena sweeps)
+    and 256³ (the 256³ TK1L2 sweep): device ms in turns
+    (:func:`device_turns`), ms a call by CUDA events in the same turns (a
+    loop of wrapper or ``torch.clamp`` calls: the host's enqueue included),
+    the plain version's ms a call, and the bound. ``{shape: {"device",
+    "call", "plain", "bound"}}``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import tikhonov as TK
+
+    rng = np.random.RandomState(16)
+    out = {}
+    for shape, reps in (((256, 256), 400), ((256, 256, 256), 100)):
+        x = torch.as_tensor(rng.rand(*shape).astype(np.float32) - 0.3,
+                            device=device)
+        o = torch.empty_like(x)
+
+        def kern():
+            TK.tik_clip(o, x)
+
+        def lib():
+            torch.clamp(x, min=0.0, out=o)
+
+        calls = {"library": [], "kernel": []}
+        for key, fn in (("library", lib), ("kernel", kern), ("kernel", kern),
+                        ("library", lib)):
+            calls[key].append(cuda_ms(fn, reps))
+        out[shape] = {"device": device_turns(kern, lib, reps), "call": calls,
+                      "plain": cuda_ms(lambda: TK.tik_clip_plain(o, x), reps),
+                      "bound": unit_bound("tik_clip", x.numel())[0]}
+        del x, o
+    return out
 
 
 def run_unit_phase(device, card):
@@ -1230,11 +1303,34 @@ def run_unit_phase(device, card):
               "%s" % (label, "x".join(map(str, shape)), ", ".join(res)))
     st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, device)
     times = slice_unit_times(st, (256, 256), device, reps=200)
-    print("phase 16 per-call 256^2 (kernel ms, plain ms, library ms): %s [%s]"
+    print("phase 16 admm_record per call 256^2 (kernel ms, plain ms, library "
+          "ms): %s [%s]"
           % (", ".join("%s %.4f/%.4f/%s" % (k, a, p, "none" if lib is None
                                              else "%.4f" % lib)
                        for k, (a, p, lib) in times.items()), card))
-    return {"err": err, "times": times, "taps": st.blur.lengths}
+    # the clips' stream kernels at ragged lengths, misaligned, NaN (F4)
+    checked = stream_edge_checks(("tik_clip", "irls_step"), device)
+    print("phase 16 tik_clip and irls_step vs plain %s, in place, NaN/inf/-0 "
+          "inputs: %d kernel calls equal (NaN where plain has NaN)"
+          % (stream_cases_text(), checked))
+    clip = clip_stream_times(device)
+    for shape, t in clip.items():
+        print("phase 16 tik_clip %s (bound %.4f ms): device ms (torch."
+              "profiler, turns torch.clamp, kernel, kernel, torch.clamp) "
+              "kernel %s, torch.clamp %s (kernel records a call %s); ms a "
+              "call by CUDA events, host enqueue included, wrapper %s, "
+              "torch.clamp %s, plain %.4f [%s]" % (
+                  "x".join(map(str, shape)), t["bound"],
+                  span(t["device"]["kernel"]), span(t["device"]["library"]),
+                  t["device"]["kernels"], span(t["call"]["kernel"]),
+                  span(t["call"]["library"]), t["plain"], card))
+    lena = clip[(256, 256)]
+    times["tik_clip"] = (
+        mean_ms(lena["call"]["kernel"]), lena["plain"],
+        mean_ms(lena["call"]["library"]), mean_ms(lena["device"]["kernel"]),
+        mean_ms(lena["device"]["library"]))
+    return {"err": err, "times": times, "taps": st.blur.lengths,
+            "clip": clip}
 
 
 # ------------------------------------------- phases 17-19 (the studies) --
@@ -1340,6 +1436,139 @@ def device_breakdown(fn, groups):
                       if any(k in e.key for k in keys)), "other")
         by[group] += t / 1e3
     return wall, sum(by.values()), by
+
+
+def device_ms(fn, reps, warmup=3):
+    """Device ms per call of ``fn`` and the kernel records per call: from a
+    ``torch.profiler`` trace of ``reps`` calls after ``warmup`` untraced
+    ones, the median duration of each kernel's records times the kernels
+    of its name a call (its records over ``reps``, rounded, at least 1);
+    the host's enqueue does not count. The trace may lose records of a long
+    run (seen on the H100's host: 12-19 of 20 at 512³), so a median over
+    the records kept, not a sum over ``reps``. ``(None, 0)`` where the
+    trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    runs = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                ("aten::", "Activity Buffer", "Memcpy", "Memset")):
+            runs.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not runs:
+        return None, 0
+    total = sum(float(np.median(d)) * max(1, round(len(d) / reps))
+                for d in runs.values())
+    return total / 1e3, sum(len(d) for d in runs.values()) / reps
+
+
+def device_turns(kernel, library, reps):
+    """Device ms per call (:func:`device_ms`) of ``kernel`` and of
+    ``library`` (or None), taken in turns in one run — library, kernel,
+    kernel, library: ``{"kernel": [ms, ms], "library": [ms, ms] or None,
+    "kernels": kernel records a call of each turn}``."""
+    out = {"kernel": [], "library": None if library is None else [],
+           "kernels": {}}
+    for key, fn in (("library", library), ("kernel", kernel),
+                    ("kernel", kernel), ("library", library)):
+        if fn is not None:
+            ms, per_call = device_ms(fn, reps)
+            out[key].append(ms)
+            out["kernels"].setdefault(key, []).append(per_call)
+    return out
+
+
+def turn_gaps(turns, bound_ms):
+    """Kernel against library, turn by turn, from :func:`device_turns`
+    (turns library, kernel, kernel, library: kernel turn 1 beside library
+    turn 1, 2 beside 2), and each time's effective HBM rate (the bytes of
+    ``bound_ms`` at the card's rate, over the time), as text."""
+    k, lib = turns["kernel"], turns["library"]
+    if lib is None:
+        return "no library call"
+    if None in k + lib:
+        return "not measured"
+
+    def rate(t):
+        return HBM_BYTES_S * bound_ms / t / 1e12
+
+    return "; ".join(
+        "turn %d kernel %.5f (%.3f TB/s) vs library %.5f (%.3f TB/s): "
+        "%+.2f %%" % (i + 1, a, rate(a), b, rate(b), 100 * (a - b) / b)
+        for i, (a, b) in enumerate(zip(k, lib)))
+
+
+def stream_ptxas():
+    """The ptxas report of the stream kernels (``csrc/stream.cuh``), one
+    entry an instance: ``{name and mangled template arguments:
+    (registers, resident warps an SM of 64)}``, the warps from the
+    registers (65536 an SM, allocated 256 a warp; 128-thread blocks, at
+    most 32 blocks an SM). Empty where the library came from the cache."""
+    from nsol_tpu_torch.ops.cuda import build
+
+    out, entry = {}, None
+    for ln in build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry and (
+                "direction_kernel" in entry or "clip_kernel" in entry):
+            regs = int(ln.split("Used")[1].split()[0])
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(32, 64 // 4, 65536 // (per_warp * 4))
+            kind = "direction_kernel" if "direction_kernel" in entry \
+                else "clip_kernel"
+            out[kind + entry.split(kind, 1)[1].split("Ev")[0]] = (regs,
+                                                                 4 * blocks)
+            entry = None
+    return out
+
+
+def mean_ms(ts):
+    """The mean of measured turns (None: not measured)."""
+    ts = [t for t in ts or () if t is not None]
+    return float(np.mean(ts)) if ts else None
+
+
+def span(ts):
+    """'lo-hi' ms of measured turns, or 'not measured'."""
+    ts = [t for t in ts or () if t is not None]
+    return "%.5f-%.5f" % (min(ts), max(ts)) if ts else "not measured"
+
+
+def stream_edge_checks(units, device):
+    """Each unit of ``units`` (a key of ``stream_cases.DIRECTION_FORMS``,
+    ``tik_clip``, ``irls_step``) against its plain version on the card at
+    every length of ``stream_cases.SHAPES``
+    (:func:`nsol_tpu_torch.ops.cuda.stream_cases.check`: every offset
+    pattern, in place, the clips on NaN, ±inf and ±0). Fails the phase on
+    a miss; returns the number of kernel calls checked."""
+    from nsol_tpu_torch.ops.cuda import stream_cases as SC
+
+    checked = 0
+    for shape in SC.SHAPES:
+        for unit in units:
+            try:
+                checked += SC.check(unit, shape, device)
+            except AssertionError as e:
+                require(False, str(e))
+    return checked
+
+
+def stream_cases_text():
+    """The lengths and offsets of :func:`stream_edge_checks`, as text."""
+    from nsol_tpu_torch.ops.cuda import stream_cases as SC
+
+    return "at lengths %s, offsets %s" % (
+        [int(np.prod(s)) for s in SC.SHAPES], SC.OFFSETS)
 
 
 def sweep_timing(fn, label, card):
@@ -1880,6 +2109,11 @@ BIG = (512, 512, 512)
 BIG_ANCHOR = 165421.8
 BIG_ROBUST_ITERS = (5, 5, 8)
 BIG_N = int(np.prod(BIG))
+#: the 512³ "apply" objectives recorded in PERF.md (earlier chip runs); the
+#: exact one is held to its printed digits (the kernels' arithmetic is
+#: fixed), the compact ones are printed beside theirs
+APPLY_OBJECTIVES = {"apply_exact": 165421.769, "apply_dirs": 165421.769,
+                    "apply_state": 165520.905}
 #: the tiled units' tile-edge cases: (label, cov, spacing, shape)
 EDGE_CASES = (
     ("edge", np.diag([1.0] * 3), None, (13, 530, 37)),
@@ -2141,6 +2375,10 @@ def run_scale_phases(device, card):
             label, "x".join(map(str, shape)), st.normal.lengths,
             ", ".join("%s %.2e" % kv for kv in rels.items())))
     del res
+    checked = stream_edge_checks(("cg_direction",), device)
+    print("phase 20 cg_direction vs plain %s, in place: %d kernel calls "
+          "within their band, the same bits at every offset"
+          % (stream_cases_text(), checked))
     fit_rel = tiled_fit_checks(T, B, device)
     print("phase 20 shared memory: C and Python sizes agree; units at "
           "sigma 2 (blur %s taps) vs plain %.2e; sigma 2.1 refused before "
@@ -2150,7 +2388,7 @@ def run_scale_phases(device, card):
     st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
     checks, calls = tiled_calls(T, R, B, st, BIG, device,
                                 np.random.RandomState(21))
-    times, err = {}, {}
+    times, err, dev_t = {}, {}, {}
     for k, (kf, pf, tf, lf) in calls.items():
         ck, cp = checks.get(k, (kf, pf))
         got, ref = ck(), cp()
@@ -2162,6 +2400,8 @@ def run_scale_phases(device, card):
         del got, ref
         times[k] = tuple(None if f is None else cuda_median_ms(f, reps)
                          for f, reps in ((kf, 5), (pf, 2), (tf, 5), (lf, 5)))
+        if k == "cg_direction":  # device times beside torch.add's
+            dev_t[k] = device_turns(kf, lf, 50)
     del calls, checks
     torch.cuda.empty_cache()
     print("phase 20 512^3 per call (tiled / plain / three-pass / library ms, "
@@ -2171,6 +2411,15 @@ def run_scale_phases(device, card):
                                    for u in t[2:]),
                   unit_bound(k, int(np.prod(BIG)), TILED_TAPS[k])[0])
               for k, t in times.items()), card))
+    dt_ = dev_t["cg_direction"]
+    b_ms = unit_bound("cg_direction", BIG_N)[0]
+    print("phase 20 cg_direction 512^3 (bound %.4f ms): device ms (torch."
+          "profiler, turns torch.add, kernel, kernel, torch.add) kernel %s, "
+          "torch.add %s (kernel records a call %s); %s [%s]"
+          % (b_ms, span(dt_["kernel"]), span(dt_["library"]),
+             dt_["kernels"], turn_gaps(dt_, b_ms), card))
+    print("phase 20 stream kernels' ptxas (registers, resident warps an SM "
+          "of 64): %s" % (stream_ptxas() or "cached"))
     # ... at 256³, where the route keeps the three-pass units
     mid = (256, 256, 256)
     _, calls = tiled_calls(T, R, B, st, mid, device,
@@ -2211,6 +2460,10 @@ def run_scale_phases(device, card):
         dev = abs(obj - BIG_ANCHOR) / BIG_ANCHOR
         require(dev <= ANCHOR_BAND, "phase 21: %s objective %.2f deviates "
                 "%.4f%% from %.1f" % (solve.mode, obj, 100 * dev, BIG_ANCHOR))
+        require(solve.mode != "apply" or "%.3f" % obj == "%.3f"
+                % APPLY_OBJECTIVES["apply_exact"], "phase 21: the exact "
+                "\"apply\" objective %.6f is not the recorded %.3f" % (
+                    obj, APPLY_OBJECTIVES["apply_exact"]))
         runs[solve.mode], launches[solve.mode], xs[solve.mode] = \
             (obj, ms), counts, x
     fused = F.make_fused_admm_solver(BIG, iso, iterations=ITERATIONS,
@@ -2242,8 +2495,8 @@ def run_scale_phases(device, card):
                 "phase 21: %s kernel vs plain at 2 x %d: objective rel %.3g "
                 "voxel %.3g" % ((mode, ITER_MAX) + gates[mode]))
         del xk, xp
-    print("phase 21 linear 512^3 %dx%d: objective apply %.2f, step2d %.2f, "
-          "fused %.2f (anchor %.1f, band %.1f%%); apply %.1f/%.1f ms "
+    print("phase 21 linear 512^3 %dx%d: objective apply %.3f, step2d %.3f, "
+          "fused %.3f (anchor %.1f, band %.1f%%); apply %.1f/%.1f ms "
           "a solve (two calls), step2d %.1f ms, fused %.1f ms; objectives "
           "agree to %.2e, voxels to %.2e of the fused solve; kernel vs plain "
           "at 2 outer (objective, voxel): %s; launches apply %s, step2d %s "
@@ -2357,7 +2610,10 @@ def run_scale_phases(device, card):
         "blur_apply_zy": rob_launches["blur_apply_zy"],
         "weighted_apply_zy": rob_launches["weighted_apply_zy"]}
     return {"launches": path_launches, "err": err,
-            "times": {k: (t[0], t[1], t[3]) for k, t in times.items()}}
+            "times": {k: (t[0], t[1], t[3]) + (
+                (mean_ms(dev_t[k]["kernel"]),
+                 mean_ms(dev_t[k]["library"]))
+                if k in dev_t else ()) for k, t in times.items()}}
 
 
 def interop_numpy(t):
@@ -2430,15 +2686,20 @@ COMPACT_UNITS = {
                               "nsol_tpu/ops/pallas/blocked.py:754",
                               "nsol_tpu_torch/csrc/tiled.cu", "apply_dirs",
                               2 + 2, 13),
-    # the "apply" CG's p = r + β·p, left to XLA by the JAX package
+    # the "apply" CG's p = r + β·p, left to XLA by the JAX package; under
+    # bf16 state its deferred form r' = r − a·q, p = r' + β·p
     "cg_direction[bf16]": ("cg_direction", None,
-                           "nsol_tpu_torch/csrc/tiled.cu", "apply_dirs",
+                           "nsol_tpu_torch/csrc/stream.cuh", "apply_dirs",
                            4 + 2 + 2, 0),
+    "cg_direction[state]": ("cg_direction", None,
+                            "nsol_tpu_torch/csrc/stream.cuh", "apply_state",
+                            2 + 2 + 2 + 2 + 2, 0),
 }
 #: the shape each main path of phase 24 runs at
 COMPACT_SHAPES = {"fused64": (64, 64, 64), "step_dirs": SCALE_SHAPE,
                   "step_state": SCALE_SHAPE, "sweep_f32": SCALE_SHAPE,
-                  "sweep_bf16": SCALE_SHAPE, "apply_dirs": BIG}
+                  "sweep_bf16": SCALE_SHAPE, "apply_dirs": BIG,
+                  "apply_state": BIG}
 
 
 def bf16_ulp(v):
@@ -2633,6 +2894,41 @@ def sweep_unit_pairs(B, st, shape, device, rng, dtype):
     return {"cg_sweep": out}
 
 
+def same_nan(pairs, what):
+    """Each (kernel, plain) pair has NaN at the same entries."""
+    import torch
+
+    for k, (g, f) in enumerate(pairs):
+        require(torch.equal(torch.isnan(g.float()), torch.isnan(f.float())),
+                "%s: output %d has NaN where plain has none, or none where "
+                "it has" % (what, k))
+
+
+def sweep_nan_case(B, st, shape, device, dtype):
+    """The sweep (a later trip, storage ``dtype``) with one NaN in p: q'
+    and the dots pq, rq, qq turn NaN while g stays finite, so the
+    recurrence's γ' = max(g − 2a·rq + a²·qq, 0) is NaN and β too, as under
+    jnp.maximum (blocked.py:1507) and in the plain version. Kernel against
+    plain: NaN at the same entries of x, q', r', p' and the scalars, and
+    β NaN. Fails the phase on a miss."""
+    import torch
+
+    rng = np.random.RandomState(23)
+    x, r, p, q = (torch.as_tensor(rng.rand(*shape).astype(np.float32) - 0.5,
+                                  device=device) for _ in range(4))
+    p.view(-1)[p.numel() // 2] = float("nan")
+    outs = []
+    for fn in (B.cg_sweep, B.cg_sweep_plain):
+        scal, xs, qs = _scal(device), x.clone(), q.to(dtype).clone()
+        rp = fn(xs, r.to(dtype), p.to(dtype), qs, scal, st.normal,
+                st.inv_h2, RHO)
+        outs.append([xs, qs, *rp, scal])
+    what = "cg_sweep %s with a NaN in p" % str(dtype).split(".")[-1]
+    same_nan(list(zip(*outs)), what)
+    require(bool(torch.isnan(outs[0][-1][B.BETA])), "%s: beta is not NaN"
+            % what)
+
+
 def compact_call(B, T, st, shape, device, name):
     """``(kernel, plain, library, float32 twin, pair)`` closures of the
     compact entry ``name`` at ``shape``, each the form its main path runs,
@@ -2724,6 +3020,16 @@ def compact_call(B, T, st, shape, device, name):
             return [ps[k]]
 
         twin = lambda: T.cg_direction(p32, r, s[2])  # noqa: E731
+    elif name == "cg_direction[state]":
+        # the deferred form: r' = r − a·q in place, p = r' + β·p
+        units = (T.cg_direction, T.cg_direction_plain)
+        ps, rs = own(pb), own(rb)
+
+        def call(k):
+            units[k](ps[k], rs[k], s[k], q=qb)
+            return [ps[k], rs[k]]
+
+        twin = None
     else:
         raise KeyError(name)
     library = None
@@ -2786,11 +3092,20 @@ def run_compact_phases(device, card):
         print("phase 23 storage units and sweep %s %s: f32 outputs and dots "
               "within %.2e of plain, bf16 ones within %g ulp"
               % (label, "x".join(map(str, shape)), worst, BF16_ULPS))
+    for dt in (torch.float32, bf):
+        sweep_nan_case(B, st, (13, 45, 37), device, dt)
+    print("phase 23 cg_sweep (f32, bf16) with a NaN in p: NaN at the same "
+          "entries as plain, beta NaN as under jnp.maximum")
+    checked = stream_edge_checks(("cg_direction[bf16]", "cg_direction[state]"),
+                                 device)
+    print("phase 23 cg_direction[bf16], [state] vs plain %s, in place: %d "
+          "kernel calls within one bf16 ulp, the same bits at every offset"
+          % (stream_cases_text(), checked))
     # ... and at each main path's shape, in the form it runs there: held to
     # the same bands, and timed beside the plain version
     iso = np.diag([SIGMA ** 2] * 3)
     st = B.Stencils.from_cov(iso, 3, None, device)
-    times, err = {}, {}
+    times, err, dev_t = {}, {}, {}
     for k, u in COMPACT_UNITS.items():
         shape = COMPACT_SHAPES[u[3]]
         kf, pf, lf, tf, pair = compact_call(B, T, st, shape, device, k)
@@ -2803,6 +3118,8 @@ def run_compact_phases(device, card):
         times[k] = (cuda_median_ms(kf, reps), cuda_median_ms(pf, 2),
                     None if lf is None else cuda_median_ms(lf, reps),
                     None if tf is None else cuda_median_ms(tf, reps))
+        if u[0] == "cg_direction":  # device times beside torch.add's
+            dev_t[k] = device_turns(kf, lf, 50)
         del kf, pf, lf, tf, pair
         torch.cuda.empty_cache()
     print("phase 23 at each main path's shape: every output within its band "
@@ -2815,6 +3132,14 @@ def run_compact_phases(device, card):
                                  for t in times[k][2:]),
                   compact_bound(k, COMPACT_SHAPES[u[3]])[0])
               for k, u in COMPACT_UNITS.items()), card))
+    for k, d in dev_t.items():
+        b_ms = compact_bound(k, BIG)[0]
+        print("phase 23 %s 512^3 (bound %.4f ms): device ms (torch.profiler, "
+              "turns torch.add, kernel, kernel, torch.add) kernel %s, "
+              "torch.add %s (kernel records a call %s); %s [%s]" % (
+                  k, b_ms, span(d["kernel"]),
+                  span(d["library"]) if d["library"] is not None else "none",
+                  d["kernels"], turn_gaps(d, b_ms), card))
     lap("phase 23")
 
     # phase 24: whole solves
@@ -2922,6 +3247,13 @@ def run_compact_phases(device, card):
                                        iter_max=ITER_MAX), kw, b, obj512)
     del b
     torch.cuda.empty_cache()
+    print("phase 24 512^3 \"apply\" objectives (this run / PERF.md): %s"
+          % ", ".join("%s %.3f / %.3f" % (k, runs[k][0], v)
+                      for k, v in APPLY_OBJECTIVES.items()))
+    require("%.3f" % runs["apply_exact"][0]
+            == "%.3f" % APPLY_OBJECTIVES["apply_exact"],
+            "phase 24: the exact 512^3 objective %.6f is not the recorded "
+            "%.3f" % (runs["apply_exact"][0], APPLY_OBJECTIVES["apply_exact"]))
     print("phase 24 solves 50x10 (objective, ms a solve): %s; 256^3 rel to "
           "exact %s; kernel vs plain (objective/voxel at 2 outer, RMS share "
           "of the gap to exact at 1 x 2) %s; launches %s [%s]" % (
@@ -2999,6 +3331,10 @@ def run_compact_phases(device, card):
                     "launches": int(launches[path].get(unit, 0)),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t[2]})
+        if name in dev_t:
+            d = dev_t[name]
+            out[-1].update(device_ms=mean_ms(d["kernel"]),
+                           library_device_ms=mean_ms(d["library"]))
         require(out[-1]["launches"] > 0, "phase 24: %s launched no time on "
                 "its main path (%s)" % (name, path))
     return out
@@ -4762,12 +5098,19 @@ SOURCES = {
 }
 
 
+#: units whose kernel lives in another source than their group's
+KERNEL_SOURCE = {"cg_direction": "nsol_tpu_torch/csrc/stream.cuh",
+                 "tik_clip": "nsol_tpu_torch/csrc/stream.cuh"}
+
+
 def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1,
                    ext=None, reads=None):
     """The ``kernels`` records of one group's units: launches on its main
     path, max |Δ| against the plain version, kernel / plain / library ms
-    per call at ``n`` voxels (× ``batch`` images), and the bound there
-    (``taps``: the chain's stencil lengths, or a dict of them by unit;
+    per call at ``n`` voxels (× ``batch`` images), the kernel's and the
+    library call's device ms where the profiler measured them (the times'
+    fourth and fifth entries), and the bound there (``taps``: the chain's
+    stencil lengths, or a dict of them by unit;
     ``ext``: a window unit's halo'd/output plane ratio, ``reads``: the
     volumes it reads, by unit; see :func:`unit_bound`)."""
     source, replaces = SOURCES[group]
@@ -4778,11 +5121,14 @@ def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1,
                                 else taps, nd, batch,
                                 (ext or {}).get(name, 1.0),
                                 (reads or {}).get(name))
-        out.append({"name": name, "route": "cuda", "source": source,
+        out.append({"name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE.get(name, source),
                     "replaces": tpu, "launches": int(launches[name]),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": t[2] if len(t) > 2 else None})
+        if len(t) > 3:
+            out[-1].update(device_ms=t[3], library_device_ms=t[4])
     return out
 
 

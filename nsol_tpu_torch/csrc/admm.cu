@@ -101,8 +101,6 @@ enum Unit {
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
 
-__device__ __forceinline__ float clip0(float u) { return u < 0.f ? 0.f : u; }
-
 // z-pass epilogue of the normal operator: q = conv_z + rho * B^T B v (v read
 // through V, which may round it), then q stored as O, the CG residual
 // rhs - q (q rounded to O first, as the reference's apply stores it) with
@@ -436,7 +434,8 @@ __global__ void sweep_reduce_kernel(const double* __restrict__ partials, int npa
   if (threadIdx.x != 0) return;
   const double g = dots[0], pq = dots[1], rq = dots[2], qq = dots[3];
   const double a = pq > 0.0 ? g / pq : 0.0;
-  const double gn = fmax(g - 2.0 * a * rq + a * a * qq, 0.0);
+  const double t = g - 2.0 * a * rq + a * a * qq;
+  const double gn = t < 0.0 ? 0.0 : t;  // a NaN kept, as jnp.maximum keeps it
   scal[kGamma] = g;
   scal[kPQ] = pq;
   scal[kRQ] = rq;

@@ -1,5 +1,5 @@
-// Shared by the kernel sources of nsol_tpu_torch/csrc: launch shape and the
-// deterministic block reduction.
+// Shared by the kernel sources of nsol_tpu_torch/csrc: launch shape, the
+// deterministic block reduction and the NaN-keeping max(u, 0).
 
 #pragma once
 
@@ -10,6 +10,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
 constexpr int kReduceThreads = 1024;
+
+// max(u, 0) as jnp.maximum(u, 0.0) takes it: a NaN stays NaN (fmaxf would
+// return 0).
+__device__ __forceinline__ float clip0(float u) { return u < 0.f ? 0.f : u; }
 
 // Sum of one double per thread over the block; the result is valid in
 // thread 0. The order is fixed by the launch shape. Every thread of the

@@ -164,9 +164,11 @@ __global__ void pd_primal_kernel(T* __restrict__ x, T* __restrict__ xm,
     const float z = __fsub_rn(xo, __fmul_rn(tau, div));
     float xn;
     if (ell1) {
+      // max(|dz| - ft, 0) sign(dz) as fused.py:1151 forms it: a NaN dz (a
+      // NaN neighbour through p) gives NaN, as jnp.maximum and jnp.sign do
       const float dz = __fsub_rn(z, bv);
-      const float m = fmaxf(__fsub_rn(fabsf(dz), ft), 0.f);
-      xn = __fadd_rn(bv, dz > 0.f ? m : (dz < 0.f ? -m : 0.f));
+      const float m = clip0(__fsub_rn(fabsf(dz), ft));
+      xn = __fadd_rn(bv, dz > 0.f ? m : (dz < 0.f ? -m : __fmul_rn(m, dz)));
     } else {
       xn = __fdiv_rn(__fadd_rn(z, __fmul_rn(ft, bv)), one_ft);
     }

@@ -25,7 +25,8 @@
 //   weighted_apply  p' = r + beta p (p' = r on the first trip), pf = free p',
 //                   s = wts A pf, q = free (A s + rho B^T B pf) + (p' - pf),
 //                   partial sums of p'.q; second stage a = gamma / pq.
-//   irls_step       x = max(x + xk, 0).
+//   irls_step       x = max(x + xk, 0), a NaN kept as jnp.maximum keeps it
+//                   (fused.py:622; common.cuh clip0).
 // and two per-shard units of the sharded path, the prepadded=True forms of
 // the two TPU kernels above (robust.py:184,240-257 and :286-401), on a
 // z-window whose halo planes the ring halo exchange has attached:
@@ -193,7 +194,7 @@ struct WindowOutEpi {
 
 __global__ void irls_step_kernel(float* __restrict__ x, const float* __restrict__ xk,
                                  long long n) {
-  GRID_STRIDE(i, n) x[i] = fmaxf(__fadd_rn(x[i], xk[i]), 0.f);
+  GRID_STRIDE(i, n) x[i] = clip0(__fadd_rn(x[i], xk[i]));
 }
 
 // ---------------------------------------------------------------- units --

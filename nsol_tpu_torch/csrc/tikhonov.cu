@@ -11,9 +11,13 @@
 // parameter of their epilogues (the Laplacian for TK1, the identity for
 // TK0; see stencil.cuh reg_normal). This file adds one kernel unit:
 //
-//   tik_clip  out = max(in, 0): the box projection of x0 on entry
-//             (fused.py:812, which the ADMM kernels do not do) and of the
-//             CG solution on exit (fused.py:877).
+//   tik_clip  out = max(in, 0), a NaN kept as jnp.maximum keeps it: the box
+//             projection of x0 on entry (fused.py:812, which the ADMM
+//             kernels do not do) and of the CG solution on exit
+//             (fused.py:877). Its kernel is stream.cuh's stream_clip: bound
+//             by bytes (it moves two volumes), it moves them in 16-byte
+//             accesses, one chunk a thread (see the note there), legal in
+//             place.
 //
 // nsol_tikhonov_solve enqueues every configuration's solve back to back on
 // the caller's stream, with alpha and C passed in per configuration and
@@ -33,21 +37,12 @@
 
 #include "losses.cuh"
 #include "stencil.cuh"
+#include "stream.cuh"
 
 namespace {
 
 // Kernel units of this file, the indices of its launch counts.
 enum Unit { kTikClip = 0 };
-
-// in place when out == in (the exit clip), so no __restrict__
-__global__ void clip_kernel(float* out, const float* in, long long n) {
-  GRID_STRIDE(i, n) out[i] = fmaxf(in[i], 0.f);
-}
-
-cudaError_t tik_clip(float* out, const float* in, long long n, cudaStream_t s) {
-  clip_kernel<<<grid_for(n), kThreads, 0, s>>>(out, in, n);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -78,7 +73,7 @@ int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk
                     int cg_iters, int Z, int Y, int X, void* stream, long long* counts);
 
 int nsol_tik_clip(float* out, const float* in, long long n, void* stream, long long* counts) {
-  cudaError_t e = tik_clip(out, in, n, (cudaStream_t)stream);
+  cudaError_t e = stream_clip(out, in, n, (cudaStream_t)stream);
   counts[kTikClip] += 1;
   return (int)e;
 }
@@ -119,7 +114,7 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
     const float alpha = alphas[k];
     // a fresh CG state per configuration: nothing of the last one leaks
     CALL((int)cudaMemsetAsync(scal, 0, 4 * sizeof(double), s));
-    CALL((int)tik_clip(x, x0, n, s));
+    CALL((int)stream_clip(x, x0, n, s));
     counts[kTikClip] += 1;
     if (loss != kLinear) {
       for (int sweep = 0; sweep < iter_max; ++sweep)
@@ -142,7 +137,7 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
       p_prev = p_cur;
       p_cur = tmp;
     }
-    CALL((int)tik_clip(x, x, n, s));
+    CALL((int)stream_clip(x, x, n, s));
     counts[kTikClip] += 1;
   }
 #undef CALL

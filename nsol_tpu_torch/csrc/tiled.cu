@@ -24,7 +24,9 @@
 //                      extended by the blur halo in z, y and x, then
 //                      q = free (A s + rho D^T D pf) + (p' - pf) on the centre,
 //                      sum p'.q. No volume holds A pf.
-// plus cg_direction (p = r + beta p, the "apply" mode's CG direction).
+// plus cg_direction (p = r + beta p, the "apply" mode's CG direction),
+// whose kernel is stream.cuh's stream_direction: bound by bytes, it moves
+// them in 16-byte accesses (see the note there).
 //
 // Storage (blocked.py:1293's compact_dirs and state_dtype, "apply" mode):
 // normal_apply_zy has bfloat16 instances (v and q in bf16, its dot taking
@@ -33,9 +35,10 @@
 // cp.async: it is loaded, widened and stored into the float window at
 // once, without the copy's overlap. cg_direction has typed instances and,
 // under bf16 state, a deferred form that forms r' = r - a q again from
-// the unrounded values. weighted_apply_zy takes robust.cu's storage modes
-// (stencil.cuh's RobustStorage): p and p' in bf16, the weights read as
-// bf16 and the core rounded under kRobustIo (robust.py:564's io_dtype).
+// the unrounded values (stream.cuh). weighted_apply_zy takes robust.cu's
+// storage modes (stencil.cuh's RobustStorage): p and p' in bf16, the
+// weights read as bf16 and the core rounded under kRobustIo
+// (robust.py:564's io_dtype).
 //
 // Design. A thread block owns an output tile of kTileY rows x kTileX columns
 // over up to kTileZ planes and marches through z. For each input plane it
@@ -71,6 +74,7 @@
 
 #include "losses.cuh"
 #include "stencil.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -841,41 +845,6 @@ cudaError_t weighted_apply_zy(const float* r, const void* p, void* p_new, float*
   return cudaGetLastError();
 }
 
-// p = r + beta p stored as P. With q (the "apply" CG under bfloat16
-// state, whose cg_update left r alone): r' = r - a q is formed again, as
-// cg_update formed it, stored as R, and p = r' + beta p takes the
-// unrounded r' (blocked.py:1535-1541).
-template <class R, class P, class Q>
-__global__ void cg_direction_kernel(P* __restrict__ p, R* __restrict__ r,
-                                    const Q* __restrict__ q, const double* __restrict__ scal,
-                                    long long n) {
-  const float beta = (float)scal[kBeta];
-  const float a = (float)scal[kA];
-  GRID_STRIDE(i, n) {
-    float ri = to_float(r[i]);
-    if (q != nullptr) {
-      ri = axpy_as<R>(-a, to_float(q[i]), ri);
-      r[i] = store_as<R>(ri);
-    }
-    p[i] = store_as<P>(axpy_as<P>(beta, to_float(p[i]), ri));
-  }
-}
-
-template <class R, class P, class Q>
-cudaError_t cg_direction_t(P* p, R* r, const Q* q, const double* scal, long long n,
-                           cudaStream_t s) {
-  cg_direction_kernel<R, P, Q><<<grid_for(n), kThreads, 0, s>>>(p, r, q, scal, n);
-  return cudaGetLastError();
-}
-
-cudaError_t cg_direction(void* p, void* r, const void* q, const double* scal, long long n,
-                         int storage, cudaStream_t s) {
-  return with_storage(storage, [&](auto st) {
-    using S = decltype(st);
-    return cg_direction_t(static_cast<typename S::P*>(p), static_cast<typename S::R*>(r),
-                          static_cast<const typename S::Q*>(q), scal, n, s);
-  });
-}
 
 }  // namespace
 
@@ -966,7 +935,7 @@ int nsol_weighted_apply_zy(const float* r, const void* p, void* p_new, float* q,
 // `storage` says.
 int nsol_cg_direction(void* p, void* r, const void* q, const double* scal, long long n,
                       int storage, void* stream, long long* counts) {
-  const cudaError_t e = cg_direction(p, r, q, scal, n, storage, (cudaStream_t)stream);
+  const cudaError_t e = stream_direction(p, r, q, scal, n, storage, (cudaStream_t)stream);
   counts[kCgDirection] += 1;
   return (int)e;
 }
@@ -1018,7 +987,7 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
         CALL(nsol_cg_update(x, r, p0, q, partials, scal, n, storage, !state, stream,
                             admm_counts));
         if (k + 1 < iter_max)
-          UNIT(kCgDirection, cg_direction(p0, r, state ? q : nullptr, scal, n, storage, s));
+          UNIT(kCgDirection, stream_direction(p0, r, state ? q : nullptr, scal, n, storage, s));
       }
     } else {
       UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, nullptr, 0, partials, scal, tn, rho, 0, sp,

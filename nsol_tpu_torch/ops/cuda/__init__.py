@@ -4,4 +4,5 @@
 the whole ADMM solve; the primal-dual units and the whole denoising
 solve), ``robust`` (the IRLS units and solve), ``record`` (the ADMM
 study's in-solve L-curve records) and ``tikhonov`` (the entry/exit clip and
-the whole TK0/TK1 solve over a batch of configurations)."""
+the whole TK0/TK1 solve over a batch of configurations); ``stream_cases``
+holds the stream kernels' edge cases that the card checks run."""

@@ -173,7 +173,9 @@ def new_counts(n):
     pd_dual, pd_primal, pd_record; ``robust.cu``: blur_apply, irls_head,
     weighted_apply, irls_step, cg_update, blur_apply_prepadded,
     weighted_apply_prepadded; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
-    cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction)."""
+    cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The
+    kernels of ``stream.cuh`` count as their callers' units (tik_clip,
+    cg_direction)."""
     return (ctypes.c_longlong * n)()
 
 

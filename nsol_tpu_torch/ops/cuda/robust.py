@@ -18,7 +18,8 @@ PyTorch version beside it and a launch counter on its wrapper:
   ``a = γ/pq`` (guarded); replaces
   ``robust.py::make_blocked_weighted_normal_operator`` (:264) and the
   in-kernel ``apply_W`` of ``fused.py`` (:593-597).
-* :func:`irls_step` — ``x = max(x + xk, 0)`` (``fused.py:622``).
+* :func:`irls_step` — ``x = max(x + xk, 0)`` (``fused.py:622``), a NaN
+  kept as ``jnp.maximum`` keeps it.
 
 and the two per-shard units of the sharded path
 (:mod:`nsol_tpu_torch.parallel`), the ``prepadded=True`` forms of the two
@@ -330,7 +331,7 @@ def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
 
 
 def irls_step(x, xk):
-    """In place: ``x = max(x + xk, 0)``."""
+    """In place: ``x = max(x + xk, 0)``; a NaN stays NaN."""
     if x.device.type == "cpu":
         return irls_step_plain(x, xk)
     name = "irls_step"

@@ -12,9 +12,11 @@ passed in and a fresh device-side CG state, built from the units of
 the Laplacian ``DᵀD``; ``"TK0"``: the identity). It adds one kernel unit,
 with its plain PyTorch version beside it and a launch counter:
 
-* :func:`tik_clip` — ``out = max(in, 0)``: the box projection of ``x0`` on
-  entry (``fused.py:812``; the ADMM kernels do not clip there) and of the
-  CG solution on exit (``fused.py:877``).
+* :func:`tik_clip` — ``out = max(in, 0)``, a NaN kept as ``jnp.maximum``
+  keeps it: the box projection of ``x0`` on entry (``fused.py:812``; the
+  ADMM kernels do not clip there) and of the CG solution on exit
+  (``fused.py:877``). Its kernel is ``csrc/stream.cuh``'s ``stream_clip``
+  (16-byte accesses, one 4-voxel chunk a thread).
 
 Semantics are ``tikhonov_solve``'s with ``b_reg = 0`` and bounds
 ``(0, ∞)``: linear loss → ``iter_max`` warm-started CG iterations on
@@ -55,7 +57,8 @@ tik_clip_plain.calls = 0
 
 
 def tik_clip(out, x):
-    """In place: ``out = max(x, 0)`` (``out`` may be ``x``)."""
+    """In place: ``out = max(x, 0)`` (``out`` may be ``x``); a NaN stays
+    NaN. Contiguous float32 CUDA tensors of one shape, of any alignment."""
     if out.device.type == "cpu":
         return tik_clip_plain(out, x)
     name = "tik_clip"

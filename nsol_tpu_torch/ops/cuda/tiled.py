@@ -29,8 +29,10 @@ PyTorch version beside it and a launch counter on its wrapper:
   and the core rounded to bfloat16).
 
 and :func:`cg_direction` (``p = r + β·p``), the "apply" CG's direction
-update, which the JAX package leaves to XLA. ``DᵀD`` is the zero-boundary
-Laplacian (the units have no TK0 instance: the scale path is TV only).
+update, which the JAX package leaves to XLA; its kernel is
+``csrc/stream.cuh``'s ``stream_direction`` (16-byte accesses, one chunk of
+voxels a thread). ``DᵀD`` is the zero-boundary Laplacian (the units have
+no TK0 instance: the scale path is TV only).
 ``normal_apply_zy`` and ``cg_direction`` also store their vectors in
 bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
 ``compact_dirs`` or ``state_dtype``), their sums in float32.
@@ -343,7 +345,7 @@ def cg_direction(p, r, scal, q=None):
     CG under bfloat16 state, whose :func:`~.blocked.cg_update` left ``r``
     alone): ``r' = r − a·q`` first (``a = scal[A]``), stored in ``r``, and
     ``p = r' + β·p`` from the unrounded ``r'``. Elementwise: the kernel
-    takes tensors of any shape."""
+    takes contiguous tensors of any shape and alignment."""
     if p.device.type == "cpu":
         return cg_direction_plain(p, r, scal, q)
     name = "cg_direction"

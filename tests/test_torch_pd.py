@@ -244,6 +244,42 @@ def test_fused_pd_plain_matches_pallas(rtype, alg):
                                     "pd_record_plain": 0}
 
 
+def _nan_b(shape):
+    """b with a NaN strip (a NaN background's edge, as NIfTI volumes have)
+    at the start of its leading axis."""
+    b = np.random.RandomState(8).rand(*shape).astype(np.float32)
+    b[:2] = np.nan
+    return b
+
+
+def _same_nan_close(got, want, atol, rtol):
+    """NaN exactly where ``want`` has NaN (some, not all), the finite
+    entries within ``atol``/``rtol``."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    assert 0 < nan.sum() < nan.size
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("rtype,alg", [("TVL1", "ALG2"), ("HuberL1", "ALG2"),
+                                       ("TVL1", "ALG3"), ("TVL2", "ALG2")])
+def test_fused_pd_plain_keeps_nan_as_reference(rtype, alg):
+    """A NaN strip in b spreads through p and the divergence, one stencil
+    reach an iteration, as in the JAX package's primal_dual_solve, whose
+    l1 prox (jnp.maximum, jnp.sign, as fused.py:1151) keeps a NaN; the
+    finite voxels agree in float32. (The Pallas kernel forms its
+    differences by matmuls, which spread a NaN over the whole axis in one
+    iteration: not compared.)"""
+    shape = (24, 16)
+    b = _nan_b(shape)
+    want, _ = _jax_pd(rtype, alg, b, 0.5, 8.0, 6)
+    got = F.make_fused_pd_denoise_solver(shape, rtype, alg_type=alg,
+                                         iterations=6)(_t(b), _t(b), 0.5,
+                                                       8.0)
+    _same_nan_close(_np(got), np.asarray(want), atol=1e-6, rtol=1e-5)
+
+
 def test_fused_pd_plain_matches_pallas_3d():
     """tests/test_pallas.py:147 — (12, 16, 16), 8 iterations."""
     shape = (12, 16, 16)
@@ -565,3 +601,27 @@ def test_cuda_pd_solve_matches_plain_on_card(cuda_device, shape):
     for k in ("Reg", "Data"):  # row 0 of Data is 0 (x0 = b)
         assert float((r_k[k] - r_p[k]).abs().max()
                      / r_p[k].abs().max()) <= 1e-5
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, whose phase 7 holds the NaN case."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 33), (12, 16, 16)])
+@pytest.mark.parametrize("rtype", F.PD_TYPES)
+def test_cuda_pd_solve_keeps_nan_on_card(cuda_device, shape, rtype):
+    """A NaN strip in b: the kernels' solve has NaN where its plain version
+    has NaN, in x and in the records, and agrees elsewhere within 1e-5 ·
+    max |ref| (chip_smoke.py::pd_nan_case). An l1 prox that zeroes a NaN
+    step keeps the NaN in its strip where the reference spreads it."""
+    assert _chip_smoke().pd_nan_case(F, shape, rtype, cuda_device) > 0

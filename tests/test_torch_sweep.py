@@ -163,6 +163,32 @@ def test_blocked_sweep_bf16_state_matches_pallas_and_step():
         assert abs(o - _objective(ref, b)) <= 1e-3 * _objective(ref, b)
 
 
+#: (g, pq, rq, qq): finite; NaN dots beside a finite g (a NaN in p); a NaN
+#: g; γ' below 0; an infinite qq
+SWEEP_DOTS = {"finite": (2.0, 0.5, 0.3, 0.4),
+              "nan_dots": (2.0, np.nan, np.nan, np.nan),
+              "nan_g": (np.nan, 0.5, 0.3, 0.4),
+              "negative": (1.0, 1.0, 1.0, 0.0),
+              "inf_qq": (1.0, 1.0, 0.0, np.inf)}
+
+
+@pytest.mark.parametrize("case", list(SWEEP_DOTS))
+def test_sweep_scalars_follow_the_reference(case):
+    """The plain recurrence against blocked.py:1505-1509 in jnp: NaN where
+    jnp.maximum and the guards give NaN (β under NaN dots), equal values
+    elsewhere."""
+    jnp = pytest.importorskip("jax.numpy")
+    g, pq, rq, qq = (jnp.asarray(v) for v in SWEEP_DOTS[case])
+    a = jnp.where(pq > 0, g / jnp.where(pq > 0, pq, 1.0), 0.0)
+    g_new = jnp.maximum(g - 2.0 * a * rq + a * a * qq, 0.0)
+    beta = jnp.where(g > 0, g_new / jnp.where(g > 0, g, 1.0), 0.0)
+    scal = B.new_scalars("cpu")
+    B._sweep_scalars(scal, *(torch.tensor(v, dtype=torch.float64)
+                             for v in SWEEP_DOTS[case]))
+    for k, want in ((B.A, a), (B.BETA, beta), (B.GAMMA, g)):
+        np.testing.assert_allclose(float(scal[k]), float(want), rtol=1e-6)
+
+
 def test_sweep_guards_follow_the_reference():
     """compact_dirs excludes the sweep; mode="auto" never picks it; an
     iteration with a = β = 0 on zero p, q equals the first-trip form."""
@@ -235,3 +261,13 @@ def test_cuda_sweep_solve_matches_plain_on_card(cuda_device, state):
         functools.partial(B.blocked_admm_solve, b.shape, ISO, iter_max=5),
         kw, b, lambda x: _objective(_np(x), _np(b)), outer=3)
     assert cs.compact_gaps_ok(gaps, kw), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sweep_keeps_nan_on_card(cuda_device, dtype):
+    """A NaN in p: the kernel's recurrence gives β = NaN, as its plain
+    version and jnp.maximum do (fmax would clip the NaN γ' to 0), and NaN
+    at the same entries of every output (chip_smoke.py::sweep_nan_case)."""
+    st = B.Stencils.from_cov(ISO, 3, None, cuda_device)
+    _chip_smoke().sweep_nan_case(B, st, (13, 45, 37), cuda_device, dtype)
