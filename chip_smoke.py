@@ -36,7 +36,11 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   the 64³ NIfTI phantom (TK1L2) and on Lena (TVL2 by ADMM);
 * phases 20-22, the 512³ scale path through the one-pass tiled units of
   ``csrc/tiled.cu``: the units against their plain versions on tile-edge
-  shapes and their 512³ times beside the three-pass units; ``cg_direction``
+  shapes, every form of the march units (``normal_apply_zy`` in float32
+  and bfloat16 io, ``cg_step_zy``, ``blur_apply_zy``) bit for bit against
+  its three-pass unit there and at 512³, the march's ptxas report, and
+  the units' 512³ device and wrapper-call times beside the three-pass
+  units; ``cg_direction``
   (``csrc/stream.cuh``) at ragged lengths, misaligned and in place, and its
   512³ device time beside ``torch.add``'s, in turns;
   ``blocked_admm_solve`` 50 × 10 in its "apply" and "step2d" modes within
@@ -59,11 +63,15 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   library solves ``nsol_tpu_torch.policy`` names.
 
 * phases 26-28, the sharded path (group ``sharded``,
-  ``nsol_tpu_torch.parallel``): the three prepadded window units of
-  ``csrc/admm.cu`` / ``csrc/robust.cu`` against their plain versions on
-  the tile-edge shapes, 4 slabs of one 256³ volume assembled against the
-  whole-volume units (the global boundary rows), their 512³ times beside
-  the whole-volume units; on a real NCCL process group of world size 1,
+  ``nsol_tpu_torch.parallel``): the three prepadded window units
+  (``normal_apply_prepadded`` as ``csrc/tiled.cu``'s march over its
+  window, the robust ones of ``csrc/robust.cu``) against their plain
+  versions on the tile-edge shapes, the tiled window bit for bit against
+  its three-pass chain at three ``row0``, 4 slabs of one 256³ volume
+  assembled against the whole-volume units (the global boundary rows),
+  their 512³ times beside the whole-volume units (the normal window's
+  device time in turns with ``normal_apply_zy``); on a real NCCL process
+  group of world size 1,
   ``sharded_tv_admm_solve`` at 512³ (linear 50 × 10 within 0.2 % of
   165421.8 and 1e-4 of ``blocked_admm_solve``; huber 5 × 5 × 8 within 1e-4
   of ``blocked_robust_admm_solve``) and ``sharded_tv_denoise_solve`` on the
@@ -1471,6 +1479,21 @@ def device_ms(fn, reps, warmup=3):
     return total / 1e3, sum(len(d) for d in runs.values()) / reps
 
 
+def device_ms_of(fn, reps, tries=3):
+    """:func:`device_ms`'s ms a call, traced again (up to ``tries`` traces)
+    where a trace kept no kernel record; None where none did."""
+    for _ in range(tries):
+        ms = device_ms(fn, reps)[0]
+        if ms is not None:
+            return ms
+    return None
+
+
+def ms_text(t):
+    """``t`` ms as text, or 'not measured'."""
+    return "not measured" if t is None else "%.4f" % t
+
+
 def device_turns(kernel, library, reps):
     """Device ms per call (:func:`device_ms`) of ``kernel`` and of
     ``library`` (or None), taken in turns in one run — library, kernel,
@@ -2109,6 +2132,8 @@ BIG = (512, 512, 512)
 BIG_ANCHOR = 165421.8
 BIG_ROBUST_ITERS = (5, 5, 8)
 BIG_N = int(np.prod(BIG))
+#: the seeds of phase 20's 512³ bit checks of the march
+BIG_BIT_SEEDS = (204, 304, 404)
 #: the 512³ "apply" objectives recorded in PERF.md (earlier chip runs); the
 #: exact one is held to its printed digits (the kernels' arithmetic is
 #: fixed), the compact ones are printed beside theirs
@@ -2324,6 +2349,117 @@ def tiled_fit_checks(T, B, device):
     return rel
 
 
+def tiled_three_pass_pairs(T, R, B, st, shape, device, seed):
+    """Each form of the march units on the same random inputs as its
+    three-pass unit (``csrc/stencil.cuh``'s per-axis passes):
+    ``{form: (tiled outputs, three-pass outputs)}`` — ``normal_apply_zy``
+    plain, dot and residual in float32 and bfloat16 io, ``cg_step_zy`` on
+    the first trip and after (p', q), ``blur_apply_zy``'s ``A y``, with
+    ``u``, its gradient (free, rk) and its head (wts, y) forms. The CG
+    scalars are left out: their sums run in another order."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    v, r, p, x, rhs, b = (torch.rand(shape, generator=g, device=device)
+                          - 0.3 for _ in range(6))
+    vb, bf = v.to(torch.bfloat16), torch.bfloat16
+    n, bl, h2 = st.normal, st.blur, st.inv_h2
+
+    def s():
+        return torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                            device=device)
+
+    def cat(t):
+        return torch.cat([u.float() for u in t])
+
+    return {
+        "normal": (T.normal_apply_zy(v, n, h2, RHO),
+                   B.normal_apply(v, n, h2, RHO)),
+        "normal dot": (T.normal_apply_zy(v, n, h2, RHO, scal=s()),
+                       B.normal_apply(v, n, h2, RHO)),
+        "normal residual": (
+            T.normal_apply_zy(v, n, h2, RHO, rhs=rhs, scal=s()),
+            B.normal_apply(v, n, h2, RHO, rhs=rhs, scal=s())),
+        "normal[bf16]": (T.normal_apply_zy(vb, n, h2, RHO, io_dtype=bf),
+                         B.normal_apply(vb, n, h2, RHO, io_dtype=bf)),
+        "normal[bf16] dot": (
+            T.normal_apply_zy(vb, n, h2, RHO, scal=s(), io_dtype=bf),
+            B.normal_apply(vb, n, h2, RHO, io_dtype=bf)),
+        "normal[bf16] residual": (
+            T.normal_apply_zy(v, n, h2, RHO, rhs=rhs, scal=s(), io_dtype=bf),
+            B.normal_apply(v, n, h2, RHO, rhs=rhs, scal=s(), io_dtype=bf)),
+        "cg_step": (cat(T.cg_step_zy(r, p, s(), n, h2, RHO)),
+                    cat(B.cg_step(r, p, s(), n, h2, RHO))),
+        "cg_step first": (cat(T.cg_step_zy(r, p, s(), n, h2, RHO, True)),
+                          cat(B.cg_step(r, p, s(), n, h2, RHO, True))),
+        "blur A y": (T.blur_apply_zy(v, bl, h2), R.blur_apply(v, bl, h2)),
+        "blur with u": (T.blur_apply_zy(v, bl, h2, x, RHO),
+                        R.blur_apply(v, bl, h2, x, RHO)),
+        "blur gradient": (cat(T.blur_apply_zy(v, bl, h2, x, RHO, scal=s())),
+                          cat(R.blur_apply(v, bl, h2, x, RHO, scal=s()))),
+        "blur head": (cat(T.blur_apply_zy(x, bl, h2, head=(b, "huber", 0.3))),
+                      cat(R.irls_head(x, b, bl, "huber", 0.3))),
+    }
+
+
+def window_route_pairs(B, st, shape, device, seed):
+    """``normal_apply_prepadded``'s tiled march against its three-pass
+    chain on one window of ``shape[0]`` planes per ``row0`` (the first, a
+    middle and the last of a volume of 3 · ``shape[0]`` rows):
+    ``{"row0 k": (tiled, chain)}``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = B.prepadded_halo(st.normal)
+    ext = torch.rand((shape[0] + 2 * h,) + tuple(shape[1:]), generator=g,
+                     device=device)
+    out = {}
+    for row0 in (0, shape[0], 2 * shape[0]):
+        args = (ext, st.normal, st.inv_h2, RHO, row0, 3 * shape[0])
+        out["row0 %d" % row0] = (
+            B._normal_apply_prepadded(*args, chain=False),
+            B._normal_apply_prepadded(*args, chain=True))
+    return out
+
+
+def require_bits(pairs, what):
+    """Fail the phase unless every pair of ``pairs`` holds the same bits;
+    return the forms checked, as text."""
+    import torch
+
+    torch.cuda.synchronize()
+    differ = {k: float((a.float() - b.float()).abs().max())
+              for k, (a, b) in pairs.items()
+              if not torch.equal(a.float(), b.float())}
+    require(not differ, "%s: not bit for bit: %s" % (what, differ))
+    return ", ".join(pairs)
+
+
+def march_ptxas():
+    """The ptxas report of the march (``csrc/tiled.cu``'s
+    ``stencil_zy_kernel``), one entry an instance: ``{its template
+    arguments: (registers, spill bytes, resident warps an SM by its
+    registers)}`` (128-thread blocks; 65536 registers an SM, allocated 256
+    a warp). Empty where the library came from the cache."""
+    from nsol_tpu_torch.ops.cuda import build
+
+    out, entry, spills = {}, None, 0
+    for ln in build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            entry = entry if "stencil_zy_kernel" in entry else None
+        elif entry and "spill stores" in ln:  # reported before "Used"
+            spills = int(ln.split("bytes spill stores")[0].split()[-1])
+        elif entry and "registers" in ln:
+            regs = int(ln.split("Used")[1].split()[0])
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(16, 65536 // (per_warp * 4))
+            out[entry.split("stencil_zy_kernel", 1)[1].split("Ev")[0]] = (
+                regs, spills, 4 * blocks)
+            entry = None
+    return out
+
+
 def scale_problem(device, robust, shape=BIG):
     """The 512³ input on the card (or one of ``shape``): ``A·(rand >
     0.7)``, plus the salt-and-pepper outliers ``0.5·(rand < 0.01)·randn``
@@ -2384,6 +2520,25 @@ def run_scale_phases(device, card):
           "sigma 2 (blur %s taps) vs plain %.2e; sigma 2.1 refused before "
           "launch" % (B.Stencils.from_cov(np.diag([4.0] * 3)).blur.lengths,
                       fit_rel))
+    # ... each march unit, every form, bit for bit against its three-pass
+    # unit: the tile-edge shapes (the runtime-length instance where the
+    # taps differ from 13 / 7 a side) and 512³ (a multi-wave grid) on
+    # BIG_BIT_SEEDS
+    for i, (label, cov, sp, shape) in enumerate(EDGE_CASES + (
+            ("512^3", np.diag([SIGMA ** 2] * 3), None, BIG),)):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        for seed in BIG_BIT_SEEDS if shape == BIG else (200 + i,):
+            forms = require_bits(tiled_three_pass_pairs(T, R, B, st, shape,
+                                                        device, seed),
+                                 "phase 20 %s seed %d" % (label, seed))
+            torch.cuda.empty_cache()
+    print("phase 20 march units equal their three-pass units bit for bit "
+          "on %s, 512^3 (seeds %s): %s" % (
+              ", ".join(c[0] for c in EDGE_CASES),
+              ", ".join(map(str, BIG_BIT_SEEDS)), forms))
+    print("phase 20 march ptxas (template arguments: registers, spill "
+          "bytes, resident warps an SM of 64 by registers): %s"
+          % (march_ptxas() or "cached"))
     # ... and at 512³: times beside the plain version and the three-pass unit
     st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
     checks, calls = tiled_calls(T, R, B, st, BIG, device,
@@ -2402,15 +2557,24 @@ def run_scale_phases(device, card):
                          for f, reps in ((kf, 5), (pf, 2), (tf, 5), (lf, 5)))
         if k == "cg_direction":  # device times beside torch.add's
             dev_t[k] = device_turns(kf, lf, 50)
+        else:  # the march's device time beside the three-pass unit's
+            dev_t[k] = {"kernel": [device_ms_of(kf, 10)],
+                        "library": [device_ms_of(tf, 5)]}
     del calls, checks
     torch.cuda.empty_cache()
-    print("phase 20 512^3 per call (tiled / plain / three-pass / library ms, "
-          "bound ms): %s [%s]" % (", ".join(
+    print("phase 20 512^3 a wrapper call by CUDA events (tiled / plain / "
+          "three-pass / library ms, bound ms): %s [%s]" % (", ".join(
               "%s %.3f/%.1f/%s/%s, %.3f" % (
                   k, t[0], t[1], *("-" if u is None else "%.3f" % u
                                    for u in t[2:]),
                   unit_bound(k, int(np.prod(BIG)), TILED_TAPS[k])[0])
               for k, t in times.items()), card))
+    print("phase 20 512^3 device ms (torch.profiler medians; tiled / "
+          "three-pass, bound ms): %s [%s]" % (", ".join(
+              "%s %s/%s, %.4f" % (
+                  k, ms_text(d["kernel"][0]), ms_text(d["library"][0]),
+                  unit_bound(k, BIG_N, TILED_TAPS[k])[0])
+              for k, d in dev_t.items() if k != "cg_direction"), card))
     dt_ = dev_t["cg_direction"]
     b_ms = unit_bound("cg_direction", BIG_N)[0]
     print("phase 20 cg_direction 512^3 (bound %.4f ms): device ms (torch."
@@ -2610,10 +2774,10 @@ def run_scale_phases(device, card):
         "blur_apply_zy": rob_launches["blur_apply_zy"],
         "weighted_apply_zy": rob_launches["weighted_apply_zy"]}
     return {"launches": path_launches, "err": err,
-            "times": {k: (t[0], t[1], t[3]) + (
-                (mean_ms(dev_t[k]["kernel"]),
-                 mean_ms(dev_t[k]["library"]))
-                if k in dev_t else ()) for k, t in times.items()}}
+            "times": {k: (t[0], t[1], t[3], mean_ms(dev_t[k]["kernel"]),
+                          mean_ms(dev_t[k]["library"])
+                          if k == "cg_direction" else None)
+                      for k, t in times.items()}}
 
 
 def interop_numpy(t):
@@ -3120,6 +3284,8 @@ def run_compact_phases(device, card):
                     None if tf is None else cuda_median_ms(tf, reps))
         if u[0] == "cg_direction":  # device times beside torch.add's
             dev_t[k] = device_turns(kf, lf, 50)
+        if k == "normal_apply_zy[bf16]":  # in turns with its f32 instance
+            zy_turns = [device_ms_of(f, 10) for f in (tf, kf, kf, tf)]
         del kf, pf, lf, tf, pair
         torch.cuda.empty_cache()
     print("phase 23 at each main path's shape: every output within its band "
@@ -3132,6 +3298,13 @@ def run_compact_phases(device, card):
                                  for t in times[k][2:]),
                   compact_bound(k, COMPACT_SHAPES[u[3]])[0])
               for k, u in COMPACT_UNITS.items()), card))
+    print("phase 23 normal_apply_zy 512^3 dot form, device ms (torch."
+          "profiler medians, turns f32, bf16, bf16, f32): %s; bf16 bound "
+          "%.4f ms, f32 bound %.4f ms [%s]" % (
+              "/".join(map(ms_text, zy_turns)),
+              compact_bound("normal_apply_zy[bf16]", BIG)[0],
+              unit_bound("normal_apply_zy", BIG_N, TILED_TAPS[
+                  "normal_apply_zy"])[0], card))
     for k, d in dev_t.items():
         b_ms = compact_bound(k, BIG)[0]
         print("phase 23 %s 512^3 (bound %.4f ms): device ms (torch.profiler, "
@@ -3335,6 +3508,9 @@ def run_compact_phases(device, card):
             d = dev_t[name]
             out[-1].update(device_ms=mean_ms(d["kernel"]),
                            library_device_ms=mean_ms(d["library"]))
+        if name == "normal_apply_zy[bf16]":
+            out[-1].update(device_ms=mean_ms(zy_turns[1:3]),
+                           library_device_ms=None)
         require(out[-1]["launches"] > 0, "phase 24: %s launched no time on "
                 "its main path (%s)" % (name, path))
     return out
@@ -3447,6 +3623,7 @@ def run_sharded_phases(device, card):
     from nsol_tpu_torch.ops.cuda import blocked as B
     from nsol_tpu_torch.ops.cuda import fused as F
     from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tiled as T
     from nsol_tpu_torch.parallel import distributed as dist
     from nsol_tpu_torch.parallel import (make_space_mesh,
                                          sharded_tv_admm_solve,
@@ -3461,9 +3638,12 @@ def run_sharded_phases(device, card):
     # tile-edge shapes as local slabs (row0 on the first, a middle and the
     # last of 3), ...
     rng = np.random.RandomState(26)
-    for label, cov, sp, shape in EDGE_CASES + (
-            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),):
+    for i, (label, cov, sp, shape) in enumerate(EDGE_CASES + (
+            ("image", np.diag([1.0] * 3), None, (1, 40, 33)),)):
         st = B.Stencils.from_cov(cov, 3, sp, device)
+        # normal_apply_prepadded's tiled march equals its three-pass chain
+        require_bits(window_route_pairs(B, st, shape, device, 260 + i),
+                     "phase 26 normal_apply_prepadded %s" % label)
         rels = {}
         for form, name, with_lap in WINDOW_FORMS:
             h = window_halo(B, R, name, st)
@@ -3478,9 +3658,11 @@ def run_sharded_phases(device, card):
         for k, rel in rels.items():
             require(rel <= KERNEL_TOL, "phase 26: %s %s %s rel %.3g > %g"
                     % (k, label, shape, rel, KERNEL_TOL))
-        print("phase 26 window units %s %s: %s" % (
-            label, "x".join(map(str, shape)),
-            ", ".join("%s %.2e" % kv for kv in rels.items())))
+        print("phase 26 window units %s %s: %s; normal_apply_prepadded "
+              "tiled = three-pass chain bit for bit at row0 0, %d, %d" % (
+                  label, "x".join(map(str, shape)),
+                  ", ".join("%s %.2e" % kv for kv in rels.items()),
+                  shape[0], 2 * shape[0]))
     # ... 4 slabs of one 256³ volume assembled against the whole-volume
     # units (the global boundary rows land on the first and last slab) ...
     iso = np.diag([SIGMA ** 2] * 3)
@@ -3537,14 +3719,35 @@ def run_sharded_phases(device, card):
             times[name] = (form_ms[label][0], cuda_median_ms(pf, 2), None,
                            cuda_median_ms(whole_call(B, R, st, name, vc, wc),
                                           5))
+        if name == "normal_apply_prepadded":
+            # device ms of the tiled window in turns with the whole-volume
+            # march (its plain form), and of the three-pass chain
+            def zy():
+                return T.normal_apply_zy(vc, st.normal, st.inv_h2, RHO)
+
+            def chain():
+                return B._normal_apply_prepadded(v, st.normal, st.inv_h2,
+                                                 RHO, 0, BIG[0], chain=True)
+
+            require(B.window_route(st.normal) == "tiled", "phase 26: the "
+                    "sigma = 1 window does not take the tiled march")
+            win_dev = [device_ms_of(f, 10) for f in (zy, kf, kf, zy, chain)]
+        if with_lap:
             del vc, wc
         del v, w, kf, pf
         torch.cuda.empty_cache()
     taps = {"normal_apply_prepadded": st.normal.lengths,
             "blur_apply_prepadded": st.blur.lengths,
             "weighted_apply_prepadded": st.blur.lengths}
-    print("phase 26 512^3 per call (window / plain / whole-volume unit ms, "
-          "bound ms): %s; the blur without its Laplacian term (A y) %.3f "
+    print("phase 26 normal_apply_prepadded 512^3 (%d planes in), device ms "
+          "(torch.profiler medians, turns whole-volume normal_apply_zy, "
+          "window, window, normal_apply_zy): %s; the three-pass chain %s "
+          "[%s]" % (BIG[0] + 2 * B.prepadded_halo(st.normal),
+                    "/".join(map(ms_text, win_dev[:4])), ms_text(win_dev[4]),
+                    card))
+    print("phase 26 512^3 a wrapper call by CUDA events (window / plain / "
+          "whole-volume per-axis unit ms, bound ms): %s; the blur without "
+          "its Laplacian term (A y) %.3f "
           "ms, bound %.4f ms [%s]" % (", ".join(
               "%s %.3f/%.1f/%.3f, %.4f" % (
                   k, t[0], t[1], t[3],
@@ -3599,7 +3802,7 @@ def run_sharded_phases(device, card):
             lambda: sharded_tv_admm_solve(mesh, iso, b, b, ALPHA, RHO,
                                           iterations=5, iter_max=ITER_MAX),
             (("window unit passes", ("conv_x_pass", "conv_y_kernel",
-                                     "conv_z_pass")),
+                                     "conv_z_pass", "stencil_zy_kernel")),
              ("nccl", ("nccl",)), ("halo cat", ("CatArray",)),
              ("dots", ("reduce_kernel",))))
         require(busy > 0, "phase 27: the profiler trace holds no device time")
@@ -3710,7 +3913,10 @@ def run_sharded_phases(device, card):
                                      ("blur_apply_prepadded",
                                       "weighted_apply_prepadded")}),
             "err": err,
-            "times": {k: (t[0], t[1], t[2]) for k, t in times.items()},
+            "times": {k: (t[0], t[1], t[2]) + (
+                (mean_ms(win_dev[1:3]), None)
+                if k == "normal_apply_prepadded" else ())
+                for k, t in times.items()},
             "taps": taps, "ext": ext_ratio, "reads": reads}
 
 
@@ -5100,6 +5306,7 @@ SOURCES = {
 
 #: units whose kernel lives in another source than their group's
 KERNEL_SOURCE = {"cg_direction": "nsol_tpu_torch/csrc/stream.cuh",
+                 "normal_apply_prepadded": "nsol_tpu_torch/csrc/tiled.cu",
                  "tik_clip": "nsol_tpu_torch/csrc/stream.cuh"}
 
 

@@ -36,7 +36,10 @@ reference's quirk), and any route with ``--reference``, whose observer
 records the similarity measures. On CUDA the inner solves' applies run
 the kernel units through the hooks. ``--device cuda`` runs the CUDA
 kernels, ``--device cpu`` their plain versions. A non-separable blur and
-the inner engines still to port raise ``NotImplementedError``.
+the inner engines still to port raise ``NotImplementedError``, as do
+``--trace`` and ``--dir-output-figures`` with ``--verbose``;
+``--dir-output-figures`` without ``--verbose`` writes nothing, as in the
+reference (:292-294).
 """
 
 import numpy as np
@@ -45,7 +48,8 @@ import torch
 from nsol_tpu_torch import policy
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.cli.argparser import LOSSES, InputArgparser
-from nsol_tpu_torch.defaults import ROADMAP_ENGINES, not_ported
+from nsol_tpu_torch.defaults import (ROADMAP_ENGINES, ROADMAP_FIGURES,
+                                     not_ported)
 from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
 from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
@@ -75,7 +79,9 @@ def main(argv=None):
     input_parser.add_minimizer(default="auto")
     input_parser.add_iter_max(default=10)
     input_parser.add_irls_cg_iters(default=8)
+    input_parser.add_dir_output_figures(default=None)
     input_parser.add_verbose(default=0)
+    input_parser.add_trace(default=None)
     input_parser.add_device(default="cuda")
     args = input_parser.parse_args(argv)
     input_parser.print_arguments(args)
@@ -87,6 +93,11 @@ def main(argv=None):
         raise ValueError("tv_solver must be 'PD' or 'ADMM'")
     if args.data_loss not in LOSSES:
         raise ValueError("--data-loss must be one of %s" % ", ".join(LOSSES))
+    if args.trace is not None:
+        raise not_ported("--trace (profiling.py)", ROADMAP_FIGURES)
+    if args.dir_output_figures is not None and args.verbose:
+        raise not_ported("--dir-output-figures with --verbose",
+                         ROADMAP_FIGURES)
 
     alphas = np.atleast_1d(args.alpha)
     if len(alphas) > 1 and args.result is not None:

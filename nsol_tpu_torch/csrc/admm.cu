@@ -44,13 +44,18 @@
 //                 (blocked.py::make_blocked_normal_operator_prepadded, :478):
 //                 v_ext holds the Zl local planes with r halo planes on each
 //                 side (r >= 1, at least the normal taps' half-width, put
-//                 there by the ring halo exchange), q the Zl planes. The x
-//                 and y passes run on all Zl + 2r planes, the z pass reads
-//                 them with no wrap, and the Laplacian takes its z
-//                 neighbours from the halo rows, with the zero-boundary rows
-//                 only at global rows 0 and z_total - 1 (row0 the window's
-//                 first global row). Bytes bound it as normal_apply; the
-//                 window costs 2r / Zl more planes on two of the passes.
+//                 there by the ring halo exchange), q the Zl planes; the
+//                 z taps read the window with no wrap, and the Laplacian
+//                 takes its z neighbours from the halo rows, with the
+//                 zero-boundary rows only at global rows 0 and z_total - 1
+//                 (row0 the window's first global row). Where a block's
+//                 shared memory holds its taps (ops/cuda/tiled.py's rule,
+//                 sigma up to 4) the C entry hands it to tiled.cu's
+//                 one-pass march over the Zl + 2r planes, which reads v_ext
+//                 once and allocates nothing; else it runs the three
+//                 passes here, whose x and y passes cover all Zl + 2r
+//                 planes through two scratch volumes. The two give the
+//                 same bits.
 //   admm_record   the L-curve records of one iterate (fused.py:624-638):
 //                 Reg = sum sqrt(sum_ax (D_ax x / h_ax)^2) and
 //                 Data = 1/2 sum rho_C(r^2), r = A x - b (one blur chain
@@ -523,17 +528,28 @@ int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const floa
   return (int)e;
 }
 
-// v_ext: (Zl + 2 halo, Y, X); out: (Zl, Y, X); t1, t2: Zl + 2 halo planes.
+// tiled.cu's march over a window.
+int nsol_normal_apply_window_zy(const float* v_ext, float* out, const float* taps, int kz, int ky,
+                                int kx, float rho, float ih2x, float ih2y, float ih2z, int halo,
+                                int row0, int z_total, int Zl, int Y, int X, void* stream);
+
+// v_ext: (Zl + 2 halo, Y, X); out: (Zl, Y, X); t1, t2: Zl + 2 halo planes,
+// or both null for the one-pass tiled march (tiled.cu), which the wrapper
+// takes where its shared memory holds the taps.
 int nsol_normal_apply_prepadded(const float* v_ext, float* out, float* t1, float* t2,
                                 const float* taps, int kz, int ky, int kx, float rho, float ih2x,
                                 float ih2y, float ih2z, int halo, int row0, int z_total, int Zl,
                                 int Y, int X, void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = normal_apply_prepadded(v_ext, out, t1, t2, make_taps(taps, kz, ky, kx), rho,
-                                         halo, row0, z_total, sp, Dims{Zl, Y, X},
-                                         (cudaStream_t)stream);
+  const int e =
+      t1 == nullptr
+          ? nsol_normal_apply_window_zy(v_ext, out, taps, kz, ky, kx, rho, ih2x, ih2y, ih2z, halo,
+                                        row0, z_total, Zl, Y, X, stream)
+          : (int)normal_apply_prepadded(v_ext, out, t1, t2, make_taps(taps, kz, ky, kx), rho,
+                                        halo, row0, z_total, sp, Dims{Zl, Y, X},
+                                        (cudaStream_t)stream);
   counts[kNormalApplyPre] += 1;
-  return (int)e;
+  return e;
 }
 
 // r, p, p_new, q stored as the Storage mode `storage` says.

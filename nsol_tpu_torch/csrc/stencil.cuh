@@ -214,17 +214,22 @@ template <typename Fn>
 __device__ __forceinline__ float lap_axis(const Fn& u, long long i, int coord, int n,
                                           long long stride) {
   const float c = u(i);
-  const float lo = coord > 0 ? c - u(i - stride) : 0.f;
-  const float hi = c - (coord + 1 < n ? u(i + stride) : 0.f);
-  return lo + hi;
+  const float lo = coord > 0 ? __fsub_rn(c, u(i - stride)) : 0.f;
+  const float hi = __fsub_rn(c, coord + 1 < n ? u(i + stride) : 0.f);
+  return __fadd_rn(lo, hi);
 }
 
-// sum_ax (1/h_ax^2) D_ax^T D_ax u at voxel i (c its coordinates).
+// sum_ax (1/h_ax^2) D_ax^T D_ax u at voxel i (c its coordinates). The
+// roundings are written out, ih2z az + (ih2x ax + ih2y ay) with both sums
+// fused, so that every kernel that inlines it, and tiled.cu's
+// ring_laplacian, give the same bits whatever the compiler would contract.
 template <typename Fn>
 __device__ __forceinline__ float laplacian(const Fn& u, long long i, Coord c, Spacing sp,
                                            Dims d) {
-  return sp.ih2x * lap_axis(u, i, c.x, d.X, 1) + sp.ih2y * lap_axis(u, i, c.y, d.Y, d.X) +
-         sp.ih2z * lap_axis(u, i, c.z, d.Z, d.plane());
+  const float ax = lap_axis(u, i, c.x, d.X, 1);
+  const float ay = lap_axis(u, i, c.y, d.Y, d.X);
+  const float az = lap_axis(u, i, c.z, d.Z, d.plane());
+  return __fmaf_rn(sp.ih2z, az, __fmaf_rn(sp.ih2x, ax, __fmul_rn(sp.ih2y, ay)));
 }
 
 // The regulariser's normal operator B^T B in the epilogues: the

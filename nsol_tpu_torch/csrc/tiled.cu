@@ -31,38 +31,70 @@
 // Storage (blocked.py:1293's compact_dirs and state_dtype, "apply" mode):
 // normal_apply_zy has bfloat16 instances (v and q in bf16, its dot taking
 // the rounded q; the residual form reading x as bf16 and writing r and
-// the first direction p = r in bf16). A bf16 window has no 2-byte
-// cp.async: it is loaded, widened and stored into the float window at
-// once, without the copy's overlap. cg_direction has typed instances and,
+// the first direction p = r in bf16). cg_direction has typed instances and,
 // under bf16 state, a deferred form that forms r' = r - a q again from
 // the unrounded values (stream.cuh). weighted_apply_zy takes robust.cu's
 // storage modes (stencil.cuh's RobustStorage): p and p' in bf16, the
 // weights read as bf16 and the core rounded under kRobustIo
 // (robust.py:564's io_dtype).
 //
-// Design. A thread block owns an output tile of kTileY rows x kTileX columns
-// over up to kTileZ planes and marches through z. For each input plane it
-// copies the halo-extended (y, x) window from device memory into shared
-// memory with cp.async (double-buffered: the next plane's copy is in
-// flight while this one is computed), does the x and y taps there, and
-// pushes the xy-blurred plane into a ring of 2h+1 planes; once the ring
-// holds a plane's z neighbourhood it applies the z taps and hands the value
-// to an epilogue. The raw centre tiles (with a one-voxel halo) ride in a
-// second ring for the Laplacian, whose two global boundary rows per axis
-// come from the voxel's coordinates (grad.py::gradient_normal), not from
-// the wrapped window. Wrap halos are indices taken modulo each axis, so a
-// stencil longer than an axis wraps as often as it must. The weighted unit
-// runs two such marches in one block: the first blurs pf onto the
-// extended tile and multiplies by wts there, the second blurs that back to
-// the centre.
+// The window unit. normal_apply_prepadded (admm.cu's C entry, the sharded
+// path's blocked.py:478) is the normal apply's march over the Zl + 2 hd
+// planes of a z-window: plane k of the march is plane k of the window, with
+// no z wrap; x and y wrap as in the whole volume, and the Laplacian takes
+// its zero-boundary z rows only at global rows 0 and z_total - 1
+// (stencil.cuh's GlobalRows rule). Where its taps do not fit a block
+// (ops/cuda/tiled.py::route_fits's rule), the window keeps stencil.cuh's
+// three-pass chain.
 //
-// What bounds them on the H100: bytes. Each unit reads its inputs once from
-// device memory up to its halo (z: (kTileZ + 2h) / kTileZ; y, x: the
-// neighbouring tiles' halos mostly hit the 50 MB L2) and writes each output
-// once; no intermediate volume reaches device memory. The tiles are far
-// smaller than the TPU's (32, 128, 512) slab: shared memory holds 227 KB a
-// block, and the card needs several blocks on each of its 132 SMs. No
-// wgmma, TMA or warp specialisation yet: a simple kernel that is right.
+// Design of the single-stencil march (normal_apply_zy, cg_step_zy,
+// blur_apply_zy and the window unit). A block of 128 threads owns an
+// output tile of kTileY rows x kTileX columns over up to kTileZ planes
+// and marches through z; each thread owns a column strip of kStrip = 4
+// outputs of the tile. For each input plane it copies the halo-extended
+// (y, x) window into shared memory with cp.async, double-buffered (the
+// next plane's copy is in flight while this one is computed; a third
+// buffer gained nothing on the card): 16-byte
+// copies wherever the volume's rows are 16-byte aligned (the window's x
+// margin is rounded up to 16 bytes, and no 16-byte group straddles a wrap
+// of x), so a bfloat16 window is copied as asynchronously as a float one
+// and widened where the taps read it. Then, with two barriers a plane:
+//   x taps over the window's rows into xt, four neighbouring outputs a
+//     thread from K + 3 values read in 16-byte loads (each value read once
+//     for four outputs, not once per tap);
+//   y taps of the thread's strip, four outputs from K + 3 values of a
+//     column of xt;
+//   z taps from a ring of the strip's last K xy-blurred values held in
+//     registers, and the epilogue.
+// The taps are compile-time constants for the lengths the main paths run
+// (13 normal and 7 blur taps an axis at sigma = 1); every other length
+// takes the same march with runtime lengths, one shared-memory load per
+// tap and the z ring in shared memory (each thread reading back only what
+// it wrote). Each output's chain is unchanged: the same taps in the same
+// order with fmaf, each axis rounded to float where the three-pass units
+// round it, so the march equals them bit for bit. The raw centre tiles
+// (with a one-voxel halo) ride in a second ring for the Laplacian, whose
+// two global boundary rows per axis come from the voxel's coordinates
+// (grad.py::gradient_normal), not from the wrapped window. The weighted
+// unit keeps its own kernel of two marches in one block (one output a
+// thread, one shared-memory load per tap, the xy planes in shared-memory
+// rings): the first blurs pf onto the tile extended by the blur halo and
+// multiplies by wts there, the second blurs that back to the centre.
+//
+// What bounds them on the H100. Bytes would bound normal_apply_zy at 512^3
+// at 0.32 ms (v read once, q written once); the march takes about 1.2 ms
+// there (PERF.md). It does about 60 multiply-adds and 30 shared-memory
+// accesses an output, so instruction issue bounds it, spread over the x
+// and y taps, the Laplacian (its raw ring and seven loads an output) and
+// the copy, the two barriers a plane, the z ring and the stores; with a
+// bfloat16 window the window's L2 traffic (2.6 times the output) weighs
+// less. Registers (110-128 a thread: the z ring holds 52) leave four
+// blocks, 16 warps, an SM; capping them for five blocks gained nothing,
+// for six it spills. Each unit reads its inputs once from device memory
+// up to its halo (z: (kTileZ + 2h) / kTileZ; y, x: the neighbouring
+// tiles' halos mostly hit the 50 MB L2) and writes each output once; no
+// intermediate volume reaches device memory. No wgmma, TMA or warp
+// specialisation.
 //
 // Reductions are deterministic: one float64 partial per block, summed in a
 // fixed order by stencil.cuh's reduce_kernel.
@@ -89,10 +121,8 @@ enum TiledUnit {
 
 constexpr int kTileY = 16;
 constexpr int kTileX = 32;  // one warp across a tile row
-constexpr int kTileZ = 128;
-constexpr int kStencilRows = 8;    // blockDim (kTileX, kStencilRows)
+constexpr int kTileZ = 128;  // planes a block marches through
 constexpr int kWeightedRows = kTileY;  // blockDim (kTileX, kWeightedRows)
-constexpr int kStencilThreads = kTileX * kStencilRows;
 constexpr int kWeightedThreads = kTileX * kWeightedRows;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
 // the raw centre tiles carry a one-voxel halo for the Laplacian
@@ -250,21 +280,25 @@ __device__ __forceinline__ int block_index() {
 
 // sum_ax (1/h_ax^2) D_ax^T D_ax u at the centre voxel o of three raw tiles
 // (planes z - 1, z, z + 1); the zero boundary comes from the coordinates
-// c, as stencil.cuh's lap_axis has it.
+// c, as stencil.cuh's lap_axis has it. Its roundings are stencil.cuh's
+// laplacian's, written out with the same intrinsics in the same order
+// (ih2z az + (ih2x ax + ih2y ay), both sums fused), so that no choice of
+// the compiler's contraction sets the two apart.
 __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc, const float* zp,
                                                 int o, Coord c, Spacing sp, Dims d) {
   const float u = zc[o];
   const auto axis = [u](float lo_v, float hi_v, int coord, int n) {
-    const float lo = coord > 0 ? u - lo_v : 0.f;
-    const float hi = u - (coord + 1 < n ? hi_v : 0.f);
-    return lo + hi;
+    const float lo = coord > 0 ? __fsub_rn(u, lo_v) : 0.f;
+    const float hi = __fsub_rn(u, coord + 1 < n ? hi_v : 0.f);
+    return __fadd_rn(lo, hi);
   };
-  return sp.ih2x * axis(zc[o - 1], zc[o + 1], c.x, d.X) +
-         sp.ih2y * axis(zc[o - kRawW], zc[o + kRawW], c.y, d.Y) +
-         sp.ih2z * axis(zm[o], zp[o], c.z, d.Z);
+  const float ax = axis(zc[o - 1], zc[o + 1], c.x, d.X);
+  const float ay = axis(zc[o - kRawW], zc[o + kRawW], c.y, d.Y);
+  const float az = axis(zm[o], zp[o], c.z, d.Z);
+  return __fmaf_rn(sp.ih2z, az, __fmaf_rn(sp.ih2x, ax, __fmul_rn(sp.ih2y, ay)));
 }
 
-// ------------------------------------------------------- single stencil --
+// ---------------------------------------------------------------- march --
 
 // How a window of the inputs becomes the convolved plane and the Laplacian's
 // source: one volume for both; the CG direction p' = r + beta p for both
@@ -273,7 +307,9 @@ __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc
 enum SrcKind { kSrcOne = 0, kSrcDirection = 1, kSrcTwo = 2 };
 
 // In: the storage of in0 (a single-input unit may read bfloat16), As the
-// precision it is read at.
+// precision it is read at. A window unit (the sharded path's) reads d.Z +
+// 2 hd planes of in0 with no z wrap, and its Laplacian takes the global
+// rows row0 + z of a volume of z_total rows.
 template <class In = float, class As = In>
 struct StencilArgs {
   const In* in0;     // v, r, y or x
@@ -285,133 +321,342 @@ struct StencilArgs {
   Spacing sp;
   Dims d;
   double* partials;
+  int row0, z_total;  // window units only
 };
 
+// A thread owns a column strip of kStrip outputs of the tile: blockDim is
+// (kTileX, kTileY / kStrip).
+constexpr int kStrip = 4;
+constexpr int kStencilRows = kTileY / kStrip;
+constexpr int kStencilThreads = kTileX * kStencilRows;
+// The window's x margin: the x halo rounded up to 16 bytes of the input,
+// so that its rows start on 16-byte boundaries of the volume: 8 values for
+// a single-input unit (which may read bfloat16), 4 for the two-input ones
+// (float).
+__host__ __device__ constexpr int align_x(int nin) { return nin == 1 ? 8 : 4; }
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ constexpr int halo_of(int k) { return k / 2 > 1 ? k / 2 : 1; }
+
 struct StencilGeo {
-  int hy, hx, wy, wx, hd, ring_xy, ring_raw, nin;
-  Width win;  // the window's row width wx
+  int hy, hd;      // y and z halos (>= 1)
+  int ax;          // the window's x margin
+  int wy, wx;      // window rows kTileY + 2 hy and columns kTileX + 2 ax
+  int ring_raw;    // planes of the Laplacian's raw ring, hd + 2
+  int ring_z;      // slots of the z ring of runtime-length taps, 2 hd + 1
+  int nin;         // input windows
+  int ty, tx, tab;  // offsets (words) of the y and x taps (z at 0) and the tables
+  int win;         // offset (words) of the windows
   __host__ __device__ int win_n() const { return wy * wx; }
 };
 
 inline StencilGeo stencil_geo(Taps tp, int nin) {
   StencilGeo g;
-  g.hy = tp.ky / 2 > 1 ? tp.ky / 2 : 1;
-  g.hx = tp.kx / 2 > 1 ? tp.kx / 2 : 1;
-  g.hd = tp.kz / 2 > 1 ? tp.kz / 2 : 1;
+  g.hy = halo_of(tp.ky);
+  g.hd = halo_of(tp.kz);
+  g.ax = round_up(halo_of(tp.kx), align_x(nin));
   g.wy = kTileY + 2 * g.hy;
-  g.wx = kTileX + 2 * g.hx;
-  g.ring_xy = 2 * g.hd + 1;
+  g.wx = kTileX + 2 * g.ax;
   g.ring_raw = g.hd + 2;
+  g.ring_z = 2 * g.hd + 1;
   g.nin = nin;
-  g.win = width_of(g.wx);
+  g.ty = round_up(tp.kz, 4);
+  g.tx = g.ty + round_up(tp.ky, 4);
+  g.tab = g.tx + round_up(tp.kx, 4);
+  g.win = g.tab + round_up(g.wy + g.wx, 4);
   return g;
 }
 
-inline size_t stencil_smem(const StencilGeo& g, Taps tp, bool lap) {
-  const size_t words = (size_t)tp.kz + tp.ky + tp.kx + g.wy + g.wx +
-                       2 * (size_t)g.nin * g.win_n() + g.win_n() + (size_t)g.wy * kTileX +
-                       (size_t)g.ring_xy * kOutN + (lap ? (size_t)g.ring_raw * kRawN : 0);
+// Taps (each axis 16-byte aligned), the row and column tables, the windows
+// [2][nin][wy x wx], the x-blurred rows (wy x kTileX), the raw ring (lap)
+// and the z ring (runtime-length taps, ring_z).
+inline size_t stencil_smem(const StencilGeo& g, bool lap, bool ring_z) {
+  const size_t words = (size_t)g.win + 2 * (size_t)g.nin * g.win_n() + (size_t)g.wy * kTileX +
+                       (lap ? (size_t)g.ring_raw * kRawN : 0) +
+                       (ring_z ? (size_t)g.ring_z * kOutN : 0);
   return words * 4;
 }
 
-// The march: epi(i, conv, lap, centre) returns a term of the block's
-// reduction (the Laplacian and the centre value of its source are 0 when
-// kLap is false).
-template <int kSrc, bool kLap, class In, class As, class Epi>
-__global__ void __launch_bounds__(kStencilThreads)
+// One window plane's copy. Where the volume's rows are 16-byte aligned (X
+// a multiple of V = 16 / sizeof(T) values and the volume 16-byte aligned)
+// it goes in 16-byte cp.async, V columns each: x0 and the window's margin
+// are multiples of V, and so are the wrap points of x, so no group of V
+// window columns straddles a wrap, not even on an edge tile or where X is
+// narrower than the window. Otherwise one element at a time.
+struct CopyPlan {
+  int n;  // copies a window row
+  Width w;
+  bool vec;
+};
+
+template <class T>
+__device__ CopyPlan copy_plan(const T* src, int wx, int X) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = X % V == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0;
+  const int n = vec ? wx / V : wx;
+  return CopyPlan{n, width_of(n), vec};
+}
+
+// Start the copy of one plane's (wy x wx) window into dst. A bfloat16
+// element has no 2-byte cp.async: where the rows are not aligned, each is
+// loaded and stored at once.
+template <class T>
+__device__ __forceinline__ void copy_plane(T* dst, const T* __restrict__ plane, const int* rows,
+                                           const int* cols, const CopyPlan& p, int wy, int wx) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int nt = blockDim.x * blockDim.y;
+  for (int e = thread_rank(); e < wy * p.n; e += nt) {
+    const int r = p.w.row(e);
+    const int c = (e - r * p.n) * (p.vec ? V : 1);
+    if (p.vec)
+      __pipeline_memcpy_async(dst + r * wx + c, plane + rows[r] + cols[c], 16);
+    else if constexpr (sizeof(T) == 4)
+      __pipeline_memcpy_async(dst + r * wx + c, plane + rows[r] + cols[c], 4);
+    else
+      dst[r * wx + c] = plane[rows[r] + cols[c]];
+  }
+}
+
+// Four neighbouring window values from a 16-byte (float) or 8-byte
+// (bfloat16) aligned address, read at As's precision.
+template <class As>
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = round_as<As>(f.x), v[1] = round_as<As>(f.y), v[2] = round_as<As>(f.z),
+  v[3] = round_as<As>(f.w);
+}
+
+template <class As>
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// K taps from a 16-byte aligned buffer (padded to a multiple of 4) into
+// registers.
+template <int K>
+__device__ __forceinline__ void load_taps(const float* t, float (&k)[K]) {
+#pragma unroll
+  for (int q = 0; q < (K + 3) / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(t)[q];
+    const float f4[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (4 * q + m < K) k[4 * q + m] = f4[m];
+  }
+}
+
+// The march. Step k copies input plane k + 1 of the block's z range (z0 -
+// hd + k + 1, wrapped; a window unit's plane z0 + k + 1) into window
+// buffer (k + 1) & 1 while plane k's is computed; forms the x taps of the
+// window's rows into xt (and the Laplacian's raw tile, and p' on the
+// tile's own planes);
+// then each thread takes the y taps of its column strip, pushes the
+// xy-blurred values into its z ring and, hd steps on, forms the z taps of
+// output plane z0 + k - 2 hd and hands each value to the epilogue:
+// epi(i, conv, lap, centre) returns a term of the block's reduction (the
+// Laplacian and the centre value of its source are 0 when kLap is false).
+// kK > 0: every axis has kK taps, known to the compiler (a strip of four x
+// outputs from 16-byte window loads, the y taps of a strip from K + 3
+// loads, the z ring in registers); kK = 0: the taps' runtime lengths (one
+// load per tap, the z ring in shared memory). The taps and their order are
+// the same: each output's chain is the three-pass units' chain.
+template <int kK, int kSrc, bool kLap, bool kWindow, class In, class As, class Epi>
+__global__ void __launch_bounds__(kStencilThreads, 4)
     stencil_zy_kernel(StencilArgs<In, As> a, StencilGeo g, Epi epi) {
-  extern __shared__ float smem[];
+  static_assert(sizeof(In) == 4 || kSrc == kSrcOne, "a two-input window is float");
+  constexpr int kAx = align_x(kSrc == kSrcOne ? 1 : 2);
+  extern __shared__ __align__(16) float smem[];
   const Dims d = a.d;
-  const int wn = g.win_n();
-  const int nk = a.tp.kz + a.tp.ky + a.tp.kx;
-  float* tz = smem;  // taps: z, y, x
-  const float* ty = tz + a.tp.kz;
-  const float* tx = ty + a.tp.ky;
-  int* rows = reinterpret_cast<int*>(smem + nk);
+  const int kz = kK ? kK : a.tp.kz, ky = kK ? kK : a.tp.ky, kx = kK ? kK : a.tp.kx;
+  const int ax = kK ? round_up(halo_of(kK), kAx) : g.ax;
+  const int hy = kK ? halo_of(kK) : g.hy, hd = kK ? halo_of(kK) : g.hd;
+  const int wn = g.win_n(), nt = kStencilThreads, tid = thread_rank();
+  float* tz = smem;
+  float* ty = smem + g.ty;
+  float* tx = smem + g.tx;
+  int* rows = reinterpret_cast<int*>(smem + g.tab);
   int* cols = rows + g.wy;
-  float* win = reinterpret_cast<float*>(cols + g.wx);  // [2][nin][wn], cp.async targets
-  float* cwin = win + 2 * g.nin * wn;                   // p' on the window
-  float* xt = cwin + wn;                                // x taps, wy x kTileX
-  float* ring_xy = xt + g.wy * kTileX;                  // xy-blurred planes
-  float* ring_raw = ring_xy + g.ring_xy * kOutN;        // Laplacian source, halo 1
+  float* win = smem + g.win;                 // [2][nin][wn]: in0 as In, in1 as float
+  float* xt = win + 2 * g.nin * wn;          // x taps of the window rows, wy x kTileX
+  float* ring_raw = xt + g.wy * kTileX;      // Laplacian source, halo 1
+  float* ring_z = ring_raw + (kLap ? g.ring_raw * kRawN : 0);  // runtime taps only
   const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY, z0 = blockIdx.z * kTileZ;
   const int nz = min(kTileZ, d.Z - z0);
-  const int pstart = z0 - g.hd, np = nz + 2 * g.hd;
+  const int np = nz + 2 * hd;
   const bool dir = kSrc == kSrcDirection && !a.first;
   const bool has_in1 = kSrc == kSrcTwo || dir;
   const float beta = dir ? (float)a.scal[kBeta] : 0.f;
-  block_tables(tz, a.tp, rows, cols, y0, x0, g.hy, g.hx, g.wy, g.wx, d);
+  for (int i = tid; i < kz; i += nt) tz[i] = a.tp.z[i];
+  for (int i = tid; i < ky; i += nt) ty[i] = a.tp.y[i];
+  for (int i = tid; i < kx; i += nt) tx[i] = a.tp.x[i];
+  for (int i = tid; i < g.wy; i += nt) rows[i] = wrap_index(y0 - hy + i, d.Y) * d.X;
+  for (int i = tid; i < g.wx; i += nt) cols[i] = wrap_index(x0 - ax + i, d.X);
+  const CopyPlan plan0 = copy_plan(a.in0, g.wx, d.X);
+  const CopyPlan plan1 = copy_plan(a.in1, g.wx, d.X);
   __syncthreads();
 
   auto start_copy = [&](int k) {
-    const long long off = (long long)wrap_index(pstart + k, d.Z) * d.plane();
+    const int pz = kWindow ? z0 + k : wrap_index(z0 - hd + k, d.Z);
+    const long long off = (long long)pz * d.plane();
     float* dst = win + (k & 1) * g.nin * wn;
-    copy_window<In, As>(dst, a.in0, off, rows, cols, g.wy, g.win);
-    if (has_in1) copy_window(dst + wn, a.in1, off, rows, cols, g.wy, g.win);
+    copy_plane(reinterpret_cast<In*>(dst), a.in0 + off, rows, cols, plan0, g.wy, g.wx);
+    if (has_in1) copy_plane(dst + wn, a.in1 + off, rows, cols, plan1, g.wy, g.wx);
   };
 
+  // the thread's column strip: outputs (y0 + kStrip s + m, x0 + c)
+  const int c = threadIdx.x, s = threadIdx.y;
+  constexpr int kD = kK ? kK + halo_of(kK) - kK / 2 : 1;  // z ring depth in registers
+  float zr[kStrip][kD];                                   // zr[m][t]: step k - t
   double acc = 0.0;
   start_copy(0);
   __pipeline_commit();
-  // kr, kx: the slots of step k in the raw and the xy ring
-  for (int k = 0, kr = 0, kx = 0; k < np;
-       ++k, kr = slot_next(kr, g.ring_raw), kx = slot_next(kx, g.ring_xy)) {
+  // kr, kq: the slots of step k in the raw and the z ring
+  for (int k = 0, kr = 0, kq = 0; k < np;
+       ++k, kr = slot_next(kr, g.ring_raw), kq = slot_next(kq, g.ring_z)) {
     if (k + 1 < np) start_copy(k + 1);
     __pipeline_commit();
     __pipeline_wait_prior(1);
     __syncthreads();
-    const float* w0 = win + (k & 1) * g.nin * wn;
-    const float* w1 = w0 + wn;
-    const int pz = pstart + k;
-    // the convolved source (p' formed once), the Laplacian's raw tile, p' out
-    if (dir) TILE_LOOP(r, c, g.wy, g.win) cwin[e_] = __fmaf_rn(beta, w1[e_], w0[e_]);
+    const In* w0 = reinterpret_cast<const In*>(win + (k & 1) * g.nin * wn);
+    const float* w1 = win + (k & 1) * g.nin * wn + wn;
+    // the value the x taps convolve, and the Laplacian's source
+    const auto conv_src = [&](int e) {
+      const float v = round_as<As>(to_float(w0[e]));
+      return dir ? __fmaf_rn(beta, w1[e], v) : v;
+    };
+    const auto lap_src = [&](int e) { return kSrc == kSrcTwo ? w1[e] : conv_src(e); };
+    // x taps: xt[r][c] = sum_j kx[j] window[r][c + ax + kx/2 - j]
+    if constexpr (kK > 0) {
+      constexpr int K = kK, AX = round_up(halo_of(K), kAx);
+      // a strip's K + 3 values start at window column c0 + 4 F0 + O
+      constexpr int OFF = AX + K / 2 - (K - 1), F0 = OFF / 4, O = OFF % 4;
+      constexpr int NF = (O + K + 3 + 3) / 4;
+      float kxr[K];
+      load_taps<K>(tx, kxr);
+      for (int e = tid; e < g.wy * (kTileX / 4); e += nt) {
+        const int r = e / (kTileX / 4), c0 = (e % (kTileX / 4)) * 4;
+        const int base = r * g.wx + c0 + 4 * F0;
+        float v[4 * NF];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          load4<As>(w0 + base + 4 * f, v + 4 * f);
+          if (dir) {
+            float p[4];
+            load4<float>(w1 + base + 4 * f, p);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) v[4 * f + t] = __fmaf_rn(beta, p[t], v[4 * f + t]);
+          }
+        }
+        float o[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < K; ++j) sum = fmaf(kxr[j], v[O + m + K - 1 - j], sum);
+          o[m] = sum;
+        }
+        *reinterpret_cast<float4*>(xt + r * kTileX + c0) = make_float4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      for (int e = tid; e < g.wy * kTileX; e += nt) {
+        const int r = e / kTileX, cc = e % kTileX;
+        const int base = r * g.wx + cc + ax + kx / 2;
+        float sum = 0.f;
+        for (int j = 0; j < kx; ++j) sum = fmaf(tx[j], conv_src(base - j), sum);
+        xt[e] = sum;
+      }
+    }
     if (kLap) {
       float* raw = ring_raw + kr * kRawN;
-      TILE_LOOP(r, c, kTileY + 2, width_of(kRawW)) {
-        const int we = (r - 1 + g.hy) * g.wx + c - 1 + g.hx;
-        raw[e_] = kSrc == kSrcTwo ? w1[we] : dir ? __fmaf_rn(beta, w1[we], w0[we])
-                                                            : w0[we];
+      for (int e = tid; e < kRawN; e += nt) {
+        const int r = e / kRawW, cc = e % kRawW;
+        raw[e] = lap_src((r - 1 + hy) * g.wx + cc - 1 + ax);
       }
     }
-    if (kSrc == kSrcDirection && pz >= z0 && pz < z0 + nz) {
-      TILE_LOOP(oy, ox, kTileY, width_of(kTileX)) {
-        const int y = y0 + oy, x = x0 + ox;
-        if (y >= d.Y || x >= d.X) continue;
-        const int we = (oy + g.hy) * g.wx + ox + g.hx;
-        a.dir_out[(long long)pz * d.plane() + (long long)y * d.X + x] =
-            dir ? __fmaf_rn(beta, w1[we], w0[we]) : w0[we];
+    if (kSrc == kSrcDirection && k >= hd && k < hd + nz) {  // p' on the block's own planes
+      const long long pz = z0 - hd + k;
+      for (int e = tid; e < kOutN; e += nt) {
+        const int oy = e / kTileX, ox = e % kTileX, y = y0 + oy, x = x0 + ox;
+        if (y < d.Y && x < d.X)
+          a.dir_out[pz * d.plane() + (long long)y * d.X + x] =
+              conv_src((oy + hy) * g.wx + ox + ax);
       }
     }
     __syncthreads();
-    taps_x<4>(dir ? cwin : w0, g.wx, xt, g.wy, width_of(kTileX), g.hx, tx, a.tp.kx);
-    __syncthreads();
-    taps_y<2>(xt, ring_xy + kx * kOutN, kTileY, width_of(kTileX), g.hy, ty, a.tp.ky);
-    __syncthreads();
-    if (k < 2 * g.hd) continue;
-    // output plane z = pstart + k - hd, whose z neighbourhood is in the ring
-    const int step = k - g.hd;
-    const int z = pstart + step;
-    const int s0 = slot_back(kx, g.hd - a.tp.kz / 2, g.ring_xy);
-    const float* zm = ring_raw + slot_back(kr, g.hd + 1, g.ring_raw) * kRawN;
-    const float* zc = ring_raw + slot_back(kr, g.hd, g.ring_raw) * kRawN;
-    const float* zp = ring_raw + slot_back(kr, g.hd - 1, g.ring_raw) * kRawN;
-    taps_z<2>(ring_xy, g.ring_xy, kTileY, width_of(kTileX), s0, tz, a.tp.kz,
-              [&](int oy, int ox, float conv) {
-                const Coord c{x0 + ox, y0 + oy, z};
-                if (c.y >= d.Y || c.x >= d.X) return;
-                float lap = 0.f, centre = 0.f;
-                if (kLap) {
-                  const int o = (oy + 1) * kRawW + ox + 1;
-                  lap = ring_laplacian(zm, zc, zp, o, c, a.sp, d);
-                  centre = zc[o];
-                }
-                const long long i = (long long)z * d.plane() + (long long)c.y * d.X + c.x;
-                acc += epi(i, conv, lap, centre);
-              });
+    // y taps of the strip: xy[m] = sum_j ky[j] xt[kStrip s + m + hy + ky/2 - j][c]
+    float xy[kStrip];
+    if constexpr (kK > 0) {
+      constexpr int K = kK, OY = halo_of(K) + K / 2 - (K - 1);
+      float kyr[K], col[K + kStrip - 1];
+      load_taps<K>(ty, kyr);
+#pragma unroll
+      for (int t = 0; t < K + kStrip - 1; ++t) col[t] = xt[(kStrip * s + OY + t) * kTileX + c];
+#pragma unroll
+      for (int m = 0; m < kStrip; ++m) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) sum = fmaf(kyr[j], col[m + K - 1 - j], sum);
+        xy[m] = sum;
+      }
+    } else {
+      for (int m = 0; m < kStrip; ++m) {
+        const int base = (kStrip * s + m + hy + ky / 2) * kTileX + c;
+        float sum = 0.f;
+        for (int j = 0; j < ky; ++j) sum = fmaf(ty[j], xt[base - j * kTileX], sum);
+        xy[m] = sum;
+      }
+    }
+    // into the z ring (in registers, shifted by one a step: a ring whose
+    // slot turned with k took longer on the card)
+    if constexpr (kK > 0) {
+#pragma unroll
+      for (int m = 0; m < kStrip; ++m) {
+#pragma unroll
+        for (int t = kD - 1; t > 0; --t) zr[m][t] = zr[m][t - 1];
+        zr[m][0] = xy[m];
+      }
+    } else {
+      for (int m = 0; m < kStrip; ++m) ring_z[kq * kOutN + (kStrip * s + m) * kTileX + c] = xy[m];
+    }
+    if (k < 2 * hd) continue;
+    // output plane z, whose z neighbourhood is in the ring: z taps,
+    // conv = sum_j kz[j] xy(z + kz/2 - j), xy(step k - t) at t = hd - kz/2 + j
+    const int z = z0 + k - 2 * hd;
+    const float* zm = ring_raw + slot_back(kr, hd + 1, g.ring_raw) * kRawN;
+    const float* zc = ring_raw + slot_back(kr, hd, g.ring_raw) * kRawN;
+    const float* zp = ring_raw + slot_back(kr, hd - 1, g.ring_raw) * kRawN;
+    float kzr[kK ? kK : 1];
+    if constexpr (kK > 0) load_taps<kK>(tz, kzr);
+#pragma unroll
+    for (int m = 0; m < kStrip; ++m) {
+      float conv = 0.f;
+      if constexpr (kK > 0) {
+#pragma unroll
+        for (int j = 0; j < kK; ++j) conv = fmaf(kzr[j], zr[m][halo_of(kK) - kK / 2 + j], conv);
+      } else {
+        const int e = (kStrip * s + m) * kTileX + c;
+        for (int j = 0; j < kz; ++j)
+          conv = fmaf(tz[j], ring_z[slot_back(kq, hd - kz / 2 + j, g.ring_z) * kOutN + e], conv);
+      }
+      const int oy = kStrip * s + m;
+      const Coord cd{x0 + c, y0 + oy, kWindow ? a.row0 + z : z};
+      if (cd.y >= d.Y || cd.x >= d.X) continue;
+      float lap = 0.f, centre = 0.f;
+      if (kLap) {
+        const int o = (oy + 1) * kRawW + c + 1;
+        lap = ring_laplacian(zm, zc, zp, o, cd, a.sp,
+                             Dims{kWindow ? a.z_total : d.Z, d.Y, d.X});
+        centre = zc[o];
+      }
+      const long long i = (long long)z * d.plane() + (long long)cd.y * d.X + cd.x;
+      acc += epi(i, conv, lap, centre);
+    }
   }
   if (a.partials != nullptr) {
-    const double s = tile_sum(acc);
-    if (thread_rank() == 0) a.partials[block_index()] = s;
+    const double sum = tile_sum(acc);
+    if (tid == 0) a.partials[block_index()] = sum;
   }
 }
 
@@ -494,17 +739,31 @@ inline int tiled_blocks(Dims d) {
   return (int)(g.x * g.y * g.z);
 }
 
-template <int kSrc, bool kLap, class In, class As, class Epi>
-cudaError_t launch_stencil(const StencilArgs<In, As>& a, int nin, Epi epi, cudaStream_t s) {
-  const StencilGeo g = stencil_geo(a.tp, nin);
-  const size_t smem = stencil_smem(g, a.tp, kLap);
+template <int kK, int kSrc, bool kLap, bool kWindow, class In, class As, class Epi>
+cudaError_t launch_march(const StencilArgs<In, As>& a, const StencilGeo& g, Epi epi,
+                         cudaStream_t s) {
+  const size_t smem = stencil_smem(g, kLap, kK == 0);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = stencil_zy_kernel<kSrc, kLap, In, As, Epi>;
+  auto kernel = stencil_zy_kernel<kK, kSrc, kLap, kWindow, In, As, Epi>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<tiled_grid(a.d), dim3(kTileX, kStencilRows), smem, s>>>(a, g, epi);
   return cudaGetLastError();
+}
+
+// The taps of a unit at sigma = 1 (alpha_cut 3): 13 normal taps an axis, 7
+// blur taps. Those lengths on every axis take the march's instance with
+// compile-time taps, every other length its runtime-length instance.
+constexpr int kNormalK = 13;
+constexpr int kBlurK = 7;
+
+template <int kKc, int kSrc, bool kLap, bool kWindow = false, class In, class As, class Epi>
+cudaError_t launch_stencil(const StencilArgs<In, As>& a, int nin, Epi epi, cudaStream_t s) {
+  const StencilGeo g = stencil_geo(a.tp, nin);
+  if (a.tp.kz == kKc && a.tp.ky == kKc && a.tp.kx == kKc)
+    return launch_march<kKc, kSrc, kLap, kWindow>(a, g, epi, s);
+  return launch_march<0, kSrc, kLap, kWindow>(a, g, epi, s);
 }
 
 // ------------------------------------------------------------- weighted --
@@ -722,7 +981,7 @@ cudaError_t normal_residual_zy(const float* x, O* out, P* p_out, const float* rh
                                double* partials, double* scal, Taps tp, float rho, Spacing sp,
                                Dims d, cudaStream_t s) {
   const StencilArgs<float, O> a{x, nullptr, nullptr, scal, 1, tp, sp, d, partials};
-  const cudaError_t e = launch_stencil<kSrcOne, true>(
+  const cudaError_t e = launch_stencil<kNormalK, kSrcOne, true>(
       a, 1, NormalZyEpi<kNormalResidual, O, P>{rhs, out, p_out, rho}, s);
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReduceRR0);
@@ -737,13 +996,13 @@ cudaError_t normal_apply_zy_t(const T* v, T* out, double* partials, double* scal
   cudaError_t e;
   if (scal != nullptr) {
     a.partials = partials;
-    e = launch_stencil<kSrcOne, true>(a, 1, NormalZyEpi<kNormalDot, T>{nullptr, out, nullptr, rho},
-                                      s);
+    e = launch_stencil<kNormalK, kSrcOne, true>(
+        a, 1, NormalZyEpi<kNormalDot, T>{nullptr, out, nullptr, rho}, s);
     if (e != cudaSuccess) return e;
     reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
   } else {
-    e = launch_stencil<kSrcOne, true>(a, 1,
-                                      NormalZyEpi<kNormalPlain, T>{nullptr, out, nullptr, rho}, s);
+    e = launch_stencil<kNormalK, kSrcOne, true>(
+        a, 1, NormalZyEpi<kNormalPlain, T>{nullptr, out, nullptr, rho}, s);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
@@ -779,7 +1038,7 @@ cudaError_t cg_step_zy(const float* r, const float* p, float* p_new, float* q, d
                        double* scal, int first, Taps tp, float rho, Spacing sp, Dims d,
                        cudaStream_t s) {
   const StencilArgs<> a{r, first ? nullptr : p, p_new, scal, first, tp, sp, d, partials};
-  const cudaError_t e = launch_stencil<kSrcDirection, true>(
+  const cudaError_t e = launch_stencil<kNormalK, kSrcDirection, true>(
       a, 2, NormalZyEpi<kNormalDot>{nullptr, q, nullptr, rho}, s);
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
@@ -796,16 +1055,16 @@ cudaError_t blur_apply_zy(const float* y, const float* u, float* out, float* fre
   StencilArgs<> a{y, u, nullptr, scal, 1, tp, sp, d, nullptr};
   cudaError_t e;
   if (b != nullptr) {
-    e = launch_stencil<kSrcOne, false>(a, 1, HeadZyEpi{b, wts, yout, scale * scale, loss}, s);
+    e = launch_stencil<kBlurK, kSrcOne, false>(a, 1, HeadZyEpi{b, wts, yout, scale * scale, loss}, s);
   } else if (free != nullptr) {
     a.partials = partials;
-    e = launch_stencil<kSrcTwo, true>(a, 2, GradZyEpi{free, rk, rho}, s);
+    e = launch_stencil<kBlurK, kSrcTwo, true>(a, 2, GradZyEpi{free, rk, rho}, s);
     if (e != cudaSuccess) return e;
     reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReduceRR0);
   } else if (u != nullptr) {
-    e = launch_stencil<kSrcTwo, true>(a, 2, BlurZyEpi{out, rho, 1}, s);
+    e = launch_stencil<kBlurK, kSrcTwo, true>(a, 2, BlurZyEpi{out, rho, 1}, s);
   } else {
-    e = launch_stencil<kSrcOne, false>(a, 1, BlurZyEpi{out, rho, 0}, s);
+    e = launch_stencil<kBlurK, kSrcOne, false>(a, 1, BlurZyEpi{out, rho, 0}, s);
   }
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -875,7 +1134,7 @@ int nsol_tiled_blocks(int Z, int Y, int X) { return tiled_blocks(Dims{Z, Y, X});
 int nsol_tiled_smem(int kz, int ky, int kx, int nin, int lap, int weighted) {
   const Taps tp{nullptr, nullptr, nullptr, kz, ky, kx};
   const size_t b = weighted ? weighted_smem(weighted_geo(tp), tp)
-                            : stencil_smem(stencil_geo(tp, nin), tp, lap != 0);
+                            : stencil_smem(stencil_geo(tp, nin), lap != 0, true);
   return b > 0x7fffffffu ? 0x7fffffff : (int)b;
 }
 
@@ -890,6 +1149,23 @@ int nsol_normal_apply_zy(const void* v, void* out, const float* rhs, void* p_out
                                         (cudaStream_t)stream);
   counts[kNormalApplyZy] += 1;
   return (int)e;
+}
+
+// normal_apply_prepadded's one-pass form (admm.cu's
+// nsol_normal_apply_prepadded takes it when given no scratch volumes): the
+// march over the Zl + 2 halo planes of v_ext, halo the z taps' half-width
+// (at least 1); q = A^T A v + rho D^T D v on the Zl centre planes, whose
+// Laplacian takes its zero-boundary rows only at global rows 0 and
+// z_total - 1 (row0 the window's first global row). Adds to no count.
+int nsol_normal_apply_window_zy(const float* v_ext, float* out, const float* taps, int kz, int ky,
+                                int kx, float rho, float ih2x, float ih2y, float ih2z, int halo,
+                                int row0, int z_total, int Zl, int Y, int X, void* stream) {
+  if (halo != halo_of(kz)) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  const StencilArgs<> a{v_ext, nullptr,        nullptr, nullptr, 1,      make_taps(taps, kz, ky, kx),
+                        sp,    Dims{Zl, Y, X}, nullptr, row0,    z_total};
+  return (int)launch_stencil<kNormalK, kSrcOne, true, true>(
+      a, 1, NormalZyEpi<kNormalPlain>{nullptr, out, nullptr, rho}, (cudaStream_t)stream);
 }
 
 int nsol_cg_step_zy(const float* r, const float* p, float* p_new, float* q, double* partials,

@@ -23,7 +23,10 @@ PyTorch version beside it and a launch counter on its wrapper:
   of a sharded volume whose halo planes the ring exchange has attached,
   the Laplacian's global boundary rows placed by ``row0``/``z_total``;
   replaces ``blocked.py::make_blocked_normal_operator_prepadded`` (:478),
-  the per-shard apply of :mod:`nsol_tpu_torch.parallel`.
+  the per-shard apply of :mod:`nsol_tpu_torch.parallel`. Where a block's
+  shared memory holds its taps (:func:`window_route`) it runs as a window
+  instance of ``csrc/tiled.cu``'s one-pass march (no scratch volume), else
+  as three passes; the two give the same bits.
 
 ``BᵀB`` is the regulariser's normal operator, ``reg="TK1"`` the
 zero-boundary Laplacian ``DᵀD`` (TV and TK1) or ``reg="TK0"`` the
@@ -71,7 +74,7 @@ from nsol_tpu_torch.solvers.cg import guarded_ratio
 __all__ = ["Stencils", "new_scalars", "normal_apply", "normal_apply_plain",
            "cg_step", "cg_step_plain", "cg_update", "cg_update_plain",
            "cg_sweep", "cg_sweep_plain", "normal_apply_prepadded",
-           "normal_apply_prepadded_plain", "slab_blur_plain",
+           "normal_apply_prepadded_plain", "window_route", "slab_blur_plain",
            "window_laplacian_plain", "prepadded_window",
            "make_blocked_normal_operator_prepadded",
            "make_blocked_normal_operator",
@@ -597,6 +600,18 @@ def prepadded_window(name, v_ext, h, row0, z_total, *others):
     return (zl,) + tuple(v_ext.shape[1:])
 
 
+def window_route(taps):
+    """How :func:`normal_apply_prepadded` applies the normal ``taps`` on
+    the card: ``"tiled"``, the one-pass march of ``csrc/tiled.cu`` (the
+    whole-volume ``normal_apply_zy``'s, with no z wrap), where a block's
+    shared memory holds them (:func:`~.tiled.smem_bytes`, the rule that
+    routes the whole-volume units); else ``"chain"``, the three per-axis
+    passes through two scratch volumes of the window's size."""
+    T = _tiled()
+    fits = T.smem_bytes(taps.lengths) <= T.MAX_SMEM
+    return "tiled" if fits else "chain"
+
+
 def normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total):
     """``q = AᵀA v + ρ·DᵀD v`` on a z-window of a sharded volume
     (``blocked.py::make_blocked_normal_operator_prepadded``, :478):
@@ -606,7 +621,16 @@ def normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total):
     read the window with no wrap, the x and y taps wrap within each plane,
     and the Laplacian's z term takes its neighbours from the halo rows,
     with the zero-boundary rows only where ``row0 + k`` is 0 or
-    ``z_total − 1``."""
+    ``z_total − 1``. On the card it takes :func:`window_route`'s route;
+    the two give the same bits."""
+    return _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total,
+                                   window_route(taps) == "chain")
+
+
+def _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total, chain):
+    """:func:`normal_apply_prepadded` on the card by the tiled march or,
+    with ``chain``, by the three-pass chain whatever the taps (the bit
+    reference the tiled route is held to)."""
     h = prepadded_halo(taps)
     name = "normal_apply_prepadded"
     dims = prepadded_window(name, v_ext, h, row0, z_total)
@@ -617,7 +641,9 @@ def normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total):
     _check_consts(name, v_ext.device, taps)
     lib = build.load()
     out = torch.empty(dims, device=v_ext.device)
-    t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
+    t1 = t2 = None
+    if chain:
+        t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
     counts = build.new_counts(7)
     err = lib.nsol_normal_apply_prepadded(
         build.tensor_ptr(v_ext), build.tensor_ptr(out), build.tensor_ptr(t1),

@@ -38,7 +38,10 @@ bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
 ``compact_dirs`` or ``state_dtype``), their sums in float32.
 
 Each unit makes one pass over halo-extended tiles: no intermediate volume
-reaches device memory (see the note at the top of ``csrc/tiled.cu``).
+reaches device memory (see the note at the top of ``csrc/tiled.cu``). The
+single-stencil units share one march, whose window instance is
+:func:`~.blocked.normal_apply_prepadded`'s tiled route; each of its forms
+equals the three-pass units bit for bit.
 A block holds its windows and rings in at most 227 KB of shared memory,
 so a wide blur does not fit: :func:`route_fits` is the shape decision by
 which the solves take the per-axis units instead, before any launch.
@@ -123,11 +126,16 @@ _OUT_N = TILE_Y * TILE_X
 _RAW_N = (TILE_Y + 2) * (TILE_X + 2)
 
 
+def _up(v, m):
+    return -(-v // m) * m
+
+
 def smem_bytes(lengths, nin=1, lap=True, weighted=False):
     """Bytes of shared memory one block takes for stencils of lengths
     ``(kz, ky, kx)``: ``weighted_apply_zy``'s (``weighted``), or a
     single-stencil unit's over ``nin`` input windows with or without the
-    Laplacian's ring — ``csrc/tiled.cu``'s ``weighted_smem`` /
+    Laplacian's ring, in the march's instance with runtime-length taps
+    (the larger) — ``csrc/tiled.cu``'s ``weighted_smem`` /
     ``stencil_smem``, which ``nsol_tiled_smem`` returns."""
     kz, ky, kx = lengths
     hz, hy, hx = (max(k // 2, 1) for k in lengths)
@@ -138,9 +146,12 @@ def smem_bytes(lengths, nin=1, lap=True, weighted=False):
                  + wy * ex + (2 * hz + 1) * (ey * ex + _OUT_N)
                  + (2 * hz + 2) * _RAW_N)
     else:
-        wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * hx
-        words = (kz + ky + kx + wy + wx + (2 * nin + 1) * wy * wx
-                 + wy * TILE_X + (2 * hz + 1) * _OUT_N
+        # the window's x margin rounds the halo up to 16 bytes of the input
+        # (8 values for one input, which may be bfloat16, 4 for two);
+        # each axis's taps and the tables are 16-byte aligned
+        wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * _up(hx, 8 if nin == 1 else 4)
+        words = (sum(_up(k, 4) for k in lengths) + _up(wy + wx, 4)
+                 + 2 * nin * wy * wx + wy * TILE_X + (2 * hz + 1) * _OUT_N
                  + (hz + 2) * _RAW_N * bool(lap))
     return 4 * words
 

@@ -1,8 +1,9 @@
 """Sharding composed with the per-shard CUDA units (counterpart of
 ``nsol_tpu/parallel/blocked_halo.py``).
 
-Each rank runs the prepadded window units of K9b — ``csrc/admm.cu``'s
-``normal_apply_prepadded`` and ``csrc/robust.cu``'s
+Each rank runs the prepadded window units of K9b — ``normal_apply_prepadded``
+(``csrc/tiled.cu``'s one-pass march over the window where its taps fit,
+else ``csrc/admm.cu``'s three passes) and ``csrc/robust.cu``'s
 ``blur_apply_prepadded`` / ``weighted_apply_prepadded`` — on its own
 z-slab, its wrap halos brought by the ring exchange
 (:func:`nsol_tpu_torch.parallel.halo.exchange_halo_wrap`) and its global

@@ -470,6 +470,31 @@ def test_window_units_check_their_windows():
         op(v[:ZL + 2 * op.halo + 1], 0.7, 0)
 
 
+@pytest.mark.parametrize("sigma, want", [(1.0, "tiled"), (4.0, "tiled"),
+                                         (4.5, "chain")])
+def test_window_route_takes_the_tiled_march_where_it_fits(sigma, want):
+    """``normal_apply_prepadded`` takes the one-pass tiled march where a
+    block's shared memory holds the normal taps — the shape rule that
+    routes the whole-volume units (``tiled.route_fits``) — and the
+    three-pass chain for a wider blur; on the CPU either route runs the
+    plain version."""
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    cov = np.diag([sigma ** 2] * 3)
+    st = B.Stencils.from_cov(cov, 3, None, "cpu", torch.float64)
+    assert B.window_route(st.normal) == want
+    assert T.route_fits(TC.blur_factors(cov, 3, None), "apply") \
+        == (want == "tiled")
+    aniso = B.Stencils.from_cov(WIN_COV, 3, WIN_SPACING, "cpu", torch.float64)
+    assert B.window_route(aniso.normal) == "tiled"
+    v = _t(_slab(_window_inputs()[0], ZL, B.prepadded_halo(aniso.normal)))
+    args = (v, aniso.normal, aniso.inv_h2, 0.7, ZL, Z_TOTAL)
+    ref = B.normal_apply_prepadded_plain(*args)
+    assert torch.equal(B.normal_apply_prepadded(*args), ref)
+    for chain in (False, True):
+        assert torch.equal(B._normal_apply_prepadded(*args, chain), ref)
+
+
 # ---------------------------------------------------- one rank, refusals --
 
 def test_world1_solve_equals_unsharded_admm():
@@ -570,6 +595,23 @@ def test_use_blocked_routing(monkeypatch):
 
 EDGE_WINDOWS = ((np.diag([1.0] * 3), None, (13, 530, 37)),
                 (np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (16, 45, 33)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(EDGE_WINDOWS)))
+def test_cuda_window_march_equals_three_pass_chain(cuda_device, case):
+    """normal_apply_prepadded's tiled march equals its three-pass window
+    chain bit for bit on the first, a middle and the last slab."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cov, sp, shape = EDGE_WINDOWS[case]
+    st = B.Stencils.from_cov(cov, 3, sp, cuda_device)
+    cs.require_bits(cs.window_route_pairs(B, st, shape, cuda_device,
+                                          60 + case), "window %d" % case)
 
 
 @pytest.mark.cuda

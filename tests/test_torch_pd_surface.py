@@ -735,6 +735,27 @@ def test_run_deconvolution_default_pd_matches_jax_cli(f64, tmp_path,
     _close(_mat(str(tmp_path / "port.mat")), _mat(str(tmp_path / "jax.mat")))
 
 
+@pytest.mark.parametrize("extra", [[], ["--reconstruction-type", "TK1L2"]])
+def test_run_deconvolution_figures_dir_without_verbose_matches_jax_cli(
+        f64, tmp_path, monkeypatch, small_pngs, extra):
+    """--dir-output-figures without --verbose is a no-op in the reference
+    (nsol_tpu/cli/run_deconvolution.py:292-294): the port takes the flag,
+    writes the JAX CLI's result and creates no figures directory."""
+    from nsol_tpu_torch.cli import run_deconvolution
+
+    figs = tmp_path / "figs"
+    argv = ["--observation", small_pngs["blur"], "--iterations", "4",
+            "--iter-max", "3", "--dir-output-figures", str(figs)] + extra
+    _jax_cli("run_deconvolution", argv + ["--result",
+                                          str(tmp_path / "jax.mat")],
+             monkeypatch)
+    assert run_deconvolution.main(argv + ["--result",
+                                          str(tmp_path / "port.mat"),
+                                          "--device", "cpu"]) == 0
+    _close(_mat(str(tmp_path / "port.mat")), _mat(str(tmp_path / "jax.mat")))
+    assert not figs.exists()
+
+
 def test_run_deconvolution_reference_and_robust_pd_match_jax_cli(
         f64, tmp_path, monkeypatch, small_pngs):
     """--reference (the observer's similarity measures) and a robust
@@ -844,6 +865,15 @@ def test_unported_messages_name_roadmap_items_by_title(tmp_path):
         lambda: run_deconvolution.main(["--observation", obs, "--result",
                                         str(tmp_path / "x.nii.gz"),
                                         "--minimizer", "lsq_linear",
+                                        "--device", "cpu"]),
+        lambda: run_deconvolution.main(["--observation", obs, "--result",
+                                        str(tmp_path / "x.nii.gz"), "--trace",
+                                        str(tmp_path / "t"), "--device",
+                                        "cpu"]),
+        lambda: run_deconvolution.main(["--observation", obs, "--result",
+                                        str(tmp_path / "x.nii.gz"),
+                                        "--dir-output-figures",
+                                        str(tmp_path / "f"), "--verbose", "1",
                                         "--device", "cpu"]),
         lambda: TT.tikhonov_solve(ident, ident, ident, ident,
                                   torch.ones(3), 0.0, torch.ones(3), 0.1,

@@ -10,6 +10,8 @@ plain versions on the card and skip without one:
     python -m pytest --noconftest -m cuda tests/test_torch_scale.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
@@ -17,6 +19,7 @@ import scipy.ndimage as ndi
 torch = pytest.importorskip("torch")
 
 from nsol_tpu_torch import interop  # noqa: E402
+from nsol_tpu_torch.ops.conv import blur_factors  # noqa: E402
 from nsol_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
 from nsol_tpu_torch.ops.cuda import blocked as B  # noqa: E402
 from nsol_tpu_torch.ops.cuda import fused as F  # noqa: E402
@@ -350,12 +353,14 @@ def test_tiled_robust_solve_equals_the_per_axis_solve():
 #: (σ, shape, the linear auto mode, whether the robust sweep is tiled, the
 #: explicit modes that raise): the blur widens past what the tiled units'
 #: shared memory holds — the weighted apply first (blur half-width 7), then
-#: the CG step's two windows, then the normal apply (half-width 24)
+#: the CG step's two windows, then the normal apply (the march holds blur
+#: half-width 12, σ = 4, and not 14)
 WIDE_BLURS = [
     (2.0, (32, 512, 16), "apply", True, ()),
     (2.5, (32, 512, 16), "apply", False, ()),
     (3.5, (64, 512, 16), "apply", False, ("step2d",)),
-    (4.0, (64, 512, 16), "step", False, ("apply", "step2d")),
+    (4.0, (64, 512, 16), "apply", False, ("step2d",)),
+    (4.5, (64, 512, 16), "step", False, ("apply", "step2d")),
 ]
 
 
@@ -390,8 +395,8 @@ def test_smem_bytes_bounds_the_tiled_units():
     """The shared-memory sizes of ``csrc/tiled.cu`` at σ = 1 (7 blur, 13
     normal taps a side) and at the edge of the weighted apply: blur
     half-width 6 fits, 7 does not."""
-    assert T.smem_bytes((13, 13, 13)) == 65020
-    assert T.smem_bytes((13, 13, 13), nin=2) == 74876
+    assert T.smem_bytes((13, 13, 13)) == 61040
+    assert T.smem_bytes((13, 13, 13), nin=2) == 71792
     assert T.smem_bytes((7, 7, 7), nin=1, lap=False) < T.smem_bytes(
         (7, 7, 7), nin=2)
     assert T.smem_bytes((7, 7, 7), weighted=True) == 103140
@@ -400,6 +405,35 @@ def test_smem_bytes_bounds_the_tiled_units():
     assert T.smem_bytes((15, 15, 15), weighted=True) > T.MAX_SMEM
     with pytest.raises(ValueError, match="past the 232448"):
         T.require_fit("weighted_apply_zy", (15, 15, 15), weighted=True)
+
+
+def _smem_before(lengths, nin, lap):
+    """A single-stencil unit's shared memory a block in ``csrc/tiled.cu``
+    before its march was redesigned (two float windows per input, the
+    convolved window, an xy ring of 2h + 1 planes): the sizes by which the
+    solves routed to the tiled units then."""
+    kz, ky, kx = lengths
+    hz, hy, hx = (max(k // 2, 1) for k in lengths)
+    wy, wx = T.TILE_Y + 2 * hy, T.TILE_X + 2 * hx
+    words = (kz + ky + kx + wy + wx + (2 * nin + 1) * wy * wx
+             + wy * T.TILE_X + (2 * hz + 1) * T.TILE_Y * T.TILE_X
+             + (hz + 2) * (T.TILE_Y + 2) * (T.TILE_X + 2) * lap)
+    return 4 * words
+
+
+@pytest.mark.parametrize("nin, lap", [(1, True), (2, True), (1, False)])
+def test_march_routes_every_length_it_routed_before(nin, lap):
+    """The redesigned march (16-byte window rows, no convolved window, the
+    z ring in registers or, for other lengths, in shared memory) holds
+    every stencil that the tiled units held before, in every form the
+    routes launch; and route_fits still sends σ up to 4 to the tiled
+    units."""
+    for lengths in itertools.product(range(1, 100, 2), repeat=3):
+        if _smem_before(lengths, nin, lap) <= T.MAX_SMEM:
+            assert T.smem_bytes(lengths, nin, lap) <= T.MAX_SMEM, lengths
+    for sigma in (0.5, 1.0, 2.0, 3.0, 4.0):
+        factors = blur_factors(np.diag([sigma ** 2] * 3), 3, None)
+        assert T.route_fits(factors, "apply"), sigma
 
 
 @pytest.mark.parametrize("loss", ["linear", "huber"])
@@ -484,6 +518,22 @@ def test_cuda_tiled_units_match_plain_on_card(cuda_device, shape, case):
     st = B.Stencils.from_cov(cov, 3, spacing, cuda_device)
     _assert_pairs_agree(_chip_smoke().tiled_unit_pairs(
         T, B, st, shape, cuda_device, np.random.RandomState(12)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("case", range(len(EDGE_COVS)))
+def test_cuda_march_equals_three_pass_bit_for_bit(cuda_device, shape, case):
+    """Every form of the march units (normal_apply_zy plain / dot /
+    residual in float32 and bfloat16 io, cg_step_zy, blur_apply_zy's four
+    forms) equals its three-pass unit bit for bit on tile-edge shapes, at
+    σ = 1 (compile-time taps) and at the other lengths."""
+    cov, spacing = EDGE_COVS[case]
+    st = B.Stencils.from_cov(cov, 3, spacing, cuda_device)
+    cs = _chip_smoke()
+    cs.require_bits(cs.tiled_three_pass_pairs(T, R, B, st, shape,
+                                              cuda_device, 30 + case),
+                    "march %s %s" % (case, shape))
 
 
 @pytest.mark.cuda
