@@ -2139,12 +2139,16 @@ BIG_BIT_SEEDS = (204, 304, 404)
 #: fixed), the compact ones are printed beside theirs
 APPLY_OBJECTIVES = {"apply_exact": 165421.769, "apply_dirs": 165421.769,
                     "apply_state": 165520.905}
-#: the tiled units' tile-edge cases: (label, cov, spacing, shape)
+#: the tiled units' tile-edge cases: (label, cov, spacing, shape); the
+#: last two copy their windows in 16-byte groups (X a multiple of 8) or
+#: only their float ones (X a multiple of 4)
 EDGE_CASES = (
     ("edge", np.diag([1.0] * 3), None, (13, 530, 37)),
     ("spacing", np.diag([1.0] * 3), (1.0, 1.5, 0.8), (70, 45, 33)),
     ("sigma_y>sigma_z", np.diag([0.64, 4.0, 0.64]), None, (16, 40, 37)),
-    ("aniso", np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (13, 530, 37)))
+    ("aniso", np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (13, 530, 37)),
+    ("x%8", np.diag([1.0] * 3), None, (9, 36, 88)),
+    ("x%4", np.diag([1.0] * 3), None, (9, 36, 76)))
 #: per-axis stencil lengths of each tiled unit's chain at σ = 1 (the
 #: normal taps, or the blur taps twice over for the weighted apply)
 TILED_TAPS = {"normal_apply_zy": (13, 13, 13), "cg_step_zy": (13, 13, 13),
@@ -2310,13 +2314,31 @@ def tiled_unit_pairs(T, B, st, shape, device, rng):
     return out
 
 
+#: isotropic blurs about the widest the weighted march holds (13, 15, 15
+#: and 17 taps a side)
+FIT_SIGMAS = (2.0, 2.1, 2.3, 2.4)
+
+
+def widest_weighted_blur(T, B):
+    """``(σ, σ')``: the widest blur of :data:`FIT_SIGMAS` whose taps the
+    weighted march's shared memory holds (``tiled.smem_bytes``, the
+    routing rule), and the next one, which it does not."""
+    fits = [T.smem_bytes(B.Stencils.from_cov(np.diag([s ** 2] * 3)).blur
+                         .lengths, weighted=True) <= T.MAX_SMEM
+            for s in FIT_SIGMAS]
+    k = fits.index(False)
+    require(k > 0 and not any(fits[k:]), "phase 20: the weighted march "
+            "holds blurs %s" % dict(zip(FIT_SIGMAS, fits)))
+    return FIT_SIGMAS[k - 1], FIT_SIGMAS[k]
+
+
 def tiled_fit_checks(T, B, device):
     """The tiled units' shared memory: its size in C (``nsol_tiled_smem``)
     and in Python (``tiled.smem_bytes``, by which the solves route before
-    any launch) agree; at σ = 2, the widest isotropic blur the weighted
-    apply holds, every unit matches its plain version; at σ = 2.1 the
-    weighted apply's wrapper raises before any launch. Returns the largest
-    max |Δ| / max |ref| at σ = 2."""
+    any launch) agree; at the widest isotropic blur the weighted apply
+    holds (:func:`widest_weighted_blur`) every unit matches its plain
+    version; at the next one the weighted apply's wrapper raises before any
+    launch. Returns that σ and the largest max |Δ| / max |ref| there."""
     import torch
 
     from nsol_tpu_torch.ops.cuda import build
@@ -2329,13 +2351,15 @@ def tiled_fit_checks(T, B, device):
                 py = T.smem_bytes(lengths, form[0], *map(bool, form[1:]))
                 require(c == py, "phase 20: shared memory of %s %s: C %d, "
                         "Python %d" % (lengths, form, c, py))
-    st = B.Stencils.from_cov(np.diag([4.0] * 3), 3, None, device)
+    sigma, past = widest_weighted_blur(T, B)
+    st = B.Stencils.from_cov(np.diag([sigma ** 2] * 3), 3, None, device)
     res = tiled_unit_pairs(T, B, st, (40, 64, 40), device,
                            np.random.RandomState(15))
     torch.cuda.synchronize()
     rel = max(max_rel(g, q) for v in res.values() for g, q in v)
-    require(rel <= KERNEL_TOL, "phase 20: units at sigma 2 rel %.3g" % rel)
-    wide = B.Stencils.from_cov(np.diag([2.1 ** 2] * 3), 3, None, device)
+    require(rel <= KERNEL_TOL, "phase 20: units at sigma %g rel %.3g"
+            % (sigma, rel))
+    wide = B.Stencils.from_cov(np.diag([past ** 2] * 3), 3, None, device)
     r = torch.ones((40, 64, 40), device=device)
     before = T.weighted_apply_zy.launches
     try:
@@ -2346,7 +2370,7 @@ def tiled_fit_checks(T, B, device):
         refused = True
     require(refused and T.weighted_apply_zy.launches == before,
             "phase 20: weighted_apply_zy took a blur past its shared memory")
-    return rel
+    return sigma, rel
 
 
 def tiled_three_pass_pairs(T, R, B, st, shape, device, seed):
@@ -2435,29 +2459,154 @@ def require_bits(pairs, what):
     return ", ".join(pairs)
 
 
-def march_ptxas():
-    """The ptxas report of the march (``csrc/tiled.cu``'s
-    ``stencil_zy_kernel``), one entry an instance: ``{its template
-    arguments: (registers, spill bytes, resident warps an SM by its
-    registers)}`` (128-thread blocks; 65536 registers an SM, allocated 256
-    a warp). Empty where the library came from the cache."""
+def _cg_scalars(device):
+    import torch
+
+    return torch.tensor([3.0, 0.0, 0.0, 0.83], dtype=torch.float64,
+                        device=device)
+
+
+def weighted_inputs(shape, device, seed):
+    """``(r, p, wts, free)`` of the weighted applies on the card, from a
+    seeded generator: r, p in [-0.5, 0.5), wts in [0.1, 1.1), free a
+    {0, 1} field."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, p = (torch.rand(shape, generator=g, device=device) - 0.5
+            for _ in range(2))
+    wts = torch.rand(shape, generator=g, device=device) + 0.1
+    free = (torch.rand(shape, generator=g, device=device) > 0.3).float()
+    return r, p, wts, free
+
+
+def weighted_three_pass_bits(T, R, st, shape, device, seed):
+    """``weighted_apply_zy`` against the three-pass ``weighted_apply`` on
+    the same random inputs, in every storage mode, masked or not, on the
+    first trip and after: fails unless p' and q hold the same bits in
+    each, and returns the forms checked, as text. The CG scalars are left
+    out: their sums run in another order. One form at a time, so that
+    512³ fits beside the inputs."""
+    import torch
+
+    r, p, wts, free = weighted_inputs(shape, device, seed)
+    forms = []
+    for storage in R.ROBUST_STORAGE:
+        ps = p.to(R.direction_dtype(storage) or torch.float32)
+        for f in (free, None):
+            for first in (False, True):
+                form = "%s%s%s" % (storage, "" if f is None else " masked",
+                                   " first" if first else "")
+                kw = dict(first=first, storage=storage)
+                got = T.weighted_apply_zy(r, ps, f, wts, _cg_scalars(device),
+                                          st.blur, st.inv_h2, RHO, **kw)
+                ref = R.weighted_apply(r, ps, f, wts, _cg_scalars(device),
+                                       st.blur, st.inv_h2, RHO, **kw)
+                require_bits({form + " p'": (got[0], ref[0]),
+                              form + " q": (got[1], ref[1])},
+                             "weighted march %s seed %d" % (
+                                 "x".join(map(str, shape)), seed))
+                forms.append(form)
+                del got, ref
+    return ", ".join(forms)
+
+
+def weighted_turns(T, st, shape, device, seed, reps=5):
+    """Device ms (:func:`device_ms_of`) of ``weighted_apply_zy``'s float32
+    and "io" instances in the main paths' form (masked, after the first
+    trip), in turns f32, io, io, f32: ``{"exact": [ms, ms], "io": [ms,
+    ms]}``."""
+    import torch
+
+    r, p, wts, free = weighted_inputs(shape, device, seed)
+    pb = p.to(torch.bfloat16)
+    calls = {
+        "exact": lambda: T.weighted_apply_zy(r, p, free, wts,
+                                             _cg_scalars(device), st.blur,
+                                             st.inv_h2, RHO),
+        "io": lambda: T.weighted_apply_zy(r, pb, free, wts,
+                                          _cg_scalars(device), st.blur,
+                                          st.inv_h2, RHO, storage="io")}
+    out = {"exact": [], "io": []}
+    for k in ("exact", "io", "io", "exact"):
+        out[k].append(device_ms_of(calls[k], reps))
+    return out
+
+
+def weighted_window(R):
+    """``R._weighted_apply_prepadded`` (its ``chain`` argument picks the
+    route), or None for a package whose window unit has one route, the
+    three-pass chain, and so no such helper."""
+    return getattr(R, "_weighted_apply_prepadded", None)
+
+
+def weighted_window_pairs(R, st, shape, device, seed):
+    """``weighted_apply_prepadded``'s tiled march against its three-pass
+    chain on one window of ``shape[0]`` planes per ``row0`` (the first, a
+    middle and the last of a volume of 3 · ``shape[0]`` rows), in float32
+    and in bfloat16 io: ``{"f32 row0 k": (tiled, chain), ...}`` (empty
+    where :func:`weighted_window` is None)."""
+    import torch
+
+    helper = weighted_window(R)
+    if helper is None:
+        return {}
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = R.weighted_halo(st.blur)
+    ext = (shape[0] + 2 * h,) + tuple(shape[1:])
+    v = torch.rand(ext, generator=g, device=device)
+    w = torch.rand(ext, generator=g, device=device) + 0.1
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("io", torch.bfloat16)):
+        vd, wd = v.to(dtype), w.to(dtype)
+        for row0 in (0, shape[0], 2 * shape[0]):
+            args = (vd, wd, st.blur, st.inv_h2, RHO, row0, 3 * shape[0])
+            out["%s row0 %d" % (label, row0)] = (helper(*args, chain=False),
+                                                 helper(*args, chain=True))
+    return out
+
+
+def kernel_ptxas(kernel, threads):
+    """The ptxas report of ``csrc/tiled.cu``'s ``kernel``, one entry an
+    instance: ``{its template arguments: (registers, spill bytes, resident
+    warps an SM by its registers)}`` for blocks of ``threads`` (65536
+    registers an SM, allocated 256 a warp; at most 64 warps an SM). Empty
+    where the library came from the cache."""
     from nsol_tpu_torch.ops.cuda import build
 
+    warps = threads // 32
     out, entry, spills = {}, None, 0
     for ln in build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            entry = entry if "stencil_zy_kernel" in entry else None
+            entry = entry if kernel in entry else None
         elif entry and "spill stores" in ln:  # reported before "Used"
             spills = int(ln.split("bytes spill stores")[0].split()[-1])
         elif entry and "registers" in ln:
             regs = int(ln.split("Used")[1].split()[0])
             per_warp = -(-regs * 32 // 256) * 256
-            blocks = min(16, 65536 // (per_warp * 4))
-            out[entry.split("stencil_zy_kernel", 1)[1].split("Ev")[0]] = (
-                regs, spills, 4 * blocks)
+            blocks = min(64 // warps, 65536 // (per_warp * warps))
+            out[entry.split(kernel, 1)[1].split("Ev")[0]] = (
+                regs, spills, warps * blocks)
             entry = None
     return out
+
+
+def march_ptxas():
+    """:func:`kernel_ptxas` of the single-stencil march
+    (``stencil_zy_kernel``, 128-thread blocks)."""
+    return kernel_ptxas("stencil_zy_kernel", 128)
+
+
+#: threads a block of the weighted march (``csrc/tiled.cu``'s
+#: kWeightedThreads)
+WEIGHTED_THREADS = 256
+
+
+def weighted_ptxas():
+    """:func:`kernel_ptxas` of the weighted march (``weighted_zy_kernel``,
+    :data:`WEIGHTED_THREADS`-thread blocks)."""
+    return kernel_ptxas("weighted_zy_kernel", WEIGHTED_THREADS)
 
 
 def scale_problem(device, robust, shape=BIG):
@@ -2515,11 +2664,13 @@ def run_scale_phases(device, card):
     print("phase 20 cg_direction vs plain %s, in place: %d kernel calls "
           "within their band, the same bits at every offset"
           % (stream_cases_text(), checked))
-    fit_rel = tiled_fit_checks(T, B, device)
+    fit_sigma, fit_rel = tiled_fit_checks(T, B, device)
     print("phase 20 shared memory: C and Python sizes agree; units at "
-          "sigma 2 (blur %s taps) vs plain %.2e; sigma 2.1 refused before "
-          "launch" % (B.Stencils.from_cov(np.diag([4.0] * 3)).blur.lengths,
-                      fit_rel))
+          "sigma %g (blur %s taps, the widest the weighted march holds) vs "
+          "plain %.2e; sigma %g refused before launch" % (
+              fit_sigma, B.Stencils.from_cov(
+                  np.diag([fit_sigma ** 2] * 3)).blur.lengths, fit_rel,
+              widest_weighted_blur(T, B)[1]))
     # ... each march unit, every form, bit for bit against its three-pass
     # unit: the tile-edge shapes (the runtime-length instance where the
     # taps differ from 13 / 7 a side) and 512³ (a multi-wave grid) on
@@ -2539,6 +2690,32 @@ def run_scale_phases(device, card):
     print("phase 20 march ptxas (template arguments: registers, spill "
           "bytes, resident warps an SM of 64 by registers): %s"
           % (march_ptxas() or "cached"))
+    # ... the weighted march, every storage mode and form, bit for bit
+    # against the three-pass weighted_apply on the same cases
+    for i, (label, cov, sp, shape) in enumerate(EDGE_CASES + (
+            ("512^3", np.diag([SIGMA ** 2] * 3), None, BIG),)):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        for seed in BIG_BIT_SEEDS if shape == BIG else (210 + i,):
+            forms = weighted_three_pass_bits(T, R, st, shape, device, seed)
+            torch.cuda.empty_cache()
+    print("phase 20 weighted march equals the three-pass weighted_apply bit "
+          "for bit (p', q) on %s, 512^3 (seeds %s): %s" % (
+              ", ".join(c[0] for c in EDGE_CASES),
+              ", ".join(map(str, BIG_BIT_SEEDS)), forms))
+    print("phase 20 weighted march ptxas (template arguments: registers, "
+          "spill bytes, resident warps an SM of 64 by registers, %d-thread "
+          "blocks): %s" % (WEIGHTED_THREADS, weighted_ptxas() or "cached"))
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
+    w_turns = weighted_turns(T, st, BIG, device, 23)
+    torch.cuda.empty_cache()
+    print("phase 20 weighted_apply_zy 512^3 device ms (torch.profiler "
+          "medians, masked, turns f32, io, io, f32): f32 %s, io %s; bound "
+          "f32 %.4f, io %.4f [%s]" % (
+              "/".join(map(ms_text, w_turns["exact"])),
+              "/".join(map(ms_text, w_turns["io"])),
+              unit_bound("weighted_apply_zy", BIG_N, TILED_TAPS[
+                  "weighted_apply_zy"])[0],
+              compact_bound("weighted_apply_zy[io]", BIG)[0], card))
     # ... and at 512³: times beside the plain version and the three-pass unit
     st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
     checks, calls = tiled_calls(T, R, B, st, BIG, device,
@@ -3641,9 +3818,13 @@ def run_sharded_phases(device, card):
     for i, (label, cov, sp, shape) in enumerate(EDGE_CASES + (
             ("image", np.diag([1.0] * 3), None, (1, 40, 33)),)):
         st = B.Stencils.from_cov(cov, 3, sp, device)
-        # normal_apply_prepadded's tiled march equals its three-pass chain
+        # normal_apply_prepadded's and weighted_apply_prepadded's tiled
+        # marches equal their three-pass chains
         require_bits(window_route_pairs(B, st, shape, device, 260 + i),
                      "phase 26 normal_apply_prepadded %s" % label)
+        w_forms = require_bits(weighted_window_pairs(R, st, shape, device,
+                                                     270 + i),
+                               "phase 26 weighted_apply_prepadded %s" % label)
         rels = {}
         for form, name, with_lap in WINDOW_FORMS:
             h = window_halo(B, R, name, st)
@@ -3659,10 +3840,11 @@ def run_sharded_phases(device, card):
             require(rel <= KERNEL_TOL, "phase 26: %s %s %s rel %.3g > %g"
                     % (k, label, shape, rel, KERNEL_TOL))
         print("phase 26 window units %s %s: %s; normal_apply_prepadded "
-              "tiled = three-pass chain bit for bit at row0 0, %d, %d" % (
+              "tiled = three-pass chain bit for bit at row0 0, %d, %d; "
+              "weighted_apply_prepadded tiled = chain bit for bit: %s" % (
                   label, "x".join(map(str, shape)),
                   ", ".join("%s %.2e" % kv for kv in rels.items()),
-                  shape[0], 2 * shape[0]))
+                  shape[0], 2 * shape[0], w_forms or "no tiled route"))
     # ... 4 slabs of one 256³ volume assembled against the whole-volume
     # units (the global boundary rows land on the first and last slab) ...
     iso = np.diag([SIGMA ** 2] * 3)
@@ -3732,6 +3914,35 @@ def run_sharded_phases(device, card):
             require(B.window_route(st.normal) == "tiled", "phase 26: the "
                     "sigma = 1 window does not take the tiled march")
             win_dev = [device_ms_of(f, 10) for f in (zy, kf, kf, zy, chain)]
+        if name == "weighted_apply_prepadded":
+            # device ms of the window, f32 and io, in turns with the
+            # whole-volume weighted march in the window's form (no mask,
+            # first trip), and of the three-pass chains
+            helper = weighted_window(R)
+            vb, wb = v.to(torch.bfloat16), w.to(torch.bfloat16)
+
+            def wzy():
+                return T.weighted_apply_zy(vc, None, None, wc,
+                                           _cg_scalars(device), st.blur,
+                                           st.inv_h2, RHO, first=True)
+
+            def wio():
+                return R.weighted_apply_prepadded(vb, wb, st.blur, st.inv_h2,
+                                                  RHO, 0, BIG[0])
+
+            def wchain(a, b):
+                if helper is None:  # the window unit is the chain
+                    return lambda: R.weighted_apply_prepadded(
+                        a, b, st.blur, st.inv_h2, RHO, 0, BIG[0])
+                return lambda: helper(a, b, st.blur, st.inv_h2, RHO, 0,
+                                      BIG[0], chain=True)
+
+            require(helper is None or B.window_route(st.blur, True)
+                    == "tiled", "phase 26: the sigma = 1 weighted window "
+                    "does not take the tiled march")
+            wwin_dev = [device_ms_of(f, 5) for f in (
+                wzy, kf, wio, wio, kf, wzy, wchain(v, w), wchain(vb, wb))]
+            del vb, wb
         if with_lap:
             del vc, wc
         del v, w, kf, pf
@@ -3745,6 +3956,20 @@ def run_sharded_phases(device, card):
           "[%s]" % (BIG[0] + 2 * B.prepadded_halo(st.normal),
                     "/".join(map(ms_text, win_dev[:4])), ms_text(win_dev[4]),
                     card))
+    w_ratio = (BIG[0] + 2.0 * R.weighted_halo(st.blur)) / BIG[0]
+    w_reads = window_reads(B, R, "weighted_apply_prepadded", st, BIG[0])
+    print("phase 26 weighted_apply_prepadded 512^3 (%d planes in), device ms "
+          "(torch.profiler medians, turns whole-volume weighted_apply_zy in "
+          "the window's form, window f32, window io, io, f32, "
+          "weighted_apply_zy): %s; the three-pass chains f32 %s, io %s; "
+          "bound f32 %.4f, io %.4f [%s]" % (
+              BIG[0] + 2 * R.weighted_halo(st.blur),
+              "/".join(map(ms_text, wwin_dev[:6])), ms_text(wwin_dev[6]),
+              ms_text(wwin_dev[7]),
+              unit_bound("weighted_apply_prepadded", BIG_N, st.blur.lengths,
+                         ext=w_ratio, reads=w_reads)[0],
+              unit_bound("weighted_apply_prepadded", BIG_N, st.blur.lengths,
+                         ext=w_ratio, reads=w_reads)[0] / 2, card))
     print("phase 26 512^3 a wrapper call by CUDA events (window / plain / "
           "whole-volume per-axis unit ms, bound ms): %s; the blur without "
           "its Laplacian term (A y) %.3f "
@@ -3915,7 +4140,9 @@ def run_sharded_phases(device, card):
             "err": err,
             "times": {k: (t[0], t[1], t[2]) + (
                 (mean_ms(win_dev[1:3]), None)
-                if k == "normal_apply_prepadded" else ())
+                if k == "normal_apply_prepadded" else
+                (mean_ms([wwin_dev[1], wwin_dev[4]]), None)
+                if k == "weighted_apply_prepadded" else ())
                 for k, t in times.items()},
             "taps": taps, "ext": ext_ratio, "reads": reads}
 
@@ -4502,7 +4729,7 @@ PD_SURFACE_UNITS = {
                         "nsol_tpu_torch/csrc/pd.cu"),
     "weighted_apply_prepadded[io]": (
         "weighted_apply_prepadded", "nsol_tpu/ops/pallas/robust.py:264",
-        "nsol_tpu_torch/csrc/robust.cu"),
+        "nsol_tpu_torch/csrc/tiled.cu"),
 }
 
 
@@ -5307,6 +5534,7 @@ SOURCES = {
 #: units whose kernel lives in another source than their group's
 KERNEL_SOURCE = {"cg_direction": "nsol_tpu_torch/csrc/stream.cuh",
                  "normal_apply_prepadded": "nsol_tpu_torch/csrc/tiled.cu",
+                 "weighted_apply_prepadded": "nsol_tpu_torch/csrc/tiled.cu",
                  "tik_clip": "nsol_tpu_torch/csrc/stream.cuh"}
 
 

@@ -45,7 +45,10 @@
 //                   w_ext as bfloat16 and stores out in bfloat16, rounded
 //                   once; the arithmetic and the scratch stay float.
 // Both run stencil.cuh's window chain (x and y passes on every plane of the
-// window, a z pass with no wrap) and GlobalRows.
+// window, a z pass with no wrap) and GlobalRows; weighted_apply_prepadded
+// runs it only where its taps do not fit a block of tiled.cu's weighted
+// march, which the wrapper takes otherwise (no scratch volumes, the C
+// entry handing it on).
 //
 // Storage (the reference's compact_dirs / io_dtype, stencil.cuh's
 // RobustStorage): weighted_apply and the sweep take a mode. kRobustDirs
@@ -396,20 +399,33 @@ int nsol_blur_apply_prepadded(const float* y_ext, const float* u_ext, float* out
   return (int)e;
 }
 
+// tiled.cu's weighted march over a window.
+int nsol_weighted_apply_window_zy(const void* v_ext, const void* w_ext, void* out,
+                                  const float* taps, int kz, int ky, int kx, float rho,
+                                  float ih2x, float ih2y, float ih2z, int halo, int row0,
+                                  int z_total, int Zl, int Y, int X, int io, void* stream);
+
 // v_ext, w_ext: (Zl + 2 halo, Y, X) with halo >= kz / 2; out: (Zl, Y, X);
-// all three float, or bfloat16 with `io`; t1, t2: Zl + 2 halo float planes.
+// all three float, or bfloat16 with `io`; t1, t2: Zl + 2 halo float planes,
+// or both null for the one-pass weighted march (tiled.cu), which the
+// wrapper takes where its shared memory holds the taps (halo 2 (kz / 2),
+// kz >= 3).
 int nsol_weighted_apply_prepadded(const void* v_ext, const void* w_ext, void* out, float* t1,
                                   float* t2, const float* taps, int kz, int ky, int kx,
                                   float rho, float ih2x, float ih2y, float ih2z, int halo,
                                   int row0, int z_total, int Zl, int Y, int X, int io,
                                   void* stream, long long* counts) {
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = weighted_apply_prepadded(v_ext, w_ext, out, t1, t2,
-                                           make_taps(taps, kz, ky, kx), rho, halo, row0,
-                                           z_total, io, sp, Dims{Zl, Y, X},
-                                           (cudaStream_t)stream);
+  const int e =
+      t1 == nullptr
+          ? nsol_weighted_apply_window_zy(v_ext, w_ext, out, taps, kz, ky, kx, rho, ih2x, ih2y,
+                                          ih2z, halo, row0, z_total, Zl, Y, X, io, stream)
+          : (int)weighted_apply_prepadded(v_ext, w_ext, out, t1, t2,
+                                          make_taps(taps, kz, ky, kx), rho, halo, row0,
+                                          z_total, io, sp, Dims{Zl, Y, X},
+                                          (cudaStream_t)stream);
   counts[kWeightedApplyPre] += 1;
-  return (int)e;
+  return e;
 }
 
 // The tiled units of tiled.cu (the 512-wide-plane route), which add to

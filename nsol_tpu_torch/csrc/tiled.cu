@@ -38,14 +38,17 @@
 // weights read as bf16 and the core rounded under kRobustIo
 // (robust.py:564's io_dtype).
 //
-// The window unit. normal_apply_prepadded (admm.cu's C entry, the sharded
+// The window units. normal_apply_prepadded (admm.cu's C entry, the sharded
 // path's blocked.py:478) is the normal apply's march over the Zl + 2 hd
-// planes of a z-window: plane k of the march is plane k of the window, with
-// no z wrap; x and y wrap as in the whole volume, and the Laplacian takes
-// its zero-boundary z rows only at global rows 0 and z_total - 1
-// (stencil.cuh's GlobalRows rule). Where its taps do not fit a block
-// (ops/cuda/tiled.py::route_fits's rule), the window keeps stencil.cuh's
-// three-pass chain.
+// planes of a z-window, and weighted_apply_prepadded (robust.cu's C entry,
+// robust.py:264 with prepadded=True) the weighted march's over the Zl +
+// 4 hz planes of v_ext and w_ext (no direction, mask or dot; v, w and out
+// float, or bfloat16 with the arithmetic in float): plane k of the march
+// is plane k of the window, with no z wrap; x and y wrap as in the whole
+// volume, and the Laplacian takes its zero-boundary z rows only at global
+// rows 0 and z_total - 1 (stencil.cuh's GlobalRows rule). Where their taps
+// do not fit a block (ops/cuda/tiled.py::smem_bytes, blocked.py::
+// window_route), the windows keep stencil.cuh's three-pass chains.
 //
 // Design of the single-stencil march (normal_apply_zy, cg_step_zy,
 // blur_apply_zy and the window unit). A block of 128 threads owns an
@@ -76,10 +79,10 @@
 // (with a one-voxel halo) ride in a second ring for the Laplacian, whose
 // two global boundary rows per axis come from the voxel's coordinates
 // (grad.py::gradient_normal), not from the wrapped window. The weighted
-// unit keeps its own kernel of two marches in one block (one output a
-// thread, one shared-memory load per tap, the xy planes in shared-memory
-// rings): the first blurs pf onto the tile extended by the blur halo and
-// multiplies by wts there, the second blurs that back to the centre.
+// unit has its own march of two stencils in one block (the note at
+// weighted_zy_kernel): the first blurs pf onto the tile extended by the
+// blur halo and multiplies by wts there, the second blurs that back to
+// the centre, a plane behind.
 //
 // What bounds them on the H100. Bytes would bound normal_apply_zy at 512^3
 // at 0.32 ms (v read once, q written once); the march takes about 1.2 ms
@@ -122,8 +125,6 @@ enum TiledUnit {
 constexpr int kTileY = 16;
 constexpr int kTileX = 32;  // one warp across a tile row
 constexpr int kTileZ = 128;  // planes a block marches through
-constexpr int kWeightedRows = kTileY;  // blockDim (kTileX, kWeightedRows)
-constexpr int kWeightedThreads = kTileX * kWeightedRows;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
 // the raw centre tiles carry a one-voxel halo for the Laplacian
 constexpr int kRawW = kTileX + 2;
@@ -142,13 +143,6 @@ __host__ __device__ constexpr Width width_of(int n) {
   return Width{n, (unsigned)((0x100000000ull + (unsigned long long)n - 1) / (unsigned)n)};
 }
 
-// A (rows x w.n) loop over the linear index of the whole block: neighbouring
-// threads take neighbouring elements, every lane busy.
-#define TILE_LOOP(r, c, rows, w)                                                     \
-  for (int e_ = thread_rank(), r = 0, c = 0; e_ < (rows) * (w).n;                   \
-       e_ += blockDim.x * blockDim.y)                                                \
-    if (r = (w).row(e_), c = e_ - r * (w).n, true)
-
 __device__ __forceinline__ int wrap_index(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
@@ -166,99 +160,6 @@ __device__ __forceinline__ int slot_next(int slot, int depth) {
 }
 
 __device__ __forceinline__ int thread_rank() { return threadIdx.y * blockDim.x + threadIdx.x; }
-
-// The block's constants in shared memory, once: the taps (z, y, x, one
-// buffer) and the wrapped window's row offsets (y X) and columns, so that
-// no loop over a plane divides.
-__device__ void block_tables(float* taps, Taps tp, int* rows, int* cols, int y0, int x0, int hy,
-                             int hx, int wy, int wx, Dims d) {
-  const int nt = blockDim.x * blockDim.y;
-  for (int i = thread_rank(); i < tp.kz + tp.ky + tp.kx; i += nt) taps[i] = tp.z[i];
-  for (int i = thread_rank(); i < wy; i += nt) rows[i] = wrap_index(y0 - hy + i, d.Y) * d.X;
-  for (int i = thread_rank(); i < wx; i += nt) cols[i] = wrap_index(x0 - hx + i, d.X);
-}
-
-// Start the asynchronous copy of one plane's (wy x wx) window into dst. A
-// bfloat16 volume (or a float one read as bfloat16, As) has no 2-byte
-// asynchronous copy: it is loaded, widened (rounded) and stored at once.
-template <class T, class As = T>
-__device__ __forceinline__ void copy_window(float* dst, const T* __restrict__ src,
-                                             long long plane_off, const int* rows,
-                                             const int* cols, int wy, Width w) {
-  const T* plane = src + plane_off;
-  if constexpr (std::is_same<T, float>::value && std::is_same<As, float>::value) {
-    TILE_LOOP(r, c, wy, w)
-    __pipeline_memcpy_async(dst + r * w.n + c, plane + rows[r] + cols[c], sizeof(float));
-  } else {
-    TILE_LOOP(r, c, wy, w) dst[r * w.n + c] = round_as<As>(ldg(plane + rows[r] + cols[c]));
-  }
-}
-
-// A stencil over a (rows x w.n) tile: out(r, c, sum_j k[j] tap(r, c, j)).
-// Each thread takes kR elements at once (its linear index + m threads), so
-// that kR independent tap chains hide the shared-memory latency; elements
-// past the tile read its last one and are not written.
-template <int kR, class Tap, class Out>
-__device__ __forceinline__ void row_taps(int rows, Width w, const float* k, int K, const Tap& tap,
-                                         const Out& out) {
-  const int nt = blockDim.x * blockDim.y, n = rows * w.n;
-  for (int e0 = thread_rank(); e0 < n; e0 += kR * nt) {
-    int r[kR], c[kR];
-    float acc[kR];
-#pragma unroll
-    for (int m = 0; m < kR; ++m) {
-      const int e = min(e0 + m * nt, n - 1);
-      r[m] = w.row(e);
-      c[m] = e - r[m] * w.n;
-      acc[m] = 0.f;
-    }
-    for (int j = 0; j < K; ++j) {
-      const float kj = k[j];
-#pragma unroll
-      for (int m = 0; m < kR; ++m) acc[m] = fmaf(kj, tap(r[m], c[m], j), acc[m]);
-    }
-#pragma unroll
-    for (int m = 0; m < kR; ++m)
-      if (e0 + m * nt < n) out(r[m], c[m], acc[m]);
-  }
-}
-
-// x taps along the rows of a window: out[r][c] = sum_j k[j] in[r][c + off + cx - j]
-// for r < rows, c < w.n (scipy.ndimage wrap convolution, the window
-// holding the wrapped neighbours).
-template <int kR>
-__device__ __forceinline__ void taps_x(const float* in, int win_w, float* out, int rows, Width w,
-                                       int off, const float* k, int K) {
-  const int shift = off + K / 2, cols = w.n;
-  row_taps<kR>(rows, w, k, K,
-               [=](int r, int c, int j) { return in[r * win_w + c + shift - j]; },
-               [=](int r, int c, float v) { out[r * cols + c] = v; });
-}
-
-// y taps down the columns: out[r][c] = sum_j k[j] in[r + off + cy - j][c].
-template <int kR>
-__device__ __forceinline__ void taps_y(const float* in, float* out, int rows, Width w, int off,
-                                       const float* k, int K) {
-  const int shift = off + K / 2, cols = w.n;
-  row_taps<kR>(rows, w, k, K,
-               [=](int r, int c, int j) { return in[(r + shift - j) * cols + c]; },
-               [=](int r, int c, float v) { out[r * cols + c] = v; });
-}
-
-// z taps over a ring of planes of (rows x w.n) floats, fed to out:
-// sum_j k[j] plane(step + cz - j), plane(s) in slot s % depth, s0 the slot
-// of step + cz.
-template <int kR, class Out>
-__device__ __forceinline__ void taps_z(const float* ring, int depth, int rows, Width w, int s0,
-                                       const float* k, int K, const Out& out) {
-  const int cols = w.n, n = rows * cols;
-  row_taps<kR>(rows, w, k, K,
-               [=](int r, int c, int j) {
-                 const int s = s0 - j;
-                 return ring[(s < 0 ? s + depth : s) * n + r * cols + c];
-               },
-               out);
-}
 
 // Sum of one double per thread over a (kTileX, rows) block in a fixed
 // order; valid in thread (0, 0).
@@ -279,13 +180,14 @@ __device__ __forceinline__ int block_index() {
 }
 
 // sum_ax (1/h_ax^2) D_ax^T D_ax u at the centre voxel o of three raw tiles
-// (planes z - 1, z, z + 1); the zero boundary comes from the coordinates
+// (planes z - 1, z, z + 1; rows of rw values); the zero boundary comes from the coordinates
 // c, as stencil.cuh's lap_axis has it. Its roundings are stencil.cuh's
 // laplacian's, written out with the same intrinsics in the same order
 // (ih2z az + (ih2x ax + ih2y ay), both sums fused), so that no choice of
 // the compiler's contraction sets the two apart.
 __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc, const float* zp,
-                                                int o, Coord c, Spacing sp, Dims d) {
+                                                int o, Coord c, Spacing sp, Dims d,
+                                                int rw = kRawW) {
   const float u = zc[o];
   const auto axis = [u](float lo_v, float hi_v, int coord, int n) {
     const float lo = coord > 0 ? __fsub_rn(u, lo_v) : 0.f;
@@ -293,7 +195,7 @@ __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc
     return __fadd_rn(lo, hi);
   };
   const float ax = axis(zc[o - 1], zc[o + 1], c.x, d.X);
-  const float ay = axis(zc[o - kRawW], zc[o + kRawW], c.y, d.Y);
+  const float ay = axis(zc[o - rw], zc[o + rw], c.y, d.Y);
   const float az = axis(zm[o], zp[o], c.z, d.Z);
   return __fmaf_rn(sp.ih2z, az, __fmaf_rn(sp.ih2x, ax, __fmul_rn(sp.ih2y, ay)));
 }
@@ -390,9 +292,10 @@ struct CopyPlan {
 };
 
 template <class T>
-__device__ CopyPlan copy_plan(const T* src, int wx, int X) {
+__device__ CopyPlan copy_plan(const T* src, int wx, int X, bool aligned = true) {
   constexpr int V = 16 / (int)sizeof(T);
-  const bool vec = X % V == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0;
+  const bool vec =
+      aligned && X % V == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0;
   const int n = vec ? wx / V : wx;
   return CopyPlan{n, width_of(n), vec};
 }
@@ -768,13 +671,71 @@ cudaError_t launch_stencil(const StencilArgs<In, As>& a, int nin, Epi epi, cudaS
 
 // ------------------------------------------------------------- weighted --
 
+// The weighted march: a block of 256 threads, blockDim (kTileX,
+// kWeightedRows); in the second stage each thread owns kWStrip outputs of
+// a column of the tile.
+constexpr int kWeightedThreads = 256;
+constexpr int kWeightedRows = kWeightedThreads / kTileX;
+constexpr int kWStrip = kTileY / kWeightedRows;
+// planes a block marches through: twice the other units' kTileZ, which cuts
+// the two-stage z halo's share of the steps (4 hz + 1 of them a block)
+constexpr int kWeightedTileZ = 2 * kTileZ;
+
+inline dim3 weighted_grid(Dims d) {
+  return dim3((d.X + kTileX - 1) / kTileX, (d.Y + kTileY - 1) / kTileY,
+              (d.Z + kWeightedTileZ - 1) / kWeightedTileZ);
+}
+
+// The march's storage: the whole-volume unit (r float, p and p' as S::P,
+// the weights float read at S::W, q float) or a z-window (v, the weights
+// and out as T, no direction and no mask).
+template <bool kWindow, class S, class T>
+struct WeightedIo {
+  using V = typename std::conditional<kWindow, T, float>::type;       // r or v
+  using P = typename S::P;                                            // p, p'
+  using WT = typename std::conditional<kWindow, T, float>::type;      // weights as stored
+  using W = typename std::conditional<kWindow, T, typename S::W>::type;  // read at
+  using O = typename std::conditional<kWindow, T, float>::type;       // q or out
+};
+
+// The thread's 16-byte groups of a (wy x wx) window of T (16 / sizeof(T)
+// values a group), at most two a thread, found once a launch: (source
+// offset in a plane, window offset); a source offset of -1 marks none.
+struct CopyGroups {
+  int src[2], dst[2];
+};
+
+template <class T>
+__device__ CopyGroups copy_groups(const int* rows, const int* cols, int wy, int wx) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int nq = wx / V;
+  CopyGroups q;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int e = thread_rank() + i * kWeightedThreads, r = e / nq, c = (e - r * nq) * V;
+    q.src[i] = r < wy ? rows[r] + cols[c] : -1;
+    q.dst[i] = r * wx + c;
+  }
+  return q;
+}
+
+template <class T>
+__device__ __forceinline__ void copy_groups_async(T* dst, const T* plane, const CopyGroups& q) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (q.src[i] >= 0) __pipeline_memcpy_async(dst + q.dst[i], plane + q.src[i], 16);
+}
+
+// A window's r, wts and q point at its first centre plane (plane 0 of the
+// march); its planes -2 hz .. Zl + 2 hz - 1 lie in the window.
+template <class V, class P, class WT, class O>
 struct WeightedArgs {
-  const float* r;
-  const void* p;  // stored as the storage mode's P
+  const V* r;
+  const P* p;  // not on the first trip
   const float* free;
-  const float* wts;
-  void* p_new;
-  float* q;
+  const WT* wts;
+  P* p_new;
+  O* q;
   const double* scal;
   int first;
   float rho;
@@ -782,194 +743,490 @@ struct WeightedArgs {
   Spacing sp;
   Dims d;
   double* partials;
+  int row0, z_total;  // window only
 };
 
+// The two-stage halo of the weighted march, by instance. The compile-time
+// instance ("fixed") rounds the extended tile's x margin to 4 and its width
+// to whole 4-column groups, and the input windows' x margin to 16 bytes of
+// a bfloat16 row (so that every copy goes in 16-byte groups that straddle
+// no wrap of x); it double-buffers the input windows two planes ahead and
+// holds the weights' window. The runtime-length instance keeps the plain
+// margins, copies element by element into one buffer a plane ahead and
+// reads the weights from device memory, so that it holds every stencil the
+// older kernel of two shared-memory marches held.
 struct WeightedGeo {
-  int hy, hx, hd;     // blur halo (>= 1)
-  int ey, ex;         // the extended tile: kTile + 2 h
-  int wy, wx;         // the input window: kTile + 4 h
-  int ring1, ring2, ring_pf;
-  Width win, ext;  // row widths wx and ex
+  int hy, hx, hz;      // blur halos (>= 1)
+  int axw, axe, axq;   // x margins of the input window, the extended tile, the weights
+  int wy, wx;          // input window: kTileY + 4 hy rows
+  int ey, ex;          // extended tile: kTileY + 2 hy rows
+  int qx;              // weights window columns (ey rows; 0: none)
+  int d1, d2, draw;    // depths of the z rings and of the Laplacian's raw ring
+  int raww, rawn, rawx;  // the raw tile's row width, size (kTileY + 2 rows), column of x0
+  // offsets (words): taps (z, y, x, each 16-byte aligned) at 0, the row
+  // and column tables, the input windows [buffers][3][wy x wx] (r, p,
+  // free), pf on the window (wy x wx), the weights [2][ey x qx], the
+  // x-blurred window rows (wy x ex), s on the extended tile (ey x ex), its
+  // x-blurred rows (ey x kTileX), the first z ring, the second z ring of
+  // the runtime-length taps, the raw ring
+  int tab, win, pf, wwin, xt1, sext, xt2, ring1, ring2, raw, words;
 };
 
-inline WeightedGeo weighted_geo(Taps tp) {
-  WeightedGeo g;
-  g.hy = tp.ky / 2 > 1 ? tp.ky / 2 : 1;
-  g.hx = tp.kx / 2 > 1 ? tp.kx / 2 : 1;
-  g.hd = tp.kz / 2 > 1 ? tp.kz / 2 : 1;
-  g.ey = kTileY + 2 * g.hy;
-  g.ex = kTileX + 2 * g.hx;
+constexpr WeightedGeo weighted_geo(Taps tp, bool fixed) {
+  WeightedGeo g{};
+  g.hy = halo_of(tp.ky);
+  g.hx = halo_of(tp.kx);
+  g.hz = halo_of(tp.kz);
   g.wy = kTileY + 4 * g.hy;
-  g.wx = kTileX + 4 * g.hx;
-  g.ring1 = 2 * g.hd + 1;
-  g.ring2 = 2 * g.hd + 1;
-  g.ring_pf = 2 * g.hd + 2;
-  g.win = width_of(g.wx);
-  g.ext = width_of(g.ex);
+  g.ey = kTileY + 2 * g.hy;
+  if (fixed) {
+    g.axe = round_up(g.hx, 4);
+    g.ex = round_up(g.axe + kTileX + g.hx, 4);
+    g.axw = round_up(2 * g.hx, 8);
+    g.wx = round_up(g.axw + g.ex - g.axe + g.hx, 8);
+    g.axq = round_up(g.hx, 8);
+    g.qx = round_up(g.axq + g.ex - g.axe, 8);
+  } else {
+    g.axe = g.hx;
+    g.ex = kTileX + 2 * g.hx;
+    g.axw = 2 * g.hx;
+    g.wx = kTileX + 4 * g.hx;
+    g.axq = 0;
+    g.qx = 0;
+  }
+  g.d1 = g.d2 = g.hz - tp.kz / 2 + tp.kz;
+  g.draw = 2 * g.hz + 4;
+  // the fixed instance stores whole 4-column groups of its raw tile: window
+  // columns axw - 4 .. axw + kTileX + 3
+  g.raww = fixed ? kTileX + 8 : kRawW;
+  g.rawn = (kTileY + 2) * g.raww;
+  g.rawx = fixed ? 4 : 1;
+  const int wn = g.wy * g.wx, en = g.ey * g.ex;
+  g.tab = round_up(tp.kz, 4) + round_up(tp.ky, 4) + round_up(tp.kx, 4);
+  g.win = g.tab + round_up(g.wy + g.wx, 4);
+  g.pf = g.win + (fixed ? 2 : 1) * 3 * wn;
+  g.wwin = g.pf + wn;
+  g.xt1 = g.wwin + 2 * g.ey * g.qx;
+  g.sext = g.xt1 + g.wy * g.ex;
+  g.xt2 = g.sext + en;
+  g.ring1 = g.xt2 + g.ey * kTileX;
+  g.ring2 = g.ring1 + g.d1 * en;
+  g.raw = g.ring2 + (fixed ? 0 : g.d2 * kOutN);
+  g.words = g.raw + g.draw * g.rawn;
   return g;
 }
 
-inline size_t weighted_smem(const WeightedGeo& g, Taps tp) {
-  const size_t wn = (size_t)g.wy * g.wx, en = (size_t)g.ey * g.ex;
-  const size_t words = (size_t)tp.kz + tp.ky + tp.kx + g.wy + g.wx + 2 * 3 * wn + 2 * en + wn +
-                       (size_t)g.wy * g.ex + g.ring1 * en + (size_t)g.ring2 * kOutN +
-                       (size_t)g.ring_pf * kRawN;
-  return words * 4;
-}
-
-// Two marches in one block. Step k loads plane pstart + k of r, p and free
-// (window halo 2h) and forms pf = free p'; the first stage blurs pf in x
-// and y onto the extended tile (halo h) and, hd planes later, in z, then
-// multiplies by wts there (s = wts A pf, never in device memory); the
-// second stage blurs s in x and y onto the centre and, hd planes later, in
-// z, then forms q = free (A s + rho D^T D pf) + (p' - pf). The centre p'
-// and free of the output plane are read again from device memory (an L2
-// hit: the block read them 2 hd planes before) rather than held in rings.
-// S (RobustT): p and p' stored as S::P (a bfloat16 p is loaded without
-// cp.async), p' = r + beta p rounded to S::P where it is formed, the
-// weights read at S::W and, with S::kIo, the core rounded to bfloat16.
-template <bool kMasked, class S>
-__global__ void __launch_bounds__(kWeightedThreads) weighted_zy_kernel(WeightedArgs a,
-                                                                       WeightedGeo g) {
-  using P = typename S::P;
-  extern __shared__ float smem[];
+// The weighted march. Two stencils in one block, the second stage one plane
+// behind the first, so that each plane takes two barriers:
+//   step k, after the first barrier: start the copy of the input windows
+//     (r, p, free; a window: v) of plane k + 2 (the runtime-length
+//     instance: k + 1) and of the weights of the next step;
+//     x taps of pf over the rows of plane k's pf window, a strip of four
+//     extended-tile columns a thread from K + 3 values read in 16-byte
+//     loads, into xt1; x taps of s (the extended tile of the previous
+//     step) into xt2; wait for plane k + 1's windows;
+//   after the second barrier: pf = free p' of plane k + 1 on its window
+//     (formed once a value, from 16-byte loads of r, p and free), its raw
+//     tile (halo 1) into the Laplacian's ring and p' out on the block's
+//     own planes;
+//     y taps of a 4-column group of xt1 (a row of the extended tile, K
+//     16-byte loads), into the first z ring; hz steps on, the z taps and
+//     s = wts A pf of plane k - hz, into sext;
+//     y taps of the thread's column strip of xt2 into its second z ring;
+//     hz steps on, the z taps of output plane k - 2 hz - 1, the Laplacian
+//     of the raw ring and the masked apply (p' read back from device
+//     memory, where the block wrote it).
+// The first z ring is in shared memory, each thread reading back only the
+// 4-column groups it wrote (in registers the whole-volume instances
+// spilled); the second ring is in registers, shifted a place a step, in
+// the fixed instance (kK taps on every axis), and in shared memory in the
+// runtime-length one, which takes one shared-memory load a tap. Each
+// output's chain is the three-pass units': the taps in the same order with
+// fmaf, each axis rounded to float where they round it, s = w A pf with w
+// read at W, the core rounded to bfloat16 under kIo, q = free core +
+// (p' - free p'), and one float64 partial of sum p'.q a block.
+//
+// Its block: 256 threads on the 16 x 32 output tile of the other units,
+// over kWeightedTileZ planes (no more partials than they take); registers
+// (ptxas: under the 128 that two blocks allow, no spills; PERF.md) leave
+// two blocks, 16 warps, an SM, and the fixed instance's shared memory
+// (two buffers of input windows, the weights' window, the first z ring,
+// the raw ring) fits two. What bounds it: bytes would bound
+// weighted_apply_zy at 512^3 at 0.96 ms (r, p, free, wts read, p' and q
+// written, float); the march takes about four times that. Dropping one
+// part at a time in development (PERF.md) put the window copies first
+// (about a quarter of the time: the r, p and free windows carry a 2.6x
+// x-y halo from the 50 MB L2), then the second stage with the Laplacian,
+// the first stage's y and z taps, the x taps and the pf pass; with 16
+// warps an SM the latency of those loads and the two barriers a plane,
+// not the taps' arithmetic, set the time. Device memory sees each input
+// about (kWeightedTileZ + 4 hz) / kWeightedTileZ times and each output
+// once.
+template <int kK, bool kWindow, bool kMasked, class S, class T>
+__global__ void __launch_bounds__(kWeightedThreads, 2) weighted_zy_kernel(
+    WeightedArgs<typename WeightedIo<kWindow, S, T>::V, typename WeightedIo<kWindow, S, T>::P,
+                 typename WeightedIo<kWindow, S, T>::WT, typename WeightedIo<kWindow, S, T>::O>
+        a,
+    WeightedGeo g) {
+  using Io = WeightedIo<kWindow, S, T>;
+  using V = typename Io::V;
+  using P = typename Io::P;
+  using WT = typename Io::WT;
+  using W = typename Io::W;
+  static_assert(kK == 0 || kK >= 3, "a compile-time length has a halo of K / 2");
+  static_assert(!(kWindow && kMasked), "a window has no mask");
+  constexpr int kLead = kK > 0 ? 2 : 1;  // input window buffers, planes copied ahead
+  extern __shared__ __align__(16) float smem[];
   const Dims d = a.d;
-  const int wn = g.wy * g.wx, en = g.ey * g.ex;
-  const int nk = a.tp.kz + a.tp.ky + a.tp.kx;
-  float* tz = smem;  // taps: z, y, x
-  const float* ty = tz + a.tp.kz;
-  const float* tx = ty + a.tp.ky;
-  int* rows = reinterpret_cast<int*>(smem + nk);
+  const int kz = kK ? kK : a.tp.kz, ky = kK ? kK : a.tp.ky, kx = kK ? kK : a.tp.kx;
+  const int hy = g.hy, hz = g.hz;
+  const int tid = thread_rank(), nt = kWeightedThreads;
+  float* tz = smem;
+  float* ty = tz + round_up(a.tp.kz, 4);
+  float* tx = ty + round_up(a.tp.ky, 4);
+  int* rows = reinterpret_cast<int*>(smem + g.tab);
   int* cols = rows + g.wy;
-  float* win = reinterpret_cast<float*>(cols + g.wx);  // [2][3][wn]: r, p, free
-  float* wwin = win + 6 * wn;                           // [2][en]: wts on the extended tile
-  float* cwin = wwin + 2 * en;                          // pf; later A s in x (ey x kTileX)
-  float* xt1 = cwin + wn;                               // wy x ex; later s on the extended tile
-  float* ring1 = xt1 + g.wy * g.ex;                     // A pf in x, y: [ring1][en]
-  float* ring2 = ring1 + g.ring1 * en;                  // A s in x, y: [ring2][kOutN]
-  float* ring_pf = ring2 + g.ring2 * kOutN;             // pf with halo 1
-  float* sext = xt1;
-  float* xt2 = cwin;
-  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY, z0 = blockIdx.z * kTileZ;
-  const int nz = min(kTileZ, d.Z - z0);
-  const int pstart = z0 - 2 * g.hd, np = nz + 4 * g.hd;
-  const float beta = a.first ? 0.f : (float)a.scal[kBeta];
-  block_tables(tz, a.tp, rows, cols, y0, x0, 2 * g.hy, 2 * g.hx, g.wy, g.wx, d);
+  const int wn = g.wy * g.wx, en = g.ey * g.ex;
+  float* pfw = smem + g.pf;
+  float* xt1 = smem + g.xt1;
+  float* sext = smem + g.sext;
+  float* xt2 = smem + g.xt2;
+  float* ring1 = smem + g.ring1;
+  float* ring2 = smem + g.ring2;
+  float* raw = smem + g.raw;
+  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY, z0 = blockIdx.z * kWeightedTileZ;
+  const int nz = min(kWeightedTileZ, d.Z - z0);
+  const int pstart = z0 - 2 * hz, nin = nz + 4 * hz;  // input planes; nin + 1 steps
+  const bool first = kWindow || a.first;
+  const float beta = first ? 0.f : (float)a.scal[kBeta];
+  for (int i = tid; i < a.tp.kz; i += nt) tz[i] = a.tp.z[i];
+  for (int i = tid; i < a.tp.ky; i += nt) ty[i] = a.tp.y[i];
+  for (int i = tid; i < a.tp.kx; i += nt) tx[i] = a.tp.x[i];
+  for (int i = tid; i < g.wy; i += nt) rows[i] = wrap_index(y0 - 2 * hy + i, d.Y) * d.X;
+  for (int i = tid; i < g.wx; i += nt) cols[i] = wrap_index(x0 - g.axw + i, d.X);
+  const bool aligned = kK > 0;
+  const CopyPlan plan_r = copy_plan(a.r, g.wx, d.X, aligned);
+  const CopyPlan plan_p = copy_plan(a.p, g.wx, d.X, aligned);
+  const CopyPlan plan_f = copy_plan(a.free, g.wx, d.X, aligned);
+  const CopyPlan plan_w = kK > 0 ? copy_plan(a.wts, g.qx, d.X) : CopyPlan{};
   __syncthreads();
+  // the fixed instance's windows in 16-byte groups found once, where every
+  // volume's rows are 16-byte aligned
+  constexpr bool kTwoSizes = sizeof(V) != sizeof(P) && !kWindow;  // a bfloat16 p
+  const bool groups = kK > 0 && plan_r.vec && (first || plan_p.vec) &&
+                      (!kMasked || plan_f.vec) && plan_w.vec;
+  CopyGroups gv{}, gp{}, gw{};
+  if (groups) {
+    gv = copy_groups<V>(rows, cols, g.wy, g.wx);
+    if (kTwoSizes) gp = copy_groups<P>(rows, cols, g.wy, g.wx);
+    gw = copy_groups<WT>(rows + hy, cols + g.axw - g.axq, g.ey, g.qx);
+  }
 
-  // step k loads plane pstart + k of r, p, free and, for the first stage's
-  // output at step k, the weights of plane pstart + k - hd
-  auto start_copy = [&](int k) {
-    const long long off = (long long)wrap_index(pstart + k, d.Z) * d.plane();
-    float* dst = win + (k & 1) * 3 * wn;
-    copy_window(dst, a.r, off, rows, cols, g.wy, g.win);
-    if (!a.first) copy_window(dst + wn, static_cast<const P*>(a.p), off, rows, cols, g.wy, g.win);
-    if (kMasked) copy_window(dst + 2 * wn, a.free, off, rows, cols, g.wy, g.win);
-    if (k >= 2 * g.hd)
-      copy_window<float, typename S::W>(wwin + (k & 1) * en, a.wts,
-                                        (long long)wrap_index(pstart + k - g.hd, d.Z) * d.plane(),
-                                        rows + g.hy, cols + g.hx, g.ey, g.ext);
+  const auto plane_of = [&](int pz) { return kWindow ? pz : wrap_index(pz, d.Z); };
+  const auto window = [&](int kk, int i) {
+    return smem + g.win + ((kLead == 2 ? kk & 1 : 0) * 3 + i) * wn;
   };
-  // p' = r + beta p, rounded to P (product and sum apart for bfloat16)
+  // the input windows of plane pstart + kk
+  const auto start_copy = [&](int kk) {
+    const long long off = (long long)plane_of(pstart + kk) * d.plane();
+    if (groups) {
+      copy_groups_async(reinterpret_cast<V*>(window(kk, 0)), a.r + off, gv);
+      if (!first)
+        copy_groups_async(reinterpret_cast<P*>(window(kk, 1)), a.p + off, kTwoSizes ? gp : gv);
+      if (kMasked) copy_groups_async(window(kk, 2), a.free + off, gv);
+      return;
+    }
+    copy_plane(reinterpret_cast<V*>(window(kk, 0)), a.r + off, rows, cols, plan_r, g.wy, g.wx);
+    if (!first)
+      copy_plane(reinterpret_cast<P*>(window(kk, 1)), a.p + off, rows, cols, plan_p, g.wy, g.wx);
+    if (kMasked) copy_plane(window(kk, 2), a.free + off, rows, cols, plan_f, g.wy, g.wx);
+  };
+  // p' = r + beta p rounded to P (product and sum apart for bfloat16), and
+  // the value the first stage convolves: pf = free p' (a window: v)
   const auto dir_of = [&](float rv, float pv) {
-    return round_as<P>(a.first ? rv : axpy_as<P>(beta, pv, rv));
+    return round_as<P>(first ? rv : axpy_as<P>(beta, pv, rv));
   };
-  const auto pf_of = [&](const float* wr, const float* wp, const float* wf, int e) {
-    const float v = dir_of(wr[e], a.first ? 0.f : wp[e]);
-    return kMasked ? wf[e] * v : v;
-  };
-
-  // the centre r, p and free of the output plane of step kk, read from
-  // device memory one step ahead (an L2 hit: the block read them 2 hd
-  // planes before) so that their latency hides behind a step
-  const int oy = threadIdx.y, ox = threadIdx.x;  // one output a thread
-  const bool own = y0 + oy < d.Y && x0 + ox < d.X;
-  const auto fetch = [&](int kk, float& r_out, float& p_out, float& f_out) {
-    if (kk < 4 * g.hd || kk >= np || !own) return;
-    const long long i = (long long)(pstart + kk - 2 * g.hd) * d.plane() +
-                        (long long)(y0 + oy) * d.X + x0 + ox;
-    r_out = __ldg(a.r + i);
-    if (!a.first) p_out = ldg(static_cast<const P*>(a.p) + i);
-    if (kMasked) f_out = __ldg(a.free + i);
-  };
-  float rv = 0.f, pv = 0.f, f = 1.f, rv_next = 0.f, pv_next = 0.f, f_next = 1.f;
-
-  double acc = 0.0;
-  start_copy(0);
-  __pipeline_commit();
-  // kf, k1: the slots of step k in the pf ring and in rings 1 and 2
-  for (int k = 0, kf = 0, k1 = 0; k < np;
-       ++k, kf = slot_next(kf, g.ring_pf), k1 = slot_next(k1, g.ring1)) {
-    if (k + 1 < np) start_copy(k + 1);
-    __pipeline_commit();
-    rv = rv_next, pv = pv_next, f = f_next;
-    fetch(k + 1, rv_next, pv_next, f_next);
-    __pipeline_wait_prior(1);
-    __syncthreads();
-    const float* wr = win + (k & 1) * 3 * wn;
-    const float* wp = wr + wn;
-    const float* wf = wr + 2 * wn;
-    const int pz = pstart + k;
-    // pf on the window and its centre tile (halo 1); p' out on own planes
-    TILE_LOOP(r, c, g.wy, g.win) cwin[e_] = pf_of(wr, wp, wf, e_);
-    float* rp = ring_pf + kf * kRawN;
-    TILE_LOOP(r, c, kTileY + 2, width_of(kRawW))
-    rp[e_] = pf_of(wr, wp, wf, (r - 1 + 2 * g.hy) * g.wx + c - 1 + 2 * g.hx);
-    if (pz >= z0 && pz < z0 + nz) {
-      TILE_LOOP(oy, ox, kTileY, width_of(kTileX)) {
-        const int y = y0 + oy, x = x0 + ox;
-        if (y >= d.Y || x >= d.X) continue;
-        const int we = (oy + 2 * g.hy) * g.wx + ox + 2 * g.hx;
-        static_cast<P*>(a.p_new)[(long long)pz * d.plane() + (long long)y * d.X + x] =
-            store_as<P>(dir_of(wr[we], a.first ? 0.f : wp[we]));
+  // pf of plane pstart + kk on its window, into pfw; its raw tile into
+  // slot `slot` of the raw ring; p' out on the block's own planes
+  const auto pf_pass = [&](int kk, int slot) {
+    const V* wr = reinterpret_cast<const V*>(window(kk, 0));
+    const P* wp = reinterpret_cast<const P*>(window(kk, 1));
+    const float* wf = window(kk, 2);
+    float* rp = raw + slot * g.rawn;
+    const int pz = pstart + kk;
+    const bool own = !kWindow && pz >= z0 && pz < z0 + nz;
+    if constexpr (kK > 0) {
+      const int nq = g.wx / 4;
+      for (int t = tid; t < g.wy * nq; t += nt) {
+        const int r = t / nq, c0 = (t - r * nq) * 4, e = r * g.wx + c0;
+        float rv[4], pv[4] = {0.f, 0.f, 0.f, 0.f}, fv[4] = {1.f, 1.f, 1.f, 1.f}, dv[4], pf[4];
+        load4<V>(wr + e, rv);
+        if (!first) load4<P>(wp + e, pv);
+        if (kMasked) load4<float>(wf + e, fv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          dv[u] = dir_of(rv[u], pv[u]);
+          pf[u] = kWindow ? rv[u] : kMasked ? fv[u] * dv[u] : dv[u];
+        }
+        *reinterpret_cast<float4*>(pfw + e) = make_float4(pf[0], pf[1], pf[2], pf[3]);
+        // the raw tile's row and column of the group; p' out on own planes
+        const int rr = r - 2 * hy + 1, qc = c0 - g.axw + g.rawx;
+        if ((unsigned)rr >= kTileY + 2 || (unsigned)qc >= (unsigned)g.raww) continue;
+        *reinterpret_cast<float4*>(rp + rr * g.raww + qc) = make_float4(pf[0], pf[1], pf[2], pf[3]);
+        const int y = y0 + rr - 1, x = x0 + qc - g.rawx;
+        if (!own || (unsigned)(rr - 1) >= kTileY || (unsigned)(x - x0) >= kTileX || y >= d.Y)
+          continue;
+        const long long i = (long long)pz * d.plane() + (long long)y * d.X + x;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (x + u < d.X) a.p_new[i + u] = store_as<P>(dv[u]);
+      }
+    } else {
+      for (int e = tid; e < wn; e += nt) {
+        const int r = e / g.wx, c = e - r * g.wx;
+        const float rv = to_float(wr[e]);
+        const float dv = dir_of(rv, first ? 0.f : to_float(wp[e]));
+        const float pf = kWindow ? rv : kMasked ? wf[e] * dv : dv;
+        pfw[e] = pf;
+        const int rr = r - 2 * hy + 1, cc = c - g.axw + g.rawx;  // the raw tile's
+        if ((unsigned)rr >= kTileY + 2 || (unsigned)cc >= kRawW) continue;
+        rp[rr * kRawW + cc] = pf;
+        const int y = y0 + rr - 1, x = x0 + cc - g.rawx;
+        if (own && (unsigned)(rr - 1) < kTileY && (unsigned)(x - x0) < kTileX && y < d.Y &&
+            x < d.X)
+          a.p_new[(long long)pz * d.plane() + (long long)y * d.X + x] = store_as<P>(dv);
       }
     }
-    __syncthreads();
-    // first stage: A pf in x and y on the extended tile
-    taps_x<3>(cwin, g.wx, xt1, g.wy, g.ext, g.hx, tx, a.tp.kx);
-    __syncthreads();
-    taps_y<2>(xt1, ring1 + k1 * en, g.ey, g.ext, g.hy, ty, a.tp.ky);
-    __syncthreads();
-    if (k < 2 * g.hd) continue;
-    // z taps: s = wts A pf of plane pstart + k - hd on the extended tile
-    const float* ww = wwin + (k & 1) * en;
-    const int s1 = slot_back(k1, g.hd - a.tp.kz / 2, g.ring1);
-    const int ex = g.ex;
-    taps_z<2>(ring1, g.ring1, g.ey, g.ext, s1, tz, a.tp.kz, [=](int r, int c, float conv) {
-      sext[r * ex + c] = __fmul_rn(ww[r * ex + c], conv);
-    });
-    __syncthreads();
-    // second stage: A s in x and y onto the centre
-    taps_x<2>(sext, g.ex, xt2, g.ey, width_of(kTileX), g.hx, tx, a.tp.kx);
-    __syncthreads();
-    taps_y<1>(xt2, ring2 + k1 * kOutN, kTileY, width_of(kTileX), g.hy, ty, a.tp.ky);
-    __syncthreads();
-    if (k < 4 * g.hd) continue;
-    // output plane z = pstart + k - 2 hd: z taps of A s, the masked apply
-    const int step = k - 2 * g.hd;
-    const int z = pstart + step;
-    const int s2 = slot_back(k1, g.hd - a.tp.kz / 2, g.ring2);
-    const float* pm = ring_pf + slot_back(kf, 2 * g.hd + 1, g.ring_pf) * kRawN;
-    const float* pc = ring_pf + slot_back(kf, 2 * g.hd, g.ring_pf) * kRawN;
-    const float* pp = ring_pf + slot_back(kf, 2 * g.hd - 1, g.ring_pf) * kRawN;
-    if (!own) continue;
-    const Coord c{x0 + ox, y0 + oy, z};
-    const long long i = (long long)z * d.plane() + (long long)c.y * d.X + c.x;
-    const int e = oy * kTileX + ox;
-    float conv = 0.f;
-    for (int j = 0, sl = s2; j < a.tp.kz; ++j, sl = sl == 0 ? g.ring2 - 1 : sl - 1)
-      conv = fmaf(tz[j], ring2[sl * kOutN + e], conv);
-    float core =
-        fmaf(a.rho, ring_laplacian(pm, pc, pp, (oy + 1) * kRawW + ox + 1, c, a.sp, d), conv);
-    if (S::kIo) core = round_as<bf16>(core);
-    const float p = dir_of(rv, pv);
-    float qi = core;
-    if (kMasked) qi = __fadd_rn(__fmul_rn(f, core), __fsub_rn(p, __fmul_rn(f, p)));
-    a.q[i] = qi;
-    acc += (double)p * qi;
+  };
+
+  // the thread's second-stage outputs: column c2, rows kWStrip s2 + m
+  const int c2 = threadIdx.x, s2 = threadIdx.y;
+  constexpr int kD = kK ? kK + halo_of(kK) - kK / 2 : 1;  // register z ring depth
+  float zr2[kWStrip][kD];  // [m][t]: step k - t
+  const int nq1 = g.ex / 4;  // 4-column groups of an extended-tile row
+  double acc = 0.0;
+  for (int kk = 0; kk < kLead; ++kk) {
+    start_copy(kk);
+    __pipeline_commit();
   }
-  const double s = tile_sum(acc);
-  if (thread_rank() == 0) a.partials[block_index()] = s;
+  __pipeline_wait_prior(kLead - 1);
+  __syncthreads();
+  pf_pass(0, 0);
+  // kr, kq: the slots of step k in the raw ring and in the z rings
+  for (int k = 0, kr = 0, kq = 0; k <= nin;
+       ++k, kr = slot_next(kr, g.draw), kq = slot_next(kq, g.d1)) {
+    __syncthreads();
+    if (k + kLead < nin) start_copy(k + kLead);
+    if (kK > 0 && k + 1 >= 2 * hz && k + 1 < nin) {  // the weights of step k + 1
+      WT* dst = reinterpret_cast<WT*>(smem + g.wwin + ((k + 1) & 1) * g.ey * g.qx);
+      const WT* src = a.wts + (long long)plane_of(pstart + k + 1 - hz) * d.plane();
+      if (groups)
+        copy_groups_async(dst, src, gw);
+      else
+        copy_plane(dst, src, rows + hy, cols + g.axw - g.axq, plan_w, g.ey, g.qx);
+    }
+    __pipeline_commit();
+    const bool stage1 = k < nin, stage2 = k > 2 * hz;
+    // ---- x taps of both stages
+    if constexpr (kK > 0) {
+      constexpr int K = kK, H = halo_of(K);
+      constexpr int AXE = round_up(H, 4), AXW = round_up(2 * H, 8);
+      // a strip's K + 3 values start at column e0 + 4 F + O of its row
+      constexpr int OFF1 = AXW - AXE + K / 2 - (K - 1), F1 = OFF1 / 4, O1 = OFF1 % 4;
+      constexpr int NF1 = (O1 + K + 3 + 3) / 4;
+      constexpr int OFF2 = AXE + K / 2 - (K - 1), F2 = OFF2 / 4, O2 = OFF2 % 4;
+      constexpr int NF2 = (O2 + K + 3 + 3) / 4;
+      static_assert(OFF1 >= 0 && OFF2 >= 0, "the x taps start inside the row");
+      float kxr[K];
+      load_taps<K>(tx, kxr);
+      const int n1 = stage1 ? g.wy * nq1 : 0, n2 = stage2 ? g.ey * (kTileX / 4) : 0;
+      for (int t = tid; t < n1 + n2; t += nt) {
+        const float* src;
+        float* dst;
+        if (t < n1) {  // first stage: xt1[r][e0..e0 + 3]
+          const int r = t / nq1, e0 = (t - r * nq1) * 4;
+          src = pfw + r * g.wx + e0 + 4 * F1;
+          dst = xt1 + r * g.ex + e0;
+        } else {  // second stage: xt2[r][c0..c0 + 3]
+          const int u = t - n1, r = u / (kTileX / 4), c0 = (u - r * (kTileX / 4)) * 4;
+          src = sext + r * g.ex + c0 + 4 * F2;
+          dst = xt2 + r * kTileX + c0;
+        }
+        static_assert(NF1 == NF2 && O1 == O2, "both stages read K + 3 values alike");
+        float v[4 * NF1], o[4];
+#pragma unroll
+        for (int f = 0; f < NF1; ++f) load4<float>(src + 4 * f, v + 4 * f);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < K; ++j) sum = fmaf(kxr[j], v[O1 + m + K - 1 - j], sum);
+          o[m] = sum;
+        }
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      if (stage1)
+        for (int e = tid; e < g.wy * g.ex; e += nt) {
+          const int r = e / g.ex, c = e - r * g.ex;
+          const int base = r * g.wx + c + g.axw - g.axe + kx / 2;
+          float sum = 0.f;
+          for (int j = 0; j < kx; ++j) sum = fmaf(tx[j], pfw[base - j], sum);
+          xt1[e] = sum;
+        }
+      if (stage2)
+        for (int e = tid; e < g.ey * kTileX; e += nt) {
+          const int r = e / kTileX, c = e - r * kTileX;
+          const int base = r * g.ex + c + g.axe + kx / 2;
+          float sum = 0.f;
+          for (int j = 0; j < kx; ++j) sum = fmaf(tx[j], sext[base - j], sum);
+          xt2[e] = sum;
+        }
+    }
+    __pipeline_wait_prior(kLead - 1);  // plane k + 1's windows, step k's weights
+    __syncthreads();
+    // ---- pf of the next plane; y and z taps of both stages, the epilogue
+    if (k + 1 < nin) pf_pass(k + 1, slot_next(kr, g.draw));
+    const bool out = k > 4 * hz;  // output plane z = pstart + k - 2 hz - 1
+    const int z = pstart + k - 2 * hz - 1;
+    // the outputs' p' (written by this block 2 hz + 2 steps before, so read
+    // coherently) and free, loaded before the taps hide their latency
+    float cp[kWStrip], cf[kWStrip];
+#pragma unroll
+    for (int m = 0; m < kWStrip; ++m) {
+      const int y = y0 + kWStrip * s2 + m, x = x0 + c2;
+      cp[m] = 0.f, cf[m] = 1.f;
+      if (kWindow || !out || y >= d.Y || x >= d.X) continue;
+      const long long i = (long long)z * d.plane() + (long long)y * d.X + x;
+      cp[m] = to_float(a.p_new[i]);
+      if (kMasked) cf[m] = __ldg(a.free + i);
+    }
+    if (stage1) {
+      const bool scale = k >= 2 * hz;  // s of plane pstart + k - hz
+      if constexpr (kK > 0) {
+        constexpr int K = kK, H = halo_of(K), AXE = round_up(H, 4), AXQ = round_up(H, 8);
+        if (tid < g.ey * nq1) {
+          const int r = tid / nq1, e0 = (tid - r * nq1) * 4, e = r * g.ex + e0;
+          float kyr[K], col[K][4], o[4];
+          load_taps<K>(ty, kyr);
+#pragma unroll
+          for (int t = 0; t < K; ++t) load4<float>(xt1 + (r + t) * g.ex + e0, col[t]);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < K; ++j) sum = fmaf(kyr[j], col[K - 1 - j][m], sum);
+            o[m] = sum;
+          }
+          *reinterpret_cast<float4*>(ring1 + kq * en + e) = make_float4(o[0], o[1], o[2], o[3]);
+          if (scale) {
+            float kzr[K], wv[4], zv[K][4];
+            load_taps<K>(tz, kzr);
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              load4<float>(ring1 + slot_back(kq, H - K / 2 + j, g.d1) * en + e, zv[j]);
+            load4<W>(reinterpret_cast<const WT*>(smem + g.wwin + (k & 1) * g.ey * g.qx) +
+                         r * g.qx + e0 + AXQ - AXE,
+                     wv);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              float conv = 0.f;
+#pragma unroll
+              for (int j = 0; j < K; ++j) conv = fmaf(kzr[j], zv[j][m], conv);
+              o[m] = __fmul_rn(wv[m], conv);
+            }
+            *reinterpret_cast<float4*>(sext + e) = make_float4(o[0], o[1], o[2], o[3]);
+          }
+        }
+      } else {
+        const long long woff = (long long)plane_of(pstart + k - hz) * d.plane();
+        for (int e = tid; e < en; e += nt) {
+          const int r = e / g.ex, c = e - r * g.ex;
+          const int base = (r + hy + ky / 2) * g.ex + c;
+          float sum = 0.f;
+          for (int j = 0; j < ky; ++j) sum = fmaf(ty[j], xt1[base - j * g.ex], sum);
+          ring1[kq * en + e] = sum;
+          if (!scale) continue;
+          float conv = 0.f;
+          for (int j = 0; j < kz; ++j)
+            conv = fmaf(tz[j], ring1[slot_back(kq, hz - kz / 2 + j, g.d1) * en + e], conv);
+          const float w = round_as<W>(ldg(a.wts + woff + rows[r + hy] + cols[c + g.axw - g.axe]));
+          sext[e] = __fmul_rn(w, conv);
+        }
+      }
+    }
+    if (!stage2) continue;
+    // xy-blurred s of plane pstart + k - hz - 1 into the second z ring
+    float conv[kWStrip];
+    if constexpr (kK > 0) {
+      constexpr int K = kK, H = halo_of(K);
+      float kyr[K], col[K + kWStrip - 1];
+      load_taps<K>(ty, kyr);
+#pragma unroll
+      for (int t = 0; t < K + kWStrip - 1; ++t) col[t] = xt2[(kWStrip * s2 + t) * kTileX + c2];
+#pragma unroll
+      for (int m = 0; m < kWStrip; ++m) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) sum = fmaf(kyr[j], col[m + K - 1 - j], sum);
+#pragma unroll
+        for (int t = kD - 1; t > 0; --t) zr2[m][t] = zr2[m][t - 1];
+        zr2[m][0] = sum;
+      }
+      if (!out) continue;
+      float kzr[K];
+      load_taps<K>(tz, kzr);
+#pragma unroll
+      for (int m = 0; m < kWStrip; ++m) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) sum = fmaf(kzr[j], zr2[m][H - K / 2 + j], sum);
+        conv[m] = sum;
+      }
+    } else {
+      for (int m = 0; m < kWStrip; ++m) {
+        const int e = (kWStrip * s2 + m) * kTileX + c2;
+        const int base = (kWStrip * s2 + m + hy + ky / 2) * kTileX + c2;
+        float sum = 0.f;
+        for (int j = 0; j < ky; ++j) sum = fmaf(ty[j], xt2[base - j * kTileX], sum);
+        ring2[kq * kOutN + e] = sum;
+        if (!out) continue;
+        sum = 0.f;
+        for (int j = 0; j < kz; ++j)
+          sum = fmaf(tz[j], ring2[slot_back(kq, hz - kz / 2 + j, g.d2) * kOutN + e], sum);
+        conv[m] = sum;
+      }
+      if (!out) continue;
+    }
+    const float* zm = raw + slot_back(kr, 2 * hz + 2, g.draw) * g.rawn;
+    const float* zc = raw + slot_back(kr, 2 * hz + 1, g.draw) * g.rawn;
+    const float* zp = raw + slot_back(kr, 2 * hz, g.draw) * g.rawn;
+    const Dims ld{kWindow ? a.z_total : d.Z, d.Y, d.X};
+#pragma unroll
+    for (int m = 0; m < kWStrip; ++m) {
+      const int oy = kWStrip * s2 + m;
+      const Coord c{x0 + c2, y0 + oy, kWindow ? a.row0 + z : z};
+      if (c.y >= d.Y || c.x >= d.X) continue;
+      const float lap =
+          ring_laplacian(zm, zc, zp, (oy + 1) * g.raww + c2 + g.rawx, c, a.sp, ld, g.raww);
+      float core = fmaf(a.rho, lap, conv[m]);
+      const long long i = (long long)z * d.plane() + (long long)c.y * d.X + c.x;
+      if (kWindow) {
+        a.q[i] = store_as<typename Io::O>(core);
+        continue;
+      }
+      if (S::kIo) core = round_as<bf16>(core);
+      const float p = cp[m];
+      float qi = core;
+      if (kMasked) qi = __fadd_rn(__fmul_rn(cf[m], core), __fsub_rn(p, __fmul_rn(cf[m], p)));
+      a.q[i] = qi;
+      acc += (double)p * qi;
+    }
+  }
+  if (!kWindow) {
+    const double s = tile_sum(acc);
+    if (tid == 0) a.partials[block_index()] = s;
+  }
 }
 
 // ---------------------------------------------------------------- units --
@@ -1070,16 +1327,36 @@ cudaError_t blur_apply_zy(const float* y, const float* u, float* out, float* fre
   return cudaGetLastError();
 }
 
-template <bool kMasked, class S>
-cudaError_t launch_weighted(const WeightedArgs& a, const WeightedGeo& g, size_t smem,
-                            cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(weighted_zy_kernel<kMasked, S>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
+// The compile-time instance's block fits: ops/cuda/tiled.py routes by the
+// runtime-length instance's size, which nsol_tiled_smem reports.
+constexpr WeightedGeo kFixedGeo =
+    weighted_geo(Taps{nullptr, nullptr, nullptr, kBlurK, kBlurK, kBlurK}, true);
+static_assert(kFixedGeo.words * 4 <= kMaxSmem,
+              "the weighted march's compile-time instance fits a block");
+static_assert(kFixedGeo.wy * kFixedGeo.wx / 4 <= 2 * kWeightedThreads &&
+                  kFixedGeo.ey * kFixedGeo.qx / 4 <= 2 * kWeightedThreads,
+              "its windows take at most two 16-byte groups a thread");
+
+template <int kK, bool kWindow, bool kMasked, class S, class T, class A>
+cudaError_t launch_weighted(const A& a, cudaStream_t s) {
+  const WeightedGeo g = weighted_geo(a.tp, kK > 0);
+  const size_t smem = (size_t)g.words * 4;
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = weighted_zy_kernel<kK, kWindow, kMasked, S, T>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  weighted_zy_kernel<kMasked, S><<<tiled_grid(a.d), dim3(kTileX, kWeightedRows), smem, s>>>(a,
-                                                                                           g);
+  kernel<<<weighted_grid(a.d), dim3(kTileX, kWeightedRows), smem, s>>>(a, g);
   return cudaGetLastError();
+}
+
+// kBlurK taps on every axis take the weighted march's compile-time
+// instance, every other length its runtime-length instance.
+template <bool kWindow, bool kMasked, class S, class T, class A>
+cudaError_t launch_weighted_taps(const A& a, cudaStream_t s) {
+  if (a.tp.kz == kBlurK && a.tp.ky == kBlurK && a.tp.kx == kBlurK)
+    return launch_weighted<kBlurK, kWindow, kMasked, S, T>(a, s);
+  return launch_weighted<0, kWindow, kMasked, S, T>(a, s);
 }
 
 // p and p_new stored as the RobustStorage mode `storage` says.
@@ -1087,23 +1364,34 @@ cudaError_t weighted_apply_zy(const float* r, const void* p, void* p_new, float*
                               const float* free, const float* wts, double* partials,
                               double* scal, int first, Taps tp, float rho, int storage,
                               Spacing sp, Dims d, cudaStream_t s) {
-  const WeightedArgs a{r, p, free, wts, p_new, q, scal, first, rho, tp, sp, d, partials};
-  const WeightedGeo g = weighted_geo(tp);
-  const bool masked = free != nullptr;
-  const size_t smem = weighted_smem(g, tp);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = with_robust_storage(storage, [&](auto st) {
     using S = decltype(st);
-    return masked ? launch_weighted<true, S>(a, g, smem, s)
-                  : launch_weighted<false, S>(a, g, smem, s);
+    using P = typename S::P;
+    const WeightedArgs<float, P, float, float> a{
+        r,     static_cast<const P*>(p), free, wts, static_cast<P*>(p_new), q, scal, first,
+        rho,   tp,                       sp,   d,   partials,               0, 0};
+    return free != nullptr ? launch_weighted_taps<false, true, S, float>(a, s)
+                           : launch_weighted_taps<false, false, S, float>(a, s);
   });
   if (e != cudaSuccess) return e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, tiled_blocks(d), scal, kReducePQ);
+  const dim3 grid = weighted_grid(d);
+  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, (int)(grid.x * grid.y * grid.z), scal,
+                                             kReducePQ);
   return cudaGetLastError();
 }
 
+// out = A (w * A v) + rho D^T D v on the Zl centre planes of a z-window of
+// halo 2 hz (v_ext, w_ext, out stored as T; the arithmetic in float).
+template <class T>
+cudaError_t weighted_window_zy(const T* v_ext, const T* w_ext, T* out, Taps tp, float rho,
+                               int halo, int row0, int z_total, Spacing sp, Dims d,
+                               cudaStream_t s) {
+  const long long c = (long long)halo * d.plane();
+  const WeightedArgs<T, float, T, T> a{v_ext + c, nullptr, nullptr, w_ext + c, nullptr,
+                                       out,       nullptr, 1,       rho,       tp,
+                                       sp,        d,       nullptr, row0,      z_total};
+  return launch_weighted_taps<true, false, RobustT<float, false>, T>(a, s);
+}
 
 }  // namespace
 
@@ -1133,7 +1421,7 @@ int nsol_tiled_blocks(int Z, int Y, int X) { return tiled_blocks(Dims{Z, Y, X});
 // computes the same sizes to route such stencils before any launch.
 int nsol_tiled_smem(int kz, int ky, int kx, int nin, int lap, int weighted) {
   const Taps tp{nullptr, nullptr, nullptr, kz, ky, kx};
-  const size_t b = weighted ? weighted_smem(weighted_geo(tp), tp)
+  const size_t b = weighted ? (size_t)weighted_geo(tp, false).words * 4
                             : stencil_smem(stencil_geo(tp, nin), lap != 0, true);
   return b > 0x7fffffffu ? 0x7fffffff : (int)b;
 }
@@ -1166,6 +1454,29 @@ int nsol_normal_apply_window_zy(const float* v_ext, float* out, const float* tap
                         sp,    Dims{Zl, Y, X}, nullptr, row0,    z_total};
   return (int)launch_stencil<kNormalK, kSrcOne, true, true>(
       a, 1, NormalZyEpi<kNormalPlain>{nullptr, out, nullptr, rho}, (cudaStream_t)stream);
+}
+
+// weighted_apply_prepadded's one-pass form (robust.cu's
+// nsol_weighted_apply_prepadded takes it when given no scratch volumes):
+// the weighted march over the Zl + 2 halo planes of v_ext and w_ext (halo
+// twice the z taps' half-width, kz >= 3); out = A (w * A v) + rho D^T D v
+// on the Zl centre planes, whose Laplacian takes its zero-boundary rows
+// only at global rows 0 and z_total - 1. v_ext, w_ext and out float, or
+// bfloat16 with `io`. Adds to no count.
+int nsol_weighted_apply_window_zy(const void* v_ext, const void* w_ext, void* out,
+                                  const float* taps, int kz, int ky, int kx, float rho,
+                                  float ih2x, float ih2y, float ih2z, int halo, int row0,
+                                  int z_total, int Zl, int Y, int X, int io, void* stream) {
+  if (kz < 3 || halo != 2 * halo_of(kz)) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  const Taps tp = make_taps(taps, kz, ky, kx);
+  const Dims d{Zl, Y, X};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (io)
+    return (int)weighted_window_zy(static_cast<const bf16*>(v_ext), static_cast<const bf16*>(w_ext),
+                                   static_cast<bf16*>(out), tp, rho, halo, row0, z_total, sp, d, s);
+  return (int)weighted_window_zy(static_cast<const float*>(v_ext), static_cast<const float*>(w_ext),
+                                 static_cast<float*>(out), tp, rho, halo, row0, z_total, sp, d, s);
 }
 
 int nsol_cg_step_zy(const float* r, const float* p, float* p_new, float* q, double* partials,

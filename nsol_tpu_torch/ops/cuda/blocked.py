@@ -600,15 +600,21 @@ def prepadded_window(name, v_ext, h, row0, z_total, *others):
     return (zl,) + tuple(v_ext.shape[1:])
 
 
-def window_route(taps):
-    """How :func:`normal_apply_prepadded` applies the normal ``taps`` on
-    the card: ``"tiled"``, the one-pass march of ``csrc/tiled.cu`` (the
-    whole-volume ``normal_apply_zy``'s, with no z wrap), where a block's
-    shared memory holds them (:func:`~.tiled.smem_bytes`, the rule that
-    routes the whole-volume units); else ``"chain"``, the three per-axis
-    passes through two scratch volumes of the window's size."""
+def window_route(taps, weighted=False):
+    """How a window unit applies ``taps`` on the card:
+    :func:`normal_apply_prepadded` the normal taps, or with ``weighted``
+    :func:`~.robust.weighted_apply_prepadded` the blur taps.
+    ``"tiled"``, the one-pass march of ``csrc/tiled.cu`` (the whole-volume
+    ``normal_apply_zy``'s or ``weighted_apply_zy``'s, with no z wrap),
+    where a block's shared memory holds them (:func:`~.tiled.smem_bytes`,
+    the rule that routes the whole-volume units) and, weighted, the blur
+    has z taps to march (at least 3: the window's halo is then twice the
+    march's); else ``"chain"``, the three per-axis passes through two
+    scratch volumes of the window's size."""
     T = _tiled()
-    fits = T.smem_bytes(taps.lengths) <= T.MAX_SMEM
+    fits = T.smem_bytes(taps.lengths, weighted=weighted) <= T.MAX_SMEM
+    if weighted:
+        fits = fits and taps.lengths[0] >= 3
     return "tiled" if fits else "chain"
 
 

@@ -34,7 +34,10 @@ attached, the Laplacian's global boundary rows placed by
   ``max(2·r_a, 1)`` (``robust.py:264``, :286-401): the inner CG's apply.
   On bfloat16 windows it is the reference's prepadded ``io_dtype`` form
   (``nsol_tpu/parallel/blocked_halo.py:115-119``): ``v`` and ``w`` read as
-  bfloat16, float32 arithmetic, the result rounded to bfloat16.
+  bfloat16, float32 arithmetic, the result rounded to bfloat16. Where a
+  block's shared memory holds the blur taps it runs as a window instance
+  of ``csrc/tiled.cu``'s weighted march (:func:`~.blocked.window_route`),
+  with no scratch volume; else the three per-axis passes.
 
 ``BᵀB`` is the Laplacian ``DᵀD`` (``reg="TK1"``, the ADMM x-update's and
 TK1's) or the identity (``reg="TK0"``), as in :mod:`.blocked`; the
@@ -387,7 +390,19 @@ def weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0,
     (offset ``r − r_a``), and ``Aᵀ`` and the Laplacian give the ``Zl``
     centre rows, its zero-boundary rows only at global rows 0 and
     ``z_total − 1``. Windows of bfloat16 (both) run the "io" instance:
-    float32 arithmetic, the result in bfloat16."""
+    float32 arithmetic, the result in bfloat16. On the card it takes
+    :func:`~.blocked.window_route`'s route for the weighted taps; the two
+    give the same bits."""
+    return _weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0,
+                                     z_total, B.window_route(taps, True)
+                                     == "chain")
+
+
+def _weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0, z_total,
+                              chain):
+    """:func:`weighted_apply_prepadded` on the card by the weighted march
+    of ``csrc/tiled.cu`` or, with ``chain``, by the three-pass chain
+    whatever the taps (the bit reference the march is held to)."""
     name = "weighted_apply_prepadded"
     r = weighted_halo(taps)
     dims = B.prepadded_window(name, v_ext, r, row0, z_total, w_ext)
@@ -400,8 +415,10 @@ def weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0,
     B._check_consts(name, v_ext.device, taps)
     lib = build.load()
     out = torch.empty(dims, dtype=v_ext.dtype, device=v_ext.device)
-    t1 = torch.empty(v_ext.shape, device=v_ext.device)
-    t2 = torch.empty_like(t1)
+    t1 = t2 = None
+    if chain:
+        t1 = torch.empty(v_ext.shape, device=v_ext.device)
+        t2 = torch.empty_like(t1)
     counts = build.new_counts(7)
     err = lib.nsol_weighted_apply_prepadded(
         build.tensor_ptr(v_ext), build.tensor_ptr(w_ext),

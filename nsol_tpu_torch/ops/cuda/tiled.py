@@ -40,8 +40,10 @@ bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
 Each unit makes one pass over halo-extended tiles: no intermediate volume
 reaches device memory (see the note at the top of ``csrc/tiled.cu``). The
 single-stencil units share one march, whose window instance is
-:func:`~.blocked.normal_apply_prepadded`'s tiled route; each of its forms
-equals the three-pass units bit for bit.
+:func:`~.blocked.normal_apply_prepadded`'s tiled route; the weighted unit
+has a march of its own (two stencils, the second a plane behind the
+first), whose window instance is :func:`~.robust.weighted_apply_prepadded`'s
+tiled route. Each form of either equals the three-pass units bit for bit.
 A block holds its windows and rings in at most 227 KB of shared memory,
 so a wide blur does not fit: :func:`route_fits` is the shape decision by
 which the solves take the per-axis units instead, before any launch.
@@ -139,18 +141,26 @@ def smem_bytes(lengths, nin=1, lap=True, weighted=False):
     ``stencil_smem``, which ``nsol_tiled_smem`` returns."""
     kz, ky, kx = lengths
     hz, hy, hx = (max(k // 2, 1) for k in lengths)
+    taps = sum(_up(k, 4) for k in lengths)
     if weighted:
+        # the runtime-length instance: tables, the r, p and free windows
+        # (one buffer, halo 2h, plain margins) and pf on the window, the
+        # x-blurred window rows, s on the extended tile (halo h) and its
+        # x-blurred rows, the two z rings and the raw ring of pf (two
+        # planes more than the z reach: the next plane's pf is formed
+        # while the second stage runs a step behind the first)
         wy, wx = TILE_Y + 4 * hy, TILE_X + 4 * hx
         ey, ex = TILE_Y + 2 * hy, TILE_X + 2 * hx
-        words = (kz + ky + kx + wy + wx + 7 * wy * wx + 2 * ey * ex
-                 + wy * ex + (2 * hz + 1) * (ey * ex + _OUT_N)
-                 + (2 * hz + 2) * _RAW_N)
+        depth = hz - kz // 2 + kz
+        words = (taps + _up(wy + wx, 4) + 4 * wy * wx + wy * ex + ey * ex
+                 + ey * TILE_X + depth * (ey * ex + _OUT_N)
+                 + (2 * hz + 4) * _RAW_N)
     else:
         # the window's x margin rounds the halo up to 16 bytes of the input
         # (8 values for one input, which may be bfloat16, 4 for two);
         # each axis's taps and the tables are 16-byte aligned
         wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * _up(hx, 8 if nin == 1 else 4)
-        words = (sum(_up(k, 4) for k in lengths) + _up(wy + wx, 4)
+        words = (taps + _up(wy + wx, 4)
                  + 2 * nin * wy * wx + wy * TILE_X + (2 * hz + 1) * _OUT_N
                  + (hz + 2) * _RAW_N * bool(lap))
     return 4 * words

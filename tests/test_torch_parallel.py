@@ -495,6 +495,36 @@ def test_window_route_takes_the_tiled_march_where_it_fits(sigma, want):
         assert torch.equal(B._normal_apply_prepadded(*args, chain), ref)
 
 
+@pytest.mark.parametrize("sigma, want", [(1.0, "tiled"), (2.3, "tiled"),
+                                         (2.4, "chain")])
+def test_weighted_window_route_takes_the_tiled_march_where_it_fits(sigma,
+                                                                   want):
+    """``weighted_apply_prepadded`` takes the weighted march of
+    ``csrc/tiled.cu`` where a block's shared memory holds the blur taps —
+    the shape rule that routes the whole-volume weighted unit
+    (``tiled.route_fits(..., "robust")``) — and the three-pass chain for a
+    wider blur; on the CPU either route runs the plain version, in float64
+    and on bfloat16 windows."""
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    cov = np.diag([sigma ** 2] * 3)
+    st = B.Stencils.from_cov(cov, 3, None, "cpu", torch.float64)
+    assert B.window_route(st.blur, True) == want
+    assert T.route_fits(TC.blur_factors(cov, 3, None), "robust") \
+        == (want == "tiled")
+    aniso = B.Stencils.from_cov(WIN_COV, 3, WIN_SPACING, "cpu", torch.float64)
+    assert B.window_route(aniso.blur, True) == "tiled"
+    h = R.weighted_halo(aniso.blur)
+    v, w = (_t(_slab(a, ZL, h)) for a in _window_inputs())
+    for vv, ww in ((v, w), (v.to(torch.bfloat16), w.to(torch.bfloat16))):
+        args = (vv, ww, aniso.blur, aniso.inv_h2, 0.7, ZL, Z_TOTAL)
+        ref = R.weighted_apply_prepadded_plain(*args)
+        assert ref.dtype == vv.dtype
+        assert torch.equal(R.weighted_apply_prepadded(*args), ref)
+        for chain in (False, True):
+            assert torch.equal(R._weighted_apply_prepadded(*args, chain), ref)
+
+
 # ---------------------------------------------------- one rank, refusals --
 
 def test_world1_solve_equals_unsharded_admm():
@@ -594,7 +624,8 @@ def test_use_blocked_routing(monkeypatch):
 # ------------------------------------------------------------ the card --
 
 EDGE_WINDOWS = ((np.diag([1.0] * 3), None, (13, 530, 37)),
-                (np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (16, 45, 33)))
+                (np.diag([1.3, 0.8, 1.1]) ** 2, (1.0, 1.5, 0.8), (16, 45, 33)),
+                (np.diag([1.0] * 3), None, (9, 36, 88)))
 
 
 @pytest.mark.cuda
@@ -612,6 +643,25 @@ def test_cuda_window_march_equals_three_pass_chain(cuda_device, case):
     st = B.Stencils.from_cov(cov, 3, sp, cuda_device)
     cs.require_bits(cs.window_route_pairs(B, st, shape, cuda_device,
                                           60 + case), "window %d" % case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(EDGE_WINDOWS)))
+def test_cuda_weighted_window_equals_chain(cuda_device, case):
+    """weighted_apply_prepadded's weighted march equals its three-pass
+    window chain bit for bit, in float32 and in bfloat16 io, on the first,
+    a middle and the last slab."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cov, sp, shape = EDGE_WINDOWS[case]
+    st = B.Stencils.from_cov(cov, 3, sp, cuda_device)
+    pairs = cs.weighted_window_pairs(R, st, shape, cuda_device, 70 + case)
+    assert len(pairs) == 6
+    cs.require_bits(pairs, "weighted window %d" % case)
 
 
 @pytest.mark.cuda

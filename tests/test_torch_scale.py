@@ -394,17 +394,18 @@ def test_wide_blurs_route_to_the_per_axis_units(sigma, shape, mode, tiled,
 def test_smem_bytes_bounds_the_tiled_units():
     """The shared-memory sizes of ``csrc/tiled.cu`` at σ = 1 (7 blur, 13
     normal taps a side) and at the edge of the weighted apply: blur
-    half-width 6 fits, 7 does not."""
+    half-width 7 fits, 8 does not."""
     assert T.smem_bytes((13, 13, 13)) == 61040
     assert T.smem_bytes((13, 13, 13), nin=2) == 71792
     assert T.smem_bytes((7, 7, 7), nin=1, lap=False) < T.smem_bytes(
         (7, 7, 7), nin=2)
-    assert T.smem_bytes((7, 7, 7), weighted=True) == 103140
+    assert T.smem_bytes((7, 7, 7), weighted=True) == 92736
     assert T.smem_bytes((13, 13, 13), weighted=True) <= T.MAX_SMEM
     assert T.smem_bytes((15, 13, 13), weighted=True) <= T.MAX_SMEM
-    assert T.smem_bytes((15, 15, 15), weighted=True) > T.MAX_SMEM
+    assert T.smem_bytes((15, 15, 15), weighted=True) <= T.MAX_SMEM
+    assert T.smem_bytes((17, 17, 17), weighted=True) > T.MAX_SMEM
     with pytest.raises(ValueError, match="past the 232448"):
-        T.require_fit("weighted_apply_zy", (15, 15, 15), weighted=True)
+        T.require_fit("weighted_apply_zy", (17, 17, 17), weighted=True)
 
 
 def _smem_before(lengths, nin, lap):
@@ -434,6 +435,37 @@ def test_march_routes_every_length_it_routed_before(nin, lap):
     for sigma in (0.5, 1.0, 2.0, 3.0, 4.0):
         factors = blur_factors(np.diag([sigma ** 2] * 3), 3, None)
         assert T.route_fits(factors, "apply"), sigma
+
+
+def _weighted_smem_before(lengths):
+    """``weighted_apply_zy``'s shared memory a block in ``csrc/tiled.cu``
+    before its march was redesigned (two shared-memory marches of one
+    output a thread: the r, p and free windows twice over and the pf
+    window at halo 2h, the weights window twice, the x-blurred rows, the
+    two xy rings and the pf ring): the sizes by which the solves routed to
+    the tiled weighted unit then."""
+    kz, ky, kx = lengths
+    hz, hy, hx = (max(k // 2, 1) for k in lengths)
+    wy, wx = T.TILE_Y + 4 * hy, T.TILE_X + 4 * hx
+    ey, ex = T.TILE_Y + 2 * hy, T.TILE_X + 2 * hx
+    words = (kz + ky + kx + wy + wx + 7 * wy * wx + 2 * ey * ex + wy * ex
+             + (2 * hz + 1) * (ey * ex + T.TILE_Y * T.TILE_X)
+             + (2 * hz + 2) * (T.TILE_Y + 2) * (T.TILE_X + 2))
+    return 4 * words
+
+
+def test_weighted_march_routes_every_length_it_routed_before():
+    """The redesigned weighted march (its runtime-length instance: plain
+    window margins, one buffer of input windows, the weights read from
+    device memory) holds every stencil the older kernel held, so every
+    blur that took the tiled robust route still takes it; the widest
+    isotropic blur it holds grows from σ = 2 (13 taps) to σ = 2.3 (15)."""
+    for lengths in itertools.product(range(1, 100, 2), repeat=3):
+        if _weighted_smem_before(lengths) <= T.MAX_SMEM:
+            assert T.smem_bytes(lengths, weighted=True) <= T.MAX_SMEM, lengths
+    for sigma, fits in ((1.0, True), (2.0, True), (2.3, True), (2.4, False)):
+        factors = blur_factors(np.diag([sigma ** 2] * 3), 3, None)
+        assert T.route_fits(factors, "robust") == fits, sigma
 
 
 @pytest.mark.parametrize("loss", ["linear", "huber"])
@@ -481,7 +513,8 @@ def test_cli_sends_wide_volumes_to_the_blocked_route(tmp_path, loss):
 
 #: shapes that hit every tile edge (Y not a multiple of the 16-row tile,
 #: odd X, Z just above the z halo and one z chunk plus a ragged one)
-EDGE_SHAPES = [(13, 530, 37), (7, 45, 33), (70, 40, 65)]
+EDGE_SHAPES = [(13, 530, 37), (7, 45, 33), (70, 40, 65), (9, 36, 88),
+               (9, 36, 76)]
 EDGE_COVS = [(ISO, None), (np.diag([0.64, 4.0, 0.64]), None),
              (ANISO, (1.0, 1.5, 0.8))]
 
@@ -537,11 +570,28 @@ def test_cuda_march_equals_three_pass_bit_for_bit(cuda_device, shape, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("case", range(len(EDGE_COVS)))
+def test_cuda_weighted_march_equals_three_pass_bit_for_bit(cuda_device, shape,
+                                                           case):
+    """weighted_apply_zy (p', q) equals the three-pass weighted_apply bit
+    for bit in every storage mode (exact, "dirs", "io"), masked or not, on
+    the first trip and after, on tile-edge shapes: σ = 1 takes the
+    compile-time instance, the other blurs the runtime-length one."""
+    cov, spacing = EDGE_COVS[case]
+    st = B.Stencils.from_cov(cov, 3, spacing, cuda_device)
+    _chip_smoke().weighted_three_pass_bits(T, R, st, shape, cuda_device,
+                                           40 + case)
+
+
+@pytest.mark.cuda
 def test_cuda_smem_sizes_and_the_widest_blur_that_fits(cuda_device):
-    """``nsol_tiled_smem`` and :func:`tiled.smem_bytes` agree; at σ = 2 (the
-    widest isotropic blur the weighted apply holds) the units match their
-    plain versions, and at σ = 2.1 its wrapper raises before any launch."""
-    assert _chip_smoke().tiled_fit_checks(T, B, cuda_device) <= 1e-5
+    """``nsol_tiled_smem`` and :func:`tiled.smem_bytes` agree; at σ = 2.3
+    (the widest isotropic blur the weighted apply holds) the units match
+    their plain versions, and at σ = 2.4 its wrapper raises before any
+    launch."""
+    sigma, rel = _chip_smoke().tiled_fit_checks(T, B, cuda_device)
+    assert sigma == 2.3 and rel <= 1e-5
 
 
 @pytest.mark.cuda
