@@ -112,6 +112,26 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   world size 1, within 1e-3 of ``blocked_robust_admm_solve(compact_dirs=
   True)``.
 
+* phases 36-38, the whole-volume ``cg_step`` and ``weighted_apply`` on the
+  marches of ``csrc/march.cuh`` (groups ``volume``, ``volume_solves``):
+  the z-tile and route rules in C against their Python mirrors; every
+  form (``cg_step`` 4 storages × TK1/TK0 × first trip or not,
+  ``weighted_apply`` 3 storages × masked or not × TK1/TK0 × first trip or
+  not) bit for bit against its three-pass chain on the tile-edge shapes,
+  at 256³ and on a 136 × 240 × 200 volume (two seeds each) and on the 2-D
+  view; the chain side of the route (blurs past the marches' shared
+  memory); the device times of the forms, chain against march in turns,
+  at 256³, on the ragged volume and at the shapes the route is measured
+  at (64³, 96³, 128³, Lena 256², 2048², thin stacks of 2-32 planes past
+  2^20 voxels), and of the 512³ march units;
+  and the solves that run them (256³ "step" exact / compact / bf16 state,
+  256³ robust exact / compact, the 256³ TK1L2 × 8 α sweep, the 512³
+  "step2d" solve, the 64³ north star, the Lena TV-L2, huber and TK1L2 ×
+  64 α solves) by CUDA events,
+  with their objectives and routes. Run with this script on an earlier
+  package (``--only volume,volume_solves``) it times that package's
+  route and skips the checks it lacks.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -992,10 +1012,13 @@ def run_robust_phases(device, card):
     F.reset_counts()
     xb_k = rsolve(bb, bb, ALPHA, RHO)
     torch.cuda.synchronize()
-    scale_launches = F.launch_counts(F.ROBUST_UNITS)
+    scale_launches = F.launch_counts(F.ROBUST_UNITS + F.MARCH_UNITS)
     plain_calls = F.plain_counts()
-    require(all(n > 0 for n in scale_launches.values()),
-            "phase 14: a kernel was not launched: %s" % scale_launches)
+    require(all(n > 0 for n in unit_counts(F, F.ROBUST_UNITS).values())
+            and route_launches(F)["weighted_apply"] == (
+                0, its * sweeps * cgi),
+            "phase 14: a kernel was not launched, or weighted_apply not on "
+            "the march: %s" % scale_launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 14: a plain version ran: %s" % plain_calls)
     require(bool(xb_k.isfinite().all()), "phase 14: result not finite")
@@ -1948,9 +1971,12 @@ def run_scale_cli_phase(device, card):
     x_all, _ = solver.run_sweep({"alpha": alphas})
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    launches = F.launch_counts(("normal_apply", "cg_step", "cg_update",
-                                "tik_clip"))
-    require(all(n > 0 for n in launches.values())
+    launches = unit_counts(F, ("normal_apply", "cg_step", "cg_update",
+                               "tik_clip"))
+    launches["cg_step (chain, march)"] = route_launches(F)["cg_step"]
+    require(all(n > 0 for k, n in launches.items() if k in F.ADMM_UNITS
+                + ("tik_clip",))
+            and launches["cg_step (chain, march)"][0] == 0
             and all(n == 0 for n in F.plain_counts().values()),
             "phase 19: 256^3 launches %s, plain calls %s"
             % (launches, F.plain_counts()))
@@ -2347,7 +2373,7 @@ def tiled_fit_checks(T, B, device):
     for k in range(1, 60, 2):
         for lengths in ((k, k, k), (1, k, 3), (k, 5, 1)):
             for form in ((1, 1, 0), (2, 1, 0), (1, 0, 0), (1, 1, 1)):
-                c = lib.nsol_tiled_smem(*lengths, *form)
+                c = lib.nsol_tiled_smem(*lengths, *form, 0)
                 py = T.smem_bytes(lengths, form[0], *map(bool, form[1:]))
                 require(c == py, "phase 20: shared memory of %s %s: C %d, "
                         "Python %d" % (lengths, form, c, py))
@@ -3681,6 +3707,7 @@ def run_compact_phases(device, card):
                     "launches": int(launches[path].get(unit, 0)),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": t[2]})
+        routed(out[-1], launches[path])
         if name in dev_t:
             d = dev_t[name]
             out[-1].update(device_ms=mean_ms(d["kernel"]),
@@ -4458,7 +4485,9 @@ def run_compact_robust_phases(device, card):
             " deviates %.4f%% from %.1f" % (runs["scale_io"][0],
                                             100 * dev_scale,
                                             SCALE_ROBUST_ANCHOR))
-    require(launches["scale_io"].get("weighted_apply") == its * sweeps * cgi,
+    require(launches["scale_io"].get("weighted_apply_march")
+            == its * sweeps * cgi
+            and "weighted_apply" not in launches["scale_io"],
             "phase 30: 256^3 compact launches %s" % launches["scale_io"])
     rel_scale = compared("scale_io", "scale_exact", COMPACT_OBJ_TOL, "256^3")
     held_to_plain("scale_io", scale_f, {"compact_dirs": True}, bb, obj256,
@@ -4537,7 +4566,7 @@ def run_compact_robust_phases(device, card):
                         "--blur", str(SIGMA), "--iterations", str(its),
                         "--iter-max", str(sweeps), "--irls-cg-iters",
                         str(cgi), "--device", "cuda"])
-                    counts = F.launch_counts()
+                    counts = unit_counts(F)
                 key = "%s %s" % ("x".join(map(str, nda.shape)),
                                  ",".join(env) or "default")
                 storage = {k: v for k, v in kw.items()
@@ -4685,6 +4714,7 @@ def run_compact_robust_phases(device, card):
                     "launches": int(path_launches[path].get(unit, 0)),
                     "max_abs_err": err[name], "ms": t[0], "plain_ms": t[1],
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        routed(out[-1], path_launches[path])
         require(out[-1]["launches"] > 0, "phase 30/31: %s launched no time "
                 "on its main path (%s)" % (name, path))
     return out
@@ -5339,6 +5369,568 @@ def run_pd_surface_phases(device, card):
     return out
 
 
+# ------------------------------------------------------- phases 36-38 --
+
+#: a volume past the fused fit whose Y and X are no tile multiples
+RAGGED_SHAPE = (136, 240, 200)
+#: the seeds of phase 36's bit checks at 256³ and on the ragged volume
+VOL_SEEDS = (606, 707)
+#: the whole-volume units that run on a march or on their three-pass chain
+#: (``tiled.vol_route``): their march form's count, the march's source
+#: and the chain's
+MARCH_FORMS = {
+    "cg_step": ("cg_step_march", "nsol_tpu_torch/csrc/step_march.cu",
+                "nsol_tpu_torch/csrc/admm.cu"),
+    "weighted_apply": ("weighted_apply_march",
+                       "nsol_tpu_torch/csrc/weighted_march.cu",
+                       "nsol_tpu_torch/csrc/robust.cu")}
+#: blurs past each march's shared memory (σ 3.5: cg_step's normal taps 45;
+#: σ 2.5: weighted_apply's blur taps 17), whose solves take the chains
+CHAIN_SIGMAS = {"cg_step": 3.5, "weighted_apply": 2.5}
+#: the forms phase 37 times: label → (unit, storage, regulariser); the
+#: weighted applies masked, every form after the first trip, as the CG
+#: runs them
+VOL_FORMS = {
+    "cg_step[exact]": ("cg_step", "exact", "TK1"),
+    "cg_step[qf32]": ("cg_step", "qf32", "TK1"),
+    "cg_step[dirs]": ("cg_step", "dirs", "TK1"),
+    "cg_step[state]": ("cg_step", "state", "TK1"),
+    "cg_step[exact,TK0]": ("cg_step", "exact", "TK0"),
+    "weighted_apply[exact]": ("weighted_apply", "exact", "TK1"),
+    "weighted_apply[dirs]": ("weighted_apply", "dirs", "TK1"),
+    "weighted_apply[io]": ("weighted_apply", "io", "TK1")}
+#: thin stacks past 2^20 voxels (few planes, 256-1024 wide), on which
+#: phase 37 times the chain against the march for the route's depth side
+THIN_SHAPES = ((2, 512, 1025), (4, 500, 600), (8, 384, 384),
+               (12, 320, 320), (16, 256, 320), (24, 256, 256),
+               (32, 256, 256), (8, 1024, 1024), (16, 512, 512))
+#: the forms of the host-bound shapes phase 37 routes by (64³, Lena 256²)
+ROUTE_FORMS = ("cg_step[exact]", "cg_step[qf32]", "cg_step[exact,TK0]",
+               "weighted_apply[exact]", "weighted_apply[dirs]")
+#: bytes a voxel each storage mode moves (inputs read once, outputs
+#: written once): cg_step r, p in, p', q out; weighted_apply r, p, free,
+#: wts in, p', q out
+VOL_BYTES = {("cg_step", "exact"): 16, ("cg_step", "qf32"): 12,
+             ("cg_step", "dirs"): 10, ("cg_step", "state"): 8,
+             ("weighted_apply", "exact"): 24, ("weighted_apply", "dirs"): 20,
+             ("weighted_apply", "io"): 20}
+
+
+def unit_counts(F, names=None):
+    """``F.launch_counts(names)``, a unit of :data:`MARCH_FORMS` counting
+    the launches of its chain and of its march (0 in a package without
+    one)."""
+    c = F.launch_counts()
+    return {k: c[k] + c.get(MARCH_FORMS[k][0], 0) if k in MARCH_FORMS
+            else c[k] for k in (names or c)}
+
+
+def route_launches(F):
+    """``{unit: (chain launches, march launches)}`` of the units of
+    :data:`MARCH_FORMS` since the last reset of the counts."""
+    c = F.launch_counts()
+    return {k: (c[k], c.get(m, 0)) for k, (m, _, _) in MARCH_FORMS.items()}
+
+
+def routed(entry, launches):
+    """A ``kernels`` record of a unit of :data:`MARCH_FORMS` (its name
+    before ``[``) set to the route its main path took (``launches``: that
+    run's counts): the march's source and launches where its march
+    launched there, else the chain's."""
+    base = entry["name"].split("[")[0]
+    if base in MARCH_FORMS:
+        march, m_src, c_src = MARCH_FORMS[base]
+        if launches.get(march, 0):
+            entry.update(source=m_src, launches=int(launches[march]))
+        else:
+            entry.update(source=c_src, launches=int(launches.get(base, 0)))
+    return entry
+
+
+def vol_bound(unit, storage, shape):
+    """``(bound_ms, bound_by)`` of one whole-volume ``unit`` call in
+    ``storage`` at ``shape``: :data:`VOL_BYTES` a voxel, and ~2 operations
+    a tap of its chains (σ = 1) plus ~20 for the Laplacian and the rest."""
+    n = float(np.prod(shape))
+    taps = 2 * 3 * 13 if unit == "cg_step" else 2 * 2 * 3 * 7
+    return bound(n * VOL_BYTES[(unit, storage)], n * (taps + 20))
+
+
+def vol_march_bits(B, R, st, shape, device, seed):
+    """The whole-volume march forms against their three-pass chains on the
+    same random inputs: ``cg_step`` in every storage mode × TK1/TK0 ×
+    first trip or not, ``weighted_apply`` in every storage mode × masked
+    or not × TK1/TK0 × first trip or not. Fails unless p' and q hold the
+    same bits in each, and pq agrees within 1e-9 (its sum runs in another
+    order); returns the number of forms checked."""
+    import torch
+
+    r, p, wts, free = weighted_inputs(shape, device, seed)
+    what = "volume march %s seed %d" % ("x".join(map(str, shape)), seed)
+    count = [0]
+
+    def check(form, call):
+        sm, sc = _cg_scalars(device), _cg_scalars(device)
+        got, ref = call(sm, "march"), call(sc, "chain")
+        require_bits({form + " p'": (got[0], ref[0]),
+                      form + " q": (got[1], ref[1])}, what)
+        pm, pc = float(sm[B.PQ]), float(sc[B.PQ])
+        require(abs(pm - pc) <= 1e-9 * abs(pc), "%s %s: pq %.17g, chain's "
+                "%.17g" % (what, form, pm, pc))
+        count[0] += 1
+
+    for storage in B.STORAGE:
+        (rd, pd, _), _ = B.storage_ids(storage)
+        rs, ps = r.to(rd), p.to(pd)
+        for reg in B.REGS:
+            for first in (False, True):
+                check("cg_step[%s,%s]%s" % (storage, reg,
+                                            " first" if first else ""),
+                      lambda s, route: B._cg_step(
+                          rs, ps, s, st.normal, st.inv_h2, RHO, first, reg,
+                          storage, route))
+    for storage in R.ROBUST_STORAGE:
+        ps = p.to(R.direction_dtype(storage) or torch.float32)
+        for f in (free, None):
+            for reg in B.REGS:
+                for first in (False, True):
+                    check("weighted_apply[%s,%s]%s%s" % (
+                        storage, reg, "" if f is None else " masked",
+                        " first" if first else ""),
+                        lambda s, route: R._weighted_apply(
+                            r, ps, f, wts, s, st.blur, st.inv_h2, RHO, first,
+                            reg, storage, route))
+    return count[0]
+
+
+def vol_rule_checks(T, device):
+    """``csrc/march.cuh``'s rules in C against their mirrors in
+    ``tiled.py``, on this card: the z tile (``nsol_march_tile_z`` vs
+    ``tile_z`` at its SMs) of both marches over volumes from one plane to
+    512³ and z taps 1 to 41; the whole-volume route (``nsol_vol_route`` vs
+    ``vol_route``) of both units on those volumes, the thin stacks and the
+    2^20-voxel edge at the taps each side of the marches' fit, and at 256³
+    over stencil lengths 1 to 79; the shared
+    memory of the single-stencil march with bfloat16 margins
+    (``nsol_tiled_smem``). Returns the SMs and the tiles of the main
+    shapes, as text."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import build
+
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = {"2-D 256^2": (1, 256, 256), "2-D 1024^2": (1, 1024, 1024),
+              "64^3": (64,) * 3, "128^3": (128,) * 3, "256^3": SCALE_SHAPE,
+              "ragged": RAGGED_SHAPE, "64x512^2": (64, 512, 512),
+              "512^3": BIG}
+    dims = list(shapes.values()) + [c[3] for c in EDGE_CASES] + [
+        (512, 1024, 96), (1000, 17, 40), (3, 7, 5)]
+    for d in dims:
+        for kz in (1, 3, 7, 13, 25, 41):
+            for w in (0, 1):
+                c, py = lib.nsol_march_tile_z(*d, kz, w), T.tile_z(
+                    d, kz, bool(w), sms)
+                require(c == py, "phase 36: z tile %s kz %d weighted %d: C "
+                        "%d, Python %d" % (d, kz, w, c, py))
+    for d in dims + list(THIN_SHAPES) + [(1 << 20, 1, 1), (1, 1025, 1024),
+                                         (2, 512, 512), (2, 512, 513)]:
+        for lengths in ((13, 13, 13), (7, 7, 7), (41, 41, 41), (45, 45, 45),
+                        (15, 15, 15), (17, 17, 17)):
+            for u, name in enumerate(T.VOL_UNITS):
+                c = lib.nsol_vol_route(u, *lengths, *d)
+                py = T.vol_route(name, lengths, d) == "march"
+                require(bool(c) == py, "phase 36: route of %s at %s on %s: C "
+                        "%d, Python %s" % (name, lengths, d, c, py))
+    for kz in range(1, 80, 6):
+        for ky in range(1, 80, 6):
+            for kx in range(1, 80, 6):
+                lengths = (kz, ky, kx)
+                for u, name in enumerate(T.VOL_UNITS):
+                    c = lib.nsol_vol_route(u, *lengths, *SCALE_SHAPE)
+                    py = T.vol_route(name, lengths, SCALE_SHAPE) == "march"
+                    require(bool(c) == py, "phase 36: route of %s at %s: C "
+                            "%d, Python %s" % (name, lengths, c, py))
+                c = lib.nsol_tiled_smem(*lengths, 2, 1, 0, 1)
+                py = T.smem_bytes(lengths, 2, True, two_byte=True)
+                require(c == py, "phase 36: bf16-margin shared memory %s: C "
+                        "%d, Python %d" % (lengths, c, py))
+    return "%d SMs; z tiles (single-stencil at 13 taps / weighted at 7): %s" \
+        % (sms, ", ".join("%s %d/%d" % (k, T.tile_z(d, 13, False, sms),
+                                        T.tile_z(d, 7, True, sms))
+                          for k, d in shapes.items()))
+
+
+def chain_route_runs(F, device):
+    """The chain side of the route: a 64³ linear solve (3 × 5) at σ 3.5
+    and a robust huber one (2 × 2 × 4) at σ 2.5, each past its march's
+    shared memory, against its plain version. Returns ``{unit: (chain
+    launches, march launches, max |Δ| / max |plain|)}``."""
+    import torch
+
+    shape = (64,) * 3
+    b = torch.as_tensor(np.random.RandomState(36).rand(*shape)
+                        .astype(np.float32), device=device)
+    out = {}
+    for unit, sigma in CHAIN_SIGMAS.items():
+        cov = np.diag([sigma ** 2] * 3)
+        kw = dict(iterations=3, iter_max=5) if unit == "cg_step" else dict(
+            iterations=2, iter_max=2, data_loss="huber", irls_cg_iters=4)
+        solve = F.make_fused_admm_solver(shape, cov, **kw)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x = solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        chain, march = route_launches(F)[unit]
+        rel = max_rel(x, solve.plain(b, b, ALPHA, RHO))
+        out[unit] = (chain, march, rel)
+        require(chain > 0 and march == 0 and rel <= SOLVE_VOX_TOL,
+                "phase 36: %s at sigma %g: chain %d, march %d launches, "
+                "kernel vs plain %.3g" % (unit, sigma, chain, march, rel))
+    return out
+
+
+def vol_calls(B, R, st, shape, device, forms, route=None):
+    """Call closures of ``forms`` (of :data:`VOL_FORMS`) on one set of
+    random inputs at ``shape``: through the wrapper (``route`` None: the
+    route the package takes) or, in a package with the march, by
+    ``route`` ``"chain"`` or ``"march"``."""
+    import torch
+
+    r, p, wts, free = weighted_inputs(shape, device, 37)
+    s = _cg_scalars(device)
+    calls = {}
+    for label in forms:
+        unit, storage, reg = VOL_FORMS[label]
+        if unit == "cg_step":
+            (rd, pd, _), _ = B.storage_ids(storage)
+            args = (r.to(rd), p.to(pd), s, st.normal, st.inv_h2, RHO, False,
+                    reg, storage)
+            fn = B.cg_step if route is None else partial(B._cg_step,
+                                                         route=route)
+        else:
+            ps = p.to(R.direction_dtype(storage) or torch.float32)
+            args = (r, ps, free, wts, s, st.blur, st.inv_h2, RHO, False, reg,
+                    storage)
+            fn = R.weighted_apply if route is None else partial(
+                R._weighted_apply, route=route)
+        calls[label] = partial(fn, *args)
+    return calls
+
+
+def vol_turns(B, R, st, shape, device, forms, reps=10):
+    """Device ms a call (:func:`device_ms_of`) of ``forms`` at ``shape``:
+    in a package with the march, the chain and the march in turns chain,
+    march, march, chain (``{form: {"chain": [ms, ms], "march": [ms,
+    ms]}}``); else the package's own route twice (``{"rule": [...]}``)."""
+    march = hasattr(B, "_cg_step")
+    routes = ("chain", "march", "march", "chain") if march else (None, None)
+    calls = {k: vol_calls(B, R, st, shape, device, forms, k)
+             for k in set(routes)}
+    out = {f: {} for f in forms}
+    for f in forms:
+        for k in routes:
+            out[f].setdefault(k or "rule", []).append(
+                device_ms_of(calls[k][f], reps))
+    return out
+
+
+def turns_text(turns, shape, share=False):
+    """:func:`vol_turns`' times as text, each form beside its bound (and
+    the march's share of it)."""
+    parts = []
+    for f, t in turns.items():
+        unit, storage, _ = VOL_FORMS[f]
+        b_ms = vol_bound(unit, storage, shape)[0]
+        text = "; ".join("%s %s" % (k, "/".join(map(ms_text, v)))
+                         for k, v in t.items())
+        best = [x for x in t.get("march", t.get("rule", [])) if x]
+        if share and best:
+            text += " (bound %.4f, %.1f %% of it)" % (
+                b_ms, 100 * b_ms / min(best))
+        else:
+            text += " (bound %.4f)" % b_ms
+        parts.append("%s %s" % (f, text))
+    return ", ".join(parts)
+
+
+def vol_ptxas():
+    """ptxas registers, spills and warps an SM of the whole-volume march
+    instances (the cg_step epilogue's single-stencil instances, and every
+    weighted march instance), grouped: ``{(regs, spills, warps):
+    instances}`` each."""
+    def group(d):
+        out = {}
+        for v in d.values():
+            out[v] = out.get(v, 0) + 1
+        return out
+
+    step = {k: v for k, v in march_ptxas().items() if "StepZyEpi" in k}
+    return group(step), group(weighted_ptxas())
+
+
+#: the kernels records of the whole-volume march forms no other record
+#: reports (the robust group's ``weighted_apply`` is the exact weighted
+#: one, phase 14): name → (unit, TPU kernel it replaces, phase 38's run
+#: that reports its launches)
+VOL_ENTRIES = {
+    "cg_step[march]": ("cg_step", "nsol_tpu/ops/pallas/blocked.py:988",
+                       "step_exact")}
+
+
+def vol_entry_times(B, device):
+    """``{name: (max |Δ| against the plain version, ms a wrapper call, ms
+    of the plain version)}`` of :data:`VOL_ENTRIES` at 256³ in the main
+    path's form (after the first trip), by CUDA events."""
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
+    r, p, _, _ = weighted_inputs(SCALE_SHAPE, device, 38)
+    s = [_cg_scalars(device) for _ in range(2)]
+    calls = {"cg_step[march]": (B.cg_step, B.cg_step_plain)}
+    out = {}
+    for name, (unit, plain) in calls.items():
+        def call(k, fn):
+            return fn(r, p, s[k], st.normal, st.inv_h2, RHO)
+
+        got, ref = call(0, unit), call(1, plain)
+        err = max(float((g.float() - f.float()).abs().max())
+                  for g, f in zip(got, ref))
+        require(max(max_rel(g, f) for g, f in zip(got, ref)) <= KERNEL_TOL,
+                "phase 36: %s vs plain %.3g" % (name, err))
+        out[name] = (err, cuda_median_ms(lambda: call(0, unit), 10),
+                     cuda_median_ms(lambda: call(1, plain), 2))
+        del got, ref
+    return out
+
+
+def volume_entries(vol, rows):
+    """The ``kernels`` records of :data:`VOL_ENTRIES` from phase 36's
+    times and phase 38's launches (its runs on the march)."""
+    out = []
+    for name, (unit, tpu, run) in VOL_ENTRIES.items():
+        err, ms, plain_ms = vol["entries"][name]
+        b_ms, b_by = vol_bound(unit, "exact", SCALE_SHAPE)
+        out.append(routed({
+            "name": name, "route": "cuda", "source": MARCH_FORMS[unit][2],
+            "replaces": tpu, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}, {MARCH_FORMS[unit][0]: rows[run][2][unit][1]}))
+        require(out[-1]["launches"] > 0, "phase 38: %s launched no time on "
+                "its main path (%s)" % (name, run))
+    return out
+
+
+def run_volume_phases(device, card):
+    """Phases 36-37: the whole-volume ``cg_step`` and ``weighted_apply`` on
+    the marches of ``csrc/march.cuh``. Phase 36 (a package with them):
+    the z-tile and route rules in C against their Python mirrors, every
+    form bit for bit against its three-pass chain on the tile-edge shapes,
+    at 256³ and on the ragged volume (two seeds each) and on the 2-D view,
+    the chain side of the route (wide blurs), the ptxas report. Phase 37
+    (any package): device times of the forms at 256³ and on the ragged
+    volume, of the 512³ march units, and at the host-bound shapes (64³,
+    Lena 256²) the chain against the march, in turns. Returns the chain
+    side's launches and errors and the 256³ times."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    out = {"chain": None}
+    if hasattr(B, "_cg_step"):
+        # phase 36: the rules, the bits, the chain side
+        print("phase 36 rules: C and Python agree on the z tile, the route "
+              "and the bf16-margin shared memory; %s" % vol_rule_checks(
+                  T, device))
+        cases = [(label, cov, sp, shape, (36,))
+                 for label, cov, sp, shape in EDGE_CASES] + [
+            ("256^3", iso, None, SCALE_SHAPE, VOL_SEEDS),
+            ("ragged", iso, None, RAGGED_SHAPE, VOL_SEEDS),
+            ("2-D view", np.eye(2), None, (256, 256), (36,))]
+        for label, cov, sp, shape, seeds in cases:
+            st = B.Stencils.from_cov(cov, 3, sp, device)
+            forms = sum(vol_march_bits(B, R, st, shape, device, seed)
+                        for seed in seeds)
+            torch.cuda.empty_cache()
+            print("phase 36 %s %s (normal taps %s, blur taps %s): %d forms "
+                  "of the marches bit for bit equal to their chains (p', q; "
+                  "pq within 1e-9), seeds %s" % (
+                      label, "x".join(map(str, shape)), st.normal.lengths,
+                      st.blur.lengths, forms, seeds))
+        out["chain"] = chain_route_runs(F, device)
+        print("phase 36 the chain side: %s" % ", ".join(
+            "%s at sigma %g: %d chain launches, 0 march, kernel vs plain "
+            "%.2e" % (k, CHAIN_SIGMAS[k], v[0], v[2])
+            for k, v in out["chain"].items()))
+        step, weighted = vol_ptxas()
+        print("phase 36 ptxas (registers, spill bytes, warps an SM): "
+              "cg_step march instances %s; weighted march instances %s"
+              % (step or "cached", weighted or "cached"))
+        out["entries"] = vol_entry_times(B, device)
+        lap("phase 36")
+
+    # phase 37: device times (torch.profiler medians)
+    st = B.Stencils.from_cov(iso, 3, None, device)
+    out["turns"] = {}
+    for label, shape in (("256^3", SCALE_SHAPE), ("ragged", RAGGED_SHAPE)):
+        turns = vol_turns(B, R, st, shape, device, tuple(VOL_FORMS))
+        out["turns"][label] = turns
+        torch.cuda.empty_cache()
+        print("phase 37 %s device ms a call (torch.profiler medians): %s "
+              "[%s]" % (label, turns_text(turns, shape, share=True), card))
+    calls = tiled_calls(T, R, B, st, BIG, device, np.random.RandomState(37))[1]
+    big = {k: [device_ms_of(calls[k][0], 5) for _ in range(2)]
+           for k in ("normal_apply_zy", "cg_step_zy", "weighted_apply_zy")}
+    del calls
+    torch.cuda.empty_cache()
+    print("phase 37 512^3 march units, device ms a call (two traces): %s "
+          "[%s]" % (", ".join("%s %s" % (k, "/".join(map(ms_text, v)))
+                              for k, v in big.items()), card))
+    step = {k: v for k, v in march_ptxas().items()
+            if k.startswith("ILi13ELi1ELb1ELb0Eff")}
+    print("phase 37 ptxas of the float TV instance cg_step_zy runs "
+          "(registers, spill bytes, warps an SM): %s" % (step or "cached"))
+    st2 = B.Stencils.from_cov(np.eye(2), 3, None, device)
+    for label, shape, stl, reps in (
+            ("64^3", (64,) * 3, st, 20), ("96^3", (96,) * 3, st, 20),
+            ("128^3", (128,) * 3, st, 20), ("Lena 256^2", (256, 256), st2, 20),
+            ("2-D 2048^2", (2048, 2048), st2, 20)) + tuple(
+                ("x".join(map(str, d)), d, st, 10) for d in THIN_SHAPES):
+        turns = vol_turns(B, R, stl, shape, device, ROUTE_FORMS, reps=reps)
+        dims = (1,) * (3 - len(shape)) + shape
+        rule = "/".join(T.vol_route(u, t, dims) for u, t in (
+            ("cg_step", (13, 13, 13)), ("weighted_apply", (7, 7, 7)))) \
+            if hasattr(T, "vol_route") else "chain"
+        print("phase 37 %s (the rule's routes: %s) device ms a call: %s [%s]"
+              % (label, rule, turns_text(turns, shape), card))
+        torch.cuda.empty_cache()
+    lap("phase 37")
+    return out
+
+
+def run_volume_solves(device, card):
+    """Phase 38: the solves that run ``cg_step`` / ``weighted_apply``, by
+    CUDA events (the median of a few calls after a warm-up) — the 256³
+    "step" solve exact, under ``compact_dirs`` (the CLI's default) and
+    bf16 state, the 256³ robust huber 10 × 5 × 8 exact and compact, the
+    256³ TK1L2 × 8 α sweep, the 512³ "step2d" solve, the 64³ north star
+    and the Lena 256² TV-L2, huber and TK1L2 × 64 α solves — with their
+    objectives and the route
+    their units took. In a package with the marches the 256³ solves must
+    have taken them."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.io import read_nifti, read_png
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tikhonov as TK
+
+    march = hasattr(B, "_cg_step")
+    rows = {}
+
+    def run(key, fn, reps, objective=None):
+        fn()  # warm-up (stencils, allocator)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x = fn()
+        torch.cuda.synchronize()
+        routes = {k: v for k, v in route_launches(F).items() if any(v)}
+        ms = cuda_median_ms(fn, reps)
+        obj = None if objective is None else objective(x)
+        rows[key] = (ms, obj, routes)
+        require(bool(torch.isfinite(x).all()), "phase 38: %s not finite"
+                % key)
+        return routes
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    # 256³: "step" (exact, the CLI's compact_dirs, bf16 state)
+    b, iso, A64 = compact_problem(device, SCALE_SHAPE)
+    for key, kw in (("step_exact", {}), ("step_dirs", dict(compact_dirs=True)),
+                    ("step_state", dict(state_dtype=torch.bfloat16))):
+        solve = B.blocked_admm_solve(SCALE_SHAPE, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, **kw)
+        require(solve.mode == "step", "phase 38: 256^3 took %r" % solve.mode)
+        routes = run(key, partial(solve, b, b, ALPHA, RHO), 3,
+                     lambda x: objective_device(x, b, A64, ALPHA))
+        require(not march or routes.get("cg_step") == (
+            0, ITERATIONS * ITER_MAX), "phase 38: %s routes %s" % (key, routes))
+    # the 256³ TK1L2 sweep over 8 α, CG 10
+    alphas = TK_ALPHAS[::8].astype(np.float64)
+    tk = TK.make_fused_tikhonov_solver(SCALE_SHAPE, iso, reg="TK1",
+                                       iter_max=TK_ITER_MAX)
+    routes = run("tk1_256_x8", partial(tk, b, b, alphas), 2)
+    require(not march or routes.get("cg_step", (1, 0))[0] == 0,
+            "phase 38: 256^3 TK1L2 routes %s" % routes)
+    del b
+    torch.cuda.empty_cache()
+    # 256³ robust huber 10 × 5 × 8 (salt-and-pepper outliers)
+    its, sweeps, cgi = ROBUST_ITERS["scale"]
+    bb, iso, A64 = scale_problem(device, True, SCALE_SHAPE)
+    for key, kw in (("robust_exact", {}), ("robust_io",
+                                           dict(compact_dirs=True))):
+        rsolve = R.blocked_robust_admm_solve(
+            SCALE_SHAPE, iso, iterations=its, iter_max=sweeps,
+            irls_cg_iters=cgi, data_loss="huber", **kw)
+        routes = run(key, partial(rsolve, bb, bb, ALPHA, RHO), 2,
+                     lambda x: robust_objective(x, bb, A64, ALPHA))
+        require(not march or routes.get("weighted_apply") == (
+            0, its * sweeps * cgi), "phase 38: %s routes %s" % (key, routes))
+    del bb
+    torch.cuda.empty_cache()
+    # 512³ "step2d" 50 × 10: cg_step_zy (the march's float TV instance)
+    # 500 times a solve
+    b, iso, A64 = scale_problem(device, robust=False)
+    solve = B.blocked_admm_solve(BIG, iso, iterations=ITERATIONS,
+                                 iter_max=ITER_MAX, mode="step2d")
+    run("step2d_512", partial(solve, b, b, ALPHA, RHO), 2,
+        lambda x: objective_device(x, b, A64, ALPHA))
+    del b, solve
+    torch.cuda.empty_cache()
+    # the 64³ north star (Shepp-Logan stand-in, 50 × 10)
+    img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
+    b_np = ndi.convolve(img.data.astype(np.float64), kern, mode="wrap")
+    b64 = interop.to_torch(b_np.astype(np.float32), device)
+    solve = F.make_fused_admm_solver((64,) * 3, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX)
+    run("north_star_64", partial(solve, b64, b64, ALPHA, RHO), 10,
+        lambda x: objective_host(interop.to_numpy(x), b_np, kern, ALPHA))
+    # Lena 256²: TV-L2 ADMM 50 × 10, huber 10 × 3 × 6, TK1L2 × 64 α
+    lena = read_png(data.path("2D_Lena_256_blur_noise.png")).astype(
+        np.float64)
+    bl = interop.to_torch((lena / lena.max()).astype(np.float32), device)
+    cov2 = np.eye(2)
+    A2, _ = C.make_blur_operators(cov2, alpha_cut=3, dtype=np.float64)
+    lsolve = F.make_fused_admm_solver(bl.shape, cov2, iterations=ITERATIONS,
+                                      iter_max=ITER_MAX)
+    run("lena_tvl2", partial(lsolve, bl, bl, ALPHA, RHO), 10,
+        lambda x: objective_device(x, bl, A2, ALPHA))
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    hsolve = F.make_fused_admm_solver(bl.shape, cov2, iterations=its,
+                                      iter_max=sweeps, data_loss="huber",
+                                      irls_cg_iters=cgi)
+    run("lena_huber", partial(hsolve, bl, bl, ALPHA, RHO), 10,
+        lambda x: robust_objective(x, bl, A2, ALPHA))
+    tkl = TK.make_fused_tikhonov_solver(bl.shape, cov2, reg="TK1",
+                                        iter_max=TK_ITER_MAX)
+    run("lena_tk1_x64", partial(tkl, bl, bl, TK_ALPHAS.astype(np.float64)),
+        5)
+    print("phase 38 solves (ms a solve by CUDA events, median; objective; "
+          "launches (chain, march) of cg_step / weighted_apply): %s [%s]"
+          % ("; ".join("%s %.3f ms, %s, %s" % (
+              k, v[0], "-" if v[1] is None else "%.6f" % v[1], v[2])
+              for k, v in rows.items()), card))
+    lap("phase 38")
+    return rows
+
+
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
     counts of the 64³ solve, each unit's max |Δ| against its plain version
@@ -5392,9 +5984,9 @@ def run_admm_phases(device, card):
     F.reset_counts()
     x_k = solve(b, b, ALPHA, RHO)
     torch.cuda.synchronize()
-    launches = F.launch_counts(F.ADMM_UNITS)
+    launches = F.launch_counts(F.ADMM_UNITS + F.MARCH_UNITS)
     plain_calls = F.plain_counts()
-    require(all(n > 0 for n in launches.values()),
+    require(all(n > 0 for n in unit_counts(F, F.ADMM_UNITS).values()),
             "phase 4: a kernel was not launched: %s" % launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 4: a plain version ran: %s" % plain_calls)
@@ -5435,7 +6027,11 @@ def run_admm_phases(device, card):
     del xt_t
     solve_big = F.make_fused_admm_solver(big, iso, iterations=ITERATIONS,
                                          iter_max=ITER_MAX)
+    F.reset_counts()
     xb_k = solve_big(bb, bb, ALPHA, RHO)
+    big_routes = route_launches(F)["cg_step"]
+    require(big_routes == (0, ITERATIONS * ITER_MAX), "phase 5: cg_step "
+            "launches (chain, march) %s, not all on the march" % (big_routes,))
     xb_p = solve_big.plain(bb, bb, ALPHA, RHO)
     torch.cuda.synchronize()
     A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
@@ -5455,9 +6051,10 @@ def run_admm_phases(device, card):
                             big, device, rng, reps=10)
     print("phase 5 scale 256^3: objective %.1f (JAX package, information "
           "only: %.1f); kernel vs plain objective rel %.3e, voxel %.3e; "
+          "cg_step launches (chain, march) %s; "
           "kernel %.1f ms/solve = %.2f it/s, plain %.1f ms/solve = %.2f "
           "it/s; per-call (kernel ms, plain ms): %s [%s]"
-          % (ob_k, SCALE_OBJECTIVE_JAX, ob_rel, vox_b, msb_k,
+          % (ob_k, SCALE_OBJECTIVE_JAX, ob_rel, vox_b, big_routes, msb_k,
              ITERATIONS / msb_k * 1e3, msb_p, ITERATIONS / msb_p * 1e3,
              ", ".join("%s %.3f/%.3f" % (k, a, p)
                        for k, (a, p) in times256.items()), card))
@@ -5494,7 +6091,8 @@ def run_admm_phases(device, card):
 
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
-          "scale", "compact", "sharded", "compact_robust", "pd_surface")
+          "scale", "compact", "sharded", "compact_robust", "pd_surface",
+          "volume", "volume_solves")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -5564,6 +6162,7 @@ def kernel_entries(group, launches, err, times, n, taps, nd=3, batch=1,
                     "library_ms": t[2] if len(t) > 2 else None})
         if len(t) > 3:
             out[-1].update(device_ms=t[3], library_device_ms=t[4])
+        routed(out[-1], launches)
     return out
 
 
@@ -5672,6 +6271,12 @@ def main(argv=None):
         kernels += run_compact_robust_phases(device, card)
     if "pd_surface" in groups:
         kernels += run_pd_surface_phases(device, card)
+    if "volume" in groups:
+        vol = run_volume_phases(device, card)
+    if "volume_solves" in groups:
+        rows = run_volume_solves(device, card)
+        if "volume" in groups and "entries" in vol:
+            kernels += volume_entries(vol, rows)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -26,7 +26,14 @@
 //                 of its square).
 //   cg_step       p' = r + beta p formed on the fly inside the x pass, then
 //                 q = M p' and the partial sums of p'.q; second stage
-//                 a = gamma / pq.
+//                 a = gamma / pq. Where march.cuh's vol_route takes the
+//                 taps and the shape (a volume past 2^20 voxels deep enough
+//                 for the march's z halo, whose taps a block's shared
+//                 memory holds), the C entry runs it as
+//                 step_march.cu's one-pass march instead, which reads r
+//                 and p once, allocates no scratch volume and gives the
+//                 same p' and q bit for bit; the solves (here and in
+//                 tikhonov.cu) take the same rule.
 //   cg_update     x += a p', r -= a q and the partial sums of r^2; second
 //                 stage beta = gamma' / gamma, gamma = gamma'.
 //   admm_tail     clip x >= 0, t = grad x / h + w, grouped shrink at
@@ -68,8 +75,9 @@
 // solve is ~3300 short launches, so launches and their host enqueue bound
 // it; at 256^3 (64 MiB a volume) the elementwise passes run near HBM
 // bandwidth and the per-axis stencil passes, which read every tap through
-// L2, at a fraction of it. The design keeps the passes simple (all loads
-// coalesced along X, no shared-memory tiles yet) and keeps every CG scalar
+// L2, at a fraction of it (which is why cg_step marches past 2^20
+// voxels). The design keeps the passes simple (all loads coalesced along
+// X, no shared-memory tiles) and keeps every CG scalar
 // on the device, so nothing waits for the host inside a solve. The per-axis
 // passes and the CG update live in stencil.cuh, shared with robust.cu and
 // tikhonov.cu.
@@ -101,7 +109,8 @@ enum Unit {
   kAdmmTail = 3,
   kAdmmRecord = 4,
   kCgSweep = 5,
-  kNormalApplyPre = 6
+  kNormalApplyPre = 6,
+  kCgStepMarch = 7  // cg_step on step_march.cu's march
 };
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
@@ -342,9 +351,9 @@ cudaError_t cg_step_t(const R* r, const P* p, P* p_new, Q* q, float* t1, float* 
   return cudaGetLastError();
 }
 
-cudaError_t cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
-                    double* partials, double* scal, int first, Taps tp, float rho, int reg,
-                    int storage, Spacing sp, Dims d, cudaStream_t s) {
+cudaError_t cg_step_chain(const void* r, const void* p, void* p_new, void* q, float* t1,
+                          float* t2, double* partials, double* scal, int first, Taps tp,
+                          float rho, int reg, int storage, Spacing sp, Dims d, cudaStream_t s) {
   return with_storage(storage, [&](auto st) {
     using S = decltype(st);
     return cg_step_t(static_cast<const typename S::R*>(r), static_cast<const typename S::P*>(p),
@@ -505,6 +514,40 @@ cudaError_t admm_record(const float* x, const float* b, float* t1, float* t2,
 
 }  // namespace
 
+extern "C" {
+// march.cuh's whole-volume route (tiled.cu) and step_march.cu's cg_step,
+// which add to no count.
+int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X);
+int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, double* partials,
+                       double* scal, int first, const float* taps, int kz, int ky, int kx,
+                       float rho, int reg, int storage, float ih2x, float ih2y, float ih2z,
+                       int Z, int Y, int X, void* stream);
+}
+
+namespace {
+
+// One whole-volume cg_step by `route` (stencil.cuh's Route): the march
+// (counted as kCgStepMarch) or the three passes through t1, t2 (kCgStep).
+int cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
+            double* partials, double* scal, int first, const float* taps, int kz, int ky,
+            int kx, float rho, int reg, int storage, int route, float ih2x, float ih2y,
+            float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
+  if (route == kRouteMarch ||
+      (route == kRouteRule && nsol_vol_route(kVolCgStep, kz, ky, kx, Z, Y, X))) {
+    counts[kCgStepMarch] += 1;
+    return nsol_cg_step_march(r, p, p_new, q, partials, scal, first, taps, kz, ky, kx, rho, reg,
+                              storage, ih2x, ih2y, ih2z, Z, Y, X, stream);
+  }
+  counts[kCgStep] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  return (int)cg_step_chain(r, p, p_new, q, t1, t2, partials, scal, first,
+                            make_taps(taps, kz, ky, kx), rho, reg, storage, sp, Dims{Z, Y, X},
+                            (cudaStream_t)stream);
+}
+
+}  // namespace
+
 // ------------------------------------------------------------ C interface --
 // Every function enqueues on `stream`, never synchronizes, allocates
 // nothing, adds one to counts[unit] per unit it launches, and returns
@@ -552,17 +595,17 @@ int nsol_normal_apply_prepadded(const float* v_ext, float* out, float* t1, float
   return e;
 }
 
-// r, p, p_new, q stored as the Storage mode `storage` says.
+// r, p, p_new, q stored as the Storage mode `storage` says; `route` a
+// Route: the rule (t1, t2 may be null where it takes the march), the
+// chain (t1, t2 given) or the march. Counts kCgStep or kCgStepMarch by the
+// route taken; partials holds max(nsol_tiled_blocks(Z, Y, X),
+// nsol_max_blocks()) doubles.
 int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
                  double* partials, double* scal, int first, const float* taps, int kz, int ky,
-                 int kx, float rho, int reg, int storage, float ih2x, float ih2y, float ih2z, int Z,
-                 int Y, int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = cg_step(r, p, p_new, q, t1, t2, partials, scal, first,
-                          make_taps(taps, kz, ky, kx), rho, reg, storage, sp, Dims{Z, Y, X},
-                          (cudaStream_t)stream);
-  counts[kCgStep] += 1;
-  return (int)e;
+                 int kx, float rho, int reg, int storage, int route, float ih2x, float ih2y,
+                 float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
+  return cg_step(r, p, p_new, q, t1, t2, partials, scal, first, taps, kz, ky, kx, rho, reg,
+                 storage, route, ih2x, ih2y, ih2z, Z, Y, X, stream, counts);
 }
 
 // r null: x += a p alone. store_r 0: r' is summed but not stored.
@@ -624,10 +667,11 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
 // exact apply for it, blocked.py:1430-1446). sweep 0: iter_max x (cg_step,
 // cg_update); sweep 1 (kStoreExact or kStoreState): iter_max x cg_sweep,
 // then the owed x += a p (cg_update on x alone), partials 4 *
-// nsol_max_blocks(). With reg != nullptr the solve also records row 0 (x0)
+// nsol_max_blocks(), else max(nsol_tiled_blocks, nsol_max_blocks) (the
+// cg_step march's). With reg != nullptr the solve also records row 0 (x0)
 // and one row per outer iteration (the clipped iterate) into reg/data
 // (fused.py:637-654), the Data loss by rec_loss at the scale rec_scale.
-// counts: 6 (admm.cu's units).
+// counts: 8 (admm.cu's units).
 int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, float* rhs,
                     void* r0, void* r1, void* p0, void* p1, void* q, float* t1, float* t2,
                     double* partials, double* scal, const float* taps_a, int kaz, int kay,
@@ -669,8 +713,10 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
         r_cur = r_next;
         r_next = tmp;
       } else {
-        UNIT(kCgStep, cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, tn, rho,
-                              kRegLap, storage, sp, d, s));
+        const int e = cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, taps_n,
+                              knz, kny, knx, rho, kRegLap, storage, kRouteRule, ih2x, ih2y,
+                              ih2z, Z, Y, X, stream, counts);
+        if (e != 0) return e;
         UNIT(kCgUpdate, cg_update_s(x, r_cur, p_cur, q, partials, scal, d.n(), storage, 1, s));
       }
       void* tmp = p_prev;

@@ -24,7 +24,14 @@
 //                   time), y = wts r: the weights frozen for one sweep.
 //   weighted_apply  p' = r + beta p (p' = r on the first trip), pf = free p',
 //                   s = wts A pf, q = free (A s + rho B^T B pf) + (p' - pf),
-//                   partial sums of p'.q; second stage a = gamma / pq.
+//                   partial sums of p'.q; second stage a = gamma / pq. Where
+//                   march.cuh's vol_route takes the taps and the shape
+//                   (a volume past 2^20 voxels deep enough for the
+//                   march's z halo, whose taps fit a block),
+//                   the C entry runs it as weighted_march.cu's one-pass
+//                   march instead of the six passes below, with no
+//                   scratch volume and the same p' and q bit for bit; the
+//                   sweeps (here and in tikhonov.cu) take the same rule.
 //   irls_step       x = max(x + xk, 0), a NaN kept as jnp.maximum keeps it
 //                   (fused.py:622; common.cuh clip0).
 // and two per-shard units of the sharded path, the prepadded=True forms of
@@ -92,7 +99,8 @@ enum Unit {
   kIrlsStep = 3,
   kCgUpdate = 4,
   kBlurApplyPre = 5,
-  kWeightedApplyPre = 6
+  kWeightedApplyPre = 6,
+  kWeightedApplyMarch = 7  // weighted_apply on weighted_march.cu's march
 };
 // irls_head's z epilogue: r = A x - b, wts = rho'_C(r^2), y = wts r.
 struct WeightsEpi {
@@ -250,10 +258,10 @@ void weighted_apply_t(const float* r, const typename S::P* p, typename S::P* p_n
 }
 
 // p and p' stored as the RobustStorage mode `storage` says.
-cudaError_t weighted_apply(const float* r, const void* p, void* p_new, float* q,
-                           const float* free, const float* wts, float* t1, float* t2,
-                           double* partials, double* scal, int first, Taps tp, float rho,
-                           int reg, int storage, Spacing sp, Dims d, cudaStream_t s) {
+cudaError_t weighted_apply_chain(const float* r, const void* p, void* p_new, float* q,
+                                 const float* free, const float* wts, float* t1, float* t2,
+                                 double* partials, double* scal, int first, Taps tp, float rho,
+                                 int reg, int storage, Spacing sp, Dims d, cudaStream_t s) {
   const cudaError_t e = with_robust_storage(storage, [&](auto st) {
     using S = decltype(st);
     using P = typename S::P;
@@ -329,6 +337,44 @@ cudaError_t irls_step(float* x, const float* xk, long long n, cudaStream_t s) {
 
 }  // namespace
 
+extern "C" {
+// march.cuh's whole-volume route (tiled.cu) and weighted_march.cu's
+// weighted_apply, which add to no count.
+int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X);
+int nsol_weighted_apply_march(const float* r, const void* p, void* p_new, float* q,
+                              const float* free, const float* wts, double* partials,
+                              double* scal, int first, const float* taps, int kz, int ky,
+                              int kx, float rho, int reg, int storage, float ih2x, float ih2y,
+                              float ih2z, int Z, int Y, int X, void* stream);
+}
+
+namespace {
+
+// One whole-volume weighted_apply by `route` (stencil.cuh's Route): the
+// march (counted as kWeightedApplyMarch) or the six passes through t1, t2
+// (kWeightedApply).
+int weighted_apply(const float* r, const void* p, void* p_new, float* q, const float* free,
+                   const float* wts, float* t1, float* t2, double* partials, double* scal,
+                   int first, const float* taps, int kz, int ky, int kx, float rho, int reg,
+                   int storage, int route, float ih2x, float ih2y, float ih2z, int Z, int Y,
+                   int X, void* stream, long long* counts) {
+  if (route == kRouteMarch ||
+      (route == kRouteRule && nsol_vol_route(kVolWeightedApply, kz, ky, kx, Z, Y, X))) {
+    counts[kWeightedApplyMarch] += 1;
+    return nsol_weighted_apply_march(r, first ? nullptr : p, p_new, q, free, wts, partials, scal,
+                                     first, taps, kz, ky, kx, rho, reg, storage, ih2x, ih2y,
+                                     ih2z, Z, Y, X, stream);
+  }
+  counts[kWeightedApply] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  return (int)weighted_apply_chain(r, p, p_new, q, free, wts, t1, t2, partials, scal, first,
+                                   make_taps(taps, kz, ky, kx), rho, reg, storage, sp,
+                                   Dims{Z, Y, X}, (cudaStream_t)stream);
+}
+
+}  // namespace
+
 // ------------------------------------------------------------ C interface --
 // Every function enqueues on `stream`, never synchronizes, allocates
 // nothing, adds one to counts[unit] per unit it launches, and returns
@@ -364,18 +410,19 @@ int nsol_irls_head(const float* x, const float* b, float* wts, float* y, float* 
   return (int)e;
 }
 
-// p, p_new stored as the RobustStorage mode `storage` says.
+// p, p_new stored as the RobustStorage mode `storage` says; `route` a
+// Route: the rule (t1, t2 may be null where it takes the march), the
+// chain (t1, t2 given) or the march. Counts kWeightedApply or
+// kWeightedApplyMarch by the route taken; partials holds
+// max(nsol_tiled_blocks(Z, Y, X), nsol_max_blocks()) doubles.
 int nsol_weighted_apply(const float* r, const void* p, void* p_new, float* q,
                         const float* free, const float* wts, float* t1, float* t2,
                         double* partials, double* scal, int first, const float* taps, int kz,
-                        int ky, int kx, float rho, int reg, int storage, float ih2x, float ih2y,
-                        float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = weighted_apply(r, p, p_new, q, free, wts, t1, t2, partials, scal, first,
-                                 make_taps(taps, kz, ky, kx), rho, reg, storage, sp,
-                                 Dims{Z, Y, X}, (cudaStream_t)stream);
-  counts[kWeightedApply] += 1;
-  return (int)e;
+                        int ky, int kx, float rho, int reg, int storage, int route, float ih2x,
+                        float ih2y, float ih2z, int Z, int Y, int X, void* stream,
+                        long long* counts) {
+  return weighted_apply(r, p, p_new, q, free, wts, t1, t2, partials, scal, first, taps, kz, ky,
+                        kx, rho, reg, storage, route, ih2x, ih2y, ih2z, Z, Y, X, stream, counts);
 }
 
 int nsol_irls_step(float* x, const float* xk, long long n, void* stream, long long* counts) {
@@ -489,8 +536,9 @@ int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, voi
                                   kz, ky, kx, rho, storage, ih2x, ih2y, ih2z, Z, Y, X, stream,
                                   tiled_counts));
     } else {
-      UNIT(kWeightedApply, weighted_apply(rk, p_prev, p_cur, q, free, wts, t1, t2, partials,
-                                          scal, k == 0, tp, rho, reg, storage, sp, d, s));
+      CALL(weighted_apply(rk, p_prev, p_cur, q, free, wts, t1, t2, partials, scal, k == 0, taps,
+                          kz, ky, kx, rho, reg, storage, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X,
+                          stream, counts));
     }
     UNIT(kCgUpdate, robust_cg_update(xk, rk, p_cur, q, partials, scal, d.n(), storage, s));
     void* tmp = p_prev;
@@ -538,8 +586,9 @@ int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, v
 
 extern "C" {
 
-// One IRLS sweep with the per-axis units (robust.cu's counts); p0, p1
-// stored as the RobustStorage mode `storage` says.
+// One IRLS sweep with the per-axis units (robust.cu's counts, 8; its
+// weighted_apply by march.cuh's route); p0, p1 stored as the
+// RobustStorage mode `storage` says.
 int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, void* p0,
                     void* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                     double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
@@ -559,7 +608,9 @@ int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk
 // so the records need no TV prox/dual chain. 1/h enters for the records.
 // The directions p0, p1 are stored as the RobustStorage mode `storage`
 // says (kRobustDirs: the fused solve's compact_dirs; kRobustIo:
-// blocked_robust_admm_solve's).
+// blocked_robust_admm_solve's). weighted_apply takes march.cuh's route, so
+// partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles; counts:
+// 8 (this file's units).
 int nsol_robust_admm_solve(const float* b, float* x, float* wts, float* free, float* rk,
                            void* p0, void* p1, float* q, float* xk, float* t1, float* t2,
                            double* partials, double* scal, const float* taps, int kz, int ky,

@@ -131,6 +131,13 @@ cudaError_t with_robust_storage(int storage, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+// The whole-volume units that take a march or the three-pass chain
+// (march.cuh's vol_route), and the route their C entries take: the rule,
+// the chain whatever the rule says (the bit reference the march is held
+// to), or the march whatever it says.
+enum VolUnit { kVolCgStep = 0, kVolWeightedApply = 1 };
+enum Route { kRouteRule = 0, kRouteChain = 1, kRouteMarch = 2 };
+
 // Device scalar slots of the CG state (double); the sweep adds r.q and q.q.
 enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3, kRQ = 4, kQQ = 5 };
 // Second-stage reductions.

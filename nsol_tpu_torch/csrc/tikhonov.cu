@@ -31,7 +31,8 @@
 //
 // What bounds it on the H100: as admm.cu, bytes at 256^3 (tik_clip moves
 // two volumes) and launches at 256^2, where one CG-10 solve is ~67 short
-// launches and their host enqueue.
+// launches and their host enqueue. cg_step and weighted_apply take the
+// march or the chain by march.cuh's vol_route, as their C entries do.
 
 #include <cuda_runtime.h>
 
@@ -61,8 +62,8 @@ int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const floa
                       int X, void* stream, long long* counts);
 int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
                  double* partials, double* scal, int first, const float* taps, int kz, int ky,
-                 int kx, float rho, int reg, int storage, float ih2x, float ih2y, float ih2z, int Z,
-                 int Y, int X, void* stream, long long* counts);
+                 int kx, float rho, int reg, int storage, int route, float ih2x, float ih2y,
+                 float ih2z, int Z, int Y, int X, void* stream, long long* counts);
 int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
                    double* scal, long long n, int storage, int store_r, void* stream,
                    long long* counts);
@@ -87,9 +88,12 @@ int nsol_tik_clip(float* out, const float* in, long long n, void* stream, long l
 // xk (robust only). compact 1 (the reference's compact_dirs,
 // fused.py:783-797): the CG directions p0, p1 are bfloat16, rounded where
 // each is formed (the linear CG's storage kStoreQf32, the IRLS sweep's
-// kRobustDirs); r, q, x and every sum stay float. Counts: admm.cu's
-// (normal_apply, cg_step, cg_update), robust.cu's (blur_apply, irls_head,
-// weighted_apply, irls_step, cg_update) and this file's (tik_clip).
+// kRobustDirs); r, q, x and every sum stay float. The CG's cg_step and
+// the sweeps' weighted_apply take march.cuh's route (march or chain), so
+// partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles. Counts:
+// admm.cu's 8 (normal_apply, cg_step, cg_update, ..., cg_step's march),
+// robust.cu's 8 (blur_apply, irls_head, weighted_apply, irls_step,
+// cg_update, ..., weighted_apply's march) and this file's (tik_clip).
 int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* atb, float* r,
                         void* p0, void* p1, float* q, float* t1, float* t2, float* wts,
                         float* free, float* xk, double* partials, double* scal,
@@ -130,7 +134,7 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
     void* p_cur = p1;
     for (int it = 0; it < iter_max; ++it) {
       CALL(nsol_cg_step(r, p_prev, p_cur, q, t1, t2, partials, scal, it == 0, taps_n, knz, kny,
-                        knx, alpha, reg, storage, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                        knx, alpha, reg, storage, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream,
                         admm_counts));
       CALL(nsol_cg_update(x, r, p_cur, q, partials, scal, n, storage, 1, stream, admm_counts));
       void* tmp = p_prev;

@@ -11,7 +11,15 @@ PyTorch version beside it and a launch counter on its wrapper:
   ``rhs − q`` and sets ``γ = ‖rhs − q‖²``, ``β = 0``.
 * :func:`cg_step` — ``p' = r + β·p ; q = M p' ; pq = Σ p'·q`` and
   ``a = γ/pq`` (guarded); replaces ``blocked.py::make_blocked_cg_step``
-  (:988).
+  (:988). Where :func:`~.tiled.vol_route` takes the shape and taps (a
+  volume past 2^20 voxels deep enough for the march's z halo, whose taps
+  a block's shared memory holds: the "step" route's 128³, 256³) the C
+  entry runs it as the
+  whole-volume instance of ``csrc/march.cuh``'s single-stencil march
+  (``csrc/step_march.cu``, counted on ``cg_step.march_launches``), which
+  reads
+  ``r`` and ``p`` once and allocates no scratch volume; else as three
+  passes. The two give the same ``p'`` and ``q`` bit for bit.
 * :func:`cg_update` — ``x += a·p' ; r −= a·q ; γ' = ‖r‖²`` and
   ``β = γ'/γ`` (guarded): the x/r update and the second reduction of the
   in-kernel CG (``fused.py:365-374``).
@@ -425,6 +433,11 @@ def _partials(device, sets=1):
                        dtype=torch.float64, device=device)
 
 
+#: launch counts a C entry of ``csrc/admm.cu`` or ``csrc/robust.cu`` adds
+#: to (their Unit enums, the march's count last)
+COUNTS = 8
+
+
 def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None, reg="TK1",
                  io_dtype=None):
     """``q = Σ-separable wrap conv of v with taps + rho·BᵀB v``; with
@@ -473,10 +486,22 @@ def cg_step(r, p, scal, taps, inv_h2, rho, first=False, reg="TK1",
     ``scal[A] = γ/pq`` (0 unless pq > 0). Returns ``(p', q)``, stored as
     :data:`STORAGE` ``[storage]`` says (``blocked.py:988``'s ``io_dtype``,
     ``r_dtype``, ``q_dtype``): ``pq`` takes the rounded ``p'`` and the
-    float ``q`` before its rounding."""
+    float ``q`` before its rounding. On the card the C entry runs
+    :func:`~.tiled.vol_route`'s route: the march (counted on
+    ``cg_step.march_launches``) or the three passes (on
+    ``cg_step.launches``)."""
     if r.device.type == "cpu":
         return cg_step_plain(r, p, scal, taps, inv_h2, rho, first, reg,
                              storage)
+    return _cg_step(r, p, scal, taps, inv_h2, rho, first, reg, storage)
+
+
+def _cg_step(r, p, scal, taps, inv_h2, rho, first, reg, storage, route=None):
+    """:func:`cg_step` on the card by ``route``: ``None`` takes
+    :func:`~.tiled.vol_route`'s, ``"chain"`` the three passes (the bit
+    reference the march is held to) and ``"march"`` the march whatever the
+    rule says of the shape (an error where its shared memory does not hold
+    the taps)."""
     name = "cg_step"
     (R, P, Q), sid = storage_ids(storage)
     dims = volume_dims(name, r)
@@ -485,20 +510,26 @@ def cg_step(r, p, scal, taps, inv_h2, rho, first=False, reg="TK1",
         check_tensors(name, r.shape, p, device=r.device, dtype=P)
     _check_consts(name, r.device, taps, scal)
     lib = build.load()
+    T = _tiled()
     p_new = torch.empty(r.shape, dtype=P, device=r.device)
     q = torch.empty(r.shape, dtype=Q, device=r.device)
-    t1, t2 = (torch.empty(r.shape, device=r.device) for _ in range(2))
     tv = taps.as_volume()
-    counts = build.new_counts(6)
+    route = route or T.vol_route("cg_step", tv.lengths, dims)
+    t1 = t2 = None
+    if route == "chain":
+        t1, t2 = (torch.empty(r.shape, device=r.device) for _ in range(2))
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_cg_step(
         build.tensor_ptr(r), None if first else build.tensor_ptr(p),
         build.tensor_ptr(p_new), build.tensor_ptr(q), build.tensor_ptr(t1),
-        build.tensor_ptr(t2), build.tensor_ptr(_partials(r.device)),
+        build.tensor_ptr(t2),
+        build.tensor_ptr(T.tiled_partials(r.device, dims)),
         build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
-        *tv.lengths, float(rho), reg_id(reg), sid, *spacing3(inv_h2), *dims,
-        build.stream_ptr(r.device), counts)
+        *tv.lengths, float(rho), reg_id(reg), sid, T.ROUTES.index(route),
+        *spacing3(inv_h2), *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     cg_step.launches += counts[1]
+    cg_step.march_launches += counts[COUNTS - 1]
     return p_new, q
 
 
@@ -663,6 +694,7 @@ def _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total, chain):
 
 for _f in (normal_apply, cg_step, cg_update, cg_sweep, normal_apply_prepadded):
     _f.launches = 0
+cg_step.march_launches = 0
 
 
 # ------------------------------------------- reference-shaped entry points --

@@ -44,8 +44,8 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_weighted_apply_prepadded": [_P] * 6 + [_I] * 3 + [_F] * 4
     + [_I] * 7 + [_P, _P],
-    "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I] + [_F] * 3
-    + [_I] * 3 + [_P, _P],
+    "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I, _I]
+    + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
     "nsol_cg_sweep": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
@@ -66,8 +66,8 @@ _SIGNATURES = {
     "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
-    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I, _I]
-    + [_F] * 3 + [_I] * 3 + [_P, _P],
+    "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3
+    + [_F, _I, _I, _I] + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_irls_step": [_P, _P, _LL, _P, _P],
     "nsol_irls_sweep": [_P] * 14 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I, _F, _I] + [_I] * 3 + [_P, _P],
@@ -77,7 +77,9 @@ _SIGNATURES = {
     + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
     "nsol_tik_clip": [_P, _P, _LL, _P, _P],
     "nsol_tiled_blocks": [_I] * 3,
-    "nsol_tiled_smem": [_I] * 6,
+    "nsol_tiled_smem": [_I] * 7,
+    "nsol_march_tile_z": [_I] * 5,
+    "nsol_vol_route": [_I] * 7,
     "nsol_normal_apply_zy": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 3
     + [_F, _I] + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_cg_step_zy": [_P] * 6 + [_I, _P] + [_I] * 3 + [_F] * 4 + [_I] * 3
@@ -169,10 +171,11 @@ def load():
 def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
-    admm_tail, admm_record, cg_sweep, normal_apply_prepadded; ``pd.cu``:
-    pd_dual, pd_primal, pd_record; ``robust.cu``: blur_apply, irls_head,
-    weighted_apply, irls_step, cg_update, blur_apply_prepadded,
-    weighted_apply_prepadded; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
+    admm_tail, admm_record, cg_sweep, normal_apply_prepadded, cg_step on
+    its march; ``pd.cu``: pd_dual, pd_primal, pd_record; ``robust.cu``:
+    blur_apply, irls_head, weighted_apply, irls_step, cg_update,
+    blur_apply_prepadded, weighted_apply_prepadded, weighted_apply on its
+    march; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The
     kernels of ``stream.cuh`` count as their callers' units (tik_clip,
     cg_direction)."""

@@ -76,7 +76,7 @@ __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
            "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
-           "SHARDED_UNITS",
+           "SHARDED_UNITS", "MARCH_UNITS",
            "linear_admm_solver", "reset_counts",
            "launch_counts", "plain_counts"]
 
@@ -220,8 +220,9 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
             + (torch.float32,) * 2]  # Aᵀb rhs r0 r1 p0 p1 q t1 t2
     v = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     w = torch.empty_like(v)
-    partials = torch.empty((4 if sweep else 1) * lib.nsol_max_blocks(),
-                           dtype=torch.float64, device=b.device)
+    # the sweep's four sets, or cg_step's march partials
+    partials = B._partials(b.device, 4) if sweep \
+        else Z.tiled_partials(b.device, dims)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
     reg = data = parts = None
@@ -229,7 +230,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
     ta, tn = st.blur.as_volume(), st.normal.as_volume()
-    counts = build.new_counts(6)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_admm_solve(
         build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
         build.tensor_ptr(w), *[build.tensor_ptr(t) for t in vols],
@@ -245,6 +246,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
     build.check(err, name)
     for f, n in zip(_ADMM_UNITS + (Rec.admm_record, B.cg_sweep), counts):
         f.launches += n
+    B.cg_step.march_launches += counts[B.COUNTS - 1]
     return x, reg, data
 
 
@@ -811,6 +813,10 @@ TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
 TILED_UNITS = tuple(f.__name__ for f in Z.UNITS)
 #: the whole-CG-iteration unit of ``blocked_admm_solve(mode="sweep")``
 SWEEP_UNITS = ("cg_sweep",)
+#: the whole-volume march forms of ``cg_step`` and ``weighted_apply``,
+#: counted on their wrappers' ``march_launches`` apart from the chains
+_MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply}
+MARCH_UNITS = tuple(_MARCH)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),
             (R.blur_apply_prepadded, R.blur_apply_prepadded_plain),
@@ -829,11 +835,16 @@ def reset_counts():
     for f, p in _UNITS.values():
         f.launches = 0
         p.calls = 0
+    for f in _MARCH.values():
+        f.march_launches = 0
 
 
 def launch_counts(names=None):
-    """``{unit: launches}`` of the named units (all by default)."""
-    return {k: _UNITS[k][0].launches for k in (names or _UNITS)}
+    """``{unit: launches}`` of the named units (all by default, the
+    :data:`MARCH_UNITS` among them)."""
+    return {k: _MARCH[k].march_launches if k in _MARCH
+            else _UNITS[k][0].launches
+            for k in (names or tuple(_UNITS) + MARCH_UNITS)}
 
 
 def plain_counts(names=None):

@@ -17,7 +17,14 @@ PyTorch version beside it and a launch counter on its wrapper:
   ``q = free·(Aᵀ(wts·A pf) + ρ·BᵀB pf) + (p' − pf)``, ``pq = Σ p'·q``,
   ``a = γ/pq`` (guarded); replaces
   ``robust.py::make_blocked_weighted_normal_operator`` (:264) and the
-  in-kernel ``apply_W`` of ``fused.py`` (:593-597).
+  in-kernel ``apply_W`` of ``fused.py`` (:593-597). Where
+  :func:`~.tiled.vol_route` takes the shape and the blur taps (a volume
+  past 2^20 voxels deep enough for the march's z halo, whose taps fit a
+  block) the C entry runs it as the whole-volume instance of
+  ``csrc/march.cuh``'s weighted march (``csrc/weighted_march.cu``,
+  counted on ``weighted_apply.march_launches``), with no scratch volume;
+  else as six passes. The two give the same ``p'`` and ``q`` bit for
+  bit.
 * :func:`irls_step` — ``x = max(x + xk, 0)`` (``fused.py:622``), a NaN
   kept as ``jnp.maximum`` keeps it.
 
@@ -305,10 +312,24 @@ def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
     Returns ``(p', q)``. ``storage`` (:data:`ROBUST_STORAGE`): ``"dirs"``
     stores ``p'`` (and takes ``p``) as bfloat16, ``"io"`` also reads the
     weights as bfloat16 and rounds the core to bfloat16; ``q`` is
-    float32 in every mode."""
+    float32 in every mode. On the card the C entry runs
+    :func:`~.tiled.vol_route`'s route: the march (counted on
+    ``weighted_apply.march_launches``) or the six passes (on
+    ``weighted_apply.launches``)."""
     if r.device.type == "cpu":
         return weighted_apply_plain(r, p, free, wts, scal, taps, inv_h2, rho,
                                     first, reg, storage)
+    return _weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first,
+                           reg, storage)
+
+
+def _weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first, reg,
+                    storage, route=None):
+    """:func:`weighted_apply` on the card by ``route``: ``None`` takes
+    :func:`~.tiled.vol_route`'s, ``"chain"`` the six passes (the bit
+    reference the march is held to) and ``"march"`` the march whatever the
+    rule says of the shape (an error where its shared memory does not hold
+    the taps)."""
     name = "weighted_apply"
     dims = B.volume_dims(name, r)
     B.check_tensors(name, r.shape, r, wts,
@@ -316,20 +337,27 @@ def weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first=False,
     p_dtype = check_directions(name, r, p, first, storage)
     B._check_consts(name, r.device, taps, scal)
     lib = build.load()
+    T = B._tiled()
     p_new = torch.empty(r.shape, dtype=p_dtype, device=r.device)
-    q, t1, t2 = (torch.empty_like(r) for _ in range(3))
+    q = torch.empty_like(r)
     tv = taps.as_volume()
-    counts = build.new_counts(5)
+    route = route or T.vol_route("weighted_apply", tv.lengths, dims)
+    t1 = t2 = None
+    if route == "chain":
+        t1, t2 = torch.empty_like(r), torch.empty_like(r)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_weighted_apply(
         build.tensor_ptr(r), None if first else build.tensor_ptr(p),
         build.tensor_ptr(p_new), build.tensor_ptr(q), build.tensor_ptr(free),
         build.tensor_ptr(wts), build.tensor_ptr(t1), build.tensor_ptr(t2),
-        build.tensor_ptr(_partials(r.device)), build.tensor_ptr(scal),
-        int(bool(first)), build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
-        B.reg_id(reg), ROBUST_STORAGE.index(storage), *B.spacing3(inv_h2),
-        *dims, build.stream_ptr(r.device), counts)
+        build.tensor_ptr(T.tiled_partials(r.device, dims)),
+        build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
+        *tv.lengths, float(rho), B.reg_id(reg),
+        ROBUST_STORAGE.index(storage), T.ROUTES.index(route),
+        *B.spacing3(inv_h2), *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     weighted_apply.launches += counts[2]
+    weighted_apply.march_launches += counts[B.COUNTS - 1]
     return p_new, q
 
 
@@ -434,6 +462,7 @@ def _weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0, z_total,
 for _f in (blur_apply, irls_head, weighted_apply, irls_step,
            blur_apply_prepadded, weighted_apply_prepadded):
     _f.launches = 0
+weighted_apply.march_launches = 0
 
 #: the units of the solve, in the order of ``csrc/robust.cu``'s counts
 UNITS = (blur_apply, irls_head, weighted_apply, irls_step, B.cg_update)
@@ -528,11 +557,11 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
     if record_dls is not None:
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
-    counts, rec_counts = build.new_counts(5), build.new_counts(5)
+    counts, rec_counts = build.new_counts(B.COUNTS), build.new_counts(5)
     tiled_counts = build.new_counts(5)
     T = B._tiled()
-    partials = T.tiled_partials(b.device, dims) if tiled \
-        else _partials(b.device)
+    # the march units' partials (weighted_apply's march on either route)
+    partials = T.tiled_partials(b.device, dims)
     args = [build.tensor_ptr(b), build.tensor_ptr(x)] \
         + [build.tensor_ptr(t) for t in vols] + [
         build.tensor_ptr(partials), build.tensor_ptr(scal),
@@ -550,6 +579,7 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
     build.check(err, name)
     for f, n in zip(UNITS, counts):
         f.launches += n
+    weighted_apply.march_launches += counts[B.COUNTS - 1]
     for f, n in zip(T.UNITS, tiled_counts):
         f.launches += n
     Rec.admm_record.launches += rec_counts[4]

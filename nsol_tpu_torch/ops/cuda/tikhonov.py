@@ -42,6 +42,7 @@ from nsol_tpu_torch.ops.cuda import blocked as B
 from nsol_tpu_torch.ops.cuda import build
 from nsol_tpu_torch.ops.cuda import record as Rec
 from nsol_tpu_torch.ops.cuda import robust as R
+from nsol_tpu_torch.ops.cuda import tiled as Z
 
 __all__ = ["tik_clip", "tik_clip_plain", "make_fused_tikhonov_solver",
            "UNITS", "PLAIN"]
@@ -140,13 +141,14 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
                         device=b.device) if need else None
             for k, need in enumerate([not robust] + [True] * 6
                                      + [robust] * 3)]
-    partials = torch.empty(lib.nsol_max_blocks(), dtype=torch.float64,
-                           device=b.device)
+    # cg_step's and weighted_apply's march partials (vol_route)
+    partials = Z.tiled_partials(b.device, dims)
     scal = B.new_scalars(b.device)
     a_host = (build.ctypes.c_float * nconf)(*[float(a) for a in alphas])
     c_host = (build.ctypes.c_float * nconf)(*[float(c) for c in scales])
     ta, tn = st.blur.as_volume(), st.normal.as_volume()
-    admm_counts, robust_counts = build.new_counts(5), build.new_counts(5)
+    admm_counts = build.new_counts(B.COUNTS)
+    robust_counts = build.new_counts(B.COUNTS)
     counts = build.new_counts(1)
     err = lib.nsol_tikhonov_solve(
         build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(out),
@@ -162,6 +164,8 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
         f.launches += n
     for f, n in zip(R.UNITS, robust_counts):
         f.launches += n
+    B.cg_step.march_launches += admm_counts[B.COUNTS - 1]
+    R.weighted_apply.march_launches += robust_counts[B.COUNTS - 1]
     tik_clip.launches += counts[0]
     return out
 

@@ -38,15 +38,23 @@ bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
 ``compact_dirs`` or ``state_dtype``), their sums in float32.
 
 Each unit makes one pass over halo-extended tiles: no intermediate volume
-reaches device memory (see the note at the top of ``csrc/tiled.cu``). The
+reaches device memory (see the note at the top of ``csrc/march.cuh``). The
 single-stencil units share one march, whose window instance is
-:func:`~.blocked.normal_apply_prepadded`'s tiled route; the weighted unit
-has a march of its own (two stencils, the second a plane behind the
-first), whose window instance is :func:`~.robust.weighted_apply_prepadded`'s
-tiled route. Each form of either equals the three-pass units bit for bit.
-A block holds its windows and rings in at most 227 KB of shared memory,
-so a wide blur does not fit: :func:`route_fits` is the shape decision by
-which the solves take the per-axis units instead, before any launch.
+:func:`~.blocked.normal_apply_prepadded`'s tiled route and whose
+whole-volume ``cg_step`` instance (every storage mode, TK1 and TK0) is
+:func:`~.blocked.cg_step`'s; the weighted unit has a march of its own (two
+stencils, the second a plane behind the first), whose window instance is
+:func:`~.robust.weighted_apply_prepadded`'s tiled route and whose
+whole-volume instance (every storage mode, masked or not, TK1 and TK0) is
+:func:`~.robust.weighted_apply`'s. Each form of either equals the
+three-pass units bit for bit. A block holds its windows and rings in at
+most 227 KB of shared memory, so a wide blur does not fit:
+:func:`route_fits` is the shape decision by which the solves take the
+per-axis units instead, before any launch, and :func:`vol_route` the one
+by which the whole-volume ``cg_step`` and ``weighted_apply`` take the
+march or the three-pass chain. :func:`tile_z` mirrors the rule that sizes
+a march's z tile from the volume and the card (``csrc/march.cuh``'s
+``march_tile_z``).
 Each wrapper runs the plain version only for CPU tensors; on a CUDA
 tensor it launches the kernel (2-D or 3-D, contiguous, float32 or the
 bfloat16 its storage names) or raises (``ValueError`` for stencils past
@@ -65,7 +73,8 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
            "cg_step_zy_plain", "blur_apply_zy", "blur_apply_zy_plain",
            "weighted_apply_zy", "weighted_apply_zy_plain", "cg_direction",
            "cg_direction_plain", "tiled_partials", "smem_bytes",
-           "require_fit", "route_fits", "UNITS", "PLAIN"]
+           "require_fit", "route_fits", "vol_route", "march_fits",
+           "halo_steps", "tile_z", "UNITS", "PLAIN"]
 
 
 # ------------------------------------------------------------ plain forms --
@@ -121,7 +130,7 @@ def cg_direction_plain(p, r, scal, q=None):
 
 # ---------------------------------------------------------- shared memory --
 
-#: ``csrc/tiled.cu``'s output tile (kTileY, kTileX) and the most shared
+#: ``csrc/march.cuh``'s output tile (kTileY, kTileX) and the most shared
 #: memory a block may take (kMaxSmem)
 TILE_Y, TILE_X, MAX_SMEM = 16, 32, 232448
 _OUT_N = TILE_Y * TILE_X
@@ -132,13 +141,15 @@ def _up(v, m):
     return -(-v // m) * m
 
 
-def smem_bytes(lengths, nin=1, lap=True, weighted=False):
+def smem_bytes(lengths, nin=1, lap=True, weighted=False, two_byte=False):
     """Bytes of shared memory one block takes for stencils of lengths
     ``(kz, ky, kx)``: ``weighted_apply_zy``'s (``weighted``), or a
     single-stencil unit's over ``nin`` input windows with or without the
-    Laplacian's ring, in the march's instance with runtime-length taps
-    (the larger) — ``csrc/tiled.cu``'s ``weighted_smem`` /
-    ``stencil_smem``, which ``nsol_tiled_smem`` returns."""
+    Laplacian's ring (``two_byte``: a bfloat16 window among two, whose
+    x margin is 16 bytes of bfloat16), in the march's instance with
+    runtime-length taps (the larger) — ``csrc/march.cuh``'s
+    ``weighted_geo`` / ``stencil_smem``, which ``nsol_tiled_smem``
+    returns."""
     kz, ky, kx = lengths
     hz, hy, hx = (max(k // 2, 1) for k in lengths)
     taps = sum(_up(k, 4) for k in lengths)
@@ -157,9 +168,11 @@ def smem_bytes(lengths, nin=1, lap=True, weighted=False):
                  + (2 * hz + 4) * _RAW_N)
     else:
         # the window's x margin rounds the halo up to 16 bytes of the input
-        # (8 values for one input, which may be bfloat16, 4 for two);
-        # each axis's taps and the tables are 16-byte aligned
-        wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * _up(hx, 8 if nin == 1 else 4)
+        # (8 values for one input, which may be bfloat16, and for a
+        # bfloat16 one of two; 4 for two float ones); each axis's taps and
+        # the tables are 16-byte aligned
+        margin = 8 if nin == 1 or two_byte else 4
+        wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * _up(hx, margin)
         words = (taps + _up(wy + wx, 4)
                  + 2 * nin * wy * wx + wy * TILE_X + (2 * hz + 1) * _OUT_N
                  + (hz + 2) * _RAW_N * bool(lap))
@@ -198,11 +211,99 @@ def route_fits(factors, route):
                for t, nin, lap, weighted in _ROUTE_FORMS[route])
 
 
+#: the whole-volume units :func:`vol_route` routes, by the index
+#: ``csrc/stencil.cuh``'s VolUnit gives them, and the C entries' routes
+#: (its Route enum: the solves take "rule" inside the C code, the
+#: wrappers pass the route they computed)
+VOL_UNITS = ("cg_step", "weighted_apply")
+ROUTES = ("rule", "chain", "march")
+#: the fewest voxels a whole-volume unit marches over: past the fused
+#: solves' fit (16 volumes in 64 MiB; ``csrc/march.cuh``'s
+#: kMarchMinVoxels)
+MARCH_MIN_VOXELS = 1 << 20
+
+
+def vol_route(unit, lengths, dims):
+    """``"march"`` or ``"chain"``: how the whole-volume ``unit``
+    (:data:`VOL_UNITS`) runs on the card at the taps' ``lengths`` (the
+    normal taps of ``cg_step``, the blur taps of ``weighted_apply``, as
+    ``(kz, ky, kx)``) on a volume of ``dims`` ``(Z, Y, X)`` — the march
+    on a volume of more than :data:`MARCH_MIN_VOXELS` voxels deep enough
+    that a block takes at most 2.5 steps a plane it writes (``3 Z >= 2 ×``
+    its :func:`halo_steps`: at σ = 1, ``Z >= 8`` for ``cg_step``, 9 for
+    ``weighted_apply``; no 2-D view) where a block's shared memory holds
+    the taps in its runtime-length instance (``cg_step``'s with bfloat16
+    margins, so that every storage mode takes one route), else the
+    three-pass chain, which took half the march's device time at 64³ and
+    on a 256² image and less than it on stacks of 2-4 planes (weighted:
+    2-8; PERF.md). Mirrors ``csrc/march.cuh``'s ``vol_route``
+    (``nsol_vol_route``)."""
+    Z, Y, X = dims
+    fits = march_fits(unit, lengths)
+    deep = 2 * halo_steps(lengths[0], unit == "weighted_apply") <= 3 * Z
+    return "march" if fits and deep and Z * Y * X > MARCH_MIN_VOXELS \
+        else "chain"
+
+
+def march_fits(unit, lengths):
+    """Whether a block of the whole-volume ``unit``'s march
+    (:data:`VOL_UNITS`) holds taps of ``lengths`` in its shared memory, as
+    :func:`vol_route` measures it."""
+    if unit == "cg_step":
+        need = smem_bytes(lengths, nin=2, lap=True, two_byte=True)
+    elif unit == "weighted_apply":
+        need = smem_bytes(lengths, weighted=True)
+    else:
+        raise ValueError("unit must be one of %s, got %r" % (VOL_UNITS, unit))
+    return need <= MAX_SMEM
+
+
+#: ``csrc/march.cuh``'s z tiles: the longest (kTileZ; twice it for the
+#: weighted march), the shortest (kMinTileZ), and the blocks an SM holds at
+#: once (kStencilResident, kWeightedResident)
+TILE_Z, MIN_TILE_Z = 128, 8
+RESIDENT = {False: 4, True: 2}
+
+
+def halo_steps(kz, weighted):
+    """Steps of z halo a block of the single-stencil march (``2h``) or of
+    the weighted one (``weighted``: ``4h + 1``) takes beside its own
+    planes at z taps ``kz`` (``h = max(kz // 2, 1)``) — ``csrc/march.cuh``'s
+    ``march_halo_steps``."""
+    h = max(kz // 2, 1)
+    return 4 * h + 1 if weighted else 2 * h
+
+
+def tile_z(dims, kz, weighted, sms):
+    """Planes a block of the single-stencil march (z taps ``kz``) or of
+    the weighted one (``weighted``, blur z taps ``kz``) marches through on
+    a volume of ``dims`` ``(Z, Y, X)`` on a card of ``sms`` SMs: of the
+    longest tile, half of it, ..., :data:`MIN_TILE_Z` planes, the one with
+    the least (waves of its grid) × (steps a block), a wave being the
+    blocks the card holds at once and a block taking ``min(tile, Z)`` plus
+    its :func:`halo_steps`; ties keep the longer tile. Mirrors
+    ``csrc/march.cuh``'s ``march_tile_z`` (``nsol_march_tile_z``)."""
+    Z, Y, X = dims
+    top = 2 * TILE_Z if weighted else TILE_Z
+    extra = halo_steps(kz, weighted)
+    cols = -(-X // TILE_X) * -(-Y // TILE_Y)
+    slots = max(sms, 1) * RESIDENT[bool(weighted)]
+    best, best_cost, tz = top, None, top
+    while tz >= MIN_TILE_Z:
+        blocks = cols * -(-Z // tz)
+        cost = -(-blocks // slots) * (min(tz, Z) + extra)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = tz, cost
+        tz //= 2
+    return best
+
+
 # ---------------------------------------------------------------- kernels --
 
 def tiled_partials(device, dims):
-    """Per-block float64 partials of the tiled units at ``dims`` (Z, Y, X),
-    large enough for the per-axis units too."""
+    """Per-block float64 partials of the tiled units at ``dims`` (Z, Y, X)
+    — the blocks of a march's shortest z tile —, large enough for the
+    per-axis units too."""
     lib = build.load()
     n = max(lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks())
     return torch.empty(n, dtype=torch.float64, device=device)
