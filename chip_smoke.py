@@ -2254,24 +2254,25 @@ def tiled_calls(T, R, B, st, shape, device, rng):
 
     checks = {"cg_direction": (direction(T.cg_direction, 0),
                                direction(T.cg_direction_plain, 1))}
+    normal, step, blur, _, weighted = three_pass_units(B, R)
     return checks, {
         "normal_apply_zy": (
             lambda: T.normal_apply_zy(v, n, h2, RHO, scal=s[0]),
             lambda: T.normal_apply_zy_plain(v, n, h2, RHO, scal=s[1]),
-            lambda: B.normal_apply(v, n, h2, RHO), None),
+            lambda: normal(v, n, h2, RHO), None),
         "cg_step_zy": (
             lambda: T.cg_step_zy(r, p, s[0], n, h2, RHO),
             lambda: T.cg_step_zy_plain(r, p, s[1], n, h2, RHO),
-            lambda: B.cg_step(r, p, s[2], n, h2, RHO), None),
+            lambda: step(r, p, s[2], n, h2, RHO), None),
         "blur_apply_zy": (
             lambda: T.blur_apply_zy(r, bl, h2, x, RHO, scal=s[0]),
             lambda: T.blur_apply_zy_plain(r, bl, h2, x, RHO, scal=s[1]),
-            lambda: R.blur_apply(r, bl, h2, x, RHO, scal=s[2]), None),
+            lambda: blur(r, bl, h2, x, RHO, scal=s[2]), None),
         "weighted_apply_zy": (
             lambda: T.weighted_apply_zy(r, p, free, wts, s[0], bl, h2, RHO),
             lambda: T.weighted_apply_zy_plain(r, p, free, wts, s[1], bl, h2,
                                               RHO),
-            lambda: R.weighted_apply(r, p, free, wts, s[2], bl, h2, RHO),
+            lambda: weighted(r, p, free, wts, s[2], bl, h2, RHO),
             None),
         "cg_direction": (
             lambda: T.cg_direction(pd, r, s[0]),
@@ -2399,6 +2400,36 @@ def tiled_fit_checks(T, B, device):
     return sigma, rel
 
 
+def three_pass_units(B, R):
+    """The whole-volume units on their three-pass chains whatever the
+    route takes (a package without the route: its units, the chains):
+    ``(normal_apply, cg_step, blur_apply, irls_head, weighted_apply)`` with
+    the wrappers' arguments."""
+    if not hasattr(B, "_normal_apply"):
+        return (B.normal_apply, B.cg_step, R.blur_apply, R.irls_head,
+                R.weighted_apply)
+
+    def normal(v, t, h2, rho, rhs=None, scal=None, io_dtype=None):
+        return B._normal_apply(v, t, h2, rho, rhs, scal, "TK1", io_dtype,
+                               "chain")
+
+    def step(r, p, scal, t, h2, rho, first=False):
+        return B._cg_step(r, p, scal, t, h2, rho, first, "TK1", "exact",
+                          "chain")
+
+    def blur(y, t, h2, u=None, rho=0.0, scal=None):
+        return R._blur_apply(y, t, h2, u, rho, scal, "TK1", "chain")
+
+    def head(x, b, t, loss, scale):
+        return R._irls_head(x, b, t, loss, scale, "chain")
+
+    def weighted(r, p, free, wts, scal, t, h2, rho):
+        return R._weighted_apply(r, p, free, wts, scal, t, h2, rho, False,
+                                 "TK1", "exact", "chain")
+
+    return normal, step, blur, head, weighted
+
+
 def tiled_three_pass_pairs(T, R, B, st, shape, device, seed):
     """Each form of the march units on the same random inputs as its
     three-pass unit (``csrc/stencil.cuh``'s per-axis passes):
@@ -2422,33 +2453,34 @@ def tiled_three_pass_pairs(T, R, B, st, shape, device, seed):
     def cat(t):
         return torch.cat([u.float() for u in t])
 
+    normal, step, blur, head, _ = three_pass_units(B, R)
     return {
         "normal": (T.normal_apply_zy(v, n, h2, RHO),
-                   B.normal_apply(v, n, h2, RHO)),
+                   normal(v, n, h2, RHO)),
         "normal dot": (T.normal_apply_zy(v, n, h2, RHO, scal=s()),
-                       B.normal_apply(v, n, h2, RHO)),
+                       normal(v, n, h2, RHO)),
         "normal residual": (
             T.normal_apply_zy(v, n, h2, RHO, rhs=rhs, scal=s()),
-            B.normal_apply(v, n, h2, RHO, rhs=rhs, scal=s())),
+            normal(v, n, h2, RHO, rhs=rhs, scal=s())),
         "normal[bf16]": (T.normal_apply_zy(vb, n, h2, RHO, io_dtype=bf),
-                         B.normal_apply(vb, n, h2, RHO, io_dtype=bf)),
+                         normal(vb, n, h2, RHO, io_dtype=bf)),
         "normal[bf16] dot": (
             T.normal_apply_zy(vb, n, h2, RHO, scal=s(), io_dtype=bf),
-            B.normal_apply(vb, n, h2, RHO, io_dtype=bf)),
+            normal(vb, n, h2, RHO, io_dtype=bf)),
         "normal[bf16] residual": (
             T.normal_apply_zy(v, n, h2, RHO, rhs=rhs, scal=s(), io_dtype=bf),
-            B.normal_apply(v, n, h2, RHO, rhs=rhs, scal=s(), io_dtype=bf)),
+            normal(v, n, h2, RHO, rhs=rhs, scal=s(), io_dtype=bf)),
         "cg_step": (cat(T.cg_step_zy(r, p, s(), n, h2, RHO)),
-                    cat(B.cg_step(r, p, s(), n, h2, RHO))),
+                    cat(step(r, p, s(), n, h2, RHO))),
         "cg_step first": (cat(T.cg_step_zy(r, p, s(), n, h2, RHO, True)),
-                          cat(B.cg_step(r, p, s(), n, h2, RHO, True))),
-        "blur A y": (T.blur_apply_zy(v, bl, h2), R.blur_apply(v, bl, h2)),
+                          cat(step(r, p, s(), n, h2, RHO, True))),
+        "blur A y": (T.blur_apply_zy(v, bl, h2), blur(v, bl, h2)),
         "blur with u": (T.blur_apply_zy(v, bl, h2, x, RHO),
-                        R.blur_apply(v, bl, h2, x, RHO)),
+                        blur(v, bl, h2, x, RHO)),
         "blur gradient": (cat(T.blur_apply_zy(v, bl, h2, x, RHO, scal=s())),
-                          cat(R.blur_apply(v, bl, h2, x, RHO, scal=s()))),
+                          cat(blur(v, bl, h2, x, RHO, scal=s()))),
         "blur head": (cat(T.blur_apply_zy(x, bl, h2, head=(b, "huber", 0.3))),
-                      cat(R.irls_head(x, b, bl, "huber", 0.3))),
+                      cat(head(x, b, bl, "huber", 0.3))),
     }
 
 
@@ -2478,9 +2510,16 @@ def require_bits(pairs, what):
     import torch
 
     torch.cuda.synchronize()
+
+    def same(a, b):  # the stored bits: a -0 differs from a +0
+        if a.dtype != b.dtype:
+            a, b = a.float(), b.float()
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return torch.equal(a.view(ints[a.element_size()]),
+                           b.view(ints[b.element_size()]))
+
     differ = {k: float((a.float() - b.float()).abs().max())
-              for k, (a, b) in pairs.items()
-              if not torch.equal(a.float(), b.float())}
+              for k, (a, b) in pairs.items() if not same(a, b)}
     require(not differ, "%s: not bit for bit: %s" % (what, differ))
     return ", ".join(pairs)
 
@@ -4081,7 +4120,8 @@ def run_sharded_phases(device, card):
         x_s, ms_rs = timed_once(lambda: sharded_tv_admm_solve(
             mesh, iso, b, x0, ALPHA, RHO, iterations=its, iter_max=sweeps,
             data_loss="huber"))
-        rob = F.launch_counts(F.SHARDED_UNITS)
+        rob = dict(F.launch_counts(F.SHARDED_UNITS + F.MARCH_UNITS),
+                   **unit_counts(F, F.SHARDED_UNITS))
         plain = F.plain_counts()
         require(rob["blur_apply_prepadded"] == 2 * its * sweeps
                 and rob["weighted_apply_prepadded"] == its * sweeps
@@ -4163,7 +4203,9 @@ def run_sharded_phases(device, card):
         torch.distributed.destroy_process_group()
     return {"launches": dict(lin, **{k: rob[k] for k in
                                      ("blur_apply_prepadded",
-                                      "weighted_apply_prepadded")}),
+                                      "weighted_apply_prepadded",
+                                      "blur_apply_prepadded_march")
+                                     if k in rob}),
             "err": err,
             "times": {k: (t[0], t[1], t[2]) + (
                 (mean_ms(win_dev[1:3]), None)
@@ -5383,7 +5425,30 @@ MARCH_FORMS = {
                 "nsol_tpu_torch/csrc/admm.cu"),
     "weighted_apply": ("weighted_apply_march",
                        "nsol_tpu_torch/csrc/weighted_march.cu",
-                       "nsol_tpu_torch/csrc/robust.cu")}
+                       "nsol_tpu_torch/csrc/robust.cu"),
+    "normal_apply": ("normal_apply_march",
+                     "nsol_tpu_torch/csrc/normal_march.cu",
+                     "nsol_tpu_torch/csrc/admm.cu"),
+    "blur_apply": ("blur_apply_march", "nsol_tpu_torch/csrc/blur_march.cu",
+                   "nsol_tpu_torch/csrc/robust.cu"),
+    "irls_head": ("irls_head_march", "nsol_tpu_torch/csrc/blur_march.cu",
+                  "nsol_tpu_torch/csrc/robust.cu"),
+    "blur_apply_prepadded": ("blur_apply_prepadded_march",
+                             "nsol_tpu_torch/csrc/blur_march.cu",
+                             "nsol_tpu_torch/csrc/robust.cu")}
+#: the private entry of each whole-volume unit that takes a forced route
+#: (absent in a package where the unit has no march)
+ROUTED = {"cg_step": ("B", "_cg_step"), "weighted_apply": ("R",
+                                                          "_weighted_apply"),
+          "normal_apply": ("B", "_normal_apply"),
+          "blur_apply": ("R", "_blur_apply"), "irls_head": ("R", "_irls_head")}
+
+
+def has_march(B, R, unit):
+    """Whether the package of ``B`` (blocked) and ``R`` (robust) routes the
+    whole-volume ``unit`` between a march and its chain."""
+    mod, name = ROUTED[unit]
+    return hasattr({"B": B, "R": R}[mod], name)
 #: blurs past each march's shared memory (σ 3.5: cg_step's normal taps 45;
 #: σ 2.5: weighted_apply's blur taps 17), whose solves take the chains
 CHAIN_SIGMAS = {"cg_step": 3.5, "weighted_apply": 2.5}
@@ -5398,7 +5463,18 @@ VOL_FORMS = {
     "cg_step[exact,TK0]": ("cg_step", "exact", "TK0"),
     "weighted_apply[exact]": ("weighted_apply", "exact", "TK1"),
     "weighted_apply[dirs]": ("weighted_apply", "dirs", "TK1"),
-    "weighted_apply[io]": ("weighted_apply", "io", "TK1")}
+    "weighted_apply[io]": ("weighted_apply", "io", "TK1"),
+    "normal_apply[residual]": ("normal_apply", "residual", "TK1"),
+    "normal_apply[residual,bf16]": ("normal_apply", "residual_bf16", "TK1"),
+    "normal_apply[residual,TK0]": ("normal_apply", "residual", "TK0"),
+    "normal_apply[plain]": ("normal_apply", "plain", "TK1"),
+    "normal_apply[plain,bf16]": ("normal_apply", "plain_bf16", "TK1"),
+    "normal_apply[A^T b]": ("normal_apply", "atb", "TK1"),
+    "blur_apply[gradient]": ("blur_apply", "gradient", "TK1"),
+    "blur_apply[gradient,TK0]": ("blur_apply", "gradient", "TK0"),
+    "blur_apply[u]": ("blur_apply", "u", "TK1"),
+    "blur_apply[plain]": ("blur_apply", "plain", "TK1"),
+    "irls_head[huber]": ("irls_head", "huber", "TK1")}
 #: thin stacks past 2^20 voxels (few planes, 256-1024 wide), on which
 #: phase 37 times the chain against the march for the route's depth side
 THIN_SHAPES = ((2, 512, 1025), (4, 500, 600), (8, 384, 384),
@@ -5406,14 +5482,31 @@ THIN_SHAPES = ((2, 512, 1025), (4, 500, 600), (8, 384, 384),
                (32, 256, 256), (8, 1024, 1024), (16, 512, 512))
 #: the forms of the host-bound shapes phase 37 routes by (64³, Lena 256²)
 ROUTE_FORMS = ("cg_step[exact]", "cg_step[qf32]", "cg_step[exact,TK0]",
-               "weighted_apply[exact]", "weighted_apply[dirs]")
+               "weighted_apply[exact]", "weighted_apply[dirs]",
+               "normal_apply[residual]", "normal_apply[residual,bf16]",
+               "blur_apply[gradient]", "blur_apply[plain]",
+               "irls_head[huber]")
 #: bytes a voxel each storage mode moves (inputs read once, outputs
 #: written once): cg_step r, p in, p', q out; weighted_apply r, p, free,
 #: wts in, p', q out
 VOL_BYTES = {("cg_step", "exact"): 16, ("cg_step", "qf32"): 12,
              ("cg_step", "dirs"): 10, ("cg_step", "state"): 8,
              ("weighted_apply", "exact"): 24, ("weighted_apply", "dirs"): 20,
-             ("weighted_apply", "io"): 20}
+             ("weighted_apply", "io"): 20,
+             # x, rhs in, r out (a bf16 r: 2); v in, q out
+             ("normal_apply", "residual"): 12,
+             ("normal_apply", "residual_bf16"): 10,
+             ("normal_apply", "plain"): 8, ("normal_apply", "plain_bf16"): 4,
+             ("normal_apply", "atb"): 8,
+             # y, x in, free, rk out; y, u in, g out; y in, g out
+             ("blur_apply", "gradient"): 16, ("blur_apply", "u"): 12,
+             ("blur_apply", "plain"): 8,
+             # x, b in, wts, y out
+             ("irls_head", "huber"): 16}
+#: taps an axis of each unit's chain(s) at σ = 1, and whether it runs the
+#: Laplacian: the normal taps, one blur chain, two (weighted)
+VOL_TAPS = {"cg_step": 13, "normal_apply": 13, "blur_apply": 7,
+            "irls_head": 7, "weighted_apply": 14}
 
 
 def unit_counts(F, names=None):
@@ -5449,34 +5542,50 @@ def routed(entry, launches):
 
 def vol_bound(unit, storage, shape):
     """``(bound_ms, bound_by)`` of one whole-volume ``unit`` call in
-    ``storage`` at ``shape``: :data:`VOL_BYTES` a voxel, and ~2 operations
-    a tap of its chains (σ = 1) plus ~20 for the Laplacian and the rest."""
+    ``storage`` (a form, for normal_apply, blur_apply and irls_head) at
+    ``shape``: :data:`VOL_BYTES` a voxel, and ~2 operations a tap of its
+    chains (:data:`VOL_TAPS`, σ = 1) plus ~20 for the Laplacian and the
+    rest."""
     n = float(np.prod(shape))
-    taps = 2 * 3 * 13 if unit == "cg_step" else 2 * 2 * 3 * 7
+    taps = 2 * 3 * VOL_TAPS[unit]
+    if (unit, storage) == ("normal_apply", "atb"):
+        taps = 2 * 3 * VOL_TAPS["blur_apply"]
     return bound(n * VOL_BYTES[(unit, storage)], n * (taps + 20))
 
 
-def vol_march_bits(B, R, st, shape, device, seed):
+def vol_march_bits(B, R, st, shape, device, seed, units=None):
     """The whole-volume march forms against their three-pass chains on the
     same random inputs: ``cg_step`` in every storage mode × TK1/TK0 ×
     first trip or not, ``weighted_apply`` in every storage mode × masked
-    or not × TK1/TK0 × first trip or not. Fails unless p' and q hold the
-    same bits in each, and pq agrees within 1e-9 (its sum runs in another
-    order); returns the number of forms checked."""
+    or not × TK1/TK0 × first trip or not, and, in a package with their
+    marches, ``normal_apply`` plain and residual in float32 and bfloat16
+    × TK1/TK0 and its ``Aᵀb`` form (the blur taps at ρ = 0, on an input
+    with a slab of −0), ``blur_apply`` plain, with ``u`` and its gradient
+    (× TK1/TK0) and ``irls_head`` for every loss. Fails unless every
+    output holds the same bits in each (signed zeros included), and pq or
+    γ agrees within 1e-9 (its sum runs in another order); returns the
+    number of forms checked (of ``units`` alone where given)."""
     import torch
+
+    from nsol_tpu_torch.ops.cuda import record as Rec
 
     r, p, wts, free = weighted_inputs(shape, device, seed)
     what = "volume march %s seed %d" % ("x".join(map(str, shape)), seed)
     count = [0]
 
-    def check(form, call):
+    def check(form, call, slot=B.PQ):
+        if units is not None and form.split("[")[0] not in units:
+            return
         sm, sc = _cg_scalars(device), _cg_scalars(device)
         got, ref = call(sm, "march"), call(sc, "chain")
-        require_bits({form + " p'": (got[0], ref[0]),
-                      form + " q": (got[1], ref[1])}, what)
-        pm, pc = float(sm[B.PQ]), float(sc[B.PQ])
-        require(abs(pm - pc) <= 1e-9 * abs(pc), "%s %s: pq %.17g, chain's "
-                "%.17g" % (what, form, pm, pc))
+        if not isinstance(got, tuple):
+            got, ref = (got,), (ref,)
+        require_bits({"%s [%d]" % (form, k): pair
+                      for k, pair in enumerate(zip(got, ref))}, what)
+        if slot is not None:
+            pm, pc = float(sm[slot]), float(sc[slot])
+            require(abs(pm - pc) <= 1e-9 * abs(pc), "%s %s: scalar %d "
+                    "%.17g, chain's %.17g" % (what, form, slot, pm, pc))
         count[0] += 1
 
     for storage in B.STORAGE:
@@ -5500,10 +5609,61 @@ def vol_march_bits(B, R, st, shape, device, seed):
                         lambda s, route: R._weighted_apply(
                             r, ps, f, wts, s, st.blur, st.inv_h2, RHO, first,
                             reg, storage, route))
+    if not has_march(B, R, "normal_apply"):
+        return count[0]
+    h2 = st.inv_h2
+    for io in (None, torch.bfloat16):
+        v = r if io is None else r.to(io)
+        for reg in B.REGS:
+            tag = "%s,%s" % ("bf16" if io else "f32", reg)
+            check("normal_apply[%s]" % tag, lambda s, route: B._normal_apply(
+                v, st.normal, h2, RHO, None, None, reg, io, route), None)
+            check("normal_apply[residual,%s]" % tag,
+                  lambda s, route: B._normal_apply(
+                      r, st.normal, h2, RHO, p, s, reg, io, route), B.GAMMA)
+    bz = r.clone()
+    bz[:max(1, bz.shape[0] // 3)] = -0.0
+    check("normal_apply[A^T b]", lambda s, route: B._normal_apply(
+        bz, st.blur, h2, 0.0, None, None, "TK1", None, route), None)
+    check("blur_apply[plain]", lambda s, route: R._blur_apply(
+        p, st.blur, h2, None, 0.0, None, "TK1", route), None)
+    for reg in B.REGS:
+        check("blur_apply[u,%s]" % reg, lambda s, route: R._blur_apply(
+            p, st.blur, h2, r, RHO, None, reg, route), None)
+        check("blur_apply[gradient,%s]" % reg, lambda s, route: R._blur_apply(
+            p, st.blur, h2, r, RHO, s, reg, route), B.GAMMA)
+    for loss in Rec.LOSS_IDS:
+        check("irls_head[%s]" % loss, lambda s, route: R._irls_head(
+            r, p, st.blur, loss, 0.7, route), None)
     return count[0]
 
 
-def vol_rule_checks(T, device):
+def blur_window_bits(R, st, shape, device, seed):
+    """``blur_apply_prepadded``'s window march against its three-pass
+    chain, with and without ``u``, on one window of ``shape[0]`` planes
+    per ``row0`` (the first, a middle and the last of a volume of 3 ·
+    ``shape[0]`` rows): ``{form: (march, chain)}``, empty in a package
+    without the window march."""
+    import torch
+
+    if not hasattr(R, "_blur_apply_prepadded"):
+        return {}
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = R.blur_halo(st.blur)
+    ext = (shape[0] + 2 * h,) + tuple(shape[1:])
+    y_ext, u_ext = (torch.rand(ext, generator=g, device=device) - 0.5
+                    for _ in range(2))
+    out = {}
+    for row0 in (0, shape[0], 2 * shape[0]):
+        for u in (None, u_ext):
+            args = (y_ext, st.blur, st.inv_h2, row0, 3 * shape[0], u, RHO)
+            out["row0 %d%s" % (row0, "" if u is None else " with u")] = (
+                R._blur_apply_prepadded(*args, chain=False),
+                R._blur_apply_prepadded(*args, chain=True))
+    return out
+
+
+def vol_rule_checks(T, device, units=None):
     """``csrc/march.cuh``'s rules in C against their mirrors in
     ``tiled.py``, on this card: the z tile (``nsol_march_tile_z`` vs
     ``tile_z`` at its SMs) of both marches over volumes from one plane to
@@ -5512,8 +5672,9 @@ def vol_rule_checks(T, device):
     2^20-voxel edge at the taps each side of the marches' fit, and at 256³
     over stencil lengths 1 to 79; the shared
     memory of the single-stencil march with bfloat16 margins
-    (``nsol_tiled_smem``). Returns the SMs and the tiles of the main
-    shapes, as text."""
+    (``nsol_tiled_smem``). ``units``: the routes of those units alone
+    (default: every unit of ``tiled.VOL_UNITS``). Returns the SMs and the
+    tiles of the main shapes, as text."""
     import torch
 
     from nsol_tpu_torch.ops.cuda import build
@@ -5533,11 +5694,15 @@ def vol_rule_checks(T, device):
                     d, kz, bool(w), sms)
                 require(c == py, "phase 36: z tile %s kz %d weighted %d: C "
                         "%d, Python %d" % (d, kz, w, c, py))
-    for d in dims + list(THIN_SHAPES) + [(1 << 20, 1, 1), (1, 1025, 1024),
-                                         (2, 512, 512), (2, 512, 513)]:
+    for d in dims + list(THIN_SHAPES) + [
+            (1 << 20, 1, 1), (1, 1025, 1024), (2, 512, 512), (2, 512, 513),
+            (1 << 19, 1, 1), (80, 80, 80), (88, 88, 88), (4, 256, 512),
+            (4, 256, 513), (3, 512, 512)]:
         for lengths in ((13, 13, 13), (7, 7, 7), (41, 41, 41), (45, 45, 45),
                         (15, 15, 15), (17, 17, 17)):
             for u, name in enumerate(T.VOL_UNITS):
+                if units is not None and name not in units:
+                    continue
                 c = lib.nsol_vol_route(u, *lengths, *d)
                 py = T.vol_route(name, lengths, d) == "march"
                 require(bool(c) == py, "phase 36: route of %s at %s on %s: C "
@@ -5547,6 +5712,8 @@ def vol_rule_checks(T, device):
             for kx in range(1, 80, 6):
                 lengths = (kz, ky, kx)
                 for u, name in enumerate(T.VOL_UNITS):
+                    if units is not None and name not in units:
+                        continue
                     c = lib.nsol_vol_route(u, *lengths, *SCALE_SHAPE)
                     py = T.vol_route(name, lengths, SCALE_SHAPE) == "march"
                     require(bool(c) == py, "phase 36: route of %s at %s: C "
@@ -5593,43 +5760,60 @@ def chain_route_runs(F, device):
 def vol_calls(B, R, st, shape, device, forms, route=None):
     """Call closures of ``forms`` (of :data:`VOL_FORMS`) on one set of
     random inputs at ``shape``: through the wrapper (``route`` None: the
-    route the package takes) or, in a package with the march, by
+    route the package takes) or, in a package with the unit's march, by
     ``route`` ``"chain"`` or ``"march"``."""
     import torch
 
     r, p, wts, free = weighted_inputs(shape, device, 37)
     s = _cg_scalars(device)
+    h2 = st.inv_h2
     calls = {}
     for label in forms:
         unit, storage, reg = VOL_FORMS[label]
+        if route is not None and not has_march(B, R, unit):
+            continue
         if unit == "cg_step":
             (rd, pd, _), _ = B.storage_ids(storage)
-            args = (r.to(rd), p.to(pd), s, st.normal, st.inv_h2, RHO, False,
-                    reg, storage)
-            fn = B.cg_step if route is None else partial(B._cg_step,
-                                                         route=route)
-        else:
-            ps = p.to(R.direction_dtype(storage) or torch.float32)
-            args = (r, ps, free, wts, s, st.blur, st.inv_h2, RHO, False, reg,
+            args = (r.to(rd), p.to(pd), s, st.normal, h2, RHO, False, reg,
                     storage)
-            fn = R.weighted_apply if route is None else partial(
-                R._weighted_apply, route=route)
+        elif unit == "weighted_apply":
+            ps = p.to(R.direction_dtype(storage) or torch.float32)
+            args = (r, ps, free, wts, s, st.blur, h2, RHO, False, reg,
+                    storage)
+        elif unit == "normal_apply":
+            io = torch.bfloat16 if storage.endswith("bf16") else None
+            args = {"residual": (r, st.normal, h2, RHO, p, s, reg, io),
+                    "atb": (r, st.blur, h2, 0.0, None, None, reg, None)}.get(
+                storage.split("_")[0],
+                (r if io is None else r.to(io), st.normal, h2, RHO, None,
+                 None, reg, io))
+        elif unit == "blur_apply":
+            args = {"gradient": (p, st.blur, h2, r, RHO, s, reg),
+                    "u": (p, st.blur, h2, r, RHO, None, reg),
+                    "plain": (p, st.blur, h2, None, 0.0, None, reg)}[storage]
+        else:
+            args = (r, p, st.blur, storage, 1.0)
+        mod, private = ROUTED[unit]
+        mod = {"B": B, "R": R}[mod]
+        fn = getattr(mod, unit) if route is None else partial(
+            getattr(mod, private), route=route)
         calls[label] = partial(fn, *args)
     return calls
 
 
 def vol_turns(B, R, st, shape, device, forms, reps=10):
     """Device ms a call (:func:`device_ms_of`) of ``forms`` at ``shape``:
-    in a package with the march, the chain and the march in turns chain,
+    for a unit the package routes, the chain and the march in turns chain,
     march, march, chain (``{form: {"chain": [ms, ms], "march": [ms,
     ms]}}``); else the package's own route twice (``{"rule": [...]}``)."""
-    march = hasattr(B, "_cg_step")
-    routes = ("chain", "march", "march", "chain") if march else (None, None)
-    calls = {k: vol_calls(B, R, st, shape, device, forms, k)
-             for k in set(routes)}
     out = {f: {} for f in forms}
+    calls = {}
     for f in forms:
-        for k in routes:
+        routed = has_march(B, R, VOL_FORMS[f][0])
+        for k in ("chain", "march", "march", "chain") if routed \
+                else (None, None):
+            if k not in calls:
+                calls[k] = vol_calls(B, R, st, shape, device, forms, k)
             out[f].setdefault(k or "rule", []).append(
                 device_ms_of(calls[k][f], reps))
     return out
@@ -5656,80 +5840,146 @@ def turns_text(turns, shape, share=False):
 
 def vol_ptxas():
     """ptxas registers, spills and warps an SM of the whole-volume march
-    instances (the cg_step epilogue's single-stencil instances, and every
-    weighted march instance), grouped: ``{(regs, spills, warps):
-    instances}`` each."""
+    instances, grouped by epilogue (the single-stencil march's: cg_step's,
+    normal_apply's, blur_apply's, its gradient's and irls_head's) and the
+    weighted march's: ``{epilogue: {(regs, spills, warps): instances}}``."""
     def group(d):
         out = {}
         for v in d.values():
             out[v] = out.get(v, 0) + 1
         return out
 
-    step = {k: v for k, v in march_ptxas().items() if "StepZyEpi" in k}
-    return group(step), group(weighted_ptxas())
+    out = {}
+    march = march_ptxas()
+    for epi in ("StepZyEpi", "NormalZyEpi", "BlurZyEpi", "GradZyEpi",
+                "HeadZyEpi"):
+        out[epi] = group({k: v for k, v in march.items() if epi in k})
+    out["weighted"] = group(weighted_ptxas())
+    return out
 
 
 #: the kernels records of the whole-volume march forms no other record
 #: reports (the robust group's ``weighted_apply`` is the exact weighted
 #: one, phase 14): name → (unit, TPU kernel it replaces, phase 38's run
-#: that reports its launches)
+#: that reports its launches, the form its main path runs)
 VOL_ENTRIES = {
     "cg_step[march]": ("cg_step", "nsol_tpu/ops/pallas/blocked.py:988",
-                       "step_exact")}
+                       "step_exact", "exact"),
+    "normal_apply[march]": ("normal_apply",
+                            "nsol_tpu/ops/pallas/blocked.py:402",
+                            "step_exact", "residual"),
+    "blur_apply[march]": ("blur_apply", "nsol_tpu/ops/pallas/robust.py:161",
+                          "robust_exact", "gradient"),
+    "irls_head[march]": ("irls_head", "nsol_tpu/ops/pallas/robust.py:161",
+                         "robust_exact", "huber"),
+    "blur_apply_prepadded[march]": ("blur_apply_prepadded",
+                                    "nsol_tpu/ops/pallas/robust.py:161",
+                                    "sharded_huber", "gradient")}
 
 
-def vol_entry_times(B, device):
+def vol_entry_times(B, R, device):
     """``{name: (max |Δ| against the plain version, ms a wrapper call, ms
-    of the plain version)}`` of :data:`VOL_ENTRIES` at 256³ in the main
-    path's form (after the first trip), by CUDA events."""
+    of the plain version)}`` of :data:`VOL_ENTRIES` in their main paths'
+    forms, by CUDA events: the whole-volume units at 256³ (``cg_step``
+    after the first trip, ``normal_apply``'s residual, ``blur_apply``'s
+    gradient, ``irls_head`` huber), the blur window with ``u`` at 512³
+    (518 planes)."""
+    import torch
+
     st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, device)
     r, p, _, _ = weighted_inputs(SCALE_SHAPE, device, 38)
     s = [_cg_scalars(device) for _ in range(2)]
-    calls = {"cg_step[march]": (B.cg_step, B.cg_step_plain)}
+    h2 = st.inv_h2
+    calls = {
+        "cg_step[march]": (B.cg_step, B.cg_step_plain,
+                           lambda k: (r, p, s[k], st.normal, h2, RHO)),
+        "normal_apply[march]": (B.normal_apply, B.normal_apply_plain,
+                                lambda k: (r, st.normal, h2, RHO, p, s[k])),
+        "blur_apply[march]": (R.blur_apply, R.blur_apply_plain,
+                              lambda k: (p, st.blur, h2, r, RHO, s[k])),
+        "irls_head[march]": (R.irls_head, R.irls_head_plain,
+                             lambda k: (r, p, st.blur, "huber", 1.0))}
     out = {}
-    for name, (unit, plain) in calls.items():
+
+    def held(name, unit, plain, args):
         def call(k, fn):
-            return fn(r, p, s[k], st.normal, st.inv_h2, RHO)
+            got = fn(*args(k))
+            return got if isinstance(got, tuple) else (got,)
 
         got, ref = call(0, unit), call(1, plain)
         err = max(float((g.float() - f.float()).abs().max())
                   for g, f in zip(got, ref))
-        require(max(max_rel(g, f) for g, f in zip(got, ref)) <= KERNEL_TOL,
+        require(max(max_rel(g.float(), f.float())
+                    for g, f in zip(got, ref)) <= KERNEL_TOL,
                 "phase 36: %s vs plain %.3g" % (name, err))
         out[name] = (err, cuda_median_ms(lambda: call(0, unit), 10),
                      cuda_median_ms(lambda: call(1, plain), 2))
-        del got, ref
+
+    for name, (unit, plain, args) in calls.items():
+        if name in VOL_ENTRIES and (name == "cg_step[march]" or has_march(
+                B, R, VOL_ENTRIES[name][0])):
+            held(name, unit, plain, args)
+    del r, p
+    torch.cuda.empty_cache()
+    if hasattr(R, "_blur_apply_prepadded"):
+        h = R.blur_halo(st.blur)
+        g = torch.Generator(device=device).manual_seed(39)
+        y_ext, u_ext = (torch.rand((BIG[0] + 2 * h,) + BIG[1:], generator=g,
+                                   device=device) - 0.5 for _ in range(2))
+        held("blur_apply_prepadded[march]", R.blur_apply_prepadded,
+             R.blur_apply_prepadded_plain,
+             lambda k: (y_ext, st.blur, h2, BIG[0], 3 * BIG[0], u_ext, RHO))
+        del y_ext, u_ext
+        torch.cuda.empty_cache()
     return out
 
 
-def volume_entries(vol, rows):
+def entry_bound(B, R, unit, form):
+    """``(bound_ms, bound_by)`` of one call of a :data:`VOL_ENTRIES` unit
+    in its main path's form: :func:`vol_bound` at 256³, or the blur window
+    with ``u`` at 512³ (y_ext read once over its 518 planes, u_ext on the
+    Laplacian's Zl + 2 planes, out written once)."""
+    if unit != "blur_apply_prepadded":
+        return vol_bound(unit, form, SCALE_SHAPE)
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
+    reads = window_reads(B, R, unit, st, BIG[0])
+    return bound(BIG_N * 4 * (reads + 1), BIG_N * (2 * 3 * 7 + 20))
+
+
+def volume_entries(B, R, vol, rows):
     """The ``kernels`` records of :data:`VOL_ENTRIES` from phase 36's
     times and phase 38's launches (its runs on the march)."""
     out = []
-    for name, (unit, tpu, run) in VOL_ENTRIES.items():
+    for name, (unit, tpu, run, form) in VOL_ENTRIES.items():
+        if name not in vol["entries"]:
+            continue
         err, ms, plain_ms = vol["entries"][name]
-        b_ms, b_by = vol_bound(unit, "exact", SCALE_SHAPE)
+        b_ms, b_by = entry_bound(B, R, unit, form)
         out.append(routed({
             "name": name, "route": "cuda", "source": MARCH_FORMS[unit][2],
             "replaces": tpu, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}, {MARCH_FORMS[unit][0]: rows[run][2][unit][1]}))
+            "library_ms": None}, {MARCH_FORMS[unit][0]: rows[run][2].get(
+                unit, (0, 0))[1]}))
         require(out[-1]["launches"] > 0, "phase 38: %s launched no time on "
                 "its main path (%s)" % (name, run))
     return out
 
 
 def run_volume_phases(device, card):
-    """Phases 36-37: the whole-volume ``cg_step`` and ``weighted_apply`` on
-    the marches of ``csrc/march.cuh``. Phase 36 (a package with them):
-    the z-tile and route rules in C against their Python mirrors, every
-    form bit for bit against its three-pass chain on the tile-edge shapes,
-    at 256³ and on the ragged volume (two seeds each) and on the 2-D view,
-    the chain side of the route (wide blurs), the ptxas report. Phase 37
-    (any package): device times of the forms at 256³ and on the ragged
-    volume, of the 512³ march units, and at the host-bound shapes (64³,
-    Lena 256²) the chain against the march, in turns. Returns the chain
-    side's launches and errors and the 256³ times."""
+    """Phases 36-37: the whole-volume units on the marches of
+    ``csrc/march.cuh`` (``cg_step``, ``weighted_apply``, ``normal_apply``,
+    ``blur_apply``, ``irls_head``) and the blur's window. Phase 36 (a
+    package with them): the z-tile and route rules in C against their
+    Python mirrors, every form bit for bit against its three-pass chain on
+    the tile-edge shapes, at 256³ and on the ragged volume (two seeds each)
+    and on the 2-D view, the blur window with and without ``u`` on the
+    tile-edge shapes and the 512³ window, the chain side of the route
+    (wide blurs), the ptxas report. Phase 37 (any package): device times
+    of the forms at 256³ and on the ragged volume, of the 512³ march units
+    and the blur window, and, at the shapes the route is measured at, the
+    chain against the march, in turns. Returns the chain side's launches
+    and errors and the 256³ times."""
     import torch
 
     from nsol_tpu_torch.ops.cuda import blocked as B
@@ -5742,8 +5992,8 @@ def run_volume_phases(device, card):
     if hasattr(B, "_cg_step"):
         # phase 36: the rules, the bits, the chain side
         print("phase 36 rules: C and Python agree on the z tile, the route "
-              "and the bf16-margin shared memory; %s" % vol_rule_checks(
-                  T, device))
+              "of %s and the bf16-margin shared memory; %s" % (
+                  "/".join(T.VOL_UNITS), vol_rule_checks(T, device)))
         cases = [(label, cov, sp, shape, (36,))
                  for label, cov, sp, shape in EDGE_CASES] + [
             ("256^3", iso, None, SCALE_SHAPE, VOL_SEEDS),
@@ -5753,22 +6003,39 @@ def run_volume_phases(device, card):
             st = B.Stencils.from_cov(cov, 3, sp, device)
             forms = sum(vol_march_bits(B, R, st, shape, device, seed)
                         for seed in seeds)
+            windows = ""
+            if len(shape) == 3 and shape != SCALE_SHAPE:
+                windows = "; blur window %s" % require_bits(
+                    blur_window_bits(R, st, shape, device, seeds[0]),
+                    "blur window %s" % label)
             torch.cuda.empty_cache()
             print("phase 36 %s %s (normal taps %s, blur taps %s): %d forms "
-                  "of the marches bit for bit equal to their chains (p', q; "
-                  "pq within 1e-9), seeds %s" % (
+                  "of the marches bit for bit equal to their chains (every "
+                  "output; pq, gamma within 1e-9), seeds %s%s" % (
                       label, "x".join(map(str, shape)), st.normal.lengths,
-                      st.blur.lengths, forms, seeds))
+                      st.blur.lengths, forms, seeds, windows))
+        st = B.Stencils.from_cov(iso, 3, None, device)
+        wide = B.Stencils.from_cov(np.diag([2.0 ** 2] * 3), 3, None, device)
+        for label, stw in (("sigma 1", st), ("sigma 2", wide)):
+            bits = blur_window_bits(R, stw, BIG, device, 36)
+            if bits:
+                print("phase 36 blur window 512^3 (%d planes, %s, blur taps "
+                      "%s) bit for bit equal to its chain: %s" % (
+                          BIG[0] + 2 * R.blur_halo(stw.blur), label,
+                          stw.blur.lengths, require_bits(
+                              bits, "blur window 512^3 %s" % label)))
+            del bits
+            torch.cuda.empty_cache()
         out["chain"] = chain_route_runs(F, device)
         print("phase 36 the chain side: %s" % ", ".join(
             "%s at sigma %g: %d chain launches, 0 march, kernel vs plain "
             "%.2e" % (k, CHAIN_SIGMAS[k], v[0], v[2])
             for k, v in out["chain"].items()))
-        step, weighted = vol_ptxas()
-        print("phase 36 ptxas (registers, spill bytes, warps an SM): "
-              "cg_step march instances %s; weighted march instances %s"
-              % (step or "cached", weighted or "cached"))
-        out["entries"] = vol_entry_times(B, device)
+        print("phase 36 ptxas of the march instances by epilogue ({(registers,"
+              " spill bytes, warps an SM): instances}): %s" % (
+                  "; ".join("%s %s" % (k, v or "cached")
+                            for k, v in vol_ptxas().items())))
+        out["entries"] = vol_entry_times(B, R, device)
         lap("phase 36")
 
     # phase 37: device times (torch.profiler medians)
@@ -5782,44 +6049,105 @@ def run_volume_phases(device, card):
               "[%s]" % (label, turns_text(turns, shape, share=True), card))
     calls = tiled_calls(T, R, B, st, BIG, device, np.random.RandomState(37))[1]
     big = {k: [device_ms_of(calls[k][0], 5) for _ in range(2)]
-           for k in ("normal_apply_zy", "cg_step_zy", "weighted_apply_zy")}
+           for k in ("normal_apply_zy", "cg_step_zy", "blur_apply_zy",
+                     "weighted_apply_zy")}
     del calls
     torch.cuda.empty_cache()
     print("phase 37 512^3 march units, device ms a call (two traces): %s "
           "[%s]" % (", ".join("%s %s" % (k, "/".join(map(ms_text, v)))
                               for k, v in big.items()), card))
-    step = {k: v for k, v in march_ptxas().items()
-            if k.startswith("ILi13ELi1ELb1ELb0Eff")}
-    print("phase 37 ptxas of the float TV instance cg_step_zy runs "
-          "(registers, spill bytes, warps an SM): %s" % (step or "cached"))
+    out["window"] = window_turns(B, R, st, device)
+    print("phase 37 the 512^3 windows (518 planes), device ms a call "
+          "(torch.profiler medians, in turns): %s [%s]" % (
+              window_text(out["window"]), card))
     st2 = B.Stencils.from_cov(np.eye(2), 3, None, device)
     for label, shape, stl, reps in (
-            ("64^3", (64,) * 3, st, 20), ("96^3", (96,) * 3, st, 20),
+            ("64^3", (64,) * 3, st, 20), ("72^3", (72,) * 3, st, 20),
+            ("80^3", (80,) * 3, st, 20), ("88^3", (88,) * 3, st, 20),
+            ("96^3", (96,) * 3, st, 20),
             ("128^3", (128,) * 3, st, 20), ("Lena 256^2", (256, 256), st2, 20),
             ("2-D 2048^2", (2048, 2048), st2, 20)) + tuple(
                 ("x".join(map(str, d)), d, st, 10) for d in THIN_SHAPES):
         turns = vol_turns(B, R, stl, shape, device, ROUTE_FORMS, reps=reps)
         dims = (1,) * (3 - len(shape)) + shape
-        rule = "/".join(T.vol_route(u, t, dims) for u, t in (
-            ("cg_step", (13, 13, 13)), ("weighted_apply", (7, 7, 7)))) \
-            if hasattr(T, "vol_route") else "chain"
+        rule = "/".join("%s %s" % (u, T.vol_route(u, t, dims)) for u, t in (
+            ("cg_step", (13, 13, 13)), ("weighted_apply", (7, 7, 7)),
+            ("normal_apply", (13, 13, 13)), ("blur_apply", (7, 7, 7)),
+            ("irls_head", (7, 7, 7))) if u in getattr(T, "VOL_UNITS", ()))
         print("phase 37 %s (the rule's routes: %s) device ms a call: %s [%s]"
-              % (label, rule, turns_text(turns, shape), card))
+              % (label, rule or "chain", turns_text(turns, shape), card))
         torch.cuda.empty_cache()
     lap("phase 37")
     return out
 
 
+def window_turns(B, R, st, device, reps=5):
+    """Device ms a call (:func:`device_ms_of`) of the 512³ windows (518
+    planes): ``blur_apply_prepadded`` with and without ``u`` by the
+    package's route (in a package with the window march, the march and
+    the chain in turns chain, march, march, chain) and
+    ``normal_apply_prepadded`` by its route."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(37)
+    hb, hn = R.blur_halo(st.blur), B.prepadded_halo(st.normal)
+    yb, ub = (torch.rand((BIG[0] + 2 * hb,) + BIG[1:], generator=g,
+                         device=device) for _ in range(2))
+    vn = torch.rand((BIG[0] + 2 * hn,) + BIG[1:], generator=g, device=device)
+    row0, zt = BIG[0], 3 * BIG[0]
+    out = {}
+    for form, u in (("with u", ub), ("without u", None)):
+        args = (yb, st.blur, st.inv_h2, row0, zt, u, RHO)
+        if hasattr(R, "_blur_apply_prepadded"):
+            for k in ("chain", "march", "march", "chain"):
+                fn = partial(R._blur_apply_prepadded, *args,
+                             chain=k == "chain")
+                out.setdefault("blur_apply_prepadded " + form, {}).setdefault(
+                    k, []).append(device_ms_of(fn, reps))
+        else:
+            fn = partial(R.blur_apply_prepadded, *args)
+            out["blur_apply_prepadded " + form] = {
+                "rule": [device_ms_of(fn, reps) for _ in range(2)]}
+    fn = partial(B.normal_apply_prepadded, vn, st.normal, st.inv_h2, RHO,
+                 row0, zt)
+    out["normal_apply_prepadded"] = {
+        "rule": [device_ms_of(fn, reps) for _ in range(2)]}
+    del yb, ub, vn
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_text(turns):
+    """:func:`window_turns`' times as text, each beside its bound."""
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import robust as R
+
+    st = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
+    parts = []
+    for form, t in turns.items():
+        name = form.split()[0]
+        reads = window_reads(B, R, name, st, BIG[0],
+                             lap=not form.endswith("without u"))
+        taps = 13 if name == "normal_apply_prepadded" else 7
+        b_ms = bound(BIG_N * 4 * (reads + 1), BIG_N * (6 * taps + 20))[0]
+        parts.append("%s %s (bound %.4f)" % (form, "; ".join(
+            "%s %s" % (k, "/".join(map(ms_text, v))) for k, v in t.items()),
+            b_ms))
+    return ", ".join(parts)
+
+
 def run_volume_solves(device, card):
-    """Phase 38: the solves that run ``cg_step`` / ``weighted_apply``, by
-    CUDA events (the median of a few calls after a warm-up) — the 256³
-    "step" solve exact, under ``compact_dirs`` (the CLI's default) and
-    bf16 state, the 256³ robust huber 10 × 5 × 8 exact and compact, the
-    256³ TK1L2 × 8 α sweep, the 512³ "step2d" solve, the 64³ north star
-    and the Lena 256² TV-L2, huber and TK1L2 × 64 α solves — with their
-    objectives and the route
-    their units took. In a package with the marches the 256³ solves must
-    have taken them."""
+    """Phase 38: the solves that run the routed whole-volume units and the
+    blur window, by CUDA events (the median of a few calls after a
+    warm-up) — the 256³ "step" solve exact, under ``compact_dirs`` (the
+    CLI's default) and bf16 state, the 256³ robust huber 10 × 5 × 8 exact
+    and compact, the 256³ TK1L2 × 8 α sweep, the 512³ "step2d" solve, the
+    sharded 512³ linear 50 × 10 and huber 5 × 5 × 8 solves on a NCCL group
+    of world size 1 (each within 1e-4 of the unsharded solve), the 64³
+    north star and the Lena 256² TV-L2, huber and TK1L2 × 64 α solves —
+    with their objectives and the route their units took. In a package
+    with the marches the 256³ and sharded solves must have taken them, the
+    64³ and Lena solves none."""
     import scipy.ndimage as ndi
     import torch
 
@@ -5833,6 +6161,9 @@ def run_volume_solves(device, card):
     from nsol_tpu_torch.ops.cuda import tikhonov as TK
 
     march = hasattr(B, "_cg_step")
+    # the marches of normal_apply, blur_apply, irls_head and the blur
+    # window
+    marches = hasattr(B, "_normal_apply")
     rows = {}
 
     def run(key, fn, reps, objective=None):
@@ -5861,12 +6192,16 @@ def run_volume_solves(device, card):
                      lambda x: objective_device(x, b, A64, ALPHA))
         require(not march or routes.get("cg_step") == (
             0, ITERATIONS * ITER_MAX), "phase 38: %s routes %s" % (key, routes))
+        require(not marches or routes.get("normal_apply") == (
+            0, ITERATIONS + 1), "phase 38: %s routes %s" % (key, routes))
     # the 256³ TK1L2 sweep over 8 α, CG 10
     alphas = TK_ALPHAS[::8].astype(np.float64)
     tk = TK.make_fused_tikhonov_solver(SCALE_SHAPE, iso, reg="TK1",
                                        iter_max=TK_ITER_MAX)
     routes = run("tk1_256_x8", partial(tk, b, b, alphas), 2)
     require(not march or routes.get("cg_step", (1, 0))[0] == 0,
+            "phase 38: 256^3 TK1L2 routes %s" % routes)
+    require(not marches or routes.get("normal_apply") == (0, 1 + len(alphas)),
             "phase 38: 256^3 TK1L2 routes %s" % routes)
     del b
     torch.cuda.empty_cache()
@@ -5882,6 +6217,9 @@ def run_volume_solves(device, card):
                      lambda x: robust_objective(x, bb, A64, ALPHA))
         require(not march or routes.get("weighted_apply") == (
             0, its * sweeps * cgi), "phase 38: %s routes %s" % (key, routes))
+        require(not marches or routes.get("blur_apply") == routes.get(
+            "irls_head") == (0, its * sweeps), "phase 38: %s routes %s"
+            % (key, routes))
     del bb
     torch.cuda.empty_cache()
     # 512³ "step2d" 50 × 10: cg_step_zy (the march's float TV instance)
@@ -5893,6 +6231,7 @@ def run_volume_solves(device, card):
         lambda x: objective_device(x, b, A64, ALPHA))
     del b, solve
     torch.cuda.empty_cache()
+    sharded_solves(device, run, rows)
     # the 64³ north star (Shepp-Logan stand-in, 50 × 10)
     img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
     kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
@@ -5922,13 +6261,71 @@ def run_volume_solves(device, card):
                                         iter_max=TK_ITER_MAX)
     run("lena_tk1_x64", partial(tkl, bl, bl, TK_ALPHAS.astype(np.float64)),
         5)
+    for key in ("north_star_64", "lena_tvl2", "lena_huber", "lena_tk1_x64"):
+        require(all(v[1] == 0 for v in rows[key][2].values()),
+                "phase 38: %s took a march: %s" % (key, rows[key][2]))
     print("phase 38 solves (ms a solve by CUDA events, median; objective; "
-          "launches (chain, march) of cg_step / weighted_apply): %s [%s]"
+          "launches (chain, march) of the routed units): %s [%s]"
           % ("; ".join("%s %.3f ms, %s, %s" % (
               k, v[0], "-" if v[1] is None else "%.6f" % v[1], v[2])
               for k, v in rows.items()), card))
     lap("phase 38")
     return rows
+
+
+def sharded_solves(device, run, rows):
+    """Phase 38's sharded 512³ solves on a NCCL group of world size 1
+    (``sharded_tv_admm_solve``: linear 50 × 10; huber 5 × 5 × 8 from x0 =
+    max(b, 0)), each timed by ``run`` and held within 1e-4 of the
+    unsharded solve (``blocked_admm_solve``, ``blocked_robust_admm_solve``);
+    in a package with the blur window march the huber solve must take it
+    (2 × 5 × 5 launches)."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import make_space_mesh, sharded_tv_admm_solve
+
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    try:
+        mesh = make_space_mesh()
+        b, iso, A64 = scale_problem(device, robust=False)
+        run("sharded_linear_512", partial(
+            sharded_tv_admm_solve, mesh, iso, b, b, ALPHA, RHO,
+            iterations=ITERATIONS, iter_max=ITER_MAX), 2,
+            lambda x: objective_device(x, b, A64, ALPHA))
+        ref = objective_device(B.blocked_admm_solve(
+            BIG, iso, iterations=ITERATIONS, iter_max=ITER_MAX)(
+                b, b, ALPHA, RHO), b, A64, ALPHA)
+        obj = rows["sharded_linear_512"][1]
+        require(abs(obj - ref) <= SOLVE_OBJ_TOL * abs(ref), "phase 38: "
+                "sharded linear %.4f vs blocked_admm_solve %.4f" % (obj, ref))
+        del b
+        torch.cuda.empty_cache()
+        its, sweeps, cgi = BIG_ROBUST_ITERS
+        b, iso, A64 = scale_problem(device, robust=True)
+        x0 = torch.clamp(b, min=0.0)
+        routes = run("sharded_huber", partial(
+            sharded_tv_admm_solve, mesh, iso, b, x0, ALPHA, RHO,
+            iterations=its, iter_max=sweeps, data_loss="huber"), 2,
+            lambda x: robust_objective(x, b, A64, ALPHA))
+        ref = robust_objective(R.blocked_robust_admm_solve(
+            BIG, iso, iterations=its, iter_max=sweeps, irls_cg_iters=cgi)(
+                b, x0, ALPHA, RHO), b, A64, ALPHA)
+        obj = rows["sharded_huber"][1]
+        require(abs(obj - ref) <= SOLVE_OBJ_TOL * abs(ref), "phase 38: "
+                "sharded huber %.4f vs blocked_robust_admm_solve %.4f"
+                % (obj, ref))
+        require(not hasattr(R, "_blur_apply_prepadded")
+                or routes.get("blur_apply_prepadded") == (
+                    0, 2 * its * sweeps), "phase 38: sharded huber routes %s"
+                % routes)
+        del b, x0
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def run_admm_phases(device, card):
@@ -6188,6 +6585,7 @@ def main(argv=None):
         return 2
     from nsol_tpu_torch.ops.cuda import blocked as B
     from nsol_tpu_torch.ops.cuda import build
+    from nsol_tpu_torch.ops.cuda import robust as R
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6276,7 +6674,7 @@ def main(argv=None):
     if "volume_solves" in groups:
         rows = run_volume_solves(device, card)
         if "volume" in groups and "entries" in vol:
-            kernels += volume_entries(vol, rows)
+            kernels += volume_entries(B, R, vol, rows)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

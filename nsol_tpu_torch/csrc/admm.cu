@@ -23,7 +23,13 @@
 //                 for Tikhonov TK0). One pass per axis through two scratch
 //                 volumes; the z pass adds the regulariser and an epilogue
 //                 (plain q, or the CG residual rhs - q with the partial sums
-//                 of its square).
+//                 of its square). Where march.cuh's vol_route takes the
+//                 taps and the shape, the C entry runs it as
+//                 normal_march.cu's one-pass march instead (every form:
+//                 float and bfloat16, plain and residual, TK1 and TK0,
+//                 A^T b at the blur taps with rho = 0), with no scratch
+//                 volume and the same q and r bit for bit; the solves (here
+//                 and in tikhonov.cu) take the same rule.
 //   cg_step       p' = r + beta p formed on the fly inside the x pass, then
 //                 q = M p' and the partial sums of p'.q; second stage
 //                 a = gamma / pq. Where march.cuh's vol_route takes the
@@ -57,7 +63,7 @@
 //                 zero-boundary rows only at global rows 0 and z_total - 1
 //                 (row0 the window's first global row). Where a block's
 //                 shared memory holds its taps (ops/cuda/tiled.py's rule,
-//                 sigma up to 4) the C entry hands it to tiled.cu's
+//                 sigma up to 4) the C entry hands it to normal_march.cu's
 //                 one-pass march over the Zl + 2r planes, which reads v_ext
 //                 once and allocates nothing; else it runs the three
 //                 passes here, whose x and y passes cover all Zl + 2r
@@ -75,10 +81,11 @@
 // solve is ~3300 short launches, so launches and their host enqueue bound
 // it; at 256^3 (64 MiB a volume) the elementwise passes run near HBM
 // bandwidth and the per-axis stencil passes, which read every tap through
-// L2, at a fraction of it (which is why cg_step marches past 2^20
-// voxels). The design keeps the passes simple (all loads coalesced along
-// X, no shared-memory tiles) and keeps every CG scalar
-// on the device, so nothing waits for the host inside a solve. The per-axis
+// L2, at a fraction of it (which is why normal_apply and cg_step march
+// there; the records' blur chain still runs the passes). The design keeps
+// the passes simple (all loads coalesced along X, no shared-memory tiles)
+// and keeps every CG scalar on the device, so nothing waits for the host
+// inside a solve. The per-axis
 // passes and the CG update live in stencil.cuh, shared with robust.cu and
 // tikhonov.cu.
 //
@@ -110,7 +117,8 @@ enum Unit {
   kAdmmRecord = 4,
   kCgSweep = 5,
   kNormalApplyPre = 6,
-  kCgStepMarch = 7  // cg_step on step_march.cu's march
+  kCgStepMarch = 7,      // cg_step on step_march.cu's march
+  kNormalApplyMarch = 8  // normal_apply on normal_march.cu's march
 };
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
@@ -515,9 +523,12 @@ cudaError_t admm_record(const float* x, const float* b, float* t1, float* t2,
 }  // namespace
 
 extern "C" {
-// march.cuh's whole-volume route (tiled.cu) and step_march.cu's cg_step,
-// which add to no count.
-int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X);
+// step_march.cu's cg_step and normal_march.cu's normal_apply, which add to
+// no count.
+int nsol_normal_apply_march(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
+                            double* partials, double* scal, const float* taps, int kz, int ky,
+                            int kx, float rho, int reg, int io, float ih2x, float ih2y,
+                            float ih2z, int Z, int Y, int X, void* stream);
 int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, double* partials,
                        double* scal, int first, const float* taps, int kz, int ky, int kx,
                        float rho, int reg, int storage, float ih2x, float ih2y, float ih2z,
@@ -526,14 +537,33 @@ int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, doubl
 
 namespace {
 
+// One whole-volume normal_apply by `route`: the march (counted as
+// kNormalApplyMarch) or the three passes through t1, t2 (kNormalApply).
+// scal is read only by the residual form (rhs given).
+int normal_apply_routed(const void* v, void* out, float* t1, float* t2, const float* rhs,
+                        double* partials, double* scal, const float* taps, int kz, int ky,
+                        int kx, float rho, int reg, int io, int route, float ih2x, float ih2y,
+                        float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
+  if (takes_march(route, kVolNormalApply, kz, ky, kx, Z, Y, X)) {
+    counts[kNormalApplyMarch] += 1;
+    return nsol_normal_apply_march(v, out, rhs, nullptr, 0, partials,
+                                   rhs != nullptr ? scal : nullptr, taps, kz, ky, kx, rho, reg,
+                                   io, ih2x, ih2y, ih2z, Z, Y, X, stream);
+  }
+  counts[kNormalApply] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  return (int)normal_apply(v, out, t1, t2, rhs, partials, scal, make_taps(taps, kz, ky, kx), rho,
+                           reg, io, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
+}
+
 // One whole-volume cg_step by `route` (stencil.cuh's Route): the march
 // (counted as kCgStepMarch) or the three passes through t1, t2 (kCgStep).
 int cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
             double* partials, double* scal, int first, const float* taps, int kz, int ky,
             int kx, float rho, int reg, int storage, int route, float ih2x, float ih2y,
             float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
-  if (route == kRouteMarch ||
-      (route == kRouteRule && nsol_vol_route(kVolCgStep, kz, ky, kx, Z, Y, X))) {
+  if (takes_march(route, kVolCgStep, kz, ky, kx, Z, Y, X)) {
     counts[kCgStepMarch] += 1;
     return nsol_cg_step_march(r, p, p_new, q, partials, scal, first, taps, kz, ky, kx, rho, reg,
                               storage, ih2x, ih2y, ih2z, Z, Y, X, stream);
@@ -559,19 +589,20 @@ extern "C" {
 int nsol_max_blocks() { return kMaxBlocks; }
 
 // io 0: v and out float; io 1: bfloat16 out, and v bfloat16 (plain form)
-// or a float x read as bfloat16 (residual form, rhs given).
+// or a float x read as bfloat16 (residual form, rhs given). `route` a
+// Route: the rule (t1, t2 may be null where it takes the march), the chain
+// (t1, t2 given) or the march. Counts kNormalApply or kNormalApplyMarch by
+// the route taken; partials holds max(nsol_tiled_blocks(Z, Y, X),
+// nsol_max_blocks()) doubles.
 int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const float* rhs,
                       double* partials, double* scal, const float* taps, int kz, int ky, int kx,
-                      float rho, int reg, int io, float ih2x, float ih2y, float ih2z, int Z, int Y,
-                      int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = normal_apply(v, out, t1, t2, rhs, partials, scal, make_taps(taps, kz, ky, kx),
-                               rho, reg, io, sp, Dims{Z, Y, X}, (cudaStream_t)stream);
-  counts[kNormalApply] += 1;
-  return (int)e;
+                      float rho, int reg, int io, int route, float ih2x, float ih2y, float ih2z,
+                      int Z, int Y, int X, void* stream, long long* counts) {
+  return normal_apply_routed(v, out, t1, t2, rhs, partials, scal, taps, kz, ky, kx, rho, reg, io,
+                             route, ih2x, ih2y, ih2z, Z, Y, X, stream, counts);
 }
 
-// tiled.cu's march over a window.
+// normal_march.cu's march over a window.
 int nsol_normal_apply_window_zy(const float* v_ext, float* out, const float* taps, int kz, int ky,
                                 int kx, float rho, float ih2x, float ih2y, float ih2z, int halo,
                                 int row0, int z_total, int Zl, int Y, int X, void* stream);
@@ -666,12 +697,14 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
 // bfloat16 under kStoreState and in float otherwise (compact_dirs keeps an
 // exact apply for it, blocked.py:1430-1446). sweep 0: iter_max x (cg_step,
 // cg_update); sweep 1 (kStoreExact or kStoreState): iter_max x cg_sweep,
-// then the owed x += a p (cg_update on x alone), partials 4 *
-// nsol_max_blocks(), else max(nsol_tiled_blocks, nsol_max_blocks) (the
-// cg_step march's). With reg != nullptr the solve also records row 0 (x0)
-// and one row per outer iteration (the clipped iterate) into reg/data
-// (fused.py:637-654), the Data loss by rec_loss at the scale rec_scale.
-// counts: 8 (admm.cu's units).
+// then the owed x += a p (cg_update on x alone), partials max(4 *
+// nsol_max_blocks(), nsol_tiled_blocks), else max(nsol_tiled_blocks,
+// nsol_max_blocks) (the marches'). normal_apply (A^T b, each outer
+// residual) and cg_step take march.cuh's route, march or chain. With
+// reg != nullptr the solve also records row 0 (x0) and one row per outer
+// iteration (the clipped iterate) into reg/data (fused.py:637-654), the
+// Data loss by rec_loss at the scale rec_scale. counts: 9 (admm.cu's
+// units).
 int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, float* rhs,
                     void* r0, void* r1, void* p0, void* p1, void* q, float* t1, float* t2,
                     double* partials, double* scal, const float* taps_a, int kaz, int kay,
@@ -688,19 +721,23 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
   const bool record = reg != nullptr;
   const int io_r0 = storage == kStoreState ? 1 : 0;
   if (sweep && storage != kStoreExact && storage != kStoreState) return (int)cudaErrorInvalidValue;
+  int e;
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
+#define CALL(call)                  \
+  if ((e = (call)) != 0) return e;
   if (record)
     UNIT(kAdmmRecord, admm_record(x, b, t1, t2, rec_partials, reg, data, 0, ta, rec_loss,
                                   rec_scale, sp, d, s));
   // A^T b = A b once (A symmetric, fused.py:576), then v0 = grad x0, w0 = 0
   // and the first rhs.
-  UNIT(kNormalApply,
-       normal_apply(b, atb, t1, t2, nullptr, partials, scal, ta, 0.f, kRegLap, 0, sp, d, s));
+  CALL(normal_apply_routed(b, atb, t1, t2, nullptr, partials, scal, taps_a, kaz, kay, kax, 0.f,
+                           kRegLap, 0, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
   UNIT(kAdmmTail, admm_tail(x, v, w, atb, rhs, sp, tau, rho, 1, d, s));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
-    UNIT(kNormalApply,
-         normal_apply(x, r0, t1, t2, rhs, partials, scal, tn, rho, kRegLap, io_r0, sp, d, s));
+    CALL(normal_apply_routed(x, r0, t1, t2, rhs, partials, scal, taps_n, knz, kny, knx, rho,
+                             kRegLap, io_r0, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                             counts));
     void* r_cur = r0;
     void* r_next = r1;
     void* p_prev = p0;
@@ -713,10 +750,9 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
         r_cur = r_next;
         r_next = tmp;
       } else {
-        const int e = cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, taps_n,
-                              knz, kny, knx, rho, kRegLap, storage, kRouteRule, ih2x, ih2y,
-                              ih2z, Z, Y, X, stream, counts);
-        if (e != 0) return e;
+        CALL(cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, taps_n, knz, kny,
+                     knx, rho, kRegLap, storage, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                     counts));
         UNIT(kCgUpdate, cg_update_s(x, r_cur, p_cur, q, partials, scal, d.n(), storage, 1, s));
       }
       void* tmp = p_prev;
@@ -733,6 +769,7 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
       UNIT(kAdmmRecord, admm_record(x, b, t1, t2, rec_partials, reg, data, it + 1, ta, rec_loss,
                                     rec_scale, sp, d, s));
   }
+#undef CALL
 #undef UNIT
   return 0;
 }

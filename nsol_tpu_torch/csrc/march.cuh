@@ -68,13 +68,15 @@
 // tile. 512^3 keeps its 128 / 256 planes (2048 / 1024 blocks, four
 // waves); 256^3 takes 64 / 128 (512 / 256 blocks, one wave each).
 //
-// The whole-volume route (vol_route). The whole-volume cg_step
-// (admm.cu) and weighted_apply (robust.cu) take the march on a volume
-// past the fused solves' fit (more than kMarchMinVoxels = 2^20 voxels, 16
-// volumes in 64 MiB) deep enough that a block takes at most 2.5 steps a
-// plane it writes (3 Z >= 2 x its halo steps: at sigma = 1, Z >= 8 for
-// cg_step, Z >= 9 for weighted_apply) where a block's shared memory holds
-// the taps (the runtime-length instance's size, as ops/cuda/tiled.py::
+// The whole-volume route (vol_route). The whole-volume cg_step, normal_apply
+// (admm.cu), weighted_apply, blur_apply and irls_head (robust.cu) take the
+// march on a volume past the fused solves' fit (more than kMarchMinVoxels
+// = 2^20 voxels, 16 volumes in 64 MiB; 2^19 for the lighter normal_apply,
+// blur_apply and irls_head) deep enough that a block takes at most 2.5
+// steps a plane it writes (4 for normal_apply and irls_head: at sigma = 1,
+// Z >= 8 for cg_step, 9 for weighted_apply, 4 for normal_apply and
+// blur_apply, 2 for irls_head) where a block's shared memory holds the
+// taps (the runtime-length instance's size, as ops/cuda/tiled.py::
 // route_fits measures it), and else the three passes of stencil.cuh.
 // Timed by device time in turns on the H100 (chip_smoke.py phase 37,
 // PERF.md): the march takes a third (cg_step) to two fifths
@@ -83,8 +85,10 @@
 // image, whose passes sit in the 50 MB L2 while the march's few blocks
 // (64 at 64^3) leave the card idle, and 1.1-3.5x the chain's on stacks
 // of 2-4 planes (weighted: 2-8), which march 12 (13) halo steps beside
-// their own planes. The rule is fixed by the taps and the shape before any
-// launch and does not fall back.
+// their own planes. normal_apply, blur_apply and irls_head take a third
+// to a half of the chain's time at 256^3 and win from 88^3 and on 4-plane
+// stacks (irls_head from 2). The rule is fixed by the taps and the
+// shape before any launch and does not fall back.
 
 #pragma once
 
@@ -102,8 +106,11 @@ constexpr int kTileX = 32;  // one warp across a tile row
 constexpr int kTileZ = 128;  // the most planes a block marches through
 constexpr int kMinTileZ = 8;  // the fewest (march_tile_z)
 // the fewest voxels a whole-volume unit marches over (vol_route): past
-// the fused solves' fit, 16 volumes in 64 MiB
+// the fused solves' fit, 16 volumes in 64 MiB, for cg_step and
+// weighted_apply; past 2^19 for normal_apply, blur_apply and irls_head,
+// whose marches beat their chains from 88^3 (not at 80^3) on the H100
 constexpr long long kMarchMinVoxels = 1LL << 20;
+constexpr long long kLightMinVoxels = 1LL << 19;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
 // the raw centre tiles carry a one-voxel halo for the Laplacian
 constexpr int kRawW = kTileX + 2;
@@ -1267,22 +1274,59 @@ cudaError_t launch_weighted_taps(const A& a, cudaStream_t s) {
 
 // --------------------------------------------------- whole-volume units --
 
-// Whether the whole-volume unit (kVolCgStep at the normal taps, or
-// kVolWeightedApply at the blur taps) takes its march at the taps tp on
-// the volume d, else stencil.cuh's three-pass chain: the march on a
-// volume of more than kMarchMinVoxels voxels, deep enough that a block
-// takes at most 2.5 steps a plane it writes ((Z + halo steps) / Z <= 2.5,
-// so no 2-D view), where a block's shared memory holds the taps in its
-// runtime-length instance (the larger; cg_step's with the bfloat16
-// windows' margins, so that every storage mode takes one route).
-// ops/cuda/tiled.py::vol_route mirrors it.
+// The shared memory a block of the whole-volume unit's march takes at the
+// taps tp, in its runtime-length instance (the larger): cg_step's with the
+// bfloat16 windows' margins and blur_apply's with u (the gradient's), so
+// that every storage mode and form of a unit takes one route.
+inline size_t vol_smem(int unit, Taps tp) {
+  switch (unit) {
+    case kVolCgStep:
+      return stencil_smem(stencil_geo(tp, 2, true), true, true);
+    case kVolWeightedApply:
+      return (size_t)weighted_geo(tp, false).words * 4;
+    case kVolNormalApply:
+      return stencil_smem(stencil_geo(tp, 1), true, true);
+    case kVolBlurApply:
+      return stencil_smem(stencil_geo(tp, 2), true, true);
+    default:  // kVolIrlsHead: one window, no Laplacian
+      return stencil_smem(stencil_geo(tp, 1), false, true);
+  }
+}
+
+// The most steps a block of the whole-volume unit's march may take a plane
+// it writes, (Z + halo steps) / Z, as a ratio: 2.5 where the march lost
+// to the chain on thinner stacks (cg_step, weighted_apply, blur_apply's
+// gradient form), 4 for the lighter normal_apply (one window; it won at 4
+// planes of 13 taps, 4 steps a plane) and irls_head (one window, no
+// Laplacian; it won at 2 planes of 7 taps). Timed by device time in turns
+// on the H100 (chip_smoke.py phase 37, PERF.md).
+struct StepsPerPlane {
+  int num, den;
+};
+
+inline StepsPerPlane vol_steps(int unit) {
+  return unit == kVolNormalApply || unit == kVolIrlsHead ? StepsPerPlane{4, 1}
+                                                         : StepsPerPlane{5, 2};
+}
+
+// The fewest voxels the whole-volume unit's march takes (exclusive).
+inline long long vol_min_voxels(int unit) {
+  return unit == kVolCgStep || unit == kVolWeightedApply ? kMarchMinVoxels : kLightMinVoxels;
+}
+
+// Whether the whole-volume unit (VolUnit: cg_step and normal_apply at the
+// normal taps, weighted_apply, blur_apply and irls_head at the blur taps)
+// takes its march at the taps tp on the volume d, else stencil.cuh's
+// three-pass chain: the march on a volume of more than vol_min_voxels
+// voxels, deep enough that a block takes at most vol_steps(unit) steps a
+// plane it writes (so no 2-D view), where a block's shared memory holds
+// the taps (vol_smem). ops/cuda/tiled.py::vol_route mirrors it.
 inline bool vol_route(int unit, Taps tp, Dims d) {
-  if (d.n() <= kMarchMinVoxels) return false;
-  if (2 * march_halo_steps(tp.kz, unit == kVolWeightedApply) > 3 * d.Z) return false;
-  const size_t smem = unit == kVolCgStep
-                          ? stencil_smem(stencil_geo(tp, 2, true), true, true)
-                          : (size_t)weighted_geo(tp, false).words * 4;
-  return smem <= (size_t)kMaxSmem;
+  if (d.n() <= vol_min_voxels(unit)) return false;
+  const StepsPerPlane sp = vol_steps(unit);
+  const long long steps = (long long)d.Z + march_halo_steps(tp.kz, unit == kVolWeightedApply);
+  if (steps * sp.den > (long long)sp.num * d.Z) return false;
+  return vol_smem(unit, tp) <= (size_t)kMaxSmem;
 }
 
 // cg_step's epilogue: q = conv + rho B^T B p' stored as Q, and p'.q summed

@@ -11,7 +11,13 @@
 // term is an exact +0.
 //
 // Four kernel units, each a short launch sequence on the caller's stream,
-// built from the per-axis passes of stencil.cuh:
+// built from the per-axis passes of stencil.cuh, of which blur_apply,
+// irls_head and weighted_apply run as one-pass marches (march.cuh)
+// instead wherever march.cuh's vol_route takes the taps and the shape (a
+// volume past the fused solves' volumes, deep enough for the march's z
+// halo, whose taps fit a block), with no scratch volume and the same
+// outputs bit for bit; the sweeps (here and in tikhonov.cu) take the same
+// rule:
 //
 //   blur_apply      out = A y (blur taps); with u, + rho B^T B u (B^T B the
 //                   Laplacian D^T D, or the identity for Tikhonov TK0, a
@@ -19,19 +25,16 @@
 //                   opens an IRLS sweep: g = A y + rho B^T B x
 //                   for y = wts r, the active set free = !(x <= 0 && g > 0)
 //                   as a {0, 1} float field, rk = -free g, then
-//                   gamma = sum rk^2, beta = 0 (second stage).
+//                   gamma = sum rk^2, beta = 0 (second stage). Its march
+//                   is blur_march.cu's.
 //   irls_head       r = A x - b, wts = rho'_C(r^2) (loss by id, C at run
 //                   time), y = wts r: the weights frozen for one sweep.
+//                   Its march is blur_march.cu's head form.
 //   weighted_apply  p' = r + beta p (p' = r on the first trip), pf = free p',
 //                   s = wts A pf, q = free (A s + rho B^T B pf) + (p' - pf),
-//                   partial sums of p'.q; second stage a = gamma / pq. Where
-//                   march.cuh's vol_route takes the taps and the shape
-//                   (a volume past 2^20 voxels deep enough for the
-//                   march's z halo, whose taps fit a block),
-//                   the C entry runs it as weighted_march.cu's one-pass
-//                   march instead of the six passes below, with no
-//                   scratch volume and the same p' and q bit for bit; the
-//                   sweeps (here and in tikhonov.cu) take the same rule.
+//                   partial sums of p'.q; second stage a = gamma / pq. Its
+//                   march (weighted_march.cu) replaces the six passes
+//                   below.
 //   irls_step       x = max(x + xk, 0), a NaN kept as jnp.maximum keeps it
 //                   (fused.py:622; common.cuh clip0).
 // and two per-shard units of the sharded path, the prepadded=True forms of
@@ -41,7 +44,9 @@
 //                   planes of y_ext, u_ext (halo h = max(r_a, 1), r_a the
 //                   blur taps' half-width); the Laplacian's z neighbours
 //                   come from the halo rows, its zero-boundary rows only at
-//                   global rows 0 and z_total - 1.
+//                   global rows 0 and z_total - 1. Where its taps fit a
+//                   block the wrapper takes blur_march.cu's window march
+//                   (no scratch volumes, the C entry handing it on).
 //   weighted_apply_prepadded  out = A (w * A v) + rho D^T D v on the centre
 //                   of v_ext, w_ext (halo r = max(2 r_a, 1)): the first
 //                   chain gives A v on the Zl + 2 r_a rows the second one
@@ -52,10 +57,10 @@
 //                   w_ext as bfloat16 and stores out in bfloat16, rounded
 //                   once; the arithmetic and the scratch stay float.
 // Both run stencil.cuh's window chain (x and y passes on every plane of the
-// window, a z pass with no wrap) and GlobalRows; weighted_apply_prepadded
-// runs it only where its taps do not fit a block of tiled.cu's weighted
-// march, which the wrapper takes otherwise (no scratch volumes, the C
-// entry handing it on).
+// window, a z pass with no wrap) and GlobalRows only where their taps do
+// not fit a block of their march: blur_march.cu's window for the first,
+// tiled.cu's weighted march for the second, which the wrapper takes
+// otherwise (no scratch volumes, the C entry handing it on).
 //
 // Storage (the reference's compact_dirs / io_dtype, stencil.cuh's
 // RobustStorage): weighted_apply and the sweep take a mode. kRobustDirs
@@ -74,12 +79,13 @@
 // plane route) runs tiled.cu's one-pass blur_apply_zy and
 // weighted_apply_zy in place of irls_head, blur_apply and weighted_apply.
 //
-// What bounds them on the H100: bytes, as in admm.cu. weighted_apply, the
-// CG's hot op, is two blur chains (six stencil passes) with the weight
-// applied between them, where the TPU kernel kept the first chain's rows
-// in VMEM. The design reuses the linear path's passes with new prologues
-// (the masked CG direction) and epilogues (weights, active set, masked
-// apply), keeps every CG scalar on the device, and leaves the TV prox/dual
+// What bounds the chains on the H100: bytes, as in admm.cu. The chain of
+// weighted_apply, the CG's hot op, is two blur chains (six stencil
+// passes) with the weight applied between them, where the TPU kernel kept
+// the first chain's rows in VMEM. The design reuses the linear path's
+// passes with new prologues (the masked CG direction) and epilogues
+// (weights, active set, masked apply), keeps every CG scalar on the
+// device, and leaves the TV prox/dual
 // chain of the outer ADMM loop out of the C solve: with a robust loss the
 // x-update ignores v - w (the reference's b_reg-ignoring quirk,
 // nsol_tpu/solvers/tikhonov.py:222-249), so no output depends on it.
@@ -100,7 +106,10 @@ enum Unit {
   kCgUpdate = 4,
   kBlurApplyPre = 5,
   kWeightedApplyPre = 6,
-  kWeightedApplyMarch = 7  // weighted_apply on weighted_march.cu's march
+  kWeightedApplyMarch = 7,  // weighted_apply on weighted_march.cu's march
+  kBlurApplyMarch = 8,      // blur_apply on blur_march.cu's march
+  kIrlsHeadMarch = 9,       // irls_head on blur_march.cu's march
+  kBlurApplyPreMarch = 10   // blur_apply_prepadded on blur_march.cu's window
 };
 // irls_head's z epilogue: r = A x - b, wts = rho'_C(r^2), y = wts r.
 struct WeightsEpi {
@@ -338,9 +347,17 @@ cudaError_t irls_step(float* x, const float* xk, long long n, cudaStream_t s) {
 }  // namespace
 
 extern "C" {
-// march.cuh's whole-volume route (tiled.cu) and weighted_march.cu's
-// weighted_apply, which add to no count.
-int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X);
+// weighted_march.cu's weighted_apply and blur_march.cu's blur_apply,
+// irls_head and blur window, which add to no count.
+int nsol_blur_apply_march(const float* y, const float* u, float* out, float* free, float* rk,
+                          const float* b, float* wts, float* yout, double* partials,
+                          double* scal, const float* taps, int kz, int ky, int kx, float rho,
+                          int reg, int loss, float scale, float ih2x, float ih2y, float ih2z,
+                          int Z, int Y, int X, void* stream);
+int nsol_blur_apply_window_march(const float* y_ext, const float* u_ext, float* out,
+                                 const float* taps, int kz, int ky, int kx, float rho, float ih2x,
+                                 float ih2y, float ih2z, int halo, int row0, int z_total, int Zl,
+                                 int Y, int X, void* stream);
 int nsol_weighted_apply_march(const float* r, const void* p, void* p_new, float* q,
                               const float* free, const float* wts, double* partials,
                               double* scal, int first, const float* taps, int kz, int ky,
@@ -350,6 +367,44 @@ int nsol_weighted_apply_march(const float* r, const void* p, void* p_new, float*
 
 namespace {
 
+// One whole-volume blur_apply by `route`: the march (counted as
+// kBlurApplyMarch) or the three passes through t1, t2 (kBlurApply).
+int blur_apply_routed(const float* y, const float* u, float* out, float* free, float* rk,
+                      float* t1, float* t2, double* partials, double* scal, const float* taps,
+                      int kz, int ky, int kx, float rho, int reg, int route, float ih2x,
+                      float ih2y, float ih2z, int Z, int Y, int X, void* stream,
+                      long long* counts) {
+  if (takes_march(route, kVolBlurApply, kz, ky, kx, Z, Y, X)) {
+    counts[kBlurApplyMarch] += 1;
+    return nsol_blur_apply_march(y, u, out, free, rk, nullptr, nullptr, nullptr, partials, scal,
+                                 taps, kz, ky, kx, rho, reg, 0, 1.f, ih2x, ih2y, ih2z, Z, Y, X,
+                                 stream);
+  }
+  counts[kBlurApply] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  return (int)blur_apply(y, u, out, free, rk, t1, t2, partials, scal,
+                         make_taps(taps, kz, ky, kx), rho, reg, sp, Dims{Z, Y, X},
+                         (cudaStream_t)stream);
+}
+
+// One whole-volume irls_head by `route`: the march (kIrlsHeadMarch) or
+// the three passes through t1, t2 (kIrlsHead).
+int irls_head_routed(const float* x, const float* b, float* wts, float* y, float* t1, float* t2,
+                     const float* taps, int kz, int ky, int kx, int loss, float scale, int route,
+                     int Z, int Y, int X, void* stream, long long* counts) {
+  if (takes_march(route, kVolIrlsHead, kz, ky, kx, Z, Y, X)) {
+    counts[kIrlsHeadMarch] += 1;
+    return nsol_blur_apply_march(x, nullptr, nullptr, nullptr, nullptr, b, wts, y, nullptr,
+                                 nullptr, taps, kz, ky, kx, 0.f, kRegLap, loss, scale, 0.f, 0.f,
+                                 0.f, Z, Y, X, stream);
+  }
+  counts[kIrlsHead] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)irls_head(x, b, wts, y, t1, t2, make_taps(taps, kz, ky, kx), loss, scale,
+                        Dims{Z, Y, X}, (cudaStream_t)stream);
+}
+
 // One whole-volume weighted_apply by `route` (stencil.cuh's Route): the
 // march (counted as kWeightedApplyMarch) or the six passes through t1, t2
 // (kWeightedApply).
@@ -358,8 +413,7 @@ int weighted_apply(const float* r, const void* p, void* p_new, float* q, const f
                    int first, const float* taps, int kz, int ky, int kx, float rho, int reg,
                    int storage, int route, float ih2x, float ih2y, float ih2z, int Z, int Y,
                    int X, void* stream, long long* counts) {
-  if (route == kRouteMarch ||
-      (route == kRouteRule && nsol_vol_route(kVolWeightedApply, kz, ky, kx, Z, Y, X))) {
+  if (takes_march(route, kVolWeightedApply, kz, ky, kx, Z, Y, X)) {
     counts[kWeightedApplyMarch] += 1;
     return nsol_weighted_apply_march(r, first ? nullptr : p, p_new, q, free, wts, partials, scal,
                                      first, taps, kz, ky, kx, rho, reg, storage, ih2x, ih2y,
@@ -389,25 +443,25 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
                      int loss, float scale, float ihx, float ihy, float ihz, int Z, int Y, int X,
                      void* stream, long long* counts);
 
+// `route` a Route: the rule (t1, t2 may be null where it takes the
+// march), the chain (t1, t2 given) or the march. Counts kBlurApply or
+// kBlurApplyMarch by the route taken; partials (the gradient form's)
+// holds max(nsol_tiled_blocks(Z, Y, X), nsol_max_blocks()) doubles.
 int nsol_blur_apply(const float* y, const float* u, float* out, float* free, float* rk,
                     float* t1, float* t2, double* partials, double* scal, const float* taps,
-                    int kz, int ky, int kx, float rho, int reg, float ih2x, float ih2y,
-                    float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = blur_apply(y, u, out, free, rk, t1, t2, partials, scal,
-                             make_taps(taps, kz, ky, kx), rho, reg, sp, Dims{Z, Y, X},
-                             (cudaStream_t)stream);
-  counts[kBlurApply] += 1;
-  return (int)e;
+                    int kz, int ky, int kx, float rho, int reg, int route, float ih2x,
+                    float ih2y, float ih2z, int Z, int Y, int X, void* stream,
+                    long long* counts) {
+  return blur_apply_routed(y, u, out, free, rk, t1, t2, partials, scal, taps, kz, ky, kx, rho,
+                           reg, route, ih2x, ih2y, ih2z, Z, Y, X, stream, counts);
 }
 
+// `route` as nsol_blur_apply takes it; counts kIrlsHead or kIrlsHeadMarch.
 int nsol_irls_head(const float* x, const float* b, float* wts, float* y, float* t1, float* t2,
-                   const float* taps, int kz, int ky, int kx, int loss, float scale, int Z, int Y,
-                   int X, void* stream, long long* counts) {
-  cudaError_t e = irls_head(x, b, wts, y, t1, t2, make_taps(taps, kz, ky, kx), loss, scale,
-                            Dims{Z, Y, X}, (cudaStream_t)stream);
-  counts[kIrlsHead] += 1;
-  return (int)e;
+                   const float* taps, int kz, int ky, int kx, int loss, float scale, int route,
+                   int Z, int Y, int X, void* stream, long long* counts) {
+  return irls_head_routed(x, b, wts, y, t1, t2, taps, kz, ky, kx, loss, scale, route, Z, Y, X,
+                          stream, counts);
 }
 
 // p, p_new stored as the RobustStorage mode `storage` says; `route` a
@@ -432,12 +486,19 @@ int nsol_irls_step(float* x, const float* xk, long long n, void* stream, long lo
 }
 
 // y_ext, u_ext (u_ext may be null): (Zl + 2 halo, Y, X); out: (Zl, Y, X);
-// t1, t2: Zl + 2 halo planes.
+// t1, t2: Zl + 2 halo planes, or both null for the one-pass window march
+// (blur_march.cu), which the wrapper takes where its shared memory holds
+// the taps. Counts kBlurApplyPre (the chain) or kBlurApplyPreMarch.
 int nsol_blur_apply_prepadded(const float* y_ext, const float* u_ext, float* out, float* t1,
                               float* t2, const float* taps, int kz, int ky, int kx, float rho,
                               float ih2x, float ih2y, float ih2z, int halo, int row0,
                               int z_total, int Zl, int Y, int X, void* stream,
                               long long* counts) {
+  if (t1 == nullptr) {
+    counts[kBlurApplyPreMarch] += 1;
+    return nsol_blur_apply_window_march(y_ext, u_ext, out, taps, kz, ky, kx, rho, ih2x, ih2y,
+                                        ih2z, halo, row0, z_total, Zl, Y, X, stream);
+  }
   const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
   cudaError_t e = blur_apply_prepadded(y_ext, u_ext, out, t1, t2, make_taps(taps, kz, ky, kx),
                                        rho, halo, row0, z_total, sp, Dims{Zl, Y, X},
@@ -509,8 +570,6 @@ int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, voi
                int Y, int X, void* stream, long long* counts, long long* tiled_counts) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d{Z, Y, X};
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  const Taps tp = make_taps(taps, kz, ky, kx);
   int e;
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
 #define CALL(call)                  \
@@ -523,9 +582,10 @@ int irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, voi
                             taps, kz, ky, kx, rho, loss, scale, ih2x, ih2y, ih2z, Z, Y, X, stream,
                             tiled_counts));
   } else {
-    UNIT(kIrlsHead, irls_head(x, b, wts, q, t1, t2, tp, loss, scale, d, s));
-    UNIT(kBlurApply,
-         blur_apply(q, x, nullptr, free, rk, t1, t2, partials, scal, tp, rho, reg, sp, d, s));
+    CALL(irls_head_routed(x, b, wts, q, t1, t2, taps, kz, ky, kx, loss, scale, kRouteRule, Z, Y,
+                          X, stream, counts));
+    CALL(blur_apply_routed(q, x, nullptr, free, rk, t1, t2, partials, scal, taps, kz, ky, kx, rho,
+                           reg, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
   }
   CALL(cudaMemsetAsync(xk, 0, d.n() * sizeof(float), s));
   void* p_prev = p0;
@@ -586,9 +646,9 @@ int robust_solve(const float* b, float* x, float* wts, float* free, float* rk, v
 
 extern "C" {
 
-// One IRLS sweep with the per-axis units (robust.cu's counts, 8; its
-// weighted_apply by march.cuh's route); p0, p1 stored as the
-// RobustStorage mode `storage` says.
+// One IRLS sweep with the whole-volume units (robust.cu's counts, 11; its
+// irls_head, blur_apply and weighted_apply by march.cuh's route); p0, p1
+// stored as the RobustStorage mode `storage` says.
 int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk, void* p0,
                     void* p1, float* q, float* xk, float* t1, float* t2, double* partials,
                     double* scal, const float* taps, int kz, int ky, int kx, float rho, int reg,
@@ -608,9 +668,9 @@ int nsol_irls_sweep(const float* b, float* x, float* wts, float* free, float* rk
 // so the records need no TV prox/dual chain. 1/h enters for the records.
 // The directions p0, p1 are stored as the RobustStorage mode `storage`
 // says (kRobustDirs: the fused solve's compact_dirs; kRobustIo:
-// blocked_robust_admm_solve's). weighted_apply takes march.cuh's route, so
-// partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles; counts:
-// 8 (this file's units).
+// blocked_robust_admm_solve's). irls_head, blur_apply and weighted_apply
+// take march.cuh's route, so partials holds max(nsol_tiled_blocks,
+// nsol_max_blocks) doubles; counts: 11 (this file's units).
 int nsol_robust_admm_solve(const float* b, float* x, float* wts, float* free, float* rk,
                            void* p0, void* p1, float* q, float* xk, float* t1, float* t2,
                            double* partials, double* scal, const float* taps, int kz, int ky,

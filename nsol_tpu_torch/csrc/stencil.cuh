@@ -37,6 +37,10 @@
 
 #include "common.cuh"
 
+// march.cuh's whole-volume route (tiled.cu's C entry): whether a VolUnit
+// takes its march at the taps (kz, ky, kx) on a (Z, Y, X) volume.
+extern "C" int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X);
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -135,8 +139,21 @@ cudaError_t with_robust_storage(int storage, F&& f) {
 // (march.cuh's vol_route), and the route their C entries take: the rule,
 // the chain whatever the rule says (the bit reference the march is held
 // to), or the march whatever it says.
-enum VolUnit { kVolCgStep = 0, kVolWeightedApply = 1 };
+enum VolUnit {
+  kVolCgStep = 0,
+  kVolWeightedApply = 1,
+  kVolNormalApply = 2,
+  kVolBlurApply = 3,
+  kVolIrlsHead = 4
+};
 enum Route { kRouteRule = 0, kRouteChain = 1, kRouteMarch = 2 };
+
+// Whether a whole-volume unit takes its march by `route`: the rule's
+// answer, or the route forced.
+inline bool takes_march(int route, int unit, int kz, int ky, int kx, int Z, int Y, int X) {
+  return route == kRouteMarch ||
+         (route == kRouteRule && nsol_vol_route(unit, kz, ky, kx, Z, Y, X));
+}
 
 // Device scalar slots of the CG state (double); the sweep adds r.q and q.q.
 enum Slot { kGamma = 0, kPQ = 1, kA = 2, kBeta = 3, kRQ = 4, kQQ = 5 };

@@ -31,8 +31,9 @@
 //
 // What bounds it on the H100: as admm.cu, bytes at 256^3 (tik_clip moves
 // two volumes) and launches at 256^2, where one CG-10 solve is ~67 short
-// launches and their host enqueue. cg_step and weighted_apply take the
-// march or the chain by march.cuh's vol_route, as their C entries do.
+// launches and their host enqueue. normal_apply, cg_step, irls_head,
+// blur_apply and weighted_apply take the march or the chain by
+// march.cuh's vol_route, as their C entries do.
 
 #include <cuda_runtime.h>
 
@@ -58,8 +59,8 @@ extern "C" {
 // (float storage: io 0, storage 0)
 int nsol_normal_apply(const void* v, void* out, float* t1, float* t2, const float* rhs,
                       double* partials, double* scal, const float* taps, int kz, int ky, int kx,
-                      float rho, int reg, int io, float ih2x, float ih2y, float ih2z, int Z, int Y,
-                      int X, void* stream, long long* counts);
+                      float rho, int reg, int io, int route, float ih2x, float ih2y, float ih2z,
+                      int Z, int Y, int X, void* stream, long long* counts);
 int nsol_cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float* t2,
                  double* partials, double* scal, int first, const float* taps, int kz, int ky,
                  int kx, float rho, int reg, int storage, int route, float ih2x, float ih2y,
@@ -88,12 +89,15 @@ int nsol_tik_clip(float* out, const float* in, long long n, void* stream, long l
 // xk (robust only). compact 1 (the reference's compact_dirs,
 // fused.py:783-797): the CG directions p0, p1 are bfloat16, rounded where
 // each is formed (the linear CG's storage kStoreQf32, the IRLS sweep's
-// kRobustDirs); r, q, x and every sum stay float. The CG's cg_step and
-// the sweeps' weighted_apply take march.cuh's route (march or chain), so
-// partials holds max(nsol_tiled_blocks, nsol_max_blocks) doubles. Counts:
-// admm.cu's 8 (normal_apply, cg_step, cg_update, ..., cg_step's march),
-// robust.cu's 8 (blur_apply, irls_head, weighted_apply, irls_step,
-// cg_update, ..., weighted_apply's march) and this file's (tik_clip).
+// kRobustDirs); r, q, x and every sum stay float. The linear solve's
+// normal_apply and cg_step and the sweeps' irls_head, blur_apply and
+// weighted_apply take march.cuh's route (march or chain), so partials
+// holds max(nsol_tiled_blocks, nsol_max_blocks) doubles. Counts: admm.cu's
+// 9 (normal_apply, cg_step, cg_update, ..., cg_step's and normal_apply's
+// marches), robust.cu's 11 (blur_apply, irls_head, weighted_apply,
+// irls_step, cg_update, ..., the marches of weighted_apply, blur_apply
+// and irls_head, blur_apply_prepadded's window) and this file's
+// (tik_clip).
 int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* atb, float* r,
                         void* p0, void* p1, float* q, float* t1, float* t2, float* wts,
                         float* free, float* xk, double* partials, double* scal,
@@ -112,7 +116,8 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
   if ((e = (call)) != 0) return e;
   if (loss == kLinear)  // A^T b = A b once (A symmetric, fused.py:857)
     CALL(nsol_normal_apply(b, atb, t1, t2, nullptr, partials, scal, taps_a, kaz, kay, kax, 0.f,
-                           kRegLap, 0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
+                           kRegLap, 0, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream,
+                           admm_counts));
   for (int k = 0; k < nconf; ++k) {
     float* x = x_out + k * n;
     const float alpha = alphas[k];
@@ -129,7 +134,7 @@ int nsol_tikhonov_solve(const float* b, const float* x0, float* x_out, float* at
     }
     // warm-started CG on (A^T A + alpha B^T B) x = A^T b (_cg_inkernel)
     CALL(nsol_normal_apply(x, r, t1, t2, atb, partials, scal, taps_n, knz, kny, knx, alpha, reg,
-                           0, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
+                           0, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream, admm_counts));
     void* p_prev = p0;
     void* p_cur = p1;
     for (int it = 0; it < iter_max; ++it) {

@@ -54,20 +54,31 @@
 // window_route), the windows keep stencil.cuh's three-pass chains.
 //
 // The marches themselves (their design, what bounds them, the z tile
-// rule) are in march.cuh; the whole-volume cg_step and weighted_apply
-// instances of admm.cu and robust.cu are in step_march.cu and
-// weighted_march.cu, which this file's cg_step_zy and weighted_apply_zy
-// call.
+// rule) are in march.cuh; their whole-volume instances, which admm.cu's
+// and robust.cu's C entries take by march.cuh's vol_route, are in
+// normal_march.cu (normal_apply, and the normal window), step_march.cu
+// (cg_step), blur_march.cu (blur_apply and irls_head, and the blur
+// window) and weighted_march.cu (weighted_apply): this file's
+// normal_apply_zy, cg_step_zy, blur_apply_zy and weighted_apply_zy are
+// their TV instances, which the 512-wide-plane route always takes.
 
 #include <cuda_runtime.h>
 
-#include "losses.cuh"
 #include "march.cuh"
 #include "stream.cuh"
 
 extern "C" {
-// The whole-volume march instances (step_march.cu, weighted_march.cu),
-// which add to no count.
+// The whole-volume march instances (step_march.cu, weighted_march.cu,
+// normal_march.cu, blur_march.cu), which add to no count.
+int nsol_normal_apply_march(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
+                            double* partials, double* scal, const float* taps, int kz, int ky,
+                            int kx, float rho, int reg, int io, float ih2x, float ih2y,
+                            float ih2z, int Z, int Y, int X, void* stream);
+int nsol_blur_apply_march(const float* y, const float* u, float* out, float* free, float* rk,
+                          const float* b, float* wts, float* yout, double* partials,
+                          double* scal, const float* taps, int kz, int ky, int kx, float rho,
+                          int reg, int loss, float scale, float ih2x, float ih2y, float ih2z,
+                          int Z, int Y, int X, void* stream);
 int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, double* partials,
                        double* scal, int first, const float* taps, int kz, int ky, int kx,
                        float rho, int reg, int storage, float ih2x, float ih2y, float ih2z,
@@ -90,164 +101,7 @@ enum TiledUnit {
   kCgDirection = 4
 };
 
-// ---------------------------------------------------------- epilogues --
-
-// q = conv + rho lap stored as O; plain q, the residual rhs - q (q rounded
-// to O first; summed squared, stored as O, and as the first CG direction
-// p_out of type P when given), or q with centre.q summed (centre: v, or
-// p'; q after its rounding, as the reference's "apply" CG reads it back).
-enum NormalMode { kNormalPlain = 0, kNormalResidual = 1, kNormalDot = 2 };
-
-template <int kMode, class O = float, class P = float>
-struct NormalZyEpi {
-  const float* rhs;
-  O* out;
-  P* p_out;
-  float rho;
-  __device__ double operator()(long long i, float conv, float lap, float centre) const {
-    const float q = fmaf(rho, lap, conv);
-    if (kMode == kNormalResidual) {
-      const float res = rhs[i] - round_as<O>(q);
-      out[i] = store_as<O>(res);
-      if (p_out != nullptr) p_out[i] = store_as<P>(res);
-      return (double)res * res;
-    }
-    out[i] = store_as<O>(q);
-    return kMode == kNormalDot ? (double)centre * round_as<O>(q) : 0.0;
-  }
-};
-
-// blur_apply_zy: g = conv (+ rho lap u) into out.
-struct BlurZyEpi {
-  float* out;
-  float rho;
-  int lap;
-  __device__ double operator()(long long i, float conv, float l, float) const {
-    out[i] = lap ? fmaf(rho, l, conv) : conv;
-    return 0.0;
-  }
-};
-
-// The IRLS gradient (centre = x): free = !(x <= 0 && g > 0), rk = -free g.
-struct GradZyEpi {
-  float* free;
-  float* rk;
-  float rho;
-  __device__ double operator()(long long i, float conv, float l, float x) const {
-    const float g = fmaf(rho, l, conv);
-    const bool active = x <= 0.f && g > 0.f;
-    const float r = active ? 0.f : -g;
-    free[i] = active ? 0.f : 1.f;
-    rk[i] = r;
-    return (double)r * r;
-  }
-};
-
-// The IRLS head: r = A x - b, wts = rho'_C(r^2), y = wts r.
-struct HeadZyEpi {
-  const float* b;
-  float* wts;
-  float* y;
-  float fs2;
-  int loss;
-  __device__ double operator()(long long i, float conv, float, float) const {
-    const float r = __fsub_rn(conv, __ldg(b + i));
-    const float w = loss_weight(__fmul_rn(r, r), fs2, loss);
-    wts[i] = w;
-    y[i] = __fmul_rn(w, r);
-    return 0.0;
-  }
-};
-
 // ---------------------------------------------------------------- units --
-
-// The residual form: x read at O's precision, r stored as O and, when p_out
-// is given, the first CG direction p = r as P.
-template <class O, class P>
-cudaError_t normal_residual_zy(const float* x, O* out, P* p_out, const float* rhs,
-                               double* partials, double* scal, Taps tp, float rho, Spacing sp,
-                               Dims d, cudaStream_t s) {
-  const StencilArgs<float, O> a{x, nullptr, nullptr, scal, 1, tp, sp, d, partials};
-  const cudaError_t e = launch_stencil<kNormalK, kSrcOne, true>(
-      a, 1, NormalZyEpi<kNormalResidual, O, P>{rhs, out, p_out, rho}, s);
-  if (e != cudaSuccess) return e;
-  reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, stencil_grid(d, tp).blocks(), scal,
-                                             kReduceRR0);
-  return cudaGetLastError();
-}
-
-// v and q stored as T: plain q, or (scal given) q with pq = sum v.q.
-template <class T>
-cudaError_t normal_apply_zy_t(const T* v, T* out, double* partials, double* scal, Taps tp,
-                              float rho, Spacing sp, Dims d, cudaStream_t s) {
-  StencilArgs<T> a{v, nullptr, nullptr, scal, 1, tp, sp, d, nullptr};
-  cudaError_t e;
-  if (scal != nullptr) {
-    a.partials = partials;
-    e = launch_stencil<kNormalK, kSrcOne, true>(
-        a, 1, NormalZyEpi<kNormalDot, T>{nullptr, out, nullptr, rho}, s);
-    if (e != cudaSuccess) return e;
-    reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, stencil_grid(d, tp).blocks(), scal,
-                                               kReducePQ);
-  } else {
-    e = launch_stencil<kNormalK, kSrcOne, true>(
-        a, 1, NormalZyEpi<kNormalPlain, T>{nullptr, out, nullptr, rho}, s);
-    if (e != cudaSuccess) return e;
-  }
-  return cudaGetLastError();
-}
-
-// io 0: float v and out; io 1: bfloat16 out, and v bfloat16 (plain and dot
-// forms) or a float x read as bfloat16 (residual form). p_out (residual
-// form): float when p_bf16 is 0, else bfloat16.
-cudaError_t normal_apply_zy(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
-                            double* partials, double* scal, Taps tp, float rho, int io,
-                            Spacing sp, Dims d, cudaStream_t s) {
-  if (rhs != nullptr) {
-    const float* x = static_cast<const float*>(v);
-    if (io) {
-      if (!p_bf16 && p_out != nullptr) return cudaErrorInvalidValue;
-      return normal_residual_zy(x, static_cast<bf16*>(out), static_cast<bf16*>(p_out), rhs,
-                                partials, scal, tp, rho, sp, d, s);
-    }
-    if (p_bf16)
-      return normal_residual_zy(x, static_cast<float*>(out), static_cast<bf16*>(p_out), rhs,
-                                partials, scal, tp, rho, sp, d, s);
-    return normal_residual_zy(x, static_cast<float*>(out), static_cast<float*>(p_out), rhs,
-                              partials, scal, tp, rho, sp, d, s);
-  }
-  if (io)
-    return normal_apply_zy_t(static_cast<const bf16*>(v), static_cast<bf16*>(out), partials, scal,
-                             tp, rho, sp, d, s);
-  return normal_apply_zy_t(static_cast<const float*>(v), static_cast<float*>(out), partials, scal,
-                           tp, rho, sp, d, s);
-}
-
-// Forms by the pointers given: head (b: wts, yout from A x - b), gradient
-// (free: free, rk from A y + rho D^T D x, gamma), with u (A y + rho D^T D u),
-// or plain A y.
-cudaError_t blur_apply_zy(const float* y, const float* u, float* out, float* free, float* rk,
-                          const float* b, float* wts, float* yout, double* partials,
-                          double* scal, Taps tp, float rho, int loss, float scale, Spacing sp,
-                          Dims d, cudaStream_t s) {
-  StencilArgs<> a{y, u, nullptr, scal, 1, tp, sp, d, nullptr};
-  cudaError_t e;
-  if (b != nullptr) {
-    e = launch_stencil<kBlurK, kSrcOne, false>(a, 1, HeadZyEpi{b, wts, yout, scale * scale, loss}, s);
-  } else if (free != nullptr) {
-    a.partials = partials;
-    e = launch_stencil<kBlurK, kSrcTwo, true>(a, 2, GradZyEpi{free, rk, rho}, s);
-    if (e != cudaSuccess) return e;
-    reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, stencil_grid(d, tp).blocks(), scal,
-                                               kReduceRR0);
-  } else if (u != nullptr) {
-    e = launch_stencil<kBlurK, kSrcTwo, true>(a, 2, BlurZyEpi{out, rho, 1}, s);
-  } else {
-    e = launch_stencil<kBlurK, kSrcOne, false>(a, 1, BlurZyEpi{out, rho, 0}, s);
-  }
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
 
 // out = A (w * A v) + rho D^T D v on the Zl centre planes of a z-window of
 // halo 2 hz (v_ext, w_ext, out stored as T; the arithmetic in float).
@@ -317,34 +171,16 @@ int nsol_tiled_smem(int kz, int ky, int kx, int nin, int lap, int weighted, int 
   return b > 0x7fffffffu ? 0x7fffffff : (int)b;
 }
 
-// io and p_out, p_bf16 as normal_apply_zy above takes them.
+// io and p_out, p_bf16 as normal_march.cu's nsol_normal_apply_march takes
+// them (the Laplacian).
 int nsol_normal_apply_zy(const void* v, void* out, const float* rhs, void* p_out, int p_bf16,
                          double* partials, double* scal, const float* taps, int kz, int ky,
                          int kx, float rho, int io, float ih2x, float ih2y, float ih2z, int Z,
                          int Y, int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  const cudaError_t e = normal_apply_zy(v, out, rhs, p_out, p_bf16, partials, scal,
-                                        make_taps(taps, kz, ky, kx), rho, io, sp, Dims{Z, Y, X},
-                                        (cudaStream_t)stream);
+  const int e = nsol_normal_apply_march(v, out, rhs, p_out, p_bf16, partials, scal, taps, kz, ky,
+                                        kx, rho, kRegLap, io, ih2x, ih2y, ih2z, Z, Y, X, stream);
   counts[kNormalApplyZy] += 1;
-  return (int)e;
-}
-
-// normal_apply_prepadded's one-pass form (admm.cu's
-// nsol_normal_apply_prepadded takes it when given no scratch volumes): the
-// march over the Zl + 2 halo planes of v_ext, halo the z taps' half-width
-// (at least 1); q = A^T A v + rho D^T D v on the Zl centre planes, whose
-// Laplacian takes its zero-boundary rows only at global rows 0 and
-// z_total - 1 (row0 the window's first global row). Adds to no count.
-int nsol_normal_apply_window_zy(const float* v_ext, float* out, const float* taps, int kz, int ky,
-                                int kx, float rho, float ih2x, float ih2y, float ih2z, int halo,
-                                int row0, int z_total, int Zl, int Y, int X, void* stream) {
-  if (halo != halo_of(kz)) return (int)cudaErrorInvalidValue;
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  const StencilArgs<> a{v_ext, nullptr,        nullptr, nullptr, 1,      make_taps(taps, kz, ky, kx),
-                        sp,    Dims{Zl, Y, X}, nullptr, row0,    z_total};
-  return (int)launch_stencil<kNormalK, kSrcOne, true, true>(
-      a, 1, NormalZyEpi<kNormalPlain>{nullptr, out, nullptr, rho}, (cudaStream_t)stream);
+  return e;
 }
 
 // weighted_apply_prepadded's one-pass form (robust.cu's
@@ -385,12 +221,11 @@ int nsol_blur_apply_zy(const float* y, const float* u, float* out, float* free, 
                        const float* taps, int kz, int ky, int kx, float rho, int loss,
                        float scale, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
                        void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  const cudaError_t e = blur_apply_zy(y, u, out, free, rk, b, wts, yout, partials, scal,
-                                      make_taps(taps, kz, ky, kx), rho, loss, scale, sp,
-                                      Dims{Z, Y, X}, (cudaStream_t)stream);
+  const int e = nsol_blur_apply_march(y, u, out, free, rk, b, wts, yout, partials, scal, taps, kz,
+                                      ky, kx, rho, kRegLap, loss, scale, ih2x, ih2y, ih2z, Z, Y,
+                                      X, stream);
   counts[kBlurApplyZy] += 1;
-  return (int)e;
+  return e;
 }
 
 // p, p_new stored as the RobustStorage mode `storage` says.
@@ -434,11 +269,7 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
                             int iterations, int iter_max, int mode, int storage, int Z, int Y,
                             int X, void* stream, long long* counts, long long* admm_counts) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dims d{Z, Y, X};
-  const Spacing sp{ihx, ihy, ihz, ih2x, ih2y, ih2z};
-  const Taps ta = make_taps(taps_a, kaz, kay, kax);
-  const Taps tn = make_taps(taps_n, knz, kny, knx);
-  const long long n = d.n();
+  const long long n = Dims{Z, Y, X}.n();
   if (storage != kStoreExact && (mode != 0 || storage == kStoreQf32))
     return (int)cudaErrorInvalidValue;
   const int compact = storage != kStoreExact, state = storage == kStoreState;
@@ -446,27 +277,28 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
 #define UNIT(idx, call) NSOL_UNIT(counts, idx, call)
 #define CALL(call)                  \
   if ((e = (int)(call)) != 0) return e;
-  UNIT(kBlurApplyZy, blur_apply_zy(b, nullptr, atb, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                   nullptr, nullptr, ta, 0.f, 0, 1.f, sp, d, s));
+  CALL(nsol_blur_apply_zy(b, nullptr, atb, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, taps_a, kaz, kay, kax, 0.f, 0, 1.f, ih2x, ih2y, ih2z, Z, Y, X,
+                          stream, counts));
   CALL(nsol_admm_tail(x, v, w, atb, rhs, ihx, ihy, ihz, tau, rho, 1, Z, Y, X, stream,
                       admm_counts));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
     if (mode == 0) {
       // and the first direction p0 = r
-      UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, p0, compact, partials, scal, tn, rho, state,
-                                           sp, d, s));
+      CALL(nsol_normal_apply_zy(x, r, rhs, p0, compact, partials, scal, taps_n, knz, kny, knx,
+                                rho, state, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
       for (int k = 0; k < iter_max; ++k) {
-        UNIT(kNormalApplyZy, normal_apply_zy(p0, q, nullptr, nullptr, 0, partials, scal, tn, rho,
-                                             compact, sp, d, s));
+        CALL(nsol_normal_apply_zy(p0, q, nullptr, nullptr, 0, partials, scal, taps_n, knz, kny,
+                                  knx, rho, compact, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
         CALL(nsol_cg_update(x, r, p0, q, partials, scal, n, storage, !state, stream,
                             admm_counts));
         if (k + 1 < iter_max)
           UNIT(kCgDirection, stream_direction(p0, r, state ? q : nullptr, scal, n, storage, s));
       }
     } else {
-      UNIT(kNormalApplyZy, normal_apply_zy(x, r, rhs, nullptr, 0, partials, scal, tn, rho, 0, sp,
-                                           d, s));
+      CALL(nsol_normal_apply_zy(x, r, rhs, nullptr, 0, partials, scal, taps_n, knz, kny, knx, rho,
+                                0, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
       float* p_prev = static_cast<float*>(p0);
       float* p_cur = static_cast<float*>(p1);
       float* rf = static_cast<float*>(r);

@@ -8,7 +8,13 @@ PyTorch version beside it and a launch counter on its wrapper:
   ``blocked.py::make_blocked_normal_operator`` (:402) and the in-kernel
   ``conv_all``/``lap`` of ``fused.py`` (:467-496, and ``reg_apply`` of the
   Tikhonov kernel, :776-783). With ``rhs`` it returns the CG residual
-  ``rhs − q`` and sets ``γ = ‖rhs − q‖²``, ``β = 0``.
+  ``rhs − q`` and sets ``γ = ‖rhs − q‖²``, ``β = 0``. Where
+  :func:`~.tiled.vol_route` takes the shape and taps the C entry runs it
+  as the whole-volume instance of ``csrc/march.cuh``'s single-stencil
+  march (``csrc/normal_march.cu``, counted on
+  ``normal_apply.march_launches``; every form: float32 and bfloat16,
+  plain and residual, TK1 and TK0, ``Aᵀb``), else as three passes; the
+  two give the same bits.
 * :func:`cg_step` — ``p' = r + β·p ; q = M p' ; pq = Σ p'·q`` and
   ``a = γ/pq`` (guarded); replaces ``blocked.py::make_blocked_cg_step``
   (:988). Where :func:`~.tiled.vol_route` takes the shape and taps (a
@@ -434,8 +440,20 @@ def _partials(device, sets=1):
 
 
 #: launch counts a C entry of ``csrc/admm.cu`` or ``csrc/robust.cu`` adds
-#: to (their Unit enums, the march's count last)
-COUNTS = 8
+#: to (their Unit enums), and the slots of the marches' counts there:
+#: ``cg_step``'s and ``weighted_apply``'s (7), ``normal_apply``'s and
+#: ``blur_apply``'s (8), ``irls_head``'s (9), ``blur_apply_prepadded``'s
+#: window (10)
+COUNTS = 11
+MARCH_SLOT = {"cg_step": 7, "weighted_apply": 7, "normal_apply": 8,
+              "blur_apply": 8, "irls_head": 9, "blur_apply_prepadded": 10}
+
+
+def count_marches(counts, *units):
+    """Add the march slots of a C entry's ``counts`` to the
+    ``march_launches`` of the wrappers ``units`` (its source's)."""
+    for f in units:
+        f.march_launches += counts[MARCH_SLOT[f.__name__]]
 
 
 def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None, reg="TK1",
@@ -447,10 +465,24 @@ def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None, reg="TK1",
     (``blocked.py:402``'s ``io_dtype``): ``v`` and ``q`` bfloat16, the
     sums in float32; the residual form then reads a float32 ``v`` as
     bfloat16, rounds ``q`` before ``rhs − q`` and returns it in
-    bfloat16 (γ from the unrounded residual)."""
+    bfloat16 (γ from the unrounded residual). On the card the C entry
+    runs :func:`~.tiled.vol_route`'s route: the march
+    (``csrc/normal_march.cu``, counted on ``normal_apply.march_launches``)
+    or the three passes (on ``normal_apply.launches``); the two give the
+    same bits."""
     if v.device.type == "cpu":
         return normal_apply_plain(v, taps, inv_h2, rho, rhs, scal, reg,
                                   io_dtype)
+    return _normal_apply(v, taps, inv_h2, rho, rhs, scal, reg, io_dtype)
+
+
+def _normal_apply(v, taps, inv_h2, rho, rhs, scal, reg, io_dtype,
+                  route=None):
+    """:func:`normal_apply` on the card by ``route``: ``None`` takes
+    :func:`~.tiled.vol_route`'s, ``"chain"`` the three passes (the bit
+    reference the march is held to) and ``"march"`` the march whatever the
+    rule says of the shape (an error where its shared memory does not hold
+    the taps)."""
     name = "normal_apply"
     io = io_flag(name, io_dtype)
     out_dtype = BF16 if io else torch.float32
@@ -463,19 +495,25 @@ def normal_apply(v, taps, inv_h2, rho, rhs=None, scal=None, reg="TK1",
     if rhs is not None and scal is None:
         raise ValueError("%s: the residual form needs scal" % name)
     lib = build.load()
+    T = _tiled()
     out = torch.empty(v.shape, dtype=out_dtype, device=v.device)
-    t1, t2 = (torch.empty(v.shape, device=v.device) for _ in range(2))
-    partials = _partials(v.device) if rhs is not None else None
     tv = taps.as_volume()
-    counts = build.new_counts(6)
+    route = route or T.vol_route(name, tv.lengths, dims)
+    t1 = t2 = None
+    if route == "chain":
+        t1, t2 = (torch.empty(v.shape, device=v.device) for _ in range(2))
+    partials = T.tiled_partials(v.device, dims) if rhs is not None else None
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_normal_apply(
         build.tensor_ptr(v), build.tensor_ptr(out), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(rhs),
         build.tensor_ptr(partials), build.tensor_ptr(scal),
         build.tensor_ptr(tv.buf), *tv.lengths, float(rho), reg_id(reg), io,
-        *spacing3(inv_h2), *dims, build.stream_ptr(v.device), counts)
+        T.ROUTES.index(route), *spacing3(inv_h2), *dims,
+        build.stream_ptr(v.device), counts)
     build.check(err, name)
     normal_apply.launches += counts[0]
+    count_marches(counts, normal_apply)
     return out
 
 
@@ -529,7 +567,7 @@ def _cg_step(r, p, scal, taps, inv_h2, rho, first, reg, storage, route=None):
         *spacing3(inv_h2), *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     cg_step.launches += counts[1]
-    cg_step.march_launches += counts[COUNTS - 1]
+    count_marches(counts, cg_step)
     return p_new, q
 
 
@@ -552,7 +590,7 @@ def cg_update(x, r, p, q, scal, store_r=True):
             check_tensors(name, x.shape, t, device=x.device, dtype=t.dtype)
     _check_consts(name, x.device, scal=scal)
     lib = build.load()
-    counts = build.new_counts(6)
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_cg_update(
         build.tensor_ptr(x), build.tensor_ptr(r), build.tensor_ptr(p),
         build.tensor_ptr(q), build.tensor_ptr(_partials(x.device)),
@@ -588,7 +626,7 @@ def cg_sweep(x, r, p, q, scal, taps, inv_h2, rho, first=False):
     r_new, p_new = torch.empty_like(r), torch.empty_like(r)
     t1, t2 = (torch.empty(x.shape, device=x.device) for _ in range(2))
     tv = taps.as_volume()
-    counts = build.new_counts(6)
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_cg_sweep(
         build.tensor_ptr(x), build.tensor_ptr(r),
         None if first else build.tensor_ptr(p), build.tensor_ptr(q),
@@ -631,19 +669,22 @@ def prepadded_window(name, v_ext, h, row0, z_total, *others):
     return (zl,) + tuple(v_ext.shape[1:])
 
 
-def window_route(taps, weighted=False):
+def window_route(taps, weighted=False, nin=1):
     """How a window unit applies ``taps`` on the card:
-    :func:`normal_apply_prepadded` the normal taps, or with ``weighted``
-    :func:`~.robust.weighted_apply_prepadded` the blur taps.
-    ``"tiled"``, the one-pass march of ``csrc/tiled.cu`` (the whole-volume
-    ``normal_apply_zy``'s or ``weighted_apply_zy``'s, with no z wrap),
-    where a block's shared memory holds them (:func:`~.tiled.smem_bytes`,
-    the rule that routes the whole-volume units) and, weighted, the blur
-    has z taps to march (at least 3: the window's halo is then twice the
-    march's); else ``"chain"``, the three per-axis passes through two
-    scratch volumes of the window's size."""
+    :func:`normal_apply_prepadded` the normal taps, with ``nin=2``
+    :func:`~.robust.blur_apply_prepadded` the blur taps (its form with
+    ``u``, the larger, so that both forms take one route), or with
+    ``weighted`` :func:`~.robust.weighted_apply_prepadded` the blur taps.
+    ``"tiled"``, the one-pass march of ``csrc/march.cuh`` (the
+    whole-volume unit's, with no z wrap), where a block's shared memory
+    holds them (:func:`~.tiled.smem_bytes`, the rule that routes the
+    whole-volume units) and, weighted, the blur has z taps to march (at
+    least 3: the window's halo is then twice the march's); else
+    ``"chain"``, the three per-axis passes through two scratch volumes of
+    the window's size."""
     T = _tiled()
-    fits = T.smem_bytes(taps.lengths, weighted=weighted) <= T.MAX_SMEM
+    fits = T.smem_bytes(taps.lengths, nin=nin, weighted=weighted) \
+        <= T.MAX_SMEM
     if weighted:
         fits = fits and taps.lengths[0] >= 3
     return "tiled" if fits else "chain"
@@ -681,7 +722,7 @@ def _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total, chain):
     t1 = t2 = None
     if chain:
         t1, t2 = torch.empty_like(v_ext), torch.empty_like(v_ext)
-    counts = build.new_counts(7)
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_normal_apply_prepadded(
         build.tensor_ptr(v_ext), build.tensor_ptr(out), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(taps.buf), *taps.lengths,
@@ -694,7 +735,7 @@ def _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total, chain):
 
 for _f in (normal_apply, cg_step, cg_update, cg_sweep, normal_apply_prepadded):
     _f.launches = 0
-cg_step.march_launches = 0
+cg_step.march_launches = normal_apply.march_launches = 0
 
 
 # ------------------------------------------- reference-shaped entry points --

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "nsol_max_blocks": [],
-    "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
+    "nsol_normal_apply": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_normal_apply_prepadded": [_P] * 5 + [_I] * 3 + [_F] * 4
     + [_I] * 6 + [_P, _P],
@@ -63,9 +63,9 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F, _I] + [_I] * 6
     + [_F] * 3 + [_P, _P],
-    "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I] + [_F] * 3
+    "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
-    "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P, _P],
+    "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F, _I] + [_I] * 3 + [_P, _P],
     "nsol_weighted_apply": [_P] * 10 + [_I, _P] + [_I] * 3
     + [_F, _I, _I, _I] + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_irls_step": [_P, _P, _LL, _P, _P],
@@ -172,10 +172,12 @@ def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
     admm_tail, admm_record, cg_sweep, normal_apply_prepadded, cg_step on
-    its march; ``pd.cu``: pd_dual, pd_primal, pd_record; ``robust.cu``:
-    blur_apply, irls_head, weighted_apply, irls_step, cg_update,
-    blur_apply_prepadded, weighted_apply_prepadded, weighted_apply on its
-    march; ``tikhonov.cu``: tik_clip; ``tiled.cu``: normal_apply_zy,
+    its march, normal_apply on its march; ``pd.cu``: pd_dual, pd_primal,
+    pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
+    irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,
+    weighted_apply, blur_apply and irls_head on their marches,
+    blur_apply_prepadded on its window march; ``tikhonov.cu``: tik_clip;
+    ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The
     kernels of ``stream.cuh`` count as their callers' units (tik_clip,
     cg_direction)."""

@@ -220,9 +220,11 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
             + (torch.float32,) * 2]  # Aᵀb rhs r0 r1 p0 p1 q t1 t2
     v = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     w = torch.empty_like(v)
-    # the sweep's four sets, or cg_step's march partials
-    partials = B._partials(b.device, 4) if sweep \
-        else Z.tiled_partials(b.device, dims)
+    # the marches' partials (normal_apply's, cg_step's), or the sweep's
+    # four sets where they are more
+    partials = torch.empty(max(lib.nsol_tiled_blocks(*dims),
+                               (4 if sweep else 1) * lib.nsol_max_blocks()),
+                           dtype=torch.float64, device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
     reg = data = parts = None
@@ -246,7 +248,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
     build.check(err, name)
     for f, n in zip(_ADMM_UNITS + (Rec.admm_record, B.cg_sweep), counts):
         f.launches += n
-    B.cg_step.march_launches += counts[B.COUNTS - 1]
+    B.count_marches(counts, B.cg_step, B.normal_apply)
     return x, reg, data
 
 
@@ -813,9 +815,12 @@ TIKHONOV_UNITS = tuple(f.__name__ for f in T.UNITS)
 TILED_UNITS = tuple(f.__name__ for f in Z.UNITS)
 #: the whole-CG-iteration unit of ``blocked_admm_solve(mode="sweep")``
 SWEEP_UNITS = ("cg_sweep",)
-#: the whole-volume march forms of ``cg_step`` and ``weighted_apply``,
+#: the march forms of the whole-volume units and of the blur's window,
 #: counted on their wrappers' ``march_launches`` apart from the chains
-_MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply}
+_MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
+          "normal_apply_march": B.normal_apply,
+          "blur_apply_march": R.blur_apply, "irls_head_march": R.irls_head,
+          "blur_apply_prepadded_march": R.blur_apply_prepadded}
 MARCH_UNITS = tuple(_MARCH)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),

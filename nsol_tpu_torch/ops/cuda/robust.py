@@ -13,6 +13,13 @@ PyTorch version beside it and a launch counter on its wrapper:
 * :func:`irls_head` — ``r = A x − b``, ``wts = ρ'_C(r²)``, ``y = wts·r``:
   the weights one sweep freezes (``fused.py:587-588``,
   ``robust.py:508-509``).
+
+Where :func:`~.tiled.vol_route` takes the shape and the blur taps, the
+C entries run both as whole-volume instances of ``csrc/march.cuh``'s
+single-stencil march (``csrc/blur_march.cu``, counted on
+``blur_apply.march_launches`` / ``irls_head.march_launches``), with no
+scratch volume; else as three passes. The two give the same bits.
+
 * :func:`weighted_apply` — ``p' = r + β·p``, ``pf = free·p'``,
   ``q = free·(Aᵀ(wts·A pf) + ρ·BᵀB pf) + (p' − pf)``, ``pq = Σ p'·q``,
   ``a = γ/pq`` (guarded); replaces
@@ -36,7 +43,11 @@ attached, the Laplacian's global boundary rows placed by
 
 * :func:`blur_apply_prepadded` — ``A y`` (+ ``ρ·DᵀD u``), halo
   ``max(r_a, 1)`` (``robust.py:161``, :184, :240-257): the IRLS residual
-  and gradient.
+  and gradient. Where a block's shared memory holds the blur taps it
+  runs as a window instance of the single-stencil march
+  (``csrc/blur_march.cu``, :func:`~.blocked.window_route`, counted on
+  ``blur_apply_prepadded.march_launches``), with no scratch volume; else
+  the three per-axis passes.
 * :func:`weighted_apply_prepadded` — ``Aᵀ(w ⊙ A v) + ρ·DᵀD v``, halo
   ``max(2·r_a, 1)`` (``robust.py:264``, :286-401): the inner CG's apply.
   On bfloat16 windows it is the reference's prepadded ``io_dtype`` form
@@ -224,20 +235,26 @@ def weighted_apply_prepadded_plain(v_ext, w_ext, taps, inv_h2, rho, row0,
 
 # ---------------------------------------------------------------- kernels --
 
-def _partials(device):
-    return torch.empty(build.load().nsol_max_blocks(), dtype=torch.float64,
-                       device=device)
-
-
 def blur_apply(y, taps, inv_h2, u=None, rho=0.0, scal=None, reg="TK1"):
     """``A y`` (``taps``: the blur :class:`~blocked.Taps`); with ``u``,
     ``A y + ρ·BᵀB u``. With ``scal`` (``u`` is then the IRLS iterate
     ``x``): the gradient form, returning ``(free, rk)`` with
     ``free = 0`` where ``x ≤ 0`` and ``g > 0`` (else 1) and
     ``rk = −free·g``, and setting ``scal[GAMMA] = ‖rk‖²``,
-    ``scal[BETA] = 0``."""
+    ``scal[BETA] = 0``. On the card the C entry runs
+    :func:`~.tiled.vol_route`'s route: the march (``csrc/blur_march.cu``,
+    counted on ``blur_apply.march_launches``) or the three passes (on
+    ``blur_apply.launches``); the two give the same bits."""
     if y.device.type == "cpu":
         return blur_apply_plain(y, taps, inv_h2, u, rho, scal, reg)
+    return _blur_apply(y, taps, inv_h2, u, rho, scal, reg)
+
+
+def _blur_apply(y, taps, inv_h2, u, rho, scal, reg, route=None):
+    """:func:`blur_apply` on the card by ``route``: ``None`` takes
+    :func:`~.tiled.vol_route`'s, ``"chain"`` the three passes (the bit
+    reference the march is held to) and ``"march"`` the march whatever the
+    rule says of the shape."""
     name = "blur_apply"
     dims = B.volume_dims(name, y)
     B.check_tensors(name, y.shape, y, *([u] if u is not None else []))
@@ -245,50 +262,70 @@ def blur_apply(y, taps, inv_h2, u=None, rho=0.0, scal=None, reg="TK1"):
     if scal is not None and u is None:
         raise ValueError("%s: the gradient form needs u = x" % name)
     lib = build.load()
-    t1, t2 = torch.empty_like(y), torch.empty_like(y)
-    out = free = rk = partials = None
+    T = B._tiled()
+    tv = taps.as_volume()
+    route = route or T.vol_route(name, tv.lengths, dims)
+    t1 = t2 = out = free = rk = partials = None
+    if route == "chain":
+        t1, t2 = torch.empty_like(y), torch.empty_like(y)
     if scal is None:
         out = torch.empty_like(y)
     else:
         free, rk = torch.empty_like(y), torch.empty_like(y)
-        partials = _partials(y.device)
-    tv = taps.as_volume()
-    counts = build.new_counts(5)
+        partials = T.tiled_partials(y.device, dims)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_blur_apply(
         build.tensor_ptr(y), build.tensor_ptr(u), build.tensor_ptr(out),
         build.tensor_ptr(free), build.tensor_ptr(rk), build.tensor_ptr(t1),
         build.tensor_ptr(t2), build.tensor_ptr(partials),
         build.tensor_ptr(scal), build.tensor_ptr(tv.buf), *tv.lengths,
-        float(rho), B.reg_id(reg), *B.spacing3(inv_h2), *dims,
-        build.stream_ptr(y.device), counts)
+        float(rho), B.reg_id(reg), T.ROUTES.index(route),
+        *B.spacing3(inv_h2), *dims, build.stream_ptr(y.device), counts)
     build.check(err, name)
     blur_apply.launches += counts[0]
+    B.count_marches(counts, blur_apply)
     return out if scal is None else (free, rk)
 
 
 def irls_head(x, b, taps, loss, scale):
     """IRLS weights of one sweep: ``r = A x − b``, returns
     ``(wts, y)`` with ``wts = ρ'_C(r²)`` for the named ``loss`` at
-    ``C = scale`` and ``y = wts·r``."""
+    ``C = scale`` and ``y = wts·r``. On the card the C entry runs
+    :func:`~.tiled.vol_route`'s route: the march (``csrc/blur_march.cu``'s
+    head form, counted on ``irls_head.march_launches``) or the three
+    passes (on ``irls_head.launches``); the two give the same bits."""
     if loss not in LOSS_IDS:
         raise ValueError("unknown data loss %r" % (loss,))
     if x.device.type == "cpu":
         return irls_head_plain(x, b, taps, loss, scale)
+    return _irls_head(x, b, taps, loss, scale)
+
+
+def _irls_head(x, b, taps, loss, scale, route=None):
+    """:func:`irls_head` on the card by ``route``, as :func:`_blur_apply`
+    takes it."""
     name = "irls_head"
     dims = B.volume_dims(name, x)
     B.check_tensors(name, x.shape, x, b)
     B._check_consts(name, x.device, taps)
     lib = build.load()
-    wts, y, t1, t2 = (torch.empty_like(x) for _ in range(4))
+    T = B._tiled()
     tv = taps.as_volume()
-    counts = build.new_counts(5)
+    route = route or T.vol_route(name, tv.lengths, dims)
+    wts, y = torch.empty_like(x), torch.empty_like(x)
+    t1 = t2 = None
+    if route == "chain":
+        t1, t2 = torch.empty_like(x), torch.empty_like(x)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_irls_head(
         build.tensor_ptr(x), build.tensor_ptr(b), build.tensor_ptr(wts),
         build.tensor_ptr(y), build.tensor_ptr(t1), build.tensor_ptr(t2),
         build.tensor_ptr(tv.buf), *tv.lengths, LOSS_IDS.index(loss),
-        float(scale), *dims, build.stream_ptr(x.device), counts)
+        float(scale), T.ROUTES.index(route), *dims,
+        build.stream_ptr(x.device), counts)
     build.check(err, name)
     irls_head.launches += counts[1]
+    B.count_marches(counts, irls_head)
     return wts, y
 
 
@@ -357,7 +394,7 @@ def _weighted_apply(r, p, free, wts, scal, taps, inv_h2, rho, first, reg,
         *B.spacing3(inv_h2), *dims, build.stream_ptr(r.device), counts)
     build.check(err, name)
     weighted_apply.launches += counts[2]
-    weighted_apply.march_launches += counts[B.COUNTS - 1]
+    B.count_marches(counts, weighted_apply)
     return p_new, q
 
 
@@ -368,7 +405,7 @@ def irls_step(x, xk):
     name = "irls_step"
     B.check_tensors(name, x.shape, x, xk)
     lib = build.load()
-    counts = build.new_counts(5)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_irls_step(build.tensor_ptr(x), build.tensor_ptr(xk),
                              x.numel(), build.stream_ptr(x.device), counts)
     build.check(err, name)
@@ -383,7 +420,21 @@ def blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext=None,
     and ``h = max(r_a, 1)`` halo planes on each side (``r_a`` the blur
     ``taps``' z half-width); the result is ``(Zl, Y, X)``, the Laplacian's
     zero-boundary rows only at global rows 0 and ``z_total − 1`` (``row0``
-    the window's first global row)."""
+    the window's first global row). On the card it takes
+    :func:`~.blocked.window_route`'s route for the blur taps: the window
+    march of ``csrc/blur_march.cu`` (counted on
+    ``blur_apply_prepadded.march_launches``) or the three passes (on
+    ``blur_apply_prepadded.launches``); the two give the same bits."""
+    return _blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext,
+                                 rho, B.window_route(taps, nin=2)
+                                 == "chain")
+
+
+def _blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext, rho,
+                          chain):
+    """:func:`blur_apply_prepadded` on the card by the window march or,
+    with ``chain``, by the three-pass chain whatever the taps (the bit
+    reference the march is held to)."""
     name = "blur_apply_prepadded"
     h = blur_halo(taps)
     dims = B.prepadded_window(name, y_ext, h, row0, z_total, u_ext)
@@ -395,8 +446,10 @@ def blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext=None,
     B._check_consts(name, y_ext.device, taps)
     lib = build.load()
     out = torch.empty(dims, device=y_ext.device)
-    t1, t2 = torch.empty_like(y_ext), torch.empty_like(y_ext)
-    counts = build.new_counts(7)
+    t1 = t2 = None
+    if chain:
+        t1, t2 = torch.empty_like(y_ext), torch.empty_like(y_ext)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_blur_apply_prepadded(
         build.tensor_ptr(y_ext), build.tensor_ptr(u_ext),
         build.tensor_ptr(out), build.tensor_ptr(t1), build.tensor_ptr(t2),
@@ -405,6 +458,7 @@ def blur_apply_prepadded(y_ext, taps, inv_h2, row0, z_total, u_ext=None,
         build.stream_ptr(y_ext.device), counts)
     build.check(err, name)
     blur_apply_prepadded.launches += counts[5]
+    B.count_marches(counts, blur_apply_prepadded)
     return out
 
 
@@ -447,7 +501,7 @@ def _weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0, z_total,
     if chain:
         t1 = torch.empty(v_ext.shape, device=v_ext.device)
         t2 = torch.empty_like(t1)
-    counts = build.new_counts(7)
+    counts = build.new_counts(B.COUNTS)
     err = lib.nsol_weighted_apply_prepadded(
         build.tensor_ptr(v_ext), build.tensor_ptr(w_ext),
         build.tensor_ptr(out), build.tensor_ptr(t1), build.tensor_ptr(t2),
@@ -462,7 +516,8 @@ def _weighted_apply_prepadded(v_ext, w_ext, taps, inv_h2, rho, row0, z_total,
 for _f in (blur_apply, irls_head, weighted_apply, irls_step,
            blur_apply_prepadded, weighted_apply_prepadded):
     _f.launches = 0
-weighted_apply.march_launches = 0
+for _f in (blur_apply, irls_head, weighted_apply, blur_apply_prepadded):
+    _f.march_launches = 0
 
 #: the units of the solve, in the order of ``csrc/robust.cu``'s counts
 UNITS = (blur_apply, irls_head, weighted_apply, irls_step, B.cg_update)
@@ -579,7 +634,7 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
     build.check(err, name)
     for f, n in zip(UNITS, counts):
         f.launches += n
-    weighted_apply.march_launches += counts[B.COUNTS - 1]
+    B.count_marches(counts, weighted_apply, blur_apply, irls_head)
     for f, n in zip(T.UNITS, tiled_counts):
         f.launches += n
     Rec.admm_record.launches += rec_counts[4]

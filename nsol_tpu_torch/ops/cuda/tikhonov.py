@@ -164,8 +164,9 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
         f.launches += n
     for f, n in zip(R.UNITS, robust_counts):
         f.launches += n
-    B.cg_step.march_launches += admm_counts[B.COUNTS - 1]
-    R.weighted_apply.march_launches += robust_counts[B.COUNTS - 1]
+    B.count_marches(admm_counts, B.cg_step, B.normal_apply)
+    B.count_marches(robust_counts, R.weighted_apply, R.blur_apply,
+                    R.irls_head)
     tik_clip.launches += counts[0]
     return out
 

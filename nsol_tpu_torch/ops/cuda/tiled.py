@@ -39,11 +39,16 @@ bfloat16 (``io_dtype``, the "apply" CG of ``blocked_admm_solve`` under
 
 Each unit makes one pass over halo-extended tiles: no intermediate volume
 reaches device memory (see the note at the top of ``csrc/march.cuh``). The
-single-stencil units share one march, whose window instance is
-:func:`~.blocked.normal_apply_prepadded`'s tiled route and whose
-whole-volume ``cg_step`` instance (every storage mode, TK1 and TK0) is
-:func:`~.blocked.cg_step`'s; the weighted unit has a march of its own (two
-stencils, the second a plane behind the first), whose window instance is
+single-stencil units share one march, whose window instances are
+:func:`~.blocked.normal_apply_prepadded`'s and
+:func:`~.robust.blur_apply_prepadded`'s tiled routes and whose
+whole-volume instances are :func:`~.blocked.cg_step`'s (every storage
+mode, TK1 and TK0), :func:`~.blocked.normal_apply`'s (float32 and
+bfloat16, plain and residual, TK1 and TK0), :func:`~.robust.blur_apply`'s
+(plain, with u, the gradient, TK1 and TK0) and :func:`~.robust.irls_head`'s
+(every loss); the units here are their TV instances. The weighted unit
+has a march of its own (two stencils, the second a plane behind the
+first), whose window instance is
 :func:`~.robust.weighted_apply_prepadded`'s tiled route and whose
 whole-volume instance (every storage mode, masked or not, TK1 and TK0) is
 :func:`~.robust.weighted_apply`'s. Each form of either equals the
@@ -51,10 +56,9 @@ three-pass units bit for bit. A block holds its windows and rings in at
 most 227 KB of shared memory, so a wide blur does not fit:
 :func:`route_fits` is the shape decision by which the solves take the
 per-axis units instead, before any launch, and :func:`vol_route` the one
-by which the whole-volume ``cg_step`` and ``weighted_apply`` take the
-march or the three-pass chain. :func:`tile_z` mirrors the rule that sizes
-a march's z tile from the volume and the card (``csrc/march.cuh``'s
-``march_tile_z``).
+by which the whole-volume units take the march or the three-pass chain.
+:func:`tile_z` mirrors the rule that sizes a march's z tile from the
+volume and the card (``csrc/march.cuh``'s ``march_tile_z``).
 Each wrapper runs the plain version only for CPU tensors; on a CUDA
 tensor it launches the kernel (2-D or 3-D, contiguous, float32 or the
 bfloat16 its storage names) or raises (``ValueError`` for stencils past
@@ -215,47 +219,73 @@ def route_fits(factors, route):
 #: ``csrc/stencil.cuh``'s VolUnit gives them, and the C entries' routes
 #: (its Route enum: the solves take "rule" inside the C code, the
 #: wrappers pass the route they computed)
-VOL_UNITS = ("cg_step", "weighted_apply")
+VOL_UNITS = ("cg_step", "weighted_apply", "normal_apply", "blur_apply",
+             "irls_head")
 ROUTES = ("rule", "chain", "march")
-#: the fewest voxels a whole-volume unit marches over: past the fused
-#: solves' fit (16 volumes in 64 MiB; ``csrc/march.cuh``'s
-#: kMarchMinVoxels)
+#: the fewest voxels (exclusive) a whole-volume unit marches over: past
+#: the fused solves' fit (16 volumes in 64 MiB) for ``cg_step`` and
+#: ``weighted_apply``; past 2^19 for the lighter ``normal_apply``,
+#: ``blur_apply`` and ``irls_head``, whose marches beat their chains from
+#: 88³ (not at 80³) on the H100 (``csrc/march.cuh``'s ``vol_min_voxels``)
 MARCH_MIN_VOXELS = 1 << 20
+VOL_MIN_VOXELS = {"cg_step": MARCH_MIN_VOXELS,
+                  "weighted_apply": MARCH_MIN_VOXELS,
+                  "normal_apply": 1 << 19, "blur_apply": 1 << 19,
+                  "irls_head": 1 << 19}
+#: the form of each unit's march whose block :func:`march_fits` measures
+#: (its largest, so that every storage mode and form of a unit takes one
+#: route): ``cg_step``'s with bfloat16 margins, ``blur_apply``'s with
+#: ``u`` (the gradient's), ``irls_head``'s one window without the
+#: Laplacian — ``csrc/march.cuh``'s ``vol_smem``
+_VOL_FORMS = {"cg_step": dict(nin=2, two_byte=True),
+              "weighted_apply": dict(weighted=True),
+              "normal_apply": dict(nin=1),
+              "blur_apply": dict(nin=2),
+              "irls_head": dict(nin=1, lap=False)}
+
+
+#: the most steps a block of each unit's march may take a plane it
+#: writes, ``(Z + halo steps) / Z``, as ``(num, den)``: 2.5, or 4 for the
+#: one-window ``normal_apply`` and ``irls_head`` (``csrc/march.cuh``'s
+#: ``vol_steps``)
+VOL_STEPS = {"cg_step": (5, 2), "weighted_apply": (5, 2),
+             "normal_apply": (4, 1), "blur_apply": (5, 2),
+             "irls_head": (4, 1)}
 
 
 def vol_route(unit, lengths, dims):
     """``"march"`` or ``"chain"``: how the whole-volume ``unit``
     (:data:`VOL_UNITS`) runs on the card at the taps' ``lengths`` (the
-    normal taps of ``cg_step``, the blur taps of ``weighted_apply``, as
-    ``(kz, ky, kx)``) on a volume of ``dims`` ``(Z, Y, X)`` — the march
-    on a volume of more than :data:`MARCH_MIN_VOXELS` voxels deep enough
-    that a block takes at most 2.5 steps a plane it writes (``3 Z >= 2 ×``
-    its :func:`halo_steps`: at σ = 1, ``Z >= 8`` for ``cg_step``, 9 for
-    ``weighted_apply``; no 2-D view) where a block's shared memory holds
-    the taps in its runtime-length instance (``cg_step``'s with bfloat16
-    margins, so that every storage mode takes one route), else the
-    three-pass chain, which took half the march's device time at 64³ and
-    on a 256² image and less than it on stacks of 2-4 planes (weighted:
-    2-8; PERF.md). Mirrors ``csrc/march.cuh``'s ``vol_route``
-    (``nsol_vol_route``)."""
+    normal taps of ``cg_step`` and ``normal_apply`` — or the blur taps of
+    its ``Aᵀb`` form —, the blur taps of ``weighted_apply``,
+    ``blur_apply`` and ``irls_head``, as ``(kz, ky, kx)``) on a volume of
+    ``dims`` ``(Z, Y, X)`` — the march on a volume of more than
+    :data:`VOL_MIN_VOXELS` voxels deep enough that a block takes at most
+    :data:`VOL_STEPS` steps a plane it writes (its :func:`halo_steps`
+    beside its planes: at σ = 1, ``Z >= 8`` for ``cg_step``, 9 for
+    ``weighted_apply``, 4 for ``normal_apply`` and ``blur_apply``, 2 for
+    ``irls_head``; no 2-D view) where a block's shared memory holds the
+    taps (:func:`march_fits`), else the three-pass chain, which took
+    half the march's time at 64³ and on a 256² image and less than it on
+    the thinnest stacks (PERF.md). Mirrors ``csrc/march.cuh``'s
+    ``vol_route`` (``nsol_vol_route``)."""
     Z, Y, X = dims
     fits = march_fits(unit, lengths)
-    deep = 2 * halo_steps(lengths[0], unit == "weighted_apply") <= 3 * Z
-    return "march" if fits and deep and Z * Y * X > MARCH_MIN_VOXELS \
+    num, den = VOL_STEPS[unit]
+    deep = (Z + halo_steps(lengths[0], unit == "weighted_apply")) * den \
+        <= num * Z
+    return "march" if fits and deep and Z * Y * X > VOL_MIN_VOXELS[unit] \
         else "chain"
 
 
 def march_fits(unit, lengths):
     """Whether a block of the whole-volume ``unit``'s march
-    (:data:`VOL_UNITS`) holds taps of ``lengths`` in its shared memory, as
-    :func:`vol_route` measures it."""
-    if unit == "cg_step":
-        need = smem_bytes(lengths, nin=2, lap=True, two_byte=True)
-    elif unit == "weighted_apply":
-        need = smem_bytes(lengths, weighted=True)
-    else:
+    (:data:`VOL_UNITS`) holds taps of ``lengths`` in its shared memory, in
+    the unit's largest form (:func:`smem_bytes` of the runtime-length
+    instance), as :func:`vol_route` measures it."""
+    if unit not in _VOL_FORMS:
         raise ValueError("unit must be one of %s, got %r" % (VOL_UNITS, unit))
-    return need <= MAX_SMEM
+    return smem_bytes(lengths, **_VOL_FORMS[unit]) <= MAX_SMEM
 
 
 #: ``csrc/march.cuh``'s z tiles: the longest (kTileZ; twice it for the

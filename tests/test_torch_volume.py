@@ -203,21 +203,60 @@ def test_vol_route_depth_follows_the_measured_boundary(dims, routes):
     assert T.halo_steps(13, False) == 12 and T.halo_steps(7, True) == 13
 
 
+@pytest.mark.parametrize("dims,routes", [
+    ((64, 64, 64), ("chain", "chain", "chain")),
+    ((80, 80, 80), ("chain", "chain", "chain")),
+    ((88, 88, 88), ("march", "march", "march")),
+    ((96, 96, 96), ("march", "march", "march")),
+    ((1, 256, 256), ("chain", "chain", "chain")),
+    ((1, 2048, 2048), ("chain", "chain", "chain")),
+    ((2, 512, 1025), ("chain", "chain", "march")),
+    ((4, 500, 600), ("march", "march", "march")),
+    ((4, 256, 512), ("chain", "chain", "chain")),
+    ((8, 384, 384), ("march", "march", "march"))])
+def test_vol_route_of_the_lighter_units_follows_their_times(dims, routes):
+    """The route of ``normal_apply`` (13 normal taps), ``blur_apply`` and
+    ``irls_head`` (7 blur taps), fixed from device times in turns on the
+    H100 (``chip_smoke.py`` phase 37): their marches beat their chains
+    from 88³ (the chain won at 80³ and below), so they march past 2^19
+    voxels (80³ = 512000 under it; 4 × 256 × 512 exactly on it); on thin
+    stacks ``normal_apply`` marches from 4 planes (4 steps a plane written,
+    1.1× the chain's speed at 4 × 500 × 600, 0.7× at 2 planes),
+    ``blur_apply`` from 4 (2.5 steps: its gradient form lost at 2
+    planes) and ``irls_head`` from 2 (4 steps: 1.07× at 2 × 512 × 1025);
+    no 2-D view."""
+    for unit, taps, want in zip(("normal_apply", "blur_apply", "irls_head"),
+                                ((13, 13, 13), (7, 7, 7), (7, 7, 7)), routes):
+        assert T.vol_route(unit, taps, dims) == want, unit
+    assert T.VOL_MIN_VOXELS["normal_apply"] == 1 << 19 < 88 ** 3
+
+
+#: the march form whose block each whole-volume unit's route measures:
+#: its largest (``cg_step``'s bfloat16 margins, ``blur_apply``'s with u)
+UNIT_FORMS = {"cg_step": dict(nin=2, two_byte=True),
+              "weighted_apply": dict(weighted=True),
+              "normal_apply": dict(nin=1),
+              "blur_apply": dict(nin=2),
+              "irls_head": dict(nin=1, lap=False)}
+
+
 @pytest.mark.parametrize("unit", T.VOL_UNITS)
 def test_vol_route_is_the_march_wherever_a_block_holds_the_taps(unit):
     """The route is the march exactly where a block's shared memory (227
-    KB) holds the taps in the march's runtime-length instance —
-    ``cg_step``'s with bfloat16 window margins, which every storage mode
-    fits — and the three-pass chain past it; other stencil lengths than
-    route_fits' (up to 79 a side) included."""
+    KB) holds the taps in the march's runtime-length instance of the
+    unit's largest form — ``cg_step``'s with bfloat16 window margins,
+    which every storage mode fits, ``blur_apply``'s with ``u``, which its
+    plain form fits — and the three-pass chain past it; other stencil
+    lengths than route_fits' (up to 79 a side) included."""
     for lengths in itertools.product(range(1, 80, 4), repeat=3):
-        need = T.smem_bytes(lengths, nin=2, two_byte=True) \
-            if unit == "cg_step" else T.smem_bytes(lengths, weighted=True)
+        need = T.smem_bytes(lengths, **UNIT_FORMS[unit])
         want = "march" if need <= T.MAX_SMEM else "chain"
         assert T.vol_route(unit, lengths, (256, 128, 128)) == want, lengths
         assert T.march_fits(unit, lengths) == (want == "march")
+    if unit == "blur_apply":
+        assert need >= T.smem_bytes(lengths, nin=1, lap=False)
     with pytest.raises(ValueError, match="unit must be"):
-        T.vol_route("normal_apply", (13, 13, 13), SHAPE)
+        T.vol_route("cg_sweep", (13, 13, 13), SHAPE)
 
 
 def test_bf16_margins_grow_the_march_block():
@@ -337,30 +376,172 @@ def test_weighted_apply_forms_match_pallas(storage, reg, masked):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("reg", B.REGS)
+@pytest.mark.parametrize("form", ["plain", "residual"])
+@pytest.mark.parametrize("io", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_normal_apply_forms_match_pallas(io, form, reg):
+    """The plain ``normal_apply`` in each form the march serves — float32
+    and bfloat16 io, plain and the CG residual, TK1 and TK0 — against
+    ``make_blocked_normal_operator`` in interpret mode (its ``io_dtype``
+    for TK1; TK0 its ρ = 0 apply plus ρ·v on v read at the io precision,
+    the Tikhonov kernel's ``reg_apply``): q, and the residual
+    r = rhs − q(rounded to io) with γ = ‖r‖² from the unrounded r, within
+    one bf16 ulp or 2e-5; γ rtol 1e-5."""
+    jnp = _jnp()
+    JB = _jax("ops.pallas.blocked")
+    rng = np.random.RandomState(16)
+    v, rhs = (rng.rand(*SHAPE).astype(np.float32) - 0.3 for _ in range(2))
+    rho = 0.7
+    jio = jnp.float32 if io is None else getattr(jnp, io)
+    tio = None if io is None else BF16
+    if reg == "TK1":
+        q = JB.make_blocked_normal_operator(
+            SHAPE, ISO, block=8, interpret=True, io_dtype=jio)(v, rho)
+    else:
+        vr = jnp.asarray(v).astype(jio).astype(jnp.float32)
+        q = (JB.make_blocked_normal_operator(SHAPE, ISO, block=8,
+                                             interpret=True)(vr, 0.0)
+             + rho * vr).astype(jio)
+    st = B.Stencils.from_cov(ISO, 3, None, "cpu")
+    scal = B.new_scalars("cpu")
+    if form == "plain":
+        got = B.normal_apply(_t(v, tio or torch.float32), st.normal,
+                             st.inv_h2, rho, reg=reg, io_dtype=tio)
+        assert got.dtype == (tio or torch.float32)
+        _close(got, _jf(q))
+        return
+    r32 = jnp.asarray(rhs) - q.astype(jnp.float32)
+    got = B.normal_apply(_t(v), st.normal, st.inv_h2, rho, rhs=_t(rhs),
+                         scal=scal, reg=reg, io_dtype=tio)
+    assert got.dtype == (tio or torch.float32)
+    _close(got, _jf(r32.astype(jio)))
+    np.testing.assert_allclose(float(scal[B.GAMMA]),
+                               float(jnp.sum(r32 * r32)), rtol=1e-5)
+    assert float(scal[B.BETA]) == 0.0
+
+
+#: the blur operator's forms (``robust.py:161``'s plain and ``with_lap``
+#: applies, the IRLS gradient and head formed in XLA as
+#: ``robust.py:507-531`` forms them, the ``prepadded=True`` window with and
+#: without u) and the regularisers the reference has for each
+BLUR_CASES = [("plain", "TK1"), ("u", "TK1"), ("u", "TK0"),
+              ("gradient", "TK1"), ("gradient", "TK0"),
+              ("head_huber", "TK1"), ("head_cauchy", "TK1"),
+              ("window", "TK1"), ("window_u", "TK1")]
+
+
+@pytest.mark.parametrize("form,reg", BLUR_CASES)
+def test_blur_operator_forms_match_pallas(form, reg):
+    """The plain ``blur_apply`` (A y; with u; the IRLS gradient:
+    free = !(x ≤ 0 ∧ g > 0), rk = −free·g, γ = ‖rk‖²), ``irls_head``
+    (r = A x − b, wts = ρ'_C(r²), y = wts·r) and ``blur_apply_prepadded``
+    (a window of 16 planes of a 32-plane volume at row0 8, with and
+    without u) against ``make_blocked_blur_operator`` in interpret mode
+    (TK0: its plain apply plus ρ·u), the gradient and head formed in XLA
+    as ``robust.py:507-531`` forms them: within 2e-6, the active set
+    exactly, γ rtol 1e-5."""
+    jnp = _jnp()
+    JR = _jax("ops.pallas.robust")
+    lf = _jax("ops.losses")
+    rng = np.random.RandomState(17)
+    y, x, b = (rng.rand(*SHAPE).astype(np.float32) - 0.3 for _ in range(3))
+    rho, scale = 0.7, 0.4
+    st = B.Stencils.from_cov(ISO, 3, None, "cpu")
+    if form.startswith("window"):
+        zl, row0, z_total = 16, 8, SHAPE[0]
+        local = (zl,) + SHAPE[1:]
+        ref = JR.make_blocked_blur_operator(
+            local, ISO, interpret=True, prepadded=True, z_total=z_total,
+            with_lap=form == "window_u")
+        h = ref.halo
+        assert h == R.blur_halo(st.blur)
+        idx = np.arange(row0 - h, row0 + zl + h) % SHAPE[0]
+        ye, ue = y[idx], x[idx]
+        if form == "window":
+            want, got = ref(ye), R.blur_apply_prepadded(
+                _t(ye), st.blur, st.inv_h2, row0, z_total)
+        else:
+            want, got = ref(ye, ue, rho, row0), R.blur_apply_prepadded(
+                _t(ye), st.blur, st.inv_h2, row0, z_total, _t(ue), rho)
+        np.testing.assert_allclose(_np(got), _jf(want), atol=2e-6)
+        return
+    plain = JR.make_blocked_blur_operator(SHAPE, ISO, block=8, interpret=True)
+    if form.startswith("head"):
+        loss = form.split("_")[1]
+        r = plain(x) - jnp.asarray(b)
+        wts = lf.gradient_loss(loss)(r * r, f_scale=jnp.float32(scale))
+        got = R.irls_head(_t(x), _t(b), st.blur, loss, scale)
+        np.testing.assert_allclose(_np(got[0]), _jf(wts), atol=2e-6)
+        np.testing.assert_allclose(_np(got[1]), _jf(wts * r), atol=2e-6)
+        return
+    if form == "plain":
+        np.testing.assert_allclose(_np(R.blur_apply(_t(y), st.blur,
+                                                    st.inv_h2)),
+                                   _jf(plain(y)), atol=2e-6)
+        return
+    if reg == "TK1":
+        g = JR.make_blocked_blur_operator(SHAPE, ISO, block=8, interpret=True,
+                                          with_lap=True)(y, x, rho)
+    else:
+        g = plain(y) + rho * jnp.asarray(x)
+    if form == "u":
+        got = R.blur_apply(_t(y), st.blur, st.inv_h2, _t(x), rho, reg=reg)
+        np.testing.assert_allclose(_np(got), _jf(g), atol=2e-6)
+        return
+    free = jnp.where(jnp.logical_and(jnp.asarray(x) <= 0.0, g > 0.0), 0.0,
+                     1.0)
+    rk = -free * g
+    scal = B.new_scalars("cpu")
+    got = R.blur_apply(_t(y), st.blur, st.inv_h2, _t(x), rho, scal=scal,
+                       reg=reg)
+    np.testing.assert_array_equal(_np(got[0]), _jf(free))
+    np.testing.assert_allclose(_np(got[1]), _jf(rk), atol=2e-6)
+    np.testing.assert_allclose(float(scal[B.GAMMA]),
+                               float(jnp.sum(rk * rk)), rtol=1e-5)
+
+
 # ------------------------------------------------------ the wrappers' CPU --
 
 def test_launch_counts_report_the_march_forms():
-    """The march's launches are counted on the wrappers'
-    ``march_launches``, apart from the chains' ``launches``, and
-    ``launch_counts`` reports them under :data:`MARCH_UNITS`' names (by
-    default too); ``reset_counts`` sets them to 0. On CPU tensors the
-    wrappers run their plain versions and count no launch."""
+    """The marches' launches (the whole-volume ``cg_step``,
+    ``weighted_apply``, ``normal_apply``, ``blur_apply``, ``irls_head`` and
+    the blur's window) are counted on the wrappers' ``march_launches``,
+    apart from the chains' ``launches``, and ``launch_counts`` reports them
+    under :data:`MARCH_UNITS`' names (by default too); ``reset_counts``
+    sets them to 0. On CPU tensors the wrappers run their plain versions
+    and count no launch."""
     st = B.Stencils.from_cov(ISO, 3, None, "cpu")
     rng = np.random.RandomState(15)
     r, p, w = (_t(rng.rand(*SHAPE)) for _ in range(3))
-    B.cg_step.march_launches, R.weighted_apply.march_launches = 3, 5
-    assert F.launch_counts(F.MARCH_UNITS) == {"cg_step_march": 3,
-                                              "weighted_apply_march": 5}
+    wrappers = {"cg_step_march": B.cg_step,
+                "weighted_apply_march": R.weighted_apply,
+                "normal_apply_march": B.normal_apply,
+                "blur_apply_march": R.blur_apply,
+                "irls_head_march": R.irls_head,
+                "blur_apply_prepadded_march": R.blur_apply_prepadded}
+    assert set(F.MARCH_UNITS) == set(wrappers)
+    for k, name in enumerate(wrappers):
+        wrappers[name].march_launches = 3 + k
+    assert F.launch_counts(F.MARCH_UNITS) == {
+        name: 3 + k for k, name in enumerate(wrappers)}
     assert set(F.MARCH_UNITS) <= set(F.launch_counts())
     F.reset_counts()
     B.cg_step(r, p.to(BF16), B.new_scalars("cpu"), st.normal, st.inv_h2,
               0.5, reg="TK0", storage="dirs")
     R.weighted_apply(r, p, None, w, B.new_scalars("cpu"), st.blur,
                      st.inv_h2, 0.5, first=True, storage="io")
-    assert set(F.launch_counts(F.MARCH_UNITS + ("cg_step", "weighted_apply"))
-               .values()) == {0}
-    assert F.plain_counts(("cg_step", "weighted_apply")) == {
-        "cg_step_plain": 1, "weighted_apply_plain": 1}
+    B.normal_apply(r, st.normal, st.inv_h2, 0.5, rhs=p,
+                   scal=B.new_scalars("cpu"), reg="TK0")
+    R.blur_apply(r, st.blur, st.inv_h2, p, 0.5, scal=B.new_scalars("cpu"))
+    R.irls_head(r, p, st.blur, "huber", 1.0)
+    h = R.blur_halo(st.blur)
+    R.blur_apply_prepadded(r, st.blur, st.inv_h2, 0, SHAPE[0], u_ext=w,
+                           rho=0.5)
+    units = ("cg_step", "weighted_apply", "normal_apply", "blur_apply",
+             "irls_head", "blur_apply_prepadded")
+    assert set(F.launch_counts(F.MARCH_UNITS + units).values()) == {0}
+    assert F.plain_counts(units) == {u + "_plain": 1 for u in units}
+    assert SHAPE[0] > 2 * h
 
 
 # ------------------------------------------------------------------ cuda --
@@ -378,31 +559,52 @@ def _chip_smoke():
     return cs
 
 
+#: the forms of each routed unit that ``chip_smoke.py::vol_march_bits``
+#: holds to its chain: ``cg_step`` 4 storages × TK1/TK0 × first trip or
+#: not, ``weighted_apply`` 3 storages × masked or not × TK1/TK0 × first or
+#: not, ``normal_apply`` plain and residual × f32/bf16 × TK1/TK0 and Aᵀb,
+#: ``blur_apply`` plain, with u and its gradient × TK1/TK0, ``irls_head``
+#: every loss
+MARCH_FORMS = {"cg_step": 16, "weighted_apply": 24, "normal_apply": 9,
+               "blur_apply": 5, "irls_head": len(R.LOSS_IDS)}
+#: the units bit-checked on the card: the routed whole-volume ones and the
+#: blur's window (3-D only)
+BIT_CASES = [(unit, shape) for unit in T.VOL_UNITS + ("blur_apply_prepadded",)
+             for shape in EDGE_SHAPES + [(256, 256)]
+             if unit != "blur_apply_prepadded" or len(shape) == 3]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", EDGE_SHAPES + [(256, 256)])
+@pytest.mark.parametrize("unit,shape", BIT_CASES)
 @pytest.mark.parametrize("case", range(len(EDGE_COVS)))
-def test_cuda_vol_marches_equal_their_chains_bit_for_bit(cuda_device, shape,
-                                                         case):
-    """Every form of the whole-volume marches — ``cg_step`` in 4 storages
-    × TK1/TK0 × first trip or not, ``weighted_apply`` in 3 storages ×
-    masked or not × TK1/TK0 × first trip or not — equals its three-pass
-    chain bit for bit (p', q) on the tile-edge shapes and the 2-D view,
-    at σ = 1 (compile-time taps) and at the other blurs."""
+def test_cuda_vol_marches_equal_their_chains_bit_for_bit(cuda_device, unit,
+                                                         shape, case):
+    """Every form of the whole-volume marches (:data:`MARCH_FORMS`) equals
+    its three-pass chain bit for bit (every output, signed zeros included)
+    on the tile-edge shapes and the 2-D view, at σ = 1 (compile-time taps)
+    and at the other blurs; the blur window, with and without u, at three
+    ``row0``."""
     cov, spacing = EDGE_COVS[case]
     nd = len(shape)
     st = B.Stencils.from_cov(cov[:nd, :nd], 3,
                              None if spacing is None else spacing[:nd],
                              cuda_device)
-    assert _chip_smoke().vol_march_bits(B, R, st, shape, cuda_device,
-                                        50 + case) == 40
+    cs = _chip_smoke()
+    if unit == "blur_apply_prepadded":
+        pairs = cs.blur_window_bits(R, st, shape, cuda_device, 50 + case)
+        assert len(cs.require_bits(pairs, unit).split(", ")) == 6
+        return
+    assert cs.vol_march_bits(B, R, st, shape, cuda_device, 50 + case,
+                             units=(unit,)) == MARCH_FORMS[unit]
 
 
 @pytest.mark.cuda
-def test_cuda_rules_match_their_mirrors(cuda_device):
-    """``nsol_march_tile_z``, ``nsol_vol_route`` and the bf16-margin
-    ``nsol_tiled_smem`` equal ``tile_z``, ``vol_route`` and
+@pytest.mark.parametrize("unit", T.VOL_UNITS)
+def test_cuda_rules_match_their_mirrors(cuda_device, unit):
+    """``nsol_march_tile_z``, ``nsol_vol_route`` (of each unit) and the
+    bf16-margin ``nsol_tiled_smem`` equal ``tile_z``, ``vol_route`` and
     ``smem_bytes`` at this card's SMs."""
-    assert "SMs" in _chip_smoke().vol_rule_checks(T, cuda_device)
+    assert "SMs" in _chip_smoke().vol_rule_checks(T, cuda_device, (unit,))
 
 
 @pytest.mark.cuda
