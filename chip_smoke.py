@@ -132,6 +132,26 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   package (``--only volume,volume_solves``) it times that package's
   route and skips the checks it lacks.
 
+* phase 39, ``admm_tail`` and ``pd_record`` (group ``tail``): every
+  ``admm_tail`` form (init and not, v written or not) on 64³, 256³ and a
+  136 × 240 × 200 volume (two seeds),
+  a ragged and an anisotropic volume, Lena 256², a ragged image, the
+  (1, Y, X) view and 512³, with negative voxels, −0 and one NaN, against
+  its plain version and the forms with and without v against each other
+  bit for bit (with
+  ``--tail-bits PATH``, every output against the digests a run of
+  another package wrote there); ``pd_record`` in float32 and bfloat16,
+  2-D and 3-D, TV/Huber × ℓ1/ℓ2 against its plain version, repeating bit
+  for bit; their ptxas report and device times beside their bounds
+  (``admm_tail`` at 64³, Lena, 256³, the ragged volume and 512³;
+  ``pd_record`` at 64 × 1024², the 64³ phantom and 256³); and the solves
+  that run them by CUDA events with their objectives (the 64³ north
+  star, Lena TV-L2, 256³ "step" exact / compact / bf16 state and 512³
+  "apply" / "step2d" to their recorded digits, the Man 1024² × 64 α
+  sweep exact and compact, the PD deconvolution CLI on the 64³ NIfTI).
+  Run with this script on an earlier package (``--only tail``) it times
+  that package's units and skips the forms it lacks.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -1469,15 +1489,16 @@ def device_breakdown(fn, groups):
     return wall, sum(by.values()), by
 
 
-def device_ms(fn, reps, warmup=3):
+def device_ms(fn, reps, warmup=3, keys=None):
     """Device ms per call of ``fn`` and the kernel records per call: from a
     ``torch.profiler`` trace of ``reps`` calls after ``warmup`` untraced
     ones, the median duration of each kernel's records times the kernels
     of its name a call (its records over ``reps``, rounded, at least 1);
     the host's enqueue does not count. The trace may lose records of a long
     run (seen on the H100's host: 12-19 of 20 at 512³), so a median over
-    the records kept, not a sum over ``reps``. ``(None, 0)`` where the
-    trace holds no kernel."""
+    the records kept, not a sum over ``reps``. ``keys``: only the kernels
+    whose names hold one of them (a unit's own, not its wrapper's copies).
+    ``(None, 0)`` where the trace holds no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1493,7 +1514,8 @@ def device_ms(fn, reps, warmup=3):
     runs = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.name.startswith(
-                ("aten::", "Activity Buffer", "Memcpy", "Memset")):
+                ("aten::", "Activity Buffer", "Memcpy", "Memset")) and (
+                    keys is None or any(k in e.name for k in keys)):
             runs.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not runs:
         return None, 0
@@ -1502,11 +1524,11 @@ def device_ms(fn, reps, warmup=3):
     return total / 1e3, sum(len(d) for d in runs.values()) / reps
 
 
-def device_ms_of(fn, reps, tries=3):
+def device_ms_of(fn, reps, tries=3, keys=None):
     """:func:`device_ms`'s ms a call, traced again (up to ``tries`` traces)
     where a trace kept no kernel record; None where none did."""
     for _ in range(tries):
-        ms = device_ms(fn, reps)[0]
+        ms = device_ms(fn, reps, keys=keys)[0]
         if ms is not None:
             return ms
     return None
@@ -6328,6 +6350,490 @@ def sharded_solves(device, run, rows):
         torch.distributed.destroy_process_group()
 
 
+# -------------------------------------------------------------- phase 39 --
+
+#: the admm_tail forms: label → (init, v written); the solves run the
+#: forms without v, the wrapper the forms with it
+TAIL_FORMS = {"init": (True, True), "step": (False, True),
+              "init, no v": (True, False), "step, no v": (False, False)}
+#: phase 39's admm_tail checks: (label, shape, 1/h, seeds)
+TAIL_CASES = (("64^3", (64, 64, 64), (1.0, 1.0, 1.0), (39,)),
+              ("aniso 37x45x53", (37, 45, 53), (0.8, 1.25, 0.5), (39,)),
+              ("odd 17x19x23", (17, 19, 23), (1.0, 1.0, 1.0), (39,)),
+              ("256^3", SCALE_SHAPE, (1.0, 1.0, 1.0), (39, 40)),
+              ("ragged", RAGGED_SHAPE, (1.0, 1.0, 1.0), (39, 40)),
+              ("Lena 256^2", (256, 256), (1.0, 1.0), (39,)),
+              ("2-D 37x53", (37, 53), (0.8, 1.25), (39,)),
+              ("view 1x256x256", (1, 256, 256), (1.0, 1.0, 0.0), (39,)),
+              ("512^3", BIG, (1.0, 1.0, 1.0), (39,)))
+#: the shapes phase 39 times admm_tail at
+TAIL_TIME_SHAPES = (("64^3", (64, 64, 64)), ("96^3", (96, 96, 96)),
+                    ("128^3", (128, 128, 128)), ("Lena 256^2", (256, 256)),
+                    ("1024^2", (1024, 1024)), ("2048^2", (2048, 2048)),
+                    ("256^3", SCALE_SHAPE), ("ragged", RAGGED_SHAPE),
+                    ("512^3", BIG))
+#: the torch.profiler traces phase 39 takes of each form it times
+TAIL_TRACES = 3
+#: the device kernels of admm_tail: the one-pass kernel, or the two-pass
+#: unit of an earlier package
+TAIL_KERNELS = ("admm_tail_kernel", "admm_shrink_kernel", "admm_rhs_kernel")
+#: pd_record's forms: (ℓ1 data, Huber Reg)
+RECORD_FORMS = {"TV l2": (False, False), "TV l1": (True, False),
+                "Huber l2": (False, True), "Huber l1": (True, True)}
+#: pd_record's records against their plain version: the per-voxel f32
+#: terms are the plain version's, only the float64 sums' order differs
+#: (6.03e-09 at most on an H100 80GB HBM3 at 700 W); a voxel dropped or
+#: counted twice moves a record by its share of the sum, ~1e-6 of it on
+#: the largest of these shapes
+PD_RECORD_TOL = 1e-7
+#: pd_record's checks (shape, batch) and timed shapes (label, shape, batch)
+RECORD_CASES = (((37, 53), 3), ((1024, 1024), 3), ((37, 45, 53), 3),
+                ((17, 19, 23), 2), ((64, 64, 64), 1))
+RECORD_TIME_SHAPES = (("64 x 1024^2", (1024, 1024), 64),
+                      ("64^3 phantom", (64, 64, 64), 1),
+                      ("256^3", SCALE_SHAPE, 1))
+RECORD_KERNELS = ("pd_record_kernel", "pd_record_reduce_kernel")
+#: the solves' objectives to their recorded printed digits (phase 38;
+#: 512³ "apply" equals "step2d" and the fused solve, phase 21)
+TAIL_SOLVE_DIGITS = {"step_exact": 20868.340472, "step_dirs": 20868.340455,
+                     "step_state": 20880.719600, "apply_512": 165421.768822,
+                     "step2d_512": 165421.768822}
+
+
+def tail_volumes(form, ncomp):
+    """Volumes one ``admm_tail`` call of ``form`` moves: x, w (ncomp) and
+    Aᵀb read (w not with init), x (not with init), w' (ncomp), rhs and v
+    (ncomp, where written) written."""
+    init, with_v = TAIL_FORMS[form]
+    reads = 2 + (0 if init else ncomp)
+    writes = (0 if init else 1) + ncomp + 1 + (ncomp if with_v else 0)
+    return reads + writes
+
+
+def tail_inputs(shape, seed, device):
+    """x with negative voxels, a flat third (|t| ≤ τ there), three −0 and
+    one NaN; w (small, so that both sides of the shrink occur) and Aᵀb."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(shape, generator=g, device=device) - 0.3
+    flat = x.view(-1)
+    n = flat.numel()
+    flat[:n // 3] = 0.25
+    flat[[n // 3 + 3, n // 3 + 7, n // 2]] = -0.0
+    flat[n - 5] = float("nan")
+    w = (torch.rand((len(shape),) + tuple(shape), generator=g,
+                    device=device) - 0.5) * 0.04
+    atb = torch.rand(shape, generator=g, device=device)
+    return x, w, atb
+
+
+def tail_digest(t):
+    """sha256 of a tensor's bytes, the first 16 hex digits."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def bits_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def tail_checks(F, device, digests):
+    """``admm_tail`` on :data:`TAIL_CASES`, init and not: the wrapper (v
+    written) against the plain version within KERNEL_TOL with its NaN;
+    in a package with the one-pass kernel, its form without v (w' into
+    another tensor, as the C solves run it) bit for bit equal to the
+    wrapper's x, w and rhs. ``digests``: ``{case: {output: sha256}}`` of
+    another package's run to hold every output to bit for bit (None:
+    none), else filled. Returns (cases, max rel error)."""
+    import torch
+
+    tau = float(np.float32(ALPHA) / np.float32(RHO))
+    out, err = {}, 0.0
+    for label, shape, inv_h, seeds in TAIL_CASES:
+        for seed in seeds:
+            for init in (True, False):
+                key = "%s seed %d %s" % (label, seed, "init" if init
+                                         else "step")
+                x, w, atb = tail_inputs(shape, seed, device)
+                xk, wk, vk = x.clone(), w.clone(), torch.zeros_like(w)
+                rk = F.admm_tail(xk, vk, wk, atb, inv_h, tau, RHO, init=init)
+                got = {"x": xk, "v": vk, "w": wk, "rhs": rk}
+                out[key] = {k: tail_digest(t) for k, t in got.items()}
+                if digests is not None:
+                    bad = [k for k in got if out[key][k] != digests[key][k]]
+                    require(not bad, "phase 39: admm_tail %s differs from the "
+                            "other package's in %s" % (key, bad))
+                if hasattr(F, "_admm_tail"):
+                    # without v, as the solves run it
+                    xn, wn = x.clone(), w.clone()
+                    wo = wn if init else torch.empty_like(wn)
+                    rn = F._admm_tail(xn, None, wn, wo, atb, inv_h, tau, RHO,
+                                      init=init)
+                    for k, a, b in (("x", xn, xk), ("w'", wo, wk),
+                                    ("rhs", rn, rk)):
+                        require(bits_equal(a, b), "phase 39: admm_tail %s "
+                                "without v: %s differs from the wrapper's"
+                                % (key, k))
+                    del xn, wn, wo, rn
+                xp, wp, vp = x.clone(), w.clone(), torch.zeros_like(w)
+                rp = F.admm_tail_plain(xp, vp, wp, atb, inv_h, tau, RHO,
+                                       init=init)
+                for k, a, b in (("x", xk, xp), ("v", vk, vp), ("w", wk, wp),
+                                ("rhs", rk, rp)):
+                    require(bool(torch.equal(torch.isnan(a), torch.isnan(b))),
+                            "phase 39: admm_tail %s: %s NaN pattern differs "
+                            "from the plain version's" % (key, k))
+                    e = max_rel(torch.nan_to_num(a), torch.nan_to_num(b))
+                    require(e <= KERNEL_TOL, "phase 39: admm_tail %s: %s vs "
+                            "plain %.3g" % (key, k, e))
+                    err = max(err, e)
+                del x, w, atb, xk, wk, vk, rk, xp, wp, vp, rp, got
+                torch.cuda.empty_cache()
+    return out, err
+
+
+def tail_times(F, device):
+    """Device ms a call of each :data:`TAIL_FORMS` form the package has at
+    :data:`TAIL_TIME_SHAPES`, :data:`TAIL_TRACES` traces each, beside its
+    bound:
+    ``{shape label: {form: ([ms, ms], bound ms)}}``. The kernel's own
+    time: the forms with v through ``_admm_tail`` (not the wrapper, which
+    also copies w' back into w); an earlier package's two-pass unit
+    through its wrapper, which wrote w in place."""
+    import torch
+
+    tau = float(np.float32(ALPHA) / np.float32(RHO))
+    out = {}
+    for label, shape in TAIL_TIME_SHAPES:
+        nd = len(shape)
+        g = torch.Generator(device=device).manual_seed(39)
+        x = torch.rand(shape, generator=g, device=device)
+        w = (torch.rand((nd,) + tuple(shape), generator=g, device=device)
+             - 0.5) * 0.04
+        atb = torch.rand(shape, generator=g, device=device)
+        v, wo = torch.empty_like(w), torch.empty_like(w)
+        inv_h = (1.0,) * nd
+        n = float(np.prod(shape))
+        row = {}
+        for form, (init, with_v) in TAIL_FORMS.items():
+            if hasattr(F, "_admm_tail"):
+                fn = partial(F._admm_tail, x, v if with_v else None, w, wo,
+                             atb, inv_h, tau, RHO, init=init)
+            elif with_v:
+                fn = partial(F.admm_tail, x, v, w, atb, inv_h, tau, RHO,
+                             init=init)
+            else:
+                continue
+            ms = [device_ms_of(fn, 10, keys=TAIL_KERNELS)
+                  for _ in range(TAIL_TRACES)]
+            row[form] = (ms, bound(4 * n * tail_volumes(form, nd), 60 * n)[0])
+        out[label] = row
+        del x, w, atb, v, wo
+        torch.cuda.empty_cache()
+    return out
+
+
+def record_checks(F, device):
+    """``pd_record`` on :data:`RECORD_CASES`, float32 and bfloat16 state,
+    every :data:`RECORD_FORMS` form, against its plain version within
+    :data:`PD_RECORD_TOL`; a second call repeats the sums bit for bit.
+    Returns the max rel error."""
+    import torch
+
+    err = 0.0
+    for shape, nb in RECORD_CASES:
+        nd = len(shape)
+        g = torch.Generator(device=device).manual_seed(39)
+        b = torch.rand(shape, generator=g, device=device)
+        inv_h = (0.8, 1.25, 0.5)[:nd]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.rand((nb,) + shape, generator=g, device=device).to(dtype)
+            for form, (ell1, huber) in RECORD_FORMS.items():
+                rec = [torch.zeros((nb, 3), dtype=torch.float64,
+                                   device=device) for _ in range(4)]
+                for t in (1, 2):
+                    F.pd_record(x, b, rec[0], rec[1], t, inv_h, ell1, huber,
+                                0.1)
+                F.pd_record_plain(x, b, rec[2], rec[3], 1, inv_h, ell1, huber,
+                                  0.1)
+                where = "%s %s %s" % ("x".join(map(str, shape)), dtype, form)
+                require(bool(torch.equal(rec[0][:, 1], rec[0][:, 2])
+                             and torch.equal(rec[1][:, 1], rec[1][:, 2])),
+                        "phase 39: pd_record %s does not repeat" % where)
+                e = max(max_rel(rec[0][:, 1], rec[2][:, 1]),
+                        max_rel(rec[1][:, 1], rec[3][:, 1]))
+                require(e <= PD_RECORD_TOL, "phase 39: pd_record %s vs plain "
+                        "%.3g" % (where, e))
+                err = max(err, e)
+            del x
+        del b
+    torch.cuda.empty_cache()
+    return err
+
+
+def record_times(F, device):
+    """Device ms a call of ``pd_record`` (its march and the second stage)
+    in each form, float32 and bfloat16 state, at
+    :data:`RECORD_TIME_SHAPES`, :data:`TAIL_TRACES` traces each, beside its
+    bound (x and
+    b read once): ``{(shape label, dtype): {form: ([ms, ms], bound)}}``."""
+    import torch
+
+    out = {}
+    for label, shape, nb in RECORD_TIME_SHAPES:
+        nd = len(shape)
+        g = torch.Generator(device=device).manual_seed(39)
+        b = torch.rand(shape, generator=g, device=device)
+        n = float(np.prod(shape))
+        for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+            x = torch.rand((nb,) + shape, generator=g, device=device).to(dtype)
+            reg = torch.zeros((nb, 2), dtype=torch.float64, device=device)
+            data = torch.zeros_like(reg)
+            row = {}
+            for form, (ell1, huber) in RECORD_FORMS.items():
+                fn = partial(F.pd_record, x, b, reg, data, 1,
+                             (1.0,) * nd, ell1, huber)
+                row[form] = ([device_ms_of(fn, 10, keys=RECORD_KERNELS)
+                              for _ in range(TAIL_TRACES)],
+                             bound(n * (nb * size + 4), n * nb * 25)[0])
+            out[(label, "f32" if size == 4 else "bf16")] = row
+            del x
+        del b
+        torch.cuda.empty_cache()
+    return out
+
+
+def traces_ms(ms):
+    """The median of a form's traces that kept records (None where none
+    did): a trace that lost records of a long run reads low (on an H100
+    80GB HBM3 after many phases in one process, 0.07 against 0.13 ms),
+    and the median of three sets one such trace aside."""
+    got = [t for t in ms if t is not None]
+    return float(np.median(got)) if got else None
+
+
+def times_text(rows):
+    """``{key: {form: ([ms, ...], bound)}}`` as text, each form's times
+    beside its bound and the share of it (of their median)."""
+    def one(ms, b):
+        med = traces_ms(ms)
+        share = " (%.1f %%)" % (100 * b / med) if med else ""
+        return "%s, bound %.5f%s" % ("/".join(map(ms_text, ms)), b, share)
+
+    return "; ".join("%s: %s" % (key, ", ".join(
+        "%s %s" % (form, one(*v)) for form, v in row.items()))
+        for key, row in rows.items())
+
+
+def tail_solves(device, card):
+    """The solves that run ``admm_tail`` and ``pd_record``, by CUDA events
+    (median after a warm-up; the first call counts the launches), with
+    their objectives and their launches of
+    the two units: the 64³ north star (0.2 % of the anchor), Lena TV-L2,
+    256³ "step" exact / compact / bf16 state and 512³ "apply" and
+    "step2d" (each equal to its recorded digits,
+    :data:`TAIL_SOLVE_DIGITS`), the Man 1024² × 64 α PD sweep exact (the
+    anchors of phase 9 within 1e-5) and compact (its plain version within
+    1e-5), and the PD deconvolution CLI on the 64³ NIfTI (1e-4 of its
+    anchor)."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader, read_nifti, read_png, write_nifti
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    rows = {}
+
+    def run(key, fn, reps, objective=None, units=("admm_tail",)):
+        torch.cuda.synchronize()
+        F.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in F.launch_counts(units).items()}
+        require(all(v > 0 for v in launches.values()), "phase 39: %s "
+                "launched no %s" % (key, launches))
+        ms = cuda_median_ms(fn, reps)
+        rows[key] = (ms, None if objective is None else objective(out),
+                     launches)
+        return out
+
+    def digits(key):
+        obj = rows[key][1]
+        require(round(obj, 6) == TAIL_SOLVE_DIGITS[key], "phase 39: %s "
+                "objective %.6f, recorded %.6f" % (
+                    key, obj, TAIL_SOLVE_DIGITS[key]))
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    # the 64³ north star and Lena TV-L2 (50 × 10)
+    img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
+    b_np = ndi.convolve(img.data.astype(np.float64), kern, mode="wrap")
+    b64 = interop.to_torch(b_np.astype(np.float32), device)
+    solve = F.make_fused_admm_solver((64,) * 3, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX)
+    run("north_star_64", partial(solve, b64, b64, ALPHA, RHO), 10,
+        lambda x: objective_host(interop.to_numpy(x), b_np, kern, ALPHA))
+    obj = rows["north_star_64"][1]
+    require(abs(obj - OBJECTIVE_ANCHOR) <= ANCHOR_BAND * OBJECTIVE_ANCHOR,
+            "phase 39: 64^3 objective %.4f, anchor %.2f" % (
+                obj, OBJECTIVE_ANCHOR))
+    lena = read_png(data.path("2D_Lena_256_blur_noise.png")).astype(
+        np.float64)
+    bl = interop.to_torch((lena / lena.max()).astype(np.float32), device)
+    A2, _ = C.make_blur_operators(np.eye(2), alpha_cut=3, dtype=np.float64)
+    lsolve = F.make_fused_admm_solver(bl.shape, np.eye(2),
+                                      iterations=ITERATIONS,
+                                      iter_max=ITER_MAX)
+    run("lena_tvl2", partial(lsolve, bl, bl, ALPHA, RHO), 10,
+        lambda x: objective_device(x, bl, A2, ALPHA))
+    # 256³ "step": exact, compact (the CLI's default), bf16 state
+    b, iso, A64 = compact_problem(device, SCALE_SHAPE)
+    for key, kw in (("step_exact", {}), ("step_dirs", dict(compact_dirs=True)),
+                    ("step_state", dict(state_dtype=torch.bfloat16))):
+        solve = B.blocked_admm_solve(SCALE_SHAPE, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, **kw)
+        run(key, partial(solve, b, b, ALPHA, RHO), 3,
+            lambda x: objective_device(x, b, A64, ALPHA))
+        digits(key)
+    del b
+    torch.cuda.empty_cache()
+    # 512³ "apply" (exact) and "step2d"
+    b, iso, A64 = scale_problem(device, robust=False)
+    for key, mode in (("apply_512", "apply"), ("step2d_512", "step2d")):
+        solve = B.blocked_admm_solve(BIG, iso, iterations=ITERATIONS,
+                                     iter_max=ITER_MAX, mode=mode)
+        run(key, partial(solve, b, b, ALPHA, RHO), 2,
+            lambda x: objective_device(x, b, A64, ALPHA))
+        digits(key)
+    del b, solve
+    torch.cuda.empty_cache()
+    # the Man 1024² × 64 α L-curve sweep (TVL2, 50, records): exact and
+    # under the compact state
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    bm = interop.to_torch((man / man.max()).astype(np.float32), device)
+    alphas = np.linspace(0.01, 1.5, 64, dtype=np.float32)
+
+    def rec_obj(out):
+        xs, recs = out
+        return {i: float(recs["Data"][i, -1]) + float(alphas[i])
+                * float(recs["Reg"][i, -1]) for i in MAN_ANCHORS}
+
+    for key, compact in (("man_sweep", False), ("man_sweep_compact", True)):
+        sweep = F.make_fused_pd_denoise_solver(bm.shape, "TVL2", "ALG2",
+                                               ITERATIONS, record=True,
+                                               compact=compact)
+        run(key, partial(sweep, bm, bm, alphas, PD_L2), 5, rec_obj,
+            units=("pd_record",))
+        got = rows[key][1]
+        ref = MAN_ANCHORS if not compact else rec_obj(
+            sweep.plain(bm, bm, alphas, PD_L2))
+        for i, want in ref.items():
+            require(abs(got[i] - want) <= PD_ANCHOR_BAND * abs(want),
+                    "phase 39: %s alpha[%d] %.6f vs %.6f" % (key, i, got[i],
+                                                             want))
+        del sweep
+    # the PD deconvolution CLI on the 64³ NIfTI (its default --solver PD)
+    with tempfile.TemporaryDirectory() as tmp:
+        cube = ndi.convolve(img.data.astype(np.float64), kern,
+                            mode="wrap").astype(np.float32)
+        path = os.path.join(tmp, "cube.nii")
+        write_nifti(cube, path, spacing=np.ones(3))
+
+        def cli():
+            rc = run_deconvolution.main([
+                "--observation", path, "--result",
+                os.path.join(tmp, "x.mat"), "--reconstruction-type", "TVL2"])
+            require(rc in (0, None), "phase 39: the PD CLI exited %s" % rc)
+            reader = DataReader(os.path.join(tmp, "x.mat"))
+            reader.read_data()
+            return reader.get_data()
+
+        x, ms = timed_once(cli)
+        x, ms2 = timed_once(cli)
+        xs = float(np.max(cube))
+        A64, _ = C.make_blur_operators(np.eye(3), alpha_cut=3,
+                                       dtype=np.float64)
+        xt = torch.as_tensor(x / xs, device=device)
+        bt = torch.as_tensor(cube / xs, dtype=torch.float64, device=device)
+        g = G.gradient(xt)
+        r = A64(xt) - bt
+        obj = float(0.5 * torch.sum(r * r) + ALPHA * torch.sum(
+            torch.sqrt(torch.sum(g * g, 0))))
+        anchor = PD_DECONV_ANCHORS[("phantom", "TVL2")]
+        require(abs(obj - anchor) <= PD_DECONV_BAND * abs(anchor),
+                "phase 39: PD CLI 64^3 objective %.6f, anchor %.6f"
+                % (obj, anchor))
+        rows["pd_cli_64"] = (min(ms, ms2), obj, {})
+    print("phase 39 solves (ms a solve by CUDA events, median; objective; "
+          "launches): %s [%s]" % ("; ".join(
+              "%s %.3f ms, %s, %s" % (k, v[0], v[1] if isinstance(v[1], dict)
+                                      else "%.6f" % v[1], v[2])
+              for k, v in rows.items()), card))
+    return rows
+
+
+def run_tail_phase(device, card, bits_path=None):
+    """Phase 39: ``admm_tail`` and ``pd_record``. Their checks
+    (:func:`tail_checks`, :func:`record_checks`; with ``bits_path``, every
+    ``admm_tail`` output held bit for bit to the digests another package's
+    run wrote there, or written there where the file is absent), the
+    ptxas report of their instances, their device times beside their
+    bounds, and the solves that run them. Returns the kernels' device ms
+    at the main paths' shapes (64³, 64 × 1024² float32 TVL2), the median
+    of their traces."""
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    digests = None
+    if bits_path and os.path.isfile(bits_path):
+        with open(bits_path) as f:
+            digests = json.load(f)
+    cases, err = tail_checks(F, device, digests)
+    if bits_path and digests is None:
+        with open(bits_path, "w") as f:
+            json.dump(cases, f)
+    print("phase 39 admm_tail: %d cases (init and not, with v and without) "
+          "vs plain max rel %.2e, NaN where it has it; %s" % (
+              len(cases), err, "bit for bit the digests of %s" % bits_path
+              if digests is not None else "digests written to %s" % bits_path
+              if bits_path else "no digests"))
+    print("phase 39 pd_record: float32 and bfloat16, 2-D and 3-D, TV/Huber "
+          "x l1/l2 vs plain max rel %.2e, repeats bit for bit"
+          % record_checks(F, device))
+    print("phase 39 ptxas ({template arguments: (registers, spill bytes, "
+          "warps an SM)}): %s" % "; ".join(
+              "%s %s" % (k, v or "cached") for k, v in tail_ptxas().items()))
+    lap("phase 39 checks")
+    tt = tail_times(F, device)
+    print("phase 39 admm_tail device ms a call (torch.profiler medians, %d "
+          "traces): %s [%s]" % (TAIL_TRACES, times_text(tt), card))
+    rt = record_times(F, device)
+    print("phase 39 pd_record device ms a call: %s [%s]"
+          % (times_text(rt), card))
+    lap("phase 39 times")
+    tail_solves(device, card)
+    lap("phase 39 solves")
+    return {"admm_tail": traces_ms(tt["64^3"]["step"][0]),
+            "pd_record": traces_ms(rt[("64 x 1024^2", "f32")]["TV l2"][0])}
+
+
+def tail_ptxas():
+    """:func:`kernel_ptxas` of the one-pass ``admm_tail`` (64 threads) and
+    of the ``pd_record`` march (256)."""
+    return {k: kernel_ptxas(k, t) for k, t in (
+        ("admm_tail_kernel", 64), ("pd_record_kernel", 256))}
+
+
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
     counts of the 64³ solve, each unit's max |Δ| against its plain version
@@ -6489,7 +6995,7 @@ def run_admm_phases(device, card):
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
-          "volume", "volume_solves")
+          "volume", "volume_solves", "tail")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -6528,6 +7034,7 @@ SOURCES = {
 
 #: units whose kernel lives in another source than their group's
 KERNEL_SOURCE = {"cg_direction": "nsol_tpu_torch/csrc/stream.cuh",
+                 "admm_tail": "nsol_tpu_torch/csrc/admm_tail.cu",
                  "normal_apply_prepadded": "nsol_tpu_torch/csrc/tiled.cu",
                  "weighted_apply_prepadded": "nsol_tpu_torch/csrc/tiled.cu",
                  "tik_clip": "nsol_tpu_torch/csrc/stream.cuh"}
@@ -6573,6 +7080,10 @@ def main(argv=None):
                         help="comma-separated phase groups of %s to run "
                         "(for development; only the full run prints the "
                         "result line)" % (GROUPS,))
+    parser.add_argument("--tail-bits", default=None, metavar="PATH",
+                        help="phase 39: hold every admm_tail output bit for "
+                        "bit to the digests a run of another package wrote "
+                        "to PATH, or write them there where it is absent")
     args = parser.parse_args(argv)
     groups = args.only.split(",")
     unknown = set(groups) - set(GROUPS)
@@ -6675,6 +7186,13 @@ def main(argv=None):
         rows = run_volume_solves(device, card)
         if "volume" in groups and "entries" in vol:
             kernels += volume_entries(B, R, vol, rows)
+    if "tail" in groups:
+        # the two units' device ms at their main paths' shapes (64³, the
+        # Man sweep's 64 × 1024² TVL2 float32)
+        tail = run_tail_phase(device, card, args.tail_bits)
+        for entry in kernels:
+            if entry["name"] in tail:
+                entry["device_ms"] = tail[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -43,9 +43,10 @@
 //   cg_update     x += a p', r -= a q and the partial sums of r^2; second
 //                 stage beta = gamma' / gamma, gamma = gamma'.
 //   admm_tail     clip x >= 0, t = grad x / h + w, grouped shrink at
-//                 tau = alpha / rho, v, w updates; then the next
-//                 rhs = A^T b + rho div(v - w) (two passes: the divergence
-//                 needs neighbours of v - w).
+//                 tau = alpha / rho, v, w updates and the next
+//                 rhs = A^T b + rho div(v - w): one pass, admm_tail.cu
+//                 (w' into a second volume; the solves swap the two and
+//                 write no v).
 //   cg_sweep      one whole CG iteration (blocked.py:1193-1231): the x pass
 //                 forms r' = r - a q and p' = r' + beta p from the old
 //                 vectors at every tap, stores r', p' and x += a p and sums
@@ -189,64 +190,6 @@ struct DataEpi {
     return (double)loss_value(__fmul_rn(r, r), fs2, loss);
   }
 };
-
-// ADMM prox/dual update (fused.py:651-667). init: v = grad x (unclipped),
-// w = 0 (fused.py:579-580).
-__global__ void admm_shrink_kernel(const float* __restrict__ x, float* __restrict__ v,
-                                   float* __restrict__ w, Spacing sp, float tau, int init,
-                                   Dims d) {
-  auto xc = [&](long long k) { return init ? x[k] : clip0(x[k]); };
-  const long long n = d.n(), plane = d.plane();
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    const int iy = (int)((i / d.X) % d.Y);
-    const int iz = (int)(i / plane);
-    const float c = xc(i);
-    const float gx = ((ix + 1 < d.X ? xc(i + 1) : 0.f) - c) * sp.ihx;
-    const float gy = ((iy + 1 < d.Y ? xc(i + d.X) : 0.f) - c) * sp.ihy;
-    const float gz = ((iz + 1 < d.Z ? xc(i + plane) : 0.f) - c) * sp.ihz;
-    if (init) {
-      v[i] = gx;
-      v[n + i] = gy;
-      v[2 * n + i] = gz;
-      w[i] = 0.f;
-      w[n + i] = 0.f;
-      w[2 * n + i] = 0.f;
-      continue;
-    }
-    const float tx = gx + w[i], ty = gy + w[n + i], tz = gz + w[2 * n + i];
-    const float norm = sqrtf(tx * tx + ty * ty + tz * tz);
-    const float scale = norm > tau ? fmaxf(norm - tau, 0.f) / norm : 0.f;
-    const float vx = tx * scale, vy = ty * scale, vz = tz * scale;
-    v[i] = vx;
-    v[n + i] = vy;
-    v[2 * n + i] = vz;
-    w[i] = tx - vx;
-    w[n + i] = ty - vy;
-    w[2 * n + i] = tz - vz;
-  }
-}
-
-// rhs = A^T b + rho * sum_k D_k^T (v_k - w_k) / h_k (fused.py:645), and
-// x = max(x, 0) in place when clip is set (fused.py:651).
-__global__ void admm_rhs_kernel(float* __restrict__ x, const float* __restrict__ v,
-                                const float* __restrict__ w, const float* __restrict__ atb,
-                                float* __restrict__ rhs, Spacing sp, float rho, int clip,
-                                Dims d) {
-  const long long n = d.n(), plane = d.plane();
-  auto dvw = [&](int k, long long j) { return v[k * n + j] - w[k * n + j]; };
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    const int iy = (int)((i / d.X) % d.Y);
-    const int iz = (int)(i / plane);
-    const float dx = (ix > 0 ? dvw(0, i - 1) : 0.f) - dvw(0, i);
-    const float dy = (iy > 0 ? dvw(1, i - d.X) : 0.f) - dvw(1, i);
-    const float dz = (iz > 0 ? dvw(2, i - plane) : 0.f) - dvw(2, i);
-    const float div = dx * sp.ihx + dy * sp.ihy + dz * sp.ihz;
-    rhs[i] = fmaf(rho, div, atb[i]);
-    if (clip) x[i] = clip0(x[i]);
-  }
-}
 
 // TV of x, sum sqrt(sum_ax (D_ax x / h_ax)^2), zero-boundary forward
 // differences, one partial per block (fused.py:627-631).
@@ -498,14 +441,6 @@ cudaError_t cg_sweep(float* x, const void* r, const void* p, void* q, void* r_ne
                     s);
 }
 
-cudaError_t admm_tail(float* x, float* v, float* w, const float* atb, float* rhs, Spacing sp,
-                      float tau, float rho, int init, Dims d, cudaStream_t s) {
-  const int g = grid_for(d.n());
-  admm_shrink_kernel<<<g, kThreads, 0, s>>>(x, v, w, sp, tau, init, d);
-  admm_rhs_kernel<<<g, kThreads, 0, s>>>(x, v, w, atb, rhs, sp, rho, init ? 0 : 1, d);
-  return cudaGetLastError();
-}
-
 // rec_partials holds 2 * kMaxBlocks doubles: the data partials, then the
 // TV partials.
 cudaError_t admm_record(const float* x, const float* b, float* t1, float* t2,
@@ -533,6 +468,10 @@ int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, doubl
                        double* scal, int first, const float* taps, int kz, int ky, int kx,
                        float rho, int reg, int storage, float ih2x, float ih2y, float ih2z,
                        int Z, int Y, int X, void* stream);
+// admm_tail.cu's one-pass admm_tail, counted in counts[kAdmmTail].
+int nsol_admm_tail(float* x, float* v, const float* w, float* w_out, const float* atb,
+                   float* rhs, float ihx, float ihy, float ihz, float tau, float rho, int init,
+                   int ncomp, int Z, int Y, int X, void* stream, long long* counts);
 }
 
 namespace {
@@ -663,16 +602,6 @@ int nsol_cg_sweep(float* x, const void* r, const void* p, void* q, void* r_new, 
   return (int)e;
 }
 
-int nsol_admm_tail(float* x, float* v, float* w, const float* atb, float* rhs, float ihx,
-                   float ihy, float ihz, float tau, float rho, int init, int Z, int Y, int X,
-                   void* stream, long long* counts) {
-  const Spacing sp{ihx, ihy, ihz, 0.f, 0.f, 0.f};
-  cudaError_t e = admm_tail(x, v, w, atb, rhs, sp, tau, rho, init, Dims{Z, Y, X},
-                            (cudaStream_t)stream);
-  counts[kAdmmTail] += 1;
-  return (int)e;
-}
-
 // Records row t of x into reg[t], data[t] (float64 device buffers): the
 // blur taps of A, 1/h in (x, y, z) order, the loss by its index and its
 // scale C at run time. counts[4] is admm_record's.
@@ -703,8 +632,9 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
 // residual) and cg_step take march.cuh's route, march or chain. With
 // reg != nullptr the solve also records row 0 (x0) and one row per outer
 // iteration (the clipped iterate) into reg/data (fused.py:637-654), the
-// Data loss by rec_loss at the scale rec_scale. counts: 9 (admm.cu's
-// units).
+// Data loss by rec_loss at the scale rec_scale. admm_tail writes w' into
+// the other of the two volumes w and v (3 components each) and no v: the
+// solve swaps them. counts: 9 (admm.cu's units).
 int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, float* rhs,
                     void* r0, void* r1, void* p0, void* p1, void* q, float* t1, float* t2,
                     double* partials, double* scal, const float* taps_a, int kaz, int kay,
@@ -732,7 +662,11 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
   // and the first rhs.
   CALL(normal_apply_routed(b, atb, t1, t2, nullptr, partials, scal, taps_a, kaz, kay, kax, 0.f,
                            kRegLap, 0, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
-  UNIT(kAdmmTail, admm_tail(x, v, w, atb, rhs, sp, tau, rho, 1, d, s));
+  // w and w' alternate between the volumes w and v (nothing reads v)
+  float* w_cur = w;
+  float* w_next = v;
+  CALL(nsol_admm_tail(x, nullptr, w_cur, w_cur, atb, rhs, ihx, ihy, ihz, tau, rho, 1, 3, Z, Y, X,
+                      stream, counts));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
     CALL(normal_apply_routed(x, r0, t1, t2, rhs, partials, scal, taps_n, knz, kny, knx, rho,
@@ -764,7 +698,11 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
       UNIT(kCgUpdate, cg_update_s(x, nullptr, p_prev, nullptr, partials, scal, d.n(), storage, 1,
                                   s));
     // clips x, then the shrink, the dual update and the next rhs
-    UNIT(kAdmmTail, admm_tail(x, v, w, atb, rhs, sp, tau, rho, 0, d, s));
+    CALL(nsol_admm_tail(x, nullptr, w_cur, w_next, atb, rhs, ihx, ihy, ihz, tau, rho, 0, 3, Z, Y,
+                        X, stream, counts));
+    float* tmp = w_cur;
+    w_cur = w_next;
+    w_next = tmp;
     if (record)
       UNIT(kAdmmRecord, admm_record(x, b, t1, t2, rec_partials, reg, data, it + 1, ta, rec_loss,
                                     rec_scale, sp, d, s));

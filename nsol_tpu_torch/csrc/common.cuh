@@ -1,5 +1,6 @@
 // Shared by the kernel sources of nsol_tpu_torch/csrc: launch shape, the
-// deterministic block reduction and the NaN-keeping max(u, 0).
+// card's SM count, the deterministic block reduction and the NaN-keeping
+// max(u, 0).
 
 #pragma once
 
@@ -10,6 +11,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
 constexpr int kReduceThreads = 1024;
+
+// The card's SMs (the current device's cudaDevAttrMultiProcessorCount),
+// read once a device. A failed query leaves its error to the launch's
+// cudaGetLastError().
+inline int device_sms() {
+  static int cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] <= 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev] > 0 ? cached[dev] : 1;
+}
 
 // max(u, 0) as jnp.maximum(u, 0.0) takes it: a NaN stays NaN (fmaxf would
 // return 0).

@@ -574,19 +574,6 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
 
 // ------------------------------------------------------------ the grid --
 
-// The card's SMs (the current device's cudaDevAttrMultiProcessorCount),
-// read once a device. A failed query leaves its error to the launch's
-// cudaGetLastError().
-inline int device_sms() {
-  static int cached[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (cached[dev] <= 0)
-    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cached[dev] > 0 ? cached[dev] : 1;
-}
-
 // The z tile of a march (the note at the top): of max_tile, max_tile / 2,
 // ..., kMinTileZ planes, the tile with the least (waves of its grid) x
 // (steps a block), a wave being the blocks the card holds at once (sms x

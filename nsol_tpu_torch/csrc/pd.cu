@@ -29,7 +29,8 @@
 //              per-block float64 partials, then a one-block-per-image second
 //              stage that sums them in a fixed order into (B, iterations+1).
 //              Reads x and b: ~2 volumes. No float atomics: a run repeats
-//              bit for bit.
+//              bit for bit. A register march (the note at
+//              pd_record_kernel): no voxel divides, 16-byte loads.
 //
 // The primal step needs the new p at the lower neighbours, a grid-wide
 // dependency, so each iteration is two passes (the TPU kernel holds the whole
@@ -178,30 +179,158 @@ __global__ void pd_primal_kernel(T* __restrict__ x, T* __restrict__ xm,
   }
 }
 
-template <class T>
-__global__ void pd_record_kernel(const T* __restrict__ x, const float* __restrict__ b,
-                                 double* __restrict__ partials, int ell1, int huber, float gr,
-                                 PdDims d, InvH ih) {
+// pd_record as a register march (the TPU kernel's write_measures,
+// fused.py:1099-1120). Each warp owns a strip of columns, kRecLanes x W
+// wide (W values of T a 16-byte load: 4 float or 8 bfloat16), and walks
+// a chunk of the slowest axis: y of a 2-D image, z of a volume, where a
+// thread also owns rec_rows() rows of y. The +1 neighbour along the walked
+// axis is the next step's load, kept in registers; along y (3-D) the
+// thread's next row, one extra row a step; along x the lane to the
+// right's first value by a warp shuffle, and one scalar load a row for
+// lane 31. What bounded the grid-stride form was instruction issue and
+// load latency, not bytes (its bf16 state took the f32 one's time): five
+// 2-4-byte loads, a division and two modulos a voxel. Here a voxel takes
+// no division and a quarter to an eighth of a 16-byte load of x; the bytes
+// are x once (and its chunk's last +1 row again) and b once a batch image
+// (from L2 after the first). Each voxel's f32 term is
+// the grid-stride form's, in the same _rn order; only the order of the
+// float64 sums differs (each thread's voxels, then the block's threads in
+// a fixed order: a run repeats bit for bit).
+constexpr int kRecLanes = 32;
+constexpr int kRecWarps = 8;  // a block of 256 threads
+constexpr int kRecThreads = kRecLanes * kRecWarps;
+
+// Rows of y a thread owns: 1 for a 2-D image (no middle axis), else 4 (2
+// for a bfloat16 state, whose rows hold twice the values).
+template <class T, int kND>
+__host__ __device__ constexpr int rec_rows() {
+  return kND == 2 ? 1 : (sizeof(T) == sizeof(float) ? 4 : 2);
+}
+
+// The warps' work over one image: ngx column strips x nstrips row strips
+// (3-D) x nchunks chunks of `chunk` steps along the walked axis (length S).
+struct RecGrid {
+  int ngx, nstrips, nchunks, chunk, S, warps, blocks;
+};
+
+// W values of a row from `col` on, as float (0 past X): one 16-byte load,
+// or scalar loads for rows that are no multiple of 16 bytes.
+template <class T, bool kWide>
+__device__ __forceinline__ void rec_load(const T* row, int col, int X, bool ok,
+                                         float (&o)[16 / sizeof(T)]) {
+  constexpr int W = 16 / sizeof(T);
+  if (kWide) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (ok && col < X) u = __ldg(reinterpret_cast<const uint4*>(row + col));
+    const unsigned w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (sizeof(T) == sizeof(float)) {
+        o[k] = __uint_as_float(w4[k]);
+      } else {
+        o[2 * k] = __uint_as_float(w4[k] << 16);
+        o[2 * k + 1] = __uint_as_float(w4[k] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) o[j] = ok && col + j < X ? ld(row, col + j) : 0.f;
+  }
+}
+
+template <bool kWide>
+__device__ __forceinline__ void rec_load_b(const float* row, int col, int X, bool ok, float* o,
+                                           int W) {
+  if (kWide) {
+    for (int k = 0; k < W; k += 4) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok && col < X) t = __ldg(reinterpret_cast<const float4*>(row + col + k));
+      o[k] = t.x, o[k + 1] = t.y, o[k + 2] = t.z, o[k + 3] = t.w;
+    }
+  } else {
+    for (int j = 0; j < W; ++j) o[j] = ok && col + j < X ? __ldg(row + col + j) : 0.f;
+  }
+}
+
+template <class T, int kND, bool kWide>
+__global__ void __launch_bounds__(kRecThreads)
+    pd_record_kernel(const T* __restrict__ x, const float* __restrict__ b,
+                     double* __restrict__ partials, int ell1, int huber, float gr, RecGrid g,
+                     PdDims d, InvH ih) {
+  constexpr int W = 16 / sizeof(T);
+  constexpr int R = rec_rows<T, kND>();
   const int bi = blockIdx.y;
-  const int n = d.n(), plane = d.plane();
+  const int lane = threadIdx.x & (kRecLanes - 1);
+  const int wi = blockIdx.x * kRecWarps + (threadIdx.x >> 5);
   const float gr2 = __fmul_rn(gr, gr);
+  const long long n = (long long)d.n(), plane = (long long)d.plane();
   const T* __restrict__ xb = x + bi * n;
   double acc_r = 0.0, acc_d = 0.0;
-  PD_STRIDE(i, n) {
-    const int ix = i % d.X, iy = (i / d.X) % d.Y, iz = i / plane;
-    const float c = ld(xb, i);
-    const float gx = fdiff(ix + 1 < d.X ? ld(xb, i + 1) : 0.f, c, ih.x);
-    const float gy = fdiff(iy + 1 < d.Y ? ld(xb, i + d.X) : 0.f, c, ih.y);
-    float g2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
-    if (d.ndim == 3) {
-      const float gz = fdiff(iz + 1 < d.Z ? ld(xb, i + plane) : 0.f, c, ih.z);
-      g2 = __fadd_rn(g2, __fmul_rn(gz, gz));
+  if (wi < g.warps) {
+    // the warp's strip: column strip, row strip (3-D) and chunk
+    const int sx = wi % g.ngx, rest = wi / g.ngx;
+    const int sy = rest % g.nstrips, sc = rest / g.nstrips;
+    const int x0 = sx * kRecLanes * W, col = x0 + lane * W;
+    const bool right = x0 + kRecLanes * W < d.X;
+    const int y0 = sy * R;
+    const int s0 = sc * g.chunk, s1 = min(g.S, s0 + g.chunk);
+    // the rows a step reads: the thread's R rows and, in 3-D, the row
+    // below them (the y + 1 neighbour of its last row)
+    constexpr int RL = kND == 3 ? R + 1 : 1;
+    // row r of step s: its offset, and whether it lies in the image
+    const auto row_of = [&](int s, int r, long long& off) {
+      const int y = kND == 3 ? y0 + r : s;
+      off = kND == 3 ? s * plane + (long long)y * d.X : (long long)y * d.X;
+      return (kND == 3 ? y < d.Y : true) && s < g.S;
+    };
+    float cur[RL][W], nxt[RL][W];
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      long long off;
+      const bool ok = row_of(s0, r, off);
+      rec_load<T, kWide>(xb + off, col, d.X, ok, cur[r]);
     }
-    const float r = huber ? (g2 < gr2 ? g2 : __fsub_rn(__fmul_rn(2.f * gr, sqrtf(g2)), gr2))
-                          : sqrtf(g2);
-    const float dv = __fsub_rn(c, b[i]);
-    acc_r += (double)r;
-    acc_d += ell1 ? (double)fabsf(dv) : (double)__fmul_rn(dv, dv);
+    for (int s = s0; s < s1; ++s) {
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        long long off;
+        const bool ok = row_of(s + 1, r, off);
+        rec_load<T, kWide>(xb + off, col, d.X, ok, nxt[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        long long off;
+        const bool ok = row_of(s, r, off);
+        float bv[W];
+        rec_load_b<kWide>(b + off, col, d.X, ok, bv, W);
+        const float xr =
+            lane == kRecLanes - 1 && right && ok ? ld(xb + off, x0 + kRecLanes * W) : 0.f;
+        const float sh = __shfl_down_sync(0xffffffffu, cur[r][0], 1);
+        const float xn = lane == kRecLanes - 1 ? xr : sh;
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          if (!ok || col + j >= d.X) continue;
+          const float c = cur[r][j];
+          const float gx = fdiff(j + 1 < W ? cur[r][j + 1] : xn, c, ih.x);
+          // 2-D: the walked axis is y; 3-D: y is the next row, z the walk
+          const float gy = fdiff(kND == 3 ? cur[r + 1 < RL ? r + 1 : r][j] : nxt[0][j], c, ih.y);
+          float g2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+          if (kND == 3) {
+            const float gz = fdiff(nxt[r][j], c, ih.z);
+            g2 = __fadd_rn(g2, __fmul_rn(gz, gz));
+          }
+          const float rv = huber ? (g2 < gr2 ? g2 : __fsub_rn(__fmul_rn(2.f * gr, sqrtf(g2)), gr2))
+                                 : sqrtf(g2);
+          const float dv = __fsub_rn(c, bv[j]);
+          acc_r += (double)rv;
+          acc_d += ell1 ? (double)fabsf(dv) : (double)__fmul_rn(dv, dv);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RL; ++r)
+#pragma unroll
+        for (int j = 0; j < W; ++j) cur[r][j] = nxt[r][j];
+    }
   }
   const double sr = block_sum(acc_r);
   __syncthreads();
@@ -255,14 +384,77 @@ cudaError_t pd_primal_t(void* x, void* xm, const void* p, const float* b, const 
   return cudaGetLastError();
 }
 
+// The blocks of the record march an SM holds at once (the fewer of its
+// two instances'), read once.
+template <class T, int kND>
+int rec_resident() {
+  static int resident = 0;
+  if (resident <= 0) {
+    int a = 0, b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a, pd_record_kernel<T, kND, true>,
+                                                  kRecThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, pd_record_kernel<T, kND, false>,
+                                                  kRecThreads, 0);
+    resident = a < b ? a : b;
+  }
+  return resident > 0 ? resident : 1;
+}
+
+// The record march's grid over one image: the most chunks along the walked
+// axis whose blocks, over the batch, the card holds at once (one wave: a
+// second, partial one would double the time), at least one.
+template <class T, int kND>
+RecGrid rec_grid(PdDims d) {
+  constexpr int W = 16 / sizeof(T);
+  constexpr int R = rec_rows<T, kND>();
+  RecGrid g;
+  g.ngx = (d.X + kRecLanes * W - 1) / (kRecLanes * W);
+  g.nstrips = kND == 3 ? (d.Y + R - 1) / R : 1;
+  g.S = kND == 3 ? d.Z : d.Y;
+  const long long units = (long long)g.ngx * g.nstrips;  // warps a chunk, an image
+  const long long slots = (long long)device_sms() * rec_resident<T, kND>();
+  int nch = 1;
+  while (nch < g.S &&
+         (long long)d.B * ((units * (nch + 1) + kRecWarps - 1) / kRecWarps) <= slots)
+    ++nch;
+  g.chunk = (g.S + nch - 1) / nch;
+  g.nchunks = (g.S + g.chunk - 1) / g.chunk;
+  g.warps = g.ngx * g.nstrips * g.nchunks;
+  g.blocks = (g.warps + kRecWarps - 1) / kRecWarps;
+  return g;
+}
+
+RecGrid record_grid(int compact, PdDims d) {
+  if (compact) return d.ndim == 3 ? rec_grid<bf16, 3>(d) : rec_grid<bf16, 2>(d);
+  return d.ndim == 3 ? rec_grid<float, 3>(d) : rec_grid<float, 2>(d);
+}
+
+template <class T, int kND>
+void launch_record(const T* x, const float* b, double* partials, int ell1, int huber, float gr,
+                   RecGrid g, PdDims d, InvH ih, cudaStream_t s) {
+  // 16-byte rows: X a multiple of W and every image's base aligned
+  const bool wide = d.X % (16 / sizeof(T)) == 0 && ((size_t)x & 15) == 0 &&
+                    ((size_t)b & 15) == 0;
+  const dim3 grid(g.blocks, d.B);
+  if (wide)
+    pd_record_kernel<T, kND, true>
+        <<<grid, kRecThreads, 0, s>>>(x, b, partials, ell1, huber, gr, g, d, ih);
+  else
+    pd_record_kernel<T, kND, false>
+        <<<grid, kRecThreads, 0, s>>>(x, b, partials, ell1, huber, gr, g, d, ih);
+}
+
 template <class T>
 cudaError_t pd_record_t(const void* x, const float* b, double* partials, double* reg,
                         double* data, int t, int cols, int ell1, int huber, float gr, PdDims d,
                         InvH ih, cudaStream_t s) {
-  const int gx = pd_grid(d.B, d.n());
-  pd_record_kernel<T><<<dim3(gx, d.B), kThreads, 0, s>>>(static_cast<const T*>(x), b, partials,
-                                                          ell1, huber, gr, d, ih);
-  pd_record_reduce_kernel<<<d.B, kReduceThreads, 0, s>>>(partials, gx, t, cols, reg, data,
+  const T* xt = static_cast<const T*>(x);
+  const RecGrid g = d.ndim == 3 ? rec_grid<T, 3>(d) : rec_grid<T, 2>(d);
+  if (d.ndim == 3)
+    launch_record<T, 3>(xt, b, partials, ell1, huber, gr, g, d, ih, s);
+  else
+    launch_record<T, 2>(xt, b, partials, ell1, huber, gr, g, d, ih, s);
+  pd_record_reduce_kernel<<<d.B, kReduceThreads, 0, s>>>(partials, g.blocks, t, cols, reg, data,
                                                          huber);
   return cudaGetLastError();
 }
@@ -299,9 +491,12 @@ cudaError_t pd_record(const void* x, const float* b, double* partials, double* r
 
 extern "C" {
 
-// Blocks along x of every launch over (B, n): the record partials hold
-// 2 * B * nsol_pd_grid(B, n) doubles.
-int nsol_pd_grid(int B, int n) { return pd_grid(B, n); }
+// Blocks an image of pd_record's march at (ndim, B, Z, Y, X) with the
+// state float (compact 0) or bfloat16: the record partials hold 2 * B *
+// nsol_pd_record_blocks(...) doubles.
+int nsol_pd_record_blocks(int ndim, int compact, int B, int Z, int Y, int X) {
+  return record_grid(compact, PdDims{ndim, B, Z, Y, X}).blocks;
+}
 
 int nsol_pd_dual(const void* xm, void* p, const float* sched, int t, int iters, int huber,
                  float gamma, int compact, int ndim, int B, int Z, int Y, int X, float ihx,

@@ -132,9 +132,9 @@ extern "C" {
 int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* partials,
                    double* scal, long long n, int storage, int store_r, void* stream,
                    long long* counts);
-int nsol_admm_tail(float* x, float* v, float* w, const float* atb, float* rhs, float ihx,
-                   float ihy, float ihz, float tau, float rho, int init, int Z, int Y, int X,
-                   void* stream, long long* counts);
+int nsol_admm_tail(float* x, float* v, const float* w, float* w_out, const float* atb,
+                   float* rhs, float ihx, float ihy, float ihz, float tau, float rho, int init,
+                   int ncomp, int Z, int Y, int X, void* stream, long long* counts);
 
 // The partials any march unit's grid may need at (Z, Y, X): the blocks of
 // its shortest z tile.
@@ -254,7 +254,8 @@ int nsol_cg_direction(void* p, void* r, const void* q, const double* scal, long 
 // (:1293) for mode 0 ("apply": CG around normal_apply_zy, with the CG
 // direction update of cg_direction) or 1 ("step2d": cg_step_zy, float
 // storage only). A^T b is blur_apply_zy of b (A symmetric); the outer
-// prox/dual chain is admm.cu's admm_tail and the CG update its cg_update
+// prox/dual chain is admm_tail.cu's admm_tail, w and w' alternating between
+// the volumes w and v (no v is written), and the CG update its cg_update
 // (counted in admm_counts). x holds x0 on entry and the result on exit.
 // r (R), p0, p1 (P) and q (Q) are stored as `storage` says (kStoreExact,
 // kStoreDirs or kStoreState): the outer residual reads x in float, or as
@@ -280,8 +281,10 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
   CALL(nsol_blur_apply_zy(b, nullptr, atb, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                           nullptr, taps_a, kaz, kay, kax, 0.f, 0, 1.f, ih2x, ih2y, ih2z, Z, Y, X,
                           stream, counts));
-  CALL(nsol_admm_tail(x, v, w, atb, rhs, ihx, ihy, ihz, tau, rho, 1, Z, Y, X, stream,
-                      admm_counts));
+  float* w_cur = w;
+  float* w_next = v;
+  CALL(nsol_admm_tail(x, nullptr, w_cur, w_cur, atb, rhs, ihx, ihy, ihz, tau, rho, 1, 3, Z, Y, X,
+                      stream, admm_counts));
   for (int it = 0; it < iterations; ++it) {
     // warm-started CG on M x = rhs: r = rhs - M x, gamma = |r|^2
     if (mode == 0) {
@@ -314,8 +317,11 @@ int nsol_blocked_admm_solve(const float* b, float* x, float* v, float* w, float*
       }
     }
     // clips x, then the shrink, the dual update and the next rhs
-    CALL(nsol_admm_tail(x, v, w, atb, rhs, ihx, ihy, ihz, tau, rho, 0, Z, Y, X, stream,
-                        admm_counts));
+    CALL(nsol_admm_tail(x, nullptr, w_cur, w_next, atb, rhs, ihx, ihy, ihz, tau, rho, 0, 3, Z, Y,
+                        X, stream, admm_counts));
+    float* tmp = w_cur;
+    w_cur = w_next;
+    w_next = tmp;
   }
 #undef CALL
 #undef UNIT

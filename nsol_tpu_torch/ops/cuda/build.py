@@ -49,13 +49,12 @@ _SIGNATURES = {
     "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
     "nsol_cg_sweep": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
-    "nsol_admm_tail": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _I,
-                       _I, _I, _I, _P, _P],
+    "nsol_admm_tail": [_P] * 6 + [_F] * 5 + [_I] * 5 + [_P, _P],
     "nsol_admm_record": [_P] * 7 + [_I, _P] + [_I] * 3 + [_I, _F]
     + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_admm_solve": [_P] * 15 + [_P, _I, _I, _I, _P, _I, _I, _I]
     + [_F] * 8 + [_I] * 4 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
-    "nsol_pd_grid": [_I, _I],
+    "nsol_pd_record_blocks": [_I] * 6,
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
     "nsol_pd_primal": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P, _P],

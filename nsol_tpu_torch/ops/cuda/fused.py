@@ -16,8 +16,10 @@ z term is an exact zero.
 This module adds the fourth kernel unit, :func:`admm_tail` (fused.py:645,
 651-667): clip ``x ≥ 0``, ``t = ∇x/h + w``, grouped shrink at
 ``τ = α/ρ``, ``v``/``w`` updates, then the next
-``rhs = Aᵀb + ρ·div(v − w)``. Two passes, because the divergence needs
-neighbours of ``v − w``; bytes bound it (~11 volumes moved).
+``rhs = Aᵀb + ρ·div(v − w)``. One pass (``csrc/admm_tail.cu``): a thread
+a voxel, which recomputes ``v − w`` at its three lower neighbours; bytes
+bound it (13 volumes moved, 10 in the C solves, which write no ``v`` and
+keep ``w`` and ``w'`` in two volumes).
 
 The reference's ``compact_dirs=True`` (with ``precision="high3"``) stores
 each CG direction in bfloat16, as the same C sequence does under the
@@ -111,6 +113,34 @@ def admm_tail_plain(x, v, w, Atb, inv_h, tau, rho, init=False):
 admm_tail_plain.calls = 0
 
 
+def _admm_tail(x, v, w, w_out, Atb, inv_h, tau, rho, init=False):
+    """The one-pass kernel of :func:`admm_tail`, as the C solves run it:
+    ``x`` clipped in place (not with ``init``), ``w'`` written to
+    ``w_out`` (another tensor than ``w``, whose neighbours' values the
+    kernel reads; with ``init`` ``w`` is not read), ``v`` written unless
+    it is None. Returns ``rhs``."""
+    name = "admm_tail"
+    dims = B.volume_dims(name, x)
+    nd = x.dim()
+    B.check_tensors(name, x.shape, x, Atb)
+    B.check_tensors(name, (nd,) + tuple(x.shape), w, w_out, device=x.device)
+    if v is not None:
+        B.check_tensors(name, (nd,) + tuple(x.shape), v, device=x.device)
+    if not init and w_out.data_ptr() == w.data_ptr():
+        raise ValueError("%s: w' needs another tensor than w" % name)
+    lib = build.load()
+    rhs = torch.empty_like(x)
+    counts = build.new_counts(5)
+    err = lib.nsol_admm_tail(
+        build.tensor_ptr(x), build.tensor_ptr(v), build.tensor_ptr(w),
+        build.tensor_ptr(w_out), build.tensor_ptr(Atb),
+        build.tensor_ptr(rhs), *B.spacing3(inv_h), float(tau), float(rho),
+        int(bool(init)), nd, *dims, build.stream_ptr(x.device), counts)
+    build.check(err, name)
+    admm_tail.launches += counts[3]
+    return rhs
+
+
 def admm_tail(x, v, w, Atb, inv_h, tau, rho, init=False):
     """ADMM prox/dual update and the next CG right-hand side.
 
@@ -119,33 +149,15 @@ def admm_tail(x, v, w, Atb, inv_h, tau, rho, init=False):
     ``w = t − v``. Both forms return ``rhs = Aᵀb + ρ·Σ_k D_kᵀ(v_k − w_k)/h_k``.
     ``x``, ``v``, ``w`` are updated in place; ``v``/``w`` are stacked
     ``(d, *shape)``, x component first; ``inv_h`` is in (x, y, z) order.
+    On CUDA the kernel writes ``w'`` to a scratch tensor, copied into
+    ``w`` after it.
     """
     if x.device.type == "cpu":
         return admm_tail_plain(x, v, w, Atb, inv_h, tau, rho, init)
-    name = "admm_tail"
-    dims = B.volume_dims(name, x)
-    nd = x.dim()
-    B.check_tensors(name, x.shape, x, Atb)
-    B.check_tensors(name, (nd,) + tuple(x.shape), v, w, device=x.device)
-    if nd == 2:  # the kernel's z component, an exact zero, in scratch
-        pad = torch.zeros((1,) + tuple(x.shape), dtype=x.dtype,
-                          device=x.device)
-        v3, w3 = torch.cat([v, pad]), torch.cat([w, pad])
-    else:
-        v3, w3 = v, w
-    lib = build.load()
-    rhs = torch.empty_like(x)
-    counts = build.new_counts(5)
-    err = lib.nsol_admm_tail(
-        build.tensor_ptr(x), build.tensor_ptr(v3), build.tensor_ptr(w3),
-        build.tensor_ptr(Atb), build.tensor_ptr(rhs), *B.spacing3(inv_h),
-        float(tau), float(rho), int(bool(init)), *dims,
-        build.stream_ptr(x.device), counts)
-    build.check(err, name)
-    if nd == 2:
-        v.copy_(v3[:2])
-        w.copy_(w3[:2])
-    admm_tail.launches += counts[3]
+    w_out = w if init else torch.empty_like(w)
+    rhs = _admm_tail(x, v, w, w_out, Atb, inv_h, tau, rho, init)
+    if w_out is not w:
+        w.copy_(w_out)
     return rhs
 
 
@@ -368,16 +380,19 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     if len(shape) not in (2, 3):
         raise ValueError("fused ADMM solver supports 2-D/3-D volumes")
     if robust:
+        # the records only where asked: the TPU kernel computes no
+        # measures without record
         robust_solve = R._make_solver(
             shape, cov, alpha_cut, spacing, iterations, iter_max,
-            irls_cg_iters, data_loss, True,
+            irls_cg_iters, data_loss, record,
             storage="dirs" if compact else "exact")
 
         def run(fn, b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
-            x, reg, data = fn(b, x0, alpha, rho, data_loss_scale,
-                              record_dls=record_dls)
+            out = fn(b, x0, alpha, rho, data_loss_scale,
+                     record_dls=record_dls)
             if not record:
-                return x
+                return out
+            x, reg, data = out
             return x, {"Reg": reg.to(b.dtype), "Data": data.to(b.dtype)}
 
         def solve_robust(*args, **kwargs):
@@ -574,8 +589,10 @@ def pd_primal(x, x_mean, p, b, sched, t, inv_h, ell1=False):
     pd_primal.launches += counts[1]
 
 
-def _pd_partials(device, dims, n):
-    nparts = build.load().nsol_pd_grid(dims[0], n)
+def _pd_partials(device, nd, dims, compact):
+    """The record partials of pd_record's march over a batch of ``nd``-D
+    images of ``dims`` ``(B, Z, Y, X)``."""
+    nparts = build.load().nsol_pd_record_blocks(nd, int(compact), *dims)
     return torch.empty(2 * dims[0] * nparts, dtype=torch.float64,
                        device=device)
 
@@ -604,7 +621,7 @@ def pd_record(x, b, reg, data, t, inv_h, ell1=False, huber=False,
     counts = build.new_counts(3)
     err = lib.nsol_pd_record(
         build.tensor_ptr(x), build.tensor_ptr(b),
-        build.tensor_ptr(_pd_partials(x.device, dims, x[0].numel())),
+        build.tensor_ptr(_pd_partials(x.device, nd, dims, dtype == B.BF16)),
         build.tensor_ptr(reg), build.tensor_ptr(data), int(t), reg.shape[1],
         int(bool(ell1)), int(bool(huber)), float(gamma), int(dtype == B.BF16),
         nd, *dims, *_inv_h3(inv_h), build.stream_ptr(x.device), counts)
@@ -666,7 +683,7 @@ def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
         reg = torch.empty((nb, iterations + 1), dtype=torch.float64,
                           device=b.device)
         data = torch.empty_like(reg)
-        partials = _pd_partials(b.device, dims, b.numel())
+        partials = _pd_partials(b.device, nd, dims, compact)
     lib = build.load()
     counts = build.new_counts(3)
     err = lib.nsol_pd_solve(
