@@ -152,6 +152,20 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   Run with this script on an earlier package (``--only tail``) it times
   that package's units and skips the forms it lacks.
 
+* phase 40, ``cg_sweep`` on its march (group ``sweep``): the sweep's
+  route and z tile in C against their Python mirrors; every sweep form
+  (float32 and bf16 state × first trip or not) on the march bit for bit
+  against the three-pass chain (x', r', p', q'; the four dots, a and β
+  within 1e-12) on the tile-edge shapes, 256³, a 136 × 240 × 200 volume
+  (two seeds) and 512³; a NaN in p on both routes; the C entry's
+  refusals (q' over q, a march past its shared memory); the ptxas report
+  of its instances; the march against its plain version at 256³; device
+  times chain against march in turns at 256³ and 512³ (both storages) and
+  at the route's boundary shapes (64³, 96³, 128³, 256², 2048², thin
+  stacks); and the solves that run it by CUDA events (256³ "sweep" float32
+  and bf16 against "step" exact, 512³ "sweep" against "apply" and the
+  512³ anchor, a 64³ "sweep" on the chain), with their launches.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -3652,8 +3666,9 @@ def run_compact_phases(device, card):
                 "exact %.3f (rel %.3g > %g)" % (key, runs[key][0], ref,
                                                 gates[key], tol))
     for key in ("sweep_f32", "sweep_bf16"):
-        lc = launches[key]
-        require(lc.get("cg_sweep") == ITERATIONS * ITER_MAX
+        lc = launches[key]  # the sweeps on its chain or its march
+        require(lc.get("cg_sweep", 0) + lc.get("cg_sweep_march", 0)
+                == ITERATIONS * ITER_MAX
                 and lc.get("cg_update") == ITERATIONS
                 and "cg_step" not in lc,
                 "phase 24: %s launches %s" % (key, lc))
@@ -5445,6 +5460,8 @@ VOL_SEEDS = (606, 707)
 MARCH_FORMS = {
     "cg_step": ("cg_step_march", "nsol_tpu_torch/csrc/step_march.cu",
                 "nsol_tpu_torch/csrc/admm.cu"),
+    "cg_sweep": ("cg_sweep_march", "nsol_tpu_torch/csrc/sweep_march.cu",
+                 "nsol_tpu_torch/csrc/admm.cu"),
     "weighted_apply": ("weighted_apply_march",
                        "nsol_tpu_torch/csrc/weighted_march.cu",
                        "nsol_tpu_torch/csrc/robust.cu"),
@@ -5463,7 +5480,8 @@ MARCH_FORMS = {
 ROUTED = {"cg_step": ("B", "_cg_step"), "weighted_apply": ("R",
                                                           "_weighted_apply"),
           "normal_apply": ("B", "_normal_apply"),
-          "blur_apply": ("R", "_blur_apply"), "irls_head": ("R", "_irls_head")}
+          "blur_apply": ("R", "_blur_apply"), "irls_head": ("R", "_irls_head"),
+          "cg_sweep": ("B", "_cg_sweep")}
 
 
 def has_march(B, R, unit):
@@ -5471,6 +5489,10 @@ def has_march(B, R, unit):
     whole-volume ``unit`` between a march and its chain."""
     mod, name = ROUTED[unit]
     return hasattr({"B": B, "R": R}[mod], name)
+#: the units whose march forms phase 36 holds to their chains (the
+#: sweep's: phase 40)
+VOL_BIT_UNITS = ("cg_step", "weighted_apply", "normal_apply", "blur_apply",
+                 "irls_head")
 #: blurs past each march's shared memory (σ 3.5: cg_step's normal taps 45;
 #: σ 2.5: weighted_apply's blur taps 17), whose solves take the chains
 CHAIN_SIGMAS = {"cg_step": 3.5, "weighted_apply": 2.5}
@@ -5583,7 +5605,8 @@ def vol_march_bits(B, R, st, shape, device, seed, units=None):
     marches, ``normal_apply`` plain and residual in float32 and bfloat16
     × TK1/TK0 and its ``Aᵀb`` form (the blur taps at ρ = 0, on an input
     with a slab of −0), ``blur_apply`` plain, with ``u`` and its gradient
-    (× TK1/TK0) and ``irls_head`` for every loss. Fails unless every
+    (× TK1/TK0) and ``irls_head`` for every loss; where ``units`` names
+    ``cg_sweep``, its forms (:func:`sweep_march_bits`). Fails unless every
     output holds the same bits in each (signed zeros included), and pq or
     γ agrees within 1e-9 (its sum runs in another order); returns the
     number of forms checked (of ``units`` alone where given)."""
@@ -5657,6 +5680,8 @@ def vol_march_bits(B, R, st, shape, device, seed, units=None):
     for loss in Rec.LOSS_IDS:
         check("irls_head[%s]" % loss, lambda s, route: R._irls_head(
             r, p, st.blur, loss, 0.7, route), None)
+    if units is not None and "cg_sweep" in units:
+        count[0] += sweep_march_bits(B, st, shape, device, seed)
     return count[0]
 
 
@@ -5709,12 +5734,14 @@ def vol_rule_checks(T, device, units=None):
               "512^3": BIG}
     dims = list(shapes.values()) + [c[3] for c in EDGE_CASES] + [
         (512, 1024, 96), (1000, 17, 40), (3, 7, 5)]
+    sweep = hasattr(T, "SWEEP_RESIDENT")
     for d in dims:
         for kz in (1, 3, 7, 13, 25, 41):
-            for w in (0, 1):
-                c, py = lib.nsol_march_tile_z(*d, kz, w), T.tile_z(
-                    d, kz, bool(w), sms)
-                require(c == py, "phase 36: z tile %s kz %d weighted %d: C "
+            for w in (0, 1, 2) if sweep else (0, 1):  # 2: the sweep's
+                c = lib.nsol_march_tile_z(*d, kz, w)
+                py = T.tile_z(d, kz, w == 1, sms, *(
+                    (T.SWEEP_RESIDENT,) if w == 2 else ()))
+                require(c == py, "phase 36: z tile %s kz %d march %d: C "
                         "%d, Python %d" % (d, kz, w, c, py))
     for d in dims + list(THIN_SHAPES) + [
             (1 << 20, 1, 1), (1, 1025, 1024), (2, 512, 512), (2, 512, 513),
@@ -5744,10 +5771,13 @@ def vol_rule_checks(T, device, units=None):
                 py = T.smem_bytes(lengths, 2, True, two_byte=True)
                 require(c == py, "phase 36: bf16-margin shared memory %s: C "
                         "%d, Python %d" % (lengths, c, py))
-    return "%d SMs; z tiles (single-stencil at 13 taps / weighted at 7): %s" \
-        % (sms, ", ".join("%s %d/%d" % (k, T.tile_z(d, 13, False, sms),
-                                        T.tile_z(d, 7, True, sms))
-                          for k, d in shapes.items()))
+    return "%d SMs; z tiles (single-stencil at 13 taps / weighted at 7%s): " \
+        "%s" % (sms, " / the sweep's at 13" if sweep else "", ", ".join(
+            "%s %s" % (k, "/".join(str(t) for t in (
+                T.tile_z(d, 13, False, sms), T.tile_z(d, 7, True, sms))
+                + ((T.tile_z(d, 13, False, sms, T.SWEEP_RESIDENT),)
+                   if sweep else ())))
+            for k, d in shapes.items()))
 
 
 def chain_route_runs(F, device):
@@ -5874,7 +5904,7 @@ def vol_ptxas():
     out = {}
     march = march_ptxas()
     for epi in ("StepZyEpi", "NormalZyEpi", "BlurZyEpi", "GradZyEpi",
-                "HeadZyEpi"):
+                "HeadZyEpi", "SweepZyEpi"):
         out[epi] = group({k: v for k, v in march.items() if epi in k})
     out["weighted"] = group(weighted_ptxas())
     return out
@@ -6023,8 +6053,8 @@ def run_volume_phases(device, card):
             ("2-D view", np.eye(2), None, (256, 256), (36,))]
         for label, cov, sp, shape, seeds in cases:
             st = B.Stencils.from_cov(cov, 3, sp, device)
-            forms = sum(vol_march_bits(B, R, st, shape, device, seed)
-                        for seed in seeds)
+            forms = sum(vol_march_bits(B, R, st, shape, device, seed,
+                                       VOL_BIT_UNITS) for seed in seeds)
             windows = ""
             if len(shape) == 3 and shape != SCALE_SHAPE:
                 windows = "; blur window %s" % require_bits(
@@ -6834,6 +6864,395 @@ def tail_ptxas():
         ("admm_tail_kernel", 64), ("pd_record_kernel", 256))}
 
 
+# -------------------------------------------------------------- phase 40 --
+
+#: the sweep's forms: label → (storage, first trip)
+SWEEP_FORMS = {"f32": ("float32", False), "f32 first": ("float32", True),
+               "bf16": ("bfloat16", False), "bf16 first": ("bfloat16", True)}
+#: the march's dots against the chain's: the same float products summed
+#: in float64 in another order
+SWEEP_DOT_TOL = 1e-12
+#: phase 40's bit checks beside the tile-edge shapes: (label, shape, seeds)
+SWEEP_BIT_SHAPES = (("256^3", SCALE_SHAPE, (40,)),
+                    ("ragged", RAGGED_SHAPE, VOL_SEEDS),
+                    ("512^3", BIG, (40,)))
+#: the shapes phase 40 times chain against march at for the route (σ = 1):
+#: under 2^20 voxels, 2-D views and thin stacks past it
+SWEEP_ROUTE_SHAPES = (("64^3", (64,) * 3), ("96^3", (96,) * 3),
+                      ("128^3", (128,) * 3), ("Lena 256^2", (1, 256, 256)),
+                      ("2-D 2048^2", (1, 2048, 2048))) + tuple(
+                          ("x".join(map(str, d)), d) for d in THIN_SHAPES)
+#: torch.profiler traces of each turn at the main shapes (PERF.md: one of
+#: three may lose records of a long run)
+SWEEP_TRACES = 3
+#: the sweep's device kernels: the march and the reduce, or the chain's
+SWEEP_KERNELS = ("stencil_zy_kernel", "sweep_x_kernel", "conv_y_kernel",
+                 "sweep_z_kernel", "sweep_reduce_kernel")
+#: the kernels records phase 40 adds: name → (storage, phase 40's solve
+#: that reports its launches)
+SWEEP_ENTRIES = {"cg_sweep[march]": ("float32", "sweep_f32"),
+                 "cg_sweep[march,bf16]": ("bfloat16", "sweep_bf16")}
+
+
+def sweep_inputs(shape, device, seed):
+    """``(x, r, p, q)`` of the sweep on the card, in [-0.5, 0.5), from a
+    seeded generator."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.rand(shape, generator=g, device=device) - 0.5
+                 for _ in range(4))
+
+
+def sweep_routes(B, st, x, r, p, q, dtype, first):
+    """``{route: (x', r', p', q', scal)}`` of one sweep (storage ``dtype``)
+    on the march and on the chain, on the same inputs, each from its own
+    copy of x and of the scalars (γ 3, a 0.31, β 0.83)."""
+    out = {}
+    for route in ("march", "chain"):
+        s, xs = _scal(x.device), x.clone()
+        rn, pn, qn = B._cg_sweep(xs, r.to(dtype), p.to(dtype), q.to(dtype),
+                                 s, st.normal, st.inv_h2, RHO, first,
+                                 route=route)
+        out[route] = (xs, rn, pn, qn, s)
+    return out
+
+
+def sweep_march_bits(B, st, shape, device, seed):
+    """Every :data:`SWEEP_FORMS` form of ``cg_sweep`` on its march against
+    its three-pass chain on the same random inputs: x', r', p' and q' bit
+    for bit (signed zeros included), the four dots and the recurrence's
+    a, β within :data:`SWEEP_DOT_TOL`. Returns the forms checked (0 in a
+    package without the sweep's march)."""
+    import torch
+
+    if not hasattr(B, "_cg_sweep"):
+        return 0
+    x, r, p, q = sweep_inputs(shape, device, seed)
+    what = "sweep march %s seed %d" % ("x".join(map(str, shape)), seed)
+    for label, (dt, first) in SWEEP_FORMS.items():
+        out = sweep_routes(B, st, x, r, p, q, getattr(torch, dt), first)
+        require_bits({"%s %s" % (label, k): (a, b) for k, a, b in zip(
+            ("x'", "r'", "p'", "q'"), out["march"], out["chain"])}, what)
+        sm, sc = out["march"][4], out["chain"][4]
+        for k in (B.GAMMA, B.PQ, B.RQ, B.QQ, B.A, B.BETA):
+            m, c = float(sm[k]), float(sc[k])
+            require(abs(m - c) <= SWEEP_DOT_TOL * abs(c), "%s %s: scalar %d "
+                    "%.17g, chain's %.17g" % (what, label, k, m, c))
+        del out
+    del x, r, p, q
+    torch.cuda.empty_cache()
+    return len(SWEEP_FORMS)
+
+
+def sweep_nan_routes(B, st, shape, device, dtype):
+    """A later sweep with one NaN in p on the march and on the chain: NaN
+    at the same entries of x', r', p', q' and the scalars, the same bits
+    elsewhere, and β NaN (as under jnp.maximum)."""
+    import torch
+
+    x, r, p, q = sweep_inputs(shape, device, 41)
+    p.view(-1)[p.numel() // 2] = float("nan")
+    out = sweep_routes(B, st, x, r, p, q, dtype, False)
+    what = "cg_sweep march %s with a NaN in p" % str(dtype).split(".")[-1]
+    same_nan(list(zip(out["march"], out["chain"])), what)
+    require_bits({"%d" % k: (torch.nan_to_num(a), torch.nan_to_num(b))
+                  for k, (a, b) in enumerate(zip(out["march"][:4],
+                                                 out["chain"][:4]))}, what)
+    require(bool(torch.isnan(out["march"][4][B.BETA])), "%s: beta is not "
+            "NaN" % what)
+
+
+def sweep_refusals(B, st, device):
+    """The sweep's C entry refuses q' over q (cudaErrorInvalidValue) on
+    either route, and a march forced on taps past its block's shared
+    memory (σ 3.5) raises: nothing falls back to the chain or the plain
+    version. Returns the refusals seen."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import build
+
+    lib = build.load()
+    x, r, p, q = sweep_inputs((16, 40, 37), device, 42)
+    s = _scal(device)
+    tv = st.normal.as_volume()
+    t1, t2 = torch.empty_like(x), torch.empty_like(x)
+    parts = torch.empty(4 * max(lib.nsol_tiled_blocks(16, 40, 37),
+                                lib.nsol_max_blocks()), dtype=torch.float64,
+                        device=device)
+    seen = 0
+    for route in (1, 2):  # chain, march
+        counts = build.new_counts(B.COUNTS)
+        err = lib.nsol_cg_sweep(
+            *(build.tensor_ptr(t) for t in (x, r, p, q, q, r.clone(),
+                                            p.clone(), t1, t2, parts, s)),
+            0, build.tensor_ptr(tv.buf), *tv.lengths, float(RHO), 0, route,
+            *B.spacing3(st.inv_h2), 16, 40, 37, build.stream_ptr(device),
+            counts)
+        require(err != 0, "phase 40: q_new == q accepted on route %d" % route)
+        seen += 1
+    wide = B.Stencils.from_cov(np.diag([3.5 ** 2] * 3), 3, None, device)
+    try:
+        B._cg_sweep(x, r, p, q, s, wide.normal, wide.inv_h2, RHO, False,
+                    route="march")
+    except RuntimeError:
+        seen += 1
+    else:
+        require(False, "phase 40: a march past its shared memory ran")
+    torch.cuda.synchronize()
+    return seen
+
+
+def sweep_turns(B, st, shape, device, dtype, reps=10, traces=SWEEP_TRACES):
+    """Device ms a call of a later sweep (storage ``dtype``) at ``shape``,
+    chain and march in turns chain, march, march, chain, each the median
+    of ``traces`` ``torch.profiler`` traces (:func:`traces_ms`), and beside
+    it the median ms of ``reps`` calls by CUDA events (a trace of a long
+    run may keep no record): ``{route: [ms, ms], "events": {route: [ms,
+    ms]}}``. The kernels' own time (``_cg_sweep``: no copy of q' back into
+    q)."""
+    import torch
+
+    x, r, p, q = sweep_inputs(shape, device, 43)
+    rs, ps, qs = r.to(dtype), p.to(dtype), q.to(dtype)
+    del r, p, q
+    out = {"chain": [], "march": [], "events": {"chain": [], "march": []}}
+    for route in ("chain", "march", "march", "chain"):
+        s = _scal(device)
+        fn = partial(B._cg_sweep, x, rs, ps, qs, s, st.normal, st.inv_h2,
+                     RHO, False, route=route)
+        out[route].append(traces_ms([device_ms_of(fn, reps,
+                                                  keys=SWEEP_KERNELS)
+                                     for _ in range(traces)]))
+        out["events"][route].append(cuda_median_ms(fn, reps))
+    del x, rs, ps, qs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sweep_bound(shape, dtype):
+    """``(bound_ms, bound_by)`` of one later sweep at ``shape``: r, q, p, x
+    read and x', r', p', q' written once (32 bytes a voxel in float, 20 in
+    bfloat16), ~2 operations a tap of the 13-tap chain and ~30 for the
+    Laplacian, the updates and the four dots."""
+    import torch
+
+    n = float(np.prod(shape))
+    bpv = 32 if dtype == torch.float32 else 20
+    return bound(n * bpv, n * (2 * 3 * 13 + 30))
+
+
+def sweep_turns_text(turns, shape, dtype):
+    b_ms = sweep_bound(shape, dtype)[0]
+    best = [t for t in turns["march"] if t]
+    share = " (march %.1f %% of it)" % (100 * b_ms / min(best)) if best \
+        else ""
+    ev = turns["events"]
+    return "chain %s, march %s, bound %.4f%s; by CUDA events chain %s, " \
+        "march %s" % ("/".join(map(ms_text, turns["chain"])),
+                      "/".join(map(ms_text, turns["march"])), b_ms, share,
+                      "/".join(map(ms_text, ev["chain"])),
+                      "/".join(map(ms_text, ev["march"])))
+
+
+def sweep_solves(device, card):
+    """The solves that run the sweep, by CUDA events (median after a
+    warm-up; the first call counts the launches and warms up), with their
+    objectives:
+    256³ "sweep" float32 and bf16 state against "step" exact (phase 24's
+    gates), 512³ "sweep" against "apply" exact (0.2 % of the 512³ anchor)
+    and a 64³ "sweep" against the 64³ "step" (within SWEEP_F32_TOL; its
+    500 sweeps take the chain). Returns ``{key: (ms, objective,
+    launches)}``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    rows = {}
+
+    def run(key, solve, b, objective, reps):
+        fn = partial(solve, b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x = fn()  # also the warm-up (stencils, allocator)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in F.launch_counts().items() if v}
+        require(bool(torch.isfinite(x).all()) and x.shape == b.shape,
+                "phase 40: %s not finite or misshapen" % key)
+        obj = objective(x)
+        del x
+        rows[key] = (cuda_median_ms(fn, reps), obj, launches)
+
+    def sweeps(key, where):
+        lc = rows[key][2]
+        other = "cg_sweep" if where == "cg_sweep_march" else "cg_sweep_march"
+        require(lc.get(where) == ITERATIONS * ITER_MAX and other not in lc
+                and lc.get("cg_update") == ITERATIONS and "cg_step" not in lc,
+                "phase 40: %s launches %s" % (key, lc))
+
+    for shape, reps in (((64,) * 3, 5), (SCALE_SHAPE, 3), (BIG, 2)):
+        b, iso, A64 = compact_problem(device, shape)
+        label = "64" if shape[0] == 64 else str(shape[0])
+        modes = {"sweep_f32": dict(mode="sweep")}
+        if shape == SCALE_SHAPE:
+            modes.update(sweep_bf16=dict(mode="sweep",
+                                         state_dtype=torch.bfloat16))
+        modes.update({"apply_exact": dict(mode="apply")} if shape == BIG
+                     else {"step_exact": dict(mode="step")})
+        for key, kw in modes.items():
+            solve = B.blocked_admm_solve(shape, iso, iterations=ITERATIONS,
+                                         iter_max=ITER_MAX, **kw)
+            require(solve.mode == kw["mode"], "phase 40: %s took %r"
+                    % (key, solve.mode))
+            run("%s_%s" % (key, label), solve, b,
+                lambda x: objective_device(x, b, A64, ALPHA), reps)
+            del solve
+            torch.cuda.empty_cache()
+        del b
+        torch.cuda.empty_cache()
+    sweeps("sweep_f32_64", "cg_sweep")
+    for key in ("sweep_f32_256", "sweep_bf16_256", "sweep_f32_512"):
+        sweeps(key, "cg_sweep_march")
+    for key, ref, tol in (("sweep_f32_64", "step_exact_64", SWEEP_F32_TOL),
+                          ("sweep_f32_256", "step_exact_256", SWEEP_F32_TOL),
+                          ("sweep_bf16_256", "step_exact_256",
+                           COMPACT_OBJ_TOL)):
+        want = rows[ref][1]
+        rel = abs(rows[key][1] - want) / want
+        require(rel <= tol, "phase 40: %s objective %.3f vs %s %.3f (rel "
+                "%.3g > %g)" % (key, rows[key][1], ref, want, rel, tol))
+    for key in ("sweep_f32_512", "apply_exact_512"):
+        obj = rows[key][1]
+        require(abs(obj - BIG_ANCHOR) <= ANCHOR_BAND * BIG_ANCHOR, "phase "
+                "40: %s objective %.2f, anchor %.1f" % (key, obj, BIG_ANCHOR))
+    print("phase 40 solves 50x10 (ms a solve by CUDA events, median; "
+          "objective; launches): %s [%s]" % ("; ".join(
+              "%s %.3f ms, %.6f, %s" % (k, v[0], v[1], v[2])
+              for k, v in rows.items()), card))
+    print("phase 40 \"sweep\" against the default routes (ms a solve): 256^3 "
+          "sweep f32 %.3f / bf16 %.3f vs step exact %.3f; 512^3 sweep %.3f vs "
+          "apply %.3f [%s]" % (
+              rows["sweep_f32_256"][0], rows["sweep_bf16_256"][0],
+              rows["step_exact_256"][0], rows["sweep_f32_512"][0],
+              rows["apply_exact_512"][0], card))
+    return rows
+
+
+def run_sweep_phase(device, card):
+    """Phase 40: ``cg_sweep`` on its march (``csrc/sweep_march.cu``). Its
+    rule in C against its Python mirror; every form (float32 and bf16
+    state × first trip or not) bit for bit against the three-pass chain on
+    the tile-edge shapes, 256³, the 136 × 240 × 200 volume (two seeds) and
+    512³, the dots within :data:`SWEEP_DOT_TOL`; a NaN in p; the refusals;
+    the ptxas report; device times chain against march in turns at 256³
+    and 512³ (both storages) and at the route's boundary shapes; the
+    march against the plain version at 256³; and the solves that run it.
+    Returns the ``kernels`` records of the march."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import tiled as T
+
+    bf = torch.bfloat16
+    print("phase 40 rules: C and Python agree on the sweep's route and z "
+          "tile; %s" % vol_rule_checks(T, device, ("cg_sweep",)))
+    forms = 0
+    for label, cov, sp, shape in EDGE_CASES + (
+            ("image", np.eye(3), None, (1, 40, 33)),):
+        st = B.Stencils.from_cov(cov, 3, sp, device)
+        forms += sweep_march_bits(B, st, shape, device, 40)
+    iso = np.diag([SIGMA ** 2] * 3)
+    st = B.Stencils.from_cov(iso, 3, None, device)
+    for label, shape, seeds in SWEEP_BIT_SHAPES:
+        for seed in seeds:
+            forms += sweep_march_bits(B, st, shape, device, seed)
+    print("phase 40 %d sweep forms (f32 / bf16 state x first trip or not) on "
+          "the tile-edge shapes, the (1, 40, 33) view, %s: x', r', p', q' "
+          "bit for bit equal to the chain's, the dots, a and beta within %g"
+          % (forms, ", ".join("%s seeds %s" % (k, v)
+                              for k, _, v in SWEEP_BIT_SHAPES), SWEEP_DOT_TOL))
+    for dt in (torch.float32, bf):
+        sweep_nan_routes(B, st, RAGGED_SHAPE, device, dt)
+    print("phase 40 a NaN in p (f32, bf16, ragged volume): the march's NaN "
+          "at the chain's entries, beta NaN; %d refusals (q' over q on each "
+          "route, a march past its shared memory)" % sweep_refusals(
+              B, st, device))
+    print("phase 40 ptxas of the sweep's march instances ({template "
+          "arguments: (registers, spill bytes, warps an SM)}): %s" % (
+              {k: v for k, v in march_ptxas().items() if "SweepZyEpi" in k}
+              or "cached"))
+    lap("phase 40 checks")
+    # the march against the plain version at 256³, in the main path's form
+    err, ms, plain_ms = {}, {}, {}
+    for name, (dt, _) in SWEEP_ENTRIES.items():
+        dtype = getattr(torch, dt)
+        x, r, p, q = sweep_inputs(SCALE_SHAPE, device, 44)
+        rs, ps, qs = r.to(dtype), p.to(dtype), q.to(dtype)
+        s1, s2, xk, xp = _scal(device), _scal(device), x.clone(), x.clone()
+        got = B._cg_sweep(xk, rs, ps, qs, s1, st.normal, st.inv_h2, RHO,
+                          False, route="march")
+        qp = qs.clone()
+        ref = B.cg_sweep_plain(xp, rs, ps, qp, s2, st.normal, st.inv_h2, RHO)
+        pairs = list(zip((xk,) + got + (s1,), (xp,) + ref + (qp, s2)))
+        compact_pairs_err({name: pairs})
+        err[name] = max(float((g.float() - f.float()).abs().max())
+                        for g, f in pairs[:4])
+        del got, ref, pairs, qp
+        ms[name] = cuda_median_ms(partial(
+            B._cg_sweep, xk, rs, ps, qs, s1, st.normal, st.inv_h2, RHO,
+            False, route="march"), 10)
+        plain_ms[name] = cuda_median_ms(partial(
+            B.cg_sweep_plain, xp, rs, ps, qs.clone(), s2, st.normal,
+            st.inv_h2, RHO), 2)
+        del x, r, p, q, rs, ps, qs, xk, xp
+        torch.cuda.empty_cache()
+    print("phase 40 march vs plain at 256^3: max |d| %s; ms a call by CUDA "
+          "events (march / plain): %s [%s]" % (
+              {k: "%.3g" % v for k, v in err.items()},
+              {k: "%.4f / %.3f" % (ms[k], plain_ms[k]) for k in ms}, card))
+    dev = {}
+    for label, shape in (("256^3", SCALE_SHAPE), ("512^3", BIG)):
+        for dtype in (torch.float32, bf):
+            turns = sweep_turns(B, st, shape, device, dtype,
+                                reps=10 if shape == SCALE_SHAPE else 5)
+            dev[(label, dtype)] = turns
+            print("phase 40 %s %s device ms a call (torch.profiler, the "
+                  "median of %d traces a turn; turns chain, march, march, "
+                  "chain): %s [%s]" % (
+                      label, str(dtype).split(".")[-1], SWEEP_TRACES,
+                      sweep_turns_text(turns, shape, dtype), card))
+    for label, shape in SWEEP_ROUTE_SHAPES:
+        stl = st if shape[0] > 1 else B.Stencils.from_cov(
+            np.eye(2), 3, None, device)
+        view = shape if shape[0] > 1 else shape[1:]
+        turns = sweep_turns(B, stl, view, device, torch.float32, reps=20,
+                            traces=1)
+        print("phase 40 route %s (rule: %s) f32 device ms a call: %s [%s]"
+              % (label, T.vol_route("cg_sweep", stl.normal.as_volume()
+                                    .lengths, shape),
+                 sweep_turns_text(turns, view, torch.float32), card))
+    lap("phase 40 times")
+    rows = sweep_solves(device, card)
+    lap("phase 40 solves")
+    out = []
+    for name, (dt, run) in SWEEP_ENTRIES.items():
+        dtype = getattr(torch, dt)
+        b_ms, b_by = sweep_bound(SCALE_SHAPE, dtype)
+        out.append({"name": name, "route": "cuda",
+                    "source": "nsol_tpu_torch/csrc/sweep_march.cu",
+                    "replaces": "nsol_tpu/ops/pallas/blocked.py:1139",
+                    "launches": int(rows[run + "_256"][2].get(
+                        "cg_sweep_march", 0)),
+                    "max_abs_err": err[name], "ms": ms[name],
+                    "plain_ms": plain_ms[name], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None,
+                    "device_ms": traces_ms(dev[("256^3", dtype)]["march"])})
+        require(out[-1]["launches"] > 0, "phase 40: %s launched no time on "
+                "its main path (%s)" % (name, run))
+    return out
+
+
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
     counts of the 64³ solve, each unit's max |Δ| against its plain version
@@ -6995,7 +7414,7 @@ def run_admm_phases(device, card):
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
-          "volume", "volume_solves", "tail")
+          "volume", "volume_solves", "tail", "sweep")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -7193,6 +7612,9 @@ def main(argv=None):
         for entry in kernels:
             if entry["name"] in tail:
                 entry["device_ms"] = tail[entry["name"]]
+    if "sweep" in groups:
+        kernels += run_sweep_phase(device, card)
+        lap("phase 40")
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

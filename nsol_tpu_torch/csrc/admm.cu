@@ -50,9 +50,14 @@
 //   cg_sweep      one whole CG iteration (blocked.py:1193-1231): the x pass
 //                 forms r' = r - a q and p' = r' + beta p from the old
 //                 vectors at every tap, stores r', p' and x += a p and sums
-//                 |r'|^2; the z pass forms q' = M p' over q and sums p'.q',
-//                 r'.q', q'.q'; a one-block stage runs the scalar
-//                 recurrence a = g/pq, beta = max(g - 2a rq + a^2 qq, 0)/g.
+//                 |r'|^2; the z pass forms q' = M p' into a second q
+//                 volume and sums p'.q', r'.q', q'.q'; a one-block stage
+//                 runs the scalar recurrence a = g/pq, beta = max(g - 2a rq
+//                 + a^2 qq, 0)/g. Where march.cuh's vol_route takes the
+//                 taps and the shape, the C entry runs it as
+//                 sweep_march.cu's one-pass march instead (no scratch
+//                 volume, the same x', r', p', q' bit for bit); the solve
+//                 takes the same rule and swaps its two q volumes.
 //   normal_apply_prepadded
 //                 normal_apply on a z-window of a sharded volume
 //                 (blocked.py::make_blocked_normal_operator_prepadded, :478):
@@ -118,8 +123,9 @@ enum Unit {
   kAdmmRecord = 4,
   kCgSweep = 5,
   kNormalApplyPre = 6,
-  kCgStepMarch = 7,      // cg_step on step_march.cu's march
-  kNormalApplyMarch = 8  // normal_apply on normal_march.cu's march
+  kCgStepMarch = 7,       // cg_step on step_march.cu's march
+  kNormalApplyMarch = 8,  // normal_apply on normal_march.cu's march
+  kCgSweepMarch = 9       // cg_sweep on sweep_march.cu's march
 };
 // Epilogues of the z pass.
 enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
@@ -350,16 +356,17 @@ __global__ void sweep_x_kernel(SweepDir<T> src, float* __restrict__ t1, T* __res
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
-// The sweep's z pass: q' = conv_z + rho D^T D p' stored as T over the old q
-// (read first, to form r' again exactly as the x pass did), and the partial
-// sums of p'.q', r'.q', q'.q' (p' rounded, r' and q' before rounding;
-// blocked.py:1227-1231) into partials[k * kMaxBlocks + block], k = 1, 2, 3.
+// The sweep's z pass: q' = conv_z + rho D^T D p' stored as T into q_new
+// (the old q read to form r' again exactly as the x pass did), and the
+// partial sums of p'.q', r'.q', q'.q' (p' rounded, r' and q' before
+// rounding; blocked.py:1227-1231) into partials[k * kMaxBlocks + block],
+// k = 1, 2, 3.
 template <class T>
 __global__ void sweep_z_kernel(const float* __restrict__ t2, const T* __restrict__ r,
-                               T* __restrict__ q, const T* __restrict__ p_new,
-                               const double* __restrict__ scal, int first, float rho, Spacing sp,
-                               double* __restrict__ partials, const float* __restrict__ taps,
-                               int K, Dims d) {
+                               const T* __restrict__ q, T* __restrict__ q_new,
+                               const T* __restrict__ p_new, const double* __restrict__ scal,
+                               int first, float rho, Spacing sp, double* __restrict__ partials,
+                               const float* __restrict__ taps, int K, Dims d) {
   const Load src{t2};
   const LoadT<T> pn{p_new};
   const float a = first ? 0.f : (float)scal[kA];
@@ -371,7 +378,7 @@ __global__ void sweep_z_kernel(const float* __restrict__ t2, const T* __restrict
     const float qn = fmaf(rho, laplacian(pn, i, c, sp, d), conv);
     const float rk = ldg(r + i);
     const float rn = first ? rk : axpy_as<T>(-a, to_float(q[i]), rk);
-    q[i] = store_as<T>(qn);
+    q_new[i] = store_as<T>(qn);
     pq += (double)pn(i) * qn;
     rq += (double)rn * qn;
     qq += (double)qn * qn;
@@ -384,61 +391,38 @@ __global__ void sweep_z_kernel(const float* __restrict__ t2, const T* __restrict
   }
 }
 
-// The sweep's scalar recurrence (blocked.py:1505-1509): a = g / pq,
-// gamma = max(g - 2 a rq + a^2 qq, 0), beta = gamma / g (zero-guarded),
-// beside the four dots.
-__global__ void sweep_reduce_kernel(const double* __restrict__ partials, int nparts,
-                                    double* __restrict__ scal) {
-  double dots[4];
-  for (int k = 0; k < 4; ++k) {
-    double acc = 0.0;
-    for (int j = threadIdx.x; j < nparts; j += blockDim.x) acc += partials[k * kMaxBlocks + j];
-    dots[k] = block_sum(acc);
-    __syncthreads();
-  }
-  if (threadIdx.x != 0) return;
-  const double g = dots[0], pq = dots[1], rq = dots[2], qq = dots[3];
-  const double a = pq > 0.0 ? g / pq : 0.0;
-  const double t = g - 2.0 * a * rq + a * a * qq;
-  const double gn = t < 0.0 ? 0.0 : t;  // a NaN kept, as jnp.maximum keeps it
-  scal[kGamma] = g;
-  scal[kPQ] = pq;
-  scal[kRQ] = rq;
-  scal[kQQ] = qq;
-  scal[kA] = a;
-  scal[kBeta] = g > 0.0 ? gn / g : 0.0;
-}
-
-// One whole CG iteration (blocked.py::make_blocked_cg_sweep): r' = r - a q,
-// p' = r' + beta p, q' = M p' (over q), x += a p, the four dots and the
-// recurrence's a, beta for the next sweep. partials: 4 * kMaxBlocks.
+// One whole CG iteration (blocked.py::make_blocked_cg_sweep) as three
+// passes and a reduce: r' = r - a q, p' = r' + beta p, q' = M p' (into
+// q_new), x += a p, the four dots and the recurrence's a, beta for the next
+// sweep. partials: 4 * kMaxBlocks.
 template <class T>
-cudaError_t cg_sweep_t(float* x, const T* r, const T* p, T* q, T* r_new, T* p_new, float* t1,
-                       float* t2, double* partials, double* scal, int first, Taps tp, float rho,
-                       Spacing sp, Dims d, cudaStream_t s) {
+cudaError_t cg_sweep_t(float* x, const T* r, const T* p, const T* q, T* q_new, T* r_new,
+                       T* p_new, float* t1, float* t2, double* partials, double* scal, int first,
+                       Taps tp, float rho, Spacing sp, Dims d, cudaStream_t s) {
   const int g = grid_for(d.n());
   const SweepDir<T> src{r, q, p, scal, first, 0.f, 0.f};
   sweep_x_kernel<T><<<g, kThreads, 0, s>>>(src, t1, p_new, r_new, x, partials, tp.x, tp.kx, d);
   conv_y_kernel<<<g, kThreads, 0, s>>>(t1, t2, tp.y, tp.ky, d);
-  sweep_z_kernel<T><<<g, kThreads, 0, s>>>(t2, r, q, p_new, scal, first, rho, sp, partials,
-                                           tp.z, tp.kz, d);
-  sweep_reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, scal);
+  sweep_z_kernel<T><<<g, kThreads, 0, s>>>(t2, r, q, q_new, p_new, scal, first, rho, sp,
+                                           partials, tp.z, tp.kz, d);
+  sweep_reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, g, kMaxBlocks, scal);
   return cudaGetLastError();
 }
 
 // bf16 0: float vectors; 1: bfloat16 (state_dtype).
-cudaError_t cg_sweep(float* x, const void* r, const void* p, void* q, void* r_new, void* p_new,
-                     float* t1, float* t2, double* partials, double* scal, int first, Taps tp,
-                     float rho, int bf16_io, Spacing sp, Dims d, cudaStream_t s) {
+cudaError_t cg_sweep_chain(float* x, const void* r, const void* p, const void* q, void* q_new,
+                           void* r_new, void* p_new, float* t1, float* t2, double* partials,
+                           double* scal, int first, Taps tp, float rho, int bf16_io, Spacing sp,
+                           Dims d, cudaStream_t s) {
   if (bf16_io)
     return cg_sweep_t(x, static_cast<const bf16*>(r), static_cast<const bf16*>(p),
-                      static_cast<bf16*>(q), static_cast<bf16*>(r_new),
-                      static_cast<bf16*>(p_new), t1, t2, partials, scal, first, tp, rho, sp, d,
-                      s);
+                      static_cast<const bf16*>(q), static_cast<bf16*>(q_new),
+                      static_cast<bf16*>(r_new), static_cast<bf16*>(p_new), t1, t2, partials,
+                      scal, first, tp, rho, sp, d, s);
   return cg_sweep_t(x, static_cast<const float*>(r), static_cast<const float*>(p),
-                    static_cast<float*>(q), static_cast<float*>(r_new),
-                    static_cast<float*>(p_new), t1, t2, partials, scal, first, tp, rho, sp, d,
-                    s);
+                    static_cast<const float*>(q), static_cast<float*>(q_new),
+                    static_cast<float*>(r_new), static_cast<float*>(p_new), t1, t2, partials,
+                    scal, first, tp, rho, sp, d, s);
 }
 
 // rec_partials holds 2 * kMaxBlocks doubles: the data partials, then the
@@ -468,6 +452,11 @@ int nsol_cg_step_march(const void* r, const void* p, void* p_new, void* q, doubl
                        double* scal, int first, const float* taps, int kz, int ky, int kx,
                        float rho, int reg, int storage, float ih2x, float ih2y, float ih2z,
                        int Z, int Y, int X, void* stream);
+// sweep_march.cu's cg_sweep, which adds to no count.
+int nsol_cg_sweep_march(float* x, const void* r, const void* p, const void* q, void* q_new,
+                        void* r_new, void* p_new, double* partials, double* scal, int first,
+                        const float* taps, int kz, int ky, int kx, float rho, int bf16_io,
+                        float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream);
 // admm_tail.cu's one-pass admm_tail, counted in counts[kAdmmTail].
 int nsol_admm_tail(float* x, float* v, const float* w, float* w_out, const float* atb,
                    float* rhs, float ihx, float ihy, float ihz, float tau, float rho, int init,
@@ -513,6 +502,28 @@ int cg_step(const void* r, const void* p, void* p_new, void* q, float* t1, float
   return (int)cg_step_chain(r, p, p_new, q, t1, t2, partials, scal, first,
                             make_taps(taps, kz, ky, kx), rho, reg, storage, sp, Dims{Z, Y, X},
                             (cudaStream_t)stream);
+}
+
+// One whole-volume cg_sweep by `route`: the march (counted as
+// kCgSweepMarch) or the three passes through t1, t2 (kCgSweep). q' goes to
+// q_new, never over q (the march's blocks read their neighbours' q).
+int cg_sweep(float* x, const void* r, const void* p, const void* q, void* q_new, void* r_new,
+             void* p_new, float* t1, float* t2, double* partials, double* scal, int first,
+             const float* taps, int kz, int ky, int kx, float rho, int bf16_io, int route,
+             float ih2x, float ih2y, float ih2z, int Z, int Y, int X, void* stream,
+             long long* counts) {
+  if (q_new == nullptr || q_new == q) return (int)cudaErrorInvalidValue;
+  if (takes_march(route, kVolCgSweep, kz, ky, kx, Z, Y, X)) {
+    counts[kCgSweepMarch] += 1;
+    return nsol_cg_sweep_march(x, r, p, q, q_new, r_new, p_new, partials, scal, first, taps, kz,
+                               ky, kx, rho, bf16_io, ih2x, ih2y, ih2z, Z, Y, X, stream);
+  }
+  counts[kCgSweep] += 1;
+  if (t1 == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
+  return (int)cg_sweep_chain(x, r, p, q, q_new, r_new, p_new, t1, t2, partials, scal, first,
+                             make_taps(taps, kz, ky, kx), rho, bf16_io, sp, Dims{Z, Y, X},
+                             (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -588,18 +599,19 @@ int nsol_cg_update(float* x, void* r, const void* p, const void* q, double* part
   return (int)e;
 }
 
-// One CG sweep; bf16_io 1 stores r, p, q (and r_new, p_new) as bfloat16.
-// partials: 4 * nsol_max_blocks() doubles; scal: 6.
-int nsol_cg_sweep(float* x, const void* r, const void* p, void* q, void* r_new, void* p_new,
-                  float* t1, float* t2, double* partials, double* scal, int first,
-                  const float* taps, int kz, int ky, int kx, float rho, int bf16_io, float ih2x,
-                  float ih2y, float ih2z, int Z, int Y, int X, void* stream, long long* counts) {
-  const Spacing sp{0.f, 0.f, 0.f, ih2x, ih2y, ih2z};
-  cudaError_t e = cg_sweep(x, r, p, q, r_new, p_new, t1, t2, partials, scal, first,
-                           make_taps(taps, kz, ky, kx), rho, bf16_io, sp, Dims{Z, Y, X},
-                           (cudaStream_t)stream);
-  counts[kCgSweep] += 1;
-  return (int)e;
+// One CG sweep: q' into q_new (not q: cudaErrorInvalidValue), bf16_io 1
+// stores r, p, q, q_new, r_new, p_new as bfloat16. `route` a Route: the
+// rule (t1, t2 may be null where it takes the march), the chain (t1, t2
+// given) or the march. Counts kCgSweep or kCgSweepMarch by the route taken;
+// partials holds 4 * max(nsol_tiled_blocks(Z, Y, X), nsol_max_blocks())
+// doubles; scal: 6.
+int nsol_cg_sweep(float* x, const void* r, const void* p, const void* q, void* q_new,
+                  void* r_new, void* p_new, float* t1, float* t2, double* partials, double* scal,
+                  int first, const float* taps, int kz, int ky, int kx, float rho, int bf16_io,
+                  int route, float ih2x, float ih2y, float ih2z, int Z, int Y, int X,
+                  void* stream, long long* counts) {
+  return cg_sweep(x, r, p, q, q_new, r_new, p_new, t1, t2, partials, scal, first, taps, kz, ky, kx,
+                  rho, bf16_io, route, ih2x, ih2y, ih2z, Z, Y, X, stream, counts);
 }
 
 // Records row t of x into reg[t], data[t] (float64 device buffers): the
@@ -622,21 +634,23 @@ int nsol_admm_record(const float* x, const float* b, float* t1, float* t2, doubl
 // enqueued on `stream`. x holds x0 on entry and the result on exit. As in
 // the fused TPU kernel, x0 is not clipped on entry (tikhonov.py:130 clips
 // it; the two agree for x0 = b >= 0). The CG vectors r0, r1 (R), p0, p1 (P)
-// and q (Q) are stored as `storage` says; the outer residual reads x as
+// and q, q1 (Q) are stored as `storage` says; the outer residual reads x as
 // bfloat16 under kStoreState and in float otherwise (compact_dirs keeps an
 // exact apply for it, blocked.py:1430-1446). sweep 0: iter_max x (cg_step,
-// cg_update); sweep 1 (kStoreExact or kStoreState): iter_max x cg_sweep,
-// then the owed x += a p (cg_update on x alone), partials max(4 *
-// nsol_max_blocks(), nsol_tiled_blocks), else max(nsol_tiled_blocks,
-// nsol_max_blocks) (the marches'). normal_apply (A^T b, each outer
-// residual) and cg_step take march.cuh's route, march or chain. With
+// cg_update), q1 unused (may be null); sweep 1 (kStoreExact or
+// kStoreState): iter_max x cg_sweep, q' into the other of q and q1 (the
+// solve swaps them), then the owed x += a p (cg_update on x alone),
+// partials 4 * max(nsol_max_blocks(), nsol_tiled_blocks), else
+// max(nsol_tiled_blocks, nsol_max_blocks) (the marches'). normal_apply
+// (A^T b, each outer residual), cg_step and cg_sweep take march.cuh's
+// route, march or chain. With
 // reg != nullptr the solve also records row 0 (x0) and one row per outer
 // iteration (the clipped iterate) into reg/data (fused.py:637-654), the
 // Data loss by rec_loss at the scale rec_scale. admm_tail writes w' into
 // the other of the two volumes w and v (3 components each) and no v: the
-// solve swaps them. counts: 9 (admm.cu's units).
+// solve swaps them. counts: 10 (admm.cu's units).
 int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, float* rhs,
-                    void* r0, void* r1, void* p0, void* p1, void* q, float* t1, float* t2,
+                    void* r0, void* r1, void* p0, void* p1, void* q, void* q1, float* t1, float* t2,
                     double* partials, double* scal, const float* taps_a, int kaz, int kay,
                     int kax, const float* taps_n, int knz, int kny, int knx, float ihx,
                     float ihy, float ihz, float ih2x, float ih2y, float ih2z, float tau,
@@ -647,7 +661,6 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
   const Dims d{Z, Y, X};
   const Spacing sp{ihx, ihy, ihz, ih2x, ih2y, ih2z};
   const Taps ta = make_taps(taps_a, kaz, kay, kax);
-  const Taps tn = make_taps(taps_n, knz, kny, knx);
   const bool record = reg != nullptr;
   const int io_r0 = storage == kStoreState ? 1 : 0;
   if (sweep && storage != kStoreExact && storage != kStoreState) return (int)cudaErrorInvalidValue;
@@ -676,13 +689,19 @@ int nsol_admm_solve(const float* b, float* x, float* v, float* w, float* atb, fl
     void* r_next = r1;
     void* p_prev = p0;
     void* p_cur = p1;
+    void* q_cur = q;
+    void* q_next = q1;
     for (int k = 0; k < iter_max; ++k) {
       if (sweep) {
-        UNIT(kCgSweep, cg_sweep(x, r_cur, p_prev, q, r_next, p_cur, t1, t2, partials, scal, k == 0,
-                                tn, rho, storage == kStoreState, sp, d, s));
+        CALL(cg_sweep(x, r_cur, p_prev, q_cur, q_next, r_next, p_cur, t1, t2, partials, scal,
+                      k == 0, taps_n, knz, kny, knx, rho, storage == kStoreState, kRouteRule,
+                      ih2x, ih2y, ih2z, Z, Y, X, stream, counts));
         void* tmp = r_cur;
         r_cur = r_next;
         r_next = tmp;
+        tmp = q_cur;
+        q_cur = q_next;
+        q_next = tmp;
       } else {
         CALL(cg_step(r_cur, p_prev, p_cur, q, t1, t2, partials, scal, k == 0, taps_n, knz, kny,
                      knx, rho, kRegLap, storage, kRouteRule, ih2x, ih2y, ih2z, Z, Y, X, stream,

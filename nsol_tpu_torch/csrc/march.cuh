@@ -53,8 +53,15 @@
 // intermediate volume reaches device memory. No wgmma, TMA or warp
 // specialisation.
 //
-// Reductions are deterministic: one float64 partial per block, summed in a
-// fixed order by stencil.cuh's reduce_kernel.
+// Reductions are deterministic: one float64 partial per block (four for
+// the sweep's dots), summed in a fixed order by stencil.cuh's
+// reduce_kernel (sweep_reduce_kernel).
+//
+// The sweep's instance (kSrcSweep, cg_sweep_march_t) reads three windows,
+// r, q and p, and forms r' = r - a q and p' = r' + beta p in them; it keeps
+// r' of the tile's own planes in a third ring (the raw ring's depth) for
+// the epilogue's r'.q', so its block holds about 72 KB at the 13 normal
+// taps: three blocks an SM (kSweepResident), which its z tile counts.
 //
 // The z tile (march_tile_z, the one rule for every instance of both
 // marches). A block re-reads a z halo of its tile, (tile + extra) / tile
@@ -68,14 +75,15 @@
 // tile. 512^3 keeps its 128 / 256 planes (2048 / 1024 blocks, four
 // waves); 256^3 takes 64 / 128 (512 / 256 blocks, one wave each).
 //
-// The whole-volume route (vol_route). The whole-volume cg_step, normal_apply
-// (admm.cu), weighted_apply, blur_apply and irls_head (robust.cu) take the
-// march on a volume past the fused solves' fit (more than kMarchMinVoxels
-// = 2^20 voxels, 16 volumes in 64 MiB; 2^19 for the lighter normal_apply,
-// blur_apply and irls_head) deep enough that a block takes at most 2.5
-// steps a plane it writes (4 for normal_apply and irls_head: at sigma = 1,
-// Z >= 8 for cg_step, 9 for weighted_apply, 4 for normal_apply and
-// blur_apply, 2 for irls_head) where a block's shared memory holds the
+// The whole-volume route (vol_route). The whole-volume cg_step, normal_apply,
+// cg_sweep (admm.cu), weighted_apply, blur_apply and irls_head (robust.cu)
+// take the march on a volume past the fused solves' fit (more than
+// kMarchMinVoxels = 2^20 voxels, 16 volumes in 64 MiB; 2^19 for the
+// lighter normal_apply, blur_apply and irls_head) deep enough that a block
+// takes at most 2.5 steps a plane it writes (4 for normal_apply and
+// irls_head: at sigma = 1, Z >= 8 for cg_step and cg_sweep, 9 for
+// weighted_apply, 4 for normal_apply and blur_apply, 2 for irls_head)
+// where a block's shared memory holds the
 // taps (the runtime-length instance's size, as ops/cuda/tiled.py::
 // route_fits measures it), and else the three passes of stencil.cuh.
 // Timed by device time in turns on the H100 (chip_smoke.py phase 37,
@@ -190,36 +198,61 @@ __device__ __forceinline__ float ring_laplacian(const float* zm, const float* zc
 
 // How a window of the inputs becomes the convolved plane and the Laplacian's
 // source: one volume for both; the CG direction p' = r + beta p for both
-// (written out on the tile's own planes); or a second volume u for the
-// Laplacian.
-enum SrcKind { kSrcOne = 0, kSrcDirection = 1, kSrcTwo = 2 };
+// (written out on the tile's own planes); a second volume u for the
+// Laplacian; or the sweep's direction p' = (r - a q) + beta p for both,
+// with r' = r - a q and x += a p on the tile's own planes.
+enum SrcKind { kSrcOne = 0, kSrcDirection = 1, kSrcTwo = 2, kSrcSweep = 3 };
 
 // In: the storage of in0 (a single-input unit may read bfloat16), As the
 // precision it is read at; P: the storage of in1, the CG direction's (p
-// and p', float or bfloat16) or float u. A window unit (the sharded
-// path's) reads d.Z + 2 hd planes of in0 with no z wrap, and its Laplacian
-// takes the global rows row0 + z of a volume of z_total rows.
+// and p', float or bfloat16) or float u, and of the sweep's q, p (in1,
+// in2), r' and p'. A window unit (the sharded path's) reads d.Z + 2 hd
+// planes of in0 with no z wrap, and its Laplacian takes the global rows
+// row0 + z of a volume of z_total rows.
 template <class In = float, class As = In, class P = float>
 struct StencilArgs {
   const In* in0;  // v, r, y or x
-  const P* in1;   // p (kSrcDirection, not on the first trip) or u (kSrcTwo)
-  P* dir_out;     // p' (kSrcDirection)
+  const P* in1;   // p (kSrcDirection), q (kSrcSweep; neither on the first
+                  // trip) or u (kSrcTwo)
+  P* dir_out;     // p' (kSrcDirection, kSrcSweep)
   const double* scal;
   int first;
   Taps tp;
   Spacing sp;
   Dims d;
   double* partials;
-  int row0, z_total;  // window units only
+  int row0, z_total;       // window units only
+  const P* in2 = nullptr;  // p (kSrcSweep, not on the first trip)
+  P* res_out = nullptr;    // r' (kSrcSweep)
+  float* x = nullptr;      // x += a p in place (kSrcSweep)
 };
+
+// The sweep's four dots, summed per thread and per block in a fixed order:
+// g = r'.r', pq = p'.q', rq = r'.q', qq = q'.q'.
+struct Dots4 {
+  double v[4];
+};
+
+__device__ __forceinline__ Dots4& operator+=(Dots4& a, const Dots4& b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a.v[k] += b.v[k];
+  return a;
+}
 
 // A thread owns a column strip of kStrip outputs of the tile: blockDim is
 // (kTileX, kTileY / kStrip).
 constexpr int kStrip = 4;
 constexpr int kStencilRows = kTileY / kStrip;
 constexpr int kStencilThreads = kTileX * kStencilRows;
-// blocks an SM holds at once (the launch bound: registers, PERF.md)
+// blocks an SM holds at once (the launch bound: registers, PERF.md); the
+// sweep's instance: shared memory (three windows and the r' ring)
 constexpr int kStencilResident = 4;
+constexpr int kSweepResident = 3;
+
+template <int kSrc>
+__host__ __device__ constexpr int stencil_resident() {
+  return kSrc == kSrcSweep ? kSweepResident : kStencilResident;
+}
 // The window's x margin: the x halo rounded up to 16 bytes of the input,
 // so that its rows start on 16-byte boundaries of the volume: 8 values for
 // a single-input unit (which may read bfloat16) and for two inputs of
@@ -264,12 +297,14 @@ inline StencilGeo stencil_geo(Taps tp, int nin, bool two_byte = false) {
 }
 
 // Taps (each axis 16-byte aligned), the row and column tables, the windows
-// [2][nin][wy x wx], the x-blurred rows (wy x kTileX), the raw ring (lap)
-// and the z ring (runtime-length taps, ring_z).
-inline size_t stencil_smem(const StencilGeo& g, bool lap, bool ring_z) {
+// [2][nin][wy x wx], the x-blurred rows (wy x kTileX), the raw ring (lap),
+// the z ring (runtime-length taps, ring_z) and the sweep's r' ring (res:
+// the tile's own values, as deep as the raw ring).
+inline size_t stencil_smem(const StencilGeo& g, bool lap, bool ring_z, bool res = false) {
   const size_t words = (size_t)g.win + 2 * (size_t)g.nin * g.win_n() + (size_t)g.wy * kTileX +
                        (lap ? (size_t)g.ring_raw * kRawN : 0) +
-                       (ring_z ? (size_t)g.ring_z * kOutN : 0);
+                       (ring_z ? (size_t)g.ring_z * kOutN : 0) +
+                       (res ? (size_t)g.ring_raw * kOutN : 0);
   return words * 4;
 }
 
@@ -362,14 +397,25 @@ __device__ __forceinline__ void load_taps(const float* t, float (&k)[K]) {
 // direction (kSrcDirection) is p' = r + beta p rounded to P (stencil.cuh's
 // DirectionT: product and sum rounded apart for bfloat16), formed from r
 // read as In and p as P; it is what the taps convolve, the Laplacian's
-// source and what is written out.
+// source and what is written out. The sweep's (kSrcSweep) is admm.cu's
+// SweepDir: r' = r - a q, then p' = r' + beta p rounded to P, from r, q, p
+// read as P; on the tile's own planes it also writes r' (as P), x += a p
+// (the old p) and keeps r' in the r' ring, whose value at the output voxel
+// its epilogue takes as a fifth argument, and it sums g = r'.r' there into
+// the first of its four dots (Dots4), the epilogue's three the others.
 template <int kK, int kSrc, bool kLap, bool kWindow, class In, class As, class P, class Epi>
-__global__ void __launch_bounds__(kStencilThreads, kStencilResident)
+__global__ void __launch_bounds__(kStencilThreads,
+                                  kSrc == kSrcSweep ? kSweepResident : kStencilResident)
     stencil_zy_kernel(StencilArgs<In, As, P> a, StencilGeo g, Epi epi) {
   static_assert(kSrc != kSrcTwo || (sizeof(In) == 4 && sizeof(P) == 4),
                 "the two-volume form is float");
+  static_assert(kSrc != kSrcSweep || std::is_same<In, P>::value,
+                "the sweep stores r, q, p alike");
+  constexpr bool kSweep = kSrc == kSrcSweep;
+  constexpr bool kDirected = kSrc == kSrcDirection || kSweep;  // p' formed and written
   constexpr bool kTwoByte = kSrc != kSrcOne && (sizeof(In) == 2 || sizeof(P) == 2);
   constexpr int kAx = align_x(kSrc == kSrcOne ? 1 : 2, kTwoByte);
+  using Acc = typename std::conditional<kSweep, Dots4, double>::type;
   extern __shared__ __align__(16) float smem[];
   const Dims d = a.d;
   const int kz = kK ? kK : a.tp.kz, ky = kK ? kK : a.tp.ky, kx = kK ? kK : a.tp.kx;
@@ -385,12 +431,14 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
   float* xt = win + 2 * g.nin * wn;          // x taps of the window rows, wy x kTileX
   float* ring_raw = xt + g.wy * kTileX;      // Laplacian source, halo 1
   float* ring_z = ring_raw + (kLap ? g.ring_raw * kRawN : 0);  // runtime taps only
+  float* ring_r = ring_z + (kK ? 0 : g.ring_z * kOutN);        // r' (kSrcSweep)
   const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY, z0 = blockIdx.z * g.tz;
   const int nz = min(g.tz, d.Z - z0);
   const int np = nz + 2 * hd;
-  const bool dir = kSrc == kSrcDirection && !a.first;
+  const bool dir = kDirected && !a.first;
   const bool has_in1 = kSrc == kSrcTwo || dir;
   const float beta = dir ? (float)a.scal[kBeta] : 0.f;
+  const float alpha = kSweep && dir ? (float)a.scal[kA] : 0.f;
   for (int i = tid; i < kz; i += nt) tz[i] = a.tp.z[i];
   for (int i = tid; i < ky; i += nt) ty[i] = a.tp.y[i];
   for (int i = tid; i < kx; i += nt) tx[i] = a.tp.x[i];
@@ -398,6 +446,7 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
   for (int i = tid; i < g.wx; i += nt) cols[i] = wrap_index(x0 - ax + i, d.X);
   const CopyPlan plan0 = copy_plan(a.in0, g.wx, d.X);
   const CopyPlan plan1 = copy_plan(a.in1, g.wx, d.X);
+  const CopyPlan plan2 = copy_plan(a.in2, g.wx, d.X);
   __syncthreads();
 
   auto start_copy = [&](int k) {
@@ -407,13 +456,15 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
     copy_plane(reinterpret_cast<In*>(dst), a.in0 + off, rows, cols, plan0, g.wy, g.wx);
     if (has_in1)
       copy_plane(reinterpret_cast<P*>(dst + wn), a.in1 + off, rows, cols, plan1, g.wy, g.wx);
+    if (kSweep && dir)
+      copy_plane(reinterpret_cast<P*>(dst + 2 * wn), a.in2 + off, rows, cols, plan2, g.wy, g.wx);
   };
 
   // the thread's column strip: outputs (y0 + kStrip s + m, x0 + c)
   const int c = threadIdx.x, s = threadIdx.y;
   constexpr int kD = kK ? kK + halo_of(kK) - kK / 2 : 1;  // z ring depth in registers
   float zr[kStrip][kD];                                   // zr[m][t]: step k - t
-  double acc = 0.0;
+  Acc acc{};
   start_copy(0);
   __pipeline_commit();
   // kr, kq: the slots of step k in the raw and the z ring
@@ -425,9 +476,18 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
     __syncthreads();
     const In* w0 = reinterpret_cast<const In*>(win + (k & 1) * g.nin * wn);
     const P* w1 = reinterpret_cast<const P*>(win + (k & 1) * g.nin * wn + wn);
+    const P* w2 = reinterpret_cast<const P*>(win + (k & 1) * g.nin * wn + 2 * wn);
+    // the sweep's r' = r - a q (r on the first trip), unrounded
+    const auto res_src = [&](int e) {
+      const float v = to_float(w0[e]);
+      return dir ? axpy_as<P>(-alpha, to_float(w1[e]), v) : v;
+    };
     // the value the x taps convolve (p' = r + beta p rounded to P, where
-    // a direction is formed), and the Laplacian's source
+    // a direction is formed; the sweep's p' = r' + beta p), and the
+    // Laplacian's source
     const auto conv_src = [&](int e) {
+      if (kSweep) return round_as<P>(dir ? axpy_as<P>(beta, to_float(w2[e]), res_src(e))
+                                         : res_src(e));
       const float v = round_as<As>(to_float(w0[e]));
       if (kSrc != kSrcDirection) return v;
       return round_as<P>(dir ? axpy_as<P>(beta, to_float(w1[e]), v) : v);
@@ -456,7 +516,15 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
 #pragma unroll
             for (int t = 0; t < 4; ++t) v[4 * f + t] = axpy_as<P>(beta, p[t], v[4 * f + t]);
           }
-          if (kSrc == kSrcDirection && sizeof(P) == 2) {
+          if (kSweep && dir) {
+            float q[4], p[4];
+            load4<P>(w1 + base + 4 * f, q);
+            load4<P>(w2 + base + 4 * f, p);
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              v[4 * f + t] = axpy_as<P>(beta, p[t], axpy_as<P>(-alpha, q[t], v[4 * f + t]));
+          }
+          if (kDirected && sizeof(P) == 2) {
 #pragma unroll
             for (int t = 0; t < 4; ++t) v[4 * f + t] = round_as<P>(v[4 * f + t]);
           }
@@ -487,13 +555,21 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
         raw[e] = lap_src((r - 1 + hy) * g.wx + cc - 1 + ax);
       }
     }
-    if (kSrc == kSrcDirection && k >= hd && k < hd + nz) {  // p' on the block's own planes
+    if (kDirected && k >= hd && k < hd + nz) {  // p' on the block's own planes
       const long long pz = z0 - hd + k;
       for (int e = tid; e < kOutN; e += nt) {
         const int oy = e / kTileX, ox = e % kTileX, y = y0 + oy, x = x0 + ox;
-        if (y < d.Y && x < d.X)
-          a.dir_out[pz * d.plane() + (long long)y * d.X + x] =
-              store_as<P>(conv_src((oy + hy) * g.wx + ox + ax));
+        if (y >= d.Y || x >= d.X) continue;
+        const int we = (oy + hy) * g.wx + ox + ax;
+        const long long i = pz * d.plane() + (long long)y * d.X + x;
+        if constexpr (kSweep) {  // r', the old p's x += a p, g
+          const float rn = res_src(we);
+          if (dir) a.x[i] = __fmaf_rn(alpha, to_float(w2[we]), a.x[i]);
+          a.res_out[i] = store_as<P>(rn);
+          ring_r[kr * kOutN + e] = rn;
+          acc.v[0] += (double)rn * rn;
+        }
+        a.dir_out[i] = store_as<P>(conv_src(we));
       }
     }
     __syncthreads();
@@ -563,10 +639,22 @@ __global__ void __launch_bounds__(kStencilThreads, kStencilResident)
         centre = zc[o];
       }
       const long long i = (long long)z * d.plane() + (long long)cd.y * d.X + cd.x;
-      acc += epi(i, conv, lap, centre);
+      if constexpr (kSweep)
+        acc += epi(i, conv, lap, centre,
+                   ring_r[slot_back(kr, hd, g.ring_raw) * kOutN + oy * kTileX + c]);
+      else
+        acc += epi(i, conv, lap, centre);
     }
   }
-  if (a.partials != nullptr) {
+  if (a.partials == nullptr) return;
+  if constexpr (kSweep) {  // partials[k * blocks + block], k = g, pq, rq, qq
+    const int nb = (int)(gridDim.x * gridDim.y * gridDim.z);
+    for (int q = 0; q < 4; ++q) {
+      const double sum = tile_sum(acc.v[q]);
+      if (tid == 0) a.partials[q * nb + block_index()] = sum;
+      __syncthreads();
+    }
+  } else {
     const double sum = tile_sum(acc);
     if (tid == 0) a.partials[block_index()] = sum;
   }
@@ -619,21 +707,22 @@ inline int march_halo_steps(int kz, bool weighted) {
   return weighted ? 4 * halo_of(kz) + 1 : 2 * halo_of(kz);
 }
 
-// The single-stencil march's grid at the taps tp.
-inline MarchGrid stencil_grid(Dims d, Taps tp) {
-  return march_grid(d, kTileZ, march_halo_steps(tp.kz, false), kStencilResident);
+// The single-stencil march's grid at the taps tp, for an instance that
+// holds `resident` blocks an SM (the sweep's: kSweepResident).
+inline MarchGrid stencil_grid(Dims d, Taps tp, int resident = kStencilResident) {
+  return march_grid(d, kTileZ, march_halo_steps(tp.kz, false), resident);
 }
 
 template <int kK, int kSrc, bool kLap, bool kWindow, class In, class As, class P, class Epi>
 cudaError_t launch_march(const StencilArgs<In, As, P>& a, StencilGeo g, Epi epi,
                          cudaStream_t s) {
-  const size_t smem = stencil_smem(g, kLap, kK == 0);
+  const size_t smem = stencil_smem(g, kLap, kK == 0, kSrc == kSrcSweep);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = stencil_zy_kernel<kK, kSrc, kLap, kWindow, In, As, P, Epi>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  const MarchGrid mg = stencil_grid(a.d, a.tp);
+  const MarchGrid mg = stencil_grid(a.d, a.tp, stencil_resident<kSrc>());
   g.tz = mg.tz;
   kernel<<<mg.grid, dim3(kTileX, kStencilRows), smem, s>>>(a, g, epi);
   return cudaGetLastError();
@@ -1262,9 +1351,10 @@ cudaError_t launch_weighted_taps(const A& a, cudaStream_t s) {
 // --------------------------------------------------- whole-volume units --
 
 // The shared memory a block of the whole-volume unit's march takes at the
-// taps tp, in its runtime-length instance (the larger): cg_step's with the
-// bfloat16 windows' margins and blur_apply's with u (the gradient's), so
-// that every storage mode and form of a unit takes one route.
+// taps tp, in its runtime-length instance (the larger): cg_step's and
+// cg_sweep's with the bfloat16 windows' margins and blur_apply's with u (the
+// gradient's), so that every storage mode and form of a unit takes one
+// route.
 inline size_t vol_smem(int unit, Taps tp) {
   switch (unit) {
     case kVolCgStep:
@@ -1275,6 +1365,8 @@ inline size_t vol_smem(int unit, Taps tp) {
       return stencil_smem(stencil_geo(tp, 1), true, true);
     case kVolBlurApply:
       return stencil_smem(stencil_geo(tp, 2), true, true);
+    case kVolCgSweep:  // three windows with bfloat16 margins and the r' ring
+      return stencil_smem(stencil_geo(tp, 3, true), true, true, true);
     default:  // kVolIrlsHead: one window, no Laplacian
       return stencil_smem(stencil_geo(tp, 1), false, true);
   }
@@ -1283,10 +1375,11 @@ inline size_t vol_smem(int unit, Taps tp) {
 // The most steps a block of the whole-volume unit's march may take a plane
 // it writes, (Z + halo steps) / Z, as a ratio: 2.5 where the march lost
 // to the chain on thinner stacks (cg_step, weighted_apply, blur_apply's
-// gradient form), 4 for the lighter normal_apply (one window; it won at 4
-// planes of 13 taps, 4 steps a plane) and irls_head (one window, no
-// Laplacian; it won at 2 planes of 7 taps). Timed by device time in turns
-// on the H100 (chip_smoke.py phase 37, PERF.md).
+// gradient form; cg_sweep takes cg_step's), 4 for the lighter
+// normal_apply (one window; it won at 4 planes of 13 taps, 4 steps a
+// plane) and irls_head (one window, no Laplacian; it won at 2 planes of 7
+// taps). Timed by device time in turns on the H100 (chip_smoke.py phases
+// 37 and 40, PERF.md).
 struct StepsPerPlane {
   int num, den;
 };
@@ -1298,16 +1391,19 @@ inline StepsPerPlane vol_steps(int unit) {
 
 // The fewest voxels the whole-volume unit's march takes (exclusive).
 inline long long vol_min_voxels(int unit) {
-  return unit == kVolCgStep || unit == kVolWeightedApply ? kMarchMinVoxels : kLightMinVoxels;
+  return unit == kVolCgStep || unit == kVolWeightedApply || unit == kVolCgSweep
+             ? kMarchMinVoxels
+             : kLightMinVoxels;
 }
 
-// Whether the whole-volume unit (VolUnit: cg_step and normal_apply at the
-// normal taps, weighted_apply, blur_apply and irls_head at the blur taps)
-// takes its march at the taps tp on the volume d, else stencil.cuh's
-// three-pass chain: the march on a volume of more than vol_min_voxels
-// voxels, deep enough that a block takes at most vol_steps(unit) steps a
-// plane it writes (so no 2-D view), where a block's shared memory holds
-// the taps (vol_smem). ops/cuda/tiled.py::vol_route mirrors it.
+// Whether the whole-volume unit (VolUnit: cg_step, normal_apply and
+// cg_sweep at the normal taps, weighted_apply, blur_apply and irls_head at
+// the blur taps) takes its march at the taps tp on the volume d, else
+// stencil.cuh's three-pass chain: the march on a volume of more than
+// vol_min_voxels voxels, deep enough that a block takes at most
+// vol_steps(unit) steps a plane it writes (so no 2-D view), where a
+// block's shared memory holds the taps (vol_smem). ops/cuda/tiled.py::
+// vol_route mirrors it.
 inline bool vol_route(int unit, Taps tp, Dims d) {
   if (d.n() <= vol_min_voxels(unit)) return false;
   const StepsPerPlane sp = vol_steps(unit);
@@ -1357,6 +1453,50 @@ cudaError_t cg_step_march_t(const void* r, const void* p, void* p_new, void* q, 
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, stencil_grid(d, tp).blocks(), scal,
                                              kReducePQ);
+  return cudaGetLastError();
+}
+
+// cg_sweep's epilogue: q' = conv + rho D^T D p' stored as T into another
+// volume than q (a block's halo reads its neighbours' q while they write
+// q'), and the dots p'.q' (the rounded p', the centre), r'.q' (r' before
+// its rounding, from the r' ring) and q'.q' (q' before its rounding), as
+// admm.cu's sweep_z_kernel takes them; g is the kernel's own.
+template <class T>
+struct SweepZyEpi {
+  T* out;
+  float rho;
+  __device__ Dots4 operator()(long long i, float conv, float lap, float centre,
+                              float rn) const {
+    const float q = __fmaf_rn(rho, lap, conv);
+    out[i] = store_as<T>(q);
+    return Dots4{{0.0, (double)centre * q, (double)rn * q, (double)q * q}};
+  }
+};
+
+// The whole CG iteration of cg_sweep on the single-stencil march: r' = r -
+// a q, p' = r' + beta p (r', p' written once), q' = (A^T A + rho D^T D) p'
+// into q_new, x += a p (the old p, in place), the four dots and the
+// recurrence's a, beta (sweep_reduce_kernel); r, q, p, r', p', q' stored as
+// T, a = beta = 0 and no q, p read on the first trip. partials holds 4 x
+// the grid's blocks.
+template <class T>
+cudaError_t cg_sweep_march_t(float* x, const T* r, const T* p, const T* q, T* q_new, T* r_new,
+                             T* p_new, double* partials, double* scal, int first, Taps tp,
+                             float rho, Spacing sp, Dims d, cudaStream_t s) {
+  StencilArgs<T, T, T> a{r,        first ? nullptr : q,
+                         p_new,    scal,
+                         first,    tp,
+                         sp,       d,
+                         partials, 0,
+                         0};
+  a.in2 = first ? nullptr : p;
+  a.res_out = r_new;
+  a.x = x;
+  const cudaError_t e =
+      launch_stencil<kNormalK, kSrcSweep, true>(a, 3, SweepZyEpi<T>{q_new, rho}, s);
+  if (e != cudaSuccess) return e;
+  const int nb = stencil_grid(d, tp, kSweepResident).blocks();
+  sweep_reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, nb, nb, scal);
   return cudaGetLastError();
 }
 

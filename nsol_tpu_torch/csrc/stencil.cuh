@@ -144,7 +144,8 @@ enum VolUnit {
   kVolWeightedApply = 1,
   kVolNormalApply = 2,
   kVolBlurApply = 3,
-  kVolIrlsHead = 4
+  kVolIrlsHead = 4,
+  kVolCgSweep = 5
 };
 enum Route { kRouteRule = 0, kRouteChain = 1, kRouteMarch = 2 };
 
@@ -425,6 +426,33 @@ __global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
     scal[kGamma] = s;
     scal[kBeta] = 0.0;
   }
+}
+
+// The sweep's scalar recurrence (blocked.py:1505-1509): a = g / pq,
+// gamma = max(g - 2 a rq + a^2 qq, 0), beta = gamma / g (zero-guarded),
+// beside the four dots, whose nparts partials each lie at partials[k *
+// stride], k = g, pq, rq, qq (admm.cu's chain: stride kMaxBlocks; the
+// march: its grid's blocks).
+__global__ void sweep_reduce_kernel(const double* __restrict__ partials, int nparts, int stride,
+                                    double* __restrict__ scal) {
+  double dots[4];
+  for (int k = 0; k < 4; ++k) {
+    double acc = 0.0;
+    for (int j = threadIdx.x; j < nparts; j += blockDim.x) acc += partials[k * stride + j];
+    dots[k] = block_sum(acc);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const double g = dots[0], pq = dots[1], rq = dots[2], qq = dots[3];
+  const double a = pq > 0.0 ? g / pq : 0.0;
+  const double t = g - 2.0 * a * rq + a * a * qq;
+  const double gn = t < 0.0 ? 0.0 : t;  // a NaN kept, as jnp.maximum keeps it
+  scal[kGamma] = g;
+  scal[kPQ] = pq;
+  scal[kRQ] = rq;
+  scal[kQQ] = qq;
+  scal[kA] = a;
+  scal[kBeta] = g > 0.0 ? gn / g : 0.0;
 }
 
 // x += a p; unless r is null, r' = r - a q (float, summed squared) and r

@@ -140,20 +140,21 @@ int nsol_admm_tail(float* x, float* v, const float* w, float* w_out, const float
 // its shortest z tile.
 int nsol_tiled_blocks(int Z, int Y, int X) { return march_max_blocks(Dims{Z, Y, X}); }
 
-// Planes a block of the single-stencil march (weighted 0, z taps kz) or of
-// the weighted march (weighted 1, blur z taps kz) marches through at
+// Planes a block of the single-stencil march (march 0, z taps kz), of the
+// weighted march (march 1, blur z taps kz) or of the single-stencil
+// march's sweep instance (march 2, three blocks an SM) marches through at
 // (Z, Y, X) on the current device: march.cuh's rule, which
 // ops/cuda/tiled.py::tile_z mirrors.
-int nsol_march_tile_z(int Z, int Y, int X, int kz, int weighted) {
+int nsol_march_tile_z(int Z, int Y, int X, int kz, int march) {
   const Taps tp{nullptr, nullptr, nullptr, kz, kz, kz};
   const Dims d{Z, Y, X};
-  return weighted ? weighted_grid(d, tp).tz : stencil_grid(d, tp).tz;
+  if (march == 1) return weighted_grid(d, tp).tz;
+  return stencil_grid(d, tp, march == 2 ? kSweepResident : kStencilResident).tz;
 }
 
-// Whether the whole-volume unit (0: cg_step at the normal taps, 1:
-// weighted_apply at the blur taps (kz, ky, kx)) takes its march at
-// (Z, Y, X): march.cuh's vol_route, which ops/cuda/tiled.py::vol_route
-// mirrors.
+// Whether the whole-volume unit (stencil.cuh's VolUnit, at the taps (kz,
+// ky, kx)) takes its march at (Z, Y, X): march.cuh's vol_route, which
+// ops/cuda/tiled.py::vol_route mirrors.
 int nsol_vol_route(int unit, int kz, int ky, int kx, int Z, int Y, int X) {
   return vol_route(unit, Taps{nullptr, nullptr, nullptr, kz, ky, kx}, Dims{Z, Y, X}) ? 1 : 0;
 }

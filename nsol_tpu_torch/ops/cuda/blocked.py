@@ -32,7 +32,13 @@ PyTorch version beside it and a launch counter on its wrapper:
 * :func:`cg_sweep` — one whole CG iteration in one pass with its four
   dots and the scalar recurrence; replaces
   ``blocked.py::make_blocked_cg_sweep`` (:1139), ``blocked_admm_solve``'s
-  ``mode="sweep"``.
+  ``mode="sweep"``. Where :func:`~.tiled.vol_route` takes the shape and
+  taps (``cg_step``'s rule) the C entry runs it as the whole-volume
+  sweep instance of the single-stencil march (``csrc/sweep_march.cu``,
+  counted on ``cg_sweep.march_launches``), which reads ``r``, ``q``,
+  ``p`` once and allocates no scratch volume; else as three passes. The
+  two give the same ``x'``, ``r'``, ``p'``, ``q'`` bit for bit, ``q'``
+  into a second volume.
 * :func:`normal_apply_prepadded` — ``q = AᵀA v + ρ·DᵀD v`` on a z-window
   of a sharded volume whose halo planes the ring exchange has attached,
   the Laplacian's global boundary rows placed by ``row0``/``z_total``;
@@ -442,11 +448,12 @@ def _partials(device, sets=1):
 #: launch counts a C entry of ``csrc/admm.cu`` or ``csrc/robust.cu`` adds
 #: to (their Unit enums), and the slots of the marches' counts there:
 #: ``cg_step``'s and ``weighted_apply``'s (7), ``normal_apply``'s and
-#: ``blur_apply``'s (8), ``irls_head``'s (9), ``blur_apply_prepadded``'s
-#: window (10)
+#: ``blur_apply``'s (8), ``irls_head``'s and ``cg_sweep``'s (9),
+#: ``blur_apply_prepadded``'s window (10)
 COUNTS = 11
 MARCH_SLOT = {"cg_step": 7, "weighted_apply": 7, "normal_apply": 8,
-              "blur_apply": 8, "irls_head": 9, "blur_apply_prepadded": 10}
+              "blur_apply": 8, "irls_head": 9, "cg_sweep": 9,
+              "blur_apply_prepadded": 10}
 
 
 def count_marches(counts, *units):
@@ -611,33 +618,55 @@ def cg_sweep(x, r, p, q, scal, taps, inv_h2, rho, first=False):
     bfloat16 (``io_dtype``): the arithmetic and the dots are float32,
     ``pq`` takes the rounded ``p'``, the others the unrounded ``r'``,
     ``q'``. ``taps``: the normal taps (the TV Laplacian). Returns
-    ``(r', p')``."""
+    ``(r', p')``. On the card the C entry runs :func:`~.tiled.vol_route`'s
+    route: the march (``csrc/sweep_march.cu``, counted on
+    ``cg_sweep.march_launches``) or the three passes (on
+    ``cg_sweep.launches``); either writes ``q'`` into a second volume,
+    which this wrapper copies back into ``q``."""
     if x.device.type == "cpu":
         return cg_sweep_plain(x, r, p, q, scal, taps, inv_h2, rho, first)
+    r_new, p_new, q_new = _cg_sweep(x, r, p, q, scal, taps, inv_h2, rho,
+                                    first)
+    q.copy_(q_new)
+    return r_new, p_new
+
+
+def _cg_sweep(x, r, p, q, scal, taps, inv_h2, rho, first, route=None):
+    """:func:`cg_sweep` on the card by ``route`` (``None``:
+    :func:`~.tiled.vol_route`'s; ``"chain"`` the three passes, the bit
+    reference the march is held to; ``"march"`` the march whatever the
+    rule says of the shape), ``q`` left as it is: returns ``(r', p',
+    q')``."""
     name = "cg_sweep"
-    T = r.dtype
-    io = io_flag(name, T)
+    dt = r.dtype
+    io = io_flag(name, dt)
     dims = volume_dims(name, x)
     check_tensors(name, x.shape, x)
     check_tensors(name, x.shape, r, q, *([] if first else [p]),
-                  device=x.device, dtype=T)
+                  device=x.device, dtype=dt)
     _check_consts(name, x.device, taps, scal, nscal=6)
     lib = build.load()
-    r_new, p_new = torch.empty_like(r), torch.empty_like(r)
-    t1, t2 = (torch.empty(x.shape, device=x.device) for _ in range(2))
+    T = _tiled()
+    r_new, p_new, q_new = (torch.empty_like(r) for _ in range(3))
     tv = taps.as_volume()
+    route = route or T.vol_route(name, tv.lengths, dims)
+    t1 = t2 = None
+    if route == "chain":
+        t1, t2 = (torch.empty(x.shape, device=x.device) for _ in range(2))
     counts = build.new_counts(COUNTS)
     err = lib.nsol_cg_sweep(
         build.tensor_ptr(x), build.tensor_ptr(r),
         None if first else build.tensor_ptr(p), build.tensor_ptr(q),
-        build.tensor_ptr(r_new), build.tensor_ptr(p_new), build.tensor_ptr(t1),
-        build.tensor_ptr(t2), build.tensor_ptr(_partials(x.device, 4)),
+        build.tensor_ptr(q_new), build.tensor_ptr(r_new),
+        build.tensor_ptr(p_new), build.tensor_ptr(t1), build.tensor_ptr(t2),
+        build.tensor_ptr(T.tiled_partials(x.device, dims, 4)),
         build.tensor_ptr(scal), int(bool(first)), build.tensor_ptr(tv.buf),
-        *tv.lengths, float(rho), io, *spacing3(inv_h2), *dims,
-        build.stream_ptr(x.device), counts)
+        *tv.lengths, float(rho), io, T.ROUTES.index(route),
+        *spacing3(inv_h2), *dims, build.stream_ptr(x.device), counts)
     build.check(err, name)
     cg_sweep.launches += counts[5]
-    return r_new, p_new
+    count_marches(counts, cg_sweep)
+    return r_new, p_new, q_new
 
 
 def prepadded_halo(taps):
@@ -736,6 +765,7 @@ def _normal_apply_prepadded(v_ext, taps, inv_h2, rho, row0, z_total, chain):
 for _f in (normal_apply, cg_step, cg_update, cg_sweep, normal_apply_prepadded):
     _f.launches = 0
 cg_step.march_launches = normal_apply.march_launches = 0
+cg_sweep.march_launches = 0
 
 
 # ------------------------------------------- reference-shaped entry points --

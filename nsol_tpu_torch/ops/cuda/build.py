@@ -47,12 +47,12 @@ _SIGNATURES = {
     "nsol_cg_step": [_P] * 8 + [_I, _P] + [_I] * 3 + [_F, _I, _I, _I]
     + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_cg_update": [_P] * 6 + [_LL, _I, _I, _P, _P],
-    "nsol_cg_sweep": [_P] * 10 + [_I, _P] + [_I] * 3 + [_F, _I] + [_F] * 3
-    + [_I] * 3 + [_P, _P],
+    "nsol_cg_sweep": [_P] * 11 + [_I, _P] + [_I] * 3 + [_F, _I, _I]
+    + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_admm_tail": [_P] * 6 + [_F] * 5 + [_I] * 5 + [_P, _P],
     "nsol_admm_record": [_P] * 7 + [_I, _P] + [_I] * 3 + [_I, _F]
     + [_F] * 3 + [_I] * 3 + [_P, _P],
-    "nsol_admm_solve": [_P] * 15 + [_P, _I, _I, _I, _P, _I, _I, _I]
+    "nsol_admm_solve": [_P] * 16 + [_P, _I, _I, _I, _P, _I, _I, _I]
     + [_F] * 8 + [_I] * 4 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
     "nsol_pd_record_blocks": [_I] * 6,
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 6 + [_F] * 3
@@ -171,7 +171,8 @@ def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
     admm_tail, admm_record, cg_sweep, normal_apply_prepadded, cg_step on
-    its march, normal_apply on its march; ``pd.cu``: pd_dual, pd_primal,
+    its march, normal_apply on its march, cg_sweep on its march;
+    ``pd.cu``: pd_dual, pd_primal,
     pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
     irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,
     weighted_apply, blur_apply and irls_head on their marches,

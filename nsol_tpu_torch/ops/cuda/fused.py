@@ -227,16 +227,19 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
     (R, P, Q), sid = B.storage_ids(storage)
     lib = build.load()
     x = x0.clone()
-    vols = [torch.empty(b.shape, dtype=dt, device=b.device)
+    # Aᵀb rhs r0 r1 p0 p1 q q1 t1 t2; the sweep writes q' into the other
+    # of q and q1, the step takes no q1
+    vols = [None if dt is None else torch.empty(b.shape, dtype=dt,
+                                                device=b.device)
             for dt in (torch.float32,) * 2 + (R, R, P, P, Q)
-            + (torch.float32,) * 2]  # Aᵀb rhs r0 r1 p0 p1 q t1 t2
+            + (Q if sweep else None,) + (torch.float32,) * 2]
     v = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     w = torch.empty_like(v)
-    # the marches' partials (normal_apply's, cg_step's), or the sweep's
-    # four sets where they are more
-    partials = torch.empty(max(lib.nsol_tiled_blocks(*dims),
-                               (4 if sweep else 1) * lib.nsol_max_blocks()),
-                           dtype=torch.float64, device=b.device)
+    # the marches' partials (normal_apply's, cg_step's), four sets of them
+    # for the sweep's dots
+    partials = torch.empty((4 if sweep else 1) * max(
+        lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks()),
+        dtype=torch.float64, device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
     reg = data = parts = None
@@ -260,7 +263,7 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
     build.check(err, name)
     for f, n in zip(_ADMM_UNITS + (Rec.admm_record, B.cg_sweep), counts):
         f.launches += n
-    B.count_marches(counts, B.cg_step, B.normal_apply)
+    B.count_marches(counts, B.cg_step, B.normal_apply, B.cg_sweep)
     return x, reg, data
 
 
@@ -837,7 +840,8 @@ SWEEP_UNITS = ("cg_sweep",)
 _MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
           "normal_apply_march": B.normal_apply,
           "blur_apply_march": R.blur_apply, "irls_head_march": R.irls_head,
-          "blur_apply_prepadded_march": R.blur_apply_prepadded}
+          "blur_apply_prepadded_march": R.blur_apply_prepadded,
+          "cg_sweep_march": B.cg_sweep}
 MARCH_UNITS = tuple(_MARCH)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),

@@ -145,15 +145,17 @@ def _up(v, m):
     return -(-v // m) * m
 
 
-def smem_bytes(lengths, nin=1, lap=True, weighted=False, two_byte=False):
+def smem_bytes(lengths, nin=1, lap=True, weighted=False, two_byte=False,
+               res=False):
     """Bytes of shared memory one block takes for stencils of lengths
     ``(kz, ky, kx)``: ``weighted_apply_zy``'s (``weighted``), or a
     single-stencil unit's over ``nin`` input windows with or without the
-    Laplacian's ring (``two_byte``: a bfloat16 window among two, whose
-    x margin is 16 bytes of bfloat16), in the march's instance with
-    runtime-length taps (the larger) — ``csrc/march.cuh``'s
-    ``weighted_geo`` / ``stencil_smem``, which ``nsol_tiled_smem``
-    returns."""
+    Laplacian's ring (``two_byte``: a bfloat16 window among two or three,
+    whose x margin is 16 bytes of bfloat16) and with or without the
+    sweep's r' ring (``res``: a plane of the tile a step of the raw
+    ring), in the march's instance with runtime-length taps (the
+    larger) — ``csrc/march.cuh``'s ``weighted_geo`` / ``stencil_smem``,
+    which ``nsol_tiled_smem`` returns (without ``res``)."""
     kz, ky, kx = lengths
     hz, hy, hx = (max(k // 2, 1) for k in lengths)
     taps = sum(_up(k, 4) for k in lengths)
@@ -179,7 +181,7 @@ def smem_bytes(lengths, nin=1, lap=True, weighted=False, two_byte=False):
         wy, wx = TILE_Y + 2 * hy, TILE_X + 2 * _up(hx, margin)
         words = (taps + _up(wy + wx, 4)
                  + 2 * nin * wy * wx + wy * TILE_X + (2 * hz + 1) * _OUT_N
-                 + (hz + 2) * _RAW_N * bool(lap))
+                 + (hz + 2) * _RAW_N * bool(lap) + (hz + 2) * _OUT_N * bool(res))
     return 4 * words
 
 
@@ -220,49 +222,52 @@ def route_fits(factors, route):
 #: (its Route enum: the solves take "rule" inside the C code, the
 #: wrappers pass the route they computed)
 VOL_UNITS = ("cg_step", "weighted_apply", "normal_apply", "blur_apply",
-             "irls_head")
+             "irls_head", "cg_sweep")
 ROUTES = ("rule", "chain", "march")
 #: the fewest voxels (exclusive) a whole-volume unit marches over: past
-#: the fused solves' fit (16 volumes in 64 MiB) for ``cg_step`` and
-#: ``weighted_apply``; past 2^19 for the lighter ``normal_apply``,
+#: the fused solves' fit (16 volumes in 64 MiB) for ``cg_step``,
+#: ``weighted_apply`` and ``cg_sweep``; past 2^19 for the lighter ``normal_apply``,
 #: ``blur_apply`` and ``irls_head``, whose marches beat their chains from
 #: 88³ (not at 80³) on the H100 (``csrc/march.cuh``'s ``vol_min_voxels``)
 MARCH_MIN_VOXELS = 1 << 20
 VOL_MIN_VOXELS = {"cg_step": MARCH_MIN_VOXELS,
                   "weighted_apply": MARCH_MIN_VOXELS,
                   "normal_apply": 1 << 19, "blur_apply": 1 << 19,
-                  "irls_head": 1 << 19}
+                  "irls_head": 1 << 19, "cg_sweep": MARCH_MIN_VOXELS}
 #: the form of each unit's march whose block :func:`march_fits` measures
 #: (its largest, so that every storage mode and form of a unit takes one
 #: route): ``cg_step``'s with bfloat16 margins, ``blur_apply``'s with
 #: ``u`` (the gradient's), ``irls_head``'s one window without the
-#: Laplacian — ``csrc/march.cuh``'s ``vol_smem``
+#: Laplacian, ``cg_sweep``'s three windows (r, q, p) with bfloat16 margins
+#: and its r' ring — ``csrc/march.cuh``'s ``vol_smem``
 _VOL_FORMS = {"cg_step": dict(nin=2, two_byte=True),
               "weighted_apply": dict(weighted=True),
               "normal_apply": dict(nin=1),
               "blur_apply": dict(nin=2),
-              "irls_head": dict(nin=1, lap=False)}
+              "irls_head": dict(nin=1, lap=False),
+              "cg_sweep": dict(nin=3, two_byte=True, res=True)}
 
 
 #: the most steps a block of each unit's march may take a plane it
 #: writes, ``(Z + halo steps) / Z``, as ``(num, den)``: 2.5, or 4 for the
-#: one-window ``normal_apply`` and ``irls_head`` (``csrc/march.cuh``'s
-#: ``vol_steps``)
+#: one-window ``normal_apply`` and ``irls_head``; ``cg_sweep`` takes
+#: ``cg_step``'s (``csrc/march.cuh``'s ``vol_steps``)
 VOL_STEPS = {"cg_step": (5, 2), "weighted_apply": (5, 2),
              "normal_apply": (4, 1), "blur_apply": (5, 2),
-             "irls_head": (4, 1)}
+             "irls_head": (4, 1), "cg_sweep": (5, 2)}
 
 
 def vol_route(unit, lengths, dims):
     """``"march"`` or ``"chain"``: how the whole-volume ``unit``
     (:data:`VOL_UNITS`) runs on the card at the taps' ``lengths`` (the
-    normal taps of ``cg_step`` and ``normal_apply`` — or the blur taps of
-    its ``Aᵀb`` form —, the blur taps of ``weighted_apply``,
+    normal taps of ``cg_step``, ``cg_sweep`` and ``normal_apply`` — or the
+    blur taps of its ``Aᵀb`` form —, the blur taps of ``weighted_apply``,
     ``blur_apply`` and ``irls_head``, as ``(kz, ky, kx)``) on a volume of
     ``dims`` ``(Z, Y, X)`` — the march on a volume of more than
     :data:`VOL_MIN_VOXELS` voxels deep enough that a block takes at most
     :data:`VOL_STEPS` steps a plane it writes (its :func:`halo_steps`
-    beside its planes: at σ = 1, ``Z >= 8`` for ``cg_step``, 9 for
+    beside its planes: at σ = 1, ``Z >= 8`` for ``cg_step`` and
+    ``cg_sweep``, 9 for
     ``weighted_apply``, 4 for ``normal_apply`` and ``blur_apply``, 2 for
     ``irls_head``; no 2-D view) where a block's shared memory holds the
     taps (:func:`march_fits`), else the three-pass chain, which took
@@ -290,9 +295,11 @@ def march_fits(unit, lengths):
 
 #: ``csrc/march.cuh``'s z tiles: the longest (kTileZ; twice it for the
 #: weighted march), the shortest (kMinTileZ), and the blocks an SM holds at
-#: once (kStencilResident, kWeightedResident)
+#: once (kStencilResident, kWeightedResident; the sweep's instance of the
+#: single-stencil march kSweepResident, by its shared memory)
 TILE_Z, MIN_TILE_Z = 128, 8
 RESIDENT = {False: 4, True: 2}
+SWEEP_RESIDENT = 3
 
 
 def halo_steps(kz, weighted):
@@ -304,20 +311,22 @@ def halo_steps(kz, weighted):
     return 4 * h + 1 if weighted else 2 * h
 
 
-def tile_z(dims, kz, weighted, sms):
+def tile_z(dims, kz, weighted, sms, resident=None):
     """Planes a block of the single-stencil march (z taps ``kz``) or of
     the weighted one (``weighted``, blur z taps ``kz``) marches through on
     a volume of ``dims`` ``(Z, Y, X)`` on a card of ``sms`` SMs: of the
     longest tile, half of it, ..., :data:`MIN_TILE_Z` planes, the one with
     the least (waves of its grid) × (steps a block), a wave being the
-    blocks the card holds at once and a block taking ``min(tile, Z)`` plus
+    blocks the card holds at once (``resident`` an SM: by default the
+    march's :data:`RESIDENT`, the sweep's instance
+    :data:`SWEEP_RESIDENT`) and a block taking ``min(tile, Z)`` plus
     its :func:`halo_steps`; ties keep the longer tile. Mirrors
     ``csrc/march.cuh``'s ``march_tile_z`` (``nsol_march_tile_z``)."""
     Z, Y, X = dims
     top = 2 * TILE_Z if weighted else TILE_Z
     extra = halo_steps(kz, weighted)
     cols = -(-X // TILE_X) * -(-Y // TILE_Y)
-    slots = max(sms, 1) * RESIDENT[bool(weighted)]
+    slots = max(sms, 1) * (resident or RESIDENT[bool(weighted)])
     best, best_cost, tz = top, None, top
     while tz >= MIN_TILE_Z:
         blocks = cols * -(-Z // tz)
@@ -330,12 +339,12 @@ def tile_z(dims, kz, weighted, sms):
 
 # ---------------------------------------------------------------- kernels --
 
-def tiled_partials(device, dims):
+def tiled_partials(device, dims, sets=1):
     """Per-block float64 partials of the tiled units at ``dims`` (Z, Y, X)
     — the blocks of a march's shortest z tile —, large enough for the
-    per-axis units too."""
+    per-axis units too; ``sets`` such sets (the sweep's four dots)."""
     lib = build.load()
-    n = max(lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks())
+    n = sets * max(lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks())
     return torch.empty(n, dtype=torch.float64, device=device)
 
 

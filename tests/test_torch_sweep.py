@@ -4,9 +4,11 @@ The plain version of ``cg_sweep`` (the sweep kernel's arithmetic on the
 CPU) against ``make_blocked_cg_sweep`` in interpret mode, and
 ``blocked_admm_solve(mode="sweep")`` in float32 and in bfloat16 state
 against the JAX sweep, the XLA solve and the float32 "step", at the
-tolerances of tests/test_pallas.py (:544-556, :421-435, :1166-1196). The
-``cuda``-marked cases hold the kernel against its plain version on the
-card and skip without one:
+tolerances of tests/test_pallas.py (:544-556, :421-435, :1166-1196); the
+rules that route the sweep to its march (``csrc/sweep_march.cu``) and size
+its block and z tile, through their Python mirrors. The ``cuda``-marked
+cases hold the kernel against its plain version and the march against
+the three-pass chain on the card, and skip without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_sweep.py
 """
@@ -23,6 +25,7 @@ from nsol_tpu_torch import interop  # noqa: E402
 from nsol_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
 from nsol_tpu_torch.ops.cuda import blocked as B  # noqa: E402
 from nsol_tpu_torch.ops.cuda import fused as F  # noqa: E402
+from nsol_tpu_torch.ops.cuda import tiled as T  # noqa: E402
 
 ISO = np.diag([1.0, 1.0, 1.0])
 CUBE = (16, 16, 16)
@@ -88,6 +91,33 @@ def test_sweep_plain_matches_pallas(a, beta, rho):
             np.testing.assert_allclose(_np(g), w, atol=2e-5, rtol=1e-5)
         else:  # g, pq, rq, qq
             np.testing.assert_allclose(float(g), float(w), rtol=1e-4)
+
+
+@pytest.mark.parametrize("io", [None, "bfloat16"])
+def test_sweep_builder_leaves_q_and_returns_q_new(io):
+    """``make_blocked_cg_sweep`` returns q' in a tensor of its own and
+    leaves the q it was given as it was (the kernels write q' into a
+    second volume); q' against the Pallas kernel in interpret mode at the
+    tolerances of test_sweep_plain_matches_pallas and
+    test_sweep_plain_bf16_matches_pallas, on their kind of draw."""
+    rng = np.random.RandomState(12)  # test_sweep_plain_*'s draw
+    x, r, p, q = (rng.rand(*CUBE).astype(np.float32) for _ in range(4))
+    kw = {} if io is None else {"io_dtype": io}
+    want = _jax("ops.pallas.blocked").make_blocked_cg_sweep(
+        CUBE, ISO, block=8, interpret=True, **kw)(x, r, p, q, 0.37, 0.83, 1.9)
+    qt = _t(q)
+    kept = qt.clone()
+    got = B.make_blocked_cg_sweep(
+        CUBE, ISO, **({} if io is None else {"io_dtype": torch.bfloat16}))(
+            _t(x), _t(r), _t(p), qt, 0.37, 0.83, 1.9)
+    assert torch.equal(qt, kept)
+    assert got[2].data_ptr() != qt.data_ptr()
+    w = np.asarray(np.asarray(want[2]).astype(np.float32), np.float64)
+    if io is None:
+        np.testing.assert_allclose(_np(got[2]), w, atol=2e-5, rtol=1e-5)
+    else:
+        assert got[2].dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got[2]), w, rtol=2 ** -7, atol=1e-6)
 
 
 def test_sweep_plain_bf16_matches_pallas():
@@ -209,6 +239,72 @@ def test_sweep_guards_follow_the_reference():
         assert torch.equal(u, v)
 
 
+# ------------------------------------------------------------- the route --
+
+#: volumes and the sweep's route at σ = 1 (13 normal taps, 12 halo steps):
+#: ``cg_step``'s rule — past 2^20 voxels, at most 2.5 steps a plane a block
+#: writes (Z ≥ 8), no 2-D view
+SWEEP_ROUTES = [((64, 64, 64), "chain"), ((96, 96, 96), "chain"),
+                ((128, 128, 128), "march"), ((256, 256, 256), "march"),
+                ((512, 512, 512), "march"), ((136, 240, 200), "march"),
+                ((1, 256, 256), "chain"), ((1, 2048, 2048), "chain"),
+                ((4, 500, 600), "chain"), ((7, 448, 448), "chain"),
+                ((8, 384, 384), "march"), ((16, 512, 512), "march")]
+
+
+@pytest.mark.parametrize("dims,route", SWEEP_ROUTES)
+def test_sweep_route_takes_cg_steps_rule(dims, route):
+    """``vol_route("cg_sweep")`` at the normal taps of σ = 1: the march
+    past the fused solves' fit on a volume deep enough for its z halo,
+    the three passes elsewhere — where ``cg_step``'s rule puts its
+    march."""
+    assert T.vol_route("cg_sweep", (13, 13, 13), dims) == route
+    assert T.vol_route("cg_step", (13, 13, 13), dims) == route
+    assert T.VOL_MIN_VOXELS["cg_sweep"] == T.MARCH_MIN_VOXELS
+    assert T.VOL_STEPS["cg_sweep"] == T.VOL_STEPS["cg_step"]
+
+
+def test_sweep_block_holds_three_windows_and_the_r_ring():
+    """The sweep's block at the 13 normal taps: three double-buffered
+    windows (r, q, p) with bfloat16 margins, the x-blurred rows, the raw
+    ring and the r' ring (one tile plane a step of the raw ring): 98928
+    bytes in the runtime-length instance the route measures, 72304 in the
+    compile-time one (no z ring in shared memory), so three blocks share
+    an SM's 228 KB and four do not. The march holds up to 33 normal taps
+    (σ 2.6); from 35 (σ 2.7-3.3) the sweep keeps its chain where
+    ``cg_step``, two windows, still marches."""
+    full = T.smem_bytes((13, 13, 13), nin=3, two_byte=True, res=True)
+    ring_z, ring_r = 4 * 13 * T.TILE_Y * T.TILE_X, 4 * 8 * T.TILE_Y * T.TILE_X
+    assert full == 98928
+    assert full - T.smem_bytes((13, 13, 13), nin=3, two_byte=True) == ring_r
+    fixed = full - ring_z
+    assert fixed == 72304 and 3 * fixed <= 228 * 1024 < 4 * fixed
+    assert T.SWEEP_RESIDENT == 3
+    for k, route in ((33, "march"), (35, "chain")):
+        assert T.vol_route("cg_sweep", (k,) * 3, (256,) * 3) == route
+        assert T.march_fits("cg_sweep", (k,) * 3) == (route == "march")
+    assert T.vol_route("cg_step", (41,) * 3, (256,) * 3) == "march"
+
+
+@pytest.mark.parametrize("dims,tz", [((256, 256, 256), 32),
+                                     ((512, 512, 512), 64),
+                                     ((136, 240, 200), 64),
+                                     ((128, 128, 128), 16)])
+def test_sweep_tile_counts_three_blocks_an_sm(dims, tz):
+    """The sweep's z tile on an H100 (132 SMs) at three blocks an SM: of
+    the candidate tiles, the least (waves of the grid) × (steps a block),
+    ties keeping the longer — 32 planes at 256³ (1024 blocks, 3 waves of
+    396) where cg_step's four blocks an SM take 64."""
+    got = T.tile_z(dims, 13, False, 132, T.SWEEP_RESIDENT)
+    assert got == tz
+    cols = -(-dims[2] // T.TILE_X) * -(-dims[1] // T.TILE_Y)
+    cost = {t: -(-(cols * -(-dims[0] // t)) // (132 * 3))
+            * (min(t, dims[0]) + 12) for t in (128, 64, 32, 16, 8)}
+    assert cost[got] == min(cost.values())
+    assert got == max(t for t in cost if cost[t] == cost[got])
+    assert T.tile_z((256,) * 3, 13, False, 132) == 64
+
+
 # ---------------------------------------------------------- on the card --
 
 def _chip_smoke():
@@ -261,6 +357,29 @@ def test_cuda_sweep_solve_matches_plain_on_card(cuda_device, state):
         functools.partial(B.blocked_admm_solve, b.shape, ISO, iter_max=5),
         kw, b, lambda x: _objective(_np(x), _np(b)), outer=3)
     assert cs.compact_gaps_ok(gaps, kw), gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 530, 37), (9, 36, 76), (1, 40, 33),
+                                   (136, 240, 200)])
+def test_cuda_sweep_march_equals_its_chain_bit_for_bit(cuda_device, shape):
+    """Every sweep form (float32 and bf16 state × first trip or not) on
+    the march equals the three-pass chain bit for bit (x', r', p', q'),
+    the dots, a and β within 1e-12 (chip_smoke.py::sweep_march_bits), and
+    a NaN in p lands on the same entries on both routes."""
+    cs = _chip_smoke()
+    st = B.Stencils.from_cov(ISO, 3, None, cuda_device)
+    assert cs.sweep_march_bits(B, st, shape, cuda_device, 45) == 4
+    for dtype in (torch.float32, torch.bfloat16):
+        cs.sweep_nan_routes(B, st, shape, cuda_device, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_refuses_q_over_q_and_a_march_too_wide(cuda_device):
+    """The C entry refuses q' over q on the chain and on the march, and a
+    march forced past its shared memory raises (no fallback)."""
+    st = B.Stencils.from_cov(ISO, 3, None, cuda_device)
+    assert _chip_smoke().sweep_refusals(B, st, cuda_device) == 3
 
 
 @pytest.mark.cuda

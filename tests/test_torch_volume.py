@@ -232,12 +232,14 @@ def test_vol_route_of_the_lighter_units_follows_their_times(dims, routes):
 
 
 #: the march form whose block each whole-volume unit's route measures:
-#: its largest (``cg_step``'s bfloat16 margins, ``blur_apply``'s with u)
+#: its largest (``cg_step``'s bfloat16 margins, ``blur_apply``'s with u,
+#: ``cg_sweep``'s three windows with bfloat16 margins and its r' ring)
 UNIT_FORMS = {"cg_step": dict(nin=2, two_byte=True),
               "weighted_apply": dict(weighted=True),
               "normal_apply": dict(nin=1),
               "blur_apply": dict(nin=2),
-              "irls_head": dict(nin=1, lap=False)}
+              "irls_head": dict(nin=1, lap=False),
+              "cg_sweep": dict(nin=3, two_byte=True, res=True)}
 
 
 @pytest.mark.parametrize("unit", T.VOL_UNITS)
@@ -256,7 +258,7 @@ def test_vol_route_is_the_march_wherever_a_block_holds_the_taps(unit):
     if unit == "blur_apply":
         assert need >= T.smem_bytes(lengths, nin=1, lap=False)
     with pytest.raises(ValueError, match="unit must be"):
-        T.vol_route("cg_sweep", (13, 13, 13), SHAPE)
+        T.vol_route("cg_update", (13, 13, 13), SHAPE)
 
 
 def test_bf16_margins_grow_the_march_block():
@@ -420,6 +422,25 @@ def test_normal_apply_forms_match_pallas(io, form, reg):
     assert float(scal[B.BETA]) == 0.0
 
 
+def _residual_sides(r_jax, r_port, x, b):
+    """Which side's ``r = A x − b`` left the float64 one (the blur by
+    ``scipy.ndimage`` in float64), as text for a failed comparison of the
+    IRLS head: the largest deviation of each and the voxels past 1e-6 (an
+    intermittent miss of 12-13 weights, F6 in ROADMAP.md, moved r by
+    ~1e-4 there; summation order moves it by ~1e-7)."""
+    import scipy.ndimage as ndi
+
+    u = np.asarray(x, np.float64)
+    for ax, f in enumerate(blur_factors(ISO, 3, None)):
+        u = ndi.convolve1d(u, np.asarray(f, np.float64), axis=ax,
+                           mode="wrap")
+    r64 = u - np.asarray(b, np.float64)
+    dev = {k: np.abs(np.asarray(v, np.float64) - r64) for k, v in (
+        ("JAX", np.asarray(r_jax)), ("port", _np(r_port)))}
+    return "; ".join("%s r: max |r - r64| %.3g, %d voxels past 1e-6" % (
+        k, float(d.max()), int((d > 1e-6).sum())) for k, d in dev.items())
+
+
 #: the blur operator's forms (``robust.py:161``'s plain and ``with_lap``
 #: applies, the IRLS gradient and head formed in XLA as
 #: ``robust.py:507-531`` forms them, the ``prepadded=True`` window with and
@@ -471,8 +492,11 @@ def test_blur_operator_forms_match_pallas(form, reg):
         r = plain(x) - jnp.asarray(b)
         wts = lf.gradient_loss(loss)(r * r, f_scale=jnp.float32(scale))
         got = R.irls_head(_t(x), _t(b), st.blur, loss, scale)
-        np.testing.assert_allclose(_np(got[0]), _jf(wts), atol=2e-6)
-        np.testing.assert_allclose(_np(got[1]), _jf(wts * r), atol=2e-6)
+        which = _residual_sides(r, B._blur_plain(_t(x), st.blur) - _t(b), x, b)
+        np.testing.assert_allclose(_np(got[0]), _jf(wts), atol=2e-6,
+                                   err_msg=which)
+        np.testing.assert_allclose(_np(got[1]), _jf(wts * r), atol=2e-6,
+                                   err_msg=which)
         return
     if form == "plain":
         np.testing.assert_allclose(_np(R.blur_apply(_t(y), st.blur,
@@ -504,8 +528,8 @@ def test_blur_operator_forms_match_pallas(form, reg):
 
 def test_launch_counts_report_the_march_forms():
     """The marches' launches (the whole-volume ``cg_step``,
-    ``weighted_apply``, ``normal_apply``, ``blur_apply``, ``irls_head`` and
-    the blur's window) are counted on the wrappers' ``march_launches``,
+    ``weighted_apply``, ``normal_apply``, ``blur_apply``, ``irls_head``,
+    ``cg_sweep`` and the blur's window) are counted on the wrappers' ``march_launches``,
     apart from the chains' ``launches``, and ``launch_counts`` reports them
     under :data:`MARCH_UNITS`' names (by default too); ``reset_counts``
     sets them to 0. On CPU tensors the wrappers run their plain versions
@@ -518,7 +542,8 @@ def test_launch_counts_report_the_march_forms():
                 "normal_apply_march": B.normal_apply,
                 "blur_apply_march": R.blur_apply,
                 "irls_head_march": R.irls_head,
-                "blur_apply_prepadded_march": R.blur_apply_prepadded}
+                "blur_apply_prepadded_march": R.blur_apply_prepadded,
+                "cg_sweep_march": B.cg_sweep}
     assert set(F.MARCH_UNITS) == set(wrappers)
     for k, name in enumerate(wrappers):
         wrappers[name].march_launches = 3 + k
@@ -537,8 +562,10 @@ def test_launch_counts_report_the_march_forms():
     h = R.blur_halo(st.blur)
     R.blur_apply_prepadded(r, st.blur, st.inv_h2, 0, SHAPE[0], u_ext=w,
                            rho=0.5)
+    B.cg_sweep(w.clone(), r, p, w.clone(), B.new_scalars("cpu"), st.normal,
+               st.inv_h2, 0.5)
     units = ("cg_step", "weighted_apply", "normal_apply", "blur_apply",
-             "irls_head", "blur_apply_prepadded")
+             "irls_head", "blur_apply_prepadded", "cg_sweep")
     assert set(F.launch_counts(F.MARCH_UNITS + units).values()) == {0}
     assert F.plain_counts(units) == {u + "_plain": 1 for u in units}
     assert SHAPE[0] > 2 * h
@@ -564,9 +591,9 @@ def _chip_smoke():
 #: not, ``weighted_apply`` 3 storages × masked or not × TK1/TK0 × first or
 #: not, ``normal_apply`` plain and residual × f32/bf16 × TK1/TK0 and Aᵀb,
 #: ``blur_apply`` plain, with u and its gradient × TK1/TK0, ``irls_head``
-#: every loss
+#: every loss, ``cg_sweep`` f32/bf16 state × first trip or not
 MARCH_FORMS = {"cg_step": 16, "weighted_apply": 24, "normal_apply": 9,
-               "blur_apply": 5, "irls_head": len(R.LOSS_IDS)}
+               "blur_apply": 5, "irls_head": len(R.LOSS_IDS), "cg_sweep": 4}
 #: the units bit-checked on the card: the routed whole-volume ones and the
 #: blur's window (3-D only)
 BIT_CASES = [(unit, shape) for unit in T.VOL_UNITS + ("blur_apply_prepadded",)
