@@ -166,6 +166,26 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   and bf16 against "step" exact, 512³ "sweep" against "apply" and the
   512³ anchor, a 64³ "sweep" on the chain), with their launches.
 
+* phases 41-43, the non-separable blur, the remaining Tikhonov engines,
+  corruption and generation (group ``engines``; no kernel of its own): the
+  FFT blur against the separable form (diagonal covariance, 64³, 256³,
+  512³) and against the direct form (a full covariance, 64³ and 256³,
+  the direct form with TF32 left at PyTorch's default), adjointness in
+  float64, the FFT normal operator against ``A_adj(A x)``, and the forms'
+  device times beside the separable march's ``blur_apply``; the
+  ``lsq_linear``, ``least_squares`` and ``L-BFGS-B`` solves of
+  ``tikhonov_solve`` on a full covariance (256³, the 64³ phantom, Lena)
+  against float64 anchors of the JAX package, with their wall ms, L-BFGS
+  host reads and peak memory, and ``Optimize`` and the PCA classes against
+  their CPU results; ``nsol_torch_corrupt_data`` (Lena and the 64³
+  NIfTI, gaussian and salt-and-pepper) against the library's blur and
+  ``Noise`` bit for bit, ``generate_standalone_data`` without Pillow, and
+  ``nsol_torch_run_deconvolution --minimizer lsq_linear`` / ``L-BFGS-B
+  --data-loss huber`` on the corrupted Lena against their library solves;
+  ``sharded_tv_admm_solve`` with the full covariance on a NCCL group of
+  world size 1, ``"lsmr"`` and ``"L-BFGS-B"`` (huber), against the
+  unsharded solves.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -7411,10 +7431,483 @@ def run_admm_phases(device, card):
     return {"launches": launches, "err": main_err, "times": times64}
 
 
+# -------------------------------------------------------- phases 41-43 --
+
+#: the full covariances of phases 41-43 (σ 1 on each axis, correlated)
+FULL_COV3 = np.array([[1.0, 0.4, 0.0], [0.4, 1.0, 0.2], [0.0, 0.2, 1.0]])
+FULL_COV2 = np.array([[1.0, 0.4], [0.4, 1.0]])
+#: phase 41's band of a float32 blur form against another (× max |ref|)
+BLUR_FORM_TOL = 1e-5
+#: phase 42's solves: name → (image, minimizer, data loss, α, iterations);
+#: each is the TK1 Tikhonov problem ``tikhonov_solve`` minimizes, from
+#: x0 = b, bounds (0, ∞), on ``engine_problem(image)``
+ENGINE_CASES = {
+    "lsq_linear 256^3": ("256^3", "lsq_linear", "linear", 0.01, 20),
+    "least_squares soft_l1 Lena": ("lena", "least_squares", "soft_l1",
+                                   0.01, 20),
+    "L-BFGS-B huber 64^3": ("64^3", "L-BFGS-B", "huber", 0.01, 20),
+    "L-BFGS-B cauchy 64^3": ("64^3", "L-BFGS-B", "cauchy", 0.01, 20),
+    "L-BFGS-B huber Lena": ("lena", "L-BFGS-B", "huber", 0.01, 20),
+    "L-BFGS-B cauchy Lena": ("lena", "L-BFGS-B", "cauchy", 0.01, 20),
+}
+#: their float64 objectives by the JAX package on the CPU
+#: (tests/torch_anchors.py ``engine_anchors``)
+ENGINE_ANCHORS = {
+    "lsq_linear 256^3": 20569.61652822998,
+    "least_squares soft_l1 Lena": 58.085129100359225,
+    "L-BFGS-B huber 64^3": 230.0060161284044,
+    "L-BFGS-B cauchy 64^3": 229.71650179121067,
+    "L-BFGS-B huber Lena": 58.1458801403605,
+    "L-BFGS-B cauchy Lena": 58.02719067585912,
+}
+#: the bands of the card's float32 solves against them: FISTA is a fixed
+#: linear recurrence (1e-4); the L-BFGS line search may take another
+#: branch in float32 (1e-3)
+ENGINE_BANDS = {"lsq_linear": 1e-4, "least_squares": 1e-3,
+                "L-BFGS-B": 1e-3}
+
+
+def engine_problem(image):
+    """``(b, x_true, cov)`` of phase 42's image (float64 numpy): the 64³
+    phantom stand-in, it repeated 4× along each axis (256³), or the Lena
+    256² stand-in, over 255, blurred by the full covariance (wrap, by the
+    host's FFT) with Gaussian noise at 0.05·max (``Noise(seed=1)``)."""
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_nifti, read_png
+    from nsol_tpu_torch.noise import Noise
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import kernels as K
+
+    if image == "lena":
+        x = read_png(data.path("2D_Lena_256.png")).astype(np.float64) / 255
+        cov = FULL_COV2
+    else:
+        x = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")).data
+        x = np.asarray(x, np.float64) / 255
+        if image == "256^3":
+            for ax in range(3):
+                x = np.repeat(x, 4, axis=ax)
+        cov = FULL_COV3
+    kern = K.gaussian_kernel(cov, alpha_cut=3, dtype=np.float64)
+    khat = np.fft.rfftn(C.embed_kernel_fft(kern, x.shape))
+    axes = tuple(range(x.ndim))
+    b = np.fft.irfftn(np.fft.rfftn(x, axes=axes) * khat.real, s=x.shape,
+                      axes=axes)
+    noise = Noise(b, seed=1)
+    noise.add_gaussian_noise(noise_level=0.05)
+    return noise.get_noisy_data(), x, cov
+
+
+def engine_objective(x, b, A, D, alpha, loss, minimizer, xp):
+    """The cost ``minimizer`` minimizes (``xp``: torch, or jax.numpy for
+    the anchors): ``½Σρ((Ax−b)²) + α/2‖Dx‖²``, the regulariser inside the
+    loss for least_squares."""
+    def cost(r):
+        f2 = r * r
+        if loss == "linear":
+            rho = f2
+        elif loss == "soft_l1":
+            rho = 2.0 * (xp.sqrt(1.0 + f2) - 1.0)
+        elif loss == "huber":
+            g = 1.345
+            rho = xp.where(f2 < g * g, f2, 2.0 * g * xp.sqrt(f2) - g * g)
+        else:
+            rho = xp.log1p(f2)
+        return 0.5 * xp.sum(rho)
+
+    Dx = D(x)
+    if minimizer == "least_squares":
+        return float(cost(A(x) - b) + cost(np.sqrt(alpha) * Dx))
+    return float(cost(A(x) - b) + 0.5 * alpha * xp.sum(Dx * Dx))
+
+
+def blur_form_checks(device, res):
+    """Phase 41's checks and times; fills ``res``."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops.cuda import blocked as B
+    from nsol_tpu_torch.ops.cuda import robust as R
+
+    g = torch.Generator(device=device).manual_seed(41)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.rand(shape, generator=g, device=device, dtype=dtype)
+
+    iso = np.eye(3)
+    for n in (64, 256, 512):
+        shape = (n,) * 3
+        x = rand(shape)
+        fft, _ = C.make_blur_operators(iso, shape=shape, method="fft")
+        sep, _ = C.make_blur_operators(iso, method="separable")
+        ref = sep(x)
+        err = max_rel(fft(x), ref)
+        require(err <= BLUR_FORM_TOL, "phase 41: fft vs separable %d^3 %.3g"
+                % (n, err))
+        res["fft vs separable %d^3" % n] = err
+        del x, ref
+    torch.cuda.empty_cache()
+    kern = K.gaussian_kernel(FULL_COV3, alpha_cut=3, dtype=np.float32)
+    for n in (64, 256):
+        shape = (n,) * 3
+        x = rand(shape)
+        fft, _ = C.make_blur_operators(FULL_COV3, shape=shape)
+        direct, _ = C.make_blur_operators(FULL_COV3, method="direct")
+        # trap: PyTorch runs a float32 cuDNN convolution in TF32 unless
+        # told not to; convolve turns it off itself, so the check runs
+        # with the process-wide switch back at PyTorch's default (True)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            got = direct(x)
+            require(torch.backends.cudnn.allow_tf32,
+                    "phase 41: convolve left TF32 switched off")
+            xp = Fn.pad(x[None, None], (3,) * 6, mode="circular")
+            kf = torch.as_tensor(kern[::-1, ::-1, ::-1].copy(),
+                                 device=device)[None, None]
+            tf32 = Fn.conv3d(xp, kf)[0, 0]
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        ref = fft(x)
+        err = max_rel(got, ref)
+        require(err <= BLUR_FORM_TOL, "phase 41: direct (TF32 at its "
+                "default) vs fft %d^3 %.3g" % (n, err))
+        res["direct vs fft %d^3 (TF32 default on)" % n] = err
+        res["a TF32 conv3d vs fft %d^3 (what convolve avoids)" % n] = \
+            max_rel(tf32, ref)
+        nA = C.make_normal_blur_operator(FULL_COV3, shape=shape)
+        err = max_rel(nA(x), fft(fft(x)))
+        require(err <= BLUR_FORM_TOL, "phase 41: fft normal vs A(A x) "
+                "%d^3 %.3g" % (n, err))
+        res["fft normal vs A_adj(A x) %d^3" % n] = err
+        del x, got, ref, xp, tf32
+    torch.cuda.empty_cache()
+    shape = (64,) * 3
+    x, y = rand(shape, torch.float64), rand(shape, torch.float64)
+    for method in ("fft", "direct"):
+        A, At = C.make_blur_operators(FULL_COV3, shape=shape, method=method)
+        lhs, rhs = float(torch.sum(A(x) * y)), float(torch.sum(x * At(y)))
+        err = abs(lhs - rhs) / abs(lhs)
+        require(err <= 1e-10, "phase 41: %s adjointness %.3g"
+                % (method, err))
+        res["<Ax,y> vs <x,A^T y> %s float64" % method] = err
+
+    times = {}
+    for n in (256, 512):
+        shape = (n,) * 3
+        x = rand(shape)
+        for method in ("fft", "direct"):
+            A, _ = C.make_blur_operators(FULL_COV3, shape=shape,
+                                         method=method)
+            dev, _ = device_ms(lambda: A(x), 5, warmup=2)
+            times["%s %d^3" % (method, n)] = (
+                dev, cuda_ms(lambda: A(x), 5, warmup=1),
+                bound(8.0 * x.numel(), x.numel() * (
+                    2.0 * kern.size if method == "direct"
+                    else 5.0 * np.log2(x.numel())))[0])
+        del x
+        torch.cuda.empty_cache()
+    st = B.Stencils.from_cov(iso, 3, None, device, torch.float32)
+    y = rand((256,) * 3)
+    times["separable march blur_apply 256^3 (iso)"] = (
+        device_ms(lambda: R.blur_apply(y, st.blur, st.inv_h2), 5)[0],
+        cuda_ms(lambda: R.blur_apply(y, st.blur, st.inv_h2), 5),
+        unit_bound("blur_apply", y.numel(), st.blur.lengths)[0])
+    sep, _ = C.make_blur_operators(iso, method="separable")
+    times["separable torch rolls 256^3 (iso)"] = (
+        device_ms(lambda: sep(y), 5)[0], cuda_ms(lambda: sep(y), 5),
+        bound(8.0 * y.numel(), 0.0)[0])
+    return times
+
+
+def engine_solves(device, res, reads):
+    """Phase 42's solves against their anchors; fills ``res`` and
+    ``reads`` (L-BFGS host reads a solve)."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.solvers import lbfgs
+    from nsol_tpu_torch.solvers.tikhonov import tikhonov_solve
+
+    made = None
+    for name, (image, minimizer, loss, alpha, iters) in ENGINE_CASES.items():
+        if made != image:
+            b_np, _, cov = engine_problem(image)
+            made = image
+        A, _ = C.make_blur_operators(cov, shape=b_np.shape)
+        b = torch.as_tensor(b_np, dtype=torch.float32, device=device)
+        reads0 = lbfgs.HOST_READS[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        x = tikhonov_solve(A, A, G.gradient, G.gradient_adjoint, b, 0.0, b,
+                           alpha, data_loss=loss, minimizer=minimizer,
+                           iter_max=iters)
+        t1.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        b64 = torch.as_tensor(b_np, device=device)
+        obj = engine_objective(x.double(), b64, A, G.gradient, alpha, loss,
+                               minimizer, torch)
+        anchor = ENGINE_ANCHORS[name]
+        dev = abs(obj - anchor) / abs(anchor)
+        band = ENGINE_BANDS[minimizer]
+        require(bool(torch.isfinite(x).all()) and dev <= band,
+                "phase 42: %s objective %.9g vs anchor %.9g (rel %.3g, band "
+                "%.0e)" % (name, obj, anchor, dev, band))
+        reads[name] = lbfgs.HOST_READS[0] - reads0
+        res[name] = "%.9g (anchor %.9g, rel %.2e, band %.0e), %.1f ms, %d " \
+            "host reads, peak %.0f MiB" % (obj, anchor, dev, band,
+                                           t0.elapsed_time(t1),
+                                           reads[name], peak)
+        del x, b, b64
+    torch.cuda.empty_cache()
+
+
+def engine_extras(device, res):
+    """Phase 42's ``Optimize`` methods and PCA classes on the card against
+    their CPU results (float64)."""
+    import torch
+
+    from nsol_tpu_torch.optimize import Optimize
+    from nsol_tpu_torch.pca import (AdmmRobustPrincipalComponentAnalysis,
+                                    AlmRobustPrincipalComponentAnalysis,
+                                    PrincipalComponentAnalysis)
+
+    rs = np.random.RandomState(42)
+    M = rs.rand(30, 20)
+    b = M @ rs.rand(20) + 0.05 * rs.randn(30)
+    Q = M.T @ M + 5 * np.eye(20)
+
+    def run(where):
+        t = partial(torch.as_tensor, device=where)
+        Mt, bt, Qt = t(M), t(b), t(Q)
+        A, At = (lambda v: Mt @ v), (lambda y: Mt.T @ y)
+        return {
+            "lsmr": Optimize.lsmr(A, At, bt, iter_max=50),
+            "cg": Optimize.cg(lambda v: Qt @ v, At(bt), iter_max=50),
+            "nnls": Optimize.nnls(A, At, bt, iter_max=30, cg_iters=12),
+            "least_squares": Optimize.least_squares(
+                lambda v: A(v) - bt, torch.zeros(20, dtype=torch.float64,
+                                                 device=where),
+                bounds=(0, np.inf), iter_max=40),
+            "minimize": Optimize.minimize(
+                lambda v: torch.sum((v - bt[:20]) ** 2),
+                torch.zeros(20, dtype=torch.float64, device=where),
+                iter_max=40)}
+
+    on_card, on_cpu = run(device), run("cpu")
+    for k in on_card:
+        err = max_rel(on_card[k].cpu(), on_cpu[k])
+        require(err <= 1e-8, "phase 42: Optimize.%s card vs CPU %.3g"
+                % (k, err))
+        res["Optimize.%s card vs CPU" % k] = err
+
+    pts = rs.randn(2000, 3) * np.array([5.0, 2.0, 0.5])
+    low = rs.randn(40, 3) @ rs.randn(3, 30)
+    D = low + 10 * rs.randn(40, 30) * (rs.rand(40, 30) < 0.05)
+    pcas = {}
+    for where in (device, "cpu"):
+        pca = PrincipalComponentAnalysis(pts, device=where)
+        pca.run()
+        L, S = AlmRobustPrincipalComponentAnalysis(D, device=where).fit()
+        h = AdmmRobustPrincipalComponentAnalysis(D, device=where).run()
+        pcas[str(where)] = (pca.get_eigval(), L, S, h)
+    card, cpu = pcas[str(device)], pcas["cpu"]
+    for label, got, want, tol in (
+            ("PCA eigenvalues", card[0], cpu[0], 1e-12),
+            ("ALM RPCA L", card[1], cpu[1], 1e-8),
+            ("ALM RPCA S", card[2], cpu[2], 1e-8),
+            ("ADMM RPCA X3", card[3]["X3_admm"], cpu[3]["X3_admm"], 1e-8),
+            ("ADMM RPCA X2", card[3]["X2_admm"], cpu[3]["X2_admm"], 1e-8)):
+        # the ADMM split's X2 may be all zeros: relative to max(|·|, 1)
+        err = float(np.max(np.abs(got - want))
+                    / max(np.max(np.abs(want)), 1.0))
+        require(err <= tol, "phase 42: %s card vs CPU %.3g" % (label, err))
+        res["%s card vs CPU" % label] = err
+    require(card[3]["admm_iter"] == cpu[3]["admm_iter"],
+            "phase 42: ADMM RPCA iterations %d vs %d"
+            % (card[3]["admm_iter"], cpu[3]["admm_iter"]))
+
+
+def corrupt_and_generate(device, res, tmp):
+    """Phase 43's ``nsol_torch_corrupt_data`` runs against the library's
+    blur + ``Noise`` on the card, bit for bit, and
+    ``generate_standalone_data`` into a temporary directory."""
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli import corrupt_data
+    from nsol_tpu_torch.io import DataReader
+
+    out = {}
+    for name in ("2D_Lena_256.png", "3D_SheppLoganPhantom_64.nii.gz"):
+        src = data.path(name)
+        reader = DataReader(src)
+        reader.read_data()
+        for noise in ("gaussian", "salt_and_pepper"):
+            dst = os.path.join(tmp, "%s_%s.%s" % (
+                name.split(".")[0], noise, name.split(".", 1)[1]))
+            rc = corrupt_data.main(["--filename", src, "--result", dst,
+                                    "--noise", noise])
+            want = corrupt_data.corrupt(reader.get_data(), [1], noise, 0.05,
+                                        device)
+            got = DataReader(dst)
+            got.read_data()
+            got = got.get_data()
+            if dst.endswith(".png"):
+                want = np.round(want).astype(np.uint8)
+            same = (rc == 0 and got.shape == want.shape
+                    and np.array_equal(got.astype(want.dtype), want))
+            require(same, "phase 43: nsol_torch_corrupt_data %s %s differs "
+                    "from the library's blur + Noise" % (name, noise))
+            res["corrupt_data %s %s" % (name, noise)] = \
+                "bit for bit the library's"
+            out[(name, noise)] = dst
+    gen = os.path.join(tmp, "generated")
+    t0 = time.perf_counter()
+    data.generate_standalone_data(gen)
+    data.verify_standalone_data(gen)
+    res["generate_standalone_data"] = "9 files, frozen hashes, %.1f s" % (
+        time.perf_counter() - t0)
+    return out
+
+
+def corrupted_cli_solves(device, res, obs, tmp):
+    """Phase 43's ``nsol_torch_run_deconvolution`` runs on the corrupted
+    Lena against the library's solve of the same problem."""
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
+    from nsol_tpu_torch.io import DataReader
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+
+    reader = DataReader(obs)
+    reader.read_data()
+    b = reader.get_data()
+    cov, spacing = np.eye(2), np.ones(2)
+    for flags in (["--minimizer", "lsq_linear"],
+                  ["--minimizer", "L-BFGS-B", "--data-loss", "huber"]):
+        dst = os.path.join(tmp, "x.nii.gz")
+        t0 = time.perf_counter()
+        rc = run_deconvolution.main(["--observation", obs, "--result", dst,
+                                     "--iterations", "10"] + flags)
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = DataReader(dst)
+        got.read_data()
+        minimizer = flags[1]
+        loss = flags[3] if len(flags) > 2 else "linear"
+        A, At = C.make_blur_operators(cov, spacing=spacing, shape=b.shape)
+        D, Dt = G.make_gradient_operators(spacing)
+        iface = DeconvolutionSolverStudyInterface(
+            A=A, A_adj=At, D=D, D_adj=Dt, b=b, x0=np.array(b), alpha=0.01,
+            x_scale=np.max(b), data_loss=loss, data_loss_scale=1.0,
+            iter_max=10, iterations=10, minimizer=minimizer, measures=[],
+            dimension=2, reconstruction_type="TVL2", rho=0.5, x_ref=None,
+            tv_solver="PD", verbose=0, normal_A=None, normal_B=None,
+            irls_cg_iters=8, blur_cov=cov, spacing=spacing, device=device)
+        iface.set_up_solver()
+        solver = iface.get_solver()
+        solver.run()
+        want = solver.get_x()
+        require(rc == 0 and np.array_equal(got.get_data(), want),
+                "phase 43: run_deconvolution %s differs from its library "
+                "solve (max %.3g)" % (" ".join(flags), float(np.max(np.abs(
+                    got.get_data() - want)))))
+        res["run_deconvolution %s" % " ".join(flags)] = \
+            "bit for bit the library's, %.0f ms (CLI)" % ms
+
+
+def sharded_engine_solves(device, res):
+    """Phase 43's sharded routes on a NCCL group of world size 1 against
+    the unsharded port solves of the same problem."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import make_space_mesh, sharded_tv_admm_solve
+    from nsol_tpu_torch.solvers.admm import admm_solve
+
+    b_np, _, cov = engine_problem("64^3")
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=device)
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    try:
+        mesh = make_space_mesh()
+        for loss, minimizer, its, inner in (("linear", "lsmr", 5, 5),
+                                            ("huber", "L-BFGS-B", 3, 4)):
+            t0 = time.perf_counter()
+            x = sharded_tv_admm_solve(mesh, cov, b, b, ALPHA, RHO,
+                                      iterations=its, iter_max=inner,
+                                      data_loss=loss)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            # the unsharded solves over the same (direct) blur and the FFT
+            # one: objectives within 1e-4, and for lsmr (a fixed linear
+            # recurrence) the voxels too; the float32 L-BFGS path is not
+            # reproducible run to run on the card (its line search may
+            # take another branch), so its voxels are reported
+            A64, _ = C.make_blur_operators(cov, shape=b.shape)
+            objective = (objective_device if loss == "linear"
+                         else robust_objective)
+            obj = objective(x, b, A64, ALPHA)
+            gaps = []
+            for method in ("direct", "fft"):
+                A, _ = C.make_blur_operators(cov, shape=b.shape,
+                                             method=method)
+                want, _ = admm_solve(A, A, G.gradient, G.gradient_adjoint, b,
+                                     0.0, b, ALPHA, RHO, iterations=its,
+                                     iter_max=inner, data_loss=loss,
+                                     minimizer=minimizer)
+                gaps += [max_rel(x, want),
+                         abs(obj - objective(want, b, A64, ALPHA)) / obj]
+            ok = gaps[1] <= 1e-4 and gaps[3] <= 1e-4 and (
+                minimizer != "lsmr" or max(gaps[0], gaps[2]) <= 1e-4)
+            require(ok, "phase 43: sharded "
+                    "%s %s vs the unsharded solves (direct voxels, objective;"
+                    " fft voxels, objective) %s" % (loss, minimizer, gaps))
+            res["sharded %s %s world 1" % (loss, minimizer)] = \
+                "objective %.6f; vs unsharded direct: voxels %.2e, " \
+                "objective %.2e; vs fft: voxels %.2e, objective %.2e; " \
+                "%.0f ms" % tuple([obj] + gaps + [ms])
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_engine_phases(device, card):
+    """Phases 41-43: the non-separable blur forms, the remaining Tikhonov
+    engines, ``Optimize`` and PCA, corruption and generation, and the
+    sharded non-separable routes, on the card."""
+    res41, res42, res43, reads = {}, {}, {}, {}
+    times = blur_form_checks(device, res41)
+    print("phase 41 blur forms (float32; full covariance %s): %s; device "
+          "ms (profiler, CUDA events, bound) %s [%s]"
+          % (FULL_COV3.tolist(), res41, times, card))
+    lap("phase 41")
+    engine_solves(device, res42, reads)
+    engine_extras(device, res42)
+    print("phase 42 engines (float32 on the card vs float64 anchors of the "
+          "JAX package on the CPU): %s [%s]" % (res42, card))
+    lap("phase 42")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = corrupt_and_generate(device, res43, tmp)
+        corrupted_cli_solves(device, res43, out[("2D_Lena_256.png",
+                                                 "gaussian")], tmp)
+    sharded_engine_solves(device, res43)
+    print("phase 43 corruption, generation, sharded routes: %s [%s]"
+          % (res43, card))
+    lap("phase 43")
+    return {"times": times, "reads": reads}
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
-          "volume", "volume_solves", "tail", "sweep")
+          "volume", "volume_solves", "tail", "sweep", "engines")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -7615,6 +8108,8 @@ def main(argv=None):
     if "sweep" in groups:
         kernels += run_sweep_phase(device, card)
         lap("phase 40")
+    if "engines" in groups:
+        run_engine_phases(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -11,7 +11,12 @@ and the sharded TV / robust deconvolution and TV denoising of
 :mod:`nsol_tpu_torch.parallel` (one process per GPU over
 ``torch.distributed``, each rank's slab through the prepadded window
 kernels) run on an NVIDIA H100 through CUDA C++ kernels written for
-``sm_90a`` (``csrc/``, bound in :mod:`nsol_tpu_torch.ops.cuda`).
+``sm_90a`` (``csrc/``, bound in :mod:`nsol_tpu_torch.ops.cuda`). The
+non-separable blur (FFT and direct forms), the ``lsq_linear``,
+``least_squares`` and box L-BFGS engines, ``Optimize``, PCA, ``Noise``,
+the corruption CLI and the generation of the stand-in inputs run in plain
+PyTorch on the same card, as the reference leaves them outside its
+kernels.
 
 The package imports torch, numpy and scipy only — never ``jax`` or
 ``nsol_tpu`` — and has no global platform switch.

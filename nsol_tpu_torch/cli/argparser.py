@@ -1,7 +1,8 @@
 """Declarative CLI argument collection (counterpart of
 ``nsol_tpu/cli/argparser.py``): the options of the deconvolution routes
 (ADMM/TVL2 with linear and robust losses, TK0L2/TK1L2), of the
-deconvolution study and of the denoising CLI, plus ``--device``. Flag
+deconvolution study, of the denoising CLI and of the corruption tool, plus
+``--device``. Flag
 names, defaults and help conventions follow the reference so one command
 line reads the same in both packages.
 """
@@ -10,7 +11,8 @@ import argparse
 
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.__about__ import __version__
-from nsol_tpu_torch.defaults import ALLOWED_INPUT_EXTENSIONS
+from nsol_tpu_torch.defaults import (ALLOWED_INPUT_EXTENSIONS,
+                                     ALLOWED_NOISE_TYPES)
 
 __all__ = ["InputArgparser", "LOSSES", "SIMILARITY_MEASURES"]
 
@@ -21,6 +23,7 @@ SIMILARITY_MEASURES = ("SSD", "MAE", "MSE", "RMSE", "PSNR", "SSIM", "NCC",
                        "MI", "NMI")
 
 INPUT_FILE_TYPES = "(" + ", ".join(ALLOWED_INPUT_EXTENSIONS) + ")"
+NOISE_TYPES = "(" + ", ".join(ALLOWED_NOISE_TYPES) + ", or none)"
 
 
 class InputArgparser(object):
@@ -63,6 +66,10 @@ class InputArgparser(object):
         self._add("--observation", type=str, required=required,
                   help="Input image to denoise or deconvolve; any of %s."
                        % INPUT_FILE_TYPES)
+
+    def add_filename(self, required=True):
+        self._add("--filename", type=str, required=required,
+                  help="Input image file %s." % INPUT_FILE_TYPES)
 
     def add_result(self, required=True, default=None):
         self._add("--result", type=str, required=required, default=default,
@@ -139,6 +146,15 @@ class InputArgparser(object):
                        "isotropic PSF, or one per axis for an "
                        "axis-aligned anisotropic PSF.")
 
+    def add_noise(self, default=None):
+        self._add("--noise", type=str, default=default,
+                  help="Kind of synthetic corruption to add %s."
+                       % NOISE_TYPES)
+
+    def add_noise_level(self, default=None):
+        self._add("--noise-level", type=float, default=default,
+                  help="Noise amplitude, relative to the data maximum.")
+
     # -- solver configuration ----------------------------------------------
 
     def add_solver(self, default="PD"):
@@ -150,8 +166,12 @@ class InputArgparser(object):
         self._add("--minimizer", type=str, default=default,
                   help="Engine for the inner quadratic problem: 'auto' "
                        "(cg for a linear loss, irls for a robust one, with "
-                       "a separable blur), 'cg' (CG on the normal "
-                       "equations) or 'irls' (reweighted CG).")
+                       "a separable blur; else lsmr / L-BFGS-B), 'lsmr' "
+                       "(CGLS), 'cg' (CG on the normal equations), 'irls' "
+                       "(reweighted CG), 'lsq_linear' (projected FISTA), "
+                       "'least_squares', or a quasi-Newton name like "
+                       "'L-BFGS-B' (the box L-BFGS; handles non-linear "
+                       "data losses).")
 
     def add_rho(self, default=0.5):
         self._add("--rho", type=float, default=default,

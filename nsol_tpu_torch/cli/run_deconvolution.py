@@ -34,12 +34,13 @@ one run per α (:253-290), with the blur hint: TK0L2/TK1L2, TVL2 by PD
 robust ``--data-loss``, or ``"lsmr"``), HuberL2 (the linear CGLS prox, the
 reference's quirk), and any route with ``--reference``, whose observer
 records the similarity measures. On CUDA the inner solves' applies run
-the kernel units through the hooks. ``--device cuda`` runs the CUDA
-kernels, ``--device cpu`` their plain versions. A non-separable blur and
-the inner engines still to port raise ``NotImplementedError``, as do
-``--trace`` and ``--dir-output-figures`` with ``--verbose``;
-``--dir-output-figures`` without ``--verbose`` writes nothing, as in the
-reference (:292-294).
+the kernel units through the hooks. ``--minimizer lsq_linear``,
+``least_squares`` and ``L-BFGS-B`` (or any quasi-Newton name) run the
+interface's solver too, their engines on the blur of ``--blur`` (on
+cuda in float32). ``--device cuda`` runs the CUDA kernels, ``--device
+cpu`` their plain versions. ``--trace`` and ``--dir-output-figures`` with
+``--verbose`` raise ``NotImplementedError``; ``--dir-output-figures``
+without ``--verbose`` writes nothing, as in the reference (:292-294).
 """
 
 import numpy as np
@@ -48,8 +49,7 @@ import torch
 from nsol_tpu_torch import policy
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.cli.argparser import LOSSES, InputArgparser
-from nsol_tpu_torch.defaults import (ROADMAP_ENGINES, ROADMAP_FIGURES,
-                                     not_ported)
+from nsol_tpu_torch.defaults import ROADMAP_FIGURES, not_ported
 from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
 from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
@@ -133,9 +133,6 @@ def main(argv=None):
 
     minimizer = resolve_minimizer(args.minimizer, data_loss=args.data_loss,
                                   cov=cov, spacing=spacing)
-    if minimizer not in ("cg", "irls", "lsmr") \
-            and args.reconstruction_type != "HuberL2":
-        raise not_ported("--minimizer %s" % minimizer, ROADMAP_ENGINES)
 
     x_scale = np.max(observed_nda)
     fused = (args.reconstruction_type == "TVL2" and args.solver == "ADMM"
@@ -177,9 +174,11 @@ def _run_interface(args, data_reader, observed_nda, x_ref, cov, spacing,
                    minimizer, x_scale, alphas):
     """Every route but the whole ADMM solve: the interface's solver, one
     run per α (nsol_tpu/cli/run_deconvolution.py:253-290)."""
-    A, A_adj = C.make_blur_operators(cov, alpha_cut=3, spacing=spacing)
+    A, A_adj = C.make_blur_operators(cov, alpha_cut=3, spacing=spacing,
+                                     shape=observed_nda.shape)
     grad_op, grad_adj = G.make_gradient_operators(spacing)
-    normal_A = C.make_normal_blur_operator(cov, alpha_cut=3, spacing=spacing) \
+    normal_A = C.make_normal_blur_operator(
+        cov, alpha_cut=3, spacing=spacing, shape=observed_nda.shape) \
         if minimizer == "cg" else None
     normal_B = None
     if minimizer in ("cg", "irls"):

@@ -89,7 +89,8 @@ def main(argv=None):
     else:
         spacing = np.array(data_reader.get_image_nifti().get_spacing())
 
-    A, A_adj = C.make_blur_operators(cov, alpha_cut=3, spacing=spacing)
+    A, A_adj = C.make_blur_operators(cov, alpha_cut=3, spacing=spacing,
+                                     shape=observed_nda.shape)
     grad_op, grad_adj = G.make_gradient_operators(spacing)
     # --minimizer auto stays "auto" through the interface when data_loss
     # is swept, so the solvers re-resolve it per loss; otherwise it is
@@ -102,8 +103,8 @@ def main(argv=None):
     normal_A = normal_B = None
     if resolved in ("cg", "irls"):
         if resolved == "cg":
-            normal_A = C.make_normal_blur_operator(cov, alpha_cut=3,
-                                                   spacing=spacing)
+            normal_A = C.make_normal_blur_operator(
+                cov, alpha_cut=3, spacing=spacing, shape=observed_nda.shape)
 
         def normal_B(x):
             return G.gradient_normal(x, spacing)

@@ -28,8 +28,6 @@ def default_dtype():
 #: ROADMAP.md items of the reference's routes still to port, by title (a
 #: number would shift when the queue is re-anchored)
 ROADMAP_FIGURES = "Queue 1: viewing, figures and tracing"
-ROADMAP_ENGINES = "Queue 1: remaining inner engines and extras"
-ROADMAP_NON_SEPARABLE = "Queue 1: non-separable blur"
 ROADMAP_BATCH_MESH = 'Queue 1: the "batch" mesh axis and run_sweep(mesh=)'
 
 

@@ -193,7 +193,7 @@ class DeconvolutionSolverStudyInterface(object):
             return {}
         try:
             factors = C.blur_factors(self._blur_cov, 3, self._spacing)
-        except NotImplementedError:  # a non-separable hint
+        except ValueError:  # a non-separable hint
             return {}
         st = _B.Stencils(factors, self._spacing, self._device,
                          default_dtype())

@@ -1,6 +1,8 @@
 """Distribution layer over ``torch.distributed`` (counterpart of
-``nsol_tpu/parallel/``): the ``"space"`` mesh, halo-exchange stencils and
-all-reduced solvers, one process per GPU. ``band_matrix`` (a TPU matrix
+``nsol_tpu/parallel/``): the ``"space"`` mesh, halo-exchange stencils
+(separable or a full covariance's direct blur; differentiable) and
+all-reduced solvers (``cg``, ``irls``, ``lsmr``, the box L-BFGS), one
+process per GPU. ``band_matrix`` (a TPU matrix
 form), the ``"batch"`` sweep axis and ``run_sweep(mesh=...)`` are not
 ported (ROADMAP Queue 1: the "batch" mesh axis and
 run_sweep(mesh=))."""

@@ -11,7 +11,9 @@ every CG dot is all-reduced (``Mesh.reduce``). The reference's
 ring at world size 1, a hop of the world size) is a local copy, since NCCL
 refuses a send to the sending rank. A rank with no neighbour receives
 zeros, as ``ppermute``'s unaddressed destinations do: the global
-zero boundary of the derivative stencils.
+zero boundary of the derivative stencils. An exchange is differentiable:
+its gradient goes back along the same links (the transpose of the
+permutation, as ``ppermute``'s), which the sharded L-BFGS needs.
 
 Every function takes this rank's block and the mesh; each rank calls it
 with its own block.
@@ -21,24 +23,18 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from nsol_tpu_torch.defaults import ROADMAP_NON_SEPARABLE
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
+from nsol_tpu_torch.ops.kernels import gaussian_kernel
 
 __all__ = [
     "exchange_plane_up", "exchange_plane_down", "exchange_halo_wrap",
     "make_sharded_gradient_operators", "make_sharded_blur_operators",
-    "separable_halo_apply",
+    "separable_halo_apply", "direct_halo_apply",
 ]
 
-_NON_SEPARABLE = ("a non-separable (full-covariance) blur is not ported on "
-                  "the sharded path (ROADMAP %s)" % ROADMAP_NON_SEPARABLE)
-
-
-def _sendrecv(mesh, send, dst, src, like):
-    """Send ``send`` to rank ``dst`` and return what rank ``src`` sends,
-    shaped like ``like`` (zeros where ``src`` is None); either side may be
-    None. A message to this rank itself is a copy."""
+def _exchange(mesh, send, dst, src, like):
+    """:func:`_sendrecv` outside autograd."""
     out = None
     if src is not None and src == mesh.rank and dst == mesh.rank:
         return send.clone()
@@ -53,6 +49,31 @@ def _sendrecv(mesh, send, dst, src, like):
         for req in tdist.batch_isend_irecv(ops):
             req.wait()
     return torch.zeros_like(like) if out is None else out
+
+
+class _SendRecv(torch.autograd.Function):
+    """:func:`_exchange` with its transpose as the gradient: what came
+    from ``src`` goes back to it, and ``send``'s gradient comes from
+    ``dst``."""
+
+    @staticmethod
+    def forward(ctx, send, mesh, dst, src, like):
+        ctx.mesh, ctx.dst, ctx.src = mesh, dst, src
+        return _exchange(mesh, send, dst, src, like)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _exchange(ctx.mesh, g, ctx.src, ctx.dst, g)
+        return back, None, None, None, None
+
+
+def _sendrecv(mesh, send, dst, src, like):
+    """Send ``send`` to rank ``dst`` and return what rank ``src`` sends,
+    shaped like ``like`` (zeros where ``src`` is None); either side may be
+    None. A message to this rank itself is a copy. Differentiable."""
+    if torch.is_grad_enabled() and send.requires_grad:
+        return _SendRecv.apply(send, mesh, dst, src, like)
+    return _exchange(mesh, send, dst, src, like)
 
 
 def exchange_plane_up(x, mesh, axis=0, width=1):
@@ -171,22 +192,36 @@ def separable_halo_apply(factors, mesh):
     return apply
 
 
-def _factors(cov, alpha_cut, spacing):
-    try:
-        return C.blur_factors(cov, alpha_cut, spacing)
-    except NotImplementedError:
-        raise NotImplementedError(_NON_SEPARABLE) from None
+def direct_halo_apply(kernel, mesh):
+    """Wrap convolution of a block sharded along axis 0 with the stencil
+    ``kernel`` (``nsol_tpu/parallel/halo.py:143-164``): the ring halo of
+    ``lo, hi = L − 1 − c, c`` planes, then :func:`~nsol_tpu_torch.ops.conv.
+    convolve` with axis 0 prepadded and the local axes wrapped."""
+    L = kernel.shape[0]
+    c = L // 2
+    lo, hi = L - 1 - c, c
+
+    def apply(x):
+        xp = exchange_halo_wrap(x, mesh, lo, hi)
+        return C.convolve(xp, kernel, mode="wrap", prepadded_axes=(0,))
+
+    return apply
 
 
 def make_sharded_blur_operators(cov, alpha_cut=3, spacing=None, mesh=None,
                                 dtype=np.float64):
     """Gaussian blur pair ``(A, A)`` for blocks sharded along array axis 0
-    (wrap boundary globally; the stencil is symmetric). Separable blurs
-    only: a non-separable one raises ``NotImplementedError`` (ROADMAP
-    Queue 1: non-separable blur). ``dtype`` is the reference's kernel dtype; the
-    arithmetic follows the block's."""
-    A = separable_halo_apply(_factors(cov, alpha_cut, spacing),
-                             _mesh_or_single(mesh))
+    (wrap boundary globally; the stencil is symmetric): per-axis taps over
+    the axis-0 halo for a separable blur (:func:`separable_halo_apply`),
+    the direct convolution over it otherwise (:func:`direct_halo_apply`).
+    ``dtype`` is the reference's kernel dtype; the arithmetic follows the
+    block's."""
+    mesh = _mesh_or_single(mesh)
+    kernel = gaussian_kernel(cov, alpha_cut=alpha_cut, spacing=spacing,
+                             dtype=np.float64)
+    factors = C.separable_factors(kernel)
+    A = (separable_halo_apply(factors, mesh) if factors is not None
+         else direct_halo_apply(kernel, mesh))
     return A, A
 
 

@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 from nsol_tpu_torch.ops import grad as G
+from nsol_tpu_torch.ops.conv import blur_factors
 from nsol_tpu_torch.parallel.halo import (
-    _factors, _mesh_or_single, exchange_plane_down, exchange_plane_up,
+    _mesh_or_single, exchange_plane_down, exchange_plane_up,
     separable_halo_apply)
 
 __all__ = ["make_sharded_matmul_blur_operators",
@@ -34,7 +35,7 @@ def make_sharded_matmul_blur_operators(cov, alpha_cut=3, spacing=None,
     """Gaussian blur pair ``(A, A)`` of a block sharded along axis 0 (a
     diagonal covariance; the stencil is symmetric)."""
     _require_shape(local_shape)
-    A = separable_halo_apply(_factors(cov, alpha_cut, spacing),
+    A = separable_halo_apply(blur_factors(cov, alpha_cut, spacing),
                              _mesh_or_single(mesh))
     return A, A
 
@@ -46,7 +47,7 @@ def make_sharded_matmul_normal_blur_operator(cov, alpha_cut=3, spacing=None,
     self-correlated factors ``np.convolve(f, f[::-1])``."""
     _require_shape(local_shape)
     auto = [np.convolve(f, f[::-1])
-            for f in _factors(cov, alpha_cut, spacing)]
+            for f in blur_factors(cov, alpha_cut, spacing)]
     return separable_halo_apply(auto, _mesh_or_single(mesh))
 
 

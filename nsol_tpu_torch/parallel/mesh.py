@@ -17,13 +17,13 @@ THIS rank's rows, on the mesh's device.
 """
 
 import os
+import warnings
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
-from nsol_tpu_torch.defaults import (ROADMAP_BATCH_MESH, ROADMAP_ENGINES,
-                                     ROADMAP_NON_SEPARABLE, not_ported)
+from nsol_tpu_torch.defaults import ROADMAP_BATCH_MESH, not_ported
 from nsol_tpu_torch.ops import prox as _prox
 from nsol_tpu_torch.ops.conv import separable_factors
 from nsol_tpu_torch.ops.kernels import gaussian_kernel
@@ -161,25 +161,28 @@ def sharded_tv_admm_solve(mesh, cov, b, x0, alpha, rho, spacing=None,
                           use_blocked=None, blocked_precision=None):
     """TV-L2/robust deconvolution of a volume sharded along array axis 0:
     ``admm_solve`` on this rank's slab, the stencils halo-exchanging with
-    the neighbouring ranks and every CG dot all-reduced.
+    the neighbouring ranks and every dot all-reduced.
 
-    ``minimizer=None`` (or ``"auto"``) picks as the reference does with a
-    separable (diagonal-covariance) blur: ``"cg"`` on the normal equations
-    for the linear loss, ``"irls"`` for a robust one. A non-separable blur
-    (the reference's ``"lsmr"`` / ``"L-BFGS-B"`` over direct-conv halo
-    stencils) and an explicit ``"lsmr"`` / ``"L-BFGS-B"`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1: remaining inner engines and
-    extras; non-separable blur).
+    ``minimizer=None`` (or ``"auto"``) picks as the reference does
+    (``nsol_tpu/parallel/mesh.py:127-171``): with a separable
+    (diagonal-covariance) blur ``"cg"`` on the normal equations for the
+    linear loss and ``"irls"`` for a robust one, with a non-separable blur
+    ``"lsmr"`` (the augmented CGLS) and the box ``"L-BFGS-B"`` (its cost and
+    every dot summed over the ranks, its gradient through the halo
+    exchanges). Those two, and ``"irls"`` with a non-separable blur (which
+    warns, as the reference does), run over the halo'd direct-convolution
+    blur (:func:`.halo.make_sharded_blur_operators`); ``"cg"`` refuses a
+    robust loss or a non-separable blur with ``ValueError``.
 
-    ``use_blocked`` (:func:`takes_blocked_units`): each rank's
-    ``AᵀA + ρDᵀD`` apply (``"cg"``), or its residual blur, IRLS gradient
-    and weighted apply (``"irls"``), run the prepadded window units of
-    :mod:`.blocked_halo` — by default on cuda for every 3-D volume, which
-    must be float32 there; otherwise the halo'd per-axis operators of
-    :mod:`.matmul_halo`. There is no fallback: a volume the units cannot
-    take where they would run raises ``ValueError``.
-    ``blocked_precision`` is the kernels' ``precision`` (None, "HIGHEST" or
-    "high3": the exact f32 result).
+    ``use_blocked`` (:func:`takes_blocked_units`, ``"cg"`` and ``"irls"``
+    with a separable blur): each rank's ``AᵀA + ρDᵀD`` apply (``"cg"``), or
+    its residual blur, IRLS gradient and weighted apply (``"irls"``), run
+    the prepadded window units of :mod:`.blocked_halo` — by default on
+    cuda for every 3-D volume, which must be float32 there; otherwise the
+    halo'd per-axis operators of :mod:`.matmul_halo`. There is no
+    fallback: a volume the units cannot take where they would run raises
+    ``ValueError``. ``blocked_precision`` is the kernels' ``precision``
+    (None, "HIGHEST" or "high3": the exact f32 result).
 
     ``b``/``x0``: numpy arrays or tensors — the whole volume with
     ``process_local=False`` (one rank only; a mesh of several processes
@@ -191,38 +194,46 @@ def sharded_tv_admm_solve(mesh, cov, b, x0, alpha, rho, spacing=None,
         minimizer = None
     b = _local_input(b, mesh, process_local)
     x0 = _local_input(x0, mesh, process_local)
-    if minimizer not in (None, "cg", "irls"):
-        raise not_ported("minimizer=%r on the sharded path" % (minimizer,),
-                         ROADMAP_ENGINES)
-    if not _separable(cov, alpha_cut, spacing):
-        raise not_ported("a non-separable blur on the sharded path (the "
-                         "reference's lsmr / L-BFGS-B over direct-conv halo "
-                         "stencils)", ROADMAP_NON_SEPARABLE)
-    if minimizer == "cg" and data_loss != "linear":
+    # separability matters only to the minimizers that can exploit it
+    separable = (minimizer in (None, "cg", "irls")
+                 and _separable(cov, alpha_cut, spacing))
+    if minimizer == "irls" and not separable:
+        warnings.warn(
+            "minimizer='irls' with a non-separable blur runs on the "
+            "direct-conv halo operators (no fused normal pass); expect the "
+            "slower fallback path", stacklevel=2)
+    if minimizer == "cg" and (data_loss != "linear" or not separable):
         raise ValueError("minimizer='cg' requires a linear data loss "
                          "and a separable (diagonal-covariance) blur")
     if minimizer is None:
-        minimizer = "cg" if data_loss == "linear" else "irls"
-
-    local_shape = tuple(b.shape)
-    A, A_adj = matmul_halo.make_sharded_matmul_blur_operators(
-        cov, alpha_cut, spacing, local_shape=local_shape, mesh=mesh)
-    normal_A = matmul_halo.make_sharded_matmul_normal_blur_operator(
-        cov, alpha_cut, spacing, local_shape=local_shape, mesh=mesh)
-    normal_B = matmul_halo.make_sharded_matmul_gradient_normal(
-        local_shape, spacing, mesh=mesh)
-    normal_M = normal_W = grad_W = None
-    if takes_blocked_units(use_blocked, b.ndim, b.device, b.dtype):
-        if minimizer == "cg":
-            normal_M = blocked_halo.make_sharded_blocked_normal_operator(
-                local_shape, cov, alpha_cut, spacing, mesh=mesh,
-                precision=blocked_precision)
+        if data_loss == "linear":
+            minimizer = "cg" if separable else "lsmr"
         else:
-            blur_s, grad_W, normal_W = \
-                blocked_halo.make_sharded_blocked_robust_operators(
+            minimizer = "irls" if separable else "L-BFGS-B"
+
+    normal_A = normal_B = normal_M = normal_W = grad_W = None
+    if minimizer in ("cg", "irls") and separable:
+        local_shape = tuple(b.shape)
+        A, A_adj = matmul_halo.make_sharded_matmul_blur_operators(
+            cov, alpha_cut, spacing, local_shape=local_shape, mesh=mesh)
+        normal_A = matmul_halo.make_sharded_matmul_normal_blur_operator(
+            cov, alpha_cut, spacing, local_shape=local_shape, mesh=mesh)
+        normal_B = matmul_halo.make_sharded_matmul_gradient_normal(
+            local_shape, spacing, mesh=mesh)
+        if takes_blocked_units(use_blocked, b.ndim, b.device, b.dtype):
+            if minimizer == "cg":
+                normal_M = blocked_halo.make_sharded_blocked_normal_operator(
                     local_shape, cov, alpha_cut, spacing, mesh=mesh,
                     precision=blocked_precision)
-            A = A_adj = blur_s  # symmetric Gaussian: A = Aᵀ
+            else:
+                blur_s, grad_W, normal_W = \
+                    blocked_halo.make_sharded_blocked_robust_operators(
+                        local_shape, cov, alpha_cut, spacing, mesh=mesh,
+                        precision=blocked_precision)
+                A = A_adj = blur_s  # symmetric Gaussian: A = Aᵀ
+    else:
+        A, A_adj = halo.make_sharded_blur_operators(cov, alpha_cut, spacing,
+                                                    mesh)
     Bg, Bg_adj = halo.make_sharded_gradient_operators(spacing, mesh)
     x, _ = _admm.admm_solve(
         A, A_adj, Bg, Bg_adj, b, 0.0, x0, alpha, rho, iterations=iterations,

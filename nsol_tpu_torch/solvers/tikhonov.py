@@ -1,6 +1,6 @@
 """Tikhonov-regularized (robust) least squares: the quadratic engine
-(counterpart of ``nsol_tpu/solvers/tikhonov.py``, the ``"cg"``, ``"lsmr"``
-and ``"irls"`` branches and ``prox_linear_least_squares``).
+(counterpart of ``nsol_tpu/solvers/tikhonov.py``: every engine of
+``tikhonov_solve`` and ``prox_linear_least_squares``).
 
 ``minimizer="cg"`` runs CG directly on the normal equations
 ``(AᵀA + α BᵀB) x = Aᵀb + α Bᵀ b_reg``. ``minimizer="lsmr"`` runs CGLS on
@@ -10,17 +10,20 @@ the reference's lsmr with atol = btol = 0 is fixed-trip too).
 ``minimizer="irls"`` minimizes the robust cost ``½Σρ_C((Ax−b)²) +
 α·½‖Bx‖²`` by reweighted least squares in projected-Newton form
 (tikhonov.py:193-252), ``b_reg`` ignored as the reference's robust path
-ignores it. The reference's other engines ("lsq_linear", "least_squares",
-L-BFGS) raise ``NotImplementedError`` (ROADMAP Queue 1: remaining inner
-engines and extras).
+ignores it. ``minimizer="lsq_linear"`` runs projected FISTA on the normal
+equations with a step of 1/L, L from 20 power iterations (:169-193).
+``minimizer="least_squares"`` applies the robust loss to the whole
+augmented residual ``[Ax − b; √α(Bx − b_reg)]`` and minimizes it by the box
+L-BFGS (:260-276); any other name (``"L-BFGS-B"``) minimizes ``½Σρ_C((Ax −
+b)²) + α·½‖Bx‖²`` by it, ``b_reg`` ignored as there (:278-290).
 """
 
 import numpy as np
 import torch
 
-from nsol_tpu_torch.defaults import ROADMAP_ENGINES, not_ported
 from nsol_tpu_torch.ops import losses
-from nsol_tpu_torch.solvers.cg import cg, cgls
+from nsol_tpu_torch.solvers.cg import cg, cgls, tree_vdot
+from nsol_tpu_torch.solvers.lbfgs import lbfgs_box, summed
 
 __all__ = ["tikhonov_solve", "prox_linear_least_squares",
            "resolve_minimizer"]
@@ -54,6 +57,20 @@ def _clip_bounds(x, bounds):
     return torch.clamp(x, min=bounds[0], max=bounds[1])
 
 
+def _power_iteration_L(apply_M, x, iters=20, reduce=None):
+    """Largest-eigenvalue estimate of the SPD normal operator from the
+    ones vector (``nsol_tpu/solvers/tikhonov.py:100-115``)."""
+    v = torch.ones_like(x)
+    v = v / torch.sqrt(tree_vdot(v, v, reduce))
+    lam = torch.ones((), dtype=x.dtype, device=x.device)
+    for _ in range(iters):
+        w = apply_M(v)
+        lam = tree_vdot(v, w, reduce)
+        nw = torch.sqrt(tree_vdot(w, w, reduce))
+        v = w / torch.where(nw > 0, nw, torch.ones_like(nw))
+    return torch.abs(lam)
+
+
 def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
                    data_loss="linear", data_loss_scale=1.0, minimizer="cg",
                    iter_max=10, bounds=(0.0, np.inf), normal_A=None,
@@ -74,14 +91,17 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     weighted apply ``Aᵀ(wts·A vf) + α·BᵀB vf``, ``grad_W(x, wts_r, alpha)``
     the gradient ``Aᵀ(wts_r) + α·BᵀB x``.
 
-    ``reduce`` sums the CG dots over the ranks of a sharded volume (the
-    reference's ``axis_name``, ``nsol_tpu/solvers/tikhonov.py:151,248``).
+    ``minimizer="lsq_linear"``: ``iter_max`` projected FISTA steps, no clip
+    after the last. ``"least_squares"`` and any other name: ``iter_max``
+    box L-BFGS iterations on the costs of the module docstring.
+
+    ``reduce`` sums the dots (and the L-BFGS cost) over the ranks of a
+    sharded volume (the reference's ``axis_name``,
+    ``nsol_tpu/solvers/tikhonov.py:151,248,258``).
     """
     if minimizer in ("lsmr", "lsq_linear", "cg") and data_loss != "linear":
         raise ValueError("%s minimizer cannot be used with non-linear data "
                          "loss" % minimizer)
-    if minimizer not in ("cg", "lsmr", "irls"):
-        raise not_ported("minimizer=%r" % (minimizer,), ROADMAP_ENGINES)
     x0 = _clip_bounds(x0, bounds)
     alpha_t = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
     nB = normal_B if normal_B is not None else (lambda v: B_adj(B(v)))
@@ -105,6 +125,12 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
         x = cgls(apply_aug, apply_aug_adj, (b, sqrt_alpha * b_reg), x0,
                  iters=iter_max, reduce=reduce)
         return _clip_bounds(x, bounds)
+    if minimizer == "lsq_linear":
+        return _fista(A, A_adj, B, B_adj, b, b_reg, x0, alpha_t, iter_max,
+                      bounds, reduce)
+    if minimizer != "cg":
+        return _lbfgs(A, B, b, b_reg, x0, alpha_t, data_loss,
+                      data_loss_scale, minimizer, iter_max, bounds, reduce)
     if normal_M is not None:
         def apply_M(v):
             return normal_M(v, alpha_t)
@@ -117,6 +143,53 @@ def tikhonov_solve(A, A_adj, B, B_adj, b, b_reg, x0, alpha,
     rhs = (At_b if At_b is not None else A_adj(b)) + alpha_t * B_adj(b_reg)
     x = cg(apply_M, rhs, x0, iters=iter_max, reduce=reduce)
     return _clip_bounds(x, bounds)
+
+
+def _fista(A, A_adj, B, B_adj, b, b_reg, x0, alpha_t, iters, bounds,
+           reduce):
+    """The ``"lsq_linear"`` engine (tikhonov.py:169-193): projected FISTA on
+    ``M x = rhs``, ``M = AᵀA + α BᵀB``, ``rhs = Aᵀb + α Bᵀ b_reg``."""
+    def apply_M(v):
+        return A_adj(A(v)) + alpha_t * B_adj(B(v))
+
+    rhs = A_adj(b) + alpha_t * B_adj(b_reg)
+    L = _power_iteration_L(apply_M, x0, reduce=reduce)
+    step = 1.0 / torch.where(L > 0, L, torch.ones_like(L))
+    x, y, t = x0, x0, torch.ones_like(L)
+    for _ in range(iters):
+        x_new = _clip_bounds(y - step * (apply_M(y) - rhs), bounds)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        y = x_new + ((t - 1.0) / t_new) * (x_new - x)
+        x, t = x_new, t_new
+    return x
+
+
+def _lbfgs(A, B, b, b_reg, x0, alpha_t, data_loss, data_loss_scale,
+           minimizer, iters, bounds, reduce):
+    """The box L-BFGS engines (tikhonov.py:254-290): ``"least_squares"``
+    on the whole augmented residual, any other name on the analytic cost
+    with the b_reg-ignoring regulariser. The cost is summed over the ranks
+    by ``reduce``."""
+    sqrt_alpha = torch.sqrt(alpha_t)
+    if minimizer == "least_squares":
+        def cost(x):
+            c = losses.cost_from_residual(A(x) - b, data_loss,
+                                          data_loss_scale)
+            r_reg = sqrt_alpha * (B(x) - b_reg)
+            c = c + losses.cost_from_residual(r_reg.reshape(-1), data_loss,
+                                              data_loss_scale)
+            return summed(c, reduce)
+    else:
+        def cost(x):
+            c = losses.cost_from_residual(A(x) - b, data_loss,
+                                          data_loss_scale)
+            Bx = B(x)
+            return summed(c + alpha_t * 0.5 * torch.sum(Bx * Bx), reduce)
+
+    lo = -np.inf if bounds is None else bounds[0]
+    hi = np.inf if bounds is None else bounds[1]
+    return lbfgs_box(cost, x0, lower=lo, upper=hi, iters=iters,
+                     reduce=reduce)
 
 
 def _irls(A, A_adj, nB, b, x, alpha_t, data_loss, data_loss_scale, sweeps,

@@ -162,8 +162,9 @@ class _HintedSolver(LinearSolver):
         if self._normal_A is None:
             try:
                 self._normal_A = C.make_normal_blur_operator(
-                    self._blur_cov, alpha_cut=3, spacing=self._spacing)
-            except NotImplementedError:  # non-separable hint
+                    self._blur_cov, alpha_cut=3, spacing=self._spacing,
+                    shape=np.shape(self._x0))
+            except ValueError:
                 return
         if self._normal_B is None and self._reg() == "TK1":
             spacing = self._spacing
@@ -181,7 +182,7 @@ class _HintedSolver(LinearSolver):
         if self._stencils is None:
             try:
                 factors = C.blur_factors(self._blur_cov, 3, self._spacing)
-            except NotImplementedError:
+            except ValueError:  # a non-separable hint
                 return None
             self._stencils = _B.Stencils(factors, self._spacing,
                                          self._device, self._dtype)

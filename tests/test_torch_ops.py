@@ -120,12 +120,23 @@ def test_vectorial_soft_threshold_matches_reference(ndim, rng):
 
 
 def test_unported_blur_forms_raise():
+    """The forms that raised before the non-separable blur was ported now
+    run: a full covariance takes the direct form without a shape, and
+    ``method="fft"`` gives the separable operator's values; the separable
+    factors of a full covariance still do not exist."""
     cov = np.array([[1.0, 0.4], [0.4, 1.0]])
-    with pytest.raises(NotImplementedError):
-        TC.make_blur_operators(cov)
-    with pytest.raises(NotImplementedError):
-        TC.make_blur_operators(np.eye(2), method="fft")
+    x = np.random.RandomState(2).rand(12, 11)
+    A, _ = TC.make_blur_operators(cov)
+    np.testing.assert_allclose(
+        _np(A(_t(x))), np.asarray(JC.make_blur_operators(
+            cov, method="direct")[0](jnp.asarray(x))), rtol=0, atol=1e-12)
+    fft, _ = TC.make_blur_operators(np.eye(2), shape=x.shape, method="fft")
+    sep, _ = TC.make_blur_operators(np.eye(2))
+    np.testing.assert_allclose(_np(fft(_t(x))), _np(sep(_t(x))), rtol=0,
+                               atol=1e-12)
     assert TC.separable_factors(JK.gaussian_kernel(cov)) is None
+    with pytest.raises(ValueError):
+        TC.blur_factors(cov)
 
 
 def test_interop_checks_layout_and_dtype(rng):

@@ -349,6 +349,74 @@ def test_world2_io_window_apply_matches_jax_sharded(world2):
                           .float().numpy())
 
 
+def test_world2_non_separable_blur(world2):
+    """The halo'd direct blur of a full covariance over 2 gloo ranks against
+    the port's whole-volume direct and FFT blurs and the JAX package's
+    sharded one on 2 CPU devices."""
+    x = W.solve_inputs()["pd64"]
+    got = world2["w2_blur_full"]
+    for method in ("direct", "fft"):
+        A, _ = TC.make_blur_operators(W.FULL_COV, shape=x.shape,
+                                      method=method)
+        np.testing.assert_allclose(got, A(_t(x)).numpy(), rtol=0,
+                                   atol=TOL64)
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from jax.sharding import PartitionSpec as PS
+
+    par = _jax("parallel")
+    JA, _ = par.make_sharded_blur_operators(W.FULL_COV, 3, None,
+                                            axis_name="space", n_shards=2)
+    f = jax.jit(jax.shard_map(JA, mesh=par.make_mesh((2,), ("space",)),
+                              in_specs=PS("space"), out_specs=PS("space")))
+    np.testing.assert_allclose(got, np.asarray(f(jnp.asarray(x))), rtol=0,
+                               atol=TOL64)
+
+
+def _engine_unsharded(key, which, kw):
+    """The port's unsharded ``admm_solve`` of an engine case, over the
+    whole-volume direct blur (float64)."""
+    b = _t(W.solve_inputs()[key])
+    loss = kw.get("data_loss", "linear")
+    minimizer = kw.get("minimizer") or ("lsmr" if loss == "linear"
+                                        else "L-BFGS-B")
+    A, _ = TC.make_blur_operators(W.engine_cov(which), method="direct")
+    x, _ = TA.admm_solve(
+        A, A, TG.gradient, TG.gradient_adjoint, b, 0.0, b.clone(), W.ALPHA,
+        W.RHO, iterations=kw["iterations"], iter_max=kw["iter_max"],
+        data_loss=loss, data_loss_scale=kw.get("data_loss_scale", 1.0),
+        minimizer=minimizer)
+    return x.numpy()
+
+
+@pytest.mark.parametrize("case", sorted(W.ENGINE_SOLVES))
+def test_world2_engine_solves_match_unsharded(world2, case):
+    """``"lsmr"``, ``"L-BFGS-B"`` (dots and cost all-reduced, the gradient
+    through the halo exchanges) and ``"irls"`` over the halo'd direct blur
+    on 2 gloo ranks against the port's unsharded solve, 1e-9 in float64."""
+    key, which, kw = W.ENGINE_SOLVES[case]
+    np.testing.assert_allclose(world2[case], _engine_unsharded(key, which,
+                                                               kw),
+                               rtol=0, atol=SOLVE_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(W.ENGINE_SOLVES))
+def test_world2_engine_solves_match_jax_sharded(world2, case):
+    """The same against the JAX package's ``sharded_tv_admm_solve`` on 2
+    CPU devices, 1e-8 in float64."""
+    import warnings
+
+    par = _jax("parallel")
+    key, which, kw = W.ENGINE_SOLVES[case]
+    b = W.solve_inputs()[key]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = np.asarray(par.sharded_tv_admm_solve(
+            par.make_mesh((2,), ("space",)), W.engine_cov(which), b,
+            np.array(b), W.ALPHA, W.RHO, **kw))
+    np.testing.assert_allclose(world2[case], want, rtol=0, atol=1e-8)
+
+
 @pytest.mark.parametrize("what", ["full_volume", "mesh_size"])
 def test_world2_refusals(world2, what):
     """On a mesh of two processes a full volume (``process_local=False``)
@@ -556,17 +624,33 @@ def test_space_mesh_of_another_size_raises():
 
 
 def test_non_separable_blur_raises_naming_queue_1_item_8():
+    """The sharded routes that raised before the non-separable blur and the
+    remaining engines were ported now run on one rank: the halo'd direct
+    blur equals the whole-volume one, and the solves by ``"lsmr"`` (the
+    auto pick for the linear loss) and by ``"lsmr"`` on a separable blur
+    equal the unsharded ``admm_solve`` over the same operators."""
     full = np.array([[1.0, 0.4, 0.1], [0.4, 1.0, 0.2], [0.1, 0.2, 1.0]])
+    full = 0.64 * full
     mesh = P.make_space_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="non-separable blur"):
-        P.make_sharded_blur_operators(full, mesh=mesh)
     b = W.solve_inputs()["linear64"]
-    with pytest.raises(NotImplementedError, match="non-separable blur"):
-        P.sharded_tv_admm_solve(mesh, full, b, b.copy(), W.ALPHA, W.RHO)
-    with pytest.raises(NotImplementedError,
-                       match="remaining inner engines"):
-        P.sharded_tv_admm_solve(mesh, W.solve_cov(), b, b.copy(), W.ALPHA,
-                                W.RHO, minimizer="lsmr")
+    A, _ = P.make_sharded_blur_operators(full, mesh=mesh)
+    direct, _ = TC.make_blur_operators(full, method="direct")
+    np.testing.assert_allclose(A(_t(b)).numpy(), direct(_t(b)).numpy(),
+                               rtol=0, atol=TOL64)
+    for cov in (full, W.solve_cov()):
+        got = P.sharded_tv_admm_solve(mesh, cov, b, b.copy(), W.ALPHA, W.RHO,
+                                      iterations=2, iter_max=3,
+                                      minimizer=None if cov is full
+                                      else "lsmr")
+        Ad, _ = TC.make_blur_operators(cov, method="direct")
+        want, _ = TA.admm_solve(Ad, Ad, TG.gradient, TG.gradient_adjoint,
+                                _t(b), 0.0, _t(b), W.ALPHA, W.RHO,
+                                iterations=2, iter_max=3, minimizer="lsmr")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=SOLVE_TOL)
+    with pytest.raises(ValueError, match="separable"):
+        P.sharded_tv_admm_solve(mesh, full, b, b.copy(), W.ALPHA, W.RHO,
+                                minimizer="cg")
 
 
 def test_compact_io_dtype_raises_naming_k10b():

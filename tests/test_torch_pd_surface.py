@@ -843,16 +843,13 @@ def test_unported_messages_name_roadmap_items_by_title(tmp_path):
     Queue N: <title>", a title ROADMAP.md has (numbers shift when the
     queue is re-anchored; titles do not)."""
     from nsol_tpu_torch import parallel as P
+    from nsol_tpu_torch import pca as TP
     from nsol_tpu_torch.cli import run_deconvolution, run_denoising
     from nsol_tpu_torch.io import write_nifti
 
     obs = str(tmp_path / "b.nii.gz")
     write_nifti(np.random.RandomState(13).rand(4, 4, 4).astype(np.float32),
                 obs)
-    full = np.array([[1.0, 0.4], [0.4, 1.0]])
-    mesh = P.make_space_mesh(device="cpu")
-    b3 = np.random.RandomState(13).rand(8, 6, 6)
-    ident = lambda x: x  # noqa: E731
     routes = [
         lambda: run_denoising.main(["--observation", obs, "--result",
                                     str(tmp_path / "x.nii.gz"), "--trace",
@@ -863,10 +860,6 @@ def test_unported_messages_name_roadmap_items_by_title(tmp_path):
                                     str(tmp_path / "f"), "--verbose", "1",
                                     "--device", "cpu"]),
         lambda: run_deconvolution.main(["--observation", obs, "--result",
-                                        str(tmp_path / "x.nii.gz"),
-                                        "--minimizer", "lsq_linear",
-                                        "--device", "cpu"]),
-        lambda: run_deconvolution.main(["--observation", obs, "--result",
                                         str(tmp_path / "x.nii.gz"), "--trace",
                                         str(tmp_path / "t"), "--device",
                                         "cpu"]),
@@ -875,14 +868,8 @@ def test_unported_messages_name_roadmap_items_by_title(tmp_path):
                                         "--dir-output-figures",
                                         str(tmp_path / "f"), "--verbose", "1",
                                         "--device", "cpu"]),
-        lambda: TT.tikhonov_solve(ident, ident, ident, ident,
-                                  torch.ones(3), 0.0, torch.ones(3), 0.1,
-                                  minimizer="L-BFGS-B"),
-        lambda: TC.make_blur_operators(full),
-        lambda: P.make_sharded_blur_operators(np.diag([1.0, 1.0, 2.0]) +
-                                              0.3, mesh=mesh),
-        lambda: P.sharded_tv_admm_solve(mesh, np.eye(3), b3, b3, 0.1, 0.5,
-                                        minimizer="lsmr"),
+        lambda: TP.PrincipalComponentAnalysis(
+            np.random.RandomState(13).rand(10, 3), device="cpu").show(),
         lambda: P.make_mesh((1, 1), ("batch", "space"), device="cpu"),
         lambda: _pd("port", B_STUDY).run_sweep({"alpha": [0.1]},
                                                mesh=object()),

@@ -99,15 +99,34 @@ def test_cli_cpu_matches_library(tmp_path, rng):
     ["--reconstruction-type", "TK1L2", "--minimizer", "least_squares"],
     ["--solver", "ADMM", "--data-loss", "huber", "--minimizer",
      "L-BFGS-B"]])
-def test_cli_unported_routes_raise(tmp_path, argv):
-    """The inner engines still to port raise, naming their ROADMAP item
-    (the PD and HuberL2 routes these cases once held are ported:
-    tests/test_torch_pd_surface.py runs them)."""
+def test_cli_unported_routes_raise(tmp_path, monkeypatch, argv):
+    """The inner engines these routes once refused are ported: each runs
+    through the interface as in the JAX CLI, and (in float64) gives the
+    JAX CLI's result to 1e-8 of its maximum."""
+    import sys
+
+    from nsol_tpu.cli import run_deconvolution as jcli
+    from nsol_tpu_torch.io import read_nifti
+
     obs = str(tmp_path / "b.nii.gz")
-    write_nifti(np.ones((4, 4, 4), np.float32), obs)
-    with pytest.raises(NotImplementedError, match="inner engines"):
-        tcli.main(["--observation", obs, "--result",
-                   str(tmp_path / "x.nii.gz"), "--device", "cpu"] + argv)
+    write_nifti(np.random.RandomState(4).rand(8, 7, 6) * 50.0, obs)
+    flags = ["--observation", obs, "--iterations", "3", "--iter-max",
+             "4"] + argv
+    got_p, want_p = str(tmp_path / "x.nii.gz"), str(tmp_path / "j.nii.gz")
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        assert tcli.main(flags + ["--result", got_p, "--device",
+                                  "cpu"]) == 0
+    finally:
+        torch.set_default_dtype(default)
+    monkeypatch.setattr(sys, "argv", ["nsol_run_deconvolution"] + flags
+                        + ["--result", want_p])
+    jcli.main()
+    got, want = read_nifti(got_p).data, read_nifti(want_p).data
+    assert np.all(np.isfinite(got)) and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-8 * np.abs(want).max())
 
 
 def test_port_imports_neither_jax_nor_pil():
@@ -126,7 +145,12 @@ def test_port_imports_neither_jax_nor_pil():
             "nsol_tpu_torch.parallel.halo, "
             "nsol_tpu_torch.parallel.matmul_halo, "
             "nsol_tpu_torch.parallel.blocked_halo, "
-            "nsol_tpu_torch.parallel.mesh;"
+            "nsol_tpu_torch.parallel.mesh, nsol_tpu_torch.noise, "
+            "nsol_tpu_torch.optimize, nsol_tpu_torch.pca, "
+            "nsol_tpu_torch.solvers.lbfgs, nsol_tpu_torch.ops.conv, "
+            "nsol_tpu_torch.cli.corrupt_data;"
+            "nsol_tpu_torch.data.generate_standalone_data("
+            "nsol_tpu_torch.data.data_dir());"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
             "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -69,8 +69,8 @@ def test_tikhonov_cg_matches_reference(rng):
                              minimizer="cg", iter_max=8)
     np.testing.assert_allclose(interop.to_numpy(got), np.asarray(want),
                                rtol=0, atol=TOL)
-    # "lsmr" (the augmented CGLS) is ported; an engine still to port
-    # raises, naming its ROADMAP item
+    # "lsmr" (the augmented CGLS) and "lsq_linear" (projected FISTA) are
+    # ported
     got = TT.tikhonov_solve(A, A, B, B_adj, bt, 0.0, bt, 0.3,
                             minimizer="lsmr", iter_max=8)
     want = JT.tikhonov_solve(JA_, JA_, JB, JB_adj, jnp.asarray(b), 0.0,
@@ -78,9 +78,13 @@ def test_tikhonov_cg_matches_reference(rng):
                              iter_max=8)
     np.testing.assert_allclose(interop.to_numpy(got), np.asarray(want),
                                rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError, match="inner engines"):
-        TT.tikhonov_solve(A, A, B, B_adj, bt, 0.0, bt, 0.3,
-                          minimizer="lsq_linear")
+    got = TT.tikhonov_solve(A, A, B, B_adj, bt, 0.0, bt, 0.3,
+                            minimizer="lsq_linear", iter_max=8)
+    want = JT.tikhonov_solve(JA_, JA_, JB, JB_adj, jnp.asarray(b), 0.0,
+                             jnp.asarray(b), 0.3, minimizer="lsq_linear",
+                             iter_max=8)
+    np.testing.assert_allclose(interop.to_numpy(got), np.asarray(want),
+                               rtol=0, atol=TOL)
 
 
 def test_admm_solve_matches_reference_16cubed(rng):

@@ -258,7 +258,7 @@ def port_gaps(anchors):
     B = {"TK1": grad.gradient, "TK0": lambda x: x}
     gaps = {}
     for key, want in anchors.items():
-        if key[0] in ("TV", "PD"):
+        if key[0] in ("TV", "PD", "engine") or key[0].startswith("PD-"):
             continue
         reg, loss, i = key
         a = float(TK_ALPHAS[i])
@@ -281,6 +281,8 @@ def port_gaps(anchors):
     for key in (k for k in anchors if k[0] == "PD"):
         gaps[key] = abs(port_pd_objective(*key[1:]) - anchors[key]) \
             / anchors[key]
+    for key in (k for k in anchors if k[0] == "engine"):
+        gaps[key] = port_engine_gap(key[1], anchors[key])
     for key in (k for k in anchors if k[0].startswith("PD-")):
         gaps[key] = abs(port_man_objective(key[0] == "PD-compact")
                         - anchors[key]) / anchors[key]
@@ -337,9 +339,70 @@ def port_pd_objective(name, rtype):
                         grad.gradient, PD_ALPHA, rtype, xp=torch)
 
 
+def _chip_smoke():
+    import chip_smoke
+
+    return chip_smoke
+
+
+def engine_anchors(names=None):
+    """{("engine", name): float64 objective} of the JAX package's
+    ``tikhonov_solve`` on phase 42's problems (``chip_smoke.ENGINE_CASES``,
+    ``engine_problem``), its blur the FFT form of the full covariance."""
+    import jax
+
+    jnp = _jax()[0]
+    from nsol_tpu.ops import conv, grad
+    from nsol_tpu.solvers.tikhonov import tikhonov_solve
+
+    cs = _chip_smoke()
+    D, Dt = grad.make_gradient_operators(None)
+    out = {}
+    for name, (image, minimizer, loss, alpha, iters) in \
+            cs.ENGINE_CASES.items():
+        if names is not None and name not in names:
+            continue
+        b, _, cov = cs.engine_problem(image)
+        A, _ = conv.make_blur_operators(cov, alpha_cut=3, shape=b.shape)
+        bj = jnp.asarray(b)
+        x = jax.jit(lambda b, A=A, m=minimizer, loss=loss, a=alpha, n=iters:
+                    tikhonov_solve(A, A, D, Dt, b, 0.0, b, a, data_loss=loss,
+                                   minimizer=m, iter_max=n))(bj)
+        out[("engine", name)] = cs.engine_objective(
+            x, bj, A, D, alpha, loss, minimizer, jnp)
+    return out
+
+
+def port_engine_gap(name, anchor):
+    """The relative gap of the port's float32 solve of phase 42's case
+    ``name`` on the CPU to its anchor."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv, grad
+    from nsol_tpu_torch.solvers.tikhonov import tikhonov_solve
+
+    cs = _chip_smoke()
+    image, minimizer, loss, alpha, iters = cs.ENGINE_CASES[name]
+    b64, _, cov = cs.engine_problem(image)
+    A, _ = conv.make_blur_operators(cov, shape=b64.shape)
+    b = torch.as_tensor(b64, dtype=torch.float32)
+    x = tikhonov_solve(A, A, grad.gradient, grad.gradient_adjoint, b, 0.0,
+                       b, alpha, data_loss=loss, minimizer=minimizer,
+                       iter_max=iters)
+    got = cs.engine_objective(x.double(), torch.as_tensor(b64), A,
+                              grad.gradient, alpha, loss, minimizer, torch)
+    return abs(got - anchor) / abs(anchor)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["engines"]:
+        anchors = engine_anchors()
+        for key, want in anchors.items():
+            print("%-40s %.9f   float32 plain gap %.2e"
+                  % (key, want, port_engine_gap(key[1], want)))
+        sys.exit(0)
     anchors = dict(tikhonov_anchors(), **tv_anchors(), **pd_anchors(),
-                   **man_compact_anchors())
+                   **man_compact_anchors(), **engine_anchors())
     gaps = port_gaps(anchors)
     for key in anchors:
         print("%-28s %.9f   float32 plain gap %.2e"

@@ -98,6 +98,29 @@ SOLVES_W2 = {
                                          use_blocked=True)),
 }
 
+#: world-2 cases of the non-separable blur and the remaining engines: a
+#: full covariance (σ 0.8 on each axis, correlated) or the separable
+#: solve_cov; minimizer None resolves to "lsmr" (linear) or "L-BFGS-B"
+#: (robust) with the full one, and "irls" over it warns and runs
+FULL_COV = 0.64 * np.array([[1.0, 0.4, 0.1], [0.4, 1.0, 0.2],
+                            [0.1, 0.2, 1.0]])
+ENGINE_SOLVES = {
+    "w2_lsmr_full": ("linear64", "full", dict(iterations=3, iter_max=4)),
+    "w2_lbfgs_full": ("huber64", "full", dict(
+        iterations=2, iter_max=4, data_loss="huber", data_loss_scale=0.5)),
+    "w2_irls_full": ("huber64", "full", dict(
+        iterations=2, iter_max=2, data_loss="huber", minimizer="irls")),
+    "w2_lsmr_sep": ("linear64", "sep", dict(iterations=3, iter_max=4,
+                                            minimizer="lsmr")),
+    "w2_lbfgs_sep": ("huber64", "sep", dict(
+        iterations=2, iter_max=4, data_loss="cauchy",
+        minimizer="L-BFGS-B")),
+}
+
+
+def engine_cov(which):
+    return FULL_COV if which == "full" else solve_cov()
+
 
 #: the io window apply of world 2 (K10b.6): normal_W(vf, wts, alpha) of
 #: make_sharded_blocked_robust_operators(io_dtype=bfloat16)
@@ -189,6 +212,29 @@ def denoise_cases(mesh):
         process_local=True)) for v in PD_VARIANTS}
 
 
+def engine_cases(mesh):
+    """The sharded direct blur of the full covariance and the
+    ``ENGINE_SOLVES`` on this rank's rows."""
+    import warnings
+
+    import torch
+
+    from nsol_tpu_torch import parallel as P
+
+    obs = solve_inputs()
+    A, _ = P.make_sharded_blur_operators(FULL_COV, mesh=mesh)
+    out = {"w2_blur_full": _np(A(torch.as_tensor(_rows(obs["pd64"],
+                                                       mesh))))}
+    for name, (key, which, kw) in ENGINE_SOLVES.items():
+        bl = _rows(obs[key], mesh)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out[name] = _np(P.sharded_tv_admm_solve(
+                mesh, engine_cov(which), bl, bl.copy(), ALPHA, RHO,
+                process_local=True, **kw))
+    return out
+
+
 def window_io_cases(mesh):
     """The sharded weighted apply with ``io_dtype=bfloat16`` on this rank's
     rows (its bfloat16 result as float32)."""
@@ -244,6 +290,7 @@ def main(argv):
     else:
         res = solve_cases(mesh, SOLVES_W2)
         res.update(window_io_cases(mesh))
+        res.update(engine_cases(mesh))
         res.update(refusals(mesh))
     np.savez(os.path.join(outdir, "rank_%d.npz" % rank), **res)
     torch.distributed.destroy_process_group()
