@@ -186,6 +186,18 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   world size 1, ``"lsmr"`` and ``"L-BFGS-B"`` (huber), against the
   unsharded solves.
 
+* phase 44, the batch mesh and ``--trace`` (group ``batch``; no kernel of
+  its own): on a NCCL group of world size 1, the Man 1024² × 64 α PD TVL2
+  sweep and the Lena TK1L2 × 64 α sweep with records through
+  ``run_sweep(mesh=make_mesh((1,), ("batch",)))`` and the Lena TV-L2 ADMM
+  study through ``ADMMLinearSolverParameterStudy(mesh=...)``, each against
+  its run with no mesh in turns: x and records bit for bit, the same
+  launch counts, the wall ms of each turn; ``nsol_torch_run_denoising``
+  (Lena, PD TVL2) and ``nsol_torch_run_deconvolution`` (the 64³ phantom,
+  ADMM TVL2) with and without ``--trace``: the same bits and launches, a
+  Chrome-trace JSON that names the hand-written kernels the run launched,
+  its size and the wall ms each way.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
@@ -7904,10 +7916,272 @@ def run_engine_phases(device, card):
     return {"times": times, "reads": reads}
 
 
+# ------------------------------------------------------------- phase 44 --
+
+#: the kernel of each unit a traced CLI run must name (the units the
+#: untraced run launched)
+TRACE_KERNELS = {"pd_dual": "pd_dual_kernel", "pd_primal": "pd_primal_kernel",
+                 "cg_update": "cg_update_kernel",
+                 "admm_tail": "admm_tail_kernel"}
+
+
+def np_bits(a, b):
+    """Whether two numpy arrays hold the same bits (dtype, shape, bytes)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def used_counts(F):
+    """The launch counts of every unit that launched, and the plain calls."""
+    return ({k: v for k, v in F.launch_counts().items() if v},
+            {k: v for k, v in F.plain_counts().items() if v})
+
+
+def batch_sweep_cases(device, tmp):
+    """Phase 44's three sweeps, each a ``run(mesh)`` returning ``{name:
+    numpy array}`` of everything it computed: the Man 1024² × 64 α PD TVL2
+    sweep with records, the Lena TK1L2 × 64 α sweep with records (phase
+    17), and the Lena TV-L2 ADMM study, 8 α × 2 ρ (phase 18), through
+    ``ADMMLinearSolverParameterStudy`` into ``tmp`` (its files read
+    back)."""
+    import torch
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli.run_denoising import denoising_proxes
+    from nsol_tpu_torch.io import read_png
+    from nsol_tpu_torch.observer import Observer
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import losses, priors
+    from nsol_tpu_torch.ops import measures as sim
+    from nsol_tpu_torch.solvers.wrappers import (ADMMLinearSolver,
+                                                 PrimalDualSolver,
+                                                 TikhonovLinearSolver)
+    from nsol_tpu_torch.study import (ADMMLinearSolverParameterStudy,
+                                      ReaderParameterStudy)
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    s = float(man.max())
+    D, Dt = G.make_gradient_operators()
+    bm = tensor(man / s)
+    prox_f, prox_g = denoising_proxes("TVL2", bm)
+    pd = PrimalDualSolver(prox_f, prox_g, D, Dt, L2=PD_L2, x0=man,
+                          iterations=ITERATIONS, x_scale=s,
+                          reconstruction_type="TVL2", observation=man / s,
+                          device=device)
+    b_man = tensor(man)
+    pd_measures = {
+        "Reg": lambda x: priors.total_variation(tensor(x), D),
+        "Data": lambda x: sim.sum_of_squared_differences(tensor(x), b_man)}
+    pd_grid = {"alpha": np.linspace(0.01, 1.5, 64, dtype=np.float32)
+               .astype(np.float64)}
+
+    img, xs, A, D2, Dt2 = lena_problem()
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    tik = TikhonovLinearSolver(
+        A, A, img, D2, Dt2, img, x_scale=xs, minimizer="auto",
+        iter_max=TK_ITER_MAX, blur_cov=np.eye(2), spacing=np.ones(2),
+        reg_kind="TK1", device=device)
+    tik_measures = {
+        "Reg": lambda x: 0.5 * torch.sum(D2(x) * D2(x)),
+        "Data": lambda x: losses.cost_from_residual(A(x) - bt.to(x.dtype))}
+    tik_grid = {"alpha": TK_ALPHAS.astype(np.float64)}
+
+    admm = ADMMLinearSolver(
+        A, A, img, D2, Dt2, img, x_scale=xs, minimizer="auto",
+        iterations=ITERATIONS, iter_max=ITER_MAX, blur_cov=np.eye(2),
+        spacing=np.ones(2), device=device)
+    admm_measures = {
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(D2(x) ** 2, 0))),
+        "Data": lambda x: losses.cost_from_residual(A(x) - bt.to(x.dtype))}
+
+    def sweep(solver, grid, measures):
+        def run(mesh):
+            x, recs = solver.run_sweep(grid, measures=measures, mesh=mesh)
+            return dict({"x": x}, **{k: v for k, v in recs.items()})
+        return run
+
+    def study(mesh):
+        observer = Observer()
+        observer.set_measures(admm_measures)
+        ADMMLinearSolverParameterStudy(
+            admm, observer, dir_output=tmp, name="tv",
+            parameters={"alpha": TV_ALPHAS.astype(np.float64),
+                        "rho": list(TV_RHOS)}, mesh=mesh).run()
+        reader = ReaderParameterStudy(directory=tmp, name="tv")
+        reader.read_study()
+        out = {k: reader.get_results(k) for k in ("Reg", "Data")}
+        out.update(reader.get_reconstructions().items())
+        return out
+
+    return {"Man 1024^2 x 64 alpha PD TVL2 records": sweep(
+                pd, pd_grid, pd_measures),
+            "Lena TK1L2 x 64 alpha records": sweep(tik, tik_grid,
+                                                   tik_measures),
+            "Lena TV-L2 ADMM study 8 alpha x 2 rho": study}
+
+
+def batch_mesh_runs(device, card):
+    """Phase 44, the batch mesh: each of :func:`batch_sweep_cases` with no
+    mesh and through ``make_mesh((1,), ("batch",))`` on a NCCL group of
+    world size 1, in turns (none, batch, batch, none) after a warm-up: the
+    same bits, the same launch counts, and the wall ms of each turn by
+    CUDA events."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import make_mesh
+
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    rows = {}
+    try:
+        mesh = make_mesh((1,), ("batch",))
+        require(mesh.shape == {"batch": 1} and mesh.group is not None,
+                "phase 44: %r" % mesh)
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, run in batch_sweep_cases(device, tmp).items():
+                want = run(None)  # warm-up; the bits every turn must give
+                ms, counts = {"none": [], "batch": []}, []
+                for turn in ("none", "batch", "batch", "none"):
+                    torch.cuda.synchronize()
+                    F.reset_counts()
+                    got, t = timed_once(lambda: run(
+                        mesh if turn == "batch" else None))
+                    ms[turn].append(t)
+                    counts.append(used_counts(F))
+                    bad = [k for k in want if not np_bits(got[k], want[k])]
+                    require(sorted(got) == sorted(want) and not bad,
+                            "phase 44: %s, %s turn: not the bits of the "
+                            "no-mesh run in %s" % (name, turn, bad))
+                launches, plain = counts[0]
+                require(all(c == counts[0] for c in counts) and launches
+                        and not plain, "phase 44: %s launches a turn (none, "
+                        "batch, batch, none) %s" % (name, counts))
+                rows[name] = {"launches": launches, "ms": ms}
+        print("phase 44 batch mesh at NCCL world 1 (make_mesh((1,), "
+              "('batch',))) vs no mesh: x and records bit for bit, launch "
+              "counts equal, plain calls 0: %s; wall ms by CUDA events, turns "
+              "none, batch, batch, none: %s [%s]"
+              % ({k: v["launches"] for k, v in rows.items()},
+                 {k: "none %s, batch %s" % (
+                     "/".join("%.1f" % t for t in v["ms"]["none"]),
+                     "/".join("%.1f" % t for t in v["ms"]["batch"]))
+                  for k, v in rows.items()}, card))
+    finally:
+        torch.distributed.destroy_process_group()
+    return rows
+
+
+def trace_cli_runs(device, card):
+    """Phase 44, ``--trace``: ``nsol_torch_run_denoising`` (Lena, PD TVL2)
+    and ``nsol_torch_run_deconvolution`` (the 64³ phantom, ADMM TVL2) on
+    the card after a warm-up, without ``--trace`` and twice with it: the
+    same result bits and launch counts, a trace that parses and names the
+    kernel of every unit of :data:`TRACE_KERNELS` the run launched (the
+    profiler may lose records, so no count is required), its size, and the
+    wall ms of each run."""
+    import scipy.io
+    import scipy.ndimage as ndi
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli import run_deconvolution, run_denoising
+    from nsol_tpu_torch.io import read_nifti, write_nifti
+    from nsol_tpu_torch.ops import kernels as K
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+        kern = K.gaussian_kernel(np.diag([SIGMA ** 2] * 3), alpha_cut=3,
+                                 spacing=np.ones(3))
+        obs3 = os.path.join(tmp, "b.nii.gz")
+        write_nifti(ndi.convolve(phantom.data.astype(np.float64), kern,
+                                 mode="wrap").astype(np.float32), obs3,
+                    spacing=np.ones(3))
+        cases = {
+            "run_denoising Lena PD TVL2": (
+                run_denoising, ["--observation",
+                                data.path("2D_Lena_256_noise.png")],
+                "mat", ("pd_dual", "pd_primal")),
+            "run_deconvolution 64^3 ADMM TVL2": (
+                run_deconvolution, ["--observation", obs3, "--solver", "ADMM",
+                                    "--reconstruction-type", "TVL2",
+                                    "--alpha", str(ALPHA), "--blur",
+                                    str(SIGMA)],
+                "nii.gz", ("cg_update", "admm_tail"))}
+        for name, (cli, argv, ext, units) in cases.items():
+            def run(label, trace=None):
+                out = os.path.join(tmp, "%s.%s" % (label, ext))
+                F.reset_counts()
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["--result", out]
+                              + (["--trace", trace] if trace else []))
+                ms = 1e3 * (time.perf_counter() - t0)
+                require(rc == 0, "phase 44: %s %s rc %r" % (name, label, rc))
+                x = (scipy.io.loadmat(out)["nda"] if ext == "mat"
+                     else read_nifti(out).data)
+                return x, used_counts(F), ms
+
+            run("warm")
+            x0, c0, ms0 = run("plain")
+            # the process's first trace also starts the profiler (CUPTI)
+            ms1 = []
+            for turn in ("traced", "traced again"):
+                trace_dir = os.path.join(tmp, "trace_%s_%d" % (ext, len(ms1)))
+                x1, c1, ms = run(turn, trace_dir)
+                ms1.append(ms)
+                require(np_bits(x0, x1) and c0 == c1 and not c0[1],
+                        "phase 44: %s %s vs untraced: bits %s, launches %s"
+                        % (name, turn, np_bits(x0, x1), (c0, c1)))
+            files = os.listdir(trace_dir)
+            require(len(files) == 1, "phase 44: %s trace files %s"
+                    % (name, files))
+            path = os.path.join(trace_dir, files[0])
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = {}
+            for e in events:
+                if e.get("cat") == "kernel":
+                    kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+            named = {u: sum(n for k, n in kernels.items()
+                            if TRACE_KERNELS[u] in k) for u in units}
+            require(all(c0[0].get(u, 0) > 0 for u in units)
+                    and all(named.values()), "phase 44: %s launches %s, "
+                    "kernel records in the trace %s" % (name, c0[0], named))
+            rows[name] = {"launches": c0[0], "trace_records": named,
+                          "trace_kernel_records": sum(kernels.values()),
+                          "trace_bytes": os.path.getsize(path),
+                          "ms": [ms0] + ms1}
+    print("phase 44 --trace on the card: results and launch counts bit for "
+          "bit equal to the untraced runs; %s [%s]"
+          % ("; ".join("%s: launches %s, trace names %s (%d kernel records), "
+                       "%d bytes, wall ms untraced %.1f, traced %.1f (the "
+                       "process's first trace), %.1f" % (
+                           k, v["launches"], v["trace_records"],
+                           v["trace_kernel_records"], v["trace_bytes"],
+                           *v["ms"]) for k, v in rows.items()), card))
+    return rows
+
+
+def run_batch_phase(device, card):
+    """Phase 44: the batch mesh at NCCL world 1 and ``--trace`` on the
+    card."""
+    rows = batch_mesh_runs(device, card)
+    lap("phase 44 batch mesh")
+    rows.update(trace_cli_runs(device, card))
+    lap("phase 44 trace")
+    return rows
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
-          "volume", "volume_solves", "tail", "sweep", "engines")
+          "volume", "volume_solves", "tail", "sweep", "engines", "batch")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -8110,6 +8384,8 @@ def main(argv=None):
         lap("phase 40")
     if "engines" in groups:
         run_engine_phases(device, card)
+    if "batch" in groups:
+        run_batch_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -16,7 +16,12 @@ non-separable blur (FFT and direct forms), the ``lsq_linear``,
 ``least_squares`` and box L-BFGS engines, ``Optimize``, PCA, ``Noise``,
 the corruption CLI and the generation of the stand-in inputs run in plain
 PyTorch on the same card, as the reference leaves them outside its
-kernels.
+kernels. Parameter sweeps split over the ranks of a ``"batch"`` mesh
+(``run_sweep(mesh=...)``); :mod:`nsol_tpu_torch.profiling` traces a solve
+with ``torch.profiler``; the figures (the CLIs' ``--dir-output-figures``,
+``nsol_torch_show_parameter_study``, ``PCA.show``) import matplotlib only
+where they draw, and :mod:`nsol_tpu_torch.viewer` opens 3-D results in
+ITK-Snap or napari where one is installed.
 
 The package imports torch, numpy and scipy only — never ``jax`` or
 ``nsol_tpu`` — and has no global platform switch.

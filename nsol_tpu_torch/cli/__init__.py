@@ -1,3 +1,4 @@
-"""CLI applications of the port: ``run_deconvolution`` and
-``run_denoising`` (console scripts ``nsol_torch_run_deconvolution`` and
-``nsol_torch_run_denoising``)."""
+"""CLI applications of the port: ``run_deconvolution``,
+``run_deconvolution_study``, ``run_denoising``, ``run_denoising_study``,
+``corrupt_data`` and ``show_parameter_study`` (console scripts
+``nsol_torch_<name>``)."""

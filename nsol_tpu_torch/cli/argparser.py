@@ -1,8 +1,8 @@
 """Declarative CLI argument collection (counterpart of
 ``nsol_tpu/cli/argparser.py``): the options of the deconvolution routes
 (ADMM/TVL2 with linear and robust losses, TK0L2/TK1L2), of the
-deconvolution study, of the denoising CLI and of the corruption tool, plus
-``--device``. Flag
+deconvolution study, of the denoising CLI, of the corruption tool and of
+the show CLI, plus ``--device``. Flag
 names, defaults and help conventions follow the reference so one command
 line reads the same in both packages.
 """
@@ -70,6 +70,11 @@ class InputArgparser(object):
     def add_filename(self, required=True):
         self._add("--filename", type=str, required=required,
                   help="Input image file %s." % INPUT_FILE_TYPES)
+
+    def add_dir_input(self, default=None, required=False):
+        self._add("--dir-input", type=str, default=default,
+                  required=required,
+                  help="Directory to read inputs from.")
 
     def add_result(self, required=True, default=None):
         self._add("--result", type=str, required=required, default=default,
@@ -198,14 +203,25 @@ class InputArgparser(object):
                   help="Identifier for the parameter study's output files "
                        "(no whitespace).")
 
+    def add_colormap(self, default=None):
+        self._add("--colormap", type=str, default=default,
+                  help="Matplotlib colormap for 2-D displays, e.g. "
+                       "'Greys_r'.")
+
     def add_verbose(self, default=1):
         self._add("--verbose", type=int, default=default,
                   help="1 = chatty progress output, 0 = quiet.")
 
     def add_trace(self, default=None):
         self._add("--trace", type=str, default=default,
-                  help="Directory for a profiler device trace of the "
-                       "reconstruction.")
+                  help="Directory for a torch.profiler trace of the "
+                       "reconstruction (a Chrome-trace JSON file; open it "
+                       "in Perfetto).")
+
+    def add_option(self, option_string="--option", nargs=None, type=float,
+                   default=None, required=False, help="Extra option."):
+        self._add(option_string, nargs=nargs, type=type, default=default,
+                  required=required, help=help)
 
     def add_device(self, default="cuda"):
         self._add("--device", type=str, default=default,

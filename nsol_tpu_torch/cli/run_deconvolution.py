@@ -38,18 +38,24 @@ the kernel units through the hooks. ``--minimizer lsq_linear``,
 ``least_squares`` and ``L-BFGS-B`` (or any quasi-Newton name) run the
 interface's solver too, their engines on the blur of ``--blur`` (on
 cuda in float32). ``--device cuda`` runs the CUDA kernels, ``--device
-cpu`` their plain versions. ``--trace`` and ``--dir-output-figures`` with
-``--verbose`` raise ``NotImplementedError``; ``--dir-output-figures``
-without ``--verbose`` writes nothing, as in the reference (:292-294).
+cpu`` their plain versions. ``--trace DIR`` records the loop over α of
+either route with ``torch.profiler`` (:func:`nsol_tpu_torch.profiling.
+trace`) into a Chrome-trace JSON file in DIR; the traced solve is the
+untraced one, bit for bit. ``--dir-output-figures`` with ``--verbose``
+receives the JAX CLI's figures (:func:`_save_figures`: the 2-D comparison,
+and on the interface's route each measure against the iteration);
+without ``--verbose`` it writes nothing, as in the reference (:292-294).
 """
+
+import contextlib
+import os
 
 import numpy as np
 import torch
 
-from nsol_tpu_torch import policy
+from nsol_tpu_torch import policy, profiling
 from nsol_tpu_torch import timer as ph
 from nsol_tpu_torch.cli.argparser import LOSSES, InputArgparser
-from nsol_tpu_torch.defaults import ROADMAP_FIGURES, not_ported
 from nsol_tpu_torch.interface import DeconvolutionSolverStudyInterface
 from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
@@ -93,11 +99,6 @@ def main(argv=None):
         raise ValueError("tv_solver must be 'PD' or 'ADMM'")
     if args.data_loss not in LOSSES:
         raise ValueError("--data-loss must be one of %s" % ", ".join(LOSSES))
-    if args.trace is not None:
-        raise not_ported("--trace (profiling.py)", ROADMAP_FIGURES)
-    if args.dir_output_figures is not None and args.verbose:
-        raise not_ported("--dir-output-figures with --verbose",
-                         ROADMAP_FIGURES)
 
     alphas = np.atleast_1d(args.alpha)
     if len(alphas) > 1 and args.result is not None:
@@ -156,18 +157,29 @@ def main(argv=None):
                         device=args.device)
 
     # -------------------------- Run reconstruction -------------------------
-    for i, alpha in enumerate(alphas):
-        ph.print_subtitle("Iteration %d/%d" % (i + 1, len(alphas)))
-        tm = ph.start_timing()
-        x = solve(b, b, float(alpha), args.rho,
-                  data_loss_scale=args.data_loss_scale)
-        recon = x.cpu().numpy().astype(np.float64) * x_scale
-        print("\nComputational time %s: %s"
-              % (args.reconstruction_type, ph.stop_timing(tm)))
-        if args.result is not None:
-            DataWriter(recon, args.result,
-                       data_reader.get_image_nifti()).write_data()
+    recons = []
+    with _tracer(args):
+        for i, alpha in enumerate(alphas):
+            ph.print_subtitle("Iteration %d/%d" % (i + 1, len(alphas)))
+            tm = ph.start_timing()
+            x = solve(b, b, float(alpha), args.rho,
+                      data_loss_scale=args.data_loss_scale)
+            recon = x.cpu().numpy().astype(np.float64) * x_scale
+            recons.append(recon)
+            print("\nComputational time %s: %s"
+                  % (args.reconstruction_type, ph.stop_timing(tm)))
+            if args.result is not None:
+                DataWriter(recon, args.result,
+                           data_reader.get_image_nifti()).write_data()
+    if args.verbose and args.dir_output_figures is not None:
+        _save_figures(args, observed_nda, recons, alphas, [], {})
     return 0
+
+
+def _tracer(args):
+    """``--trace DIR``: the loop over α under ``torch.profiler``."""
+    return (profiling.trace(args.trace) if args.trace
+            else contextlib.nullcontext())
 
 
 def _run_interface(args, data_reader, observed_nda, x_ref, cov, spacing,
@@ -203,19 +215,65 @@ def _run_interface(args, data_reader, observed_nda, x_ref, cov, spacing,
     measures_dic = solver_interface.get_measures()
 
     # -------------------------- Run reconstruction -------------------------
-    for i, alpha in enumerate(alphas):
-        ph.print_subtitle("Iteration %d/%d" % (i + 1, len(alphas)))
-        solver.set_alpha(alpha)
-        observer = Observer()
-        observer.set_measures(measures_dic)
-        solver.set_observer(observer)
-        solver.run()
-        print("\nComputational time %s: %s"
-              % (args.reconstruction_type, solver.get_computational_time()))
-        if args.result is not None:
-            DataWriter(solver.get_x(), args.result,
-                       data_reader.get_image_nifti()).write_data()
+    recons, observers = [], []
+    with _tracer(args):
+        for i, alpha in enumerate(alphas):
+            ph.print_subtitle("Iteration %d/%d" % (i + 1, len(alphas)))
+            solver.set_alpha(alpha)
+            observer = Observer()
+            observer.set_measures(measures_dic)
+            solver.set_observer(observer)
+            observers.append(observer)
+            solver.run()
+            recons.append(solver.get_x())
+            print("\nComputational time %s: %s"
+                  % (args.reconstruction_type,
+                     solver.get_computational_time()))
+            if args.result is not None:
+                DataWriter(recons[-1], args.result,
+                           data_reader.get_image_nifti()).write_data()
+    if args.verbose and args.dir_output_figures is not None:
+        _save_figures(args, observed_nda, recons, alphas, observers,
+                      measures_dic)
     return 0
+
+
+def _save_figures(args, observed, recons, alphas, observers, measures_dic):
+    """The JAX CLI's figures (``nsol_tpu/cli/run_deconvolution.py:
+    299-330``) in ``--dir-output-figures``: a 2-D input beside each α's
+    reconstruction, and each measure of ``measures_dic`` against the
+    iteration."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(args.dir_output_figures, exist_ok=True)
+    if observed.ndim == 2:
+        n = 1 + len(recons)
+        fig, axes = plt.subplots(1, n, figsize=(4 * n, 4))
+        axes = np.atleast_1d(axes)
+        axes[0].imshow(observed, cmap="jet")
+        axes[0].set_title("observed")
+        for i, (r, a) in enumerate(zip(recons, alphas)):
+            axes[i + 1].imshow(r, cmap="jet")
+            axes[i + 1].set_title(r"$\alpha=%g$" % a)
+        fig.savefig(os.path.join(
+            args.dir_output_figures,
+            args.reconstruction_type + "_comparison.pdf"))
+        plt.close(fig)
+
+    for m in measures_dic:
+        fig, ax = plt.subplots()
+        for obs, a in zip(observers, alphas):
+            res = obs.get_measures_results()[m]
+            ax.plot(range(len(res)), res, label=r"$\alpha=%g$" % a)
+        ax.set_xlabel("iteration")
+        ax.set_title("%s: %s" % (args.reconstruction_type, m))
+        ax.legend()
+        fig.savefig(os.path.join(
+            args.dir_output_figures,
+            args.reconstruction_type + "_" + m + ".pdf"))
+        plt.close(fig)
 
 
 if __name__ == "__main__":

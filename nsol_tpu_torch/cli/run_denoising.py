@@ -25,18 +25,25 @@ without Pillow) and scaled by ``x_scale = max(b)``; the reference's
   ADMMLinearSolver` with ``A = I``.
 
 ``--device cuda`` runs the CUDA kernels and the tensors on the card,
-``--device cpu`` the plain versions. ``--trace`` and
-``--dir-output-figures`` with ``--verbose`` raise ``NotImplementedError``
-(ROADMAP Queue 1: viewing, figures and tracing).
+``--device cpu`` the plain versions. ``--trace DIR`` records the loop over
+α with ``torch.profiler`` (:func:`nsol_tpu_torch.profiling.trace`) into a
+Chrome-trace JSON file in DIR; the traced solve is the untraced one, bit
+for bit. With ``--verbose``, ``--dir-output-figures`` receives the JAX
+CLI's figures (:func:`_save_figures`: the 2-D comparison, the measures
+against the iteration with ``--reference``), and a 3-D result opens in
+ITK-Snap or napari where one is installed
+(:func:`nsol_tpu_torch.viewer.try_interactive_3d`).
 """
+
+import contextlib
 
 import numpy as np
 import torch
 
-from nsol_tpu_torch import policy
+from nsol_tpu_torch import policy, profiling
 from nsol_tpu_torch import timer as ph
+from nsol_tpu_torch.cli import run_deconvolution
 from nsol_tpu_torch.cli.argparser import InputArgparser
-from nsol_tpu_torch.defaults import ROADMAP_FIGURES, not_ported
 from nsol_tpu_torch.io import DataReader, DataWriter
 from nsol_tpu_torch.observer import Observer
 from nsol_tpu_torch.ops import grad as G
@@ -89,11 +96,6 @@ def main(argv=None):
 
     if args.solver not in ("PD", "ADMM"):
         raise ValueError("Solver '%s' not known" % args.solver)
-    if args.trace is not None:
-        raise not_ported("--trace (profiling.py)", ROADMAP_FIGURES)
-    if args.dir_output_figures is not None and args.verbose:
-        raise not_ported("--dir-output-figures with --verbose",
-                         ROADMAP_FIGURES)
     rtype = args.reconstruction_type
     if rtype not in PD_TYPES:
         raise ValueError("Denoising type '%s' not known" % rtype)
@@ -124,25 +126,61 @@ def main(argv=None):
             DataWriter(recon, args.result,
                        data_reader.get_image_nifti()).write_data()
 
-    # ------------------------- Fused whole-solve route ---------------------
-    if args.solver == "PD" and x_ref is None and observed_nda.ndim in (2, 3):
-        solve = make_fused_pd_denoise_solver(
-            observed_nda.shape, rtype, alg_type="ALG2",
-            iterations=args.iterations,
-            **policy.pd_options(observed_nda.shape, args.device))
-        b = torch.as_tensor(observed_nda / x_scale, dtype=torch.float32,
-                            device=args.device)
-        for alpha in alphas:
-            tm = ph.start_timing()
-            x = solve(b, b, float(alpha), L2)
-            recon = x.cpu().numpy().astype(np.float64) * x_scale
-            if args.verbose:
-                ph.print_info("Required computational time: %s"
-                              % ph.stop_timing(tm))
-            write(recon)
-        return 0
+    tracer = (profiling.trace(args.trace) if args.trace
+              else contextlib.nullcontext())
+    recons, observers = [], []
+    with tracer:
+        if args.solver == "PD" and x_ref is None \
+                and observed_nda.ndim in (2, 3):
+            _fused_route(args, observed_nda, x_scale, alphas, write, recons,
+                         observers)
+        else:
+            _generic_route(args, observed_nda, x_ref, x_scale, alphas, write,
+                           recons, observers)
 
-    # ---------------------------- Generic route ----------------------------
+    # --------------------------- Visualization -----------------------------
+    if args.verbose and args.dir_output_figures is not None:
+        _save_figures(args, observed_nda, recons, alphas, observers)
+    if args.verbose and observed_nda.ndim == 3:
+        # the reference opens a 3-D result in ITK-Snap
+        # (run_denoising.py:197-248): here where a viewer is installed
+        from nsol_tpu_torch.viewer import try_interactive_3d
+
+        spacing = None
+        if data_reader.get_image_nifti() is not None:
+            spacing = np.array(data_reader.get_image_nifti().get_spacing())
+        try_interactive_3d([observed_nda] + recons,
+                           ["observed"] + ["alpha=%g" % a for a in alphas],
+                           spacing=spacing)
+    return 0
+
+
+def _fused_route(args, observed_nda, x_scale, alphas, write, recons,
+                 observers):
+    """Every α one whole fused solve (ALG2) on ``b/x_scale``."""
+    solve = make_fused_pd_denoise_solver(
+        observed_nda.shape, args.reconstruction_type, alg_type="ALG2",
+        iterations=args.iterations,
+        **policy.pd_options(observed_nda.shape, args.device))
+    b = torch.as_tensor(observed_nda / x_scale, dtype=torch.float32,
+                        device=args.device)
+    for alpha in alphas:
+        tm = ph.start_timing()
+        x = solve(b, b, float(alpha), L2)
+        recon = x.cpu().numpy().astype(np.float64) * x_scale
+        if args.verbose:
+            ph.print_info("Required computational time: %s"
+                          % ph.stop_timing(tm))
+        write(recon)
+        recons.append(recon)
+        observers.append(None)
+
+
+def _generic_route(args, observed_nda, x_ref, x_scale, alphas, write, recons,
+                   observers):
+    """The solver classes, one run per α, with an observer of the
+    similarity measures against ``x_ref`` where it is given."""
+    rtype = args.reconstruction_type
     dtype = torch.get_default_dtype()
     b = torch.as_tensor(observed_nda / x_scale, dtype=dtype,
                         device=args.device)
@@ -172,6 +210,7 @@ def main(argv=None):
                 dimension=observed_nda.ndim, alpha=alpha, rho=args.rho,
                 iterations=args.iterations, x_scale=x_scale,
                 verbose=args.verbose, device=args.device)
+        observer = None
         if measures_dic is not None:
             observer = Observer()
             observer.set_measures(measures_dic)
@@ -181,7 +220,18 @@ def main(argv=None):
             ph.print_info("Required computational time: %s"
                           % solver.get_computational_time())
         write(solver.get_x())
-    return 0
+        recons.append(solver.get_x())
+        observers.append(observer)
+
+
+def _save_figures(args, observed, recons, alphas, observers):
+    """The JAX CLI's figures (``nsol_tpu/cli/run_denoising.py:199-231``),
+    those of the deconvolution CLI: a 2-D input beside each α's
+    reconstruction, and with ``--reference`` each measure against the
+    iteration."""
+    measures = args.measures if observers[0] is not None else ()
+    run_deconvolution._save_figures(args, observed, recons, alphas,
+                                    observers, measures)
 
 
 if __name__ == "__main__":

@@ -23,17 +23,3 @@ def default_dtype():
     import torch
 
     return torch.get_default_dtype()
-
-
-#: ROADMAP.md items of the reference's routes still to port, by title (a
-#: number would shift when the queue is re-anchored)
-ROADMAP_FIGURES = "Queue 1: viewing, figures and tracing"
-ROADMAP_BATCH_MESH = 'Queue 1: the "batch" mesh axis and run_sweep(mesh=)'
-
-
-def not_ported(what, item):
-    """``NotImplementedError`` for a route of the reference that is still
-    to port: ``what`` it is, ``item`` its ROADMAP.md item (a ``ROADMAP_*``
-    title)."""
-    return NotImplementedError("%s is not ported to nsol_tpu_torch yet "
-                               "(ROADMAP %s)" % (what, item))

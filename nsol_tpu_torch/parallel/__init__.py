@@ -1,11 +1,10 @@
 """Distribution layer over ``torch.distributed`` (counterpart of
-``nsol_tpu/parallel/``): the ``"space"`` mesh, halo-exchange stencils
-(separable or a full covariance's direct blur; differentiable) and
-all-reduced solvers (``cg``, ``irls``, ``lsmr``, the box L-BFGS), one
-process per GPU. ``band_matrix`` (a TPU matrix
-form), the ``"batch"`` sweep axis and ``run_sweep(mesh=...)`` are not
-ported (ROADMAP Queue 1: the "batch" mesh axis and
-run_sweep(mesh=))."""
+``nsol_tpu/parallel/``), one process per GPU: the ``"space"`` mesh with its
+halo-exchange stencils (separable or a full covariance's direct blur;
+differentiable) and all-reduced solvers (``cg``, ``irls``, ``lsmr``, the box
+L-BFGS), and the ``"batch"`` mesh of the solver classes'
+``run_sweep(mesh=...)``. ``band_matrix`` (a TPU matrix form) is not
+ported."""
 
 from nsol_tpu_torch.parallel.halo import (
     exchange_plane_up, exchange_plane_down, exchange_halo_wrap,

@@ -1,14 +1,21 @@
 """Meshes and the sharded problem entry points (counterpart of
 ``nsol_tpu/parallel/mesh.py``).
 
-A :class:`Mesh` is the ``"space"`` axis of the reference — spatial domain
-decomposition of one large volume along its leading axis — mapped onto
-PyTorch's one process per GPU: the process group, its size (the world
-size), this rank and this rank's device. With no process group the mesh is
-one rank with no collectives, the counterpart of a 1-device mesh. The
-reference's ``"batch"`` axis (parameter sweeps, ``run_sweep(mesh=...)``) is
-not ported (ROADMAP Queue 1: the "batch" mesh axis and
-run_sweep(mesh=)).
+A :class:`Mesh` is one axis of the reference's mesh mapped onto PyTorch's
+one process per GPU: the process group, its size (the world size), this
+rank and this rank's device. Its axis is one of the reference's two:
+
+* ``"space"`` — spatial domain decomposition of one large volume along its
+  leading axis (:func:`sharded_tv_admm_solve`,
+  :func:`sharded_tv_denoise_solve`);
+* ``"batch"`` — the embarrassingly parallel sweep axis: ``run_sweep(mesh=)``
+  of the solver classes gives each rank a contiguous block of the
+  configurations and gathers the results (:meth:`Mesh.gather`).
+
+With no process group the mesh is one rank with no collectives, the
+counterpart of a 1-device mesh. The reference pads a batch over the product
+of a 2-D mesh's axes; here every rank is a process, so a mesh has one axis
+and a mesh of two is refused.
 
 The solves run the same ``admm_solve`` / ``primal_dual_solve`` as one
 device, on this rank's slab, with halo-exchanging operators and the CG
@@ -23,7 +30,6 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from nsol_tpu_torch.defaults import ROADMAP_BATCH_MESH, not_ported
 from nsol_tpu_torch.ops import prox as _prox
 from nsol_tpu_torch.ops.conv import separable_factors
 from nsol_tpu_torch.ops.kernels import gaussian_kernel
@@ -37,23 +43,29 @@ __all__ = ["Mesh", "make_mesh", "make_space_mesh", "sharded_tv_admm_solve",
            "sharded_tv_denoise_solve", "takes_blocked_units"]
 
 
+#: the mesh axes of the reference (``nsol_tpu/parallel/mesh.py:1-10``)
+AXES = ("space", "batch")
+
+
 class Mesh(object):
-    """The ``"space"`` axis over the ranks of ``group`` (None: one rank,
-    no collectives): ``size`` ranks, this one ``rank``, its ``device``."""
+    """The axis ``axis_name`` (``"space"`` or ``"batch"``) over the ranks
+    of ``group`` (None: one rank, no collectives): ``size`` ranks, this one
+    ``rank``, its ``device``."""
 
-    axis_names = ("space",)
-
-    def __init__(self, group, size, rank, device):
+    def __init__(self, group, size, rank, device, axis_name="space"):
+        if axis_name not in AXES:
+            raise ValueError("mesh axis %r: one of %s" % (axis_name, AXES))
         self.group, self.size, self.rank = group, int(size), int(rank)
         self.device = torch.device(device)
+        self.axis_names = (axis_name,)
 
     @classmethod
-    def single(cls, device):
-        return cls(None, 1, 0, device)
+    def single(cls, device, axis_name="space"):
+        return cls(None, 1, 0, device, axis_name)
 
     @property
     def shape(self):
-        return {"space": self.size}
+        return {self.axis_names[0]: self.size}
 
     def reduce(self, t):
         """``t`` summed over the ranks (all-reduce in place on the stream;
@@ -62,9 +74,30 @@ class Mesh(object):
             tdist.all_reduce(t, group=self.group)
         return t
 
+    def gather(self, block):
+        """Every rank's ``block`` (equal shapes on every rank) concatenated
+        along dim 0 in rank order, on the mesh's device; ``block`` itself
+        with no process group."""
+        if self.group is None:
+            return block
+        block = block.to(self.device).contiguous()
+        out = torch.empty((self.size * block.shape[0],)
+                          + tuple(block.shape[1:]), dtype=block.dtype,
+                          device=self.device)
+        # all_gather_into_tensor, under the name newer torch gives it
+        getattr(tdist, "all_gather_single", tdist.all_gather_into_tensor)(
+            out, block, group=self.group)
+        return out
+
+    def barrier(self):
+        """Wait for every rank (nothing to wait for with no group)."""
+        if self.group is not None:
+            tdist.barrier(group=self.group, device_ids=(
+                [self.device.index] if self.device.type == "cuda" else None))
+
     def __repr__(self):
-        return "Mesh(space=%d, rank=%d, device=%s)" % (self.size, self.rank,
-                                                       self.device)
+        return "Mesh(%s=%d, rank=%d, device=%s)" % (
+            self.axis_names[0], self.size, self.rank, self.device)
 
 
 def _rank_device(device, rank):
@@ -78,22 +111,25 @@ def _rank_device(device, rank):
 
 
 def make_mesh(shape, axis_names=("space",), device="cuda"):
-    """A 1-D ``"space"`` mesh of ``shape = (n,)`` ranks: ``n`` must be the
-    process group's world size (1 with no group). ``device`` is this rank's
-    (a bare ``"cuda"`` resolves to the local rank's card; ``"cpu"`` runs the
-    plain versions)."""
+    """A 1-D mesh of ``shape = (n,)`` ranks on the axis ``axis_names =
+    ("space",)`` or ``("batch",)``: ``n`` must be the process group's world
+    size (1 with no group). ``device`` is this rank's (a bare ``"cuda"``
+    resolves to the local rank's card; ``"cpu"`` runs the plain versions).
+    A mesh of two axes raises ``ValueError``: one rank is one process."""
     shape, axis_names = tuple(shape), tuple(axis_names)
-    if axis_names != ("space",) or len(shape) != 1:
-        raise not_ported("mesh axes %s (only the 1-D 'space' mesh is "
-                         "ported)" % (axis_names,), ROADMAP_BATCH_MESH)
+    if len(shape) != 1 or len(axis_names) != 1:
+        raise ValueError(
+            "mesh %s over axes %s: a mesh has one axis, 'space' or "
+            "'batch' (one rank per process)" % (shape, axis_names))
     grouped = tdist.is_initialized()
     world = tdist.get_world_size() if grouped else 1
     rank = tdist.get_rank() if grouped else 0
     if int(shape[0]) != world:
-        raise ValueError("a 'space' mesh of %d ranks on a process group of "
-                         "%d: one rank per process" % (shape[0], world))
+        raise ValueError("a %r mesh of %d ranks on a process group of %d: "
+                         "one rank per process"
+                         % (axis_names[0], shape[0], world))
     return Mesh(tdist.group.WORLD if grouped else None, world, rank,
-                _rank_device(device, rank))
+                _rank_device(device, rank), axis_names[0])
 
 
 def make_space_mesh(n=None, device="cuda"):
@@ -101,6 +137,14 @@ def make_space_mesh(n=None, device="cuda"):
     when given, must equal its world size)."""
     world = tdist.get_world_size() if tdist.is_initialized() else 1
     return make_mesh((world if n is None else n,), ("space",), device)
+
+
+def _space_mesh(mesh):
+    """Refuse a mesh without the ``"space"`` axis (the reference fails on
+    ``mesh.shape["space"]``)."""
+    if "space" not in mesh.shape:
+        raise ValueError("the sharded solves split a volume over a 'space' "
+                         "mesh, got %r" % (mesh,))
 
 
 def _local_input(arr, mesh, process_local):
@@ -190,6 +234,7 @@ def sharded_tv_admm_solve(mesh, cov, b, x0, alpha, rho, spacing=None,
     (:func:`~.distributed.process_local_slice`). Returns this rank's rows of
     ``x`` on the mesh's device (the whole volume on one rank).
     """
+    _space_mesh(mesh)
     if minimizer == "auto":
         minimizer = None
     b = _local_input(b, mesh, process_local)
@@ -252,6 +297,7 @@ def sharded_tv_denoise_solve(mesh, b, alpha, spacing=None, iterations=50,
     gradient pair (the proxes are elementwise and local). ``variant`` ∈
     {TVL1, TVL2, HuberL1, HuberL2}; ``process_local`` and the result as in
     :func:`sharded_tv_admm_solve`."""
+    _space_mesh(mesh)
     if variant in ("TVL1", "HuberL1"):
         prox_f = _prox.prox_ell1_denoising
     elif variant in ("TVL2", "HuberL2"):

@@ -21,7 +21,6 @@ eigenvalues do not.
 import numpy as np
 import torch
 
-from nsol_tpu_torch.defaults import ROADMAP_FIGURES, not_ported
 from nsol_tpu_torch.solvers.base import resolve_device
 
 __all__ = [
@@ -86,8 +85,49 @@ class PrincipalComponentAnalysis(object):
 
     def show(self, title="PCA", ax=None, step=1, path=None):
         """The principal-axes plot of the reference
-        (nsol/principal_component_analysis.py:76-111)."""
-        raise not_ported("PrincipalComponentAnalysis.show", ROADMAP_FIGURES)
+        (nsol/principal_component_analysis.py:76-111): the point cloud (every
+        ``step``-th point) and one arrow a principal axis, from the mean,
+        of length its eigenvalue; 2-D and 3-D. With ``path`` the figure is
+        saved there (matplotlib's Agg backend, headless). Returns the axes.
+        matplotlib is imported here only."""
+        import matplotlib
+        if path is not None:
+            matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        if self._eigvec is None:
+            raise RuntimeError("Run 'run' first")
+        dim = self._points.shape[1]
+        pts = self._points[::step]
+
+        fig = None
+        if ax is None:
+            fig = plt.figure(title)
+            fig.clf()
+            ax = (fig.add_subplot(111, projection="3d") if dim == 3
+                  else fig.add_subplot(111))
+        axis_colors = ["g", "b", "k"]
+        if dim == 3:
+            ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], color="red",
+                       marker="x")
+            for i in range(3):
+                arrow = self._eigval[i] * self._eigvec[:, i]
+                ax.quiver(*self._mean, *arrow, color=axis_colors[i],
+                          label="eigvec%d" % (i + 1))
+        else:
+            ax.scatter(pts[:, 0], pts[:, 1], color="red", marker="x")
+            for i in range(2):
+                arrow = self._eigval[i] * self._eigvec[:, i]
+                ax.quiver(self._mean[0], self._mean[1], arrow[0], arrow[1],
+                          angles="xy", scale_units="xy", scale=1,
+                          color=axis_colors[i], label="eigvec%d" % (i + 1))
+            ax.set_aspect("equal")
+        ax.set_title(title)
+        ax.legend()
+        if path is not None and fig is not None:
+            fig.savefig(path)
+            plt.close(fig)
+        return ax
 
 
 def _soft_shrink(M, tau):

@@ -40,13 +40,22 @@ The reference holds the whole grid's results on the device at once
 (``nsol_tpu/study/engine.py:219``, reference fault R4). Here a sweep holds
 at most :data:`SWEEP_BUDGET_BYTES` of results on the device and copies each
 chunk to the host before it solves the next.
+
+``run_sweep(mesh=...)`` with a ``"batch"``
+:class:`~nsol_tpu_torch.parallel.mesh.Mesh` splits the grid over its
+ranks (:func:`_sharded_run`): each rank runs its contiguous block through
+the route ``run_sweep`` takes without a mesh — the fused kernels where they
+are in scope — and every rank returns the whole grid. The reference
+leaves its fused kernels under a mesh and vmaps the generic solve
+(``nsol_tpu/solvers/wrappers.py:347,610,819``); here the block takes the
+same kernels, so at world 1 the result is the mesh-free sweep's, bit for
+bit.
 """
 
 import numpy as np
 import torch
 
 from nsol_tpu_torch import policy
-from nsol_tpu_torch.defaults import ROADMAP_BATCH_MESH, not_ported
 from nsol_tpu_torch.ops import conv as C
 from nsol_tpu_torch.ops import grad as G
 from nsol_tpu_torch.ops.cuda import blocked as _B
@@ -87,9 +96,44 @@ def _chunks(n, shape, itemsize):
     return [range(i, min(n, i + per)) for i in range(0, n, per)]
 
 
-def _not_sharded(mesh):
-    if mesh is not None:
-        raise not_ported("run_sweep(mesh=...)", ROADMAP_BATCH_MESH)
+def _sharded_run(run_sweep, param_values, mesh):
+    """``run_sweep(param_values)`` split over the ranks of the ``"batch"``
+    mesh ``mesh`` (counterpart of ``_sharded_vmap_run``,
+    ``nsol_tpu/solvers/wrappers.py:67-90``): the configuration arrays padded
+    to a multiple of ``mesh.size`` by repeating the last configuration,
+    rank ``r`` running the contiguous block ``[r·k, (r+1)·k)`` (what
+    ``P("batch")`` gives on the leading axis), x and every record gathered
+    on the mesh's device — x in chunks of at most
+    :data:`SWEEP_BUDGET_BYTES` — and trimmed to the ``n`` configurations.
+    Every rank returns the whole ``(x_all, records)`` as numpy."""
+    from nsol_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError("run_sweep(mesh=...) takes an nsol_tpu_torch."
+                        "parallel Mesh, got %r" % (mesh,))
+    if "batch" not in mesh.shape:
+        raise ValueError("run_sweep splits its grid over a 'batch' mesh, "
+                         "got %r" % (mesh,))
+    keys = list(param_values)
+    cols = [np.asarray(param_values[k], dtype=np.float64) for k in keys]
+    n = len(cols[0])
+    k = -(-n // mesh.size)
+    pad = k * mesh.size - n
+    lo = mesh.rank * k
+    block = {key: np.concatenate([c, np.repeat(c[-1:], pad)])[lo:lo + k]
+             for key, c in zip(keys, cols)}
+    x, records = run_sweep(block)
+
+    def gather(a):
+        return _numpy(mesh.gather(torch.as_tensor(a).to(mesh.device)))
+
+    x_all = np.empty((mesh.size, k) + x.shape[1:], x.dtype)
+    for part in _chunks(k, x.shape[1:], x.itemsize * mesh.size):
+        x_all[:, part.start:part.stop] = gather(x[part.start:part.stop]) \
+            .reshape((mesh.size, len(part)) + x.shape[1:])
+    records = None if records is None else {
+        name: gather(v)[:n] for name, v in records.items()}
+    return x_all.reshape((mesh.size * k,) + x.shape[1:])[:n], records
 
 
 def _stack_records(rows):
@@ -315,10 +359,13 @@ class TikhonovLinearSolver(_HintedSolver):
         "data_loss_scale"}. Returns ``(x_all, records)`` with ``x_all``
         unscaled (numpy) and ``records`` a dict name -> ``(n_configs, 2)``
         array (the measures at x0 and at the solution, the reference
-        observer's two ``add_x`` calls). ``mesh`` (a sharded batch) is not
-        ported and raises.
+        observer's two ``add_x`` calls). ``mesh``: a ``"batch"`` mesh to
+        split the grid over (:func:`_sharded_run`).
         """
-        _not_sharded(mesh)
+        if mesh is not None:
+            return _sharded_run(
+                lambda block: self.run_sweep(block, measures), param_values,
+                mesh)
         record_fn = _make_record_fn(measures, self._x_scale)
         n = len(next(iter(param_values.values())))
         alphas = param_values.get("alpha", np.full(n, self._alpha))
@@ -463,8 +510,12 @@ class ADMMLinearSolver(_HintedSolver):
         """``alpha × rho (× data_loss_scale)`` sweep (the reference loops it
         serially with reflective setters, nsol/solver_parameter_study.py:
         170-221). Returns ``(x_all, records)``, records name ->
-        ``(n_configs, iterations+1)``. ``mesh`` raises (not ported)."""
-        _not_sharded(mesh)
+        ``(n_configs, iterations+1)``. ``mesh``: a ``"batch"`` mesh to
+        split the grid over (:func:`_sharded_run`)."""
+        if mesh is not None:
+            return _sharded_run(
+                lambda block: self.run_sweep(block, measures), param_values,
+                mesh)
         record_fn = _make_record_fn(measures, self._x_scale)
         n = len(next(iter(param_values.values())))
         alphas = param_values.get("alpha", np.full(n, self._alpha))
@@ -612,9 +663,12 @@ class PrimalDualSolver(Solver):
         values}``; returns ``(x_all, records)``, ``x_all`` unscaled (numpy),
         ``records`` name -> ``(n_configs, iterations+1)``. Inside the fused
         solve's scope (:meth:`_in_fused_scope`) the whole batch runs through
-        it; otherwise each α is one generic solve. ``mesh`` (a sharded
-        batch) is not ported and raises."""
-        _not_sharded(mesh)
+        it; otherwise each α is one generic solve. ``mesh``: a ``"batch"``
+        mesh to split the grid over (:func:`_sharded_run`)."""
+        if mesh is not None:
+            return _sharded_run(
+                lambda block: self.run_sweep(block, measures), param_values,
+                mesh)
         n = len(next(iter(param_values.values())))
         alphas = param_values.get("alpha", np.full(n, self._alpha))
         if set(param_values) <= {"alpha"} and self._in_fused_scope(measures):

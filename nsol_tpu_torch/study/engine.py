@@ -12,6 +12,13 @@ also names a string parameter (``data_loss``) runs one such call per
 value of it (the "hybrid" route); anything else runs the
 reflective-setter serial loop, the reference's ``set_<key>``/``get_<key>``
 contract.
+
+With a ``"batch"`` mesh (``mesh=``) the vmapped and hybrid routes split
+the grid over the mesh's ranks (``run_sweep(mesh=...)``); the serial route
+does not use it, as in the reference. Every rank holds the whole result,
+only rank 0 writes the study's files, and every rank waits for the others
+at the end of :meth:`SolverParameterStudy.run`, so that a study appended
+afterwards reads the same rows on every rank.
 """
 
 import datetime
@@ -62,9 +69,10 @@ class SolverParameterStudy(ParameterStudy):
         self._reconstruction_info = dict(reconstruction_info or {})
         self._append = append
         self._use_vmap = use_vmap
-        #: a batch mesh for the sharded sweep (not ported: run_sweep raises
-        #: for anything but None)
+        #: a "batch" mesh for the sharded sweep: its ranks split the grid
+        #: and rank 0 alone writes the files
         self._mesh = mesh
+        self._writes = mesh is None or mesh.rank == 0
         self._computational_time = None
 
     def get_parameters(self):
@@ -80,10 +88,11 @@ class SolverParameterStudy(ParameterStudy):
 
         prev_exists = os.path.isfile(self._get_path_to_file_parameters())
         if not self._append or not prev_exists:
-            os.makedirs(self._directory, exist_ok=True)
-            self._create_file_parameters()
-            self._create_files_measures()
-            self._create_file_computational_time()
+            if self._writes:
+                os.makedirs(self._directory, exist_ok=True)
+                self._create_file_parameters()
+                self._create_files_measures()
+                self._create_file_computational_time()
             self._append = False
         else:
             ph.print_info("Append previous study ... ")
@@ -92,6 +101,8 @@ class SolverParameterStudy(ParameterStudy):
         time_start = ph.start_timing()
         self._run()
         self._computational_time = ph.stop_timing(time_start)
+        if self._mesh is not None:
+            self._mesh.barrier()
 
     # -- append validation (behavioral contract as in the reference engine,
     #    nsol/solver_parameter_study.py:104-149: static solver settings in
@@ -360,18 +371,26 @@ class SolverParameterStudy(ParameterStudy):
             f.write(header)
 
     def _add_to_file_parameters(self, dic_parameters):
+        if not self._writes:
+            return
         with open(self._get_path_to_file_parameters(), "a") as f:
             f.write("\t".join(dic_parameters.values()) + "\n")
 
     def _add_to_file_measures(self, measure, nda):
+        if not self._writes:
+            return
         with open(self._get_path_to_file_measures(measure), "ab") as f:
             np.savetxt(f, nda, fmt="%.10e")
 
     def _add_to_file_computational_time(self, computational_time):
+        if not self._writes:
+            return
         with open(self._get_path_to_file_computational_time(), "a") as f:
             f.write(str(computational_time) + "\n")
 
     def _write_to_file_reconstructions(self, dic):
+        if not self._writes:
+            return
         np.savez_compressed(self._get_path_to_file_reconstructions(), **dic)
         ph.print_info("File '%s' written"
                       % self._get_path_to_file_reconstructions())

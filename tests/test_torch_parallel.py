@@ -16,7 +16,15 @@ them:
   JAX runs its Pallas kernels in interpret mode), and
   ``process_local=True`` against the full-volume solve on one rank;
 * world 2: the sharded solves against the port's unsharded ``admm_solve``
-  to 1e-9 in float64, and what a mesh of several processes refuses.
+  to 1e-9 in float64, and what a mesh of several processes refuses;
+* the ``"batch"`` mesh: at world 4 the PD study of
+  ``tests/test_study.py:217-253`` (5 α: the padding path) against the
+  port's study with no mesh (rtol 1e-12) and JAX's 4-device batch study,
+  its files written by rank 0 alone and read alike by every rank after
+  the study's barrier; at world 2 the Tikhonov and ADMM ``run_sweep(mesh=)``
+  against the no-mesh sweeps; the distributed helpers on the batch axis;
+  in-process, a one-rank batch mesh bit for bit the mesh-free sweep, and
+  the refusals.
 
 Without a spawn: the plain versions of the prepadded window units (K9b)
 on slabs cut from one volume, ``row0`` on the first, a middle and the last
@@ -43,6 +51,7 @@ import torch_parallel_worker as W  # noqa: E402
 from nsol_tpu_torch import parallel as P  # noqa: E402
 from nsol_tpu_torch.ops import conv as TC  # noqa: E402
 from nsol_tpu_torch.ops import grad as TG  # noqa: E402
+from nsol_tpu_torch.ops import prox as TP  # noqa: E402
 from nsol_tpu_torch.ops.cuda import blocked as B  # noqa: E402
 from nsol_tpu_torch.ops.cuda import robust as R  # noqa: E402
 from nsol_tpu_torch.parallel import blocked_halo, mesh as M  # noqa: E402
@@ -91,6 +100,7 @@ def _spawn(world, tmp):
         else:
             axis = 1 if key.startswith("grad_") else 0
             res[key] = np.concatenate([r[key] for r in ranks], axis=axis)
+    res["outdir"] = str(tmp)
     return res
 
 
@@ -417,11 +427,182 @@ def test_world2_engine_solves_match_jax_sharded(world2, case):
     np.testing.assert_allclose(world2[case], want, rtol=0, atol=1e-8)
 
 
-@pytest.mark.parametrize("what", ["full_volume", "mesh_size"])
+@pytest.mark.parametrize("what", ["full_volume", "mesh_size",
+                                  "batch_mesh_size"])
 def test_world2_refusals(world2, what):
     """On a mesh of two processes a full volume (``process_local=False``)
-    and a mesh of another size than the group raise ``ValueError``."""
+    and a "space" or "batch" mesh of another size than the group raise
+    ``ValueError``."""
     assert [int(f) for f in world2[what]] == [1, 1]
+
+
+# ------------------------------------------------------- the batch mesh --
+
+def _per_rank(res, key, world):
+    """The whole result each rank returned, ``(world, ...)``."""
+    a = res[key]
+    return a.reshape((world, a.shape[0] // world) + a.shape[1:])
+
+
+@pytest.fixture
+def f64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+def _read(directory):
+    from nsol_tpu_torch.study import ReaderParameterStudy
+
+    reader = ReaderParameterStudy(directory=directory, name="study")
+    reader.read_study()
+    return reader
+
+
+def test_world4_batch_study_matches_its_no_mesh_study(world4, f64, tmp_path):
+    """The PD study of tests/test_study.py:217-253 (5 α over 4 ranks: the
+    padding path) on a gloo "batch" mesh equals the port's study with no
+    mesh, as the JAX test holds its 4-device study to its plain one; every
+    rank read rank 0's files after the study's barrier."""
+    W.batch_pd_study(None, str(tmp_path))
+    plain = _read(str(tmp_path))
+    meshed = _read(os.path.join(world4["outdir"], "batch_study"))
+    for m in ("Data", "Reg"):
+        np.testing.assert_allclose(meshed.get_results(m),
+                                   plain.get_results(m), rtol=1e-12)
+        for got in _per_rank(world4, "batch_read_" + m, 4):
+            np.testing.assert_array_equal(got, meshed.get_results(m))
+    np.testing.assert_array_equal(meshed.get_reconstructions()["4"],
+                                  plain.get_reconstructions()["4"])
+
+
+def test_world4_batch_study_matches_jax_batch_study(world4, tmp_path):
+    """The same study against the JAX package's on its 4-device "batch"
+    mesh (``make_mesh((4,), ("batch",))``), at test_torch_study's TOL."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    if len(jax.devices()) < 4:
+        pytest.skip("needs the conftest's virtual CPU devices")
+    JG, JP = _jax("ops.grad"), _jax("ops.prox")
+    JW, JO = _jax("solvers.wrappers"), _jax("observer")
+    JS = _jax("study")
+    b = W.batch_image()
+    bj = jnp.asarray(b)
+    grad, grad_adj = JG.make_gradient_operators()
+    solver = JW.PrimalDualSolver(
+        prox_f=lambda x, tau: JP.prox_ell2_denoising(x, tau, bj),
+        prox_g_conj=JP.prox_tv_conj, B=grad, B_conj=grad_adj, L2=8.0,
+        x0=np.array(b), alpha=0.1, iterations=5)
+    obs = JO.Observer()
+    obs.set_measures({
+        "Data": lambda x: 0.5 * jnp.sum((x - bj) ** 2),
+        "Reg": lambda x: jnp.sum(jnp.sqrt(jnp.sum(grad(x) ** 2, axis=0)))})
+    JS.PrimalDualSolverParameterStudy(
+        solver=solver, observer=obs, dir_output=str(tmp_path), name="study",
+        parameters={"alpha": list(W.BATCH_ALPHAS)}, use_vmap=True,
+        mesh=_jax("parallel").make_mesh((4,), ("batch",))).run()
+    want = JS.ReaderParameterStudy(directory=str(tmp_path), name="study")
+    want.read_study()
+    got = _read(os.path.join(world4["outdir"], "batch_study"))
+    tol = 1e-9  # tests/test_torch_study.py::TOL
+    for m in ("Data", "Reg"):
+        w = want.get_results(m)
+        np.testing.assert_allclose(got.get_results(m), w, rtol=0,
+                                   atol=tol * max(1.0, np.abs(w).max()))
+
+
+def test_world4_only_rank0_writes_the_study_files(world4):
+    """Each rank ran a study into a directory of its own: only rank 0's
+    exists, with every file of the study."""
+    out = world4["outdir"]
+    assert sorted(os.listdir(os.path.join(out, "batch_rank0"))) == sorted(
+        os.listdir(os.path.join(out, "batch_study")))
+    for k in (1, 2, 3):
+        assert not os.path.exists(os.path.join(out, "batch_rank%d" % k))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_distributed_helpers_take_the_batch_axis(world2, world4, world):
+    """``process_local_slice`` and ``global_array_from_process_local`` take
+    ``axis_name="batch"`` through ``Mesh.shape``, as the JAX ones do."""
+    res = world2 if world == 2 else world4
+    np.testing.assert_array_equal(
+        res["batch_slice"],
+        np.ravel([[2 * r, 2 * r + 2] for r in range(world)]))
+    np.testing.assert_array_equal(
+        res["batch_block"], np.repeat(np.arange(world), 2)[:, None]
+        * np.ones((1, 3)))
+
+
+@pytest.mark.parametrize("kind", ["tik", "admm"])
+def test_world2_batch_sweeps_match_no_mesh_sweeps(world2, f64, kind):
+    """Tikhonov (α × data_loss_scale) and TV-L2 ADMM (α × ρ) ``run_sweep``
+    on a gloo "batch" mesh of 2 ranks (3 configurations, padded to 4), each
+    rank's block through the fused solves' plain versions: every rank
+    returns the whole no-mesh sweep's x and records."""
+    x, recs = W.batch_sweep_solver(kind).run_sweep(
+        W.BATCH_SWEEPS[kind], measures=W.batch_measures(kind))
+    for got in _per_rank(world2, "batch_%s_x" % kind, 2):
+        np.testing.assert_allclose(got, x, rtol=0,
+                                   atol=TOL64 * np.abs(x).max())
+    for m, want in recs.items():
+        for got in _per_rank(world2, "batch_%s_%s" % (kind, m), 2):
+            np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_world1_batch_sweeps_equal_no_mesh_bit_for_bit(f64):
+    """``run_sweep(mesh=Mesh.single("cpu", "batch"))`` is the mesh-free
+    sweep bit for bit for the three classes (the block is the grid and
+    takes the same route)."""
+    from nsol_tpu_torch.solvers import wrappers as TW
+
+    one = M.Mesh.single("cpu", "batch")
+    b = W.batch_image()
+    bt = torch.as_tensor(b)
+    pd = TW.PrimalDualSolver(
+        lambda x, tau: TP.prox_ell2_denoising(x, tau, bt), TP.prox_tv_conj,
+        TG.gradient, TG.gradient_adjoint, L2=8.0, x0=b, iterations=4,
+        x_scale=float(b.max()), reconstruction_type="TVL2",
+        observation=b / b.max(), device="cpu")
+    cases = [(pd, {"alpha": np.array(W.BATCH_ALPHAS)},
+              {"Reg": lambda x: torch.sum(torch.abs(TG.gradient(x))),
+               "Data": lambda x: torch.sum((x - bt) ** 2)})]
+    cases += [(W.batch_sweep_solver(kind), W.BATCH_SWEEPS[kind],
+               W.batch_measures(kind)) for kind in ("tik", "admm")]
+    for solver, grid, measures in cases:
+        x, recs = solver.run_sweep(grid, measures=measures)
+        xm, recs_m = solver.run_sweep(grid, measures=measures, mesh=one)
+        assert xm.dtype == x.dtype and np.array_equal(xm, x)
+        assert set(recs_m) == set(recs)
+        for m in recs:
+            assert np.array_equal(recs_m[m], recs[m])
+
+
+def test_batch_mesh_refusals():
+    """A batch mesh of another size than the group, a space solve given a
+    batch mesh, a mesh of two axes, and a sweep given a space mesh or no
+    Mesh raise."""
+    batch = M.Mesh.single("cpu", "batch")
+    assert P.make_mesh((1,), ("batch",), device="cpu").shape == {"batch": 1}
+    with pytest.raises(ValueError, match="one rank per process"):
+        P.make_mesh((2,), ("batch",), device="cpu")
+    with pytest.raises(ValueError, match="one axis"):
+        P.make_mesh((2, 2), ("batch", "space"), device="cpu")
+    with pytest.raises(ValueError, match="one of"):
+        P.make_mesh((1,), ("model",), device="cpu")
+    b = W.solve_inputs()["linear64"]
+    with pytest.raises(ValueError, match="'space' mesh"):
+        P.sharded_tv_admm_solve(batch, W.solve_cov(), b, b.copy(), W.ALPHA,
+                                W.RHO)
+    with pytest.raises(ValueError, match="'space' mesh"):
+        P.sharded_tv_denoise_solve(batch, b, W.PD_ALPHA)
+    solver = W.batch_sweep_solver("tik")
+    with pytest.raises(ValueError, match="'batch' mesh"):
+        solver.run_sweep(W.BATCH_SWEEPS["tik"],
+                         mesh=P.make_space_mesh(device="cpu"))
+    with pytest.raises(TypeError, match="Mesh"):
+        solver.run_sweep(W.BATCH_SWEEPS["tik"], mesh=object())
 
 
 # ------------------------------------------- the window units (no spawn) --
@@ -619,7 +800,7 @@ def test_space_mesh_of_another_size_raises():
     assert P.make_space_mesh(device="cpu").size == 1
     with pytest.raises(ValueError, match="one rank per process"):
         P.make_space_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match='"batch" mesh axis'):
+    with pytest.raises(ValueError, match="one axis"):
         P.make_mesh((1, 1), ("batch", "space"), device="cpu")
 
 

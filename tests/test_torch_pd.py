@@ -11,6 +11,8 @@ JAX package is imported only inside the tests that compare with it:
     python -m pytest --noconftest -m cuda tests/test_torch_pd.py
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -490,10 +492,12 @@ def test_denoising_cli_cpu_matches_jax_solve(tmp_path, kind):
     (["--dir-output-figures", "FIGS", "--verbose", "1"], None)])
 def test_denoising_cli_unported_routes_raise(tmp_path, monkeypatch, argv,
                                              env):
-    """The routes still to port raise (``--trace``, figures); the ones
-    ported since run: ``--solver ADMM``, ``--reference`` and 1-D input
-    (the generic solvers), and ``NSOL_TPU_COMPACT=1``, which on the CPU
-    runs the exact solve as the reference's CPU route does."""
+    """The routes once still to port run: ``--solver ADMM``,
+    ``--reference`` and 1-D input (the generic solvers),
+    ``NSOL_TPU_COMPACT=1``, which on the CPU runs the exact solve as the
+    reference's CPU route does, ``--trace`` (the traced fused solve is the
+    exact solve) and ``--dir-output-figures --verbose`` (a 3-D input: no
+    figure, and no viewer here)."""
     obs = str(tmp_path / "b.nii.gz")
     vol = np.random.RandomState(15).rand(4, 4, 4).astype(np.float32)
     write_nifti(vol, obs)
@@ -507,11 +511,9 @@ def test_denoising_cli_unported_routes_raise(tmp_path, monkeypatch, argv,
     if env is not None:
         monkeypatch.setenv("NSOL_TPU_COMPACT", env)
     out = str(tmp_path / "x.nii.gz")
-    if argv and argv[0] in ("--trace", "--dir-output-figures"):
-        with pytest.raises(NotImplementedError, match="figures and tracing"):
-            _cli(tmp_path, obs, out, *argv)
-        return
     assert _cli(tmp_path, obs, out, *argv) == 0
+    if argv and argv[0] in ("--trace", "--dir-output-figures"):
+        assert os.path.isdir(argv[1])
     got = read_nifti(out).data
     b = read_nifti(obs).data.astype(np.float64)
     if argv[:2] == ["--solver", "ADMM"] or b.ndim == 1:

@@ -25,8 +25,9 @@ The same numpy inputs, made from a seed, go through both packages:
 * the CLIs: ``run_deconvolution`` at its default ``--solver PD`` (TVL2,
   HuberL2), ``run_denoising_study``, ``run_denoising --solver ADMM`` and
   ``--reference``, against the JAX package's CLIs in float64;
-* every ``NotImplementedError`` of the port's routes still to port names a
-  ROADMAP.md item by a title that ROADMAP.md has.
+* the routes that once raised naming their ROADMAP.md item (``--trace``,
+  the figures, ``PCA.show``, the ``"batch"`` mesh) run and write their
+  outputs.
 
 The ``cuda``-marked cases hold the bf16 units and the compact solve to
 their plain versions on the card and skip without one:
@@ -484,7 +485,8 @@ def test_run_sweep_fused_route_matches_jax_fused_sweep(tmp_path, monkeypatch,
     """``run_sweep`` inside the fused solve's scope against the JAX
     package's ``_fused_sweep`` in interpret mode (float32, records scaled
     to the rescaled iterate, the Huber record at γ/s): x at atol 2e-6 /
-    rtol 1e-5 of the scale, records at rtol 2e-5 (tests/test_pallas.py)."""
+    rtol 1e-5 of the scale, records at rtol 2e-5 (tests/test_pallas.py);
+    outside it the generic solve, also through a one-rank batch mesh."""
     monkeypatch.setenv("NSOL_TPU_FUSED_INTERPRET", "1")
     jnp = pytest.importorskip("jax.numpy")
     JP, JPr, JG, JW = (_jax(m) for m in ("ops.prox", "ops.priors",
@@ -541,7 +543,14 @@ def test_run_sweep_fused_route_matches_jax_fused_sweep(tmp_path, monkeypatch,
                  reconstruction_type=rtype, observation=b / s)
     assert hinted._in_fused_scope({"Reg": None, "Data": None})
     assert not hinted._in_fused_scope({"Reg": None, "RMSE": None})
-    with pytest.raises(NotImplementedError, match='"batch" mesh axis'):
+    # run_sweep(mesh=) is ported: through a one-rank "batch" mesh the
+    # generic sweep gives the same bits; anything but a Mesh raises
+    from nsol_tpu_torch.parallel.mesh import Mesh
+
+    x_m, r_m = solver.run_sweep({"alpha": alphas},
+                                mesh=Mesh.single("cpu", "batch"))
+    assert r_m is None and np.array_equal(x_m, x_g)
+    with pytest.raises(TypeError, match="Mesh"):
         hinted.run_sweep({"alpha": alphas}, mesh=object())
 
 
@@ -822,72 +831,56 @@ def test_run_denoising_generic_routes_match_jax_cli(f64, tmp_path,
     _close(_mat(str(tmp_path / "port.mat")), _mat(str(tmp_path / "jax.mat")))
 
 
-# --------------------------------------------- the ROADMAP items named --
-
-def _roadmap_titles():
-    """Every heading and numbered item title of ROADMAP.md, lower case,
-    without backticks."""
-    titles = set()
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        for line in f:
-            m = re.match(r"#+\s+(.*)", line) or \
-                re.match(r"\s*\d+\.\s+\*\*(.+?)\*\*", line)
-            if m:
-                titles.add(m.group(1).replace("`", "").strip().rstrip(".")
-                           .lower())
-    return titles
-
+# ------------------------------------------ the routes that once raised --
 
 def test_unported_messages_name_roadmap_items_by_title(tmp_path):
-    """Each route that still raises names its ROADMAP.md item as "ROADMAP
-    Queue N: <title>", a title ROADMAP.md has (numbers shift when the
-    queue is re-anchored; titles do not)."""
+    """The routes that raised naming their ROADMAP.md item are ported: each
+    runs and writes its outputs — ``--trace`` (a Chrome-trace JSON) and
+    ``--dir-output-figures --verbose`` of both CLIs, ``PCA.show``, the
+    ``"batch"`` mesh and ``run_sweep(mesh=)`` —, no module of the port
+    raises "not ported" any more, and none names an item by its number."""
+    import json
+
     from nsol_tpu_torch import parallel as P
-    from nsol_tpu_torch import pca as TP
+    from nsol_tpu_torch import pca as TPCA
     from nsol_tpu_torch.cli import run_deconvolution, run_denoising
     from nsol_tpu_torch.io import write_nifti
 
     obs = str(tmp_path / "b.nii.gz")
     write_nifti(np.random.RandomState(13).rand(4, 4, 4).astype(np.float32),
                 obs)
-    routes = [
-        lambda: run_denoising.main(["--observation", obs, "--result",
-                                    str(tmp_path / "x.nii.gz"), "--trace",
-                                    str(tmp_path / "t"), "--device", "cpu"]),
-        lambda: run_denoising.main(["--observation", obs, "--result",
-                                    str(tmp_path / "x.nii.gz"),
-                                    "--dir-output-figures",
-                                    str(tmp_path / "f"), "--verbose", "1",
-                                    "--device", "cpu"]),
-        lambda: run_deconvolution.main(["--observation", obs, "--result",
-                                        str(tmp_path / "x.nii.gz"), "--trace",
-                                        str(tmp_path / "t"), "--device",
-                                        "cpu"]),
-        lambda: run_deconvolution.main(["--observation", obs, "--result",
-                                        str(tmp_path / "x.nii.gz"),
-                                        "--dir-output-figures",
-                                        str(tmp_path / "f"), "--verbose", "1",
-                                        "--device", "cpu"]),
-        lambda: TP.PrincipalComponentAnalysis(
-            np.random.RandomState(13).rand(10, 3), device="cpu").show(),
-        lambda: P.make_mesh((1, 1), ("batch", "space"), device="cpu"),
-        lambda: _pd("port", B_STUDY).run_sweep({"alpha": [0.1]},
-                                               mesh=object()),
-    ]
-    titles = _roadmap_titles()
-    for route in routes:
-        with pytest.raises(NotImplementedError) as info:
-            route()
-        m = re.search(r"ROADMAP Queue (\d): (.+?)\)?$", str(info.value))
-        assert m, str(info.value)
-        assert m.group(2).lower() in titles, (m.group(2), str(info.value))
-    # no message of the port names an item by its number
+    for cli in (run_denoising, run_deconvolution):
+        for extra in (["--trace", str(tmp_path / "t")],
+                      ["--dir-output-figures", str(tmp_path / "f"),
+                       "--verbose", "1"]):
+            x = tmp_path / "x.nii.gz"
+            if x.exists():
+                x.unlink()
+            assert cli.main(["--observation", obs, "--result", str(x),
+                             "--iterations", "3", "--device", "cpu"]
+                            + extra) == 0
+            assert x.exists()
+    traces = sorted(os.listdir(str(tmp_path / "t")))
+    assert len(traces) == 2
+    for name in traces:
+        with open(str(tmp_path / "t" / name)) as f:
+            assert json.load(f)["traceEvents"]
+    assert (tmp_path / "f").is_dir()  # a 3-D input draws no comparison
+    pca = TPCA.PrincipalComponentAnalysis(
+        np.random.RandomState(13).rand(10, 3), device="cpu")
+    pca.run()
+    pca.show(path=str(tmp_path / "pca.png"))
+    assert (tmp_path / "pca.png").stat().st_size > 0
+    mesh = P.make_mesh((1,), ("batch",), device="cpu")
+    x, _ = _pd("port", B_STUDY).run_sweep({"alpha": [0.1]}, mesh=mesh)
+    assert x.shape == (1,) + B_STUDY.shape and np.all(np.isfinite(x))
     pkg = os.path.join(REPO, "nsol_tpu_torch")
     for root, _, files in os.walk(pkg):
         for name in files:
             if name.endswith(".py"):
                 with open(os.path.join(root, name)) as f:
                     text = f.read()
+                assert "not_ported" not in text, name
                 assert not re.search(r"Queue \d items? \d", text), name
 
 

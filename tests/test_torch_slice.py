@@ -148,11 +148,12 @@ def test_port_imports_neither_jax_nor_pil():
             "nsol_tpu_torch.parallel.mesh, nsol_tpu_torch.noise, "
             "nsol_tpu_torch.optimize, nsol_tpu_torch.pca, "
             "nsol_tpu_torch.solvers.lbfgs, nsol_tpu_torch.ops.conv, "
-            "nsol_tpu_torch.cli.corrupt_data;"
+            "nsol_tpu_torch.cli.corrupt_data, nsol_tpu_torch.profiling, "
+            "nsol_tpu_torch.viewer, nsol_tpu_torch.cli.show_parameter_study;"
             "nsol_tpu_torch.data.generate_standalone_data("
             "nsol_tpu_torch.data.data_dir());"
             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')"
-            "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL'))))")
+            "[0] in ('jax', 'jaxlib', 'nsol_tpu', 'PIL', 'matplotlib'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))

@@ -287,10 +287,17 @@ def test_setters_getters_and_x_scale(f64):
 
 
 def test_unported_options_and_device_raise(f64):
+    """``run_sweep(mesh=)`` is ported: a mesh that is no ``Mesh`` raises
+    ``TypeError``, a ``"space"`` one ``ValueError``; without a card,
+    ``device="cuda"`` raises."""
+    from nsol_tpu_torch.parallel.mesh import Mesh
+
     p = _Problem(_observed())
     s = _tikhonov("port", p, "TK1", "linear", True)
-    with pytest.raises(NotImplementedError, match='"batch" mesh axis'):
+    with pytest.raises(TypeError, match="Mesh"):
         s.run_sweep({"alpha": np.array([0.1])}, mesh=object())
+    with pytest.raises(ValueError, match="'batch' mesh"):
+        s.run_sweep({"alpha": np.array([0.1])}, mesh=Mesh.single("cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TW.TikhonovLinearSolver(p.A, p.A, p.b, p.D, p.Dt, p.b)

@@ -5,7 +5,9 @@
 Joins a ``torch.distributed`` group of WORLD processes at
 ``tcp://localhost:PORT`` (gloo, on the CPU), runs every case of that world
 size through ``nsol_tpu_torch.parallel`` on this rank's rows, and writes
-them to ``OUTDIR/rank_RANK.npz`` for the test to assemble. It imports
+them to ``OUTDIR/rank_RANK.npz`` for the test to assemble; the batch-mesh
+cases write every rank's whole result there, and their studies under
+OUTDIR. It imports
 torch, numpy, scipy and the port only — never jax — and the test imports
 its input makers, so both sides see the same numpy inputs.
 """
@@ -132,6 +134,128 @@ def wio_inputs():
     rs = np.random.RandomState(31)
     return (rs.rand(*SOLVE_SHAPE).astype(np.float32),
             (rs.rand(*SOLVE_SHAPE) + 0.1).astype(np.float32))
+
+
+#: the batch-mesh cases: the PD study of tests/test_study.py:217-253 (a
+#: 12 × 14 image, 5 α: at world 4 the padding path) and, at world 2, the
+#: Tikhonov (TK1, α × data_loss_scale) and TV-L2 ADMM (α × ρ) sweeps inside
+#: the fused solves' scope, 3 configurations each (padded to 4)
+BATCH_ALPHAS = (0.1, 0.2, 0.4, 0.6, 0.8)
+BATCH_COV = np.diag([1.0, 0.8]) ** 2
+BATCH_SWEEPS = {
+    "tik": {"alpha": np.array([0.02, 0.05, 0.1]),
+            "data_loss_scale": np.array([1.0, 0.7, 1.0])},
+    "admm": {"alpha": np.array([0.02, 0.05, 0.1]),
+             "rho": np.array([0.5, 0.5, 1.0])},
+}
+
+
+def batch_image():
+    return np.random.RandomState(11).rand(12, 14) * 10
+
+
+def batch_pd_study(mesh, directory):
+    """The PD study of ``tests/test_study.py:217-253`` through the port's
+    ``PrimalDualSolverParameterStudy`` on ``mesh`` (None: no mesh), written
+    to ``directory`` (float64 on the CPU)."""
+    import torch
+
+    from nsol_tpu_torch.observer import Observer
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.ops import prox
+    from nsol_tpu_torch.solvers.wrappers import PrimalDualSolver
+    from nsol_tpu_torch.study import PrimalDualSolverParameterStudy
+
+    b = batch_image()
+    bt = torch.as_tensor(b)
+    grad, grad_adj = G.make_gradient_operators()
+    solver = PrimalDualSolver(
+        lambda x, tau: prox.prox_ell2_denoising(x, tau, bt),
+        prox.prox_tv_conj, grad, grad_adj, L2=8.0, x0=b.copy(), alpha=0.1,
+        iterations=5, device="cpu")
+    obs = Observer()
+    obs.set_measures({
+        "Data": lambda x: 0.5 * torch.sum((torch.as_tensor(x) - bt) ** 2),
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(
+            grad(torch.as_tensor(x)) ** 2, dim=0)))})
+    PrimalDualSolverParameterStudy(
+        solver=solver, observer=obs, dir_output=directory, name="study",
+        parameters={"alpha": list(BATCH_ALPHAS)}, use_vmap=True,
+        mesh=mesh).run()
+
+
+def batch_sweep_solver(kind):
+    """The port's TK1 Tikhonov (``kind="tik"``) or TV-L2 ADMM solver of a
+    blurred batch image, with the blur hint (float64 on the CPU)."""
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+    from nsol_tpu_torch.solvers import wrappers as W
+
+    b = _blur(batch_image(), BATCH_COV) + 1.0
+    A, _ = C.make_blur_operators(BATCH_COV)
+    D, Dt = G.make_gradient_operators()
+    opts = dict(alpha=0.05, minimizer="auto", iter_max=4,
+                x_scale=float(b.max()), blur_cov=BATCH_COV,
+                spacing=np.ones(2), device="cpu")
+    if kind == "tik":
+        return W.TikhonovLinearSolver(A, A, b, D, Dt, b.copy(),
+                                      reg_kind="TK1", **opts)
+    return W.ADMMLinearSolver(A, A, b, D, Dt, b.copy(), iterations=3,
+                              **opts)
+
+
+def batch_measures(kind):
+    """The Reg/Data measures of :func:`batch_sweep_solver`'s sweeps."""
+    import torch
+
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import grad as G
+
+    b = torch.as_tensor(_blur(batch_image(), BATCH_COV) + 1.0)
+    A, _ = C.make_blur_operators(BATCH_COV)
+    D, _ = G.make_gradient_operators()
+    reg = (lambda x: 0.5 * torch.sum(D(x) ** 2)) if kind == "tik" else \
+        (lambda x: torch.sum(torch.sqrt(torch.sum(D(x) ** 2, dim=0))))
+    return {"Reg": reg, "Data": lambda x: 0.5 * torch.sum((A(x) - b) ** 2)}
+
+
+def batch_cases(world, rank, outdir):
+    """The batch-mesh cases of ``world``: every rank's whole result (the
+    test assembles them rank after rank), and what each rank read."""
+    import torch
+
+    from nsol_tpu_torch import parallel as P
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.study import ReaderParameterStudy
+
+    mesh = P.make_mesh((world,), ("batch",), device="cpu")
+    out = {"batch_slice": np.asarray(dist.process_local_slice(
+        (2 * world, 3), mesh, axis_name="batch")),
+        "batch_block": _np(dist.global_array_from_process_local(
+            mesh, np.full((2, 3), float(rank)), axis_name="batch"))}
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        if world == 4:
+            shared = os.path.join(outdir, "batch_study")
+            batch_pd_study(mesh, shared)
+            # after the study's barrier every rank reads rank 0's files
+            reader = ReaderParameterStudy(directory=shared, name="study")
+            reader.read_study()
+            for m in ("Data", "Reg"):
+                out["batch_read_" + m] = reader.get_results(m)
+            # a study of its own a rank: only rank 0's directory is written
+            batch_pd_study(mesh, os.path.join(outdir, "batch_rank%d" % rank))
+        else:
+            for kind, grid in BATCH_SWEEPS.items():
+                x, recs = batch_sweep_solver(kind).run_sweep(
+                    grid, measures=batch_measures(kind), mesh=mesh)
+                out["batch_%s_x" % kind] = x
+                for m, v in recs.items():
+                    out["batch_%s_%s" % (kind, m)] = v
+    finally:
+        torch.set_default_dtype(old)
+    return out
 
 
 def _rows(a, mesh, axis=0):
@@ -263,7 +387,9 @@ def refusals(mesh):
                 mesh, solve_cov(), b, b.copy(), ALPHA, RHO, iterations=1,
                 iter_max=1)),
             ("mesh_size", lambda: P.make_space_mesh(mesh.size + 1,
-                                                    device="cpu"))):
+                                                    device="cpu")),
+            ("batch_mesh_size", lambda: P.make_mesh(
+                (mesh.size + 1,), ("batch",), device="cpu"))):
         try:
             call()
             flags[name] = np.asarray(0)
@@ -292,6 +418,7 @@ def main(argv):
         res.update(window_io_cases(mesh))
         res.update(engine_cases(mesh))
         res.update(refusals(mesh))
+    res.update(batch_cases(world, rank, outdir))
     np.savez(os.path.join(outdir, "rank_%d.npz" % rank), **res)
     torch.distributed.destroy_process_group()
     print("WORKER_OK", rank)
