@@ -198,11 +198,41 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   Chrome-trace JSON that names the hand-written kernels the run launched,
   its size and the wall ms each way.
 
+* phase 45, the fused ADMM solve as one persistent cooperative launch
+  (group ``persistent``, ``csrc/admm_persistent.cu``): its ptxas registers
+  and spills, no constant-cache load in its SASS (``cuobjdump``), its
+  launch shape and grid barriers; the 64³ stand-in and Lena (exact and
+  qf32, with and without records) and the rule's edge shapes (80³, a
+  ragged volume, a 2-plane stack) bit for bit against ``nsol_admm_solve``'s
+  launch sequence, each solve three times, one launch a solve; the 64³
+  objective within 0.2 % of 219948.08 and equal in its printed digits to
+  the sequence's; the Lena ADMM study's rows equal on both routes; Lena
+  against the plain version at phases 4-5's bands; the shapes the rule
+  refuses (100³, 1024²) on the launch sequence; times in turns (sequence,
+  persistent, persistent, sequence) by CUDA events of the 64³ and Lena
+  solves, the Lena ADMM study, the 64³ ``nsol_torch_run_deconvolution`` and
+  the route's boundary shapes (64³-100³, 256²-2048², stacks of 2-32
+  planes); a CUDA graph replay of the launch sequence as a yardstick, the
+  device busy share, the reduce in block 0 against every block, the
+  barriers alone, and a traced solve's phases.
+
+Since the persistent solve, the 64³ and Lena fused solves (phases 4, 18,
+19, 24, 39, 44) launch ``admm_persistent`` once a solve and none of the
+launch sequence's units: phase 5's 256³ solve reports those units'
+launches, a robust configuration with records ``admm_record``'s (phase
+18), and a 96³ compact solve, past the persistent rule, ``cg_step[qf32]``'s
+(phase 24); phase 36 holds the linear chain side on the solve's launch
+sequence.
+
 The CLI runs of phases 6, 15, 18 and 22 hold ``run_deconvolution``'s
 default on the card — the reference's compact storage — to the compact
 library solve. The sweeps that phases 17-19 hold to float64 anchors or
 to the exact generic solve run under ``NSOL_TPU_EXACT=1``, as before;
 phase 31 runs them at their default.
+
+Phases 44 and 45 run first, after the build: they read torch.profiler's
+record of the persistent solve's one cooperative launch, which the
+profiler lost once the process had run the other phases.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -1853,7 +1883,9 @@ def run_tikhonov_phase(device, card):
 def run_admm_study_phase(device, card):
     """Phase 18: the TV-L2 ADMM study with records on Lena 256² through
     ``ADMMLinearSolver.run_sweep``, and ``run_deconvolution`` (linear TV-L2
-    by ADMM) on the PNG. Returns the sweep's launch counts."""
+    by ADMM) on the PNG. Returns the sweep's launch counts (one persistent
+    launch a configuration; ``admm_record``'s from a robust configuration
+    with records)."""
     import torch
 
     from nsol_tpu_torch import data, interop
@@ -1882,10 +1914,15 @@ def run_admm_study_phase(device, card):
     with exact_storage():
         x_all, recs = solver.run_sweep(params, measures=measures)
     torch.cuda.synchronize()
-    names = F.ADMM_UNITS + F.RECORD_UNITS
+    # one persistent launch a configuration (csrc/admm_persistent.cu,
+    # records included), none of the launch sequence's units
+    names = F.PERSISTENT_UNITS + F.ADMM_UNITS + F.RECORD_UNITS
     launches, plain_calls = F.launch_counts(names), F.plain_counts()
-    require(all(n > 0 for n in launches.values()),
-            "phase 18: a kernel was not launched: %s" % launches)
+    require(launches["admm_persistent"] == len(grid)
+            and all(n == 0 for k, n in launches.items()
+                    if k != "admm_persistent"),
+            "phase 18: not one persistent launch a configuration: %s"
+            % launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 18: a plain version ran: %s" % plain_calls)
     require(x_all.shape == (16, 256, 256) and np.all(np.isfinite(x_all))
@@ -1953,19 +1990,36 @@ def run_admm_study_phase(device, card):
                                                         measures=measures),
                                "phase 18 TVL2 ADMM run_sweep (16 "
                                "configurations, records)", card)
-    # the solve's bound: its units' bounds (bytes) at their launch counts
-    solve_bound = sum(n / len(grid) * unit_bound(k, 256 ** 2, (13, 13),
-                                                 nd=2)[0]
-                      for k, n in launches.items())
+    # the solve's bound: its units' bounds (bytes) at the launch counts of
+    # the same solve as the launch sequence
+    F.reset_counts()
+    solve.sequence(b, b, a0, r0, record_dls=1.0 / xs)
+    torch.cuda.synchronize()
+    solve_bound = sum(unit_bound(k, 256 ** 2, (13, 13), nd=2)[0] * n
+                      for k, n in F.launch_counts(F.ADMM_UNITS
+                                                  + F.RECORD_UNITS).items())
+    # admm_record's main path: the records of a robust (huber) study
+    # configuration, written by the launch sequence of csrc/robust.cu (the
+    # linear ones the persistent launch writes itself)
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    rsolve = F.make_fused_admm_solver(b.shape, cov, iterations=its,
+                                      iter_max=sweeps, data_loss="huber",
+                                      irls_cg_iters=cgi, record=True)
+    F.reset_counts()
+    rsolve(b, b, a0, r0, record_dls=1.0 / xs)
+    torch.cuda.synchronize()
+    launches.update(F.launch_counts(F.RECORD_UNITS))
+    require(launches["admm_record"] == its + 1, "phase 18: the robust "
+            "records' launches %s" % launches)
     print("phase 18 TVL2 ADMM study Lena 256^2, 8 alphas x 2 rhos, %d x %d, "
           "records: anchor devs %s (band %g); last records vs measures of x "
           "%.2e; kernel vs plain objective rel %.2e, voxel %.2e, records "
-          "%.2e; launches %s (%.0f per solve); plain calls 0; kernel %.3f "
-          "ms/solve, plain %.3f ms/solve, bound %.4f ms/solve [%s]"
+          "%.2e; launches %s (admm_record: a robust configuration's "
+          "records); plain calls 0; kernel %.3f ms/solve, plain %.3f "
+          "ms/solve, bound %.4f ms/solve [%s]"
           % (ITERATIONS, ITER_MAX, {k: "%.2e" % v for k, v in devs.items()},
              STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, rrel, launches,
-             sum(launches.values()) / len(grid), ms_k, ms_p, solve_bound,
-             card))
+             ms_k, ms_p, solve_bound, card))
 
     # run_deconvolution, linear TV-L2 by ADMM on the 2-D PNG
     obs = data.path("2D_Lena_256_blur_noise.png")
@@ -1978,8 +2032,10 @@ def run_admm_study_phase(device, card):
             "--blur", str(SIGMA), "--iterations", str(ITERATIONS),
             "--iter-max", str(ITER_MAX), "--device", "cuda"])
         require(rc == 0, "phase 18: CLI returned %r" % rc)
-        cli_launches = F.launch_counts(F.ADMM_UNITS)
-        require(all(n > 0 for n in cli_launches.values())
+        cli_launches = F.launch_counts(F.PERSISTENT_UNITS + F.ADMM_UNITS)
+        require(cli_launches["admm_persistent"] == 1
+                and all(n == 0 for k, n in cli_launches.items()
+                        if k != "admm_persistent")
                 and all(n == 0 for n in F.plain_counts().values()),
                 "phase 18: CLI launches %s, plain calls %s"
                 % (cli_launches, F.plain_counts()))
@@ -2130,11 +2186,17 @@ def run_scale_cli_phase(device, card):
                                  "--study-name", name, "--dir-output", out,
                                  "--device", "cuda"] + extra)
             require(rc == 0, "phase 19: study CLI %s returned %r" % (name, rc))
+            # TK1L2: the Tikhonov sequence's units; TVL2 by ADMM: one
+            # persistent launch a configuration and none of them
             units = ("normal_apply", "cg_step", "cg_update") + (
                 ("tik_clip",) if rtype == "TK1L2"
-                else ("admm_tail", "admm_record"))
+                else ("admm_tail", "admm_record", "admm_persistent"))
             cli_launches = F.launch_counts(units)
-            require(all(n > 0 for n in cli_launches.values())
+            launched = {k: n > 0 for k, n in cli_launches.items()}
+            want = {k: rtype == "TK1L2" or k == "admm_persistent"
+                    for k in units}
+            require(launched == want and (rtype == "TK1L2" or cli_launches[
+                "admm_persistent"] == 4)
                     and all(n == 0 for n in F.plain_counts().values()),
                     "phase 19: study CLI %s launches %s, plain calls %s"
                     % (name, cli_launches, F.plain_counts()))
@@ -3138,7 +3200,7 @@ STORAGE_KEYS = ("precision", "compact_dirs", "state_dtype")
 #: the phase 24 run whose launches it reports and the shape it is timed at
 COMPACT_UNITS = {
     "cg_step[qf32]": ("cg_step", "nsol_tpu/ops/pallas/fused.py:382",
-                      "nsol_tpu_torch/csrc/admm.cu", "fused64", 4 + 2 + 2 + 4,
+                      "nsol_tpu_torch/csrc/admm.cu", "fused96", 4 + 2 + 2 + 4,
                       13),
     "cg_step[dirs]": ("cg_step", "nsol_tpu/ops/pallas/blocked.py:988",
                       "nsol_tpu_torch/csrc/admm.cu", "step_dirs",
@@ -3169,8 +3231,9 @@ COMPACT_UNITS = {
                             "nsol_tpu_torch/csrc/stream.cuh", "apply_state",
                             2 + 2 + 2 + 2 + 2, 0),
 }
-#: the shape each main path of phase 24 runs at
-COMPACT_SHAPES = {"fused64": (64, 64, 64), "step_dirs": SCALE_SHAPE,
+#: the shape each main path of phase 24 runs at (96³: a fused compact
+#: solve past the persistent route, on the launch sequence)
+COMPACT_SHAPES = {"fused96": (96, 96, 96), "step_dirs": SCALE_SHAPE,
                   "step_state": SCALE_SHAPE, "sweep_f32": SCALE_SHAPE,
                   "sweep_bf16": SCALE_SHAPE, "apply_dirs": BIG,
                   "apply_state": BIG}
@@ -3670,11 +3733,23 @@ def run_compact_phases(device, card):
     require(dev64 <= ANCHOR_BAND, "phase 24: 64^3 compact objective %.2f "
             "deviates %.4f%% from %.2f" % (runs["fused64"][0], 100 * dev64,
                                            OBJECTIVE_ANCHOR))
-    require(launches["fused64"].get("cg_step") == ITERATIONS * ITER_MAX,
+    # 64³: one persistent launch (csrc/admm_persistent.cu); 96³, past its
+    # rule (the residual's normal_apply marches there): the launch
+    # sequence, whose cg_step[qf32] runs on the chain
+    require(launches["fused64"] == {"admm_persistent": 1},
             "phase 24: 64^3 compact launches %s" % launches["fused64"])
     held_to_plain("fused64", partial(F.make_fused_admm_solver, (64,) * 3,
                                      iso, iter_max=ITER_MAX),
                   dict(precision="high3", compact_dirs=True), b64, obj64)
+    b96, _, A96 = compact_problem(device, COMPACT_SHAPES["fused96"])
+    run("fused96", F.make_fused_admm_solver(
+        COMPACT_SHAPES["fused96"], iso, iterations=ITERATIONS,
+        iter_max=ITER_MAX, precision="high3", compact_dirs=True), b96,
+        lambda x: objective_device(x, b96, A96, ALPHA))
+    require(launches["fused96"].get("cg_step") == ITERATIONS * ITER_MAX
+            and "admm_persistent" not in launches["fused96"],
+            "phase 24: 96^3 compact launches %s" % launches["fused96"])
+    del b96
     # 256³: "step" compact and bf16 state, "sweep" f32 and bf16 state
     b, iso, A64 = compact_problem(device, SCALE_SHAPE)
 
@@ -5813,10 +5888,10 @@ def vol_rule_checks(T, device, units=None):
 
 
 def chain_route_runs(F, device):
-    """The chain side of the route: a 64³ linear solve (3 × 5) at σ 3.5
-    and a robust huber one (2 × 2 × 4) at σ 2.5, each past its march's
-    shared memory, against its plain version. Returns ``{unit: (chain
-    launches, march launches, max |Δ| / max |plain|)}``."""
+    """The chain side of the route: a 64³ linear solve (3 × 5, its launch
+    sequence) at σ 3.5 and a robust huber one (2 × 2 × 4) at σ 2.5, each
+    past its march's shared memory, against its plain version. Returns
+    ``{unit: (chain launches, march launches, max |Δ| / max |plain|)}``."""
     import torch
 
     shape = (64,) * 3
@@ -5828,9 +5903,12 @@ def chain_route_runs(F, device):
         kw = dict(iterations=3, iter_max=5) if unit == "cg_step" else dict(
             iterations=2, iter_max=2, data_loss="huber", irls_cg_iters=4)
         solve = F.make_fused_admm_solver(shape, cov, **kw)
+        # the linear solve's units run in its launch sequence (the fused
+        # route takes the persistent launch at 64³)
+        run = solve.sequence if unit == "cg_step" else solve
         torch.cuda.synchronize()
         F.reset_counts()
-        x = solve(b, b, ALPHA, RHO)
+        x = run(b, b, ALPHA, RHO)
         torch.cuda.synchronize()
         chain, march = route_launches(F)[unit]
         rel = max_rel(x, solve.plain(b, b, ALPHA, RHO))
@@ -6251,10 +6329,9 @@ def run_volume_solves(device, card):
     rows = {}
 
     def run(key, fn, reps, objective=None):
-        fn()  # warm-up (stencils, allocator)
         torch.cuda.synchronize()
         F.reset_counts()
-        x = fn()
+        x = fn()  # the launches; then cuda_median_ms warms up and times
         torch.cuda.synchronize()
         routes = {k: v for k, v in route_launches(F).items() if any(v)}
         ms = cuda_median_ms(fn, reps)
@@ -6744,8 +6821,11 @@ def tail_solves(device, card):
     b64 = interop.to_torch(b_np.astype(np.float32), device)
     solve = F.make_fused_admm_solver((64,) * 3, iso, iterations=ITERATIONS,
                                      iter_max=ITER_MAX)
+    # the 64³ and Lena TV-L2 solves: admm_tail inside their one persistent
+    # launch (csrc/admm_persistent.cu)
     run("north_star_64", partial(solve, b64, b64, ALPHA, RHO), 10,
-        lambda x: objective_host(interop.to_numpy(x), b_np, kern, ALPHA))
+        lambda x: objective_host(interop.to_numpy(x), b_np, kern, ALPHA),
+        units=("admm_persistent",))
     obj = rows["north_star_64"][1]
     require(abs(obj - OBJECTIVE_ANCHOR) <= ANCHOR_BAND * OBJECTIVE_ANCHOR,
             "phase 39: 64^3 objective %.4f, anchor %.2f" % (
@@ -6758,7 +6838,8 @@ def tail_solves(device, card):
                                       iterations=ITERATIONS,
                                       iter_max=ITER_MAX)
     run("lena_tvl2", partial(lsolve, bl, bl, ALPHA, RHO), 10,
-        lambda x: objective_device(x, bl, A2, ALPHA))
+        lambda x: objective_device(x, bl, A2, ALPHA),
+        units=("admm_persistent",))
     # 256³ "step": exact, compact (the CLI's default), bf16 state
     b, iso, A64 = compact_problem(device, SCALE_SHAPE)
     for key, kw in (("step_exact", {}), ("step_dirs", dict(compact_dirs=True)),
@@ -7287,8 +7368,11 @@ def run_sweep_phase(device, card):
 
 def run_admm_phases(device, card):
     """Phases 3-6: the linear ADMM deconvolution path. Returns the launch
-    counts of the 64³ solve, each unit's max |Δ| against its plain version
-    at 64³ and its (kernel ms, plain ms) per call there."""
+    counts of the 256³ solve (the launch sequence's units; the 64³ solve is
+    one persistent launch), each unit's max |Δ| against its plain version
+    at 64³ and its (kernel ms, plain ms) per call there, and the 64³
+    persistent solve's launches, max |Δ| and ms against its plain
+    version."""
     import scipy.ndimage as ndi
     import torch
 
@@ -7338,13 +7422,19 @@ def run_admm_phases(device, card):
     F.reset_counts()
     x_k = solve(b, b, ALPHA, RHO)
     torch.cuda.synchronize()
-    launches = F.launch_counts(F.ADMM_UNITS + F.MARCH_UNITS)
+    # the fused route's one cooperative launch (csrc/admm_persistent.cu),
+    # none of the launch sequence's units
+    launches = F.launch_counts(F.PERSISTENT_UNITS + F.ADMM_UNITS
+                               + F.MARCH_UNITS)
     plain_calls = F.plain_counts()
-    require(all(n > 0 for n in unit_counts(F, F.ADMM_UNITS).values()),
-            "phase 4: a kernel was not launched: %s" % launches)
+    require(launches["admm_persistent"] == 1
+            and all(n == 0 for k, n in launches.items()
+                    if k != "admm_persistent"),
+            "phase 4: not the one persistent launch: %s" % launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 4: a plain version ran: %s" % plain_calls)
-    x_p = solve.plain(b, b, ALPHA, RHO)
+    # the plain solve, timed once (its ms informs; it is no yardstick)
+    x_p, ms_p = timed_once(lambda: solve.plain(b, b, ALPHA, RHO))
     obj_k = objective_host(interop.to_numpy(x_k), b_np, kern, ALPHA)
     obj_p = objective_host(interop.to_numpy(x_p), b_np, kern, ALPHA)
     dev = abs(obj_k - OBJECTIVE_ANCHOR) / OBJECTIVE_ANCHOR
@@ -7358,7 +7448,6 @@ def run_admm_phases(device, card):
             "phase 4: kernel vs plain objective rel %.3g voxel rel %.3g"
             % (obj_rel, vox))
     ms_k = cuda_ms(lambda: solve(b, b, ALPHA, RHO), reps=10)
-    ms_p = cuda_ms(lambda: solve.plain(b, b, ALPHA, RHO), reps=5)
     print("phase 4 main path 64^3: objective %.2f (anchor %.2f, dev "
           "%.4f%%); kernel vs plain objective rel %.3e, voxel max|d|/max|x| "
           "%.3e; launches %s; plain calls %s; kernel %.3f ms/solve = %.1f "
@@ -7383,10 +7472,17 @@ def run_admm_phases(device, card):
                                          iter_max=ITER_MAX)
     F.reset_counts()
     xb_k = solve_big(bb, bb, ALPHA, RHO)
+    torch.cuda.synchronize()
     big_routes = route_launches(F)["cg_step"]
     require(big_routes == (0, ITERATIONS * ITER_MAX), "phase 5: cg_step "
             "launches (chain, march) %s, not all on the march" % (big_routes,))
-    xb_p = solve_big.plain(bb, bb, ALPHA, RHO)
+    # the launch sequence's units on their main path at scale (the 64³
+    # solve takes the persistent launch)
+    unit_launches = F.launch_counts(F.ADMM_UNITS + F.MARCH_UNITS)
+    require(all(n > 0 for n in unit_counts(F, F.ADMM_UNITS).values())
+            and F.launch_counts()["admm_persistent"] == 0,
+            "phase 5: a kernel was not launched: %s" % unit_launches)
+    xb_p, msb_p = timed_once(lambda: solve_big.plain(bb, bb, ALPHA, RHO))
     torch.cuda.synchronize()
     A64, _ = C.make_blur_operators(iso, alpha_cut=3, dtype=np.float64)
     ob_k = objective_device(xb_k, bb, A64, ALPHA)
@@ -7399,16 +7495,15 @@ def run_admm_phases(device, card):
             % (ob_rel, vox_b))
     del xb_p
     msb_k = cuda_ms(lambda: solve_big(bb, bb, ALPHA, RHO), reps=5)
-    msb_p = cuda_ms(lambda: solve_big.plain(bb, bb, ALPHA, RHO), reps=5,
-                    warmup=0)
     times256 = kernel_times(B, F, B.Stencils.from_cov(iso, 3, None, device),
                             big, device, rng, reps=10)
     print("phase 5 scale 256^3: objective %.1f (JAX package, information "
           "only: %.1f); kernel vs plain objective rel %.3e, voxel %.3e; "
-          "cg_step launches (chain, march) %s; "
+          "launches %s; cg_step launches (chain, march) %s; "
           "kernel %.1f ms/solve = %.2f it/s, plain %.1f ms/solve = %.2f "
           "it/s; per-call (kernel ms, plain ms): %s [%s]"
-          % (ob_k, SCALE_OBJECTIVE_JAX, ob_rel, vox_b, big_routes, msb_k,
+          % (ob_k, SCALE_OBJECTIVE_JAX, ob_rel, vox_b, unit_launches,
+             big_routes, msb_k,
              ITERATIONS / msb_k * 1e3, msb_p, ITERATIONS / msb_p * 1e3,
              ", ".join("%s %.3f/%.3f" % (k, a, p)
                        for k, (a, p) in times256.items()), card))
@@ -7440,7 +7535,10 @@ def run_admm_phases(device, card):
     print("phase 6 CLI: shape %s finite, max|cli - library|/max %.3e"
           % (recon.shape, cli_dev))
 
-    return {"launches": launches, "err": main_err, "times": times64}
+    return {"launches": unit_launches, "err": main_err, "times": times64,
+            "persistent": {"launches": launches["admm_persistent"],
+                           "err": float((x_k - x_p).abs().max()),
+                           "ms": ms_k, "plain_ms": ms_p}}
 
 
 # -------------------------------------------------------- phases 41-43 --
@@ -7921,8 +8019,7 @@ def run_engine_phases(device, card):
 #: the kernel of each unit a traced CLI run must name (the units the
 #: untraced run launched)
 TRACE_KERNELS = {"pd_dual": "pd_dual_kernel", "pd_primal": "pd_primal_kernel",
-                 "cg_update": "cg_update_kernel",
-                 "admm_tail": "admm_tail_kernel"}
+                 "admm_persistent": "admm_persistent_kernel"}
 
 
 def np_bits(a, b):
@@ -8083,8 +8180,10 @@ def trace_cli_runs(device, card):
     the card after a warm-up, without ``--trace`` and twice with it: the
     same result bits and launch counts, a trace that parses and names the
     kernel of every unit of :data:`TRACE_KERNELS` the run launched (the
-    profiler may lose records, so no count is required), its size, and the
-    wall ms of each run."""
+    profiler may lose records, so no count is required; where the second
+    trace lost the one record of a unit launched once a run, up to two
+    more traced runs, each held to the same bits and launches), its size,
+    and the wall ms of each run."""
     import scipy.io
     import scipy.ndimage as ndi
 
@@ -8113,7 +8212,7 @@ def trace_cli_runs(device, card):
                                     "--reconstruction-type", "TVL2",
                                     "--alpha", str(ALPHA), "--blur",
                                     str(SIGMA)],
-                "nii.gz", ("cg_update", "admm_tail"))}
+                "nii.gz", ("admm_persistent",))}
         for name, (cli, argv, ext, units) in cases.items():
             def run(label, trace=None):
                 out = os.path.join(tmp, "%s.%s" % (label, ext))
@@ -8127,44 +8226,56 @@ def trace_cli_runs(device, card):
                      else read_nifti(out).data)
                 return x, used_counts(F), ms
 
-            run("warm")
-            x0, c0, ms0 = run("plain")
-            # the process's first trace also starts the profiler (CUPTI)
-            ms1 = []
-            for turn in ("traced", "traced again"):
+            def traced(turn):
                 trace_dir = os.path.join(tmp, "trace_%s_%d" % (ext, len(ms1)))
                 x1, c1, ms = run(turn, trace_dir)
                 ms1.append(ms)
                 require(np_bits(x0, x1) and c0 == c1 and not c0[1],
                         "phase 44: %s %s vs untraced: bits %s, launches %s"
                         % (name, turn, np_bits(x0, x1), (c0, c1)))
-            files = os.listdir(trace_dir)
-            require(len(files) == 1, "phase 44: %s trace files %s"
-                    % (name, files))
-            path = os.path.join(trace_dir, files[0])
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-            kernels = {}
-            for e in events:
-                if e.get("cat") == "kernel":
-                    kernels[e["name"]] = kernels.get(e["name"], 0) + 1
-            named = {u: sum(n for k, n in kernels.items()
-                            if TRACE_KERNELS[u] in k) for u in units}
+                files = os.listdir(trace_dir)
+                require(len(files) == 1, "phase 44: %s trace files %s"
+                        % (name, files))
+                path = os.path.join(trace_dir, files[0])
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+                kernels = {}
+                for e in events:
+                    if e.get("cat") == "kernel":
+                        kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+                named = {u: sum(n for k, n in kernels.items()
+                                if TRACE_KERNELS[u] in k) for u in units}
+                return path, kernels, named
+
+            run("warm")
+            x0, c0, ms0 = run("plain")
+            # the process's first trace also starts the profiler (CUPTI)
+            ms1 = []
+            traced("traced")
+            path, kernels, named = traced("traced again")
+            # a unit launched once a run (the persistent solve) leaves one
+            # kernel record, which the profiler can lose: its trace is
+            # taken again, up to three traced runs after the first, as
+            # device_ms_of takes a trace again
+            while not all(named.values()) and len(ms1) < 4:
+                path, kernels, named = traced("traced, once more")
             require(all(c0[0].get(u, 0) > 0 for u in units)
                     and all(named.values()), "phase 44: %s launches %s, "
-                    "kernel records in the trace %s" % (name, c0[0], named))
+                    "kernel records in the trace %s, of its kernels %s"
+                    % (name, c0[0], named, kernels))
             rows[name] = {"launches": c0[0], "trace_records": named,
                           "trace_kernel_records": sum(kernels.values()),
                           "trace_bytes": os.path.getsize(path),
-                          "ms": [ms0] + ms1}
+                          "ms": [ms0] + ms1[:2], "traces": len(ms1)}
     print("phase 44 --trace on the card: results and launch counts bit for "
           "bit equal to the untraced runs; %s [%s]"
-          % ("; ".join("%s: launches %s, trace names %s (%d kernel records), "
-                       "%d bytes, wall ms untraced %.1f, traced %.1f (the "
-                       "process's first trace), %.1f" % (
+          % ("; ".join("%s: launches %s, trace names %s (%d kernel records; "
+                       "traced runs %d), %d bytes, wall ms untraced %.1f, "
+                       "traced %.1f (the process's first trace), %.1f" % (
                            k, v["launches"], v["trace_records"],
-                           v["trace_kernel_records"], v["trace_bytes"],
-                           *v["ms"]) for k, v in rows.items()), card))
+                           v["trace_kernel_records"], v["traces"],
+                           v["trace_bytes"], *v["ms"])
+                       for k, v in rows.items()), card))
     return rows
 
 
@@ -8178,10 +8289,582 @@ def run_batch_phase(device, card):
     return rows
 
 
+# -------------------------------------------------------------- phase 45 --
+
+#: phase 45's bit cases: label → (problem, storage, records, outer × CG):
+#: the 64³ stand-in and Lena (the main paths, 50 × 10), then shapes the
+#: rule takes at its edges (80³: threads with two voxels of a pass; a
+#: ragged volume; a 2-plane stack)
+PERSISTENT_BIT_CASES = {
+    "64^3 exact": ("phantom", "exact", False, (ITERATIONS, ITER_MAX)),
+    "64^3 qf32": ("phantom", "qf32", False, (ITERATIONS, ITER_MAX)),
+    "64^3 exact records": ("phantom", "exact", True, (ITERATIONS, ITER_MAX)),
+    "Lena exact": ("lena", "exact", False, (ITERATIONS, ITER_MAX)),
+    "Lena qf32": ("lena", "qf32", False, (ITERATIONS, ITER_MAX)),
+    "Lena exact records": ("lena", "exact", True, (ITERATIONS, ITER_MAX)),
+    "Lena qf32 records": ("lena", "qf32", True, (ITERATIONS, ITER_MAX)),
+    "80^3 exact records": ((80, 80, 80), "exact", True, (10, 10)),
+    "37x45x53 qf32": ((37, 45, 53), "qf32", False, (10, 10)),
+    "2x256x512 exact records": ((2, 256, 512), "exact", True, (10, 10))}
+#: the solves repeated bit for bit on the persistent route
+PERSISTENT_REPEATS = 3
+#: the route's boundary, timed in turns at 10 × 10 (the persistent solve
+#: forced where the rule refuses it): cubes, images, stacks of 2-32 planes
+PERSISTENT_ROUTE_SHAPES = ((64, 64, 64), (80, 80, 80), (96, 96, 96),
+                           (100, 100, 100), (256, 256), (512, 512),
+                           (1024, 1024), (2048, 2048), (2, 512, 1025),
+                           (4, 256, 256), (8, 256, 256), (16, 256, 256),
+                           (32, 128, 128))
+PERSISTENT_KERNEL = "admm_persistent_kernel"
+
+
+def persistent_ptxas():
+    """ptxas's registers and spills of each persistent kernel instance
+    (from this run's build; "cached" where the library was not built)."""
+    from nsol_tpu_torch.ops.cuda import build
+
+    lines = build.build_info.get("ptxas", "").splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and PERSISTENT_KERNEL in ln:
+            info = [l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
+                    if "spill" in l or "Used" in l]
+            name = ln.split("'")[1]
+            out.append("%s: %s" % (name[name.index("StoreT"):][:60],
+                                   "; ".join(info)))
+    return out or ["cached"]
+
+
+def persistent_sass():
+    """``{kernel: (global loads, constant-cache global loads)}`` of each
+    persistent kernel instance in the built library's SASS
+    (``cuobjdump -sass``): every load of a volume the kernel writes must
+    take the coherent path, so none may be an ``LDG...CONSTANT`` (or
+    ``.NC``)."""
+    import re
+
+    from nsol_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    # the kernels by name where this run built the library (seconds, not
+    # the whole library's half a minute)
+    names = [ln.split("'")[1] for ln in build.build_info.get(
+        "ptxas", "").splitlines() if "Compiling entry function" in ln
+        and PERSISTENT_KERNEL in ln]
+    sass = subprocess.run(
+        [tool, "-sass"] + (["-fun", ",".join(names)] if names else [])
+        + [build.build_info["path"]], capture_output=True, text=True,
+        check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass):
+        name = fn.split("\n", 1)[0]
+        if PERSISTENT_KERNEL not in name:
+            continue
+        loads = [l for l in fn.splitlines() if "LDG" in l]
+        const = [l for l in loads if "CONSTANT" in l or ".NC" in l]
+        out[name[name.index("StoreT"):][:60]] = (len(loads), len(const))
+    return out
+
+
+@contextlib.contextmanager
+def sequence_route(F):
+    """Inside the block the fused route's solves take ``nsol_admm_solve``'s
+    launch sequence (the persistent rule answers no), as before the
+    persistent solve."""
+    rule = F.persistent_route
+    F.persistent_route = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        F.persistent_route = rule
+
+
+def persistent_bound(counts, n, normal, blur):
+    """The one-launch solve's bound: the bytes it must move (b and x0
+    read, x written) and its float32 operations, those of the launch
+    sequence's units at the counts that sequence makes (:func:`unit_bound`'s
+    operations a voxel; ``Aᵀb``'s ``normal_apply`` at the blur taps), over
+    the card's peak rates; and the sum of the units' own bounds at those
+    counts (each unit's volumes through HBM: no floor where the state sits
+    in the 50 MB L2)."""
+    chain_n, chain_b = 2 * sum(normal), 2 * sum(blur)
+    ops = {"normal_apply": chain_n + 15, "cg_step": chain_n + 17,
+           "cg_update": 8, "admm_tail": 40, "admm_record": chain_b + 20}
+    total = sum(ops[k] * c for k, c in counts.items() if c) \
+        - (chain_n - chain_b)
+    units = sum(unit_bound(k, n, blur if k == "admm_record" else normal)[0]
+                * c for k, c in counts.items() if c)
+    return bound(4.0 * n * 3, float(n) * total), units
+
+
+def turns_ms(seq, pers, reps):
+    """Median ms of ``seq`` and ``pers`` by CUDA events, in turns
+    (sequence, persistent, persistent, sequence)."""
+    return [cuda_median_ms(f, reps) for f in (seq, pers, pers, seq)]
+
+
+def turns_line(t):
+    return "%.3f / %.3f / %.3f / %.3f" % tuple(t)
+
+
+def persistent_problems(device):
+    """The 64³ stand-in (b, and its objective on the host) and Lena 256²
+    (b, and the float64 blur of its objective)."""
+    import scipy.ndimage as ndi
+    import torch
+
+    from nsol_tpu_torch import data, interop
+    from nsol_tpu_torch.io import read_nifti, read_png
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops import kernels as K
+
+    iso = np.diag([SIGMA ** 2] * 3)
+    img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(iso, alpha_cut=3, spacing=np.ones(3))
+    b_np = ndi.convolve(img.data.astype(np.float64), kern, mode="wrap")
+    b64 = interop.to_torch(b_np.astype(np.float32), device)
+    lena = read_png(data.path("2D_Lena_256_blur_noise.png")).astype(
+        np.float64)
+    bl = torch.as_tensor((lena / lena.max()).astype(np.float32),
+                         device=device)
+    A2, _ = C.make_blur_operators(np.eye(2), alpha_cut=3, dtype=np.float64)
+    return {"phantom": (b64, lambda x: objective_host(
+                interop.to_numpy(x), b_np, kern, ALPHA)),
+            "lena": (bl, lambda x: objective_device(x, bl, A2, ALPHA))}
+
+
+def persistent_bits(F, device, problems):
+    """Every case of :data:`PERSISTENT_BIT_CASES`: the library solve (the
+    rule takes it) :data:`PERSISTENT_REPEATS` times, each x and record row
+    ``torch.equal`` to the launch sequence's, one persistent launch a
+    solve, nothing else launched and no plain call. Returns ``{case:
+    (launches, max |x|)}`` and the 64³ objectives (sequence, persistent)."""
+    import torch
+
+    out, objectives = {}, {}
+    for label, (src, storage, record, (its, cgs)) in \
+            PERSISTENT_BIT_CASES.items():
+        if isinstance(src, str):
+            b = problems[src][0]
+        else:
+            b = torch.as_tensor(np.random.RandomState(45).rand(*src).astype(
+                np.float32), device=device)
+        kw = dict(precision="high3", compact_dirs=True) \
+            if storage == "qf32" else {}
+        solve = F.make_fused_admm_solver(
+            tuple(b.shape), np.eye(b.dim()), iterations=its, iter_max=cgs,
+            record=record, **kw)
+        require(solve.route == "persistent", "phase 45: the rule refuses %s"
+                % label)
+        want = solve.sequence(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        got = [solve(b, b, ALPHA, RHO) for _ in range(PERSISTENT_REPEATS)]
+        torch.cuda.synchronize()
+        counts = used_counts(F)
+        require(counts == ({"admm_persistent": PERSISTENT_REPEATS}, {}),
+                "phase 45: %s launches %s" % (label, counts))
+        for g in got:
+            same = torch.equal(g[0], want[0]) and all(
+                torch.equal(g[1][k], want[1][k]) for k in ("Reg", "Data")) \
+                if record else torch.equal(g, want)
+            require(same, "phase 45: %s: the persistent solve is not the "
+                    "launch sequence's bits" % label)
+        x = got[0][0] if record else got[0]
+        require(bool(torch.isfinite(x).all()), "phase 45: %s not finite"
+                % label)
+        out[label] = float(x.abs().max())
+        if label == "64^3 exact":
+            objective = problems["phantom"][1]
+            objectives = {"sequence": objective(want),
+                          "persistent": objective(got[0])}
+    return out, objectives
+
+
+def persistent_refusals(F, device):
+    """Shapes the rule leaves to the launch sequence make no persistent
+    launch there; a forced persistent solve of a storage it does not run
+    raises before it launches."""
+    import torch
+
+    out = {}
+    for shape in ((100, 100, 100), (1024, 1024)):
+        b = torch.as_tensor(np.random.RandomState(46).rand(*shape).astype(
+            np.float32), device=device)
+        solve = F.make_fused_admm_solver(shape, np.eye(len(shape)),
+                                         iterations=2, iter_max=3)
+        F.reset_counts()
+        solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        counts = used_counts(F)[0]
+        require(solve.route == "sequence" and "admm_persistent" not in counts
+                and counts.get("cg_step", 0) + counts.get(
+                    "cg_step_march", 0) == 6,
+                "phase 45: %s took %s, launches %s" % (shape, solve.route,
+                                                       counts))
+        out["x".join(map(str, shape))] = counts
+    st = F.B.Stencils.from_cov(np.eye(3), 3, None, device)
+    b = torch.ones((8, 8, 8), device=device)
+    for kw in (dict(storage="state"), dict(sweep=True)):
+        try:
+            F._solve_cuda(st, b, b, ALPHA, RHO, 2, 3, route="persistent",
+                          **kw)
+        except ValueError:
+            continue
+        raise PhaseFailure("phase 45: a persistent %s solve ran" % kw)
+    return out
+
+
+def persistent_study(device, F):
+    """The Lena TV-L2 ADMM study of phase 18 (8 α × 2 ρ, 50 × 10, records)
+    through ``ADMMLinearSolver.run_sweep``: a closure returning its x and
+    records."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.solvers.wrappers import ADMMLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    solver = ADMMLinearSolver(
+        A, A, img, D, Dt, img, x_scale=xs, minimizer="auto",
+        iterations=ITERATIONS, iter_max=ITER_MAX, blur_cov=np.eye(2),
+        spacing=np.ones(2), device=device)
+    measures = {
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(D(x) ** 2, 0))),
+        "Data": lambda x: losses.cost_from_residual(A(x) - bt.to(x.dtype))}
+    grid = [(a, r) for a in TV_ALPHAS.astype(np.float64) for r in TV_RHOS]
+    params = {"alpha": np.array([g[0] for g in grid]),
+              "rho": np.array([g[1] for g in grid])}
+
+    def run():
+        with exact_storage():
+            x, recs = solver.run_sweep(params, measures=measures)
+        return dict(recs, x=x)
+    return run
+
+
+def persistent_cli(device, tmp):
+    """``nsol_torch_run_deconvolution`` on the 64³ stand-in NIfTI (ADMM
+    TVL2, its default compact storage): a closure returning the result."""
+    import scipy.ndimage as ndi
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import read_nifti, write_nifti
+    from nsol_tpu_torch.ops import kernels as K
+
+    img = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
+    kern = K.gaussian_kernel(np.diag([SIGMA ** 2] * 3), alpha_cut=3,
+                             spacing=np.ones(3))
+    obs = os.path.join(tmp, "b.nii.gz")
+    write_nifti(ndi.convolve(img.data.astype(np.float64), kern,
+                             mode="wrap").astype(np.float32), obs,
+                spacing=np.ones(3))
+    out = os.path.join(tmp, "x.nii.gz")
+
+    def run():
+        rc = run_deconvolution.main([
+            "--observation", obs, "--result", out, "--solver", "ADMM",
+            "--reconstruction-type", "TVL2", "--alpha", str(ALPHA), "--blur",
+            str(SIGMA), "--device", "cuda"])
+        require(rc == 0, "phase 45: the CLI exited %r" % rc)
+        return read_nifti(out).data
+    return run
+
+
+def graph_of(fn):
+    """A ``torch.cuda.CUDAGraph`` of ``fn()``'s launches (captured after a
+    warm-up on a side stream) and the output its replays write."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def run_persistent_phase(device, card):
+    """Phase 45: the fused ADMM solve as one persistent cooperative launch
+    (``csrc/admm_persistent.cu``). Its build (ptxas registers and spills,
+    no constant-cache load in its SASS), its launch shape and barriers;
+    every case of :data:`PERSISTENT_BIT_CASES` bit for bit against
+    ``nsol_admm_solve``'s launch sequence, repeated; the 64³ objective
+    within 0.2 % of the anchor and equal in its printed digits to the
+    sequence's; the Lena ADMM study's rows equal on both routes; the
+    persistent solve against its plain version (phases 4-5's bands); the
+    rule's refusals; times in turns (sequence, persistent, persistent,
+    sequence) by CUDA events of the main paths, the study, the 64³ CLI and
+    the route's boundary shapes, a CUDA graph replay of the launch sequence
+    as a yardstick, the device busy share, the two reduce modes, the
+    barriers alone and a traced solve's phases. Returns the ``kernels``
+    record of ``admm_solve[persistent]``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    iso3 = F.B.Stencils.from_cov(np.eye(3), 3, None, "cpu")
+    normal, blur = iso3.normal.lengths, iso3.blur.lengths
+    regs = persistent_ptxas()
+    sass = persistent_sass()
+    require(sass and all(c == 0 for _, c in sass.values()),
+            "phase 45: constant-cache loads in the persistent kernel %s"
+            % sass)
+    shapes = {k: F.persistent_shape(d, *F.taps_lengths([np.ones(7)] * nd))
+              for k, d, nd in (("64^3", (64, 64, 64), 3),
+                               ("Lena", (1, 256, 256), 2))}
+    barriers = F.persistent_barriers(ITERATIONS, ITER_MAX)
+    barrier_ms = {k: F.persistent_barrier_ms(barriers, v[1], v[3], device)
+                  for k, v in shapes.items()}
+    # one of the sequence's blocks a block, as many as 4 an SM hold
+    barrier_ms["528 x 256"] = F.persistent_barrier_ms(barriers, 528, 256,
+                                                      device)
+    print("phase 45 build: ptxas %s; SASS (global loads, constant-cache "
+          "loads) %s; launch shape (blocks an SM, grid, the sequence's "
+          "blocks, threads a block) %s; %d grid barriers a 50 x 10 solve "
+          "(%d with records), "
+          "%d barriers alone at its grid %s ms [%s]"
+          % (regs, sass, shapes, barriers,
+             F.persistent_barriers(ITERATIONS, ITER_MAX, record=True),
+             barriers, {k: "%.3f" % v for k, v in barrier_ms.items()}, card))
+
+    problems = persistent_problems(device)
+    maxes, objs = persistent_bits(F, device, problems)
+    dev = abs(objs["persistent"] - OBJECTIVE_ANCHOR) / OBJECTIVE_ANCHOR
+    require(dev <= ANCHOR_BAND and "%.6f" % objs["persistent"]
+            == "%.6f" % objs["sequence"], "phase 45: 64^3 objective %.6f "
+            "(sequence %.6f, anchor %.2f)" % (objs["persistent"],
+                                              objs["sequence"],
+                                              OBJECTIVE_ANCHOR))
+    refused = persistent_refusals(F, device)
+    # the rule in C (nsol_admm_persistent_route) against its Python mirror
+    lib = F.build.load()
+    rule_cases = 0
+    for shape in PERSISTENT_ROUTE_SHAPES + ((64, 128, 128), (64, 128, 129)):
+        dims = (1,) * (3 - len(shape)) + tuple(shape)
+        for taps in (7, 61):
+            lens = F.taps_lengths([np.ones(taps)] * len(shape))
+            for storage in ("exact", "qf32", "dirs", "state"):
+                for sweep in (False, True):
+                    c = lib.nsol_admm_persistent_route(
+                        F.B.storage_ids(storage)[1], int(sweep), *lens[0],
+                        *lens[1], *dims)
+                    py = F.persistent_route(dims, *lens, storage, sweep)
+                    require(bool(c) == py, "phase 45: the rule of %s taps "
+                            "%d %s sweep %s: C %d, Python %s"
+                            % (shape, taps, storage, sweep, c, py))
+                    rule_cases += 1
+    print("phase 45 bits: %d cases x %d solves torch.equal to the launch "
+          "sequence (x and records), one launch a solve, no plain call: %s; "
+          "64^3 objective %.6f (sequence %.6f; anchor %.2f, dev %.4f%%); "
+          "the rule's refusals (launches) %s, a forced persistent 'state' "
+          "or sweep solve raises; the rule in C equal to its Python mirror "
+          "in %d cases [%s]"
+          % (len(maxes), PERSISTENT_REPEATS, sorted(maxes),
+             objs["persistent"], objs["sequence"], OBJECTIVE_ANCHOR,
+             100 * dev, refused, rule_cases, card))
+    lap("phase 45 bits")
+
+    # against the plain version, at phases 4-5's bands
+    plain_gap = {}
+    for key in ("Lena exact", "Lena qf32"):
+        b, objective = problems["lena"]
+        kw = dict(precision="high3", compact_dirs=True) \
+            if key.endswith("qf32") else {}
+        solve = F.make_fused_admm_solver(tuple(b.shape), np.eye(2),
+                                         iterations=ITERATIONS,
+                                         iter_max=ITER_MAX, **kw)
+        xk, xp = solve(b, b, ALPHA, RHO), solve.plain(b, b, ALPHA, RHO)
+        ok, op = objective(xk), objective(xp)
+        plain_gap[key] = (abs(ok - op) / abs(op),
+                          float((xk - xp).abs().max() / xk.abs().max()))
+        require(plain_gap[key][0] <= SOLVE_OBJ_TOL
+                and plain_gap[key][1] <= SOLVE_VOX_TOL,
+                "phase 45: %s vs plain objective rel %.3g voxel %.3g"
+                % (key, *plain_gap[key]))
+
+    # the Lena ADMM study on both routes: the same rows
+    study = persistent_study(device, F)
+    with sequence_route(F):
+        F.reset_counts()
+        want = study()
+        seq_counts = used_counts(F)[0]
+    F.reset_counts()
+    got = study()
+    pers_counts = used_counts(F)[0]
+    bad = [k for k in want if not np_bits(got[k], want[k])]
+    require(not bad and pers_counts == {"admm_persistent": 16}
+            and "admm_persistent" not in seq_counts,
+            "phase 45: the Lena ADMM study differs in %s; launches %s / %s"
+            % (bad, seq_counts, pers_counts))
+    print("phase 45 the Lena ADMM study (16 configurations, records) on "
+          "both routes: x and rows bit for bit; launches sequence %s, "
+          "persistent %s; persistent vs plain (objective rel, voxel) %s"
+          % (seq_counts, pers_counts,
+             {k: "%.2e/%.2e" % v for k, v in plain_gap.items()}))
+
+    # times in turns, by CUDA events
+    rows = {}
+    for key in ("64^3 exact", "64^3 qf32", "Lena exact", "Lena qf32",
+                "Lena exact records"):
+        src, storage, record, _ = PERSISTENT_BIT_CASES[key]
+        b = problems[src][0]
+        kw = dict(precision="high3", compact_dirs=True) \
+            if storage == "qf32" else {}
+        solve = F.make_fused_admm_solver(tuple(b.shape), np.eye(b.dim()),
+                                         iterations=ITERATIONS,
+                                         iter_max=ITER_MAX, record=record,
+                                         **kw)
+        rows[key] = turns_ms(partial(solve.sequence, b, b, ALPHA, RHO),
+                             partial(solve, b, b, ALPHA, RHO), 5)
+    study_ms = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = persistent_cli(device, tmp)
+        cli_ms, x_cli = [], {}
+        for turn in ("sequence", "persistent", "persistent", "sequence"):
+            route = sequence_route(F) if turn == "sequence" \
+                else contextlib.nullcontext()
+            with route:
+                study_ms.append(timed_once(study)[1])
+                x_cli[turn], ms = timed_once(cli)
+                cli_ms.append(ms)
+        require(np_bits(x_cli["sequence"], x_cli["persistent"]),
+                "phase 45: the 64^3 CLI's result differs on the two routes")
+    for key, t in (("Lena ADMM study", study_ms), ("64^3 CLI", cli_ms)):
+        rows[key] = t
+    print("phase 45 ms by CUDA events, turns sequence / persistent / "
+          "persistent / sequence (a solve: median of 5; the study and the "
+          "CLI: one run each): %s [%s]" % ("; ".join(
+              "%s %s" % (k, turns_line(v)) for k, v in rows.items()), card))
+
+    # the boundary of the rule, 10 × 10, the persistent solve forced
+    bounds = {}
+    for shape in PERSISTENT_ROUTE_SHAPES:
+        b = torch.as_tensor(np.random.RandomState(47).rand(*shape).astype(
+            np.float32), device=device)
+        solve = F.make_fused_admm_solver(shape, np.eye(len(shape)),
+                                         iterations=10, iter_max=10)
+        t = turns_ms(partial(solve.sequence, b, b, ALPHA, RHO),
+                     partial(solve.persistent, b, b, ALPHA, RHO), 3)
+        bounds["x".join(map(str, shape))] = (solve.route, t)
+        del b, solve
+        torch.cuda.empty_cache()
+    print("phase 45 the route's boundary, 10 x 10, ms by CUDA events (turns "
+          "sequence / persistent / persistent / sequence; the persistent "
+          "solve forced where the rule refuses it): %s [%s]" % ("; ".join(
+              "%s (%s) %s" % (k, r, turns_line(t))
+              for k, (r, t) in bounds.items()), card))
+    lap("phase 45 times")
+
+    # yardsticks: a CUDA graph replay of the launch sequence; the device
+    # busy share; the two reduce modes; a traced solve's phases
+    yard = {}
+    for key in ("64^3 exact", "Lena exact"):
+        src = PERSISTENT_BIT_CASES[key][0]
+        b = problems[src][0]
+        solve = F.make_fused_admm_solver(tuple(b.shape), np.eye(b.dim()),
+                                         iterations=ITERATIONS,
+                                         iter_max=ITER_MAX)
+        graph, x_graph = graph_of(partial(solve.sequence, b, b, ALPHA, RHO))
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(x_graph, solve(b, b, ALPHA, RHO)),
+                "phase 45: %s graph replay differs from the persistent "
+                "solve" % key)
+        pers = partial(solve, b, b, ALPHA, RHO)
+        graph_t = [cuda_median_ms(f, 5) for f in (graph.replay, pers, pers,
+                                                  graph.replay)]
+        busy = {}
+        for route, fn in (("sequence", partial(solve.sequence, b, b, ALPHA,
+                                               RHO)), ("persistent", pers)):
+            wall = cuda_median_ms(fn, 3)
+            busy[route] = (device_busy_ms(fn)[0], wall)
+        prev = F.persistent_reduce("block0")
+        try:
+            block0 = turns_ms(pers, pers, 5)
+        finally:
+            F.persistent_reduce(prev)
+        teams = {}
+        for k in (1, 2, 4):  # the sequence's blocks a block, the rule's 0
+            prev = F.persistent_teams(k)
+            try:
+                require(torch.equal(pers(), x_graph), "phase 45: %s with "
+                        "%d teams differs" % (key, k))
+                teams[k] = cuda_median_ms(pers, 5)
+            finally:
+                F.persistent_teams(prev)
+        phases = F.persistent_phases(pers, device)
+        del graph
+        yard[key] = (graph_t, busy, block0, phases)
+        print("phase 45 %s: CUDA graph replay of the launch sequence vs the "
+              "persistent solve, ms (turns graph / persistent / persistent / "
+              "graph) %s; device busy (torch.profiler device ms / wall ms) "
+              "%s; reduce in block 0 + a barrier %.3f ms vs in every block "
+              "%.3f (median of two turns each); the sequence's blocks a "
+              "block (teams) 1 / 2 / 4: %s ms (the rule's %d); a traced "
+              "solve's phases (count x mean us): %s [%s]"
+              % (key, turns_line(graph_t), {
+                  k: "%s/%.3f" % (ms_text(d), w) for k, (d, w)
+                  in busy.items()}, float(np.median(block0)),
+                 float(np.median(rows[key][1:3])),
+                 " / ".join("%.3f" % teams[k] for k in (1, 2, 4)),
+                 shapes["64^3" if key.startswith("64") else "Lena"][3]
+                 // 256, "; ".join(
+                     "%s %d x %.2f" % (k, n, us / n)
+                     for k, (n, us) in phases.items()), card))
+
+    # the kernels line: the 64³ main path's launch, its device time
+    b, objective = problems["phantom"]
+    solve = F.make_fused_admm_solver((64,) * 3, np.eye(3),
+                                     iterations=ITERATIONS, iter_max=ITER_MAX)
+    solve(b, b, ALPHA, RHO)
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x = solve(b, b, ALPHA, RHO)
+    torch.cuda.synchronize()
+    launches = F.launch_counts(F.PERSISTENT_UNITS)["admm_persistent"]
+    F.reset_counts()
+    solve.sequence(b, b, ALPHA, RHO)
+    torch.cuda.synchronize()
+    counts = F.launch_counts(F.ADMM_UNITS + F.RECORD_UNITS)
+    (b_ms, b_by), units_ms = persistent_bound(counts, 64 ** 3, normal, blur)
+    x_p, plain_ms = timed_once(partial(solve.plain, b, b, ALPHA, RHO))
+    err = float((x - x_p).abs().max())
+    dev_ms = device_ms_of(partial(solve, b, b, ALPHA, RHO), 3,
+                          keys=(PERSISTENT_KERNEL,))
+    entry = {"name": "admm_solve[persistent]", "route": "cuda",
+             "source": "nsol_tpu_torch/csrc/admm_persistent.cu",
+             "replaces": "nsol_tpu/ops/pallas/fused.py:382",
+             "launches": int(launches), "max_abs_err": err,
+             "ms": float(np.median(rows["64^3 exact"][1:3])),
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "device_ms": dev_ms,
+             "sequence_ms": float(np.median(rows["64^3 exact"][::3])),
+             "graph_replay_ms": float(np.median(
+                 yard["64^3 exact"][0][::3]))}
+    require(launches == 1, "phase 45: the 64^3 main path made %d persistent "
+            "launches" % launches)
+    print("phase 45 admm_solve[persistent] 64^3: launches %d, max|d| vs "
+          "plain %.3e, device ms %s, bound %.4f ms (%s: b, x0 in and x out, "
+          "and the sequence's %s operations), its units' bounds summed %.4f "
+          "ms (through HBM; the state sits in L2) [%s]"
+          % (launches, err, ms_text(dev_ms), b_ms, b_by, counts, units_ms,
+             card))
+    lap("phase 45")
+    return [entry]
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
-          "volume", "volume_solves", "tail", "sweep", "engines", "batch")
+          "volume", "volume_solves", "tail", "sweep", "engines", "batch",
+          "persistent")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -8308,6 +8991,14 @@ def main(argv=None):
     iso3 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
     iso2 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, "cpu")
     kernels = []
+    # phases 44-45 first: they read torch.profiler's record of the
+    # persistent solve's one cooperative launch, which the profiler lost
+    # once the process had run phases 3-43 (three whole runs on the H100;
+    # run alone or first, every trace kept it; PERF.md)
+    if "batch" in groups:
+        run_batch_phase(device, card)
+    if "persistent" in groups:
+        kernels += run_persistent_phase(device, card)
     if "admm" in groups:
         admm = run_admm_phases(device, card)
         lap("phases 3-6")
@@ -8384,8 +9075,6 @@ def main(argv=None):
         lap("phase 40")
     if "engines" in groups:
         run_engine_phases(device, card)
-    if "batch" in groups:
-        run_batch_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

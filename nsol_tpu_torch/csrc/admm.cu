@@ -85,7 +85,8 @@
 // What bounds them on the H100: memory traffic, at a few flops per byte.
 // At 64^3 (1 MiB a volume) the whole state sits in the 50 MB L2 and a
 // solve is ~3300 short launches, so launches and their host enqueue bound
-// it; at 256^3 (64 MiB a volume) the elementwise passes run near HBM
+// it (where admm_persistent.cu's rule takes the shape, the fused route
+// runs that sequence as one cooperative launch instead, the same bits); at 256^3 (64 MiB a volume) the elementwise passes run near HBM
 // bandwidth and the per-axis stencil passes, which read every tap through
 // L2, at a fraction of it (which is why normal_apply and cg_step march
 // there; the records' blur chain still runs the passes). The design keeps
@@ -109,8 +110,7 @@
 
 #include <cuda_runtime.h>
 
-#include "losses.cuh"
-#include "stencil.cuh"
+#include "admm_units.cuh"
 
 namespace {
 
@@ -126,36 +126,6 @@ enum Unit {
   kCgStepMarch = 7,       // cg_step on step_march.cu's march
   kNormalApplyMarch = 8,  // normal_apply on normal_march.cu's march
   kCgSweepMarch = 9       // cg_sweep on sweep_march.cu's march
-};
-// Epilogues of the z pass.
-enum Epilogue { kPlain = 0, kDot = 1, kResidual = 2 };
-
-// z-pass epilogue of the normal operator: q = conv_z + rho * B^T B v (v read
-// through V, which may round it), then q stored as O, the CG residual
-// rhs - q (q rounded to O first, as the reference's apply stores it) with
-// its square summed and stored as O, or q stored as O with v.q summed (q
-// before its rounding: the reference's step takes pq from the float q).
-template <int kReg, class V = Load, class O = float>
-struct NormalEpi {
-  V v;
-  const float* rhs;
-  O* out;
-  float rho;
-  Spacing sp;
-  int mode;
-  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
-    const float q = fmaf(rho, reg_normal<kReg>(v, i, c, sp, d), conv);
-    if (mode == kResidual) {
-      const float res = rhs[i] - round_as<O>(q);
-      out[i] = store_as<O>(res);
-      return (double)res * res;
-    }
-    // v is read before the store: the compiler cannot tell that out does
-    // not alias it, and a load after the store waits for it.
-    const double dot = mode == kDot ? (double)v(i) * q : 0.0;
-    out[i] = store_as<O>(q);
-    return dot;
-  }
 };
 
 // The sweep's x-pass source (blocked.py:1206-1208): from the old r, q, p
@@ -186,36 +156,9 @@ struct SweepDir {
   __device__ float operator()(long long k) const { return dir(k); }
 };
 
-// admm_record's z epilogue: r = A x - b, rho_C(r^2) summed.
-struct DataEpi {
-  const float* b;
-  float fs2;
-  int loss;
-  __device__ double operator()(long long i, float conv, Coord, Dims) const {
-    const float r = __fsub_rn(conv, __ldg(b + i));
-    return (double)loss_value(__fmul_rn(r, r), fs2, loss);
-  }
-};
-
-// TV of x, sum sqrt(sum_ax (D_ax x / h_ax)^2), zero-boundary forward
-// differences, one partial per block (fused.py:627-631).
 __global__ void record_tv_kernel(const float* __restrict__ x, double* __restrict__ partials,
                                  Spacing sp, Dims d) {
-  const long long n = d.n(), plane = d.plane();
-  double acc = 0.0;
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    const int iy = (int)((i / d.X) % d.Y);
-    const int iz = (int)(i / plane);
-    const float c = x[i];
-    const float gx = ((ix + 1 < d.X ? x[i + 1] : 0.f) - c) * sp.ihx;
-    const float gy = ((iy + 1 < d.Y ? x[i + d.X] : 0.f) - c) * sp.ihy;
-    const float gz = ((iz + 1 < d.Z ? x[i + plane] : 0.f) - c) * sp.ihz;
-    acc += (double)__fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                                        __fmul_rn(gz, gz)));
-  }
-  const double s = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  record_tv_body(x, partials, sp, d, DivIndex{d}, blockIdx.x, gridDim.x);
 }
 
 // Second stage of admm_record: reg[t] = sum of the TV partials,

@@ -25,6 +25,15 @@ inline int device_sms() {
   return cached[dev] > 0 ? cached[dev] : 1;
 }
 
+// A float load through the read-only (non-coherent) path (kNc), as the
+// standalone kernels read their inputs, which nothing writes while they
+// run; or a plain, coherent load, as admm_persistent.cu's one-launch solve
+// reads a volume that other blocks wrote earlier in the same launch.
+template <bool kNc>
+__device__ __forceinline__ float load_f(const float* p) {
+  return kNc ? __ldg(p) : *p;
+}
+
 // max(u, 0) as jnp.maximum(u, 0.0) takes it: a NaN stays NaN (fmaxf would
 // return 0).
 __device__ __forceinline__ float clip0(float u) { return u < 0.f ? 0.f : u; }

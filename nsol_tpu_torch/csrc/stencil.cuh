@@ -50,6 +50,11 @@ __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); 
 // A read-only load, as float.
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg(const bf16* p) { return __bfloat162float(__ldg(p)); }
+// common.cuh's load_f of a bfloat16 value, as float.
+template <bool kNc>
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return __bfloat162float(kNc ? __ldg(p) : *p);
+}
 
 // v stored as T, and v rounded to T's precision (read back as float).
 template <class T>
@@ -182,7 +187,19 @@ struct Coord {  // a voxel's array coordinates
   int x, y, z;
 };
 
-inline Taps make_taps(const float* buf, int kz, int ky, int kx) {
+// How a pass body splits a voxel's linear index into its coordinates:
+// here by 64-bit division, as the standalone kernels do (admm_persistent.cu
+// has a division-free policy of the same interface).
+struct DivIndex {
+  Dims d;
+  __device__ int x(long long i) const { return (int)(i % d.X); }
+  __device__ int y(long long i) const { return (int)((i / d.X) % d.Y); }
+  __device__ Coord at(long long i) const {
+    return Coord{(int)(i % d.X), (int)((i / d.X) % d.Y), (int)(i / d.plane())};
+  }
+};
+
+__host__ __device__ inline Taps make_taps(const float* buf, int kz, int ky, int kx) {
   return Taps{buf, buf + kz, buf + kz + ky, kz, ky, kx};
 }
 
@@ -205,17 +222,48 @@ inline int grid_for(long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;     \
        i < (n); i += (long long)gridDim.x * blockDim.x)
 
+// The voxels of block vb of a grid of G blocks of kThreads threads, as
+// GRID_STRIDE walks them in that launch, thread t's: the pass bodies below
+// take the block as an argument, so that a kernel launched with
+// grid_for(n) blocks runs one (its own) and admm_persistent.cu's
+// persistent blocks run each of the chain's blocks in turn, with the same
+// threads on the same voxels.
+#define BLOCK_STRIDE(i, n, vb, G, t)                                        \
+  for (long long i = (long long)(vb) * kThreads + (t); i < (n);             \
+       i += (long long)(G) * kThreads)
+
+// Who runs a pass body's block of kThreads threads: here a whole CUDA
+// block of kThreads (the standalone kernels), its thread t and block_sum's
+// sum over it (valid in t = 0; a __syncthreads() between two calls).
+// admm_persistent.cu's GroupTeam runs several in one CUDA block.
+struct BlockTeam {
+  __device__ static int tid() { return threadIdx.x; }
+  __device__ static double sum(double v) { return block_sum(v); }
+};
+
 // scipy.ndimage wrap convolution along one axis:
 // y[i] = sum_j k[j] u[(i + c - j) mod n], c = K / 2. The index walks down
 // with wrap, so a stencil longer than the axis wraps as often as it must.
-template <typename Fn>
+// kNc: the taps read through the read-only path (common.cuh's load_f).
+// kK > 0: K = kK known at compile time, the tap loop unrolled (the same
+// sums in the same order, every load issued at once).
+template <bool kNc = true, int kK = 0, typename Fn>
 __device__ __forceinline__ float wrap_conv(const Fn& load, long long base, int coord, int n,
-                                           long long stride, const float* __restrict__ taps,
-                                           int K) {
+                                           long long stride, const float* taps, int K) {
+  if (kK > 0) {
+    int m = (coord + kK / 2) % n;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kK; ++j) {
+      acc = fmaf(load_f<kNc>(taps + j), load(base + (long long)m * stride), acc);
+      m = (m == 0) ? n - 1 : m - 1;
+    }
+    return acc;
+  }
   int m = (coord + K / 2) % n;
   float acc = 0.f;
   for (int j = 0; j < K; ++j) {
-    acc = fmaf(__ldg(taps + j), load(base + (long long)m * stride), acc);
+    acc = fmaf(load_f<kNc>(taps + j), load(base + (long long)m * stride), acc);
     m = (m == 0) ? n - 1 : m - 1;
   }
   return acc;
@@ -274,12 +322,13 @@ __device__ __forceinline__ float reg_normal(const Fn& u, long long i, Coord c, S
 
 // A volume of T read as float, rounded to As's precision (As = bf16 reads
 // a float volume as the reference's astype(bfloat16) does).
-template <class T, class As = T>
+// kNc: read through the read-only path (common.cuh's load_f).
+template <class T, class As = T, bool kNc = true>
 struct LoadT {
   using Dir = T;
   const T* p;
   __device__ void prepare() {}
-  __device__ float operator()(long long k) const { return round_as<As>(ldg(p + k)); }
+  __device__ float operator()(long long k) const { return round_as<As>(load_f<kNc>(p + k)); }
   __device__ float dir(long long k) const { return (*this)(k); }
 };
 using Load = LoadT<float>;
@@ -288,8 +337,8 @@ using Load = LoadT<float>;
 // read once from the device scalars, rounded to P (the direction's
 // storage). Masked, the x pass convolves free * p' (the active-set CG of
 // IRLS); the mask is a template parameter so that the unmasked tap loop
-// tests nothing per tap.
-template <bool kMasked, class R = float, class P = float>
+// tests nothing per tap. kNc: read through the read-only path.
+template <bool kMasked, class R = float, class P = float, bool kNc = true>
 struct DirectionT {
   using Dir = P;
   const R* r;
@@ -300,12 +349,12 @@ struct DirectionT {
   float beta;
   __device__ void prepare() { beta = first ? 0.f : (float)scal[kBeta]; }
   __device__ float dir(long long k) const {
-    const float rk = ldg(r + k);  // one address computation for both cases
-    return round_as<P>(first ? rk : axpy_as<P>(beta, ldg(p + k), rk));
+    const float rk = load_f<kNc>(r + k);  // one address computation for both cases
+    return round_as<P>(first ? rk : axpy_as<P>(beta, load_f<kNc>(p + k), rk));
   }
   __device__ float operator()(long long k) const {
     const float v = dir(k);
-    return kMasked ? __ldg(free + k) * v : v;
+    return kMasked ? load_f<kNc>(free + k) * v : v;
   }
 };
 using Direction = DirectionT<false>;
@@ -314,56 +363,78 @@ using MaskedDirection = DirectionT<true>;
 // -------------------------------------------------------------- passes --
 
 // x pass: out = wrap conv of src along x; dir_out = src.dir when given.
-template <class Src>
-__global__ void conv_x_pass(Src src, float* __restrict__ out,
-                            typename Src::Dir* __restrict__ dir_out,
-                            const float* __restrict__ taps, int K, Dims d) {
-  src.prepare();
+// kK: the taps' length at compile time, or 0 (wrap_conv's); idx: how the
+// voxels' coordinates are formed (DivIndex's interface); Team: who runs
+// the block (BlockTeam's interface).
+template <bool kNc, int kK = 0, class Team = BlockTeam, class Src, class Idx>
+__device__ __forceinline__ void conv_x_body(const Src& src, float* out,
+                                            typename Src::Dir* dir_out, const float* taps,
+                                            int K, Dims d, const Idx& idx, int vb, int G) {
   const long long n = d.n();
-  GRID_STRIDE(i, n) {
-    const int ix = (int)(i % d.X);
-    const float conv = wrap_conv(src, i - ix, ix, d.X, 1, taps, K);
+  BLOCK_STRIDE(i, n, vb, G, Team::tid()) {
+    const int ix = idx.x(i);
+    const float conv = wrap_conv<kNc, kK>(src, i - ix, ix, d.X, 1, taps, K);
     // loads before the store to out; src.dir is already rounded to Dir
     if (dir_out != nullptr) dir_out[i] = store_as<typename Src::Dir>(src.dir(i));
     out[i] = conv;
   }
 }
 
-__global__ void conv_y_kernel(const float* __restrict__ in, float* __restrict__ out,
-                              const float* __restrict__ taps, int K, Dims d) {
-  const Load src{in};
+template <class Src>
+__global__ void conv_x_pass(Src src, float* __restrict__ out,
+                            typename Src::Dir* __restrict__ dir_out,
+                            const float* __restrict__ taps, int K, Dims d) {
+  src.prepare();
+  conv_x_body<true>(src, out, dir_out, taps, K, d, DivIndex{d}, blockIdx.x, gridDim.x);
+}
+
+template <bool kNc, int kK = 0, class Team = BlockTeam, class Idx>
+__device__ __forceinline__ void conv_y_body(const float* in, float* out, const float* taps, int K,
+                                            Dims d, const Idx& idx, int vb, int G) {
+  const LoadT<float, float, kNc> src{in};
   const long long n = d.n();
-  GRID_STRIDE(i, n) {
-    const int iy = (int)((i / d.X) % d.Y);
-    out[i] = wrap_conv(src, i - (long long)iy * d.X, iy, d.Y, d.X, taps, K);
+  BLOCK_STRIDE(i, n, vb, G, Team::tid()) {
+    const int iy = idx.y(i);
+    out[i] = wrap_conv<kNc, kK>(src, i - (long long)iy * d.X, iy, d.Y, d.X, taps, K);
   }
 }
 
+__global__ void conv_y_kernel(const float* __restrict__ in, float* __restrict__ out,
+                              const float* __restrict__ taps, int K, Dims d) {
+  conv_y_body<true>(in, out, taps, K, d, DivIndex{d}, blockIdx.x, gridDim.x);
+}
+
 // z pass: the epilogue gets every value of the wrap conv of t along z; what
-// it returns is summed per block into partials[blockIdx.x] when partials
-// is given (uniform across the block). The coordinates are computed before
-// the taps are read, so their integer divisions overlap the loads; an
-// epilogue that reads none of them lets the compiler drop them. With
-// kSlab, t is a window of d.Z + 2 h planes around the d.Z output planes
-// (h >= K / 2), read with no wrap: out plane k takes t's planes
-// k + h + K/2 - j.
-template <class Epi, bool kSlab = false>
-__global__ void conv_z_pass(const float* __restrict__ t, Epi epi, double* __restrict__ partials,
-                            const float* __restrict__ taps, int K, Dims d, int h) {
-  const Load src{t};
+// it returns is summed per block into partials[vb] when partials is given
+// (uniform across the block). The coordinates are computed before the taps
+// are read, so their integer divisions overlap the loads; an epilogue that
+// reads none of them lets the compiler drop them. With kSlab, t is a
+// window of d.Z + 2 h planes around the d.Z output planes (h >= K / 2),
+// read with no wrap: out plane k takes t's planes k + h + K/2 - j.
+template <bool kNc, bool kSlab, int kK = 0, class Team = BlockTeam, class Epi, class Idx>
+__device__ __forceinline__ void conv_z_body(const float* t, const Epi& epi, double* partials,
+                                            const float* taps, int K, Dims d, int h,
+                                            const Idx& idx, int vb, int G) {
+  const LoadT<float, float, kNc> src{t};
   const long long n = d.n(), plane = d.plane();
   double acc = 0.0;
-  GRID_STRIDE(i, n) {
-    const Coord c{(int)(i % d.X), (int)((i / d.X) % d.Y), (int)(i / plane)};
+  BLOCK_STRIDE(i, n, vb, G, Team::tid()) {
+    const Coord c = idx.at(i);
     const float conv =
         kSlab ? slab_conv(src, i + (long long)(h + K / 2) * plane, plane, taps, K)
-              : wrap_conv(src, i - (long long)c.z * plane, c.z, d.Z, plane, taps, K);
+              : wrap_conv<kNc, kK>(src, i - (long long)c.z * plane, c.z, d.Z, plane, taps, K);
     acc += epi(i, conv, c, d);
   }
   if (partials != nullptr) {
-    const double s = block_sum(acc);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+    const double s = Team::sum(acc);
+    if (Team::tid() == 0) partials[vb] = s;
   }
+}
+
+template <class Epi, bool kSlab = false>
+__global__ void conv_z_pass(const float* __restrict__ t, Epi epi, double* __restrict__ partials,
+                            const float* __restrict__ taps, int K, Dims d, int h) {
+  conv_z_body<true, kSlab>(t, epi, partials, taps, K, d, h, DivIndex{d}, blockIdx.x, gridDim.x);
 }
 
 // The three passes of one blur chain: t1 = conv_x(src), t2 = conv_y(t1),
@@ -407,14 +478,9 @@ struct GlobalRows {
 
 // ------------------------------------------------------------------ CG --
 
-// Second stage: sum the partials in a fixed order and update the CG
-// scalars with the reference's guards (fused.py:365-374, cg.py:86-92).
-__global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
-                              double* __restrict__ scal, int mode) {
-  double acc = 0.0;
-  for (int k = threadIdx.x; k < nparts; k += blockDim.x) acc += partials[k];
-  const double s = block_sum(acc);
-  if (threadIdx.x != 0) return;
+// The CG scalars' update by a second stage's sum s (the reference's
+// guards, fused.py:365-374, cg.py:86-92): scal[kGamma..kBeta] by the mode.
+__device__ __forceinline__ void update_scalars(double* scal, double s, int mode) {
   if (mode == kReducePQ) {
     scal[kPQ] = s;
     scal[kA] = s > 0.0 ? scal[kGamma] / s : 0.0;
@@ -426,6 +492,16 @@ __global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
     scal[kGamma] = s;
     scal[kBeta] = 0.0;
   }
+}
+
+// Second stage: sum the partials in a fixed order and update the CG
+// scalars.
+__global__ void reduce_kernel(const double* __restrict__ partials, int nparts,
+                              double* __restrict__ scal, int mode) {
+  double acc = 0.0;
+  for (int k = threadIdx.x; k < nparts; k += blockDim.x) acc += partials[k];
+  const double s = block_sum(acc);
+  if (threadIdx.x == 0) update_scalars(scal, s, mode);
 }
 
 // The sweep's scalar recurrence (blocked.py:1505-1509): a = g / pq,
@@ -458,14 +534,12 @@ __global__ void sweep_reduce_kernel(const double* __restrict__ partials, int npa
 // x += a p; unless r is null, r' = r - a q (float, summed squared) and r
 // = r' stored unless store_r is 0 (the "apply" CG under bf16 state forms
 // its direction from the unrounded r' in cg_direction).
-template <class R, class P, class Q>
-__global__ void cg_update_kernel(float* __restrict__ x, R* __restrict__ r,
-                                 const P* __restrict__ p, const Q* __restrict__ q,
-                                 const double* __restrict__ scal, double* __restrict__ partials,
-                                 long long n, int store_r) {
-  const float a = (float)scal[kA];
+template <class Team = BlockTeam, class R, class P, class Q>
+__device__ __forceinline__ void cg_update_body(float a, float* x, R* r, const P* p, const Q* q,
+                                               double* partials, long long n, int store_r,
+                                               int vb, int G) {
   double acc = 0.0;
-  GRID_STRIDE(i, n) {
+  BLOCK_STRIDE(i, n, vb, G, Team::tid()) {
     x[i] = fmaf(a, to_float(p[i]), x[i]);
     if (r == nullptr) continue;
     const float ri = axpy_as<R>(-a, to_float(q[i]), to_float(r[i]));
@@ -473,8 +547,16 @@ __global__ void cg_update_kernel(float* __restrict__ x, R* __restrict__ r,
     acc += (double)ri * ri;
   }
   if (r == nullptr) return;
-  const double s = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+  const double s = Team::sum(acc);
+  if (Team::tid() == 0) partials[vb] = s;
+}
+
+template <class R, class P, class Q>
+__global__ void cg_update_kernel(float* __restrict__ x, R* __restrict__ r,
+                                 const P* __restrict__ p, const Q* __restrict__ q,
+                                 const double* __restrict__ scal, double* __restrict__ partials,
+                                 long long n, int store_r) {
+  cg_update_body((float)scal[kA], x, r, p, q, partials, n, store_r, blockIdx.x, gridDim.x);
 }
 
 // x += a p, r -= a q, then beta = |r|^2 / gamma (guarded), gamma = |r|^2;

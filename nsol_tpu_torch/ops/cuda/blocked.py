@@ -449,8 +449,10 @@ def _partials(device, sets=1):
 #: to (their Unit enums), and the slots of the marches' counts there:
 #: ``cg_step``'s and ``weighted_apply``'s (7), ``normal_apply``'s and
 #: ``blur_apply``'s (8), ``irls_head``'s and ``cg_sweep``'s (9),
-#: ``blur_apply_prepadded``'s window (10)
-COUNTS = 11
+#: ``blur_apply_prepadded``'s window (10), and the one launch of
+#: ``csrc/admm_persistent.cu``'s solve (:data:`PERSISTENT_SLOT`)
+COUNTS = 12
+PERSISTENT_SLOT = 11
 MARCH_SLOT = {"cg_step": 7, "weighted_apply": 7, "normal_apply": 8,
               "blur_apply": 8, "irls_head": 9, "cg_sweep": 9,
               "blur_apply_prepadded": 10}

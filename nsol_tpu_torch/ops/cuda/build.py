@@ -54,6 +54,14 @@ _SIGNATURES = {
     + [_F] * 3 + [_I] * 3 + [_P, _P],
     "nsol_admm_solve": [_P] * 16 + [_P, _I, _I, _I, _P, _I, _I, _I]
     + [_F] * 8 + [_I] * 4 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
+    "nsol_admm_solve_persistent": [_P] * 16 + [_P, _I, _I, _I, _P, _I, _I, _I]
+    + [_F] * 8 + [_I] * 3 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
+    "nsol_admm_persistent_route": [_I] * 11,
+    "nsol_admm_persistent_shape": [_I] * 10 + [_P],
+    "nsol_admm_persistent_reduce": [_I],
+    "nsol_admm_persistent_teams": [_I],
+    "nsol_admm_persistent_barriers": [_I, _I, _I, _P],
+    "nsol_admm_persistent_trace": [_P, _I],
     "nsol_pd_record_blocks": [_I] * 6,
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
@@ -171,7 +179,8 @@ def new_counts(n):
     """``n`` per-unit launch counts for a C function to add to, indexed by
     its source's unit enum (``admm.cu``: normal_apply, cg_step, cg_update,
     admm_tail, admm_record, cg_sweep, normal_apply_prepadded, cg_step on
-    its march, normal_apply on its march, cg_sweep on its march;
+    its march, normal_apply on its march, cg_sweep on its march, and in
+    slot 11 ``admm_persistent.cu``'s one-launch solve;
     ``pd.cu``: pd_dual, pd_primal,
     pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
     irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,

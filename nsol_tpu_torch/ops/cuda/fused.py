@@ -9,9 +9,14 @@ sequence of kernel launches that one C function in ``csrc/admm.cu``
 enqueues on the caller's stream (``nsol_admm_solve``): ``Aᵀb`` once, then
 per outer iteration the CG residual, ``iter_max`` × (:func:`cg_step`,
 :func:`cg_update`) and :func:`admm_tail`. Every CG scalar stays on the
-device: nothing syncs with the host inside a solve. A 2-D image runs as a
-``(1, Y, X)`` volume with z taps ``[1]`` and ``1/h_z = 1/h_z² = 0``: every
-z term is an exact zero.
+device: nothing syncs with the host inside a solve. Where
+:func:`persistent_route` takes the shape (storage exact or qf32, no sweep,
+at most 2^20 voxels where no unit of that sequence marches: the 64³ and
+Lena solves), the whole sequence runs instead as one persistent
+cooperative launch, ``csrc/admm_persistent.cu``: each unit a phase between
+grid barriers, the same bits (:func:`launch_counts`' ``admm_persistent``).
+A 2-D image runs as a ``(1, Y, X)`` volume with z taps ``[1]`` and
+``1/h_z = 1/h_z² = 0``: every z term is an exact zero.
 
 This module adds the fourth kernel unit, :func:`admm_tail` (fused.py:645,
 651-667): clip ``x ≥ 0``, ``t = ∇x/h + w``, grouped shrink at
@@ -55,6 +60,8 @@ starts at ``round(x0)`` and the output is the upcast of the stored x. The
 state's dtype is the storage flag of every unit and of its plain version.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -78,8 +85,11 @@ __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
            "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
            "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
-           "SHARDED_UNITS", "MARCH_UNITS",
-           "linear_admm_solver", "reset_counts",
+           "SHARDED_UNITS", "MARCH_UNITS", "PERSISTENT_UNITS",
+           "linear_admm_solver", "persistent_route", "persistent_barriers",
+           "persistent_reduce", "persistent_teams", "persistent_shape",
+           "taps_lengths",
+           "PERSISTENT_STORAGE", "PERSISTENT_MAX_VOXELS", "reset_counts",
            "launch_counts", "plain_counts"]
 
 
@@ -219,12 +229,170 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
     return x, reg, data
 
 
+#: the storage modes of :data:`~.blocked.STORAGE` the persistent solve
+#: runs (``csrc/admm_persistent.cu``), and the most voxels its route takes
+#: (``kPersistentMaxVoxels`` there)
+PERSISTENT_STORAGE = ("exact", "qf32")
+PERSISTENT_MAX_VOXELS = 1 << 20
+#: ``csrc/admm_persistent.cu``'s one-block reduces: in every block, or in
+#: block 0 and a grid barrier (``nsol_admm_persistent_reduce``)
+PERSISTENT_REDUCE = ("every", "block0")
+
+
+def persistent_route(dims, blur, normal, storage="exact", sweep=False,
+                     data_loss="linear"):
+    """Whether the linear ADMM solve of a ``(Z, Y, X)`` volume (a 2-D
+    image as ``(1, Y, X)``) runs on the card as one cooperative launch,
+    ``csrc/admm_persistent.cu``, rather than as ``nsol_admm_solve``'s
+    launch sequence: storage ``"exact"`` or ``"qf32"``, no sweep, the
+    linear loss, at most :data:`PERSISTENT_MAX_VOXELS` voxels, where no
+    unit of the sequence takes its march (:func:`~.tiled.vol_route` of
+    ``Aᵀb``'s ``normal_apply`` at the ``blur`` taps' lengths, the
+    residual's at the ``normal`` taps' and ``cg_step``'s): the kernel gives
+    the chain's bits, whose partial sums a march would not give. The
+    shape decides, never a failure. Mirrors ``csrc/admm_persistent.cu``'s
+    ``nsol_admm_persistent_route``."""
+    if data_loss != "linear" or sweep or storage not in PERSISTENT_STORAGE:
+        return False
+    if int(np.prod(dims)) > PERSISTENT_MAX_VOXELS:
+        return False
+    return all(Z.vol_route(unit, tuple(lengths), tuple(dims)) == "chain"
+               for unit, lengths in (("normal_apply", blur),
+                                     ("normal_apply", normal),
+                                     ("cg_step", normal)))
+
+
+def taps_lengths(factors):
+    """``(blur, normal)``: the lengths ``(kz, ky, kx)`` of a separable
+    blur's taps and of its self-correlated normal taps, as the kernels take
+    them (a 2-D image's with the z tap ``[1]``)."""
+    pad = (1,) * (3 - len(factors))
+    return (pad + tuple(len(f) for f in factors),
+            pad + tuple(2 * len(f) - 1 for f in factors))
+
+
+def persistent_barriers(iterations, iter_max, record=False, reduce="every"):
+    """Grid barriers one persistent solve takes: three a blur chain (``Aᵀb``,
+    each residual and ``cg_step``, each record row), one after each
+    ``cg_update`` and each tail, and with ``reduce="block0"`` one after each
+    CG reduce."""
+    per_cg = 4 + (2 if reduce == "block0" else 0)
+    outer = 3 + (1 if reduce == "block0" else 0) + 1 + (3 if record else 0)
+    return 3 + (3 if record else 0) + iterations * (outer + iter_max * per_cg)
+
+
+def admm_persistent(*args):
+    """The C entry of the one-launch solve (``nsol_admm_solve_persistent``),
+    whose launches :func:`launch_counts` reports as ``"admm_persistent"``."""
+    counts = build.new_counts(B.COUNTS)
+    err = build.load().nsol_admm_solve_persistent(*args, counts)
+    build.check(err, "admm_persistent")
+    admm_persistent.launches += counts[B.PERSISTENT_SLOT]
+
+
+admm_persistent.launches = 0
+
+
+def persistent_reduce(mode):
+    """Set how the persistent solve's one-block reduces run
+    (:data:`PERSISTENT_REDUCE`) for the next solves on the card; returns
+    the previous mode."""
+    return PERSISTENT_REDUCE[build.load().nsol_admm_persistent_reduce(
+        PERSISTENT_REDUCE.index(mode))]
+
+
+def persistent_teams(teams):
+    """Set how many of the launch sequence's blocks a block of the next
+    persistent solves on the card runs side by side (1, 2 or 4; 0: the
+    rule of ``csrc/admm_persistent.cu``'s ``shape_of``); returns the
+    previous setting."""
+    return build.load().nsol_admm_persistent_teams(int(teams))
+
+
+def persistent_shape(dims, blur, normal, storage="exact"):
+    """``(blocks an SM, grid, the launch sequence's blocks, threads a
+    block)`` of the persistent solve of ``dims`` at the taps' lengths
+    ``blur``, ``normal`` (:func:`taps_lengths`) on the current card."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.load().nsol_admm_persistent_shape(
+        B.storage_ids(storage)[1], *blur, *normal, *dims, out),
+        "admm_persistent")
+    return tuple(out)
+
+
+def persistent_barrier_ms(n, grid, threads, device):
+    """Milliseconds of one cooperative launch of ``grid`` blocks of
+    ``threads`` threads that takes ``n`` grid barriers and nothing else,
+    by CUDA events on ``device``: what the persistent solve's barriers alone
+    cost."""
+    lib = build.load()
+    stream = build.stream_ptr(device)
+    build.check(lib.nsol_admm_persistent_barriers(n, grid, threads, stream),
+                "admm_persistent")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    build.check(lib.nsol_admm_persistent_barriers(n, grid, threads, stream),
+                "admm_persistent")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+#: the phases a traced persistent solve stamps (``Phase`` of
+#: ``csrc/admm_persistent.cu``), each at its end, after its barrier; a
+#: reduce at block 0's own end
+PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
+                     "normal_apply x", "normal_apply y", "normal_apply z",
+                     "admm_record x", "admm_record y", "admm_record z",
+                     "reduce", "cg_update", "admm_tail", "reduce barrier")
+
+
+def persistent_phases(fn, device, capacity=1 << 14):
+    """Run ``fn()``, one persistent solve on ``device``, traced: ``{phase:
+    (count, µs)}``, each phase's time from the end of the one before it
+    (:data:`PERSISTENT_PHASES`), by the card's global timer as block 0
+    reads it, over the solve's first ``capacity`` phases (each solve
+    writes its stamps from the buffer's start)."""
+    lib = build.load()
+    stamps = torch.zeros(2 * capacity, dtype=torch.int64, device=device)
+    lib.nsol_admm_persistent_trace(build.tensor_ptr(stamps), capacity)
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+    finally:
+        lib.nsol_admm_persistent_trace(None, 0)
+    pairs = stamps.view(-1, 2).cpu().numpy()
+    pairs = pairs[pairs[:, 0] > 0]
+    out = {}
+    for (t0, _), (t1, k) in zip(pairs[:-1], pairs[1:]):
+        if k == 0:
+            continue
+        n, us = out.get(PERSISTENT_PHASES[k], (0, 0.0))
+        out[PERSISTENT_PHASES[k]] = (n + 1, us + (t1 - t0) * 1e-3)
+    return out
+
+
 def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
-                record_dls=None, storage="exact", sweep=False):
+                record_dls=None, storage="exact", sweep=False, route=None):
+    """The solve on the card by ``route``: ``None`` takes
+    :func:`persistent_route`'s, ``"persistent"`` the one launch (storage
+    and sweep permitting, whatever the shape) and ``"sequence"``
+    ``nsol_admm_solve``'s launch sequence (the bit reference)."""
     name = "make_fused_admm_solver"
     dims = B.volume_dims(name, b)
-    B.check_tensors(name, b.shape, b, x0)
     (R, P, Q), sid = B.storage_ids(storage)
+    ta, tn = st.blur.as_volume(), st.normal.as_volume()
+    if route is None:
+        route = "persistent" if persistent_route(
+            dims, ta.lengths, tn.lengths, storage, sweep) else "sequence"
+    if route not in ("persistent", "sequence"):
+        raise ValueError("route must be 'persistent' or 'sequence', got %r"
+                         % (route,))
+    persistent = route == "persistent"
+    if persistent and (sweep or storage not in PERSISTENT_STORAGE):
+        raise ValueError("%s: the persistent solve runs storage %s without "
+                         "the sweep" % (name, PERSISTENT_STORAGE))
+    B.check_tensors(name, b.shape, b, x0)
     lib = build.load()
     x = x0.clone()
     # Aᵀb rhs r0 r1 p0 p1 q q1 t1 t2; the sweep writes q' into the other
@@ -236,30 +404,33 @@ def _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
     v = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     w = torch.empty_like(v)
     # the marches' partials (normal_apply's, cg_step's), four sets of them
-    # for the sweep's dots
-    partials = torch.empty((4 if sweep else 1) * max(
-        lib.nsol_tiled_blocks(*dims), lib.nsol_max_blocks()),
-        dtype=torch.float64, device=b.device)
+    # for the sweep's dots; the persistent solve's two sets
+    nparts = 2 * lib.nsol_max_blocks() if persistent else \
+        (4 if sweep else 1) * max(lib.nsol_tiled_blocks(*dims),
+                                  lib.nsol_max_blocks())
+    partials = torch.empty(nparts, dtype=torch.float64, device=b.device)
     scal = B.new_scalars(b.device)
     tau = float(np.float32(alpha) / np.float32(rho))
     reg = data = parts = None
     if record_dls is not None:
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
-    ta, tn = st.blur.as_volume(), st.normal.as_volume()
+    head = [build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
+            build.tensor_ptr(w), *[build.tensor_ptr(t) for t in vols],
+            build.tensor_ptr(partials), build.tensor_ptr(scal),
+            build.tensor_ptr(ta.buf), *ta.lengths,
+            build.tensor_ptr(tn.buf), *tn.lengths,
+            *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), tau, float(rho),
+            int(iterations), int(iter_max), sid]
+    tail = [build.tensor_ptr(reg), build.tensor_ptr(data),
+            build.tensor_ptr(parts), Rec.LOSS_IDS.index("linear"),
+            float(1.0 if record_dls is None else record_dls), *dims,
+            build.stream_ptr(b.device)]
+    if persistent:
+        admm_persistent(*head, *tail)
+        return x, reg, data
     counts = build.new_counts(B.COUNTS)
-    err = lib.nsol_admm_solve(
-        build.tensor_ptr(b), build.tensor_ptr(x), build.tensor_ptr(v),
-        build.tensor_ptr(w), *[build.tensor_ptr(t) for t in vols],
-        build.tensor_ptr(partials), build.tensor_ptr(scal),
-        build.tensor_ptr(ta.buf), *ta.lengths,
-        build.tensor_ptr(tn.buf), *tn.lengths,
-        *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), tau, float(rho),
-        int(iterations), int(iter_max), sid, int(bool(sweep)),
-        build.tensor_ptr(reg), build.tensor_ptr(data),
-        build.tensor_ptr(parts), Rec.LOSS_IDS.index("linear"),
-        float(1.0 if record_dls is None else record_dls), *dims,
-        build.stream_ptr(b.device), counts)
+    err = lib.nsol_admm_solve(*head, int(bool(sweep)), *tail, counts)
     build.check(err, name)
     for f, n in zip(_ADMM_UNITS + (Rec.admm_record, B.cg_sweep), counts):
         f.launches += n
@@ -276,7 +447,9 @@ def linear_admm_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     stored as :data:`~.blocked.STORAGE` ``[storage]`` says, each CG
     iteration a ``cg_step`` + ``cg_update`` or (``sweep``, storage
     ``"exact"``/``"state"``) a ``cg_sweep``. ``solve.plain`` runs the
-    plain versions."""
+    plain versions; on the card ``solve.sequence`` the launch sequence and
+    ``solve.persistent`` the one persistent launch whatever
+    :func:`persistent_route` says (``solve.route``)."""
     B.storage_ids(storage)
     if sweep and storage not in ("exact", "state"):
         raise ValueError("the sweep stores r, p, q alike: storage 'exact' or "
@@ -296,17 +469,18 @@ def linear_admm_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     def stencils(t):
         return B.stencils_for(cache, shape, factors, spacing, t)
 
+    def cuda(route, b, x0, alpha, rho, record_dls):
+        return result(_solve_cuda(stencils(b), b, x0, alpha, rho, iterations,
+                                  iter_max, record_dls if record else None,
+                                  storage, sweep, route), b.dtype)
+
     def solve(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
-        st = stencils(b)
-        if b.device.type == "cpu":
-            rec = (Rec.admm_record, "linear", record_dls) if record else None
-            out = _solve_steps(_ADMM_UNITS, st, b, x0, alpha, rho,
-                               iterations, iter_max, rec, storage,
-                               B.cg_sweep if sweep else None)
-        else:
-            out = _solve_cuda(st, b, x0, alpha, rho, iterations, iter_max,
-                              record_dls if record else None, storage, sweep)
-        return result(out, b.dtype)
+        if b.device.type != "cpu":
+            return cuda(None, b, x0, alpha, rho, record_dls)
+        rec = (Rec.admm_record, "linear", record_dls) if record else None
+        return result(_solve_steps(_ADMM_UNITS, stencils(b), b, x0, alpha,
+                                   rho, iterations, iter_max, rec, storage,
+                                   B.cg_sweep if sweep else None), b.dtype)
 
     def plain(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
         rec = (Rec.admm_record_plain, "linear", record_dls) if record \
@@ -316,7 +490,19 @@ def linear_admm_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
                                    B.cg_sweep_plain if sweep else None),
                       b.dtype)
 
+    def sequence(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
+        return cuda("sequence", b, x0, alpha, rho, record_dls)
+
+    def persistent(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
+        return cuda("persistent", b, x0, alpha, rho, record_dls)
+
     solve.plain = plain
+    solve.sequence = sequence
+    solve.persistent = persistent
+    # the route a solve on the card takes
+    solve.route = "persistent" if persistent_route(
+        (1,) * (3 - len(shape)) + shape, *taps_lengths(factors), storage,
+        sweep) else "sequence"
     return solve
 
 
@@ -361,8 +547,9 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     versions.
 
     Device and dtype follow ``b``: on CUDA the whole solve runs as the
-    kernel sequence of ``csrc/admm.cu`` (linear) or ``csrc/robust.cu``
-    (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
+    kernel sequence of ``csrc/admm.cu`` (linear; one persistent launch of
+    ``csrc/admm_persistent.cu`` where :func:`persistent_route` takes the
+    shape) or ``csrc/robust.cu`` (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
     (2-D or 3-D, any float dtype). ``solve.plain`` runs the plain versions
     on any device — the reference the kernels are held against.
     ``alpha``/``rho`` are runtime scalars.
@@ -843,6 +1030,10 @@ _MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
           "blur_apply_prepadded_march": R.blur_apply_prepadded,
           "cg_sweep_march": B.cg_sweep}
 MARCH_UNITS = tuple(_MARCH)
+#: the one-launch solve of the fused route (``csrc/admm_persistent.cu``),
+#: counted apart from the units of the launch sequence it replaces
+_SOLVES = {"admm_persistent": admm_persistent}
+PERSISTENT_UNITS = tuple(_SOLVES)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),
             (R.blur_apply_prepadded, R.blur_apply_prepadded_plain),
@@ -863,14 +1054,18 @@ def reset_counts():
         p.calls = 0
     for f in _MARCH.values():
         f.march_launches = 0
+    for f in _SOLVES.values():
+        f.launches = 0
 
 
 def launch_counts(names=None):
     """``{unit: launches}`` of the named units (all by default, the
-    :data:`MARCH_UNITS` among them)."""
+    :data:`MARCH_UNITS` and :data:`PERSISTENT_UNITS` among them)."""
     return {k: _MARCH[k].march_launches if k in _MARCH
+            else _SOLVES[k].launches if k in _SOLVES
             else _UNITS[k][0].launches
-            for k in (names or tuple(_UNITS) + MARCH_UNITS)}
+            for k in (names or tuple(_UNITS) + MARCH_UNITS
+                      + PERSISTENT_UNITS)}
 
 
 def plain_counts(names=None):
