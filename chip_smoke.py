@@ -213,8 +213,7 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   solves, the Lena ADMM study, the 64³ ``nsol_torch_run_deconvolution`` and
   the route's boundary shapes (64³-100³, 256²-2048², stacks of 2-32
   planes); a CUDA graph replay of the launch sequence as a yardstick, the
-  device busy share, the reduce in block 0 against every block, the
-  barriers alone, and a traced solve's phases.
+  device busy share, the barriers alone, and a traced solve's phases.
 
 Since the persistent solve, the 64³ and Lena fused solves (phases 4, 18,
 19, 24, 39, 44) launch ``admm_persistent`` once a solve and none of the
@@ -231,8 +230,8 @@ to the exact generic solve run under ``NSOL_TPU_EXACT=1``, as before;
 phase 31 runs them at their default.
 
 Phases 44 and 45 run first, after the build: they read torch.profiler's
-record of the persistent solve's one cooperative launch, which the
-profiler lost once the process had run the other phases.
+kernel records, which CUPTI, kept alive between traces, drops more and
+more of from about 20 s after the process's first trace (PERF.md).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -8179,11 +8178,9 @@ def trace_cli_runs(device, card):
     and ``nsol_torch_run_deconvolution`` (the 64³ phantom, ADMM TVL2) on
     the card after a warm-up, without ``--trace`` and twice with it: the
     same result bits and launch counts, a trace that parses and names the
-    kernel of every unit of :data:`TRACE_KERNELS` the run launched (the
-    profiler may lose records, so no count is required; where the second
-    trace lost the one record of a unit launched once a run, up to two
-    more traced runs, each held to the same bits and launches), its size,
-    and the wall ms of each run."""
+    kernel of every unit of :data:`TRACE_KERNELS` the run launched, in
+    each traced run (no count is required), its size, and the wall ms of
+    each run."""
     import scipy.io
     import scipy.ndimage as ndi
 
@@ -8249,33 +8246,27 @@ def trace_cli_runs(device, card):
 
             run("warm")
             x0, c0, ms0 = run("plain")
-            # the process's first trace also starts the profiler (CUPTI)
+            # the process's first trace also starts the profiler (CUPTI);
+            # each trace must name the kernels
             ms1 = []
-            traced("traced")
-            path, kernels, named = traced("traced again")
-            # a unit launched once a run (the persistent solve) leaves one
-            # kernel record, which the profiler can lose: its trace is
-            # taken again, up to three traced runs after the first, as
-            # device_ms_of takes a trace again
-            while not all(named.values()) and len(ms1) < 4:
-                path, kernels, named = traced("traced, once more")
-            require(all(c0[0].get(u, 0) > 0 for u in units)
-                    and all(named.values()), "phase 44: %s launches %s, "
-                    "kernel records in the trace %s, of its kernels %s"
-                    % (name, c0[0], named, kernels))
+            for turn in ("traced", "traced again"):
+                path, kernels, named = traced(turn)
+                require(all(c0[0].get(u, 0) > 0 for u in units)
+                        and all(named.values()), "phase 44: %s %s: launches "
+                        "%s, kernel records in the trace %s, of its kernels "
+                        "%s" % (name, turn, c0[0], named, kernels))
             rows[name] = {"launches": c0[0], "trace_records": named,
                           "trace_kernel_records": sum(kernels.values()),
                           "trace_bytes": os.path.getsize(path),
-                          "ms": [ms0] + ms1[:2], "traces": len(ms1)}
+                          "ms": [ms0] + ms1}
     print("phase 44 --trace on the card: results and launch counts bit for "
           "bit equal to the untraced runs; %s [%s]"
-          % ("; ".join("%s: launches %s, trace names %s (%d kernel records; "
-                       "traced runs %d), %d bytes, wall ms untraced %.1f, "
-                       "traced %.1f (the process's first trace), %.1f" % (
+          % ("; ".join("%s: launches %s, trace names %s (%d kernel "
+                       "records), %d bytes, wall ms untraced %.1f, traced "
+                       "%.1f (the process's first trace), %.1f" % (
                            k, v["launches"], v["trace_records"],
-                           v["trace_kernel_records"], v["traces"],
-                           v["trace_bytes"], *v["ms"])
-                       for k, v in rows.items()), card))
+                           v["trace_kernel_records"], v["trace_bytes"],
+                           *v["ms"]) for k, v in rows.items()), card))
     return rows
 
 
@@ -8602,8 +8593,8 @@ def run_persistent_phase(device, card):
     rule's refusals; times in turns (sequence, persistent, persistent,
     sequence) by CUDA events of the main paths, the study, the 64³ CLI and
     the route's boundary shapes, a CUDA graph replay of the launch sequence
-    as a yardstick, the device busy share, the two reduce modes, the
-    barriers alone and a traced solve's phases. Returns the ``kernels``
+    as a yardstick, the device busy share, the barriers alone and a
+    traced solve's phases. Returns the ``kernels``
     record of ``admm_solve[persistent]``."""
     import torch
 
@@ -8763,7 +8754,7 @@ def run_persistent_phase(device, card):
     lap("phase 45 times")
 
     # yardsticks: a CUDA graph replay of the launch sequence; the device
-    # busy share; the two reduce modes; a traced solve's phases
+    # busy share; a traced solve's phases
     yard = {}
     for key in ("64^3 exact", "Lena exact"):
         src = PERSISTENT_BIT_CASES[key][0]
@@ -8785,35 +8776,17 @@ def run_persistent_phase(device, card):
                                                RHO)), ("persistent", pers)):
             wall = cuda_median_ms(fn, 3)
             busy[route] = (device_busy_ms(fn)[0], wall)
-        prev = F.persistent_reduce("block0")
-        try:
-            block0 = turns_ms(pers, pers, 5)
-        finally:
-            F.persistent_reduce(prev)
-        teams = {}
-        for k in (1, 2, 4):  # the sequence's blocks a block, the rule's 0
-            prev = F.persistent_teams(k)
-            try:
-                require(torch.equal(pers(), x_graph), "phase 45: %s with "
-                        "%d teams differs" % (key, k))
-                teams[k] = cuda_median_ms(pers, 5)
-            finally:
-                F.persistent_teams(prev)
         phases = F.persistent_phases(pers, device)
         del graph
-        yard[key] = (graph_t, busy, block0, phases)
+        yard[key] = (graph_t, busy, phases)
         print("phase 45 %s: CUDA graph replay of the launch sequence vs the "
               "persistent solve, ms (turns graph / persistent / persistent / "
               "graph) %s; device busy (torch.profiler device ms / wall ms) "
-              "%s; reduce in block 0 + a barrier %.3f ms vs in every block "
-              "%.3f (median of two turns each); the sequence's blocks a "
-              "block (teams) 1 / 2 / 4: %s ms (the rule's %d); a traced "
+              "%s; the sequence's blocks a block (teams) %d; a traced "
               "solve's phases (count x mean us): %s [%s]"
               % (key, turns_line(graph_t), {
                   k: "%s/%.3f" % (ms_text(d), w) for k, (d, w)
-                  in busy.items()}, float(np.median(block0)),
-                 float(np.median(rows[key][1:3])),
-                 " / ".join("%.3f" % teams[k] for k in (1, 2, 4)),
+                  in busy.items()},
                  shapes["64^3" if key.startswith("64") else "Lena"][3]
                  // 256, "; ".join(
                      "%s %d x %.2f" % (k, n, us / n)
@@ -8838,24 +8811,30 @@ def run_persistent_phase(device, card):
     err = float((x - x_p).abs().max())
     dev_ms = device_ms_of(partial(solve, b, b, ALPHA, RHO), 3,
                           keys=(PERSISTENT_KERNEL,))
+    # the device time by the card's global timer, block 0's first stamp to
+    # its last (a traced solve's phases): it needs no profiler record
+    stamps_ms = sum(us for _, us in yard["64^3 exact"][2].values()) / 1e3
     entry = {"name": "admm_solve[persistent]", "route": "cuda",
              "source": "nsol_tpu_torch/csrc/admm_persistent.cu",
              "replaces": "nsol_tpu/ops/pallas/fused.py:382",
              "launches": int(launches), "max_abs_err": err,
              "ms": float(np.median(rows["64^3 exact"][1:3])),
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None, "device_ms": dev_ms,
+             "library_ms": None, "device_ms": stamps_ms,
+             "profiler_device_ms": dev_ms,
              "sequence_ms": float(np.median(rows["64^3 exact"][::3])),
              "graph_replay_ms": float(np.median(
                  yard["64^3 exact"][0][::3]))}
     require(launches == 1, "phase 45: the 64^3 main path made %d persistent "
             "launches" % launches)
     print("phase 45 admm_solve[persistent] 64^3: launches %d, max|d| vs "
-          "plain %.3e, device ms %s, bound %.4f ms (%s: b, x0 in and x out, "
-          "and the sequence's %s operations), its units' bounds summed %.4f "
-          "ms (through HBM; the state sits in L2) [%s]"
-          % (launches, err, ms_text(dev_ms), b_ms, b_by, counts, units_ms,
-             card))
+          "plain %.3e, device ms by torch.profiler %s, by the global "
+          "timer's stamps %.4f, "
+          "bound %.4f ms (%s: b, x0 in and x out, and the sequence's %s "
+          "operations), its units' bounds summed %.4f ms (through HBM; the "
+          "state sits in L2) [%s]"
+          % (launches, err, ms_text(dev_ms), stamps_ms, b_ms, b_by, counts,
+             units_ms, card))
     lap("phase 45")
     return [entry]
 
@@ -8991,10 +8970,11 @@ def main(argv=None):
     iso3 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
     iso2 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, "cpu")
     kernels = []
-    # phases 44-45 first: they read torch.profiler's record of the
-    # persistent solve's one cooperative launch, which the profiler lost
-    # once the process had run phases 3-43 (three whole runs on the H100;
-    # run alone or first, every trace kept it; PERF.md)
+    # phases 44-45 first: they read torch.profiler's kernel records, which
+    # CUPTI, kept alive between traces, drops more and more of from about
+    # 20 s after the process's first trace (PERF.md); tearing it down after
+    # each trace keeps them but hung the interpreter's exit after two
+    # traces
     if "batch" in groups:
         run_batch_phase(device, card)
     if "persistent" in groups:

@@ -36,10 +36,10 @@
 // in its order. A one-block reduce (stencil.cuh's reduce_kernel,
 // kReduceThreads threads) is formed with the same shuffle tree by every
 // CUDA block redundantly (reduce_sum; the CG scalars then live in each
-// block's shared memory and no barrier follows), or by block 0 followed by
-// a barrier (kReduceBlock0, slower in phase 45's turns);
-// the partials alternate between two sets so that a redundant reduce still
-// reading one set never meets the next pass writing it. The records'
+// block's shared memory and no barrier follows: block 0 alone and a
+// barrier after it was slower, PERF.md); the partials alternate between
+// two sets so that a redundant reduce still reading one set never meets
+// the next pass writing it. The records'
 // reduce runs in block 0 alone: nothing in the solve reads them. Phases
 // merge only where the later reads nothing another block wrote since the
 // last barrier: the records' TV with their blur's x pass, the first tail
@@ -47,7 +47,7 @@
 // normal, 7 blur an axis) are compile-time lengths, their tap loops
 // unrolled and the taps read from shared memory; a voxel's coordinates
 // come from multiplies and shifts (FastIndex), not the sequence's 64-bit
-// divisions (the same integers).
+// divisions (the same integers; 1 ms of the 64^3 solve's 12.3, PERF.md).
 //
 // Coherence. A volume written earlier in the launch by another block must
 // not be read through the non-coherent read-only path, so every load here
@@ -68,9 +68,6 @@ namespace cg = cooperative_groups;
 // admm.cu's Unit slots continue here: the one launch of this solve
 // (ops/cuda/blocked.py's COUNTS).
 constexpr int kAdmmPersistent = 11;
-// How the one-block reduces run: in every block, or in block 0 and a
-// barrier.
-enum ReduceMode { kReduceEvery = 0, kReduceBlock0 = 1 };
 // The most voxels the route takes (the rule, nsol_admm_persistent_route):
 // the fused route's scope (16 volumes in 64 MiB), within which every shape
 // timed, the kernel forced where the rule refuses it, beat the launch
@@ -81,14 +78,10 @@ constexpr long long kPersistentMaxVoxels = 1LL << 20;
 // A CUDA block runs up to kMaxTeams of the launch sequence's blocks side
 // by side (GroupTeam; shape_of picks how many): fewer blocks arrive at
 // each grid barrier (chip_smoke.py phase 45 times the barriers alone at
-// 528 blocks of 256 threads and at the solves' grids). The register cap:
-// kMaxTeams x kThreads threads an SM.
+// the solves' grids). The register cap: kMaxTeams x kThreads threads an
+// SM.
 constexpr int kMaxTeams = 4;
 
-int g_reduce_mode = kReduceEvery;
-// The teams a block of the next solves, or 0: shape_of's rule
-// (nsol_admm_persistent_teams).
-int g_teams = 0;
 // Where a traced solve writes its phases' ends (nsol_admm_persistent_trace).
 long long* g_stamps = nullptr;
 int g_stamp_cap = 0;
@@ -102,8 +95,7 @@ enum Phase {
   kRecordX = 7, kRecordY = 8, kRecordZ = 9,  // the records' (and their TV)
   kReduce = 10,
   kUpdate = 11,
-  kTail = 12,
-  kReduceBarrier = 13
+  kTail = 12
 };
 
 static_assert(kMaxBlocks <= kReduceThreads, "reduce_sum takes one partial a thread");
@@ -181,14 +173,14 @@ struct SolveArgs {
   float* t1;
   float* t2;
   double* partials;  // two sets of kMaxBlocks
-  double* scal;      // the CG scalars: kReduceBlock0's, and the end state
+  double* scal;      // the CG scalars: the start and the end state
   double* reg;       // the records, or null
   double* data;
   double* rec_partials;  // 2 * kMaxBlocks: the data, then the TV partials
   Taps ta, tn;
   Spacing sp;
   float tau, rho, fs2;
-  int iterations, iter_max, loss, reduce;
+  int iterations, iter_max, loss;
   Dims d;
   FastIndex idx;
   int G;  // the launch sequence's blocks, grid_for(n)
@@ -317,22 +309,12 @@ struct Persistent {
     sync(phase + 2);
   }
 
-  // The one-block second stage of the pass that wrote parts(), then the
-  // next set.
+  // The one-block second stage of the pass that wrote parts(), formed by
+  // every block into its own scalars, then the next set.
   __device__ void reduce(int mode) {
-    const double* p = parts();
+    const double s = reduce_sum(parts(), a.G);
     set ^= 1;
-    if (a.reduce == kReduceBlock0) {
-      if (blockIdx.x == 0) {
-        const double s = reduce_sum(p, a.G);
-        if (threadIdx.x == 0) update_scalars(a.scal, s, mode);
-      }
-      sync(kReduceBarrier);
-      if (threadIdx.x < 4) sc[threadIdx.x] = a.scal[threadIdx.x];
-    } else {
-      const double s = reduce_sum(p, a.G);
-      if (threadIdx.x == 0) update_scalars(sc, s, mode);
-    }
+    if (threadIdx.x == 0) update_scalars(sc, s, mode);
     __syncthreads();
     stamp(kReduce);
   }
@@ -423,8 +405,7 @@ struct Persistent {
       sync(kTail);
       if (records) record(it + 1);
     }
-    if (blockIdx.x == 0 && threadIdx.x < 4 && a.reduce == kReduceEvery)
-      a.scal[threadIdx.x] = sc[threadIdx.x];
+    if (blockIdx.x == 0 && threadIdx.x < 4) a.scal[threadIdx.x] = sc[threadIdx.x];
   }
 };
 
@@ -464,15 +445,15 @@ struct Shape {
 };
 
 // The shape of the kernel fn over a launch sequence of G blocks: the most
-// teams (kMaxTeams, halved) whose blocks still reach 7/8 of the SMs (or
-// g_teams), and a grid of as many blocks as the card holds at once,
-// capped at what the teams need. chip_smoke.py phase 45 times 1, 2 and 4
-// teams at 64^3 (1024 blocks: the rule takes 4) and on a 256^2 image (256
-// blocks: 2; 4 would leave half the SMs idle).
+// teams (kMaxTeams, halved) whose blocks still reach 7/8 of the SMs, and
+// a grid of as many blocks as the card holds at once, capped at what the
+// teams need. PERF.md has 1, 2 and 4 teams timed at 64^3 (1024 blocks:
+// the rule takes 4) and on a 256^2 image (256 blocks: 2; 4 would leave
+// half the SMs idle).
 cudaError_t shape_of(const void* fn, int G, Shape* out) {
   const int sms = device_sms();
-  int teams = g_teams > 0 ? g_teams : kMaxTeams;
-  while (g_teams == 0 && teams > 1 && (G + teams - 1) / teams * 8 < sms * 7) teams /= 2;
+  int teams = kMaxTeams;
+  while (teams > 1 && (G + teams - 1) / teams * 8 < sms * 7) teams /= 2;
   int per_sm = 0;
   const cudaError_t e =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, teams * kThreads, 0);
@@ -553,27 +534,13 @@ int nsol_admm_persistent_trace(long long* stamps, int capacity) {
   return 0;
 }
 
-// The teams a block of the next solves (1, 2 or 4; 0: the rule); returns
-// the previous setting.
-int nsol_admm_persistent_teams(int teams) {
-  const int prev = g_teams;
-  if (teams == 0 || teams == 1 || teams == 2 || teams == kMaxTeams) g_teams = teams;
-  return prev;
-}
-
-// The reduce mode of the next solves (ReduceMode); returns the previous.
-int nsol_admm_persistent_reduce(int mode) {
-  const int prev = g_reduce_mode;
-  if (mode == kReduceEvery || mode == kReduceBlock0) g_reduce_mode = mode;
-  return prev;
-}
-
 // nsol_admm_solve's solve (its arguments but sweep; r1 and q1 unused, may
 // be null) as one cooperative launch on `stream`: storage kStoreExact or
 // kStoreQf32 (else cudaErrorInvalidValue), partials 2 * nsol_max_blocks()
 // doubles, scal 4. The same x and records bit for bit, on any shape; a
 // launch the card refuses (cudaErrorCooperativeLaunchTooLarge, ...)
-// returns its error and runs nothing. counts[kAdmmPersistent] += 1.
+// returns its error and runs nothing. counts[kAdmmPersistent] += 1 where
+// the kernel was launched.
 int nsol_admm_solve_persistent(const float* b, float* x, float* v, float* w, float* atb,
                                float* rhs, void* r0, void* r1, void* p0, void* p1, void* q,
                                void* q1, float* t1, float* t2, double* partials, double* scal,
@@ -615,7 +582,6 @@ int nsol_admm_solve_persistent(const float* b, float* x, float* v, float* w, flo
                    iterations,
                    iter_max,
                    rec_loss,
-                   g_reduce_mode,
                    d,
                    FastIndex{FastDiv::of(X), FastDiv::of(Y)},
                    grid_for(d.n()),
@@ -623,7 +589,7 @@ int nsol_admm_solve_persistent(const float* b, float* x, float* v, float* w, flo
                    g_stamp_cap};
     return launch_solve(a, (cudaStream_t)stream);
   });
-  counts[kAdmmPersistent] += 1;
+  if (e == cudaSuccess) counts[kAdmmPersistent] += 1;
   return (int)e;
 }
 

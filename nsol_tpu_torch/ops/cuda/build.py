@@ -58,8 +58,6 @@ _SIGNATURES = {
     + [_F] * 8 + [_I] * 3 + [_P] * 3 + [_I, _F] + [_I] * 3 + [_P, _P],
     "nsol_admm_persistent_route": [_I] * 11,
     "nsol_admm_persistent_shape": [_I] * 10 + [_P],
-    "nsol_admm_persistent_reduce": [_I],
-    "nsol_admm_persistent_teams": [_I],
     "nsol_admm_persistent_barriers": [_I, _I, _I, _P],
     "nsol_admm_persistent_trace": [_P, _I],
     "nsol_pd_record_blocks": [_I] * 6,

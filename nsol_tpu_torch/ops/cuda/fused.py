@@ -87,7 +87,7 @@ __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
            "SHARDED_UNITS", "MARCH_UNITS", "PERSISTENT_UNITS",
            "linear_admm_solver", "persistent_route", "persistent_barriers",
-           "persistent_reduce", "persistent_teams", "persistent_shape",
+           "persistent_shape",
            "taps_lengths",
            "PERSISTENT_STORAGE", "PERSISTENT_MAX_VOXELS", "reset_counts",
            "launch_counts", "plain_counts"]
@@ -234,9 +234,6 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
 #: (``kPersistentMaxVoxels`` there)
 PERSISTENT_STORAGE = ("exact", "qf32")
 PERSISTENT_MAX_VOXELS = 1 << 20
-#: ``csrc/admm_persistent.cu``'s one-block reduces: in every block, or in
-#: block 0 and a grid barrier (``nsol_admm_persistent_reduce``)
-PERSISTENT_REDUCE = ("every", "block0")
 
 
 def persistent_route(dims, blur, normal, storage="exact", sweep=False,
@@ -271,13 +268,13 @@ def taps_lengths(factors):
             pad + tuple(2 * len(f) - 1 for f in factors))
 
 
-def persistent_barriers(iterations, iter_max, record=False, reduce="every"):
+def persistent_barriers(iterations, iter_max, record=False):
     """Grid barriers one persistent solve takes: three a blur chain (``Aᵀb``,
     each residual and ``cg_step``, each record row), one after each
-    ``cg_update`` and each tail, and with ``reduce="block0"`` one after each
-    CG reduce."""
-    per_cg = 4 + (2 if reduce == "block0" else 0)
-    outer = 3 + (1 if reduce == "block0" else 0) + 1 + (3 if record else 0)
+    ``cg_update`` and each tail; every block forms the one-block reduces
+    itself, with no barrier after them."""
+    per_cg = 4
+    outer = 3 + 1 + (3 if record else 0)
     return 3 + (3 if record else 0) + iterations * (outer + iter_max * per_cg)
 
 
@@ -291,22 +288,6 @@ def admm_persistent(*args):
 
 
 admm_persistent.launches = 0
-
-
-def persistent_reduce(mode):
-    """Set how the persistent solve's one-block reduces run
-    (:data:`PERSISTENT_REDUCE`) for the next solves on the card; returns
-    the previous mode."""
-    return PERSISTENT_REDUCE[build.load().nsol_admm_persistent_reduce(
-        PERSISTENT_REDUCE.index(mode))]
-
-
-def persistent_teams(teams):
-    """Set how many of the launch sequence's blocks a block of the next
-    persistent solves on the card runs side by side (1, 2 or 4; 0: the
-    rule of ``csrc/admm_persistent.cu``'s ``shape_of``); returns the
-    previous setting."""
-    return build.load().nsol_admm_persistent_teams(int(teams))
 
 
 def persistent_shape(dims, blur, normal, storage="exact"):
@@ -344,7 +325,7 @@ def persistent_barrier_ms(n, grid, threads, device):
 PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
                      "normal_apply x", "normal_apply y", "normal_apply z",
                      "admm_record x", "admm_record y", "admm_record z",
-                     "reduce", "cg_update", "admm_tail", "reduce barrier")
+                     "reduce", "cg_update", "admm_tail")
 
 
 def persistent_phases(fn, device, capacity=1 << 14):

@@ -1,6 +1,6 @@
 """The fused ADMM solve as one persistent cooperative launch
-(``csrc/admm_persistent.cu``): its route, its constants and its plain
-version on the CPU.
+(``csrc/admm_persistent.cu``): its route, its constants and its solve
+on the CPU.
 
 On the CPU the solve runs its plain versions, as before: the route only
 decides what a solve on the card launches. :func:`F.persistent_route` is
@@ -134,13 +134,11 @@ def test_solver_reports_its_route():
 
 def test_barriers_per_solve():
     """Three a blur chain (Aᵀb, each residual and cg_step, each record
-    row), one after each cg_update and each tail; two more a CG iteration
-    and one more an outer one where block 0 reduces alone."""
+    row), one after each cg_update and each tail; none after a reduce,
+    which every block forms itself."""
     assert F.persistent_barriers(50, 10) == 3 + 50 * (3 + 1 + 10 * 4)
     assert F.persistent_barriers(50, 10, record=True) == 6 + 50 * (
         3 + 1 + 3 + 10 * 4)
-    assert F.persistent_barriers(2, 3, reduce="block0") == 3 + 2 * (
-        3 + 1 + 1 + 3 * 6)
 
 
 # --------------------------------------------------------- on the CPU --
@@ -173,29 +171,6 @@ def test_forced_persistent_route_refuses_before_any_build(kw):
         F._solve_cuda(st, b, b, 0.01, 0.5, 2, 3, route="persistent", **kw)
     with pytest.raises(ValueError, match="route"):
         F._solve_cuda(st, b, b, 0.01, 0.5, 2, 3, route="graph")
-
-
-def test_plain_solve_matches_the_pallas_kernel_with_records():
-    """The persistent solve's plain version (``solve.plain``, the launch
-    sequence's units in turn) against the JAX package's fused kernel in
-    interpret mode on a ragged volume with records: x within atol 2e-5 /
-    rtol 1e-5 (tests/test_pallas.py:57), the rows within 1e-4 relative."""
-    JF = pytest.importorskip("nsol_tpu.ops.pallas.fused")
-    jnp = pytest.importorskip("jax.numpy")
-    shape = (9, 10, 11)
-    b = _blurred(5, shape)
-    want, wrec = JF.make_fused_admm_solver(
-        shape, np.eye(3), iterations=3, iter_max=4, dtype=jnp.float32,
-        record=True, interpret=True)(b, b, 0.01, 0.5)
-    solve = F.make_fused_admm_solver(shape, np.eye(3), iterations=3,
-                                     iter_max=4, record=True)
-    bt = torch.as_tensor(b)
-    got, grec = solve.plain(bt, bt, 0.01, 0.5)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
-                               rtol=1e-5)
-    for k in ("Reg", "Data"):
-        np.testing.assert_allclose(grec[k].numpy(), np.asarray(wrec[k]),
-                                   rtol=1e-4)
 
 
 # ------------------------------------------------------------ the card --
