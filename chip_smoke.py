@@ -194,7 +194,8 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   its run with no mesh in turns: x and records bit for bit, the same
   launch counts, the wall ms of each turn; ``nsol_torch_run_denoising``
   (Lena, PD TVL2) and ``nsol_torch_run_deconvolution`` (the 64³ phantom,
-  ADMM TVL2) with and without ``--trace``: the same bits and launches, a
+  ADMM TVL2) without ``--trace`` in this process and twice with it, each
+  traced run a process of its own: the same bits and launches, a
   Chrome-trace JSON that names the hand-written kernels the run launched,
   its size and the wall ms each way.
 
@@ -229,9 +230,13 @@ library solve. The sweeps that phases 17-19 hold to float64 anchors or
 to the exact generic solve run under ``NSOL_TPU_EXACT=1``, as before;
 phase 31 runs them at their default.
 
-Phases 44 and 45 run first, after the build: they read torch.profiler's
-kernel records, which CUPTI, kept alive between traces, drops more and
-more of from about 20 s after the process's first trace (PERF.md).
+Phase 44's traced CLI runs are each their process's first trace:
+torch.profiler, with CUPTI kept alive between the traces of one process,
+loses the earliest kernel records of a trace, the more the longer ago
+that process's first trace was (F7 in ROADMAP.md). The profiler's other
+readings (device busy, device ms) print "not measured" where a trace
+kept no record; phase 45's ``device_ms`` is the kernel's own global-timer
+stamps.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. Any failed phase raises, so the script exits non-zero and prints
@@ -8173,14 +8178,38 @@ def batch_mesh_runs(device, card):
     return rows
 
 
+#: phase 44's traced run of a CLI, in a process of its own (``python3 -c``
+#: from the repository's root, the CLI's module and its argv as arguments):
+#: the exit code, the launch counts and plain calls, and the wall ms of
+#: ``main``, as JSON on the last line
+TRACED_CLI = """
+import json, sys, time
+from importlib import import_module
+from nsol_tpu_torch.ops.cuda import fused as F
+cli = import_module("nsol_tpu_torch.cli." + sys.argv[1])
+F.reset_counts()
+t0 = time.perf_counter()
+rc = cli.main(json.loads(sys.argv[2]))
+ms = 1e3 * (time.perf_counter() - t0)
+print(json.dumps([rc, {k: v for k, v in F.launch_counts().items() if v},
+                  {k: v for k, v in F.plain_counts().items() if v}, ms]))
+"""
+
+
 def trace_cli_runs(device, card):
     """Phase 44, ``--trace``: ``nsol_torch_run_denoising`` (Lena, PD TVL2)
     and ``nsol_torch_run_deconvolution`` (the 64³ phantom, ADMM TVL2) on
-    the card after a warm-up, without ``--trace`` and twice with it: the
-    same result bits and launch counts, a trace that parses and names the
-    kernel of every unit of :data:`TRACE_KERNELS` the run launched, in
-    each traced run (no count is required), its size, and the wall ms of
-    each run."""
+    the card, in this process after a warm-up without ``--trace``, then
+    twice with it, each traced run a process of its own as a user runs a
+    CLI (:data:`TRACED_CLI`): the same result bits and launch counts, a
+    trace that parses and names the kernel of every unit of
+    :data:`TRACE_KERNELS` the run launched, in each traced run (no count
+    is required), its size, and the wall ms of each run's ``main``.
+
+    Each traced run is its process's first trace: torch.profiler, with
+    CUPTI kept alive between the traces of one process, keeps fewer kernel
+    records the longer ago that process's first trace was (F7 in
+    ROADMAP.md, ``tests/torch_profiler_probe.py``)."""
     import scipy.io
     import scipy.ndimage as ndi
 
@@ -8190,6 +8219,7 @@ def trace_cli_runs(device, card):
     from nsol_tpu_torch.ops import kernels as K
     from nsol_tpu_torch.ops.cuda import fused as F
 
+    root = os.path.dirname(os.path.abspath(__file__))
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz"))
@@ -8211,22 +8241,36 @@ def trace_cli_runs(device, card):
                                     str(SIGMA)],
                 "nii.gz", ("admm_persistent",))}
         for name, (cli, argv, ext, units) in cases.items():
-            def run(label, trace=None):
+            def result(label):
                 out = os.path.join(tmp, "%s.%s" % (label, ext))
+                return out, lambda: (scipy.io.loadmat(out)["nda"]
+                                     if ext == "mat" else read_nifti(out).data)
+
+            def run(label):
+                out, read = result(label)
                 F.reset_counts()
                 t0 = time.perf_counter()
-                rc = cli.main(argv + ["--result", out]
-                              + (["--trace", trace] if trace else []))
+                rc = cli.main(argv + ["--result", out])
                 ms = 1e3 * (time.perf_counter() - t0)
                 require(rc == 0, "phase 44: %s %s rc %r" % (name, label, rc))
-                x = (scipy.io.loadmat(out)["nda"] if ext == "mat"
-                     else read_nifti(out).data)
-                return x, used_counts(F), ms
+                return read(), used_counts(F), ms
 
             def traced(turn):
                 trace_dir = os.path.join(tmp, "trace_%s_%d" % (ext, len(ms1)))
-                x1, c1, ms = run(turn, trace_dir)
+                out, read = result(turn.replace(" ", "_"))
+                proc = subprocess.run(
+                    [sys.executable, "-c", TRACED_CLI,
+                     cli.__name__.rsplit(".", 1)[1], json.dumps(
+                         argv + ["--result", out, "--trace", trace_dir])],
+                    cwd=root, capture_output=True, text=True, timeout=300)
+                require(proc.returncode == 0, "phase 44: %s %s: the process "
+                        "exited %d: %s" % (name, turn, proc.returncode,
+                                           proc.stderr[-2000:]))
+                rc, launches, plain, ms = json.loads(
+                    proc.stdout.strip().splitlines()[-1])
+                require(rc == 0, "phase 44: %s %s rc %r" % (name, turn, rc))
                 ms1.append(ms)
+                x1, c1 = read(), (launches, plain)
                 require(np_bits(x0, x1) and c0 == c1 and not c0[1],
                         "phase 44: %s %s vs untraced: bits %s, launches %s"
                         % (name, turn, np_bits(x0, x1), (c0, c1)))
@@ -8246,8 +8290,6 @@ def trace_cli_runs(device, card):
 
             run("warm")
             x0, c0, ms0 = run("plain")
-            # the process's first trace also starts the profiler (CUPTI);
-            # each trace must name the kernels
             ms1 = []
             for turn in ("traced", "traced again"):
                 path, kernels, named = traced(turn)
@@ -8262,8 +8304,9 @@ def trace_cli_runs(device, card):
     print("phase 44 --trace on the card: results and launch counts bit for "
           "bit equal to the untraced runs; %s [%s]"
           % ("; ".join("%s: launches %s, trace names %s (%d kernel "
-                       "records), %d bytes, wall ms untraced %.1f, traced "
-                       "%.1f (the process's first trace), %.1f" % (
+                       "records), %d bytes, wall ms of main untraced (warm) "
+                       "%.1f, traced (a fresh process: the card's context "
+                       "and CUPTI start inside) %.1f, %.1f" % (
                            k, v["launches"], v["trace_records"],
                            v["trace_kernel_records"], v["trace_bytes"],
                            *v["ms"]) for k, v in rows.items()), card))
@@ -8970,15 +9013,6 @@ def main(argv=None):
     iso3 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 3), 3, None, "cpu")
     iso2 = B.Stencils.from_cov(np.diag([SIGMA ** 2] * 2), 3, None, "cpu")
     kernels = []
-    # phases 44-45 first: they read torch.profiler's kernel records, which
-    # CUPTI, kept alive between traces, drops more and more of from about
-    # 20 s after the process's first trace (PERF.md); tearing it down after
-    # each trace keeps them but hung the interpreter's exit after two
-    # traces
-    if "batch" in groups:
-        run_batch_phase(device, card)
-    if "persistent" in groups:
-        kernels += run_persistent_phase(device, card)
     if "admm" in groups:
         admm = run_admm_phases(device, card)
         lap("phases 3-6")
@@ -9055,6 +9089,10 @@ def main(argv=None):
         lap("phase 40")
     if "engines" in groups:
         run_engine_phases(device, card)
+    if "batch" in groups:
+        run_batch_phase(device, card)
+    if "persistent" in groups:
+        kernels += run_persistent_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

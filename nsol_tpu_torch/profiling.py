@@ -26,6 +26,11 @@ def trace(log_dir, create_perfetto_link=False):
     time. ``create_perfetto_link=True`` prints that file's path, to open in
     Perfetto; the reference serves a link instead, which needs a network.
 
+    The first trace of a process keeps every kernel record. A later one,
+    with CUPTI kept alive between traces (torch's default), may lose its
+    earliest kernel records, more of them the longer ago that first trace
+    was (F7 in ROADMAP.md); a CLI's ``--trace`` is its process's first.
+
     Example::
 
         with profiling.trace("/tmp/nsol_trace"):
