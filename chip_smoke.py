@@ -1409,7 +1409,9 @@ def run_unit_phase(device, card):
                                                  reg=reg, iter_max=6,
                                                  data_loss=loss,
                                                  irls_cg_iters=4)
-                xk = s(b, b, alphas, 0.3)
+                # the sequence's units (phase 46 holds the persistent
+                # batch to it)
+                xk = s.sequence(b, b, alphas, 0.3)
                 xp = s.plain(b, b, alphas, 0.3)
                 rel = max_rel(xk, xp)
                 require(rel <= SOLVE_VOX_TOL and bool(xk.isfinite().all()),
@@ -1766,8 +1768,10 @@ def tk_objective(x, b, A, B, alpha, loss):
 
 def run_tikhonov_phase(device, card):
     """Phase 17: the Lena 256² Tikhonov studies through
-    ``TikhonovLinearSolver.run_sweep`` on the card. Returns the launch
-    counts of the TK1L2 64-α sweep and its timing."""
+    ``TikhonovLinearSolver.run_sweep`` on the card: each sweep's launch
+    sequence (the linear ones forced onto it) against its anchors, and its
+    default route (the linear ones one persistent launch) to the same bits.
+    Returns each sweep's sequence launches and timing."""
     import torch
 
     from nsol_tpu_torch.ops import losses
@@ -1801,9 +1805,12 @@ def run_tikhonov_phase(device, card):
             "Data": lambda x, loss=loss: losses.cost_from_residual(
                 A(x) - bt.to(x.dtype), loss, HUBER_SCALE)}
         params = {"alpha": alphas.astype(np.float64)}
+        # the launch sequence's units: a linear sweep on the forced
+        # sequence (phase 46 holds the persistent batch to it)
         torch.cuda.synchronize()
         F.reset_counts()
-        x_all, recs = solver.run_sweep(params, measures=measures)
+        with contextlib.nullcontext() if robust else tik_sequence_route(T):
+            x_all, recs = solver.run_sweep(params, measures=measures)
         torch.cuda.synchronize()
         launches = F.launch_counts(
             ("tik_clip",) + (("blur_apply", "irls_head", "weighted_apply",
@@ -1821,6 +1828,18 @@ def run_tikhonov_phase(device, card):
                 and recs["Reg"].shape == (len(alphas), 2),
                 "phase 17: %s/%s results not finite or misshapen"
                 % (reg, loss))
+        # its default route: the persistent batch, one launch, the same
+        # bits; the robust sweep stays on the sequence
+        F.reset_counts()
+        x_def, recs_def = solver.run_sweep(params, measures=measures)
+        torch.cuda.synchronize()
+        default = used_counts(F)
+        require(np_bits(x_def, x_all) and all(np_bits(recs_def[k], recs[k])
+                                              for k in recs)
+                and (robust or default == ({"tik_persistent": 1}, {}))
+                and (not robust or "tik_persistent" not in default[0]),
+                "phase 17: %s/%s default route launches %s, bits equal %s"
+                % (reg, loss, default, np_bits(x_def, x_all)))
         xk = torch.as_tensor(x_all / xs, device=device)
         # the anchors
         devs = {}
@@ -1871,14 +1890,16 @@ def run_tikhonov_phase(device, card):
                                 % (reg, loss), card)
         print("phase 17 %s/%s Lena 256^2 x %d alphas (CG %d%s): anchor devs "
               "%s (band %g); records vs float64 %.2e; kernel vs plain "
-              "objective rel %.2e, voxel %.2e; launches %s (%.1f per solve); "
+              "objective rel %.2e, voxel %.2e; launches %s (%.1f per solve; "
+              "the linear sweeps on the forced sequence), on the default "
+              "route %s with the same bits; "
               "plain calls 0; kernel %.3f ms/sweep, plain %.3f ms/sweep "
               "[%s]" % (reg, loss, len(alphas), iter_max, "" if not robust
                         else " x %d" % HUBER_CG,
                         {i: "%.2e" % d for i, d in devs.items()},
                         STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, launches,
-                        sum(launches.values()) / len(alphas), ms_k, ms_p,
-                        card))
+                        sum(launches.values()) / len(alphas), default[0],
+                        ms_k, ms_p, card))
         out[(reg, loss)] = {"launches": launches, "sweep": t_sweep,
                             "kernel": t_kernel, "ms": ms_k, "plain_ms": ms_p}
     return out
@@ -2185,10 +2206,14 @@ def run_scale_cli_phase(device, card):
             obs = data.path(fname)
             out = os.path.join(tmp, name)
             F.reset_counts()
-            rc = study_cli.main(["--observation", obs, "--reconstruction-type",
-                                 rtype, "--alpha-range", "0.005", "0.05", "4",
-                                 "--study-name", name, "--dir-output", out,
-                                 "--device", "cuda"] + extra)
+            # TK1L2 on the forced launch sequence, its units counted (phase
+            # 46 runs this CLI on both routes)
+            with tik_sequence_route(T) if rtype == "TK1L2" \
+                    else contextlib.nullcontext():
+                rc = study_cli.main([
+                    "--observation", obs, "--reconstruction-type", rtype,
+                    "--alpha-range", "0.005", "0.05", "4", "--study-name",
+                    name, "--dir-output", out, "--device", "cuda"] + extra)
             require(rc == 0, "phase 19: study CLI %s returned %r" % (name, rc))
             # TK1L2: the Tikhonov sequence's units; TVL2 by ADMM: one
             # persistent launch a configuration and none of them
@@ -4807,15 +4832,6 @@ def run_compact_robust_phases(device, card):
             "Data": lambda x, loss=loss: losses.cost_from_residual(
                 A(x) - bt.to(x.dtype), loss, HUBER_SCALE)}
         key = "%sL2 %s" % (reg, loss)
-        torch.cuda.synchronize()
-        F.reset_counts()
-        x_all, recs = solver.run_sweep({"alpha": alphas.astype(np.float64)},
-                                       measures=measures)
-        torch.cuda.synchronize()
-        sweep_launches[key] = {k: v for k, v in F.launch_counts().items()
-                               if v}
-        require(all(n == 0 for n in F.plain_counts().values()),
-                "phase 31: %s sweep ran a plain version" % key)
         a_list = [float(a) for a in alphas]
         kw = dict(reg=reg, iter_max=iter_max, data_loss=loss,
                   irls_cg_iters=HUBER_CG)
@@ -4823,8 +4839,20 @@ def run_compact_robust_phases(device, card):
                                                         **opt),
                           b, b, a_list, HUBER_SCALE)
                   for opt in (FUSED_COMPACT, {})]
-        lib, exact = (f() for f in solves)
-        sweep_ms[key] = [cuda_median_ms(f, 5) for f in solves]
+        # the launch sequence's storage-typed units (the linear sweeps
+        # forced onto it; phase 46 holds the persistent batch to it)
+        with tik_sequence_route(Tk):
+            torch.cuda.synchronize()
+            F.reset_counts()
+            x_all, recs = solver.run_sweep(
+                {"alpha": alphas.astype(np.float64)}, measures=measures)
+            torch.cuda.synchronize()
+            sweep_launches[key] = {k: v for k, v in F.launch_counts().items()
+                                   if v}
+            require(all(n == 0 for n in F.plain_counts().values()),
+                    "phase 31: %s sweep ran a plain version" % key)
+            lib, exact = (f() for f in solves)
+            sweep_ms[key] = [cuda_median_ms(f, 5) for f in solves]
         xk = torch.as_tensor(x_all / xs, dtype=torch.float32, device=device)
         dev = max_rel(xk, lib)
         rec_dev = 0.0
@@ -8161,8 +8189,10 @@ def batch_mesh_runs(device, card):
                             "no-mesh run in %s" % (name, turn, bad))
                 launches, plain = counts[0]
                 require(all(c == counts[0] for c in counts) and launches
-                        and not plain, "phase 44: %s launches a turn (none, "
-                        "batch, batch, none) %s" % (name, counts))
+                        and not plain and ("TK1L2" not in name or launches
+                                           == {"tik_persistent": 1}),
+                        "phase 44: %s launches a turn (none, batch, batch, "
+                        "none) %s" % (name, counts))
                 rows[name] = {"launches": launches, "ms": ms}
         print("phase 44 batch mesh at NCCL world 1 (make_mesh((1,), "
               "('batch',))) vs no mesh: x and records bit for bit, launch "
@@ -8352,15 +8382,16 @@ PERSISTENT_ROUTE_SHAPES = ((64, 64, 64), (80, 80, 80), (96, 96, 96),
 PERSISTENT_KERNEL = "admm_persistent_kernel"
 
 
-def persistent_ptxas():
-    """ptxas's registers and spills of each persistent kernel instance
-    (from this run's build; "cached" where the library was not built)."""
+def persistent_ptxas(kernel=PERSISTENT_KERNEL):
+    """ptxas's registers and spills of each instance of the persistent
+    kernel ``kernel`` (from this run's build; "cached" where the library
+    was not built)."""
     from nsol_tpu_torch.ops.cuda import build
 
     lines = build.build_info.get("ptxas", "").splitlines()
     out = []
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and PERSISTENT_KERNEL in ln:
+        if "Compiling entry function" in ln and kernel in ln:
             info = [l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
                     if "spill" in l or "Used" in l]
             name = ln.split("'")[1]
@@ -8369,9 +8400,9 @@ def persistent_ptxas():
     return out or ["cached"]
 
 
-def persistent_sass():
-    """``{kernel: (global loads, constant-cache global loads)}`` of each
-    persistent kernel instance in the built library's SASS
+def persistent_sass(kernel=PERSISTENT_KERNEL):
+    """``{instance: (global loads, constant-cache global loads)}`` of each
+    instance of the persistent kernel ``kernel`` in the built library's SASS
     (``cuobjdump -sass``): every load of a volume the kernel writes must
     take the coherent path, so none may be an ``LDG...CONSTANT`` (or
     ``.NC``)."""
@@ -8384,7 +8415,7 @@ def persistent_sass():
     # the whole library's half a minute)
     names = [ln.split("'")[1] for ln in build.build_info.get(
         "ptxas", "").splitlines() if "Compiling entry function" in ln
-        and PERSISTENT_KERNEL in ln]
+        and kernel in ln]
     sass = subprocess.run(
         [tool, "-sass"] + (["-fun", ",".join(names)] if names else [])
         + [build.build_info["path"]], capture_output=True, text=True,
@@ -8392,7 +8423,7 @@ def persistent_sass():
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass):
         name = fn.split("\n", 1)[0]
-        if PERSISTENT_KERNEL not in name:
+        if kernel not in name:
             continue
         loads = [l for l in fn.splitlines() if "LDG" in l]
         const = [l for l in loads if "CONSTANT" in l or ".NC" in l]
@@ -8413,22 +8444,23 @@ def sequence_route(F):
         F.persistent_route = rule
 
 
-def persistent_bound(counts, n, normal, blur):
-    """The one-launch solve's bound: the bytes it must move (b and x0
-    read, x written) and its float32 operations, those of the launch
-    sequence's units at the counts that sequence makes (:func:`unit_bound`'s
-    operations a voxel; ``Aᵀb``'s ``normal_apply`` at the blur taps), over
-    the card's peak rates; and the sum of the units' own bounds at those
-    counts (each unit's volumes through HBM: no floor where the state sits
-    in the 50 MB L2)."""
+def persistent_bound(counts, n, normal, blur, outputs=1):
+    """A one-launch solve's bound: the bytes it must move (b and x0 read,
+    ``outputs`` volumes x written) and its float32 operations, those of the
+    launch sequence's units at the counts that sequence makes
+    (:func:`unit_bound`'s operations a voxel; ``Aᵀb``'s ``normal_apply`` at
+    the blur taps), over the card's peak rates; and the sum of the units'
+    own bounds at those counts (each unit's volumes through HBM: no floor
+    where the state sits in the 50 MB L2)."""
     chain_n, chain_b = 2 * sum(normal), 2 * sum(blur)
     ops = {"normal_apply": chain_n + 15, "cg_step": chain_n + 17,
-           "cg_update": 8, "admm_tail": 40, "admm_record": chain_b + 20}
+           "cg_update": 8, "admm_tail": 40, "admm_record": chain_b + 20,
+           "tik_clip": 1}
     total = sum(ops[k] * c for k, c in counts.items() if c) \
         - (chain_n - chain_b)
     units = sum(unit_bound(k, n, blur if k == "admm_record" else normal)[0]
                 * c for k, c in counts.items() if c)
-    return bound(4.0 * n * 3, float(n) * total), units
+    return bound(4.0 * n * (2 + outputs), float(n) * total), units
 
 
 def turns_ms(seq, pers, reps):
@@ -8882,11 +8914,430 @@ def run_persistent_phase(device, card):
     return [entry]
 
 
+# -------------------------------------------------------------- phase 46 --
+
+#: phase 46's bit cases: label → (problem, regulariser, storage,
+#: configurations): the Lena sweeps (phase 17's 64 α, CG 10) and the 64³
+#: TK1L2 × 8 (the main paths), then shapes the rule takes at its edges
+#: (80³: threads with two voxels of a pass; a ragged volume; a 2-plane
+#: stack), a batch of 1, and one longer than the configurations a launch
+#: runs side by side (turns of them)
+TIK_BIT_CASES = {
+    "Lena TK1 exact x 64": ("lena", "TK1", "exact", 64),
+    "Lena TK1 qf32 x 64": ("lena", "TK1", "qf32", 64),
+    "Lena TK0 exact x 64": ("lena", "TK0", "exact", 64),
+    "Lena TK0 qf32 x 64": ("lena", "TK0", "qf32", 64),
+    "64^3 TK1 exact x 8": ("phantom", "TK1", "exact", 8),
+    "80^3 TK1 exact x 3": ((80, 80, 80), "TK1", "exact", 3),
+    "37x45x53 TK0 qf32 x 5": ((37, 45, 53), "TK0", "qf32", 5),
+    "2x256x512 TK1 exact x 4": ((2, 256, 512), "TK1", "exact", 4),
+    "Lena TK1 qf32 x 1": ("lena", "TK1", "qf32", 1),
+    "Lena TK0 exact x 130": ("lena", "TK0", "exact", 130)}
+TIK_KERNEL = "tikhonov_persistent_kernel"
+
+
+@contextlib.contextmanager
+def tik_sequence_route(T):
+    """Inside the block the fused Tikhonov batches take
+    ``nsol_tikhonov_solve``'s launch sequence (the persistent rule answers
+    no), as before the persistent batch: the phases that hold the
+    sequence's units to their plain versions, or count their launches, run
+    in it; phase 46 holds the persistent batch to it bit for bit."""
+    rule = T.tikhonov_persistent_route
+    T.tikhonov_persistent_route = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        T.tikhonov_persistent_route = rule
+
+
+def tik_grid(n):
+    """``n`` α (phase 17's 64 where ``n`` is 64) and ``n`` data-loss scales
+    C, both varying across the batch (C is no term of the linear loss)."""
+    alphas = TK_ALPHAS if n == len(TK_ALPHAS) else np.linspace(
+        0.005, 0.5, n, dtype=np.float32)
+    return ([float(a) for a in alphas],
+            [float(c) for c in np.linspace(0.3, 2.0, n)])
+
+
+def tik_solver(T, b, reg="TK1", storage="exact", **kw):
+    """The fused Tikhonov batch of ``b``'s shape (σ = 1, CG 10)."""
+    opt = dict(precision="high3", compact_dirs=True) \
+        if storage == "qf32" else {}
+    return T.make_fused_tikhonov_solver(tuple(b.shape), np.eye(b.dim()),
+                                        reg=reg, iter_max=kw.pop(
+                                            "iter_max", TK_ITER_MAX),
+                                        **opt, **kw)
+
+
+def tik_bits(T, F, device, problems):
+    """Every case of :data:`TIK_BIT_CASES`: the library batch (the rule
+    takes it) :data:`PERSISTENT_REPEATS` times, each x ``torch.equal`` to
+    the launch sequence's, one ``tik_persistent`` launch a batch, nothing
+    else launched and no plain call. Returns ``{case: max |x|}`` and the
+    Lena exact 64-α batches by regulariser."""
+    import torch
+
+    out, lena = {}, {}
+    for label, (src, reg, storage, nconf) in TIK_BIT_CASES.items():
+        if isinstance(src, str):
+            b = problems[src][0]
+        else:
+            b = torch.as_tensor(np.random.RandomState(46).rand(*src).astype(
+                np.float32), device=device)
+        solve = tik_solver(T, b, reg, storage)
+        require(solve.route == "persistent", "phase 46: the rule refuses %s"
+                % label)
+        alphas, scales = tik_grid(nconf)
+        want = solve.sequence(b, b, alphas, scales)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        got = [solve(b, b, alphas, scales) for _ in range(PERSISTENT_REPEATS)]
+        torch.cuda.synchronize()
+        counts = used_counts(F)
+        require(counts == ({"tik_persistent": PERSISTENT_REPEATS}, {}),
+                "phase 46: %s launches %s" % (label, counts))
+        for g in got:
+            require(torch.equal(g, want), "phase 46: %s: the persistent "
+                    "batch is not the launch sequence's bits (max |d| %.3g)"
+                    % (label, float((g - want).abs().max())))
+        require(got[0].shape == (nconf,) + tuple(b.shape)
+                and bool(torch.isfinite(got[0]).all()),
+                "phase 46: %s not finite or misshapen" % label)
+        out[label] = float(got[0].abs().max())
+        if src == "lena" and storage == "exact" and nconf == 64:
+            lena[reg] = got[0]
+    return out, lena
+
+
+def tik_anchor_devs(lena, b):
+    """The Lena exact sweeps' objectives against phase 17's float64
+    anchors, at its band: ``{(reg, α index): relative deviation}``."""
+    _, _, A, D, _ = lena_problem()
+    devs = {}
+    for (reg, loss, i), anchor in TK_ANCHORS.items():
+        if loss != "linear":
+            continue
+        obj = tk_objective(lena[reg][i], b, A, D if reg == "TK1"
+                           else (lambda x: x), float(TK_ALPHAS[i]), loss)
+        devs[(reg, i)] = abs(obj - anchor) / anchor
+        require(devs[(reg, i)] <= STUDY_ANCHOR_BAND, "phase 46: %s alpha[%d] "
+                "objective %.9f deviates %.3g from %.9f"
+                % (reg, i, obj, devs[(reg, i)], anchor))
+    return devs
+
+
+def tik_refusals(T, F, device, problems):
+    """The robust loss (Lena TK1 huber × 8) and 256³ × 8 α run on the
+    launch sequence; a forced persistent robust batch raises before it
+    launches. Returns their launches."""
+    import torch
+
+    out = {}
+    b = problems["lena"][0]
+    huber = tik_solver(T, b, iter_max=HUBER_SWEEPS, data_loss="huber",
+                       irls_cg_iters=HUBER_CG)
+    big = torch.as_tensor(np.random.RandomState(46).rand(
+        *SCALE_SHAPE).astype(np.float32), device=device)
+    for label, solve, x in (("Lena huber x 8", huber, b),
+                            ("256^3 x 8", tik_solver(T, big), big)):
+        alphas, scales = tik_grid(8)
+        F.reset_counts()
+        solve(x, x, alphas, scales)
+        torch.cuda.synchronize()
+        counts = used_counts(F)[0]
+        require(solve.route == "sequence" and "tik_persistent" not in counts
+                and counts.get("tik_clip") == 16, "phase 46: %s took %s, "
+                "launches %s" % (label, solve.route, counts))
+        out[label] = counts
+    del big
+    torch.cuda.empty_cache()
+    try:
+        huber.persistent(b, b, [0.1])
+    except ValueError:
+        return out
+    raise PhaseFailure("phase 46: a persistent robust batch ran")
+
+
+def tik_study(device):
+    """Phase 17's Lena TK1L2 × 64 α sweep with records through
+    ``TikhonovLinearSolver.run_sweep`` (exact storage): a closure returning
+    its x and records."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    solver = TikhonovLinearSolver(
+        A, A, img, D, Dt, img, x_scale=xs, minimizer="auto",
+        iter_max=TK_ITER_MAX, blur_cov=np.eye(2), spacing=np.ones(2),
+        reg_kind="TK1", device=device)
+    measures = {
+        "Reg": lambda x: 0.5 * torch.sum(D(x) * D(x)),
+        "Data": lambda x: losses.cost_from_residual(A(x) - bt.to(x.dtype))}
+    params = {"alpha": TK_ALPHAS.astype(np.float64)}
+
+    def run():
+        with exact_storage():
+            x, recs = solver.run_sweep(params, measures=measures)
+        return dict(recs, x=x)
+    return run
+
+
+def tik_study_cli(tmp):
+    """``nsol_torch_run_deconvolution_study`` on the 64³ NIfTI phantom
+    (TK1L2, 8 α, CG 10; its default compact storage): a closure returning
+    its reconstructions."""
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli import run_deconvolution_study as study_cli
+    from nsol_tpu_torch.study import ReaderParameterStudy
+
+    def run():
+        out = tempfile.mkdtemp(dir=tmp)
+        rc = study_cli.main([
+            "--observation", data.path("3D_SheppLoganPhantom_64.nii.gz"),
+            "--reconstruction-type", "TK1L2", "--alpha-range", "0.005",
+            "0.05", "8", "--study-name", "phantom", "--dir-output", out,
+            "--device", "cuda", "--iter-max", str(TK_ITER_MAX)])
+        require(rc == 0, "phase 46: the study CLI exited %r" % rc)
+        reader = ReaderParameterStudy(directory=out, name="phantom")
+        reader.read_study()
+        return dict(reader.get_reconstructions().items())
+    return run
+
+
+def tik_design_turns(T, problems, device):
+    """The designs tried, each bit for bit against the launch sequence and
+    timed against it in turns (sequence, design, design, sequence): on the
+    Lena TK1L2 × 64 batch the configurations one after another (serial),
+    side by side 4 to 64 at a time, and 64 side by side with every block
+    forming every configuration's reduces; on the 64³ and 80³ TK1L2 × 8
+    batches 1 to 8 side by side."""
+    import torch
+
+    b80 = torch.as_tensor(np.random.RandomState(46).rand(80, 80, 80).astype(
+        np.float32), device=device)
+    out = {}
+    for label, b, n, designs in (
+            ("Lena x 64", problems["lena"][0], 64,
+             [("serial", dict(width=1))] + [("side by side %d" % w, dict(
+                 width=w)) for w in (4, 8, 16, 32, 64)]
+             + [("by the rule", {}), ("64, every block reduces all", dict(
+                 width=64, all_reduce=True))]),
+            ("64^3 x 8", problems["phantom"][0], 8,
+             [("side by side %d" % w, dict(width=w)) for w in (1, 2, 4, 8)]
+             + [("by the rule", {})]),
+            ("80^3 x 8", b80, 8,
+             [("side by side %d" % w, dict(width=w)) for w in (1, 2, 4, 8)]
+             + [("by the rule", {})])):
+        solve = tik_solver(T, b)
+        alphas, _ = tik_grid(n)
+        seq = partial(solve.sequence, b, b, alphas)
+        want = seq()
+        for name, dev in designs:
+            pers = partial(solve.persistent, b, b, alphas, **dev)
+            require(torch.equal(pers(), want), "phase 46: design %s %s is "
+                    "not the sequence's bits" % (label, name))
+            out["%s %s" % (label, name)] = turns_ms(seq, pers, 5)
+    return out
+
+
+def run_tik_persistent_phase(device, card):
+    """Phase 46: the fused Tikhonov batch as one persistent cooperative
+    launch (``csrc/tikhonov_persistent.cu``). Its build (ptxas registers
+    and spills, no constant-cache load in its SASS), its launch shape and
+    barriers; every case of :data:`TIK_BIT_CASES` bit for bit against
+    ``nsol_tikhonov_solve``'s launch sequence, repeated, one launch a
+    batch; the Lena sweeps' objectives at phase 17's float64 anchors; the
+    rule's refusals (the robust loss, 256³); times in turns (sequence,
+    persistent, persistent, sequence) by CUDA events of the Lena TK1L2 and
+    TK0L2 × 64 and 64³ TK1L2 × 8 batches, the designs tried,
+    ``TikhonovLinearSolver.run_sweep`` on Lena and the 64³ study CLI; a
+    CUDA graph replay of the launch sequence as a yardstick, the device
+    busy share, and the device time by the kernel's global-timer stamps.
+    Returns the ``kernels`` record of ``tik_solve[persistent]``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+
+    regs = persistent_ptxas(TIK_KERNEL)
+    sass = persistent_sass(TIK_KERNEL)
+    require(sass and all(c == 0 for _, c in sass.values()),
+            "phase 46: constant-cache loads in the persistent kernel %s"
+            % sass)
+    lens = {2: F.taps_lengths([np.ones(7)] * 2),
+            3: F.taps_lengths([np.ones(7)] * 3)}
+    shapes, barriers = {}, {}
+    for k, d, nconf, storage in (("Lena x 64", (1, 256, 256), 64, "exact"),
+                                 ("Lena x 64 qf32", (1, 256, 256), 64, "qf32"),
+                                 ("Lena x 1", (1, 256, 256), 1, "exact"),
+                                 ("Lena x 130", (1, 256, 256), 130, "exact"),
+                                 ("64^3 x 8", (64, 64, 64), 8, "exact")):
+        shapes[k] = T.persistent_shape(d, *lens[2 if d[0] == 1 else 3],
+                                       nconf, storage)
+        mirror = T.persistent_width(nconf, int(np.prod(d)), storage,
+                                    shapes[k][1])
+        require(shapes[k][4] == mirror, "phase 46: %s runs %d side by side, "
+                "its mirror %d" % (k, shapes[k][4], mirror))
+        barriers[k] = T.persistent_barriers(nconf, TK_ITER_MAX, shapes[k][4])
+    print("phase 46 build: ptxas %s; SASS (global loads, constant-cache "
+          "loads) %s; launch shape (blocks an SM, grid, the sequence's "
+          "blocks a volume, threads a block, configurations side by side) "
+          "%s, equal to its Python mirror; grid barriers a CG-10 batch %s "
+          "(serial: %d a configuration) [%s]"
+          % (regs, sass, shapes, barriers,
+             T.persistent_barriers(1, TK_ITER_MAX, 1) - 3, card))
+
+    problems = persistent_problems(device)
+    maxes, lena = tik_bits(T, F, device, problems)
+    devs = tik_anchor_devs(lena, problems["lena"][0])
+    refused = tik_refusals(T, F, device, problems)
+    # the rule in C (nsol_tikhonov_persistent_route) against its mirror
+    lib = F.build.load()
+    rule_cases = 0
+    for shape in PERSISTENT_ROUTE_SHAPES + ((256, 256, 256),):
+        dims = (1,) * (3 - len(shape)) + tuple(shape)
+        for taps in (7, 61):
+            ln = F.taps_lengths([np.ones(taps)] * len(shape))
+            for storage in ("exact", "qf32", "dirs", "state"):
+                for loss in ("linear", "huber"):
+                    c = lib.nsol_tikhonov_persistent_route(
+                        T.Rec.LOSS_IDS.index(loss),
+                        F.B.storage_ids(storage)[1], *ln[0], *ln[1], *dims)
+                    py = T.tikhonov_persistent_route(dims, *ln, storage, loss)
+                    require(bool(c) == py, "phase 46: the rule of %s taps "
+                            "%d %s %s: C %d, Python %s"
+                            % (shape, taps, storage, loss, c, py))
+                    rule_cases += 1
+    print("phase 46 bits: %d cases x %d batches torch.equal to the launch "
+          "sequence, one launch a batch, no plain call: %s; the Lena sweeps' "
+          "objectives vs the float64 anchors %s (band %g); the refusals "
+          "(launches) %s, a forced persistent robust batch raises; the rule "
+          "in C equal to its Python mirror in %d cases [%s]"
+          % (len(maxes), PERSISTENT_REPEATS, sorted(maxes),
+             {"%s[%d]" % k: "%.2e" % v for k, v in devs.items()},
+             STUDY_ANCHOR_BAND, refused, rule_cases, card))
+    lap("phase 46 bits")
+
+    # times in turns, by CUDA events
+    rows = {}
+    for key, (src, reg, storage, n) in (
+            ("Lena TK1L2 x 64", ("lena", "TK1", "exact", 64)),
+            ("Lena TK1L2 x 64 qf32", ("lena", "TK1", "qf32", 64)),
+            ("Lena TK0L2 x 64", ("lena", "TK0", "exact", 64)),
+            ("64^3 TK1L2 x 8", ("phantom", "TK1", "exact", 8))):
+        b = problems[src][0]
+        solve = tik_solver(T, b, reg, storage)
+        alphas, _ = tik_grid(n)
+        rows[key] = turns_ms(partial(solve.sequence, b, b, alphas),
+                             partial(solve, b, b, alphas), 5)
+    designs = tik_design_turns(T, problems, device)
+    study = tik_study(device)
+    study_ms, got = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = tik_study_cli(tmp)
+        cli_ms = []
+        for turn in ("sequence", "persistent", "persistent", "sequence"):
+            route = tik_sequence_route(T) if turn == "sequence" \
+                else contextlib.nullcontext()
+            with route:
+                F.reset_counts()
+                got[turn], ms = timed_once(study)
+                study_ms.append(ms)
+                launched = used_counts(F)[0]
+                require(("tik_persistent" in launched) == (
+                    turn == "persistent"), "phase 46: the Lena run_sweep, %s "
+                    "turn, launches %s" % (turn, launched))
+                got[turn + " cli"], ms = timed_once(cli)
+                cli_ms.append(ms)
+    bad = [k for k in got["sequence"] if not np_bits(
+        got["sequence"][k], got["persistent"][k])]
+    bad += [k for k in got["sequence cli"] if not np_bits(
+        got["sequence cli"][k], got["persistent cli"][k])]
+    require(not bad, "phase 46: run_sweep and the study CLI differ on the "
+            "two routes in %s" % bad)
+    rows["Lena run_sweep"] = study_ms
+    rows["64^3 study CLI"] = cli_ms
+    print("phase 46 ms by CUDA events, turns sequence / persistent / "
+          "persistent / sequence (a batch: median of 5; run_sweep and the "
+          "CLI: one run each, their results equal on the two routes): %s; "
+          "the designs tried (TK1L2, turns sequence / design / design / "
+          "sequence): %s [%s]"
+          % ("; ".join("%s %s" % (k, turns_line(v)) for k, v in rows.items()),
+             "; ".join("%s %s" % (k, turns_line(v))
+                       for k, v in designs.items()), card))
+    lap("phase 46 times")
+
+    # the main path: Lena TK1L2 × 64; a CUDA graph replay of its launch
+    # sequence; the device busy share; the device time by the stamps
+    b = problems["lena"][0]
+    solve = tik_solver(T, b)
+    alphas, _ = tik_grid(64)
+    pers = partial(solve, b, b, alphas)
+    graph, x_graph = graph_of(partial(solve.sequence, b, b, alphas))
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(x_graph, pers()), "phase 46: the graph replay differs "
+            "from the persistent batch")
+    graph_t = [cuda_median_ms(f, 5) for f in (graph.replay, pers, pers,
+                                              graph.replay)]
+    del graph
+    busy = {}
+    for route, fn in (("sequence", partial(solve.sequence, b, b, alphas)),
+                      ("persistent", pers)):
+        busy[route] = (device_busy_ms(fn)[0], cuda_median_ms(fn, 3))
+    phases = F.persistent_phases(pers, device)
+    stamps_ms = sum(us for _, us in phases.values()) / 1e3
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x = pers()
+    torch.cuda.synchronize()
+    launches = F.launch_counts(F.PERSISTENT_UNITS)["tik_persistent"]
+    require(launches == 1, "phase 46: the Lena main path made %d persistent "
+            "launches" % launches)
+    F.reset_counts()
+    solve.sequence(b, b, alphas)
+    torch.cuda.synchronize()
+    counts = F.launch_counts(("normal_apply", "cg_step", "cg_update",
+                              "tik_clip"))
+    n = 256 ** 2
+    (b_ms, b_by), units_ms = persistent_bound(counts, n, lens[2][1],
+                                              lens[2][0], outputs=64)
+    x_p, plain_ms = timed_once(partial(solve.plain, b, b, alphas))
+    err = float((x - x_p).abs().max())
+    print("phase 46 tik_solve[persistent] Lena TK1L2 x 64: launches %d, "
+          "max|d| vs plain %.3e; CUDA graph replay of the launch sequence vs "
+          "the persistent batch, ms (turns graph / persistent / persistent / "
+          "graph) %s; device busy (torch.profiler device ms / wall ms) %s; "
+          "device ms by the global timer's stamps %.4f; a traced batch's "
+          "phases (count x mean us): %s; bound %.4f ms (%s: b, x0 in and 64 "
+          "x out, and the sequence's %s operations), its units' bounds "
+          "summed %.4f ms [%s]"
+          % (launches, err, turns_line(graph_t), {
+              k: "%s/%.3f" % (ms_text(d), w) for k, (d, w) in busy.items()},
+             stamps_ms, "; ".join("%s %d x %.2f" % (k, c, us / c)
+                                  for k, (c, us) in phases.items()),
+             b_ms, b_by, counts, units_ms, card))
+    lap("phase 46")
+    return [{"name": "tik_solve[persistent]", "route": "cuda",
+             "source": "nsol_tpu_torch/csrc/tikhonov_persistent.cu",
+             "replaces": "nsol_tpu/ops/pallas/fused.py:716",
+             "launches": int(launches), "max_abs_err": err,
+             "ms": float(np.median(rows["Lena TK1L2 x 64"][1:3])),
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "device_ms": stamps_ms,
+             "sequence_ms": float(np.median(rows["Lena TK1L2 x 64"][::3])),
+             "graph_replay_ms": float(np.median(graph_t[::3]))}]
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
           "volume", "volume_solves", "tail", "sweep", "engines", "batch",
-          "persistent")
+          "persistent", "tik_persistent")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -9048,8 +9499,10 @@ def main(argv=None):
         kernels += kernel_entries("record", study["launches"], units["err"],
                                   units["times"], 256 ** 2,
                                   iso2.blur.lengths, nd=2)
+        # tik_clip on its default route: the robust sweep's sequence (the
+        # linear sweeps run the persistent batch, phase 46)
         kernels += kernel_entries("tikhonov",
-                                  tik[("TK1", "linear")]["launches"],
+                                  tik[("TK1", "huber")]["launches"],
                                   units["err"], units["times"], 256 ** 2, (),
                                   nd=2)
     if "scale" in groups:
@@ -9093,6 +9546,8 @@ def main(argv=None):
         run_batch_phase(device, card)
     if "persistent" in groups:
         kernels += run_persistent_phase(device, card)
+    if "tik_persistent" in groups:
+        kernels += run_tik_persistent_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -23,10 +23,12 @@
 // registers (1024 threads an SM), the sequence's 1024 blocks at 64^3 in
 // two rounds.
 //
-// Design. A CUDA block runs up to kMaxTeams of the sequence's blocks of
-// kThreads threads side by side (teams, GroupTeam), as many CUDA blocks as
-// the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
-// the SMs; shape_of), so that few blocks arrive at each barrier. Each
+// Design (its machinery in persistent.cuh, shared with
+// tikhonov_persistent.cu). A CUDA block runs up to kMaxTeams of the
+// sequence's blocks of kThreads threads side by side (teams, GroupTeam),
+// as many CUDA blocks as the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs; shape_of), so
+// that few blocks arrive at each barrier. Each
 // phase is one of the sequence's kernels: a team runs the sequence's
 // blocks vb = its first, + its stride, ... in turn, each with the
 // sequence's threads on the sequence's voxels (stencil.cuh's
@@ -49,21 +51,20 @@
 // come from multiplies and shifts (FastIndex), not the sequence's 64-bit
 // divisions (the same integers; 1 ms of the 64^3 solve's 12.3, PERF.md).
 //
-// Coherence. A volume written earlier in the launch by another block must
-// not be read through the non-coherent read-only path, so every load here
-// is a plain one (load_f<false>, no const __restrict__ pointer), even of
-// b and the taps, which nothing writes; chip_smoke.py checks the kernel's
-// SASS for constant-cache loads.
+// Coherence: every load is a plain one (persistent.cuh), even of b and the
+// taps, which nothing writes; chip_smoke.py checks the kernel's SASS for
+// constant-cache loads.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "admm_tail.cuh"
 #include "admm_units.cuh"
+#include "persistent.cuh"
+
+long long* g_persistent_stamps = nullptr;
+int g_persistent_stamp_cap = 0;
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 // admm.cu's Unit slots continue here: the one launch of this solve
 // (ops/cuda/blocked.py's COUNTS).
@@ -74,88 +75,6 @@ constexpr int kAdmmPersistent = 11;
 // sequence (chip_smoke.py phase 45, PERF.md). At sigma = 1 the marches'
 // boundary (vol_route) binds first, at 2^19 voxels.
 constexpr long long kPersistentMaxVoxels = 1LL << 20;
-
-// A CUDA block runs up to kMaxTeams of the launch sequence's blocks side
-// by side (GroupTeam; shape_of picks how many): fewer blocks arrive at
-// each grid barrier (chip_smoke.py phase 45 times the barriers alone at
-// the solves' grids). The register cap: kMaxTeams x kThreads threads an
-// SM.
-constexpr int kMaxTeams = 4;
-
-// Where a traced solve writes its phases' ends (nsol_admm_persistent_trace).
-long long* g_stamps = nullptr;
-int g_stamp_cap = 0;
-
-// The phases a traced solve stamps (fused.py's PERSISTENT_PHASES): the
-// end of each, after its barrier (a reduce: block 0's own end).
-enum Phase {
-  kStart = 0,
-  kStepX = 1, kStepY = 2, kStepZ = 3,        // cg_step's chain
-  kApplyX = 4, kApplyY = 5, kApplyZ = 6,     // A^T b's and the residuals'
-  kRecordX = 7, kRecordY = 8, kRecordZ = 9,  // the records' (and their TV)
-  kReduce = 10,
-  kUpdate = 11,
-  kTail = 12
-};
-
-static_assert(kMaxBlocks <= kReduceThreads, "reduce_sum takes one partial a thread");
-
-// Compile-time tap lengths of the solve's two chains, the normal taps'
-// (kN an axis, kNz along z) and the blur's (kB, kBz), 0 at run time: the
-// main paths' sigma = 1 blur (7 taps an axis, 13 normal taps) on a volume
-// or a 2-D image (z taps 1) unrolls every tap loop (wrap_conv's kK).
-template <int kN, int kB, int kNz, int kBz>
-struct TapLens {
-  static constexpr int nx = kN, ny = kN, nz = kNz, bx = kB, by = kB, bz = kBz;
-};
-using RuntimeLens = TapLens<0, 0, 0, 0>;
-using Sigma1Volume = TapLens<13, 7, 13, 7>;
-using Sigma1Image = TapLens<13, 7, 1, 1>;
-
-// f(TapLens<...>{}) for the taps' lengths.
-template <class F>
-cudaError_t with_lens(const int* a, const int* n, F&& f) {
-  const bool blur7 = a[1] == 7 && a[2] == 7, normal13 = n[1] == 13 && n[2] == 13;
-  if (blur7 && normal13 && a[0] == 7 && n[0] == 13) return f(Sigma1Volume{});
-  if (blur7 && normal13 && a[0] == 1 && n[0] == 1) return f(Sigma1Image{});
-  return f(RuntimeLens{});
-}
-
-// Division by a positive int d < 2^31 of a dividend 0 <= i < 2^31 by a
-// multiply and a shift (CUTLASS's FastDivmod): q = umulhi(i, m) >> s, m =
-// ceil(2^p / d), p = 31 + ceil(log2 d).
-struct FastDiv {
-  int d;
-  unsigned m;
-  int s;
-  static FastDiv of(int d) {
-    if (d == 1) return FastDiv{1, 0u, 0};
-    int l = 0;
-    while ((1LL << l) < d) ++l;
-    const int p = 31 + l;
-    return FastDiv{d, (unsigned)(((1ULL << p) + (unsigned long long)d - 1) / d), p - 32};
-  }
-  __device__ __forceinline__ int div(int i) const {
-    return d == 1 ? i : (int)(__umulhi((unsigned)i, m) >> s);
-  }
-};
-
-// stencil.cuh's DivIndex without a division: the coordinates of a voxel
-// of a volume of fewer than 2^31 voxels by FastDiv.
-struct FastIndex {
-  FastDiv fx, fy;
-  __device__ __forceinline__ int x(long long i) const {
-    return (int)i - fx.div((int)i) * fx.d;
-  }
-  __device__ __forceinline__ int y(long long i) const {
-    const int r = fx.div((int)i);
-    return r - fy.div(r) * fy.d;
-  }
-  __device__ __forceinline__ Coord at(long long i) const {
-    const int r = fx.div((int)i), z = fy.div(r);
-    return Coord{(int)i - r * fx.d, r - z * fy.d, z};
-  }
-};
 
 template <class S>
 struct SolveArgs {
@@ -188,63 +107,20 @@ struct SolveArgs {
   int stamp_cap;
 };
 
-// stencil.cuh's BlockTeam for the team team() of a CUDA block of up to
-// kMaxTeams teams of kThreads threads (the launch sequence's blocks run
-// side by side): its thread, its own named barrier (1 + team()) and
-// block_sum's tree over its kThreads threads (valid in tid() 0; a sync()
-// between two calls).
-struct GroupTeam {
-  __device__ static int team() { return threadIdx.x / kThreads; }
-  __device__ static int tid() { return threadIdx.x % kThreads; }
-  __device__ static void sync() {
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + team()), "r"(kThreads) : "memory");
-  }
-  __device__ static double sum(double v) {
-    __shared__ double warp_sums[kMaxTeams][kThreads / 32];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    const int lane = threadIdx.x & 31, warp = tid() >> 5;
-    if (lane == 0) warp_sums[team()][warp] = v;
-    sync();
-    if (warp == 0) {
-      v = lane < kThreads / 32 ? warp_sums[team()][lane] : 0.0;
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    return v;
+// admm_record's TV partials of x beside the records' x pass (chain's
+// Beside).
+struct RecordTv {
+  const float* x;
+  double* partials;
+  Spacing sp;
+  Dims d;
+  FastIndex idx;
+  int G;
+  __device__ void operator()(int vb) const {
+    record_tv_body<GroupTeam>(x, partials, sp, d, idx, vb, G);
+    GroupTeam::sync();
   }
 };
-
-// The sum that reduce_kernel's one block of kReduceThreads threads forms
-// of partials[0, nparts), nparts <= kReduceThreads (one partial a thread
-// there: 0.0 + its partial, or 0.0), formed by this CUDA block (kThreads
-// to kReduceThreads threads): each warp takes the reduce block's warps
-// warp, warp + its block's warps, ..., their partials loaded at once,
-// each summed with block_sum's shuffle tree; then warp 0 sums their sums
-// as block_sum does. Valid in thread 0; every thread of the block calls
-// it.
-__device__ double reduce_sum(const double* partials, int nparts) {
-  constexpr int kWarps = kReduceThreads / 32, kTurns = kReduceThreads / kThreads;
-  __shared__ double warp_sums[kWarps];
-  __syncthreads();  // a previous call's reads of warp_sums
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  double v[kTurns];
-#pragma unroll
-  for (int j = 0; j < kTurns; ++j) {
-    const int vw = warp + j * nw, k = vw * 32 + lane;
-    v[j] = vw < kWarps && k < nparts ? 0.0 + partials[k] : 0.0;
-  }
-#pragma unroll
-  for (int j = 0; j < kTurns; ++j) {
-    for (int off = 16; off > 0; off >>= 1) v[j] += __shfl_down_sync(0xffffffffu, v[j], off);
-    if (lane == 0 && warp + j * nw < kWarps) warp_sums[warp + j * nw] = v[j];
-  }
-  __syncthreads();
-  double s = 0.0;
-  if (warp == 0) {
-    s = warp_sums[lane];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  }
-  return s;
-}
 
 template <class S, class L>
 struct Persistent {
@@ -253,70 +129,17 @@ struct Persistent {
   using Q = typename S::Q;
   using Vol = LoadT<float, float, false>;
   const SolveArgs<S>& a;
-  cg::grid_group grid;
-  double* sc;   // the block's CG scalars (shared memory)
+  Phases ph;
+  CgSums sums;
   float* tsh;   // room for the taps in shared memory (fixed lengths)
-  int set = 0;  // the partials set the next reduced pass writes
-  int nstamp = 0;
+  Walk w;       // the whole volume: this team's first block and stride
   Taps ta, tn;  // the blur's and the normal taps, where the passes read them
 
-  __device__ double* parts() const { return a.partials + set * kMaxBlocks; }
-  // this team's first of the sequence's blocks, and its stride through them
-  __device__ int first() const {
-    return blockIdx.x * (blockDim.x / kThreads) + GroupTeam::team();
-  }
-  __device__ int stride() const { return gridDim.x * (blockDim.x / kThreads); }
-
-  // A traced solve's stamp of the end of a phase, by block 0.
-  __device__ void stamp(int phase) {
-    if (a.stamps == nullptr || blockIdx.x != 0 || threadIdx.x != 0 || nstamp >= a.stamp_cap)
-      return;
-    long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.stamps[2 * nstamp] = t;
-    a.stamps[2 * nstamp + 1] = phase;
-    ++nstamp;
-  }
-
-  __device__ void sync(int phase) {
-    grid.sync();
-    stamp(phase);
-  }
-
-  // One blur chain through t1, t2 (stencil.cuh's blur_chain): x pass,
-  // y pass, z pass into the epilogue, a barrier after each. tv: also the
-  // records' TV partials of x beside the x pass.
-  // kX, kY, kZ: the taps' lengths at compile time, or 0.
-  template <int kX, int kY, int kZ, class Src, class Epi>
-  __device__ void chain(int phase, const Src& src, typename Src::Dir* dir_out, const Epi& epi,
-                        double* partials, const Taps& tp, bool tv = false) {
-    for (int vb = first(); vb < a.G; vb += stride()) {
-      conv_x_body<false, kX, GroupTeam>(src, a.t1, dir_out, tp.x, tp.kx, a.d, a.idx, vb, a.G);
-      if (tv) {
-        record_tv_body<GroupTeam>(a.x, a.rec_partials + kMaxBlocks, a.sp, a.d, a.idx, vb, a.G);
-        GroupTeam::sync();
-      }
-    }
-    sync(phase);
-    for (int vb = first(); vb < a.G; vb += stride())
-      conv_y_body<false, kY, GroupTeam>(a.t1, a.t2, tp.y, tp.ky, a.d, a.idx, vb, a.G);
-    sync(phase + 1);
-    for (int vb = first(); vb < a.G; vb += stride()) {
-      conv_z_body<false, false, kZ, GroupTeam>(a.t2, epi, partials, tp.z, tp.kz, a.d, 0,
-                                               a.idx, vb, a.G);
-      GroupTeam::sync();
-    }
-    sync(phase + 2);
-  }
-
-  // The one-block second stage of the pass that wrote parts(), formed by
-  // every block into its own scalars, then the next set.
+  // The one-block second stage of the pass that wrote sums.parts(), formed
+  // by every block into its own scalars, then the next set.
   __device__ void reduce(int mode) {
-    const double s = reduce_sum(parts(), a.G);
-    set ^= 1;
-    if (threadIdx.x == 0) update_scalars(sc, s, mode);
-    __syncthreads();
-    stamp(kReduce);
+    sums.reduce(a.G, mode);
+    ph.stamp(kReduce);
   }
 
   // admm_tail over the volume (three components: nsol_admm_solve runs a
@@ -327,7 +150,7 @@ struct Persistent {
     const long long n = d.n();
     const TailArgs t{a.x, a.w[wr], a.w[ww], nullptr, a.atb, a.rhs, a.sp.ihx, a.sp.ihy,
                      a.sp.ihz, a.tau, a.rho, d.Z, d.Y, d.X, n, 0, 0};
-    for (int vb = first(); vb < a.G; vb += stride())
+    for (int vb = w.first; vb < a.G; vb += w.stride)
       BLOCK_STRIDE(i, n, vb, a.G, GroupTeam::tid()) {
         const Coord c = a.idx.at(i);
         tail_voxel<kInit, true, false>(t, c.x, c.y, c.z);
@@ -338,9 +161,10 @@ struct Persistent {
   // the blur taps with the data epilogue, the TV beside its x pass, and
   // block 0's second stage.
   __device__ void record(int t) {
-    chain<L::bx, L::by, L::bz>(kRecordX, Vol{a.x}, nullptr,
-                               DataEpiT<false>{a.b, a.fs2, a.loss}, a.rec_partials, ta,
-                               true);
+    chain<L::bx, L::by, L::bz>(w, ph, kRecordX, Vol{a.x}, nullptr,
+                               DataEpiT<false>{a.b, a.fs2, a.loss}, a.rec_partials, ta, a.t1,
+                               a.t2,
+                               RecordTv{a.x, a.rec_partials + kMaxBlocks, a.sp, a.d, a.idx, a.G});
     if (blockIdx.x != 0) return;
     const double tv = reduce_sum(a.rec_partials + kMaxBlocks, a.G);
     const double ds = reduce_sum(a.rec_partials, a.G);
@@ -353,59 +177,55 @@ struct Persistent {
   // nsol_admm_solve's sequence (sweep 0), phase by phase.
   __device__ void run() {
     const bool records = a.reg != nullptr;
-    if (threadIdx.x < 4) sc[threadIdx.x] = a.scal[threadIdx.x];
+    if (threadIdx.x < 4) sums.sc[threadIdx.x] = a.scal[threadIdx.x];
     ta = a.ta;
     tn = a.tn;
-    if (L::nx > 0) {  // fixed lengths: the taps from shared memory (z, y, x)
-      constexpr int na = L::bz + L::by + L::bx, nn = L::nz + L::ny + L::nx;
-      for (int k = threadIdx.x; k < na + nn; k += blockDim.x)
-        tsh[k] = k < na ? a.ta.z[k] : a.tn.z[k - na];
-      ta = make_taps(tsh, L::bz, L::by, L::bx);
-      tn = make_taps(tsh + na, L::nz, L::ny, L::nx);
-    }
+    taps_to_shared<L>(tsh, ta, tn);
     __syncthreads();
-    stamp(kStart);
+    ph.stamp(kStart);
     if (records) record(0);
     // A^T b = A b (rho 0), then the init tail; the first residual's x
     // pass reads x, which the init tail does not write: no barrier
     const Vol bs{a.b};
     chain<L::bx, L::by, L::bz>(
-        kApplyX, bs, nullptr, NormalEpi<kRegLap, Vol, float>{bs, nullptr, a.atb, 0.f, a.sp, kPlain},
-        nullptr, ta);
+        w, ph, kApplyX, bs, nullptr,
+        NormalEpi<kRegLap, Vol, float>{bs, nullptr, a.atb, 0.f, a.sp, kPlain}, nullptr, ta, a.t1,
+        a.t2);
     tail<true>(0, 0);
     int wc = 0;
     for (int it = 0; it < a.iterations; ++it) {
       const Vol xs{a.x};
       chain<L::nx, L::ny, L::nz>(
-          kApplyX, xs, nullptr, NormalEpi<kRegLap, Vol, R>{xs, a.rhs, a.r, a.rho, a.sp, kResidual},
-          parts(), tn);
+          w, ph, kApplyX, xs, nullptr,
+          NormalEpi<kRegLap, Vol, R>{xs, a.rhs, a.r, a.rho, a.sp, kResidual}, sums.parts(), tn,
+          a.t1, a.t2);
       reduce(kReduceRR0);
       int pc = 1;  // p' into p[pc], p from p[1 - pc]
       for (int k = 0; k < a.iter_max; ++k) {
         const DirectionT<false, R, P, false> dir{
-            a.r, a.p[1 - pc], nullptr, nullptr, k == 0, k == 0 ? 0.f : (float)sc[kBeta]};
+            a.r, a.p[1 - pc], nullptr, nullptr, k == 0, k == 0 ? 0.f : (float)sums.sc[kBeta]};
         const LoadT<P, P, false> pn{a.p[pc]};
         chain<L::nx, L::ny, L::nz>(
-            kStepX, dir, a.p[pc],
+            w, ph, kStepX, dir, a.p[pc],
             NormalEpi<kRegLap, LoadT<P, P, false>, Q>{pn, nullptr, a.q, a.rho, a.sp, kDot},
-            parts(), tn);
+            sums.parts(), tn, a.t1, a.t2);
         reduce(kReducePQ);
-        const float alpha = (float)sc[kA];
-        for (int vb = first(); vb < a.G; vb += stride()) {
-          cg_update_body<GroupTeam>(alpha, a.x, a.r, a.p[pc], a.q, parts(), a.d.n(), 1, vb,
+        const float alpha = (float)sums.sc[kA];
+        for (int vb = w.first; vb < a.G; vb += w.stride) {
+          cg_update_body<GroupTeam>(alpha, a.x, a.r, a.p[pc], a.q, sums.parts(), a.d.n(), 1, vb,
                                     a.G);
           GroupTeam::sync();
         }
-        sync(kUpdate);
+        ph.sync(kUpdate);
         reduce(kReduceRR);
         pc = 1 - pc;
       }
       tail<false>(wc, 1 - wc);
       wc = 1 - wc;
-      sync(kTail);
+      ph.sync(kTail);
       if (records) record(it + 1);
     }
-    if (blockIdx.x == 0 && threadIdx.x < 4) a.scal[threadIdx.x] = sc[threadIdx.x];
+    if (blockIdx.x == 0 && threadIdx.x < 4) a.scal[threadIdx.x] = sums.sc[threadIdx.x];
   }
 };
 
@@ -413,8 +233,13 @@ template <class S, class L>
 __global__ void __launch_bounds__(kThreads * kMaxTeams, 1)
     admm_persistent_kernel(const __grid_constant__ SolveArgs<S> a) {
   __shared__ double sc[4];
-  __shared__ float tsh[L::nx > 0 ? L::bz + L::by + L::bx + L::nz + L::ny + L::nx : 1];
-  Persistent<S, L>{a, cg::this_grid(), sc, tsh}.run();
+  __shared__ float tsh[L::shared];
+  const int teams = blockDim.x / kThreads;
+  const Walk w{(int)blockIdx.x * teams + GroupTeam::team(), (int)gridDim.x * teams, a.G, a.d,
+               a.idx};
+  Persistent<S, L>{a, Phases{cg::this_grid(), a.stamps, a.stamp_cap}, CgSums{a.partials, sc},
+                   tsh, w}
+      .run();
 }
 
 // n grid barriers and nothing else, at the solve's block shape: what the
@@ -427,41 +252,6 @@ __global__ void __launch_bounds__(kThreads * kMaxTeams, 1) barriers_kernel(int n
 template <class S, class L>
 const void* kernel_of() {
   return (const void*)admm_persistent_kernel<S, L>;
-}
-
-// f(StoreT<...>{}) for the storage modes this kernel runs: "exact" and
-// "qf32" (stencil.cuh's with_storage, the two instances only).
-template <class F>
-cudaError_t with_solve_storage(int storage, F&& f) {
-  if (storage == kStoreExact) return f(StoreT<float, float, float>{});
-  if (storage == kStoreQf32) return f(StoreT<float, bf16, float>{});
-  return cudaErrorInvalidValue;
-}
-
-// The launch shape of a solve: the launch sequence's blocks a CUDA block
-// runs side by side (teams), its threads, the blocks an SM holds, the grid.
-struct Shape {
-  int teams, threads, per_sm, grid;
-};
-
-// The shape of the kernel fn over a launch sequence of G blocks: the most
-// teams (kMaxTeams, halved) whose blocks still reach 7/8 of the SMs, and
-// a grid of as many blocks as the card holds at once, capped at what the
-// teams need. PERF.md has 1, 2 and 4 teams timed at 64^3 (1024 blocks:
-// the rule takes 4) and on a 256^2 image (256 blocks: 2; 4 would leave
-// half the SMs idle).
-cudaError_t shape_of(const void* fn, int G, Shape* out) {
-  const int sms = device_sms();
-  int teams = kMaxTeams;
-  while (teams > 1 && (G + teams - 1) / teams * 8 < sms * 7) teams /= 2;
-  int per_sm = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, teams * kThreads, 0);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int need = (G + teams - 1) / teams;
-  *out = Shape{teams, teams * kThreads, per_sm, per_sm * sms < need ? per_sm * sms : need};
-  return cudaSuccess;
 }
 
 template <class S>
@@ -529,8 +319,8 @@ int nsol_admm_persistent_barriers(int n, int grid, int threads, void* stream) {
 // phases into stamps as (globaltimer ns, Phase) pairs, by block 0; null
 // stops tracing.
 int nsol_admm_persistent_trace(long long* stamps, int capacity) {
-  g_stamps = stamps;
-  g_stamp_cap = stamps != nullptr ? capacity : 0;
+  g_persistent_stamps = stamps;
+  g_persistent_stamp_cap = stamps != nullptr ? capacity : 0;
   return 0;
 }
 
@@ -585,8 +375,8 @@ int nsol_admm_solve_persistent(const float* b, float* x, float* v, float* w, flo
                    d,
                    FastIndex{FastDiv::of(X), FastDiv::of(Y)},
                    grid_for(d.n()),
-                   g_stamps,
-                   g_stamp_cap};
+                   g_persistent_stamps,
+                   g_persistent_stamp_cap};
     return launch_solve(a, (cudaStream_t)stream);
   });
   if (e == cudaSuccess) counts[kAdmmPersistent] += 1;

@@ -31,7 +31,12 @@
 //
 // What bounds it on the H100: as admm.cu, bytes at 256^3 (tik_clip moves
 // two volumes) and launches at 256^2, where one CG-10 solve is ~67 short
-// launches and their host enqueue. normal_apply, cg_step, irls_head,
+// launches and their host enqueue. So the linear loss runs this sequence
+// only past tikhonov_persistent.cu's rule (nsol_tikhonov_persistent_route:
+// more than 2^20 voxels, or a unit of the sequence on its march, as at
+// 256^3, or storage other than exact and qf32): on the Lena and 64^3
+// sweeps the whole batch is one cooperative launch there, the same bits.
+// The robust losses always run it. normal_apply, cg_step, irls_head,
 // blur_apply and weighted_apply take the march or the chain by
 // march.cuh's vol_route, as their C entries do.
 
@@ -43,7 +48,8 @@
 
 namespace {
 
-// Kernel units of this file, the indices of its launch counts.
+// Kernel units of this file, the indices of its launch counts; slot 1 is
+// tikhonov_persistent.cu's one-launch batch (kTikPersistent).
 enum Unit { kTikClip = 0 };
 
 }  // namespace

@@ -96,6 +96,10 @@ _SIGNATURES = {
     "nsol_cg_direction": [_P] * 4 + [_LL, _I, _P, _P],
     "nsol_blocked_admm_solve": [_P] * 13 + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 8 + [_I] * 4 + [_I] * 3 + [_P] * 3,
+    "nsol_tikhonov_solve_persistent": [_P] * 12 + [_I, _I, _P, _I, _I, _I, _P]
+    + [_I] * 3 + [_F] * 3 + [_I] * 5 + [_I] * 3 + [_P, _P],
+    "nsol_tikhonov_persistent_route": [_I] * 11,
+    "nsol_tikhonov_persistent_shape": [_I] * 12 + [_P],
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 4 + [_I] * 3 + [_P] * 4,
 }
@@ -183,7 +187,8 @@ def new_counts(n):
     pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
     irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,
     weighted_apply, blur_apply and irls_head on their marches,
-    blur_apply_prepadded on its window march; ``tikhonov.cu``: tik_clip;
+    blur_apply_prepadded on its window march; ``tikhonov.cu``: tik_clip,
+    and in slot 1 ``tikhonov_persistent.cu``'s one-launch batch;
     ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The
     kernels of ``stream.cuh`` count as their callers' units (tik_clip,

@@ -229,11 +229,10 @@ def _solve_steps(steps, st, b, x0, alpha, rho, iterations, iter_max,
     return x, reg, data
 
 
-#: the storage modes of :data:`~.blocked.STORAGE` the persistent solve
-#: runs (``csrc/admm_persistent.cu``), and the most voxels its route takes
-#: (``kPersistentMaxVoxels`` there)
-PERSISTENT_STORAGE = ("exact", "qf32")
-PERSISTENT_MAX_VOXELS = 1 << 20
+#: the storage modes the persistent solve runs and the most voxels its
+#: route takes (:func:`~.tiled.persistent_fits`)
+PERSISTENT_STORAGE = Z.PERSISTENT_STORAGE
+PERSISTENT_MAX_VOXELS = Z.PERSISTENT_MAX_VOXELS
 
 
 def persistent_route(dims, blur, normal, storage="exact", sweep=False,
@@ -241,31 +240,17 @@ def persistent_route(dims, blur, normal, storage="exact", sweep=False,
     """Whether the linear ADMM solve of a ``(Z, Y, X)`` volume (a 2-D
     image as ``(1, Y, X)``) runs on the card as one cooperative launch,
     ``csrc/admm_persistent.cu``, rather than as ``nsol_admm_solve``'s
-    launch sequence: storage ``"exact"`` or ``"qf32"``, no sweep, the
-    linear loss, at most :data:`PERSISTENT_MAX_VOXELS` voxels, where no
-    unit of the sequence takes its march (:func:`~.tiled.vol_route` of
-    ``Aᵀb``'s ``normal_apply`` at the ``blur`` taps' lengths, the
-    residual's at the ``normal`` taps' and ``cg_step``'s): the kernel gives
-    the chain's bits, whose partial sums a march would not give. The
-    shape decides, never a failure. Mirrors ``csrc/admm_persistent.cu``'s
+    launch sequence: the linear loss without the sweep, where
+    :func:`~.tiled.persistent_fits` takes the shape and storage (exact or
+    qf32, at most 2^20 voxels, no unit of the sequence marching at the
+    ``blur`` and ``normal`` taps' lengths). The shape decides, never a
+    failure. Mirrors ``csrc/admm_persistent.cu``'s
     ``nsol_admm_persistent_route``."""
-    if data_loss != "linear" or sweep or storage not in PERSISTENT_STORAGE:
-        return False
-    if int(np.prod(dims)) > PERSISTENT_MAX_VOXELS:
-        return False
-    return all(Z.vol_route(unit, tuple(lengths), tuple(dims)) == "chain"
-               for unit, lengths in (("normal_apply", blur),
-                                     ("normal_apply", normal),
-                                     ("cg_step", normal)))
+    return data_loss == "linear" and not sweep \
+        and Z.persistent_fits(dims, blur, normal, storage)
 
 
-def taps_lengths(factors):
-    """``(blur, normal)``: the lengths ``(kz, ky, kx)`` of a separable
-    blur's taps and of its self-correlated normal taps, as the kernels take
-    them (a 2-D image's with the z tap ``[1]``)."""
-    pad = (1,) * (3 - len(factors))
-    return (pad + tuple(len(f) for f in factors),
-            pad + tuple(2 * len(f) - 1 for f in factors))
+taps_lengths = Z.taps_lengths
 
 
 def persistent_barriers(iterations, iter_max, record=False):
@@ -320,12 +305,12 @@ def persistent_barrier_ms(n, grid, threads, device):
 
 
 #: the phases a traced persistent solve stamps (``Phase`` of
-#: ``csrc/admm_persistent.cu``), each at its end, after its barrier; a
-#: reduce at block 0's own end
+#: ``csrc/persistent.cuh``), each at its end, after its barrier; a reduce
+#: and the Tikhonov batch's exit clip at block 0's own end
 PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
                      "normal_apply x", "normal_apply y", "normal_apply z",
                      "admm_record x", "admm_record y", "admm_record z",
-                     "reduce", "cg_update", "admm_tail")
+                     "reduce", "cg_update", "admm_tail", "tik_clip")
 
 
 def persistent_phases(fn, device, capacity=1 << 14):
@@ -1011,9 +996,11 @@ _MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
           "blur_apply_prepadded_march": R.blur_apply_prepadded,
           "cg_sweep_march": B.cg_sweep}
 MARCH_UNITS = tuple(_MARCH)
-#: the one-launch solve of the fused route (``csrc/admm_persistent.cu``),
-#: counted apart from the units of the launch sequence it replaces
-_SOLVES = {"admm_persistent": admm_persistent}
+#: the one-launch solves (``csrc/admm_persistent.cu``,
+#: ``csrc/tikhonov_persistent.cu``), counted apart from the units of the
+#: launch sequences they replace
+_SOLVES = {"admm_persistent": admm_persistent,
+           "tik_persistent": T.tik_persistent}
 PERSISTENT_UNITS = tuple(_SOLVES)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),

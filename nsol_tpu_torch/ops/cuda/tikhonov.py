@@ -18,6 +18,13 @@ with its plain PyTorch version beside it and a launch counter:
   (``fused.py:877``). Its kernel is ``csrc/stream.cuh``'s ``stream_clip``
   (16-byte accesses, one 4-voxel chunk a thread).
 
+Where :func:`tikhonov_persistent_route` takes the shape (the linear loss,
+storage exact or qf32, at most 2^20 voxels where no unit of that sequence
+marches: the Lena and 64³ sweeps), the linear batch runs instead as one
+persistent cooperative launch, ``csrc/tikhonov_persistent.cu``: each unit
+of the sequence a phase between grid barriers, the batch's configurations
+side by side, the same bits (:func:`tik_persistent`'s count).
+
 Semantics are ``tikhonov_solve``'s with ``b_reg = 0`` and bounds
 ``(0, ∞)``: linear loss → ``iter_max`` warm-started CG iterations on
 ``(AᵀA + α BᵀB) x = Aᵀb`` with the zero-guards of ``_cg_inkernel``;
@@ -45,7 +52,11 @@ from nsol_tpu_torch.ops.cuda import robust as R
 from nsol_tpu_torch.ops.cuda import tiled as Z
 
 __all__ = ["tik_clip", "tik_clip_plain", "make_fused_tikhonov_solver",
-           "UNITS", "PLAIN"]
+           "tik_persistent", "tikhonov_persistent_route",
+           "persistent_barriers", "persistent_shape", "persistent_width",
+           "COUNTS",
+           "PERSISTENT_SLOT", "PERSISTENT_SIDE_BY_SIDE_BYTES", "UNITS",
+           "PLAIN"]
 
 
 def tik_clip_plain(out, x):
@@ -65,7 +76,7 @@ def tik_clip(out, x):
     name = "tik_clip"
     B.check_tensors(name, out.shape, out, x)
     lib = build.load()
-    counts = build.new_counts(1)
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_tik_clip(build.tensor_ptr(out), build.tensor_ptr(x),
                             out.numel(), build.stream_ptr(out.device), counts)
     build.check(err, name)
@@ -77,6 +88,84 @@ tik_clip.launches = 0
 #: this module's unit, in the order of ``csrc/tikhonov.cu``'s counts
 UNITS = (tik_clip,)
 PLAIN = (tik_clip_plain,)
+#: ``csrc/tikhonov.cu``'s count slots: ``tik_clip``'s, then in
+#: :data:`PERSISTENT_SLOT` the one launch of ``csrc/tikhonov_persistent.cu``
+COUNTS = 2
+PERSISTENT_SLOT = 1
+#: the bytes the configurations the persistent launch runs side by side
+#: may hold, their x and their scratch (``kSideBySideBytes`` there): a
+#: longer batch runs in turns of equal size (:func:`persistent_shape`)
+PERSISTENT_SIDE_BY_SIDE_BYTES = 32 << 20
+
+
+def tikhonov_persistent_route(dims, blur, normal, storage="exact",
+                              data_loss="linear"):
+    """Whether the Tikhonov batch of a ``(Z, Y, X)`` volume (a 2-D image as
+    ``(1, Y, X)``) runs on the card as one cooperative launch,
+    ``csrc/tikhonov_persistent.cu``, rather than as
+    ``nsol_tikhonov_solve``'s launch sequence: the linear loss, where
+    :func:`~.tiled.persistent_fits` takes the shape and storage (exact or
+    qf32, at most 2^20 voxels, no unit of the sequence marching at the
+    ``blur`` and ``normal`` taps' lengths, :func:`~.tiled.taps_lengths`).
+    The shape decides, never a failure. Mirrors
+    ``csrc/tikhonov_persistent.cu``'s ``nsol_tikhonov_persistent_route``."""
+    return data_loss == "linear" \
+        and Z.persistent_fits(dims, blur, normal, storage)
+
+
+def persistent_width(nconf, voxels, storage="exact", grid=132):
+    """The configurations of a persistent batch of ``nconf`` that run side
+    by side on a grid of ``grid`` blocks: as many as
+    :data:`PERSISTENT_SIDE_BY_SIDE_BYTES` holds of their x and scratch
+    (x, r, q, t1, t2 in float and the two directions in the storage's
+    type, ``voxels`` each), at least 1 and at most one a block, in turns of
+    equal size. Mirrors ``csrc/tikhonov_persistent.cu``'s
+    ``batch_width``."""
+    per = int(voxels) * (5 * 4 + 2 * (2 if storage == "qf32" else 4))
+    w = max(min(PERSISTENT_SIDE_BY_SIDE_BYTES // per, int(grid),
+                int(nconf)), 1)
+    turns = -(-int(nconf) // w)
+    return -(-int(nconf) // turns)
+
+
+def persistent_barriers(nconf, iter_max, width):
+    """Grid barriers one persistent batch takes: three for ``Aᵀb``; for
+    each turn of ``width`` configurations side by side, three for
+    the residual's chain and, each CG iteration, three for ``cg_step``'s
+    chain and one after ``cg_update`` but the last (its reduce, which
+    nothing reads, is not formed; the exit clip runs on each thread's own
+    voxels). Every block forms its configuration's reduces itself, with no
+    barrier after them."""
+    turns = -(-int(nconf) // int(width))
+    return 3 + turns * (3 + max(4 * int(iter_max) - 1, 0))
+
+
+def persistent_shape(dims, blur, normal, nconf, storage="exact", reg="TK1"):
+    """``(blocks an SM, grid, the launch sequence's blocks a volume, threads
+    a block, configurations side by side)`` of the persistent batch of
+    ``nconf`` configurations of ``dims`` at the taps' lengths ``blur``,
+    ``normal`` on the current card: side by side as many as
+    :data:`PERSISTENT_SIDE_BY_SIDE_BYTES` holds (their x and 6 volumes of
+    scratch each), at least 1 and at most one a block, in turns of equal
+    size."""
+    out = (build.ctypes.c_int * 5)()
+    build.check(build.load().nsol_tikhonov_persistent_shape(
+        B.storage_ids(storage)[1], B.reg_id(reg), *blur, *normal, int(nconf),
+        *dims, out), "tik_persistent")
+    return tuple(out)
+
+
+def tik_persistent(*args):
+    """The C entry of the one-launch batch
+    (``nsol_tikhonov_solve_persistent``), whose launches
+    :func:`~.fused.launch_counts` reports as ``"tik_persistent"``."""
+    counts = build.new_counts(COUNTS)
+    err = build.load().nsol_tikhonov_solve_persistent(*args, counts)
+    build.check(err, "tik_persistent")
+    tik_persistent.launches += counts[PERSISTENT_SLOT]
+
+
+tik_persistent.launches = 0
 
 _LINEAR = (B.normal_apply, B.cg_step, B.cg_update)
 _LINEAR_PLAIN = (B.normal_apply_plain, B.cg_step_plain, B.cg_update_plain)
@@ -124,11 +213,64 @@ def _tik_steps(units, st, b, x0, alphas, scales, reg, loss, iter_max,
     return out
 
 
+def _tik_persistent(st, b, x0, alphas, reg, iter_max, compact, dims, ta,
+                    tn, width=0, all_reduce=False):
+    """The linear batch as one cooperative launch: ``(B, *shape)``."""
+    nconf = len(alphas)
+    storage = "qf32" if compact else "exact"
+    slots = width or persistent_shape(dims, ta.lengths, tn.lengths, nconf,
+                                      storage, reg)[4]
+    out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
+                      device=b.device)
+    atb = torch.empty_like(b)
+    # r p0 p1 q t1 t2 of each configuration side by side; p0, p1 are the
+    # CG directions
+    p_dtype = B.BF16 if compact else b.dtype
+    vols = [torch.empty((slots,) + tuple(b.shape),
+                        dtype=p_dtype if k in (1, 2) else b.dtype,
+                        device=b.device) for k in range(6)]
+    partials = torch.empty(2 * slots * build.load().nsol_max_blocks(),
+                           dtype=torch.float64, device=b.device)
+    # the α from pinned memory, with no wait for the stream
+    a_dev = torch.tensor([float(a) for a in alphas],
+                         dtype=torch.float32).pin_memory().to(
+                             b.device, non_blocking=True)
+    tik_persistent(
+        build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(out),
+        build.tensor_ptr(atb), *[build.tensor_ptr(t) for t in vols],
+        build.tensor_ptr(partials), build.tensor_ptr(a_dev), nconf, slots,
+        build.tensor_ptr(ta.buf), *ta.lengths, build.tensor_ptr(tn.buf),
+        *tn.lengths, *B.spacing3(st.inv_h2), B.reg_id(reg), int(iter_max),
+        B.storage_ids(storage)[1], int(width),
+        int(bool(all_reduce)), *dims, build.stream_ptr(b.device))
+    return out
+
+
 def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
-                    cg_iters, compact=False):
+                    cg_iters, compact=False, route=None, width=0,
+                    all_reduce=False):
+    """The batch on the card by ``route``: ``None`` takes
+    :func:`tikhonov_persistent_route`'s, ``"persistent"`` the one launch
+    (the linear loss, whatever the shape) and ``"sequence"``
+    ``nsol_tikhonov_solve``'s launch sequence (the bit reference)."""
     name = "make_fused_tikhonov_solver"
     dims = B.volume_dims(name, b)
+    ta, tn = st.blur.as_volume(), st.normal.as_volume()
+    storage = "qf32" if compact else "exact"
+    if route is None:
+        route = "persistent" if tikhonov_persistent_route(
+            dims, ta.lengths, tn.lengths, storage, loss) else "sequence"
+    if route not in ("persistent", "sequence"):
+        raise ValueError("route must be 'persistent' or 'sequence', got %r"
+                         % (route,))
+    if route == "persistent":
+        if loss != "linear":
+            raise ValueError("%s: the persistent batch runs the linear loss"
+                             % name)
     B.check_tensors(name, b.shape, b, x0)
+    if route == "persistent":
+        return _tik_persistent(st, b, x0, alphas, reg, iter_max, compact,
+                               dims, ta, tn, width, all_reduce)
     nconf = len(alphas)
     lib = build.load()
     out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
@@ -146,10 +288,9 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     scal = B.new_scalars(b.device)
     a_host = (build.ctypes.c_float * nconf)(*[float(a) for a in alphas])
     c_host = (build.ctypes.c_float * nconf)(*[float(c) for c in scales])
-    ta, tn = st.blur.as_volume(), st.normal.as_volume()
     admm_counts = build.new_counts(B.COUNTS)
     robust_counts = build.new_counts(B.COUNTS)
-    counts = build.new_counts(1)
+    counts = build.new_counts(COUNTS)
     err = lib.nsol_tikhonov_solve(
         build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(out),
         *[build.tensor_ptr(t) for t in vols], build.tensor_ptr(partials),
@@ -183,9 +324,13 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     B values (returns ``(B, *shape)``, the counterpart of ``jax.vmap`` over
     the runtime α); ``data_loss_scale`` is a scalar or one value per α.
     Device and dtype follow ``b``: on CUDA the batch runs as one
-    ``nsol_tikhonov_solve`` call (2-D or 3-D float32), on the CPU as the
-    plain versions (any float dtype). ``interpret=True`` and
-    ``solve.plain`` run the plain versions on any device.
+    cooperative launch of ``csrc/tikhonov_persistent.cu`` where
+    :func:`tikhonov_persistent_route` takes the shape (``solve.route``),
+    else as one ``nsol_tikhonov_solve`` call (2-D or 3-D float32); on the
+    CPU as the plain versions (any float dtype). ``interpret=True`` and
+    ``solve.plain`` run the plain versions on any device; on the card
+    ``solve.sequence`` runs the launch sequence and ``solve.persistent``
+    the one launch (the linear loss) whatever the rule says.
     ``compact_dirs=True`` needs ``precision="high3"``, as in the reference
     (``ValueError`` otherwise): the CG directions in bfloat16 (module
     docstring); ``solve.compact`` says whether they are.
@@ -223,13 +368,14 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
                 or x0.device != b.device:
             raise ValueError("b and x0 differ in shape, dtype or device")
 
-    def run(units, b, x0, alpha, data_loss_scale, cuda):
+    def run(units, b, x0, alpha, data_loss_scale, cuda, route=None, **dev):
         check(b, x0)
         st = B.stencils_for(cache, shape, factors, spacing, b)
         alphas, scales, batched = batch(alpha, data_loss_scale)
         if cuda:
             out = _tik_solve_cuda(st, b, x0, alphas, scales, reg, data_loss,
-                                  iter_max, irls_cg_iters, compact)
+                                  iter_max, irls_cg_iters, compact, route,
+                                  **dev)
         else:
             out = _tik_steps(units, st, b, x0, alphas, scales, reg,
                              data_loss, iter_max, irls_cg_iters, compact)
@@ -243,7 +389,20 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
         return run((tik_clip_plain, _LINEAR_PLAIN, R.PLAIN), b, x0, alpha,
                    data_loss_scale, False)
 
+    def sequence(b, x0, alpha, data_loss_scale=1.0):
+        return run(None, b, x0, alpha, data_loss_scale, True, "sequence")
+
+    def persistent(b, x0, alpha, data_loss_scale=1.0, **dev):
+        return run(None, b, x0, alpha, data_loss_scale, True, "persistent",
+                   **dev)
+
     solve.plain = plain
     solve = B.plain_only(solve) if interpret else solve
+    solve.sequence = sequence
+    solve.persistent = persistent
     solve.compact = compact
+    # the route a batch on the card takes
+    solve.route = "persistent" if tikhonov_persistent_route(
+        (1,) * (3 - len(shape)) + shape, *Z.taps_lengths(factors),
+        "qf32" if compact else "exact", data_loss) else "sequence"
     return solve

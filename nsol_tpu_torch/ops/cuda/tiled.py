@@ -65,6 +65,7 @@ bfloat16 its storage names) or raises (``ValueError`` for stencils past
 the shared memory).
 """
 
+import numpy as np
 import torch
 
 from nsol_tpu_torch.ops.cuda import blocked as B
@@ -78,7 +79,9 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
            "weighted_apply_zy", "weighted_apply_zy_plain", "cg_direction",
            "cg_direction_plain", "tiled_partials", "smem_bytes",
            "require_fit", "route_fits", "vol_route", "march_fits",
-           "halo_steps", "tile_z", "UNITS", "PLAIN"]
+           "halo_steps", "tile_z", "persistent_fits", "taps_lengths",
+           "PERSISTENT_STORAGE",
+           "PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
 
 
 # ------------------------------------------------------------ plain forms --
@@ -281,6 +284,43 @@ def vol_route(unit, lengths, dims):
         <= num * Z
     return "march" if fits and deep and Z * Y * X > VOL_MIN_VOXELS[unit] \
         else "chain"
+
+
+#: the storage modes of :data:`~.blocked.STORAGE` the persistent solves run
+#: (``csrc/admm_persistent.cu``, ``csrc/tikhonov_persistent.cu``), and the
+#: most voxels their routes take (``kPersistentMaxVoxels`` there)
+PERSISTENT_STORAGE = ("exact", "qf32")
+PERSISTENT_MAX_VOXELS = 1 << 20
+
+
+def persistent_fits(dims, blur, normal, storage):
+    """Whether a persistent solve runs the linear CG's launch sequence on a
+    ``(Z, Y, X)`` volume (a 2-D image as ``(1, Y, X)``): storage in
+    :data:`PERSISTENT_STORAGE`, at most :data:`PERSISTENT_MAX_VOXELS`
+    voxels, where no unit of the sequence takes its march
+    (:func:`vol_route` of ``Aᵀb``'s ``normal_apply`` at the ``blur`` taps'
+    lengths, the residual's at the ``normal`` taps' and ``cg_step``'s):
+    the kernels give the chain's bits, whose partial sums a march would not
+    give. The shape decides, never a failure. Mirrors
+    ``csrc/admm_persistent.cu``'s ``nsol_admm_persistent_route`` without
+    the sweep."""
+    if storage not in PERSISTENT_STORAGE:
+        return False
+    if int(np.prod(dims)) > PERSISTENT_MAX_VOXELS:
+        return False
+    return all(vol_route(unit, tuple(lengths), tuple(dims)) == "chain"
+               for unit, lengths in (("normal_apply", blur),
+                                     ("normal_apply", normal),
+                                     ("cg_step", normal)))
+
+
+def taps_lengths(factors):
+    """``(blur, normal)``: the lengths ``(kz, ky, kx)`` of a separable
+    blur's taps and of its self-correlated normal taps, as the kernels take
+    them (a 2-D image's with the z tap ``[1]``)."""
+    pad = (1,) * (3 - len(factors))
+    return (pad + tuple(len(f) for f in factors),
+            pad + tuple(2 * len(f) - 1 for f in factors))
 
 
 def march_fits(unit, lengths):
