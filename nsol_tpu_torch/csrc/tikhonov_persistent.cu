@@ -15,11 +15,12 @@
 // residual, 10 x (cg_step, cg_update) and their one-block reduces): on a
 // 256^2 image each is a few microseconds of work, and the sequence spent
 // its time in launch ramps, grid drains and host gaps (a Lena TK1L2 x 64
-// sweep 14-20 ms, device busy ~50 %, PERF.md). Here the phases of the
-// whole batch are separated by grid barriers: the configurations run side
-// by side, so a phase moves the whole batch's volumes (64 x 256 KB a
-// volume on Lena, past the 50 MB L2) and the barriers are a Lena
-// solve's, not 64 of them.
+// sweep 14-20 ms, device busy ~50 %, PERF.md). Here the phases are
+// separated by grid barriers and the configurations run side by side, so
+// that a phase is the work of many configurations and the barriers are a
+// few solves', not 64: barriers, L2 traffic and the passes' latency bound
+// it (2.2 ms of device time for the Lena sweep; its bytes and operations
+// bound it at 0.05 ms, PERF.md).
 //
 // Design. persistent.cuh's machinery, as admm_persistent.cu runs it: each
 // unit of the sequence a phase, every phase walking the sequence's blocks
@@ -29,12 +30,16 @@
 // p1, q, t1, t2; the directions bf16 under compact), its own partials and
 // its own CG scalars, on a disjoint group of CUDA blocks (blocks [j nb /
 // w, (j + 1) nb / w) run slot j), so that a block forms the one-block
-// reduces of its own configuration only; more configurations than that
-// run in turns of `width`. A^T b runs once, over the whole grid. The
-// entry clip is the residual's x pass's source (x = max(x0, 0), a NaN
-// kept, stored beside the pass); the exit clip runs on each thread's own
-// voxels of the last cg_update, which no barrier separates from it; the
-// last cg_update's reduce, which nothing reads, is not formed.
+// reduces of its own configuration only (every block forming all 64 of
+// Lena's took 1.7x as long); the batch runs in equal turns of as many as
+// keep their x and scratch in kSideBySideBytes of the L2 (16 on Lena, 4
+// at 64^3: faster than 64 or 8 past the L2, and than the configurations
+// one after another, 3.8x slower on Lena; PERF.md). A^T b runs once, over
+// the whole grid. The entry clip is the residual's x pass's source (x =
+// max(x0, 0), a NaN kept, stored beside the pass); the exit clip runs on
+// each thread's own voxels of the last cg_update, which no barrier
+// separates from it; the last cg_update's reduce, which nothing reads, is
+// not formed.
 //
 // Coherence: every load is a plain one (persistent.cuh), even of b, x0,
 // the alphas and the taps, which nothing writes.
@@ -56,10 +61,9 @@ namespace {
 // (ops/cuda/tikhonov.py's COUNTS).
 constexpr int kTikPersistent = 1;
 // The bytes the configurations side by side may hold, their x and their
-// scratch (batch_width): inside the 50 MB L2.
+// scratch (batch_width): inside the 50 MB L2, where side by side the
+// batch ran faster than past it (chip_smoke.py phase 46, PERF.md).
 constexpr long long kSideBySideBytes = 32LL << 20;
-// The shared scalars of the every-block reduce (a design timed, PERF.md).
-constexpr int kMaxWidth = 132;
 
 // The residual's x pass's source: x0 clipped as tik_clip clips it, stored
 // as x beside the pass (dir).
@@ -88,8 +92,7 @@ struct TikArgs {
   const float* alphas;
   Taps ta, tn;
   Spacing sp;
-  int nconf, width, iter_max;
-  int all_reduce;  // every block forms every slot's reduces
+  int nconf, width, iter_max;  // width: the configurations side by side
   Dims d;
   FastIndex idx;
   int G;  // the launch sequence's blocks, grid_for(n)
@@ -105,32 +108,14 @@ struct TikPersistent {
   using Vol = LoadT<float, float, false>;
   const TikArgs<S>& a;
   Phases ph;
-  double* sc;   // the CG scalars, 4 a slot where every block forms every reduce
+  double* sc;   // this block's configuration's CG scalars (shared memory)
   float* tsh;   // room for the taps in shared memory (fixed lengths)
   Taps ta, tn;  // the blur's and the normal taps, where the passes read them
-  int set = 0;  // the partials set the next reduced pass writes
+  int set = 0;  // the partials set the next reduced pass writes (CgSums')
 
-  __device__ double* parts(int j) const {
-    return a.partials + (2LL * j + set) * kMaxBlocks;
-  }
-
-  // The one-block second stage of the passes that wrote the partials set
-  // `set`: slot j's (or every slot's of the w side by side), formed by
-  // this block into its own scalars; then the next set.
-  __device__ void reduce(int j, int w, int mode) {
-    const int lo = a.all_reduce ? 0 : j, hi = a.all_reduce ? w : j + 1;
-    for (int k = lo; k < hi; ++k) {
-      const double s = reduce_sum(parts(k), a.G);
-      if (threadIdx.x == 0) update_scalars(sc + 4 * (k - lo), s, mode);
-    }
-    set ^= 1;
-    __syncthreads();
-    ph.stamp(kReduce);
-  }
-
-  // Configuration c on slot j of the w side by side, its blocks walking
-  // w: the sequence's clip, residual, iter_max CG steps and exit clip.
-  __device__ void solve(const Walk& wk, int j, int w, int c) {
+  // Configuration c on slot j, its blocks walking wk: the sequence's
+  // clip, residual, iter_max CG steps and exit clip.
+  __device__ void solve(const Walk& wk, int j, int c) {
     const long long n = a.d.n(), o = j * n;
     float* x = a.x + c * n;
     R* r = a.r + o;
@@ -138,40 +123,51 @@ struct TikPersistent {
     Q* q = a.q + o;
     float* t1 = a.t1 + o;
     float* t2 = a.t2 + o;
-    const double* mine = sc + (a.all_reduce ? 4 * j : 0);
+    // slot j's partials and this block's scalars, their sets alternating
+    // in step with every other configuration's
+    CgSums sums{a.partials + 2LL * j * kMaxBlocks, sc, set};
     const float alpha = a.alphas[c];
     // r = A^T b - (A^T A + alpha B^T B) x of x = max(x0, 0), which the x
     // pass stores (the entry clip)
     const Vol xs{x};
     chain<L::nx, L::ny, L::nz>(
         wk, ph, kApplyX, ClipSrc{a.x0}, x,
-        NormalEpi<kReg, Vol, R>{xs, a.atb, r, alpha, a.sp, kResidual}, parts(j), tn, t1, t2);
-    reduce(j, w, kReduceRR0);
+        NormalEpi<kReg, Vol, R>{xs, a.atb, r, alpha, a.sp, kResidual}, sums.parts(), tn, t1,
+        t2);
+    reduce(sums, kReduceRR0);
     int pc = 1;  // p' into p[pc], p from p[1 - pc]
     for (int k = 0; k < a.iter_max; ++k) {
       const DirectionT<false, R, P, false> dir{
-          r, p[1 - pc], nullptr, nullptr, k == 0, k == 0 ? 0.f : (float)mine[kBeta]};
+          r, p[1 - pc], nullptr, nullptr, k == 0, k == 0 ? 0.f : (float)sc[kBeta]};
       const LoadT<P, P, false> pn{p[pc]};
       chain<L::nx, L::ny, L::nz>(
           wk, ph, kStepX, dir, p[pc],
-          NormalEpi<kReg, LoadT<P, P, false>, Q>{pn, nullptr, q, alpha, a.sp, kDot}, parts(j),
-          tn, t1, t2);
-      reduce(j, w, kReducePQ);
-      const float am = (float)mine[kA];
+          NormalEpi<kReg, LoadT<P, P, false>, Q>{pn, nullptr, q, alpha, a.sp, kDot},
+          sums.parts(), tn, t1, t2);
+      reduce(sums, kReducePQ);
+      const float am = (float)sc[kA];
       for (int vb = wk.first; vb < a.G; vb += wk.stride) {
-        cg_update_body<GroupTeam>(am, x, r, p[pc], q, parts(j), n, 1, vb, a.G);
+        cg_update_body<GroupTeam>(am, x, r, p[pc], q, sums.parts(), n, 1, vb, a.G);
         GroupTeam::sync();
       }
       if (k + 1 < a.iter_max) {
         ph.sync(kUpdate);
-        reduce(j, w, kReduceRR);
+        reduce(sums, kReduceRR);
       }
       pc = 1 - pc;
     }
     // the exit clip, each thread on the voxels it last wrote
     for (int vb = wk.first; vb < a.G; vb += wk.stride)
       BLOCK_STRIDE(i, n, vb, a.G, GroupTeam::tid()) { x[i] = clip0(x[i]); }
+    set = sums.set;
     ph.stamp(kClip);
+  }
+
+  // The one-block second stage of the pass that wrote sums.parts(),
+  // formed by every block of the configuration's group, then the next set.
+  __device__ void reduce(CgSums& sums, int mode) {
+    sums.reduce(a.G, mode);
+    ph.stamp(kReduce);
   }
 
   __device__ void run() {
@@ -193,7 +189,7 @@ struct TikPersistent {
       const int j = (int)(((long long)blockIdx.x + 1) * w - 1) / nb;
       const int b0 = (int)((long long)j * nb / w), b1 = (int)(((long long)j + 1) * nb / w);
       solve(Walk{((int)blockIdx.x - b0) * teams + team, (b1 - b0) * teams, a.G, a.d, a.idx}, j,
-            w, c0 + j);
+            c0 + j);
     }
   }
 };
@@ -201,7 +197,7 @@ struct TikPersistent {
 template <class S, int kReg, class L>
 __global__ void __launch_bounds__(kThreads * kMaxTeams, 1)
     tikhonov_persistent_kernel(const __grid_constant__ TikArgs<S> a) {
-  __shared__ double sc[4 * kMaxWidth];
+  __shared__ double sc[4];
   __shared__ float tsh[L::shared];
   TikPersistent<S, kReg, L>{a, Phases{cg::this_grid(), a.stamps, a.stamp_cap}, sc, tsh}.run();
 }
@@ -307,8 +303,7 @@ int nsol_tikhonov_persistent_shape(int storage, int reg, int kaz, int kay, int k
 // the storage's direction type), slots at least the configurations side
 // by side (nsol_tikhonov_persistent_shape's out[4], else
 // cudaErrorInvalidValue); partials 2 * nsol_max_blocks() doubles a slot.
-// width: the configurations side by side (0: by the rule); all_reduce:
-// every block forms every slot's reduces. The same x bit for bit, on any shape; a
+// The same x bit for bit, on any shape; a
 // launch the card refuses (cudaErrorCooperativeLaunchTooLarge, ...)
 // returns its error and runs nothing. counts[kTikPersistent] += 1 where
 // the kernel was launched.
@@ -318,8 +313,7 @@ int nsol_tikhonov_solve_persistent(const float* b, const float* x0, float* x_out
                                    const float* taps_a, int kaz, int kay, int kax,
                                    const float* taps_n, int knz, int kny, int knx, float ih2x,
                                    float ih2y, float ih2z, int reg, int iter_max, int storage,
-                                   int width, int all_reduce, int Z, int Y, int X, void* stream,
-                                   long long* counts) {
+                                   int Z, int Y, int X, void* stream, long long* counts) {
   const Dims d{Z, Y, X};
   // FastIndex's indices, with the last block's grid-stride overshoot
   if (Z < 1 || Y < 1 || X < 1 || d.n() > (1LL << 30) || nconf < 1 || iter_max < 0)
@@ -343,7 +337,6 @@ int nsol_tikhonov_solve_persistent(const float* b, const float* x0, float* x_out
                  nconf,
                  0,
                  iter_max,
-                 all_reduce,
                  d,
                  FastIndex{FastDiv::of(X), FastDiv::of(Y)},
                  grid_for(d.n()),
@@ -354,9 +347,8 @@ int nsol_tikhonov_solve_persistent(const float* b, const float* x0, float* x_out
       int w = 0;
       const cudaError_t e2 = batch_shape(fn, nconf, conf_bytes(storage, d.n()), a.G, &sh, &w);
       if (e2 != cudaSuccess) return e2;
-      a.width = width > 0 ? (width < sh.grid ? width : sh.grid) : w;
-      if (a.width > slots || (all_reduce && a.width > kMaxWidth))
-        return cudaErrorInvalidValue;
+      if (w > slots) return cudaErrorInvalidValue;
+      a.width = w;
       void* args[] = {&a};
       return cudaLaunchCooperativeKernel(fn, dim3(sh.grid), dim3(sh.threads), args, 0,
                                          (cudaStream_t)stream);

@@ -97,7 +97,7 @@ _SIGNATURES = {
     "nsol_blocked_admm_solve": [_P] * 13 + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 8 + [_I] * 4 + [_I] * 3 + [_P] * 3,
     "nsol_tikhonov_solve_persistent": [_P] * 12 + [_I, _I, _P, _I, _I, _I, _P]
-    + [_I] * 3 + [_F] * 3 + [_I] * 5 + [_I] * 3 + [_P, _P],
+    + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_I] * 3 + [_P, _P],
     "nsol_tikhonov_persistent_route": [_I] * 11,
     "nsol_tikhonov_persistent_shape": [_I] * 12 + [_P],
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3

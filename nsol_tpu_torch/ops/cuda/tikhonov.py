@@ -214,12 +214,12 @@ def _tik_steps(units, st, b, x0, alphas, scales, reg, loss, iter_max,
 
 
 def _tik_persistent(st, b, x0, alphas, reg, iter_max, compact, dims, ta,
-                    tn, width=0, all_reduce=False):
+                    tn):
     """The linear batch as one cooperative launch: ``(B, *shape)``."""
     nconf = len(alphas)
     storage = "qf32" if compact else "exact"
-    slots = width or persistent_shape(dims, ta.lengths, tn.lengths, nconf,
-                                      storage, reg)[4]
+    slots = persistent_shape(dims, ta.lengths, tn.lengths, nconf, storage,
+                             reg)[4]
     out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
                       device=b.device)
     atb = torch.empty_like(b)
@@ -241,14 +241,12 @@ def _tik_persistent(st, b, x0, alphas, reg, iter_max, compact, dims, ta,
         build.tensor_ptr(partials), build.tensor_ptr(a_dev), nconf, slots,
         build.tensor_ptr(ta.buf), *ta.lengths, build.tensor_ptr(tn.buf),
         *tn.lengths, *B.spacing3(st.inv_h2), B.reg_id(reg), int(iter_max),
-        B.storage_ids(storage)[1], int(width),
-        int(bool(all_reduce)), *dims, build.stream_ptr(b.device))
+        B.storage_ids(storage)[1], *dims, build.stream_ptr(b.device))
     return out
 
 
 def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
-                    cg_iters, compact=False, route=None, width=0,
-                    all_reduce=False):
+                    cg_iters, compact=False, route=None):
     """The batch on the card by ``route``: ``None`` takes
     :func:`tikhonov_persistent_route`'s, ``"persistent"`` the one launch
     (the linear loss, whatever the shape) and ``"sequence"``
@@ -270,7 +268,7 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     B.check_tensors(name, b.shape, b, x0)
     if route == "persistent":
         return _tik_persistent(st, b, x0, alphas, reg, iter_max, compact,
-                               dims, ta, tn, width, all_reduce)
+                               dims, ta, tn)
     nconf = len(alphas)
     lib = build.load()
     out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
@@ -368,14 +366,13 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
                 or x0.device != b.device:
             raise ValueError("b and x0 differ in shape, dtype or device")
 
-    def run(units, b, x0, alpha, data_loss_scale, cuda, route=None, **dev):
+    def run(units, b, x0, alpha, data_loss_scale, cuda, route=None):
         check(b, x0)
         st = B.stencils_for(cache, shape, factors, spacing, b)
         alphas, scales, batched = batch(alpha, data_loss_scale)
         if cuda:
             out = _tik_solve_cuda(st, b, x0, alphas, scales, reg, data_loss,
-                                  iter_max, irls_cg_iters, compact, route,
-                                  **dev)
+                                  iter_max, irls_cg_iters, compact, route)
         else:
             out = _tik_steps(units, st, b, x0, alphas, scales, reg,
                              data_loss, iter_max, irls_cg_iters, compact)
@@ -392,9 +389,8 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     def sequence(b, x0, alpha, data_loss_scale=1.0):
         return run(None, b, x0, alpha, data_loss_scale, True, "sequence")
 
-    def persistent(b, x0, alpha, data_loss_scale=1.0, **dev):
-        return run(None, b, x0, alpha, data_loss_scale, True, "persistent",
-                   **dev)
+    def persistent(b, x0, alpha, data_loss_scale=1.0):
+        return run(None, b, x0, alpha, data_loss_scale, True, "persistent")
 
     solve.plain = plain
     solve = B.plain_only(solve) if interpret else solve
