@@ -216,6 +216,31 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   planes); a CUDA graph replay of the launch sequence as a yardstick, the
   device busy share, the barriers alone, and a traced solve's phases.
 
+* phase 46, the fused Tikhonov batch, linear, as one persistent
+  cooperative launch (group ``tik_persistent``,
+  ``csrc/tikhonov_persistent.cu``): its ptxas registers and spills, no
+  constant-cache load in its SASS, its launch shape (the configurations
+  side by side, against its Python mirror) and grid barriers; the Lena
+  TK1L2/TK0L2 × 64 α sweeps (exact and qf32), 64³ × 8, the rule's edge
+  shapes (80³, a ragged volume, a 2-plane stack), a batch of 1 and one of
+  130 bit for bit against ``nsol_tikhonov_solve``'s launch sequence, each
+  three times, one launch a batch; the Lena sweeps' objectives at phase
+  17's float64 anchors; the robust loss and 256³ on the sequence; times in
+  turns (sequence, persistent, persistent, sequence) by CUDA events of the
+  Lena and 64³ batches, ``TikhonovLinearSolver.run_sweep`` on Lena and
+  ``nsol_torch_run_deconvolution_study`` on the 64³ phantom (TK1L2), both
+  equal on the two routes; a CUDA graph replay of the sequence, the device
+  busy share and the device time by the kernel's global-timer stamps.
+
+Since the persistent Tikhonov batch, the phases that hold the Tikhonov
+sequence's units against their plain versions or count their launches —
+phase 16's whole solves, phase 17's linear sweeps, phase 19's TK1L2 study
+CLI and phase 31's sweeps — run that sequence forced
+(``sequence_route``); phase 17 also runs each linear sweep on its
+default route (one ``tik_persistent`` launch, the same bits), phase 44
+expects one ``tik_persistent`` launch a Lena TK1L2 turn, and
+``tik_clip``'s kernels-line launches come from the huber sweep.
+
 Since the persistent solve, the 64³ and Lena fused solves (phases 4, 18,
 19, 24, 39, 44) launch ``admm_persistent`` once a solve and none of the
 launch sequence's units: phase 5's 256³ solve reports those units'
@@ -1809,7 +1834,8 @@ def run_tikhonov_phase(device, card):
         # sequence (phase 46 holds the persistent batch to it)
         torch.cuda.synchronize()
         F.reset_counts()
-        with contextlib.nullcontext() if robust else tik_sequence_route(T):
+        with contextlib.nullcontext() if robust else sequence_route(
+                T, TIK_RULE):
             x_all, recs = solver.run_sweep(params, measures=measures)
         torch.cuda.synchronize()
         launches = F.launch_counts(
@@ -2208,7 +2234,7 @@ def run_scale_cli_phase(device, card):
             F.reset_counts()
             # TK1L2 on the forced launch sequence, its units counted (phase
             # 46 runs this CLI on both routes)
-            with tik_sequence_route(T) if rtype == "TK1L2" \
+            with sequence_route(T, TIK_RULE) if rtype == "TK1L2" \
                     else contextlib.nullcontext():
                 rc = study_cli.main([
                     "--observation", obs, "--reconstruction-type", rtype,
@@ -4841,7 +4867,7 @@ def run_compact_robust_phases(device, card):
                   for opt in (FUSED_COMPACT, {})]
         # the launch sequence's storage-typed units (the linear sweeps
         # forced onto it; phase 46 holds the persistent batch to it)
-        with tik_sequence_route(Tk):
+        with sequence_route(Tk, TIK_RULE):
             torch.cuda.synchronize()
             F.reset_counts()
             x_all, recs = solver.run_sweep(
@@ -8432,16 +8458,20 @@ def persistent_sass(kernel=PERSISTENT_KERNEL):
 
 
 @contextlib.contextmanager
-def sequence_route(F):
-    """Inside the block the fused route's solves take ``nsol_admm_solve``'s
-    launch sequence (the persistent rule answers no), as before the
-    persistent solve."""
-    rule = F.persistent_route
-    F.persistent_route = lambda *args, **kwargs: False
+def sequence_route(module, rule="persistent_route"):
+    """Inside the block the solves whose route ``module.<rule>`` decides
+    take their launch sequence (the persistent rule answers no), as before
+    the persistent solves: ``F`` the fused ADMM solve's
+    (``nsol_admm_solve``), ``T, TIK_RULE`` the Tikhonov batch's
+    (``nsol_tikhonov_solve``). The phases that hold a sequence's
+    units to their plain versions, or count their launches, run in it;
+    phases 45-46 hold the persistent solves to it bit for bit."""
+    saved = getattr(module, rule)
+    setattr(module, rule, lambda *args, **kwargs: False)
     try:
         yield
     finally:
-        F.persistent_route = rule
+        setattr(module, rule, saved)
 
 
 def persistent_bound(counts, n, normal, blur, outputs=1):
@@ -8678,6 +8708,10 @@ def run_persistent_phase(device, card):
     iso3 = F.B.Stencils.from_cov(np.eye(3), 3, None, "cpu")
     normal, blur = iso3.normal.lengths, iso3.blur.lengths
     regs = persistent_ptxas()
+    # every instance at 64 registers (1024 threads an SM), as before its
+    # machinery moved to csrc/persistent.cuh
+    require(regs == ["cached"] or all("Used 64 registers" in r for r in regs),
+            "phase 45: the persistent kernel's registers %s" % regs)
     sass = persistent_sass()
     require(sass and all(c == 0 for _, c in sass.values()),
             "phase 45: constant-cache loads in the persistent kernel %s"
@@ -8934,21 +8968,8 @@ TIK_BIT_CASES = {
     "Lena TK1 qf32 x 1": ("lena", "TK1", "qf32", 1),
     "Lena TK0 exact x 130": ("lena", "TK0", "exact", 130)}
 TIK_KERNEL = "tikhonov_persistent_kernel"
-
-
-@contextlib.contextmanager
-def tik_sequence_route(T):
-    """Inside the block the fused Tikhonov batches take
-    ``nsol_tikhonov_solve``'s launch sequence (the persistent rule answers
-    no), as before the persistent batch: the phases that hold the
-    sequence's units to their plain versions, or count their launches, run
-    in it; phase 46 holds the persistent batch to it bit for bit."""
-    rule = T.tikhonov_persistent_route
-    T.tikhonov_persistent_route = lambda *args, **kwargs: False
-    try:
-        yield
-    finally:
-        T.tikhonov_persistent_route = rule
+#: the Tikhonov batch's route rule, which :func:`sequence_route` forces off
+TIK_RULE = "tikhonov_persistent_route"
 
 
 def tik_grid(n):
@@ -9204,7 +9225,7 @@ def run_tik_persistent_phase(device, card):
         cli = tik_study_cli(tmp)
         cli_ms = []
         for turn in ("sequence", "persistent", "persistent", "sequence"):
-            route = tik_sequence_route(T) if turn == "sequence" \
+            route = sequence_route(T, TIK_RULE) if turn == "sequence" \
                 else contextlib.nullcontext()
             with route:
                 F.reset_counts()

@@ -54,9 +54,8 @@ from nsol_tpu_torch.ops.cuda import tiled as Z
 __all__ = ["tik_clip", "tik_clip_plain", "make_fused_tikhonov_solver",
            "tik_persistent", "tikhonov_persistent_route",
            "persistent_barriers", "persistent_shape", "persistent_width",
-           "COUNTS",
-           "PERSISTENT_SLOT", "PERSISTENT_SIDE_BY_SIDE_BYTES", "UNITS",
-           "PLAIN"]
+           "COUNTS", "PERSISTENT_SLOT", "PERSISTENT_SIDE_BY_SIDE_BYTES",
+           "UNITS", "PLAIN"]
 
 
 def tik_clip_plain(out, x):
@@ -261,10 +260,9 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     if route not in ("persistent", "sequence"):
         raise ValueError("route must be 'persistent' or 'sequence', got %r"
                          % (route,))
-    if route == "persistent":
-        if loss != "linear":
-            raise ValueError("%s: the persistent batch runs the linear loss"
-                             % name)
+    if route == "persistent" and loss != "linear":
+        raise ValueError("%s: the persistent batch runs the linear loss"
+                         % name)
     B.check_tensors(name, b.shape, b, x0)
     if route == "persistent":
         return _tik_persistent(st, b, x0, alphas, reg, iter_max, compact,

@@ -80,8 +80,7 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
            "cg_direction_plain", "tiled_partials", "smem_bytes",
            "require_fit", "route_fits", "vol_route", "march_fits",
            "halo_steps", "tile_z", "persistent_fits", "taps_lengths",
-           "PERSISTENT_STORAGE",
-           "PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
+           "PERSISTENT_STORAGE", "PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
 
 
 # ------------------------------------------------------------ plain forms --
