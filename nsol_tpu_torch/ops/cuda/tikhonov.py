@@ -53,9 +53,8 @@ from nsol_tpu_torch.ops.cuda import tiled as Z
 
 __all__ = ["tik_clip", "tik_clip_plain", "make_fused_tikhonov_solver",
            "tik_persistent", "tikhonov_persistent_route",
-           "persistent_barriers", "persistent_shape", "persistent_width",
-           "COUNTS", "PERSISTENT_SLOT", "PERSISTENT_SIDE_BY_SIDE_BYTES",
-           "UNITS", "PLAIN"]
+           "persistent_barriers", "persistent_shape", "COUNTS",
+           "PERSISTENT_SLOT", "UNITS", "PLAIN"]
 
 
 def tik_clip_plain(out, x):
@@ -91,10 +90,6 @@ PLAIN = (tik_clip_plain,)
 #: :data:`PERSISTENT_SLOT` the one launch of ``csrc/tikhonov_persistent.cu``
 COUNTS = 2
 PERSISTENT_SLOT = 1
-#: the bytes the configurations the persistent launch runs side by side
-#: may hold, their x and their scratch (``kSideBySideBytes`` there): a
-#: longer batch runs in turns of equal size (:func:`persistent_shape`)
-PERSISTENT_SIDE_BY_SIDE_BYTES = 32 << 20
 
 
 def tikhonov_persistent_route(dims, blur, normal, storage="exact",
@@ -110,21 +105,6 @@ def tikhonov_persistent_route(dims, blur, normal, storage="exact",
     ``csrc/tikhonov_persistent.cu``'s ``nsol_tikhonov_persistent_route``."""
     return data_loss == "linear" \
         and Z.persistent_fits(dims, blur, normal, storage)
-
-
-def persistent_width(nconf, voxels, storage="exact", grid=132):
-    """The configurations of a persistent batch of ``nconf`` that run side
-    by side on a grid of ``grid`` blocks: as many as
-    :data:`PERSISTENT_SIDE_BY_SIDE_BYTES` holds of their x and scratch
-    (x, r, q, t1, t2 in float and the two directions in the storage's
-    type, ``voxels`` each), at least 1 and at most one a block, in turns of
-    equal size. Mirrors ``csrc/tikhonov_persistent.cu``'s
-    ``batch_width``."""
-    per = int(voxels) * (5 * 4 + 2 * (2 if storage == "qf32" else 4))
-    w = max(min(PERSISTENT_SIDE_BY_SIDE_BYTES // per, int(grid),
-                int(nconf)), 1)
-    turns = -(-int(nconf) // w)
-    return -(-int(nconf) // turns)
 
 
 def persistent_barriers(nconf, iter_max, width):
@@ -144,9 +124,9 @@ def persistent_shape(dims, blur, normal, nconf, storage="exact", reg="TK1"):
     a block, configurations side by side)`` of the persistent batch of
     ``nconf`` configurations of ``dims`` at the taps' lengths ``blur``,
     ``normal`` on the current card: side by side as many as
-    :data:`PERSISTENT_SIDE_BY_SIDE_BYTES` holds (their x and 6 volumes of
-    scratch each), at least 1 and at most one a block, in turns of equal
-    size."""
+    ``csrc/tikhonov_persistent.cu``'s ``kSideBySideBytes`` holds (their x
+    and 6 volumes of scratch each), at least 1 and at most one a block, in
+    turns of equal size (``batch_width`` there)."""
     out = (build.ctypes.c_int * 5)()
     build.check(build.load().nsol_tikhonov_persistent_shape(
         B.storage_ids(storage)[1], B.reg_id(reg), *blur, *normal, int(nconf),
@@ -247,24 +227,18 @@ def _tik_persistent(st, b, x0, alphas, reg, iter_max, compact, dims, ta,
 def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
                     cg_iters, compact=False, route=None):
     """The batch on the card by ``route``: ``None`` takes
-    :func:`tikhonov_persistent_route`'s, ``"persistent"`` the one launch
-    (the linear loss, whatever the shape) and ``"sequence"``
+    :func:`tikhonov_persistent_route`'s, ``"sequence"``
     ``nsol_tikhonov_solve``'s launch sequence (the bit reference)."""
     name = "make_fused_tikhonov_solver"
+    if route not in (None, "sequence"):
+        raise ValueError("route must be None or 'sequence', got %r"
+                         % (route,))
     dims = B.volume_dims(name, b)
     ta, tn = st.blur.as_volume(), st.normal.as_volume()
-    storage = "qf32" if compact else "exact"
-    if route is None:
-        route = "persistent" if tikhonov_persistent_route(
-            dims, ta.lengths, tn.lengths, storage, loss) else "sequence"
-    if route not in ("persistent", "sequence"):
-        raise ValueError("route must be 'persistent' or 'sequence', got %r"
-                         % (route,))
-    if route == "persistent" and loss != "linear":
-        raise ValueError("%s: the persistent batch runs the linear loss"
-                         % name)
     B.check_tensors(name, b.shape, b, x0)
-    if route == "persistent":
+    if route is None and tikhonov_persistent_route(
+            dims, ta.lengths, tn.lengths, "qf32" if compact else "exact",
+            loss):
         return _tik_persistent(st, b, x0, alphas, reg, iter_max, compact,
                                dims, ta, tn)
     nconf = len(alphas)
@@ -325,8 +299,7 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     else as one ``nsol_tikhonov_solve`` call (2-D or 3-D float32); on the
     CPU as the plain versions (any float dtype). ``interpret=True`` and
     ``solve.plain`` run the plain versions on any device; on the card
-    ``solve.sequence`` runs the launch sequence and ``solve.persistent``
-    the one launch (the linear loss) whatever the rule says.
+    ``solve.sequence`` runs the launch sequence whatever the rule says.
     ``compact_dirs=True`` needs ``precision="high3"``, as in the reference
     (``ValueError`` otherwise): the CG directions in bfloat16 (module
     docstring); ``solve.compact`` says whether they are.
@@ -387,13 +360,9 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     def sequence(b, x0, alpha, data_loss_scale=1.0):
         return run(None, b, x0, alpha, data_loss_scale, True, "sequence")
 
-    def persistent(b, x0, alpha, data_loss_scale=1.0):
-        return run(None, b, x0, alpha, data_loss_scale, True, "persistent")
-
     solve.plain = plain
     solve = B.plain_only(solve) if interpret else solve
     solve.sequence = sequence
-    solve.persistent = persistent
     solve.compact = compact
     # the route a batch on the card takes
     solve.route = "persistent" if tikhonov_persistent_route(

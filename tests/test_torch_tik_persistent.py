@@ -11,7 +11,8 @@ of its C rule (``nsol_tikhonov_persistent_route``), read from the source;
 the plain batch, its α and C varying, is held to the JAX package's
 Pallas kernel in interpret mode. The ``cuda``-marked cases hold the one
 launch bit for bit to ``nsol_tikhonov_solve``'s launch sequence on the
-card; they skip without one:
+card, and its width (the C rule ``batch_width``) to the widths measured
+there; they skip without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tik_persistent.py
 """
@@ -96,16 +97,12 @@ def test_route_refuses_robust_losses_and_bf16_state(kw):
 
 
 def test_route_table_matches_the_c_rule():
-    """The Python mirror's constants are the C source's: the count slot,
-    the side-by-side byte budget; the C rule is the linear loss and the
-    ADMM solve's rule without the sweep, whose voxel cap and storage the
-    mirror shares."""
+    """The Python mirror's constants are the C source's: the count slot;
+    the C rule is the linear loss and the ADMM solve's rule without the
+    sweep, whose voxel cap and storage the mirror shares."""
     src = open(os.path.join(CSRC, "tikhonov_persistent.cu")).read()
     slot = re.search(r"kTikPersistent = (\d+);", src)
     assert slot and int(slot.group(1)) == T.PERSISTENT_SLOT < T.COUNTS
-    budget = re.search(r"kSideBySideBytes = (\d+)LL << (\d+);", src)
-    assert budget and int(budget.group(1)) << int(budget.group(2)) \
-        == T.PERSISTENT_SIDE_BY_SIDE_BYTES
     rule = src[src.index("int nsol_tikhonov_persistent_route("):]
     rule = rule[:rule.index("\n}\n")]
     assert "loss == kLinear" in rule
@@ -115,26 +112,6 @@ def test_route_table_matches_the_c_rule():
     assert cap and 1 << int(cap.group(1)) == F.PERSISTENT_MAX_VOXELS
     assert [B.storage_ids(s)[1] for s in F.PERSISTENT_STORAGE] == [0, 1]
     assert "tik_persistent" in F.PERSISTENT_UNITS
-
-
-#: (configurations, voxels, storage, grid) → side by side: as many as the
-#: byte budget holds (Lena exact 1.75 MiB a configuration: 18, then turns
-#: of equal size), at least 1, at most one a block
-WIDTH_CASES = [((64, 256 ** 2, "exact", 132), 16),
-               ((64, 256 ** 2, "qf32", 132), 16),
-               ((18, 256 ** 2, "exact", 132), 18),
-               ((19, 256 ** 2, "exact", 132), 10),
-               ((1, 256 ** 2, "exact", 132), 1),
-               ((8, 64 ** 3, "exact", 132), 4),
-               ((8, 80 ** 3, "exact", 132), 2),
-               ((3, 1 << 20, "exact", 132), 1),
-               ((300, 16 * 16, "exact", 132), 100),
-               ((300, 16 * 16, "exact", 264), 150)]
-
-
-@pytest.mark.parametrize("args,width", WIDTH_CASES)
-def test_side_by_side_width(args, width):
-    assert T.persistent_width(*args) == width
 
 
 def test_solver_reports_its_route():
@@ -147,6 +124,19 @@ def test_solver_reports_its_route():
         == "sequence"
     assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
                                         data_loss="huber").route \
+        == "sequence"
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("loss", ["huber", "soft_l1", "cauchy", "arctan"])
+def test_robust_solver_reports_the_sequence(loss, compact):
+    """A robust batch, exact or with bf16 directions, takes the launch
+    sequence on a shape the linear batch runs as one launch."""
+    kw = COMPACT if compact else {}
+    assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
+                                        **kw).route == "persistent"
+    assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
+                                        data_loss=loss, **kw).route \
         == "sequence"
 
 
@@ -179,18 +169,19 @@ def test_cpu_batch_counts_no_persistent_launch():
     assert F.plain_counts(("cg_step",))["cg_step_plain"] == 9
 
 
-@pytest.mark.parametrize("kw", [dict(data_loss="huber"),
-                                dict(route="graph")])
-def test_forced_persistent_route_refuses_before_any_build(kw):
-    """The persistent route of a robust batch, or an unknown route, raises
-    before it builds or launches anything (so here, on the CPU, too)."""
+@pytest.mark.parametrize("route", ["graph", "persistent"])
+def test_unknown_route_refuses_before_any_build(route):
+    """Only the rule's route (``None``) and ``"sequence"`` exist: no caller
+    forces the one launch. Any other route raises before it builds or
+    launches anything (so here, on the CPU, too)."""
     shape = (6, 7, 8)
     st = B.Stencils.from_cov(np.eye(3))
     b = torch.as_tensor(_problem(shape, 4))
-    loss = kw.get("data_loss", "linear")
-    with pytest.raises(ValueError, match="persistent|route"):
-        T._tik_solve_cuda(st, b, b, ALPHAS, SCALES, "TK1", loss, 2, 3,
-                          route=kw.get("route", "persistent"))
+    with pytest.raises(ValueError, match="route"):
+        T._tik_solve_cuda(st, b, b, ALPHAS, SCALES, "TK1", "linear", 2, 3,
+                          route=route)
+    solve = T.make_fused_tikhonov_solver(shape, np.eye(3))
+    assert not hasattr(solve, "persistent")
 
 
 @pytest.mark.parametrize("compact", [False, True])
@@ -224,6 +215,38 @@ def test_plain_batch_matches_pallas(reg, compact):
             np.testing.assert_allclose(got[k], want, atol=5e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("reg", ["TK0", "TK1"])
+def test_plain_compact_batch_on_a_noisy_problem(reg):
+    """The compact batch (bf16 CG directions) on the noisy problems of
+    the exact cases above, against the JAX package's compact solve: over
+    the batch, no farther from it than the compaction moves the JAX
+    package's own solve from its exact one. On these problems a one-ulp
+    change of ``b`` moves the JAX compact solve as far as the two
+    frameworks' compact solves lie apart (``python
+    tests/torch_compact_gaps.py``), which a fixed fraction of max |x| does
+    not allow for."""
+    JF = pytest.importorskip("nsol_tpu.ops.pallas.fused")
+    shape = (16, 16) if reg == "TK1" else (6, 8, 10)
+    b = _problem(shape, 5)
+    kw = dict(reg=reg, iter_max=6)
+    jexact = JF.make_fused_tikhonov_solver(shape, np.eye(len(shape)),
+                                           interpret=True, **kw)
+    jsolve = JF.make_fused_tikhonov_solver(shape, np.eye(len(shape)),
+                                           interpret=True, **COMPACT, **kw)
+    solve = T.make_fused_tikhonov_solver(shape, np.eye(len(shape)),
+                                         **COMPACT, **kw)
+    got = interop.to_numpy(solve(interop.to_torch(b, "cpu"),
+                                 interop.to_torch(b, "cpu"),
+                                 ALPHAS, SCALES))
+    gap = band = 0.0
+    for k, (a, c) in enumerate(zip(ALPHAS, SCALES)):
+        want = np.asarray(jsolve(b, b, a, data_loss_scale=c))
+        exact = np.asarray(jexact(b, b, a, data_loss_scale=c))
+        gap = max(gap, float(np.abs(got[k] - want).max()))
+        band = max(band, float(np.abs(want - exact).max()))
+    assert np.isfinite(got).all() and 0.0 < gap <= band
+
+
 # ------------------------------------------------------------ the card --
 
 @pytest.mark.cuda
@@ -241,9 +264,10 @@ def test_one_launch_equals_the_sequence(cuda_device, compact, reg, nconf):
                                          iter_max=5,
                                          **(COMPACT if compact else {}))
     alphas, scales = ALPHAS[:nconf], SCALES[:nconf]
+    assert solve.route == "persistent"
     want = solve.sequence(b, b, alphas, scales)
     F.reset_counts()
-    got = [solve.persistent(b, b, alphas, scales) for _ in range(2)]
+    got = [solve(b, b, alphas, scales) for _ in range(2)]
     torch.cuda.synchronize()
     counts = {k: v for k, v in F.launch_counts().items() if v}
     assert counts == {"tik_persistent": 2}
@@ -263,3 +287,42 @@ def test_route_takes_the_persistent_batch(cuda_device):
     torch.cuda.synchronize()
     assert {k: v for k, v in F.launch_counts().items() if v} == {
         "tik_persistent": 1}
+
+
+@pytest.mark.cuda
+def test_robust_batch_launches_the_sequence(cuda_device):
+    """A robust batch on a shape the linear batch runs as one launch
+    takes the launch sequence: no persistent launch, and one entry clip a
+    configuration (a robust solve has no exit clip)."""
+    shape = (32, 32, 32)
+    b = torch.as_tensor(_problem(shape, 8), device=cuda_device)
+    solve = T.make_fused_tikhonov_solver(shape, np.eye(3), iter_max=2,
+                                         data_loss="huber", irls_cg_iters=3)
+    assert solve.route == "sequence"
+    F.reset_counts()
+    solve(b, b, ALPHAS, SCALES)
+    torch.cuda.synchronize()
+    counts = F.launch_counts()
+    assert counts["tik_persistent"] == 0
+    assert counts["tik_clip"] == len(ALPHAS)
+
+
+#: ((Z, Y, X), configurations, storage) → configurations side by side on
+#: an H100 (132 SMs): as many as the C rule's 32 MiB hold (Lena exact
+#: 1.75 MiB a configuration: 18, then turns of equal size), at least 1, at
+#: most one a block (chip_smoke.py phase 46 reads the first five on the card)
+WIDTH_CASES = [(((1, 256, 256), 64, "exact"), 16),
+               (((1, 256, 256), 64, "qf32"), 16),
+               (((1, 256, 256), 1, "exact"), 1),
+               (((1, 256, 256), 130, "exact"), 17),
+               (((1, 256, 256), 19, "exact"), 10),
+               (((64, 64, 64), 8, "exact"), 4),
+               (((80, 80, 80), 8, "exact"), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,width", WIDTH_CASES)
+def test_side_by_side_width_on_the_card(cuda_device, case, width):
+    dims, nconf, storage = case
+    lens = _lengths(dims if dims[0] > 1 else dims[1:])
+    assert T.persistent_shape(dims, *lens, nconf, storage)[4] == width
