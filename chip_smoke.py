@@ -226,14 +226,46 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   shapes (80³, a ragged volume, a 2-plane stack), a batch of 1 and one of
   130 bit for bit against ``nsol_tikhonov_solve``'s launch sequence, each
   three times, one launch a batch; the Lena sweeps' objectives at phase
-  17's float64 anchors; the robust loss and 256³ on the sequence (one
-  ``tik_clip`` a configuration on entry, one more on exit where the loss
-  is linear, no persistent launch); times in
+  17's float64 anchors; 256³ on the sequence (one ``tik_clip`` a
+  configuration on entry, one more on exit, no persistent launch) and the
+  robust loss on phase 47's launch; times in
   turns (sequence, persistent, persistent, sequence) by CUDA events of the
   Lena and 64³ batches, ``TikhonovLinearSolver.run_sweep`` on Lena and
   ``nsol_torch_run_deconvolution_study`` on the 64³ phantom (TK1L2), both
   equal on the two routes; a CUDA graph replay of the sequence, the device
   busy share and the device time by the kernel's global-timer stamps.
+
+* phase 47, the robust IRLS sweep as one persistent cooperative launch
+  (group ``irls_persistent``, ``csrc/irls_persistent.cu``) for the fused
+  robust ADMM solve and the robust Tikhonov batch: its ptxas registers
+  and spills, no constant-cache load in its SASS, its launch shape (the
+  configurations side by side against the C rule's widths) and grid
+  barriers (the formula against the kernel's stamps); Lena 10 × 3 × 6 in
+  the four losses, exact and dirs, with and without records, the 64³
+  phantom, the rule's edge shapes (80³, a ragged volume, a 2-plane
+  stack), the Lena TK1L2/TK0L2 huber × 8 batches exact and compact, a
+  batch mixing α and C, a batch of 1, one longer than a turn, and a NaN
+  in b and in x0 bit for bit (NaN-equal) against the launch sequence,
+  each three times, one launch a solve or batch; Lena within 1e-4 of
+  101.442567; the Lena TK1L2 huber sweep at phase 17's float64 anchors;
+  each main path against its plain version; ``run_sweep``'s huber
+  sweeps, the Lena ADMM huber study and ``run_deconvolution --data-loss
+  huber`` equal on both routes, the CLI to its library solve; 256³, 100³,
+  the ``"io"`` storage and a 256³ batch on the sequence; the rule in C
+  against its mirror; times in turns by CUDA events; a CUDA graph replay
+  of each sequence, the device busy share, the device time by the
+  stamps, the bound; and a persistent call's parts by host clock (the
+  rule, the shape, the allocations, the copies, the launch), for this
+  kernel's two entries and phase 46's linear batch.
+
+Since the persistent IRLS sweep, the phases that hold the robust
+sequence's units against their plain versions or count their launches —
+phase 13's main path, phase 15's CLI, phase 16's whole robust solve,
+phase 17's huber sweep, phase 18's robust records, phase 30's fused
+solves, phase 31's CLI and phase 36's chain side — run that sequence
+forced (``sequence_route(R, ROBUST_RULE)``, or ``solve.sequence``);
+phases 13 and 17 also run the default route (one ``irls_persistent``
+launch, the same bits), and phase 46's robust batch expects that launch.
 
 Since the persistent Tikhonov batch, the phases that hold the Tikhonov
 sequence's units against their plain versions or count their launches —
@@ -1093,16 +1125,29 @@ def run_robust_phases(device, card):
     solve = F.make_fused_admm_solver(b.shape, cov2, iterations=its,
                                      iter_max=sweeps, data_loss="huber",
                                      irls_cg_iters=cgi)
-    solve(b, b, ALPHA, RHO)  # warm-up (stencils, allocator)
-    torch.cuda.synchronize()
-    F.reset_counts()
-    x_k = solve(b, b, ALPHA, RHO)
-    torch.cuda.synchronize()
-    launches, plain_calls = F.launch_counts(F.ROBUST_UNITS), F.plain_counts()
+    # the launch sequence's units (phase 47 holds the persistent launch,
+    # the default route, to it)
+    with sequence_route(R, ROBUST_RULE):
+        solve(b, b, ALPHA, RHO)  # warm-up (stencils, allocator)
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x_k = solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        launches = F.launch_counts(F.ROBUST_UNITS)
+        plain_calls = F.plain_counts()
+        ms_seq = cuda_ms(lambda: solve(b, b, ALPHA, RHO), reps=20, warmup=2)
     require(all(n > 0 for n in launches.values()),
             "phase 13: a kernel was not launched: %s" % launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 13: a plain version ran: %s" % plain_calls)
+    # its default route: one persistent launch, the same bits
+    F.reset_counts()
+    x_d = solve(b, b, ALPHA, RHO)
+    torch.cuda.synchronize()
+    default = used_counts(F)
+    require(default == ({"irls_persistent": 1}, {}) and bits_equal(x_d, x_k),
+            "phase 13: the default route launches %s, the same bits %s"
+            % (default, bits_equal(x_d, x_k)))
     require(bool(x_k.isfinite().all()) and x_k.shape == b.shape,
             "phase 13: result not finite or misshapen")
     obj = robust_objective(x_k, b, A2, ALPHA)
@@ -1123,10 +1168,13 @@ def run_robust_phases(device, card):
     ms_p = cuda_ms(lambda: solve.plain(b, b, ALPHA, RHO), reps=3)
     print("phase 13 main path Lena 256^2 huber %dx%dx%d: objective %.6f "
           "(anchor %.6f, rel dev %.2e); kernel vs plain objective rel %.2e, "
-          "voxel %.2e; x at alpha 1.0 identical: %s; launches %s; plain "
-          "calls %s; kernel %.4f ms/solve, plain %.4f ms/solve [%s]"
+          "voxel %.2e; x at alpha 1.0 identical: %s; launches %s on the "
+          "forced launch sequence, %s on the default route (the same bits); "
+          "plain calls %s; kernel %.4f ms/solve (the sequence %.4f), plain "
+          "%.4f ms/solve [%s]"
           % (its, sweeps, cgi, obj, LENA_ROBUST_ANCHOR, dev, rel, vox, same,
-             launches, sum(plain_calls.values()), ms_k, ms_p, card))
+             launches, default[0], sum(plain_calls.values()), ms_k, ms_seq,
+             ms_p, card))
     del x_p
 
     # phase 14: the 256³ robust suite solve (salt-and-pepper outliers)
@@ -1191,12 +1239,15 @@ def run_robust_phases(device, card):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "x.mat")
         F.reset_counts()
-        rc = run_deconvolution.main([
-            "--observation", obs, "--result", out, "--solver", "ADMM",
-            "--reconstruction-type", "TVL2", "--data-loss", "huber",
-            "--alpha", str(ALPHA), "--blur", str(SIGMA), "--iterations",
-            str(its), "--iter-max", str(sweeps), "--irls-cg-iters",
-            str(cgi), "--device", "cuda"])
+        # on the forced launch sequence, its units counted (phase 47 runs
+        # this CLI on both routes)
+        with sequence_route(R, ROBUST_RULE):
+            rc = run_deconvolution.main([
+                "--observation", obs, "--result", out, "--solver", "ADMM",
+                "--reconstruction-type", "TVL2", "--data-loss", "huber",
+                "--alpha", str(ALPHA), "--blur", str(SIGMA), "--iterations",
+                str(its), "--iter-max", str(sweeps), "--irls-cg-iters",
+                str(cgi), "--device", "cuda"])
         require(rc == 0, "phase 15: CLI returned %r" % rc)
         cli_launches = F.launch_counts(F.ROBUST_UNITS)
         require(all(n > 0 for n in cli_launches.values()),
@@ -1450,7 +1501,11 @@ def run_unit_phase(device, card):
             s = F.make_fused_admm_solver(shape, cov, spacing=sp, iterations=4,
                                          iter_max=5, data_loss=loss,
                                          irls_cg_iters=4, record=True)
-            xk, rk = s(b, b, 0.05, 0.5, data_loss_scale=0.3, record_dls=0.7)
+            # the robust solve's launch sequence (phase 47 holds the
+            # persistent launch to it)
+            run = s if loss == "linear" else s.sequence
+            xk, rk = run(b, b, 0.05, 0.5, data_loss_scale=0.3,
+                         record_dls=0.7)
             xp, rp = s.plain(b, b, 0.05, 0.5, data_loss_scale=0.3,
                              record_dls=0.7)
             rel = max(max_rel(xk, xp), max_rel(rk["Reg"], rp["Reg"]),
@@ -1797,13 +1852,14 @@ def tk_objective(x, b, A, B, alpha, loss):
 def run_tikhonov_phase(device, card):
     """Phase 17: the Lena 256² Tikhonov studies through
     ``TikhonovLinearSolver.run_sweep`` on the card: each sweep's launch
-    sequence (the linear ones forced onto it) against its anchors, and its
-    default route (the linear ones one persistent launch) to the same bits.
+    sequence (forced onto it) against its anchors, and its default route
+    (one persistent launch) to the same bits.
     Returns each sweep's sequence launches and timing."""
     import torch
 
     from nsol_tpu_torch.ops import losses
     from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
     from nsol_tpu_torch.ops.cuda import tikhonov as T
     from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
 
@@ -1833,11 +1889,11 @@ def run_tikhonov_phase(device, card):
             "Data": lambda x, loss=loss: losses.cost_from_residual(
                 A(x) - bt.to(x.dtype), loss, HUBER_SCALE)}
         params = {"alpha": alphas.astype(np.float64)}
-        # the launch sequence's units: a linear sweep on the forced
-        # sequence (phase 46 holds the persistent batch to it)
+        # the launch sequence's units: each sweep on the forced sequence
+        # (phases 46-47 hold the persistent batches to it)
         torch.cuda.synchronize()
         F.reset_counts()
-        with contextlib.nullcontext() if robust else sequence_route(
+        with sequence_route(R, ROBUST_RULE) if robust else sequence_route(
                 T, TIK_RULE):
             x_all, recs = solver.run_sweep(params, measures=measures)
         torch.cuda.synchronize()
@@ -1858,15 +1914,15 @@ def run_tikhonov_phase(device, card):
                 "phase 17: %s/%s results not finite or misshapen"
                 % (reg, loss))
         # its default route: the persistent batch, one launch, the same
-        # bits; the robust sweep stays on the sequence
+        # bits
         F.reset_counts()
         x_def, recs_def = solver.run_sweep(params, measures=measures)
         torch.cuda.synchronize()
         default = used_counts(F)
         require(np_bits(x_def, x_all) and all(np_bits(recs_def[k], recs[k])
                                               for k in recs)
-                and (robust or default == ({"tik_persistent": 1}, {}))
-                and (not robust or "tik_persistent" not in default[0]),
+                and default == ({"irls_persistent" if robust
+                                 else "tik_persistent": 1}, {}),
                 "phase 17: %s/%s default route launches %s, bits equal %s"
                 % (reg, loss, default, np_bits(x_def, x_all)))
         xk = torch.as_tensor(x_all / xs, device=device)
@@ -1947,6 +2003,7 @@ def run_admm_study_phase(device, card):
     from nsol_tpu_torch.io import DataReader
     from nsol_tpu_torch.ops import losses
     from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
     from nsol_tpu_torch.solvers.wrappers import ADMMLinearSolver
 
     img, xs, A, D, Dt = lena_problem()
@@ -2060,7 +2117,8 @@ def run_admm_study_phase(device, card):
                                       iter_max=sweeps, data_loss="huber",
                                       irls_cg_iters=cgi, record=True)
     F.reset_counts()
-    rsolve(b, b, a0, r0, record_dls=1.0 / xs)
+    with sequence_route(R, ROBUST_RULE):  # the persistent one records itself
+        rsolve(b, b, a0, r0, record_dls=1.0 / xs)
     torch.cuda.synchronize()
     launches.update(F.launch_counts(F.RECORD_UNITS))
     require(launches["admm_record"] == its + 1, "phase 18: the robust "
@@ -4681,8 +4739,11 @@ def run_compact_robust_phases(device, card):
 
     lena_f = partial(F.make_fused_admm_solver, b.shape, cov2, iter_max=sweeps,
                      data_loss="huber", irls_cg_iters=cgi)
-    for key, kw in (("lena_dirs", FUSED_COMPACT), ("lena_exact", {})):
-        run(key, lena_f(iterations=its, **kw), b, obj2)
+    # the fused solves on their launch sequence, its units counted (phase
+    # 47 holds the persistent launch to it)
+    with sequence_route(R, ROBUST_RULE):
+        for key, kw in (("lena_dirs", FUSED_COMPACT), ("lena_exact", {})):
+            run(key, lena_f(iterations=its, **kw), b, obj2)
     dev_lena = abs(runs["lena_dirs"][0] - LENA_ROBUST_ANCHOR) \
         / LENA_ROBUST_ANCHOR
     require(dev_lena <= ROBUST_ANCHOR_BAND, "phase 30: Lena compact objective"
@@ -4705,8 +4766,9 @@ def run_compact_robust_phases(device, card):
 
     cube_f = partial(F.make_fused_admm_solver, (64,) * 3, iso,
                      iter_max=sweeps, data_loss="huber", irls_cg_iters=cgi)
-    for key, kw in (("cube_dirs", FUSED_COMPACT), ("cube_exact", {})):
-        run(key, cube_f(iterations=its, **kw), b64, obj64)
+    with sequence_route(R, ROBUST_RULE):
+        for key, kw in (("cube_dirs", FUSED_COMPACT), ("cube_exact", {})):
+            run(key, cube_f(iterations=its, **kw), b64, obj64)
     rel_cube = compared("cube_dirs", "cube_exact", SOLVE_OBJ_TOL, "64^3")
     held_to_plain("cube_dirs", cube_f, FUSED_COMPACT, b64, obj64, "dirs")
     del b64
@@ -4803,13 +4865,15 @@ def run_compact_robust_phases(device, card):
                         nda.shape, cov, np.ones(nd), "cuda", its, sweeps,
                         "huber", cgi)
                     F.reset_counts()
-                    rc = run_deconvolution.main([
-                        "--observation", obs, "--result", out, "--solver",
-                        "ADMM", "--reconstruction-type", "TVL2",
-                        "--data-loss", "huber", "--alpha", str(ALPHA),
-                        "--blur", str(SIGMA), "--iterations", str(its),
-                        "--iter-max", str(sweeps), "--irls-cg-iters",
-                        str(cgi), "--device", "cuda"])
+                    # on the launch sequence, its units counted
+                    with sequence_route(R, ROBUST_RULE):
+                        rc = run_deconvolution.main([
+                            "--observation", obs, "--result", out,
+                            "--solver", "ADMM", "--reconstruction-type",
+                            "TVL2", "--data-loss", "huber", "--alpha",
+                            str(ALPHA), "--blur", str(SIGMA), "--iterations",
+                            str(its), "--iter-max", str(sweeps),
+                            "--irls-cg-iters", str(cgi), "--device", "cuda"])
                     counts = unit_counts(F)
                 key = "%s %s" % ("x".join(map(str, nda.shape)),
                                  ",".join(env) or "default")
@@ -5964,9 +6028,9 @@ def chain_route_runs(F, device):
         kw = dict(iterations=3, iter_max=5) if unit == "cg_step" else dict(
             iterations=2, iter_max=2, data_loss="huber", irls_cg_iters=4)
         solve = F.make_fused_admm_solver(shape, cov, **kw)
-        # the linear solve's units run in its launch sequence (the fused
-        # route takes the persistent launch at 64³)
-        run = solve.sequence if unit == "cg_step" else solve
+        # the solve's units run in its launch sequence (the fused route
+        # takes the persistent launch at 64³)
+        run = solve.sequence
         torch.cuda.synchronize()
         F.reset_counts()
         x = run(b, b, ALPHA, RHO)
@@ -8411,10 +8475,10 @@ PERSISTENT_ROUTE_SHAPES = ((64, 64, 64), (80, 80, 80), (96, 96, 96),
 PERSISTENT_KERNEL = "admm_persistent_kernel"
 
 
-def persistent_ptxas(kernel=PERSISTENT_KERNEL):
+def persistent_ptxas(kernel=PERSISTENT_KERNEL, mark="StoreT"):
     """ptxas's registers and spills of each instance of the persistent
-    kernel ``kernel`` (from this run's build; "cached" where the library
-    was not built)."""
+    kernel ``kernel``, named from its template argument ``mark`` on (from
+    this run's build; "cached" where the library was not built)."""
     from nsol_tpu_torch.ops.cuda import build
 
     lines = build.build_info.get("ptxas", "").splitlines()
@@ -8424,17 +8488,17 @@ def persistent_ptxas(kernel=PERSISTENT_KERNEL):
             info = [l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
                     if "spill" in l or "Used" in l]
             name = ln.split("'")[1]
-            out.append("%s: %s" % (name[name.index("StoreT"):][:60],
+            out.append("%s: %s" % (name[name.index(mark):][:60],
                                    "; ".join(info)))
     return out or ["cached"]
 
 
-def persistent_sass(kernel=PERSISTENT_KERNEL):
+def persistent_sass(kernel=PERSISTENT_KERNEL, mark="StoreT"):
     """``{instance: (global loads, constant-cache global loads)}`` of each
-    instance of the persistent kernel ``kernel`` in the built library's SASS
-    (``cuobjdump -sass``): every load of a volume the kernel writes must
-    take the coherent path, so none may be an ``LDG...CONSTANT`` (or
-    ``.NC``)."""
+    instance of the persistent kernel ``kernel`` (named from its template
+    argument ``mark`` on) in the built library's SASS (``cuobjdump
+    -sass``): every load of a volume the kernel writes must take the
+    coherent path, so none may be an ``LDG...CONSTANT`` (or ``.NC``)."""
     import re
 
     from nsol_tpu_torch.ops.cuda import build
@@ -8456,7 +8520,7 @@ def persistent_sass(kernel=PERSISTENT_KERNEL):
             continue
         loads = [l for l in fn.splitlines() if "LDG" in l]
         const = [l for l in loads if "CONSTANT" in l or ".NC" in l]
-        out[name[name.index("StoreT"):][:60]] = (len(loads), len(const))
+        out[name[name.index(mark):][:60]] = (len(loads), len(const))
     return out
 
 
@@ -8481,17 +8545,22 @@ def persistent_bound(counts, n, normal, blur, outputs=1):
     """A one-launch solve's bound: the bytes it must move (b and x0 read,
     ``outputs`` volumes x written) and its float32 operations, those of the
     launch sequence's units at the counts that sequence makes
-    (:func:`unit_bound`'s operations a voxel; ``Aᵀb``'s ``normal_apply`` at
-    the blur taps), over the card's peak rates; and the sum of the units'
-    own bounds at those counts (each unit's volumes through HBM: no floor
-    where the state sits in the 50 MB L2)."""
+    (:func:`unit_bound`'s operations a voxel; ``Aᵀb``'s ``normal_apply``,
+    ``admm_record`` and the robust units at the blur taps), over the card's
+    peak rates; and the sum of the units' own bounds at those counts (each
+    unit's volumes through HBM: no floor where the state sits in the 50 MB
+    L2)."""
     chain_n, chain_b = 2 * sum(normal), 2 * sum(blur)
     ops = {"normal_apply": chain_n + 15, "cg_step": chain_n + 17,
            "cg_update": 8, "admm_tail": 40, "admm_record": chain_b + 20,
-           "tik_clip": 1}
+           "tik_clip": 1, "irls_head": chain_b + 10,
+           "blur_apply": chain_b + 20, "weighted_apply": 2 * chain_b + 25,
+           "irls_step": 2}
+    # Aᵀb's normal_apply runs at the blur taps
     total = sum(ops[k] * c for k, c in counts.items() if c) \
-        - (chain_n - chain_b)
-    units = sum(unit_bound(k, n, blur if k == "admm_record" else normal)[0]
+        - (chain_n - chain_b if counts.get("normal_apply") else 0)
+    on_blur = ("admm_record", "irls_head", "blur_apply", "weighted_apply")
+    units = sum(unit_bound(k, n, blur if k in on_blur else normal)[0]
                 * c for k, c in counts.items() if c)
     return bound(4.0 * n * (2 + outputs), float(n) * total), units
 
@@ -8982,6 +9051,10 @@ TIK_WIDTHS = ((("Lena x 64", (1, 256, 256), 64, "exact"), 16),
               (("64^3 x 8", (64, 64, 64), 8, "exact"), 4))
 #: the Tikhonov batch's route rule, which :func:`sequence_route` forces off
 TIK_RULE = "tikhonov_persistent_route"
+#: the robust solves' route rule (the IRLS sweep's, ``R``), which
+#: :func:`sequence_route` forces off for the ADMM solve and the Tikhonov
+#: batch alike
+ROBUST_RULE = "robust_persistent_route"
 
 
 def tik_grid(n):
@@ -9061,10 +9134,11 @@ def tik_anchor_devs(lena, b):
 
 
 def tik_refusals(T, F, device, problems):
-    """The robust loss (Lena TK1 huber × 8) and 256³ × 8 α run on the
-    launch sequence: no persistent launch, and ``tik_clip`` once a
-    configuration on entry, again on exit where the loss is linear.
-    Returns their launches."""
+    """256³ × 8 α runs on the launch sequence: no persistent launch, and
+    ``tik_clip`` once a configuration on entry and again on exit; the
+    robust loss (Lena TK1 huber × 8) takes no ``tik_persistent`` launch but
+    ``csrc/irls_persistent.cu``'s one (phase 47). Returns their
+    launches."""
     import torch
 
     out = {}
@@ -9073,15 +9147,18 @@ def tik_refusals(T, F, device, problems):
                        irls_cg_iters=HUBER_CG)
     big = torch.as_tensor(np.random.RandomState(46).rand(
         *SCALE_SHAPE).astype(np.float32), device=device)
-    for label, solve, x, clips in (("Lena huber x 8", huber, b, 1),
-                                   ("256^3 x 8", tik_solver(T, big), big, 2)):
+    for label, solve, x, want in (
+            ("Lena huber x 8", huber, b, {"irls_persistent": 1}),
+            ("256^3 x 8", tik_solver(T, big), big, {"tik_clip": 16})):
         alphas, scales = tik_grid(8)
         F.reset_counts()
         solve(x, x, alphas, scales)
         torch.cuda.synchronize()
         counts = used_counts(F)[0]
-        require(solve.route == "sequence" and "tik_persistent" not in counts
-                and counts.get("tik_clip", 0) == clips * len(alphas),
+        require(solve.route == ("persistent" if "irls_persistent" in want
+                                else "sequence")
+                and "tik_persistent" not in counts
+                and all(counts.get(k) == n for k, n in want.items()),
                 "phase 46: %s took %s, launches %s" % (label, solve.route,
                                                        counts))
         out[label] = counts
@@ -9146,9 +9223,9 @@ def run_tik_persistent_phase(device, card):
     barriers; every case of :data:`TIK_BIT_CASES` bit for bit against
     ``nsol_tikhonov_solve``'s launch sequence, repeated, one launch a
     batch; the Lena sweeps' objectives at phase 17's float64 anchors; the
-    rule's refusals (the robust loss, 256³); times in turns (sequence,
-    persistent, persistent, sequence) by CUDA events of the Lena TK1L2 and
-    TK0L2 × 64 and 64³ TK1L2 × 8 batches,
+    rule's refusals (256³; the robust loss takes phase 47's launch); times
+    in turns (sequence, persistent, persistent, sequence) by CUDA events of
+    the Lena TK1L2 and TK0L2 × 64 and 64³ TK1L2 × 8 batches,
     ``TikhonovLinearSolver.run_sweep`` on Lena and the 64³ study CLI; a
     CUDA graph replay of the launch sequence as a yardstick, the device
     busy share, and the device time by the kernel's global-timer stamps.
@@ -9321,11 +9398,696 @@ def run_tik_persistent_phase(device, card):
              "graph_replay_ms": float(np.median(graph_t[::3]))}]
 
 
+# -------------------------------------------------------------- phase 47 --
+
+#: phase 47's bit cases of the robust ADMM solve: label → (problem, loss,
+#: storage, records, (outer, sweeps, CG)): Lena at phase 13's 10 × 3 × 6 in
+#: the four losses, exact and dirs, with and without records (the main
+#: path); the 64³ phantom; the rule's edge shapes (80³: threads with two
+#: voxels of a pass; a ragged volume; a 2-plane stack)
+IRLS_BIT_CASES = dict(
+    [("Lena %s %s%s" % (loss, storage, " records" if record else ""),
+      ("lena", loss, storage, record, ROBUST_ITERS["lena"]))
+     for loss in ROBUST_LOSSES for storage in ("exact", "dirs")
+     for record in (False, True)]
+    + [("64^3 huber exact", ("phantom", "huber", "exact", False,
+                             ROBUST_ITERS["lena"])),
+       ("64^3 huber dirs records", ("phantom", "huber", "dirs", True,
+                                    ROBUST_ITERS["lena"])),
+       ("80^3 huber exact records", ((80, 80, 80), "huber", "exact", True,
+                                     (3, 3, 6))),
+       ("37x45x53 cauchy dirs", ((37, 45, 53), "cauchy", "dirs", False,
+                                 (3, 3, 6))),
+       ("2x256x512 huber exact records", ((2, 256, 512), "huber", "exact",
+                                          True, (3, 3, 6)))])
+#: phase 47's bit cases of the robust Tikhonov batch: label → (problem,
+#: regulariser, storage, loss, configurations, C varying): phase 17's Lena
+#: huber sweeps (every 8th α, 5 sweeps × 8 CG, C = 1) exact and compact,
+#: then a batch mixing α and C, a batch of 1, one longer than the
+#: configurations a launch runs side by side (turns), and 64³
+IRLS_TIK_CASES = {
+    "Lena TK1 huber exact x 8": ("lena", "TK1", "exact", "huber", 8, False),
+    "Lena TK1 huber qf32 x 8": ("lena", "TK1", "qf32", "huber", 8, False),
+    "Lena TK0 huber exact x 8": ("lena", "TK0", "exact", "huber", 8, False),
+    "Lena TK0 huber qf32 x 8": ("lena", "TK0", "qf32", "huber", 8, False),
+    "Lena TK1 cauchy exact x 20, C varying": ("lena", "TK1", "exact",
+                                              "cauchy", 20, True),
+    "Lena TK0 soft_l1 qf32 x 1": ("lena", "TK0", "qf32", "soft_l1", 1,
+                                  True),
+    "Lena TK1 arctan exact x 130": ("lena", "TK1", "exact", "arctan", 130,
+                                    True),
+    "64^3 TK1 huber exact x 8": ("phantom", "TK1", "exact", "huber", 8,
+                                 False)}
+IRLS_KERNEL = "irls_persistent_kernel"
+#: launch shapes phase 47 reads: (label, dims, configurations, storage,
+#: regulariser) and the configurations side by side the C rule
+#: (``batch_width`` over a slot's ten volumes) gives: as many as 32 MiB
+#: hold (Lena exact 2.5 MiB a configuration: 12; dirs 2.25 MiB: 14; 64³
+#: exact 10 MiB: 3), in turns of equal size; a solve is a batch of one
+IRLS_WIDTHS = ((("Lena solve", (1, 256, 256), 1, "exact", "TK1"), 1),
+               (("Lena x 8", (1, 256, 256), 8, "exact", "TK1"), 8),
+               (("Lena x 8 dirs", (1, 256, 256), 8, "dirs", "TK0"), 8),
+               (("Lena x 130", (1, 256, 256), 130, "exact", "TK1"), 12),
+               (("Lena x 130 dirs", (1, 256, 256), 130, "dirs", "TK1"), 13),
+               (("64^3 x 8", (64, 64, 64), 8, "exact", "TK1"), 3))
+#: host-clock calls a persistent call's parts are taken over (their medians)
+HOST_SPLIT_CALLS = 20
+
+
+def irls_problem(src, problems, device, seed=47):
+    """``b`` of a case: a named problem of :func:`persistent_problems` or
+    a random volume of the shape ``src``."""
+    import torch
+
+    if isinstance(src, str):
+        return problems[src][0]
+    return torch.as_tensor(np.random.RandomState(seed).rand(*src).astype(
+        np.float32), device=device)
+
+
+def nan_bits_equal(a, b):
+    """NaN at the same entries and the same bits everywhere else (signed
+    zeros included): ``torch.equal``, NaN-equal, and stricter on zeros."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bits_equal(
+        a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))
+
+
+def irls_same(got, want, record):
+    """:func:`nan_bits_equal` of x, and of the records."""
+    if not record:
+        return nan_bits_equal(got, want)
+    return nan_bits_equal(got[0], want[0]) and all(
+        nan_bits_equal(got[1][k], want[1][k]) for k in ("Reg", "Data"))
+
+
+def irls_case(F, label, solve, args, kwargs=None, record=False):
+    """``solve.sequence`` once and the library call (the default route)
+    :data:`PERSISTENT_REPEATS` times: each output (with ``record`` x and
+    the records) bit for bit the sequence's, NaN-equal, one
+    ``irls_persistent`` launch a call, nothing else launched and no plain
+    call. Returns the first output."""
+    import torch
+
+    kwargs = kwargs or {}
+    want = solve.sequence(*args, **kwargs)
+    torch.cuda.synchronize()
+    F.reset_counts()
+    got = [solve(*args, **kwargs) for _ in range(PERSISTENT_REPEATS)]
+    torch.cuda.synchronize()
+    counts = used_counts(F)
+    require(solve.route == "persistent"
+            and counts == ({"irls_persistent": PERSISTENT_REPEATS}, {}),
+            "phase 47: %s takes %s, launches %s" % (label, solve.route,
+                                                    counts))
+    for g in got:
+        require(irls_same(g, want, record), "phase 47: %s: the persistent "
+                "launch is not the launch sequence's bits" % label)
+    return got[0]
+
+
+def irls_bits(F, T, device, problems):
+    """Every case of :data:`IRLS_BIT_CASES` and :data:`IRLS_TIK_CASES`, and
+    a NaN in b and in x0 of each kind of solve, through :func:`irls_case`.
+    Returns ``{case: max |x|}`` (NaN cases: the NaN count) and the Lena
+    huber exact solve."""
+    import torch
+
+    out, lena = {}, None
+    for label, (src, loss, storage, record, (its, sweeps, cgi)) in \
+            IRLS_BIT_CASES.items():
+        b = irls_problem(src, problems, device)
+        kw = FUSED_COMPACT if storage == "dirs" else {}
+        solve = F.make_fused_admm_solver(
+            tuple(b.shape), np.eye(b.dim()), iterations=its, iter_max=sweeps,
+            data_loss=loss, irls_cg_iters=cgi, record=record, **kw)
+        x = irls_case(F, label, solve, (b, b, ALPHA, RHO),
+                      dict(data_loss_scale=0.7, record_dls=0.9) if record
+                      else None, record)
+        x = x[0] if record else x
+        require(bool(torch.isfinite(x).all()), "phase 47: %s not finite"
+                % label)
+        out[label] = float(x.abs().max())
+        if label == "Lena huber exact":
+            lena = x
+    for label, (src, reg, storage, loss, n, varying) in \
+            IRLS_TIK_CASES.items():
+        b = irls_problem(src, problems, device)
+        solve = tik_solver(T, b, reg, storage, iter_max=HUBER_SWEEPS,
+                           data_loss=loss, irls_cg_iters=HUBER_CG)
+        alphas, scales = tik_grid(n)
+        if not varying:
+            alphas = [float(a) for a in TK_ALPHAS[::HUBER_STEP]]
+            scales = [HUBER_SCALE] * n
+        x = irls_case(F, label, solve, (b, b, alphas, scales))
+        require(x.shape == (n,) + tuple(b.shape)
+                and bool(torch.isfinite(x).all()),
+                "phase 47: %s not finite or misshapen" % label)
+        out[label] = float(x.abs().max())
+    # a NaN in b and in x0: the NaNs where the sequence has them
+    b = problems["lena"][0]
+    nan_b, nan_x0 = b.clone(), b.clone()
+    nan_b[100, 100] = float("nan")
+    nan_x0[10, 20] = float("nan")
+    admm = F.make_fused_admm_solver(tuple(b.shape), np.eye(2), iterations=2,
+                                    iter_max=2, data_loss="huber",
+                                    irls_cg_iters=3)
+    tik = tik_solver(T, b, iter_max=2, data_loss="huber", irls_cg_iters=3)
+    alphas, scales = tik_grid(4)
+    for label, solve, args in (
+            ("ADMM NaN in b", admm, (nan_b, nan_b, ALPHA, RHO)),
+            ("ADMM NaN in x0", admm, (b, nan_x0, ALPHA, RHO)),
+            ("TK1 x 4 NaN in b", tik, (nan_b, b, alphas, scales)),
+            ("TK1 x 4 NaN in x0", tik, (b, nan_x0, alphas, scales))):
+        x = irls_case(F, label, solve, args)
+        out[label] = int(torch.isnan(x).sum())
+        require(out[label] > 0, "phase 47: %s left no NaN" % label)
+    return out, lena
+
+
+def irls_refusals(F, R, T, device):
+    """Shapes and storage the rule leaves to the launch sequence make no
+    persistent launch there and their units' launches: 256³ and 100³
+    (their units march), the blocked solve's ``"io"`` storage at 64³, a
+    256³ robust Tikhonov batch. Returns their launches."""
+    import torch
+
+    out = {}
+    iso = np.eye(3)
+    for label, shape, make in (
+            ("256^3", SCALE_SHAPE, partial(F.make_fused_admm_solver,
+                                           SCALE_SHAPE, iso)),
+            ("100^3", (100,) * 3, partial(F.make_fused_admm_solver,
+                                          (100,) * 3, iso)),
+            ("64^3 io", (64,) * 3, partial(R.blocked_robust_admm_solve,
+                                           (64,) * 3, iso,
+                                           compact_dirs=True))):
+        its, sweeps, cgi = 1, 2, 3
+        b = torch.as_tensor(np.random.RandomState(48).rand(*shape).astype(
+            np.float32), device=device)
+        solve = make(iterations=its, iter_max=sweeps, data_loss="huber",
+                     irls_cg_iters=cgi)
+        F.reset_counts()
+        solve(b, b, ALPHA, RHO)
+        torch.cuda.synchronize()
+        counts = used_counts(F)[0]
+        applies = counts.get("weighted_apply", 0) + counts.get(
+            "weighted_apply_march", 0)
+        require(getattr(solve, "route", "sequence") == "sequence"
+                and "irls_persistent" not in counts
+                and applies == its * sweeps * cgi
+                and counts.get("irls_step") == its * sweeps,
+                "phase 47: %s takes %s, launches %s"
+                % (label, getattr(solve, "route", None), counts))
+        out[label] = counts
+        del b
+    b = torch.as_tensor(np.random.RandomState(48).rand(
+        *SCALE_SHAPE).astype(np.float32), device=device)
+    solve = tik_solver(T, b, iter_max=1, data_loss="huber", irls_cg_iters=2)
+    alphas, scales = tik_grid(2)
+    F.reset_counts()
+    solve(b, b, alphas, scales)
+    torch.cuda.synchronize()
+    counts = used_counts(F)[0]
+    require(solve.route == "sequence" and "irls_persistent" not in counts
+            and counts.get("tik_clip") == 2,
+            "phase 47: the 256^3 huber batch takes %s, launches %s"
+            % (solve.route, counts))
+    out["256^3 TK1 huber x 2"] = counts
+    del b
+    torch.cuda.empty_cache()
+    return out
+
+
+def irls_study(device, loss_reg):
+    """Phase 17's Lena TK1L2 huber sweep (``loss_reg`` ``"TK1"``; every
+    8th α, 5 sweeps × 8 CG, C = 1, records) or its TK0L2 form through
+    ``TikhonovLinearSolver.run_sweep`` (exact storage): a closure
+    returning its x and records."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    B_, Bt = (D, Dt) if loss_reg == "TK1" else ((lambda x: x),) * 2
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    solver = TikhonovLinearSolver(
+        A, A, img, B_, Bt, img, x_scale=xs, data_loss="huber",
+        data_loss_scale=HUBER_SCALE, minimizer="auto", iter_max=HUBER_SWEEPS,
+        irls_cg_iters=HUBER_CG, blur_cov=np.eye(2), spacing=np.ones(2),
+        reg_kind=loss_reg, device=device)
+    measures = {
+        "Reg": lambda x: 0.5 * torch.sum(B_(x) * B_(x)),
+        "Data": lambda x: losses.cost_from_residual(
+            A(x) - bt.to(x.dtype), "huber", HUBER_SCALE)}
+    params = {"alpha": TK_ALPHAS[::HUBER_STEP].astype(np.float64)}
+
+    def run():
+        with exact_storage():
+            x, recs = solver.run_sweep(params, measures=measures)
+        return dict(recs, x=x)
+    return run
+
+
+def irls_admm_study(device):
+    """Phase 31's Lena TV-L2 ADMM huber study (4 α × 2 ρ, 10 × 3 × 6,
+    records, its default compact storage) through
+    ``ADMMLinearSolver.run_sweep``: a closure returning its x and records."""
+    import torch
+
+    from nsol_tpu_torch.ops import losses
+    from nsol_tpu_torch.solvers.wrappers import ADMMLinearSolver
+
+    img, xs, A, D, Dt = lena_problem()
+    bt = torch.as_tensor(img, dtype=torch.float64, device=device)
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    solver = ADMMLinearSolver(
+        A, A, img, D, Dt, img, x_scale=xs, data_loss="huber",
+        data_loss_scale=HUBER_SCALE, minimizer="auto", iterations=its,
+        iter_max=sweeps, irls_cg_iters=cgi, blur_cov=np.eye(2),
+        spacing=np.ones(2), device=device)
+    measures = {
+        "Reg": lambda x: torch.sum(torch.sqrt(torch.sum(D(x) ** 2, 0))),
+        "Data": lambda x: losses.cost_from_residual(
+            A(x) - bt.to(x.dtype), "huber", HUBER_SCALE)}
+    grid = [(float(a), r) for a in TV_ALPHAS[::2] for r in TV_RHOS]
+    params = {"alpha": np.array([g[0] for g in grid]),
+              "rho": np.array([g[1] for g in grid])}
+
+    def run():
+        x, recs = solver.run_sweep(params, measures=measures)
+        return dict(recs, x=x)
+    return run
+
+
+def irls_cli(tmp):
+    """``nsol_torch_run_deconvolution --data-loss huber`` on the Lena PNG
+    (phase 15's 10 × 3 × 6, its default compact storage): a closure
+    returning the result."""
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.cli import run_deconvolution
+    from nsol_tpu_torch.io import DataReader
+
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    out = os.path.join(tmp, "x.mat")
+
+    def run():
+        rc = run_deconvolution.main([
+            "--observation", data.path("2D_Lena_256_blur_noise.png"),
+            "--result", out, "--solver", "ADMM", "--reconstruction-type",
+            "TVL2", "--data-loss", "huber", "--alpha", str(ALPHA), "--blur",
+            str(SIGMA), "--iterations", str(its), "--iter-max", str(sweeps),
+            "--irls-cg-iters", str(cgi), "--device", "cuda"])
+        require(rc == 0, "phase 47: the huber CLI exited %r" % rc)
+        reader = DataReader(out)
+        reader.read_data()
+        return reader.get_data()
+    return run
+
+
+@contextlib.contextmanager
+def _host_timed(acc, part, obj, name):
+    """Inside the block ``obj.name`` adds its host seconds to
+    ``acc[part]``."""
+    orig = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            acc[part] = acc.get(part, 0.0) + time.perf_counter() - t0
+    setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def host_split(fn, hooks):
+    """The parts of one persistent call ``fn()`` by host clock, medians
+    over :data:`HOST_SPLIT_CALLS` calls after a warm-up, in ms: each
+    ``part`` of ``hooks`` (``(part, obj, name)``: the time spent in
+    ``obj.name``), the whole call until it returns (``host``), the rest
+    (``other``), and the call by CUDA events (``events``: the stream from
+    before the call's first enqueue to after its kernel's end)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(HOST_SPLIT_CALLS):
+        acc = {}
+        with contextlib.ExitStack() as stack:
+            for part, obj, name in hooks:
+                stack.enter_context(_host_timed(acc, part, obj, name))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t0
+            end.record()
+        end.synchronize()
+        acc["host"] = host
+        acc["other"] = host - sum(v for k, v in acc.items() if k != "host")
+        acc = {k: 1e3 * v for k, v in acc.items()}
+        acc["events"] = start.elapsed_time(end)
+        rows.append(acc)
+    return {k: float(np.median([r.get(k, 0.0) for r in rows]))
+            for k in rows[0]}
+
+
+def host_hooks(lib, entry, rule, shape=None):
+    """The parts :func:`host_split` times in a persistent call: the route
+    rule, the launch shape's query, the scratch allocations, the α/C (and
+    x0) copies and the C entry (its own shape query and the cooperative
+    launch's enqueue)."""
+    import torch
+
+    hooks = [("rule",) + rule, ("launch", lib, entry)]
+    if shape is not None:
+        hooks.append(("shape",) + shape)
+    hooks += [("alloc", torch, name) for name in ("empty", "empty_like",
+                                                  "zeros")]
+    hooks += [("copy", torch, "tensor"), ("copy", torch.Tensor, "clone"),
+              ("copy", torch.Tensor, "pin_memory"),
+              ("copy", torch.Tensor, "to")]
+    return hooks
+
+
+def run_irls_persistent_phase(device, card):
+    """Phase 47: the robust IRLS sweep as one persistent cooperative launch
+    (``csrc/irls_persistent.cu``), for the fused robust ADMM solve and the
+    robust Tikhonov batch. Its build (ptxas registers and spills, no
+    constant-cache load in its SASS), its launch shape (the configurations
+    side by side against the C rule's) and grid barriers (against the
+    kernel's stamps); every case of :data:`IRLS_BIT_CASES` and
+    :data:`IRLS_TIK_CASES` and the NaN cases bit for bit against the
+    launch sequence, three times each, one launch a solve or batch; Lena
+    within 1e-4 of 101.442567; the Lena TK1L2 huber sweep at phase 17's
+    float64 anchors; each main path against its plain version; the Lena
+    ADMM huber study and the huber CLI equal on both routes and to their
+    library solves; the shapes the rule refuses on the sequence; the rule
+    in C against its mirror; times in turns (sequence, persistent,
+    persistent, sequence) by CUDA events of the Lena and 64³ solves, the
+    Lena huber batches and sweeps, the study and the CLI; a CUDA graph
+    replay of the sequence, the device busy share, the device time by the
+    kernel's stamps, the bound, the barriers alone; and a persistent
+    call's host parts (the rule, the shape, the allocations, the copies,
+    the launch) by host clock, for this kernel's entries and the linear
+    Tikhonov batch's. Returns the ``kernels`` records of
+    ``irls_solve[persistent]`` and ``irls_batch[persistent]``."""
+    import torch
+
+    from nsol_tpu_torch import data, interop, policy
+    from nsol_tpu_torch.io import DataReader
+    from nsol_tpu_torch.ops import conv as C
+    from nsol_tpu_torch.ops.cuda import fused as F
+    from nsol_tpu_torch.ops.cuda import robust as R
+    from nsol_tpu_torch.ops.cuda import tikhonov as T
+
+    regs = persistent_ptxas(IRLS_KERNEL, "RobustT")
+    require(regs == ["cached"] or all("Used 64 registers" in r for r in regs),
+            "phase 47: the persistent kernel's registers %s" % regs)
+    sass = persistent_sass(IRLS_KERNEL, "RobustT")
+    require(sass and all(c == 0 for _, c in sass.values()),
+            "phase 47: constant-cache loads in the persistent kernel %s"
+            % sass)
+    blur = {2: F.taps_lengths([np.ones(7)] * 2)[0],
+            3: F.taps_lengths([np.ones(7)] * 3)[0]}
+    its, sweeps, cgi = ROBUST_ITERS["lena"]
+    shapes = {}
+    for (k, d, nconf, storage, reg), width in IRLS_WIDTHS:
+        shapes[k] = R.persistent_shape(d, blur[2 if d[0] == 1 else 3], nconf,
+                                       storage, reg)
+        require(shapes[k][4] == width, "phase 47: %s runs %d side by side, "
+                "not %d" % (k, shapes[k][4], width))
+    barriers = {
+        "Lena solve": R.persistent_barriers(its, sweeps, cgi),
+        "Lena solve records": R.persistent_barriers(its, sweeps, cgi, True),
+        "Lena x 8": R.persistent_barriers(1, HUBER_SWEEPS, HUBER_CG),
+        "Lena x 130": R.persistent_barriers(1, HUBER_SWEEPS, HUBER_CG,
+                                            turns=-(-130 // 12))}
+    barrier_ms = {k: F.persistent_barrier_ms(barriers["Lena solve"], v[1],
+                                             v[3], device)
+                  for k, v in shapes.items() if k in ("Lena solve",
+                                                      "64^3 x 8")}
+    print("phase 47 build: ptxas %s; SASS (global loads, constant-cache "
+          "loads) %s; launch shape (blocks an SM, grid, the sequence's "
+          "blocks a volume, threads a block, configurations side by side) "
+          "%s, the widths %s as the C rule gives; grid barriers %s; %d "
+          "barriers alone at the Lena solve's and the 64^3 batch's grid %s "
+          "ms [%s]"
+          % (regs, sass, shapes, [w for _, w in IRLS_WIDTHS], barriers,
+             barriers["Lena solve"],
+             {k: "%.3f" % v for k, v in barrier_ms.items()}, card))
+
+    problems = persistent_problems(device)
+    maxes, lena_x = irls_bits(F, T, device, problems)
+    b = problems["lena"][0]
+    A2, _ = C.make_blur_operators(np.eye(2), alpha_cut=3, dtype=np.float64)
+    obj = robust_objective(lena_x, b, A2, ALPHA)
+    dev = abs(obj - LENA_ROBUST_ANCHOR) / LENA_ROBUST_ANCHOR
+    require(dev <= ROBUST_ANCHOR_BAND, "phase 47: Lena objective %.6f "
+            "deviates %.3g from %.6f" % (obj, dev, LENA_ROBUST_ANCHOR))
+    refused = irls_refusals(F, R, T, device)
+    # the rule in C (nsol_robust_persistent_route) against its mirror
+    lib = F.build.load()
+    rule_cases = 0
+    for shape in PERSISTENT_ROUTE_SHAPES + (SCALE_SHAPE, (64, 128, 128),
+                                            (64, 128, 129)):
+        dims = (1,) * (3 - len(shape)) + tuple(shape)
+        for taps in (7, 61):
+            lens = F.taps_lengths([np.ones(taps)] * len(shape))[0]
+            for storage in R.ROBUST_STORAGE:
+                c = lib.nsol_robust_persistent_route(
+                    R.ROBUST_STORAGE.index(storage), *lens, *dims)
+                py = R.robust_persistent_route(dims, lens, storage)
+                require(bool(c) == py, "phase 47: the rule of %s taps %d %s:"
+                        " C %d, Python %s" % (shape, taps, storage, c, py))
+                rule_cases += 1
+    print("phase 47 bits: %d cases x %d calls bit for bit (NaN and signed "
+          "zeros) the launch sequence's, one launch a solve or batch, no "
+          "plain call: %s; Lena huber objective %.6f (anchor %.6f, dev "
+          "%.2e); the refusals (launches) %s; the rule in C equal to its "
+          "Python mirror in %d cases [%s]"
+          % (len(maxes), PERSISTENT_REPEATS, sorted(maxes), obj,
+             LENA_ROBUST_ANCHOR, dev, refused, rule_cases, card))
+    lap("phase 47 bits")
+
+    # the studies, the CLI and the sweeps on both routes: the same results
+    rows, got = {}, {}
+    runs = {"Lena TK1L2 huber run_sweep": irls_study(device, "TK1"),
+            "Lena TK0L2 huber run_sweep": irls_study(device, "TK0"),
+            "Lena ADMM huber study": irls_admm_study(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["huber CLI"] = irls_cli(tmp)
+        for key, fn in runs.items():
+            rows[key] = []
+            for turn in ("sequence", "persistent", "persistent", "sequence"):
+                route = sequence_route(R, ROBUST_RULE) \
+                    if turn == "sequence" else contextlib.nullcontext()
+                with route:
+                    F.reset_counts()
+                    got[(key, turn)], ms = timed_once(fn)
+                    rows[key].append(ms)
+                    launched = used_counts(F)[0]
+                require(("irls_persistent" in launched) == (
+                    turn == "persistent"), "phase 47: %s, %s turn, launches "
+                    "%s" % (key, turn, launched))
+                if turn == "persistent" and key == "Lena ADMM huber study":
+                    require(launched["irls_persistent"] == 8,
+                            "phase 47: the study launches %s" % launched)
+            seq, pers = got[(key, "sequence")], got[(key, "persistent")]
+            same = np_bits(seq, pers) if key == "huber CLI" else all(
+                np_bits(seq[k], pers[k]) for k in seq)
+            require(same, "phase 47: %s differs on the two routes" % key)
+        # the CLI is its library solve (the policy's compact fused solve)
+        reader = DataReader(data.path("2D_Lena_256_blur_noise.png"))
+        reader.read_data()
+        nda = reader.get_data()
+        xs = np.max(nda)
+        build, kw = policy.tvl2_solver(nda.shape, np.eye(2), np.ones(2),
+                                       "cuda", its, sweeps, "huber", cgi)
+        bs = torch.as_tensor(nda / xs, dtype=torch.float32, device=device)
+        lib_x = interop.to_numpy(build(**kw)(bs, bs, ALPHA, RHO))
+        require(np.array_equal(got[("huber CLI", "persistent")],
+                               lib_x.astype(np.float64) * xs),
+                "phase 47: the huber CLI is not its library solve")
+    # the Lena TK1L2 huber sweep at phase 17's float64 anchors
+    img, xs, A, D, _ = lena_problem()
+    bt = torch.as_tensor(img / xs, dtype=torch.float32, device=device)
+    xk = torch.as_tensor(got[("Lena TK1L2 huber run_sweep", "persistent")]
+                         ["x"] / xs, device=device)
+    anchors = {}
+    for (reg, loss, i), anchor in TK_ANCHORS.items():
+        if (reg, loss) != ("TK1", "huber"):
+            continue
+        o = tk_objective(xk[i // HUBER_STEP], bt, A, D, float(TK_ALPHAS[i]),
+                         loss)
+        anchors[i] = abs(o - anchor) / anchor
+        require(anchors[i] <= STUDY_ANCHOR_BAND, "phase 47: TK1L2 huber "
+                "alpha[%d] objective %.9f deviates %.3g from %.9f"
+                % (i, o, anchors[i], anchor))
+    print("phase 47 on both routes the same bits: %s; the huber CLI equals "
+          "its library solve (%s); the TK1L2 huber sweep vs the float64 "
+          "anchors %s (band %g) [%s]"
+          % (sorted(runs), build.__name__,
+             {i: "%.2e" % d for i, d in anchors.items()}, STUDY_ANCHOR_BAND,
+             card))
+
+    # times in turns, by CUDA events
+    cube = problems["phantom"][0]
+    for key, src, kw in (("Lena huber exact", b, {}),
+                         ("Lena huber dirs", b, FUSED_COMPACT),
+                         ("64^3 huber exact", cube, {}),
+                         ("64^3 huber dirs", cube, FUSED_COMPACT)):
+        solve = F.make_fused_admm_solver(tuple(src.shape),
+                                         np.eye(src.dim()), iterations=its,
+                                         iter_max=sweeps, data_loss="huber",
+                                         irls_cg_iters=cgi, **kw)
+        rows[key] = turns_ms(partial(solve.sequence, src, src, ALPHA, RHO),
+                             partial(solve, src, src, ALPHA, RHO), 5)
+    h_alphas = [float(a) for a in TK_ALPHAS[::HUBER_STEP]]
+    for key, src, reg in (("Lena TK1L2 huber x 8 batch", b, "TK1"),
+                          ("Lena TK0L2 huber x 8 batch", b, "TK0"),
+                          ("64^3 TK1L2 huber x 8 batch", cube, "TK1")):
+        solve = tik_solver(T, src, reg, iter_max=HUBER_SWEEPS,
+                           data_loss="huber", irls_cg_iters=HUBER_CG)
+        rows[key] = turns_ms(partial(solve.sequence, src, src, h_alphas),
+                             partial(solve, src, src, h_alphas), 5)
+    print("phase 47 ms by CUDA events, turns sequence / persistent / "
+          "persistent / sequence (a solve or batch: median of 5; run_sweep, "
+          "the study and the CLI: one run each, their results equal on the "
+          "two routes): %s [%s]" % ("; ".join(
+              "%s %s" % (k, turns_line(v)) for k, v in rows.items()), card))
+    lap("phase 47 times")
+
+    # the main paths: the Lena huber solve and the Lena TK1L2 huber × 8
+    # batch; a CUDA graph replay of each launch sequence; the device busy
+    # share; the device time by the stamps; the bound
+    solve = F.make_fused_admm_solver(tuple(b.shape), np.eye(2),
+                                     iterations=its, iter_max=sweeps,
+                                     data_loss="huber", irls_cg_iters=cgi)
+    batch = tik_solver(T, b, iter_max=HUBER_SWEEPS, data_loss="huber",
+                       irls_cg_iters=HUBER_CG)
+    mains = {"irls_solve[persistent]": (
+                 solve, (b, b, ALPHA, RHO), rows["Lena huber exact"],
+                 "nsol_tpu/ops/pallas/fused.py:382", 1),
+             "irls_batch[persistent]": (
+                 batch, (b, b, h_alphas), rows["Lena TK1L2 huber x 8 batch"],
+                 "nsol_tpu/ops/pallas/fused.py:716", len(h_alphas))}
+    entries = []
+    for name, (fn, args, turns, replaces, outputs) in mains.items():
+        pers = partial(fn, *args)
+        graph, x_graph = graph_of(partial(fn.sequence, *args))
+        graph.replay()
+        torch.cuda.synchronize()
+        require(nan_bits_equal(x_graph, pers()), "phase 47: %s: the graph "
+                "replay differs from the persistent launch" % name)
+        graph_t = [cuda_median_ms(f, 5) for f in (graph.replay, pers, pers,
+                                                  graph.replay)]
+        del graph
+        busy = {}
+        for route, f in (("sequence", partial(fn.sequence, *args)),
+                         ("persistent", pers)):
+            busy[route] = (device_busy_ms(f)[0], cuda_median_ms(f, 3))
+        phases = F.persistent_phases(pers, device)
+        stamps_ms = sum(us for _, us in phases.values()) / 1e3
+        stamped = sum(c for k, (c, _) in phases.items() if k != "reduce")
+        want = barriers["Lena solve" if outputs == 1 else "Lena x 8"]
+        require(stamped == want, "phase 47: %s stamped %d barriers, the "
+                "formula %d" % (name, stamped, want))
+        torch.cuda.synchronize()
+        F.reset_counts()
+        x = pers()
+        torch.cuda.synchronize()
+        launches = F.launch_counts(F.PERSISTENT_UNITS)["irls_persistent"]
+        require(launches == 1, "phase 47: the %s main path made %d "
+                "persistent launches" % (name, launches))
+        F.reset_counts()
+        fn.sequence(*args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in F.launch_counts().items() if v}
+        (b_ms, b_by), units_ms = persistent_bound(
+            counts, 256 ** 2, (1, 13, 13), blur[2], outputs=outputs)
+        x_p, plain_ms = timed_once(partial(fn.plain, *args))
+        err = float((x - x_p).abs().max())
+        require(max_rel(x, x_p) <= SOLVE_VOX_TOL and bool(x.isfinite().all()),
+                "phase 47: %s vs plain voxel rel %.3g" % (name,
+                                                          max_rel(x, x_p)))
+        print("phase 47 %s Lena (%s): launches %d, max|d| vs plain %.3e "
+              "(rel %.2e, limit %g); CUDA graph replay of the launch "
+              "sequence vs the persistent launch, ms (turns graph / "
+              "persistent / persistent / graph) %s; device busy "
+              "(torch.profiler device ms / wall ms) %s; device ms by the "
+              "global timer's stamps %.4f (%.1f %% of the persistent wall "
+              "ms); a traced call's phases (count x "
+              "mean us): %s; bound %.4f ms (%s: b, x0 in and %d x out, and "
+              "the sequence's %s operations), its units' bounds summed "
+              "%.4f ms [%s]"
+              % (name, "10 x 3 x 6" if outputs == 1 else "x 8, 5 x 8",
+                 launches, err, max_rel(x, x_p), SOLVE_VOX_TOL,
+                 turns_line(graph_t), {
+                     k: "%s/%.3f" % (ms_text(d), w)
+                     for k, (d, w) in busy.items()}, stamps_ms,
+                 100 * stamps_ms / float(np.median(graph_t[1:3])), "; ".join(
+                     "%s %d x %.2f" % (k, c, us / c)
+                     for k, (c, us) in phases.items()),
+                 b_ms, b_by, outputs, counts, units_ms, card))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "nsol_tpu_torch/csrc/irls_persistent.cu",
+            "replaces": replaces, "launches": int(launches),
+            "max_abs_err": err, "ms": float(np.median(turns[1:3])),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_ms": stamps_ms,
+            "sequence_ms": float(np.median(turns[::3])),
+            "graph_replay_ms": float(np.median(graph_t[::3]))})
+    lap("phase 47 main paths")
+
+    # a persistent call's host parts, for this kernel's two entries and
+    # the linear Tikhonov batch of phase 46
+    linear = tik_solver(T, b)
+    tk_alphas = [float(a) for a in TK_ALPHAS]
+    split = {
+        "irls_solve Lena": host_split(
+            partial(solve, b, b, ALPHA, RHO),
+            host_hooks(lib, "nsol_robust_admm_solve_persistent",
+                       (R, "robust_persistent_route"))),
+        "irls_batch Lena huber x 8": host_split(
+            partial(batch, b, b, h_alphas),
+            host_hooks(lib, "nsol_irls_batch_persistent",
+                       (T, "tikhonov_persistent_route"),
+                       (R, "persistent_shape"))),
+        "tik_persistent Lena TK1L2 x 64": host_split(
+            partial(linear, b, b, tk_alphas),
+            host_hooks(lib, "nsol_tikhonov_solve_persistent",
+                       (T, "tikhonov_persistent_route"),
+                       (T, "persistent_shape")))}
+    print("phase 47 a persistent call's parts by host clock, ms (medians of "
+          "%d calls; host: the call until it returns; events: the call by "
+          "CUDA events): %s [%s]"
+          % (HOST_SPLIT_CALLS, "; ".join(
+              "%s %s" % (k, ", ".join("%s %.4f" % kv for kv in v.items()))
+              for k, v in split.items()), card))
+    for entry in entries:
+        entry["host_split_ms"] = split[
+            "irls_solve Lena" if entry["name"].startswith("irls_solve")
+            else "irls_batch Lena huber x 8"]
+    lap("phase 47")
+    return entries
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
           "volume", "volume_solves", "tail", "sweep", "engines", "batch",
-          "persistent", "tik_persistent")
+          "persistent", "tik_persistent", "irls_persistent")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -9536,6 +10298,8 @@ def main(argv=None):
         kernels += run_persistent_phase(device, card)
     if "tik_persistent" in groups:
         kernels += run_tik_persistent_phase(device, card)
+    if "irls_persistent" in groups:
+        kernels += run_irls_persistent_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

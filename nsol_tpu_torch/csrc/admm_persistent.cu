@@ -107,21 +107,6 @@ struct SolveArgs {
   int stamp_cap;
 };
 
-// admm_record's TV partials of x beside the records' x pass (chain's
-// Beside).
-struct RecordTv {
-  const float* x;
-  double* partials;
-  Spacing sp;
-  Dims d;
-  FastIndex idx;
-  int G;
-  __device__ void operator()(int vb) const {
-    record_tv_body<GroupTeam>(x, partials, sp, d, idx, vb, G);
-    GroupTeam::sync();
-  }
-};
-
 template <class S, class L>
 struct Persistent {
   using R = typename S::R;
@@ -161,17 +146,8 @@ struct Persistent {
   // the blur taps with the data epilogue, the TV beside its x pass, and
   // block 0's second stage.
   __device__ void record(int t) {
-    chain<L::bx, L::by, L::bz>(w, ph, kRecordX, Vol{a.x}, nullptr,
-                               DataEpiT<false>{a.b, a.fs2, a.loss}, a.rec_partials, ta, a.t1,
-                               a.t2,
-                               RecordTv{a.x, a.rec_partials + kMaxBlocks, a.sp, a.d, a.idx, a.G});
-    if (blockIdx.x != 0) return;
-    const double tv = reduce_sum(a.rec_partials + kMaxBlocks, a.G);
-    const double ds = reduce_sum(a.rec_partials, a.G);
-    if (threadIdx.x == 0) {
-      a.reg[t] = tv;
-      a.data[t] = 0.5 * ds;
-    }
+    record_row<L::bx, L::by, L::bz>(w, ph, a.x, a.b, a.fs2, a.loss, a.rec_partials, a.reg,
+                                    a.data, t, ta, a.t1, a.t2, a.sp);
   }
 
   // nsol_admm_solve's sequence (sweep 0), phase by phase.

@@ -1,9 +1,10 @@
 // The machinery of the one-launch (persistent cooperative) solves:
-// admm_persistent.cu's ADMM solve and tikhonov_persistent.cu's Tikhonov
-// batch. Each runs a launch sequence of csrc/ as phases between grid
-// barriers, every phase walking the sequence's blocks of kThreads threads
-// through the sequence's pass bodies (stencil.cuh, admm_units.cuh), so
-// that every partial sum is the sequence's, in its order.
+// admm_persistent.cu's ADMM solve, tikhonov_persistent.cu's Tikhonov
+// batch and irls_persistent.cu's IRLS sweeps. Each runs a launch sequence
+// of csrc/ as phases between grid barriers, every phase walking the
+// sequence's blocks of kThreads threads through the sequence's pass bodies
+// (stencil.cuh, admm_units.cuh, robust_units.cuh), so that every partial
+// sum is the sequence's, in its order.
 //
 // Here: the teams that run several of the sequence's blocks side by side
 // in one CUDA block (GroupTeam), the division-free voxel coordinates
@@ -11,7 +12,10 @@
 // walk of a phase over the sequence's blocks (Walk) and of a blur chain
 // (chain), the grid barrier and a traced solve's global-timer stamps
 // (Phases), the one-block reduce every CUDA block forms itself
-// (reduce_sum, CgSums) and the launch shape (shape_of).
+// (reduce_sum, CgSums), a record row of admm_record (record_row), the
+// entry clip of a batch (ClipSrc), the launch shape (shape_of) and a
+// batch's configurations side by side (batch_width, batch_shape,
+// side_by_side).
 //
 // Coherence. A volume written earlier in the launch by another block must
 // not be read through the non-coherent read-only path, so every load of a
@@ -23,6 +27,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "admm_units.cuh"
 #include "stencil.cuh"
 
 // Where a traced solve writes its phases' ends (nsol_admm_persistent_trace,
@@ -52,7 +59,12 @@ enum Phase {
   kReduce = 10,
   kUpdate = 11,
   kTail = 12,
-  kClip = 13
+  kClip = 13,
+  kHeadX = 14, kHeadY = 15, kHeadZ = 16,        // irls_head's chain
+  kGradX = 17, kGradY = 18, kGradZ = 19,        // blur_apply's gradient chain
+  kWeightX = 20, kWeightY = 21, kWeightZ = 22,  // weighted_apply's first chain
+  kMaskX = 23, kMaskY = 24, kMaskZ = 25,        // its second (the mask, p'.q)
+  kStep = 26                                    // the last cg_update and irls_step
 };
 
 static_assert(kMaxBlocks <= kReduceThreads, "reduce_sum takes one partial a thread");
@@ -268,12 +280,66 @@ __device__ void chain(const Walk& w, Phases& ph, int phase, const Src& src,
   ph.sync(phase + 2);
 }
 
+// admm_record's TV partials of x beside the records' x pass (chain's
+// Beside).
+struct RecordTv {
+  const float* x;
+  double* partials;
+  Spacing sp;
+  Dims d;
+  FastIndex idx;
+  int G;
+  __device__ void operator()(int vb) const {
+    record_tv_body<GroupTeam>(x, partials, sp, d, idx, vb, G);
+    GroupTeam::sync();
+  }
+};
+
+// Row t of the records (admm.cu's admm_record) of x over the walk w: the
+// blur chain of x at the blur taps ta (lengths kX, kY, kZ at compile time,
+// or 0) with the data epilogue (rho_C at C^2 = fs2 by loss), the TV beside
+// its x pass, and block 0's second stage into reg[t] and data[t].
+// rec_partials: the data partials, then at kMaxBlocks the TV partials.
+template <int kX, int kY, int kZ>
+__device__ void record_row(const Walk& w, Phases& ph, const float* x, const float* b, float fs2,
+                           int loss, double* rec_partials, double* reg, double* data, int t,
+                           const Taps& ta, float* t1, float* t2, Spacing sp) {
+  chain<kX, kY, kZ>(w, ph, kRecordX, LoadT<float, float, false>{x}, nullptr,
+                    DataEpiT<false>{b, fs2, loss}, rec_partials, ta, t1, t2,
+                    RecordTv{x, rec_partials + kMaxBlocks, sp, w.d, w.idx, w.G});
+  if (blockIdx.x != 0) return;
+  const double tv = reduce_sum(rec_partials + kMaxBlocks, w.G);
+  const double ds = reduce_sum(rec_partials, w.G);
+  if (threadIdx.x == 0) {
+    reg[t] = tv;
+    data[t] = 0.5 * ds;
+  }
+}
+
+// The entry clip of a batch as the first x pass's source: x0 clipped as
+// tik_clip clips it, stored as x beside the pass (dir).
+struct ClipSrc {
+  using Dir = float;
+  const float* x0;
+  __device__ float operator()(long long k) const { return clip0(x0[k]); }
+  __device__ float dir(long long k) const { return (*this)(k); }
+};
+
 // f(StoreT<...>{}) for the storage modes the persistent solves run:
 // "exact" and "qf32" (stencil.cuh's with_storage, the two instances only).
 template <class F>
 cudaError_t with_solve_storage(int storage, F&& f) {
   if (storage == kStoreExact) return f(StoreT<float, float, float>{});
   if (storage == kStoreQf32) return f(StoreT<float, bf16, float>{});
+  return cudaErrorInvalidValue;
+}
+
+// f(std::integral_constant<int, reg>{}) for the regulariser reg (a
+// RegKind).
+template <class F>
+cudaError_t with_reg(int reg, F&& f) {
+  if (reg == kRegLap) return f(std::integral_constant<int, kRegLap>{});
+  if (reg == kRegIdentity) return f(std::integral_constant<int, kRegIdentity>{});
   return cudaErrorInvalidValue;
 }
 
@@ -302,6 +368,50 @@ cudaError_t shape_of(const void* fn, long long work, Shape* out) {
   *out = Shape{teams, teams * kThreads, per_sm,
                (int)((long long)per_sm * sms < need ? (long long)per_sm * sms : need)};
   return cudaSuccess;
+}
+
+// The bytes a batch's configurations side by side may hold, their x and
+// their scratch (batch_width): inside the 50 MB L2, where side by side the
+// Tikhonov batch ran faster than past it (chip_smoke.py phase 46,
+// PERF.md).
+constexpr long long kSideBySideBytes = 32LL << 20;
+
+// The configurations of a batch of nconf, per_conf bytes each, that run
+// side by side on a grid of `grid` blocks: as many as kSideBySideBytes
+// holds, at least 1 and at most one a block, in turns of equal size.
+int batch_width(int nconf, long long per_conf, int grid) {
+  long long w = kSideBySideBytes / per_conf;
+  if (w > grid) w = grid;
+  if (w > nconf) w = nconf;
+  if (w < 1) w = 1;
+  const long long turns = (nconf + w - 1) / w;
+  return (int)((nconf + turns - 1) / turns);
+}
+
+// The launch shape of the kernel fn over a batch of nconf configurations
+// of per_conf bytes each at G of the sequence's blocks a volume, and the
+// configurations it runs side by side (batch_width).
+cudaError_t batch_shape(const void* fn, int nconf, long long per_conf, int G, Shape* sh,
+                        int* width) {
+  const int w = batch_width(nconf, per_conf, 1 << 30);
+  const cudaError_t e = shape_of(fn, (long long)w * G, sh);
+  *width = batch_width(nconf, per_conf, sh->grid);
+  return e;
+}
+
+// f(walk, j, c) for each configuration c of a batch of nconf, `width` side
+// by side in turns: in a turn of w, blocks [j nb / w, (j + 1) nb / w) of
+// the grid's nb run configuration c0 + j on slot j, their teams walking
+// the sequence's G blocks of a volume of d.
+template <class F>
+__device__ void side_by_side(int nconf, int width, int G, Dims d, FastIndex idx, F&& f) {
+  const int teams = blockDim.x / kThreads, team = GroupTeam::team(), nb = gridDim.x;
+  for (int c0 = 0; c0 < nconf; c0 += width) {
+    const int w = min(width, nconf - c0);
+    const int j = (int)(((long long)blockIdx.x + 1) * w - 1) / nb;
+    const int b0 = (int)((long long)j * nb / w), b1 = (int)(((long long)j + 1) * nb / w);
+    f(Walk{((int)blockIdx.x - b0) * teams + team, (b1 - b0) * teams, G, d, idx}, j, c0 + j);
+  }
 }
 
 }  // namespace

@@ -79,6 +79,12 @@
 // plane route) runs tiled.cu's one-pass blur_apply_zy and
 // weighted_apply_zy in place of irls_head, blur_apply and weighted_apply.
 //
+// The units' pass bodies (their epilogues, irls_step, the masked CG's
+// update) live in robust_units.cuh, which irls_persistent.cu runs too:
+// where its rule (nsol_robust_persistent_route) takes the shape, the
+// robust solves run every sweep of this sequence as one cooperative
+// launch instead, the same bits.
+//
 // What bounds the chains on the H100: bytes, as in admm.cu. The chain of
 // weighted_apply, the CG's hot op, is two blur chains (six stencil
 // passes) with the weight applied between them, where the TPU kernel kept
@@ -93,6 +99,7 @@
 #include <cuda_runtime.h>
 
 #include "losses.cuh"
+#include "robust_units.cuh"
 #include "stencil.cuh"
 
 namespace {
@@ -111,91 +118,7 @@ enum Unit {
   kIrlsHeadMarch = 9,       // irls_head on blur_march.cu's march
   kBlurApplyPreMarch = 10   // blur_apply_prepadded on blur_march.cu's window
 };
-// irls_head's z epilogue: r = A x - b, wts = rho'_C(r^2), y = wts r.
-struct WeightsEpi {
-  const float* b;
-  float* wts;
-  float* y;
-  float fs2;
-  int loss;
-  __device__ double operator()(long long i, float conv, Coord, Dims) const {
-    const float r = __fsub_rn(conv, __ldg(b + i));
-    const float w = loss_weight(__fmul_rn(r, r), fs2, loss);
-    wts[i] = w;
-    y[i] = __fmul_rn(w, r);
-    return 0.0;
-  }
-};
-
-// blur_apply's z epilogue: g = conv (+ rho B^T B u) into out; the gradient
-// form (free given, u = x) writes the active set and rk = -free g instead
-// and sums rk^2.
-template <int kReg>
-struct BlurEpi {
-  const float* u;
-  float* out;
-  float* free;
-  float* rk;
-  float rho;
-  Spacing sp;
-  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
-    const float g = u != nullptr ? fmaf(rho, reg_normal<kReg>(Load{u}, i, c, sp, d), conv) : conv;
-    if (free == nullptr) {
-      out[i] = g;
-      return 0.0;
-    }
-    const bool active = __ldg(u + i) <= 0.f && g > 0.f;
-    const float r = active ? 0.f : -g;
-    free[i] = active ? 0.f : 1.f;
-    rk[i] = r;
-    return (double)r * r;
-  }
-};
-
-// weighted_apply's first z epilogue: s = wts * A pf, the weights stored
-// as WT and read at W's precision (bfloat16 under kRobustIo, the
-// reference's wts16).
-template <class W = float, class WT = float>
-struct ScaleEpi {
-  const WT* wts;
-  float* s;
-  __device__ double operator()(long long i, float conv, Coord, Dims) const {
-    s[i] = __fmul_rn(round_as<W>(ldg(wts + i)), conv);
-    return 0.0;
-  }
-};
-
-// weighted_apply's second z epilogue: core = A s + rho B^T B pf (rounded to
-// bfloat16 with kIo, as the reference's bf16 io apply stores it),
-// q = free core + (p' - pf) (q = core when every voxel is free), p'.q
-// summed. The frozen coordinates keep q = p', so pq counts them. p' is
-// read as stored (P).
-template <int kReg, class P = float, bool kIo = false>
-struct MaskedEpi {
-  const P* dir;  // p'
-  const float* free;
-  float* q;
-  float rho;
-  Spacing sp;
-  __device__ double operator()(long long i, float conv, Coord c, Dims d) const {
-    const P* const dp = dir;
-    const float* const fp = free;
-    const auto pf = [dp, fp](long long k) {  // pf = free * p'
-      const float v = ldg(dp + k);
-      return fp != nullptr ? __ldg(fp + k) * v : v;
-    };
-    float core = fmaf(rho, reg_normal<kReg>(pf, i, c, sp, d), conv);
-    if (kIo) core = round_as<bf16>(core);
-    const float p = ldg(dir + i);
-    float qi = core;
-    if (free != nullptr) {
-      const float f = __ldg(free + i);
-      qi = __fadd_rn(__fmul_rn(f, core), __fsub_rn(p, __fmul_rn(f, p)));
-    }
-    q[i] = qi;
-    return (double)p * qi;
-  }
-};
+// Slot 11 is irls_persistent.cu's one-launch sweep (kIrlsPersistent).
 
 // weighted_apply_prepadded's second z epilogue: out = conv + rho D^T D v
 // on the window's centre, v read and out stored as T (bfloat16 under the
@@ -211,11 +134,6 @@ struct WindowOutEpi {
     return 0.0;
   }
 };
-
-__global__ void irls_step_kernel(float* __restrict__ x, const float* __restrict__ xk,
-                                 long long n) {
-  GRID_STRIDE(i, n) x[i] = clip0(__fadd_rn(x[i], xk[i]));
-}
 
 // ---------------------------------------------------------------- units --
 
@@ -281,16 +199,6 @@ cudaError_t weighted_apply_chain(const float* r, const void* p, void* p_new, flo
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReducePQ);
   return cudaGetLastError();
-}
-
-// The masked CG's update: xk += a p' (p' stored as the storage mode says),
-// rk -= a q, gamma' = |rk|^2, beta.
-cudaError_t robust_cg_update(float* xk, float* rk, const void* p, const float* q,
-                             double* partials, double* scal, long long n, int storage,
-                             cudaStream_t s) {
-  if (storage == kRobustExact)
-    return cg_update_t(xk, rk, static_cast<const float*>(p), q, partials, scal, n, 1, s);
-  return cg_update_t(xk, rk, static_cast<const bf16*>(p), q, partials, scal, n, 1, s);
 }
 
 // out = A y (+ rho D^T D u, u_ext given) on a z-window: y_ext, u_ext hold

@@ -36,7 +36,9 @@
 // more than 2^20 voxels, or a unit of the sequence on its march, as at
 // 256^3, or storage other than exact and qf32): on the Lena and 64^3
 // sweeps the whole batch is one cooperative launch there, the same bits.
-// The robust losses always run it. normal_apply, cg_step, irls_head,
+// The robust losses run it past irls_persistent.cu's rule
+// (nsol_robust_persistent_route), their batch one cooperative launch
+// within it. normal_apply, cg_step, irls_head,
 // blur_apply and weighted_apply take the march or the chain by
 // march.cuh's vol_route, as their C entries do.
 

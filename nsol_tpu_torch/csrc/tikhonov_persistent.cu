@@ -46,33 +46,20 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "admm_units.cuh"
 #include "losses.cuh"
 #include "persistent.cuh"
 
 extern "C" int nsol_admm_persistent_route(int storage, int sweep, int kaz, int kay, int kax,
                                           int knz, int kny, int knx, int Z, int Y, int X);
+extern "C" int nsol_robust_persistent_route(int storage, int kz, int ky, int kx, int Z, int Y,
+                                            int X);
 
 namespace {
 
 // tikhonov.cu's Unit slots continue here: the one launch of a batch
 // (ops/cuda/tikhonov.py's COUNTS).
 constexpr int kTikPersistent = 1;
-// The bytes the configurations side by side may hold, their x and their
-// scratch (batch_width): inside the 50 MB L2, where side by side the
-// batch ran faster than past it (chip_smoke.py phase 46, PERF.md).
-constexpr long long kSideBySideBytes = 32LL << 20;
-
-// The residual's x pass's source: x0 clipped as tik_clip clips it, stored
-// as x beside the pass (dir).
-struct ClipSrc {
-  using Dir = float;
-  const float* x0;
-  __device__ float operator()(long long k) const { return clip0(x0[k]); }
-  __device__ float dir(long long k) const { return (*this)(k); }
-};
 
 template <class S>
 struct TikArgs {
@@ -183,14 +170,8 @@ struct TikPersistent {
         Walk{(int)blockIdx.x * teams + team, nb * teams, a.G, a.d, a.idx}, ph, kApplyX, bs,
         nullptr, NormalEpi<kRegLap, Vol, float>{bs, nullptr, a.atb, 0.f, a.sp, kPlain}, nullptr,
         ta, a.t1, a.t2);
-    for (int c0 = 0; c0 < a.nconf; c0 += a.width) {
-      const int w = min(a.width, a.nconf - c0);
-      // this block's slot j: blocks [j nb / w, (j + 1) nb / w) run c0 + j
-      const int j = (int)(((long long)blockIdx.x + 1) * w - 1) / nb;
-      const int b0 = (int)((long long)j * nb / w), b1 = (int)(((long long)j + 1) * nb / w);
-      solve(Walk{((int)blockIdx.x - b0) * teams + team, (b1 - b0) * teams, a.G, a.d, a.idx}, j,
-            c0 + j);
-    }
+    side_by_side(a.nconf, a.width, a.G, a.d, a.idx,
+                 [this](const Walk& wk, int j, int c) { solve(wk, j, c); });
   }
 };
 
@@ -200,15 +181,6 @@ __global__ void __launch_bounds__(kThreads * kMaxTeams, 1)
   __shared__ double sc[4];
   __shared__ float tsh[L::shared];
   TikPersistent<S, kReg, L>{a, Phases{cg::this_grid(), a.stamps, a.stamp_cap}, sc, tsh}.run();
-}
-
-// f(std::integral_constant<int, reg>{}) for the regulariser reg (a
-// RegKind).
-template <class F>
-cudaError_t with_reg(int reg, F&& f) {
-  if (reg == kRegLap) return f(std::integral_constant<int, kRegLap>{});
-  if (reg == kRegIdentity) return f(std::integral_constant<int, kRegIdentity>{});
-  return cudaErrorInvalidValue;
 }
 
 // f(kernel, lens) for the instance of storage S, regulariser reg and the
@@ -229,43 +201,26 @@ long long conf_bytes(int storage, long long n) {
   return n * (5 * 4 + 2 * (storage == kStoreQf32 ? 2 : 4));
 }
 
-// The configurations of a batch of nconf run side by side on a grid of
-// `grid` blocks: as many as kSideBySideBytes holds, at least 1 and at most
-// one a block, in turns of equal size.
-int batch_width(int nconf, long long per_conf, int grid) {
-  long long w = kSideBySideBytes / per_conf;
-  if (w > grid) w = grid;
-  if (w > nconf) w = nconf;
-  if (w < 1) w = 1;
-  const long long turns = (nconf + w - 1) / w;
-  return (int)((nconf + turns - 1) / turns);
-}
-
-// The launch shape of a batch of nconf configurations of per_conf bytes
-// each at G of the sequence's blocks a volume, and the configurations it
-// runs side by side (batch_width).
-cudaError_t batch_shape(const void* fn, int nconf, long long per_conf, int G, Shape* sh,
-                        int* width) {
-  const int w = batch_width(nconf, per_conf, 1 << 30);
-  const cudaError_t e = shape_of(fn, (long long)w * G, sh);
-  *width = batch_width(nconf, per_conf, sh->grid);
-  return e;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Whether the fused Tikhonov solve takes this kernel (the rule;
-// ops/cuda/tikhonov.py's tikhonov_persistent_route mirrors it): the
-// linear loss, and admm_persistent.cu's rule without the sweep (storage
-// "exact" or "qf32", at most 2^20 voxels, where no unit of the sequence
-// marches: A^T b's normal_apply at the blur taps, the residual's at the
-// normal taps, cg_step at the normal taps).
+// Whether the fused Tikhonov solve runs its batch as one cooperative
+// launch (the rule; ops/cuda/tikhonov.py's tikhonov_persistent_route
+// mirrors it): the linear loss on this kernel where admm_persistent.cu's
+// rule without the sweep takes the shape (storage "exact" or "qf32", at
+// most 2^20 voxels, where no unit of the sequence marches: A^T b's
+// normal_apply at the blur taps, the residual's at the normal taps,
+// cg_step at the normal taps); a robust loss on irls_persistent.cu's
+// nsol_irls_batch_persistent where its rule takes the shape at the blur
+// taps (storage "exact", or "qf32" as the sweep's "dirs").
 int nsol_tikhonov_persistent_route(int loss, int storage, int kaz, int kay, int kax, int knz,
                                    int kny, int knx, int Z, int Y, int X) {
-  return loss == kLinear &&
-         nsol_admm_persistent_route(storage, 0, kaz, kay, kax, knz, kny, knx, Z, Y, X);
+  if (loss == kLinear)
+    return nsol_admm_persistent_route(storage, 0, kaz, kay, kax, knz, kny, knx, Z, Y, X);
+  return (storage == kStoreExact || storage == kStoreQf32) &&
+         nsol_robust_persistent_route(storage == kStoreQf32 ? kRobustDirs : kRobustExact, kaz,
+                                      kay, kax, Z, Y, X);
 }
 
 // The launch shape of a batch of nconf configurations of Z Y X voxels in

@@ -80,6 +80,12 @@ _SIGNATURES = {
     + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
     "nsol_robust_admm_solve_zy": [_P] * 14 + [_I] * 3 + [_F] * 7
     + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
+    "nsol_robust_admm_solve_persistent": [_P] * 14 + [_I] * 3 + [_F] * 7
+    + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
+    "nsol_irls_batch_persistent": [_P] * 15 + [_I, _I, _P] + [_I] * 3
+    + [_F] * 3 + [_I] * 5 + [_I] * 3 + [_P, _P],
+    "nsol_robust_persistent_route": [_I] * 7,
+    "nsol_robust_persistent_shape": [_I] * 9 + [_P],
     "nsol_tik_clip": [_P, _P, _LL, _P, _P],
     "nsol_tiled_blocks": [_I] * 3,
     "nsol_tiled_smem": [_I] * 7,
@@ -187,7 +193,9 @@ def new_counts(n):
     pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
     irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,
     weighted_apply, blur_apply and irls_head on their marches,
-    blur_apply_prepadded on its window march; ``tikhonov.cu``: tik_clip,
+    blur_apply_prepadded on its window march, and in slot 11
+    ``irls_persistent.cu``'s one-launch IRLS solve or batch;
+    ``tikhonov.cu``: tik_clip,
     and in slot 1 ``tikhonov_persistent.cu``'s one-launch batch;
     ``tiled.cu``: normal_apply_zy,
     cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The

@@ -34,8 +34,9 @@ MXU pass schedules (``precision``, ``blur_reorder``, ``diff_matmul``,
 ``pipelined_cg``) are accepted at the values whose result is the exact
 f32 one (:func:`~.blocked.check_options`). A robust ``data_loss`` builds
 the IRLS solve of :mod:`nsol_tpu_torch.ops.cuda.robust`
-(``csrc/robust.cu``); its ``compact_dirs`` stores the inner CG's
-direction in bfloat16 in the same way (the robust storage mode
+(``csrc/robust.cu``, or one launch of ``csrc/irls_persistent.cu`` where
+:func:`persistent_route` takes its shape); its ``compact_dirs`` stores the
+inner CG's direction in bfloat16 in the same way (the robust storage mode
 ``"dirs"``).
 
 The whole primal-dual (Chambolle–Pock) denoising solve on the GPU:
@@ -237,17 +238,20 @@ PERSISTENT_MAX_VOXELS = Z.PERSISTENT_MAX_VOXELS
 
 def persistent_route(dims, blur, normal, storage="exact", sweep=False,
                      data_loss="linear"):
-    """Whether the linear ADMM solve of a ``(Z, Y, X)`` volume (a 2-D
-    image as ``(1, Y, X)``) runs on the card as one cooperative launch,
-    ``csrc/admm_persistent.cu``, rather than as ``nsol_admm_solve``'s
-    launch sequence: the linear loss without the sweep, where
-    :func:`~.tiled.persistent_fits` takes the shape and storage (exact or
-    qf32, at most 2^20 voxels, no unit of the sequence marching at the
-    ``blur`` and ``normal`` taps' lengths). The shape decides, never a
-    failure. Mirrors ``csrc/admm_persistent.cu``'s
-    ``nsol_admm_persistent_route``."""
-    return data_loss == "linear" and not sweep \
-        and Z.persistent_fits(dims, blur, normal, storage)
+    """Whether the ADMM solve of a ``(Z, Y, X)`` volume (a 2-D image as
+    ``(1, Y, X)``) runs on the card as one cooperative launch rather than
+    as a launch sequence. The linear loss without the sweep:
+    ``csrc/admm_persistent.cu`` in place of ``nsol_admm_solve``'s sequence
+    where :func:`~.tiled.persistent_fits` takes the shape and storage
+    (exact or qf32, at most 2^20 voxels, no unit of the sequence marching
+    at the ``blur`` and ``normal`` taps' lengths), mirroring its
+    ``nsol_admm_persistent_route``. A robust loss:
+    ``csrc/irls_persistent.cu`` in place of ``nsol_robust_admm_solve``'s
+    where :func:`~.robust.robust_persistent_route` takes the shape and the
+    robust storage (exact or dirs). The shape decides, never a failure."""
+    if data_loss != "linear":
+        return not sweep and R.robust_persistent_route(dims, blur, storage)
+    return not sweep and Z.persistent_fits(dims, blur, normal, storage)
 
 
 taps_lengths = Z.taps_lengths
@@ -310,7 +314,13 @@ def persistent_barrier_ms(n, grid, threads, device):
 PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
                      "normal_apply x", "normal_apply y", "normal_apply z",
                      "admm_record x", "admm_record y", "admm_record z",
-                     "reduce", "cg_update", "admm_tail", "tik_clip")
+                     "reduce", "cg_update", "admm_tail", "tik_clip",
+                     "irls_head x", "irls_head y", "irls_head z",
+                     "blur_apply x", "blur_apply y", "blur_apply z",
+                     "weighted_apply x", "weighted_apply y",
+                     "weighted_apply z", "weighted_apply mask x",
+                     "weighted_apply mask y", "weighted_apply mask z",
+                     "irls_step")
 
 
 def persistent_phases(fn, device, capacity=1 << 14):
@@ -513,11 +523,13 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
     versions.
 
     Device and dtype follow ``b``: on CUDA the whole solve runs as the
-    kernel sequence of ``csrc/admm.cu`` (linear; one persistent launch of
-    ``csrc/admm_persistent.cu`` where :func:`persistent_route` takes the
-    shape) or ``csrc/robust.cu`` (robust), 2-D or 3-D float32; on the CPU it runs the plain versions
-    (2-D or 3-D, any float dtype). ``solve.plain`` runs the plain versions
-    on any device — the reference the kernels are held against.
+    kernel sequence of ``csrc/admm.cu`` (linear) or ``csrc/robust.cu``
+    (robust), or as one persistent launch of ``csrc/admm_persistent.cu`` or
+    ``csrc/irls_persistent.cu`` where :func:`persistent_route` takes the
+    shape (``solve.route``), 2-D or 3-D float32; on the CPU it runs the
+    plain versions (2-D or 3-D, any float dtype). ``solve.plain`` runs the
+    plain versions on any device — the reference the kernels are held
+    against; on the card ``solve.sequence`` runs the launch sequence.
     ``alpha``/``rho`` are runtime scalars.
     """
     robust = data_loss != "linear"
@@ -556,6 +568,9 @@ def make_fused_admm_solver(shape, cov, alpha_cut=3, spacing=None,
                        *args, **kwargs)
 
         solve_robust.plain = lambda *a, **k: run(robust_solve.plain, *a, **k)
+        solve_robust.sequence = lambda *a, **k: run(robust_solve.sequence,
+                                                    *a, **k)
+        solve_robust.route = robust_solve.route
         return solve_robust
     solve = linear_admm_solver(shape, cov, alpha_cut, spacing, iterations,
                                iter_max, "qf32" if compact else "exact",
@@ -997,10 +1012,11 @@ _MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
           "cg_sweep_march": B.cg_sweep}
 MARCH_UNITS = tuple(_MARCH)
 #: the one-launch solves (``csrc/admm_persistent.cu``,
-#: ``csrc/tikhonov_persistent.cu``), counted apart from the units of the
-#: launch sequences they replace
+#: ``csrc/tikhonov_persistent.cu``, ``csrc/irls_persistent.cu``), counted
+#: apart from the units of the launch sequences they replace
 _SOLVES = {"admm_persistent": admm_persistent,
-           "tik_persistent": T.tik_persistent}
+           "tik_persistent": T.tik_persistent,
+           "irls_persistent": R.irls_persistent}
 PERSISTENT_UNITS = tuple(_SOLVES)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),

@@ -72,6 +72,15 @@ one-pass tiled units of :mod:`.tiled` swapped in
 :func:`make_blocked_weighted_normal_operator_2d` are the reference's 2-D
 entry points over them.
 
+Where :func:`robust_persistent_route` takes the shape (storage exact or
+dirs, at most 2^20 voxels where none of ``irls_head``, ``blur_apply`` and
+``weighted_apply`` marches: the Lena and 64³ solves), the whole solve runs
+instead as one persistent cooperative launch, ``csrc/irls_persistent.cu``:
+each unit of every sweep a phase between grid barriers, the units' pass
+bodies those of ``csrc/robust_units.cuh``, the same bits
+(:func:`irls_persistent`'s count); the robust Tikhonov batch of
+:mod:`.tikhonov` takes it too.
+
 The compact storage of the reference (:data:`ROBUST_STORAGE`): the fused
 solve's ``compact_dirs`` stores the masked CG's direction in bfloat16
 ("dirs"); ``blocked_robust_admm_solve(compact_dirs=True)`` and the
@@ -104,7 +113,8 @@ __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
            "irls_step", "irls_step_plain", "blur_apply_prepadded",
            "blur_apply_prepadded_plain", "weighted_apply_prepadded",
            "weighted_apply_prepadded_plain", "blur_halo", "weighted_halo",
-           "make_robust_solver",
+           "robust_persistent_route", "irls_persistent", "persistent_shape",
+           "persistent_barriers", "PERSISTENT_SLOT", "make_robust_solver",
            "make_blocked_blur_operator",
            "make_blocked_weighted_normal_operator",
            "make_blocked_blur_operator_2d",
@@ -548,6 +558,72 @@ def _sweep_units(tiled):
              T.weighted_apply_zy_plain, irls_step_plain, B.cg_update_plain))
 
 
+# ------------------------------------------------- the one-launch sweep --
+
+#: ``csrc/robust.cu``'s count slot of ``csrc/irls_persistent.cu``'s one
+#: launch (``kIrlsPersistent``)
+PERSISTENT_SLOT = 11
+
+
+def robust_persistent_route(dims, blur, storage="exact"):
+    """Whether the IRLS sweeps of a robust solve of a ``(Z, Y, X)`` volume
+    (a 2-D image as ``(1, Y, X)``) run on the card as one cooperative
+    launch, ``csrc/irls_persistent.cu``, rather than as
+    ``nsol_irls_sweep``'s launch sequence: where
+    :func:`~.tiled.irls_persistent_fits` takes the shape and the
+    :data:`ROBUST_STORAGE` mode (exact or dirs, at most 2^20 voxels, none
+    of ``irls_head``, ``blur_apply``, ``weighted_apply`` marching at the
+    ``blur`` taps' lengths). The shape decides, never a failure. Mirrors
+    ``csrc/irls_persistent.cu``'s ``nsol_robust_persistent_route``."""
+    return B._tiled().irls_persistent_fits(dims, blur, storage)
+
+
+def irls_persistent(entry, args, tail=()):
+    """Call the C entry ``entry`` of ``csrc/irls_persistent.cu``
+    (``nsol_robust_admm_solve_persistent``, the robust ADMM solve;
+    ``nsol_irls_batch_persistent``, the robust Tikhonov batch) with
+    ``args``, its launch counts and ``tail``; its launches
+    :func:`~.fused.launch_counts` reports as ``"irls_persistent"``."""
+    counts = build.new_counts(B.COUNTS)
+    err = getattr(build.load(), entry)(*args, counts, *tail)
+    build.check(err, "irls_persistent")
+    irls_persistent.launches += counts[PERSISTENT_SLOT]
+
+
+irls_persistent.launches = 0
+
+
+def persistent_shape(dims, blur, nconf=1, storage="exact", reg="TK1"):
+    """``(blocks an SM, grid, the launch sequence's blocks a volume, threads
+    a block, configurations side by side)`` of the one-launch IRLS solve
+    (``nconf`` 1) or batch of ``nconf`` configurations of ``dims`` at the
+    ``blur`` taps' lengths on the current card: side by side as many as
+    ``csrc/persistent.cuh``'s ``kSideBySideBytes`` holds (their x and 9
+    volumes of scratch each), at least 1 and at most one a block, in turns
+    of equal size (``batch_width`` there)."""
+    out = (build.ctypes.c_int * 5)()
+    build.check(build.load().nsol_robust_persistent_shape(
+        ROBUST_STORAGE.index(storage), B.reg_id(reg), *blur, int(nconf),
+        *dims, out), "irls_persistent")
+    return tuple(out)
+
+
+def persistent_barriers(iterations, iter_max, cg_iters, record=False,
+                        turns=1):
+    """Grid barriers one persistent IRLS solve takes, in each of its
+    ``turns`` of configurations side by side (a Tikhonov batch: one outer
+    iteration): three a blur chain (each record row; each sweep's
+    ``irls_head`` and gradient; each CG iteration's two weighted chains)
+    and one after each ``cg_update``, the last with ``irls_step`` on its
+    voxels (after ``irls_step`` alone where ``cg_iters`` is 0). Every block
+    forms the one-block reduces itself, with no barrier after them; the
+    last ``cg_update``'s reduce is not formed."""
+    cg = int(cg_iters)
+    sweep = 6 + (7 * cg if cg else 1)
+    rows = int(iterations) + 1 if record else 0
+    return int(turns) * (3 * rows + int(iterations) * int(iter_max) * sweep)
+
+
 # ----------------------------------------------------------------- solver --
 
 def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
@@ -596,10 +672,21 @@ def _robust_steps(units, st, b, x0, alpha, rho, iterations, iter_max,
 
 
 def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
-                       scale, record_dls=None, tiled=False, storage="exact"):
+                       scale, record_dls=None, tiled=False, storage="exact",
+                       route=None):
+    """The solve on the card by ``route``: ``None`` takes
+    :func:`robust_persistent_route`'s (never with ``tiled``),
+    ``"sequence"`` ``nsol_robust_admm_solve``'s launch sequence (the bit
+    reference)."""
     name = "robust ADMM solve"
+    if route not in (None, "sequence"):
+        raise ValueError("route must be None or 'sequence', got %r"
+                         % (route,))
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
+    tv = st.blur.as_volume()
+    persistent = route is None and not tiled and robust_persistent_route(
+        dims, tv.lengths, storage)
     lib = build.load()
     x = x0.clone()
     p_dtype = direction_dtype(storage) or torch.float32
@@ -607,16 +694,16 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
             for dt in (torch.float32,) * 3 + (p_dtype,) * 2  # p0 p1
             + (torch.float32,) * 4]  # q xk t1 t2
     scal = B.new_scalars(b.device)
-    tv = st.blur.as_volume()
     reg = data = parts = None
     if record_dls is not None:
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
-    counts, rec_counts = build.new_counts(B.COUNTS), build.new_counts(5)
-    tiled_counts = build.new_counts(5)
     T = B._tiled()
-    # the march units' partials (weighted_apply's march on either route)
-    partials = T.tiled_partials(b.device, dims)
+    # the march units' partials (weighted_apply's march on either route);
+    # the persistent solve's two sets
+    partials = torch.empty(2 * lib.nsol_max_blocks(), dtype=torch.float64,
+                           device=b.device) if persistent \
+        else T.tiled_partials(b.device, dims)
     args = [build.tensor_ptr(b), build.tensor_ptr(x)] \
         + [build.tensor_ptr(t) for t in vols] + [
         build.tensor_ptr(partials), build.tensor_ptr(scal),
@@ -626,11 +713,17 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
         ROBUST_STORAGE.index(storage),
         build.tensor_ptr(reg), build.tensor_ptr(data), build.tensor_ptr(parts),
         float(1.0 if record_dls is None else record_dls), *dims,
-        build.stream_ptr(b.device), counts, rec_counts]
+        build.stream_ptr(b.device)]
+    if persistent:
+        irls_persistent("nsol_robust_admm_solve_persistent", args, (None,))
+        return x, reg, data
+    counts, rec_counts = build.new_counts(B.COUNTS), build.new_counts(5)
+    tiled_counts = build.new_counts(5)
     if tiled:
-        err = lib.nsol_robust_admm_solve_zy(*args, tiled_counts)
+        err = lib.nsol_robust_admm_solve_zy(*args, counts, rec_counts,
+                                            tiled_counts)
     else:
-        err = lib.nsol_robust_admm_solve(*args)
+        err = lib.nsol_robust_admm_solve(*args, counts, rec_counts)
     build.check(err, name)
     for f, n in zip(UNITS, counts):
         f.launches += n
@@ -662,9 +755,13 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     the Data loss at the runtime scale ``record_dls``.
 
     Device and dtype follow ``b``: on CUDA the solve runs the kernels of
-    ``csrc/robust.cu`` (float32, 2-D or 3-D) without the chain; on the CPU
-    the plain versions with it. ``solve.plain`` runs the plain versions on
-    any device; ``solve.plain(..., chain=False)`` leaves the chain out.
+    ``csrc/robust.cu`` (float32, 2-D or 3-D) without the chain, as one
+    cooperative launch of ``csrc/irls_persistent.cu`` where
+    :func:`robust_persistent_route` takes the shape (``solve.route``); on
+    the CPU the plain versions with it. ``solve.plain`` runs the plain
+    versions on any device; ``solve.plain(..., chain=False)`` leaves the
+    chain out; on the card ``solve.sequence`` runs the launch sequence
+    whatever the rule says.
     """
     return _make_solver(shape, cov, alpha_cut, spacing, iterations,
                         iter_max, irls_cg_iters, data_loss, record)
@@ -718,8 +815,19 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
             irls_cg_iters, data_loss, data_loss_scale, chain,
             rec_of(Rec.admm_record_plain, record_dls), storage))
 
+    def sequence(b, x0, alpha, rho, data_loss_scale=1.0, record_dls=1.0):
+        return result(_robust_solve_cuda(
+            stencils(b), b, x0, rho, iterations, iter_max, irls_cg_iters,
+            data_loss, data_loss_scale, record_dls if record else None, tiled,
+            storage, "sequence"))
+
     solve.plain = plain
+    solve.sequence = sequence
     solve.storage = storage
+    # the route a solve on the card takes
+    solve.route = "persistent" if not tiled and robust_persistent_route(
+        (1,) * (3 - len(shape)) + shape,
+        B._tiled().taps_lengths(factors)[0], storage) else "sequence"
     return solve
 
 

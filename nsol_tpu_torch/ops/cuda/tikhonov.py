@@ -18,12 +18,14 @@ with its plain PyTorch version beside it and a launch counter:
   (``fused.py:877``). Its kernel is ``csrc/stream.cuh``'s ``stream_clip``
   (16-byte accesses, one 4-voxel chunk a thread).
 
-Where :func:`tikhonov_persistent_route` takes the shape (the linear loss,
-storage exact or qf32, at most 2^20 voxels where no unit of that sequence
-marches: the Lena and 64³ sweeps), the linear batch runs instead as one
-persistent cooperative launch, ``csrc/tikhonov_persistent.cu``: each unit
-of the sequence a phase between grid barriers, the batch's configurations
-side by side, the same bits (:func:`tik_persistent`'s count).
+Where :func:`tikhonov_persistent_route` takes the shape (storage exact or
+qf32, at most 2^20 voxels where no unit of that sequence marches: the Lena
+and 64³ sweeps), the batch runs instead as one persistent cooperative
+launch: the linear loss on ``csrc/tikhonov_persistent.cu``
+(:func:`tik_persistent`'s count), a robust loss on
+``csrc/irls_persistent.cu`` (:func:`~.robust.irls_persistent`'s count):
+each unit of the sequence a phase between grid barriers, the batch's
+configurations side by side, the same bits.
 
 Semantics are ``tikhonov_solve``'s with ``b_reg = 0`` and bounds
 ``(0, ∞)``: linear loss → ``iter_max`` warm-started CG iterations on
@@ -95,16 +97,21 @@ PERSISTENT_SLOT = 1
 def tikhonov_persistent_route(dims, blur, normal, storage="exact",
                               data_loss="linear"):
     """Whether the Tikhonov batch of a ``(Z, Y, X)`` volume (a 2-D image as
-    ``(1, Y, X)``) runs on the card as one cooperative launch,
-    ``csrc/tikhonov_persistent.cu``, rather than as
-    ``nsol_tikhonov_solve``'s launch sequence: the linear loss, where
-    :func:`~.tiled.persistent_fits` takes the shape and storage (exact or
-    qf32, at most 2^20 voxels, no unit of the sequence marching at the
-    ``blur`` and ``normal`` taps' lengths, :func:`~.tiled.taps_lengths`).
-    The shape decides, never a failure. Mirrors
+    ``(1, Y, X)``) runs on the card as one cooperative launch rather than
+    as ``nsol_tikhonov_solve``'s launch sequence. The linear loss:
+    ``csrc/tikhonov_persistent.cu`` where :func:`~.tiled.persistent_fits`
+    takes the shape and storage (exact or qf32, at most 2^20 voxels, no
+    unit of the sequence marching at the ``blur`` and ``normal`` taps'
+    lengths, :func:`~.tiled.taps_lengths`). A robust loss:
+    ``csrc/irls_persistent.cu``'s batch where
+    :func:`~.robust.robust_persistent_route` takes the shape at the
+    ``blur`` taps, storage exact, or qf32 (compact) as the sweep's
+    ``"dirs"``. The shape decides, never a failure. Mirrors
     ``csrc/tikhonov_persistent.cu``'s ``nsol_tikhonov_persistent_route``."""
-    return data_loss == "linear" \
-        and Z.persistent_fits(dims, blur, normal, storage)
+    if data_loss == "linear":
+        return Z.persistent_fits(dims, blur, normal, storage)
+    return storage in ("exact", "qf32") and R.robust_persistent_route(
+        dims, blur, "dirs" if storage == "qf32" else "exact")
 
 
 def persistent_barriers(nconf, iter_max, width):
@@ -224,6 +231,37 @@ def _tik_persistent(st, b, x0, alphas, reg, iter_max, compact, dims, ta,
     return out
 
 
+def _tik_irls_persistent(st, b, x0, alphas, scales, reg, loss, iter_max,
+                         cg_iters, compact, dims, ta):
+    """The robust batch as one cooperative launch: ``(B, *shape)``."""
+    nconf = len(alphas)
+    storage = "dirs" if compact else "exact"
+    slots = R.persistent_shape(dims, ta.lengths, nconf, storage, reg)[4]
+    out = torch.empty((nconf,) + tuple(b.shape), dtype=b.dtype,
+                      device=b.device)
+    # wts free r p0 p1 q xk t1 t2 of each configuration side by side; p0,
+    # p1 are the CG directions
+    p_dtype = B.BF16 if compact else b.dtype
+    vols = [torch.empty((slots,) + tuple(b.shape),
+                        dtype=p_dtype if k in (3, 4) else b.dtype,
+                        device=b.device) for k in range(9)]
+    partials = torch.empty(2 * slots * build.load().nsol_max_blocks(),
+                           dtype=torch.float64, device=b.device)
+    # the α and C from pinned memory, with no wait for the stream
+    ac = torch.tensor([[float(a) for a in alphas], [float(c) for c in scales]],
+                      dtype=torch.float32).pin_memory().to(
+                          b.device, non_blocking=True)
+    R.irls_persistent("nsol_irls_batch_persistent", [
+        build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(out),
+        *[build.tensor_ptr(t) for t in vols], build.tensor_ptr(partials),
+        build.tensor_ptr(ac[0]), build.tensor_ptr(ac[1]), nconf, slots,
+        build.tensor_ptr(ta.buf), *ta.lengths, *B.spacing3(st.inv_h2),
+        B.reg_id(reg), Rec.LOSS_IDS.index(loss), int(iter_max),
+        int(cg_iters), R.ROBUST_STORAGE.index(storage), *dims,
+        build.stream_ptr(b.device)])
+    return out
+
+
 def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
                     cg_iters, compact=False, route=None):
     """The batch on the card by ``route``: ``None`` takes
@@ -239,6 +277,10 @@ def _tik_solve_cuda(st, b, x0, alphas, scales, reg, loss, iter_max,
     if route is None and tikhonov_persistent_route(
             dims, ta.lengths, tn.lengths, "qf32" if compact else "exact",
             loss):
+        if loss != "linear":
+            return _tik_irls_persistent(st, b, x0, alphas, scales, reg, loss,
+                                        iter_max, cg_iters, compact, dims,
+                                        ta)
         return _tik_persistent(st, b, x0, alphas, reg, iter_max, compact,
                                dims, ta, tn)
     nconf = len(alphas)
@@ -294,7 +336,8 @@ def make_fused_tikhonov_solver(shape, cov, alpha_cut=3, spacing=None,
     B values (returns ``(B, *shape)``, the counterpart of ``jax.vmap`` over
     the runtime α); ``data_loss_scale`` is a scalar or one value per α.
     Device and dtype follow ``b``: on CUDA the batch runs as one
-    cooperative launch of ``csrc/tikhonov_persistent.cu`` where
+    cooperative launch of ``csrc/tikhonov_persistent.cu`` (linear) or
+    ``csrc/irls_persistent.cu`` (robust) where
     :func:`tikhonov_persistent_route` takes the shape (``solve.route``),
     else as one ``nsol_tikhonov_solve`` call (2-D or 3-D float32); on the
     CPU as the plain versions (any float dtype). ``interpret=True`` and

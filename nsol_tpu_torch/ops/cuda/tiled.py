@@ -80,7 +80,9 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
            "cg_direction_plain", "tiled_partials", "smem_bytes",
            "require_fit", "route_fits", "vol_route", "march_fits",
            "halo_steps", "tile_z", "persistent_fits", "taps_lengths",
-           "PERSISTENT_STORAGE", "PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
+           "irls_persistent_fits", "PERSISTENT_STORAGE",
+           "PERSISTENT_MAX_VOXELS", "IRLS_PERSISTENT_STORAGE",
+           "IRLS_PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
 
 
 # ------------------------------------------------------------ plain forms --
@@ -311,6 +313,31 @@ def persistent_fits(dims, blur, normal, storage):
                for unit, lengths in (("normal_apply", blur),
                                      ("normal_apply", normal),
                                      ("cg_step", normal)))
+
+
+#: the :data:`~.robust.ROBUST_STORAGE` modes the persistent IRLS sweep runs
+#: (``csrc/irls_persistent.cu``), and the most voxels its route takes
+#: (``kIrlsMaxVoxels`` there)
+IRLS_PERSISTENT_STORAGE = ("exact", "dirs")
+IRLS_PERSISTENT_MAX_VOXELS = 1 << 20
+
+
+def irls_persistent_fits(dims, blur, storage):
+    """Whether the persistent IRLS sweep runs the robust solve's launch
+    sequence on a ``(Z, Y, X)`` volume (a 2-D image as ``(1, Y, X)``):
+    storage in :data:`IRLS_PERSISTENT_STORAGE`, at most
+    :data:`IRLS_PERSISTENT_MAX_VOXELS` voxels, where none of the sweep's
+    ``irls_head``, ``blur_apply`` or ``weighted_apply`` takes its march
+    (:func:`vol_route` at the ``blur`` taps' lengths): the kernel gives the
+    chain's bits, whose partial sums a march would not give. The shape
+    decides, never a failure. Mirrors ``csrc/irls_persistent.cu``'s
+    ``nsol_robust_persistent_route``."""
+    if storage not in IRLS_PERSISTENT_STORAGE:
+        return False
+    if int(np.prod(dims)) > IRLS_PERSISTENT_MAX_VOXELS:
+        return False
+    return all(vol_route(unit, tuple(blur), tuple(dims)) == "chain"
+               for unit in ("irls_head", "blur_apply", "weighted_apply"))
 
 
 def taps_lengths(factors):

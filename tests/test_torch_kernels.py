@@ -208,9 +208,15 @@ def test_cuda_fused_solve_matches_plain_on_card(cuda_device):
     shape, cov = (32, 32, 32), np.diag([1.0, 1.0, 1.0])
     b = _t(np.random.RandomState(1).rand(*shape), cuda_device)
     solve = F.make_fused_admm_solver(shape, cov, iterations=5, iter_max=6)
+    # the launch sequence's units, then the default route: one launch of
+    # csrc/admm_persistent.cu, the same bits
     F.reset_counts()
-    x_k = solve(b, b, 0.01, 0.5)
+    x_k = solve.sequence(b, b, 0.01, 0.5)
     assert all(n > 0 for n in F.launch_counts(F.ADMM_UNITS).values())
     assert set(F.plain_counts().values()) == {0}
+    F.reset_counts()
+    assert torch.equal(solve(b, b, 0.01, 0.5), x_k)
+    assert {k: n for k, n in F.launch_counts().items() if n} == {
+        "admm_persistent": 1}
     x_p = solve.plain(b, b, 0.01, 0.5)
     assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-4

@@ -78,8 +78,14 @@ def test_route_on_the_fused_shapes(shape, takes, storage):
                                 dict(data_loss="huber")])
 def test_route_refuses_sweep_state_dirs_and_robust(kw):
     """The sweep, the bf16 state and the blocked solve's ``"dirs"`` storage
-    stay on the launch sequence, as does the robust branch."""
-    assert not F.persistent_route((64, 64, 64), *_lengths((64,) * 3), **kw)
+    stay on the launch sequence. The robust branch takes the robust rule
+    (``csrc/irls_persistent.cu``): the one launch at 64³, the launch
+    sequence past the rule (100³, whose irls_head and blur_apply
+    march)."""
+    robust = "data_loss" in kw
+    assert F.persistent_route((64, 64, 64), *_lengths((64,) * 3),
+                              **kw) is robust
+    assert not F.persistent_route((100,) * 3, *_lengths((100,) * 3), **kw)
 
 
 def test_route_follows_the_marches_of_wider_blurs():

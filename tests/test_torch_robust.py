@@ -465,9 +465,15 @@ def test_cuda_robust_solve_matches_plain_on_card(cuda_device, shape):
                                            irls_cg_iters=5),
                   R.make_robust_solver(shape, cov, iterations=4, iter_max=3,
                                        irls_cg_iters=5, data_loss="cauchy")):
+        # the launch sequence's units, then the default route: one launch
+        # of csrc/irls_persistent.cu, the same bits
         F.reset_counts()
-        x_k = solve(b, b, 0.01, 0.5)
+        x_k = solve.sequence(b, b, 0.01, 0.5)
         assert all(n > 0 for n in F.launch_counts(F.ROBUST_UNITS).values())
         assert set(F.plain_counts().values()) == {0}
+        F.reset_counts()
+        assert torch.equal(solve(b, b, 0.01, 0.5), x_k)
+        assert {k: n for k, n in F.launch_counts().items() if n} == {
+            "irls_persistent": 1}
         x_p = solve.plain(b, b, 0.01, 0.5)
         assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-4

@@ -90,10 +90,15 @@ def test_route_on_the_tikhonov_shapes(shape, takes, storage):
                                 dict(data_loss="arctan"),
                                 dict(storage="dirs"), dict(storage="state")])
 def test_route_refuses_robust_losses_and_bf16_state(kw):
-    """The robust losses (``nsol_irls_sweep``) and every storage but exact
-    and qf32 stay on the launch sequence."""
-    assert not T.tikhonov_persistent_route((1, 256, 256),
-                                           *_lengths((256, 256)), **kw)
+    """Every storage but exact and qf32 stays on the launch sequence. A
+    robust loss takes ``csrc/irls_persistent.cu``'s one-launch batch where
+    its rule takes the shape (Lena) and the launch sequence
+    (``nsol_irls_sweep``) past it (256³, whose units march)."""
+    robust = "data_loss" in kw
+    assert T.tikhonov_persistent_route((1, 256, 256), *_lengths((256, 256)),
+                                       **kw) is robust
+    assert not T.tikhonov_persistent_route((256,) * 3, *_lengths((256,) * 3),
+                                           **kw)
 
 
 def test_route_table_matches_the_c_rule():
@@ -124,20 +129,25 @@ def test_solver_reports_its_route():
         == "sequence"
     assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
                                         data_loss="huber").route \
-        == "sequence"
+        == "persistent"
 
 
 @pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("loss", ["huber", "soft_l1", "cauchy", "arctan"])
 def test_robust_solver_reports_the_sequence(loss, compact):
     """A robust batch, exact or with bf16 directions, takes the launch
-    sequence on a shape the linear batch runs as one launch."""
+    sequence past the robust rule (256³), as the linear batch does there,
+    and the one launch of ``csrc/irls_persistent.cu`` where the rule
+    takes the shape (Lena)."""
     kw = COMPACT if compact else {}
-    assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
-                                        **kw).route == "persistent"
-    assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
+    assert T.make_fused_tikhonov_solver((256,) * 3, np.eye(3),
+                                        **kw).route == "sequence"
+    assert T.make_fused_tikhonov_solver((256,) * 3, np.eye(3),
                                         data_loss=loss, **kw).route \
         == "sequence"
+    assert T.make_fused_tikhonov_solver((256, 256), np.eye(2),
+                                        data_loss=loss, **kw).route \
+        == "persistent"
 
 
 def test_barriers_per_batch():
@@ -291,20 +301,27 @@ def test_route_takes_the_persistent_batch(cuda_device):
 
 @pytest.mark.cuda
 def test_robust_batch_launches_the_sequence(cuda_device):
-    """A robust batch on a shape the linear batch runs as one launch
-    takes the launch sequence: no persistent launch, and one entry clip a
-    configuration (a robust solve has no exit clip)."""
+    """A robust batch on a shape the rule takes makes no ``tik_persistent``
+    launch but one of ``csrc/irls_persistent.cu``, and no clip; its launch
+    sequence (``solve.sequence``) one entry clip a configuration (a robust
+    solve has no exit clip), the same bits."""
     shape = (32, 32, 32)
     b = torch.as_tensor(_problem(shape, 8), device=cuda_device)
     solve = T.make_fused_tikhonov_solver(shape, np.eye(3), iter_max=2,
                                          data_loss="huber", irls_cg_iters=3)
-    assert solve.route == "sequence"
+    assert solve.route == "persistent"
     F.reset_counts()
-    solve(b, b, ALPHAS, SCALES)
+    want = solve.sequence(b, b, ALPHAS, SCALES)
     torch.cuda.synchronize()
     counts = F.launch_counts()
-    assert counts["tik_persistent"] == 0
+    assert counts["tik_persistent"] == counts["irls_persistent"] == 0
     assert counts["tik_clip"] == len(ALPHAS)
+    F.reset_counts()
+    got = solve(b, b, ALPHAS, SCALES)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in F.launch_counts().items() if v} == {
+        "irls_persistent": 1}
+    assert torch.equal(got, want)
 
 
 #: ((Z, Y, X), configurations, storage) → configurations side by side on

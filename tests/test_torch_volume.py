@@ -645,8 +645,10 @@ def test_cuda_solves_route_by_the_rule(cuda_device):
     for shape, route in (((24, 224, 200), (0, 6)), ((32, 40, 48), (6, 0))):
         b = torch.rand(shape, device=cuda_device)
         solve = F.make_fused_admm_solver(shape, ISO, iterations=2, iter_max=3)
+        # the launch sequence's units (the fused route takes the persistent
+        # launch at 32 x 40 x 48)
         F.reset_counts()
-        x = solve(b, b, 0.01, 0.5)
+        x = solve.sequence(b, b, 0.01, 0.5)
         assert cs.route_launches(F)["cg_step"] == route, shape
         assert float((x - solve.plain(b, b, 0.01, 0.5)).abs().max()
                      / x.abs().max()) <= 1e-3
