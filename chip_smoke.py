@@ -261,11 +261,14 @@ against its float64 anchor and timing kernels and solves with CUDA events:
 Since the persistent IRLS sweep, the phases that hold the robust
 sequence's units against their plain versions or count their launches —
 phase 13's main path, phase 15's CLI, phase 16's whole robust solve,
-phase 17's huber sweep, phase 18's robust records, phase 30's fused
-solves, phase 31's CLI and phase 36's chain side — run that sequence
-forced (``sequence_route(R, ROBUST_RULE)``, or ``solve.sequence``);
-phases 13 and 17 also run the default route (one ``irls_persistent``
-launch, the same bits), and phase 46's robust batch expects that launch.
+phase 17's huber sweep, phase 30's fused solves, phase 31's CLI and phase
+36's chain side — run that sequence forced (``robust_sequence()``, or
+``solve.sequence``); phases 13 and 17 also run the default route (one
+``irls_persistent`` launch, the same bits), and phase 46's robust batch
+expects that launch. The ``kernels`` line takes ``admm_record``'s
+launches from phase 18's 100³ robust solve with records and
+``tik_clip``'s from phase 19's 256³ sweep: default routes past the
+persistent rules, where those units still launch.
 
 Since the persistent Tikhonov batch, the phases that hold the Tikhonov
 sequence's units against their plain versions or count their launches —
@@ -367,6 +370,9 @@ ROBUST_ANCHOR_BAND = 1e-4
 #: 900-970; BASELINE.md:441, equal across its XLA and kernel legs)
 SCALE_SHAPE = (256, 256, 256)
 SCALE_ROBUST_ANCHOR = 45022.5
+#: phase 18's robust solve with records past the persistent rule (its
+#: units march at σ = 1), where ``admm_record`` still launches
+RECORD_SHAPE = (100, 100, 100)
 
 
 class PhaseFailure(RuntimeError):
@@ -1127,7 +1133,7 @@ def run_robust_phases(device, card):
                                      irls_cg_iters=cgi)
     # the launch sequence's units (phase 47 holds the persistent launch,
     # the default route, to it)
-    with sequence_route(R, ROBUST_RULE):
+    with robust_sequence():
         solve(b, b, ALPHA, RHO)  # warm-up (stencils, allocator)
         torch.cuda.synchronize()
         F.reset_counts()
@@ -1241,7 +1247,7 @@ def run_robust_phases(device, card):
         F.reset_counts()
         # on the forced launch sequence, its units counted (phase 47 runs
         # this CLI on both routes)
-        with sequence_route(R, ROBUST_RULE):
+        with robust_sequence():
             rc = run_deconvolution.main([
                 "--observation", obs, "--result", out, "--solver", "ADMM",
                 "--reconstruction-type", "TVL2", "--data-loss", "huber",
@@ -1859,7 +1865,6 @@ def run_tikhonov_phase(device, card):
 
     from nsol_tpu_torch.ops import losses
     from nsol_tpu_torch.ops.cuda import fused as F
-    from nsol_tpu_torch.ops.cuda import robust as R
     from nsol_tpu_torch.ops.cuda import tikhonov as T
     from nsol_tpu_torch.solvers.wrappers import TikhonovLinearSolver
 
@@ -1893,7 +1898,7 @@ def run_tikhonov_phase(device, card):
         # (phases 46-47 hold the persistent batches to it)
         torch.cuda.synchronize()
         F.reset_counts()
-        with sequence_route(R, ROBUST_RULE) if robust else sequence_route(
+        with robust_sequence() if robust else sequence_route(
                 T, TIK_RULE):
             x_all, recs = solver.run_sweep(params, measures=measures)
         torch.cuda.synchronize()
@@ -1994,8 +1999,8 @@ def run_admm_study_phase(device, card):
     """Phase 18: the TV-L2 ADMM study with records on Lena 256² through
     ``ADMMLinearSolver.run_sweep``, and ``run_deconvolution`` (linear TV-L2
     by ADMM) on the PNG. Returns the sweep's launch counts (one persistent
-    launch a configuration; ``admm_record``'s from a robust configuration
-    with records)."""
+    launch a configuration; ``admm_record``'s from a 100³ robust solve with
+    records past the persistent rule, on its default route)."""
     import torch
 
     from nsol_tpu_torch import data, interop
@@ -2003,7 +2008,6 @@ def run_admm_study_phase(device, card):
     from nsol_tpu_torch.io import DataReader
     from nsol_tpu_torch.ops import losses
     from nsol_tpu_torch.ops.cuda import fused as F
-    from nsol_tpu_torch.ops.cuda import robust as R
     from nsol_tpu_torch.solvers.wrappers import ADMMLinearSolver
 
     img, xs, A, D, Dt = lena_problem()
@@ -2109,26 +2113,37 @@ def run_admm_study_phase(device, card):
     solve_bound = sum(unit_bound(k, 256 ** 2, (13, 13), nd=2)[0] * n
                       for k, n in F.launch_counts(F.ADMM_UNITS
                                                   + F.RECORD_UNITS).items())
-    # admm_record's main path: the records of a robust (huber) study
-    # configuration, written by the launch sequence of csrc/robust.cu (the
-    # linear ones the persistent launch writes itself)
+    # admm_record's main path: the records of a robust (huber) solve past
+    # the persistent rule (100³, its units marching), which the launch
+    # sequence of csrc/robust.cu writes on the default route; every Lena
+    # configuration's records, linear or robust, its persistent launch
+    # writes itself
     its, sweeps, cgi = ROBUST_ITERS["lena"]
-    rsolve = F.make_fused_admm_solver(b.shape, cov, iterations=its,
-                                      iter_max=sweeps, data_loss="huber",
-                                      irls_cg_iters=cgi, record=True)
+    vol = torch.as_tensor(np.random.RandomState(18).rand(
+        *RECORD_SHAPE).astype(np.float32), device=device)
+    rsolve = F.make_fused_admm_solver(RECORD_SHAPE, np.eye(3),
+                                      iterations=its, iter_max=sweeps,
+                                      data_loss="huber", irls_cg_iters=cgi,
+                                      record=True)
     F.reset_counts()
-    with sequence_route(R, ROBUST_RULE):  # the persistent one records itself
-        rsolve(b, b, a0, r0, record_dls=1.0 / xs)
+    _, recs = rsolve(vol, vol, a0, r0, record_dls=1.0)
     torch.cuda.synchronize()
+    rec_launches = used_counts(F)
     launches.update(F.launch_counts(F.RECORD_UNITS))
-    require(launches["admm_record"] == its + 1, "phase 18: the robust "
-            "records' launches %s" % launches)
+    require(rsolve.route == "sequence" and launches["admm_record"] == its + 1
+            and "irls_persistent" not in rec_launches[0]
+            and not rec_launches[1]
+            and all(r.shape == (its + 1,) and bool(torch.isfinite(r).all())
+                    for r in recs.values()),
+            "phase 18: the 100^3 robust records take %s, launches %s"
+            % (rsolve.route, rec_launches))
+    del vol
     print("phase 18 TVL2 ADMM study Lena 256^2, 8 alphas x 2 rhos, %d x %d, "
           "records: anchor devs %s (band %g); last records vs measures of x "
           "%.2e; kernel vs plain objective rel %.2e, voxel %.2e, records "
-          "%.2e; launches %s (admm_record: a robust configuration's "
-          "records); plain calls 0; kernel %.3f ms/solve, plain %.3f "
-          "ms/solve, bound %.4f ms/solve [%s]"
+          "%.2e; launches %s (admm_record: a 100^3 robust solve's records "
+          "on its default route, the sequence); plain calls 0; kernel %.3f "
+          "ms/solve, plain %.3f ms/solve, bound %.4f ms/solve [%s]"
           % (ITERATIONS, ITER_MAX, {k: "%.2e" % v for k, v in devs.items()},
              STUDY_ANCHOR_BAND, rec_dev, obj_rel, vox, rrel, launches,
              ms_k, ms_p, solve_bound, card))
@@ -2172,7 +2187,9 @@ def run_admm_study_phase(device, card):
 
 def run_scale_cli_phase(device, card):
     """Phase 19: a 256³ TK1L2 sweep, and ``nsol_torch_run_deconvolution_
-    study`` on the 64³ phantom (TK1L2) and on Lena (TVL2 by ADMM)."""
+    study`` on the 64³ phantom (TK1L2) and on Lena (TVL2 by ADMM). Returns
+    the sweep's launches (past the persistent rule: the launch sequence,
+    ``tik_clip`` on entry and exit of each configuration)."""
     import torch
 
     from nsol_tpu_torch import data, interop
@@ -4741,7 +4758,7 @@ def run_compact_robust_phases(device, card):
                      data_loss="huber", irls_cg_iters=cgi)
     # the fused solves on their launch sequence, its units counted (phase
     # 47 holds the persistent launch to it)
-    with sequence_route(R, ROBUST_RULE):
+    with robust_sequence():
         for key, kw in (("lena_dirs", FUSED_COMPACT), ("lena_exact", {})):
             run(key, lena_f(iterations=its, **kw), b, obj2)
     dev_lena = abs(runs["lena_dirs"][0] - LENA_ROBUST_ANCHOR) \
@@ -4766,7 +4783,7 @@ def run_compact_robust_phases(device, card):
 
     cube_f = partial(F.make_fused_admm_solver, (64,) * 3, iso,
                      iter_max=sweeps, data_loss="huber", irls_cg_iters=cgi)
-    with sequence_route(R, ROBUST_RULE):
+    with robust_sequence():
         for key, kw in (("cube_dirs", FUSED_COMPACT), ("cube_exact", {})):
             run(key, cube_f(iterations=its, **kw), b64, obj64)
     rel_cube = compared("cube_dirs", "cube_exact", SOLVE_OBJ_TOL, "64^3")
@@ -4866,7 +4883,7 @@ def run_compact_robust_phases(device, card):
                         "huber", cgi)
                     F.reset_counts()
                     # on the launch sequence, its units counted
-                    with sequence_route(R, ROBUST_RULE):
+                    with robust_sequence():
                         rc = run_deconvolution.main([
                             "--observation", obs, "--result", out,
                             "--solver", "ADMM", "--reconstruction-type",
@@ -9051,10 +9068,20 @@ TIK_WIDTHS = ((("Lena x 64", (1, 256, 256), 64, "exact"), 16),
               (("64^3 x 8", (64, 64, 64), 8, "exact"), 4))
 #: the Tikhonov batch's route rule, which :func:`sequence_route` forces off
 TIK_RULE = "tikhonov_persistent_route"
-#: the robust solves' route rule (the IRLS sweep's, ``R``), which
-#: :func:`sequence_route` forces off for the ADMM solve and the Tikhonov
+#: the robust solves' route rule (the IRLS sweep's, in ``tiled``), which
+#: :func:`robust_sequence` forces off for the ADMM solve and the Tikhonov
 #: batch alike
-ROBUST_RULE = "robust_persistent_route"
+ROBUST_RULE = "irls_persistent_fits"
+
+
+def robust_sequence():
+    """:func:`sequence_route` of :data:`ROBUST_RULE`: inside the block the
+    robust losses of the fused ADMM solve and of the Tikhonov batch take
+    their launch sequence (``nsol_robust_admm_solve``,
+    ``nsol_tikhonov_solve``)."""
+    from nsol_tpu_torch.ops.cuda import tiled
+
+    return sequence_route(tiled, ROBUST_RULE)
 
 
 def tik_grid(n):
@@ -9438,6 +9465,13 @@ IRLS_TIK_CASES = {
                                     True),
     "64^3 TK1 huber exact x 8": ("phantom", "TK1", "exact", "huber", 8,
                                  False)}
+#: the shapes inside the rule's cap besides Lena and 64³ that phase 47
+#: times in turns (solves and x 8 batches): the rule's edges and the
+#: route test's shapes it takes
+IRLS_EDGE_SHAPES = (("80^3", (80, 80, 80)), ("512^2", (512, 512)),
+                    ("2x256x512", (2, 256, 512)),
+                    ("37x45x53", (37, 45, 53)),
+                    ("32x128x128", (32, 128, 128)))
 IRLS_KERNEL = "irls_persistent_kernel"
 #: launch shapes phase 47 reads: (label, dims, configurations, storage,
 #: regulariser) and the configurations side by side the C rule
@@ -9809,6 +9843,7 @@ def run_irls_persistent_phase(device, card):
     from nsol_tpu_torch.ops.cuda import fused as F
     from nsol_tpu_torch.ops.cuda import robust as R
     from nsol_tpu_torch.ops.cuda import tikhonov as T
+    from nsol_tpu_torch.ops.cuda import tiled as Z
 
     regs = persistent_ptxas(IRLS_KERNEL, "RobustT")
     require(regs == ["cached"] or all("Used 64 registers" in r for r in regs),
@@ -9866,7 +9901,7 @@ def run_irls_persistent_phase(device, card):
             for storage in R.ROBUST_STORAGE:
                 c = lib.nsol_robust_persistent_route(
                     R.ROBUST_STORAGE.index(storage), *lens, *dims)
-                py = R.robust_persistent_route(dims, lens, storage)
+                py = Z.irls_persistent_fits(dims, lens, storage)
                 require(bool(c) == py, "phase 47: the rule of %s taps %d %s:"
                         " C %d, Python %s" % (shape, taps, storage, c, py))
                 rule_cases += 1
@@ -9889,7 +9924,7 @@ def run_irls_persistent_phase(device, card):
         for key, fn in runs.items():
             rows[key] = []
             for turn in ("sequence", "persistent", "persistent", "sequence"):
-                route = sequence_route(R, ROBUST_RULE) \
+                route = robust_sequence() \
                     if turn == "sequence" else contextlib.nullcontext()
                 with route:
                     F.reset_counts()
@@ -9940,31 +9975,50 @@ def run_irls_persistent_phase(device, card):
              {i: "%.2e" % d for i, d in anchors.items()}, STUDY_ANCHOR_BAND,
              card))
 
-    # times in turns, by CUDA events
+    # times in turns, by CUDA events: the main paths, the 64³ phantom and
+    # the rule's other shapes (IRLS_EDGE_SHAPES)
     cube = problems["phantom"][0]
-    for key, src, kw in (("Lena huber exact", b, {}),
-                         ("Lena huber dirs", b, FUSED_COMPACT),
-                         ("64^3 huber exact", cube, {}),
-                         ("64^3 huber dirs", cube, FUSED_COMPACT)):
+    edges = {label: irls_problem(shape, problems, device)
+             for label, shape in IRLS_EDGE_SHAPES}
+    solves = [("Lena huber exact", b, {}), ("Lena huber dirs", b,
+                                            FUSED_COMPACT),
+              ("64^3 huber exact", cube, {}), ("64^3 huber dirs", cube,
+                                               FUSED_COMPACT)]
+    solves += [("%s huber exact" % k, v, {}) for k, v in edges.items()]
+    for key, src, kw in solves:
         solve = F.make_fused_admm_solver(tuple(src.shape),
                                          np.eye(src.dim()), iterations=its,
                                          iter_max=sweeps, data_loss="huber",
                                          irls_cg_iters=cgi, **kw)
+        require(solve.route == "persistent", "phase 47: %s takes %s"
+                % (key, solve.route))
         rows[key] = turns_ms(partial(solve.sequence, src, src, ALPHA, RHO),
                              partial(solve, src, src, ALPHA, RHO), 5)
     h_alphas = [float(a) for a in TK_ALPHAS[::HUBER_STEP]]
-    for key, src, reg in (("Lena TK1L2 huber x 8 batch", b, "TK1"),
-                          ("Lena TK0L2 huber x 8 batch", b, "TK0"),
-                          ("64^3 TK1L2 huber x 8 batch", cube, "TK1")):
+    batches = [("Lena TK1L2 huber x 8 batch", b, "TK1"),
+               ("Lena TK0L2 huber x 8 batch", b, "TK0"),
+               ("64^3 TK1L2 huber x 8 batch", cube, "TK1")]
+    batches += [("%s TK1L2 huber x 8 batch" % k, v, "TK1")
+                for k, v in edges.items()]
+    for key, src, reg in batches:
         solve = tik_solver(T, src, reg, iter_max=HUBER_SWEEPS,
                            data_loss="huber", irls_cg_iters=HUBER_CG)
+        require(solve.route == "persistent", "phase 47: %s takes %s"
+                % (key, solve.route))
         rows[key] = turns_ms(partial(solve.sequence, src, src, h_alphas),
                              partial(solve, src, src, h_alphas), 5)
+    del edges
+    # the shapes where the sequence's turns came out faster (the rule
+    # keeps every shape the launch beats)
+    slower = sorted(k for k, v in rows.items() if k not in runs
+                    and np.median(v[1:3]) >= np.median(v[::3]))
     print("phase 47 ms by CUDA events, turns sequence / persistent / "
           "persistent / sequence (a solve or batch: median of 5; run_sweep, "
           "the study and the CLI: one run each, their results equal on the "
-          "two routes): %s [%s]" % ("; ".join(
-              "%s %s" % (k, turns_line(v)) for k, v in rows.items()), card))
+          "two routes): %s; the persistent launch no faster than the "
+          "sequence at: %s [%s]" % ("; ".join(
+              "%s %s" % (k, turns_line(v)) for k, v in rows.items()),
+              ", ".join(slower) or "none", card))
     lap("phase 47 times")
 
     # the main paths: the Lena huber solve and the Lena TK1L2 huber × 8
@@ -10058,7 +10112,7 @@ def run_irls_persistent_phase(device, card):
         "irls_solve Lena": host_split(
             partial(solve, b, b, ALPHA, RHO),
             host_hooks(lib, "nsol_robust_admm_solve_persistent",
-                       (R, "robust_persistent_route"))),
+                       (Z, ROBUST_RULE))),
         "irls_batch Lena huber x 8": host_split(
             partial(batch, b, b, h_alphas),
             host_hooks(lib, "nsol_irls_batch_persistent",
@@ -10235,24 +10289,25 @@ def main(argv=None):
         lap("phase 16")
     if "tikhonov" in groups:
         with exact_storage():  # the sweeps' float64 anchors, as before
-            tik = run_tikhonov_phase(device, card)
+            run_tikhonov_phase(device, card)
         lap("phase 17")
     if "study" in groups:
         study = run_admm_study_phase(device, card)
         lap("phase 18")
     if "cli" in groups:
-        run_scale_cli_phase(device, card)
+        scale_cli = run_scale_cli_phase(device, card)
         lap("phase 19")
-    if {"units", "tikhonov", "study"} <= set(groups):
-        # the slice's units: launches on the studies' main paths, errors
-        # and times at the Lena shape (phase 16)
+    # the slice's units, errors and times at the Lena shape (phase 16);
+    # their launches on the default routes that still launch them, past the
+    # persistent rules (every Lena solve and sweep takes one persistent
+    # launch): admm_record on phase 18's 100³ robust solve with records,
+    # tik_clip on phase 19's 256³ TK1L2 sweep
+    if {"units", "study"} <= set(groups):
         kernels += kernel_entries("record", study["launches"], units["err"],
                                   units["times"], 256 ** 2,
                                   iso2.blur.lengths, nd=2)
-        # tik_clip on its default route: the robust sweep's sequence (the
-        # linear sweeps run the persistent batch, phase 46)
-        kernels += kernel_entries("tikhonov",
-                                  tik[("TK1", "huber")]["launches"],
+    if {"units", "cli"} <= set(groups):
+        kernels += kernel_entries("tikhonov", scale_cli["launches"],
                                   units["err"], units["times"], 256 ** 2, (),
                                   nd=2)
     if "scale" in groups:

@@ -69,12 +69,6 @@ namespace {
 // admm.cu's Unit slots continue here: the one launch of this solve
 // (ops/cuda/blocked.py's COUNTS).
 constexpr int kAdmmPersistent = 11;
-// The most voxels the route takes (the rule, nsol_admm_persistent_route):
-// the fused route's scope (16 volumes in 64 MiB), within which every shape
-// timed, the kernel forced where the rule refuses it, beat the launch
-// sequence (chip_smoke.py phase 45, PERF.md). At sigma = 1 the marches'
-// boundary (vol_route) binds first, at 2^19 voxels.
-constexpr long long kPersistentMaxVoxels = 1LL << 20;
 
 template <class S>
 struct SolveArgs {

@@ -56,9 +56,6 @@ namespace {
 // robust.cu's Unit slots continue here: the one launch of a solve or a
 // batch (ops/cuda/robust.py's PERSISTENT_SLOT).
 constexpr int kIrlsPersistent = 11;
-// The most voxels the route takes (nsol_robust_persistent_route): the
-// linear persistent solves' cap, admm_persistent.cu's kPersistentMaxVoxels.
-constexpr long long kIrlsMaxVoxels = 1LL << 20;
 
 // Compile-time lengths of the blur's taps (kB an axis, kBz along z; 0 at
 // run time): persistent.cuh's TapLens of a solve with one chain.
@@ -321,13 +318,13 @@ extern "C" {
 
 // Whether the IRLS sweeps of a solve take this kernel (the rule;
 // ops/cuda/tiled.py's irls_persistent_fits mirrors it): storage
-// kRobustExact or kRobustDirs, at most kIrlsMaxVoxels voxels, where none
+// kRobustExact or kRobustDirs, at most kPersistentMaxVoxels voxels, where none
 // of the sweep's irls_head, blur_apply or weighted_apply takes its march
 // (march.cuh's vol_route at the blur taps), whose partial sums the
 // kernel's chain blocks would not reproduce.
 int nsol_robust_persistent_route(int storage, int kz, int ky, int kx, int Z, int Y, int X) {
   if (storage != kRobustExact && storage != kRobustDirs) return 0;
-  if ((long long)Z * Y * X > kIrlsMaxVoxels) return 0;
+  if ((long long)Z * Y * X > kPersistentMaxVoxels) return 0;
   return !nsol_vol_route(kVolIrlsHead, kz, ky, kx, Z, Y, X) &&
          !nsol_vol_route(kVolBlurApply, kz, ky, kx, Z, Y, X) &&
          !nsol_vol_route(kVolWeightedApply, kz, ky, kx, Z, Y, X);
@@ -357,24 +354,21 @@ int nsol_robust_persistent_shape(int storage, int reg, int kz, int ky, int kx, i
 }
 
 // nsol_robust_admm_solve's solve, its arguments and its x and records bit
-// for bit, as one cooperative launch on `stream`: storage kRobustExact or
-// kRobustDirs (else cudaErrorInvalidValue), partials 2 * nsol_max_blocks()
-// doubles; scal and rec_counts unused (may be null: no unit of the
-// sequence runs). A launch the card refuses
+// for bit, as one cooperative launch on `stream` (its arguments less the
+// sequence's scal and rec_counts): storage kRobustExact or kRobustDirs
+// (else cudaErrorInvalidValue), partials 2 * nsol_max_blocks() doubles.
+// A launch the card refuses
 // (cudaErrorCooperativeLaunchTooLarge, ...) returns its error and runs
 // nothing. counts[kIrlsPersistent] += 1 where the kernel was launched.
 int nsol_robust_admm_solve_persistent(const float* b, float* x, float* wts, float* free,
                                       float* rk, void* p0, void* p1, float* q, float* xk,
-                                      float* t1, float* t2, double* partials, double* scal,
-                                      const float* taps, int kz, int ky, int kx, float rho,
-                                      float ihx, float ihy, float ihz, float ih2x, float ih2y,
-                                      float ih2z, int loss, float scale, int iterations,
-                                      int iter_max, int cg_iters, int storage, double* reg,
-                                      double* data, double* rec_partials, float rec_scale, int Z,
-                                      int Y, int X, void* stream, long long* counts,
-                                      long long* rec_counts) {
-  (void)scal;
-  (void)rec_counts;
+                                      float* t1, float* t2, double* partials, const float* taps,
+                                      int kz, int ky, int kx, float rho, float ihx, float ihy,
+                                      float ihz, float ih2x, float ih2y, float ih2z, int loss,
+                                      float scale, int iterations, int iter_max, int cg_iters,
+                                      int storage, double* reg, double* data,
+                                      double* rec_partials, float rec_scale, int Z, int Y, int X,
+                                      void* stream, long long* counts) {
   if (!valid(Z, Y, X) || iterations < 0 || iter_max < 0 || cg_iters < 0)
     return (int)cudaErrorInvalidValue;
   const Dims d{Z, Y, X};

@@ -48,6 +48,14 @@ namespace cg = cooperative_groups;
 // SM.
 constexpr int kMaxTeams = 4;
 
+// The most voxels the persistent solves' routes take (their rules,
+// nsol_admm_persistent_route and nsol_robust_persistent_route; the
+// Tikhonov batch's takes theirs): the fused route's scope (16 volumes in
+// 64 MiB), within which every shape timed beat the launch sequence
+// (chip_smoke.py phases 45 and 47, PERF.md). At sigma = 1 the marches'
+// boundary (vol_route) binds first, at 2^19 voxels.
+constexpr long long kPersistentMaxVoxels = 1LL << 20;
+
 // The phases a traced solve stamps (fused.py's PERSISTENT_PHASES): the
 // end of each, after its barrier (a reduce, the Tikhonov exit clip: block
 // 0's own end).

@@ -79,8 +79,8 @@
 // plane route) runs tiled.cu's one-pass blur_apply_zy and
 // weighted_apply_zy in place of irls_head, blur_apply and weighted_apply.
 //
-// The units' pass bodies (their epilogues, irls_step, the masked CG's
-// update) live in robust_units.cuh, which irls_persistent.cu runs too:
+// The units' pass bodies (their epilogues, irls_step's voxel) live in
+// robust_units.cuh, which irls_persistent.cu runs too:
 // where its rule (nsol_robust_persistent_route) takes the shape, the
 // robust solves run every sweep of this sequence as one cooperative
 // launch instead, the same bits.
@@ -134,6 +134,11 @@ struct WindowOutEpi {
     return 0.0;
   }
 };
+
+__global__ void irls_step_kernel(float* __restrict__ x, const float* __restrict__ xk,
+                                 long long n) {
+  GRID_STRIDE(i, n) irls_step_voxel(x, xk, i);
+}
 
 // ---------------------------------------------------------------- units --
 
@@ -199,6 +204,16 @@ cudaError_t weighted_apply_chain(const float* r, const void* p, void* p_new, flo
   if (e != cudaSuccess) return e;
   reduce_kernel<<<1, kReduceThreads, 0, s>>>(partials, grid_for(d.n()), scal, kReducePQ);
   return cudaGetLastError();
+}
+
+// The masked CG's update: xk += a p' (p' stored as the storage mode says),
+// rk -= a q, gamma' = |rk|^2, beta.
+cudaError_t robust_cg_update(float* xk, float* rk, const void* p, const float* q,
+                             double* partials, double* scal, long long n, int storage,
+                             cudaStream_t s) {
+  if (storage == kRobustExact)
+    return cg_update_t(xk, rk, static_cast<const float*>(p), q, partials, scal, n, 1, s);
+  return cg_update_t(xk, rk, static_cast<const bf16*>(p), q, partials, scal, n, 1, s);
 }
 
 // out = A y (+ rho D^T D u, u_ext given) on a z-window: y_ext, u_ext hold

@@ -2,8 +2,8 @@
 // sequence and csrc/irls_persistent.cu's one-launch sweep both run: the z
 // epilogues of irls_head (the loss weights of losses.cuh), of blur_apply
 // (its gradient form with the free mask and rk) and of the weighted
-// apply's two chains (the weights, the mask, in every RobustStorage mode),
-// the masked CG's update and irls_step.
+// apply's two chains (the weights, the mask, in every RobustStorage mode)
+// and irls_step's voxel.
 //
 // kNc: the epilogues' loads take the read-only (non-coherent) path, as the
 // sequence's kernels read volumes nothing writes while they run; the
@@ -113,21 +113,6 @@ struct MaskedEpi {
 // irls_step at voxel i: x = max(x + xk, 0), a NaN kept (common.cuh clip0).
 __device__ __forceinline__ void irls_step_voxel(float* x, const float* xk, long long i) {
   x[i] = clip0(__fadd_rn(x[i], xk[i]));
-}
-
-__global__ void irls_step_kernel(float* __restrict__ x, const float* __restrict__ xk,
-                                 long long n) {
-  GRID_STRIDE(i, n) irls_step_voxel(x, xk, i);
-}
-
-// The masked CG's update: xk += a p' (p' stored as the storage mode says),
-// rk -= a q, gamma' = |rk|^2, beta.
-cudaError_t robust_cg_update(float* xk, float* rk, const void* p, const float* q,
-                             double* partials, double* scal, long long n, int storage,
-                             cudaStream_t s) {
-  if (storage == kRobustExact)
-    return cg_update_t(xk, rk, static_cast<const float*>(p), q, partials, scal, n, 1, s);
-  return cg_update_t(xk, rk, static_cast<const bf16*>(p), q, partials, scal, n, 1, s);
 }
 
 }  // namespace

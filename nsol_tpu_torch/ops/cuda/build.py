@@ -80,8 +80,8 @@ _SIGNATURES = {
     + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
     "nsol_robust_admm_solve_zy": [_P] * 14 + [_I] * 3 + [_F] * 7
     + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 4,
-    "nsol_robust_admm_solve_persistent": [_P] * 14 + [_I] * 3 + [_F] * 7
-    + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 3,
+    "nsol_robust_admm_solve_persistent": [_P] * 13 + [_I] * 3 + [_F] * 7
+    + [_I, _F] + [_I] * 4 + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 2,
     "nsol_irls_batch_persistent": [_P] * 15 + [_I, _I, _P] + [_I] * 3
     + [_F] * 3 + [_I] * 5 + [_I] * 3 + [_P, _P],
     "nsol_robust_persistent_route": [_I] * 7,

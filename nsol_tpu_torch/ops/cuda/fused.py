@@ -247,10 +247,10 @@ def persistent_route(dims, blur, normal, storage="exact", sweep=False,
     at the ``blur`` and ``normal`` taps' lengths), mirroring its
     ``nsol_admm_persistent_route``. A robust loss:
     ``csrc/irls_persistent.cu`` in place of ``nsol_robust_admm_solve``'s
-    where :func:`~.robust.robust_persistent_route` takes the shape and the
+    where :func:`~.tiled.irls_persistent_fits` takes the shape and the
     robust storage (exact or dirs). The shape decides, never a failure."""
     if data_loss != "linear":
-        return not sweep and R.robust_persistent_route(dims, blur, storage)
+        return not sweep and Z.irls_persistent_fits(dims, blur, storage)
     return not sweep and Z.persistent_fits(dims, blur, normal, storage)
 
 

@@ -72,7 +72,7 @@ one-pass tiled units of :mod:`.tiled` swapped in
 :func:`make_blocked_weighted_normal_operator_2d` are the reference's 2-D
 entry points over them.
 
-Where :func:`robust_persistent_route` takes the shape (storage exact or
+Where :func:`~.tiled.irls_persistent_fits` takes the shape (storage exact or
 dirs, at most 2^20 voxels where none of ``irls_head``, ``blur_apply`` and
 ``weighted_apply`` marches: the Lena and 64³ solves), the whole solve runs
 instead as one persistent cooperative launch, ``csrc/irls_persistent.cu``:
@@ -113,7 +113,7 @@ __all__ = ["LOSS_IDS", "blur_apply", "blur_apply_plain", "irls_head",
            "irls_step", "irls_step_plain", "blur_apply_prepadded",
            "blur_apply_prepadded_plain", "weighted_apply_prepadded",
            "weighted_apply_prepadded_plain", "blur_halo", "weighted_halo",
-           "robust_persistent_route", "irls_persistent", "persistent_shape",
+           "irls_persistent", "persistent_shape",
            "persistent_barriers", "PERSISTENT_SLOT", "make_robust_solver",
            "make_blocked_blur_operator",
            "make_blocked_weighted_normal_operator",
@@ -565,27 +565,14 @@ def _sweep_units(tiled):
 PERSISTENT_SLOT = 11
 
 
-def robust_persistent_route(dims, blur, storage="exact"):
-    """Whether the IRLS sweeps of a robust solve of a ``(Z, Y, X)`` volume
-    (a 2-D image as ``(1, Y, X)``) run on the card as one cooperative
-    launch, ``csrc/irls_persistent.cu``, rather than as
-    ``nsol_irls_sweep``'s launch sequence: where
-    :func:`~.tiled.irls_persistent_fits` takes the shape and the
-    :data:`ROBUST_STORAGE` mode (exact or dirs, at most 2^20 voxels, none
-    of ``irls_head``, ``blur_apply``, ``weighted_apply`` marching at the
-    ``blur`` taps' lengths). The shape decides, never a failure. Mirrors
-    ``csrc/irls_persistent.cu``'s ``nsol_robust_persistent_route``."""
-    return B._tiled().irls_persistent_fits(dims, blur, storage)
-
-
-def irls_persistent(entry, args, tail=()):
+def irls_persistent(entry, args):
     """Call the C entry ``entry`` of ``csrc/irls_persistent.cu``
     (``nsol_robust_admm_solve_persistent``, the robust ADMM solve;
     ``nsol_irls_batch_persistent``, the robust Tikhonov batch) with
-    ``args``, its launch counts and ``tail``; its launches
+    ``args`` and its launch counts; its launches
     :func:`~.fused.launch_counts` reports as ``"irls_persistent"``."""
     counts = build.new_counts(B.COUNTS)
-    err = getattr(build.load(), entry)(*args, counts, *tail)
+    err = getattr(build.load(), entry)(*args, counts)
     build.check(err, "irls_persistent")
     irls_persistent.launches += counts[PERSISTENT_SLOT]
 
@@ -675,7 +662,7 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
                        scale, record_dls=None, tiled=False, storage="exact",
                        route=None):
     """The solve on the card by ``route``: ``None`` takes
-    :func:`robust_persistent_route`'s (never with ``tiled``),
+    :func:`~.tiled.irls_persistent_fits`'s (never with ``tiled``),
     ``"sequence"`` ``nsol_robust_admm_solve``'s launch sequence (the bit
     reference)."""
     name = "robust ADMM solve"
@@ -685,7 +672,8 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
     dims = B.volume_dims(name, b)
     B.check_tensors(name, b.shape, b, x0)
     tv = st.blur.as_volume()
-    persistent = route is None and not tiled and robust_persistent_route(
+    T = B._tiled()
+    persistent = route is None and not tiled and T.irls_persistent_fits(
         dims, tv.lengths, storage)
     lib = build.load()
     x = x0.clone()
@@ -693,20 +681,18 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
     vols = [torch.empty(b.shape, dtype=dt, device=b.device)  # wts free rk
             for dt in (torch.float32,) * 3 + (p_dtype,) * 2  # p0 p1
             + (torch.float32,) * 4]  # q xk t1 t2
-    scal = B.new_scalars(b.device)
     reg = data = parts = None
     if record_dls is not None:
         reg, data = Rec.new_records(iterations + 1, b.device)
         parts = Rec.rec_partials(b.device)
-    T = B._tiled()
     # the march units' partials (weighted_apply's march on either route);
     # the persistent solve's two sets
     partials = torch.empty(2 * lib.nsol_max_blocks(), dtype=torch.float64,
                            device=b.device) if persistent \
         else T.tiled_partials(b.device, dims)
-    args = [build.tensor_ptr(b), build.tensor_ptr(x)] \
-        + [build.tensor_ptr(t) for t in vols] + [
-        build.tensor_ptr(partials), build.tensor_ptr(scal),
+    head = [build.tensor_ptr(b), build.tensor_ptr(x)] \
+        + [build.tensor_ptr(t) for t in vols] + [build.tensor_ptr(partials)]
+    tail = [
         build.tensor_ptr(tv.buf), *tv.lengths, float(rho),
         *B.spacing3(st.inv_h), *B.spacing3(st.inv_h2), LOSS_IDS.index(loss),
         float(scale), int(iterations), int(iter_max), int(cg_iters),
@@ -715,8 +701,9 @@ def _robust_solve_cuda(st, b, x0, rho, iterations, iter_max, cg_iters, loss,
         float(1.0 if record_dls is None else record_dls), *dims,
         build.stream_ptr(b.device)]
     if persistent:
-        irls_persistent("nsol_robust_admm_solve_persistent", args, (None,))
+        irls_persistent("nsol_robust_admm_solve_persistent", head + tail)
         return x, reg, data
+    args = head + [build.tensor_ptr(B.new_scalars(b.device))] + tail
     counts, rec_counts = build.new_counts(B.COUNTS), build.new_counts(5)
     tiled_counts = build.new_counts(5)
     if tiled:
@@ -757,7 +744,7 @@ def make_robust_solver(shape, cov, alpha_cut=3, spacing=None, iterations=10,
     Device and dtype follow ``b``: on CUDA the solve runs the kernels of
     ``csrc/robust.cu`` (float32, 2-D or 3-D) without the chain, as one
     cooperative launch of ``csrc/irls_persistent.cu`` where
-    :func:`robust_persistent_route` takes the shape (``solve.route``); on
+    :func:`~.tiled.irls_persistent_fits` takes the shape (``solve.route``); on
     the CPU the plain versions with it. ``solve.plain`` runs the plain
     versions on any device; ``solve.plain(..., chain=False)`` leaves the
     chain out; on the card ``solve.sequence`` runs the launch sequence
@@ -825,9 +812,10 @@ def _make_solver(shape, cov, alpha_cut, spacing, iterations, iter_max,
     solve.sequence = sequence
     solve.storage = storage
     # the route a solve on the card takes
-    solve.route = "persistent" if not tiled and robust_persistent_route(
-        (1,) * (3 - len(shape)) + shape,
-        B._tiled().taps_lengths(factors)[0], storage) else "sequence"
+    T = B._tiled()
+    solve.route = "persistent" if not tiled and T.irls_persistent_fits(
+        (1,) * (3 - len(shape)) + shape, T.taps_lengths(factors)[0],
+        storage) else "sequence"
     return solve
 
 

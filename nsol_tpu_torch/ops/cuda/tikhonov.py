@@ -104,13 +104,13 @@ def tikhonov_persistent_route(dims, blur, normal, storage="exact",
     unit of the sequence marching at the ``blur`` and ``normal`` taps'
     lengths, :func:`~.tiled.taps_lengths`). A robust loss:
     ``csrc/irls_persistent.cu``'s batch where
-    :func:`~.robust.robust_persistent_route` takes the shape at the
+    :func:`~.tiled.irls_persistent_fits` takes the shape at the
     ``blur`` taps, storage exact, or qf32 (compact) as the sweep's
     ``"dirs"``. The shape decides, never a failure. Mirrors
     ``csrc/tikhonov_persistent.cu``'s ``nsol_tikhonov_persistent_route``."""
     if data_loss == "linear":
         return Z.persistent_fits(dims, blur, normal, storage)
-    return storage in ("exact", "qf32") and R.robust_persistent_route(
+    return storage in ("exact", "qf32") and Z.irls_persistent_fits(
         dims, blur, "dirs" if storage == "qf32" else "exact")
 
 

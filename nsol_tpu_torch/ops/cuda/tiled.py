@@ -82,7 +82,7 @@ __all__ = ["normal_apply_zy", "normal_apply_zy_plain", "cg_step_zy",
            "halo_steps", "tile_z", "persistent_fits", "taps_lengths",
            "irls_persistent_fits", "PERSISTENT_STORAGE",
            "PERSISTENT_MAX_VOXELS", "IRLS_PERSISTENT_STORAGE",
-           "IRLS_PERSISTENT_MAX_VOXELS", "UNITS", "PLAIN"]
+           "UNITS", "PLAIN"]
 
 
 # ------------------------------------------------------------ plain forms --
@@ -289,7 +289,8 @@ def vol_route(unit, lengths, dims):
 
 #: the storage modes of :data:`~.blocked.STORAGE` the persistent solves run
 #: (``csrc/admm_persistent.cu``, ``csrc/tikhonov_persistent.cu``), and the
-#: most voxels their routes take (``kPersistentMaxVoxels`` there)
+#: most voxels the routes of every persistent solve take
+#: (``csrc/persistent.cuh``'s ``kPersistentMaxVoxels``)
 PERSISTENT_STORAGE = ("exact", "qf32")
 PERSISTENT_MAX_VOXELS = 1 << 20
 
@@ -316,17 +317,15 @@ def persistent_fits(dims, blur, normal, storage):
 
 
 #: the :data:`~.robust.ROBUST_STORAGE` modes the persistent IRLS sweep runs
-#: (``csrc/irls_persistent.cu``), and the most voxels its route takes
-#: (``kIrlsMaxVoxels`` there)
+#: (``csrc/irls_persistent.cu``)
 IRLS_PERSISTENT_STORAGE = ("exact", "dirs")
-IRLS_PERSISTENT_MAX_VOXELS = 1 << 20
 
 
 def irls_persistent_fits(dims, blur, storage):
     """Whether the persistent IRLS sweep runs the robust solve's launch
     sequence on a ``(Z, Y, X)`` volume (a 2-D image as ``(1, Y, X)``):
     storage in :data:`IRLS_PERSISTENT_STORAGE`, at most
-    :data:`IRLS_PERSISTENT_MAX_VOXELS` voxels, where none of the sweep's
+    :data:`PERSISTENT_MAX_VOXELS` voxels, where none of the sweep's
     ``irls_head``, ``blur_apply`` or ``weighted_apply`` takes its march
     (:func:`vol_route` at the ``blur`` taps' lengths): the kernel gives the
     chain's bits, whose partial sums a march would not give. The shape
@@ -334,7 +333,7 @@ def irls_persistent_fits(dims, blur, storage):
     ``nsol_robust_persistent_route``."""
     if storage not in IRLS_PERSISTENT_STORAGE:
         return False
-    if int(np.prod(dims)) > IRLS_PERSISTENT_MAX_VOXELS:
+    if int(np.prod(dims)) > PERSISTENT_MAX_VOXELS:
         return False
     return all(vol_route(unit, tuple(blur), tuple(dims)) == "chain"
                for unit in ("irls_head", "blur_apply", "weighted_apply"))

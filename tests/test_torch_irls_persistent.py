@@ -5,7 +5,7 @@ solves on the CPU.
 
 On the CPU the robust solves run their plain versions, as before: the
 route only decides what a solve on the card launches.
-:func:`R.robust_persistent_route` is held here to the robust shapes (Lena
+:func:`Z.irls_persistent_fits` is held here to the robust shapes (Lena
 256², 64³, 80³, a ragged volume, 2-plane and 32-plane stacks, and past
 the rule 88³-256³, 1024², 2048²), to its refusals (the blocked solve's
 ``"io"`` storage, the tiled solve, the sweep) and to the constants of its
@@ -88,8 +88,8 @@ def cuda_device():
 @pytest.mark.parametrize("storage", Z.IRLS_PERSISTENT_STORAGE)
 @pytest.mark.parametrize("shape,takes", ROUTE_CASES)
 def test_route_on_the_robust_shapes(shape, takes, storage):
-    assert R.robust_persistent_route(_dims(shape), _blur(shape),
-                                     storage) is takes
+    assert Z.irls_persistent_fits(_dims(shape), _blur(shape),
+                                  storage) is takes
 
 
 def test_route_table_matches_the_c_rule():
@@ -99,8 +99,10 @@ def test_route_table_matches_the_c_rule():
     blur_apply and weighted_apply), and the Tikhonov batch's rule hands it
     the compact storage as the sweep's ``"dirs"``."""
     src, rule = _rule_source()
-    cap = re.search(r"kIrlsMaxVoxels = 1LL << (\d+);", src)
-    assert cap and 1 << int(cap.group(1)) == Z.IRLS_PERSISTENT_MAX_VOXELS
+    shared = open(os.path.join(CSRC, "persistent.cuh")).read()
+    cap = re.search(r"kPersistentMaxVoxels = 1LL << (\d+);", shared)
+    assert cap and 1 << int(cap.group(1)) == Z.PERSISTENT_MAX_VOXELS
+    assert "> kPersistentMaxVoxels) return 0;" in rule
     slot = re.search(r"kIrlsPersistent = (\d+);", src)
     assert slot and int(slot.group(1)) == R.PERSISTENT_SLOT < B.COUNTS
     assert "kRobustExact" in rule and "kRobustDirs" in rule
@@ -120,9 +122,9 @@ def test_route_caps_the_voxels_where_no_march_binds():
     to decide: 64 × 128 × 128 takes the persistent sweep, a column more
     does not."""
     wide = _blur((1, 1, 1), 81)
-    assert R.robust_persistent_route((64, 128, 128), wide)
-    assert not R.robust_persistent_route((64, 128, 129), wide)
-    assert 64 * 128 * 128 == Z.IRLS_PERSISTENT_MAX_VOXELS
+    assert Z.irls_persistent_fits((64, 128, 128), wide, "exact")
+    assert not Z.irls_persistent_fits((64, 128, 129), wide, "exact")
+    assert 64 * 128 * 128 == Z.PERSISTENT_MAX_VOXELS
 
 
 @pytest.mark.parametrize("which", ["io", "tiled", "blocked io", "sweep"])
@@ -132,7 +134,7 @@ def test_route_refuses_io_tiled_and_sweep(which):
     rule takes (64³)."""
     shape = (64,) * 3
     if which == "io":
-        assert not R.robust_persistent_route(shape, _blur(shape), "io")
+        assert not Z.irls_persistent_fits(shape, _blur(shape), "io")
     elif which == "tiled":
         solve = R._make_solver(shape, np.eye(3), 3, None, 2, 2, 3, "huber",
                                False, tiled=True)
@@ -155,7 +157,7 @@ def test_admm_route_mirrors_the_robust_rule(loss):
         for storage in ("exact", "dirs"):
             assert F.persistent_route(_dims(shape), *lens, storage,
                                       data_loss=loss) \
-                == R.robust_persistent_route(_dims(shape), lens[0], storage)
+                == Z.irls_persistent_fits(_dims(shape), lens[0], storage)
 
 
 def test_tikhonov_route_takes_robust_losses_by_the_robust_rule():
@@ -167,7 +169,7 @@ def test_tikhonov_route_takes_robust_losses_by_the_robust_rule():
         for storage, robust in (("exact", "exact"), ("qf32", "dirs")):
             assert T.tikhonov_persistent_route(
                 _dims(shape), *lens, storage, "huber") \
-                == R.robust_persistent_route(_dims(shape), lens[0], robust)
+                == Z.irls_persistent_fits(_dims(shape), lens[0], robust)
         for storage in ("dirs", "state"):
             assert not T.tikhonov_persistent_route(_dims(shape), *lens,
                                                    storage, "cauchy")

@@ -112,7 +112,9 @@ def test_route_table_matches_the_c_rule():
     same three marches (``nsol_vol_route`` of Aᵀb's and the residual's
     ``normal_apply`` and of ``cg_step``)."""
     src = open(SOURCE).read()
-    cap = re.search(r"kPersistentMaxVoxels = 1LL << (\d+);", src)
+    shared = open(os.path.join(os.path.dirname(SOURCE),
+                               "persistent.cuh")).read()
+    cap = re.search(r"kPersistentMaxVoxels = 1LL << (\d+);", shared)
     assert cap and 1 << int(cap.group(1)) == F.PERSISTENT_MAX_VOXELS
     slot = re.search(r"kAdmmPersistent = (\d+);", src)
     assert slot and int(slot.group(1)) == B.PERSISTENT_SLOT < B.COUNTS

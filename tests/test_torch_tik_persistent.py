@@ -112,8 +112,8 @@ def test_route_table_matches_the_c_rule():
     rule = rule[:rule.index("\n}\n")]
     assert "loss == kLinear" in rule
     assert "nsol_admm_persistent_route(storage, 0," in rule
-    admm = open(os.path.join(CSRC, "admm_persistent.cu")).read()
-    cap = re.search(r"kPersistentMaxVoxels = 1LL << (\d+);", admm)
+    shared = open(os.path.join(CSRC, "persistent.cuh")).read()
+    cap = re.search(r"kPersistentMaxVoxels = 1LL << (\d+);", shared)
     assert cap and 1 << int(cap.group(1)) == F.PERSISTENT_MAX_VOXELS
     assert [B.storage_ids(s)[1] for s in F.PERSISTENT_STORAGE] == [0, 1]
     assert "tik_persistent" in F.PERSISTENT_UNITS
