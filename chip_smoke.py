@@ -258,6 +258,26 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   rule, the shape, the allocations, the copies, the launch), for this
   kernel's two entries and phase 46's linear batch.
 
+* phase 48, the fused primal-dual denoise as one persistent cooperative
+  launch (group ``pd_persistent``, ``csrc/pd_persistent.cu``): its ptxas
+  registers and spills, no constant-cache load in its SASS, its launch
+  shapes and grid barriers (the formula against the kernel's stamps);
+  the C rule's routes at the denoising path's batches; Lena, a ragged
+  image, the 64³ phantom and two ragged volumes (anisotropic where
+  named) in 4 types × 3 schedules × exact/compact × records, B 1 and 3,
+  and NaN strips in b and in x0, bit for bit (NaN-equal) against
+  ``nsol_pd_solve``'s launch sequence, one launch a call (the main paths
+  three times); Lena × 64 on the sequence; times in turns by CUDA events
+  on both sides of the rule (forced past it); on Lena a CUDA graph
+  replay of the sequence, the device busy share, the device time by the
+  stamps, the bound and a persistent call's parts by host clock.
+
+Since the persistent PD solve, Lena's and the 64³ phantom's denoising
+solves (phases 8, 10a, 11, 34, 44) take one ``pd_persistent`` launch;
+phase 9's Man 1024² × 64 α sweep stays on the launch sequence (50, 50,
+51 launches, the ``kernels`` line's counts of its units), as do phase
+10b's 256³ solve and phase 33's study.
+
 Since the persistent IRLS sweep, the phases that hold the robust
 sequence's units against their plain versions or count their launches —
 phase 13's main path, phase 15's CLI, phase 16's whole robust solve,
@@ -314,6 +334,7 @@ power limit, and the result line ``{"ok": true, "device": {...}}``.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -355,6 +376,17 @@ PD_ANCHOR_BAND = 1e-5
 PD_OBJ_TOL = 1e-6
 PD_SPACING = (1.25, 0.8, 2.0)
 PD_UNIT_ALPHAS = (0.05, 0.3, 1.2)
+#: the PD launch sequence's units (``nsol_pd_solve``); ``fused.PD_UNITS``
+#: adds the one-launch solve ``pd_persistent``
+PD_SEQUENCE_UNITS = ("pd_dual", "pd_primal", "pd_record")
+#: a PD solve whose batch the one-launch rule takes: one launch of
+#: ``csrc/pd_persistent.cu`` and none of the sequence's units
+PD_ONE_LAUNCH = {"pd_dual": 0, "pd_primal": 0, "pd_record": 0,
+                 "pd_persistent": 1}
+#: the Man 1024² × 64 α sweep (50 iterations, records): past the rule, the
+#: launch sequence
+PD_MAN_SEQUENCE = {"pd_dual": 50, "pd_primal": 50, "pd_record": 51,
+                   "pd_persistent": 0}
 
 #: robust deconvolution: the losses, Lena 256² blurred + noisy (/max),
 #: huber, σ = 1, α 0.01, ρ 0.5, 10 outer × 3 sweeps × 6 CG, C = 1 (the JAX
@@ -620,6 +652,13 @@ def kernel_times(B, F, st, shape, device, rng, reps):
 
 # ----------------------------------------------------- phases 7-11 (PD) --
 
+def pd_on_sequence(counts):
+    """Whether PD launch counts are the launch sequence's: each of its
+    units launched, no one-launch solve."""
+    return counts["pd_persistent"] == 0 and all(
+        counts[k] > 0 for k in PD_SEQUENCE_UNITS)
+
+
 def pd_objective(x, b, alpha, ell1):
     """``Σ|x−b|`` (L1 types) or ``Σ(x−b)²`` plus ``α·Σ‖∇x‖₂`` in float64
     on the tensors' device: isotropic TV with zero-padded forward
@@ -778,9 +817,9 @@ def run_pd_phases(device, card):
 
     # phase 7: PD units vs plain on the card
     rng = np.random.RandomState(7)
-    err = {k: 0.0 for k in F.PD_UNITS}
+    err = {k: 0.0 for k in PD_SEQUENCE_UNITS}
     for shape in ((37, 53), (1024, 1024), (37, 45, 53), (5, 40, 33)):
-        worst = {k: 0.0 for k in F.PD_UNITS}
+        worst = {k: 0.0 for k in PD_SEQUENCE_UNITS}
         for rtype in PD_TYPES:
             for alg in PD_ALGS:
                 res = pd_unit_cases(F, interop, shape, device, rng, rtype,
@@ -814,8 +853,9 @@ def run_pd_phases(device, card):
     x_k = solve(b, b, PD_ALPHA, PD_L2)
     torch.cuda.synchronize()
     launches, plain_calls = F.launch_counts(F.PD_UNITS), F.plain_counts()
-    require(launches["pd_dual"] > 0 and launches["pd_primal"] > 0,
-            "phase 8: a kernel was not launched: %s" % launches)
+    # the solve's one launch (csrc/pd_persistent.cu), none of the sequence's
+    require(launches == PD_ONE_LAUNCH,
+            "phase 8: not one pd_persistent launch: %s" % launches)
     require(all(n == 0 for n in plain_calls.values()),
             "phase 8: a plain version ran: %s" % plain_calls)
     obj = pd_objective(x_k, b, PD_ALPHA, False)
@@ -860,8 +900,12 @@ def run_pd_phases(device, card):
     torch.cuda.synchronize()
     launches, plain_calls = F.launch_counts(F.PD_UNITS), F.plain_counts()
     peak_k = torch.cuda.max_memory_allocated() - base
-    require(all(n > 0 for n in launches.values()),
-            "phase 9: a kernel was not launched: %s" % launches)
+    # past the one-launch rule: the launch sequence, whose units' counts
+    # the kernels line takes
+    require(launches == PD_MAN_SEQUENCE,
+            "phase 9: the sweep's launches %s, not the sequence's %s"
+            % (launches, PD_MAN_SEQUENCE))
+    launches = {k: launches[k] for k in PD_SEQUENCE_UNITS}
     require(all(n == 0 for n in plain_calls.values()),
             "phase 9: a plain version ran: %s" % plain_calls)
     require(xs.shape == (64,) + bm.shape and bool(xs.isfinite().all())
@@ -5372,7 +5416,7 @@ def run_pd_surface_phases(device, card):
                 study.run()
                 torch.cuda.synchronize()
                 launches[mode] = F.launch_counts(F.PD_UNITS)
-                require(all(n > 0 for n in launches[mode].values())
+                require(pd_on_sequence(launches[mode])
                         and all(n == 0 for n in F.plain_counts().values()),
                         "phase 33: %s study launches %s, plain calls %s"
                         % (mode, launches[mode], F.plain_counts()))
@@ -5410,7 +5454,7 @@ def run_pd_surface_phases(device, card):
                     "--study-name", "man", "--iterations", str(ITERATIONS),
                     "--alpha-range", "0.01", "1.5", "64"])
                 cli = F.launch_counts(F.PD_UNITS)
-                require(rc == 0 and all(n > 0 for n in cli.values())
+                require(rc == 0 and pd_on_sequence(cli)
                         and all(n == 0 for n in F.plain_counts().values()),
                         "phase 33: %s study CLI rc %r, launches %s"
                         % (mode, rc, cli))
@@ -5514,7 +5558,7 @@ def run_pd_surface_phases(device, card):
         exact, _ = library(lena_path, False)
         require(np.array_equal(recon, lib) and not np.array_equal(recon,
                                                                   exact)
-                and counts["pd_dual"] > 0, "phase 34: Lena under "
+                and counts == PD_ONE_LAUNCH, "phase 34: Lena under "
                 "NSOL_TPU_COMPACT=1 is not the compact library solve")
         res34["Lena 256^2 NSOL_TPU_COMPACT=1"] = "compact library solve bit " \
             "for bit (vs exact %.1e)" % float(np.max(np.abs(recon - exact))
@@ -8160,7 +8204,7 @@ def run_engine_phases(device, card):
 
 #: the kernel of each unit a traced CLI run must name (the units the
 #: untraced run launched)
-TRACE_KERNELS = {"pd_dual": "pd_dual_kernel", "pd_primal": "pd_primal_kernel",
+TRACE_KERNELS = {"pd_persistent": "pd_persistent_kernel",
                  "admm_persistent": "admm_persistent_kernel"}
 
 
@@ -8373,7 +8417,7 @@ def trace_cli_runs(device, card):
             "run_denoising Lena PD TVL2": (
                 run_denoising, ["--observation",
                                 data.path("2D_Lena_256_noise.png")],
-                "mat", ("pd_dual", "pd_primal")),
+                "mat", ("pd_persistent",)),
             "run_deconvolution 64^3 ADMM TVL2": (
                 run_deconvolution, ["--observation", obs3, "--solver", "ADMM",
                                     "--reconstruction-type", "TVL2",
@@ -10137,11 +10181,368 @@ def run_irls_persistent_phase(device, card):
     return entries
 
 
+# ------------------------------------------- phase 48 (pd_persistent) --
+
+#: phase 48's bit cases: (label, problem or shape, spacing): Lena and the
+#: 64³ phantom (the main paths), a ragged image and two ragged volumes,
+#: anisotropic where the label says so; each at every type × schedule ×
+#: storage × records, B = 1 and 3
+PD_BIT_SHAPES = (("Lena", "lena", None), ("37x53 aniso", (37, 53),
+                                          PD_SPACING[:2]),
+                 ("64^3 phantom", "phantom", None),
+                 ("37x45x53", (37, 45, 53), None),
+                 ("5x40x33 aniso", (5, 40, 33), PD_SPACING))
+#: phase 48's turns: (label, problem, batch, records) of the rule's side
+#: and, forced onto the one launch, past it (the state's MiB: Lena x 28
+#: 28.25 of the rule's 32, x 36 36.25; Man x 1 20, x 2 36)
+PD_TURNS = (("Lena x 1", "lena", 1, False), ("Lena x 1 records", "lena", 1,
+                                             True),
+            ("Lena x 8 records", "lena", 8, True),
+            ("64^3 phantom", "phantom", 1, False),
+            ("Man 1024^2 x 1", "man", 1, False),
+            ("Lena x 28", "lena", 28, False),
+            ("Lena x 36 (past the rule)", "lena", 36, False),
+            ("Man 1024^2 x 2 (past the rule)", "man", 2, False))
+#: the route's table (the C rule, ``solve.route(nb)``): (problem, batch,
+#: compact) → the one launch
+PD_ROUTE_TABLE = {("lena", 1, False): True, ("lena", 1, True): True,
+                  ("lena", 8, False): True, ("lena", 8, True): True,
+                  ("lena", 64, False): False, ("lena", 64, True): False,
+                  ("phantom", 1, False): True, ("phantom", 1, True): True,
+                  ("man", 1, False): True, ("man", 1, True): True,
+                  ("man", 64, False): False, ("man", 64, True): False,
+                  ("256^3", 1, False): False, ("256^3", 1, True): False}
+PD_KERNEL = "pd_persistent_kernel"
+#: the most bytes an instance of it may spill: at two blocks an SM (64
+#: registers) the bf16 image records' march spills 76
+PD_SPILL_BYTES = 128
+
+
+def pd_problems(device):
+    """The denoising path's images, scaled to max 1: Lena 256² (the
+    noisy PNG), the noisy 64³ phantom of phase 10, Man 1024²."""
+    import torch
+
+    from nsol_tpu_torch import data
+    from nsol_tpu_torch.io import read_nifti, read_png
+
+    lena = read_png(data.path("2D_Lena_256_noise.png")).astype(np.float64)
+    phantom = read_nifti(data.path("3D_SheppLoganPhantom_64.nii.gz")) \
+        .data.astype(np.float64)
+    noisy = phantom + np.random.RandomState(0).normal(
+        0, 0.05 * phantom.max(), phantom.shape)
+    man = read_png(data.path("2D_Man_1024.png")).astype(np.float64)
+    return {k: torch.as_tensor((v / v.max()).astype(np.float32),
+                               device=device)
+            for k, v in (("lena", lena), ("phantom", noisy), ("man", man))}
+
+
+def pd_case(F, label, solve, args, record, repeats=1):
+    """``solve.sequence`` once and the library call (the default route)
+    ``repeats`` times: each output bit for bit the sequence's, NaN-equal,
+    one ``pd_persistent`` launch a call, nothing else launched and no plain
+    call."""
+    import torch
+
+    want = solve.sequence(*args)
+    torch.cuda.synchronize()
+    F.reset_counts()
+    got = [solve(*args) for _ in range(repeats)]
+    torch.cuda.synchronize()
+    counts = used_counts(F)
+    require(counts == ({"pd_persistent": repeats}, {}), "phase 48: %s "
+            "launches %s" % (label, counts))
+    for g in got:
+        require(irls_same(g, want, record), "phase 48: %s: the one launch is "
+                "not the launch sequence's bits" % label)
+
+
+def pd_persistent_bound(counts, n, nd, batch, compact=False):
+    """The one-launch solve's bound: the bytes it must move (b read, x0
+    read and ``batch`` x written at the state's width) and the float32
+    operations of the launch sequence's units at the counts that sequence
+    makes (:func:`unit_bound`'s operations a voxel); and the sum of the
+    units' own bounds at those counts (each unit's volumes through HBM: no
+    floor where the state sits in the 50 MB L2)."""
+    ops = {"pd_dual": 12 * nd, "pd_primal": 10 + 3 * nd,
+           "pd_record": 10 + 3 * nd}
+    elt = 2 if compact else 4
+    total = sum(ops[k] * c for k, c in counts.items() if c)
+    units = sum(unit_bound(k, n, nd=nd, batch=batch)[0] * c
+                for k, c in counts.items() if c)
+    return bound(4.0 * n + elt * n * (1 + batch),
+                 float(n) * batch * total), units
+
+
+@contextlib.contextmanager
+def pd_persistent_forced():
+    """Inside the block every PD solve on the card takes the one launch,
+    whatever the rule says (to time it past the rule)."""
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    saved = F.pd_persistent_route
+    F.pd_persistent_route = lambda *args, **kwargs: True
+    try:
+        yield
+    finally:
+        F.pd_persistent_route = saved
+
+
+def run_pd_persistent_phase(device, card):
+    """Phase 48: the fused primal-dual denoise as one persistent
+    cooperative launch (``csrc/pd_persistent.cu``). Its build (ptxas
+    registers and spills, no constant-cache load in its SASS), its launch
+    shapes and grid barriers (against the kernel's stamps); every case of
+    :data:`PD_BIT_SHAPES` (4 types × 3 schedules × exact/compact ×
+    records, B 1 and 3) and the NaN strips of :func:`pd_nan_case` (in b
+    and in x0) bit for bit against ``nsol_pd_solve``'s launch sequence,
+    one launch a call; the route's table in C; the refusals on the
+    sequence; times in turns (sequence, persistent, persistent, sequence)
+    by CUDA events of :data:`PD_TURNS`; on Lena a CUDA graph replay of the
+    sequence, the device busy share, the device time by the stamps, the
+    bound, and a persistent call's host parts (the rule, the schedules,
+    the allocations, the C entry) by host clock. Returns the ``kernels``
+    record of ``pd_solve[persistent]``."""
+    import torch
+
+    from nsol_tpu_torch.ops.cuda import fused as F
+
+    regs = persistent_ptxas(PD_KERNEL, PD_KERNEL)
+    spills = [int(m) for r in regs
+              for m in re.findall(r"(\d+) bytes spill stores", r)]
+    require(regs == ["cached"] or (len(spills) == len(regs) == 6 and max(
+        spills) <= PD_SPILL_BYTES), "phase 48: the persistent kernel's "
+        "instances or spills %s" % regs)
+    sass = persistent_sass(PD_KERNEL, PD_KERNEL)
+    require(sass and all(c == 0 for _, c in sass.values()),
+            "phase 48: constant-cache loads in the persistent kernel %s"
+            % sass)
+    problems = pd_problems(device)
+    shapes = {}
+    for key, rec in (("Lena x 1", False), ("Lena x 1 records", True),
+                     ("Lena x 8 records", True), ("64^3", False),
+                     ("Man x 1", False)):
+        src = {"L": "lena", "6": "phantom", "M": "man"}[key[0]]
+        shape = tuple(problems[src].shape)
+        nb = 8 if "x 8" in key else 1
+        shapes[key] = F.pd_persistent_shape(
+            len(shape), False, rec, (nb,) + (1,) * (3 - len(shape)) + shape)
+    barriers = {"50 iterations": F.pd_persistent_barriers(ITERATIONS),
+                "50 iterations, records": F.pd_persistent_barriers(
+                    ITERATIONS, True)}
+    print("phase 48 build: ptxas %s; SASS (global loads, constant-cache "
+          "loads) %s; launch shape (blocks an SM, grid, the sequence's "
+          "blocks a dual/primal phase, threads a block, the record march's "
+          "blocks) %s; grid barriers a solve %s (the sequence: 100 "
+          "launches, 202 with records) [%s]"
+          % (regs, sass, shapes, barriers, card))
+
+    # the route's table, in C
+    route_rows = {}
+    for (src, nb, compact), takes in PD_ROUTE_TABLE.items():
+        shape = (256,) * 3 if src == "256^3" else tuple(problems[src].shape)
+        solve = F.make_fused_pd_denoise_solver(shape, "TVL2",
+                                               compact=compact)
+        got = solve.route(nb)
+        route_rows["%s x %d%s" % (src, nb, " compact" if compact else "")] \
+            = got
+        require(got == ("persistent" if takes else "sequence"),
+                "phase 48: the rule sends %s x %d compact %s to %s"
+                % (src, nb, compact, got))
+
+    # every bit case, one launch a call
+    cases = 0
+    for label, src, spacing in PD_BIT_SHAPES:
+        b = problems[src] if isinstance(src, str) else torch.as_tensor(
+            np.random.RandomState(48).rand(*src).astype(np.float32),
+            device=device)
+        shape = tuple(b.shape)
+        for rtype in PD_TYPES:
+            for alg in PD_ALGS:
+                for compact in (False, True):
+                    for record in (False, True):
+                        solve = F.make_fused_pd_denoise_solver(
+                            shape, rtype, alg, ITERATIONS, spacing=spacing,
+                            record=record, compact=compact)
+                        main = (label in ("Lena", "64^3 phantom")
+                                and (rtype, alg) == ("TVL2", "ALG2"))
+                        for alphas in (PD_ALPHA, list(PD_UNIT_ALPHAS)):
+                            pd_case(F, "%s %s %s compact %s records %s B %d"
+                                    % (label, rtype, alg, compact, record,
+                                       np.size(alphas)), solve,
+                                    (b, b, alphas, PD_L2), record,
+                                    PERSISTENT_REPEATS if main else 1)
+                            cases += 1
+    nans = {}
+    for shape in ((40, 33), (12, 16, 16)):
+        clean = torch.as_tensor(np.random.RandomState(8).rand(*shape)
+                                .astype(np.float32), device=device)
+        strip = clean.clone()
+        strip[:2] = float("nan")
+        for rtype in PD_TYPES:
+            solve = F.make_fused_pd_denoise_solver(shape, rtype,
+                                                   iterations=6, record=True)
+            for where, args in (("b", (strip, clean)), ("x0", (clean,
+                                                                strip))):
+                pd_case(F, "NaN in %s %s %s" % (where, rtype, shape), solve,
+                        args + ([0.1, 0.5], PD_L2), True)
+                x = solve(*args, [0.1, 0.5], PD_L2)[0]
+                nans["%s %s %s" % (where, rtype, "x".join(map(str, shape)))] \
+                    = int(torch.isnan(x).sum())
+                cases += 1
+    # past the rule: the launch sequence
+    refused = {}
+    for src, nb, compact in (("lena", 64, False), ("lena", 64, True)):
+        b = problems[src]
+        solve = F.make_fused_pd_denoise_solver(tuple(b.shape), "TVL2",
+                                               iterations=ITERATIONS,
+                                               compact=compact)
+        F.reset_counts()
+        solve(b, b, list(np.linspace(0.01, 1.5, nb, dtype=np.float32)),
+              PD_L2)
+        torch.cuda.synchronize()
+        got = F.launch_counts(F.PD_UNITS)
+        refused["%s x %d%s" % (src, nb, " compact" if compact else "")] = got
+        require(got == {"pd_dual": ITERATIONS, "pd_primal": ITERATIONS,
+                        "pd_record": 0, "pd_persistent": 0},
+                "phase 48: %s x %d compact %s launches %s" % (src, nb,
+                                                              compact, got))
+    print("phase 48 bits: %d cases bit for bit (NaN and signed zeros) the "
+          "launch sequence's, one launch a call, no plain call (the main "
+          "paths' %d times); NaN voxels of x with a NaN strip %s; the C "
+          "rule's routes %s; past the rule (launches) %s [%s]"
+          % (cases, PERSISTENT_REPEATS, nans, route_rows, refused, card))
+    lap("phase 48 bits")
+
+    # times in turns, by CUDA events
+    rows = {}
+    for label, src, nb, record in PD_TURNS:
+        b = problems[src]
+        solve = F.make_fused_pd_denoise_solver(tuple(b.shape), "TVL2",
+                                               "ALG2", ITERATIONS,
+                                               record=record)
+        alphas = PD_ALPHA if nb == 1 else list(np.linspace(
+            0.01, 1.5, nb, dtype=np.float32))
+        past = "past the rule" in label
+        require((solve.route(nb) == "sequence") == past,
+                "phase 48: %s takes %s" % (label, solve.route(nb)))
+        with pd_persistent_forced() if past else contextlib.nullcontext():
+            rows[label] = turns_ms(partial(solve.sequence, b, b, alphas,
+                                           PD_L2),
+                                   partial(solve, b, b, alphas, PD_L2), 10)
+    slower = sorted(k for k, v in rows.items() if "past the rule" not in k
+                    and np.median(v[1:3]) >= np.median(v[::3]))
+    print("phase 48 ms a solve by CUDA events, TVL2/ALG2 %d iterations, "
+          "turns sequence / persistent / persistent / sequence (median of "
+          "10; past the rule the one launch forced): %s; the persistent "
+          "launch no faster than the sequence at (shapes the rule takes): "
+          "%s [%s]" % (ITERATIONS, "; ".join(
+              "%s %s" % (k, turns_line(v)) for k, v in rows.items()),
+              ", ".join(slower) or "none", card))
+    lap("phase 48 times")
+
+    # the main path, Lena 256² x 1: a CUDA graph replay of the sequence,
+    # the device busy share, the device time by the stamps, the bound, the
+    # host parts; the records' solve's stamps too
+    b = problems["lena"]
+    solve = F.make_fused_pd_denoise_solver(tuple(b.shape), "TVL2", "ALG2",
+                                           ITERATIONS)
+    args = (b, b, PD_ALPHA, PD_L2)
+    pers = partial(solve, *args)
+    # the graph holds the sequence's device work (its schedules made
+    # before: a host-to-device copy cannot be captured)
+    sched = F.interop.pd_schedules(*F._pd_schedules(
+        PD_ALPHA, PD_L2, ITERATIONS, "ALG2", np.float32), device)
+    graph, x_graph = graph_of(partial(
+        F._pd_solve_cuda, b, b, sched, (1.0, 1.0), False, False,
+        F.HUBER_CONJ_GAMMA, False, F.HUBER_CONJ_GAMMA, False, "sequence"))
+    graph.replay()
+    torch.cuda.synchronize()
+    require(nan_bits_equal(x_graph[0][0], pers()), "phase 48: the graph "
+            "replay differs from the persistent launch")
+    graph_t = [cuda_median_ms(f, 10) for f in (graph.replay, pers, pers,
+                                               graph.replay)]
+    del graph
+    busy = {}
+    for route, fn in (("sequence", partial(solve.sequence, *args)),
+                      ("persistent", pers)):
+        busy[route] = (device_busy_ms(fn)[0], cuda_median_ms(fn, 5))
+    traced = {}
+    for key, record in (("Lena x 1", False), ("Lena x 1 records", True)):
+        s = F.make_fused_pd_denoise_solver(tuple(b.shape), "TVL2", "ALG2",
+                                           ITERATIONS, record=record)
+        phases = F.persistent_phases(partial(s, *args), device)
+        stamped = sum(c for k, (c, _) in phases.items() if k != "pd end")
+        want = F.pd_persistent_barriers(ITERATIONS, record)
+        require(stamped == want, "phase 48: %s stamped %d barriers, the "
+                "formula %d" % (key, stamped, want))
+        traced[key] = (sum(us for _, us in phases.values()) / 1e3, phases)
+    stamps_ms = traced["Lena x 1"][0]
+    torch.cuda.synchronize()
+    F.reset_counts()
+    x = pers()
+    torch.cuda.synchronize()
+    launches = F.launch_counts(F.PD_UNITS)
+    require(launches == PD_ONE_LAUNCH, "phase 48: the Lena main path "
+            "launched %s" % launches)
+    F.reset_counts()
+    solve.sequence(*args)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in F.launch_counts(F.PD_UNITS).items() if v}
+    (b_ms, b_by), units_ms = pd_persistent_bound(counts, 256 ** 2, 2, 1)
+    x_p, plain_ms = timed_once(partial(solve.plain, *args))
+    err = float((x - x_p).abs().max())
+    require(max_rel(x, x_p) <= KERNEL_TOL and bool(x.isfinite().all()),
+            "phase 48: Lena vs plain voxel rel %.3g" % max_rel(x, x_p))
+    lib = F.build.load()
+    split = host_split(pers, [
+        ("rule", F, "pd_persistent_route"),
+        ("launch", lib, "nsol_pd_solve_persistent"),
+        ("schedules", F, "_pd_schedules"),
+        ("schedule copy", F.interop, "pd_schedules"),
+        ("alloc", torch, "empty"), ("alloc", torch, "empty_like")])
+    wall = float(np.median(rows["Lena x 1"][1:3]))
+    print("phase 48 pd_solve[persistent] Lena 256^2 TVL2/ALG2 %d: launches "
+          "%s; max|d| vs plain %.3e (rel %.2e, limit %g); CUDA graph replay "
+          "of the launch sequence vs the persistent launch, ms (turns graph "
+          "/ persistent / persistent / graph) %s; device busy "
+          "(torch.profiler device ms / wall ms) %s; device ms by the global "
+          "timer's stamps %.4f (%.1f %% of the persistent wall ms by CUDA "
+          "events); a traced call's phases (count x mean us): %s; with "
+          "records %.4f ms: %s; bound %.4f ms (%s: b, x0 in, x out, and the "
+          "sequence's %s operations), its units' bounds summed %.4f ms; a "
+          "persistent call's parts by host clock, ms (medians of %d calls; "
+          "host: the call until it returns; events: the call by CUDA "
+          "events): %s [%s]"
+          % (ITERATIONS, launches, err, max_rel(x, x_p), KERNEL_TOL,
+             turns_line(graph_t), {
+                 k: "%s/%.3f" % (ms_text(d), w) for k, (d, w) in busy.items()},
+             stamps_ms, 100 * stamps_ms / wall, "; ".join(
+                 "%s %d x %.2f" % (k, c, us / c)
+                 for k, (c, us) in traced["Lena x 1"][1].items()),
+             traced["Lena x 1 records"][0], "; ".join(
+                 "%s %d x %.2f" % (k, c, us / c)
+                 for k, (c, us) in traced["Lena x 1 records"][1].items()),
+             b_ms, b_by, counts, units_ms, HOST_SPLIT_CALLS, ", ".join(
+                 "%s %.4f" % kv for kv in split.items()), card))
+    lap("phase 48")
+    return [{"name": "pd_solve[persistent]", "route": "cuda",
+             "source": "nsol_tpu_torch/csrc/pd_persistent.cu",
+             "replaces": "nsol_tpu/ops/pallas/fused.py:957",
+             "launches": int(launches["pd_persistent"]), "max_abs_err": err,
+             "ms": wall, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "device_ms": stamps_ms,
+             "sequence_ms": float(np.median(rows["Lena x 1"][::3])),
+             "graph_replay_ms": float(np.median(graph_t[::3])),
+             "units_bound_ms": units_ms, "host_split_ms": split}]
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
           "volume", "volume_solves", "tail", "sweep", "engines", "batch",
-          "persistent", "tik_persistent", "irls_persistent")
+          "persistent", "tik_persistent", "irls_persistent",
+          "pd_persistent")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -10355,6 +10756,8 @@ def main(argv=None):
         kernels += run_tik_persistent_phase(device, card)
     if "irls_persistent" in groups:
         kernels += run_irls_persistent_phase(device, card)
+    if "pd_persistent" in groups:
+        kernels += run_pd_persistent_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

@@ -1,10 +1,11 @@
 // The machinery of the one-launch (persistent cooperative) solves:
 // admm_persistent.cu's ADMM solve, tikhonov_persistent.cu's Tikhonov
-// batch and irls_persistent.cu's IRLS sweeps. Each runs a launch sequence
+// batch, irls_persistent.cu's IRLS sweeps and pd_persistent.cu's
+// primal-dual denoise. Each runs a launch sequence
 // of csrc/ as phases between grid barriers, every phase walking the
 // sequence's blocks of kThreads threads through the sequence's pass bodies
-// (stencil.cuh, admm_units.cuh, robust_units.cuh), so that every partial
-// sum is the sequence's, in its order.
+// (stencil.cuh, admm_units.cuh, robust_units.cuh, pd_units.cuh), so that
+// every partial sum is the sequence's, in its order.
 //
 // Here: the teams that run several of the sequence's blocks side by side
 // in one CUDA block (GroupTeam), the division-free voxel coordinates
@@ -72,7 +73,9 @@ enum Phase {
   kGradX = 17, kGradY = 18, kGradZ = 19,        // blur_apply's gradient chain
   kWeightX = 20, kWeightY = 21, kWeightZ = 22,  // weighted_apply's first chain
   kMaskX = 23, kMaskY = 24, kMaskZ = 25,        // its second (the mask, p'.q)
-  kStep = 26                                    // the last cg_update and irls_step
+  kStep = 26,                                   // the last cg_update and irls_step
+  kDual = 27, kPrimal = 28, kRecordRow = 29,  // pd_persistent.cu's phases
+  kEnd = 30                                   // and block 0's own end
 };
 
 static_assert(kMaxBlocks <= kReduceThreads, "reduce_sum takes one partial a thread");
@@ -358,14 +361,14 @@ struct Shape {
 };
 
 // The shape of the kernel fn over `work` of the launch sequence's blocks
-// a phase: the most teams (kMaxTeams, halved) whose blocks still reach
+// a phase: the most teams (max_teams, halved) whose blocks still reach
 // 7/8 of the SMs, and a grid of as many blocks as the card holds at once,
 // capped at what the teams need. PERF.md has 1, 2 and 4 teams timed at
 // 64^3 (1024 blocks: the rule takes 4) and on a 256^2 image (256 blocks:
 // 2; 4 would leave half the SMs idle).
-cudaError_t shape_of(const void* fn, long long work, Shape* out) {
+cudaError_t shape_of(const void* fn, long long work, Shape* out, int max_teams = kMaxTeams) {
   const int sms = device_sms();
-  int teams = kMaxTeams;
+  int teams = max_teams;
   while (teams > 1 && (work + teams - 1) / teams * 8 < sms * 7) teams /= 2;
   int per_sm = 0;
   const cudaError_t e =

@@ -60,7 +60,6 @@ _SIGNATURES = {
     "nsol_admm_persistent_shape": [_I] * 10 + [_P],
     "nsol_admm_persistent_barriers": [_I, _I, _I, _P],
     "nsol_admm_persistent_trace": [_P, _I],
-    "nsol_pd_record_blocks": [_I] * 6,
     "nsol_pd_dual": [_P, _P, _P, _I, _I, _I, _F] + [_I] * 6 + [_F] * 3
     + [_P, _P],
     "nsol_pd_primal": [_P] * 5 + [_I] * 9 + [_F] * 3 + [_P, _P],
@@ -68,6 +67,11 @@ _SIGNATURES = {
     + [_P, _P],
     "nsol_pd_solve": [_P] * 9 + [_I, _F, _I, _I, _F, _I] + [_I] * 6
     + [_F] * 3 + [_P, _P],
+    "nsol_pd_record_grid": [_I] * 6 + [_P],
+    "nsol_pd_solve_persistent": [_P] * 9 + [_I, _F, _I, _I, _F, _I]
+    + [_I] * 6 + [_F] * 3 + [_P, _P],
+    "nsol_pd_persistent_route": [_I] * 6,
+    "nsol_pd_persistent_shape": [_I] * 7 + [_P],
     "nsol_blur_apply": [_P] * 10 + [_I] * 3 + [_F, _I, _I] + [_F] * 3
     + [_I] * 3 + [_P, _P],
     "nsol_irls_head": [_P] * 7 + [_I] * 4 + [_F, _I] + [_I] * 3 + [_P, _P],
@@ -190,7 +194,8 @@ def new_counts(n):
     its march, normal_apply on its march, cg_sweep on its march, and in
     slot 11 ``admm_persistent.cu``'s one-launch solve;
     ``pd.cu``: pd_dual, pd_primal,
-    pd_record; ``robust.cu``: blur_apply, irls_head, weighted_apply,
+    pd_record, and in slot 3 ``pd_persistent.cu``'s one-launch solve;
+    ``robust.cu``: blur_apply, irls_head, weighted_apply,
     irls_step, cg_update, blur_apply_prepadded, weighted_apply_prepadded,
     weighted_apply, blur_apply and irls_head on their marches,
     blur_apply_prepadded on its window march, and in slot 11

@@ -48,6 +48,12 @@ iteration is two kernel units, :func:`pd_dual` and :func:`pd_primal`, plus
 the host (:func:`_pd_schedules`) and indexed on the device. Bytes bound
 every unit; see the note at the top of ``csrc/pd.cu``. The batch over α is
 a grid dimension (the counterpart of ``jax.vmap`` over the runtime α).
+Where the C rule ``nsol_pd_persistent_route`` takes the batch (its state
+within 32 MiB of the L2: Lena 256² × 1 or × 8, the 64³ phantom;
+:func:`pd_persistent_route` reads it), the whole solve runs instead as one
+persistent cooperative launch, ``csrc/pd_persistent.cu``: the units' device
+code as phases between grid barriers, the same bits
+(:func:`launch_counts`' ``pd_persistent``).
 The TPU kernel's minor-axis difference matmuls (``_exact_bf16_matmul``,
 ``_banded_diff``, the exact1 pass) schedule the TPU's matrix unit and have
 no counterpart: the port computes the plain f32 differences.
@@ -84,9 +90,10 @@ from nsol_tpu_torch.solvers.primal_dual import ALG_TYPES, step_schedules
 __all__ = ["admm_tail", "admm_tail_plain", "make_fused_admm_solver",
            "pd_dual", "pd_dual_plain", "pd_primal", "pd_primal_plain",
            "pd_record", "pd_record_plain", "make_fused_pd_denoise_solver",
-           "PD_TYPES", "ADMM_UNITS", "PD_UNITS", "ROBUST_UNITS",
-           "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS", "SWEEP_UNITS",
-           "SHARDED_UNITS", "MARCH_UNITS", "PERSISTENT_UNITS",
+           "pd_persistent_route", "pd_persistent_shape",
+           "pd_persistent_barriers", "PD_TYPES", "ADMM_UNITS", "PD_UNITS",
+           "ROBUST_UNITS", "RECORD_UNITS", "TIKHONOV_UNITS", "TILED_UNITS",
+           "SWEEP_UNITS", "SHARDED_UNITS", "MARCH_UNITS", "PERSISTENT_UNITS",
            "linear_admm_solver", "persistent_route", "persistent_barriers",
            "persistent_shape",
            "taps_lengths",
@@ -309,8 +316,9 @@ def persistent_barrier_ms(n, grid, threads, device):
 
 
 #: the phases a traced persistent solve stamps (``Phase`` of
-#: ``csrc/persistent.cuh``), each at its end, after its barrier; a reduce
-#: and the Tikhonov batch's exit clip at block 0's own end
+#: ``csrc/persistent.cuh``), each at its end, after its barrier; a reduce,
+#: the Tikhonov batch's exit clip and the PD solve's end ("pd end") at
+#: block 0's own end
 PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
                      "normal_apply x", "normal_apply y", "normal_apply z",
                      "admm_record x", "admm_record y", "admm_record z",
@@ -320,7 +328,8 @@ PERSISTENT_PHASES = ("start", "cg_step x", "cg_step y", "cg_step z",
                      "weighted_apply x", "weighted_apply y",
                      "weighted_apply z", "weighted_apply mask x",
                      "weighted_apply mask y", "weighted_apply mask z",
-                     "irls_step")
+                     "irls_step", "pd_dual", "pd_primal", "pd_record",
+                     "pd end")
 
 
 def persistent_phases(fn, device, capacity=1 << 14):
@@ -763,7 +772,10 @@ def pd_primal(x, x_mean, p, b, sched, t, inv_h, ell1=False):
 def _pd_partials(device, nd, dims, compact):
     """The record partials of pd_record's march over a batch of ``nd``-D
     images of ``dims`` ``(B, Z, Y, X)``."""
-    nparts = build.load().nsol_pd_record_blocks(nd, int(compact), *dims)
+    grid = (ctypes.c_int * 7)()
+    build.check(build.load().nsol_pd_record_grid(nd, int(compact), *dims,
+                                                 grid), "pd_record")
+    nparts = grid[6]  # blocks an image
     return torch.empty(2 * dims[0] * nparts, dtype=torch.float64,
                        device=device)
 
@@ -835,9 +847,67 @@ def _pd_steps(units, b, x0, sched, inv_h, ell1, huber, gamma, record,
     return x, reg, data
 
 
+#: ``csrc/pd.cu``'s count slots: pd_dual, pd_primal, pd_record, and the one
+#: launch of ``csrc/pd_persistent.cu``
+PD_COUNTS = 4
+PD_PERSISTENT_SLOT = 3
+
+
+def pd_persistent_route(nd, compact, dims):
+    """Whether the denoising solve of a batch ``dims`` ``(B, Z, Y, X)`` of
+    ``nd``-D images (``Z = 1`` in 2-D; :func:`_pd_dims`), its state
+    bfloat16 with ``compact``, runs on the card as the one launch of
+    ``csrc/pd_persistent.cu`` rather than as ``nsol_pd_solve``'s launch
+    sequence: the C rule ``nsol_pd_persistent_route``, read from the
+    kernel library (it lives in C alone: the card's build answers). The
+    shape decides, never a failure."""
+    return bool(build.load().nsol_pd_persistent_route(
+        int(nd), int(bool(compact)), *(int(v) for v in dims)))
+
+
+def pd_persistent_shape(nd, compact, record, dims):
+    """``(blocks an SM, grid, the sequence's blocks a dual or primal phase,
+    threads a block, the record march's blocks)`` of the one-launch solve
+    of a batch ``dims`` ``(B, Z, Y, X)`` on the current card."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.load().nsol_pd_persistent_shape(
+        int(nd), int(bool(compact)), int(bool(record)),
+        *(int(v) for v in dims), out), "pd_persistent")
+    return tuple(out)
+
+
+def pd_persistent_barriers(iterations, record=False):
+    """Grid barriers one persistent PD solve takes: one after each dual
+    step (record row t beside it) and each primal step (row t's reduce
+    in it) but the last primal step's; with records that one too and one
+    after row ``iterations``. The first steps read x0 in place of the
+    sequence's copies."""
+    t = int(iterations)
+    return 2 * t + 1 if record else max(2 * t - 1, 0)
+
+
+def pd_persistent(*args):
+    """The C entry of the one-launch solve (``nsol_pd_solve_persistent``,
+    ``nsol_pd_solve``'s arguments), whose launches :func:`launch_counts`
+    reports as ``"pd_persistent"``."""
+    counts = build.new_counts(PD_COUNTS)
+    err = build.load().nsol_pd_solve_persistent(*args, counts)
+    build.check(err, "pd_persistent")
+    pd_persistent.launches += counts[PD_PERSISTENT_SLOT]
+
+
+pd_persistent.launches = 0
+
+
 def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
-                   record_gamma, compact=False):
+                   record_gamma, compact=False, route=None):
+    """The solve on the card by ``route``: ``None`` takes
+    :func:`pd_persistent_route`'s, ``"sequence"`` ``nsol_pd_solve``'s
+    launch sequence (the bit reference)."""
     name = "make_fused_pd_denoise_solver"
+    if route not in (None, "sequence"):
+        raise ValueError("route must be None or 'sequence', got %r"
+                         % (route,))
     nb, iterations = sched.shape[1], sched.shape[2]
     shape = tuple(b.shape)
     nd = len(shape)
@@ -855,16 +925,18 @@ def _pd_solve_cuda(b, x0, sched, inv_h, ell1, huber, gamma, record,
                           device=b.device)
         data = torch.empty_like(reg)
         partials = _pd_partials(b.device, nd, dims, compact)
-    lib = build.load()
-    counts = build.new_counts(3)
-    err = lib.nsol_pd_solve(
-        build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(x),
-        build.tensor_ptr(x_mean), build.tensor_ptr(p), build.tensor_ptr(sched),
-        build.tensor_ptr(partials), build.tensor_ptr(reg),
-        build.tensor_ptr(data), int(bool(record)), float(record_gamma),
-        int(bool(ell1)), int(bool(huber)), float(gamma), int(compact),
-        iterations, nd, *dims, *_inv_h3(inv_h), build.stream_ptr(b.device),
-        counts)
+    args = [build.tensor_ptr(b), build.tensor_ptr(x0), build.tensor_ptr(x),
+            build.tensor_ptr(x_mean), build.tensor_ptr(p),
+            build.tensor_ptr(sched), build.tensor_ptr(partials),
+            build.tensor_ptr(reg), build.tensor_ptr(data),
+            int(bool(record)), float(record_gamma), int(bool(ell1)),
+            int(bool(huber)), float(gamma), int(compact), iterations, nd,
+            *dims, *_inv_h3(inv_h), build.stream_ptr(b.device)]
+    if route is None and pd_persistent_route(nd, compact, dims):
+        pd_persistent(*args)
+        return x, reg, data
+    counts = build.new_counts(PD_COUNTS)
+    err = build.load().nsol_pd_solve(*args, counts)
     build.check(err, name)
     for f, n in zip(_PD_UNITS, counts):
         f.launches += n
@@ -900,7 +972,12 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
     result is the upcast of the stored x.
 
     Device and dtype follow ``b``: on CUDA the solve runs the kernels of
-    ``csrc/pd.cu`` (float32, 2-D or 3-D); on the CPU the plain versions.
+    ``csrc/pd.cu`` (float32, 2-D or 3-D), as one launch of
+    ``csrc/pd_persistent.cu`` where the C rule takes the batch
+    (``solve.route(nb)``: ``"persistent"`` or ``"sequence"`` for a call of
+    ``nb`` alphas on the card, :func:`pd_persistent_route`), and
+    ``solve.sequence`` runs the launch sequence whatever the rule says (the
+    bit reference); on the CPU the plain versions.
     ``solve.plain`` runs the plain versions on any device, and
     ``solve.plain_steps(b, x0, sched, record_gamma)`` runs them on a given
     ``(4, B, iterations)`` schedule tensor (``interop.pd_schedules``),
@@ -961,15 +1038,27 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
         return _pd_steps(units, b, x0, sched, inv_h(b.dtype), ell1, huber,
                          huber_gamma, record, record_gamma, compact)
 
-    def solve(b, x0, alpha, L2, record_gamma=huber_gamma):
+    def on_route(b, x0, alpha, L2, record_gamma, route):
         check(b, x0)
         sched, batched = schedules(b, alpha, L2)
         if b.device.type == "cpu":
             out = run(_PD_UNITS, b, x0, sched, record_gamma)
         else:
             out = _pd_solve_cuda(b, x0, sched, inv_h(b.dtype), ell1, huber,
-                                 huber_gamma, record, record_gamma, compact)
+                                 huber_gamma, record, record_gamma, compact,
+                                 route)
         return result(*out, b.dtype, batched)
+
+    def solve(b, x0, alpha, L2, record_gamma=huber_gamma):
+        return on_route(b, x0, alpha, L2, record_gamma, None)
+
+    def sequence(b, x0, alpha, L2, record_gamma=huber_gamma):
+        return on_route(b, x0, alpha, L2, record_gamma, "sequence")
+
+    def route(nb=1):
+        dims = (int(nb),) + (1,) * (3 - len(shape)) + shape
+        return "persistent" if pd_persistent_route(len(shape), compact,
+                                                   dims) else "sequence"
 
     def plain(b, x0, alpha, L2, record_gamma=huber_gamma):
         check(b, x0)
@@ -984,6 +1073,8 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 
     solve.plain = plain
     solve.plain_steps = plain_steps
+    solve.sequence = sequence
+    solve.route = route
     if interpret:
         solve = B.plain_only(solve)
         solve.plain_steps = plain_steps
@@ -994,7 +1085,8 @@ def make_fused_pd_denoise_solver(shape, reconstruction_type,
 
 #: kernel units of each path, by wrapper name
 ADMM_UNITS = tuple(f.__name__ for f in _ADMM_UNITS)
-PD_UNITS = tuple(f.__name__ for f in _PD_UNITS)
+#: the PD path's units and its one-launch solve
+PD_UNITS = tuple(f.__name__ for f in _PD_UNITS) + ("pd_persistent",)
 ROBUST_UNITS = tuple(f.__name__ for f in R.UNITS)
 RECORD_UNITS = ("admm_record",)
 #: the Tikhonov solve's own unit; it runs the ADMM and robust units too
@@ -1012,11 +1104,13 @@ _MARCH = {"cg_step_march": B.cg_step, "weighted_apply_march": R.weighted_apply,
           "cg_sweep_march": B.cg_sweep}
 MARCH_UNITS = tuple(_MARCH)
 #: the one-launch solves (``csrc/admm_persistent.cu``,
-#: ``csrc/tikhonov_persistent.cu``, ``csrc/irls_persistent.cu``), counted
-#: apart from the units of the launch sequences they replace
+#: ``csrc/tikhonov_persistent.cu``, ``csrc/irls_persistent.cu``,
+#: ``csrc/pd_persistent.cu``), counted apart from the units of the launch
+#: sequences they replace
 _SOLVES = {"admm_persistent": admm_persistent,
            "tik_persistent": T.tik_persistent,
-           "irls_persistent": R.irls_persistent}
+           "irls_persistent": R.irls_persistent,
+           "pd_persistent": pd_persistent}
 PERSISTENT_UNITS = tuple(_SOLVES)
 #: the per-shard window units of the sharded path (``parallel/``)
 _SHARDED = ((B.normal_apply_prepadded, B.normal_apply_prepadded_plain),
@@ -1053,6 +1147,8 @@ def launch_counts(names=None):
 
 
 def plain_counts(names=None):
-    """``{unit_plain: calls}`` of the named units' plain versions."""
+    """``{unit_plain: calls}`` of the named units' plain versions (a
+    one-launch solve among the names has none: its plain version is its
+    sequence's units')."""
     return {_UNITS[k][1].__name__: _UNITS[k][1].calls
-            for k in (names or _UNITS)}
+            for k in (names or _UNITS) if k in _UNITS}

@@ -943,7 +943,10 @@ def test_cuda_compact_pd_solve_matches_plain_on_card(cuda_device, shape):
                                            record=True, compact=True)
     F.reset_counts()
     x_k, r_k = solve(b, b, [0.1, 0.7], 8.0)
-    assert all(n > 0 for n in F.launch_counts(F.PD_UNITS).values())
+    # the batch's state fits the one-launch rule (csrc/pd_persistent.cu)
+    assert solve.route(2) == "persistent" and F.launch_counts(
+        F.PD_UNITS) == {"pd_dual": 0, "pd_primal": 0, "pd_record": 0,
+                        "pd_persistent": 1}
     assert set(F.plain_counts().values()) == {0}
     x_p, r_p = solve.plain(b, b, [0.1, 0.7], 8.0)
     assert torch.equal(x_k, x_k.to(BF16).float())
