@@ -272,6 +272,20 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   replay of the sequence, the device busy share, the device time by the
   stamps, the bound and a persistent call's parts by host clock.
 
+* phase 49, the shard probes (group ``probes``, ``csrc/probes.cu``,
+  ``nsol_tpu_torch/parallel/shard_probe.py``): the counterparts of the 8
+  Pallas kernels of ``benchmarks/shard_pallas_diag*.py`` — ``probe_scale``
+  (K1) and ``probe_window_scale`` (K2, halo 0 and 6, one slot or two, the
+  factor an immediate or in device memory) bit for bit against their plain
+  versions, ``probe_block_matmul`` (K3, both sides, with and without
+  ``trans``) within 1e-5 of the float64 product at "HIGHEST" and within
+  1e-6 of its plain version on bf16-rounded inputs at "DEFAULT", on the
+  probes' shapes and ragged ones; the wrappers' refusals; every variant
+  d1-i3 at 256³ plain and on a NCCL group of world size 1, with its
+  launches; each kernel's time at 256³ beside its plain version, its
+  library call (``torch.mul``, ``torch.matmul`` in float32 with TF32 off
+  and on bf16 inputs; none for K2) and its bound.
+
 Since the persistent PD solve, Lena's and the 64³ phantom's denoising
 solves (phases 8, 10a, 11, 34, 44) take one ``pd_persistent`` launch;
 phase 9's Man 1024² × 64 α sweep stays on the launch sequence (50, 50,
@@ -494,8 +508,10 @@ def max_rel(got, ref):
 
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
-#: and float32 operations/s outside the tensor cores
+#: and float32 operations/s outside the tensor cores; bf16 operations/s of
+#: the tensor cores (dense)
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+BF16_OPS_S = 989e12
 
 
 def bound(nbytes, ops):
@@ -539,6 +555,8 @@ def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1, ext=1.0, reads=None):
         "pd_dual": ((1 + 2 * nd) * batch, 12 * nd),
         "pd_primal": ((2 + nd + 2) * batch + 1, 10 + 3 * nd),
         "pd_record": (batch + 1, 10 + 3 * nd),
+        "probe_scale": (2, 1),                  # x in, out
+        "probe_window_scale": (reads + 1, 1),   # the windows in, out
     }[name]
     return bound(4.0 * n * vols, float(n) * ops * batch)
 
@@ -10537,12 +10555,279 @@ def run_pd_persistent_phase(device, card):
              "units_bound_ms": units_ms, "host_split_ms": split}]
 
 
+#: ``csrc/probes.cu``'s kernels and the TPU kernels (def lines) each
+#: replaces in ``benchmarks/``
+PROBE_REPLACES = {
+    "probe_scale": "benchmarks/shard_pallas_diag.py:68, "
+    "benchmarks/shard_pallas_diag2.py:45, benchmarks/shard_pallas_diag3.py:48, "
+    "benchmarks/shard_pallas_diag4.py:89",
+    "probe_window_scale": "benchmarks/shard_pallas_diag4.py:46, "
+    "benchmarks/shard_pallas_diag5.py:68, benchmarks/shard_pallas_diag6.py:48",
+    "probe_block_matmul": "benchmarks/shard_pallas_diag6.py:48, "
+    "benchmarks/shard_pallas_diag7.py:46",
+    "probe_block_matmul[default]": "benchmarks/shard_pallas_diag7.py:46"}
+#: the streams' shapes: the probes' two, and 40 planes of 24 × 40 (a
+#: ragged last z-block, a plane of 240 16-byte columns); the products' two:
+#: the probes' and 8 × 48 × 80 (tile edges on every axis)
+PROBE_STREAM_SHAPES = (SCALE_SHAPE, (32, 64, 64), (40, 24, 40))
+PROBE_MATMUL_SHAPES = (SCALE_SHAPE, (8, 48, 80))
+#: K3 against the float64 product ("HIGHEST": float32 sums of 256 terms)
+#: and against its plain version on the same bf16-rounded inputs
+#: ("DEFAULT": the products exact in float32, only the order of the sums
+#: differs), as max |Δ| / max |ref|
+PROBE_MATMUL_TOL = {"HIGHEST": 1e-5, "DEFAULT": 1e-6}
+PROBE_KERNELS = ("probe_scale_kernel", "probe_window_kernel",
+                 "probe_gemm_f32_kernel", "probe_gemm_bf16_kernel")
+
+
+def probe_matmul_bound(shape, precision):
+    """``(bound_ms, bound_by)`` of one x-side product of every plane of a
+    ``shape`` volume with an (X, X) matrix: x and the matrix read once, the
+    volume written once; 2·X operations a voxel, at the float32 rate
+    ("HIGHEST") or the tensor cores' bf16 rate ("DEFAULT")."""
+    n, k = int(np.prod(shape)), shape[2]
+    nbytes = 4.0 * (2 * n + k * k)
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = 2.0 * n * k / (F32_OPS_S if precision == "HIGHEST"
+                        else BF16_OPS_S) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def probe_refusals(SP, device):
+    """The wrappers refuse a misaligned view, a plane not of 16-byte
+    columns, a window holding no centre plane and a matrix of another size
+    (``ValueError``, before any launch)."""
+    import torch
+
+    flat = torch.rand(4 * 8 * 8 + 1, device=device)
+    odd = torch.rand(4, 3, 5, device=device)
+    cases = {"misaligned view": lambda: SP.probe_scale(
+        flat[1:].view(4, 8, 8), 2.0),
+        "plane of 15": lambda: SP.probe_scale(odd, 2.0),
+        "window of 2 halos": lambda: SP.probe_window_scale(
+            torch.rand(12, 8, 8, device=device), 2.0, 32, 6),
+        "matrix (8, 8) on 16 columns": lambda: SP.probe_block_matmul(
+            torch.rand(2, 8, 16, device=device),
+            torch.rand(8, 8, device=device))}
+    before = SP.launch_counts()
+    for what, call in cases.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise PhaseFailure("phase 49: %s not refused" % what)
+    require(SP.launch_counts() == before, "phase 49: a refused call launched")
+    return sorted(cases)
+
+
+def probe_bits(SP, device, rng):
+    """K1 and K2 bit for bit against their plain versions on
+    :data:`PROBE_STREAM_SHAPES` (K1 at zb 32 and 8, factors 2, 1.0000001
+    and 1.0000001 in device memory; K2 the same at halo 0 and 6, one slot
+    and two), K3 within :data:`PROBE_MATMUL_TOL` on
+    :data:`PROBE_MATMUL_SHAPES` (both sides, with and without ``trans``).
+    Returns ``{kernel: max |Δ| on the probes' 256³ forms}`` and the number
+    of cases."""
+    import torch
+
+    s_dev = torch.full((1, 1), SP.SCALE, dtype=torch.float32, device=device)
+    err = {k: 0.0 for k in SP.KERNELS}
+    cases = 0
+    for shape in PROBE_STREAM_SHAPES:
+        x = torch.as_tensor(rng.rand(*shape).astype(np.float32),
+                            device=device)
+        exts = {halo: torch.as_tensor(rng.rand(
+            shape[0] + 2 * halo, *shape[1:]).astype(np.float32),
+            device=device) for halo in (0, SP.R)}
+        for zb in (32, 8):
+            for s in (2.0, SP.SCALE, s_dev):
+                got, want = SP.probe_scale(x, s, zb), \
+                    SP.probe_scale_plain(x, s, zb)
+                require(torch.equal(got, want), "phase 49: probe_scale %s "
+                        "zb %d s %s off its plain version" % (shape, zb, s))
+                cases += 1
+                for halo, ext in exts.items():
+                    want = SP.probe_window_scale_plain(ext, s, zb, halo)
+                    for slots in (1, 2):
+                        got = SP.probe_window_scale(ext, s, zb, halo, slots)
+                        require(torch.equal(got, want),
+                                "phase 49: probe_window_scale %s zb %d halo "
+                                "%d slots %d s %s off its plain version"
+                                % (shape, zb, halo, slots, s))
+                        cases += 1
+    for shape in PROBE_MATMUL_SHAPES:
+        x = torch.as_tensor(rng.rand(*shape).astype(np.float32),
+                            device=device)
+        for side in SP.SIDES:
+            k = shape[2] if side == "x" else shape[1]
+            m = torch.as_tensor(rng.rand(k, k).astype(np.float32) - 0.5,
+                                device=device)
+            for trans in (False, True):
+                exact = SP.probe_block_matmul_plain(
+                    x.double(), m.double(), side, "HIGHEST", trans)
+                rounded = SP.probe_block_matmul_plain(x, m, side, "DEFAULT",
+                                                      trans)
+                for prec, ref, key in (
+                        ("HIGHEST", exact, "probe_block_matmul"),
+                        ("DEFAULT", rounded, "probe_block_matmul[default]")):
+                    got = SP.probe_block_matmul(x, m, side, prec, trans)
+                    delta = float((got.double() - ref.double()).abs().max())
+                    rel = delta / float(ref.abs().max())
+                    require(rel <= PROBE_MATMUL_TOL[prec],
+                            "phase 49: probe_block_matmul %s %s side trans "
+                            "%s: max |Δ| / max |ref| %.3g > %g"
+                            % (shape, side, trans, rel,
+                               PROBE_MATMUL_TOL[prec]))
+                    if shape == SCALE_SHAPE:
+                        err[key] = max(err[key], delta)
+                    cases += 1
+    return err, cases
+
+
+def probe_mesh_run(SP, device, card):
+    """The probes' run at 256³: every variant plain and on a real NCCL
+    group of world size 1 (the group made and destroyed as phase 27's),
+    the counts set to 0 just before and read just after. Each variant's
+    probe-kernel launches each way equal its steps × the kernels a step;
+    d1, d4, e5, diag3's apply1 and g3 launch the normal units they run.
+    Returns the rows and the counts."""
+    import torch
+
+    from nsol_tpu_torch.parallel import distributed as dist
+    from nsol_tpu_torch.parallel import make_space_mesh
+
+    dist.initialize(coordinator_address="localhost:%d" % free_port(),
+                    num_processes=1, process_id=0)
+    try:
+        mesh = make_space_mesh()
+        require(mesh.group is not None and mesh.size == 1
+                and mesh.device == device
+                and torch.distributed.get_backend() == "nccl",
+                "phase 49: mesh %r, backend %s" % (
+                    mesh, torch.distributed.get_backend()))
+        SP.reset_counts()
+        rows = SP.run_probes(mesh=mesh, device=device)
+        counts = SP.launch_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    for r in rows:
+        for side in ("plain", "mesh"):
+            got = {k: r["launches"][side][k] for k in SP.KERNELS}
+            want = {k: r["expect"].get(k, 0) for k in SP.KERNELS}
+            require(got == want, "phase 49: %s %s launches %s, expected %s"
+                    % (r["name"], side, got, want))
+            for unit in r["units"]:
+                require(r["launches"][side][unit] > 0, "phase 49: %s %s "
+                        "launched no %s" % (r["name"], side, unit))
+        print("phase 49 %-13s %-13s %-42s plain %.4f ms, mesh %.4f ms a %s "
+              "(%d x %d) | %s" % (r["name"], r["script"], r["what"], r["ms"],
+                                  r["mesh_ms"], r["per"], r["n"], r["inner"],
+                                  card))
+    for k in SP.KERNELS:
+        require(counts[k] == 2 * sum(r["expect"].get(k, 0) for r in rows)
+                and counts[k] > 0, "phase 49: %s launched %d times on the "
+                "probes' run" % (k, counts[k]))
+    return rows, counts
+
+
+def run_probe_phase(device, card):
+    """Phase 49: the shard probes (``csrc/probes.cu``,
+    ``nsol_tpu_torch/parallel/shard_probe.py``), the counterparts of the 8
+    Pallas kernels of ``benchmarks/shard_pallas_diag*.py``. The kernels'
+    ptxas report; :func:`probe_bits` (K1 and K2 bit for bit, K3 within its
+    tolerances); :func:`probe_refusals`; :func:`probe_mesh_run` (every
+    variant d1-i3 at 256³ plain and on a NCCL group of world size 1, with
+    its launches); each kernel's time at the probes' 256³ by CUDA events
+    (a wrapper call) and ``torch.profiler`` (device), beside its plain
+    version's, its library call's and its bound. Returns the kernels'
+    ``kernels`` records."""
+    import torch
+
+    from nsol_tpu_torch.parallel import shard_probe as SP
+
+    for kernel in PROBE_KERNELS:
+        print("phase 49 ptxas %s: %s" % (kernel, kernel_ptxas(kernel, 256)
+                                          or "cached"))
+    rng = np.random.RandomState(49)
+    err, cases = probe_bits(SP, device, rng)
+    refused = probe_refusals(SP, device)
+    print("phase 49 checks: %d cases (K1, K2 bit for bit; K3 HIGHEST "
+          "within %g of the float64 product, DEFAULT within %g of its plain "
+          "version), refused: %s" % (cases, PROBE_MATMUL_TOL["HIGHEST"],
+                                     PROBE_MATMUL_TOL["DEFAULT"],
+                                     ", ".join(refused)))
+    lap("phase 49 checks")
+    rows, counts = probe_mesh_run(SP, device, card)
+    lap("phase 49 probes")
+
+    n = int(np.prod(SCALE_SHAPE))
+    x = torch.as_tensor(rng.rand(*SCALE_SHAPE).astype(np.float32),
+                        device=device)
+    ext = torch.as_tensor(rng.rand(SCALE_SHAPE[0] + 2 * SP.R,
+                                   *SCALE_SHAPE[1:]).astype(np.float32),
+                          device=device)
+    m = torch.eye(SCALE_SHAPE[2], device=device) * 0.999999
+    xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
+    ratio = (SP.ZB + 2 * SP.R) / SP.ZB
+    forms = {  # kernel, plain version, library call, bound
+        "probe_scale": (
+            lambda: SP.probe_scale(x, 2.0, SP.ZB),
+            lambda: SP.probe_scale_plain(x, 2.0, SP.ZB),
+            lambda: torch.mul(x, 2.0), unit_bound("probe_scale", n)),
+        "probe_window_scale": (
+            lambda: SP.probe_window_scale(ext, SP.SCALE, SP.ZB, SP.R, 2),
+            lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.ZB, SP.R),
+            None, unit_bound("probe_window_scale", n, ext=ratio)),
+        "probe_block_matmul": (
+            lambda: SP.probe_block_matmul(x, m, "x", "HIGHEST"),
+            lambda: SP.probe_block_matmul_plain(x, m, "x", "HIGHEST"),
+            lambda: torch.matmul(x, m),
+            probe_matmul_bound(SCALE_SHAPE, "HIGHEST")),
+        "probe_block_matmul[default]": (
+            lambda: SP.probe_block_matmul(x, m, "x", "DEFAULT"),
+            lambda: SP.probe_block_matmul_plain(x, m, "x", "DEFAULT"),
+            lambda: torch.matmul(xb, mb),
+            probe_matmul_bound(SCALE_SHAPE, "DEFAULT"))}
+    entries = []
+    for name, (kern, plain, lib, (b_ms, b_by)) in forms.items():
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 10)
+        lib_ms = None if lib is None else cuda_ms(lib, 50)
+        dev = device_ms_of(kern, 20, keys=("probe_",))
+        lib_dev = None if lib is None else device_ms_of(lib, 20)
+        print("phase 49 %s 256^3: kernel %.4f ms a wrapper call (device %s), "
+              "plain %.4f, library %s (device %s), bound %.4f (%s) | %s"
+              % (name, ms, ms_text(dev), plain_ms, ms_text(lib_ms),
+                 ms_text(lib_dev), b_ms, b_by, card))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "nsol_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_REPLACES[name], "launches": int(counts[name]),
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": dev, "library_device_ms": lib_dev})
+    # the other forms the variants run, a wrapper call each
+    for label, fn in (
+            ("probe_window_scale halo 6, one slot",
+             lambda: SP.probe_window_scale(ext, SP.SCALE, SP.ZB, SP.R, 1)),
+            ("probe_window_scale halo 0, one slot",
+             lambda: SP.probe_window_scale(x, SP.SCALE, SP.ZB, 0, 1)),
+            ("probe_scale zb 8", lambda: SP.probe_scale(x, 2.0, 8)),
+            ("probe_block_matmul y side trans HIGHEST",
+             lambda: SP.probe_block_matmul(x, m, "y", "HIGHEST", True)),
+            ("probe_block_matmul x side trans HIGHEST",
+             lambda: SP.probe_block_matmul(x, m, "x", "HIGHEST", True))):
+        print("phase 49 %s 256^3: %.4f ms a wrapper call | %s"
+              % (label, cuda_ms(fn, 50), card))
+    lap("phase 49 times")
+    return entries
+
+
 #: the phase groups, in the order they run; ``--only`` picks some of them
 GROUPS = ("admm", "pd", "robust", "units", "tikhonov", "study", "cli",
           "scale", "compact", "sharded", "compact_robust", "pd_surface",
           "volume", "volume_solves", "tail", "sweep", "engines", "batch",
           "persistent", "tik_persistent", "irls_persistent",
-          "pd_persistent")
+          "pd_persistent", "probes")
 #: kernel units per group: (source, {unit: TPU kernel it replaces})
 SOURCES = {
     "admm": ("nsol_tpu_torch/csrc/admm.cu", {
@@ -10758,6 +11043,8 @@ def main(argv=None):
         kernels += run_irls_persistent_phase(device, card)
     if "pd_persistent" in groups:
         kernels += run_pd_persistent_phase(device, card)
+    if "probes" in groups:
+        kernels += run_probe_phase(device, card)
     print(json.dumps({"kernels": kernels}))
     if groups != list(GROUPS):
         print("partial run (%s): no result line" % ",".join(groups))

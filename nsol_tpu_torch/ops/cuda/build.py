@@ -112,6 +112,9 @@ _SIGNATURES = {
     "nsol_tikhonov_persistent_shape": [_I] * 12 + [_P],
     "nsol_tikhonov_solve": [_P] * 15 + [_P] + [_I] * 3 + [_P] + [_I] * 3
     + [_F] * 3 + [_I, _I, _P, _P] + [_I] * 4 + [_I] * 3 + [_P] * 4,
+    "nsol_probe_scale": [_P, _P, _F, _P] + [_I] * 4 + [_P, _P],
+    "nsol_probe_window_scale": [_P, _P, _F, _P] + [_I] * 6 + [_P, _P],
+    "nsol_probe_block_matmul": [_P] * 3 + [_I] * 6 + [_P, _P],
 }
 
 #: what the last build did: library path, seconds, nvcc's ptxas report
@@ -203,7 +206,9 @@ def new_counts(n):
     ``tikhonov.cu``: tik_clip,
     and in slot 1 ``tikhonov_persistent.cu``'s one-launch batch;
     ``tiled.cu``: normal_apply_zy,
-    cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction). The
+    cg_step_zy, blur_apply_zy, weighted_apply_zy, cg_direction;
+    ``probes.cu``: probe_scale, probe_window_scale, probe_block_matmul
+    "HIGHEST", probe_block_matmul "DEFAULT"). The
     kernels of ``stream.cuh`` count as their callers' units (tik_clip,
     cg_direction)."""
     return (ctypes.c_longlong * n)()

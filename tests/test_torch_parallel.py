@@ -16,7 +16,9 @@ them:
   JAX runs its Pallas kernels in interpret mode), and
   ``process_local=True`` against the full-volume solve on one rank;
 * world 2: the sharded solves against the port's unsharded ``admm_solve``
-  to 1e-9 in float64, and what a mesh of several processes refuses;
+  to 1e-9 in float64, the shard probes' halo'd window variants against
+  their plain steps on the whole volume, and what a mesh of several
+  processes refuses;
 * the ``"batch"`` mesh: at world 4 the PD study of
   ``tests/test_study.py:217-253`` (5 α: the padding path) against the
   port's study with no mesh (rtol 1e-12) and JAX's 4-device batch study,
@@ -357,6 +359,26 @@ def test_world2_io_window_apply_matches_jax_sharded(world2):
     assert np.all(np.abs(got - want) <= np.ldexp(1.0, e - 8))
     assert np.array_equal(got, torch.as_tensor(got).to(torch.bfloat16)
                           .float().numpy())
+
+
+@pytest.mark.parametrize("name", W.PROBE_VARIANTS)
+def test_world2_probe_window_variants_match_whole_volume(world2, name):
+    """The shard probes' halo'd window variants on the gloo world of 2
+    (``shard_probe.apply_variant`` on each rank's 8 planes, the halo of 6
+    from ``exchange_halo_wrap``), assembled, against the same variant's
+    plain step on the whole volume: g2 (the window scaled) bit for bit, h3
+    (then eight "HIGHEST" products with identities) within 1e-6 · max
+    |ref|."""
+    from nsol_tpu_torch.parallel import shard_probe as SP
+
+    x = W.probe_input()
+    want = SP.apply_variant(name, torch.as_tensor(x)).numpy()
+    got = world2["w2_probe_" + name]
+    assert got.shape == want.shape == x.shape
+    if name == "g2":
+        assert np.array_equal(got, want)
+    else:
+        assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
 
 
 def test_world2_non_separable_blur(world2):

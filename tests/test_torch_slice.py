@@ -145,7 +145,8 @@ def test_port_imports_neither_jax_nor_pil():
             "nsol_tpu_torch.parallel.halo, "
             "nsol_tpu_torch.parallel.matmul_halo, "
             "nsol_tpu_torch.parallel.blocked_halo, "
-            "nsol_tpu_torch.parallel.mesh, nsol_tpu_torch.noise, "
+            "nsol_tpu_torch.parallel.mesh, "
+            "nsol_tpu_torch.parallel.shard_probe, nsol_tpu_torch.noise, "
             "nsol_tpu_torch.optimize, nsol_tpu_torch.pca, "
             "nsol_tpu_torch.solvers.lbfgs, nsol_tpu_torch.ops.conv, "
             "nsol_tpu_torch.cli.corrupt_data, nsol_tpu_torch.profiling, "

@@ -374,6 +374,29 @@ def window_io_cases(mesh):
     return {"w2_wnormal_io": _np(out.float())}
 
 
+#: the shard probes' halo'd window variants on the world-2 spawn: their
+#: volume (float32; 16 planes, 8 a rank, under the halo of 6)
+PROBE_SHAPE = (16, 16, 128)
+PROBE_VARIANTS = ("g2", "h3")
+
+
+def probe_input():
+    return np.random.RandomState(40).rand(*PROBE_SHAPE).astype(np.float32)
+
+
+def probe_cases(mesh):
+    """The shard probes' halo'd window variants (K2 fed by
+    ``exchange_halo_wrap``; h3 with its eight products) on this rank's
+    rows."""
+    import torch
+
+    from nsol_tpu_torch.parallel import shard_probe as SP
+
+    c = torch.as_tensor(_rows(probe_input(), mesh))
+    return {"w2_probe_" + name: _np(SP.apply_variant(name, c, mesh))
+            for name in PROBE_VARIANTS}
+
+
 def refusals(mesh):
     """Flags (1 = raised ``ValueError``) of what a multi-rank mesh must
     refuse: a full volume with ``process_local=False``, and a mesh of
@@ -416,6 +439,7 @@ def main(argv):
     else:
         res = solve_cases(mesh, SOLVES_W2)
         res.update(window_io_cases(mesh))
+        res.update(probe_cases(mesh))
         res.update(engine_cases(mesh))
         res.update(refusals(mesh))
     res.update(batch_cases(world, rank, outdir))
