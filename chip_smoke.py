@@ -556,7 +556,7 @@ def unit_bound(name, n, taps=(0, 0, 0), nd=3, batch=1, ext=1.0, reads=None):
         "pd_primal": ((2 + nd + 2) * batch + 1, 10 + 3 * nd),
         "pd_record": (batch + 1, 10 + 3 * nd),
         "probe_scale": (2, 1),                  # x in, out
-        "probe_window_scale": (reads + 1, 1),   # the windows in, out
+        "probe_window_scale": (reads + 1, 1),   # the centre in, out
     }[name]
     return bound(4.0 * n * vols, float(n) * ops * batch)
 
@@ -10642,12 +10642,12 @@ def probe_bits(SP, device, rng):
         for zb in (32, 8):
             for s in (2.0, SP.SCALE, s_dev):
                 got, want = SP.probe_scale(x, s, zb), \
-                    SP.probe_scale_plain(x, s, zb)
+                    SP.probe_scale_plain(x, s)
                 require(torch.equal(got, want), "phase 49: probe_scale %s "
                         "zb %d s %s off its plain version" % (shape, zb, s))
                 cases += 1
                 for halo, ext in exts.items():
-                    want = SP.probe_window_scale_plain(ext, s, zb, halo)
+                    want = SP.probe_window_scale_plain(ext, s, halo)
                     for slots in (1, 2):
                         got = SP.probe_window_scale(ext, s, zb, halo, slots)
                         require(torch.equal(got, want),
@@ -10768,16 +10768,16 @@ def run_probe_phase(device, card):
                           device=device)
     m = torch.eye(SCALE_SHAPE[2], device=device) * 0.999999
     xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
-    ratio = (SP.ZB + 2 * SP.R) / SP.ZB
     forms = {  # kernel, plain version, library call, bound
         "probe_scale": (
             lambda: SP.probe_scale(x, 2.0, SP.ZB),
-            lambda: SP.probe_scale_plain(x, 2.0, SP.ZB),
+            lambda: SP.probe_scale_plain(x, 2.0),
             lambda: torch.mul(x, 2.0), unit_bound("probe_scale", n)),
         "probe_window_scale": (
             lambda: SP.probe_window_scale(ext, SP.SCALE, SP.ZB, SP.R, 2),
-            lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.ZB, SP.R),
-            None, unit_bound("probe_window_scale", n, ext=ratio)),
+            lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.R),
+            lambda: torch.mul(ext.narrow(0, SP.R, SCALE_SHAPE[0]), SP.SCALE),
+            unit_bound("probe_window_scale", n)),
         "probe_block_matmul": (
             lambda: SP.probe_block_matmul(x, m, "x", "HIGHEST"),
             lambda: SP.probe_block_matmul_plain(x, m, "x", "HIGHEST"),
@@ -10788,15 +10788,21 @@ def run_probe_phase(device, card):
             lambda: SP.probe_block_matmul_plain(x, m, "x", "DEFAULT"),
             lambda: torch.matmul(xb, mb),
             probe_matmul_bound(SCALE_SHAPE, "DEFAULT"))}
+    # K2's own traffic beside its bound: each window of ZB + 2R planes read
+    dma_ms, _ = unit_bound("probe_window_scale", n,
+                           reads=(SP.ZB + 2 * SP.R) / SP.ZB)
+    print("phase 49 probe_window_scale 256^3: its windows' bytes (%d planes "
+          "a %d-plane block) at the memory rate %.4f ms | %s"
+          % (SP.ZB + 2 * SP.R, SP.ZB, dma_ms, card))
+    extra = {"probe_window_scale": {"window_bytes_ms": dma_ms}}
     entries = []
     for name, (kern, plain, lib, (b_ms, b_by)) in forms.items():
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 10)
-        lib_ms = None if lib is None else cuda_ms(lib, 50)
+        lib_ms, lib_dev = cuda_ms(lib, 50), device_ms_of(lib, 20)
         dev = device_ms_of(kern, 20, keys=("probe_",))
-        lib_dev = None if lib is None else device_ms_of(lib, 20)
         print("phase 49 %s 256^3: kernel %.4f ms a wrapper call (device %s), "
               "plain %.4f, library %s (device %s), bound %.4f (%s) | %s"
-              % (name, ms, ms_text(dev), plain_ms, ms_text(lib_ms),
+              % (name, ms, ms_text(dev), plain_ms, "%.4f" % lib_ms,
                  ms_text(lib_dev), b_ms, b_by, card))
         entries.append({
             "name": name, "route": "cuda",
@@ -10804,7 +10810,8 @@ def run_probe_phase(device, card):
             "replaces": PROBE_REPLACES[name], "launches": int(counts[name]),
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "device_ms": dev, "library_device_ms": lib_dev})
+            "device_ms": dev, "library_device_ms": lib_dev,
+            **extra.get(name, {})})
     # the other forms the variants run, a wrapper call each
     for label, fn in (
             ("probe_window_scale halo 6, one slot",

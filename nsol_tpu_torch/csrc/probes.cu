@@ -30,9 +30,10 @@
 //     while this one's centre is stored. The tile is as wide as spreads the
 //     plane over one wave of blocks (one a SM), at most what the ring's
 //     slots hold in 227 KB.
-//     Bound: bytes, the window's planes read ((zb + 2 halo) / zb of the
-//     volume) and one write (256^3, zb 32, halo 6: 2.375 x 67.1 MB = 0.048
-//     ms).
+//     Bound: bytes, what the output needs, one read of the centre planes
+//     and one write (256^3: 2 x 67.1 MB / 3.35 TB/s = 0.040 ms, K1's). The
+//     kernel itself reads every window, (zb + 2 halo) / zb of the volume
+//     (zb 32, halo 6: 2.375 x 67.1 MB = 0.048 ms at the memory rate).
 //
 //   probe_block_matmul  out[z] = P[z] m (the x side; P[z] m^T with trans) or
 //     m^T P[z] (the y side; m P[z] with trans) for every (Y, X) plane P[z]

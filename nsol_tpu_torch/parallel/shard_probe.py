@@ -46,8 +46,7 @@ its prepadded form); g1 (the halo alone) and i3 (the XLA ``einsum``) are
 plain torch ops, controls as in the probes.
 
     python -m nsol_tpu_torch.parallel.shard_probe                 # the card
-    python -m nsol_tpu_torch.parallel.shard_probe --device cpu \\
-        --shape 16,16,128 --small 16,16,128                       # plain CPU
+    python -m nsol_tpu_torch.parallel.shard_probe --device cpu    # plain CPU
 
 prints one line a variant: its plain ms and its ms on a ``"space"`` mesh of
 a process group of world size 1 (NCCL on the card, gloo on the CPU), which
@@ -93,13 +92,13 @@ KERNELS = ("probe_scale", "probe_window_scale", "probe_block_matmul",
 # ---------------------------------------------------------- plain forms --
 
 @B.counted
-def probe_scale_plain(x, s, zb=ZB):
-    """``s·x`` (``zb`` only blocks the kernel's grid)."""
+def probe_scale_plain(x, s):
+    """``s·x``."""
     return x * s
 
 
 @B.counted
-def probe_window_scale_plain(x_ext, s, zb=ZB, halo=R, slots=1):
+def probe_window_scale_plain(x_ext, s, halo=R):
     """``s·x_ext[halo : Z + halo]`` of a ``(Z + 2·halo, Y, X)`` volume."""
     return x_ext.narrow(0, halo, x_ext.shape[0] - 2 * halo) * s
 
@@ -152,7 +151,7 @@ def probe_scale(x, s, zb=ZB):
     """``s·x`` of a ``(Z, Y, X)`` volume over z-blocks of ``zb`` planes
     (``csrc/probes.cu``); ``s`` a number or a float32 on ``x``'s device."""
     if x.device.type == "cpu":
-        return probe_scale_plain(x, s, zb)
+        return probe_scale_plain(x, s)
     name = "probe_scale"
     _check_columns(name, x)
     if zb < 1:
@@ -179,7 +178,7 @@ def probe_window_scale(x_ext, s, zb=ZB, halo=R, slots=1):
                          "slots %s" % (tuple(x_ext.shape)[:1], halo, zb,
                                        slots))
     if x_ext.device.type == "cpu":
-        return probe_window_scale_plain(x_ext, s, zb, halo, slots)
+        return probe_window_scale_plain(x_ext, s, halo)
     name = "probe_window_scale"
     _check_columns(name, x_ext)
     f, f_dev = _factor(name, s, x_ext.device)
@@ -323,7 +322,8 @@ _K3 = {"probe_window_scale": 1, "probe_block_matmul": 8}
 _WINDOW, _WHOLE = ("normal_apply_prepadded",), ("normal_apply",)
 #: the variants, under the probes' names (``diag2.py``'s fifth, its
 #: unnamed "small wrap-DMA", as e5; ``diag3.py``'s two loops by its step
-#: functions' names)
+#: functions' names; ``diag4.py``'s f2 and f3, which differ only in the
+#: TPU memory space, ANY or HBM, that CUDA has no counterpart of, as one)
 VARIANTS = (
     Variant("d1", "diag.py:58", "normal window, wrap halo (no ppermute)",
             lambda c, o, m: _pre(c, o, m), units=_WINDOW, n=40, inner=1),
@@ -345,9 +345,7 @@ VARIANTS = (
             lambda c, o, m: _pre(c, o, m), units=_WINDOW, n=5, inner=100),
     Variant("f1", "diag4.py:89", "K1 (the BlockSpec control)",
             lambda c, o, m: probe_scale(c, SCALE, ZB), _K1),
-    Variant("f2", "diag4.py:46", "K2 halo 0, one slot (ANY + DMA)",
-            lambda c, o, m: probe_window_scale(c, SCALE, ZB, 0, 1), _K2),
-    Variant("f3", "diag4.py:46", "K2 halo 0, one slot (HBM + DMA)",
+    Variant("f2/f3", "diag4.py:46", "K2 halo 0, one slot (ANY or HBM)",
             lambda c, o, m: probe_window_scale(c, SCALE, ZB, 0, 1), _K2),
     Variant("f4", "diag4.py:46", "K2 halo 0, factor in device memory",
             lambda c, o, m: probe_window_scale(c, o.s, ZB, 0, 1), _K2),
@@ -427,12 +425,12 @@ def _no_tf32():
 
 
 def run_probes(mesh=None, device="cuda", shape=SHAPE, small=SMALL,
-               names=None, depth=None, seed=0):
-    """Run every variant of :data:`VARIANTS` (or those ``names``) plain and,
-    with ``mesh`` (a ``"space"`` mesh on ``device``), on the mesh on this
-    rank's rows of the same volume (uniform in [0, 1) from ``seed``,
-    ``shape``, or ``small`` for the variants of ``diag2.py``'s second
-    shape). ``depth``: ``(n, inner)`` for every variant in place of its own.
+               depth=None):
+    """Run every variant of :data:`VARIANTS` plain and, with ``mesh`` (a
+    ``"space"`` mesh on ``device``), on the mesh on this rank's rows of the
+    same volume (uniform in [0, 1) from seed 0, ``shape``, or ``small`` for
+    the variants of ``diag2.py``'s second shape). ``depth``: ``(n, inner)``
+    for every variant in place of its own.
     Returns one row a variant: ``name``, ``script``, ``what``, ``per``
     ("call" or "step"), ``shape``, ``n``, ``inner``, ``ms`` (plain) and
     ``mesh_ms`` (None without a mesh) a call or step, ``launches`` of
@@ -450,18 +448,15 @@ def run_probes(mesh=None, device="cuda", shape=SHAPE, small=SMALL,
     if mesh is not None and mesh.device != device:
         raise ValueError("run_probes: the mesh's device %s is not %s"
                          % (mesh.device, device))
-    chosen = [v for v in VARIANTS if names is None or v.name in names]
-    if names is not None and len(chosen) != len(set(names)):
-        raise ValueError("unknown variants %s" % sorted(
-            set(names) - {v.name for v in VARIANTS}))
-    rng = np.random.RandomState(seed)
+    rng = np.random.RandomState(0)
     volumes = {}
-    for full in sorted({tuple(small if v.small else shape) for v in chosen}):
+    for full in sorted({tuple(small if v.small else shape)
+                        for v in VARIANTS}):
         volumes[full] = torch.as_tensor(
             rng.rand(*full).astype(np.float32), device=device)
     ops, rows = {}, []
     with _no_tf32():
-        for v in chosen:
+        for v in VARIANTS:
             vol = volumes[tuple(small if v.small else shape)]
             n, inner = depth or (v.n, v.inner)
             row = {"name": v.name, "script": v.script, "what": v.what,
@@ -511,10 +506,6 @@ def table(rows):
     return out
 
 
-def _shape(text):
-    return tuple(int(n) for n in text.split(","))
-
-
 def _free_port():
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -529,29 +520,17 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=main.__doc__)
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu (plain versions)")
-    parser.add_argument("--shape", type=_shape, default=SHAPE,
-                        help="the volume, Z,Y,X (default 256,256,256)")
-    parser.add_argument("--small", type=_shape, default=SMALL,
-                        help="e3/e4 and e5's volume (default 32,64,64)")
-    parser.add_argument("--only", default=None,
-                        help="comma-separated variant names")
-    parser.add_argument("--depth", type=_shape, default=None,
-                        help="N,INNER: every chain N calls of INNER steps "
-                        "(default: each probe's own)")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("shard_probe: torch sees no CUDA device; pass "
                            "--device cpu for the plain versions")
-    names = None if args.only is None else args.only.split(",")
-    kw = dict(device=device, shape=args.shape, small=args.small, names=names,
-              depth=args.depth)
     if device.type == "cuda":
         print("device: %s" % torch.cuda.get_device_name(device))
     dist.initialize(coordinator_address="localhost:%d" % _free_port(),
                     num_processes=1, process_id=0, device=device.type)
     try:
-        rows = run_probes(mesh=make_space_mesh(device=device), **kw)
+        rows = run_probes(mesh=make_space_mesh(device=device), device=device)
     finally:
         torch.distributed.destroy_process_group()
     print("\n".join(table(rows)))
