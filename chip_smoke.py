@@ -280,11 +280,14 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   versions, ``probe_block_matmul`` (K3, both sides, with and without
   ``trans``) within 1e-5 of the float64 product at "HIGHEST" and within
   1e-6 of its plain version on bf16-rounded inputs at "DEFAULT", on the
-  probes' shapes and ragged ones; the wrappers' refusals; every variant
-  d1-i3 at 256³ plain and on a NCCL group of world size 1, with its
-  launches; each kernel's time at 256³ beside its plain version, its
-  library call (``torch.mul``, ``torch.matmul`` in float32 with TF32 off
-  and on bf16 inputs; none for K2) and its bound.
+  probes' shapes, ragged and unaligned ones and an x-side matrix past
+  "DEFAULT"'s resident budget; the wrappers' refusals; every variant d1-i3
+  at 256³ plain and on a NCCL group of world size 1, with its launches;
+  each kernel's time at 256³ (K3: the x, x-``trans`` and y-``trans``
+  forms, device and a wrapper call) beside its plain version, its library
+  call (``torch.mul``; ``torch.matmul`` in float32 with TF32 off for
+  "HIGHEST", and for "DEFAULT" at float32 matmul precision "medium" where
+  it holds to the plain version, else none) and its bound.
 
 Since the persistent PD solve, Lena's and the 64³ phantom's denoising
 solves (phases 8, 10a, 11, 34, 44) take one ``pd_persistent`` launch;
@@ -10567,17 +10570,23 @@ PROBE_REPLACES = {
     "benchmarks/shard_pallas_diag7.py:46",
     "probe_block_matmul[default]": "benchmarks/shard_pallas_diag7.py:46"}
 #: the streams' shapes: the probes' two, and 40 planes of 24 × 40 (a
-#: ragged last z-block, a plane of 240 16-byte columns); the products' two:
-#: the probes' and 8 × 48 × 80 (tile edges on every axis)
+#: ragged last z-block, a plane of 240 16-byte columns); the products': the
+#: probes', 8 × 48 × 80 and 5 × 136 × 200 (a ragged last tile, band and k
+#: step on every axis), 3 × 37 × 45 (rows not 16-byte aligned: the 4-byte
+#: copies), and 4 × 64 × 384 (an x-side matrix past "DEFAULT"'s resident
+#: budget: two parts of 256 rows, a ring of 3 slots)
 PROBE_STREAM_SHAPES = (SCALE_SHAPE, (32, 64, 64), (40, 24, 40))
-PROBE_MATMUL_SHAPES = (SCALE_SHAPE, (8, 48, 80))
+PROBE_MATMUL_SHAPES = (SCALE_SHAPE, (8, 48, 80), (5, 136, 200), (3, 37, 45),
+                       (4, 64, 384))
+#: K3's forms the probes run: diag7's x side, diag6's y and x side with trans
+PROBE_MATMUL_FORMS = (("x", False), ("x", True), ("y", True))
 #: K3 against the float64 product ("HIGHEST": float32 sums of 256 terms)
 #: and against its plain version on the same bf16-rounded inputs
 #: ("DEFAULT": the products exact in float32, only the order of the sums
 #: differs), as max |Δ| / max |ref|
 PROBE_MATMUL_TOL = {"HIGHEST": 1e-5, "DEFAULT": 1e-6}
 PROBE_KERNELS = ("probe_scale_kernel", "probe_window_kernel",
-                 "probe_gemm_f32_kernel", "probe_gemm_bf16_kernel")
+                 "probe_sgemm_kernel", "probe_mma_stream_kernel")
 
 
 def probe_matmul_bound(shape, precision):
@@ -10767,7 +10776,6 @@ def run_probe_phase(device, card):
                                    *SCALE_SHAPE[1:]).astype(np.float32),
                           device=device)
     m = torch.eye(SCALE_SHAPE[2], device=device) * 0.999999
-    xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
     forms = {  # kernel, plain version, library call, bound
         "probe_scale": (
             lambda: SP.probe_scale(x, 2.0, SP.ZB),
@@ -10777,17 +10785,7 @@ def run_probe_phase(device, card):
             lambda: SP.probe_window_scale(ext, SP.SCALE, SP.ZB, SP.R, 2),
             lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.R),
             lambda: torch.mul(ext.narrow(0, SP.R, SCALE_SHAPE[0]), SP.SCALE),
-            unit_bound("probe_window_scale", n)),
-        "probe_block_matmul": (
-            lambda: SP.probe_block_matmul(x, m, "x", "HIGHEST"),
-            lambda: SP.probe_block_matmul_plain(x, m, "x", "HIGHEST"),
-            lambda: torch.matmul(x, m),
-            probe_matmul_bound(SCALE_SHAPE, "HIGHEST")),
-        "probe_block_matmul[default]": (
-            lambda: SP.probe_block_matmul(x, m, "x", "DEFAULT"),
-            lambda: SP.probe_block_matmul_plain(x, m, "x", "DEFAULT"),
-            lambda: torch.matmul(xb, mb),
-            probe_matmul_bound(SCALE_SHAPE, "DEFAULT"))}
+            unit_bound("probe_window_scale", n))}
     # K2's own traffic beside its bound: each window of ZB + 2R planes read
     dma_ms, _ = unit_bound("probe_window_scale", n,
                            reads=(SP.ZB + 2 * SP.R) / SP.ZB)
@@ -10812,20 +10810,126 @@ def run_probe_phase(device, card):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "device_ms": dev, "library_device_ms": lib_dev,
             **extra.get(name, {})})
+    entries += probe_matmul_times(SP, x, m, err, counts, card)
     # the other forms the variants run, a wrapper call each
     for label, fn in (
             ("probe_window_scale halo 6, one slot",
              lambda: SP.probe_window_scale(ext, SP.SCALE, SP.ZB, SP.R, 1)),
             ("probe_window_scale halo 0, one slot",
              lambda: SP.probe_window_scale(x, SP.SCALE, SP.ZB, 0, 1)),
-            ("probe_scale zb 8", lambda: SP.probe_scale(x, 2.0, 8)),
-            ("probe_block_matmul y side trans HIGHEST",
-             lambda: SP.probe_block_matmul(x, m, "y", "HIGHEST", True)),
-            ("probe_block_matmul x side trans HIGHEST",
-             lambda: SP.probe_block_matmul(x, m, "x", "HIGHEST", True))):
+            ("probe_scale zb 8", lambda: SP.probe_scale(x, 2.0, 8))):
         print("phase 49 %s 256^3: %.4f ms a wrapper call | %s"
               % (label, cuda_ms(fn, 50), card))
     lap("phase 49 times")
+    return entries
+
+
+@contextlib.contextmanager
+def matmul_precision(mode):
+    """torch's float32 matmul precision ``mode`` inside the block, as it
+    was after it."""
+    import torch
+
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(mode)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def probe_matmul_times(SP, x, m, err, counts, card):
+    """K3's two kernels at the probes' 256³, each form of
+    :data:`PROBE_MATMUL_FORMS`: the kernel's device ms (``torch.profiler``)
+    and a wrapper call's (CUDA events), its plain version's, its library
+    call's, its bound. The library call: "HIGHEST" ``torch.matmul`` in
+    float32 (TF32 off); "DEFAULT" (float32 in, both rounded to bf16,
+    float32 sums and out) ``torch.matmul`` at float32 matmul precision
+    "medium", counted only where it holds to the plain version within
+    :data:`PROBE_MATMUL_TOL` (TF32 inside misses it by ~1e-3), else none;
+    beside it, as context, ``torch.mm`` of bf16 inputs with a float32
+    output (x side), the cast of x to bf16, and ``torch.matmul`` of bf16
+    inputs and output. The x side's numbers are the ``kernels`` record's;
+    every form's are under its ``forms``."""
+    import torch
+
+    entries = []
+    for prec, name in (("HIGHEST", "probe_block_matmul"),
+                       ("DEFAULT", "probe_block_matmul[default]")):
+        b_ms, b_by = probe_matmul_bound(tuple(x.shape), prec)
+        forms = {}
+        for side, trans in PROBE_MATMUL_FORMS:
+            mm = m.T if trans else m
+
+            def lib(mm=mm, side=side):
+                return torch.matmul(x, mm) if side == "x" else \
+                    torch.matmul(mm.T, x)
+
+            def kern(side=side, trans=trans):
+                return SP.probe_block_matmul(x, m, side, prec, trans)
+
+            def plain(side=side, trans=trans):
+                return SP.probe_block_matmul_plain(x, m, side, prec, trans)
+
+            form = {"device_ms": device_ms_of(kern, 20, keys=("probe_",)),
+                    "ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 10)}
+            context = {}
+            if prec == "HIGHEST":
+                form["library"] = "torch.matmul f32, TF32 off"
+                form["library_ms"] = cuda_ms(lib, 50)
+                form["library_device_ms"] = device_ms_of(lib, 20)
+            else:
+                ref = plain()
+                with matmul_precision("medium"):
+                    rel = float((lib().double() - ref.double()).abs().max()
+                                / ref.double().abs().max())
+                    counted = rel <= PROBE_MATMUL_TOL["DEFAULT"]
+                    lib_ms = cuda_ms(lib, 50)
+                    lib_dev = device_ms_of(lib, 20)
+                form["library"] = "torch.matmul f32 at precision medium"
+                form["library_ms"] = lib_ms if counted else None
+                form["library_device_ms"] = lib_dev if counted else None
+                form["library_rel"] = rel
+                context["torch.matmul f32 at precision medium (%s the "
+                        "plain version within %g, max |d| / max |ref| %.3g)"
+                        % ("holds to" if counted else "misses",
+                           PROBE_MATMUL_TOL["DEFAULT"], rel)] = lib_dev
+                xb, mb = x.to(torch.bfloat16), mm.to(torch.bfloat16)
+                if side == "x":
+                    try:  # torch.mm's out_dtype is recent
+                        context["torch.mm bf16 in, f32 out"] = device_ms_of(
+                            lambda: torch.mm(xb.view(-1, x.shape[2]), mb,
+                                             out_dtype=torch.float32), 20)
+                    except TypeError:
+                        context["torch.mm bf16 in, f32 out"] = None
+                    context["torch.matmul bf16 in, bf16 out"] = device_ms_of(
+                        lambda: torch.matmul(xb, mb), 20)
+                context["x.to(bfloat16)"] = device_ms_of(
+                    lambda: x.to(torch.bfloat16), 20)
+                form["context_device_ms"] = context
+            key = "%s%s" % (side, " trans" if trans else "")
+            forms[key] = form
+            print("phase 49 %s %s side trans %s 256^3: kernel device %s ms, "
+                  "a wrapper call %.4f; plain %.4f; library (%s) %s, device "
+                  "%s; bound %.4f (%s)%s | %s"
+                  % (name, side, trans, ms_text(form["device_ms"]),
+                     form["ms"], form["plain_ms"], form["library"],
+                     "none" if form["library_ms"] is None
+                     else "%.4f" % form["library_ms"],
+                     ms_text(form["library_device_ms"]), b_ms, b_by,
+                     "".join("; %s device %s" % (k, ms_text(v))
+                             for k, v in context.items()), card))
+        x_side = forms["x"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "nsol_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_REPLACES[name], "launches": int(counts[name]),
+            "max_abs_err": err[name], "ms": x_side["ms"],
+            "plain_ms": x_side["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": x_side["library_ms"],
+            "device_ms": x_side["device_ms"],
+            "library_device_ms": x_side["library_device_ms"],
+            "forms": forms})
     return entries
 
 

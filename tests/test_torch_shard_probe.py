@@ -31,6 +31,7 @@ and a short probe run's launch counts; they skip on a host without a card:
 
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -328,6 +329,48 @@ def test_cli_on_cpu_prints_plain_and_mesh(capsys, monkeypatch):
                for ln in lines)
 
 
+def _load(name, *path):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _probes_source():
+    with open(os.path.join(REPO, "nsol_tpu_torch", "csrc", "probes.cu")) as f:
+        return f.read()
+
+
+def test_chip_smoke_probe_kernels_are_the_source_s():
+    """``chip_smoke.py`` phase 49 reports the ptxas lines of the kernels
+    ``csrc/probes.cu`` defines, K3's two among them, and runs both sides of
+    an x-side matrix past "DEFAULT"'s 256 resident rows."""
+    cs = _load("chip_smoke", "chip_smoke.py")
+    src = _probes_source()
+    for kernel in cs.PROBE_KERNELS:
+        assert re.search(r"__global__[^;{}]*\b%s\(" % kernel, src), kernel
+    assert {"probe_sgemm_kernel", "probe_mma_stream_kernel"} <= set(
+        cs.PROBE_KERNELS)
+    assert any(shape[2] > 256 for shape in cs.PROBE_MATMUL_SHAPES)
+    assert set(cs.PROBE_MATMUL_FORMS) == {("x", False), ("x", True),
+                                          ("y", True)}
+
+
+@pytest.mark.parametrize("variant", ["copies", "fmas", "no R", "no mma",
+                                     "no store", "ring"])
+def test_parts_probe_substitutions_hold(variant):
+    """Each part ``tests/torch_probe_matmul_parts.py`` takes out of K3 is
+    text ``csrc/probes.cu`` still holds (the script fails loudly where one
+    is gone)."""
+    parts = _load("torch_probe_matmul_parts", "tests",
+                  "torch_probe_matmul_parts.py")
+    subs = dict((name, subs) for name, _, subs in parts.VARIANTS)[variant]
+    src = _probes_source()
+    assert subs and all(old in src for old, _ in subs)
+    assert parts.variant_source(src, subs) != src
+
+
 def test_cli_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
@@ -378,14 +421,18 @@ def test_stream_kernels_match_plain_on_card(cuda_device, shape, zb):
 @pytest.mark.parametrize("precision", SP.PRECISIONS)
 def test_matmul_kernel_matches_plain_on_card(cuda_device, side, trans,
                                              precision):
-    """K3 on tile-edge planes (8 × 48 × 80) and the probes' 256²:
-    "HIGHEST" within 1e-5 · max |ref| of the float64 product, "DEFAULT"
-    within 1e-6 · max |ref| of its plain version (TF32 off)."""
+    """K3 on tile-edge planes (8 × 48 × 80; 5 × 136 × 200, a ragged last
+    tile, band and k step on every axis), rows not 16-byte aligned
+    (3 × 37 × 45), the probes' 256², and an x-side matrix past "DEFAULT"'s
+    resident budget (4 × 64 × 384: two parts of 256 rows): "HIGHEST"
+    within 1e-5 · max |ref| of the float64 product, "DEFAULT" within
+    1e-6 · max |ref| of its plain version (TF32 off)."""
     rs = np.random.RandomState(12)
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for shape in ((8, 48, 80), (4, 256, 256)):
+        for shape in ((8, 48, 80), (4, 256, 256), (5, 136, 200),
+                      (3, 37, 45), (4, 64, 384)):
             x = torch.as_tensor(rs.rand(*shape).astype(np.float32),
                                 device=cuda_device)
             k = shape[2] if side == "x" else shape[1]
