@@ -23,8 +23,9 @@ Inputs come from numpy seeds. Tolerances:
 
 The ``cuda``-marked cases hold each kernel to its plain version on the card
 (K1 and K2 bit for bit, K3 "HIGHEST" within 1e-5 · max |ref| of the
-float64 product and "DEFAULT" within 1e-6 · max |ref| of its plain version)
-and a short probe run's launch counts; they skip on a host without a card:
+float64 product and "DEFAULT" within 1e-6 · max |ref| of its plain version,
+past 384 products a sum of the float64 sum of the bf16-rounded inputs) and
+a short probe run's launch counts; they skip on a host without a card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_shard_probe.py
 """
@@ -345,7 +346,8 @@ def _probes_source():
 def test_chip_smoke_probe_kernels_are_the_source_s():
     """``chip_smoke.py`` phase 49 reports the ptxas lines of the kernels
     ``csrc/probes.cu`` defines, K3's two among them, and runs both sides of
-    an x-side matrix past "DEFAULT"'s 256 resident rows."""
+    an x-side matrix past "DEFAULT"'s 256 resident rows, and a matrix past
+    384 products a sum on each side."""
     cs = _load("chip_smoke", "chip_smoke.py")
     src = _probes_source()
     for kernel in cs.PROBE_KERNELS:
@@ -353,22 +355,11 @@ def test_chip_smoke_probe_kernels_are_the_source_s():
     assert {"probe_sgemm_kernel", "probe_mma_stream_kernel"} <= set(
         cs.PROBE_KERNELS)
     assert any(shape[2] > 256 for shape in cs.PROBE_MATMUL_SHAPES)
+    for axis in (1, 2):
+        assert any(shape[axis] > cs.PROBE_PLAIN_MAX_K
+                   for shape in cs.PROBE_MATMUL_SHAPES)
     assert set(cs.PROBE_MATMUL_FORMS) == {("x", False), ("x", True),
                                           ("y", True)}
-
-
-@pytest.mark.parametrize("variant", ["copies", "fmas", "no R", "no mma",
-                                     "no store", "ring"])
-def test_parts_probe_substitutions_hold(variant):
-    """Each part ``tests/torch_probe_matmul_parts.py`` takes out of K3 is
-    text ``csrc/probes.cu`` still holds (the script fails loudly where one
-    is gone)."""
-    parts = _load("torch_probe_matmul_parts", "tests",
-                  "torch_probe_matmul_parts.py")
-    subs = dict((name, subs) for name, _, subs in parts.VARIANTS)[variant]
-    src = _probes_source()
-    assert subs and all(old in src for old, _ in subs)
-    assert parts.variant_source(src, subs) != src
 
 
 def test_cli_raises_without_a_gpu():
@@ -424,27 +415,28 @@ def test_matmul_kernel_matches_plain_on_card(cuda_device, side, trans,
     """K3 on tile-edge planes (8 × 48 × 80; 5 × 136 × 200, a ragged last
     tile, band and k step on every axis), rows not 16-byte aligned
     (3 × 37 × 45), the probes' 256², and an x-side matrix past "DEFAULT"'s
-    resident budget (4 × 64 × 384: two parts of 256 rows): "HIGHEST"
-    within 1e-5 · max |ref| of the float64 product, "DEFAULT" within
-    1e-6 · max |ref| of its plain version (TF32 off)."""
+    resident budget (4 × 64 × 384: two parts of 256 rows), and a matrix
+    past 384 products a sum on the y and the x side (2 × 520 × 136,
+    2 × 40 × 520: k in two parts): "HIGHEST" within 1e-5 · max |ref| of
+    the float64 product, "DEFAULT" within 1e-6 · max |ref| of its plain
+    version (TF32 off), past 384 products a sum of the float64 sum of the
+    bf16-rounded inputs (``chip_smoke.py``'s ``probe_matmul_reference``)."""
+    cs = _load("chip_smoke", "chip_smoke.py")
     rs = np.random.RandomState(12)
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for shape in ((8, 48, 80), (4, 256, 256), (5, 136, 200),
-                      (3, 37, 45), (4, 64, 384)):
+                      (3, 37, 45), (4, 64, 384), (2, 520, 136),
+                      (2, 40, 520)):
             x = torch.as_tensor(rs.rand(*shape).astype(np.float32),
                                 device=cuda_device)
             k = shape[2] if side == "x" else shape[1]
             m = torch.as_tensor((rs.rand(k, k) - 0.5).astype(np.float32),
                                 device=cuda_device)
             got = SP.probe_block_matmul(x, m, side, precision, trans)
-            if precision == "HIGHEST":
-                ref, tol = SP.probe_block_matmul_plain(
-                    x.double(), m.double(), side, "HIGHEST", trans), 1e-5
-            else:
-                ref, tol = SP.probe_block_matmul_plain(
-                    x, m, side, "DEFAULT", trans), 1e-6
+            ref = cs.probe_matmul_reference(SP, x, m, side, precision, trans)
+            tol = 1e-5 if precision == "HIGHEST" else 1e-6
             assert _rel(got.cpu().numpy(), ref.cpu().numpy()) <= tol
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved

@@ -6,15 +6,17 @@ Each tree's ``nsol_tpu_torch/csrc/probes.cu`` is compiled alone by
 at once, and bound with ``ctypes``. The script then
 
 * prints ptxas's registers and spills of each tree's K3 kernels;
-* holds this tree's K3 to its plain version on :data:`SHAPES` (the x and
-  y side, with and without ``trans``) at ``chip_smoke.py``'s tolerances:
-  "HIGHEST" within 1e-5 · max |ref| of the float64 product, "DEFAULT"
-  within 1e-6 · max |ref| of the plain version;
+* holds this tree's K3 on ``chip_smoke.py``'s ``PROBE_MATMUL_SHAPES``
+  (the x and y side, with and without ``trans``) to what phase 49 holds
+  it to (``probe_matmul_reference``): "HIGHEST" within 1e-5 · max |ref|
+  of the float64 product, "DEFAULT" within 1e-6 · max |ref| of the plain
+  version, or past 384 products a sum of the float64 sum of the
+  bf16-rounded inputs (the plain version's reading printed beside it);
 * compares the two trees' outputs bit for bit on every shape and form;
 * times the forms the probes run at 256³ (``chip_smoke.py``'s
   ``PROBE_MATMUL_FORMS``), m = 0.999999·I as theirs, in turns (earlier,
   this, this, earlier): device ms by ``torch.profiler`` and a call's ms by
-  CUDA events over ``--reps`` back-to-back calls. ``chip_smoke.py`` phase
+  CUDA events over :data:`REPS` back-to-back calls. ``chip_smoke.py`` phase
   49 times the library calls beside them.
 
 Run on a machine with a CUDA card from the repository root, with an earlier
@@ -46,15 +48,15 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as CS  # noqa: E402
 from nsol_tpu_torch.ops.cuda import build  # noqa: E402
+from nsol_tpu_torch.parallel import shard_probe as SP  # noqa: E402
 from nsol_tpu_torch.parallel.shard_probe import (  # noqa: E402
     PRECISIONS, SIDES, probe_block_matmul_plain)
 
-#: ``chip_smoke.py``'s shapes, and a matrix past "DEFAULT"'s resident
-#: budget on the y side (520: three parts of 256 rows, two k parts)
-SHAPES = CS.PROBE_MATMUL_SHAPES + ((2, 520, 136),)
 FORMS = (("x", False), ("x", True), ("y", False), ("y", True))
 K3_KERNELS = ("probe_gemm_f32_kernel", "probe_gemm_bf16_kernel",
               "probe_sgemm_kernel", "probe_mma_stream_kernel")
+#: back-to-back calls a call's time is the mean of
+REPS = 200
 
 
 def start_build(tree, out_dir, tag):
@@ -109,25 +111,31 @@ def _inputs(shape, side, rng, device):
 
 
 def checks(fn, rng, device):
-    """This tree's K3 against its plain version on every shape and form:
-    the worst max |Δ| / max |ref| a precision and the cases past their
+    """This tree's K3 against its reference on every shape and form: the
+    worst max |Δ| / max |ref| a precision and the cases past their
     tolerance."""
+    def rel(got, ref):
+        return float((got.double() - ref.double()).abs().max()
+                     / ref.double().abs().max())
+
     worst, failed = {p: 0.0 for p in PRECISIONS}, []
-    for shape in SHAPES:
+    for shape in CS.PROBE_MATMUL_SHAPES:
         for side, trans in FORMS:
             x, m = _inputs(shape, side, rng, device)
-            refs = {"HIGHEST": probe_block_matmul_plain(
-                x.double(), m.double(), side, "HIGHEST", trans),
-                "DEFAULT": probe_block_matmul_plain(x, m, side, "DEFAULT",
-                                                    trans)}
             for prec in PRECISIONS:
-                got, ref = call(fn, x, m, side, trans, prec), refs[prec]
-                r = float((got.double() - ref.double()).abs().max()
-                          / ref.double().abs().max())
+                got = call(fn, x, m, side, trans, prec)
+                r = rel(got, CS.probe_matmul_reference(SP, x, m, side, prec,
+                                                       trans))
                 tol = CS.PROBE_MATMUL_TOL[prec]
+                k = shape[2] if side == "x" else shape[1]
+                beside = ""
+                if prec == "DEFAULT" and k > CS.PROBE_PLAIN_MAX_K:
+                    beside = " against the float64 sum; %.3g against the " \
+                        "plain version" % rel(got, probe_block_matmul_plain(
+                            x, m, side, prec, trans))
                 print("check %-16s %s side trans %-5s %s: max |d| / max |ref| "
-                      "%.3g (tolerance %g)" % (shape, side, trans, prec, r,
-                                               tol))
+                      "%.3g (tolerance %g)%s" % (shape, side, trans, prec, r,
+                                                 tol, beside))
                 if not r <= tol:
                     failed.append("%s %s side trans %s %s" % (shape, side,
                                                               trans, prec))
@@ -138,7 +146,7 @@ def checks(fn, rng, device):
 def bits(fn, earlier, rng, device):
     """``{precision: every shape and form bit for bit}`` of the two trees."""
     same = {p: True for p in PRECISIONS}
-    for shape in SHAPES:
+    for shape in CS.PROBE_MATMUL_SHAPES:
         for side, trans in FORMS:
             x, m = _inputs(shape, side, rng, device)
             for prec in PRECISIONS:
@@ -155,7 +163,7 @@ def bits(fn, earlier, rng, device):
     return same
 
 
-def turns(fn, earlier, device, reps, rng):
+def turns(fn, earlier, device, rng):
     """The probes' forms at 256³ in turns: device ms and ms a call."""
     rows = []
     x = torch.as_tensor(rng.rand(*CS.SCALE_SHAPE).astype(np.float32),
@@ -178,7 +186,7 @@ def turns(fn, earlier, device, reps, rng):
 
                 row[who].append({
                     "device_ms": CS.device_ms_of(k, 20, keys=("probe_",)),
-                    "call_ms": CS.cuda_ms(k, reps)})
+                    "call_ms": CS.cuda_ms(k, REPS)})
             print("turns 256^3 %s %s side trans %s, device/call ms: this %s; "
                   "earlier %s" % (
                       prec, side, trans,
@@ -192,7 +200,6 @@ def turns(fn, earlier, device, reps, rng):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--earlier", help="an earlier tree's root")
-    parser.add_argument("--reps", type=int, default=200)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device")
@@ -214,7 +221,7 @@ def main(argv=None):
         same = bits(fn, earlier, rng, device) if earlier else None
         if same is not None:
             print("bits against the earlier tree: %s" % same)
-        rows = turns(fn, earlier, device, args.reps, rng)
+        rows = turns(fn, earlier, device, rng)
     print(json.dumps({"card": card, "worst_rel": worst, "failed": failed,
                       "same_bits": same, "turns": rows}))
     return 1 if failed else 0
