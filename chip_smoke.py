@@ -10569,8 +10569,10 @@ PROBE_REPLACES = {
     "probe_block_matmul": "benchmarks/shard_pallas_diag6.py:48, "
     "benchmarks/shard_pallas_diag7.py:46",
     "probe_block_matmul[default]": "benchmarks/shard_pallas_diag7.py:46"}
-#: the streams' shapes: the probes' two, and 40 planes of 24 × 40 (a
-#: ragged last z-block, a plane of 240 16-byte columns); the products': the
+#: the streams' shapes: the probes' two, 40 planes of 24 × 40 (a ragged
+#: last z-block, a plane of 240 16-byte columns), 5 planes of 24 × 40 (fewer
+#: planes than a z-block of 8) and 3 of 512 × 512 (65536 columns: K2's tiles
+#: in more than one wave); the products': the
 #: probes', 8 × 48 × 80 and 5 × 136 × 200 (a ragged last tile, band and k
 #: step on every axis), 3 × 37 × 45 (rows not 16-byte aligned: the 4-byte
 #: copies), 4 × 64 × 384 (an x-side matrix past "DEFAULT"'s resident
@@ -10578,7 +10580,11 @@ PROBE_REPLACES = {
 #: 2 × 40 × 520 (a matrix past :data:`PROBE_PLAIN_MAX_K` on the y and on
 #: the x side: three parts of 256 rows, k in two parts whose sums are read
 #: back)
-PROBE_STREAM_SHAPES = (SCALE_SHAPE, (32, 64, 64), (40, 24, 40))
+PROBE_STREAM_SHAPES = (SCALE_SHAPE, (32, 64, 64), (40, 24, 40), (5, 24, 40),
+                       (3, 512, 512))
+#: the streams' z-blocks: the probes' 32 and 8, and 4 (2·R > zb: a window
+#: shares planes with more than one neighbour)
+PROBE_STREAM_ZB = (32, 8, 4)
 PROBE_MATMUL_SHAPES = (SCALE_SHAPE, (8, 48, 80), (5, 136, 200), (3, 37, 45),
                        (4, 64, 384), (2, 520, 136), (2, 40, 520))
 #: K3's forms the probes run: diag7's x side, diag6's y and x side with trans
@@ -10593,7 +10599,7 @@ PROBE_MATMUL_TOL = {"HIGHEST": 1e-5, "DEFAULT": 1e-6}
 #: then carry rounding of the gate's order (the kernel's distance to them
 #: reached 1.03e-6 on a 2 × 520 × 136 y-trans case)
 PROBE_PLAIN_MAX_K = 384
-PROBE_KERNELS = ("probe_scale_kernel", "probe_window_kernel",
+PROBE_KERNELS = ("probe_scale_kernel", "probe_ring_kernel",
                  "probe_sgemm_kernel", "probe_mma_stream_kernel")
 
 
@@ -10650,9 +10656,9 @@ def probe_refusals(SP, device):
 
 def probe_bits(SP, device, rng):
     """K1 and K2 bit for bit against their plain versions on
-    :data:`PROBE_STREAM_SHAPES` (K1 at zb 32 and 8, factors 2, 1.0000001
-    and 1.0000001 in device memory; K2 the same at halo 0 and 6, one slot
-    and two), K3 within :data:`PROBE_MATMUL_TOL` of
+    :data:`PROBE_STREAM_SHAPES` (K1 at each zb of :data:`PROBE_STREAM_ZB`,
+    factors 2, 1.0000001 and 1.0000001 in device memory; K2 the same at
+    halo 0 and 6, one slot and two), K3 within :data:`PROBE_MATMUL_TOL` of
     :func:`probe_matmul_reference` on :data:`PROBE_MATMUL_SHAPES` (both
     sides, with and without ``trans``).
     Returns ``{kernel: max |Δ| on the probes' 256³ forms}`` and the number
@@ -10668,7 +10674,7 @@ def probe_bits(SP, device, rng):
         exts = {halo: torch.as_tensor(rng.rand(
             shape[0] + 2 * halo, *shape[1:]).astype(np.float32),
             device=device) for halo in (0, SP.R)}
-        for zb in (32, 8):
+        for zb in PROBE_STREAM_ZB:
             for s in (2.0, SP.SCALE, s_dev):
                 got, want = SP.probe_scale(x, s, zb), \
                     SP.probe_scale_plain(x, s)
@@ -10803,13 +10809,15 @@ def run_probe_phase(device, card):
             lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.R),
             lambda: torch.mul(ext.narrow(0, SP.R, SCALE_SHAPE[0]), SP.SCALE),
             unit_bound("probe_window_scale", n))}
-    # K2's own traffic beside its bound: each window of ZB + 2R planes read
-    dma_ms, _ = unit_bound("probe_window_scale", n,
-                           reads=(SP.ZB + 2 * SP.R) / SP.ZB)
-    print("phase 49 probe_window_scale 256^3: its windows' bytes (%d planes "
-          "a %d-plane block) at the memory rate %.4f ms | %s"
-          % (SP.ZB + 2 * SP.R, SP.ZB, dma_ms, card))
-    extra = {"probe_window_scale": {"window_bytes_ms": dma_ms}}
+    # K2's own traffic beside its bound: its plane ring reads each of the
+    # Z + 2R planes once
+    z = SCALE_SHAPE[0]
+    ring_ms, _ = unit_bound("probe_window_scale", n,
+                            reads=(z + 2 * SP.R) / z)
+    print("phase 49 probe_window_scale 256^3: its plane ring's bytes (%d "
+          "planes read, %d written) at the memory rate %.4f ms | %s"
+          % (z + 2 * SP.R, z, ring_ms, card))
+    extra = {"probe_window_scale": {"ring_bytes_ms": ring_ms}}
     entries = []
     for name, (kern, plain, lib, (b_ms, b_by)) in forms.items():
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 10)

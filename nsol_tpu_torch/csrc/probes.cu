@@ -81,12 +81,13 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -105,61 +106,155 @@ __device__ __forceinline__ float4 scale4(float f, float4 v) {
   return v;
 }
 
-// out = f x, f = *s_dev where given, else s; blockIdx.y is the z-block of
-// block4 16-byte columns (the last may be shorter), blockIdx.x strides over it.
-__global__ void __launch_bounds__(kThreads)
+// out = f x, f = *s_dev where given, else s. blockIdx.y is the z-block of
+// block4 16-byte columns (the last may be shorter), blockIdx.x its part of
+// kThreads U columns: thread t takes columns t, t + kThreads, ... of it, U
+// of them, and issues all U loads before its first store. Offsets within a
+// z-block are 32-bit. kEvict: evict-first loads and stores.
+template <int U, bool kEvict, int kT>
+__global__ void __launch_bounds__(kT)
     probe_scale_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
-                       const float* __restrict__ s_dev, long long block4, long long total4) {
-  const float f = s_dev ? __ldg(s_dev) : s;
+                       const float* __restrict__ s_dev, int block4, long long total4) {
   const long long base = (long long)blockIdx.y * block4;
-  const long long len = min(block4, total4 - base);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += (long long)gridDim.x * blockDim.x)
-    out[base + i] = scale4(f, __ldg(x + base + i));
+  const int len = (int)min((long long)block4, total4 - base);
+  const int first = blockIdx.x * (kT * U);
+  if (first >= len) return;
+  const float f = s_dev ? __ldg(s_dev) : s;
+  const float4* src = x + base + first + threadIdx.x;
+  float4* dst = out + base + first + threadIdx.x;
+  float4 v[U];
+  if (len - first >= kT * U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = kEvict ? __ldcs(src + u * kT) : __ldg(src + u * kT);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (kEvict) __stcs(dst + u * kT, scale4(f, v[u]));
+      else dst[u * kT] = scale4(f, v[u]);
+    }
+    return;
+  }
+  const int left = len - first - (int)threadIdx.x;  // columns from this thread's first
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u * kT < left) v[u] = kEvict ? __ldcs(src + u * kT) : __ldg(src + u * kT);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u * kT < left) {
+      if (kEvict) __stcs(dst + u * kT, scale4(f, v[u]));
+      else dst[u * kT] = scale4(f, v[u]);
+    }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// the one arrival of the barrier's phase, and the bytes its copies bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
+// to shared dst by the TMA, completing their bytes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bytes before the ring rows: the mbarriers, 128-byte aligned rows.
+constexpr int kRingHead = 128;
+
 // out[z] = f x_ext[z + halo] for the Z output planes of a (Z + 2 halo)-plane
-// input, P4 16-byte columns a plane. The block owns columns t0 .. t0 + T4 - 1
-// and walks the z-blocks; kSlots 2 copies window b + 1 while storing b.
-template <int kSlots>
+// input, P4 16-byte columns a plane. Block i owns the columns
+// [i P4 / grid, (i + 1) P4 / grid) (in units of `unit` columns) and walks
+// the z-blocks of zb planes with a ring of `ring` = kSlots zb + 2 halo plane
+// rows (`stride` columns apart) in shared memory: plane p lies in row p mod
+// ring. Group g brings what window g (planes [g zb, g zb + zb + 2 halo))
+// adds to window g - 1, all of window 0, by one 1-D bulk copy a plane,
+// completing on barrier g mod kSlots. Groups 0 .. kSlots - 1 are fetched
+// first, group b + kSlots once window b's centre is stored: with kSlots 2
+// group b + 1 is in flight while window b's centre is stored, with kSlots 1
+// nothing is. The centre is scaled in registers and stored (evict-first with
+// kEvict).
+template <int kSlots, bool kEvict>
 __global__ void __launch_bounds__(kThreads)
-    probe_window_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
-                        const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int T4) {
-  extern __shared__ float4 ring[];  // kSlots x (zb + 2 halo) x T4
-  const float f = s_dev ? __ldg(s_dev) : s;
-  const int t0 = blockIdx.x * T4, tw = min(T4, P4 - t0);
-  const int span = zb + 2 * halo, nblk = (Z + zb - 1) / zb;
-  auto fetch = [&](int b, int slot) {
-    const int planes = min(zb, Z - b * zb) + 2 * halo;
-    float4* dst = ring + (size_t)slot * span * T4;
-    const float4* src = x + (size_t)b * zb * P4 + t0;
-    for (int e = threadIdx.x; e < planes * tw; e += blockDim.x) {
-      const int j = e / tw, i = e - j * tw;
-      __pipeline_memcpy_async(dst + j * T4 + i, src + (size_t)j * P4 + i, 16);
+    probe_ring_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
+                      const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int ring,
+                      int stride, int unit, long long* stamps) {
+  auto stamp = [&](int j) {  // development: block 0 thread 0's globaltimer
+    if (stamps != nullptr && threadIdx.x == 0 && j < 64) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      stamps[blockIdx.x * 64 + j] = t;
     }
-    __pipeline_commit();
   };
-  if (kSlots == 2) fetch(0, 0);
+  stamp(0);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float4* rows = reinterpret_cast<float4*>(smem + kRingHead);
+  const long long units = (P4 + unit - 1) / unit;
+  const int t0 = min(P4, unit * (int)((long long)blockIdx.x * units / gridDim.x));
+  const int tw = min(P4, unit * (int)((long long)(blockIdx.x + 1) * units / gridDim.x)) - t0;
+  const unsigned row_bytes = 16u * tw;
+  const int nblk = (Z + zb - 1) / zb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto fetch = [&](int g) {  // warp 0
+    const int lo = g == 0 ? 0 : g * zb + 2 * halo;
+    const int hi = min((g + 1) * zb, Z) + 2 * halo;
+    uint64_t* b = bar + g % kSlots;
+    if (lane == 0) mbar_expect_tx(b, (unsigned)(hi - lo) * row_bytes);
+    __syncwarp();
+    for (int p = lo + lane; p < hi; p += 32)
+      bulk_load(rows + (size_t)(p % ring) * stride, x + (size_t)p * P4 + t0, row_bytes, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSlots; ++i) mbar_init(bar + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int g = 0; g < kSlots && g < nblk; ++g) fetch(g);
+  const float f = s_dev ? __ldg(s_dev) : s;
   for (int b = 0; b < nblk; ++b) {
-    const int slot = kSlots == 2 ? (b & 1) : 0;
-    if (kSlots == 1) {
-      fetch(b, 0);
-      __pipeline_wait_prior(0);
-    } else if (b + 1 < nblk) {
-      fetch(b + 1, slot ^ 1);  // read last at b - 1, before its closing barrier
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+    mbar_wait(bar + b % kSlots, (b / kSlots) & 1);
+    stamp(1 + 2 * b);
+    const int z0 = b * zb, zl = min(zb, Z - z0);
+    for (int k = warp; k < zl; k += kThreads / 32) {
+      const float4* row = rows + (size_t)((z0 + halo + k) % ring) * stride;
+      float4* dst = out + (size_t)(z0 + k) * P4 + t0;
+      for (int i = lane; i < tw; i += 32) {
+        const float4 v = scale4(f, row[i]);
+        if (kEvict) __stcs(dst + i, v);
+        else dst[i] = v;
+      }
     }
-    __syncthreads();
-    const float4* win = ring + ((size_t)slot * span + halo) * T4;
-    float4* dst = out + (size_t)b * zb * P4 + t0;
-    const int zl = min(zb, Z - b * zb);
-    for (int e = threadIdx.x; e < zl * tw; e += blockDim.x) {
-      const int k = e / tw, i = e - k * tw;
-      dst[(size_t)k * P4 + i] = scale4(f, win[k * T4 + i]);
-    }
-    __syncthreads();
+    __syncthreads();  // window b's rows read: its first zb rows are free
+    stamp(2 + 2 * b);
+    if (warp == 0 && b + kSlots < nblk) fetch(b + kSlots);
   }
 }
 
@@ -706,6 +801,63 @@ __global__ void __cluster_dims__(kMmCluster, 1, 1) __launch_bounds__(kThreads, 1
     }
 }
 
+// K1 with U columns a thread of blocks of T threads, evict-first or not
+cudaError_t launch_scale(const float* x, float* out, float s, const float* s_dev, int Z,
+                         long long P4, int zb, int U, bool evict, int T, cudaStream_t st) {
+  const int nblk = (Z + zb - 1) / zb;
+  const long long block4 = (long long)std::min(zb, Z) * P4;
+  const int per = T * U;
+  if (nblk > 65535 || block4 > INT_MAX - per) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((block4 + per - 1) / per), nblk);
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, T, 0, st>>>((const float4*)x, (float4*)out, s, s_dev, (int)block4,
+                               (long long)Z * P4);
+  };
+  if (T == 128) {
+    if (U == 2 && evict) launch(probe_scale_kernel<2, true, 128>);
+    else if (U == 2) launch(probe_scale_kernel<2, false, 128>);
+    else launch(probe_scale_kernel<4, true, 128>);
+  } else {
+    if (U == 2 && evict) launch(probe_scale_kernel<2, true, 256>);
+    else if (U == 2) launch(probe_scale_kernel<2, false, 256>);
+    else if (U == 1) launch(probe_scale_kernel<1, true, 256>);
+    else launch(probe_scale_kernel<4, true, 256>);
+  }
+  return cudaGetLastError();
+}
+
+// K2's plane ring, `slots` 1 or 2; cudaErrorInvalidValue where a ring of 32
+// columns does not fit a block's shared memory
+cudaError_t launch_ring(const float* x, float* out, float s, const float* s_dev, int Z,
+                        long long P4, int zb, int halo, int slots, bool evict, int per_sm,
+                        int unit, cudaStream_t st, long long* stamps = nullptr) {
+  const long long ring = (long long)slots * zb + 2LL * halo;
+  const long long max_stride = (kMaxSmem - kRingHead) / (ring * 16) / 8 * 8;
+  if (max_stride < 32) return cudaErrorInvalidValue;
+  // per_sm tiles an SM where the ring holds them, else as many as it takes;
+  // tiles differ by at most `unit` columns, rows are 128-byte multiples apart
+  const long long units = (P4 + unit - 1) / unit, per_tile = max_stride / unit;
+  const long long grid = std::min<long long>(
+      units, std::max<long long>((long long)per_sm * device_sms(), (units + per_tile - 1) / per_tile));
+  const int stride = (int)(((units + grid - 1) / grid * unit + 7) / 8 * 8);
+  const int smem = kRingHead + (int)(ring * stride * 16);
+  auto launch = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<(unsigned)grid, kThreads, smem, st>>>((const float4*)x, (float4*)out, s, s_dev, Z,
+                                                   (int)P4, zb, halo, (int)ring, stride, unit,
+                                                   stamps);
+  };
+  auto pick = [&](auto evict_c) {
+    constexpr bool kE = decltype(evict_c)::value;
+    if (slots == 1) launch(probe_ring_kernel<1, kE>);
+    else if (slots == 2) launch(probe_ring_kernel<2, kE>);
+    else launch(probe_ring_kernel<3, kE>);
+  };
+  if (evict) pick(std::true_type());
+  else pick(std::false_type());
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ C interface --
@@ -722,47 +874,58 @@ int nsol_probe_scale(const float* x, float* out, float s, const float* s_dev, in
                      int zb, void* stream, long long* counts) {
   const long long P4 = (long long)Y * X / 4;
   if (Z < 1 || zb < 1 || P4 < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = (Z + zb - 1) / zb;
-  const long long block4 = (long long)zb * P4;
-  const long long want = (block4 + kThreads - 1) / kThreads;
-  const long long cap = std::max(1, 8 * device_sms() / nblk);
-  const dim3 grid((unsigned)std::min(want, cap), nblk);
-  probe_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (float4*)out, s, s_dev, block4, (long long)Z * P4);
-  counts[kScale] += 1;
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      launch_scale(x, out, s, s_dev, Z, P4, zb, 2, true, 256, (cudaStream_t)stream);
+  if (err == cudaSuccess) counts[kScale] += 1;
+  return (int)err;
 }
 
 // out (Z, Y, X) = s x_ext[halo : halo + Z] of x_ext (Z + 2 halo, Y, X),
-// window by window (zb + 2 halo planes), through a ring of `slots` (1 or 2).
+// window by window (zb + 2 halo planes), through a plane ring of `slots`
+// (1 or 2) windows' new planes.
 int nsol_probe_window_scale(const float* x_ext, float* out, float s, const float* s_dev, int Z,
                             int Y, int X, int zb, int halo, int slots, void* stream,
                             long long* counts) {
   const long long P4 = (long long)Y * X / 4;
   if (Z < 1 || zb < 1 || halo < 0 || P4 < 1 || P4 > (1LL << 30) || (slots != 1 && slots != 2))
     return (int)cudaErrorInvalidValue;
-  const long long slot_col = (long long)(zb + 2 * halo) * sizeof(float4);  // a column of a slot
-  const int max_t4 = (int)(kMaxSmem / (slots * slot_col)) / 32 * 32;
-  if (max_t4 < 32) return (int)cudaErrorInvalidValue;
-  const int sms = device_sms();
-  int t4 = (int)((P4 + sms - 1) / sms + 31) / 32 * 32;
-  t4 = std::min(t4, max_t4);
-  const int grid = (int)((P4 + t4 - 1) / t4);
-  const int smem = (int)(slots * slot_col * t4);
+  const cudaError_t err = launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, true, 1, 8,
+                                      (cudaStream_t)stream);
+  if (err == cudaSuccess) counts[kWindow] += 1;
+  return (int)err;
+}
+
+// Development variants of the two streams, timed against each other.
+// K1: U columns a thread (1, 2, 4), evict-first or not, T threads a block
+// (128, 256), or (U 0) the plane ring at halo 0, two slots. K2: slots 1-3,
+// evict-first stores or not, per_sm tiles an SM, tiles in units of `unit`
+// (1, 2, 4, 8) columns.
+int nsol_probe_scale_variant(const float* x, float* out, float s, const float* s_dev, int Z,
+                             int Y, int X, int zb, int U, int evict, int T, void* stream,
+                             long long* counts) {
+  const long long P4 = (long long)Y * X / 4;
+  if (Z < 1 || zb < 1 || P4 < 1 || U < 0 || U > 4 || (T != 128 && T != 256))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (slots == 1) {
-    cudaFuncSetAttribute(probe_window_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    probe_window_kernel<1><<<grid, kThreads, smem, st>>>(
-        (const float4*)x_ext, (float4*)out, s, s_dev, Z, (int)P4, zb, halo, t4);
-  } else {
-    cudaFuncSetAttribute(probe_window_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    probe_window_kernel<2><<<grid, kThreads, smem, st>>>(
-        (const float4*)x_ext, (float4*)out, s, s_dev, Z, (int)P4, zb, halo, t4);
-  }
-  counts[kWindow] += 1;
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      U == 0 ? launch_ring(x, out, s, s_dev, Z, P4, zb, 0, 2, true, 1, 8, st)
+             : launch_scale(x, out, s, s_dev, Z, P4, zb, U, evict != 0, T, st);
+  if (err == cudaSuccess) counts[kScale] += 1;
+  return (int)err;
+}
+
+int nsol_probe_window_scale_variant(const float* x_ext, float* out, float s, const float* s_dev,
+                                    int Z, int Y, int X, int zb, int halo, int slots, int evict,
+                                    int per_sm, int unit, long long* stamps, void* stream,
+                                    long long* counts) {
+  const long long P4 = (long long)Y * X / 4;
+  if (Z < 1 || zb < 1 || halo < 0 || P4 < 1 || P4 > (1LL << 30) || slots < 1 || slots > 3 ||
+      per_sm < 1 || (unit != 1 && unit != 2 && unit != 4 && unit != 8))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, evict != 0,
+                                      per_sm, unit, (cudaStream_t)stream, stamps);
+  if (err == cudaSuccess) counts[kWindow] += 1;
+  return (int)err;
 }
 
 // out[z] of every (Y, X) plane x[z]: side 0 (x) x[z] m, or x[z] m^T with

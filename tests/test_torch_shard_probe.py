@@ -379,12 +379,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(40, 24, 40), (32, 64, 64)], ids=str)
-@pytest.mark.parametrize("zb", [32, 8])
+@pytest.mark.parametrize("shape", [(40, 24, 40), (32, 64, 64), (5, 24, 40),
+                                   (3, 512, 512)], ids=str)
+@pytest.mark.parametrize("zb", [32, 8, 4])
 def test_stream_kernels_match_plain_on_card(cuda_device, shape, zb):
     """K1 and K2 (halo 0 and 6, one slot and two, the factor a number or in
     device memory) bit for bit against their plain versions, one launch a
-    call."""
+    call: on a ragged last z-block (40 planes), fewer planes than a z-block
+    (5 at zb 8 and 32), a window sharing planes with more than one
+    neighbour (halo 6 at zb 4) and a plane of 65536 16-byte columns (K2's
+    tiles in more than one wave)."""
     rs = np.random.RandomState(11)
     x = torch.as_tensor(rs.rand(*shape).astype(np.float32),
                         device=cuda_device)
