@@ -275,16 +275,19 @@ against its float64 anchor and timing kernels and solves with CUDA events:
 * phase 49, the shard probes (group ``probes``, ``csrc/probes.cu``,
   ``nsol_tpu_torch/parallel/shard_probe.py``): the counterparts of the 8
   Pallas kernels of ``benchmarks/shard_pallas_diag*.py`` — ``probe_scale``
-  (K1) and ``probe_window_scale`` (K2, halo 0 and 6, one slot or two, the
-  factor an immediate or in device memory) bit for bit against their plain
-  versions, ``probe_block_matmul`` (K3, both sides, with and without
+  (K1, zb 32, 8 and 4) and ``probe_window_scale`` (K2's plane ring, halo 0
+  and 6, one slot or two, the factor an immediate or in device memory) bit
+  for bit against their plain versions on a ragged last z-block, fewer
+  planes than a z-block, a window sharing planes with more than one
+  neighbour and a plane of more tiles than one wave, ``probe_block_matmul`` (K3, both sides, with and without
   ``trans``) within 1e-5 of the float64 product at "HIGHEST" and within
   1e-6 of its plain version on bf16-rounded inputs at "DEFAULT", on the
   probes' shapes, ragged and unaligned ones and an x-side matrix past
   "DEFAULT"'s resident budget; the wrappers' refusals; every variant d1-i3
   at 256³ plain and on a NCCL group of world size 1, with its launches;
-  each kernel's time at 256³ (K3: the x, x-``trans`` and y-``trans``
-  forms, device and a wrapper call) beside its plain version, its library
+  each kernel's time at 256³ (K2 beside its plane ring's own bytes; K3:
+  the x, x-``trans`` and y-``trans`` forms, device and a wrapper call)
+  beside its plain version, its library
   call (``torch.mul``; ``torch.matmul`` in float32 with TF32 off for
   "HIGHEST", and for "DEFAULT" at float32 matmul precision "medium" where
   it holds to the plain version, else none) and its bound.

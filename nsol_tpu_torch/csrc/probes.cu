@@ -10,13 +10,23 @@
 //     main.k (:48 -> :51) and shard_pallas_diag4.py::main.bspec_kernel
 //     (:89 -> :93): the BlockSpec-pipelined "trivial" kernels.
 //     Bound: bytes, one read and one write of the volume (256^3 f32:
-//     2 x 67.1 MB / 3.35 TB/s = 0.040 ms). A 16-byte load and store a
-//     thread and step, a grid of z-blocks (blockIdx.y) by a grid-stride
-//     over each block's planes; s an immediate or read from device memory.
+//     2 x 67.1 MB / 3.35 TB/s = 0.040 ms). What holds such a stream below
+//     it is the loads in flight and how evenly the SMs share the memory.
+//     So the blocks are launched from the work, as PyTorch's elementwise
+//     kernels are (no grid-stride loop, whose last trip half the threads
+//     take alone): blockIdx.y is the z-block, blockIdx.x a part of 512
+//     16-byte columns of it, and the hardware hands the next part to
+//     whichever SM frees up. A thread takes two columns 256 apart (a warp
+//     covers 512 contiguous bytes each time), issues both loads before its
+//     first store, evict-first (__ldcs/__stcs: neither is read again), with
+//     32-bit offsets within its z-block. s is an immediate or read from
+//     device memory. Four columns a thread, 128-thread blocks, plain loads
+//     and stores, and K2's ring at halo 0 were each timed no faster on the
+//     H100 (PERF.md, PR 25).
 //
 //   probe_window_scale  for each z-block of zb output planes, its window
-//     of zb + 2 halo planes of a prepadded input copied into shared memory,
-//     then the centre planes written scaled
+//     of zb + 2 halo planes of a prepadded input resident in shared memory
+//     when the centre planes are written scaled
 //     replaces shard_pallas_diag4.py::dma_kernel (:46 -> :67; halo 0, the
 //     factor an immediate or, as its SMEM input, read from device memory),
 //     shard_pallas_diag5.py::main.body (:68 -> :76; halo 6, one slot) and
@@ -24,16 +34,29 @@
 //     one slot or two, its two semaphores).
 //     The TPU held a whole (44, 256, 256) window in VMEM (11.5 MB); a block
 //     here has at most 227 KB of shared memory. So each block owns a tile of
-//     T4 16-byte columns of the (Y, X) plane and walks the z-blocks: it
-//     copies the window's tile with cp.async (16 bytes a copy) into a ring
-//     of one or two slots, and with two the next window's copy is in flight
-//     while this one's centre is stored. The tile is as wide as spreads the
-//     plane over one wave of blocks (one a SM), at most what the ring's
-//     slots hold in 227 KB.
+//     the (Y, X) plane's 16-byte columns in whole 128-byte lines (tiles
+//     one line apart in width; tiles cut at 16, 32 or 64 bytes ran 2-7 %
+//     slower), one tile an SM where the ring holds it, and walks the
+//     z-blocks through a ring of PLANES: plane p of the tile in row p mod
+//     ring, so the planes window b shares with window b + 1 stay and each
+//     plane of x_ext is copied once a tile. One thread issues one 1-D TMA
+//     bulk copy (cp.async.bulk, no tensor map: a tile's row of a plane is
+//     contiguous) a plane row, completing on an mbarrier a group: group g
+//     holds the zb planes window g adds (window 0 all of its own). "Two
+//     slots" is a ring of 2 zb + 2 halo planes with window b + 1's group in
+//     flight while window b's centre is stored; "one slot" is zb + 2 halo
+//     planes, the next group fetched after the store, nothing overlapped.
+//     The centre is scaled in registers and stored evict-first, a warp a
+//     plane row (no division an element).
 //     Bound: bytes, what the output needs, one read of the centre planes
 //     and one write (256^3: 2 x 67.1 MB / 3.35 TB/s = 0.040 ms, K1's). The
-//     kernel itself reads every window, (zb + 2 halo) / zb of the volume
-//     (zb 32, halo 6: 2.375 x 67.1 MB = 0.048 ms at the memory rate).
+//     ring's own bytes: (Z + 2 halo) / Z of the volume read, one written
+//     (256^3, halo 6: 2.047 x 67.1 MB = 0.041 ms). What holds it beyond
+//     that is the static split: each SM walks its own tile, and SMs that
+//     the memory serves more slowly finish last (globaltimer stamps: the
+//     blocks' ends spread over 17 us of a 48 us run; PERF.md, PR 25).
+//     Storing through TMA bulk stores, cp.async copies, an evict-first L2
+//     policy on the copies and two or four tiles an SM were each no faster.
 //
 //   probe_block_matmul  out[z] = P[z] m (the x side; P[z] m^T with trans) or
 //     m^T P[z] (the y side; m P[z] with trans) for every (Y, X) plane P[z]
@@ -87,7 +110,6 @@
 
 #include <algorithm>
 #include <climits>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -106,43 +128,32 @@ __device__ __forceinline__ float4 scale4(float f, float4 v) {
   return v;
 }
 
+// 16-byte columns a thread of K1
+constexpr int kScaleU = 2;
+
 // out = f x, f = *s_dev where given, else s. blockIdx.y is the z-block of
 // block4 16-byte columns (the last may be shorter), blockIdx.x its part of
-// kThreads U columns: thread t takes columns t, t + kThreads, ... of it, U
-// of them, and issues all U loads before its first store. Offsets within a
-// z-block are 32-bit. kEvict: evict-first loads and stores.
-template <int U, bool kEvict, int kT>
-__global__ void __launch_bounds__(kT)
+// kThreads kScaleU columns: thread t takes columns t and t + kThreads of it,
+// both loads before the first store, evict-first. Offsets within a z-block
+// are 32-bit.
+__global__ void __launch_bounds__(kThreads)
     probe_scale_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
                        const float* __restrict__ s_dev, int block4, long long total4) {
   const long long base = (long long)blockIdx.y * block4;
   const int len = (int)min((long long)block4, total4 - base);
-  const int first = blockIdx.x * (kT * U);
+  const int first = blockIdx.x * (kThreads * kScaleU);
   if (first >= len) return;
   const float f = s_dev ? __ldg(s_dev) : s;
   const float4* src = x + base + first + threadIdx.x;
   float4* dst = out + base + first + threadIdx.x;
-  float4 v[U];
-  if (len - first >= kT * U) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) v[u] = kEvict ? __ldcs(src + u * kT) : __ldg(src + u * kT);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (kEvict) __stcs(dst + u * kT, scale4(f, v[u]));
-      else dst[u * kT] = scale4(f, v[u]);
-    }
-    return;
-  }
   const int left = len - first - (int)threadIdx.x;  // columns from this thread's first
+  float4 v[kScaleU];
 #pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (u * kT < left) v[u] = kEvict ? __ldcs(src + u * kT) : __ldg(src + u * kT);
+  for (int u = 0; u < kScaleU; ++u)
+    if (u * kThreads < left) v[u] = __ldcs(src + u * kThreads);
 #pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (u * kT < left) {
-      if (kEvict) __stcs(dst + u * kT, scale4(f, v[u]));
-      else dst[u * kT] = scale4(f, v[u]);
-    }
+  for (int u = 0; u < kScaleU; ++u)
+    if (u * kThreads < left) __stcs(dst + u * kThreads, scale4(f, v[u]));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -187,38 +198,33 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 
 // Bytes before the ring rows: the mbarriers, 128-byte aligned rows.
 constexpr int kRingHead = 128;
+// K2's tiles are whole 128-byte lines (8 columns) of the plane
+constexpr int kRingUnit = 8;
 
 // out[z] = f x_ext[z + halo] for the Z output planes of a (Z + 2 halo)-plane
-// input, P4 16-byte columns a plane. Block i owns the columns
-// [i P4 / grid, (i + 1) P4 / grid) (in units of `unit` columns) and walks
-// the z-blocks of zb planes with a ring of `ring` = kSlots zb + 2 halo plane
-// rows (`stride` columns apart) in shared memory: plane p lies in row p mod
-// ring. Group g brings what window g (planes [g zb, g zb + zb + 2 halo))
-// adds to window g - 1, all of window 0, by one 1-D bulk copy a plane,
-// completing on barrier g mod kSlots. Groups 0 .. kSlots - 1 are fetched
-// first, group b + kSlots once window b's centre is stored: with kSlots 2
-// group b + 1 is in flight while window b's centre is stored, with kSlots 1
-// nothing is. The centre is scaled in registers and stored (evict-first with
-// kEvict).
-template <int kSlots, bool kEvict>
+// input, P4 16-byte columns a plane. With U = ceil(P4 / kRingUnit), block i
+// owns the columns from kRingUnit floor(i U / grid) to kRingUnit floor((i +
+// 1) U / grid) and walks the z-blocks of zb planes with a ring of `ring` =
+// kSlots zb + 2 halo plane rows (`stride` columns apart) in shared memory:
+// plane p lies in row p mod ring. Group g brings what window g (planes
+// [g zb, g zb + zb + 2 halo)) adds to window g - 1, all of window 0, by one
+// 1-D bulk copy a plane, completing on barrier g mod kSlots. Groups 0 ..
+// kSlots - 1 are fetched first, group b + kSlots once window b's centre is
+// stored: with kSlots 2 group b + 1 is in flight while window b's centre is
+// stored, with kSlots 1 nothing is. The centre is scaled in registers and
+// stored evict-first.
+template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
     probe_ring_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
                       const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int ring,
-                      int stride, int unit, long long* stamps) {
-  auto stamp = [&](int j) {  // development: block 0 thread 0's globaltimer
-    if (stamps != nullptr && threadIdx.x == 0 && j < 64) {
-      long long t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      stamps[blockIdx.x * 64 + j] = t;
-    }
-  };
-  stamp(0);
+                      int stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float4* rows = reinterpret_cast<float4*>(smem + kRingHead);
-  const long long units = (P4 + unit - 1) / unit;
-  const int t0 = min(P4, unit * (int)((long long)blockIdx.x * units / gridDim.x));
-  const int tw = min(P4, unit * (int)((long long)(blockIdx.x + 1) * units / gridDim.x)) - t0;
+  const long long units = (P4 + kRingUnit - 1) / kRingUnit;
+  const int t0 = min(P4, kRingUnit * (int)((long long)blockIdx.x * units / gridDim.x));
+  const int tw =
+      min(P4, kRingUnit * (int)((long long)(blockIdx.x + 1) * units / gridDim.x)) - t0;
   const unsigned row_bytes = 16u * tw;
   const int nblk = (Z + zb - 1) / zb;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -241,19 +247,13 @@ __global__ void __launch_bounds__(kThreads)
   const float f = s_dev ? __ldg(s_dev) : s;
   for (int b = 0; b < nblk; ++b) {
     mbar_wait(bar + b % kSlots, (b / kSlots) & 1);
-    stamp(1 + 2 * b);
     const int z0 = b * zb, zl = min(zb, Z - z0);
     for (int k = warp; k < zl; k += kThreads / 32) {
       const float4* row = rows + (size_t)((z0 + halo + k) % ring) * stride;
       float4* dst = out + (size_t)(z0 + k) * P4 + t0;
-      for (int i = lane; i < tw; i += 32) {
-        const float4 v = scale4(f, row[i]);
-        if (kEvict) __stcs(dst + i, v);
-        else dst[i] = v;
-      }
+      for (int i = lane; i < tw; i += 32) __stcs(dst + i, scale4(f, row[i]));
     }
     __syncthreads();  // window b's rows read: its first zb rows are free
-    stamp(2 + 2 * b);
     if (warp == 0 && b + kSlots < nblk) fetch(b + kSlots);
   }
 }
@@ -801,60 +801,27 @@ __global__ void __cluster_dims__(kMmCluster, 1, 1) __launch_bounds__(kThreads, 1
     }
 }
 
-// K1 with U columns a thread of blocks of T threads, evict-first or not
-cudaError_t launch_scale(const float* x, float* out, float s, const float* s_dev, int Z,
-                         long long P4, int zb, int U, bool evict, int T, cudaStream_t st) {
-  const int nblk = (Z + zb - 1) / zb;
-  const long long block4 = (long long)std::min(zb, Z) * P4;
-  const int per = T * U;
-  if (nblk > 65535 || block4 > INT_MAX - per) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((block4 + per - 1) / per), nblk);
-  auto launch = [&](auto kernel) {
-    kernel<<<grid, T, 0, st>>>((const float4*)x, (float4*)out, s, s_dev, (int)block4,
-                               (long long)Z * P4);
-  };
-  if (T == 128) {
-    if (U == 2 && evict) launch(probe_scale_kernel<2, true, 128>);
-    else if (U == 2) launch(probe_scale_kernel<2, false, 128>);
-    else launch(probe_scale_kernel<4, true, 128>);
-  } else {
-    if (U == 2 && evict) launch(probe_scale_kernel<2, true, 256>);
-    else if (U == 2) launch(probe_scale_kernel<2, false, 256>);
-    else if (U == 1) launch(probe_scale_kernel<1, true, 256>);
-    else launch(probe_scale_kernel<4, true, 256>);
-  }
-  return cudaGetLastError();
-}
-
-// K2's plane ring, `slots` 1 or 2; cudaErrorInvalidValue where a ring of 32
-// columns does not fit a block's shared memory
+// K2's plane ring of `slots` (1 or 2) windows' new planes; cudaErrorInvalidValue
+// where a ring of 32 columns does not fit a block's shared memory
 cudaError_t launch_ring(const float* x, float* out, float s, const float* s_dev, int Z,
-                        long long P4, int zb, int halo, int slots, bool evict, int per_sm,
-                        int unit, cudaStream_t st, long long* stamps = nullptr) {
+                        long long P4, int zb, int halo, int slots, cudaStream_t st) {
   const long long ring = (long long)slots * zb + 2LL * halo;
-  const long long max_stride = (kMaxSmem - kRingHead) / (ring * 16) / 8 * 8;
+  const long long max_stride = (kMaxSmem - kRingHead) / (ring * 16) / kRingUnit * kRingUnit;
   if (max_stride < 32) return cudaErrorInvalidValue;
-  // per_sm tiles an SM where the ring holds them, else as many as it takes;
-  // tiles differ by at most `unit` columns, rows are 128-byte multiples apart
-  const long long units = (P4 + unit - 1) / unit, per_tile = max_stride / unit;
+  // a tile an SM where the ring holds it, else as many as it takes; tiles
+  // differ by at most one unit, rows lie whole 128-byte lines apart
+  const long long units = (P4 + kRingUnit - 1) / kRingUnit, per_tile = max_stride / kRingUnit;
   const long long grid = std::min<long long>(
-      units, std::max<long long>((long long)per_sm * device_sms(), (units + per_tile - 1) / per_tile));
-  const int stride = (int)(((units + grid - 1) / grid * unit + 7) / 8 * 8);
+      units, std::max<long long>(device_sms(), (units + per_tile - 1) / per_tile));
+  const int stride = (int)((units + grid - 1) / grid * kRingUnit);
   const int smem = kRingHead + (int)(ring * stride * 16);
   auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kernel<<<(unsigned)grid, kThreads, smem, st>>>((const float4*)x, (float4*)out, s, s_dev, Z,
-                                                   (int)P4, zb, halo, (int)ring, stride, unit,
-                                                   stamps);
+                                                   (int)P4, zb, halo, (int)ring, stride);
   };
-  auto pick = [&](auto evict_c) {
-    constexpr bool kE = decltype(evict_c)::value;
-    if (slots == 1) launch(probe_ring_kernel<1, kE>);
-    else if (slots == 2) launch(probe_ring_kernel<2, kE>);
-    else launch(probe_ring_kernel<3, kE>);
-  };
-  if (evict) pick(std::true_type());
-  else pick(std::false_type());
+  if (slots == 1) launch(probe_ring_kernel<1>);
+  else launch(probe_ring_kernel<2>);
   return cudaGetLastError();
 }
 
@@ -874,8 +841,14 @@ int nsol_probe_scale(const float* x, float* out, float s, const float* s_dev, in
                      int zb, void* stream, long long* counts) {
   const long long P4 = (long long)Y * X / 4;
   if (Z < 1 || zb < 1 || P4 < 1) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      launch_scale(x, out, s, s_dev, Z, P4, zb, 2, true, 256, (cudaStream_t)stream);
+  const int nblk = (Z + zb - 1) / zb;
+  const long long block4 = (long long)std::min(zb, Z) * P4;
+  const int per = kThreads * kScaleU;
+  if (nblk > 65535 || block4 > INT_MAX - per) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((block4 + per - 1) / per), nblk);
+  probe_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)out, s, s_dev, (int)block4, (long long)Z * P4);
+  const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) counts[kScale] += 1;
   return (int)err;
 }
@@ -889,41 +862,8 @@ int nsol_probe_window_scale(const float* x_ext, float* out, float s, const float
   const long long P4 = (long long)Y * X / 4;
   if (Z < 1 || zb < 1 || halo < 0 || P4 < 1 || P4 > (1LL << 30) || (slots != 1 && slots != 2))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, true, 1, 8,
-                                      (cudaStream_t)stream);
-  if (err == cudaSuccess) counts[kWindow] += 1;
-  return (int)err;
-}
-
-// Development variants of the two streams, timed against each other.
-// K1: U columns a thread (1, 2, 4), evict-first or not, T threads a block
-// (128, 256), or (U 0) the plane ring at halo 0, two slots. K2: slots 1-3,
-// evict-first stores or not, per_sm tiles an SM, tiles in units of `unit`
-// (1, 2, 4, 8) columns.
-int nsol_probe_scale_variant(const float* x, float* out, float s, const float* s_dev, int Z,
-                             int Y, int X, int zb, int U, int evict, int T, void* stream,
-                             long long* counts) {
-  const long long P4 = (long long)Y * X / 4;
-  if (Z < 1 || zb < 1 || P4 < 1 || U < 0 || U > 4 || (T != 128 && T != 256))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err =
-      U == 0 ? launch_ring(x, out, s, s_dev, Z, P4, zb, 0, 2, true, 1, 8, st)
-             : launch_scale(x, out, s, s_dev, Z, P4, zb, U, evict != 0, T, st);
-  if (err == cudaSuccess) counts[kScale] += 1;
-  return (int)err;
-}
-
-int nsol_probe_window_scale_variant(const float* x_ext, float* out, float s, const float* s_dev,
-                                    int Z, int Y, int X, int zb, int halo, int slots, int evict,
-                                    int per_sm, int unit, long long* stamps, void* stream,
-                                    long long* counts) {
-  const long long P4 = (long long)Y * X / 4;
-  if (Z < 1 || zb < 1 || halo < 0 || P4 < 1 || P4 > (1LL << 30) || slots < 1 || slots > 3 ||
-      per_sm < 1 || (unit != 1 && unit != 2 && unit != 4 && unit != 8))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err = launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, evict != 0,
-                                      per_sm, unit, (cudaStream_t)stream, stamps);
+      launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, (cudaStream_t)stream);
   if (err == cudaSuccess) counts[kWindow] += 1;
   return (int)err;
 }

@@ -65,8 +65,6 @@ KERNELS = ("probe_scale_kernel", "probe_window_kernel", "probe_ring_kernel",
            "probe_sgemm_kernel", "probe_mma_stream_kernel")
 #: back-to-back calls a call's time is the mean of
 REPS = 200
-#: the z-blocks the streams are checked at
-STREAM_ZB = (32, 8, 4)
 #: the timed stream forms: (label, kernel, shape, zb, halo, slots)
 STREAM_TURNS = (
     ("K2 halo 6, two slots", "window", CS.SCALE_SHAPE, SP.ZB, SP.R, 2),
@@ -75,7 +73,6 @@ STREAM_TURNS = (
     ("K1 zb 32", "scale", CS.SCALE_SHAPE, 32, 0, 0),
     ("K1 zb 8", "scale", CS.SCALE_SHAPE, 8, 0, 0),
     ("K1 zb 8 (32, 64, 64)", "scale", SP.SMALL, 8, 0, 0))
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def start_build(tree, out_dir, tag):
@@ -180,7 +177,7 @@ def stream_cases(rng, device):
         x = _rand(rng, shape, device)
         exts = {h: _rand(rng, (shape[0] + 2 * h,) + shape[1:], device)
                 for h in (0, SP.R)}
-        for zb in STREAM_ZB:
+        for zb in CS.PROBE_STREAM_ZB:
             for s in (2.0, SP.SCALE, s_dev):
                 sv = "device" if torch.is_tensor(s) else s
                 yield ("K1 %s zb %d s %s" % (shape, zb, sv), "scale", x, s,
