@@ -109,7 +109,6 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <atomic>
 #include <climits>
 
 #include "common.cuh"
@@ -197,89 +196,38 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
-// Bytes before the ring rows: the mbarriers and the block's shared words,
-// 128-byte aligned rows.
+// Bytes before the ring rows: the mbarriers, 128-byte aligned rows.
 constexpr int kRingHead = 128;
 // K2's tiles are whole 128-byte lines (8 columns) of the plane
 constexpr int kRingUnit = 8;
 
-// K2's window stealing: one word a tile, epoch (32 bits) | the windows its
-// owner has claimed, from 0 up (16) | the lowest window a thief has, from
-// the top down (16). The owner holds its first kSlots windows unclaimed (a0)
-// and claims each later one before it fetches its group. A launch's epoch
-// is new, so a word of an older epoch reads as (a0, nblk) and nothing needs
-// clearing. A window claimed twice (only where two launches run at once) is
-// stored twice with the same bits; none is left unclaimed.
-constexpr int kRingTiles = 1 << 16;
-__device__ unsigned long long g_ring_tiles[kRingTiles];
-
-__device__ __forceinline__ void tile_state(unsigned long long v, unsigned epoch, int nblk, int a0,
-                                           int& a, int& c) {
-  const bool now = (unsigned)(v >> 32) == epoch;
-  a = now ? (int)((v >> 16) & 0xffff) : a0;
-  c = now ? (int)(v & 0xffff) : nblk;
-}
-
-__device__ __forceinline__ unsigned long long tile_word(unsigned epoch, int a, int c) {
-  return ((unsigned long long)epoch << 32) | ((unsigned long long)a << 16) | (unsigned)c;
-}
-
-// The owner claims its next window (or, with thief, a thief the highest one
-// left), v the word as last seen (updated): the window, or -1 where none is
-// left.
-__device__ int claim_window(unsigned long long* t, unsigned epoch, int nblk, int a0, bool thief,
-                            unsigned long long& v) {
-  for (;;) {
-    int a, c;
-    tile_state(v, epoch, nblk, a0, a, c);
-    if (a >= c) return -1;
-    const unsigned long long want =
-        thief ? tile_word(epoch, a, c - 1) : tile_word(epoch, a + 1, c);
-    const unsigned long long seen = atomicCAS(t, v, want);
-    if (seen == v) {
-      v = want;
-      return thief ? c - 1 : a;
-    }
-    v = seen;
-  }
-}
-
 // out[z] = f x_ext[z + halo] for the Z output planes of a (Z + 2 halo)-plane
-// input, P4 16-byte columns a plane. With U = ceil(P4 / kRingUnit), tile i
-// is the columns from kRingUnit floor(i U / grid) to kRingUnit floor((i +
-// 1) U / grid). Block i owns tile i and walks its z-blocks of zb planes with
-// a ring of `ring` = kSlots zb + 2 halo plane rows (`stride` columns apart)
-// in shared memory: plane p lies in row p mod ring. Group g brings what
-// window g (planes [g zb, g zb + zb + 2 halo)) adds to window g - 1, all of
-// window 0, by one 1-D bulk copy a plane, completing on barrier g mod
-// kSlots. Groups 0 .. kSlots - 1 are fetched first, group b + kSlots once
-// window b's centre is stored: with kSlots 2 group b + 1 is in flight while
-// window b's centre is stored, with kSlots 1 nothing is. The centre is
-// scaled in registers and stored evict-first.
-// With `steal`, the owner claims each window before it fetches its group,
-// and a block done with its own tile takes the highest unclaimed window of
-// the tile with most left (its whole window fetched at once), until none
-// is left: the SMs the memory serves faster finish the others' tails.
+// input, P4 16-byte columns a plane. With U = ceil(P4 / kRingUnit), block i
+// owns the columns from kRingUnit floor(i U / grid) to kRingUnit floor((i +
+// 1) U / grid) and walks the z-blocks of zb planes with a ring of `ring` =
+// kSlots zb + 2 halo plane rows (`stride` columns apart) in shared memory:
+// plane p lies in row p mod ring. Group g brings what window g (planes
+// [g zb, g zb + zb + 2 halo)) adds to window g - 1, all of window 0, by one
+// 1-D bulk copy a plane, completing on barrier g mod kSlots. Groups 0 ..
+// kSlots - 1 are fetched first, group b + kSlots once window b's centre is
+// stored: with kSlots 2 group b + 1 is in flight while window b's centre is
+// stored, with kSlots 1 nothing is. The centre is scaled in registers and
+// stored evict-first.
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
     probe_ring_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
                       const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int ring,
-                      int stride, int steal, unsigned epoch) {
+                      int stride) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // kSlots of them
-  int* words = reinterpret_cast<int*>(smem + 32);     // stop, victim tile, window, warp keys
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float4* rows = reinterpret_cast<float4*>(smem + kRingHead);
   const long long units = (P4 + kRingUnit - 1) / kRingUnit;
-  auto tile = [&](int i, int& t0, int& tw) {
-    t0 = min(P4, kRingUnit * (int)((long long)i * units / gridDim.x));
-    tw = min(P4, kRingUnit * (int)((long long)(i + 1) * units / gridDim.x)) - t0;
-  };
-  int t0, tw;
-  tile(blockIdx.x, t0, tw);
+  const int t0 = min(P4, kRingUnit * (int)((long long)blockIdx.x * units / gridDim.x));
+  const int tw =
+      min(P4, kRingUnit * (int)((long long)(blockIdx.x + 1) * units / gridDim.x)) - t0;
   const unsigned row_bytes = 16u * tw;
   const int nblk = (Z + zb - 1) / zb;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long* mine = g_ring_tiles + blockIdx.x;
   auto fetch = [&](int g) {  // warp 0
     const int lo = g == 0 ? 0 : g * zb + 2 * halo;
     const int hi = min((g + 1) * zb, Z) + 2 * halo;
@@ -289,24 +237,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = lo + lane; p < hi; p += 32)
       bulk_load(rows + (size_t)(p % ring) * stride, x + (size_t)p * P4 + t0, row_bytes, b);
   };
-  const int a0 = min(kSlots, nblk);
-  // thread 0's last view of its tile's word, read long before its first claim
-  unsigned long long seen = steal && threadIdx.x == 0 ? __ldcg(mine) : 0;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kSlots; ++i) mbar_init(bar + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    words[0] = nblk;  // the owner's windows end here
   }
   __syncthreads();
-  int stop = nblk;
   if (warp == 0)
-    for (int g = 0; g < a0; ++g) fetch(g);
+    for (int g = 0; g < kSlots && g < nblk; ++g) fetch(g);
   const float f = s_dev ? __ldg(s_dev) : s;
-  for (int b = 0; b < stop; ++b) {
+  for (int b = 0; b < nblk; ++b) {
     mbar_wait(bar + b % kSlots, (b / kSlots) & 1);
-    if (steal && threadIdx.x == 0 && b + kSlots < stop &&
-        claim_window(mine, epoch, nblk, a0, false, seen) < 0)
-      words[0] = b + kSlots;
     const int z0 = b * zb, zl = min(zb, Z - z0);
     for (int k = warp; k < zl; k += kThreads / 32) {
       const float4* row = rows + (size_t)((z0 + halo + k) % ring) * stride;
@@ -314,50 +254,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = lane; i < tw; i += 32) __stcs(dst + i, scale4(f, row[i]));
     }
     __syncthreads();  // window b's rows read: its first zb rows are free
-    stop = words[0];
-    if (warp == 0 && b + kSlots < stop) fetch(b + kSlots);
-  }
-  if (!steal) return;
-  unsigned parity = ((stop + kSlots - 1) / kSlots) & 1;  // bar[0]'s next phase
-  for (;;) {
-    unsigned key = 0;  // (windows left << 16) | tile, of the tile with most left
-    for (int j = threadIdx.x; j < (int)gridDim.x; j += kThreads) {
-      int a, c;
-      tile_state(__ldcg(g_ring_tiles + j), epoch, nblk, a0, a, c);
-      key = max(key, c > a ? ((unsigned)(c - a) << 16) | (unsigned)j : 0u);
-    }
-    for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
-    if (lane == 0) words[3 + warp] = (int)key;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kThreads / 32; ++w) key = max(key, (unsigned)words[3 + w]);
-      const int j = (int)(key & 0xffff);
-      words[1] = key ? j : -1;
-      seen = __ldcg(g_ring_tiles + j);
-      words[2] = key ? claim_window(g_ring_tiles + j, epoch, nblk, a0, true, seen) : -1;
-    }
-    __syncthreads();
-    const int j = words[1], w = words[2];
-    if (j < 0) return;
-    if (w >= 0) {  // window w of tile j, whole
-      int v0, vw;
-      tile(j, v0, vw);
-      const int z0 = w * zb, zl = min(zb, Z - z0), n = zl + 2 * halo;
-      if (warp == 0) {
-        if (lane == 0) mbar_expect_tx(bar, (unsigned)n * 16u * vw);
-        __syncwarp();
-        for (int p = lane; p < n; p += 32)
-          bulk_load(rows + (size_t)p * stride, x + (size_t)(z0 + p) * P4 + v0, 16u * vw, bar);
-      }
-      mbar_wait(bar, parity);
-      parity ^= 1;
-      for (int k = warp; k < zl; k += kThreads / 32) {
-        const float4* row = rows + (size_t)(halo + k) * stride;
-        float4* dst = out + (size_t)(z0 + k) * P4 + v0;
-        for (int i = lane; i < vw; i += 32) __stcs(dst + i, scale4(f, row[i]));
-      }
-    }
-    __syncthreads();  // the rows and words free again
+    if (warp == 0 && b + kSlots < nblk) fetch(b + kSlots);
   }
 }
 
@@ -918,16 +815,10 @@ cudaError_t launch_ring(const float* x, float* out, float s, const float* s_dev,
       units, std::max<long long>(device_sms(), (units + per_tile - 1) / per_tile));
   const int stride = (int)((units + grid - 1) / grid * kRingUnit);
   const int smem = kRingHead + (int)(ring * stride * 16);
-  // steal windows where every tile has a word and a window count fits its field
-  const int steal = grid <= kRingTiles && (Z + zb - 1) / zb <= 0xffff;
-  static std::atomic<unsigned> epochs{0};
-  unsigned epoch = ++epochs;
-  if (epoch == 0) epoch = ++epochs;
   auto launch = [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kernel<<<(unsigned)grid, kThreads, smem, st>>>((const float4*)x, (float4*)out, s, s_dev, Z,
-                                                   (int)P4, zb, halo, (int)ring, stride, steal,
-                                                   epoch);
+                                                   (int)P4, zb, halo, (int)ring, stride);
   };
   if (slots == 1) launch(probe_ring_kernel<1>);
   else launch(probe_ring_kernel<2>);
