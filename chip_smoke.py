@@ -279,7 +279,8 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   and 6, one slot or two, the factor an immediate or in device memory) bit
   for bit against their plain versions on a ragged last z-block, fewer
   planes than a z-block, a window sharing planes with more than one
-  neighbour and a plane of more tiles than one wave, ``probe_block_matmul`` (K3, both sides, with and without
+  neighbour and a plane of more tiles than one wave,
+  ``probe_block_matmul`` (K3, both sides, with and without
   ``trans``) within 1e-5 of the float64 product at "HIGHEST" and within
   1e-6 of its plain version on bf16-rounded inputs at "DEFAULT", on the
   probes' shapes, ragged and unaligned ones and an x-side matrix past
@@ -287,8 +288,7 @@ against its float64 anchor and timing kernels and solves with CUDA events:
   at 256³ plain and on a NCCL group of world size 1, with its launches;
   each kernel's time at 256³ (K2 beside its plane ring's own bytes; K3:
   the x, x-``trans`` and y-``trans`` forms, device and a wrapper call)
-  beside its plain version, its library
-  call (``torch.mul``; ``torch.matmul`` in float32 with TF32 off for
+  beside its plain version, its library call (``torch.mul``; ``torch.matmul`` in float32 with TF32 off for
   "HIGHEST", and for "DEFAULT" at float32 matmul precision "medium" where
   it holds to the plain version, else none) and its bound.
 

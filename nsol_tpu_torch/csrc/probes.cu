@@ -22,7 +22,7 @@
 //     32-bit offsets within its z-block. s is an immediate or read from
 //     device memory. Four columns a thread, 128-thread blocks, plain loads
 //     and stores, and K2's ring at halo 0 were each timed no faster on the
-//     H100 (PERF.md, PR 25).
+//     H100 (PERF.md).
 //
 //   probe_window_scale  for each z-block of zb output planes, its window
 //     of zb + 2 halo planes of a prepadded input resident in shared memory
@@ -51,12 +51,12 @@
 //     Bound: bytes, what the output needs, one read of the centre planes
 //     and one write (256^3: 2 x 67.1 MB / 3.35 TB/s = 0.040 ms, K1's). The
 //     ring's own bytes: (Z + 2 halo) / Z of the volume read, one written
-//     (256^3, halo 6: 2.047 x 67.1 MB = 0.041 ms). What holds it beyond
-//     that is the static split: each SM walks its own tile, and SMs that
-//     the memory serves more slowly finish last (globaltimer stamps: the
-//     blocks' ends spread over 17 us of a 48 us run; PERF.md, PR 25).
-//     Storing through TMA bulk stores, cp.async copies, an evict-first L2
-//     policy on the copies and two or four tiles an SM were each no faster.
+//     (256^3, halo 6: 2.047 x 67.1 MB = 0.041 ms). It runs at ~80 % of
+//     that on the H100; the blocks' ends spread over 17 us of a 48 us run
+//     (globaltimer stamps), yet blocks that took others' unclaimed tail
+//     windows were no faster, nor were TMA bulk stores, cp.async copies,
+//     an evict-first L2 policy on the copies, or two or four tiles an SM
+//     (PERF.md).
 //
 //   probe_block_matmul  out[z] = P[z] m (the x side; P[z] m^T with trans) or
 //     m^T P[z] (the y side; m P[z] with trans) for every (Y, X) plane P[z]
