@@ -275,20 +275,21 @@ against its float64 anchor and timing kernels and solves with CUDA events:
 * phase 49, the shard probes (group ``probes``, ``csrc/probes.cu``,
   ``nsol_tpu_torch/parallel/shard_probe.py``): the counterparts of the 8
   Pallas kernels of ``benchmarks/shard_pallas_diag*.py`` — ``probe_scale``
-  (K1, zb 32, 8 and 4) and ``probe_window_scale`` (K2's plane ring, halo 0
-  and 6, one slot or two, the factor an immediate or in device memory) bit
-  for bit against their plain versions on a ragged last z-block, fewer
-  planes than a z-block, a window sharing planes with more than one
-  neighbour and a plane of more tiles than one wave,
-  ``probe_block_matmul`` (K3, both sides, with and without
+  (K1, zb 32, 8 and 4) and ``probe_window_scale`` (K2, halo 0 and 6, one
+  slot or two, the factor an immediate or in device memory) bit for bit
+  against their plain versions on a ragged last z-block, fewer planes than
+  a z-block, a window sharing planes with more than one neighbour and a
+  plane of more tiles than one wave, ``probe_block_matmul`` (K3, both
+  sides, with and without
   ``trans``) within 1e-5 of the float64 product at "HIGHEST" and within
   1e-6 of its plain version on bf16-rounded inputs at "DEFAULT", on the
   probes' shapes, ragged and unaligned ones and an x-side matrix past
   "DEFAULT"'s resident budget; the wrappers' refusals; every variant d1-i3
   at 256³ plain and on a NCCL group of world size 1, with its launches;
-  each kernel's time at 256³ (K2 beside its plane ring's own bytes; K3:
-  the x, x-``trans`` and y-``trans`` forms, device and a wrapper call)
-  beside its plain version, its library call (``torch.mul``; ``torch.matmul`` in float32 with TF32 off for
+  each kernel's time at 256³ (K2 beside its windows' own bytes; K3: the
+  x, x-``trans`` and y-``trans`` forms, device and a wrapper call) beside
+  its plain version, its library call (``torch.mul``; ``torch.matmul`` in
+  float32 with TF32 off for
   "HIGHEST", and for "DEFAULT" at float32 matmul precision "medium" where
   it holds to the plain version, else none) and its bound.
 
@@ -10602,7 +10603,7 @@ PROBE_MATMUL_TOL = {"HIGHEST": 1e-5, "DEFAULT": 1e-6}
 #: then carry rounding of the gate's order (the kernel's distance to them
 #: reached 1.03e-6 on a 2 × 520 × 136 y-trans case)
 PROBE_PLAIN_MAX_K = 384
-PROBE_KERNELS = ("probe_scale_kernel", "probe_ring_kernel",
+PROBE_KERNELS = ("probe_scale_kernel", "probe_window_kernel",
                  "probe_sgemm_kernel", "probe_mma_stream_kernel")
 
 
@@ -10812,15 +10813,13 @@ def run_probe_phase(device, card):
             lambda: SP.probe_window_scale_plain(ext, SP.SCALE, SP.R),
             lambda: torch.mul(ext.narrow(0, SP.R, SCALE_SHAPE[0]), SP.SCALE),
             unit_bound("probe_window_scale", n))}
-    # K2's own traffic beside its bound: its plane ring reads each of the
-    # Z + 2R planes once
-    z = SCALE_SHAPE[0]
-    ring_ms, _ = unit_bound("probe_window_scale", n,
-                            reads=(z + 2 * SP.R) / z)
-    print("phase 49 probe_window_scale 256^3: its plane ring's bytes (%d "
-          "planes read, %d written) at the memory rate %.4f ms | %s"
-          % (z + 2 * SP.R, z, ring_ms, card))
-    extra = {"probe_window_scale": {"ring_bytes_ms": ring_ms}}
+    # K2's own traffic beside its bound: each window of ZB + 2R planes read
+    dma_ms, _ = unit_bound("probe_window_scale", n,
+                           reads=(SP.ZB + 2 * SP.R) / SP.ZB)
+    print("phase 49 probe_window_scale 256^3: its windows' bytes (%d planes "
+          "a %d-plane block) at the memory rate %.4f ms | %s"
+          % (SP.ZB + 2 * SP.R, SP.ZB, dma_ms, card))
+    extra = {"probe_window_scale": {"window_bytes_ms": dma_ms}}
     entries = []
     for name, (kern, plain, lib, (b_ms, b_by)) in forms.items():
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 10)

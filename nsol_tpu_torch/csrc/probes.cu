@@ -11,22 +11,19 @@
 //     (:89 -> :93): the BlockSpec-pipelined "trivial" kernels.
 //     Bound: bytes, one read and one write of the volume (256^3 f32:
 //     2 x 67.1 MB / 3.35 TB/s = 0.040 ms). What holds such a stream below
-//     it is the loads in flight and how evenly the SMs share the memory.
-//     So the blocks are launched from the work, as PyTorch's elementwise
-//     kernels are (no grid-stride loop, whose last trip half the threads
-//     take alone): blockIdx.y is the z-block, blockIdx.x a part of 512
-//     16-byte columns of it, and the hardware hands the next part to
-//     whichever SM frees up. A thread takes two columns 256 apart (a warp
-//     covers 512 contiguous bytes each time), issues both loads before its
-//     first store, evict-first (__ldcs/__stcs: neither is read again), with
-//     32-bit offsets within its z-block. s is an immediate or read from
-//     device memory. Four columns a thread, 128-thread blocks, plain loads
-//     and stores, and K2's ring at halo 0 were each timed no faster on the
-//     H100 (PERF.md).
+//     it is how evenly the SMs share the memory to the end. So the blocks
+//     are launched from the work, as PyTorch's elementwise kernels are (no
+//     grid-stride loop, whose last trip some threads take alone):
+//     blockIdx.y is the z-block, blockIdx.x a part of 256 16-byte columns
+//     of it, one a thread, and the hardware hands the next part to
+//     whichever SM frees up. s is an immediate or read from device memory.
+//     Two or four columns a thread with all loads first, evict-first loads
+//     and stores, and the plane ring below at halo 0 were timed no faster
+//     on the H100 (PERF.md).
 //
 //   probe_window_scale  for each z-block of zb output planes, its window
-//     of zb + 2 halo planes of a prepadded input resident in shared memory
-//     when the centre planes are written scaled
+//     of zb + 2 halo planes of a prepadded input copied into shared memory,
+//     then the centre planes written scaled
 //     replaces shard_pallas_diag4.py::dma_kernel (:46 -> :67; halo 0, the
 //     factor an immediate or, as its SMEM input, read from device memory),
 //     shard_pallas_diag5.py::main.body (:68 -> :76; halo 6, one slot) and
@@ -34,29 +31,19 @@
 //     one slot or two, its two semaphores).
 //     The TPU held a whole (44, 256, 256) window in VMEM (11.5 MB); a block
 //     here has at most 227 KB of shared memory. So each block owns a tile of
-//     the (Y, X) plane's 16-byte columns in whole 128-byte lines (tiles
-//     one line apart in width; tiles cut at 16, 32 or 64 bytes ran 2-7 %
-//     slower), one tile an SM where the ring holds it, and walks the
-//     z-blocks through a ring of PLANES: plane p of the tile in row p mod
-//     ring, so the planes window b shares with window b + 1 stay and each
-//     plane of x_ext is copied once a tile. One thread issues one 1-D TMA
-//     bulk copy (cp.async.bulk, no tensor map: a tile's row of a plane is
-//     contiguous) a plane row, completing on an mbarrier a group: group g
-//     holds the zb planes window g adds (window 0 all of its own). "Two
-//     slots" is a ring of 2 zb + 2 halo planes with window b + 1's group in
-//     flight while window b's centre is stored; "one slot" is zb + 2 halo
-//     planes, the next group fetched after the store, nothing overlapped.
-//     The centre is scaled in registers and stored evict-first, a warp a
-//     plane row (no division an element).
+//     T4 16-byte columns of the (Y, X) plane and walks the z-blocks: it
+//     copies the window's tile with cp.async (16 bytes a copy) into a ring
+//     of one or two slots, and with two the next window's copy is in flight
+//     while this one's centre is stored. The tile is as wide as spreads the
+//     plane over one wave of blocks (one a SM), at most what the ring's
+//     slots hold in 227 KB.
 //     Bound: bytes, what the output needs, one read of the centre planes
 //     and one write (256^3: 2 x 67.1 MB / 3.35 TB/s = 0.040 ms, K1's). The
-//     ring's own bytes: (Z + 2 halo) / Z of the volume read, one written
-//     (256^3, halo 6: 2.047 x 67.1 MB = 0.041 ms). It runs at ~80 % of
-//     that on the H100; the blocks' ends spread over 17 us of a 48 us run
-//     (globaltimer stamps), yet blocks that took others' unclaimed tail
-//     windows were no faster, nor were TMA bulk stores, cp.async copies,
-//     an evict-first L2 policy on the copies, or two or four tiles an SM
-//     (PERF.md).
+//     kernel itself reads every window, (zb + 2 halo) / zb of the volume
+//     (zb 32, halo 6: 2.375 x 67.1 MB = 0.048 ms at the memory rate); the
+//     halo re-reads come from L2, not DRAM. A ring of planes, each copied
+//     once a tile by a TMA bulk copy, was timed slower on the H100 at halo
+//     0 and with two slots, and tied with one (PERF.md).
 //
 //   probe_block_matmul  out[z] = P[z] m (the x side; P[z] m^T with trans) or
 //     m^T P[z] (the y side; m P[z] with trans) for every (Y, X) plane P[z]
@@ -104,12 +91,12 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 #include <algorithm>
-#include <climits>
 
 #include "common.cuh"
 
@@ -128,133 +115,61 @@ __device__ __forceinline__ float4 scale4(float f, float4 v) {
   return v;
 }
 
-// 16-byte columns a thread of K1
-constexpr int kScaleU = 2;
-
 // out = f x, f = *s_dev where given, else s. blockIdx.y is the z-block of
 // block4 16-byte columns (the last may be shorter), blockIdx.x its part of
-// kThreads kScaleU columns: thread t takes columns t and t + kThreads of it,
-// both loads before the first store, evict-first. Offsets within a z-block
-// are 32-bit.
+// kThreads columns, one a thread.
 __global__ void __launch_bounds__(kThreads)
     probe_scale_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
-                       const float* __restrict__ s_dev, int block4, long long total4) {
+                       const float* __restrict__ s_dev, long long block4, long long total4) {
   const long long base = (long long)blockIdx.y * block4;
-  const int len = (int)min((long long)block4, total4 - base);
-  const int first = blockIdx.x * (kThreads * kScaleU);
-  if (first >= len) return;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= min(block4, total4 - base)) return;
   const float f = s_dev ? __ldg(s_dev) : s;
-  const float4* src = x + base + first + threadIdx.x;
-  float4* dst = out + base + first + threadIdx.x;
-  const int left = len - first - (int)threadIdx.x;  // columns from this thread's first
-  float4 v[kScaleU];
-#pragma unroll
-  for (int u = 0; u < kScaleU; ++u)
-    if (u * kThreads < left) v[u] = __ldcs(src + u * kThreads);
-#pragma unroll
-  for (int u = 0; u < kScaleU; ++u)
-    if (u * kThreads < left) __stcs(dst + u * kThreads, scale4(f, v[u]));
+  out[base + i] = scale4(f, x[base + i]);
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// the one arrival of the barrier's phase, and the bytes its copies bring
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
-// to shared dst by the TMA, completing their bytes on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Bytes before the ring rows: the mbarriers, 128-byte aligned rows.
-constexpr int kRingHead = 128;
-// K2's tiles are whole 128-byte lines (8 columns) of the plane
-constexpr int kRingUnit = 8;
 
 // out[z] = f x_ext[z + halo] for the Z output planes of a (Z + 2 halo)-plane
-// input, P4 16-byte columns a plane. With U = ceil(P4 / kRingUnit), block i
-// owns the columns from kRingUnit floor(i U / grid) to kRingUnit floor((i +
-// 1) U / grid) and walks the z-blocks of zb planes with a ring of `ring` =
-// kSlots zb + 2 halo plane rows (`stride` columns apart) in shared memory:
-// plane p lies in row p mod ring. Group g brings what window g (planes
-// [g zb, g zb + zb + 2 halo)) adds to window g - 1, all of window 0, by one
-// 1-D bulk copy a plane, completing on barrier g mod kSlots. Groups 0 ..
-// kSlots - 1 are fetched first, group b + kSlots once window b's centre is
-// stored: with kSlots 2 group b + 1 is in flight while window b's centre is
-// stored, with kSlots 1 nothing is. The centre is scaled in registers and
-// stored evict-first.
+// input, P4 16-byte columns a plane. The block owns columns t0 .. t0 + T4 - 1
+// and walks the z-blocks; kSlots 2 copies window b + 1 while storing b.
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
-    probe_ring_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
-                      const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int ring,
-                      int stride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float4* rows = reinterpret_cast<float4*>(smem + kRingHead);
-  const long long units = (P4 + kRingUnit - 1) / kRingUnit;
-  const int t0 = min(P4, kRingUnit * (int)((long long)blockIdx.x * units / gridDim.x));
-  const int tw =
-      min(P4, kRingUnit * (int)((long long)(blockIdx.x + 1) * units / gridDim.x)) - t0;
-  const unsigned row_bytes = 16u * tw;
-  const int nblk = (Z + zb - 1) / zb;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto fetch = [&](int g) {  // warp 0
-    const int lo = g == 0 ? 0 : g * zb + 2 * halo;
-    const int hi = min((g + 1) * zb, Z) + 2 * halo;
-    uint64_t* b = bar + g % kSlots;
-    if (lane == 0) mbar_expect_tx(b, (unsigned)(hi - lo) * row_bytes);
-    __syncwarp();
-    for (int p = lo + lane; p < hi; p += 32)
-      bulk_load(rows + (size_t)(p % ring) * stride, x + (size_t)p * P4 + t0, row_bytes, b);
-  };
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kSlots; ++i) mbar_init(bar + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (warp == 0)
-    for (int g = 0; g < kSlots && g < nblk; ++g) fetch(g);
+    probe_window_kernel(const float4* __restrict__ x, float4* __restrict__ out, float s,
+                        const float* __restrict__ s_dev, int Z, int P4, int zb, int halo, int T4) {
+  extern __shared__ float4 ring[];  // kSlots x (zb + 2 halo) x T4
   const float f = s_dev ? __ldg(s_dev) : s;
-  for (int b = 0; b < nblk; ++b) {
-    mbar_wait(bar + b % kSlots, (b / kSlots) & 1);
-    const int z0 = b * zb, zl = min(zb, Z - z0);
-    for (int k = warp; k < zl; k += kThreads / 32) {
-      const float4* row = rows + (size_t)((z0 + halo + k) % ring) * stride;
-      float4* dst = out + (size_t)(z0 + k) * P4 + t0;
-      for (int i = lane; i < tw; i += 32) __stcs(dst + i, scale4(f, row[i]));
+  const int t0 = blockIdx.x * T4, tw = min(T4, P4 - t0);
+  const int span = zb + 2 * halo, nblk = (Z + zb - 1) / zb;
+  auto fetch = [&](int b, int slot) {
+    const int planes = min(zb, Z - b * zb) + 2 * halo;
+    float4* dst = ring + (size_t)slot * span * T4;
+    const float4* src = x + (size_t)b * zb * P4 + t0;
+    for (int e = threadIdx.x; e < planes * tw; e += blockDim.x) {
+      const int j = e / tw, i = e - j * tw;
+      __pipeline_memcpy_async(dst + j * T4 + i, src + (size_t)j * P4 + i, 16);
     }
-    __syncthreads();  // window b's rows read: its first zb rows are free
-    if (warp == 0 && b + kSlots < nblk) fetch(b + kSlots);
+    __pipeline_commit();
+  };
+  if (kSlots == 2) fetch(0, 0);
+  for (int b = 0; b < nblk; ++b) {
+    const int slot = kSlots == 2 ? (b & 1) : 0;
+    if (kSlots == 1) {
+      fetch(b, 0);
+      __pipeline_wait_prior(0);
+    } else if (b + 1 < nblk) {
+      fetch(b + 1, slot ^ 1);  // read last at b - 1, before its closing barrier
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const float4* win = ring + ((size_t)slot * span + halo) * T4;
+    float4* dst = out + (size_t)b * zb * P4 + t0;
+    const int zl = min(zb, Z - b * zb);
+    for (int e = threadIdx.x; e < zl * tw; e += blockDim.x) {
+      const int k = e / tw, i = e - k * tw;
+      dst[(size_t)k * P4 + i] = scale4(f, win[k * T4 + i]);
+    }
+    __syncthreads();
   }
 }
 
@@ -801,30 +716,6 @@ __global__ void __cluster_dims__(kMmCluster, 1, 1) __launch_bounds__(kThreads, 1
     }
 }
 
-// K2's plane ring of `slots` (1 or 2) windows' new planes; cudaErrorInvalidValue
-// where a ring of 32 columns does not fit a block's shared memory
-cudaError_t launch_ring(const float* x, float* out, float s, const float* s_dev, int Z,
-                        long long P4, int zb, int halo, int slots, cudaStream_t st) {
-  const long long ring = (long long)slots * zb + 2LL * halo;
-  const long long max_stride = (kMaxSmem - kRingHead) / (ring * 16) / kRingUnit * kRingUnit;
-  if (max_stride < 32) return cudaErrorInvalidValue;
-  // a tile an SM where the ring holds it, else as many as it takes; tiles
-  // differ by at most one unit, rows lie whole 128-byte lines apart
-  const long long units = (P4 + kRingUnit - 1) / kRingUnit, per_tile = max_stride / kRingUnit;
-  const long long grid = std::min<long long>(
-      units, std::max<long long>(device_sms(), (units + per_tile - 1) / per_tile));
-  const int stride = (int)((units + grid - 1) / grid * kRingUnit);
-  const int smem = kRingHead + (int)(ring * stride * 16);
-  auto launch = [&](auto kernel) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kernel<<<(unsigned)grid, kThreads, smem, st>>>((const float4*)x, (float4*)out, s, s_dev, Z,
-                                                   (int)P4, zb, halo, (int)ring, stride);
-  };
-  if (slots == 1) launch(probe_ring_kernel<1>);
-  else launch(probe_ring_kernel<2>);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // ------------------------------------------------------------ C interface --
@@ -843,27 +734,43 @@ int nsol_probe_scale(const float* x, float* out, float s, const float* s_dev, in
   if (Z < 1 || zb < 1 || P4 < 1) return (int)cudaErrorInvalidValue;
   const int nblk = (Z + zb - 1) / zb;
   const long long block4 = (long long)std::min(zb, Z) * P4;
-  const int per = kThreads * kScaleU;
-  if (nblk > 65535 || block4 > INT_MAX - per) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((block4 + per - 1) / per), nblk);
+  const dim3 grid((unsigned)((block4 + kThreads - 1) / kThreads), nblk);
   probe_scale_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (float4*)out, s, s_dev, (int)block4, (long long)Z * P4);
+      (const float4*)x, (float4*)out, s, s_dev, block4, (long long)Z * P4);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) counts[kScale] += 1;
   return (int)err;
 }
 
 // out (Z, Y, X) = s x_ext[halo : halo + Z] of x_ext (Z + 2 halo, Y, X),
-// window by window (zb + 2 halo planes), through a plane ring of `slots`
-// (1 or 2) windows' new planes.
+// window by window (zb + 2 halo planes), through a ring of `slots` (1 or 2).
 int nsol_probe_window_scale(const float* x_ext, float* out, float s, const float* s_dev, int Z,
                             int Y, int X, int zb, int halo, int slots, void* stream,
                             long long* counts) {
   const long long P4 = (long long)Y * X / 4;
   if (Z < 1 || zb < 1 || halo < 0 || P4 < 1 || P4 > (1LL << 30) || (slots != 1 && slots != 2))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      launch_ring(x_ext, out, s, s_dev, Z, P4, zb, halo, slots, (cudaStream_t)stream);
+  const long long slot_col = (long long)(zb + 2 * halo) * sizeof(float4);  // a column of a slot
+  const int max_t4 = (int)(kMaxSmem / (slots * slot_col)) / 32 * 32;
+  if (max_t4 < 32) return (int)cudaErrorInvalidValue;
+  const int sms = device_sms();
+  int t4 = (int)((P4 + sms - 1) / sms + 31) / 32 * 32;
+  t4 = std::min(t4, max_t4);
+  const int grid = (int)((P4 + t4 - 1) / t4);
+  const int smem = (int)(slots * slot_col * t4);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slots == 1) {
+    cudaFuncSetAttribute(probe_window_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    probe_window_kernel<1><<<grid, kThreads, smem, st>>>(
+        (const float4*)x_ext, (float4*)out, s, s_dev, Z, (int)P4, zb, halo, t4);
+  } else {
+    cudaFuncSetAttribute(probe_window_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    probe_window_kernel<2><<<grid, kThreads, smem, st>>>(
+        (const float4*)x_ext, (float4*)out, s, s_dev, Z, (int)P4, zb, halo, t4);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) counts[kWindow] += 1;
   return (int)err;
 }

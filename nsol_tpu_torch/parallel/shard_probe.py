@@ -26,10 +26,9 @@ does (:func:`launch_counts`); on a CPU tensor it runs its plain version
   number or a float32 on the device (``diag.py:68``, ``diag2.py:45``,
   ``diag3.py:48``, ``diag4.py:89``);
 * :func:`probe_window_scale` — each z-block's window of ``zb + 2·halo``
-  planes of a prepadded volume resident in shared memory, its centre
-  written scaled; the planes come through a ring that holds one or two
-  windows' new planes, each plane of the volume copied once a tile
-  (``diag4.py:46``, ``diag5.py:68``, ``diag6.py:48``);
+  planes of a prepadded volume copied into shared memory in a ring of one or
+  two slots, its centre written scaled (``diag4.py:46``, ``diag5.py:68``,
+  ``diag6.py:48``);
 * :func:`probe_block_matmul` — a product of every (Y, X) plane with a
   matrix, on the x side (``P·m``) or the y side (``mᵀ·P``; ``trans`` for
   ``P·mᵀ`` and ``m·P``), at ``"HIGHEST"`` (float32 sums) or ``"DEFAULT"``
@@ -171,9 +170,8 @@ def probe_scale(x, s, zb=ZB):
 def probe_window_scale(x_ext, s, zb=ZB, halo=R, slots=1):
     """``s·x_ext[halo : Z + halo]`` of a ``(Z + 2·halo, Y, X)`` volume (at
     ``halo`` 0 an unpadded one): each z-block's window of ``zb + 2·halo``
-    planes resident in shared memory when its centre is stored, the planes
-    copied once through a ring of ``slots`` (1 or 2) windows' new planes
-    (``csrc/probes.cu``)."""
+    planes copied into shared memory through a ring of ``slots`` (1 or 2),
+    then its centre stored (``csrc/probes.cu``)."""
     z = x_ext.shape[0] - 2 * int(halo) if x_ext.dim() == 3 else 0
     if halo < 0 or z < 1 or zb < 1 or slots not in (1, 2):
         raise ValueError("probe_window_scale: %s planes, halo %s, zb %s, "

@@ -363,23 +363,14 @@ def test_chip_smoke_probe_kernels_are_the_source_s():
 
 
 def test_chip_smoke_stream_shapes_reach_the_ring_edges():
-    """Phase 49 holds K1 and K2 to their plain versions where K2's plane
-    ring turns: a z-block narrower than the two halos (a window sharing
-    planes with more than one neighbour), a volume of fewer planes than a
-    z-block, a ragged last z-block, and a plane of more 16-byte columns
-    than one wave of the widest two-slot ring's tiles holds (a ring of
-    2·zb + 2·halo planes in 227 KB, tiles of whole 128-byte lines, one an
-    SM of the H100's 132)."""
+    """Phase 49 holds K1 and K2 to their plain versions where K2's ring of
+    windows turns: zb 4 (2·halo > zb, a window sharing planes with more
+    than one neighbour), (5, 24, 40) (fewer planes than a z-block of 8) and
+    (3, 512, 512) (65536 16-byte columns a plane: K2's tiles in more than
+    one wave)."""
     cs = _load("chip_smoke", "chip_smoke.py")
-    zbs = cs.PROBE_STREAM_ZB
-    assert {32, 8} <= set(zbs) and any(2 * SP.R > zb for zb in zbs)
-    planes = [shape[0] for shape in cs.PROBE_STREAM_SHAPES]
-    assert any(z < min(zb for zb in zbs if zb >= 8) for z in planes)
-    assert any(z % zb for z in planes for zb in zbs if z > zb)
-    ring = 2 * max(zbs) + 2 * SP.R
-    widest = (232448 - 128) // (ring * 16) // 8 * 8
-    assert any(shape[1] * shape[2] // 4 > 132 * widest
-               for shape in cs.PROBE_STREAM_SHAPES)
+    assert set(cs.PROBE_STREAM_ZB) == {32, 8, 4}
+    assert {(5, 24, 40), (3, 512, 512)} <= set(cs.PROBE_STREAM_SHAPES)
 
 
 def test_cli_raises_without_a_gpu():

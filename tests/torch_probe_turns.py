@@ -31,9 +31,8 @@ tree unpacked inside the checkout (``build/`` is ignored by git)::
     mkdir -p build/earlier && git archive <commit> | tar -x -C build/earlier
     python3 tests/torch_probe_turns.py --earlier build/earlier
 
-Without ``--earlier`` it checks and times this tree alone; ``--only
-streams`` or ``--only matmul`` takes one family. It prints the card's name
-and power limit, a line a check and a turn, and last one JSON object of the
+Without ``--earlier`` it checks and times this tree alone. It prints the
+card's name and power limit, a line a check and a turn, and last one JSON object of the
 numbers; it exits 1 where a check misses. It imports torch and numpy, the
 port's build flags and plain versions, and ``chip_smoke.py``'s timers.
 """
@@ -60,9 +59,9 @@ from nsol_tpu_torch.parallel.shard_probe import (  # noqa: E402
 
 FORMS = (("x", False), ("x", True), ("y", False), ("y", True))
 #: the probe kernels of this tree and of earlier ones
-KERNELS = ("probe_scale_kernel", "probe_window_kernel", "probe_ring_kernel",
-           "probe_gemm_f32_kernel", "probe_gemm_bf16_kernel",
-           "probe_sgemm_kernel", "probe_mma_stream_kernel")
+KERNELS = ("probe_scale_kernel", "probe_window_kernel", "probe_gemm_f32_kernel",
+           "probe_gemm_bf16_kernel", "probe_sgemm_kernel",
+           "probe_mma_stream_kernel")
 #: back-to-back calls a call's time is the mean of
 REPS = 200
 #: the timed stream forms: (label, kernel, shape, zb, halo, slots)
@@ -357,8 +356,6 @@ def matmul_turns(fns, earlier, rng, device):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--earlier", help="an earlier tree's root")
-    parser.add_argument("--only", choices=("streams", "matmul"),
-                        help="one family of kernels")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("torch sees no CUDA device")
@@ -378,22 +375,17 @@ def main(argv=None):
             print("ptxas %s tree:\n%s" % (tag, "\n".join(report)))
         fns, earlier = libs["this"], libs.get("earlier")
         rng = np.random.RandomState(25)
-        if args.only in (None, "streams"):
-            off, differ, n = stream_checks(fns, earlier, rng, device)
-            failed += off
-            result.update(stream_cases=n, stream_differ=differ,
-                          stream_turns=stream_turns(fns, earlier, rng,
-                                                    device))
-        if args.only in (None, "matmul"):
-            worst, off = matmul_checks(fns, rng, device)
-            failed += off
-            same = matmul_bits(fns, earlier, rng, device) if earlier \
-                else None
-            if same is not None:
-                print("K3 bits against the earlier tree: %s" % same)
-            result.update(worst_rel=worst, same_bits=same,
-                          matmul_turns=matmul_turns(fns, earlier, rng,
-                                                    device))
+        off, differ, n = stream_checks(fns, earlier, rng, device)
+        failed += off
+        result.update(stream_cases=n, stream_differ=differ,
+                      stream_turns=stream_turns(fns, earlier, rng, device))
+        worst, off = matmul_checks(fns, rng, device)
+        failed += off
+        same = matmul_bits(fns, earlier, rng, device) if earlier else None
+        if same is not None:
+            print("K3 bits against the earlier tree: %s" % same)
+        result.update(worst_rel=worst, same_bits=same,
+                      matmul_turns=matmul_turns(fns, earlier, rng, device))
     result["failed"] = failed
     print(json.dumps(result))
     return 1 if failed else 0
